@@ -1,0 +1,95 @@
+"""PyTorch port: import isolation and device dispatch.
+
+The port must run where JAX is absent (the GPU machine has none), so it may
+import neither `jax`, `flax` nor `yolou_tpu`. Its CUDA wrappers must import
+without nvcc or triton, run their plain versions on CPU tensors without
+counting a launch, and `chip_smoke.py` must fail without a GPU.
+"""
+
+import os
+import pathlib
+import re
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from yolou_tpu_torch import kernels
+from yolou_tpu_torch.kernels import build
+from yolou_tpu_torch.kernels.attention import area_attention_qkv_fused
+from yolou_tpu_torch.kernels.nms import suppress_greedy
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PKG = REPO / "yolou_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "yolou_tpu")
+
+
+def _run(code_or_args, cwd, timeout=120):
+    args = ([sys.executable, "-c", code_or_args]
+            if isinstance(code_or_args, str) else code_or_args)
+    return subprocess.run(args, cwd=cwd, capture_output=True, text=True,
+                          timeout=timeout)
+
+
+def test_every_submodule_imports_without_jax_flax_or_yolou_tpu():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import yolou_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "'yolou_tpu_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "from yolou_tpu_torch.kernels import build\n"
+        "assert build._lib is None, 'kernel library loaded at import'\n"
+        "print(len(names), bad)\n")
+    res = _run(code, REPO)
+    assert res.returncode == 0, res.stderr
+    n, _, bad = res.stdout.strip().partition(" ")
+    assert int(n) >= 20 and bad == "[]", res.stdout
+
+
+def test_sources_name_no_jax_module():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|yolou_tpu)\b",
+                     re.M)
+    offenders = [str(p.relative_to(REPO)) for p in PKG.rglob("*.py")
+                 if pat.search(p.read_text())]
+    assert offenders == []
+    assert sorted(p.name for p in (PKG / "csrc").glob("*.cu")) == [
+        "band_attention.cu", "greedy_nms.cu"]
+
+
+def test_cpu_tensors_take_the_plain_versions_without_counting():
+    kernels.reset_launch_counts()
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(2, 9, 64)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(64, 192)).astype(np.float32))
+    b = torch.zeros(192)
+    o, v = area_attention_qkv_fused(x, w, b, 2)
+    assert o.device.type == "cpu" and o.shape == v.shape == x.shape
+    boxes = torch.tensor([[[0, 0, 10, 10], [1, 1, 11, 11], [20, 20, 30, 30]]],
+                         dtype=torch.float32)
+    keep = suppress_greedy(boxes, torch.ones(1, 3, dtype=torch.bool), 0.45)
+    assert keep.tolist() == [[True, False, True]]
+    assert kernels.launch_counts() == {"band_attention": 0, "greedy_nms": 0}
+    assert build._lib is None
+
+
+def test_kernel_build_is_keyed_by_sources():
+    path = build.library_path()
+    assert path.parent == PKG / "_build"
+    assert re.fullmatch(r"libyolou_kernels_[0-9a-f]{16}\.so", path.name)
+    assert path == build.library_path()
+
+
+def test_chip_smoke_fails_without_a_gpu(tmp_path):
+    res = _run([sys.executable, "chip_smoke.py"], REPO, timeout=300)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
+    # alone in a directory, without the package beside it
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    res = _run([sys.executable, "chip_smoke.py"], tmp_path, timeout=300)
+    assert res.returncode != 0
+    assert '"ok": true' not in res.stdout
+    assert os.listdir(tmp_path) == ["chip_smoke.py"]

@@ -1,0 +1,283 @@
+// Kernel A: folded qkv projection + multi-head band softmax attention.
+//
+// Replaces yolou_tpu/ops/pallas_attn.py::area_attention_qkv_fused (Pallas
+// body _qkv_attn_kernel). For every band g and head h:
+//   qkv = x[g] . w[:, role*C + h*32 + d] + b   (f32 accumulate, rounded to T)
+//   o[g, :, h*32 + d] = softmax(q k^T / sqrt(32)) v      (f32 softmax)
+// and the value projection v is written out too (it feeds the dw7x7 conv).
+//
+// What bounds it on the H100: at YOLOv12n's shapes (N = 400 tokens, C = 64
+// or 128, 2-4 heads) the work is small — about 2*N*C*96 + 4*N*N*32 flop per
+// (band, head), 21 MFLOP at N = 400, C = 64 — and there are few (band, head)
+// pairs (64 for layer 6 at batch 8, 32 for layer 8), so the kernel is bound
+// by latency and by how many SMs it keeps busy, not by HBM bytes (x is read
+// once, o and v written once) or by tensor-core rate.
+//
+// Design (simple and exact first; wgmma/TMA tiling is later work):
+//  * one thread-block cluster per (head, band), of S CTAs (S <= 8, about two
+//    CTAs per SM over the grid); CTA z owns the token slice
+//    [z*R, (z+1)*R): it projects q, k and v for those tokens only, then the
+//    CTAs of the cluster copy each other's k and v slices through
+//    distributed shared memory, so every CTA holds k and v for all N tokens
+//    and q for its own rows — q, k, v never touch HBM, which is the point of
+//    the fused TPU kernel, and no projection is computed twice;
+//  * projection: one warp per 4 tokens, lane d computes q/k/v channel d (each
+//    weight read from shared memory serves the 4 tokens), x is read
+//    coalesced and broadcast with shuffles;
+//  * attention: one warp per pair of query rows (each key and value read
+//    from shared memory serves both), online softmax over key tiles of 32
+//    (lane j scores key j of the tile against K^T, conflict-free); the
+//    ragged last tile is masked, so any N >= 1 works (N = 25 at 160^2);
+//  * probabilities stay f32 into the P.V product (the TPU kernel rounds the
+//    unnormalised exp to bf16 first; both are the same function within
+//    bf16 rounding).
+// Shared memory per CTA: sizeof(T) * (96*C + 32*R + 64*ceil32(N)) bytes for
+// R query rows; the wrapper refuses a band whose bound (R = N) passes the
+// 227 KB a block may use.
+
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int HD = 32;        // head dim (YOLOv12 heads are 32 wide)
+constexpr int WARPS = 8;
+constexpr int TOK = 4;        // tokens per warp in the projection
+constexpr int MAX_CLUSTER = 8;  // portable thread-block cluster size
+constexpr unsigned FULL = 0xffffffffu;
+
+template <typename T> __device__ __forceinline__ float to_f(T v);
+template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(WARPS * 32)
+band_attention_qkv_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                          const float* __restrict__ bias, T* __restrict__ o,
+                          T* __restrict__ v_out, int N, int C, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int h = blockIdx.x, g = blockIdx.y;
+  const int S = gridDim.z, rank = (int)cluster.block_rank();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int Np = (N + 31) & ~31;
+  const int R = (N + S - 1) / S;            // tokens (and query rows) per CTA
+  const int q0 = rank * R, q1 = min(N, q0 + R);
+  T* Ws = reinterpret_cast<T*>(smem_raw);   // [C][3*HD]: q | k | v columns
+  T* Qs = Ws + C * 3 * HD;                  // [R][HD]: this slice's queries
+  T* Kt = Qs + R * HD;                      // [HD][Np]  (keys transposed)
+  T* Vs = Kt + HD * Np;                     // [Np][HD]
+
+  for (int i = threadIdx.x; i < C * 3 * HD; i += blockDim.x) {
+    const int c = i / (3 * HD), j = i % (3 * HD);
+    Ws[i] = w[(size_t)c * 3 * C + (j / HD) * C + h * HD + (j % HD)];
+  }
+  for (int i = threadIdx.x; i < (Np - N) * HD; i += blockDim.x) {
+    const int m = N + i / HD, d = i % HD;   // padded keys: finite, masked later
+    Kt[d * Np + m] = from_f<T>(0.f);
+    Vs[m * HD + d] = from_f<T>(0.f);
+  }
+  __syncthreads();
+
+  // --- projection of this CTA's tokens: warp per TOK tokens, lane = d -----
+  const T* xg = x + (size_t)g * N * C;
+  const float bq = bias[h * HD + lane];
+  const float bk = bias[C + h * HD + lane];
+  const float bv = bias[2 * C + h * HD + lane];
+  for (int n0 = q0 + warp * TOK; n0 < q1; n0 += WARPS * TOK) {
+    float aq[TOK], ak[TOK], av[TOK];
+#pragma unroll
+    for (int t = 0; t < TOK; ++t) aq[t] = ak[t] = av[t] = 0.f;
+    for (int c0 = 0; c0 < C; c0 += 32) {   // C is a multiple of 32
+      float xl[TOK];
+#pragma unroll
+      for (int t = 0; t < TOK; ++t)
+        xl[t] = n0 + t < q1 ? to_f(xg[(size_t)(n0 + t) * C + c0 + lane]) : 0.f;
+      for (int cc = 0; cc < 32; ++cc) {
+        const T* wr = Ws + (c0 + cc) * 3 * HD;
+        const float wq = to_f(wr[lane]), wk = to_f(wr[HD + lane]);
+        const float wv = to_f(wr[2 * HD + lane]);
+#pragma unroll
+        for (int t = 0; t < TOK; ++t) {
+          const float xc = __shfl_sync(FULL, xl[t], cc);
+          aq[t] = fmaf(xc, wq, aq[t]);
+          ak[t] = fmaf(xc, wk, ak[t]);
+          av[t] = fmaf(xc, wv, av[t]);
+        }
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < TOK; ++t) {
+      const int n = n0 + t;
+      if (n >= q1) break;                   // warp-uniform
+      const T v = from_f<T>(av[t] + bv);
+      Kt[lane * Np + n] = from_f<T>(ak[t] + bk);
+      Vs[n * HD + lane] = v;
+      Qs[(n - q0) * HD + lane] = from_f<T>(aq[t] + bq);
+      v_out[((size_t)g * N + n) * C + h * HD + lane] = v;
+    }
+  }
+
+  // --- gather the other CTAs' k and v slices (distributed shared memory) --
+  cluster.sync();                           // every slice projected
+  for (int r = 0; r < S; ++r) {
+    if (r == rank) continue;
+    const int m0 = r * R, m1 = min(N, m0 + R), len = m1 - m0;
+    if (len <= 0) continue;
+    const T* rK = cluster.map_shared_rank(Kt, r);
+    const T* rV = cluster.map_shared_rank(Vs, r);
+    for (int i = threadIdx.x; i < len * HD; i += blockDim.x) {
+      Vs[m0 * HD + i] = rV[m0 * HD + i];
+      const int d = i / len, m = m0 + i % len;
+      Kt[d * Np + m] = rK[d * Np + m];
+    }
+  }
+  cluster.sync();                           // no CTA reads a peer after this
+
+  // --- attention: warp per pair of query rows, online softmax ------------
+  for (int r = 2 * warp; q0 + r < q1; r += 2 * WARPS) {
+    const bool two = q0 + r + 1 < q1;       // warp-uniform
+    float qa[HD], qb[HD];
+    const float qna = to_f(Qs[r * HD + lane]);
+    const float qnb = two ? to_f(Qs[(r + 1) * HD + lane]) : qna;
+#pragma unroll
+    for (int d = 0; d < HD; ++d) {
+      qa[d] = __shfl_sync(FULL, qna, d);
+      qb[d] = __shfl_sync(FULL, qnb, d);
+    }
+    float ma = -INFINITY, la = 0.f, acca = 0.f;   // acc: channel lane
+    float mb = -INFINITY, lb = 0.f, accb = 0.f;
+    for (int m0 = 0; m0 < N; m0 += 32) {
+      float sa = 0.f, sb = 0.f;
+#pragma unroll
+      for (int d = 0; d < HD; ++d) {
+        const float kd = to_f(Kt[d * Np + m0 + lane]);
+        sa = fmaf(qa[d], kd, sa);
+        sb = fmaf(qb[d], kd, sb);
+      }
+      const bool valid = m0 + lane < N;
+      sa = valid ? sa * scale : -INFINITY;
+      sb = valid ? sb * scale : -INFINITY;
+      const float na = fmaxf(ma, warp_max(sa));  // finite: key m0 exists
+      const float nb = fmaxf(mb, warp_max(sb));
+      const float pa = expf(sa - na), pb = expf(sb - nb);
+      const float ca = expf(ma - na), cb = expf(mb - nb);
+      la = la * ca + warp_sum(pa);
+      lb = lb * cb + warp_sum(pb);
+      acca *= ca;
+      accb *= cb;
+      const T* vt = Vs + m0 * HD + lane;
+      if (m0 + 32 <= N) {                   // full tile: unrolled
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          const float vj = to_f(vt[j * HD]);
+          acca = fmaf(__shfl_sync(FULL, pa, j), vj, acca);
+          accb = fmaf(__shfl_sync(FULL, pb, j), vj, accb);
+        }
+      } else {
+        for (int j = 0; j < N - m0; ++j) {
+          const float vj = to_f(vt[j * HD]);
+          acca = fmaf(__shfl_sync(FULL, pa, j), vj, acca);
+          accb = fmaf(__shfl_sync(FULL, pb, j), vj, accb);
+        }
+      }
+      ma = na;
+      mb = nb;
+    }
+    const size_t row = (size_t)g * N + q0 + r;
+    o[row * C + h * HD + lane] = from_f<T>(acca / la);
+    if (two) o[(row + 1) * C + h * HD + lane] = from_f<T>(accb / lb);
+  }
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 132;
+  }
+  return n;
+}
+
+template <typename T>
+cudaError_t launch(const void* x, const void* w, const void* b, void* o,
+                   void* v, int G, int N, int C, int heads, cudaStream_t s) {
+  const int Np = (N + 31) & ~31;
+  // CTAs per (head, band): about two per SM, at most one per 32 tokens
+  const int pairs = G * heads;
+  const int splits = max(1, min(min((2 * sm_count() + pairs - 1) / pairs,
+                                    Np / 32), MAX_CLUSTER));
+  const int R = (N + splits - 1) / splits;
+  const size_t smem = sizeof(T) * ((size_t)3 * HD * C + (size_t)HD * R +
+                                   (size_t)2 * HD * Np);
+  cudaError_t e = cudaFuncSetAttribute(
+      band_attention_qkv_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(heads, G, splits);
+  cfg.blockDim = dim3(WARPS * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = splits;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const float scale = (float)(1.0 / sqrt((double)HD));  // f32(hd ** -0.5)
+  e = cudaLaunchKernelEx(&cfg, band_attention_qkv_kernel<T>,
+                         static_cast<const T*>(x), static_cast<const T*>(w),
+                         static_cast<const float*>(b), static_cast<T*>(o),
+                         static_cast<T*>(v), N, C, scale);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// x, o, v: (G, N, C) of the I/O type; w: (C, 3C) of the I/O type; b: (3C,)
+// f32. dtype 0 = float32, 1 = bfloat16. Returns the launch status.
+extern "C" int yolou_band_attention_qkv(const void* x, const void* w,
+                                        const void* b, void* o, void* v, int G,
+                                        int N, int C, int heads, int dtype,
+                                        void* stream) {
+  if (G <= 0 || N <= 0 || heads <= 0 || C != heads * HD || G > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)launch<float>(x, w, b, o, v, G, N, C, heads, s);
+  if (dtype == 1)
+    return (int)launch<__nv_bfloat16>(x, w, b, o, v, G, N, C, heads, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" const char* yolou_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

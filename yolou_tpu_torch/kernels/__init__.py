@@ -1,0 +1,27 @@
+"""Hand-written CUDA kernels for Hopper and their wrappers.
+
+Each wrapper checks its inputs, then: on a CPU tensor runs the kernel's plain
+PyTorch version; on a CUDA tensor launches the kernel (building it on first
+use) or raises. It never falls back from a CUDA tensor to the plain version.
+Each wrapper counts its kernel launches in a `launches` attribute.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+from .attention import area_attention_qkv_fused
+from .nms import suppress_greedy
+
+_WRAPPERS = {"band_attention": area_attention_qkv_fused,
+             "greedy_nms": suppress_greedy}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel name -> launches since the last reset."""
+    return {name: fn.launches for name, fn in _WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in _WRAPPERS.values():
+        fn.launches = 0

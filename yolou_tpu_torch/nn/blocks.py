@@ -1,0 +1,156 @@
+"""YOLO building blocks in PyTorch (NCHW) with ultralytics state_dict names.
+
+Counterparts of `yolou_tpu/nn/blocks.py`. Parameters stay float32; the
+compute dtype is the dtype of the input. As in the JAX package a conv runs in
+the compute dtype (accumulating in f32 inside cuDNN / the CPU kernel), its
+BatchNorm runs in float32, and the result is cast back. The TPU layout
+rewrites there (lazy concat tuples, `LazyUpsample2x`, `_dual_entry_1x1`, the
+s2d stem) compute the same function and are not carried over.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+# ultralytics BatchNorm constants (torch momentum 0.03 == flax 0.97)
+BN_EPS = 1e-3
+BN_MOMENTUM = 0.03
+
+
+def autopad(k: int, p: int | None = None, d: int = 1) -> int:
+    """'same'-style padding for odd kernels (YOLO Conv default)."""
+    if d > 1:
+        k = d * (k - 1) + 1
+    return k // 2 if p is None else p
+
+
+def conv_in_dtype(m: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """Run a Conv2d with its f32 parameters cast to the input's dtype."""
+    b = None if m.bias is None else m.bias.to(x.dtype)
+    return m._conv_forward(x, m.weight.to(x.dtype), b)
+
+
+class Conv(nn.Module):
+    """Conv2d (no bias) + BatchNorm2d + SiLU: ultralytics `Conv`, JAX
+    `ConvBNAct`."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, g: int = 1,
+                 d: int = 1, act: bool = True):
+        super().__init__()
+        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, None, d), dilation=d,
+                              groups=g, bias=False)
+        self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.act = nn.SiLU() if act else nn.Identity()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.bn(conv_in_dtype(self.conv, x).float())
+        return self.act(y).to(x.dtype)
+
+    def folded(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """BatchNorm folded into the conv with running stats: (W', b'), f32.
+        Same as the JAX package's `FoldedConvBN`."""
+        bn = self.bn
+        inv = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
+        w = self.conv.weight * inv[:, None, None, None]
+        return w, bn.bias - bn.running_mean * inv
+
+
+class DWConv(Conv):
+    """Depthwise conv (groups = gcd(c1, c2)), ultralytics `DWConv`."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, d: int = 1,
+                 act: bool = True):
+        super().__init__(c1, c2, k, s, g=math.gcd(c1, c2), d=d, act=act)
+
+
+class Bottleneck(nn.Module):
+    """cv1 kxk -> cv2 kxk with a residual when the widths agree."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, g: int = 1,
+                 k: Tuple[int, int] = (3, 3), e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, k[0], 1)
+        self.cv2 = Conv(c_, c2, k[1], 1, g=g)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+class C3(nn.Module):
+    """CSP bottleneck with 3 convolutions."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True,
+                 g: int = 1, e: float = 0.5, k: Tuple[int, int] = (1, 3)):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, 1)
+        self.cv2 = Conv(c1, c_, 1)
+        self.cv3 = Conv(2 * c_, c2, 1)
+        self.m = nn.Sequential(*(Bottleneck(c_, c_, shortcut, g, k=k, e=1.0)
+                                 for _ in range(n)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], 1))
+
+
+class C3k(C3):
+    """C3 with kxk bottleneck kernels (C3k2 with c3k=True, and A2C2f's neck
+    stages)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True,
+                 g: int = 1, e: float = 0.5, k: int = 3):
+        super().__init__(c1, c2, n, shortcut, g, e, k=(k, k))
+
+
+class C3k2(nn.Module):
+    """v11/v12 C2f variant whose inner blocks are C3k (c3k=True) or
+    Bottleneck."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, c3k: bool = False,
+                 e: float = 0.5, g: int = 1, shortcut: bool = True):
+        super().__init__()
+        self.c = int(c2 * e)
+        self.cv1 = Conv(c1, 2 * self.c, 1)
+        self.cv2 = Conv((2 + n) * self.c, c2, 1)
+        self.m = nn.ModuleList(
+            C3k(self.c, self.c, 2, shortcut, g) if c3k
+            else Bottleneck(self.c, self.c, shortcut, g, k=(3, 3), e=0.5)
+            for _ in range(n))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = list(self.cv1(x).chunk(2, 1))
+        y.extend(m(y[-1]) for m in self.m)
+        return self.cv2(torch.cat(y, 1))
+
+
+class Proto(nn.Module):
+    """Mask prototypes: conv3x3 -> 2x transposed conv -> conv3x3 -> 1x1."""
+
+    def __init__(self, c1: int, c_: int = 256, c2: int = 32):
+        super().__init__()
+        self.cv1 = Conv(c1, c_, 3)
+        self.upsample = nn.ConvTranspose2d(c_, c_, 2, 2, 0, bias=True)
+        self.cv2 = Conv(c_, c_, 3)
+        self.cv3 = Conv(c_, c2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.cv1(x)
+        up = self.upsample
+        x = F.conv_transpose2d(x, up.weight.to(x.dtype), up.bias.to(x.dtype),
+                               stride=2)
+        return self.cv3(self.cv2(x))
+
+
+class Concat(nn.Module):
+    """Channel concat of several earlier layers (parameter-free)."""
+
+    def forward(self, xs) -> torch.Tensor:
+        return torch.cat(list(xs), 1)

@@ -1,0 +1,117 @@
+"""JAX/flax variables -> the port's (ultralytics-named) state_dict.
+
+Takes the `{"params": ..., "batch_stats": ...}` tree of the JAX package's
+YOLO model as nested dicts of numpy arrays and returns a torch state_dict
+that `YOLOModel.load_state_dict(..., strict=True)` accepts. It applies the
+same name rules, layout transposes and AAttn qkv channel permutation as the
+JAX package's `tools/torch2jax.py::jax_to_torch_state_dict`, reimplemented
+here so that this package never imports JAX:
+
+  conv kernel (kh,kw,I,O)             -> weight (O,I,kh,kw)
+  ConvTranspose kernel (kh,kw,I,O)    -> weight (I,O,kh,kw), spatially flipped
+  BatchNorm scale/bias, mean/var      -> weight/bias, running_mean/var
+  AAttn qkv (role-major thirds)       -> head-major interleave (ultralytics)
+
+plus the non-learned keys of released checkpoints: `num_batches_tracked`
+(0) per BatchNorm and the head's fixed DFL projection.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..nn.attention import aattn_qkv_permutation
+
+# flax wrapper modules that have no torch counterpart (DWConv's "dw",
+# C3k's "c3", Segment's "detect")
+_WRAPPERS = ("dw", "c3", "detect")
+_TABLE = {"mlp1": "mlp.0", "mlp2": "mlp.1"}
+
+
+def _module_segment(seg: str) -> Optional[str]:
+    if seg in _WRAPPERS:
+        return None
+    if seg.startswith("model_"):
+        return f"model.{seg[6:]}"
+    m = re.fullmatch(r"(cv[234])_(\d+)_(\d+)(?:_(\d+))?", seg)
+    if m:
+        return ".".join(g for g in m.groups() if g is not None)
+    m = re.fullmatch(r"m(\d+)_(\d+)", seg)
+    if m:
+        return f"m.{m.group(1)}.{m.group(2)}"
+    m = re.fullmatch(r"m(\d+)", seg)
+    if m:
+        return f"m.{m.group(1)}"
+    return _TABLE.get(seg, seg)
+
+
+def torch_name(path: Tuple[str, ...], collection: str) -> str:
+    """Flax variable path (module segments + leaf) -> ultralytics name."""
+    *mods, leaf = path
+    segs: List[str] = [t for t in map(_module_segment, mods) if t is not None]
+    if collection == "batch_stats":
+        leaf = {"mean": "running_mean", "var": "running_var"}[leaf]
+    elif leaf in ("kernel", "scale"):
+        leaf = "weight"
+    return ".".join(segs + [leaf])
+
+
+def _flatten(tree, prefix=()):
+    out = {}
+    for k, v in tree.items():
+        p = prefix + (k,)
+        if isinstance(v, dict):
+            out.update(_flatten(v, p))
+        else:
+            out[p] = v
+    return out
+
+
+def _torch_layout(a: np.ndarray, path: Tuple[str, ...]) -> np.ndarray:
+    if a.ndim == 4:
+        if "upsample" in path:   # flax ConvTranspose -> torch ConvTranspose2d
+            return np.ascontiguousarray(a[::-1, ::-1].transpose(2, 3, 0, 1))
+        return np.ascontiguousarray(a.transpose(3, 2, 0, 1))
+    return a
+
+
+def _qkv_modules(params) -> Dict[Tuple[str, ...], np.ndarray]:
+    """AAttn qkv module path -> inverse permutation (role-major -> head-major)."""
+    inv = {}
+    for path, leaf in _flatten(params).items():
+        if (path[-4:] == ("attn", "qkv", "conv", "kernel") and np.ndim(leaf) == 4
+                and np.shape(leaf)[-1] == 3 * np.shape(leaf)[-2]):
+            inv[path[:-2]] = np.argsort(aattn_qkv_permutation(np.shape(leaf)[-1]))
+    return inv
+
+
+def state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """JAX YOLO variables (nested dicts of numpy arrays) -> state_dict."""
+    inv_qkv = _qkv_modules(variables.get("params", {}))
+    out: Dict[str, np.ndarray] = {}
+    for coll in ("params", "batch_stats"):
+        for path, leaf in _flatten(variables.get(coll, {})).items():
+            arr = np.asarray(leaf)
+            if np.issubdtype(arr.dtype, np.floating):
+                arr = arr.astype(np.float32)
+            inv = inv_qkv.get(path[:-2])
+            if inv is not None:
+                arr = arr[..., inv] if arr.ndim == 4 else arr[inv]
+            name = torch_name(path, coll)
+            if name in out:
+                raise ValueError(f"duplicate torch name {name} from {path}")
+            out[name] = _torch_layout(arr, path)
+    for name in list(out):
+        if name.endswith(".running_mean"):
+            out[name[:-len("running_mean")] + "num_batches_tracked"] = (
+                np.zeros((), np.int64))
+        m = re.fullmatch(r"(.*)\.cv2\.0\.2\.weight", name)
+        if m:
+            reg_max = out[name].shape[0] // 4
+            out[f"{m.group(1)}.dfl.conv.weight"] = (
+                np.arange(reg_max, dtype=np.float32).reshape(1, reg_max, 1, 1))
+    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
