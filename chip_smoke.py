@@ -3,19 +3,35 @@
 
     python3 chip_smoke.py        # from the repository root
 
-Phases, one output line each:
+Phases, one or more output lines each:
   1. device  - the card (nvidia-smi name and power limit), torch and CUDA;
   2. build   - nvcc builds the kernels from yolou_tpu_torch/csrc;
   3. kernels - each CUDA kernel against its plain PyTorch version on the card,
-               at the serving path's shapes, with CUDA-event times of both;
+               at the shapes the serving and training paths give it, with
+               CUDA-event times of the kernel, the plain version and, where
+               one PyTorch call computes the same function, that call; the
+               training attention's gradients against autograd through the
+               plain version;
   4. serve   - a Predictor with seeded random yolov12n-seg weights (4 ch,
                nc=1, 640^2, bf16) answers 3 requests of 8 uint8 images; the
                kernels' launch counters must show the path went through them;
                then the same weights in f32 on the card and on the CPU must
-               agree.
-Then a JSON line of kernel results, the nvidia-smi line again, and last
-{"ok": true, "device": {...}}. Any failure raises: exit code non-zero and no
-"ok" line. Without a CUDA device it exits with code 2.
+               agree;
+  5. train   - a DetectorTrainer on the card with the same weights (bf16,
+               640^2, batch 8, mosaic on) takes 3 steps over a seeded
+               in-memory batch: finite loss parts, 8 forward launches of the
+               attention kernel and 8 calls of its backward per step,
+               parameters, EMA and BatchNorm statistics moved, no step
+               skipped; times per step and where they go; then one f32 step
+               at batch 2 on the card and on the CPU must agree.
+  6. profile - the attention profiler (`tools/profile_layers.py`, the one
+               caller of the single-head attention entry point) at batch 8,
+               at shapes phase 3 has checked; both attention entry points
+               must have launched.
+Then a JSON line of kernel results (each kernel's launches on its path, error,
+times, and the least time the card could take), the nvidia-smi line again,
+and last {"ok": true, "device": {...}}. Any failure raises: exit code
+non-zero and no "ok" line. Without a CUDA device it exits with code 2.
 """
 
 from __future__ import annotations
@@ -31,8 +47,13 @@ SEED = 0
 IMGSZ = 640
 BATCH = 8
 REQUESTS = 3
+TRAIN_STEPS = 3
 ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 BN_STD = 0.1
+# published peaks of one H100 SXM, dense: bytes/s of HBM3, FLOP/s by input type
+HBM_BYTES_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 
 def log(phase: str, **kv) -> None:
@@ -49,19 +70,23 @@ def card_line() -> str:
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean milliseconds per call of `fn` on the current stream (CUDA events
-    around `iters` back-to-back calls, after `warmup` calls)."""
+    around `iters` back-to-back calls, after `warmup` calls): the attention
+    profiler's timer, so that both read one clock the same way."""
     import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    from yolou_tpu_torch.tools.profile_layers import call_ms
+    return call_ms(fn, torch.device("cuda"), iters, warmup)
+
+
+def bound(nbytes: float, flops: float, dtype: str):
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of bytes over the memory rate and operations over the peak rate."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).split(".")[-1]
 
 
 def f32_exact(torch) -> None:
@@ -93,20 +118,110 @@ def check_attention(device):
             o_ref, v_ref = area_attention_qkv_fused_plain(xt, wt, bt, heads)
             err = max((o.float() - o_ref.float()).abs().max().item(),
                       (v.float() - v_ref.float()).abs().max().item())
-            tol = ATTN_TOL[str(dtype).split(".")[-1]]
+            tol = ATTN_TOL[dtype_name(dtype)]
             finite = bool(torch.isfinite(o).all() and torch.isfinite(v).all())
             ms = cuda_ms(lambda: area_attention_qkv_fused(xt, wt, bt, heads))
             plain_ms = cuda_ms(
                 lambda: area_attention_qkv_fused_plain(xt, wt, bt, heads))
+            # x and w read, o and v written; projection + q.k^T + p.v
+            nbytes = xt.element_size() * (3 * g * n * c + 3 * c * c) + 12 * c
+            flops = 6 * g * n * c * c + 4 * g * n * n * c
+            bound_ms, bound_by = bound(nbytes, flops, dtype_name(dtype))
             log("kernel", name="band_attention", case=name,
-                shape=f"({g},{n},{c})h{heads}", dtype=str(dtype)[6:],
-                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms)
+                shape=f"({g},{n},{c})h{heads}", dtype=dtype_name(dtype),
+                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
             if not finite or not err <= tol:
                 raise AssertionError(f"band attention {name} {dtype}: "
                                      f"max|d| {err} > {tol} or non-finite")
             worst = max(worst, err)
-            times[(name, dtype)] = (ms, plain_ms)
-    return worst, times[("L6@640", torch.bfloat16)]
+            times[(name, dtype)] = {"ms": ms, "plain_ms": plain_ms,
+                                    "bound_ms": bound_ms,
+                                    "bound_by": bound_by, "library_ms": None}
+    return dict(times[("L6@640", torch.bfloat16)], max_abs_err=worst)
+
+
+# ------------------------------------------------------------- kernel C
+
+def check_training_attention(device):
+    """`area_attention_fused` (and `area_attention`, its one-head form)
+    against the plain version: outputs and gradients at the two training
+    shapes of yolov12n at 640^2 and batch 8, at the 160^2 band length, and
+    at the two shapes the attention profiler gives them at that batch;
+    times of kernel, plain version and the one PyTorch call that computes
+    the function (scaled_dot_product_attention), a yardstick only."""
+    import torch
+    import torch.nn.functional as F
+    from yolou_tpu_torch.kernels.attention import (
+        area_attention, area_attention_fused, area_attention_fused_plain,
+        area_attention_plain, attention_backward)
+    from yolou_tpu_torch.tools.profile_layers import HEADS, attention_shapes
+    f32_exact(torch)
+    cases = [("L6@640", 4 * BATCH, 400, 64, 2), ("L8@640", BATCH, 400, 128, 4),
+             ("L6@160", 4 * BATCH, 25, 64, 2), ("L8@160", BATCH, 25, 128, 4),
+             ("single", 64, 400, 32, 1)]
+    for name, shape, heads in zip(("profile-single", "profile-fused"),
+                                  attention_shapes(BATCH), (1, HEADS)):
+        cases.append((name, *shape, heads))
+    rng = np.random.default_rng(SEED + 3)
+    results = {}
+    for name, g, n, c, heads in cases:
+        single = heads == 1
+        arrays = [rng.normal(size=(g, n, c)).astype(np.float32)
+                  for _ in range(4)]
+        kname = "band_attention_single" if single else "band_attention_train"
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (torch.from_numpy(a).to(device, dtype)
+                           for a in arrays)
+            if single:
+                fn = lambda: area_attention(q, k, v)
+                plain = lambda: area_attention_plain(q, k, v)
+            else:
+                fn = lambda: area_attention_fused(q, k, v, heads)
+                plain = lambda: area_attention_fused_plain(q, k, v, heads)
+
+            def sdpa():
+                qh, kh, vh = (t.view(g, n, heads, c // heads).transpose(1, 2)
+                              for t in (q, k, v))
+                return F.scaled_dot_product_attention(qh, kh, vh)
+
+            with torch.no_grad():
+                o, ref = fn(), plain()
+                lib = sdpa().transpose(1, 2).reshape(g, n, c)
+            err = (o.float() - ref.float()).abs().max().item()
+            lib_err = (lib.float() - ref.float()).abs().max().item()
+            for t in (q, k, v):
+                t.requires_grad_()
+            grads = torch.autograd.grad(fn(), (q, k, v), do)
+            want = torch.autograd.grad(plain(), (q, k, v), do)
+            gerr = max((a.float() - b.float()).abs().max().item()
+                       for a, b in zip(grads, want))
+            for t in (q, k, v):
+                t.requires_grad_(False)
+            dn = dtype_name(dtype)
+            with torch.no_grad():
+                ms, plain_ms, lib_ms = cuda_ms(fn), cuda_ms(plain), cuda_ms(sdpa)
+                bwd_ms = cuda_ms(lambda: attention_backward(q, k, v, do, heads))
+            nbytes = 4 * g * n * c * q.element_size()     # q, k, v in; o out
+            bound_ms, bound_by = bound(nbytes, 4 * g * n * n * c, dn)
+            log("kernel", name=kname, case=name,
+                shape=f"({g},{n},{c})h{heads}", dtype=dn, max_abs_err=err,
+                tol=ATTN_TOL[dn], grad_max_abs_err=gerr, grad_tol=GRAD_TOL[dn],
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                library_max_abs_err=lib_err, backward_ms=bwd_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+            if not (torch.isfinite(o).all() and err <= ATTN_TOL[dn]
+                    and gerr <= GRAD_TOL[dn]):
+                raise AssertionError(
+                    f"{kname} {name} {dn}: max|d| {err} (tol {ATTN_TOL[dn]}),"
+                    f" gradients {gerr} (tol {GRAD_TOL[dn]}) or non-finite")
+            results[(name, dn)] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": lib_ms, "backward_ms": bwd_ms}
+    worst = max(r["max_abs_err"] for (name, _), r in results.items()
+                if not name.endswith("single"))
+    return results, worst
 
 
 # ------------------------------------------------------------- kernel B
@@ -159,24 +274,48 @@ def check_nms(device):
     vt = torch.ones((BATCH, k), dtype=torch.bool, device=device)
     ms = cuda_ms(lambda: suppress_greedy(bt, vt, 0.45))
     plain_ms = cuda_ms(lambda: suppress_greedy_plain(bt, vt, 0.45))
+    # boxes and valid read, keep written; the work depends on the data: each
+    # kept box is tested against every later candidate, 16 f32 operations an
+    # IoU test
+    keep = suppress_greedy(bt, vt, 0.45)
+    later = (k - 1 - torch.arange(k, device=device)).expand(BATCH, k)
+    tests = int(later[keep].sum())
+    bound_ms, bound_by = bound(bt.numel() * 4 + 2 * vt.numel(), 16 * tests,
+                               "float32")
     log("kernel", name="greedy_nms", case="serve", shape=f"({BATCH},{k})",
-        ms=ms, plain_ms=plain_ms)
-    return worst, (ms, plain_ms)
+        kept=int(keep.sum()), iou_tests=tests, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by)
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 # ------------------------------------------------------------- serving
 
-def make_images(rng, count: int, hw: int = IMGSZ) -> np.ndarray:
-    """Bright ellipses on dark noise, uint8 (count, hw, hw, 4)."""
+def make_labelled(rng, count: int, hw: int = IMGSZ, max_inst: int = 16):
+    """Bright ellipses on dark noise with their labels, in the form
+    `collate_idmap_cached` gives a trainer: img uint8 (count, hw, hw, 4),
+    idmap uint8 (count, hw, hw) with ellipse j of an image drawn as j + 1
+    (later ones on top), cls int32 and valid bool (count, max_inst)."""
     imgs = rng.normal(40, 12, (count, hw, hw, 4)).clip(0, 255)
+    idmap = np.zeros((count, hw, hw), np.uint8)
+    cls = np.zeros((count, max_inst), np.int32)
+    valid = np.zeros((count, max_inst), bool)
     yy, xx = np.mgrid[:hw, :hw]
     for i in range(count):
-        for _ in range(rng.integers(1, 4)):
+        for j in range(rng.integers(1, 4)):
             cy, cx = rng.uniform(0.2 * hw, 0.8 * hw, 2)
             ry, rx = rng.uniform(0.04 * hw, 0.15 * hw, 2)
             inside = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1
             imgs[i][inside] = rng.uniform(180, 255, 4)
-    return imgs.astype(np.uint8)
+            idmap[i][inside] = j + 1
+        ids = np.unique(idmap[i])
+        valid[i, ids[ids > 0] - 1] = True     # an ellipse may be covered
+    return imgs.astype(np.uint8), idmap, cls, valid
+
+
+def make_images(rng, count: int, hw: int = IMGSZ) -> np.ndarray:
+    """Bright ellipses on dark noise, uint8 (count, hw, hw, 4)."""
+    return make_labelled(rng, count, hw)[0]
 
 
 def seeded_state_dict():
@@ -194,7 +333,8 @@ def seeded_state_dict():
     from yolou_tpu_torch.models.yolo import build_yolo
     from yolou_tpu_torch.nn.heads import warm_start_detect_bias
     from yolou_tpu_torch.ops.letterbox import letterbox_batch
-    model = build_yolo("yolov12", "n", nc=1, ch=4, task="segment", seed=SEED)
+    model = build_yolo("yolov12", "n", nc=1, ch=4, task="segment",
+                       device="cpu", seed=SEED)
     calib = make_images(np.random.default_rng(SEED + 2), 2)
     x = letterbox_batch(torch.from_numpy(calib), (IMGSZ, IMGSZ))
     bns = [m for m in model.modules() if isinstance(m, nn.BatchNorm2d)]
@@ -314,6 +454,192 @@ def compare_f32(state_dict, device, imgs):
     return err
 
 
+# ------------------------------------------------------------- training
+
+class _Data:
+    """The fields of a data config the trainer reads in `step`."""
+    channels = 4
+
+
+def make_trainer(state_dict, device, dtype, batch, aug=None):
+    """A DetectorTrainer over seeded yolov12n-seg weights; `device` None is
+    the trainer's default, the card."""
+    from yolou_tpu_torch.data.augment import AugHyp
+    from yolou_tpu_torch.engine.trainer_detector import (DetectorTrainConfig,
+                                                         DetectorTrainer)
+    from yolou_tpu_torch.models.yolo import build_yolo
+    model = build_yolo("yolov12", "n", nc=1, ch=4, task="segment",
+                       dtype=dtype, device=device)
+    model.load_state_dict(state_dict, strict=True)
+    cfg = DetectorTrainConfig(imgsz=IMGSZ, batch_size=batch, epochs=10,
+                              warmup_epochs=3.0)
+    tr = DetectorTrainer(model, _Data(), cfg, aug=aug or AugHyp(),
+                         device=device)
+    tr.ensure_ready(steps_per_epoch=100)
+    return tr
+
+
+def train(state_dict):
+    """TRAIN_STEPS steps of the detector trainer on the card, bf16, 640^2,
+    batch 8, mosaic on; returns the per-step statistics and what it drove,
+    for `train_breakdown`."""
+    import torch
+    tr = make_trainer(state_dict, None, torch.bfloat16, BATCH)
+    if tr.device.type != "cuda":
+        raise AssertionError(f"the trainer chose {tr.device}, not the card")
+    batch = make_labelled(np.random.default_rng(SEED + 4), BATCH)
+    gen = torch.Generator(device=tr.device).manual_seed(SEED)
+    before = {k: v.clone() for k, v in tr.model.state_dict().items()}
+    stats = []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss, parts = tr.step(batch, gen, use_mosaic=True)
+        end.record()
+        end.synchronize()
+        vals = {"loss": loss.item(), **{k: v.item() for k, v in parts.items()}}
+        stats.append({"step": i, **vals, "event_ms": start.elapsed_time(end),
+                      "host_ms": (time.perf_counter() - t0) * 1e3})
+        if not all(np.isfinite(v) for v in vals.values()):
+            raise AssertionError(f"step {i}: non-finite loss part {vals}")
+    if tr.notfinite_count() or tr.opt_count != TRAIN_STEPS:
+        raise AssertionError(f"a step was skipped as non-finite: "
+                             f"{tr.opt_count} updates in {TRAIN_STEPS} steps")
+    after = tr.model.state_dict()
+    ema = tr.ema_variables()
+    moved = {"params": 0, "ema": 0, "bn_stats": 0}
+    total = dict(moved)
+    for k, v in after.items():
+        if k.endswith("num_batches_tracked") or "dfl" in k:
+            continue
+        kind = "bn_stats" if "running_" in k else "params"
+        total[kind] += 1
+        moved[kind] += int(not torch.equal(v, before[k]))
+        if kind == "params":
+            total["ema"] += 1
+            moved["ema"] += int(not torch.equal(ema[k], before[k]))
+    # every BatchNorm sees data; a head branch of a level that got no
+    # positive anchor has no gradient, so a few parameters may stand still
+    if (moved["bn_stats"] != total["bn_stats"]
+            or min(moved["params"], moved["ema"]) < 0.9 * total["params"]):
+        raise AssertionError(f"tensors moved {moved} of {total}")
+    moved = {k: f"{v}/{total[k]}" for k, v in moved.items()}
+    return stats, moved, (tr, batch, gen)
+
+
+def profile_step(step, steps: int = 2):
+    """torch.profiler over `steps` calls of `step`: (device time in ms per
+    call summed over kernels and copies, device launches per call, the six
+    largest kernels as "name: ms per call"). (None, None, []) where the
+    profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        # kernels and copies only: an operator's row repeats its kernels' time
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.key.startswith(("Optimizer.", "ProfilerStep"))):
+            continue                # the second: annotations, not kernels
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us > 0:
+            rows.append((us / 1e3 / steps, e.count / steps, e.key))
+    if not rows:
+        return None, None, []
+    rows.sort(reverse=True)
+    top = [f"{name[:60]}: {ms:.3f}" for ms, _, name in rows[:6]]
+    return sum(r[0] for r in rows), sum(r[1] for r in rows), top
+
+
+def train_breakdown(tr, batch, gen, kernel_times, iters: int = 5):
+    """Where a training step goes: the parts of `DetectorTrainer.step`, in
+    its order, with CUDA events between them (each event waits for the part
+    before it, so the parts add up to the step), means over `iters` steps;
+    the attention kernel's and its backward's share from their times at the
+    step's two shapes (4 launches each a step); a profiler window."""
+    import torch
+    names = ("augment", "forward", "loss", "backward", "optimizer", "ema")
+    sums = dict.fromkeys(names, 0.0)
+
+    def parts():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        ev[0].record()
+        aug = tr.augment(batch, gen, True)
+        ev[1].record()
+        tr.model.train()
+        out = tr.model(aug["img"].permute(0, 3, 1, 2))
+        ev[2].record()
+        lo = tr.loss(out, aug)
+        ev[3].record()
+        tr.optimizer.zero_grad(set_to_none=True)
+        lo.total.backward()
+        ev[4].record()
+        tr.apply_gradients()
+        ev[5].record()
+        tr.update_ema()
+        ev[6].record()
+        ev[6].synchronize()
+        return [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+
+    parts()
+    for _ in range(iters):
+        for name, ms in zip(names, parts()):
+            sums[name] += ms / iters
+    t_step = cuda_ms(lambda: tr.step(batch, gen, use_mosaic=True),
+                     iters=iters, warmup=1)
+    busy_ms, launches, top = profile_step(
+        lambda: tr.step(batch, gen, use_mosaic=True))
+    kt = kernel_times
+    fwd_kernel = 4 * (kt[("L6@640", "bfloat16")]["ms"]
+                      + kt[("L8@640", "bfloat16")]["ms"])
+    bwd_attn = 4 * (kt[("L6@640", "bfloat16")]["backward_ms"]
+                    + kt[("L8@640", "bfloat16")]["backward_ms"])
+    return {"step_ms": t_step, **{f"{k}_ms": v for k, v in sums.items()},
+            "attention_kernel_ms": fwd_kernel,
+            "attention_kernel_share": fwd_kernel / t_step,
+            "attention_backward_ms": bwd_attn,
+            "attention_backward_share": bwd_attn / t_step,
+            "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / t_step if busy_ms else None,
+            "device_launches": launches, "top_device_kernels": top,
+            "peak_memory_mb": torch.cuda.max_memory_allocated() / 2 ** 20}
+
+
+def compare_train_f32(state_dict, device):
+    """One f32 step, batch 2, augmentation off, same weights and batch, on
+    the card (the kernel, no TF32) and on the CPU (the plain version): loss
+    and global gradient norm (before clipping) within 1e-3 relative."""
+    import torch
+    from yolou_tpu_torch.data.augment import AugHyp
+    f32_exact(torch)
+    off = AugHyp(mosaic=0.0, translate=0.0, scale=0.0, fliplr=0.0, hsv_h=0.0,
+                 hsv_s=0.0, hsv_v=0.0, noise_p=0.0, blur_p=0.0, bias_p=0.0)
+    batch = make_labelled(np.random.default_rng(SEED + 5), 2)
+    got = {}
+    for dev in (device, "cpu"):
+        tr = make_trainer(state_dict, dev, torch.float32, 2, aug=off)
+        gen = torch.Generator(device=tr.device).manual_seed(SEED)
+        loss, _ = tr.step(batch, gen, use_mosaic=False)
+        got[str(dev)] = (loss.item(), tr.grad_norm.item())
+    (lg, ng), (lc, nc_) = got[str(device)], got["cpu"]
+    rel_loss, rel_norm = abs(lg - lc) / abs(lc), abs(ng - nc_) / abs(nc_)
+    log("train", check="f32 card vs cpu", batch=2, loss_card=lg, loss_cpu=lc,
+        loss_rel=rel_loss, grad_norm_card=ng, grad_norm_cpu=nc_,
+        grad_norm_rel=rel_norm, tol=1e-3)
+    if not (rel_loss <= 1e-3 and rel_norm <= 1e-3):
+        raise AssertionError(f"f32 training step card vs cpu: loss "
+                             f"{rel_loss}, gradient norm {rel_norm} > 1e-3")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -335,8 +661,9 @@ def main() -> int:
     log("build", seconds=round(time.perf_counter() - t0, 3),
         library=lib_path.name)
 
-    attn_err, (attn_ms, attn_plain_ms) = check_attention(device)
-    nms_err, (nms_ms, nms_plain_ms) = check_nms(device)
+    attn = check_attention(device)
+    train_attn, train_attn_err = check_training_attention(device)
+    nms = check_nms(device)
 
     state_dict = seeded_state_dict()
     rng = np.random.default_rng(SEED)
@@ -359,18 +686,58 @@ def main() -> int:
 
     compare_f32(state_dict, device, requests[0][:2])
 
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    steps, moved, driven = train(state_dict)
+    train_launches = kernels.launch_counts()["band_attention_train"]
+    train_backwards = kernels.backward_counts()["band_attention_train"]
+    for s in steps:
+        log("train", **s)
+    log("train", steps=len(steps), moved=moved, launches=train_launches,
+        backward_calls=train_backwards)
+    if not train_launches == train_backwards == 8 * len(steps):
+        raise AssertionError(
+            f"training attention: {train_launches} forward launches and "
+            f"{train_backwards} backward calls, want {8 * len(steps)} each")
+    log("train", **train_breakdown(*driven, train_attn))
+    compare_train_f32(state_dict, device)
+
+    from yolou_tpu_torch.tools.profile_layers import \
+        profile_attention_variants
+    kernels.reset_launch_counts()
+    variants = profile_attention_variants(batch=BATCH)
+    profile_counts = kernels.launch_counts()
+    log("profile", launches=profile_counts,
+        **{k: round(v["ms"], 4) for k, v in variants.items()})
+    if min(profile_counts["band_attention_single"],
+           profile_counts["band_attention_train"]) < 1:
+        raise AssertionError(f"the attention profiler launched "
+                             f"{profile_counts}")
+
     src = "yolou_tpu_torch/csrc/"
+    pallas = "yolou_tpu/ops/pallas_attn.py"
+    l6 = train_attn[("L6@640", "bfloat16")]
+    # the single-head entry at the shape its launches were counted at
+    single = train_attn[("profile-single", "bfloat16")]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     print(json.dumps({"kernels": [
         {"name": "band_attention", "route": "cuda",
-         "source": src + "band_attention.cu",
-         "replaces": "yolou_tpu/ops/pallas_attn.py:357",
-         "launches": counts["band_attention"], "max_abs_err": attn_err,
-         "ms": attn_ms, "plain_ms": attn_plain_ms},
+         "source": src + "band_attention.cu", "replaces": pallas + ":357",
+         "launches": counts["band_attention"], **{k: attn[k] for k in keys}},
         {"name": "greedy_nms", "route": "cuda",
          "source": src + "greedy_nms.cu",
          "replaces": "yolou_tpu/ops/pallas_nms.py:97",
-         "launches": counts["greedy_nms"], "max_abs_err": nms_err,
-         "ms": nms_ms, "plain_ms": nms_plain_ms},
+         "launches": counts["greedy_nms"], **{k: nms[k] for k in keys}},
+        {"name": "band_attention_train", "route": "cuda",
+         "source": src + "band_attention.cu", "replaces": pallas + ":243",
+         "launches": train_launches,
+         "backward_calls": train_backwards,
+         **dict({k: l6[k] for k in keys}, max_abs_err=train_attn_err)},
+        {"name": "band_attention_single", "route": "cuda",
+         "source": src + "band_attention.cu", "replaces": pallas + ":120",
+         "launches": profile_counts["band_attention_single"],
+         **{k: single[k] for k in keys}},
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,8 +16,10 @@ import pytest
 import torch
 
 from yolou_tpu_torch import kernels
-from yolou_tpu_torch.kernels.attention import (area_attention_qkv_fused,
-                                               area_attention_qkv_fused_plain)
+from yolou_tpu_torch.kernels.attention import (
+    area_attention, area_attention_fused, area_attention_fused_plain,
+    area_attention_plain, area_attention_qkv_fused,
+    area_attention_qkv_fused_plain)
 from yolou_tpu_torch.kernels.nms import suppress_greedy, suppress_greedy_plain
 
 pytestmark = pytest.mark.cuda
@@ -87,6 +89,75 @@ def test_band_attention_refuses_what_it_cannot_run(cuda):
     x, w, b = _attn_inputs(2, 16, 64, torch.float32, cuda, seed=4)
     with pytest.raises(ValueError, match="one device"):
         area_attention_qkv_fused(x, w.cpu(), b, 2)
+
+
+def _qkv_inputs(g, n, c, dtype, device, seed, grad=False):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.tensor(rng.normal(size=(g, n, c)), dtype=dtype,
+                              device=device, requires_grad=grad)
+                 for _ in range(3))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("g,n,heads", [(1, 1, 1), (3, 7, 2), (2, 33, 3),
+                                       (2, 257, 4), (1, 513, 2),
+                                       (40, 100, 2)])
+def test_training_attention_matches_plain(cuda, g, n, heads, dtype, tol):
+    """Kernel C off the training shapes: any N >= 1, one to four heads; f32
+    within 1e-4, bf16 within 2e-2 (outputs of order 1)."""
+    q, k, v = _qkv_inputs(g, n, 32 * heads, dtype, cuda, seed=g * n + heads)
+    kernels.reset_launch_counts()
+    o = area_attention_fused(q, k, v, heads)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["band_attention_train"] == 1
+    ref = area_attention_fused_plain(q, k, v, heads)
+    assert o.dtype == dtype and o.shape == q.shape
+    assert (o.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 5e-2)])
+def test_training_attention_gradients_match_autograd(cuda, dtype, tol):
+    """dq, dk, dv of the Function (kernel forward, hand-written backward)
+    against autograd through the plain version, same cotangent."""
+    q, k, v = _qkv_inputs(4, 33, 64, dtype, cuda, seed=5, grad=True)
+    do = torch.tensor(np.random.default_rng(6).normal(size=q.shape),
+                      dtype=dtype, device=cuda)
+    kernels.reset_launch_counts()
+    got = torch.autograd.grad(area_attention_fused(q, k, v, 2), (q, k, v), do)
+    want = torch.autograd.grad(area_attention_fused_plain(q, k, v, 2),
+                               (q, k, v), do)
+    assert kernels.backward_counts()["band_attention_train"] == 1
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        assert (a.float() - b.float()).abs().max().item() <= tol
+
+
+def test_single_head_attention_matches_plain(cuda):
+    q, k, v = _qkv_inputs(9, 50, 32, torch.float32, cuda, seed=7)
+    kernels.reset_launch_counts()
+    o = area_attention(q, k, v)
+    assert kernels.launch_counts()["band_attention_single"] == 1
+    assert kernels.launch_counts()["band_attention_train"] == 0
+    assert (o - area_attention_plain(q, k, v)).abs().max().item() <= 1e-4
+
+
+def test_training_attention_refuses_what_it_cannot_run(cuda):
+    q, k, v = _qkv_inputs(2, 16, 96, torch.float32, cuda, seed=2)
+    with pytest.raises(ValueError, match="head_dim"):
+        area_attention_fused(q, k, v, 2)              # head_dim 48
+    q, k, v = _qkv_inputs(1, 1000, 32, torch.float32, cuda, seed=3)
+    with pytest.raises(ValueError, match="shared memory"):
+        area_attention_fused(q, k, v, 1)
+    q, k, v = _qkv_inputs(2, 16, 64, torch.float32, cuda, seed=4)
+    with pytest.raises(ValueError, match="one device"):
+        area_attention_fused(q, k.cpu(), v, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        area_attention_fused(q.transpose(0, 1).contiguous().transpose(0, 1),
+                             k, v, 2)
+    with pytest.raises(TypeError, match="dtype"):
+        area_attention_fused(q.half(), k.half(), v.half(), 2)
 
 
 def _nms_inputs(bsz, k, case, device, seed):

@@ -1,7 +1,8 @@
 """PyTorch port: import isolation and device dispatch.
 
 The port must run where JAX is absent (the GPU machine has none), so it may
-import neither `jax`, `flax` nor `yolou_tpu`. Its CUDA wrappers must import
+import neither `jax`, `flax`, `optax` nor `yolou_tpu`; the trainer must import
+without `cv2`, which that machine lacks too. Its CUDA wrappers must import
 without nvcc or triton, run their plain versions on CPU tensors without
 counting a launch, and `chip_smoke.py` must fail without a GPU.
 """
@@ -18,12 +19,14 @@ import torch
 
 from yolou_tpu_torch import kernels
 from yolou_tpu_torch.kernels import build
-from yolou_tpu_torch.kernels.attention import area_attention_qkv_fused
+from yolou_tpu_torch.kernels.attention import (area_attention,
+                                               area_attention_fused,
+                                               area_attention_qkv_fused)
 from yolou_tpu_torch.kernels.nms import suppress_greedy
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PKG = REPO / "yolou_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "yolou_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "yolou_tpu")
 
 
 def _run(code_or_args, cwd, timeout=120):
@@ -47,11 +50,29 @@ def test_every_submodule_imports_without_jax_flax_or_yolou_tpu():
     res = _run(code, REPO)
     assert res.returncode == 0, res.stderr
     n, _, bad = res.stdout.strip().partition(" ")
-    assert int(n) >= 20 and bad == "[]", res.stdout
+    assert int(n) >= 30 and bad == "[]", res.stdout
+
+
+def test_training_modules_import_without_jax_or_cv2():
+    """The training slice by name, and `cv2` stays out until an image is
+    decoded: the trainer is driven over in-memory batches where it is
+    absent."""
+    mods = ["data.augment", "data.config", "data.yolo_dataset",
+            "engine.trainer_detector", "losses.dice", "losses.tal",
+            "losses.v8"]
+    code = (
+        "import importlib, sys\n"
+        f"for n in {mods!r}: importlib.import_module('yolou_tpu_torch.' + n)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN + ('cv2',)!r})\n"
+        "print(bad)\n")
+    res = _run(code, REPO)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]", res.stdout
 
 
 def test_sources_name_no_jax_module():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|yolou_tpu)\b",
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|yolou_tpu)\b",
                      re.M)
     offenders = [str(p.relative_to(REPO)) for p in PKG.rglob("*.py")
                  if pat.search(p.read_text())]
@@ -72,7 +93,15 @@ def test_cpu_tensors_take_the_plain_versions_without_counting():
                          dtype=torch.float32)
     keep = suppress_greedy(boxes, torch.ones(1, 3, dtype=torch.bool), 0.45)
     assert keep.tolist() == [[True, False, True]]
-    assert kernels.launch_counts() == {"band_attention": 0, "greedy_nms": 0}
+    q = x.clone().requires_grad_()
+    area_attention_fused(q, x, x, 2).sum().backward()
+    assert area_attention(x[..., :32].contiguous(), x[..., 32:].contiguous(),
+                          x[..., :32].contiguous()).shape == (2, 9, 32)
+    assert kernels.launch_counts() == {
+        "band_attention": 0, "greedy_nms": 0, "band_attention_train": 0,
+        "band_attention_single": 0}
+    assert kernels.backward_counts() == {"band_attention_train": 1,
+                                         "band_attention_single": 0}
     assert build._lib is None
 
 

@@ -88,9 +88,26 @@ def test_a2c2f_matches_jax(a2, area, c2):
 
 
 def test_aattn_training_mode_is_refused():
+    """The name dates from when the training attention kernel was missing
+    and training mode raised; it is kept so that the test's history stays in
+    one line. Training mode now runs, through the differentiable entry
+    point, and at momentum 1 eval mode reproduces its output."""
     m = attention.AAttn(64, 2, 1).train()
-    with pytest.raises(NotImplementedError):
-        m(torch.zeros(1, 64, 4, 4))
+    x = torch.randn(2, 64, 4, 4, generator=torch.Generator().manual_seed(0),
+                    requires_grad=True)
+    y = m(x)
+    assert y.shape == x.shape
+    y.square().sum().backward()
+    assert x.grad is not None and bool(x.grad.abs().sum() > 0)
+    assert all(p.grad is not None for p in m.parameters())
+    for conv in (m.qkv, m.pe, m.proj):      # momentum 1: eval == this batch
+        conv.bn.momentum = 1.0
+        conv.bn.reset_running_stats()
+    with torch.no_grad():
+        y = m(x)
+        # the eval path folds running stats with the biased-variance update,
+        # so with momentum 1 it reproduces the batch-statistics forward
+        torch.testing.assert_close(m.eval()(x), y, atol=1e-4, rtol=0)
 
 
 @pytest.fixture(scope="module")

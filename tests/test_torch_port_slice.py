@@ -54,7 +54,8 @@ def jax_variables(jmod, seed=0):
 def models():
     jmod = build_yolo_jax("yolov12", "n", nc=1, ch=4, task="segment")
     variables = jax_variables(jmod)
-    tmod = build_yolo("yolov12", "n", nc=1, ch=4, task="segment")
+    tmod = build_yolo("yolov12", "n", nc=1, ch=4, task="segment",
+                      device="cpu")
     tmod.load_state_dict(state_dict_from_jax(variables), strict=True)
     return jmod, variables, tmod
 

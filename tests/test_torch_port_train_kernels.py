@@ -1,0 +1,136 @@
+"""PyTorch port: the training attention entry points against the JAX
+package's Pallas kernels, f32 on the CPU.
+
+The JAX `area_attention_fused` / `area_attention` run in interpret mode,
+their default off a TPU; the port's entry points run the plain version on CPU
+tensors with the hand-written backward the training step uses. Outputs
+within 1e-5, gradients within 1e-4 (f32 sums in another order over up to 48
+keys, values of order 1).
+"""
+
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from yolou_tpu.ops.pallas_attn import area_attention as jax_area_attention
+from yolou_tpu.ops.pallas_attn import \
+    area_attention_fused as jax_area_attention_fused
+from yolou_tpu_torch.kernels.attention import (area_attention,
+                                               area_attention_fused,
+                                               area_attention_fused_plain,
+                                               area_attention_plain)
+
+CASES = [(4, 48, 64, 2), (2, 25, 128, 4), (6, 16, 32, 1)]
+
+
+def _inputs(g, n, c, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(g, n, c)).astype(np.float32) for _ in range(4)]
+
+
+def _entry_points(heads, single):
+    if single:
+        return jax_area_attention, area_attention
+    return (lambda q, k, v: jax_area_attention_fused(q, k, v, heads),
+            lambda q, k, v: area_attention_fused(q, k, v, heads))
+
+
+def _cases():
+    for g, n, c, heads in CASES:
+        yield pytest.param(g, n, c, heads, False, id=f"fused-{g}x{n}x{c}h{heads}")
+    yield pytest.param(6, 16, 32, 1, True, id="single-6x16x32")
+
+
+@pytest.mark.parametrize("g,n,c,heads,single", _cases())
+def test_forward_matches_jax_kernel(g, n, c, heads, single):
+    q, k, v, _ = _inputs(g, n, c, seed=n)
+    jfn, tfn = _entry_points(heads, single)
+    want = np.asarray(jfn(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
+    got = tfn(*(torch.from_numpy(t) for t in (q, k, v))).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("g,n,c,heads,single", _cases())
+def test_gradients_match_jax_vjp(g, n, c, heads, single):
+    q, k, v, do = _inputs(g, n, c, seed=n + 1)
+    jfn, tfn = _entry_points(heads, single)
+    _, vjp = jax.vjp(jfn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.from_numpy(t).requires_grad_() for t in (q, k, v))
+    got = torch.autograd.grad(tfn(tq, tk, tv), (tq, tk, tv),
+                              torch.from_numpy(do))
+    for a, b, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4,
+                                   rtol=0, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("g,n,c,heads,single", _cases())
+def test_handwritten_backward_matches_autograd_of_plain(g, n, c, heads,
+                                                        single):
+    q, k, v, do = _inputs(g, n, c, seed=n + 2)
+    _, tfn = _entry_points(heads, single)
+    plain = (area_attention_plain if single else
+             lambda q, k, v: area_attention_fused_plain(q, k, v, heads))
+    tq, tk, tv = (torch.from_numpy(t).requires_grad_() for t in (q, k, v))
+    tdo = torch.from_numpy(do)
+    got = torch.autograd.grad(tfn(tq, tk, tv), (tq, tk, tv), tdo)
+    want = torch.autograd.grad(plain(tq, tk, tv), (tq, tk, tv), tdo)
+    for a, b, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5, rtol=0,
+                                   err_msg=f"d{name}")
+
+
+def test_bfloat16_plain_rounds_probabilities_like_the_jax_reference():
+    """bf16 inputs: the plain version follows the JAX reference (softmax in
+    f32, probabilities rounded to bf16, f32 accumulation) within one bf16
+    step of outputs of order 1."""
+    from yolou_tpu.ops.pallas_attn import area_attention_fused_reference
+    q, k, v, _ = _inputs(3, 40, 64, seed=9)
+    want = np.asarray(area_attention_fused_reference(
+        *(jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)), 2
+    ).astype(jnp.float32))
+    got = area_attention_fused_plain(
+        *(torch.from_numpy(t).bfloat16() for t in (q, k, v)), 2)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, atol=2e-2, rtol=0)
+
+
+def test_refusals_on_cpu():
+    q = torch.zeros(2, 8, 64)
+    with pytest.raises(ValueError, match="multiple of heads"):
+        area_attention_fused(q, q, q, 3)
+    with pytest.raises(ValueError, match="share a shape"):
+        area_attention_fused(q, q[:, :4], q, 2)
+    with pytest.raises(TypeError, match="share a dtype"):
+        area_attention_fused(q, q.bfloat16(), q, 2)
+    with pytest.raises(TypeError, match="dtype"):
+        area_attention_fused(q.half(), q.half(), q.half(), 2)
+
+
+def test_attention_profiler_runs_both_entry_points_on_the_cpu(capsys):
+    """The `--attn` profiler (the single-head entry point's caller) at one
+    image on the CPU: four implementations timed, the JAX tool's operation
+    count, no kernel launch counted, a JSON line printed last; without a device
+    it asks for the GPU and raises here."""
+    from yolou_tpu_torch import kernels
+    from yolou_tpu_torch.tools import profile_layers
+    kernels.reset_launch_counts()
+    profile_layers.main(["--attn", "--batch", "1", "--device", "cpu"])
+    got = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert profile_layers.attention_shapes(8) == ((128, 400, 32),
+                                                  (32, 400, 128))
+    assert sorted(got) == ["kernel_banded", "kernel_fused", "plain_banded",
+                           "plain_fused"]
+    flops = 2 * 2 * (1 * 4 * 4) * 400 * 400 * 32     # the JAX tool's count
+    for r in got.values():
+        assert r["ms"] > 0
+        np.testing.assert_allclose(r["tflops_effective"] * r["ms"] * 1e9,
+                                   flops, rtol=1e-6)
+    assert not any(kernels.launch_counts().values())
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            profile_layers.profile_attention_variants(batch=1)

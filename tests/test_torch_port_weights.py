@@ -47,7 +47,8 @@ def test_state_dict_equals_jax_exporter_bit_for_bit(variables):
 
 
 def test_state_dict_loads_strict(variables):
-    model = build_yolo("yolov12", "n", nc=1, ch=4, task="segment")
+    model = build_yolo("yolov12", "n", nc=1, ch=4, task="segment",
+                       device="cpu")
     sd = state_dict_from_jax(variables)
     model.load_state_dict(sd, strict=True)
     got = model.state_dict()
@@ -67,7 +68,8 @@ def _fixture():
 
 
 def test_module_tree_matches_released_keyset():
-    model = build_yolo("yolov12", "n", nc=80, ch=3, task="segment")
+    model = build_yolo("yolov12", "n", nc=80, ch=3, task="segment",
+                       device="cpu")
     ours = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     assert ours == _fixture()
 
@@ -84,12 +86,22 @@ def test_qkv_permutation_is_a_permutation_into_role_major(c):
 
 
 def test_seeded_init_is_deterministic():
-    a = build_yolo("yolov12", "n", nc=1, ch=4, task="segment", seed=3)
-    b = build_yolo("yolov12", "n", nc=1, ch=4, task="segment", seed=3)
-    c = build_yolo("yolov12", "n", nc=1, ch=4, task="segment", seed=4)
+    a, b, c = (build_yolo("yolov12", "n", nc=1, ch=4, task="segment",
+                          device="cpu", seed=seed) for seed in (3, 3, 4))
     sa, sb, sc = a.state_dict(), b.state_dict(), c.state_dict()
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
     w = "model.0.conv.weight"
     assert not torch.equal(sa[w], sc[w])
     assert torch.equal(sa["model.21.dfl.conv.weight"].flatten(),
                        torch.arange(16, dtype=torch.float32))
+
+
+def test_build_yolo_without_a_device_means_the_gpu():
+    """No `device` is the GPU, never silently the CPU: where there is no
+    CUDA device the call raises and names the way to ask for the CPU."""
+    if torch.cuda.is_available():
+        model = build_yolo("yolov12", "n", nc=1, ch=4, task="segment")
+        assert next(model.parameters()).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            build_yolo("yolov12", "n", nc=1, ch=4, task="segment")

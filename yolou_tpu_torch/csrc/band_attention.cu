@@ -1,10 +1,21 @@
-// Kernel A: folded qkv projection + multi-head band softmax attention.
+// Multi-head band softmax attention, two entry points over one core.
 //
-// Replaces yolou_tpu/ops/pallas_attn.py::area_attention_qkv_fused (Pallas
-// body _qkv_attn_kernel). For every band g and head h:
+// Kernel A (eval): folded qkv projection + attention. Replaces
+// yolou_tpu/ops/pallas_attn.py::area_attention_qkv_fused (Pallas body
+// _qkv_attn_kernel). For every band g and head h:
 //   qkv = x[g] . w[:, role*C + h*32 + d] + b   (f32 accumulate, rounded to T)
 //   o[g, :, h*32 + d] = softmax(q k^T / sqrt(32)) v      (f32 softmax)
 // and the value projection v is written out too (it feeds the dw7x7 conv).
+//
+// Kernel C (training forward): attention over given q, k, v (G, N, C),
+// head-major channels. Replaces area_attention_fused (body _fused_kernel)
+// and, with one head, area_attention (body _attn_kernel) of the same file.
+// Scores and softmax in f32, the unnormalised probabilities rounded to the
+// I/O type before p.v, f32 accumulation, normalisation after the product,
+// as the TPU kernel does. Its head-mask full-width products feed the TPU's
+// matrix unit and are no part of the function; they are not carried over.
+// It is the same program as kernel A with the projection stage replaced by
+// a load of this CTA's token slice; see the design below.
 //
 // What bounds it on the H100: at YOLOv12n's shapes (N = 400 tokens, C = 64
 // or 128, 2-4 heads) the work is small — about 2*N*C*96 + 4*N*N*32 flop per
@@ -28,12 +39,21 @@
 //    from shared memory serves both), online softmax over key tiles of 32
 //    (lane j scores key j of the tile against K^T, conflict-free); the
 //    ragged last tile is masked, so any N >= 1 works (N = 25 at 160^2);
-//  * probabilities stay f32 into the P.V product (the TPU kernel rounds the
-//    unnormalised exp to bf16 first; both are the same function within
-//    bf16 rounding).
+//  * in kernel A probabilities stay f32 into the P.V product (the TPU
+//    kernel rounds the unnormalised exp to bf16 first; both are the same
+//    function within bf16 rounding); kernel C rounds them as the TPU
+//    training kernel does, so that its backward (an f32 recompute in plain
+//    tensor code, as in the JAX package) sees the forward it had there;
+//  * kernel C moves 4*G*N*C elements (q, k, v in, o out) for 4*N*N*32 flop
+//    per (band, head): at (32, 400, 64) bf16 that is 6.6 MB and 1.3 GFLOP,
+//    about 2 us of HBM time against 1.3 us of tensor-core time, so its bound
+//    is bytes; the design reads each q, k, v element from HBM once (the
+//    cluster exchange) and is, like kernel A, far from that bound because
+//    its products run on the f32 FMA pipes, not the tensor cores.
 // Shared memory per CTA: sizeof(T) * (96*C + 32*R + 64*ceil32(N)) bytes for
-// R query rows; the wrapper refuses a band whose bound (R = N) passes the
-// 227 KB a block may use.
+// R query rows in kernel A, without the 96*C weights in kernel C; the
+// wrapper refuses a band whose bound (R = N) passes the 227 KB a block may
+// use.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -73,6 +93,108 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Padded key columns / value rows [N, Np): finite, masked in `attend`.
+template <typename T>
+__device__ __forceinline__ void pad_keys(T* Kt, T* Vs, int N, int Np) {
+  for (int i = threadIdx.x; i < (Np - N) * HD; i += blockDim.x) {
+    const int m = N + i / HD, d = i % HD;
+    Kt[d * Np + m] = from_f<T>(0.f);
+    Vs[m * HD + d] = from_f<T>(0.f);
+  }
+}
+
+// Copy the other CTAs' k and v token slices through distributed shared
+// memory, so that this CTA holds k and v for all N tokens. Every CTA of the
+// cluster calls it after its own slice is in its Kt / Vs.
+template <typename T>
+__device__ __forceinline__ void gather_slices(cg::cluster_group& cluster,
+                                              T* Kt, T* Vs, int N, int Np,
+                                              int R, int S, int rank) {
+  cluster.sync();                           // every slice is in place
+  for (int r = 0; r < S; ++r) {
+    if (r == rank) continue;
+    const int m0 = r * R, m1 = min(N, m0 + R), len = m1 - m0;
+    if (len <= 0) continue;
+    const T* rK = cluster.map_shared_rank(Kt, r);
+    const T* rV = cluster.map_shared_rank(Vs, r);
+    for (int i = threadIdx.x; i < len * HD; i += blockDim.x) {
+      Vs[m0 * HD + i] = rV[m0 * HD + i];
+      const int d = i / len, m = m0 + i % len;
+      Kt[d * Np + m] = rK[d * Np + m];
+    }
+  }
+  cluster.sync();                           // no CTA reads a peer after this
+}
+
+// Attention of query rows [q0, q1) of band g, head h, against all N keys:
+// warp per pair of query rows, online softmax over key tiles of 32. With
+// ROUND_P the unnormalised probabilities are rounded to T before p.v (the
+// row sum keeps them in f32), as the TPU training kernel does.
+template <typename T, bool ROUND_P>
+__device__ __forceinline__ void attend(const T* Qs, const T* Kt, const T* Vs,
+                                       T* __restrict__ o, int g, int h, int N,
+                                       int Np, int C, int q0, int q1,
+                                       float scale) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r = 2 * warp; q0 + r < q1; r += 2 * WARPS) {
+    const bool two = q0 + r + 1 < q1;       // warp-uniform
+    float qa[HD], qb[HD];
+    const float qna = to_f(Qs[r * HD + lane]);
+    const float qnb = two ? to_f(Qs[(r + 1) * HD + lane]) : qna;
+#pragma unroll
+    for (int d = 0; d < HD; ++d) {
+      qa[d] = __shfl_sync(FULL, qna, d);
+      qb[d] = __shfl_sync(FULL, qnb, d);
+    }
+    float ma = -INFINITY, la = 0.f, acca = 0.f;   // acc: channel lane
+    float mb = -INFINITY, lb = 0.f, accb = 0.f;
+    for (int m0 = 0; m0 < N; m0 += 32) {
+      float sa = 0.f, sb = 0.f;
+#pragma unroll
+      for (int d = 0; d < HD; ++d) {
+        const float kd = to_f(Kt[d * Np + m0 + lane]);
+        sa = fmaf(qa[d], kd, sa);
+        sb = fmaf(qb[d], kd, sb);
+      }
+      const bool valid = m0 + lane < N;
+      sa = valid ? sa * scale : -INFINITY;
+      sb = valid ? sb * scale : -INFINITY;
+      const float na = fmaxf(ma, warp_max(sa));  // finite: key m0 exists
+      const float nb = fmaxf(mb, warp_max(sb));
+      float pa = expf(sa - na), pb = expf(sb - nb);
+      const float ca = expf(ma - na), cb = expf(mb - nb);
+      la = la * ca + warp_sum(pa);
+      lb = lb * cb + warp_sum(pb);
+      if (ROUND_P) {
+        pa = to_f(from_f<T>(pa));
+        pb = to_f(from_f<T>(pb));
+      }
+      acca *= ca;
+      accb *= cb;
+      const T* vt = Vs + m0 * HD + lane;
+      if (m0 + 32 <= N) {                   // full tile: unrolled
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          const float vj = to_f(vt[j * HD]);
+          acca = fmaf(__shfl_sync(FULL, pa, j), vj, acca);
+          accb = fmaf(__shfl_sync(FULL, pb, j), vj, accb);
+        }
+      } else {
+        for (int j = 0; j < N - m0; ++j) {
+          const float vj = to_f(vt[j * HD]);
+          acca = fmaf(__shfl_sync(FULL, pa, j), vj, acca);
+          accb = fmaf(__shfl_sync(FULL, pb, j), vj, accb);
+        }
+      }
+      ma = na;
+      mb = nb;
+    }
+    const size_t row = (size_t)g * N + q0 + r;
+    o[row * C + h * HD + lane] = from_f<T>(acca / la);
+    if (two) o[(row + 1) * C + h * HD + lane] = from_f<T>(accb / lb);
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(WARPS * 32)
 band_attention_qkv_kernel(const T* __restrict__ x, const T* __restrict__ w,
@@ -95,11 +217,7 @@ band_attention_qkv_kernel(const T* __restrict__ x, const T* __restrict__ w,
     const int c = i / (3 * HD), j = i % (3 * HD);
     Ws[i] = w[(size_t)c * 3 * C + (j / HD) * C + h * HD + (j % HD)];
   }
-  for (int i = threadIdx.x; i < (Np - N) * HD; i += blockDim.x) {
-    const int m = N + i / HD, d = i % HD;   // padded keys: finite, masked later
-    Kt[d * Np + m] = from_f<T>(0.f);
-    Vs[m * HD + d] = from_f<T>(0.f);
-  }
+  pad_keys(Kt, Vs, N, Np);
   __syncthreads();
 
   // --- projection of this CTA's tokens: warp per TOK tokens, lane = d -----
@@ -141,76 +259,40 @@ band_attention_qkv_kernel(const T* __restrict__ x, const T* __restrict__ w,
     }
   }
 
-  // --- gather the other CTAs' k and v slices (distributed shared memory) --
-  cluster.sync();                           // every slice projected
-  for (int r = 0; r < S; ++r) {
-    if (r == rank) continue;
-    const int m0 = r * R, m1 = min(N, m0 + R), len = m1 - m0;
-    if (len <= 0) continue;
-    const T* rK = cluster.map_shared_rank(Kt, r);
-    const T* rV = cluster.map_shared_rank(Vs, r);
-    for (int i = threadIdx.x; i < len * HD; i += blockDim.x) {
-      Vs[m0 * HD + i] = rV[m0 * HD + i];
-      const int d = i / len, m = m0 + i % len;
-      Kt[d * Np + m] = rK[d * Np + m];
-    }
-  }
-  cluster.sync();                           // no CTA reads a peer after this
+  gather_slices(cluster, Kt, Vs, N, Np, R, S, rank);
+  attend<T, false>(Qs, Kt, Vs, o, g, h, N, Np, C, q0, q1, scale);
+}
 
-  // --- attention: warp per pair of query rows, online softmax ------------
-  for (int r = 2 * warp; q0 + r < q1; r += 2 * WARPS) {
-    const bool two = q0 + r + 1 < q1;       // warp-uniform
-    float qa[HD], qb[HD];
-    const float qna = to_f(Qs[r * HD + lane]);
-    const float qnb = two ? to_f(Qs[(r + 1) * HD + lane]) : qna;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) {
-      qa[d] = __shfl_sync(FULL, qna, d);
-      qb[d] = __shfl_sync(FULL, qnb, d);
-    }
-    float ma = -INFINITY, la = 0.f, acca = 0.f;   // acc: channel lane
-    float mb = -INFINITY, lb = 0.f, accb = 0.f;
-    for (int m0 = 0; m0 < N; m0 += 32) {
-      float sa = 0.f, sb = 0.f;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) {
-        const float kd = to_f(Kt[d * Np + m0 + lane]);
-        sa = fmaf(qa[d], kd, sa);
-        sb = fmaf(qb[d], kd, sb);
-      }
-      const bool valid = m0 + lane < N;
-      sa = valid ? sa * scale : -INFINITY;
-      sb = valid ? sb * scale : -INFINITY;
-      const float na = fmaxf(ma, warp_max(sa));  // finite: key m0 exists
-      const float nb = fmaxf(mb, warp_max(sb));
-      const float pa = expf(sa - na), pb = expf(sb - nb);
-      const float ca = expf(ma - na), cb = expf(mb - nb);
-      la = la * ca + warp_sum(pa);
-      lb = lb * cb + warp_sum(pb);
-      acca *= ca;
-      accb *= cb;
-      const T* vt = Vs + m0 * HD + lane;
-      if (m0 + 32 <= N) {                   // full tile: unrolled
-#pragma unroll
-        for (int j = 0; j < 32; ++j) {
-          const float vj = to_f(vt[j * HD]);
-          acca = fmaf(__shfl_sync(FULL, pa, j), vj, acca);
-          accb = fmaf(__shfl_sync(FULL, pb, j), vj, accb);
-        }
-      } else {
-        for (int j = 0; j < N - m0; ++j) {
-          const float vj = to_f(vt[j * HD]);
-          acca = fmaf(__shfl_sync(FULL, pa, j), vj, acca);
-          accb = fmaf(__shfl_sync(FULL, pb, j), vj, accb);
-        }
-      }
-      ma = na;
-      mb = nb;
-    }
-    const size_t row = (size_t)g * N + q0 + r;
-    o[row * C + h * HD + lane] = from_f<T>(acca / la);
-    if (two) o[(row + 1) * C + h * HD + lane] = from_f<T>(accb / lb);
+// Kernel C: the same cluster layout without the projection. CTA `rank`
+// loads q, k and v of its token slice for head h (a warp per token, lane =
+// channel, so each global read is one 64 or 128 byte row segment), then the
+// slices are exchanged and the rows attended as in kernel A.
+template <typename T>
+__global__ void __launch_bounds__(WARPS * 32)
+band_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o, int N, int C,
+                      float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int h = blockIdx.x, g = blockIdx.y;
+  const int S = gridDim.z, rank = (int)cluster.block_rank();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int Np = (N + 31) & ~31;
+  const int R = (N + S - 1) / S;
+  const int q0 = rank * R, q1 = min(N, q0 + R);
+  T* Qs = reinterpret_cast<T*>(smem_raw);   // [R][HD]
+  T* Kt = Qs + R * HD;                      // [HD][Np]
+  T* Vs = Kt + HD * Np;                     // [Np][HD]
+
+  pad_keys(Kt, Vs, N, Np);
+  for (int n = q0 + warp; n < q1; n += WARPS) {
+    const size_t off = ((size_t)g * N + n) * C + h * HD + lane;
+    Qs[(n - q0) * HD + lane] = q[off];
+    Kt[lane * Np + n] = k[off];
+    Vs[n * HD + lane] = v[off];
   }
+  gather_slices(cluster, Kt, Vs, N, Np, R, S, rank);
+  attend<T, true>(Qs, Kt, Vs, o, g, h, N, Np, C, q0, q1, scale);
 }
 
 int sm_count() {
@@ -225,20 +307,20 @@ int sm_count() {
   return n;
 }
 
-template <typename T>
-cudaError_t launch(const void* x, const void* w, const void* b, void* o,
-                   void* v, int G, int N, int C, int heads, cudaStream_t s) {
-  const int Np = (N + 31) & ~31;
-  // CTAs per (head, band): about two per SM, at most one per 32 tokens
-  const int pairs = G * heads;
-  const int splits = max(1, min(min((2 * sm_count() + pairs - 1) / pairs,
-                                    Np / 32), MAX_CLUSTER));
-  const int R = (N + splits - 1) / splits;
-  const size_t smem = sizeof(T) * ((size_t)3 * HD * C + (size_t)HD * R +
-                                   (size_t)2 * HD * Np);
+// CTAs per (head, band): about two per SM over the grid, at most one per 32
+// tokens and at most the portable cluster size.
+int cluster_splits(int G, int heads, int N) {
+  const int Np = (N + 31) & ~31, pairs = G * heads;
+  return max(1, min(min((2 * sm_count() + pairs - 1) / pairs, Np / 32),
+                    MAX_CLUSTER));
+}
+
+// Launch `kernel` on a (heads, G, splits) grid of clusters of `splits` CTAs.
+template <typename K, typename... Args>
+cudaError_t launch_clusters(K kernel, int G, int heads, int splits,
+                            size_t smem, cudaStream_t s, Args... args) {
   cudaError_t e = cudaFuncSetAttribute(
-      band_attention_qkv_kernel<T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(heads, G, splits);
@@ -252,13 +334,40 @@ cudaError_t launch(const void* x, const void* w, const void* b, void* o,
   attr[0].val.clusterDim.z = splits;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const float scale = (float)(1.0 / sqrt((double)HD));  // f32(hd ** -0.5)
-  e = cudaLaunchKernelEx(&cfg, band_attention_qkv_kernel<T>,
-                         static_cast<const T*>(x), static_cast<const T*>(w),
-                         static_cast<const float*>(b), static_cast<T*>(o),
-                         static_cast<T*>(v), N, C, scale);
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+const float SCALE = (float)(1.0 / sqrt((double)HD));  // f32(hd ** -0.5)
+
+template <typename T>
+cudaError_t launch_qkv(const void* x, const void* w, const void* b, void* o,
+                       void* v, int G, int N, int C, int heads,
+                       cudaStream_t s) {
+  const int Np = (N + 31) & ~31;
+  const int splits = cluster_splits(G, heads, N);
+  const int R = (N + splits - 1) / splits;
+  const size_t smem = sizeof(T) * ((size_t)3 * HD * C + (size_t)HD * R +
+                                   (size_t)2 * HD * Np);
+  return launch_clusters(band_attention_qkv_kernel<T>, G, heads, splits, smem,
+                         s, static_cast<const T*>(x),
+                         static_cast<const T*>(w),
+                         static_cast<const float*>(b), static_cast<T*>(o),
+                         static_cast<T*>(v), N, C, SCALE);
+}
+
+template <typename T>
+cudaError_t launch_attn(const void* q, const void* k, const void* v, void* o,
+                        int G, int N, int C, int heads, cudaStream_t s) {
+  const int Np = (N + 31) & ~31;
+  const int splits = cluster_splits(G, heads, N);
+  const int R = (N + splits - 1) / splits;
+  const size_t smem = sizeof(T) * ((size_t)HD * R + (size_t)2 * HD * Np);
+  return launch_clusters(band_attention_kernel<T>, G, heads, splits, smem, s,
+                         static_cast<const T*>(q), static_cast<const T*>(k),
+                         static_cast<const T*>(v), static_cast<T*>(o), N, C,
+                         SCALE);
 }
 
 }  // namespace
@@ -272,9 +381,25 @@ extern "C" int yolou_band_attention_qkv(const void* x, const void* w,
   if (G <= 0 || N <= 0 || heads <= 0 || C != heads * HD || G > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch<float>(x, w, b, o, v, G, N, C, heads, s);
+  if (dtype == 0)
+    return (int)launch_qkv<float>(x, w, b, o, v, G, N, C, heads, s);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(x, w, b, o, v, G, N, C, heads, s);
+    return (int)launch_qkv<__nv_bfloat16>(x, w, b, o, v, G, N, C, heads, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// q, k, v, o: (G, N, C) of the I/O type, head-major channels, C = heads * 32.
+// dtype 0 = float32, 1 = bfloat16. Returns the launch status.
+extern "C" int yolou_band_attention(const void* q, const void* k,
+                                    const void* v, void* o, int G, int N,
+                                    int C, int heads, int dtype,
+                                    void* stream) {
+  if (G <= 0 || N <= 0 || heads <= 0 || C != heads * HD || G > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)launch_attn<float>(q, k, v, o, G, N, C, heads, s);
+  if (dtype == 1)
+    return (int)launch_attn<__nv_bfloat16>(q, k, v, o, G, N, C, heads, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,7 +1,17 @@
-"""Kernel A: qkv projection + multi-head band attention (CUDA, sm_90a).
+"""Band attention kernels (CUDA, sm_90a). Source: `../csrc/band_attention.cu`.
 
-Replaces the TPU kernel `yolou_tpu/ops/pallas_attn.py::area_attention_qkv_fused`
-(body `_qkv_attn_kernel`). Source: `../csrc/band_attention.cu`.
+Kernel A, `area_attention_qkv_fused`: folded qkv projection + multi-head band
+attention, the eval path. Replaces the TPU kernel
+`yolou_tpu/ops/pallas_attn.py::area_attention_qkv_fused` (body
+`_qkv_attn_kernel`).
+
+Kernel C, `area_attention_fused` and `area_attention`: attention over given
+q, k, v, the training path, differentiable. Replaces the TPU kernels
+`area_attention_fused` (body `_fused_kernel`) and `area_attention` (body
+`_attn_kernel`) of the same file; the second is the first with one head. As
+in the JAX package only the forward is a kernel: the backward recomputes the
+softmax in f32 with plain tensor operations, term for term what `_aaf_bwd`
+and `_aa_bwd` do there.
 """
 
 from __future__ import annotations
@@ -35,12 +45,14 @@ def area_attention_qkv_fused_plain(x: torch.Tensor, w: torch.Tensor,
     return o.to(x.dtype), v.contiguous()
 
 
-def smem_bytes(n: int, c: int, dtype: torch.dtype) -> int:
+def smem_bytes(n: int, c: int, dtype: torch.dtype,
+               projection: bool = True) -> int:
     """Upper bound on one CTA's dynamic shared memory in band_attention.cu
-    (a CTA holds at most N query rows)."""
+    (a CTA holds at most N query rows; kernel A also its head's weights)."""
     n_pad = -(-n // 32) * 32
     elt = torch.empty((), dtype=dtype).element_size()
-    return elt * (3 * HEAD_DIM * c + HEAD_DIM * n + 2 * HEAD_DIM * n_pad)
+    weights = 3 * HEAD_DIM * c if projection else 0
+    return elt * (weights + HEAD_DIM * n + 2 * HEAD_DIM * n_pad)
 
 
 def _check(x, w, b, heads):
@@ -99,3 +111,142 @@ def area_attention_qkv_fused(x: torch.Tensor, w: torch.Tensor,
 
 
 area_attention_qkv_fused.launches = 0
+
+
+# ------------------------------------------------------------- kernel C
+
+def _heads_view(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """(G, N, C) head-major channels -> (G, heads, N, hd)."""
+    g, n, c = t.shape
+    return t.reshape(g, n, heads, c // heads).transpose(1, 2)
+
+
+def area_attention_fused_plain(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, heads: int) -> torch.Tensor:
+    """Plain PyTorch version, the math of the JAX package's
+    `area_attention_fused_reference`: per head softmax(q k^T / sqrt(hd)) in
+    f32, probabilities rounded to v.dtype, p.v accumulated in f32, heads
+    concatenated back to C. Differentiable by autograd."""
+    g, n, c = q.shape
+    hd = c // heads
+    s = torch.matmul(_heads_view(q, heads).float(),
+                     _heads_view(k, heads).float().transpose(-1, -2)) * hd ** -0.5
+    p = s.softmax(-1).to(v.dtype).float()
+    o = torch.matmul(p, _heads_view(v, heads).float())
+    return o.transpose(1, 2).reshape(g, n, c).to(q.dtype)
+
+
+def area_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor) -> torch.Tensor:
+    """Plain single-head version over (G, N, hd), the math of the JAX
+    package's `area_attention_reference`."""
+    return area_attention_fused_plain(q, k, v, 1)
+
+
+def _check_qkv(q, k, v, heads):
+    if q.dim() != 3:
+        raise ValueError(f"q must be (G, N, C), got {tuple(q.shape)}")
+    g, n, c = q.shape
+    if heads <= 0 or c % heads:
+        raise ValueError(f"C={c} is not a multiple of heads={heads}")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"q dtype {q.dtype} not in {list(_DTYPE_CODE)}")
+    if not (k.dtype == v.dtype == q.dtype):
+        raise TypeError(f"q, k and v must share a dtype, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    if not (k.shape == v.shape == q.shape):
+        raise ValueError(f"q, k and v must share a shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v must be on one device")
+    return g, n, c
+
+
+def _launch_band_attention(q, k, v, heads):
+    """Launch kernel C on contiguous CUDA tensors; returns o."""
+    g, n, c = q.shape
+    if c // heads != HEAD_DIM:
+        raise ValueError(f"the CUDA kernel needs head_dim {HEAD_DIM}, "
+                         f"got {c // heads}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("q, k and v must be contiguous")
+    need = smem_bytes(n, c, q.dtype, projection=False)
+    if need > _SMEM_LIMIT:
+        raise ValueError(f"band of N={n} needs {need} B of shared memory")
+    lib = build.load()
+    o = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.yolou_band_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g, n, c,
+            heads, _DTYPE_CODE[q.dtype], stream)
+    build.check(lib, code, "band attention (training) kernel")
+    return o
+
+
+def attention_backward(q, k, v, do, heads: int):
+    """(dq, dk, dv) of `area_attention_fused` for the cotangent `do`: scores
+    and softmax recomputed in f32, ds = p * (dp - sum(dp * p)), results cast
+    to the inputs' types."""
+    g, n, c = q.shape
+    scale = (c // heads) ** -0.5
+    qh, kh, vh, doh = (_heads_view(t, heads).float() for t in (q, k, v, do))
+    p = (torch.matmul(qh, kh.transpose(-1, -2)) * scale).softmax(-1)
+    dv = torch.matmul(p.transpose(-1, -2), doh)
+    dp = torch.matmul(doh, vh.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dq = torch.matmul(ds, kh) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qh) * scale
+
+    def back(t, ref):
+        return t.transpose(1, 2).reshape(g, n, c).to(ref.dtype)
+
+    return back(dq, q), back(dk, k), back(dv, v)
+
+
+class _BandAttention(torch.autograd.Function):
+    """Forward: kernel C on a CUDA tensor (counted on `wrapper`, the public
+    function called), the plain version on a CPU tensor. Backward, on both:
+    `attention_backward`; saves q, k, v only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, heads, wrapper):
+        _check_qkv(q, k, v, heads)
+        if q.device.type == "cpu":
+            o = area_attention_fused_plain(q, k, v, heads)
+        elif q.device.type == "cuda":
+            o = _launch_band_attention(q, k, v, heads)
+            wrapper.launches += 1
+        else:
+            raise RuntimeError(f"no kernel for device {q.device}")
+        ctx.save_for_backward(q, k, v)
+        ctx.heads, ctx.wrapper = heads, wrapper
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        ctx.wrapper.backward_calls += 1
+        return (*attention_backward(q, k, v, do, ctx.heads), None, None)
+
+
+def area_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         heads: int) -> torch.Tensor:
+    """Multi-head softmax attention over (G, N, C) bands, C = heads * hd with
+    head-major channels (channel = h * hd + d): per head
+    softmax(q_h k_h^T / sqrt(hd)) v_h, outputs concatenated back to C.
+    float32 or bfloat16, contiguous, any N >= 1. Differentiable."""
+    return _BandAttention.apply(q, k, v, heads, area_attention_fused)
+
+
+def area_attention(q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor) -> torch.Tensor:
+    """Single-head softmax attention over (G, N, hd) bands: the same kernel
+    with heads = 1. Differentiable."""
+    return _BandAttention.apply(q, k, v, 1, area_attention)
+
+
+for _fn in (area_attention_fused, area_attention):
+    _fn.launches = 0         # forward kernel launches
+    _fn.backward_calls = 0   # calls of the backward

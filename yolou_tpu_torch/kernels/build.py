@@ -79,6 +79,9 @@ def load() -> ctypes.CDLL:
         lib.yolou_band_attention_qkv.argtypes = [vp, vp, vp, vp, vp,
                                                  ci, ci, ci, ci, ci, vp]
         lib.yolou_band_attention_qkv.restype = ci
+        lib.yolou_band_attention.argtypes = [vp, vp, vp, vp,
+                                             ci, ci, ci, ci, ci, vp]
+        lib.yolou_band_attention.restype = ci
         lib.yolou_greedy_nms.argtypes = [vp, vp, vp, vp, ci, ci, cf, vp]
         lib.yolou_greedy_nms.restype = ci
         lib.yolou_error_string.argtypes = [ci]

@@ -3,7 +3,8 @@
 Counterpart of `yolou_tpu/models/yolo.py`. The module tree is ultralytics'
 (`model.{i}.<...>`), so released state_dicts load unchanged. `forward`
 returns a `YoloOutputs` whose `raw` tuple holds the per-level NCHW maps and
-whose `preds` is the (B, N, 4+nc[+nm]) tensor NMS consumes. The JAX TPU
+whose `preds` is the (B, N, 4+nc[+nm]) tensor NMS consumes (None in training
+mode: the loss reads `raw`, `mask_coefs` and `protos`). The JAX TPU
 options `stem_s2d`, `fuse_cls_entry`, `pad_head_p5` and `mega_kernel` are
 layout rewrites of the same function and are not carried over.
 """
@@ -164,9 +165,11 @@ class YOLOModel(nn.Module):
             return YoloOutputs(raw=(), preds=None, mask_coefs=None,
                                protos=None, taps=tap_out)
         raw, mc, protos = head_out
-        preds = decode_detections(raw, spec.strides, spec.nc, spec.reg_max)
-        if mc is not None:
-            preds = torch.cat([preds, mc.to(preds.dtype)], -1)
+        preds = None
+        if not self.training:
+            preds = decode_detections(raw, spec.strides, spec.nc, spec.reg_max)
+            if mc is not None:
+                preds = torch.cat([preds, mc.to(preds.dtype)], -1)
         return YoloOutputs(raw=raw, preds=preds, mask_coefs=mc, protos=protos,
                            taps=tap_out)
 
@@ -190,14 +193,29 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
+def resolve_device(device: torch.device | str | None) -> torch.device:
+    """The device an entry point runs on: `device` as given, the current
+    CUDA device for None. Raises where None is given and there is no GPU, so
+    that nothing runs on the CPU unasked."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: this package runs on the GPU by default; pass "
+            "device=\"cpu\" to run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 def build_yolo(arch: str = "yolov12", variant: str = "n", nc: int = 1,
                ch: int = 4, task: str = "detect",
                dtype: torch.dtype = torch.float32,
-               device: torch.device | str = "cpu",
+               device: torch.device | str | None = None,
                seed: Optional[int] = None) -> YOLOModel:
-    """Build a model in eval mode on `device`. With `seed`, weights are drawn
-    from a `torch.Generator` seeded with it; otherwise they keep torch's
-    default init and are meant to be replaced by `load_state_dict`."""
+    """Build a model in eval mode on `device`; None means the GPU (an error
+    where there is none: pass "cpu" to ask for the CPU). With `seed`, weights
+    are drawn from a `torch.Generator` seeded with it; otherwise they keep
+    torch's default init and are meant to be replaced by `load_state_dict`."""
+    device = resolve_device(device)
     model = YOLOModel(parse_model_spec(arch, variant, nc, ch, task), dtype)
     if seed is not None:
         init_weights(model, torch.Generator().manual_seed(seed))

@@ -7,8 +7,12 @@ At eval AAttn takes the JAX package's fused path: the qkv 1x1 conv and its
 BatchNorm fold into one affine (C, 3C) whose output channels are permuted to
 role-major q | k | v thirds, and `kernels.attention.area_attention_qkv_fused`
 computes the projection and the per-head band softmax attention in one
-kernel. The module itself holds qkv in ultralytics' head-major interleave,
-so released checkpoints load unchanged.
+kernel. In training mode the qkv conv and its BatchNorm (batch statistics)
+run unfolded and `kernels.attention.area_attention_fused` attends over their
+output. The module itself holds qkv in ultralytics' head-major interleave,
+so released checkpoints load unchanged; the permutation to the kernels'
+role-major layout is applied to the folded weight at eval and to the conv's
+output channels (as a strided copy) in training.
 """
 
 from __future__ import annotations
@@ -17,7 +21,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..kernels.attention import area_attention_qkv_fused
+from ..kernels.attention import (area_attention_fused,
+                                 area_attention_qkv_fused)
 from .blocks import C3k, Conv
 
 
@@ -60,16 +65,22 @@ class AAttn(nn.Module):
         return w.t().contiguous().to(dtype), b[self.perm].contiguous()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "AAttn runs at eval only: the training path needs the "
-                "area_attention_fused kernel and its backward, not ported yet")
         B, C, H, W = x.shape
         n = H * W
         area = self.area if n % self.area == 0 else 1
-        w, b = self.folded_qkv(x.dtype)
-        xt = x.flatten(2).transpose(1, 2).reshape(B * area, n // area, C)
-        o, v = area_attention_qkv_fused(xt.contiguous(), w, b, self.num_heads)
+        if self.training:
+            # the conv's channels are (head, role, d): taking one role of
+            # every head is the permutation to role-major, as a strided copy
+            tokens = self.qkv(x).flatten(2).transpose(1, 2).reshape(
+                B * area, n // area, self.num_heads, 3, self.head_dim)
+            q, k, v = (tokens[..., role, :].reshape(B * area, n // area, C)
+                       for role in range(3))
+            o = area_attention_fused(q, k, v, self.num_heads)
+        else:
+            w, b = self.folded_qkv(x.dtype)
+            xt = x.flatten(2).transpose(1, 2).reshape(B * area, n // area, C)
+            o, v = area_attention_qkv_fused(xt.contiguous(), w, b,
+                                            self.num_heads)
 
         def spatial(t):
             return t.reshape(B, H, W, C).permute(0, 3, 1, 2)

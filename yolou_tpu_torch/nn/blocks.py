@@ -35,6 +35,30 @@ def conv_in_dtype(m: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     return m._conv_forward(x, m.weight.to(x.dtype), b)
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """`torch.nn.BatchNorm2d` whose running variance follows flax's
+    `nn.BatchNorm`, as the JAX package's does: in training mode the running
+    variance takes in the *biased* batch variance, where torch takes the
+    unbiased one (a factor n / (n - 1), n = values per channel). Outputs,
+    gradients, the running mean, eval mode and the state_dict keys are
+    torch's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        n = x.numel() // x.shape[1]
+        m = self.momentum
+        # torch folds the unbiased variance u into the buffer it is handed:
+        # new = (1-m) old + m u. Hand it a copy (autograd keeps that one),
+        # then write (1-m) old + m u (n-1)/n into the real buffer.
+        new = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, new, self.weight, self.bias,
+                         True, m, self.eps)
+        self.running_var.mul_(1.0 - m).lerp_(new, 1.0 - 1.0 / n)
+        self.num_batches_tracked.add_(1)
+        return y
+
+
 class Conv(nn.Module):
     """Conv2d (no bias) + BatchNorm2d + SiLU: ultralytics `Conv`, JAX
     `ConvBNAct`."""
@@ -44,7 +68,7 @@ class Conv(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, None, d), dilation=d,
                               groups=g, bias=False)
-        self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.bn = BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = nn.SiLU() if act else nn.Identity()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

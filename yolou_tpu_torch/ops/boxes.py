@@ -5,6 +5,7 @@ Counterparts of `yolou_tpu/ops/boxes.py`.
 
 from __future__ import annotations
 
+import math
 from typing import Sequence, Tuple
 
 import torch
@@ -14,6 +15,12 @@ def xywh2xyxy(x: torch.Tensor) -> torch.Tensor:
     """(cx, cy, w, h) -> (x1, y1, x2, y2)."""
     cx, cy, w, h = x.unbind(-1)
     return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
+
+
+def xyxy2xywh(x: torch.Tensor) -> torch.Tensor:
+    """(x1, y1, x2, y2) -> (cx, cy, w, h)."""
+    x1, y1, x2, y2 = x.unbind(-1)
+    return torch.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1], -1)
 
 
 def box_area(box: torch.Tensor) -> torch.Tensor:
@@ -30,6 +37,33 @@ def box_iou(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-7) -> torch.Tensor
     inter = wh[..., 0] * wh[..., 1]
     union = box_area(a)[..., :, None] + box_area(b)[..., None, :] - inter
     return inter / (union + eps)
+
+
+def bbox_iou_aligned(box1: torch.Tensor, box2: torch.Tensor,
+                     xywh: bool = False, ciou: bool = False,
+                     eps: float = 1e-7) -> torch.Tensor:
+    """Elementwise IoU / CIoU of aligned, broadcastable (..., 4) boxes
+    (ultralytics `bbox_iou`; CIoU's alpha carries no gradient)."""
+    if xywh:
+        box1, box2 = xywh2xyxy(box1), xywh2xyxy(box2)
+    b1x1, b1y1, b1x2, b1y2 = box1.unbind(-1)
+    b2x1, b2y1, b2x2, b2y2 = box2.unbind(-1)
+    w1, h1 = b1x2 - b1x1, b1y2 - b1y1 + eps
+    w2, h2 = b2x2 - b2x1, b2y2 - b2y1 + eps
+    inter = ((torch.minimum(b1x2, b2x2) - torch.maximum(b1x1, b2x1)).clamp(min=0)
+             * (torch.minimum(b1y2, b2y2) - torch.maximum(b1y1, b2y1)).clamp(min=0))
+    union = w1 * h1 + w2 * h2 - inter + eps
+    iou = inter / union
+    if not ciou:
+        return iou
+    cw = torch.maximum(b1x2, b2x2) - torch.minimum(b1x1, b2x1)
+    ch = torch.maximum(b1y2, b2y2) - torch.minimum(b1y1, b2y1)
+    c2 = cw ** 2 + ch ** 2 + eps
+    rho2 = (((b2x1 + b2x2) - (b1x1 + b1x2)) ** 2
+            + ((b2y1 + b2y2) - (b1y1 + b1y2)) ** 2) / 4.0
+    v = (4 / math.pi ** 2) * (torch.atan(w2 / h2) - torch.atan(w1 / h1)) ** 2
+    alpha = (v / (v - iou + (1 + eps))).detach()
+    return iou - (rho2 / c2 + v * alpha)
 
 
 def make_anchors(feat_shapes: Sequence[Tuple[int, int]], strides: Sequence[int],
@@ -57,6 +91,14 @@ def dist2bbox(distance: torch.Tensor, anchor_points: torch.Tensor,
     if xywh:
         return torch.cat([(x1y1 + x2y2) / 2, x2y2 - x1y1], -1)
     return torch.cat([x1y1, x2y2], -1)
+
+
+def bbox2dist(anchor_points: torch.Tensor, bbox: torch.Tensor,
+              reg_max: int) -> torch.Tensor:
+    """Inverse of dist2bbox for DFL targets: xyxy boxes -> clamped (l,t,r,b)."""
+    x1y1, x2y2 = bbox.chunk(2, -1)
+    d = torch.cat([anchor_points - x1y1, x2y2 - anchor_points], -1)
+    return d.clamp(0, reg_max - 1 - 0.01)
 
 
 def dfl_decode(pred_distri: torch.Tensor, reg_max: int = 16) -> torch.Tensor:

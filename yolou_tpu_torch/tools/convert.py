@@ -14,6 +14,10 @@ here so that this package never imports JAX:
 
 plus the non-learned keys of released checkpoints: `num_batches_tracked`
 (0) per BatchNorm and the head's fixed DFL projection.
+
+`variables_from_state_dict` is the way back, for holding a state the port
+has trained (parameters, EMA, BatchNorm running statistics) against the JAX
+package's after the same steps.
 """
 
 from __future__ import annotations
@@ -89,22 +93,27 @@ def _qkv_modules(params) -> Dict[Tuple[str, ...], np.ndarray]:
     return inv
 
 
-def state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
-    """JAX YOLO variables (nested dicts of numpy arrays) -> state_dict."""
+def _leaves(variables: Dict):
+    """(collection, path, leaf, qkv inverse permutation or None) per leaf."""
     inv_qkv = _qkv_modules(variables.get("params", {}))
-    out: Dict[str, np.ndarray] = {}
     for coll in ("params", "batch_stats"):
         for path, leaf in _flatten(variables.get(coll, {})).items():
-            arr = np.asarray(leaf)
-            if np.issubdtype(arr.dtype, np.floating):
-                arr = arr.astype(np.float32)
-            inv = inv_qkv.get(path[:-2])
-            if inv is not None:
-                arr = arr[..., inv] if arr.ndim == 4 else arr[inv]
-            name = torch_name(path, coll)
-            if name in out:
-                raise ValueError(f"duplicate torch name {name} from {path}")
-            out[name] = _torch_layout(arr, path)
+            yield coll, path, leaf, inv_qkv.get(path[:-2])
+
+
+def state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """JAX YOLO variables (nested dicts of numpy arrays) -> state_dict."""
+    out: Dict[str, np.ndarray] = {}
+    for coll, path, leaf, inv in _leaves(variables):
+        arr = np.asarray(leaf)
+        if np.issubdtype(arr.dtype, np.floating):
+            arr = arr.astype(np.float32)
+        if inv is not None:
+            arr = arr[..., inv] if arr.ndim == 4 else arr[inv]
+        name = torch_name(path, coll)
+        if name in out:
+            raise ValueError(f"duplicate torch name {name} from {path}")
+        out[name] = _torch_layout(arr, path)
     for name in list(out):
         if name.endswith(".running_mean"):
             out[name[:-len("running_mean")] + "num_batches_tracked"] = (
@@ -115,3 +124,29 @@ def state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
             out[f"{m.group(1)}.dfl.conv.weight"] = (
                 np.arange(reg_max, dtype=np.float32).reshape(1, reg_max, 1, 1))
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+
+
+def variables_from_state_dict(state_dict: Dict[str, torch.Tensor],
+                              like: Dict) -> Dict:
+    """The inverse of `state_dict_from_jax`: a tree of numpy arrays with the
+    structure (and leaf shapes) of the JAX variables `like`, filled from
+    `state_dict`. Keys without a JAX counterpart (`num_batches_tracked`, the
+    DFL projection) are left behind."""
+    out: Dict = {}
+    for coll, path, leaf, inv in _leaves(like):
+        arr = state_dict[torch_name(path, coll)].detach().cpu().numpy()
+        if arr.ndim == 4:
+            if "upsample" in path:
+                arr = arr.transpose(2, 3, 0, 1)[::-1, ::-1]
+            else:
+                arr = arr.transpose(2, 3, 1, 0)
+        if inv is not None:
+            perm = np.argsort(inv)
+            arr = arr[..., perm] if arr.ndim == 4 else arr[perm]
+        if arr.shape != np.shape(leaf):
+            raise ValueError(f"{path}: {arr.shape} != {np.shape(leaf)}")
+        node = out.setdefault(coll, {})
+        for seg in path[:-1]:
+            node = node.setdefault(seg, {})
+        node[path[-1]] = np.ascontiguousarray(arr)
+    return out
