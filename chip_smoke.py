@@ -7,11 +7,12 @@ Phases, one or more output lines each:
   1. device  - the card (nvidia-smi name and power limit), torch and CUDA;
   2. build   - nvcc builds the kernels from yolou_tpu_torch/csrc;
   3. kernels - each CUDA kernel against its plain PyTorch version on the card,
-               at the shapes the serving and training paths give it, with
-               CUDA-event times of the kernel, the plain version and, where
-               one PyTorch call computes the same function, that call; the
-               training attention's gradients against autograd through the
-               plain version;
+               at the shapes the serving, training and evaluation paths give
+               it, with CUDA-event times of the kernel, the plain version
+               and, where one PyTorch call computes the same function, that
+               call; the training attention's gradients against autograd
+               through the plain version; the whole-A2C2f kernel also beside
+               the staged A2C2f module on the same weights;
   4. serve   - a Predictor with seeded random yolov12n-seg weights (4 ch,
                nc=1, 640^2, bf16) answers 3 requests of 8 uint8 images; the
                kernels' launch counters must show the path went through them;
@@ -28,6 +29,18 @@ Phases, one or more output lines each:
                caller of the single-head attention entry point) at batch 8,
                at shapes phase 3 has checked; both attention entry points
                must have launched.
+  7. serve-mega - the same weights with `build_yolo(mega_kernel=True)`: 3
+               requests of 8; the whole-A2C2f kernel must launch twice a
+               forward and the band attention kernel never; detections on
+               every image; the batch-8 forward timed with the flag off and
+               on; then f32 on the card, 2 images, flag on against flag off.
+  8. evaluate - YOLO-Seg++ (`build_segpp`, bf16) with the same detector
+               weights and a seeded decoder; an Evaluator at 160^2, batch 16,
+               takes 3 batches of seeded images and elliptic masks from
+               memory with HD95 on: 8 band attention launches and one NMS
+               launch a step, 48 images, finite Dice, precision and recall in
+               [0, 1]; images/s and the step's parts; then one f32 step on
+               the card against the CPU.
 Then a JSON line of kernel results (each kernel's launches on its path, error,
 times, and the least time the card could take), the nvidia-smi line again,
 and last {"ok": true, "device": {...}}. Any failure raises: exit code
@@ -48,6 +61,9 @@ IMGSZ = 640
 BATCH = 8
 REQUESTS = 3
 TRAIN_STEPS = 3
+EVAL_IMGSZ = 160
+EVAL_BATCH = 16
+EVAL_BATCHES = 3
 ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 BN_STD = 0.1
@@ -102,8 +118,10 @@ def check_attention(device):
     from yolou_tpu_torch.kernels.attention import (
         area_attention_qkv_fused, area_attention_qkv_fused_plain)
     f32_exact(torch)
+    # serving: 640^2, batch 8; evaluation: 160^2, batch 16
     cases = [("L6@640", 4 * BATCH, 400, 64, 2), ("L8@640", BATCH, 400, 128, 4),
-             ("L6@160", 4 * BATCH, 25, 64, 2), ("L8@160", BATCH, 25, 128, 4)]
+             ("L6@160", 4 * EVAL_BATCH, 25, 64, 2),
+             ("L8@160", EVAL_BATCH, 25, 128, 4)]
     rng = np.random.default_rng(SEED)
     worst, times = 0.0, {}
     for name, g, n, c, heads in cases:
@@ -222,6 +240,112 @@ def check_training_attention(device):
     worst = max(r["max_abs_err"] for (name, _), r in results.items()
                 if not name.endswith("single"))
     return results, worst
+
+
+# ------------------------------------------------- the whole-A2C2f kernel
+
+def a2c2f_work(shape, c_, c2, n_stages, area, elt):
+    """(bytes, operations) of one A2C2f block: x read, out written, each
+    weight read once; the GEMMs, the per-head score and p.v products (width
+    32 each, so 4 nb c_ a token) and the 49-tap stencil."""
+    B, H, W, cin = shape
+    tokens, nb = B * H * W, H * W // area
+    per_block = 2 * c_ * (3 * c_ + c_ + 2 * c_ + 2 * c_)
+    gemm = 2 * cin * c_ + 2 * n_stages * per_block + 2 * (n_stages + 1) * c_ * c2
+    flops = tokens * (gemm + 2 * n_stages * (4 * nb * c_ + 2 * 49 * c_))
+    weights = (cin * c_ + 2 * n_stages * per_block // 2
+               + (n_stages + 1) * c_ * c2)
+    small = 4 * (c_ + c2 + 2 * n_stages * (3 * c_ + 49 * c_ + c_ + c_ + 2 * c_ + c_))
+    return elt * (tokens * (cin + c2) + weights) + small, flops
+
+
+def seeded_a2c2f(c1: int, c2: int, n: int, area: int, device, seed: int):
+    """A seeded A2C2f attention block in eval mode whose BatchNorms carry
+    random statistics (so that folding them is not the identity) and a scale
+    near 0.3, which keeps the block's activations of order 1."""
+    import torch
+    from torch import nn
+    from yolou_tpu_torch.models.yolo import init_weights
+    from yolou_tpu_torch.nn.attention import A2C2f
+    gen = torch.Generator().manual_seed(seed)
+    m = init_weights(A2C2f(c1, c2, n, a2=True, area=area), gen)
+    with torch.no_grad():
+        for bn in (b for b in m.modules() if isinstance(b, nn.BatchNorm2d)):
+            shape = bn.weight.shape
+            bn.weight.copy_(0.3 + 0.03 * torch.randn(shape, generator=gen))
+            bn.bias.copy_(0.1 * torch.randn(shape, generator=gen))
+            bn.running_mean.copy_(0.1 * torch.randn(shape, generator=gen))
+            bn.running_var.copy_(0.5 + 0.5 * torch.rand(shape, generator=gen))
+    return m.to(device).eval()
+
+
+def check_a2c2f(device):
+    """`a2c2f_fused` against its plain version at the two shapes the serving
+    path gives it with `mega_kernel=True` (yolov12n layers 6 and 8 at 640^2,
+    batch 8) and at a small shape with four bands, f32 and bf16; times of
+    the kernel, of the plain version and of the staged `A2C2f.forward` on
+    the same weights (about 80 launches with the band attention kernel
+    inside: the route the kernel replaces, and the yardstick, since no one
+    PyTorch call computes the block)."""
+    import torch
+    from yolou_tpu_torch.kernels.a2c2f import a2c2f_fused, a2c2f_fused_plain
+    f32_exact(torch)
+    cases = [("L6@640", (BATCH, 40, 40, 128), 128, 2, 4),
+             ("L8@640", (BATCH, 20, 20, 256), 256, 2, 1),
+             ("small", (2, 16, 16, 64), 64, 1, 4)]
+    rng = np.random.default_rng(SEED + 6)
+    results = {}
+    for i, (name, shape, c2, n, area) in enumerate(cases):
+        module = seeded_a2c2f(shape[-1], c2, n, area, device, SEED + i)
+        heads, c_ = module.num_heads, c2 // 2
+        x = rng.normal(size=shape).astype(np.float32)
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = dtype_name(dtype)
+            xt = torch.from_numpy(x).to(device, dtype)
+            with torch.no_grad():
+                ws = module.folded_weights(dtype)
+                out = a2c2f_fused(xt, ws, n, area, heads)
+                torch.cuda.synchronize()
+                ref = a2c2f_fused_plain(xt, ws, n, area, heads)
+                x_nchw = xt.permute(0, 3, 1, 2).contiguous()
+                staged = module(x_nchw).permute(0, 2, 3, 1)
+                err = (out.float() - ref.float()).abs().max().item()
+                staged_err = (out.float() - staged.float()).abs().max().item()
+                ms = cuda_ms(lambda: a2c2f_fused(xt, ws, n, area, heads))
+                plain_ms = cuda_ms(
+                    lambda: a2c2f_fused_plain(xt, ws, n, area, heads))
+                staged_ms = cuda_ms(lambda: module(x_nchw))
+            nbytes, flops = a2c2f_work(shape, c_, c2, n, area,
+                                       xt.element_size())
+            bound_ms, bound_by = bound(nbytes, flops, dn)
+            # bf16: ATTN_TOL's absolute bound says little of outputs under
+            # 1, so the error is also held to 2**-6 of the largest output (a
+            # few bf16 steps there); the staged module rounds at other
+            # points, so it gets twice the kernel's tolerance
+            out_max = ref.abs().max().item()
+            tol = ATTN_TOL[dn]
+            if dtype == torch.bfloat16:
+                tol = min(tol, 2.0 ** -6 * out_max)
+            staged_tol = tol if dtype == torch.float32 else 2 * tol
+            log("kernel", name="a2c2f", case=name,
+                shape=f"{shape}c_{c_}n{n}a{area}h{heads}", dtype=dn,
+                max_abs_err=err, tol=tol, out_abs_max=out_max,
+                vs_staged_max_abs=staged_err, staged_tol=staged_tol, ms=ms,
+                plain_ms=plain_ms, staged_ms=staged_ms, bound_ms=bound_ms,
+                bound_by=bound_by, gflop=flops / 1e9)
+            if not (torch.isfinite(out).all() and err <= tol):
+                raise AssertionError(f"a2c2f {name} {dn}: max|d| {err} > "
+                                     f"{tol} or non-finite")
+            if not staged_err <= staged_tol:
+                raise AssertionError(f"a2c2f {name} {dn}: kernel vs the "
+                                     f"staged module {staged_err} > "
+                                     f"{staged_tol}")
+            results[(name, dn)] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "staged_ms": staged_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None}
+    worst = max(r["max_abs_err"] for r in results.values())
+    return dict(results[("L6@640", "bfloat16")], max_abs_err=worst)
 
 
 # ------------------------------------------------------------- kernel B
@@ -350,21 +474,21 @@ def seeded_state_dict():
     return warm_start_detect_bias(model).state_dict()
 
 
-def build_model(state_dict, device, dtype):
+def build_model(state_dict, device, dtype, mega_kernel=False):
     from yolou_tpu_torch.models.yolo import build_yolo
     model = build_yolo("yolov12", "n", nc=1, ch=4, task="segment",
-                       dtype=dtype, device=device)
+                       dtype=dtype, device=device, mega_kernel=mega_kernel)
     model.load_state_dict(state_dict, strict=True)
     return model
 
 
-def serve(state_dict, device, dtype, requests):
+def serve(state_dict, device, dtype, requests, mega_kernel=False):
     """Drive the Predictor over `requests` (list of uint8 stacks); returns
     per-request detections and times."""
     import torch
     from yolou_tpu_torch.engine.predictor import Predictor
-    predictor = Predictor(build_model(state_dict, device, dtype), imgsz=IMGSZ,
-                          batch_size=BATCH)
+    predictor = Predictor(build_model(state_dict, device, dtype, mega_kernel),
+                          imgsz=IMGSZ, batch_size=BATCH)
     stats = []
     for r, imgs in enumerate(requests):
         t0 = time.perf_counter()
@@ -452,6 +576,177 @@ def compare_f32(state_dict, device, imgs):
     if clear_bad or not ident:
         raise AssertionError("f32 kept-box sets differ between card and cpu")
     return err
+
+
+def compare_mega(state_dict, device, requests):
+    """`mega_kernel=True` against the staged model on the same weights: the
+    batch-8 bf16 forward timed in turns (staged, mega, mega, staged; CUDA
+    events and a profiler window each), then f32 on the card, 2 images:
+    preds within the tolerance `compare_f32` uses."""
+    import torch
+    from yolou_tpu_torch.ops.letterbox import letterbox_batch
+    f32_exact(torch)
+    imgs = torch.from_numpy(requests[0]).to(device)
+    x = letterbox_batch(imgs, (IMGSZ, IMGSZ)).permute(0, 3, 1, 2).contiguous()
+    models = {mega: build_model(state_dict, device, torch.bfloat16, mega)
+              for mega in (False, True)}
+    times = {False: [], True: []}
+    with torch.no_grad():
+        for mega in (False, True, True, False):
+            times[mega].append(cuda_ms(lambda: models[mega](x), iters=10))
+        prof = {mega: profile_step(lambda: models[mega](x))
+                for mega in (False, True)}
+        f32 = {mega: build_model(state_dict, device, torch.float32, mega)(
+            x[:2].float()).preds for mega in (False, True)}
+    err = (f32[True] - f32[False]).abs().max().item()
+    log("serve-mega", check="forward, batch 8, bf16",
+        staged_ms=times[False], mega_ms=times[True],
+        staged_device_ms=prof[False][0], staged_launches=prof[False][1],
+        mega_device_ms=prof[True][0], mega_launches=prof[True][1])
+    log("serve-mega", check="f32 mega vs staged", images=2,
+        preds_max_abs=err, tol=1e-3)
+    if not err <= 1e-3:
+        raise AssertionError(f"f32 preds mega vs staged: {err} > 1e-3")
+
+
+# ------------------------------------------------------------- evaluation
+
+def make_eval_batches(rng, batches, batch, hw):
+    """`batches` tuples (imgs f32 in [0, 1] (batch, hw, hw, 4), masks f32 in
+    {0, 1} (batch, hw, hw, 1), None, batch), as `DecoderDataset.batches`
+    yields them: bright ellipses on dark noise and their union as the mask."""
+    imgs, idmap, _, _ = make_labelled(rng, batches * batch, hw)
+    imgs = imgs.astype(np.float32) / 255.0
+    masks = (idmap > 0).astype(np.float32)[..., None]
+    return [(imgs[i:i + batch], masks[i:i + batch], None, batch)
+            for i in range(0, batches * batch, batch)]
+
+
+def segpp_state_dict(state_dict, calib):
+    """YOLO-Seg++ weights at full width: the detector's from `state_dict`, a
+    decoder seeded from SEED with its BatchNorms calibrated like the
+    detector's (see `seeded_state_dict`) and its output bias centred on the
+    batch `calib`, all in f32 on the CPU, so that every device gets the same
+    weights and the masks are neither empty nor full."""
+    import torch
+    from torch import nn
+    from yolou_tpu_torch.models.segpp import build_segpp
+    ref = build_segpp("yolov12", "n", nc=1, ch=4, task="segment",
+                      device="cpu", seed=SEED)
+    ref.yolo.load_state_dict(state_dict, strict=True)
+    x = torch.from_numpy(calib).permute(0, 3, 1, 2)
+    bns = [m for m in ref.decoder.modules() if isinstance(m, nn.BatchNorm2d)]
+    with torch.no_grad():
+        for bn in bns:
+            bn.weight.fill_(1.0)
+            bn.momentum = 1.0
+        ref.train()(x)
+        for bn in bns:
+            bn.momentum = 0.03
+        ref.output.bias -= ref.eval()(x)[0].median()
+    return ref.state_dict()
+
+
+def build_evaluator(segpp_sd, device, dtype):
+    """An Evaluator at 160^2, batch 16; `device` None is its default, the
+    card."""
+    from yolou_tpu_torch.engine.evaluator import Evaluator
+    from yolou_tpu_torch.models.segpp import build_segpp
+    model = build_segpp("yolov12", "n", nc=1, ch=4, task="segment",
+                        dtype=dtype, device=device)
+    model.load_state_dict(segpp_sd, strict=True)
+    return Evaluator(model, data_root="", image_size=EVAL_IMGSZ,
+                     batch_size=EVAL_BATCH, device=device)
+
+
+def evaluate_breakdown(ev, batch, iters: int = 5):
+    """The parts of one evaluation step, CUDA events between them (each
+    waits for the part before it), means over `iters` steps after one."""
+    import torch
+    from yolou_tpu_torch.metrics.seg import (dice_binary, hd95_batch,
+                                             precision_recall_counts)
+    from yolou_tpu_torch.ops.nms import non_max_suppression
+    imgs, masks = batch[0], batch[1]
+    names = ("upload", "forward", "nms", "threshold", "dice_pr", "hd95")
+    sums = dict.fromkeys(names, 0.0)
+    for i in range(iters + 1):
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        with torch.no_grad():
+            e[0].record()
+            x = torch.as_tensor(imgs).to(ev.device)
+            m = torch.as_tensor(masks).to(ev.device)[..., 0]
+            e[1].record()
+            mask_logits, out = ev.model(x.permute(0, 3, 1, 2))
+            e[2].record()
+            non_max_suppression(out.preds, conf_thres=ev.conf,
+                                iou_thres=ev.iou, max_det=ev.max_det,
+                                nc=ev.model.spec.nc)
+            e[3].record()
+            pred = (torch.sigmoid(mask_logits) > 0.5).float()[:, 0]
+            e[4].record()
+            dice_binary(pred, m)
+            precision_recall_counts(pred, m)
+            e[5].record()
+            hd95_batch(pred, m)
+            e[6].record()
+        e[6].synchronize()
+        if i:
+            for name, a, b in zip(names, e, e[1:]):
+                sums[name] += a.elapsed_time(b) / iters
+    return {f"{k}_ms": v for k, v in sums.items()}
+
+
+def evaluate(state_dict, device):
+    """The evaluation path on the card, bf16, then one f32 step card vs CPU."""
+    import torch
+    from yolou_tpu_torch import kernels
+    f32_exact(torch)
+    batches = make_eval_batches(np.random.default_rng(SEED + 7), EVAL_BATCHES,
+                                EVAL_BATCH, EVAL_IMGSZ)
+    segpp_sd = segpp_state_dict(state_dict, batches[0][0])
+    ev = build_evaluator(segpp_sd, None, torch.bfloat16)
+    if ev.device.type != "cuda":
+        raise AssertionError(f"the evaluator chose {ev.device}, not the card")
+    ev.accumulate(iter(batches[:1]))                # cuDNN set-up
+    kernels.reset_launch_counts()
+    res = ev.accumulate(iter(batches), with_hd95=True)
+    counts = kernels.launch_counts()
+    log("evaluate", **res, launches=counts, steps=len(batches))
+    want = {"band_attention": 8 * len(batches), "greedy_nms": len(batches)}
+    if any(counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"evaluation launched {counts}, want {want}")
+    if res["n_images"] != EVAL_BATCHES * EVAL_BATCH:
+        raise AssertionError(f"evaluated {res['n_images']} images")
+    if not all(np.isfinite(res[k]) and 0.0 <= res[k] <= 1.0
+               for k in ("dice", "precision", "recall")):
+        raise AssertionError(f"metrics out of range: {res}")
+    parts = evaluate_breakdown(ev, batches[0])
+    step_ms = cuda_ms(lambda: ev.accumulate(iter(batches[:1])), iters=5,
+                      warmup=1)
+    busy_ms, launches, top = profile_step(
+        lambda: ev.accumulate(iter(batches[:1])))
+    log("evaluate", batch=EVAL_BATCH, imgsz=EVAL_IMGSZ, step_ms=step_ms,
+        images_per_s=EVAL_BATCH / step_ms * 1e3, **parts,
+        device_busy_ms=busy_ms,
+        device_busy_share=busy_ms / step_ms if busy_ms else None,
+        device_launches=launches, top_device_kernels=top)
+    # one f32 step, card against CPU, same weights and batch
+    imgs = batches[1][0]
+    got = {}
+    for dev in (device, "cpu"):
+        e32 = build_evaluator(segpp_sd, dev, torch.float32)
+        with torch.no_grad():
+            x = torch.from_numpy(imgs).to(dev).permute(0, 3, 1, 2)
+            got[str(dev)] = (e32.model(x)[0].cpu(), e32.step(imgs)[0].cpu())
+    (lg, bg), (lc, bc) = got[str(device)], got["cpu"]
+    err = (lg - lc).abs().max().item()
+    flipped = (bg != bc).float().mean().item()
+    log("evaluate", check="f32 card vs cpu", images=len(imgs),
+        mask_logits_max_abs=err, tol=1e-3, flipped_pixel_share=flipped,
+        flipped_tol=1e-3, mask_share=bc.mean().item())
+    if not (err <= 1e-3 and flipped <= 1e-3):
+        raise AssertionError(f"f32 evaluation step card vs cpu: mask logits "
+                             f"{err}, flipped pixels {flipped}")
 
 
 # ------------------------------------------------------------- training
@@ -664,6 +959,7 @@ def main() -> int:
     attn = check_attention(device)
     train_attn, train_attn_err = check_training_attention(device)
     nms = check_nms(device)
+    a2c2f = check_a2c2f(device)
 
     state_dict = seeded_state_dict()
     rng = np.random.default_rng(SEED)
@@ -714,6 +1010,23 @@ def main() -> int:
         raise AssertionError(f"the attention profiler launched "
                              f"{profile_counts}")
 
+    kernels.reset_launch_counts()
+    mega_stats = serve(state_dict, device, torch.bfloat16, requests,
+                       mega_kernel=True)
+    mega_counts = kernels.launch_counts()
+    for st in mega_stats:
+        log("serve-mega", **st)
+    log("serve-mega", launches=mega_counts, forwards=forwards)
+    if (mega_counts["a2c2f"] != 2 * forwards
+            or mega_counts["band_attention"] != 0):
+        raise AssertionError(f"mega_kernel=True launched {mega_counts}, want "
+                             f"{2 * forwards} of a2c2f and no band attention")
+    if min(min(st["detections"]) for st in mega_stats) < 1:
+        raise AssertionError("an image got no detection with mega_kernel")
+    compare_mega(state_dict, device, requests)
+
+    evaluate(state_dict, device)
+
     src = "yolou_tpu_torch/csrc/"
     pallas = "yolou_tpu/ops/pallas_attn.py"
     l6 = train_attn[("L6@640", "bfloat16")]
@@ -738,6 +1051,10 @@ def main() -> int:
          "source": src + "band_attention.cu", "replaces": pallas + ":120",
          "launches": profile_counts["band_attention_single"],
          **{k: single[k] for k in keys}},
+        {"name": "a2c2f", "route": "cuda", "source": src + "a2c2f.cu",
+         "replaces": "yolou_tpu/ops/pallas_a2c2f.py:192",
+         "launches": mega_counts["a2c2f"],
+         "staged_ms": a2c2f["staged_ms"], **{k: a2c2f[k] for k in keys}},
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """PyTorch port: the CUDA kernels against their plain versions on the card,
-at shapes off the serving path (ragged bands and candidate counts, one to
-many heads, side streams), and the wrappers' refusals.
+at shapes off the serving path (ragged bands, token tiles and candidate
+counts, one to many heads, more tiles than one co-resident wave, side
+streams), and the wrappers' refusals.
 
 Marked `cuda`; without a CUDA device each test skips. The file imports
 neither JAX nor the JAX package, so it runs where JAX is absent:
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from yolou_tpu_torch import kernels
+from yolou_tpu_torch.kernels.a2c2f import a2c2f_fused, a2c2f_fused_plain
 from yolou_tpu_torch.kernels.attention import (
     area_attention, area_attention_fused, area_attention_fused_plain,
     area_attention_plain, area_attention_qkv_fused,
@@ -198,3 +200,94 @@ def test_greedy_nms_refuses_what_it_cannot_run(cuda):
     boxes, valid = _nms_inputs(1, 64, "random", cuda, seed=0)
     with pytest.raises(ValueError, match="one device"):
         suppress_greedy(boxes, valid.cpu(), 0.45)
+
+
+# ------------------------------------------------- the whole-A2C2f kernel
+
+def _a2c2f_inputs(shape, c_, c2, n_stages, dtype, device, seed):
+    """x ~ N(0, 1) and weights ~ N(0, 0.5 / sqrt(fan_in)): activations and
+    outputs stay of order 1, so the absolute tolerances mean something."""
+    rng = np.random.default_rng(seed)
+
+    def mk(*s, gemm=False):
+        std = 0.5 / np.sqrt(s[0]) if gemm else 0.1
+        t = torch.tensor(rng.normal(0, std, s), dtype=torch.float32,
+                         device=device)
+        return t.to(dtype) if gemm else t
+
+    ws = [mk(shape[-1], c_, gemm=True), mk(c_)]
+    for _ in range(2 * n_stages):
+        ws += [mk(c_, 3 * c_, gemm=True), mk(3 * c_), mk(7, 7, c_), mk(c_),
+               mk(c_, c_, gemm=True), mk(c_), mk(c_, 2 * c_, gemm=True),
+               mk(2 * c_), mk(2 * c_, c_, gemm=True), mk(c_)]
+    ws += [mk((n_stages + 1) * c_, c2, gemm=True), mk(c2)]
+    x = torch.tensor(rng.normal(size=shape), dtype=dtype, device=device)
+    return x, ws
+
+
+A2C2F_CASES = [
+    # (B, H, W, cin), c2, n_stages, area, heads
+    ((1, 9, 7, 24), 48, 1, 1, 1),        # 63 tokens: a ragged last tile
+    ((2, 10, 10, 24), 48, 1, 4, 2),      # bands of 25 tokens, cin 24
+    ((1, 8, 8, 32), 64, 2, 1, 3),        # one full wave, 3 heads
+    ((3, 12, 20, 64), 96, 2, 4, 4),      # bands of 60: ragged, 4 heads
+    ((2, 20, 20, 64), 64, 1, 1, 1),      # the smallest eligible shape
+    ((64, 20, 20, 40), 32, 1, 1, 1),     # 1600 tiles: more than one wave
+]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape,c2,n_stages,area,heads", A2C2F_CASES)
+def test_a2c2f_matches_plain(cuda, shape, c2, n_stages, area, heads, dtype,
+                             tol):
+    """H*W a multiple of the 16-token tile or not, area 1 and 4, 1-4 heads,
+    1-2 stages, cin off a multiple of 32, batch 1 and a batch whose tiles
+    exceed one co-resident wave; f32 within 1e-4, bf16 within 2e-2 (outputs
+    of order 1)."""
+    x, ws = _a2c2f_inputs(shape, 32 * heads, c2, n_stages, dtype, cuda,
+                          seed=sum(shape) + heads)
+    kernels.reset_launch_counts()
+    out = a2c2f_fused(x, ws, n_stages, area, heads)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["a2c2f"] == 1
+    ref = a2c2f_fused_plain(x, ws, n_stages, area, heads)
+    assert out.dtype == dtype and out.shape == shape[:3] + (c2,)
+    assert bool(torch.isfinite(out).all())
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert ref.float().abs().max().item() > 0.05          # a live block
+
+
+def test_a2c2f_on_a_side_stream_and_twice(cuda):
+    x, ws = _a2c2f_inputs((8, 20, 20, 256), 128, 256, 2, torch.bfloat16, cuda,
+                          seed=2)
+    ref = a2c2f_fused_plain(x, ws, 2, 1, 4)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        a = a2c2f_fused(x, ws, 2, 1, 4)
+        b = a2c2f_fused(x, ws, 2, 1, 4)      # scratch reused back to back
+    torch.cuda.current_stream().wait_stream(side)
+    assert torch.equal(a, b)
+    assert (a.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+def test_a2c2f_refuses_what_it_cannot_run(cuda):
+    x, ws = _a2c2f_inputs((1, 8, 8, 32), 64, 64, 1, torch.float32, cuda, 0)
+    with pytest.raises(ValueError, match="head_dim 32"):
+        a2c2f_fused(x, ws, 1, 1, 1)                    # one head of 64
+    x, ws = _a2c2f_inputs((1, 40, 40, 32), 64, 64, 1, torch.float32, cuda, 0)
+    with pytest.raises(ValueError, match="shared memory"):
+        a2c2f_fused(x, ws, 1, 1, 2)                    # a band of 1600, f32
+    x, ws = _a2c2f_inputs((1, 4, 4, 32), 32, 32, 5, torch.float32, cuda, 0)
+    with pytest.raises(ValueError, match="at most 4 stages"):
+        a2c2f_fused(x, ws, 5, 1, 1)
+    x, ws = _a2c2f_inputs((1, 4, 4, 32), 32, 32, 1, torch.float32, cuda, 0)
+    with pytest.raises(ValueError, match="one device"):
+        a2c2f_fused(x, [ws[0].cpu(), *ws[1:]], 1, 1, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        a2c2f_fused(x.transpose(1, 2), ws, 1, 1, 1)
+    kernels.reset_launch_counts()
+    with pytest.raises(TypeError, match="dtype"):
+        a2c2f_fused(x.half(), ws, 1, 1, 1)
+    assert kernels.launch_counts()["a2c2f"] == 0

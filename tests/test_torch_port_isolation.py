@@ -19,6 +19,7 @@ import torch
 
 from yolou_tpu_torch import kernels
 from yolou_tpu_torch.kernels import build
+from yolou_tpu_torch.kernels.a2c2f import a2c2f_fused
 from yolou_tpu_torch.kernels.attention import (area_attention,
                                                area_attention_fused,
                                                area_attention_qkv_fused)
@@ -71,14 +72,32 @@ def test_training_modules_import_without_jax_or_cv2():
     assert res.stdout.strip() == "[]", res.stdout
 
 
+def test_evaluation_modules_import_without_jax_or_cv2():
+    """The whole-block kernel's wrapper and the evaluation slice by name;
+    `cv2` stays out until the dataset decodes a file, so the evaluator runs
+    over in-memory batches where it is absent."""
+    mods = ["kernels.a2c2f", "models.segpp", "metrics.seg",
+            "data.decoder_dataset", "engine.evaluator"]
+    code = (
+        "import importlib, sys\n"
+        f"for n in {mods!r}: importlib.import_module('yolou_tpu_torch.' + n)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN + ('cv2',)!r})\n"
+        "print(bad)\n")
+    res = _run(code, REPO)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]", res.stdout
+
+
 def test_sources_name_no_jax_module():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|yolou_tpu)\b",
                      re.M)
     offenders = [str(p.relative_to(REPO)) for p in PKG.rglob("*.py")
                  if pat.search(p.read_text())]
     assert offenders == []
-    assert sorted(p.name for p in (PKG / "csrc").glob("*.cu")) == [
-        "band_attention.cu", "greedy_nms.cu"]
+    assert sorted(p.name for p in (PKG / "csrc").glob("*.cu*")) == [
+        "a2c2f.cu", "band_attention.cu", "band_attention.cuh",
+        "greedy_nms.cu"]
 
 
 def test_cpu_tensors_take_the_plain_versions_without_counting():
@@ -97,9 +116,15 @@ def test_cpu_tensors_take_the_plain_versions_without_counting():
     area_attention_fused(q, x, x, 2).sum().backward()
     assert area_attention(x[..., :32].contiguous(), x[..., 32:].contiguous(),
                           x[..., :32].contiguous()).shape == (2, 9, 32)
+    ws = [torch.from_numpy(rng.normal(0, 0.1, sh).astype(np.float32))
+          for sh in [(8, 32), (32,)] + [(32, 96), (96,), (7, 7, 32), (32,),
+                                        (32, 32), (32,), (32, 64), (64,),
+                                        (64, 32), (32,)] * 2 + [(64, 16), (16,)]]
+    y = a2c2f_fused(torch.zeros(1, 4, 4, 8), ws, 1, 1, 1)
+    assert y.device.type == "cpu" and y.shape == (1, 4, 4, 16)
     assert kernels.launch_counts() == {
         "band_attention": 0, "greedy_nms": 0, "band_attention_train": 0,
-        "band_attention_single": 0}
+        "band_attention_single": 0, "a2c2f": 0}
     assert kernels.backward_counts() == {"band_attention_train": 1,
                                          "band_attention_single": 0}
     assert build._lib is None

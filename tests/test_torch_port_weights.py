@@ -14,11 +14,16 @@ import numpy as np
 import pytest
 import torch
 
+from yolou_tpu.models.segpp import YOLOSegPP as JaxYOLOSegPP
 from yolou_tpu.models.yolo import build_yolo as build_yolo_jax
+from yolou_tpu.models.yolo import parse_model_spec as jax_spec
 from yolou_tpu.tools.torch2jax import jax_to_torch_state_dict
+from yolou_tpu_torch.models.segpp import build_segpp
 from yolou_tpu_torch.models.yolo import build_yolo
 from yolou_tpu_torch.nn.attention import aattn_qkv_permutation
-from yolou_tpu_torch.tools.convert import state_dict_from_jax
+from yolou_tpu_torch.tools.convert import (SEGPP_PREFIX_MAP,
+                                           state_dict_from_jax,
+                                           variables_from_state_dict)
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
                        "yolov12n_seg_state_dict.txt")
@@ -105,3 +110,47 @@ def test_build_yolo_without_a_device_means_the_gpu():
     else:
         with pytest.raises(RuntimeError, match='device="cpu"'):
             build_yolo("yolov12", "n", nc=1, ch=4, task="segment")
+
+
+@pytest.fixture(scope="module")
+def segpp_variables():
+    """YOLOSegPP (yolov12n, 4 ch) JAX variables, every leaf a distinct random
+    draw: the YOLO graph under `yolo`, the decoder under `decoder`."""
+    model = JaxYOLOSegPP(spec=jax_spec("yolov12", "n", 1, 4, "detect"))
+    shapes = jax.eval_shape(lambda: model.init(
+        jax.random.key(0), jnp.zeros((1, 64, 64, 4)), train=False))
+    rng = np.random.default_rng(1)
+    return jax.tree_util.tree_map(
+        lambda s: rng.random(s.shape, np.float32) + 0.5, shapes)
+
+
+@pytest.mark.parametrize("prefix_map", [None, SEGPP_PREFIX_MAP])
+def test_segpp_state_dict_equals_jax_exporter_bit_for_bit(segpp_variables,
+                                                          prefix_map):
+    ours = state_dict_from_jax(segpp_variables, prefix_map)
+    theirs = jax_to_torch_state_dict(segpp_variables, prefix_map=prefix_map)
+    assert sorted(ours) == sorted(theirs)
+    for k, v in theirs.items():
+        o = ours[k].numpy()
+        assert o.dtype == v.dtype and o.shape == v.shape, k
+        assert np.array_equal(o, v), k
+    tops = {k.split(".")[0] for k in ours}
+    assert tops == ({"yolo", "decoder", "output"} if prefix_map is None
+                    else {"encoder", "decoder", "output"})
+    assert ours["decoder.0.1.conv.weight"].shape == (1, 1, 3)   # ECA Conv1d
+
+
+def test_segpp_state_dict_loads_strict_and_converts_back(segpp_variables):
+    model = build_segpp("yolov12", "n", nc=1, ch=4, device="cpu")
+    sd = state_dict_from_jax(segpp_variables)
+    model.load_state_dict(sd, strict=True)
+    got = model.state_dict()
+    assert all(torch.equal(got[k], v) for k, v in sd.items())
+    for pm in (None, SEGPP_PREFIX_MAP):
+        back = variables_from_state_dict(
+            state_dict_from_jax(segpp_variables, pm), segpp_variables, pm)
+        flat = jax.tree_util.tree_leaves_with_path(back)
+        want = dict(jax.tree_util.tree_leaves_with_path(segpp_variables))
+        assert len(flat) == len(want)
+        for path, leaf in flat:
+            assert np.array_equal(leaf, want[path]), path

@@ -56,52 +56,16 @@
 // use.
 
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+
+#include "band_attention.cuh"
 
 namespace cg = cooperative_groups;
+using namespace yolou;
 
 namespace {
 
-constexpr int HD = 32;        // head dim (YOLOv12 heads are 32 wide)
-constexpr int WARPS = 8;
 constexpr int TOK = 4;        // tokens per warp in the projection
 constexpr int MAX_CLUSTER = 8;  // portable thread-block cluster size
-constexpr unsigned FULL = 0xffffffffu;
-
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
-
-// Padded key columns / value rows [N, Np): finite, masked in `attend`.
-template <typename T>
-__device__ __forceinline__ void pad_keys(T* Kt, T* Vs, int N, int Np) {
-  for (int i = threadIdx.x; i < (Np - N) * HD; i += blockDim.x) {
-    const int m = N + i / HD, d = i % HD;
-    Kt[d * Np + m] = from_f<T>(0.f);
-    Vs[m * HD + d] = from_f<T>(0.f);
-  }
-}
 
 // Copy the other CTAs' k and v token slices through distributed shared
 // memory, so that this CTA holds k and v for all N tokens. Every CTA of the
@@ -126,75 +90,6 @@ __device__ __forceinline__ void gather_slices(cg::cluster_group& cluster,
   cluster.sync();                           // no CTA reads a peer after this
 }
 
-// Attention of query rows [q0, q1) of band g, head h, against all N keys:
-// warp per pair of query rows, online softmax over key tiles of 32. With
-// ROUND_P the unnormalised probabilities are rounded to T before p.v (the
-// row sum keeps them in f32), as the TPU training kernel does.
-template <typename T, bool ROUND_P>
-__device__ __forceinline__ void attend(const T* Qs, const T* Kt, const T* Vs,
-                                       T* __restrict__ o, int g, int h, int N,
-                                       int Np, int C, int q0, int q1,
-                                       float scale) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = 2 * warp; q0 + r < q1; r += 2 * WARPS) {
-    const bool two = q0 + r + 1 < q1;       // warp-uniform
-    float qa[HD], qb[HD];
-    const float qna = to_f(Qs[r * HD + lane]);
-    const float qnb = two ? to_f(Qs[(r + 1) * HD + lane]) : qna;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) {
-      qa[d] = __shfl_sync(FULL, qna, d);
-      qb[d] = __shfl_sync(FULL, qnb, d);
-    }
-    float ma = -INFINITY, la = 0.f, acca = 0.f;   // acc: channel lane
-    float mb = -INFINITY, lb = 0.f, accb = 0.f;
-    for (int m0 = 0; m0 < N; m0 += 32) {
-      float sa = 0.f, sb = 0.f;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) {
-        const float kd = to_f(Kt[d * Np + m0 + lane]);
-        sa = fmaf(qa[d], kd, sa);
-        sb = fmaf(qb[d], kd, sb);
-      }
-      const bool valid = m0 + lane < N;
-      sa = valid ? sa * scale : -INFINITY;
-      sb = valid ? sb * scale : -INFINITY;
-      const float na = fmaxf(ma, warp_max(sa));  // finite: key m0 exists
-      const float nb = fmaxf(mb, warp_max(sb));
-      float pa = expf(sa - na), pb = expf(sb - nb);
-      const float ca = expf(ma - na), cb = expf(mb - nb);
-      la = la * ca + warp_sum(pa);
-      lb = lb * cb + warp_sum(pb);
-      if (ROUND_P) {
-        pa = to_f(from_f<T>(pa));
-        pb = to_f(from_f<T>(pb));
-      }
-      acca *= ca;
-      accb *= cb;
-      const T* vt = Vs + m0 * HD + lane;
-      if (m0 + 32 <= N) {                   // full tile: unrolled
-#pragma unroll
-        for (int j = 0; j < 32; ++j) {
-          const float vj = to_f(vt[j * HD]);
-          acca = fmaf(__shfl_sync(FULL, pa, j), vj, acca);
-          accb = fmaf(__shfl_sync(FULL, pb, j), vj, accb);
-        }
-      } else {
-        for (int j = 0; j < N - m0; ++j) {
-          const float vj = to_f(vt[j * HD]);
-          acca = fmaf(__shfl_sync(FULL, pa, j), vj, acca);
-          accb = fmaf(__shfl_sync(FULL, pb, j), vj, accb);
-        }
-      }
-      ma = na;
-      mb = nb;
-    }
-    const size_t row = (size_t)g * N + q0 + r;
-    o[row * C + h * HD + lane] = from_f<T>(acca / la);
-    if (two) o[(row + 1) * C + h * HD + lane] = from_f<T>(accb / lb);
-  }
-}
-
 template <typename T>
 __global__ void __launch_bounds__(WARPS * 32)
 band_attention_qkv_kernel(const T* __restrict__ x, const T* __restrict__ w,
@@ -217,7 +112,7 @@ band_attention_qkv_kernel(const T* __restrict__ x, const T* __restrict__ w,
     const int c = i / (3 * HD), j = i % (3 * HD);
     Ws[i] = w[(size_t)c * 3 * C + (j / HD) * C + h * HD + (j % HD)];
   }
-  pad_keys(Kt, Vs, N, Np);
+  pad_keys(Kt, Vs, N, Np, Np);
   __syncthreads();
 
   // --- projection of this CTA's tokens: warp per TOK tokens, lane = d -----
@@ -260,7 +155,8 @@ band_attention_qkv_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 
   gather_slices(cluster, Kt, Vs, N, Np, R, S, rank);
-  attend<T, false>(Qs, Kt, Vs, o, g, h, N, Np, C, q0, q1, scale);
+    attend<T, false>(Qs, Kt, Vs, o, (size_t)g * N, h * HD, C, 1, N, Np, q0, q1,
+                    scale);
 }
 
 // Kernel C: the same cluster layout without the projection. CTA `rank`
@@ -284,7 +180,7 @@ band_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* Kt = Qs + R * HD;                      // [HD][Np]
   T* Vs = Kt + HD * Np;                     // [Np][HD]
 
-  pad_keys(Kt, Vs, N, Np);
+  pad_keys(Kt, Vs, N, Np, Np);
   for (int n = q0 + warp; n < q1; n += WARPS) {
     const size_t off = ((size_t)g * N + n) * C + h * HD + lane;
     Qs[(n - q0) * HD + lane] = q[off];
@@ -292,7 +188,8 @@ band_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     Vs[n * HD + lane] = v[off];
   }
   gather_slices(cluster, Kt, Vs, N, Np, R, S, rank);
-  attend<T, true>(Qs, Kt, Vs, o, g, h, N, Np, C, q0, q1, scale);
+    attend<T, true>(Qs, Kt, Vs, o, (size_t)g * N, h * HD, C, 1, N, Np, q0, q1,
+                    scale);
 }
 
 int sm_count() {
@@ -339,8 +236,6 @@ cudaError_t launch_clusters(K kernel, int G, int heads, int splits,
   return cudaGetLastError();
 }
 
-const float SCALE = (float)(1.0 / sqrt((double)HD));  // f32(hd ** -0.5)
-
 template <typename T>
 cudaError_t launch_qkv(const void* x, const void* w, const void* b, void* o,
                        void* v, int G, int N, int C, int heads,
@@ -354,7 +249,7 @@ cudaError_t launch_qkv(const void* x, const void* w, const void* b, void* o,
                          s, static_cast<const T*>(x),
                          static_cast<const T*>(w),
                          static_cast<const float*>(b), static_cast<T*>(o),
-                         static_cast<T*>(v), N, C, SCALE);
+                         static_cast<T*>(v), N, C, ATTN_SCALE);
 }
 
 template <typename T>
@@ -367,7 +262,7 @@ cudaError_t launch_attn(const void* q, const void* k, const void* v, void* o,
   return launch_clusters(band_attention_kernel<T>, G, heads, splits, smem, s,
                          static_cast<const T*>(q), static_cast<const T*>(k),
                          static_cast<const T*>(v), static_cast<T*>(o), N, C,
-                         SCALE);
+                         ATTN_SCALE);
 }
 
 }  // namespace

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+from .a2c2f import a2c2f_fused
 from .attention import (area_attention, area_attention_fused,
                         area_attention_qkv_fused)
 from .nms import suppress_greedy
@@ -19,7 +20,8 @@ from .nms import suppress_greedy
 _WRAPPERS = {"band_attention": area_attention_qkv_fused,
              "greedy_nms": suppress_greedy,
              "band_attention_train": area_attention_fused,
-             "band_attention_single": area_attention}
+             "band_attention_single": area_attention,
+             "a2c2f": a2c2f_fused}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -5,8 +5,10 @@ Counterpart of `yolou_tpu/models/yolo.py`. The module tree is ultralytics'
 returns a `YoloOutputs` whose `raw` tuple holds the per-level NCHW maps and
 whose `preds` is the (B, N, 4+nc[+nm]) tensor NMS consumes (None in training
 mode: the loss reads `raw`, `mask_coefs` and `protos`). The JAX TPU
-options `stem_s2d`, `fuse_cls_entry`, `pad_head_p5` and `mega_kernel` are
-layout rewrites of the same function and are not carried over.
+options `stem_s2d`, `fuse_cls_entry` and `pad_head_p5` are layout rewrites of
+the same function and are not carried over. `mega_kernel` is: it routes the
+backbone's A2C2f attention blocks at eval through the whole-block kernel
+(`kernels/a2c2f.py`), off by default as in the JAX package.
 """
 
 from __future__ import annotations
@@ -97,7 +99,8 @@ class YOLOModel(nn.Module):
     Parameters are float32; `dtype` is the compute dtype the input is cast
     to (bfloat16 on the card, float32 for exact checks)."""
 
-    def __init__(self, spec: ModelSpec, dtype: torch.dtype = torch.float32):
+    def __init__(self, spec: ModelSpec, dtype: torch.dtype = torch.float32,
+                 mega_kernel: bool = False):
         super().__init__()
         self.spec, self.dtype = spec, dtype
         mods = []
@@ -114,7 +117,8 @@ class YOLOModel(nn.Module):
             elif layer.block == "A2C2f":
                 area = a[2] if len(a) > 2 else 1
                 area = area if isinstance(area, int) and area > 0 else 1
-                m = A2C2f(cin, a[0], layer.repeats, a2=a[1], area=area)
+                m = A2C2f(cin, a[0], layer.repeats, a2=a[1], area=area,
+                          mega_kernel=mega_kernel)
             elif layer.block == "Upsample":
                 if tuple(a) != (2, "nearest"):
                     raise NotImplementedError(f"Upsample{tuple(a)}")
@@ -181,10 +185,11 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     Draws on the CPU from `generator`, then copies to the parameter's device,
     so one seed gives the same weights on every device."""
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)) and m.weight.requires_grad:
+        if (isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d))
+                and m.weight.requires_grad):
             w = m.weight
-            fan_in = w[0].numel() if isinstance(m, nn.Conv2d) else (
-                w.shape[0] * w[0, 0].numel())
+            fan_in = (w.shape[0] * w[0, 0].numel()
+                      if isinstance(m, nn.ConvTranspose2d) else w[0].numel())
             w.copy_(torch.randn(w.shape, generator=generator) * fan_in ** -0.5)
             if m.bias is not None:
                 m.bias.zero_()
@@ -210,13 +215,16 @@ def build_yolo(arch: str = "yolov12", variant: str = "n", nc: int = 1,
                ch: int = 4, task: str = "detect",
                dtype: torch.dtype = torch.float32,
                device: torch.device | str | None = None,
-               seed: Optional[int] = None) -> YOLOModel:
+               seed: Optional[int] = None,
+               mega_kernel: bool = False) -> YOLOModel:
     """Build a model in eval mode on `device`; None means the GPU (an error
     where there is none: pass "cpu" to ask for the CPU). With `seed`, weights
     are drawn from a `torch.Generator` seeded with it; otherwise they keep
-    torch's default init and are meant to be replaced by `load_state_dict`."""
+    torch's default init and are meant to be replaced by `load_state_dict`.
+    `mega_kernel` runs each eligible A2C2f attention block as one kernel."""
     device = resolve_device(device)
-    model = YOLOModel(parse_model_spec(arch, variant, nc, ch, task), dtype)
+    model = YOLOModel(parse_model_spec(arch, variant, nc, ch, task), dtype,
+                      mega_kernel)
     if seed is not None:
         init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()

@@ -13,14 +13,22 @@ output. The module itself holds qkv in ultralytics' head-major interleave,
 so released checkpoints load unchanged; the permutation to the kernels'
 role-major layout is applied to the folded weight at eval and to the conv's
 output channels (as a strided copy) in training.
+
+A2C2f built with `mega_kernel=True` hands a whole attention block at eval to
+`kernels.a2c2f.a2c2f_fused` where the shape passes `a2c2f_mega_eligible`:
+every Conv of the block folds into an affine GEMM and the block runs as one
+kernel launch. The state_dict is the same with the flag on or off.
 """
 
 from __future__ import annotations
+
+import itertools
 
 import numpy as np
 import torch
 from torch import nn
 
+from ..kernels.a2c2f import a2c2f_fused, a2c2f_mega_eligible
 from ..kernels.attention import (area_attention_fused,
                                  area_attention_qkv_fused)
 from .blocks import C3k, Conv
@@ -105,14 +113,21 @@ class ABlock(nn.Module):
 
 class A2C2f(nn.Module):
     """Area-attention C2f: cv1 -> n stages of (2x ABlock | C3k) -> concat ->
-    cv2. a2=True uses attention stages (backbone), a2=False C3k (neck)."""
+    cv2. a2=True uses attention stages (backbone), a2=False C3k (neck).
+    `mega_kernel` (off by default) routes an attention block at eval through
+    the whole-block kernel where its shape is eligible; training mode and
+    every other shape run the staged modules."""
 
     def __init__(self, c1: int, c2: int, n: int = 1, a2: bool = True,
                  area: int = 1, mlp_ratio: float = 2.0, e: float = 0.5,
-                 g: int = 1, shortcut: bool = True):
+                 g: int = 1, shortcut: bool = True,
+                 mega_kernel: bool = False):
         super().__init__()
         c_ = int(c2 * e)
         num_heads = max(1, c_ // 32)
+        self.a2, self.area, self.num_heads = a2, area, num_heads
+        self.mega_kernel = mega_kernel
+        self._folded = None       # (key, weights) of the last folding
         self.cv1 = Conv(c1, c_, 1, 1)
         self.cv2 = Conv((1 + n) * c_, c2, 1)
         self.m = nn.ModuleList(
@@ -121,7 +136,44 @@ class A2C2f(nn.Module):
             else C3k(c_, c_, 2, shortcut, g)
             for _ in range(n))
 
+    def folded_weights(self, dtype: torch.dtype):
+        """The block's flat weight list for `a2c2f_fused`: GEMM weights
+        (cin, cout) in `dtype`, biases and the (7, 7, c_) pe kernels f32.
+        Folded once and kept until a parameter or buffer of the block is
+        written (its version counter moves) or replaced (`.to(device)`), so
+        that a served block is one kernel launch and not ~200 small ones."""
+        key = (dtype, *((t.data_ptr(), t._version) for t in
+                        itertools.chain(self.parameters(), self.buffers())))
+        if self._folded is None or self._folded[0] != key:
+            with torch.no_grad():
+                self._folded = (key, self._fold(dtype))
+        return self._folded[1]
+
+    def _fold(self, dtype: torch.dtype):
+        def gemm(conv: Conv):
+            w, b = conv.folded()
+            return [w[:, :, 0, 0].t().contiguous().to(dtype), b.contiguous()]
+
+        ws = gemm(self.cv1)
+        for stage in self.m:
+            for blk in stage:
+                wpe, bpe = blk.attn.pe.folded()
+                ws += [*blk.attn.folded_qkv(dtype),
+                       wpe[:, 0].permute(1, 2, 0).contiguous(),
+                       bpe.contiguous(), *gemm(blk.attn.proj),
+                       *gemm(blk.mlp[0]), *gemm(blk.mlp[1])]
+        return ws + gemm(self.cv2)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.mega_kernel and self.a2 and not self.training:
+            B, cin, H, W = x.shape
+            area = self.area if (H * W) % self.area == 0 else 1
+            c_ = self.cv1.conv.out_channels
+            if a2c2f_mega_eligible(H, W, cin, c_, area, self.num_heads):
+                out = a2c2f_fused(x.permute(0, 2, 3, 1).contiguous(),
+                                  self.folded_weights(x.dtype), len(self.m),
+                                  area, self.num_heads)
+                return out.permute(0, 3, 1, 2)
         y = [self.cv1(x)]
         y.extend(m(y[-1]) for m in self.m)
         return self.cv2(torch.cat(y, 1))

@@ -178,3 +178,121 @@ class Concat(nn.Module):
 
     def forward(self, xs) -> torch.Tensor:
         return torch.cat(list(xs), 1)
+
+
+# ------------------------------------------------- YOLO-Seg++ decoder blocks
+
+class LightConv(nn.Module):
+    """1x1 Conv (no activation) followed by a depthwise kxk Conv."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, act: bool = True):
+        super().__init__()
+        self.conv1 = Conv(c1, c2, 1, act=False)
+        self.conv2 = DWConv(c2, c2, k, act=act)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv2(self.conv1(x))
+
+
+class GhostConv(nn.Module):
+    """Ghost convolution: a primary conv to half the width and a cheap
+    depthwise 5x5 on its output, concatenated."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, g: int = 1,
+                 act: bool = True):
+        super().__init__()
+        c_ = c2 // 2
+        self.cv1 = Conv(c1, c_, k, s, g=g, act=act)
+        self.cv2 = Conv(c_, c_, 5, 1, g=c_, act=act)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv1(x)
+        return torch.cat([y, self.cv2(y)], 1)
+
+
+class GhostBottleneck(nn.Module):
+    """Ghost bottleneck, stride 1 or 2. `conv` is ultralytics' 3-slot
+    Sequential (GhostConv, DWConv at stride 2 or Identity, GhostConv), so the
+    second GhostConv is `conv.2` at either stride; the shortcut is a
+    depthwise + pointwise pair at stride 2, the input where the widths agree
+    at stride 1, and nothing otherwise."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1):
+        super().__init__()
+        c_ = c2 // 2
+        self.conv = nn.Sequential(
+            GhostConv(c1, c_, 1, 1),
+            DWConv(c_, c_, k, s, act=False) if s == 2 else nn.Identity(),
+            GhostConv(c_, c2, 1, 1, act=False))
+        self.shortcut = (nn.Sequential(DWConv(c1, c1, k, s, act=False),
+                                       Conv(c1, c2, 1, 1, act=False))
+                         if s == 2 else nn.Identity())
+        self.add = s == 2 or c1 == c2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.conv(x)
+        return y + self.shortcut(x) if self.add else y
+
+
+class C3Ghost(C3):
+    """C3 with GhostBottleneck blocks: the decoder's mixing block."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, e: float = 0.5):
+        super().__init__(c1, c2, 0, e=e)
+        c_ = int(c2 * e)
+        self.m = nn.Sequential(*(GhostBottleneck(c_, c_) for _ in range(n)))
+
+
+class ECA(nn.Module):
+    """Efficient channel attention: global average pool (f32), a 1D conv of
+    width k over the channel axis without bias, a sigmoid gate."""
+
+    def __init__(self, k: int = 3):
+        super().__init__()
+        self.conv = nn.Conv1d(1, 1, k, padding=(k - 1) // 2, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x.float().mean((2, 3))                         # (B, C)
+        gate = torch.sigmoid(self.conv(y[:, None])[:, 0])
+        return x * gate[:, :, None, None].to(x.dtype)
+
+
+def _residual_conv(c1: int, c2: int) -> nn.Module:
+    """1x1 projection with bias where the widths differ, else the input."""
+    return nn.Conv2d(c1, c2, 1) if c1 != c2 else nn.Identity()
+
+
+def _project(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    return conv_in_dtype(m, x) if isinstance(m, nn.Conv2d) else m(x)
+
+
+class SingleLightConv(nn.Module):
+    """LightConv plus a 1x1 residual projection."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3):
+        super().__init__()
+        self.conv = LightConv(c1, c2, k)
+        self.residual_conv = _residual_conv(c1, c2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x) + _project(self.residual_conv, x)
+
+
+class DoubleLightConv(nn.Module):
+    """Two stacked LightConvs plus a 1x1 residual projection."""
+
+    def __init__(self, c1: int, c2: int, k1: int = 3, k2: int = 3):
+        super().__init__()
+        self.conv = nn.Sequential(LightConv(c1, c2, k1), LightConv(c2, c2, k2))
+        self.residual_conv = _residual_conv(c1, c2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x) + _project(self.residual_conv, x)
+
+
+def upsample_bilinear_torch(x: torch.Tensor,
+                            out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize of NCHW `x` with half-pixel centres
+    (`align_corners=False`), the JAX package's function of the same name."""
+    return F.interpolate(x, size=tuple(out_hw), mode="bilinear",
+                         align_corners=False)

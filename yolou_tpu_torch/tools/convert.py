@@ -1,8 +1,10 @@
 """JAX/flax variables -> the port's (ultralytics-named) state_dict.
 
 Takes the `{"params": ..., "batch_stats": ...}` tree of the JAX package's
-YOLO model as nested dicts of numpy arrays and returns a torch state_dict
-that `YOLOModel.load_state_dict(..., strict=True)` accepts. It applies the
+YOLO model, or of its YOLOSegPP (the YOLO graph under `yolo`, the decoder
+under `decoder`), as nested dicts of numpy arrays and returns a torch
+state_dict that `YOLOModel` / `YOLOSegPP.load_state_dict(..., strict=True)`
+accepts. It applies the
 same name rules, layout transposes and AAttn qkv channel permutation as the
 JAX package's `tools/torch2jax.py::jax_to_torch_state_dict`, reimplemented
 here so that this package never imports JAX:
@@ -10,10 +12,14 @@ here so that this package never imports JAX:
   conv kernel (kh,kw,I,O)             -> weight (O,I,kh,kw)
   ConvTranspose kernel (kh,kw,I,O)    -> weight (I,O,kh,kw), spatially flipped
   BatchNorm scale/bias, mean/var      -> weight/bias, running_mean/var
+  ECA Conv1d kernel (k,1,1)           -> weight (1,1,k)
   AAttn qkv (role-major thirds)       -> head-major interleave (ultralytics)
 
 plus the non-learned keys of released checkpoints: `num_batches_tracked`
-(0) per BatchNorm and the head's fixed DFL projection.
+(0) per BatchNorm and the head's fixed DFL projection. `prefix_map`
+rewrites the start of a name, as the JAX exporter's argument of that name:
+`SEGPP_PREFIX_MAP` turns YOLOSegPP's `yolo.model.{i}` into the `encoder.{i}`
+of a reference decoder checkpoint.
 
 `variables_from_state_dict` is the way back, for holding a state the port
 has trained (parameters, EMA, BatchNorm running statistics) against the JAX
@@ -31,9 +37,26 @@ import torch
 from ..nn.attention import aattn_qkv_permutation
 
 # flax wrapper modules that have no torch counterpart (DWConv's "dw",
-# C3k's "c3", Segment's "detect")
-_WRAPPERS = ("dw", "c3", "detect")
-_TABLE = {"mlp1": "mlp.0", "mlp2": "mlp.1"}
+# C3k's "c3", Segment's "detect", YOLOSegPP's "decoder": its stages' entries
+# below carry the reference's `decoder.{i}.{j}` / `output` names themselves)
+_WRAPPERS = ("dw", "c3", "detect", "decoder")
+_TABLE = {
+    "mlp1": "mlp.0", "mlp2": "mlp.1",
+    # GhostBottleneck.conv is a 3-slot Sequential at either stride
+    "ghost1": "conv.0", "ghost2": "conv.2", "dwmid": "conv.1",
+    "sc_dw": "shortcut.0", "sc_pw": "shortcut.1",
+    "conv_a": "conv.0", "conv_b": "conv.1",       # DoubleLightConv
+    "conv1d": "conv",                             # ECA's Conv1d
+    "residual": "residual_conv",
+    # the decoder's ModuleList of Sequentials; slot 0 of an upsampling stage
+    # is the parameter-free upsample
+    "mix0": "decoder.0.0", "eca0": "decoder.0.1", "up1": "decoder.1.1",
+    "mix2": "decoder.2.0", "eca2": "decoder.2.1", "up3": "decoder.3.1",
+    "up4": "decoder.4.1", "output": "output",
+}
+# YOLOSegPP holds the whole YOLO graph under yolo.model.{i}; a reference
+# decoder checkpoint stores the encoder slice as encoder.{i}
+SEGPP_PREFIX_MAP = {"yolo.model": "encoder"}
 
 
 def _module_segment(seg: str) -> Optional[str]:
@@ -53,15 +76,21 @@ def _module_segment(seg: str) -> Optional[str]:
     return _TABLE.get(seg, seg)
 
 
-def torch_name(path: Tuple[str, ...], collection: str) -> str:
-    """Flax variable path (module segments + leaf) -> ultralytics name."""
+def torch_name(path: Tuple[str, ...], collection: str,
+               prefix_map: Optional[Dict[str, str]] = None) -> str:
+    """Flax variable path (module segments + leaf) -> ultralytics name, its
+    start rewritten by the first entry of `prefix_map` that matches."""
     *mods, leaf = path
     segs: List[str] = [t for t in map(_module_segment, mods) if t is not None]
     if collection == "batch_stats":
         leaf = {"mean": "running_mean", "var": "running_var"}[leaf]
     elif leaf in ("kernel", "scale"):
         leaf = "weight"
-    return ".".join(segs + [leaf])
+    name = ".".join(segs + [leaf])
+    for ours, theirs in (prefix_map or {}).items():
+        if name.startswith(ours):
+            return theirs + name[len(ours):]
+    return name
 
 
 def _flatten(tree, prefix=()):
@@ -80,6 +109,8 @@ def _torch_layout(a: np.ndarray, path: Tuple[str, ...]) -> np.ndarray:
         if "upsample" in path:   # flax ConvTranspose -> torch ConvTranspose2d
             return np.ascontiguousarray(a[::-1, ::-1].transpose(2, 3, 0, 1))
         return np.ascontiguousarray(a.transpose(3, 2, 0, 1))
+    if a.ndim == 3:              # flax 1D conv (k, 1, 1) -> Conv1d (1, 1, k)
+        return np.ascontiguousarray(a.transpose(2, 1, 0))
     return a
 
 
@@ -101,8 +132,11 @@ def _leaves(variables: Dict):
             yield coll, path, leaf, inv_qkv.get(path[:-2])
 
 
-def state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
-    """JAX YOLO variables (nested dicts of numpy arrays) -> state_dict."""
+def state_dict_from_jax(variables: Dict,
+                        prefix_map: Optional[Dict[str, str]] = None
+                        ) -> Dict[str, torch.Tensor]:
+    """JAX YOLO or YOLOSegPP variables (nested dicts of numpy arrays) ->
+    state_dict."""
     out: Dict[str, np.ndarray] = {}
     for coll, path, leaf, inv in _leaves(variables):
         arr = np.asarray(leaf)
@@ -110,7 +144,7 @@ def state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
             arr = arr.astype(np.float32)
         if inv is not None:
             arr = arr[..., inv] if arr.ndim == 4 else arr[inv]
-        name = torch_name(path, coll)
+        name = torch_name(path, coll, prefix_map)
         if name in out:
             raise ValueError(f"duplicate torch name {name} from {path}")
         out[name] = _torch_layout(arr, path)
@@ -127,14 +161,19 @@ def state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
 
 
 def variables_from_state_dict(state_dict: Dict[str, torch.Tensor],
-                              like: Dict) -> Dict:
+                              like: Dict,
+                              prefix_map: Optional[Dict[str, str]] = None
+                              ) -> Dict:
     """The inverse of `state_dict_from_jax`: a tree of numpy arrays with the
     structure (and leaf shapes) of the JAX variables `like`, filled from
     `state_dict`. Keys without a JAX counterpart (`num_batches_tracked`, the
     DFL projection) are left behind."""
     out: Dict = {}
     for coll, path, leaf, inv in _leaves(like):
-        arr = state_dict[torch_name(path, coll)].detach().cpu().numpy()
+        arr = state_dict[torch_name(path, coll, prefix_map)]
+        arr = arr.detach().cpu().numpy()
+        if arr.ndim == 3:
+            arr = arr.transpose(2, 1, 0)
         if arr.ndim == 4:
             if "upsample" in path:
                 arr = arr.transpose(2, 3, 0, 1)[::-1, ::-1]
