@@ -5,14 +5,20 @@
 
 Phases, one or more output lines each:
   1. device  - the card (nvidia-smi name and power limit), torch and CUDA;
-  2. build   - nvcc builds the kernels from yolou_tpu_torch/csrc;
+  2. build   - nvcc builds the kernels from yolou_tpu_torch/csrc; the band
+               attention kernels' registers, spills and tensor-core (HMMA)
+               instructions: bf16 must have them, f32 (SIMT) must not;
   3. kernels - each CUDA kernel against its plain PyTorch version on the card,
                at the shapes the serving, training and evaluation paths give
-               it, with CUDA-event times of the kernel, the plain version
-               and, where one PyTorch call computes the same function, that
-               call; the training attention's gradients against autograd
-               through the plain version; the whole-A2C2f kernel also beside
-               the staged A2C2f module on the same weights;
+               it, with times of the kernel, the plain version and, where one
+               PyTorch call computes the same function, that call (for kernel
+               A's attention part, scaled_dot_product_attention over the
+               plain projection's q, k, v): the card's own time from
+               torch.profiler (`ms`) and CUDA events around back-to-back calls
+               (`call_ms`, which counts the host where it sets the pace); the
+               training attention's gradients against autograd through the
+               plain version; the whole-A2C2f kernel also beside the staged
+               A2C2f module on the same weights;
   4. serve   - a Predictor with seeded random yolov12n-seg weights (4 ch,
                nc=1, 640^2, bf16) answers 3 requests of 8 uint8 images; the
                kernels' launch counters must show the path went through them;
@@ -42,13 +48,16 @@ Phases, one or more output lines each:
                [0, 1]; images/s and the step's parts; then one f32 step on
                the card against the CPU.
 Then a JSON line of kernel results (each kernel's launches on its path, error,
-times, and the least time the card could take), the nvidia-smi line again,
+device and per-call times, and the least time the card could take), the
+nvidia-smi line again,
 and last {"ok": true, "device": {...}}. Any failure raises: exit code
 non-zero and no "ok" line. Without a CUDA device it exits with code 2.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -93,6 +102,17 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return call_ms(fn, torch.device("cuda"), iters, warmup)
 
 
+def kernel_times(fn, iters: int = 20):
+    """(device_ms, call_ms) per call of `fn`: the card's own time (kernel and
+    copy time from torch.profiler, no host time and no gaps between
+    launches), the time every kernel below is given as; and CUDA events
+    around back-to-back calls, which also count the host wherever it, not
+    the card, sets the pace (a kernel of a few microseconds behind a Python
+    wrapper)."""
+    from yolou_tpu_torch.tools.profile_layers import device_ms
+    return device_ms(fn, iters), cuda_ms(fn, iters)
+
+
 def bound(nbytes: float, flops: float, dtype: str):
     """(bound_ms, bound_by): the least time the card could take, the larger
     of bytes over the memory rate and operations over the peak rate."""
@@ -114,7 +134,13 @@ def f32_exact(torch) -> None:
 # ------------------------------------------------------------- kernel A
 
 def check_attention(device):
+    """Kernel A against its plain version at the serving (640^2, batch 8)
+    and evaluation (160^2, batch 16) shapes; times of the kernel, the plain
+    version and, as a yardstick of the attention part alone (no one PyTorch
+    call does projection + attention), scaled_dot_product_attention over the
+    q, k, v that the plain projection gives."""
     import torch
+    import torch.nn.functional as F
     from yolou_tpu_torch.kernels.attention import (
         area_attention_qkv_fused, area_attention_qkv_fused_plain)
     f32_exact(torch)
@@ -138,9 +164,15 @@ def check_attention(device):
                       (v.float() - v_ref.float()).abs().max().item())
             tol = ATTN_TOL[dtype_name(dtype)]
             finite = bool(torch.isfinite(o).all() and torch.isfinite(v).all())
-            ms = cuda_ms(lambda: area_attention_qkv_fused(xt, wt, bt, heads))
-            plain_ms = cuda_ms(
+            ms, call_ms = kernel_times(
+                lambda: area_attention_qkv_fused(xt, wt, bt, heads))
+            plain_ms, plain_call_ms = kernel_times(
                 lambda: area_attention_qkv_fused_plain(xt, wt, bt, heads))
+            qkv = (torch.matmul(xt.float(), wt.float()) + bt).to(dtype)
+            qh, kh, vh = (t.reshape(g, n, heads, c // heads).transpose(1, 2)
+                          for t in qkv.split(c, -1))
+            attn_lib_ms, attn_lib_call_ms = kernel_times(
+                lambda: F.scaled_dot_product_attention(qh, kh, vh))
             # x and w read, o and v written; projection + q.k^T + p.v
             nbytes = xt.element_size() * (3 * g * n * c + 3 * c * c) + 12 * c
             flops = 6 * g * n * c * c + 4 * g * n * n * c
@@ -148,14 +180,19 @@ def check_attention(device):
             log("kernel", name="band_attention", case=name,
                 shape=f"({g},{n},{c})h{heads}", dtype=dtype_name(dtype),
                 max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                attention_library_ms=attn_lib_ms, bound_ms=bound_ms,
+                bound_by=bound_by, call_ms=call_ms,
+                plain_call_ms=plain_call_ms,
+                attention_library_call_ms=attn_lib_call_ms)
             if not finite or not err <= tol:
                 raise AssertionError(f"band attention {name} {dtype}: "
                                      f"max|d| {err} > {tol} or non-finite")
             worst = max(worst, err)
-            times[(name, dtype)] = {"ms": ms, "plain_ms": plain_ms,
+            times[(name, dtype)] = {"ms": ms, "call_ms": call_ms,
+                                    "plain_ms": plain_ms,
                                     "bound_ms": bound_ms,
-                                    "bound_by": bound_by, "library_ms": None}
+                                    "bound_by": bound_by, "library_ms": None,
+                                    "attention_library_ms": attn_lib_ms}
     return dict(times[("L6@640", torch.bfloat16)], max_abs_err=worst)
 
 
@@ -218,8 +255,11 @@ def check_training_attention(device):
                 t.requires_grad_(False)
             dn = dtype_name(dtype)
             with torch.no_grad():
-                ms, plain_ms, lib_ms = cuda_ms(fn), cuda_ms(plain), cuda_ms(sdpa)
-                bwd_ms = cuda_ms(lambda: attention_backward(q, k, v, do, heads))
+                ms, call_ms = kernel_times(fn)
+                plain_ms, plain_call_ms = kernel_times(plain)
+                lib_ms, lib_call_ms = kernel_times(sdpa)
+                bwd_ms = kernel_times(
+                    lambda: attention_backward(q, k, v, do, heads))[0]
             nbytes = 4 * g * n * c * q.element_size()     # q, k, v in; o out
             bound_ms, bound_by = bound(nbytes, 4 * g * n * n * c, dn)
             log("kernel", name=kname, case=name,
@@ -227,16 +267,18 @@ def check_training_attention(device):
                 tol=ATTN_TOL[dn], grad_max_abs_err=gerr, grad_tol=GRAD_TOL[dn],
                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 library_max_abs_err=lib_err, backward_ms=bwd_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, call_ms=call_ms,
+                plain_call_ms=plain_call_ms, library_call_ms=lib_call_ms)
             if not (torch.isfinite(o).all() and err <= ATTN_TOL[dn]
                     and gerr <= GRAD_TOL[dn]):
                 raise AssertionError(
                     f"{kname} {name} {dn}: max|d| {err} (tol {ATTN_TOL[dn]}),"
                     f" gradients {gerr} (tol {GRAD_TOL[dn]}) or non-finite")
             results[(name, dn)] = {
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": lib_ms, "backward_ms": bwd_ms}
+                "max_abs_err": err, "ms": ms, "call_ms": call_ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": lib_ms,
+                "backward_ms": bwd_ms}
     worst = max(r["max_abs_err"] for (name, _), r in results.items()
                 if not name.endswith("single"))
     return results, worst
@@ -311,10 +353,12 @@ def check_a2c2f(device):
                 staged = module(x_nchw).permute(0, 2, 3, 1)
                 err = (out.float() - ref.float()).abs().max().item()
                 staged_err = (out.float() - staged.float()).abs().max().item()
-                ms = cuda_ms(lambda: a2c2f_fused(xt, ws, n, area, heads))
-                plain_ms = cuda_ms(
+                ms, call_ms = kernel_times(
+                    lambda: a2c2f_fused(xt, ws, n, area, heads))
+                plain_ms, plain_call_ms = kernel_times(
                     lambda: a2c2f_fused_plain(xt, ws, n, area, heads))
-                staged_ms = cuda_ms(lambda: module(x_nchw))
+                staged_ms, staged_call_ms = kernel_times(
+                    lambda: module(x_nchw))
             nbytes, flops = a2c2f_work(shape, c_, c2, n, area,
                                        xt.element_size())
             bound_ms, bound_by = bound(nbytes, flops, dn)
@@ -332,7 +376,8 @@ def check_a2c2f(device):
                 max_abs_err=err, tol=tol, out_abs_max=out_max,
                 vs_staged_max_abs=staged_err, staged_tol=staged_tol, ms=ms,
                 plain_ms=plain_ms, staged_ms=staged_ms, bound_ms=bound_ms,
-                bound_by=bound_by, gflop=flops / 1e9)
+                bound_by=bound_by, gflop=flops / 1e9, call_ms=call_ms,
+                plain_call_ms=plain_call_ms, staged_call_ms=staged_call_ms)
             if not (torch.isfinite(out).all() and err <= tol):
                 raise AssertionError(f"a2c2f {name} {dn}: max|d| {err} > "
                                      f"{tol} or non-finite")
@@ -341,9 +386,9 @@ def check_a2c2f(device):
                                      f"staged module {staged_err} > "
                                      f"{staged_tol}")
             results[(name, dn)] = {
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "staged_ms": staged_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": None}
+                "max_abs_err": err, "ms": ms, "call_ms": call_ms,
+                "plain_ms": plain_ms, "staged_ms": staged_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
     worst = max(r["max_abs_err"] for r in results.values())
     return dict(results[("L6@640", "bfloat16")], max_abs_err=worst)
 
@@ -396,8 +441,9 @@ def check_nms(device):
     # time at the serving shape: B = 8 images, K = 512 candidates
     bt = torch.from_numpy(boxes[:BATCH].astype(np.float32)).to(device)
     vt = torch.ones((BATCH, k), dtype=torch.bool, device=device)
-    ms = cuda_ms(lambda: suppress_greedy(bt, vt, 0.45))
-    plain_ms = cuda_ms(lambda: suppress_greedy_plain(bt, vt, 0.45))
+    ms, call_ms = kernel_times(lambda: suppress_greedy(bt, vt, 0.45))
+    plain_ms, plain_call_ms = kernel_times(
+        lambda: suppress_greedy_plain(bt, vt, 0.45))
     # boxes and valid read, keep written; the work depends on the data: each
     # kept box is tested against every later candidate, 16 f32 operations an
     # IoU test
@@ -408,9 +454,11 @@ def check_nms(device):
                                "float32")
     log("kernel", name="greedy_nms", case="serve", shape=f"({BATCH},{k})",
         kept=int(keep.sum()), iou_tests=tests, ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by)
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        bound_ms=bound_ms, bound_by=bound_by, call_ms=call_ms,
+        plain_call_ms=plain_call_ms)
+    return {"max_abs_err": worst, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
 
 
 # ------------------------------------------------------------- serving
@@ -935,6 +983,50 @@ def compare_train_f32(state_dict, device):
                              f"{rel_loss}, gradient norm {rel_norm} > 1e-3")
 
 
+def band_attention_build_report(ptxas_log: str, library) -> list:
+    """Per band attention kernel instantiation: registers and spill bytes
+    from ptxas' report, and its tensor-core instructions (HMMA) in the SASS
+    of the built library where the toolkit has `cuobjdump` (else None)."""
+    import re
+    import shutil
+    pattern = re.compile(r"(band_attention_(?:qkv_)?(?:mma_)?kernel)(If)?")
+    report, name = {}, None
+    for line in ptxas_log.splitlines():
+        if "Function properties for" in line:
+            m = pattern.search(line)
+            name = (m.group(1) + ("<float>" if m.group(2) else "<bf16>")
+                    if m else None)
+        elif name and "spill stores" in line:
+            stores, loads = re.findall(r"(\d+) bytes spill", line)
+            report[name] = {"spill_stores": int(stores),
+                            "spill_loads": int(loads)}
+        elif name and "Used" in line and "registers" in line:
+            report[name]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = None
+    try:
+        sass = subprocess.run([tool, "-sass", str(library)],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+    except (OSError, subprocess.CalledProcessError):
+        pass
+    for entry in report.values():
+        entry["hmma"] = None
+    if sass is not None:
+        name = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                m = pattern.search(line)
+                name = (m.group(1) + ("<float>" if m.group(2) else "<bf16>")
+                        if m else None)
+            elif name in report and re.search(r"\bHMMA\b", line):
+                report[name]["hmma"] = (report[name]["hmma"] or 0) + 1
+        for entry in report.values():
+            entry["hmma"] = entry["hmma"] or 0
+    return [{"kernel": k, **v} for k, v in sorted(report.items())]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -951,10 +1043,19 @@ def main() -> int:
         name=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
     t0 = time.perf_counter()
-    lib_path = build.build(verbose=True)
+    ptxas = io.StringIO()
+    with contextlib.redirect_stdout(ptxas):
+        lib_path = build.build(verbose=True)
+    print(ptxas.getvalue(), flush=True)
     build.load()
     log("build", seconds=round(time.perf_counter() - t0, 3),
         library=lib_path.name)
+    # bf16 on the tensor cores, f32 on the SIMT path
+    for entry in band_attention_build_report(ptxas.getvalue(), lib_path):
+        log("build", **entry)
+        tensor_cores = entry["kernel"].endswith("<bf16>")
+        if entry["hmma"] is not None and (entry["hmma"] > 0) != tensor_cores:
+            raise AssertionError(f"{entry['kernel']}: {entry['hmma']} HMMA")
 
     attn = check_attention(device)
     train_attn, train_attn_err = check_training_attention(device)
@@ -1032,12 +1133,13 @@ def main() -> int:
     l6 = train_attn[("L6@640", "bfloat16")]
     # the single-head entry at the shape its launches were counted at
     single = train_attn[("profile-single", "bfloat16")]
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+    keys = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": "band_attention", "route": "cuda",
          "source": src + "band_attention.cu", "replaces": pallas + ":357",
-         "launches": counts["band_attention"], **{k: attn[k] for k in keys}},
+         "launches": counts["band_attention"], **{k: attn[k] for k in keys},
+         "attention_library_ms": attn["attention_library_ms"]},
         {"name": "greedy_nms", "route": "cuda",
          "source": src + "greedy_nms.cu",
          "replaces": "yolou_tpu/ops/pallas_nms.py:97",

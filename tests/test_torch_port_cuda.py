@@ -21,7 +21,7 @@ from yolou_tpu_torch.kernels.a2c2f import a2c2f_fused, a2c2f_fused_plain
 from yolou_tpu_torch.kernels.attention import (
     area_attention, area_attention_fused, area_attention_fused_plain,
     area_attention_plain, area_attention_qkv_fused,
-    area_attention_qkv_fused_plain)
+    area_attention_qkv_fused_plain, max_tokens)
 from yolou_tpu_torch.kernels.nms import suppress_greedy, suppress_greedy_plain
 
 pytestmark = pytest.mark.cuda
@@ -50,21 +50,40 @@ def _attn_inputs(g, n, c, dtype, device, seed):
             torch.tensor(b, dtype=torch.float32, device=device))
 
 
+# N around the 16-row query tiles and key steps of the tensor-core path
+# (and the 32-key tiles of the SIMT path), the 160^2 and 640^2 band lengths,
+# and "max", the largest N the wrapper takes at the case's width and type;
+# one to four heads, up to 64 bands
+TILE_CASES = [(64 if n in (1, 15, 16, 17, 25, 33) else 4 if n in (399, 400)
+               else 2, n, heads)
+              for n in (1, 15, 16, 17, 25, 33, 399, 400, "max")
+              for heads in (1, 2, 4)]
+
+
+def _band(n, heads, dtype, projection):
+    c = 32 * heads
+    return (max_tokens(c, dtype, projection) if n == "max" else n), c
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("g,n,heads", [(1, 1, 1), (3, 7, 2), (5, 31, 3),
                                        (2, 33, 4), (7, 100, 2), (2, 257, 1),
-                                       (200, 64, 2), (1, 513, 2)])
+                                       (200, 64, 2), (1, 513, 2)]
+                         + TILE_CASES)
 def test_band_attention_matches_plain(cuda, g, n, heads, dtype, tol):
     """Any N >= 1 (ragged last key tile, one or many CTAs per band), one to
-    four heads; f32 within 1e-4, bf16 within 2e-2 (outputs of order 1)."""
-    x, w, b = _attn_inputs(g, n, 32 * heads, dtype, cuda, seed=g * n + heads)
+    four heads; f32 within 1e-4, bf16 within 2e-2 (outputs of order 1; its
+    probabilities are rounded to bf16 against a running maximum)."""
+    n, c = _band(n, heads, dtype, projection=True)
+    x, w, b = _attn_inputs(g, n, c, dtype, cuda, seed=g * n + heads)
     kernels.reset_launch_counts()
     o, v = area_attention_qkv_fused(x, w, b, heads)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["band_attention"] == 1
     o_ref, v_ref = area_attention_qkv_fused_plain(x, w, b, heads)
     assert o.dtype == v.dtype == dtype and o.shape == v.shape == x.shape
+    assert bool(torch.isfinite(o).all() and torch.isfinite(v).all())
     assert (o.float() - o_ref.float()).abs().max().item() <= tol
     assert (v.float() - v_ref.float()).abs().max().item() <= tol
 
@@ -88,6 +107,14 @@ def test_band_attention_refuses_what_it_cannot_run(cuda):
     x, w, b = _attn_inputs(1, 1000, 128, torch.float32, cuda, seed=3)
     with pytest.raises(ValueError, match="shared memory"):
         area_attention_qkv_fused(x, w, b, 4)
+    n = max_tokens(128, torch.bfloat16) + 1
+    x, w, b = _attn_inputs(1, n, 128, torch.bfloat16, cuda, seed=3)
+    with pytest.raises(ValueError, match="shared memory"):
+        area_attention_qkv_fused(x, w, b, 4)
+    x, w, b = _attn_inputs(1, 17, 64, torch.bfloat16, cuda, seed=3)
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)[1:]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        area_attention_qkv_fused(shifted.view(x.shape), w, b, 2)
     x, w, b = _attn_inputs(2, 16, 64, torch.float32, cuda, seed=4)
     with pytest.raises(ValueError, match="one device"):
         area_attention_qkv_fused(x, w.cpu(), b, 2)
@@ -104,18 +131,31 @@ def _qkv_inputs(g, n, c, dtype, device, seed, grad=False):
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("g,n,heads", [(1, 1, 1), (3, 7, 2), (2, 33, 3),
                                        (2, 257, 4), (1, 513, 2),
-                                       (40, 100, 2)])
+                                       (40, 100, 2)] + TILE_CASES)
 def test_training_attention_matches_plain(cuda, g, n, heads, dtype, tol):
     """Kernel C off the training shapes: any N >= 1, one to four heads; f32
     within 1e-4, bf16 within 2e-2 (outputs of order 1)."""
-    q, k, v = _qkv_inputs(g, n, 32 * heads, dtype, cuda, seed=g * n + heads)
+    n, c = _band(n, heads, dtype, projection=False)
+    q, k, v = _qkv_inputs(g, n, c, dtype, cuda, seed=g * n + heads)
     kernels.reset_launch_counts()
     o = area_attention_fused(q, k, v, heads)
     torch.cuda.synchronize()
     assert kernels.launch_counts()["band_attention_train"] == 1
     ref = area_attention_fused_plain(q, k, v, heads)
     assert o.dtype == dtype and o.shape == q.shape
+    assert bool(torch.isfinite(o).all())
     assert (o.float() - ref.float()).abs().max().item() <= tol
+
+
+def test_training_attention_on_a_side_stream(cuda):
+    q, k, v = _qkv_inputs(32, 400, 64, torch.bfloat16, cuda, seed=8)
+    ref = area_attention_fused_plain(q, k, v, 2)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        o = area_attention_fused(q, k, v, 2)
+    torch.cuda.current_stream().wait_stream(side)
+    assert (o.float() - ref.float()).abs().max().item() <= 2e-2
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
@@ -150,6 +190,10 @@ def test_training_attention_refuses_what_it_cannot_run(cuda):
     with pytest.raises(ValueError, match="head_dim"):
         area_attention_fused(q, k, v, 2)              # head_dim 48
     q, k, v = _qkv_inputs(1, 1000, 32, torch.float32, cuda, seed=3)
+    with pytest.raises(ValueError, match="shared memory"):
+        area_attention_fused(q, k, v, 1)
+    n = max_tokens(32, torch.bfloat16, projection=False) + 1
+    q, k, v = _qkv_inputs(1, n, 32, torch.bfloat16, cuda, seed=3)
     with pytest.raises(ValueError, match="shared memory"):
         area_attention_fused(q, k, v, 1)
     q, k, v = _qkv_inputs(2, 16, 64, torch.float32, cuda, seed=4)

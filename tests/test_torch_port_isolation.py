@@ -96,8 +96,8 @@ def test_sources_name_no_jax_module():
                  if pat.search(p.read_text())]
     assert offenders == []
     assert sorted(p.name for p in (PKG / "csrc").glob("*.cu*")) == [
-        "a2c2f.cu", "band_attention.cu", "band_attention.cuh",
-        "greedy_nms.cu"]
+        "a2c2f.cu", "attention_mma.cuh", "band_attention.cu",
+        "band_attention.cuh", "greedy_nms.cu"]
 
 
 def test_cpu_tensors_take_the_plain_versions_without_counting():

@@ -134,3 +134,26 @@ def test_attention_profiler_runs_both_entry_points_on_the_cpu(capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='device="cpu"'):
             profile_layers.profile_attention_variants(batch=1)
+
+
+def test_build_timer_cases_run_on_the_cpu():
+    """`tools/time_builds.py`: every case it times (kernels A and C at the
+    serving, evaluation, training and profiler shapes, `a2c2f` at layers 6
+    and 8) is a valid call of the package's wrapper; on the CPU each runs
+    the plain version and counts no launch. Timing itself needs the card."""
+    from yolou_tpu_torch import kernels
+    from yolou_tpu_torch.tools import time_builds
+    kernels.reset_launch_counts()
+    calls = time_builds._calls(torch.device("cpu"))
+    assert len(calls) == (len(time_builds.QKV_CASES)
+                          + len(time_builds.ATTN_CASES)
+                          + len(time_builds.A2C2F_CASES))
+    for name, fn in calls.items():
+        out = fn()
+        first = out[0] if isinstance(out, tuple) else out
+        assert first.dtype == torch.bfloat16, name
+        assert bool(torch.isfinite(first.float()).all()), name
+    assert not any(kernels.launch_counts().values())
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            time_builds.main(["yolou_tpu_torch/csrc"])

@@ -12,6 +12,12 @@ q, k, v, the training path, differentiable. Replaces the TPU kernels
 in the JAX package only the forward is a kernel: the backward recomputes the
 softmax in f32 with plain tensor operations, term for term what `_aaf_bwd`
 and `_aa_bwd` do there.
+
+Both entry points dispatch by type inside the C library: bfloat16 runs on
+the tensor cores (`mma.sync` m16n8k16, a warp per 16 query rows, online
+softmax over steps of 32 keys in kernel A and 64 in kernel C, probabilities
+rounded to bfloat16 for the p.v product), float32 on the SIMT path (f32 FMA, which the 1e-4 comparisons
+rest on). Neither falls back to the other or to the plain version.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from . import build
 HEAD_DIM = 32     # the CUDA kernel is specialised for YOLOv12's head width
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 227 * 1024
+_CLUSTER_ROWS = 8 * 8 * 16   # bf16 kernel A: CTAs x warps x query rows
 
 
 def area_attention_qkv_fused_plain(x: torch.Tensor, w: torch.Tensor,
@@ -47,12 +54,44 @@ def area_attention_qkv_fused_plain(x: torch.Tensor, w: torch.Tensor,
 
 def smem_bytes(n: int, c: int, dtype: torch.dtype,
                projection: bool = True) -> int:
-    """Upper bound on one CTA's dynamic shared memory in band_attention.cu
-    (a CTA holds at most N query rows; kernel A also its head's weights)."""
+    """One CTA's dynamic shared memory in band_attention.cu (an upper bound
+    on the float32 path, whose CTAs hold at most N query rows).
+
+    bfloat16 (tensor cores): the head's keys and values, N rounded up to 16
+    rows of 32 channels; kernel A also its head's (C, 96) weights in rows of
+    104. float32 (SIMT): q rows, keys and values of 32 channels, N
+    rounded up to 32 for keys and values; kernel A also its head's (C, 96)
+    weights."""
+    if dtype == torch.bfloat16:
+        n_pad = -(-n // 16) * 16
+        weights = 104 * c if projection else 0
+        return 2 * (weights + 2 * n_pad * HEAD_DIM)
     n_pad = -(-n // 32) * 32
     elt = torch.empty((), dtype=dtype).element_size()
     weights = 3 * HEAD_DIM * c if projection else 0
     return elt * (weights + HEAD_DIM * n + 2 * HEAD_DIM * n_pad)
+
+
+def max_tokens(c: int, dtype: torch.dtype, projection: bool = True) -> int:
+    """The longest band the CUDA kernel takes at width C: its shared memory
+    stays within a block's 227 KB, and in bfloat16 kernel A a band is one
+    cluster of at most 8 CTAs of 8 warps of 16 query rows."""
+    n = 0
+    while _fits(n + 1, c, dtype, projection):
+        n += 1
+    return n
+
+
+def _fits(n: int, c: int, dtype: torch.dtype, projection: bool) -> bool:
+    if dtype == torch.bfloat16 and projection and n > _CLUSTER_ROWS:
+        return False
+    return smem_bytes(n, c, dtype, projection) <= _SMEM_LIMIT
+
+
+def _check_aligned(*tensors):
+    """The bfloat16 kernels read and write rows 16 bytes at a time."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the bfloat16 kernel needs 16-byte aligned tensors")
 
 
 def _check(x, w, b, heads):
@@ -94,9 +133,12 @@ def area_attention_qkv_fused(x: torch.Tensor, w: torch.Tensor,
     if c // heads != HEAD_DIM:
         raise ValueError(f"the CUDA kernel needs head_dim {HEAD_DIM}, "
                          f"got {c // heads}")
-    if smem_bytes(n, c, x.dtype) > _SMEM_LIMIT:
-        raise ValueError(f"band of N={n}, C={c} needs "
-                         f"{smem_bytes(n, c, x.dtype)} B of shared memory")
+    if not _fits(n, c, x.dtype, projection=True):
+        raise ValueError(f"band of N={n}, C={c} is over the "
+                         f"{max_tokens(c, x.dtype)} tokens the {x.dtype} "
+                         f"kernel takes (shared memory and cluster size)")
+    if x.dtype == torch.bfloat16:
+        _check_aligned(x, w)
     lib = build.load()
     o = torch.empty_like(x)
     v = torch.empty_like(x)
@@ -171,9 +213,12 @@ def _launch_band_attention(q, k, v, heads):
                          f"got {c // heads}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
-    need = smem_bytes(n, c, q.dtype, projection=False)
-    if need > _SMEM_LIMIT:
-        raise ValueError(f"band of N={n} needs {need} B of shared memory")
+    if not _fits(n, c, q.dtype, projection=False):
+        raise ValueError(f"band of N={n} is over the "
+                         f"{max_tokens(c, q.dtype, projection=False)} tokens "
+                         f"the {q.dtype} kernel's shared memory holds")
+    if q.dtype == torch.bfloat16:
+        _check_aligned(q, k, v)
     lib = build.load()
     o = torch.empty_like(q)
     with torch.cuda.device(q.device):

@@ -53,6 +53,31 @@ def call_ms(fn: Callable, device: torch.device, iters: int = 20,
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn: Callable, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device milliseconds per call of `fn` on the GPU: the kernel and
+    copy time `torch.profiler` records over `iters` calls after `warmup`,
+    without the host's time or the gaps between launches. Where `call_ms`
+    reads more, the host, not the card, sets the pace of back-to-back
+    calls."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    for _ in range(3):         # a trace that comes back empty is taken again
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+                 for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / iters
+    raise RuntimeError("torch.profiler recorded no device time")
+
+
 def attention_shapes(batch: int) -> Tuple[Tuple[int, int, int],
                                           Tuple[int, int, int]]:
     """The (G, N, C) shapes the profiler gives the single-head and the
