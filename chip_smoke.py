@@ -6,14 +6,16 @@
 Phases, one or more output lines each:
   1. device  - the card (nvidia-smi name and power limit), torch and CUDA;
   2. build   - nvcc builds the kernels from yolou_tpu_torch/csrc; the band
-               attention kernels' registers, spills and tensor-core (HMMA)
-               instructions: bf16 must have them, f32 (SIMT) must not;
+               attention and whole-A2C2f kernels' registers, spills and
+               tensor-core (HMMA) instructions: bf16 must have them, f32
+               (SIMT) must not;
   3. kernels - each CUDA kernel against its plain PyTorch version on the card,
                at the shapes the serving, training and evaluation paths give
                it, with times of the kernel, the plain version and, where one
                PyTorch call computes the same function, that call (for kernel
                A's attention part, scaled_dot_product_attention over the
-               plain projection's q, k, v): the card's own time from
+               plain projection's q, k, v; the NMS kernel must be one
+               device kernel a call): the card's own time from
                torch.profiler (`ms`) and CUDA events around back-to-back calls
                (`call_ms`, which counts the host where it sets the pace); the
                training attention's gradients against autograd through the
@@ -111,6 +113,26 @@ def kernel_times(fn, iters: int = 20):
     wrapper)."""
     from yolou_tpu_torch.tools.profile_layers import device_ms
     return device_ms(fn, iters), cuda_ms(fn, iters)
+
+
+def device_kernels(fn, calls: int = 5) -> list:
+    """The device kernels and copies torch.profiler records per call of
+    `fn` (the names of `calls` calls, divided among them; raises if they do
+    not divide evenly)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if len(names) % calls:
+        raise AssertionError(f"{len(names)} device events in {calls} calls")
+    return names[:len(names) // calls]
 
 
 def bound(nbytes: float, flops: float, dtype: str):
@@ -441,6 +463,12 @@ def check_nms(device):
     # time at the serving shape: B = 8 images, K = 512 candidates
     bt = torch.from_numpy(boxes[:BATCH].astype(np.float32)).to(device)
     vt = torch.ones((BATCH, k), dtype=torch.bool, device=device)
+    per_call = device_kernels(lambda: suppress_greedy(bt, vt, 0.45))
+    log("kernel", name="greedy_nms", check="device kernels per call",
+        kernels=per_call)
+    if len(per_call) != 1:
+        raise AssertionError(f"greedy NMS launched {per_call} a call, want "
+                             f"one kernel")
     ms, call_ms = kernel_times(lambda: suppress_greedy(bt, vt, 0.45))
     plain_ms, plain_call_ms = kernel_times(
         lambda: suppress_greedy_plain(bt, vt, 0.45))
@@ -983,19 +1011,32 @@ def compare_train_f32(state_dict, device):
                              f"{rel_loss}, gradient norm {rel_norm} > 1e-3")
 
 
+def _kernel_name(line: str):
+    """The band attention or a2c2f kernel a ptxas or SASS line names, with
+    its I/O type (and token tile), else None: `..._kernelIf...` is the f32
+    instantiation, a `_mma_` kernel bf16."""
+    import re
+    m = re.search(r"((?:band_attention_(?:qkv_)?|a2c2f_)(?:mma_)?kernel)"
+                  r"(If|ILi(\d+)E)?", line)
+    if not m:
+        return None
+    if m.group(2) == "If":
+        return m.group(1) + "<float>"
+    return m.group(1) + (f"<bf16,tile={m.group(3)}>" if m.group(3)
+                         else "<bf16>")
+
+
 def band_attention_build_report(ptxas_log: str, library) -> list:
-    """Per band attention kernel instantiation: registers and spill bytes
-    from ptxas' report, and its tensor-core instructions (HMMA) in the SASS
-    of the built library where the toolkit has `cuobjdump` (else None)."""
+    """Per band attention and whole-A2C2f kernel instantiation: registers
+    and spill bytes from ptxas' report, and its tensor-core instructions
+    (HMMA) in the SASS of the built library where the toolkit has
+    `cuobjdump` (else None)."""
     import re
     import shutil
-    pattern = re.compile(r"(band_attention_(?:qkv_)?(?:mma_)?kernel)(If)?")
     report, name = {}, None
     for line in ptxas_log.splitlines():
         if "Function properties for" in line:
-            m = pattern.search(line)
-            name = (m.group(1) + ("<float>" if m.group(2) else "<bf16>")
-                    if m else None)
+            name = _kernel_name(line)
         elif name and "spill stores" in line:
             stores, loads = re.findall(r"(\d+) bytes spill", line)
             report[name] = {"spill_stores": int(stores),
@@ -1017,9 +1058,7 @@ def band_attention_build_report(ptxas_log: str, library) -> list:
         name = None
         for line in sass.splitlines():
             if "Function :" in line:
-                m = pattern.search(line)
-                name = (m.group(1) + ("<float>" if m.group(2) else "<bf16>")
-                        if m else None)
+                name = _kernel_name(line)
             elif name in report and re.search(r"\bHMMA\b", line):
                 report[name]["hmma"] = (report[name]["hmma"] or 0) + 1
         for entry in report.values():
@@ -1051,9 +1090,12 @@ def main() -> int:
     log("build", seconds=round(time.perf_counter() - t0, 3),
         library=lib_path.name)
     # bf16 on the tensor cores, f32 on the SIMT path
-    for entry in band_attention_build_report(ptxas.getvalue(), lib_path):
+    report = band_attention_build_report(ptxas.getvalue(), lib_path)
+    if not any(e["kernel"].startswith("a2c2f_mma_kernel") for e in report):
+        raise AssertionError("no bf16 a2c2f kernel in the build report")
+    for entry in report:
         log("build", **entry)
-        tensor_cores = entry["kernel"].endswith("<bf16>")
+        tensor_cores = "<bf16" in entry["kernel"]
         if entry["hmma"] is not None and (entry["hmma"] > 0) != tensor_cores:
             raise AssertionError(f"{entry['kernel']}: {entry['hmma']} HMMA")
 

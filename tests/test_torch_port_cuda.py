@@ -237,6 +237,62 @@ def test_greedy_nms_matches_plain(cuda, bsz, k, case, thres):
     assert torch.equal(keep, suppress_greedy_plain(boxes, valid, thres))
 
 
+def _nms_layout(bsz, k, case, device):
+    """"none": no valid row; "cluster": K copies of one box jittered by a
+    few hundredths of a pixel (one kept); "disjoint": K boxes on a grid
+    that never touch (all kept); "ties": boxes on a lattice whose
+    neighbours overlap with IoU exactly 1/2, at the threshold 0.5."""
+    idx = torch.arange(k, dtype=torch.float32)
+    if case == "cluster":
+        jitter = torch.linspace(0, 0.05, k)
+        boxes = torch.stack([jitter, jitter, 100 + jitter, 80 + jitter], -1)
+    elif case == "ties":
+        x, y = idx % 40, (idx // 40) % 8
+        boxes = torch.stack([x, y, x + 3, y + 1], -1)   # IoU 2/4 at x + 1
+    else:
+        x, y = 10 * (idx % 64), 10 * (idx // 64)
+        boxes = torch.stack([x, y, x + 5, y + 5], -1)
+    boxes = boxes.expand(bsz, k, 4).contiguous().to(device)
+    valid = torch.full((bsz, k), case != "none", device=device)
+    return boxes, valid
+
+
+@pytest.mark.parametrize("case,want", [("none", 0), ("cluster", 1),
+                                       ("disjoint", None), ("ties", None)])
+@pytest.mark.parametrize("bsz,k", [(1, 1), (2, 63), (2, 65), (16, 2048)])
+def test_greedy_nms_edge_layouts(cuda, bsz, k, case, want):
+    """No valid row (nothing kept), one cluster (exactly one kept), disjoint
+    boxes (all K kept) and threshold ties, K off and on a multiple of 64 up
+    to 2048 at 16 images: the keep-sets of the plain version."""
+    boxes, valid = _nms_layout(bsz, k, case, cuda)
+    thres = 0.5 if case == "ties" else 0.45
+    keep = suppress_greedy(boxes, valid, thres)
+    assert torch.equal(keep, suppress_greedy_plain(boxes, valid, thres))
+    kept = keep.sum(1)
+    if want is not None:
+        assert bool((kept == min(want, k)).all())
+    elif case == "disjoint":
+        assert bool((kept == k).all())
+
+
+def test_greedy_nms_is_one_device_kernel_per_call(cuda):
+    """torch.profiler sees exactly one device kernel (and no copy) per
+    suppress_greedy call: no hit-matrix pass, no scratch."""
+    from torch.profiler import ProfilerActivity, profile
+    boxes, valid = _nms_inputs(8, 512, "random", cuda, seed=3)
+    suppress_greedy(boxes, valid, 0.45)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            suppress_greedy(boxes, valid, 0.45)
+        torch.cuda.synchronize()
+    device = [e.name for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(device) == 5, device
+    assert all("greedy_nms" in name for name in device), device
+
+
 def test_greedy_nms_refuses_what_it_cannot_run(cuda):
     boxes, valid = _nms_inputs(1, 2049, "random", cuda, seed=0)
     with pytest.raises(ValueError, match="K <="):
@@ -277,6 +333,10 @@ A2C2F_CASES = [
     ((3, 12, 20, 64), 96, 2, 4, 4),      # bands of 60: ragged, 4 heads
     ((2, 20, 20, 64), 64, 1, 1, 1),      # the smallest eligible shape
     ((64, 20, 20, 40), 32, 1, 1, 1),     # 1600 tiles: more than one wave
+    ((2, 8, 8, 3), 40, 1, 4, 1),         # cin 3 (6-byte rows), c2 40
+    ((1, 10, 10, 24), 36, 1, 1, 2),      # c2 36: rows not 16-byte multiples
+    ((2, 12, 12, 24), 45, 2, 4, 1),      # c2 odd
+    ((1, 16, 16, 40), 72, 1, 1, 2),      # c2 72: a last n8 tile of 8
 ]
 
 
@@ -285,10 +345,11 @@ A2C2F_CASES = [
 @pytest.mark.parametrize("shape,c2,n_stages,area,heads", A2C2F_CASES)
 def test_a2c2f_matches_plain(cuda, shape, c2, n_stages, area, heads, dtype,
                              tol):
-    """H*W a multiple of the 16-token tile or not, area 1 and 4, 1-4 heads,
-    1-2 stages, cin off a multiple of 32, batch 1 and a batch whose tiles
-    exceed one co-resident wave; f32 within 1e-4, bf16 within 2e-2 (outputs
-    of order 1)."""
+    """H*W a multiple of the token tile or not, area 1 and 4, 1-4 heads,
+    1-2 stages, cin off a multiple of 32 (down to 3, whose rows are not
+    16-byte multiples), c2 off a multiple of 16 (even odd), batch 1 and a
+    batch whose tiles exceed one co-resident wave; f32 within 1e-4, bf16
+    within 2e-2 (outputs of order 1)."""
     x, ws = _a2c2f_inputs(shape, 32 * heads, c2, n_stages, dtype, cuda,
                           seed=sum(shape) + heads)
     kernels.reset_launch_counts()

@@ -139,18 +139,25 @@ def test_attention_profiler_runs_both_entry_points_on_the_cpu(capsys):
 def test_build_timer_cases_run_on_the_cpu():
     """`tools/time_builds.py`: every case it times (kernels A and C at the
     serving, evaluation, training and profiler shapes, `a2c2f` at layers 6
-    and 8) is a valid call of the package's wrapper; on the CPU each runs
-    the plain version and counts no launch. Timing itself needs the card."""
+    and 8, kernel B at (8, 512) and (16, 512)) is a valid call of the
+    package's wrapper; on the CPU each runs the plain version and counts no
+    launch. Timing itself needs the card."""
     from yolou_tpu_torch import kernels
     from yolou_tpu_torch.tools import time_builds
     kernels.reset_launch_counts()
     calls = time_builds._calls(torch.device("cpu"))
     assert len(calls) == (len(time_builds.QKV_CASES)
                           + len(time_builds.ATTN_CASES)
-                          + len(time_builds.A2C2F_CASES))
+                          + len(time_builds.A2C2F_CASES)
+                          + len(time_builds.NMS_CASES))
+    nms = dict(time_builds.NMS_CASES)
     for name, fn in calls.items():
         out = fn()
         first = out[0] if isinstance(out, tuple) else out
+        if name in nms:               # a keep mask, some rows kept
+            assert first.dtype == torch.bool, name
+            assert tuple(first.shape) == nms[name] and bool(first.any())
+            continue
         assert first.dtype == torch.bfloat16, name
         assert bool(torch.isfinite(first.float()).all()), name
     assert not any(kernels.launch_counts().values())

@@ -324,9 +324,10 @@ band_attention_qkv_mma_kernel(const bf16* __restrict__ x,
 
   gather_rows(cluster, Ks, Vs, Np, 16 * tiles, rank);
   if (active && r0 < N)
-    attend_tile_mma<KT_QKV>(qa, Ks, Vs, N, Np, scale,
-                            o + ((size_t)g * N + r0) * C + h * HD, C,
-                            min(16, N - r0));
+    attend_tile_mma<KT_QKV>(
+        qa, Ks, Vs, N, Np, scale,
+        StoreRowsBF16{o + ((size_t)g * N + r0) * C + h * HD, C,
+                      min(16, N - r0)});
 }
 
 // Kernel C, bf16: no cluster. Each CTA loads all k and v rows of its
@@ -370,9 +371,10 @@ band_attention_mma_kernel(const bf16* __restrict__ q,
   cp_async_wait_all();
   __syncthreads();
   if (active)
-    attend_tile_mma<KT_ATTN>(qa, Ks, Vs, N, Np, scale,
-                             o + ((size_t)g * N + r0) * C + h * HD, C,
-                             min(16, N - r0));
+    attend_tile_mma<KT_ATTN>(
+        qa, Ks, Vs, N, Np, scale,
+        StoreRowsBF16{o + ((size_t)g * N + r0) * C + h * HD, C,
+                      min(16, N - r0)});
 }
 
 int sm_count() {

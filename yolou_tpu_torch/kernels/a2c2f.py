@@ -17,11 +17,18 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .attention import _DTYPE_CODE, _SMEM_LIMIT, HEAD_DIM
+from .attention import _DTYPE_CODE, _SMEM_LIMIT, HEAD_DIM, _check_aligned
 
-TILE = 16          # tokens per CTA tile in a2c2f.cu (TM)
+TILE = 16          # tokens per CTA tile of a2c2f.cu's f32 kernel (TM)
+MMA_TILE_MIN = 16  # the bf16 kernel's smallest token tile
 MAX_STAGES = 4     # the kernel's parameter block holds 8 ABlocks
 _PER_BLOCK = 10    # tensors per ABlock in the flat weight list
+# the bf16 kernel's weight ring (RING slabs of KS x (NP + 8) bf16), its
+# attention partials (8 warps x PART_FLOATS f32) and its static GEMM
+# descriptors, in bytes
+_MMA_RING = 2 * 3 * 64 * (128 + 8)
+_MMA_PARTS = 4 * 8 * (16 + 16 + 16 * HEAD_DIM)
+_MMA_STATIC = 4 * 32
 
 
 def a2c2f_mega_eligible(H: int, W: int, cin: int, c_: int, area: int,
@@ -46,13 +53,26 @@ def _split(weights: Sequence[torch.Tensor], n_stages: int):
     return ws[:2], blocks, ws[-2:]
 
 
+def band_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         dtype: torch.dtype) -> torch.Tensor:
+    """softmax(q k^T / sqrt(hd)) v over (G, heads, nb, hd) f32 tensors that
+    hold `dtype` values: the row maximum subtracted, the unnormalised exp
+    rounded to `dtype` before p.v, the division by the f32 sum of the
+    unrounded exp after it. Returns f32."""
+    s = torch.matmul(q, k.transpose(-1, -2)) * q.shape[-1] ** -0.5
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    return torch.matmul(e.to(dtype).float(), v) / e.sum(-1, keepdim=True)
+
+
 def a2c2f_fused_plain(x: torch.Tensor, weights: Sequence[torch.Tensor],
-                      n_stages: int, area: int, heads: int) -> torch.Tensor:
+                      n_stages: int, area: int, heads: int,
+                      attention=band_attention_plain) -> torch.Tensor:
     """Plain PyTorch version with the kernel's rounding points: every GEMM
     accumulates in f32 and adds its f32 bias; y0, qkv, (o + pe), h and each t
-    are rounded to x.dtype; residual adds are in f32; the attention subtracts
-    the row maximum, rounds the unnormalised exp to x.dtype before p.v and
-    divides by the f32 sum of the unrounded exp."""
+    are rounded to x.dtype; residual adds are in f32; the attention is
+    `attention(q, k, v, x.dtype)` per band and head (`band_attention_plain`;
+    a test may pass an emulation of the kernel's blocking), its f32 output
+    added to the f32 positional term before the rounding."""
     B, H, W, cin = x.shape
     (wcv1, bcv1), blocks, (wcv2, bcv2) = _split(weights, n_stages)
     c_ = wcv1.shape[1]
@@ -70,10 +90,7 @@ def a2c2f_fused_plain(x: torch.Tensor, weights: Sequence[torch.Tensor],
     for a, (wqkv, bqkv, wpe, bpe, wproj, bproj, wm1, bm1, wm2,
             bm2) in enumerate(blocks):
         q, k, v = gemm(t, wqkv, bqkv).to(dt).split(c_, -1)
-        s = torch.matmul(heads_view(q),
-                         heads_view(k).transpose(-1, -2)) * hd ** -0.5
-        e = torch.exp(s - s.amax(-1, keepdim=True))
-        o = torch.matmul(e.to(dt).float(), heads_view(v)) / e.sum(-1, keepdim=True)
+        o = attention(heads_view(q), heads_view(k), heads_view(v), dt)
         o = o.transpose(1, 2).reshape(B, N, c_)
         pe = F.conv2d(v.reshape(B, H, W, c_).permute(0, 3, 1, 2).float(),
                       wpe.permute(2, 0, 1)[:, None], bpe, padding=3, groups=c_)
@@ -89,14 +106,22 @@ def a2c2f_fused_plain(x: torch.Tensor, weights: Sequence[torch.Tensor],
 
 def smem_bytes(cin: int, c_: int, n_stages: int, nb: int,
                dtype: torch.dtype) -> int:
-    """One CTA's dynamic shared memory in a2c2f.cu: three transposed f32
-    activation tiles, then one head's queries, keys and values of a band."""
-    elt = torch.empty((), dtype=dtype).element_size()
-    n_pad = -(-nb // 32) * 32
-    ldk = n_pad + (1 if elt == 4 else 2)
-    big = max(cin, 2 * c_, (n_stages + 1) * c_)
-    return (4 * (TILE + 4) * (2 * c_ + big)
-            + elt * HEAD_DIM * (TILE + ldk + n_pad))
+    """One CTA's shared memory in a2c2f.cu. float32 (SIMT): three transposed
+    f32 activation tiles, then one head's queries, keys and values of a band.
+    bfloat16 (tensor cores) at its smallest layout, a token tile of 16 and
+    one k/v buffer: the weight ring, one head's keys and values of a band,
+    the attention partials, and the t, u and `big` bf16 tiles, rows padded
+    by 16 bytes (the launch takes a larger layout where it fits)."""
+    if dtype == torch.float32:
+        n_pad = -(-nb // 32) * 32
+        big = max(cin, 2 * c_, (n_stages + 1) * c_)
+        return (4 * (TILE + 4) * (2 * c_ + big)
+                + 4 * HEAD_DIM * (TILE + n_pad + 1 + n_pad))
+    pad16 = lambda k: -(-k // 16) * 16
+    big = max(pad16(cin), 2 * c_, (n_stages + 1) * c_)
+    tiles = 2 * MMA_TILE_MIN * (2 * (c_ + 8) + big + 8)
+    return (_MMA_RING + 2 * 2 * HEAD_DIM * pad16(nb) + _MMA_PARTS + tiles
+            + _MMA_STATIC)
 
 
 def _check(x, weights, n_stages, area, heads):
@@ -175,6 +200,8 @@ def a2c2f_fused(x: torch.Tensor, weights: Sequence[torch.Tensor],
     if need > _SMEM_LIMIT:
         raise ValueError(f"a band of {H * W // area} tokens at cin={cin}, "
                          f"c_={c_} needs {need} B of shared memory")
+    if x.dtype == torch.bfloat16:   # the stencil reads its taps 16 B a time
+        _check_aligned(*(blk[2] for blk in _split(weights, n_stages)[1]))
     lib = build.load()
     tokens = B * H * W
     out = torch.empty((B, H, W, c2), dtype=x.dtype, device=x.device)

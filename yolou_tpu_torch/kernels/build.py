@@ -97,7 +97,7 @@ def load() -> ctypes.CDLL:
         lib.yolou_band_attention.argtypes = [vp, vp, vp, vp,
                                              ci, ci, ci, ci, ci, vp]
         lib.yolou_band_attention.restype = ci
-        lib.yolou_greedy_nms.argtypes = [vp, vp, vp, vp, ci, ci, cf, vp]
+        lib.yolou_greedy_nms.argtypes = [vp, vp, vp, ci, ci, cf, vp]
         lib.yolou_greedy_nms.restype = ci
         lib.yolou_a2c2f.argtypes = [vp, ctypes.POINTER(vp), ci, vp, vp, vp,
                                     *([ci] * 10), vp]

@@ -1,7 +1,9 @@
 """Kernel B: greedy NMS keep mask (CUDA, sm_90a), batched over images.
 
 Replaces the TPU kernel `yolou_tpu/ops/pallas_nms.py::suppress_greedy_fused`
-(body `_nms_kernel`). Source: `../csrc/greedy_nms.cu`.
+(body `_nms_kernel`). Source: `../csrc/greedy_nms.cu`: one launch, a CTA per
+image that decides 64-row windows of candidates in shared memory; no
+scratch.
 """
 
 from __future__ import annotations
@@ -10,7 +12,7 @@ import torch
 
 from . import build
 
-MAX_K = 2048      # the scan keeps the removed bitset in one warp's registers
+MAX_K = 2048      # a CTA holds an image's boxes in shared memory (32 KB)
 
 
 def nms_hit_matrix(boxes: torch.Tensor, valid: torch.Tensor,
@@ -73,14 +75,12 @@ def suppress_greedy(boxes: torch.Tensor, valid: torch.Tensor,
         raise ValueError(f"the CUDA kernel takes 0 < K <= {MAX_K} and B > 0, "
                          f"got B={bsz}, K={k}")
     lib = build.load()
-    words = -(-k // 64)
-    mask = torch.empty((bsz, k, words), dtype=torch.int64, device=boxes.device)
     keep = torch.empty((bsz, k), dtype=torch.bool, device=boxes.device)
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.yolou_greedy_nms(boxes.data_ptr(), valid.data_ptr(),
-                                    mask.data_ptr(), keep.data_ptr(), bsz, k,
-                                    float(iou_thres), stream)
+                                    keep.data_ptr(), bsz, k, float(iou_thres),
+                                    stream)
     build.check(lib, code, "greedy NMS kernel")
     suppress_greedy.launches += 1
     return keep
