@@ -49,6 +49,21 @@ Phases, one or more output lines each:
                launch a step, 48 images, finite Dice, precision and recall in
                [0, 1]; images/s and the step's parts; then one f32 step on
                the card against the CPU.
+  9. train-decoder - the YOLO-Seg++ training pipeline at 160^2, bf16, with
+               the same detector weights: seeded images and elliptic masks
+               in memory (512 train, 128 val, 128 test); objectmaps of every
+               split from the port's generator at batch 128 (8 band
+               attention launches a batch, no NMS); `DecoderTrainer.train()`
+               over them, batch 128, 3 epochs (12 updates: finite history,
+               the loss not up by more than 0.2, decoder moved, encoder
+               bit-identical, best.pt / last.pt / history.csv written), then
+               resumed from last.pt with 4 epochs (one more epoch, step 16);
+               the step's time, parts, busy share and launches; an Evaluator
+               on the test split with the trained decoder (8 band attention
+               and one NMS launch a step); one f32 step card vs CPU; kernel
+               A's gradient through an eval-mode AAttn against the plain
+               version's, and the whole-A2C2f kernel's refusal of an input
+               that requires grad.
 Then a JSON line of kernel results (each kernel's launches on its path, error,
 device and per-call times, and the least time the card could take), the
 nvidia-smi line again,
@@ -75,6 +90,9 @@ TRAIN_STEPS = 3
 EVAL_IMGSZ = 160
 EVAL_BATCH = 16
 EVAL_BATCHES = 3
+DEC_SPLITS = {"train": 512, "val": 128, "test": 128}
+DEC_BATCH = 128
+DEC_EPOCHS = 3
 ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 BN_STD = 0.1
@@ -156,20 +174,24 @@ def f32_exact(torch) -> None:
 # ------------------------------------------------------------- kernel A
 
 def check_attention(device):
-    """Kernel A against its plain version at the serving (640^2, batch 8)
-    and evaluation (160^2, batch 16) shapes; times of the kernel, the plain
-    version and, as a yardstick of the attention part alone (no one PyTorch
-    call does projection + attention), scaled_dot_product_attention over the
-    q, k, v that the plain projection gives."""
+    """Kernel A against its plain version at the serving (640^2, batch 8),
+    evaluation (160^2, batch 16) and objectmap (160^2, batch 128) shapes;
+    times of the kernel, the plain version and, as a yardstick of the
+    attention part alone (no one PyTorch call does projection + attention),
+    scaled_dot_product_attention over the q, k, v that the plain projection
+    gives."""
     import torch
     import torch.nn.functional as F
     from yolou_tpu_torch.kernels.attention import (
         area_attention_qkv_fused, area_attention_qkv_fused_plain)
     f32_exact(torch)
-    # serving: 640^2, batch 8; evaluation: 160^2, batch 16
+    # serving: 640^2, batch 8; evaluation: 160^2, batch 16; objectmaps:
+    # 160^2, batch 128
     cases = [("L6@640", 4 * BATCH, 400, 64, 2), ("L8@640", BATCH, 400, 128, 4),
              ("L6@160", 4 * EVAL_BATCH, 25, 64, 2),
-             ("L8@160", EVAL_BATCH, 25, 128, 4)]
+             ("L8@160", EVAL_BATCH, 25, 128, 4),
+             ("L6@160b128", 4 * DEC_BATCH, 25, 64, 2),
+             ("L8@160b128", DEC_BATCH, 25, 128, 4)]
     rng = np.random.default_rng(SEED)
     worst, times = 0.0, {}
     for name, g, n, c, heads in cases:
@@ -823,6 +845,337 @@ def evaluate(state_dict, device):
     if not (err <= 1e-3 and flipped <= 1e-3):
         raise AssertionError(f"f32 evaluation step card vs cpu: mask logits "
                              f"{err}, flipped pixels {flipped}")
+    return counts
+
+
+# ------------------------------------------------------- decoder training
+
+def make_decoder_split(rng, count: int, hw: int = EVAL_IMGSZ):
+    """uint8 images (count, hw, hw, 4) and masks (count, hw, hw, 1) in {0,
+    255}: bright ellipses on dark noise and their union."""
+    imgs, idmap, _, _ = make_labelled(rng, count, hw)
+    return imgs, ((idmap > 0) * 255).astype(np.uint8)[..., None]
+
+
+def memory_dataset(imgs, masks, objectmaps):
+    """A `DecoderDataset` over arrays in memory (no files, no cv2): its own
+    `batches` (wrap-filled tail, shuffling, uint8 or [0, 1] floats) over
+    these items, the objectmaps conditioned as the dataset conditions the
+    files it reads (z-score, then sigmoid)."""
+    from yolou_tpu_torch.data.decoder_dataset import (DecoderDataset,
+                                                      condition_objectmap)
+
+    class MemoryDataset(DecoderDataset):
+        def __init__(self):
+            self.oms = [condition_objectmap(m) for m in objectmaps]
+
+        def __len__(self):
+            return len(imgs)
+
+        def item_u8(self, i):
+            return imgs[i], masks[i], self.oms[i]
+
+    return MemoryDataset()
+
+
+def objectmap_phase(state_dict, device, splits):
+    """Objectmaps of every split from the port's generator (Predictor at
+    160^2, bf16, batch 128): one warm-up batch, then every split timed;
+    8 band attention launches a batch and no NMS."""
+    import torch
+    from yolou_tpu_torch import kernels
+    from yolou_tpu_torch.engine.generate import objectmaps_from_images
+    from yolou_tpu_torch.engine.predictor import Predictor
+    predictor = Predictor(build_model(state_dict, device, torch.bfloat16),
+                          imgsz=EVAL_IMGSZ, batch_size=DEC_BATCH)
+    objectmaps_from_images(predictor, splits["train"][0][:DEC_BATCH])
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    maps = {name: np.concatenate([
+        objectmaps_from_images(predictor, imgs[i:i + DEC_BATCH])
+        for i in range(0, len(imgs), DEC_BATCH)])
+        for name, (imgs, _) in splits.items()}
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    n = sum(len(imgs) for imgs, _ in splits.values())
+    batches = sum(-(-len(imgs) // DEC_BATCH) for imgs, _ in splits.values())
+    side = EVAL_IMGSZ // 8
+    log("train-decoder", check="objectmaps", images=n, batches=batches,
+        seconds=seconds, images_per_s=n / seconds, launches=counts,
+        logit_mean=float(np.mean(maps["train"])),
+        logit_std=float(np.std(maps["train"])))
+    if counts["band_attention"] != 8 * batches or counts["greedy_nms"]:
+        raise AssertionError(f"objectmaps launched {counts}, want "
+                             f"{8 * batches} band attention and no NMS")
+    for name, m in maps.items():
+        if (m.shape != (len(splits[name][0]), side, side)
+                or not np.isfinite(m).all() or m.std() == 0):
+            raise AssertionError(f"objectmaps of {name}: {m.shape}, "
+                                 f"finite {np.isfinite(m).all()}")
+    return maps, counts
+
+
+def decoder_trainer(segpp_sd, device, dtype, datasets, run_dir, **cfg):
+    """A DecoderTrainer over YOLO-Seg++ with `segpp_sd`, its datasets the
+    in-memory `datasets` (train, val); `device` None is its default, the
+    card."""
+    from yolou_tpu_torch.engine.trainer_decoder import (DecoderTrainConfig,
+                                                        DecoderTrainer)
+    from yolou_tpu_torch.models.segpp import build_segpp
+    model = build_segpp("yolov12", "n", nc=1, ch=4, task="segment",
+                        dtype=dtype, device=device or "cpu")
+    model.load_state_dict(segpp_sd, strict=True)
+    cfg = DecoderTrainConfig(**dict(
+        dict(image_size=EVAL_IMGSZ, batch_size=DEC_BATCH, lr=1e-4,
+             epochs=DEC_EPOCHS, early_stopping=False, run_dir=run_dir),
+        **cfg))
+    tr = DecoderTrainer(model, data_root="", cfg=cfg, device=device)
+    tr._loaders = lambda: datasets
+    return tr
+
+
+def decoder_step_times(tr, batch, iters: int = 5):
+    """The step by CUDA events (mean of `iters` after one), its parts with
+    events between them (upload, forward, loss, backward, optimizer), and a
+    profiler window: busy ms, launches, largest kernels."""
+    import torch
+    from yolou_tpu_torch.losses.dice import soft_dice_loss
+    step_ms = cuda_ms(lambda: tr.step(*batch), iters=iters, warmup=1)
+    names = ("upload", "forward", "loss", "backward", "optimizer")
+    sums = dict.fromkeys(names, 0.0)
+    for i in range(iters + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        img, mask, om = tr._upload(*batch)
+        ev[1].record()
+        tr.model.train()
+        pred, _ = tr.model(img, logits=om)
+        ev[2].record()
+        loss = soft_dice_loss(pred, mask)
+        ev[3].record()
+        tr.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        ev[4].record()
+        tr.optimizer.step()
+        tr.scheduler.step()
+        tr.step_count += 1
+        ev[5].record()
+        ev[5].synchronize()
+        if i:
+            for name, a, b in zip(names, ev, ev[1:]):
+                sums[name] += a.elapsed_time(b) / iters
+    busy_ms, launches, top = profile_step(lambda: tr.step(*batch))
+    return {"step_ms": step_ms, **{f"{k}_ms": v for k, v in sums.items()},
+            "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / step_ms if busy_ms else None,
+            "device_launches": launches, "top_device_kernels": top}
+
+
+def compare_decoder_f32(segpp_sd, device, datasets, run_dir):
+    """One f32 decoder step, batch 2, same weights and batch, on the card
+    (no TF32) and on the CPU: loss within 1e-5 relative; decoder parameters
+    and running statistics every element within half an update (5e-5 at lr
+    1e-4) and all but 0.5 % within 1e-6. AdamW's first update moves an
+    element by lr g / (|g| + 1e-8), about lr whatever the gradient's size,
+    so where a gradient is a cancelling sum at f32 noise, within a few
+    1e-9 of 0, its sign (and a share of lr) differs between two
+    summation orders."""
+    import torch
+    f32_exact(torch)
+    imgs, masks, oms, _ = next(datasets[0].batches(2, u8=True))
+    got = {}
+    for dev in (device, "cpu"):
+        tr = decoder_trainer(segpp_sd, dev, torch.float32, datasets, run_dir,
+                             batch_size=2)
+        tr.ensure_ready(1)
+        loss, _ = tr.step(imgs, masks, oms)
+        got[str(dev)] = (loss.item(), {
+            k: v.cpu() for k, v in tr.model.state_dict().items()
+            if not k.startswith("yolo.") and v.is_floating_point()})
+    (lg, sg), (lc, sc) = got[str(device)], got["cpu"]
+    d = torch.cat([(sg[k] - sc[k]).abs().flatten() for k in sc])
+    rel = abs(lg - lc) / abs(lc)
+    log("train-decoder", check="f32 card vs cpu", batch=2, loss_card=lg,
+        loss_cpu=lc, loss_rel=rel, loss_tol=1e-5,
+        decoder_max_abs=d.max().item(), decoder_max_tol=5e-5,
+        share_past_1e_6=(d > 1e-6).float().mean().item(), share_tol=5e-3)
+    if not (rel <= 1e-5 and d.max().item() <= 5e-5
+            and (d > 1e-6).float().mean().item() <= 5e-3):
+        raise AssertionError("f32 decoder step card vs cpu out of tolerance")
+
+
+def check_attention_gradients(device):
+    """Kernel A is differentiable on the card: an eval-mode AAttn at the
+    evaluation shapes (layers 6 and 8 of yolov12n at 160^2, batch 16), its
+    input requiring grad; the input and parameter gradients against
+    autograd through the same module with the plain version in the kernel's
+    place. f32 within 1e-4; bf16 within 2^-6 of each tensor's largest
+    gradient (the kernel's forward, one bf16 step from the plain one's,
+    feeds the projection whose weight gradient sums it over the tokens).
+    Then the whole-A2C2f kernel, which has no backward, must refuse an input
+    that requires grad, by name."""
+    import torch
+    from unittest import mock
+    from yolou_tpu_torch import kernels
+    from yolou_tpu_torch.kernels.a2c2f import a2c2f_fused
+    from yolou_tpu_torch.kernels.attention import \
+        area_attention_qkv_fused_plain
+    from yolou_tpu_torch.nn import attention as nn_attention
+    f32_exact(torch)
+    rng = np.random.default_rng(SEED + 9)
+    results, calls = {}, 0
+    for name, dim, heads, area, hw in (("L6@160", 64, 2, 4, 10),
+                                       ("L8@160", 128, 4, 1, 5)):
+        block = seeded_a2c2f(dim, dim * 2, 1, area, device, SEED + dim)
+        module = block.m[0][0].attn
+        x = rng.normal(size=(EVAL_BATCH, dim, hw, hw))
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = dtype_name(dtype)
+            xt = torch.tensor(x, dtype=dtype, device=device,
+                              requires_grad=True)
+            dy = torch.tensor(rng.normal(size=x.shape), dtype=dtype,
+                              device=device)
+            wrt = [xt, *module.parameters()]
+            kernels.reset_launch_counts()
+            got = torch.autograd.grad(module(xt), wrt, dy)
+            launched = kernels.launch_counts()["band_attention"]
+            backward = kernels.backward_counts()["band_attention"]
+            calls += backward
+            with mock.patch.object(nn_attention, "area_attention_qkv_fused",
+                                   area_attention_qkv_fused_plain):
+                want = torch.autograd.grad(module(xt), wrt, dy)
+            errs = [(a.float() - b.float()).abs().max().item()
+                    / (1.0 if dtype == torch.float32
+                       else b.float().abs().max().item())
+                    for a, b in zip(got, want)]
+            tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+            log("train-decoder", check="kernel A gradient", case=name,
+                shape=f"({EVAL_BATCH * area},{hw * hw // area},{dim})h{heads}",
+                dtype=dn, launches=launched, backward_calls=backward,
+                input_err=errs[0], max_param_err=max(errs[1:]), tol=tol,
+                relative=dtype != torch.float32)
+            if launched != 1 or backward != 1:
+                raise AssertionError(f"kernel A {name} {dn}: {launched} "
+                                     f"launches, {backward} backward calls")
+            if not all(np.isfinite(errs)) or max(errs) > tol:
+                raise AssertionError(f"kernel A gradient {name} {dn}: "
+                                     f"{errs} > {tol}")
+            results[(name, dn)] = max(errs)
+    block = seeded_a2c2f(64, 64, 1, 4, device, SEED)
+    x = torch.zeros((2, 16, 16, 64), device=device, requires_grad=True)
+    try:
+        a2c2f_fused(x, block.folded_weights(torch.float32), 1, 4,
+                    block.num_heads)
+    except RuntimeError as e:
+        message = str(e)
+    else:
+        raise AssertionError("a2c2f_fused ran on an input requiring grad")
+    log("train-decoder", check="a2c2f refuses grad", message=message)
+    if "a2c2f_fused is not differentiable" not in message:
+        raise AssertionError(f"a2c2f_fused refused with {message!r}")
+    return results, calls
+
+
+def train_decoder_phase(state_dict, device):
+    """The YOLO-Seg++ training pipeline on the card: objectmaps from the
+    port's generator, the decoder trainer over them (3 epochs, then resumed
+    for a fourth), the trained model evaluated; one f32 step card vs CPU;
+    kernel A's gradient. Returns the launches of each path and kernel A's
+    backward calls."""
+    import os
+    import tempfile
+    import torch
+    from yolou_tpu_torch import kernels
+    from yolou_tpu_torch.engine.evaluator import Evaluator
+    rng = np.random.default_rng(SEED + 8)
+    splits = {name: make_decoder_split(rng, n)
+              for name, n in DEC_SPLITS.items()}
+    maps, map_counts = objectmap_phase(state_dict, device, splits)
+    data = {name: memory_dataset(*splits[name], maps[name])
+            for name in splits}
+    datasets = (data["train"], data["val"])
+    calib = splits["train"][0][:4].astype(np.float32) / 255.0
+    segpp_sd = segpp_state_dict(state_dict, calib)
+
+    with tempfile.TemporaryDirectory() as run_dir:
+        tr = decoder_trainer(segpp_sd, None, torch.bfloat16, datasets,
+                             os.path.join(run_dir, "a"))
+        if tr.device.type != "cuda":
+            raise AssertionError(f"the trainer chose {tr.device}")
+        before = {k: v.clone() for k, v in tr.model.state_dict().items()}
+        kernels.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        history = tr.train()
+        train_counts = kernels.launch_counts()
+        after = tr.model.state_dict()
+        steps = DEC_EPOCHS * DEC_SPLITS["train"] // DEC_BATCH
+        # the encoder stops before layer 5: no attention, no kernel
+        log("train-decoder", check="train", steps=tr.step_count,
+            epoch_seconds=tr.epoch_times, launches=train_counts, **history)
+        run = os.path.join(run_dir, "a", os.listdir(
+            os.path.join(run_dir, "a"))[0])
+        files = sorted(os.listdir(run)) + sorted(
+            os.listdir(os.path.join(run, "weights")))
+        encoder_same = all(torch.equal(after[k], before[k]) for k in after
+                           if k.startswith("yolo."))
+        moved = sum(not torch.equal(after[k], before[k]) for k in after
+                    if not k.startswith("yolo.")
+                    and after[k].is_floating_point())
+        log("train-decoder", files=files, encoder_bit_identical=encoder_same,
+            decoder_tensors_moved=moved)
+        if tr.step_count != steps:
+            raise AssertionError(f"{tr.step_count} updates, want {steps}")
+        if not all(len(v) == DEC_EPOCHS and np.isfinite(v).all()
+                   for v in history.values()):
+            raise AssertionError(f"history not finite: {history}")
+        if not history["train_loss"][2] <= history["train_loss"][0] + 0.2:
+            raise AssertionError("the training loss went up")
+        if not encoder_same or moved < 10:
+            raise AssertionError("encoder changed or decoder did not move")
+        if not {"best.pt", "last.pt", "history.csv"} <= set(files):
+            raise AssertionError(f"the run wrote {files}")
+
+        tr2 = decoder_trainer(segpp_sd, None, torch.bfloat16, datasets,
+                              os.path.join(run_dir, "b"),
+                              epochs=DEC_EPOCHS + 1)
+        h2 = tr2.train(resume_from=os.path.join(run, "weights", "last.pt"))
+        log("train-decoder", check="resume", epochs=len(h2["train_loss"]),
+            steps=tr2.step_count, epoch_seconds=tr2.epoch_times, **h2)
+        if len(h2["train_loss"]) != 1 or tr2.step_count != steps + 4:
+            raise AssertionError(f"resume ran {len(h2['train_loss'])} "
+                                 f"epochs to step {tr2.step_count}")
+        batch = next(data["train"].batches(DEC_BATCH, u8=True))[:3]
+        times = decoder_step_times(tr2, batch)
+        log("train-decoder", batch=DEC_BATCH, imgsz=EVAL_IMGSZ, **times,
+            peak_memory_mb=torch.cuda.max_memory_allocated() / 2 ** 20)
+
+        ev = Evaluator(tr.model, data_root="", image_size=EVAL_IMGSZ,
+                       batch_size=EVAL_BATCH)
+        imgs, masks = splits["test"]
+        test_batches = [(imgs[i:i + EVAL_BATCH].astype(np.float32) / 255.0,
+                         masks[i:i + EVAL_BATCH].astype(np.float32) / 255.0,
+                         None, EVAL_BATCH)
+                        for i in range(0, len(imgs), EVAL_BATCH)]
+        ev.accumulate(iter(test_batches[:1]))        # cuDNN set-up
+        kernels.reset_launch_counts()
+        res = ev.accumulate(iter(test_batches), with_hd95=True)
+        eval_counts = kernels.launch_counts()
+        log("train-decoder", check="evaluate trained", **res,
+            launches=eval_counts, steps=len(test_batches))
+        want = {"band_attention": 8 * len(test_batches),
+                "greedy_nms": len(test_batches)}
+        if any(eval_counts[k] != v for k, v in want.items()):
+            raise AssertionError(f"evaluation launched {eval_counts}, "
+                                 f"want {want}")
+        if not np.isfinite(res["dice"]):
+            raise AssertionError(f"evaluation Dice {res['dice']}")
+        compare_decoder_f32(segpp_sd, device, datasets, run_dir)
+    _, calls = check_attention_gradients(device)
+    return {"launches": {"objectmaps": map_counts,
+                         "train-decoder": train_counts,
+                         "train-decoder-evaluate": eval_counts},
+            "attention_backward_calls": calls}
 
 
 # ------------------------------------------------------------- training
@@ -1168,7 +1521,8 @@ def main() -> int:
         raise AssertionError("an image got no detection with mega_kernel")
     compare_mega(state_dict, device, requests)
 
-    evaluate(state_dict, device)
+    eval_counts = evaluate(state_dict, device)
+    dec = train_decoder_phase(state_dict, device)
 
     src = "yolou_tpu_torch/csrc/"
     pallas = "yolou_tpu/ops/pallas_attn.py"
@@ -1181,11 +1535,20 @@ def main() -> int:
         {"name": "band_attention", "route": "cuda",
          "source": src + "band_attention.cu", "replaces": pallas + ":357",
          "launches": counts["band_attention"], **{k: attn[k] for k in keys},
-         "attention_library_ms": attn["attention_library_ms"]},
+         "attention_library_ms": attn["attention_library_ms"],
+         "launches_by_path": {
+             "serve": counts["band_attention"],
+             "evaluate": eval_counts["band_attention"],
+             **{k: v["band_attention"] for k, v in dec["launches"].items()}},
+         "backward_calls": dec["attention_backward_calls"]},
         {"name": "greedy_nms", "route": "cuda",
          "source": src + "greedy_nms.cu",
          "replaces": "yolou_tpu/ops/pallas_nms.py:97",
-         "launches": counts["greedy_nms"], **{k: nms[k] for k in keys}},
+         "launches": counts["greedy_nms"], **{k: nms[k] for k in keys},
+         "launches_by_path": {
+             "serve": counts["greedy_nms"],
+             "evaluate": eval_counts["greedy_nms"],
+             **{k: v["greedy_nms"] for k, v in dec["launches"].items()}}},
         {"name": "band_attention_train", "route": "cuda",
          "source": src + "band_attention.cu", "replaces": pallas + ":243",
          "launches": train_launches,

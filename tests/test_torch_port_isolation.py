@@ -89,6 +89,24 @@ def test_evaluation_modules_import_without_jax_or_cv2():
     assert res.stdout.strip() == "[]", res.stdout
 
 
+def test_decoder_training_modules_import_without_jax_or_cv2():
+    """The decoder training modules by name: the losses, the trainer, the
+    generators, the Gaussian splat and the synthetic data generator; `cv2`
+    stays out until a file is read or written, so objectmaps are generated
+    and the decoder is trained from arrays in memory where it is absent."""
+    mods = ["losses.dice", "engine.trainer_decoder", "engine.generate",
+            "ops.gaussian", "data.synthetic", "engine.predictor"]
+    code = (
+        "import importlib, sys\n"
+        f"for n in {mods!r}: importlib.import_module('yolou_tpu_torch.' + n)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN + ('cv2', 'matplotlib', 'pandas')!r})\n"
+        "print(bad)\n")
+    res = _run(code, REPO)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]", res.stdout
+
+
 def test_sources_name_no_jax_module():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|yolou_tpu)\b",
                      re.M)
@@ -125,7 +143,8 @@ def test_cpu_tensors_take_the_plain_versions_without_counting():
     assert kernels.launch_counts() == {
         "band_attention": 0, "greedy_nms": 0, "band_attention_train": 0,
         "band_attention_single": 0, "a2c2f": 0}
-    assert kernels.backward_counts() == {"band_attention_train": 1,
+    assert kernels.backward_counts() == {"band_attention": 0,
+                                         "band_attention_train": 1,
                                          "band_attention_single": 0}
     assert build._lib is None
 

@@ -5,7 +5,10 @@ The JAX `area_attention_fused` / `area_attention` run in interpret mode,
 their default off a TPU; the port's entry points run the plain version on CPU
 tensors with the hand-written backward the training step uses. Outputs
 within 1e-5, gradients within 1e-4 (f32 sums in another order over up to 48
-keys, values of order 1).
+keys, values of order 1). The eval kernel `area_attention_qkv_fused` is
+differentiable too: its backward (the one the card runs) against `jax.vjp`
+of the JAX kernel in interpret mode, within 1e-4; the whole-A2C2f kernel,
+which has no backward, refuses inputs that require grad.
 """
 
 import json
@@ -19,10 +22,15 @@ import torch
 from yolou_tpu.ops.pallas_attn import area_attention as jax_area_attention
 from yolou_tpu.ops.pallas_attn import \
     area_attention_fused as jax_area_attention_fused
+from yolou_tpu.ops.pallas_attn import \
+    area_attention_qkv_fused as jax_area_attention_qkv_fused
+from yolou_tpu_torch import kernels
+from yolou_tpu_torch.kernels.a2c2f import a2c2f_fused
 from yolou_tpu_torch.kernels.attention import (area_attention,
                                                area_attention_fused,
                                                area_attention_fused_plain,
-                                               area_attention_plain)
+                                               area_attention_plain,
+                                               area_attention_qkv_fused)
 
 CASES = [(4, 48, 64, 2), (2, 25, 128, 4), (6, 16, 32, 1)]
 
@@ -97,6 +105,78 @@ def test_bfloat16_plain_rounds_probabilities_like_the_jax_reference():
         *(torch.from_numpy(t).bfloat16() for t in (q, k, v)), 2)
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want, atol=2e-2, rtol=0)
+
+
+QKV_CASES = [(4, 25, 64, 2), (2, 25, 128, 4), (3, 17, 32, 1)]
+
+
+def _qkv_inputs(g, n, c, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(g, n, c)).astype(np.float32)
+    w = rng.normal(0, 0.5 / np.sqrt(c), (c, 3 * c)).astype(np.float32)
+    b = rng.normal(0, 0.1, (3 * c,)).astype(np.float32)
+    do, dv = (rng.normal(size=(g, n, c)).astype(np.float32)
+              for _ in range(2))
+    return x, w, b, do, dv
+
+
+@pytest.mark.parametrize("cotangent", ["o", "v", "both"])
+@pytest.mark.parametrize("g,n,c,heads", QKV_CASES)
+def test_qkv_attention_gradients_match_jax_vjp(g, n, c, heads, cotangent):
+    """(dx, dw, db) for a cotangent on the attention output o, on the value
+    projection v (which feeds the positional conv) or on both, against
+    `_aaq_bwd` through `jax.vjp`."""
+    x, w, b, do, dv = _qkv_inputs(g, n, c, seed=g * n + c)
+    if cotangent == "o":
+        dv = np.zeros_like(dv)
+    elif cotangent == "v":
+        do = np.zeros_like(do)
+    _, vjp = jax.vjp(lambda x, w, b: jax_area_attention_qkv_fused(
+        x, w, b, heads, interpret=True), *map(jnp.asarray, (x, w, b[None])))
+    want = vjp((jnp.asarray(do), jnp.asarray(dv)))
+    tx, tw, tb = (torch.from_numpy(t).requires_grad_() for t in (x, w, b))
+    o, v = area_attention_qkv_fused(tx, tw, tb, heads)
+    assert o.grad_fn is not None and v.grad_fn is not None
+    kernels.reset_launch_counts()
+    got = torch.autograd.grad((o, v), (tx, tw, tb),
+                              (torch.from_numpy(do), torch.from_numpy(dv)))
+    assert kernels.backward_counts()["band_attention"] == 1
+    for a, bw, name in zip(got, want, ("x", "w", "b")):
+        np.testing.assert_allclose(a.numpy(), np.asarray(bw).reshape(a.shape),
+                                   atol=1e-4, rtol=0, err_msg=f"d{name}")
+
+
+def test_qkv_attention_takes_no_autograd_path_without_grad():
+    """No input requiring grad, or grad mode off: the forward alone, outputs
+    without a graph; the same values as through autograd."""
+    x, w, b, _, _ = _qkv_inputs(2, 25, 64, seed=1)
+    tx, tw, tb = map(torch.from_numpy, (x, w, b))
+    o, v = area_attention_qkv_fused(tx, tw, tb, 2)
+    assert o.grad_fn is None and v.grad_fn is None
+    with torch.no_grad():
+        o2, _ = area_attention_qkv_fused(tx.clone().requires_grad_(), tw,
+                                         tb, 2)
+    assert o2.grad_fn is None
+    o3, v3 = area_attention_qkv_fused(tx.clone().requires_grad_(), tw, tb, 2)
+    assert torch.equal(o, o2) and torch.equal(o, o3.detach())
+    assert torch.equal(v, v3.detach())
+
+
+def test_a2c2f_refuses_inputs_that_require_grad():
+    rng = np.random.default_rng(0)
+    ws = [torch.from_numpy(rng.normal(0, 0.1, sh).astype(np.float32))
+          for sh in [(8, 32), (32,)] + [(32, 96), (96,), (7, 7, 32), (32,),
+                                        (32, 32), (32,), (32, 64), (64,),
+                                        (64, 32), (32,)] * 2 + [(64, 16), (16,)]]
+    x = torch.from_numpy(rng.normal(size=(1, 4, 4, 8)).astype(np.float32))
+    want = a2c2f_fused(x, ws, 1, 1, 1)
+    with pytest.raises(RuntimeError, match="a2c2f_fused is not differentiable"):
+        a2c2f_fused(x.clone().requires_grad_(), ws, 1, 1, 1)
+    with pytest.raises(RuntimeError, match="a2c2f_fused is not differentiable"):
+        a2c2f_fused(x, [ws[0].clone().requires_grad_(), *ws[1:]], 1, 1, 1)
+    with torch.no_grad():
+        got = a2c2f_fused(x.clone().requires_grad_(), ws, 1, 1, 1)
+    assert torch.equal(got, want)
 
 
 def test_refusals_on_cpu():

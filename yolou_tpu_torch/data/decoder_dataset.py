@@ -38,6 +38,19 @@ def load_objectmap(path_base: str) -> np.ndarray:
     return np.asarray(arr, np.float32).reshape(arr.shape[-2], arr.shape[-1])
 
 
+def condition_objectmap(om: np.ndarray, normalize: bool = True
+                        ) -> np.ndarray:
+    """A raw objectmap (h, w) -> the decoder's conditioning input (h, w, 1)
+    f32: the sigmoid of its per-image z-score (`normalize`), else of the raw
+    logits."""
+    if normalize:
+        # the reference's torch.Tensor.std() is UNBIASED (ddof=1):
+        # bit-exact conditioning needs that divisor
+        mu, sd = om.mean(), om.std(ddof=1)
+        om = (om - mu) / sd if sd > 0 else om - mu
+    return _sigmoid(om)[..., None].astype(np.float32)
+
+
 class DecoderDataset:
     def __init__(self, root_path: str, image_path: str, mask_path: str,
                  image_size: int, objectmap_path: Optional[str] = None,
@@ -88,13 +101,9 @@ class DecoderDataset:
         mask = cv2.resize(mask, (s, s), interpolation=cv2.INTER_NEAREST)
         om = None
         if self.objectmap_dir is not None:
-            om = load_objectmap(os.path.join(self.objectmap_dir, b))
-            if self.normalize_objectmap:
-                # the reference's torch.Tensor.std() is UNBIASED (ddof=1):
-                # bit-exact conditioning needs that divisor
-                mu, sd = om.mean(), om.std(ddof=1)
-                om = (om - mu) / sd if sd > 0 else om - mu
-            om = _sigmoid(om)[..., None].astype(np.float32)      # (20, 20, 1)
+            om = condition_objectmap(
+                load_objectmap(os.path.join(self.objectmap_dir, b)),
+                self.normalize_objectmap)
         out = (img, mask[..., None], om)
         if self.cache_images:
             self._cache[i] = out

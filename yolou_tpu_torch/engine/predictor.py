@@ -5,7 +5,8 @@ sources: one HWC uint8 array, a (B, H, W, C) stack, or a list of arrays.
 Images are bucketed by shape and run in chunks of `batch_size`; each chunk is
 one letterbox + forward + NMS on the model's device. Masks are decoded for
 the valid detections only, resized back to the original image on the device,
-and copied to the host per image.
+and copied to the host per image. `raw_forward` runs letterbox + forward
+only, for the objectmap generator.
 """
 
 from __future__ import annotations
@@ -74,6 +75,14 @@ class Predictor:
                                    iou_thres=self.iou, max_det=self.max_det,
                                    nc=self.model.spec.nc)
         return dets, out
+
+    @torch.no_grad()
+    def raw_forward(self, imgs_u8) -> YoloOutputs:
+        """Letterbox + forward only, no NMS (the objectmap path): (B, H, W,
+        C) uint8, array or tensor -> the model's outputs on its device."""
+        x = letterbox_batch(torch.as_tensor(imgs_u8).to(self.device),
+                            (self.imgsz, self.imgsz))
+        return self.model(x.permute(0, 3, 1, 2))
 
     @torch.no_grad()
     def __call__(self, source: Source) -> List[Results]:

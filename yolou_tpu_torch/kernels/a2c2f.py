@@ -182,9 +182,17 @@ def a2c2f_fused(x: torch.Tensor, weights: Sequence[torch.Tensor],
     proj_b, mlp1_w, mlp1_b, mlp2_w, mlp2_b] * (2 * n_stages) + [cv2_w,
     cv2_b]; GEMM weights are (cin_i, cout_i) matrices in x.dtype (qkv's
     output role-major q | k | v, each third head-major), biases and the pe
-    kernels float32. Returns (B, H, W, c2) in x.dtype.
+    kernels float32. Returns (B, H, W, c2) in x.dtype. Not differentiable,
+    as its JAX counterpart defines no VJP: it raises on either device when
+    grad mode is on and x or a weight requires grad.
     """
     c_, c2 = _check(x, weights, n_stages, area, heads)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, *weights)):
+        raise RuntimeError(
+            "a2c2f_fused is not differentiable (an eval-only kernel with no "
+            "backward): call it under torch.no_grad() or on tensors that do "
+            "not require grad")
     if x.device.type == "cpu":
         return a2c2f_fused_plain(x, weights, n_stages, area, heads)
     if x.device.type != "cuda":

@@ -13,6 +13,13 @@ in the JAX package only the forward is a kernel: the backward recomputes the
 softmax in f32 with plain tensor operations, term for term what `_aaf_bwd`
 and `_aa_bwd` do there.
 
+Kernel A is differentiable too, as its JAX counterpart is (`_aaq_bwd`): the
+backward is the plain version's VJP, autograd through
+`area_attention_qkv_fused_plain` recomputed from the saved (x, w, b) with the
+cotangents of both outputs, the same code on the CPU and the card. Where
+grad mode is off or no input requires grad the wrapper skips autograd's
+bookkeeping (the serving path calls it 8 times a forward).
+
 Both entry points dispatch by type inside the C library: bfloat16 runs on
 the tensor cores (`mma.sync` m16n8k16, a warp per 16 query rows, online
 softmax over steps of 32 keys in kernel A and 64 in kernel C, probabilities
@@ -115,21 +122,9 @@ def _check(x, w, b, heads):
     return g, n, c
 
 
-def area_attention_qkv_fused(x: torch.Tensor, w: torch.Tensor,
-                             b: torch.Tensor, heads: int):
-    """Fused (folded qkv affine) + multi-head band attention.
-
-    x: (G, N, C) band tokens (float32 or bfloat16); w: (C, 3C) BN-folded
-    qkv weight in x.dtype with role-major output thirds, each head-major;
-    b: (3C,) or (1, 3C) float32 folded bias. Returns (o, v), both (G, N, C)
-    in x.dtype: o the attention output, v the value projection (it feeds
-    the dw7x7 positional conv). Any N >= 1.
-    """
-    g, n, c = _check(x, w, b, heads)
-    if x.device.type == "cpu":
-        return area_attention_qkv_fused_plain(x, w, b, heads)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"no kernel for device {x.device}")
+def _launch_qkv_attention(x, w, b, heads):
+    """Launch kernel A on checked CUDA tensors; returns (o, v)."""
+    g, n, c = x.shape
     if c // heads != HEAD_DIM:
         raise ValueError(f"the CUDA kernel needs head_dim {HEAD_DIM}, "
                          f"got {c // heads}")
@@ -152,7 +147,62 @@ def area_attention_qkv_fused(x: torch.Tensor, w: torch.Tensor,
     return o, v
 
 
+def _qkv_attention_forward(x, w, b, heads):
+    """Kernel A on a CUDA tensor, the plain version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return area_attention_qkv_fused_plain(x, w, b, heads)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"no kernel for device {x.device}")
+    return _launch_qkv_attention(x, w, b, heads)
+
+
+def qkv_attention_backward(x, w, b, do, dv, heads: int):
+    """(dx, dw, db) of `area_attention_qkv_fused` for the cotangents `do`
+    and `dv` of its two outputs: autograd through the plain version,
+    recomputed from (x, w, b), which is what `jax.vjp` of the JAX package's
+    `_qkv_attn_reference` computes there."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_() for t in (x, w, b)]
+        o, v = area_attention_qkv_fused_plain(*inputs, heads)
+        return torch.autograd.grad((o, v), inputs, (do, dv))
+
+
+class _QKVAttention(torch.autograd.Function):
+    """Forward: `_qkv_attention_forward`. Backward, on both devices:
+    `qkv_attention_backward`; saves x, w, b only."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, heads):
+        ctx.save_for_backward(x, w, b)
+        ctx.heads = heads
+        return _qkv_attention_forward(x, w, b, heads)
+
+    @staticmethod
+    def backward(ctx, do, dv):
+        x, w, b = ctx.saved_tensors
+        area_attention_qkv_fused.backward_calls += 1
+        return (*qkv_attention_backward(x, w, b, do, dv, ctx.heads), None)
+
+
+def area_attention_qkv_fused(x: torch.Tensor, w: torch.Tensor,
+                             b: torch.Tensor, heads: int):
+    """Fused (folded qkv affine) + multi-head band attention.
+
+    x: (G, N, C) band tokens (float32 or bfloat16); w: (C, 3C) BN-folded
+    qkv weight in x.dtype with role-major output thirds, each head-major;
+    b: (3C,) or (1, 3C) float32 folded bias. Returns (o, v), both (G, N, C)
+    in x.dtype: o the attention output, v the value projection (it feeds
+    the dw7x7 positional conv). Any N >= 1. Differentiable in x, w and b.
+    """
+    _check(x, w, b, heads)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad
+                                    or b.requires_grad):
+        return _QKVAttention.apply(x, w, b, heads)
+    return _qkv_attention_forward(x, w, b, heads)
+
+
 area_attention_qkv_fused.launches = 0
+area_attention_qkv_fused.backward_calls = 0
 
 
 # ------------------------------------------------------------- kernel C
