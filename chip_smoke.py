@@ -64,6 +64,28 @@ Phases, one or more output lines each:
                A's gradient through an eval-mode AAttn against the plain
                version's, and the whole-A2C2f kernel's refusal of an input
                that requires grad.
+ 10. finetune - the detector stage at 160^2, batch 16, bf16: seeded
+               yolov12n-seg weights built with a 3-channel stem and
+               inflated to 4 channels (`inflate_stem_to_4ch`), calibrated;
+               `DetectorTrainer.train()` over seeded in-memory splits of
+               elliptic tumours (128 train, 64 val) with validation every
+               epoch, 3 epochs with close_mosaic 1 (finite history, mAP50
+               and mAP50-95 in [0, 1], best.pt and last.pt, 8 forward
+               launches and 8 backward calls of kernel C a step, 8 of
+               kernel A and 1 of kernel B a validation batch, the training
+               model's mode and BatchNorm statistics unchanged by each
+               validation), then resumed from last.pt for a fourth epoch
+               and validation; a training step's time, a validation pass's
+               images/s, parts (upload, forward, NMS, copy back, host
+               matching + AP, timed through the validator's own parts) and
+               busy share; in f32 on the card and the CPU, the calibrated
+               weights validated (metrics within 1e-4, the same number of
+               detections on every image) and the best EMA weights (metrics
+               within 1e-4; detections the same but for near-ties within
+               1e-4 of an NMS decision, each named); a `.ckpt` model file of
+               the best EMA weights
+               read back onto the card (forward bit-identical) and a
+               Predictor over it answering one request.
 Then a JSON line of kernel results (each kernel's launches on its path, error,
 device and per-call times, and the least time the card could take), the
 nvidia-smi line again,
@@ -136,18 +158,22 @@ def kernel_times(fn, iters: int = 20):
 def device_kernels(fn, calls: int = 5) -> list:
     """The device kernels and copies torch.profiler records per call of
     `fn` (the names of `calls` calls, divided among them; raises if they do
-    not divide evenly)."""
+    not divide evenly). A trace that comes back with no device event at all
+    is taken again, up to three times, as `device_ms` does."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
     if len(names) % calls:
         raise AssertionError(f"{len(names)} device events in {calls} calls")
     return names[:len(names) // calls]
@@ -245,8 +271,9 @@ def check_attention(device):
 def check_training_attention(device):
     """`area_attention_fused` (and `area_attention`, its one-head form)
     against the plain version: outputs and gradients at the two training
-    shapes of yolov12n at 640^2 and batch 8, at the 160^2 band length, and
-    at the two shapes the attention profiler gives them at that batch;
+    shapes of yolov12n at 640^2 and batch 8, at the two the fine-tune phase
+    gives them (160^2, batch 16), and at the two shapes the attention
+    profiler gives them at batch 8;
     times of kernel, plain version and the one PyTorch call that computes
     the function (scaled_dot_product_attention), a yardstick only."""
     import torch
@@ -257,7 +284,8 @@ def check_training_attention(device):
     from yolou_tpu_torch.tools.profile_layers import HEADS, attention_shapes
     f32_exact(torch)
     cases = [("L6@640", 4 * BATCH, 400, 64, 2), ("L8@640", BATCH, 400, 128, 4),
-             ("L6@160", 4 * BATCH, 25, 64, 2), ("L8@160", BATCH, 25, 128, 4),
+             ("L6@160", 4 * EVAL_BATCH, 25, 64, 2),
+             ("L8@160", EVAL_BATCH, 25, 128, 4),
              ("single", 64, 400, 32, 1)]
     for name, shape, heads in zip(("profile-single", "profile-fused"),
                                   attention_shapes(BATCH), (1, HEADS)):
@@ -551,21 +579,29 @@ def seeded_state_dict():
     CPU), so no two devices could agree. At std 0.1 the same change moves
     boxes by < 1e-3 px and every image still gets detections with masks."""
     import torch
-    from torch import nn
     from yolou_tpu_torch.models.yolo import build_yolo
-    from yolou_tpu_torch.nn.heads import warm_start_detect_bias
     from yolou_tpu_torch.ops.letterbox import letterbox_batch
     model = build_yolo("yolov12", "n", nc=1, ch=4, task="segment",
                        device="cpu", seed=SEED)
     calib = make_images(np.random.default_rng(SEED + 2), 2)
     x = letterbox_batch(torch.from_numpy(calib), (IMGSZ, IMGSZ))
+    return calibrated(model, x.permute(0, 3, 1, 2))
+
+
+def calibrated(model, x):
+    """`model`'s state_dict after every BatchNorm is set to output mean 0
+    and std BN_STD on the f32 batch `x` (NCHW in [0, 1]; see
+    `seeded_state_dict`) and the head bias is warm-started."""
+    import torch
+    from torch import nn
+    from yolou_tpu_torch.nn.heads import warm_start_detect_bias
     bns = [m for m in model.modules() if isinstance(m, nn.BatchNorm2d)]
     with torch.no_grad():
         for bn in bns:
             bn.weight.fill_(BN_STD)
             bn.train()
             bn.momentum = 1.0
-        model(x.permute(0, 3, 1, 2))
+        model(x)
     for bn in bns:
         bn.eval()
         bn.momentum = 0.03
@@ -1364,6 +1400,392 @@ def compare_train_f32(state_dict, device):
                              f"{rel_loss}, gradient norm {rel_norm} > 1e-3")
 
 
+# ------------------------------------------------------- detector fine-tune
+
+FT_SPLITS = {"train": 128, "val": 64}
+FT_EPOCHS = 3
+FT_STEPS = FT_SPLITS["train"] // EVAL_BATCH          # steps an epoch
+FT_VAL_BATCHES = FT_SPLITS["val"] // EVAL_BATCH      # batches a validation
+
+
+class MemoryDetData:
+    """A detector split held in memory (no files, no cv2), from
+    `make_labelled`'s arrays, with the methods the trainer reads
+    (`load_image`, `item_idmap`, `imgsz`, `channels`) and the validator's
+    (`item`, `orig_shape`); every ellipse is class 0."""
+
+    def __init__(self, imgs, idmap, cls, valid):
+        self.imgs, self.idmap, self.valid = imgs, idmap, valid
+        self.imgsz, self.channels = imgs.shape[1], imgs.shape[3]
+        self.slots = [int(m.max()) for m in idmap]
+
+    def __len__(self):
+        return len(self.imgs)
+
+    def load_image(self, i):
+        return self.imgs[i]
+
+    def item_idmap(self, i):
+        n = self.slots[i]
+        return self.idmap[i], np.zeros(n, np.int32), self.valid[i, :n]
+
+    def orig_shape(self, i):
+        return self.imgs.shape[1:3]
+
+    def item(self, i):
+        ids = np.arange(1, self.slots[i] + 1)[:, None, None]
+        return {"img": self.imgs[i],
+                "masks": (self.idmap[i][None] == ids).astype(np.uint8),
+                "cls": np.zeros(len(ids), np.int32)}
+
+
+def inflated_state_dict(calib):
+    """The reference's step 1: seeded yolov12n-seg weights built with a
+    3-channel stem, inflated to 4 channels by `inflate_stem_to_4ch` (the
+    fourth input channel the mean of the RGB kernels), then calibrated
+    (`calibrated`) on the uint8 batch `calib` at its size."""
+    import torch
+    from yolou_tpu_torch.models.yolo import build_yolo, inflate_stem_to_4ch
+    three = build_yolo("yolov12", "n", nc=1, ch=3, task="segment",
+                       device="cpu", seed=SEED)
+    sd = inflate_stem_to_4ch(three.state_dict())
+    w = sd["model.0.conv.weight"]
+    mean = (w[:, 0] + w[:, 1] + w[:, 2]) * (1 / 3)
+    if w.shape[1] != 4 or not torch.equal(w[:, 3], mean):
+        raise AssertionError(f"stem inflation gave {tuple(w.shape)}")
+    model = build_yolo("yolov12", "n", nc=1, ch=4, task="segment",
+                       device="cpu")
+    model.load_state_dict(sd, strict=True)
+    x = torch.from_numpy(calib).permute(0, 3, 1, 2).float() / 255.0
+    return calibrated(model, x)
+
+
+def ft_trainer(state_dict, device, dtype, data, run_dir, epochs):
+    """A DetectorTrainer in the reference's fine-tune configuration (160^2,
+    batch 16, validation every epoch, close_mosaic 1) over the in-memory
+    `data` (train, val); `device` None is its default, the card."""
+    from yolou_tpu_torch.engine.trainer_detector import (DetectorTrainConfig,
+                                                         DetectorTrainer)
+    from yolou_tpu_torch.models.yolo import build_yolo
+    model = build_yolo("yolov12", "n", nc=1, ch=4, task="segment",
+                       dtype=dtype, device=device)
+    model.load_state_dict(state_dict, strict=True)
+    cfg = DetectorTrainConfig(imgsz=EVAL_IMGSZ, batch_size=EVAL_BATCH,
+                              epochs=epochs, close_mosaic=1, val_every=1,
+                              warmup_epochs=1.0, run_dir=run_dir)
+    tr = DetectorTrainer(model, _Data(), cfg, device=device)
+    tr._datasets = lambda: data
+    return tr
+
+
+def watch_validations(tr):
+    """Wrap `tr.validate`: each call must leave the training model's mode
+    and BatchNorm statistics as they were; returns the list that collects
+    each validation's kernel launches."""
+    import torch
+    from yolou_tpu_torch import kernels
+    real, seen = tr.validate, []
+
+    def validate(val_ds):
+        mode = [m.training for m in tr.model.modules()]
+        stats = {k: v.clone() for k, v in tr.model.state_dict().items()
+                 if "running_" in k}
+        before = kernels.launch_counts()
+        out = real(val_ds)
+        after = kernels.launch_counts()
+        seen.append({k: after[k] - before[k] for k in after})
+        now = tr.model.state_dict()
+        if ([m.training for m in tr.model.modules()] != mode
+                or not all(torch.equal(now[k], v) for k, v in stats.items())):
+            raise AssertionError("a validation changed the training model")
+        return out
+
+    tr.validate = validate
+    return seen
+
+
+def validation_breakdown(model, data, iters: int = 3):
+    """The parts of a validation batch (batch 16, 160^2) through the
+    validator's own parts, as `validate_detector` runs them, means over the
+    split's batches and `iters` passes after one: upload, forward, NMS and
+    the device-to-host copy by CUDA events that `detect_batch` records
+    after each part; the host's collate (`validation_batches`) and its box
+    matching + AP (`score_batch` per batch and `DetMetrics.compute` once per
+    pass, shared out over the batches) by the host clock."""
+    import torch
+    from yolou_tpu_torch.engine.validator import (detect_batch, score_batch,
+                                                   validation_batches)
+    from yolou_tpu_torch.metrics.det import DetMetrics
+    names = ("upload", "forward", "nms", "d2h")
+    sums = dict.fromkeys(names + ("collate", "match_ap"), 0.0)
+    n_det, n_batches = 0, -(-len(data) // EVAL_BATCH)
+    model.eval()
+    for it in range(iters + 1):
+        metrics = DetMetrics(nc=model.spec.nc)
+        host = {"collate": 0.0, "match_ap": 0.0}
+        batches = validation_batches(data, imgsz=EVAL_IMGSZ,
+                                     batch_size=EVAL_BATCH, max_inst=16,
+                                     rect=False, stride=32)
+        while True:
+            t0 = time.perf_counter()
+            got = next(batches, None)
+            host["collate"] += time.perf_counter() - t0
+            if got is None:
+                break
+            n, hw, batch = got
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            e[0].record()
+            marks = iter(e[1:])
+            dets = detect_batch(model, batch["img"], conf=0.001, iou=0.45,
+                                max_det=300, mark=lambda: next(marks).record())
+            t0 = time.perf_counter()
+            score_batch(metrics, dets, batch, n, hw)
+            host["match_ap"] += time.perf_counter() - t0
+            n_det += int(dets[:n, :, 6].sum()) * (it > 0)
+            if it:
+                for name, a, b in zip(names, e, e[1:]):
+                    sums[name] += a.elapsed_time(b) / iters / n_batches
+        t0 = time.perf_counter()
+        metrics.compute()
+        host["match_ap"] += time.perf_counter() - t0
+        if it:
+            for k, v in host.items():
+                sums[k] += v * 1e3 / iters / n_batches
+    out = {f"{k}_ms": v for k, v in sums.items()}
+    out["detections_per_image"] = n_det / iters / len(data)
+    return out
+
+
+def flipped_detections(card, cpu, iou_thres=0.45, conf_thres=0.001,
+                       tol=1e-4):
+    """The detections one device kept and the other did not, per image of
+    two (B, max_det, 7) validation outputs (a kept box of one device with no
+    box of IoU > 0.99 among the other's): (image, device that kept it, the
+    decision it lies nearest, gap). Greedy NMS drops a box through a kept
+    box of higher rank with IoU > iou_thres: on the device that dropped it
+    that is the kept box of largest IoU. Where that IoU is above iou_thres
+    and the two scores lie within `tol`, the decision is their rank (scores
+    saturated at 1.0 are ranked by rounding) and the gap is the score
+    difference; otherwise it is the nearer of the IoU's distance to
+    iou_thres and the dropped box's score's distance to conf_thres (the
+    gate)."""
+    from yolou_tpu_torch.metrics.det import box_iou_np
+    out = []
+    for i in range(len(card)):
+        sides = {"card": card[i][card[i][:, 6] > 0],
+                 "cpu": cpu[i][cpu[i][:, 6] > 0]}
+        for name, other in (("card", "cpu"), ("cpu", "card")):
+            mine, theirs = sides[name], sides[other]
+            iou = box_iou_np(mine[:, :4].astype(np.float64),
+                             theirs[:, :4].astype(np.float64))
+            if not iou.shape[1]:
+                iou = np.zeros((len(mine), 1))
+                theirs = np.zeros((1, 7))
+            for j in np.nonzero(iou.max(1) <= 0.99)[0]:
+                k = iou[j].argmax()
+                rank = float(theirs[k, 4]) - float(mine[j, 4])
+                if iou[j, k] > iou_thres and abs(rank) <= tol:
+                    out.append((i, name, "rank", rank))
+                    continue
+                gaps = {"iou": iou[j, k] - iou_thres,
+                        "gate": float(mine[j, 4]) - conf_thres}
+                kind = min(gaps, key=lambda g: abs(gaps[g]))
+                out.append((i, name, kind, gaps[kind]))
+    return out
+
+
+def compare_validation_f32(weights, data, what, near_ties):
+    """`weights` in f32 validated on the card (TF32 off) and on the CPU over
+    the same split: metrics within 1e-4 and, without `near_ties`, the same
+    number of detections on every image. With `near_ties` (weights whose
+    scores saturate at 1.0), a detection one device keeps and the other
+    drops is allowed only where the decision about it
+    (`flipped_detections`) lies within 1e-4 of its threshold; each is named
+    with its image and gap."""
+    import torch
+    from yolou_tpu_torch.engine import validator
+    from yolou_tpu_torch.models.yolo import build_yolo
+    f32_exact(torch)
+    got, metrics = {}, {}
+    detect = validator.detect_batch
+
+    def recorded(*args, **kw):
+        out = detect(*args, **kw)
+        got[next(args[0].parameters()).device.type].append(out)
+        return out
+
+    validator.detect_batch = recorded
+    try:
+        for dev in ("cuda", "cpu"):
+            got[dev] = []
+            model = build_yolo("yolov12", "n", nc=1, ch=4, task="segment",
+                               device=dev)
+            metrics[dev] = validator.validate_detector(
+                model, weights, data, imgsz=EVAL_IMGSZ, batch_size=EVAL_BATCH)
+    finally:
+        validator.detect_batch = detect
+    card, cpu = (np.concatenate(got[d])[:len(data)] for d in ("cuda", "cpu"))
+    counts = card[..., 6].sum(1), cpu[..., 6].sum(1)
+    flips = flipped_detections(card, cpu)
+    worst = max(abs(metrics["cuda"][k] - metrics["cpu"][k])
+                for k in metrics["cpu"])
+    log("finetune", check=f"f32 validation card vs cpu, {what}",
+        images=len(data), card=metrics["cuda"], cpu=metrics["cpu"],
+        max_abs=worst, tol=1e-4, detections_card=int(counts[0].sum()),
+        detections_cpu=int(counts[1].sum()),
+        images_count_differs=np.nonzero(counts[0] != counts[1])[0].tolist(),
+        flipped=[{"image": i, "kept_on": d, "decision": kind, "gap": g}
+                 for i, d, kind, g in flips],
+        near_tie_tol=1e-4 if near_ties else None)
+    if near_ties:
+        if any(abs(g) > 1e-4 for *_, g in flips):
+            raise AssertionError(f"f32 validation card vs cpu, {what}: "
+                                 f"detections differ beyond near-ties: "
+                                 f"{flips}")
+    elif not (np.array_equal(*counts) and counts[1].min() > 0):
+        raise AssertionError(f"f32 validation card vs cpu, {what}: "
+                             f"detections per image {counts}")
+    if not worst <= 1e-4:
+        raise AssertionError(f"f32 validation card vs cpu, {what}: "
+                             f"{metrics}")
+
+
+def finetune_phase(device):
+    """The detector stage end to end on the card: the stem inflated,
+    `DetectorTrainer.train()` at 160^2, batch 16, bf16 with validation every
+    epoch (3 epochs, then resumed for a fourth), the best EMA weights
+    validated in f32 on the card and the CPU, and written to a `.ckpt`
+    model file and read back. Returns the launches of its paths."""
+    import os
+    import tempfile
+    import torch
+    from yolou_tpu_torch import kernels
+    from yolou_tpu_torch.data.yolo_dataset import collate_idmap_cached
+    from yolou_tpu_torch.engine.predictor import Predictor
+    from yolou_tpu_torch.engine.validator import validate_detector
+    from yolou_tpu_torch.models.yolo import build_yolo
+    from yolou_tpu_torch.utils.model_io import load_model, save_model
+    rng = np.random.default_rng(SEED + 9)
+    data = tuple(MemoryDetData(*make_labelled(rng, n, EVAL_IMGSZ))
+                 for n in FT_SPLITS.values())
+    sd = inflated_state_dict(data[0].imgs[:2])
+
+    with tempfile.TemporaryDirectory() as run_dir:
+        tr = ft_trainer(sd, None, torch.bfloat16, data,
+                        os.path.join(run_dir, "a"), FT_EPOCHS)
+        if tr.device.type != "cuda":
+            raise AssertionError(f"the trainer chose {tr.device}")
+        val_launches = watch_validations(tr)
+        kernels.reset_launch_counts()
+        history = tr.train()
+        counts, backward = kernels.launch_counts(), kernels.backward_counts()
+        steps = FT_EPOCHS * FT_STEPS
+        run = os.path.join(run_dir, "a", os.listdir(
+            os.path.join(run_dir, "a"))[0])
+        files = sorted(os.listdir(os.path.join(run, "weights")))
+        log("finetune", check="train", steps=tr.step_count,
+            epoch_seconds=tr.epoch_times, validation_seconds=tr.val_times,
+            launches=counts, backward_calls=backward, files=files, **history)
+        log("finetune", validation_launches=val_launches,
+            per_batch={k: v / FT_VAL_BATCHES
+                       for k, v in val_launches[-1].items()})
+        want = {"band_attention_train": 8 * steps,
+                "band_attention": 8 * FT_VAL_BATCHES * FT_EPOCHS,
+                "greedy_nms": FT_VAL_BATCHES * FT_EPOCHS, "a2c2f": 0}
+        if (any(counts[k] != v for k, v in want.items())
+                or backward["band_attention_train"] != 8 * steps):
+            raise AssertionError(f"fine-tuning launched {counts}, backward "
+                                 f"{backward}, want {want}")
+        if tr.step_count != steps or tr.notfinite_count():
+            raise AssertionError(f"{tr.step_count} steps, "
+                                 f"{tr.notfinite_count()} non-finite")
+        if not (all(len(v) == FT_EPOCHS and np.isfinite(v).all()
+                    for v in history.values())
+                and all(0.0 <= v <= 1.0
+                        for v in history["map50"] + history["map"])):
+            raise AssertionError(f"history: {history}")
+        if files != ["best.pt", "last.pt"]:
+            raise AssertionError(f"the run wrote {files}")
+
+        tr2 = ft_trainer(sd, None, torch.bfloat16, data,
+                         os.path.join(run_dir, "b"), FT_EPOCHS + 1)
+        kernels.reset_launch_counts()
+        h2 = tr2.train(resume_from=os.path.join(run, "weights", "last.pt"))
+        resume_counts = kernels.launch_counts()
+        log("finetune", check="resume", steps=tr2.step_count,
+            epoch_seconds=tr2.epoch_times,
+            validation_seconds=tr2.val_times, launches=resume_counts, **h2)
+        if (tr2.step_count != steps + FT_STEPS
+                or len(h2["loss"]) != 1 or len(h2["map50"]) != 1
+                or resume_counts["greedy_nms"] != FT_VAL_BATCHES):
+            raise AssertionError(f"resume ran {len(h2['loss'])} epochs to "
+                                 f"step {tr2.step_count}")
+
+        # times: a training step, a validation pass and its parts
+        cb = collate_idmap_cached(data[0], list(range(EVAL_BATCH)), 16)
+        batch = (cb["img"], cb["idmap"], cb["cls"], cb["valid"])
+        gen = torch.Generator(device=tr2.device).manual_seed(SEED)
+        step_ms = cuda_ms(lambda: tr2.step(batch, gen, use_mosaic=True),
+                          iters=5, warmup=1)
+        val_model = tr2._val_model
+        run_val = lambda: validate_detector(
+            val_model, None, data[1], imgsz=EVAL_IMGSZ,
+            batch_size=EVAL_BATCH)
+        run_val()
+        passes = 3
+        t0 = time.perf_counter()
+        for _ in range(passes):
+            res = run_val()
+        val_s = (time.perf_counter() - t0) / passes
+        busy_ms, launches, top = profile_step(run_val, steps=1)
+        parts = validation_breakdown(val_model, data[1])
+        log("finetune", batch=EVAL_BATCH, imgsz=EVAL_IMGSZ, step_ms=step_ms,
+            validation_s=val_s, validation_images_per_s=len(data[1]) / val_s,
+            **parts, validation_busy_ms=busy_ms,
+            validation_busy_share=busy_ms / (val_s * 1e3) if busy_ms else None,
+            validation_device_launches=launches, top_device_kernels=top,
+            metrics=res)
+        log("finetune", epoch_s_without_validation=tr.epoch_times,
+            epoch_s_with_validation=[a + b for a, b in zip(tr.epoch_times,
+                                                            tr.val_times)])
+
+        # the best EMA weights: f32 card vs CPU, then a model file
+        keep = ft_trainer(sd, "cpu", torch.float32, data, run_dir, 1)
+        keep.ensure_ready(FT_STEPS)
+        keep.load_resume(os.path.join(run, "weights", "best.pt"))
+        ema = keep.ema_variables()
+        compare_validation_f32(sd, data[1], "calibrated", near_ties=False)
+        compare_validation_f32(ema, data[1], "best EMA", near_ties=True)
+        m32 = build_yolo("yolov12", "n", nc=1, ch=4, task="segment",
+                         device=device)
+        m32.load_state_dict(ema, strict=True)
+        path = os.path.join(run_dir, "best_ema.ckpt")
+        save_model(path, m32)
+        back = load_model(path)
+        x = torch.from_numpy(data[1].imgs[:EVAL_BATCH]).to(device)
+        x = x.permute(0, 3, 1, 2).float() / 255.0
+        with torch.no_grad():
+            a, b = m32(x), back(x)
+        same = (torch.equal(a.preds, b.preds)
+                and torch.equal(a.protos, b.protos)
+                and all(torch.equal(p, q) for p, q in zip(a.raw, b.raw)))
+        results = Predictor(back, imgsz=EVAL_IMGSZ, batch_size=EVAL_BATCH)(
+            data[1].imgs[:EVAL_BATCH])
+        dets = [len(r) for r in results]
+        log("finetune", check="model file", bytes=os.path.getsize(path),
+            device=str(next(back.parameters()).device),
+            forward_bit_identical=same, request_detections=dets)
+        if not same or next(back.parameters()).device.type != "cuda":
+            raise AssertionError("the reloaded model's f32 forward differs")
+        if len(results) != EVAL_BATCH or not all(
+                np.isfinite(r.boxes.data).all() for r in results):
+            raise AssertionError(f"the reloaded model answered {dets}")
+    return {"validate": {k: sum(v[k] for v in val_launches)
+                         for k in val_launches[0]},
+            "train": counts["band_attention_train"],
+            "backward": backward["band_attention_train"]}
+
+
 def _kernel_name(line: str):
     """The band attention or a2c2f kernel a ptxas or SASS line names, with
     its I/O type (and token tile), else None: `..._kernelIf...` is the f32
@@ -1523,6 +1945,7 @@ def main() -> int:
 
     eval_counts = evaluate(state_dict, device)
     dec = train_decoder_phase(state_dict, device)
+    ft = finetune_phase(device)
 
     src = "yolou_tpu_torch/csrc/"
     pallas = "yolou_tpu/ops/pallas_attn.py"
@@ -1539,7 +1962,8 @@ def main() -> int:
          "launches_by_path": {
              "serve": counts["band_attention"],
              "evaluate": eval_counts["band_attention"],
-             **{k: v["band_attention"] for k, v in dec["launches"].items()}},
+             **{k: v["band_attention"] for k, v in dec["launches"].items()},
+             "validate": ft["validate"]["band_attention"]},
          "backward_calls": dec["attention_backward_calls"]},
         {"name": "greedy_nms", "route": "cuda",
          "source": src + "greedy_nms.cu",
@@ -1548,11 +1972,16 @@ def main() -> int:
          "launches_by_path": {
              "serve": counts["greedy_nms"],
              "evaluate": eval_counts["greedy_nms"],
-             **{k: v["greedy_nms"] for k, v in dec["launches"].items()}}},
+             **{k: v["greedy_nms"] for k, v in dec["launches"].items()},
+             "validate": ft["validate"]["greedy_nms"]}},
         {"name": "band_attention_train", "route": "cuda",
          "source": src + "band_attention.cu", "replaces": pallas + ":243",
          "launches": train_launches,
          "backward_calls": train_backwards,
+         "launches_by_path": {"train": train_launches,
+                              "finetune": ft["train"]},
+         "backward_calls_by_path": {"train": train_backwards,
+                                    "finetune": ft["backward"]},
          **dict({k: l6[k] for k in keys}, max_abs_err=train_attn_err)},
         {"name": "band_attention_single", "route": "cuda",
          "source": src + "band_attention.cu", "replaces": pallas + ":120",

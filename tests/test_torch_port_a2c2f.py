@@ -27,6 +27,7 @@ from yolou_tpu_torch.models.yolo import build_yolo
 from yolou_tpu_torch.nn import attention
 
 from .test_torch_port_layers import _close, _init, _load, _nchw
+from .torch_threads import one_torch_thread  # noqa: F401
 
 # the two shapes of tests/test_pallas_a2c2f.py
 CASES = [((2, 16, 16, 32), dict(c_=32, c2=64, n_stages=2, area=4, heads=1)),

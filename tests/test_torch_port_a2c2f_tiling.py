@@ -44,6 +44,7 @@ from yolou_tpu_torch.kernels.a2c2f import a2c2f_fused_plain
 from yolou_tpu_torch.kernels.nms import suppress_greedy_plain
 
 from .test_torch_port_a2c2f import CASES, _cast, _weights
+from .torch_threads import one_torch_thread  # noqa: F401
 
 ROWS = 16          # query rows per warp tile
 KT = 64            # keys per online-softmax step

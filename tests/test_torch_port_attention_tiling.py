@@ -29,6 +29,8 @@ from yolou_tpu.ops.pallas_attn import area_attention_qkv_fused as jax_qkv
 from yolou_tpu_torch.kernels.attention import (area_attention_fused,
                                                area_attention_qkv_fused)
 
+from .torch_threads import one_torch_thread  # noqa: F401
+
 HD = 32
 TILE = 16          # query rows per warp
 KT_ATTN, KT_QKV = 64, 32   # keys per online-softmax step, kernels C and A

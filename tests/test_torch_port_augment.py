@@ -17,6 +17,8 @@ import torch
 from yolou_tpu.data import augment as jaug
 from yolou_tpu_torch.data import augment as taug
 
+from .torch_threads import one_torch_thread  # noqa: F401
+
 S, B, G, C = 32, 4, 3, 4
 
 

@@ -440,3 +440,127 @@ def test_a2c2f_refuses_inputs_that_require_grad(cuda):
         out = a2c2f_fused(x.clone().requires_grad_(), ws, 1, 1, 1)
     assert kernels.launch_counts()["a2c2f"] == 1
     assert (out - a2c2f_fused_plain(x, ws, 1, 1, 1)).abs().max().item() <= 1e-4
+
+
+# ------------------------------------------------- detector stage on the card
+
+class _MemorySplit:
+    """A validation split held in memory (no files, no cv2): bright
+    ellipses on dark noise, one or two an image, with their masks."""
+
+    def __init__(self, n, hw, seed):
+        rng = np.random.default_rng(seed)
+        self.imgs = rng.normal(40, 12, (n, hw, hw, 4)).clip(0, 255)
+        self.masks = []
+        yy, xx = np.mgrid[:hw, :hw]
+        for i in range(n):
+            ms = []
+            for _ in range(rng.integers(1, 3)):
+                cy, cx = rng.uniform(0.25 * hw, 0.75 * hw, 2)
+                ry, rx = rng.uniform(0.08 * hw, 0.2 * hw, 2)
+                inside = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1
+                self.imgs[i][inside] = rng.uniform(180, 255, 4)
+                ms.append(inside.astype(np.uint8))
+            self.masks.append(np.stack(ms))
+        self.imgs = self.imgs.astype(np.uint8)
+
+    def __len__(self):
+        return len(self.imgs)
+
+    def orig_shape(self, i):
+        return self.imgs.shape[1:3]
+
+    def item(self, i):
+        return {"img": self.imgs[i], "masks": self.masks[i],
+                "cls": np.zeros(len(self.masks[i]), np.int32)}
+
+
+def _calibrated_yolo(split):
+    """Seeded yolov12n-seg weights on the CPU with every BatchNorm set to
+    its batch's statistics at std 0.1 over images of `split`, and the
+    warm-started head bias: every image gets detections, and f32 on two
+    devices agrees (a random init's activations vanish or, at std 1, turn
+    chaotic)."""
+    from yolou_tpu_torch.models.yolo import build_yolo
+    from yolou_tpu_torch.nn.heads import warm_start_detect_bias
+    model = build_yolo("yolov12", "n", 1, 4, "segment", device="cpu", seed=0)
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    x = torch.from_numpy(split.imgs[:2]).permute(0, 3, 1, 2).float() / 255
+    with torch.no_grad():
+        for bn in bns:
+            bn.weight.fill_(0.1)
+            bn.train()
+            bn.momentum = 1.0
+        model(x)
+    for bn in bns:
+        bn.eval()
+        bn.momentum = 0.03
+    return warm_start_detect_bias(model).eval().state_dict()
+
+
+def test_validation_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """f32, TF32 off: validate_detector on the card and on the CPU over one
+    in-memory split (10 images, batch 4, the tail padded): the same number
+    of detections per image and the metrics within 1e-4."""
+    from yolou_tpu_torch.engine import validator
+    from yolou_tpu_torch.models.yolo import build_yolo
+    split = _MemorySplit(10, 96, 0)
+    sd = _calibrated_yolo(split)
+    got, metrics = {}, {}
+    detect = validator.detect_batch
+
+    def recorded(*args, **kw):
+        out = detect(*args, **kw)
+        got[args[0].model[0].conv.weight.device.type].append(out)
+        return out
+
+    monkeypatch.setattr(validator, "detect_batch", recorded)
+    for dev in (cuda, torch.device("cpu")):
+        got[dev.type] = []
+        model = build_yolo("yolov12", "n", 1, 4, "segment", device=dev)
+        metrics[dev.type] = validator.validate_detector(
+            model, sd, split, imgsz=96, batch_size=4)
+    counts = {k: np.concatenate([b[..., 6].sum(1) for b in v])[:10]
+              for k, v in got.items()}
+    assert counts["cuda"].tolist() == counts["cpu"].tolist()
+    assert counts["cpu"].min() > 0
+    for k, v in metrics["cpu"].items():
+        assert abs(metrics["cuda"][k] - v) <= 1e-4, (k, metrics)
+
+
+def test_model_file_from_the_cpu_loads_on_the_card_bit_identically(cuda,
+                                                                   tmp_path):
+    """A `.ckpt` written on the CPU, loaded onto the card by `load_model`:
+    the f32 forward equals the in-memory model's on the card, bit for bit."""
+    from yolou_tpu_torch.models.yolo import build_yolo
+    from yolou_tpu_torch.utils.model_io import load_model, save_model
+    split = _MemorySplit(2, 64, 1)
+    sd = _calibrated_yolo(split)
+    model = build_yolo("yolov12", "n", 1, 4, "segment", device="cpu")
+    model.load_state_dict(sd, strict=True)
+    path = str(tmp_path / "m.ckpt")
+    save_model(path, model)
+    back = load_model(path)
+    assert next(back.parameters()).device.type == "cuda"
+    x = torch.from_numpy(split.imgs).to(cuda).permute(0, 3, 1, 2) / 255.0
+    with torch.no_grad():
+        want = model.to(cuda)(x)
+        out = back(x)
+    assert torch.equal(out.preds, want.preds)
+    assert torch.equal(out.protos, want.protos)
+
+
+def test_validation_batch_launches_kernels_a_and_b(cuda):
+    """bf16 on the card: each validation batch launches kernel A eight times
+    (the A2C2f blocks' AAttn at layers 6 and 8) and kernel B once."""
+    from yolou_tpu_torch.engine.validator import validate_detector
+    from yolou_tpu_torch.models.yolo import build_yolo
+    split = _MemorySplit(6, 64, 2)
+    model = build_yolo("yolov12", "n", 1, 4, "segment", device=cuda,
+                       dtype=torch.bfloat16)
+    model.load_state_dict(_calibrated_yolo(split), strict=True)
+    kernels.reset_launch_counts()
+    validate_detector(model, None, split, imgsz=64, batch_size=4)
+    counts = kernels.launch_counts()
+    assert counts["band_attention"] == 8 * 2 and counts["greedy_nms"] == 2
+    assert counts["band_attention_train"] == counts["a2c2f"] == 0

@@ -40,10 +40,10 @@ from yolou_tpu_torch.engine.trainer_decoder import (
     HISTORY_KEYS, DecoderTrainConfig, DecoderTrainer, cosine_decay)
 from yolou_tpu_torch.losses import dice
 from yolou_tpu_torch.models.segpp import build_segpp
-from yolou_tpu_torch.tools.convert import (state_dict_from_jax,
-                                           variables_from_state_dict)
+from yolou_tpu_torch.tools.convert import jax_variables, state_dict_from_jax
 
 from .test_torch_port_segpp import _draw
+from .torch_threads import one_torch_thread  # noqa: F401
 
 SIZE, BATCH, EPOCHS = 64, 2, 2
 CFG = dict(image_size=SIZE, batch_size=BATCH, epochs=EPOCHS,
@@ -240,7 +240,7 @@ def test_three_step_trajectory_matches_jax(variables, jax_runs,
     for i, ((loss, d), (jloss, jd)) in enumerate(zip(steps, want_steps)):
         np.testing.assert_allclose(loss, jloss, rtol=1e-5, err_msg=f"step {i}")
         assert abs(d - jd) <= 2e-3, (i, d, jd)
-    got = variables_from_state_dict(tr.model.state_dict(), v)
+    got = jax_variables(tr.model)
     for coll in ("params", "batch_stats"):
         flat_w = dict(jax.tree_util.tree_leaves_with_path(
             getattr(want, coll)["decoder"]))

@@ -25,6 +25,7 @@ from yolou_tpu_torch.models.segpp import build_segpp
 from yolou_tpu_torch.tools.convert import state_dict_from_jax
 
 from .test_torch_port_segpp import _draw
+from .torch_threads import one_torch_thread  # noqa: F401
 
 SIZE, BATCH = 64, 4
 KEYS = {"dice", "hd95", "precision", "recall", "images_per_sec", "n_images"}

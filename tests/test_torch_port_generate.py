@@ -29,6 +29,7 @@ from yolou_tpu_torch.engine.predictor import Predictor
 from yolou_tpu_torch.ops.gaussian import splat_heatmaps
 
 from .test_torch_port_slice import IMGSZ, models  # noqa: F401
+from .torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -25,6 +25,8 @@ from yolou_tpu_torch.kernels.attention import (area_attention,
                                                area_attention_qkv_fused)
 from yolou_tpu_torch.kernels.nms import suppress_greedy
 
+from .torch_threads import one_torch_thread  # noqa: F401
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PKG = REPO / "yolou_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "yolou_tpu")
@@ -33,8 +35,10 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "yolou_tpu")
 def _run(code_or_args, cwd, timeout=120):
     args = ([sys.executable, "-c", code_or_args]
             if isinstance(code_or_args, str) else code_or_args)
+    # one torch thread: the tier-1 command runs six test workers at once
     return subprocess.run(args, cwd=cwd, capture_output=True, text=True,
-                          timeout=timeout)
+                          timeout=timeout,
+                          env=dict(os.environ, OMP_NUM_THREADS="1"))
 
 
 def test_every_submodule_imports_without_jax_flax_or_yolou_tpu():
@@ -166,3 +170,88 @@ def test_chip_smoke_fails_without_a_gpu(tmp_path):
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
     assert os.listdir(tmp_path) == ["chip_smoke.py"]
+
+
+_BLOCK = (
+    "import sys\n"
+    "class _Block:\n"
+    "    def find_spec(self, name, path=None, target=None):\n"
+    "        if name.split('.')[0] in {blocked!r}:\n"
+    "            raise ImportError(f'blocked: {{name}}')\n"
+    "sys.meta_path.insert(0, _Block())\n")
+
+
+def test_detector_stage_modules_import_with_their_absent_packages_blocked():
+    """The detector stage's modules (validator, detection metrics, model
+    files and their msgpack codec, composite losses, segments) import with
+    JAX, flax, optax, the JAX package, `msgpack` and `cv2` all blocked; no
+    module of the package names `msgpack`."""
+    blocked = FORBIDDEN + ("msgpack", "cv2")
+    mods = ["engine.validator", "metrics.det", "utils.checkpoint",
+            "utils.model_io", "utils.msgpack_lite", "losses.composite",
+            "ops.segments", "engine.trainer_detector"]
+    code = (_BLOCK.format(blocked=blocked)
+            + "import importlib\n"
+            f"for n in {mods!r}: importlib.import_module('yolou_tpu_torch.' + n)\n"
+            "print('ok')\n")
+    res = _run(code, REPO)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+    pat = re.compile(r"^\s*(import|from)\s+msgpack\b", re.M)
+    assert [p for p in PKG.rglob("*.py") if pat.search(p.read_text())] == []
+
+
+def test_validator_and_model_files_work_in_memory_without_msgpack_or_cv2(
+        tmp_path):
+    """With `msgpack` and `cv2` blocked: `validate_detector` over a dataset
+    object held in memory (square and rect), `save_model` / `load_model` of
+    a small model with the same forward after the crossing, and
+    `validate_detector` over a directory refusing by name."""
+    blocked = FORBIDDEN + ("msgpack", "cv2")
+    code = _BLOCK.format(blocked=blocked) + f"""
+import numpy as np, torch
+from yolou_tpu_torch.engine.validator import validate_detector
+from yolou_tpu_torch.models.yolo import build_yolo
+from yolou_tpu_torch.utils.model_io import load_model, save_model
+
+class Memory:
+    def __init__(self):
+        rng = np.random.default_rng(0)
+        self.imgs = rng.integers(0, 255, (3, 32, 32, 4), dtype=np.uint8)
+    def __len__(self):
+        return 3
+    def orig_shape(self, i):
+        return (32, 32)
+    def item(self, i):
+        m = np.zeros((1, 32, 32), np.uint8)
+        m[0, 8:20, 4:24] = 1
+        return {{"img": self.imgs[i], "masks": m, "cls": np.zeros(1, np.int32)}}
+    def item_rect(self, i, hw):
+        it = self.item(i)
+        assert hw == (64, 64), hw
+        pad = lambda a: np.pad(a, [(0, 0)] * (a.ndim - 3) + [(0, 32), (0, 32)]
+                               + [(0, 0)] * (a.ndim == 3))
+        return dict(it, img=pad(it["img"]), masks=pad(it["masks"]))
+
+model = build_yolo("yolov12", "n", 1, 4, "segment", device="cpu", seed=0)
+for rect in (False, True):
+    m = validate_detector(model, None, Memory(), imgsz=32, batch_size=2,
+                          rect=rect)
+    assert set(m) == {{"precision", "recall", "map50", "map"}}, m
+path = {str(tmp_path / "m.ckpt")!r}
+save_model(path, model)
+back = load_model(path, device="cpu")
+x = torch.rand(1, 4, 32, 32)
+with torch.no_grad():
+    assert torch.equal(model(x).preds, back(x).preds)
+try:
+    validate_detector(model, None, {str(tmp_path)!r})
+except ImportError as e:
+    assert "cv2" in str(e), e
+else:
+    raise AssertionError("a directory was validated without cv2")
+print("ok")
+"""
+    res = _run(code, REPO)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"

@@ -23,6 +23,8 @@ from yolou_tpu_torch.kernels.attention import (area_attention_qkv_fused,
 from yolou_tpu_torch.kernels.nms import suppress_greedy, suppress_greedy_plain
 from yolou_tpu_torch.ops.nms import non_max_suppression
 
+from .torch_threads import one_torch_thread  # noqa: F401
+
 
 def _attn_inputs(g, n, c, seed):
     rng = np.random.default_rng(seed)

@@ -19,6 +19,8 @@ from yolou_tpu.nn import heads as jheads
 from yolou_tpu_torch.nn import attention, blocks, heads
 from yolou_tpu_torch.tools.convert import state_dict_from_jax
 
+from .torch_threads import one_torch_thread  # noqa: F401
+
 ATOL = 1e-5
 
 

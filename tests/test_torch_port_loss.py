@@ -22,6 +22,8 @@ from yolou_tpu_torch.losses.tal import task_aligned_assign
 from yolou_tpu_torch.losses.v8 import LossHyp, v8_loss
 from yolou_tpu_torch.ops import boxes
 
+from .torch_threads import one_torch_thread  # noqa: F401
+
 IMGSZ, STRIDES, REG_MAX, NM = 64, (8, 16, 32), 16, 32
 
 

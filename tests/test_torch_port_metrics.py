@@ -14,6 +14,8 @@ import torch
 from yolou_tpu.metrics import seg as jseg
 from yolou_tpu_torch.metrics import seg
 
+from .torch_threads import one_torch_thread  # noqa: F401
+
 
 def _pairs(seed=0, h=24, w=20):
     """(pred, target) (10, h, w) f32 in {0, 1} with the special pairs."""

@@ -22,6 +22,7 @@ from yolou_tpu_torch.ops.masks import process_mask, scale_masks
 
 # the same JAX weights and converted port model as the forward-pass tests
 from .test_torch_port_slice import IMGSZ, _close, models  # noqa: F401
+from .torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("hw", [(240, 240), (1024, 1024), (300, 500)])

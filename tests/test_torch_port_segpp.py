@@ -22,6 +22,7 @@ from yolou_tpu_torch.tools.convert import state_dict_from_jax
 
 from .test_torch_golden import TSegPPDecoder, _randomize, _sd
 from .test_torch_port_layers import _close, _init, _load, _nchw
+from .torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-4
 

@@ -20,6 +20,8 @@ from yolou_tpu_torch.models.yolo import build_yolo
 from yolou_tpu_torch.ops.nms import non_max_suppression
 from yolou_tpu_torch.tools.convert import state_dict_from_jax
 
+from .torch_threads import one_torch_thread  # noqa: F401
+
 IMGSZ = 64
 
 

@@ -32,6 +32,8 @@ from yolou_tpu_torch.kernels.attention import (area_attention,
                                                area_attention_plain,
                                                area_attention_qkv_fused)
 
+from .torch_threads import one_torch_thread  # noqa: F401
+
 CASES = [(4, 48, 64, 2), (2, 25, 128, 4), (6, 16, 32, 1)]
 
 

@@ -3,7 +3,7 @@ the CPU, yolov12n-seg (4 ch, nc=1) at 64^2 and batch 2.
 
 Weights are random JAX variables carried across by `state_dict_from_jax`;
 what the port has after its steps is carried back by
-`variables_from_state_dict`. Tolerances: train-mode layers 1e-5; schedules
+`tools/convert.py::jax_variables`. Tolerances: train-mode layers 1e-5; schedules
 1e-5 relative (an f32 cosine there, doubles here); the 3-step trajectory 1e-4 relative
 on the loss and 1e-4 absolute on parameters, EMA and running statistics
 (f32 sums in another order through 22 layers, three optimizer updates).
@@ -30,11 +30,12 @@ from yolou_tpu_torch.engine.trainer_detector import (
     epoch_index_batches, make_detector_tx, parameter_groups)
 from yolou_tpu_torch.models.yolo import build_yolo
 from yolou_tpu_torch.nn import attention, blocks
-from yolou_tpu_torch.tools.convert import (state_dict_from_jax,
-                                           variables_from_state_dict)
+from yolou_tpu_torch.tools import convert
+from yolou_tpu_torch.tools.convert import state_dict_from_jax
 
 from .test_torch_port_layers import _init, _nchw
 from .test_torch_port_slice import jax_variables
+from .torch_threads import one_torch_thread  # noqa: F401
 
 IMGSZ = 64
 OFF = dict(mosaic=0.0, degrees=0.0, translate=0.0, scale=0.0, shear=0.0,
@@ -94,7 +95,7 @@ def _train_pair(jmod, tmod, x, seed):
     out = tmod(_nchw(x))
     np.testing.assert_allclose(out.detach().permute(0, 2, 3, 1).numpy(),
                                np.asarray(ref), atol=1e-5, rtol=0)
-    got = variables_from_state_dict(tmod.state_dict(), v)
+    got = convert.jax_variables(tmod)
     _leaves_close(got["batch_stats"], upd["batch_stats"], 1e-6, "batch_stats")
     _leaves_close(got["params"], v["params"], 0, "params")
     return out
@@ -239,9 +240,10 @@ def test_trainer_defaults_to_the_gpu_and_refuses_validation():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='device="cpu"'):
             DetectorTrainer(model, None)
-    with pytest.raises(NotImplementedError, match="validator"):
-        DetectorTrainer(model, None, DetectorTrainConfig(val_every=1),
-                        device="cpu")
+    # validation during training is ported: val_every > 0 no longer raises
+    tr = DetectorTrainer(model, None, DetectorTrainConfig(val_every=1),
+                         device="cpu")
+    assert tr.cfg.val_every == 1 and tr.val_times == []
 
 
 # ------------------------------------------------------------ trajectory
@@ -300,10 +302,10 @@ def test_three_step_trajectory_matches_jax():
     assert tr.step_count == tr.opt_count == 3 and tr.notfinite_count() == 0
     want = jax.device_get(state)
     assert int(want.step) == 3
-    got = variables_from_state_dict(tmod.state_dict(), variables)
+    got = convert.jax_variables(tmod)
     _leaves_close(got["params"], want.params, 1e-4, "params")
     _leaves_close(got["batch_stats"], want.batch_stats, 1e-4, "batch_stats")
-    ema = variables_from_state_dict(tr.ema_variables(), variables)
+    ema = convert.jax_variables(tmod, tr.ema_variables())
     _leaves_close(ema["params"], want.ema_params, 1e-4, "ema")
     # the EMA moved off the initial weights, towards the trained ones
     k = ("model_0", "conv", "kernel")

@@ -21,9 +21,10 @@ from yolou_tpu.tools.torch2jax import jax_to_torch_state_dict
 from yolou_tpu_torch.models.segpp import build_segpp
 from yolou_tpu_torch.models.yolo import build_yolo
 from yolou_tpu_torch.nn.attention import aattn_qkv_permutation
-from yolou_tpu_torch.tools.convert import (SEGPP_PREFIX_MAP,
-                                           state_dict_from_jax,
-                                           variables_from_state_dict)
+from yolou_tpu_torch.tools.convert import (SEGPP_PREFIX_MAP, jax_variables,
+                                           state_dict_from_jax)
+
+from .torch_threads import one_torch_thread  # noqa: F401
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
                        "yolov12n_seg_state_dict.txt")
@@ -147,8 +148,13 @@ def test_segpp_state_dict_loads_strict_and_converts_back(segpp_variables):
     got = model.state_dict()
     assert all(torch.equal(got[k], v) for k, v in sd.items())
     for pm in (None, SEGPP_PREFIX_MAP):
-        back = variables_from_state_dict(
-            state_dict_from_jax(segpp_variables, pm), segpp_variables, pm)
+        # a state_dict under the reference's names, renamed back to the
+        # model's before the way back
+        unmap = {theirs: ours for ours, theirs in (pm or {}).items()}
+        named = {next((o + k[len(t):] for t, o in unmap.items()
+                       if k.startswith(t)), k): v
+                 for k, v in state_dict_from_jax(segpp_variables, pm).items()}
+        back = jax_variables(model, named)
         flat = jax.tree_util.tree_leaves_with_path(back)
         want = dict(jax.tree_util.tree_leaves_with_path(segpp_variables))
         assert len(flat) == len(want)

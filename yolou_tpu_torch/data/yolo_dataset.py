@@ -6,10 +6,14 @@ harmonisation, and collation into fixed-shape batches of uint8 images and
 overlap-encoded instance id maps. Augmentation runs on the trainer's device
 (`data/augment.py`); this module gives raw uint8 arrays only.
 
-`cv2` decodes and rasterises; it is imported inside the methods that do so,
-so that the trainer can be imported, and driven over in-memory batches, where
-`cv2` is absent. Not carried over: the rect-batch items and padded collate
-(the validator's, ported with it) and the single-buffer packed collate (a
+The validator's half: aspect-preserving rect items (`item_rect`), boxes from
+instance masks, the padded collate and the rect grouping (`rect_groups`,
+`rect_batch_shape`), and the `batches` iterator over them.
+
+`cv2` decodes, resizes and rasterises; it is imported inside the methods that
+do so, so that the trainer and the validator can be imported, and driven
+over in-memory datasets, where `cv2` is absent: `collate_padded` resizes
+its masks in numpy. Not carried over: the single-buffer packed collate (a
 workaround for a slow host link).
 """
 
@@ -17,7 +21,7 @@ from __future__ import annotations
 
 import hashlib
 import os
-from typing import Dict, List, Tuple
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 
@@ -210,6 +214,132 @@ class YoloSegDataset:
         if self.cache_images:
             self._idmap_cache[i] = out
         return out
+
+    def item_rect(self, i: int, out_hw: Tuple[int, int]) -> Dict[str, np.ndarray]:
+        """Aspect-preserving letterboxed item at a rect-group shape (long
+        side resized, gray-114 padding, centred); instance masks rasterised
+        in the letterboxed frame, so `boxes_from_masks` lands in out_hw
+        pixels."""
+        import cv2
+        img0 = self.load_image_raw(i)
+        h0, w0 = img0.shape[:2]
+        oh, ow = out_hw
+        gain = min(oh / h0, ow / w0)
+        nh, nw = max(1, round(h0 * gain)), max(1, round(w0 * gain))
+        resized = cv2.resize(img0, (nw, nh), interpolation=cv2.INTER_LINEAR)
+        if resized.ndim == 2:
+            resized = resized[..., None]
+        canvas = np.full((oh, ow, img0.shape[2]), 114, img0.dtype)
+        top, left = (oh - nh) // 2, (ow - nw) // 2
+        canvas[top:top + nh, left:left + nw] = resized
+        items = self.labels[i]
+        masks = np.zeros((len(items), oh, ow), np.uint8)
+        cls = np.zeros((len(items),), np.int32)
+        for j, (c, poly) in enumerate(items):
+            cls[j] = c
+            pts = np.round(poly * np.array([w0, h0], np.float32) * gain
+                           + np.array([left, top], np.float32)).astype(np.int32)
+            cv2.fillPoly(masks[j], [pts], 1)
+        return {"img": canvas, "masks": masks, "cls": cls,
+                "path": self.files[i]}
+
+
+def boxes_from_masks(masks: np.ndarray) -> np.ndarray:
+    """(n, H, W) -> (n, 4) normalized xywh from mask extents."""
+    n, h, w = masks.shape
+    out = np.zeros((n, 4), np.float32)
+    for i in range(n):
+        ys, xs = np.nonzero(masks[i])
+        if len(xs) == 0:
+            continue
+        x1, x2 = xs.min(), xs.max() + 1
+        y1, y2 = ys.min(), ys.max() + 1
+        out[i] = [(x1 + x2) / 2 / w, (y1 + y2) / 2 / h,
+                  (x2 - x1) / w, (y2 - y1) / h]
+    return out
+
+
+def resize_nearest(m: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
+    """`cv2.resize(m, (w, h), interpolation=cv2.INTER_NEAREST)` for a 2-D
+    array: source index floor(dst * (1 / (dst_size / src_size))), clamped."""
+    (h, w), (oh, ow) = m.shape, out_hw
+    ys = np.minimum(np.floor(np.arange(oh) * (1.0 / (oh / h))).astype(int),
+                    h - 1)
+    xs = np.minimum(np.floor(np.arange(ow) * (1.0 / (ow / w))).astype(int),
+                    w - 1)
+    return m[ys[:, None], xs[None, :]]
+
+
+def collate_padded(items: List[Dict[str, np.ndarray]], max_inst: int,
+                   mask_ratio: int = 4) -> Dict[str, np.ndarray]:
+    """Stack to fixed shapes: imgs (B,H,W,C) u8, cls (B,G), bboxes (B,G,4)
+    xywh-norm, valid (B,G), masks (B,G,H/mr,W/mr) f32 (proto resolution).
+    Works for square and rect (`item_rect`) items; all items in one batch
+    must share a shape."""
+    b = len(items)
+    h, w, c = items[0]["img"].shape
+    mh, mw = h // mask_ratio, w // mask_ratio
+    imgs = np.zeros((b, h, w, c), np.uint8)
+    cls = np.zeros((b, max_inst), np.int32)
+    bboxes = np.zeros((b, max_inst, 4), np.float32)
+    valid = np.zeros((b, max_inst), bool)
+    masks = np.zeros((b, max_inst, mh, mw), np.float32)
+    for i, it in enumerate(items):
+        imgs[i] = it["img"]
+        n = min(len(it["cls"]), max_inst)
+        if n:
+            cls[i, :n] = it["cls"][:n]
+            m = it["masks"][:n]
+            bboxes[i, :n] = boxes_from_masks(m)
+            valid[i, :n] = m.reshape(n, -1).any(-1)
+            for j in range(n):
+                masks[i, j] = resize_nearest(m[j], (mh, mw))
+    return {"img": imgs, "cls": cls, "bboxes": bboxes, "valid": valid,
+            "masks": masks}
+
+
+def rect_batch_shape(shapes: List[Tuple[int, int]], imgsz: int,
+                     stride: int = 32, pad: float = 0.5) -> Tuple[int, int]:
+    """Common letterbox shape for one rect group (ultralytics
+    `set_rectangle` with the validation pad 0.5): scale each image's long
+    side to imgsz, take the group max per dim, round up to a stride multiple
+    with `pad` allowance."""
+    hs, ws = [], []
+    for h, w in shapes:
+        g = imgsz / max(h, w)
+        hs.append(h * g)
+        ws.append(w * g)
+    oh = int(np.ceil(max(hs) / stride + pad)) * stride
+    ow = int(np.ceil(max(ws) / stride + pad)) * stride
+    return oh, ow
+
+
+def rect_groups(shapes: List[Tuple[int, int]], batch_size: int) -> List[List[int]]:
+    """Aspect-ratio-sorted batch grouping (ultralytics rect mode): images
+    sorted by h/w so each batch letterboxes to a similar shape."""
+    ars = np.asarray([h / w for h, w in shapes])
+    order = np.argsort(ars)
+    return [list(map(int, order[i:i + batch_size]))
+            for i in range(0, len(order), batch_size)]
+
+
+def batches(ds: YoloSegDataset, batch_size: int, max_inst: int = 16,
+            mask_ratio: int = 4, shuffle: bool = True, seed: int = 0,
+            drop_last: bool = True) -> Iterator[Dict[str, np.ndarray]]:
+    """Padded batches of `ds.item`s in a seeded order; the tail is dropped or
+    wrap-filled from the start of the same order."""
+    idx = np.arange(len(ds))
+    rng = np.random.default_rng(seed)
+    if shuffle:
+        rng.shuffle(idx)
+    for start in range(0, len(idx), batch_size):
+        chunk = idx[start:start + batch_size]
+        if len(chunk) < batch_size:
+            if drop_last:
+                return
+            chunk = np.concatenate([chunk, idx[: batch_size - len(chunk)]])
+        yield collate_padded([ds.item(int(j)) for j in chunk], max_inst,
+                             mask_ratio)
 
 
 def collate_idmap(items: List[Dict[str, np.ndarray]], max_inst: int) -> Dict[str, np.ndarray]:

@@ -9,20 +9,24 @@ each step goes through the hand-written attention kernel
 (`kernels.attention.area_attention_fused`) and its backward.
 
 One step, eagerly: augment (no grad) -> forward -> loss -> backward -> clip ->
-optimizer -> EMA. The trainer runs on the GPU unless a CPU device is asked
-for. Not carried over from the JAX package: the packed single-buffer upload,
-the device-resident dataset with its whole-epoch scan and the flat-vector
-optimizer (three workarounds for a slow host link and per-leaf dispatch
-costs), and data-parallel meshes.
-
-Not ported yet: validation during training. `val_every > 0` raises until the
-validator is; `best.pt`, which is chosen by validation fitness, is therefore
-not written, only `last.pt`. Checkpoints are `torch.save` files, not the JAX
-package's `.ckpt` format.
+optimizer -> EMA. Every `val_every` epochs the EMA weights are validated on
+the `val` split (`engine/validator.py`, mAP50 and mAP50-95 into `history`)
+in a separate eval copy of the model, so the training model's mode,
+parameters and BatchNorm statistics stay as they were; `best.pt` is written
+on each strict rise of ultralytics' fitness 0.1 mAP50 + 0.9 mAP50-95, and
+`last.pt` every epoch. The trainer runs on the GPU unless a CPU device is
+asked for. Not carried over from the JAX package: the packed single-buffer
+upload, the device-resident dataset with its whole-epoch scan and the
+flat-vector optimizer (three workarounds for a slow host link and per-leaf
+dispatch costs), and data-parallel meshes. `last.pt` / `best.pt` are
+`torch.save` files of the whole training state, not the JAX package's
+`.ckpt` training state; a model file of the weights crosses with
+`utils/model_io.py::save_model`.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
@@ -65,7 +69,7 @@ class DetectorTrainConfig:
     seed: int = 0
     run_dir: str = "runs_detector"
     optimizer: str = "sgd"          # "sgd" (ultralytics auto default) | "adamw"
-    val_every: int = 0              # validation every N epochs: not ported, must be 0
+    val_every: int = 0              # validate the EMA weights every N epochs (0: never)
 
 
 Schedule = Callable[[int], float]
@@ -169,10 +173,6 @@ class DetectorTrainer:
                  cfg: DetectorTrainConfig = DetectorTrainConfig(),
                  aug: AugHyp = AugHyp(), loss_hyp: LossHyp = LossHyp(),
                  device: torch.device | str | None = None):
-        if cfg.val_every:
-            raise NotImplementedError(
-                "val_every > 0 needs the detector validator, which is not "
-                "ported yet")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.cfg, self.aug, self.loss_hyp = cfg, aug, loss_hyp
@@ -188,6 +188,8 @@ class DetectorTrainer:
         self._spe: Optional[int] = None
         self.history: Dict[str, list] = {k: [] for k in LOSS_KEYS + ("lr",)}
         self.epoch_times: list = []  # wall seconds per train epoch
+        self.val_times: list = []    # wall seconds per validation
+        self._val_model: Optional[YOLOModel] = None
 
     # ------------------------------------------------------------------ setup
     def ensure_ready(self, steps_per_epoch: int) -> None:
@@ -291,12 +293,36 @@ class DetectorTrainer:
         """Consecutive non-finite (skipped) optimizer steps; 0 when healthy."""
         return self._notfinite
 
+    # ------------------------------------------------------------- validation
+    def validate(self, val_ds) -> Dict[str, float]:
+        """`validate_detector` of the EMA weights (with the model's
+        BatchNorm statistics) over `val_ds`, in an eval copy of the model
+        made at the first call: the training model is not touched."""
+        from .validator import validate_detector
+        if self._val_model is None:
+            self._val_model = copy.deepcopy(self.model).requires_grad_(
+                False).eval()
+            for p in self._val_model.parameters():
+                p.grad = None
+        cfg = self.cfg
+        return validate_detector(
+            self._val_model, self.ema_variables(), val_ds, imgsz=cfg.imgsz,
+            channels=self.data_cfg.channels, batch_size=cfg.batch_size,
+            max_inst=cfg.max_instances)
+
     # ------------------------------------------------------------------ train
+    def _datasets(self):
+        """(train, val) datasets; val is None when `val_every` is 0. The one
+        place the trainer's data comes from: a caller may put datasets held
+        in memory here (objects with `YoloSegDataset`'s methods)."""
+        mk = lambda split: YoloSegDataset(
+            self.data_cfg.split_dir(split), imgsz=self.cfg.imgsz,
+            channels=self.data_cfg.channels, cache_images=True)
+        return mk("train"), mk("val") if self.cfg.val_every else None
+
     def train(self, resume_from: Optional[str] = None) -> Dict[str, list]:
         cfg = self.cfg
-        ds = YoloSegDataset(self.data_cfg.split_dir("train"), imgsz=cfg.imgsz,
-                            channels=self.data_cfg.channels,
-                            cache_images=True)
+        ds, val_ds = self._datasets()
         # ceil: the wrap-filled remainder batch is a real step
         steps_per_epoch = max(
             1, (len(ds) + cfg.batch_size - 1) // cfg.batch_size)
@@ -314,6 +340,7 @@ class DetectorTrainer:
             start_epoch = self.step_count // steps_per_epoch
 
         gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        best_fitness = float("-inf")
         for epoch in range(start_epoch, cfg.epochs):
             mosaic_on = epoch < cfg.epochs - cfg.close_mosaic
             t0 = time.time()
@@ -340,6 +367,19 @@ class DetectorTrainer:
             if self._notfinite:
                 msg += (f" | WARN: {self._notfinite} consecutive non-finite "
                         f"steps skipped")
+            if cfg.val_every and (epoch + 1) % cfg.val_every == 0:
+                t1 = time.time()
+                vm = self.validate(val_ds)
+                self.val_times.append(time.time() - t1)
+                self.history.setdefault("map50", []).append(vm["map50"])
+                self.history.setdefault("map", []).append(vm["map"])
+                msg += (f" | val mAP50={vm['map50']:.4f} "
+                        f"mAP50-95={vm['map']:.4f}")
+                # ultralytics fitness; best.pt on a strict rise
+                fitness = 0.1 * vm["map50"] + 0.9 * vm["map"]
+                if fitness > best_fitness:
+                    best_fitness = fitness
+                    self.save_checkpoint(os.path.join(weights, "best.pt"))
             print(msg)
             self.save_checkpoint(os.path.join(weights, "last.pt"))
         return self.history

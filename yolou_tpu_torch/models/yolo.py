@@ -198,6 +198,30 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
+def inflate_stem_to_4ch(state_dict: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+    """3 -> 4 channel stem inflation of a state_dict: the first conv's
+    kernel (`model.0.conv.weight`, (O, I, kh, kw); under any prefix, e.g.
+    YOLO-Seg++'s `yolo.`) gains the mean of its RGB kernels as input channel
+    4. A 4-channel stem comes back unchanged; any other input-channel count
+    raises. Returns a new dict (tensors other than the stem's are shared)."""
+    keys = [k for k in state_dict
+            if k == "model.0.conv.weight" or k.endswith(".model.0.conv.weight")]
+    if not keys:
+        raise KeyError("stem conv kernel not found (model.0.conv.weight)")
+    w = state_dict[keys[0]]
+    if w.shape[1] == 4:
+        return state_dict
+    if w.shape[1] != 3:
+        raise ValueError(f"stem inflation needs a 3-channel stem, got "
+                         f"{tuple(w.shape)}")
+    out = dict(state_dict)
+    # XLA's mean: the sum in channel order, times the reciprocal of the count
+    mean = (w[:, 0:1] + w[:, 1:2] + w[:, 2:3]) * (1 / 3)
+    out[keys[0]] = torch.cat([w, mean], 1)
+    return out
+
+
 def resolve_device(device: torch.device | str | None) -> torch.device:
     """The device an entry point runs on: `device` as given, the current
     CUDA device for None. Raises where None is given and there is no GPU, so

@@ -21,9 +21,12 @@ rewrites the start of a name, as the JAX exporter's argument of that name:
 `SEGPP_PREFIX_MAP` turns YOLOSegPP's `yolo.model.{i}` into the `encoder.{i}`
 of a reference decoder checkpoint.
 
-`variables_from_state_dict` is the way back, for holding a state the port
-has trained (parameters, EMA, BatchNorm running statistics) against the JAX
-package's after the same steps.
+The way back: `jax_variables` derives the JAX variables of a port model with
+no JAX template, by walking the port's modules. Names alone cannot give the
+flax paths, because `torch_name` drops the flax wrapper segments (`dw`, `c3`,
+`detect`, `decoder`): the module types say where each goes. It applies the
+inverse layouts and the qkv permutation; its tree is what the JAX package's
+`init` gives for the same model, path for path and shape for shape.
 """
 
 from __future__ import annotations
@@ -33,8 +36,14 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
-from ..nn.attention import aattn_qkv_permutation
+from ..models.segpp import SegPPDecoder, YOLOSegPP
+from ..models.yolo import YOLOModel
+from ..nn.attention import A2C2f, AAttn, ABlock, aattn_qkv_permutation
+from ..nn.blocks import (C3, C3k, C3k2, DoubleLightConv, DWConv, ECA,
+                         GhostBottleneck, SingleLightConv)
+from ..nn.heads import Detect, Segment
 
 # flax wrapper modules that have no torch counterpart (DWConv's "dw",
 # C3k's "c3", Segment's "detect", YOLOSegPP's "decoder": its stages' entries
@@ -160,30 +169,131 @@ def state_dict_from_jax(variables: Dict,
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
 
 
-def variables_from_state_dict(state_dict: Dict[str, torch.Tensor],
-                              like: Dict,
-                              prefix_map: Optional[Dict[str, str]] = None
-                              ) -> Dict:
-    """The inverse of `state_dict_from_jax`: a tree of numpy arrays with the
-    structure (and leaf shapes) of the JAX variables `like`, filled from
-    `state_dict`. Keys without a JAX counterpart (`num_batches_tracked`, the
-    DFL projection) are left behind."""
+# the decoder's torch names -> flax module names (the inverse of _TABLE's
+# decoder entries)
+_TABLE_INV = {v: k for k, v in _TABLE.items()
+              if v.startswith(("decoder.", "output"))}
+
+
+def _flax_segments(owner: nn.Module, names: List[str],
+                   mod: nn.Module) -> Optional[Tuple[str, ...]]:
+    """The flax path segments of `mod`, reached from its nearest
+    non-container ancestor `owner` through the torch attribute names
+    `names` (one name, or a container's name and its indices). None for a
+    module without a JAX counterpart (the fixed DFL projection, the
+    decoder's upsample slots); `jax_variables` refuses a tensor left without
+    a path."""
+    first = names[0]
+    if isinstance(owner, YOLOModel) and first == "model":
+        return (f"model_{names[1]}",)
+    if isinstance(owner, (YOLOSegPP, SegPPDecoder)) and first in ("decoder",
+                                                                   "output"):
+        seg = _TABLE_INV.get(".".join(names))
+        if seg is None:               # the parameter-free upsample slots
+            return None
+        return ("decoder", seg) if isinstance(owner, YOLOSegPP) else (seg,)
+    if isinstance(owner, Detect):
+        if first == "dfl":
+            return None
+        if first in ("cv2", "cv3", "cv4"):
+            seg = "_".join(names)
+            # Segment nests the detection branches in a Detect named "detect"
+            wrap = isinstance(owner, Segment) and first != "cv4"
+            return ("detect", seg) if wrap else (seg,)
+    if isinstance(owner, (A2C2f, C3k2, C3)) and first == "m":
+        seg = f"m{names[1]}" + (f"_{names[2]}" if len(names) == 3 else "")
+        return (seg, "c3") if isinstance(mod, C3k) else (seg,)
+    if isinstance(owner, ABlock) and first == "mlp":
+        return (f"mlp{int(names[1]) + 1}",)
+    if isinstance(owner, GhostBottleneck) and len(names) == 2:
+        slots = {"conv": ("ghost1", "dwmid", "ghost2"),
+                 "shortcut": ("sc_dw", "sc_pw")}
+        return (slots[first][int(names[1])],)
+    if isinstance(owner, DoubleLightConv) and first == "conv":
+        return (("conv_a", "conv_b")[int(names[1])],)
+    if (isinstance(owner, (DoubleLightConv, SingleLightConv))
+            and first == "residual_conv"):
+        return ("residual",)
+    if isinstance(owner, ECA) and first == "conv":
+        return ("conv1d",)
+    if len(names) != 1:
+        raise ValueError(f"no flax path rule for {type(owner).__name__}."
+                         f"{'.'.join(names)}")
+    return (first,)
+
+
+def _jax_layout(a: np.ndarray, mod: nn.Module) -> np.ndarray:
+    if isinstance(mod, nn.ConvTranspose2d) and a.ndim == 4:
+        return a.transpose(2, 3, 0, 1)[::-1, ::-1]    # (I,O,kh,kw) -> HWIO
+    if a.ndim == 4:
+        return a.transpose(2, 3, 1, 0)                # (O,I,kh,kw) -> HWIO
+    if a.ndim == 3:
+        return a.transpose(2, 1, 0)                   # Conv1d (1,1,k)
+    return a
+
+
+def _jax_paths(model: nn.Module) -> Dict[str, Tuple[str, Tuple[str, ...],
+                                                   nn.Module,
+                                                   Optional[np.ndarray]]]:
+    """state_dict name -> (collection, flax path, owning module, qkv
+    permutation or None) for every entry with a JAX counterpart. Entries
+    without one (`num_batches_tracked`, the DFL projection) are absent."""
     out: Dict = {}
-    for coll, path, leaf, inv in _leaves(like):
-        arr = state_dict[torch_name(path, coll, prefix_map)]
-        arr = arr.detach().cpu().numpy()
-        if arr.ndim == 3:
-            arr = arr.transpose(2, 1, 0)
-        if arr.ndim == 4:
-            if "upsample" in path:
-                arr = arr.transpose(2, 3, 0, 1)[::-1, ::-1]
-            else:
-                arr = arr.transpose(2, 3, 1, 0)
-        if inv is not None:
-            perm = np.argsort(inv)
-            arr = arr[..., perm] if arr.ndim == 4 else arr[perm]
-        if arr.shape != np.shape(leaf):
-            raise ValueError(f"{path}: {arr.shape} != {np.shape(leaf)}")
+    leaf_names = {"weight": ("params", None), "bias": ("params", "bias"),
+                  "running_mean": ("batch_stats", "mean"),
+                  "running_var": ("batch_stats", "var")}
+
+    def visit(mod, prefix, path, pending, owner, perm):
+        if type(mod) in (nn.ModuleList, nn.Sequential):
+            for name, child in mod.named_children():
+                visit(child, prefix + name + ".", path, pending + [name],
+                      owner, perm)
+            return
+        if pending:
+            segs = _flax_segments(owner, pending, mod)
+            if segs is None:
+                return
+            path = path + segs
+            if isinstance(owner, AAttn) and pending == ["qkv"]:
+                perm = owner.perm.cpu().numpy()   # head-major -> role-major
+        if isinstance(mod, DWConv):
+            path = path + ("dw",)
+        tensors = list(mod.named_parameters(recurse=False)) + list(
+            mod.named_buffers(recurse=False))
+        for name, _ in tensors:
+            if name not in leaf_names:
+                continue
+            coll, leaf = leaf_names[name]
+            if leaf is None:
+                leaf = ("kernel" if isinstance(mod, (nn.Conv1d, nn.Conv2d,
+                                                     nn.ConvTranspose2d))
+                        else "scale")
+            out[prefix + name] = (coll, path + (leaf,), mod, perm)
+        for name, child in mod.named_children():
+            visit(child, prefix + name + ".", path, [name], mod, perm)
+
+    visit(model, "", (), [], None, None)
+    return out
+
+
+def jax_variables(model: nn.Module,
+                  state_dict: Optional[Dict[str, torch.Tensor]] = None
+                  ) -> Dict:
+    """The JAX package's variables `{"params": ..., "batch_stats": ...}` of
+    a `YOLOModel` or `YOLOSegPP` as nested dicts of numpy arrays, from
+    `state_dict` (the model's own by default), with no JAX template."""
+    sd = model.state_dict() if state_dict is None else state_dict
+    paths = _jax_paths(model)
+    out: Dict = {}
+    for name, t in sd.items():
+        if name not in paths:
+            if name.endswith("num_batches_tracked") or ".dfl." in name:
+                continue
+            raise KeyError(f"{name} has no JAX counterpart")
+        coll, path, mod, perm = paths[name]
+        arr = _jax_layout(t.detach().cpu().numpy(), mod)
+        if perm is not None:
+            arr = arr[..., perm]
         node = out.setdefault(coll, {})
         for seg in path[:-1]:
             node = node.setdefault(seg, {})
