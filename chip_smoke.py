@@ -86,6 +86,25 @@ Phases, one or more output lines each:
                the best EMA weights
                read back onto the card (forward bit-identical) and a
                Predictor over it answering one request.
+ 11. cli     - the Quickstart through `python -m yolou_tpu_torch`'s
+               dispatcher at the reference configuration (yolov12n-seg, 4
+               channels, nc=1, 160^2, bf16) from PNG files on disk, with
+               cv2 blocked by a meta-path finder: a dataset of seeded
+               ellipses (256 train, 64 val, 64 test; 4-channel images,
+               gray masks, 32-vertex polygon labels) written by the port's
+               PNG writer and read back byte for byte, each PNG filter type
+               round-tripped; `--help` as a process; `train-detector` (2
+               epochs, validation each), `generate-objectmaps`,
+               `train-decoder` (3 epochs), `evaluate`, `predict` (160^2,
+               and 640^2 with `--retina-masks`), `val --rect`, `convert`
+               both ways (the .pt loads strictly, the forward
+               bit-identical) in this process, each with exact launch
+               counts (kernel C 8 + 8 backward a step, A 8 and B 1 a
+               batch where they run, a2c2f 0); `val` as a process of its
+               own; `val` (near-ties named) and `evaluate` in f32 on the
+               card against `--device cpu`; each command's wall seconds,
+               host decode and resize rates, predict images/s, the epochs'
+               seconds.
 Then a JSON line of kernel results (each kernel's launches on its path, error,
 device and per-call times, and the least time the card could take), the
 nvidia-smi line again,
@@ -1786,6 +1805,398 @@ def finetune_phase(device):
             "backward": backward["band_attention_train"]}
 
 
+# ------------------------------------------------------------- command line
+
+CLI_SPLITS = {"train": 256, "val": 64, "test": 64}
+CLI_EPOCHS = 2
+CLI_DEC_EPOCHS = 3
+CLI_RETINA = 8          # val images predicted at 640^2 with --retina-masks
+CLI_VERTICES = 32
+
+
+@contextlib.contextmanager
+def cv2_blocked():
+    """`cv2` unimportable (a meta-path finder, and any loaded copy taken
+    out of sys.modules) while the block runs, even where it is installed."""
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] == "cv2":
+                raise ImportError(f"blocked: {name}")
+
+    saved = {k: sys.modules.pop(k) for k in list(sys.modules)
+             if k.split(".")[0] == "cv2"}
+    finder = Block()
+    sys.meta_path.insert(0, finder)
+    try:
+        yield
+    finally:
+        sys.meta_path.remove(finder)
+        sys.modules.update(saved)
+
+
+def write_split(root: str, split: str, count: int, rng, hw: int = EVAL_IMGSZ):
+    """`count` images of bright ellipses on dark noise, drawn as
+    `make_labelled` draws them, in `data/synthetic.py`'s layout: 4-channel
+    PNGs under images/, gray masks (255 inside an ellipse) under masks/,
+    and under labels/ a YOLO polygon of CLI_VERTICES vertices on each
+    ellipse. Returns the arrays written (images, masks)."""
+    import os
+    from yolou_tpu_torch.native.image import imwrite
+    dirs = {k: os.path.join(root, k, split)
+            for k in ("images", "masks", "labels")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    yy, xx = np.mgrid[:hw, :hw]
+    t = 2 * np.pi * np.arange(CLI_VERTICES) / CLI_VERTICES
+    imgs, masks = [], []
+    for i in range(count):
+        img = rng.normal(40, 12, (hw, hw, 4)).clip(0, 255)
+        mask = np.zeros((hw, hw), np.uint8)
+        rows = []
+        for _ in range(rng.integers(1, 4)):
+            cy, cx = rng.uniform(0.2 * hw, 0.8 * hw, 2)
+            ry, rx = rng.uniform(0.04 * hw, 0.15 * hw, 2)
+            inside = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1
+            img[inside] = rng.uniform(180, 255, 4)
+            mask[inside] = 255
+            poly = np.stack([(cx + rx * np.cos(t)) / hw,
+                             (cy + ry * np.sin(t)) / hw], 1).clip(0, 1)
+            rows.append("0 " + " ".join(f"{c:.6f}" for c in poly.ravel()))
+        name = f"{split}_{i:04d}"
+        img = img.astype(np.uint8)
+        imwrite(os.path.join(dirs["images"], name + ".png"), img)
+        imwrite(os.path.join(dirs["masks"], name + ".png"), mask)
+        with open(os.path.join(dirs["labels"], name + ".txt"), "w") as f:
+            f.write("\n".join(rows) + "\n")
+        imgs.append(img)
+        masks.append(mask)
+    return np.stack(imgs), np.stack(masks)
+
+
+def write_dataset(root: str, rng) -> dict:
+    """Every split of CLI_SPLITS and data.yaml; returns the arrays."""
+    import os
+    arrays = {s: write_split(root, s, n, rng) for s, n in CLI_SPLITS.items()}
+    with open(os.path.join(root, "data.yaml"), "w") as f:
+        f.write(f"path: {root}\ntrain: images/train\nval: images/val\n"
+                f"test: images/test\nchannels: 4\nnc: 1\n"
+                f'names: ["whole_tumor"]\n')
+    return arrays
+
+
+def check_codec(root: str, arrays: dict) -> dict:
+    """Every image and mask read back with the port's `imread` equals the
+    array written, byte for byte; one seeded image makes the round trip
+    through each of the five PNG filter types. Returns decode and resize
+    rates (host, images/s)."""
+    import os
+    import tempfile
+    from yolou_tpu_torch.native import image
+    n, t_read = 0, 0.0
+    for split, (imgs, masks) in arrays.items():
+        for i in range(len(imgs)):
+            name = f"{split}_{i:04d}.png"
+            t0 = time.perf_counter()
+            img = image.imread(os.path.join(root, "images", split, name))
+            t_read += time.perf_counter() - t0
+            mask = image.imread(os.path.join(root, "masks", split, name),
+                                image.IMREAD_GRAYSCALE)
+            if not (np.array_equal(img, imgs[i])
+                    and np.array_equal(mask, masks[i])):
+                raise AssertionError(f"{split}/{name} read back differs")
+            n += 1
+    probe = np.random.default_rng(SEED + 11).integers(
+        0, 256, (EVAL_IMGSZ, EVAL_IMGSZ, 4), dtype=np.uint8)
+    with tempfile.TemporaryDirectory() as d:
+        for ftype in range(5):
+            path = os.path.join(d, f"f{ftype}.png")
+            image.imwrite(path, probe, filter_type=ftype)
+            if not np.array_equal(image.imread(path), probe):
+                raise AssertionError(f"filter type {ftype}: round trip")
+    val = arrays["val"][0]
+    t0 = time.perf_counter()
+    for img in val:
+        image.resize_linear(img, (IMGSZ, IMGSZ))
+    t_resize = time.perf_counter() - t0
+    return {"images_checked": n, "filter_types": 5,
+            "decode_images_per_s": n / t_read,
+            "resize_160_to_640_images_per_s": len(val) / t_resize}
+
+
+class Tee(io.TextIOBase):
+    """Writes to the real stdout and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_command(argv, counts: dict, seconds: dict, key=None):
+    """`__main__.main(argv)` in this process with the kernels' launch
+    counters set to 0 just before and read just after; its launches and
+    wall seconds go under `key` (the command's name). Returns (what the
+    command returned, its printed output)."""
+    import torch
+    from yolou_tpu_torch import kernels
+    from yolou_tpu_torch.__main__ import main
+    key = key or argv[0]
+    tee = Tee(sys.stdout)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        out = main(argv)
+    torch.cuda.synchronize()
+    seconds[key] = time.perf_counter() - t0
+    counts[key] = dict(kernels.launch_counts(),
+                       backward=kernels.backward_counts())
+    return out, "".join(tee.parts)
+
+
+def cli_val_f32(yaml: str, ckpt: str, counts, seconds) -> None:
+    """`val` in f32 on the card and with `--device cpu` on the same file:
+    metrics within 1e-4; detections equal on every image but for near-ties
+    (`flipped_detections`, each named, within 1e-4 of its decision)."""
+    import torch
+    from yolou_tpu_torch.engine import validator
+    f32_exact(torch)
+    got, metrics = {"cuda": [], "cpu": []}, {}
+    detect = validator.detect_batch
+
+    def recorded(*args, **kw):
+        out = detect(*args, **kw)
+        got[next(args[0].parameters()).device.type].append(out)
+        return out
+
+    validator.detect_batch = recorded
+    try:
+        for dev in ("cuda", "cpu"):
+            metrics[dev], _ = run_command(
+                ["val", "--data", yaml, "--model", ckpt, "--imgsz",
+                 str(EVAL_IMGSZ), "--batch", str(EVAL_BATCH), "--device",
+                 dev], counts, seconds, key=f"val f32 {dev}")
+    finally:
+        validator.detect_batch = detect
+    n = CLI_SPLITS["val"]
+    card, cpu = (np.concatenate(got[d])[:n] for d in ("cuda", "cpu"))
+    dets = card[..., 6].sum(1), cpu[..., 6].sum(1)
+    flips = flipped_detections(card, cpu)
+    worst = max(abs(metrics["cuda"][k] - metrics["cpu"][k])
+                for k in metrics["cpu"])
+    log("cli", check="val f32 card vs cpu", images=n, card=metrics["cuda"],
+        cpu=metrics["cpu"], max_abs=worst, tol=1e-4,
+        detections_card=int(dets[0].sum()), detections_cpu=int(dets[1].sum()),
+        images_count_differs=np.nonzero(dets[0] != dets[1])[0].tolist(),
+        flipped=[{"image": i, "kept_on": d, "decision": kind, "gap": g}
+                 for i, d, kind, g in flips])
+    if any(abs(g) > 1e-4 for *_, g in flips) or not worst <= 1e-4:
+        raise AssertionError(f"val f32 card vs cpu: {metrics}, {flips}")
+
+
+def cli_phase(device):
+    """The Quickstart through `python -m yolou_tpu_torch`'s dispatcher on
+    the card at the reference configuration, from PNG files on disk, with
+    cv2 blocked. Returns the launches of each command."""
+    import os
+    import tempfile
+    import torch
+    from yolou_tpu_torch.__main__ import COMMANDS
+    from yolou_tpu_torch.models.yolo import build_yolo
+    from yolou_tpu_torch.native import loader
+    from yolou_tpu_torch.utils.model_io import load_model, save_model
+    t0 = time.perf_counter()
+    lib = loader.build()
+    log("cli", native_library=lib.name,
+        build_seconds=time.perf_counter() - t0)
+    counts, seconds = {}, {}
+    rng = np.random.default_rng(SEED + 21)
+    with cv2_blocked(), tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        arrays = write_dataset(root, rng)
+        log("cli", dataset=CLI_SPLITS, write_seconds=time.perf_counter() - t0)
+        log("cli", **check_codec(root, arrays))
+        yaml = os.path.join(root, "data.yaml")
+
+        res = subprocess.run([sys.executable, "-m", "yolou_tpu_torch",
+                              "--help"], capture_output=True, text=True,
+                             timeout=300)
+        listed = res.stdout.split("commands:")[-1].split()
+        log("cli", check="--help", rc=res.returncode, commands=listed)
+        if res.returncode != 0 or listed != list(COMMANDS):
+            raise AssertionError(f"--help: {res.returncode} {res.stdout}")
+
+        # the starting weights: seeded, stem inflated, calibrated at 160^2
+        init = os.path.join(root, "init.ckpt")
+        m = build_yolo("yolov12", "n", nc=1, ch=4, task="segment",
+                       device="cpu")
+        m.load_state_dict(inflated_state_dict(arrays["train"][0][:2]))
+        save_model(init, m)
+
+        det = os.path.join(root, "det.ckpt")
+        hist, out = run_command(
+            ["train-detector", "--data", yaml, "--model", init, "--imgsz",
+             str(EVAL_IMGSZ), "--batch", str(EVAL_BATCH), "--epochs",
+             str(CLI_EPOCHS), "--val-every", "1", "--run-dir",
+             os.path.join(root, "runs_det"), "--out", det, "--dtype",
+             "bfloat16"], counts, seconds)
+        epoch_s = [float(ln.split("[")[-1].split("s,")[0])
+                   for ln in out.splitlines() if ln.startswith("epoch ")]
+        if not (len(hist["loss"]) == CLI_EPOCHS
+                and np.isfinite(hist["loss"]).all()
+                and all(0 <= v <= 1 for v in hist["map50"])):
+            raise AssertionError(f"train-detector: {hist}")
+
+        maps, _ = run_command(
+            ["generate-objectmaps", "--data_dir", root, "--yolo_dir", det,
+             "--image_size", str(EVAL_IMGSZ), "--batch_size",
+             str(DEC_BATCH), "--bf16"], counts, seconds)
+        if maps != CLI_SPLITS:
+            raise AssertionError(f"generate-objectmaps: {maps}")
+        dec, out = run_command(
+            ["train-decoder", "--model", det, "--data", root, "--imgsz",
+             str(EVAL_IMGSZ), "--batch", str(DEC_BATCH), "--epochs",
+             str(CLI_DEC_EPOCHS), "--bf16", "--run-dir",
+             os.path.join(root, "runs")], counts, seconds)
+        dec_epoch_s = [float(ln.split("[")[-1].split("s train")[0])
+                       for ln in out.splitlines() if ln.startswith("epoch ")]
+        final = os.path.join(root, "runs", "segpp_final.ckpt")
+        if len(dec["train_loss"]) != CLI_DEC_EPOCHS or not os.path.exists(
+                final):
+            raise AssertionError(f"train-decoder: {dec}")
+        ev, _ = run_command(
+            ["evaluate", "--model", final, "--data", root, "--imgsz",
+             str(EVAL_IMGSZ), "--batch", str(EVAL_BATCH), "--bf16"],
+            counts, seconds)
+        if ev["n_images"] != CLI_SPLITS["test"] or not all(
+                0 <= ev[k] <= 1 for k in ("dice", "precision", "recall")):
+            raise AssertionError(f"evaluate: {ev}")
+
+        val_dir = os.path.join(root, "images", "val")
+        results, _ = run_command(
+            ["predict", "--source", val_dir, "--model", det, "--imgsz",
+             str(EVAL_IMGSZ), "--batch", str(EVAL_BATCH), "--bf16"],
+            counts, seconds)
+        lst = os.path.join(root, "retina.txt")
+        with open(lst, "w") as f:
+            f.write("\n".join(os.path.join(val_dir, f"val_{i:04d}.png")
+                              for i in range(CLI_RETINA)) + "\n")
+        retina, _ = run_command(
+            ["predict", "--source", lst, "--model", det, "--imgsz",
+             str(IMGSZ), "--batch", str(CLI_RETINA), "--retina-masks",
+             "--bf16"], counts, seconds, key="predict retina 640")
+        shapes = {r.masks.data.shape[1:] for r in retina if len(r)}
+        if (len(results) != CLI_SPLITS["val"] or len(retina) != CLI_RETINA
+                or shapes - {(EVAL_IMGSZ, EVAL_IMGSZ)}):
+            raise AssertionError(f"predict: {len(results)} results, retina "
+                                 f"mask shapes {shapes}")
+        val, _ = run_command(
+            ["val", "--data", yaml, "--model", det, "--imgsz",
+             str(EVAL_IMGSZ), "--batch", str(EVAL_BATCH), "--rect",
+             "--bf16"], counts, seconds, key="val --rect")
+
+        pt, det2 = os.path.join(root, "det.pt"), os.path.join(root,
+                                                             "det2.ckpt")
+        run_command(["convert", "--reverse", "--out", det, "--pt", pt],
+                    counts, seconds, key="convert --reverse")
+        strict = build_yolo("yolov12", "n", nc=1, ch=4, task="segment",
+                            device=device)
+        strict.load_state_dict(torch.load(pt, weights_only=True),
+                               strict=True)
+        run_command(["convert", "--pt", pt, "--out", det2], counts, seconds)
+        a, b = load_model(det), load_model(det2)
+        x = torch.from_numpy(arrays["val"][0][:EVAL_BATCH]).to(device)
+        x = x.permute(0, 3, 1, 2).float() / 255.0
+        with torch.no_grad():
+            oa, ob = a(x), b(x)
+        same = (torch.equal(oa.preds, ob.preds)
+                and torch.equal(oa.protos, ob.protos)
+                and all(torch.equal(p, q) for p, q in zip(oa.raw, ob.raw)))
+        log("cli", check="convert round trip", forward_bit_identical=same)
+        if not same:
+            raise AssertionError("convert: the round-tripped file differs")
+
+        # the module entry, in a process of its own, cv2 blocked there too
+        block = ("import runpy, sys\n"
+                 "class B:\n"
+                 "    def find_spec(self, n, p=None, t=None):\n"
+                 "        if n.split('.')[0] == 'cv2': raise ImportError(n)\n"
+                 "sys.meta_path.insert(0, B())\n"
+                 "sys.argv = ['yolou_tpu_torch'] + sys.argv[1:]\n"
+                 "runpy.run_module('yolou_tpu_torch', run_name='__main__')\n")
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-c", block, "val", "--data", yaml, "--model",
+             det, "--imgsz", str(EVAL_IMGSZ), "--bf16"],
+            capture_output=True, text=True, timeout=600)
+        seconds["python -m val"] = time.perf_counter() - t0
+        sub = json.loads(res.stdout) if res.returncode == 0 else None
+        log("cli", check="python -m yolou_tpu_torch val", rc=res.returncode,
+            metrics=sub, stderr_tail=res.stderr[-2000:])
+        if sub is None or set(sub) != set(val):
+            raise AssertionError(f"python -m yolou_tpu_torch val: rc "
+                                 f"{res.returncode}")
+
+        # exact launches: C 8 + 8 a step, A 8 and B 1 a batch where they run
+        steps = CLI_EPOCHS * -(-CLI_SPLITS["train"] // EVAL_BATCH)
+        val_batches = CLI_SPLITS["val"] // EVAL_BATCH
+        om_batches = sum(-(-n // DEC_BATCH) for n in CLI_SPLITS.values())
+        test_batches = CLI_SPLITS["test"] // EVAL_BATCH
+        want = {
+            "train-detector": (8 * steps, 8 * steps,
+                               8 * val_batches * CLI_EPOCHS,
+                               val_batches * CLI_EPOCHS),
+            "generate-objectmaps": (0, 0, 8 * om_batches, 0),
+            "train-decoder": (0, 0, 0, 0),
+            "evaluate": (0, 0, 8 * test_batches, test_batches),
+            "predict": (0, 0, 8 * val_batches, val_batches),
+            "predict retina 640": (0, 0, 8, 1),
+            "val --rect": (0, 0, 8 * val_batches, val_batches),
+            "convert --reverse": (0, 0, 0, 0), "convert": (0, 0, 0, 0)}
+        for key, (c, cb, a_, b_) in want.items():
+            n = counts[key]
+            have = (n["band_attention_train"],
+                    n["backward"]["band_attention_train"],
+                    n["band_attention"], n["greedy_nms"])
+            log("cli", command=key, seconds=seconds[key], launches=n)
+            if have != (c, cb, a_, b_) or n["a2c2f"] != 0:
+                raise AssertionError(f"{key}: launches (C, C backward, A, B)"
+                                     f" {have} and a2c2f {n['a2c2f']}, want "
+                                     f"{(c, cb, a_, b_)} and 0")
+
+        cli_val_f32(yaml, det, counts, seconds)
+        evs = {dev: run_command(
+            ["evaluate", "--model", final, "--data", root, "--imgsz",
+             str(EVAL_IMGSZ), "--batch", str(EVAL_BATCH), "--device", dev],
+            counts, seconds, key=f"evaluate f32 {dev}")[0]
+            for dev in ("cuda", "cpu")}
+        worst = max(abs(evs["cuda"][k] - evs["cpu"][k])
+                    for k in ("dice", "precision", "recall"))
+        log("cli", check="evaluate f32 card vs cpu", card=evs["cuda"],
+            cpu=evs["cpu"], max_abs=worst, tol=1e-4)
+        if not worst <= 1e-4:
+            raise AssertionError(f"evaluate f32 card vs cpu: {evs}")
+
+    log("cli", command_seconds=seconds)
+    log("cli", predict_images_per_s=CLI_SPLITS["val"] / seconds["predict"],
+        predict_retina_640_images_per_s=CLI_RETINA
+        / seconds["predict retina 640"],
+        detector_epoch_s=epoch_s, decoder_epoch_train_s=dec_epoch_s)
+    return {"train": counts["train-detector"]["band_attention_train"],
+            "backward": counts["train-detector"]["backward"][
+                "band_attention_train"],
+            **{k: {"band_attention": counts[k]["band_attention"],
+                   "greedy_nms": counts[k]["greedy_nms"]}
+               for k in ("train-detector", "generate-objectmaps",
+                         "evaluate", "predict", "predict retina 640",
+                         "val --rect")}}
+
+
 def _kernel_name(line: str):
     """The band attention or a2c2f kernel a ptxas or SASS line names, with
     its I/O type (and token tile), else None: `..._kernelIf...` is the f32
@@ -1946,6 +2357,7 @@ def main() -> int:
     eval_counts = evaluate(state_dict, device)
     dec = train_decoder_phase(state_dict, device)
     ft = finetune_phase(device)
+    cli = cli_phase(device)
 
     src = "yolou_tpu_torch/csrc/"
     pallas = "yolou_tpu/ops/pallas_attn.py"
@@ -1963,7 +2375,9 @@ def main() -> int:
              "serve": counts["band_attention"],
              "evaluate": eval_counts["band_attention"],
              **{k: v["band_attention"] for k, v in dec["launches"].items()},
-             "validate": ft["validate"]["band_attention"]},
+             "validate": ft["validate"]["band_attention"],
+             **{f"cli {k}": v["band_attention"] for k, v in cli.items()
+                if isinstance(v, dict)}},
          "backward_calls": dec["attention_backward_calls"]},
         {"name": "greedy_nms", "route": "cuda",
          "source": src + "greedy_nms.cu",
@@ -1973,15 +2387,19 @@ def main() -> int:
              "serve": counts["greedy_nms"],
              "evaluate": eval_counts["greedy_nms"],
              **{k: v["greedy_nms"] for k, v in dec["launches"].items()},
-             "validate": ft["validate"]["greedy_nms"]}},
+             "validate": ft["validate"]["greedy_nms"],
+             **{f"cli {k}": v["greedy_nms"] for k, v in cli.items()
+                if isinstance(v, dict)}}},
         {"name": "band_attention_train", "route": "cuda",
          "source": src + "band_attention.cu", "replaces": pallas + ":243",
          "launches": train_launches,
          "backward_calls": train_backwards,
          "launches_by_path": {"train": train_launches,
-                              "finetune": ft["train"]},
+                              "finetune": ft["train"],
+                              "cli train-detector": cli["train"]},
          "backward_calls_by_path": {"train": train_backwards,
-                                    "finetune": ft["backward"]},
+                                    "finetune": ft["backward"],
+                                    "cli train-detector": cli["backward"]},
          **dict({k: l6[k] for k in keys}, max_abs_err=train_attn_err)},
         {"name": "band_attention_single", "route": "cuda",
          "source": src + "band_attention.cu", "replaces": pallas + ":120",

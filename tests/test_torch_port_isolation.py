@@ -7,6 +7,7 @@ without nvcc or triton, run their plain versions on CPU tensors without
 counting a launch, and `chip_smoke.py` must fail without a GPU.
 """
 
+import json
 import os
 import pathlib
 import re
@@ -24,6 +25,7 @@ from yolou_tpu_torch.kernels.attention import (area_attention,
                                                area_attention_fused,
                                                area_attention_qkv_fused)
 from yolou_tpu_torch.kernels.nms import suppress_greedy
+from yolou_tpu_torch.native import loader
 
 from .torch_threads import one_torch_thread  # noqa: F401
 
@@ -160,6 +162,32 @@ def test_kernel_build_is_keyed_by_sources():
     assert path == build.library_path()
 
 
+def test_native_library_build_is_keyed_by_its_source(tmp_path,
+                                                     monkeypatch):
+    path = loader.library_path()
+    assert path.parent == PKG / "_build"
+    assert re.fullmatch(r"libyolou_io_[0-9a-f]{16}\.so", path.name)
+    assert path == loader.library_path()
+    edited = tmp_path / "yolou_io.cc"
+    edited.write_text(loader.SOURCE.read_text() + "\n// edited\n")
+    monkeypatch.setattr(loader, "SOURCE", edited)
+    assert loader.library_path() != path
+
+
+def test_native_build_failure_raises_with_the_compiler_output(
+        tmp_path, monkeypatch):
+    broken = tmp_path / "yolou_io.cc"
+    broken.write_text("this is not C++\n")
+    monkeypatch.setattr(loader, "SOURCE", broken)
+    monkeypatch.setattr(loader, "BUILD_DIR", tmp_path / "_build")
+    try:
+        loader.build()
+    except RuntimeError as e:
+        assert "g++ failed" in str(e) and "yolou_io.cc" in str(e), e
+    else:
+        raise AssertionError("a broken source built")
+
+
 def test_chip_smoke_fails_without_a_gpu(tmp_path):
     res = _run([sys.executable, "chip_smoke.py"], REPO, timeout=300)
     assert res.returncode != 0
@@ -206,7 +234,8 @@ def test_validator_and_model_files_work_in_memory_without_msgpack_or_cv2(
     """With `msgpack` and `cv2` blocked: `validate_detector` over a dataset
     object held in memory (square and rect), `save_model` / `load_model` of
     a small model with the same forward after the crossing, and
-    `validate_detector` over a directory refusing by name."""
+    `validate_detector` over a directory of PNGs written and read by the
+    port's own codec (no cv2 needed since the port reads PNG itself)."""
     blocked = FORBIDDEN + ("msgpack", "cv2")
     code = _BLOCK.format(blocked=blocked) + f"""
 import numpy as np, torch
@@ -244,14 +273,55 @@ back = load_model(path, device="cpu")
 x = torch.rand(1, 4, 32, 32)
 with torch.no_grad():
     assert torch.equal(model(x).preds, back(x).preds)
-try:
-    validate_detector(model, None, {str(tmp_path)!r})
-except ImportError as e:
-    assert "cv2" in str(e), e
-else:
-    raise AssertionError("a directory was validated without cv2")
+import os
+from yolou_tpu_torch.native.image import imwrite
+img_dir = os.path.join({str(tmp_path)!r}, "images", "val")
+lbl_dir = os.path.join({str(tmp_path)!r}, "labels", "val")
+os.makedirs(img_dir)
+os.makedirs(lbl_dir)
+for i, img in enumerate(Memory().imgs):
+    imwrite(os.path.join(img_dir, f"{{i}}.png"), img)
+    with open(os.path.join(lbl_dir, f"{{i}}.txt"), "w") as f:
+        f.write("0 0.1 0.25 0.75 0.25 0.75 0.6 0.1 0.6\\n")
+m = validate_detector(model, None, img_dir, imgsz=32, batch_size=2)
+assert set(m) == {{"precision", "recall", "map50", "map"}}, m
 print("ok")
 """
     res = _run(code, REPO)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def test_command_line_modules_import_with_jax_and_cv2_blocked():
+    """The native I/O, every command and the dispatcher import with JAX,
+    flax, the JAX package and `cv2` blocked."""
+    blocked = FORBIDDEN + ("cv2",)
+    mods = ["yolou_tpu_torch.__main__", "yolou_tpu_torch.native.loader",
+            "yolou_tpu_torch.native.image"] + [
+        f"yolou_tpu_torch.cli.{p.stem}" for p in sorted(
+            (PKG / "cli").glob("*.py")) if p.stem != "__init__"]
+    assert len(mods) == 3 + 9
+    code = _BLOCK.format(blocked=blocked) + (
+        "import importlib\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "print('ok')\n")
+    res = _run(code, REPO)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_module_val_runs_with_cv2_blocked(tmp_path):
+    """`python -m yolou_tpu_torch val <synthetic dir> --device cpu` with
+    cv2 blocked: the PNGs are read by the port's own codec; the metrics
+    are printed (fresh seeded weights: no model file)."""
+    from yolou_tpu_torch.data import synthetic
+    synthetic.generate(str(tmp_path), {"val": 3}, size=32, seed=2)
+    code = _BLOCK.format(blocked=FORBIDDEN + ("cv2",)) + (
+        "import runpy\n"
+        f"sys.argv = ['yolou_tpu_torch', 'val', '--data', {str(tmp_path)!r},"
+        " '--imgsz', '32', '--model', 'absent.ckpt', '--device', 'cpu']\n"
+        "runpy.run_module('yolou_tpu_torch', run_name='__main__')\n")
+    res = _run(code, REPO)
+    assert res.returncode == 0, res.stderr
+    metrics = json.loads(res.stdout)
+    assert set(metrics) == {"precision", "recall", "map50", "map"}

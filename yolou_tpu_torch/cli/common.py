@@ -1,0 +1,83 @@
+"""Shared command line helpers: the device and dtype flags, and detector
+loading or creation.
+
+Counterpart of the JAX package's `cli/common.py`. Every command takes
+`--device` (default `cuda`; the tests pass `cpu`); `--bf16` / `--dtype
+bfloat16` mean `torch.bfloat16` compute. The JAX package's persistent XLA
+compile cache has no counterpart here.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import Dict, Optional
+
+import torch
+
+from ..models.segpp import YOLOSegPP, build_segpp
+from ..models.yolo import YOLOModel, build_yolo
+from ..utils.model_io import load_model
+
+
+def add_device_argument(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (default cuda; cpu to ask "
+                        "for the CPU)")
+
+
+def device_of(name: str) -> torch.device:
+    """The device a command runs on; a CUDA device where there is none
+    raises, so that nothing runs on the CPU unasked."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: no CUDA device; pass "
+                           f"--device cpu to run on the CPU")
+    return device
+
+
+def check_data_parallel(n: int) -> None:
+    if n > 1:
+        raise NotImplementedError(
+            f"--data-parallel {n}: data-parallel training is not ported yet "
+            f"(ROADMAP Queue 1 #8); run on one device")
+
+
+def get_or_init_detector(model_path: Optional[str], *, variant: str = "n",
+                         nc: int = 1, ch: int = 4, task: str = "detect",
+                         seed: int = 0,
+                         dtype: torch.dtype = torch.float32,
+                         device: torch.device | str = "cuda") -> YOLOModel:
+    """The detector a `.ckpt` model file holds (its own architecture,
+    task and weights), or yolov12 with seeded fresh weights when the file
+    does not exist."""
+    if model_path and os.path.exists(model_path):
+        return load_model(model_path, dtype=dtype, device=device)
+    return build_yolo("yolov12", variant, nc=nc, ch=ch, task=task,
+                      dtype=dtype, device=device, seed=seed)
+
+
+def adapt_segment_head_to_detect(state_dict: Dict[str, torch.Tensor],
+                                 head: int) -> Dict[str, torch.Tensor]:
+    """A segment-task detector's state_dict as a detect-task graph takes
+    it: the head's mask branches (`model.{head}.cv4`, `.proto`) dropped."""
+    drop = (f"model.{head}.cv4.", f"model.{head}.proto.")
+    return {k: v for k, v in state_dict.items() if not k.startswith(drop)}
+
+
+def build_segpp_from_detector(detector: YOLOModel, *, variant: str = "n",
+                              nc: int = 1, ch: int = 4,
+                              use_logits: bool = True, seed: int = 0,
+                              dtype: torch.dtype = torch.float32,
+                              device: torch.device | str = "cuda"
+                              ) -> YOLOSegPP:
+    """YOLO-Seg++ with the detector's weights in its YOLO graph and a
+    seeded fresh decoder; a segment-task detector works too."""
+    model = build_segpp("yolov12", variant, nc, ch, "detect",
+                        use_logits=use_logits, dtype=dtype, device=device,
+                        seed=seed)
+    head = len(model.yolo.model) - 1
+    model.yolo.load_state_dict(
+        adapt_segment_head_to_detect(detector.state_dict(), head),
+        strict=True)
+    return model

@@ -1,15 +1,14 @@
 """Decoder-stage dataset: (4-ch image, mask, objectmap) triplets.
 
 The port's own copy of `yolou_tpu/data/decoder_dataset.py` (numpy only, so
-that this package imports nothing of the JAX package): cv2 UNCHANGED
-4-channel decode, bilinear image / nearest mask resize, /255, objectmap
+that this package imports nothing of the JAX package): UNCHANGED 4-channel
+decode, bilinear image / nearest mask resize (`native/image.py`: cv2's
+results, bit for bit, without cv2), /255, objectmap
 z-score-then-sigmoid normalization (the training-side conditioning; the
 fused evaluation pass uses a raw sigmoid instead).
 
 Batches come out as stacked NHWC numpy arrays ready for upload; an optional
-background prefetch thread overlaps decode with device compute. `cv2` is
-imported inside the method that decodes, so the module imports, and batches
-held in memory can be evaluated, where `cv2` is absent.
+background prefetch thread overlaps decode with device compute.
 """
 
 from __future__ import annotations
@@ -20,6 +19,9 @@ import threading
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
+
+from ..native.image import (IMREAD_GRAYSCALE, IMREAD_UNCHANGED, imread,
+                            resize_linear, resize_nearest)
 
 
 def _sigmoid(x):
@@ -81,24 +83,23 @@ class DecoderDataset:
     def item_u8(self, i: int):
         """(img_u8 (S,S,C), mask_u8 (S,S,1), om_f32 (20,20,1)|None), cached.
 
-        cv2.resize runs on the uint8 arrays (as in the reference, which
+        The resize runs on the uint8 arrays (as in the reference, which
         resizes BEFORE the /255), so the uint8 cache and an on-device /255
         reproduce __getitem__ bit-exactly."""
         if self.cache_images and i in self._cache:
             return self._cache[i]
-        import cv2
         b = self.basenames[i]
-        img = cv2.imread(os.path.join(self.image_dir, b + ".png"),
-                         cv2.IMREAD_UNCHANGED)
+        img = imread(os.path.join(self.image_dir, b + ".png"),
+                     IMREAD_UNCHANGED)
         if img.ndim == 2:
             img = img[..., None]
-        mask = cv2.imread(os.path.join(self.mask_dir, b + ".png"),
-                          cv2.IMREAD_GRAYSCALE)
+        mask = imread(os.path.join(self.mask_dir, b + ".png"),
+                      IMREAD_GRAYSCALE)
         s = self.image_size
-        img = cv2.resize(img, (s, s), interpolation=cv2.INTER_LINEAR)
+        img = resize_linear(img, (s, s))
         if img.ndim == 2:
             img = img[..., None]
-        mask = cv2.resize(mask, (s, s), interpolation=cv2.INTER_NEAREST)
+        mask = resize_nearest(mask, (s, s))
         om = None
         if self.objectmap_dir is not None:
             om = condition_objectmap(

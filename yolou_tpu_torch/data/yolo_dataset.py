@@ -10,11 +10,10 @@ The validator's half: aspect-preserving rect items (`item_rect`), boxes from
 instance masks, the padded collate and the rect grouping (`rect_groups`,
 `rect_batch_shape`), and the `batches` iterator over them.
 
-`cv2` decodes, resizes and rasterises; it is imported inside the methods that
-do so, so that the trainer and the validator can be imported, and driven
-over in-memory datasets, where `cv2` is absent: `collate_padded` resizes
-its masks in numpy. Not carried over: the single-buffer packed collate (a
-workaround for a slow host link).
+Files are decoded, resized and rasterised by `native/image.py`, which gives
+what `cv2.imread`, `cv2.resize` and `cv2.fillPoly` give the JAX package, bit
+for bit, without cv2: a PNG dataset needs no cv2. Not carried over: the
+single-buffer packed collate (a workaround for a slow host link).
 """
 
 from __future__ import annotations
@@ -24,6 +23,9 @@ import os
 from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
+
+from ..native.image import (IMREAD_GRAYSCALE, IMREAD_UNCHANGED, fill_poly,
+                            imread, resize_linear, resize_nearest)
 
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff", ".webp")
 
@@ -124,11 +126,8 @@ class YoloSegDataset:
                 return np.load(npy)
             except Exception:  # corrupt cache: re-decode
                 os.remove(npy)
-        import cv2
-        flag = cv2.IMREAD_UNCHANGED if self.channels != 1 else cv2.IMREAD_GRAYSCALE
-        img = cv2.imread(self.files[i], flag)
-        if img is None:
-            raise IOError(self.files[i])
+        flag = IMREAD_UNCHANGED if self.channels != 1 else IMREAD_GRAYSCALE
+        img = imread(self.files[i], flag)
         if img.ndim == 2:
             img = img[..., None]
         if img.shape[2] != self.channels:
@@ -156,9 +155,7 @@ class YoloSegDataset:
             return self._img_cache[i]
         img = self.load_image_raw(i)
         if img.shape[:2] != (self.imgsz, self.imgsz):
-            import cv2
-            img = cv2.resize(img, (self.imgsz, self.imgsz),
-                             interpolation=cv2.INTER_LINEAR)
+            img = resize_linear(img, (self.imgsz, self.imgsz))
             if img.ndim == 2:
                 img = img[..., None]
         if self.cache_images:
@@ -169,7 +166,6 @@ class YoloSegDataset:
         """Per-instance binary masks at imgsz: (n, S, S) uint8 + cls (n,)."""
         if self.cache_images and i in self._mask_cache:
             return self._mask_cache[i]
-        import cv2
         s = self.imgsz
         items = self.labels[i]
         masks = np.zeros((len(items), s, s), np.uint8)
@@ -177,7 +173,7 @@ class YoloSegDataset:
         for j, (c, poly) in enumerate(items):
             cls[j] = c
             pts = np.round(poly * s).astype(np.int32)
-            cv2.fillPoly(masks[j], [pts], 1)
+            fill_poly(masks[j], [pts], 1)
         if self.cache_images:
             self._mask_cache[i] = (masks, cls)
         return masks, cls
@@ -220,13 +216,12 @@ class YoloSegDataset:
         side resized, gray-114 padding, centred); instance masks rasterised
         in the letterboxed frame, so `boxes_from_masks` lands in out_hw
         pixels."""
-        import cv2
         img0 = self.load_image_raw(i)
         h0, w0 = img0.shape[:2]
         oh, ow = out_hw
         gain = min(oh / h0, ow / w0)
         nh, nw = max(1, round(h0 * gain)), max(1, round(w0 * gain))
-        resized = cv2.resize(img0, (nw, nh), interpolation=cv2.INTER_LINEAR)
+        resized = resize_linear(img0, (nw, nh))
         if resized.ndim == 2:
             resized = resized[..., None]
         canvas = np.full((oh, ow, img0.shape[2]), 114, img0.dtype)
@@ -239,7 +234,7 @@ class YoloSegDataset:
             cls[j] = c
             pts = np.round(poly * np.array([w0, h0], np.float32) * gain
                            + np.array([left, top], np.float32)).astype(np.int32)
-            cv2.fillPoly(masks[j], [pts], 1)
+            fill_poly(masks[j], [pts], 1)
         return {"img": canvas, "masks": masks, "cls": cls,
                 "path": self.files[i]}
 
@@ -257,17 +252,6 @@ def boxes_from_masks(masks: np.ndarray) -> np.ndarray:
         out[i] = [(x1 + x2) / 2 / w, (y1 + y2) / 2 / h,
                   (x2 - x1) / w, (y2 - y1) / h]
     return out
-
-
-def resize_nearest(m: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
-    """`cv2.resize(m, (w, h), interpolation=cv2.INTER_NEAREST)` for a 2-D
-    array: source index floor(dst * (1 / (dst_size / src_size))), clamped."""
-    (h, w), (oh, ow) = m.shape, out_hw
-    ys = np.minimum(np.floor(np.arange(oh) * (1.0 / (oh / h))).astype(int),
-                    h - 1)
-    xs = np.minimum(np.floor(np.arange(ow) * (1.0 / (ow / w))).astype(int),
-                    w - 1)
-    return m[ys[:, None], xs[None, :]]
 
 
 def collate_padded(items: List[Dict[str, np.ndarray]], max_inst: int,

@@ -5,9 +5,8 @@ stride-8 class-logit map of the detector (the last channel of the P3 head
 output, no sigmoid), saved per image as `<name>_20.npy`: the decoder
 trainer's conditioning input. `objectmaps_from_images` is the core over a
 uint8 batch already in memory; `generate_objectmaps` reads each split's PNGs
-with cv2 and saves what it returns. A heatmap is the Gaussian splat of the
-predicted boxes, saved as a PNG. cv2 is imported only where files are read
-or written.
+(`native/image.py`, no cv2) and saves what it returns. A heatmap is the
+Gaussian splat of the predicted boxes, saved as a gray PNG.
 """
 
 from __future__ import annotations
@@ -18,6 +17,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..native.image import (IMREAD_GRAYSCALE, IMREAD_UNCHANGED, imread,
+                            imwrite)
 from ..ops.gaussian import splat_heatmaps
 from .predictor import Predictor
 
@@ -33,11 +34,10 @@ def _read_images(chunk: Sequence[Tuple[str, str]],
                  gray: bool = False) -> List[np.ndarray]:
     """HWC uint8 images as stored (grayscale with `gray`, as the JAX
     predictor reads files for a one-channel model)."""
-    import cv2
-    flag = cv2.IMREAD_GRAYSCALE if gray else cv2.IMREAD_UNCHANGED
+    flag = IMREAD_GRAYSCALE if gray else IMREAD_UNCHANGED
     imgs = []
     for _, path in chunk:
-        img = cv2.imread(path, flag)
+        img = imread(path, flag)
         imgs.append(img[..., None] if img.ndim == 2 else img)
     return imgs
 
@@ -77,8 +77,6 @@ def generate_heatmaps(predictor: Predictor, data_root: str,
                       size: int = 160, batch_size: int = 64) -> Dict[str, int]:
     """Write `heatmap/<split>/<name>.png`: the Gaussian splat of each
     image's predicted boxes, x255 clipped to uint8."""
-    import cv2
-
     out_root = out_root or data_root
     counts = {}
     for split in splits:
@@ -103,7 +101,7 @@ def generate_heatmaps(predictor: Predictor, data_root: str,
                   for a in (bxywh, conf, valid)), size=size).cpu().numpy()
             for (name, _), canvas in zip(chunk, canvases):
                 png = np.clip(canvas * 255.0, 0, 255).astype(np.uint8)
-                cv2.imwrite(os.path.join(out_dir, f"{name}.png"), png)
+                imwrite(os.path.join(out_dir, f"{name}.png"), png)
         counts[split] = len(entries)
     return counts
 

@@ -107,15 +107,10 @@ def validate_detector(model: YOLOModel,
 
     `variables` is a state_dict loaded into `model` first (strictly), or None
     to use its weights as they are; the weights stay loaded. `data` is an
-    image directory (decoded with `cv2`) or a dataset object with `__len__`,
+    image directory (read by `YoloSegDataset`) or a dataset object with `__len__`,
     `item`, `orig_shape` and `item_rect`, as `YoloSegDataset` has. The model
     runs in eval mode on its own device and gets its mode back on return."""
     if isinstance(data, str):
-        try:
-            import cv2  # noqa: F401
-        except ImportError as e:
-            raise ImportError("validate_detector over an image directory "
-                              "needs cv2; pass a dataset object") from e
         data = YoloSegDataset(data, imgsz=imgsz, channels=channels)
     if variables is not None:
         model.load_state_dict(variables, strict=True)

@@ -2,26 +2,24 @@
 
 `nvcc` compiles every source in `csrc/` for `sm_90a` (Hopper) on first use,
 one process per source and all at once, and links the objects into one
-shared library with a plain C interface; `ctypes` loads it. The library
-lands in `_build/` next to this package (listed in .gitignore) under a name
-that hashes the sources, headers and flags, so an edited source is rebuilt
-and a finished build is reused. Nothing here runs at import time: the CPU tests
-import every module on machines without nvcc.
+shared library with a plain C interface; `ctypes` loads it. The library is
+kept in `buildcache.py`'s cache, keyed by the sources, headers and flags.
+Nothing here runs at import time: the CPU tests import every module on
+machines without nvcc.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
 import subprocess
-import tempfile
 from pathlib import Path
 from typing import Optional
 
+from .. import buildcache
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -40,17 +38,9 @@ def _sources():
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources() + sorted(CSRC.glob("*.cuh")):
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"libyolou_kernels_{h.hexdigest()[:16]}.so"
-
-
-def _check_nvcc(cmd, returncode: int, text: str) -> None:
-    if returncode != 0:
-        raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}\n"
-                           f"{text}")
+    return buildcache.library_path(
+        "libyolou_kernels", NVCC_FLAGS,
+        _sources() + sorted(CSRC.glob("*.cuh")))
 
 
 def build(verbose: bool = False) -> Path:
@@ -58,28 +48,26 @@ def build(verbose: bool = False) -> Path:
     source, all started together, then one link. With `verbose`, prints
     ptxas' register and spill report for each kernel. Raises with the
     compiler's output if nvcc fails."""
-    out = library_path()
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    nvcc, sources = _nvcc(), _sources()
-    flags = [*NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else [])]
-    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
-        objects = [os.path.join(tmp, f"{src.stem}.o") for src in sources]
+    logs = []
+
+    def compile(tmp: Path) -> Path:
+        nvcc, sources = _nvcc(), _sources()
+        flags = [*NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else [])]
+        objects = [str(tmp / f"{src.stem}.o") for src in sources]
         cmds = [[nvcc, *flags, "-c", "-o", obj, str(src)]
                 for obj, src in zip(objects, sources)]
         procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
                  for cmd in cmds]
-        logs = [proc.communicate()[0] for proc in procs]   # waits for each
+        logs.extend(proc.communicate()[0] for proc in procs)  # waits for each
         for cmd, proc, text in zip(cmds, procs, logs):
-            _check_nvcc(cmd, proc.returncode, text)
-        lib = os.path.join(tmp, "lib.so")
-        link = [nvcc, "-shared", "-o", lib, *objects]
-        res = subprocess.run(link, capture_output=True, text=True)
-        _check_nvcc(link, res.returncode, res.stdout + res.stderr)
-        os.replace(lib, out)   # atomic: a concurrent build sees all or none
-    if verbose:
+            buildcache.check("nvcc", cmd, proc.returncode, text)
+        lib = tmp / "lib.so"
+        buildcache.run("nvcc", [nvcc, "-shared", "-o", str(lib), *objects])
+        return lib
+
+    out = buildcache.build_once(library_path(), compile)
+    if verbose and logs:
         print("".join(logs))
     return out
 

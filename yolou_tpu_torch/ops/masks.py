@@ -48,6 +48,26 @@ def process_mask(protos: torch.Tensor, coefs: torch.Tensor,
     return (m > threshold).float()
 
 
+def process_mask_native(protos: torch.Tensor, coefs: torch.Tensor,
+                        boxes: torch.Tensor, orig_hw: Tuple[int, int],
+                        input_hw: Tuple[int, int],
+                        threshold: float = 0.5) -> torch.Tensor:
+    """Retina masks: sigmoid at proto resolution, the letterbox padding cut
+    (its proto-resolution size rounded), a linear resize to `orig_hw`, then
+    the crop by `boxes` (xyxy, already in original-image pixels) and the
+    threshold. Returns float {0, 1} (..., N, oh, ow)."""
+    hm, wm = protos.shape[-3:-1]
+    oh, ow = orig_hw
+    m = torch.sigmoid(proto_decode(coefs, protos))
+    gain = min(input_hw[0] / oh, input_hw[1] / ow)
+    ph = (input_hw[0] - oh * gain) / 2 * hm / input_hw[0]
+    pw = (input_hw[1] - ow * gain) / 2 * wm / input_hw[1]
+    top, left = int(round(ph)), int(round(pw))
+    m = m[..., top:hm - top, left:wm - left]
+    m = crop_mask(resize_linear(m, (oh, ow)), boxes)
+    return (m > threshold).float()
+
+
 def scale_masks(masks: torch.Tensor, to_hw: Tuple[int, int]) -> torch.Tensor:
     """Linear resize of (..., H, W) masks to to_hw (half-pixel centres)."""
     return resize_linear(masks, to_hw)
