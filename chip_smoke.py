@@ -105,6 +105,26 @@ Phases, one or more output lines each:
                card against `--device cpu`; each command's wall seconds,
                host decode and resize rates, predict images/s, the epochs'
                seconds.
+ 12. export  - `export` of the cli phase's seeded, calibrated init.ckpt at
+               640^2, batch 8, in bf16 and in f32 through the dispatcher:
+               no kernel launch while tracing, 8 kernel A and 1 kernel B
+               operator nodes in each program's graph; each program run as
+               an ExportedModel on 8 seeded images, exactly 8 A + 1 B
+               launches a call, beside the live Predictor.infer (f32: boxes
+               within 1e-3, scores within 1e-5, `valid` equal; bf16: equal
+               detection counts but for near-ties); the bf16 call against
+               infer (CUDA events and device ms, 20 calls each, in turns);
+               then `--kind segpp` of the cli phase's YOLO-Seg++ at 160^2,
+               batch 16, bf16: the mask against the live model's, pixels
+               differing only within 1e-2 of 0.5.
+ 13. profile - `profile --batch 8 --imgsz 640` (bf16, every prefix, device
+               ms from torch.profiler): no negative row, the total within
+               15 % of one whole forward's device ms; the costliest rows
+               and where layers 6 and 8 fall; then `profile --attn`.
+ 14. visualize-logits - one PNG of the cli phase with its trained detector,
+               f32, on the card and with `--device cpu`: probabilities
+               within 1e-5, the printed statistics equal, 8 kernel A
+               launches on the card and none on the CPU.
 Then a JSON line of kernel results (each kernel's launches on its path, error,
 device and per-call times, and the least time the card could take), the
 nvidia-smi line again,
@@ -119,6 +139,7 @@ import io
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -148,10 +169,9 @@ def log(phase: str, **kv) -> None:
 
 
 def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
+    """The card's name and power limit, as `nvidia-smi` gives them."""
+    from yolou_tpu_torch.tools.profile_layers import card_name_and_power_limit
+    return card_name_and_power_limit()
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -1999,12 +2019,13 @@ def cli_val_f32(yaml: str, ckpt: str, counts, seconds) -> None:
         raise AssertionError(f"val f32 card vs cpu: {metrics}, {flips}")
 
 
-def cli_phase(device):
+def cli_phase(device, root: str):
     """The Quickstart through `python -m yolou_tpu_torch`'s dispatcher on
-    the card at the reference configuration, from PNG files on disk, with
-    cv2 blocked. Returns the launches of each command."""
+    the card at the reference configuration, from PNG files written under
+    `root`, with cv2 blocked. Leaves its files there (init.ckpt, det.ckpt,
+    runs/segpp_final.ckpt, the splits' PNGs) for the phases after it.
+    Returns the launches of each command."""
     import os
-    import tempfile
     import torch
     from yolou_tpu_torch.__main__ import COMMANDS
     from yolou_tpu_torch.models.yolo import build_yolo
@@ -2016,7 +2037,7 @@ def cli_phase(device):
         build_seconds=time.perf_counter() - t0)
     counts, seconds = {}, {}
     rng = np.random.default_rng(SEED + 21)
-    with cv2_blocked(), tempfile.TemporaryDirectory() as root:
+    with cv2_blocked():
         t0 = time.perf_counter()
         arrays = write_dataset(root, rng)
         log("cli", dataset=CLI_SPLITS, write_seconds=time.perf_counter() - t0)
@@ -2197,6 +2218,269 @@ def cli_phase(device):
                          "val --rect")}}
 
 
+# ------------------------------------- export, profile, visualize-logits
+
+EXPORT_CALLS = 20      # timed calls of the exported program and of infer
+EXPORT_OPS = {"band_attention_qkv": 8, "greedy_nms": 1}
+SEG_TIE = 1e-2         # |sigmoid - 0.5| under which mask pixels may differ
+
+
+def graph_kernel_ops(program) -> dict:
+    """The kernel operators (`yolou::*`) of an ExportedProgram's graph and
+    how often each is called."""
+    ops = {}
+    for node in program.graph.nodes:
+        name = str(node.target)
+        if node.op == "call_function" and name.startswith("yolou."):
+            key = name.split(".")[1]
+            ops[key] = ops.get(key, 0) + 1
+    return ops
+
+
+def counted(fn):
+    """(fn(), the kernels' launches during it), counters set to 0 just
+    before the call and read just after it."""
+    import torch
+    from yolou_tpu_torch import kernels
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, kernels.launch_counts()
+
+
+def forward_launches(counts: dict) -> dict:
+    """`run_command`'s counts of a command without its backward calls."""
+    return {k: v for k, v in counts.items() if k != "backward"}
+
+
+def check_launches(what: str, counts: dict, a: int, b: int) -> None:
+    """Exactly `a` launches of kernel A and `b` of kernel B, none other."""
+    want = {"band_attention": a, "greedy_nms": b, "band_attention_train": 0,
+            "band_attention_single": 0, "a2c2f": 0}
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, want {want}")
+
+
+def detection_rows(boxes, conf, cls, valid) -> np.ndarray:
+    """(B, max_det, 7) [box, conf, cls, valid] rows, as the validator's."""
+    import torch
+    return torch.cat([boxes, conf[..., None], cls[..., None],
+                      valid[..., None].to(boxes.dtype)], -1).cpu().numpy()
+
+
+def export_phase(device, root: str) -> dict:
+    """`export` of the cli phase's seeded, calibrated init.ckpt at 640^2,
+    batch 8, in bf16 and in f32 (no launch while tracing; 8 kernel A and 1
+    kernel B operator nodes in the graph), each run as an ExportedModel on
+    8 seeded images (exactly 8 A + 1 B launches a call) beside the live
+    `Predictor.infer`: f32 boxes within 1e-3, scores within 1e-5, `valid`
+    equal; bf16 the same detection counts but for near-ties
+    (`flipped_detections`); the bf16 call timed against infer. Then
+    `--kind segpp` of runs/segpp_final.ckpt at 160^2, batch 16, bf16: the
+    mask against the live YOLOSegPP's sigmoid thresholded at 0.5 on 16 test
+    PNGs. Returns the launches of one call of each program."""
+    import os
+    import torch
+    from yolou_tpu_torch.engine.exporter import ExportedModel
+    from yolou_tpu_torch.engine.predictor import Predictor
+    from yolou_tpu_torch.native.image import imread
+    from yolou_tpu_torch.utils.model_io import load_model
+    f32_exact(torch)
+    counts, seconds, launches = {}, {}, {}
+    init = os.path.join(root, "init.ckpt")
+    imgs = torch.from_numpy(make_images(np.random.default_rng(SEED + 31),
+                                        BATCH, IMGSZ)).to(device)
+    programs = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        key = f"export {name}"
+        out_dir = os.path.join(root, f"export_{name}")
+        meta, _ = run_command(
+            ["export", "--model", init, "--out", out_dir, "--imgsz",
+             str(IMGSZ), "--batch", str(BATCH)]
+            + (["--bf16"] if name == "bf16" else []), counts, seconds, key)
+        t0 = time.perf_counter()
+        ex = ExportedModel(out_dir)
+        load_s = time.perf_counter() - t0
+        ops = graph_kernel_ops(ex.program)
+        sizes = {f: os.path.getsize(os.path.join(out_dir, f))
+                 for f in sorted(os.listdir(out_dir))}
+        log("export", check=key, seconds=seconds[key], load_seconds=load_s,
+            graph_ops=ops, files=sizes, platforms=meta["platforms"],
+            launches_while_tracing=counts[key])
+        if any(forward_launches(counts[key]).values()):
+            raise AssertionError(f"{key}: kernels launched while tracing")
+        if ops != EXPORT_OPS or meta["platforms"] != [device.type]:
+            raise AssertionError(f"{key}: graph operators {ops}, platforms "
+                                 f"{meta['platforms']}")
+        live = Predictor(load_model(init, dtype=dtype, device=device),
+                         imgsz=IMGSZ, batch_size=BATCH)
+        got, n = counted(lambda: ex(imgs))
+        check_launches(f"{key} call", n, 8, 1)
+        launches[name] = n
+        with torch.no_grad():
+            dets, out = live.infer(imgs)
+        want = (dets.boxes, dets.conf, dets.cls, dets.valid, dets.extra,
+                out.protos.permute(0, 2, 3, 1))
+        errs = {k: (g.float() - w.float()).abs().max().item()
+                for k, g, w in zip(("boxes", "conf", "cls", "valid",
+                                    "mask_coefs", "protos"), got, want)}
+        counts_got = got[3].sum(1).tolist()
+        counts_want = want[3].sum(1).tolist()
+        flips = flipped_detections(detection_rows(*got[:4]),
+                                   detection_rows(*want[:4]),
+                                   conf_thres=0.25)
+        log("export", check=f"{key} vs live Predictor.infer", images=BATCH,
+            max_abs=errs, detections_exported=counts_got,
+            detections_live=counts_want,
+            flipped=[{"image": i, "kept_on": "exported" if d == "card"
+                      else "live", "decision": kind, "gap": g}
+                     for i, d, kind, g in flips])
+        if sum(counts_want) < 1:
+            raise AssertionError(f"{key}: no detection to compare")
+        if name == "f32" and not (errs["boxes"] <= 1e-3 and errs["conf"] <= 1e-5
+                                  and torch.equal(got[3], want[3])):
+            raise AssertionError(f"{key}: exported vs live {errs}")
+        if name == "bf16" and any(abs(g) > 1e-4 for *_, g in flips):
+            raise AssertionError(f"{key}: detections differ {flips}")
+        programs[name] = (ex, live)
+
+    ex, live = programs["bf16"]
+    times = {"live": [], "exported": []}
+    with torch.no_grad():
+        for which in ("live", "exported", "exported", "live"):
+            fn = ((lambda: live.infer(imgs)) if which == "live"
+                  else (lambda: ex(imgs)))
+            times[which].append(kernel_times(fn, EXPORT_CALLS))
+    log("export", check=f"bf16 call, batch {BATCH}, {IMGSZ}^2",
+        calls=EXPORT_CALLS,
+        exported_event_ms=[t[1] for t in times["exported"]],
+        live_infer_event_ms=[t[1] for t in times["live"]],
+        exported_device_ms=[t[0] for t in times["exported"]],
+        live_infer_device_ms=[t[0] for t in times["live"]],
+        ratio_event=float(np.mean([t[1] for t in times["exported"]])
+                          / np.mean([t[1] for t in times["live"]])))
+
+    final = os.path.join(root, "runs", "segpp_final.ckpt")
+    seg_dir = os.path.join(root, "export_segpp")
+    meta, _ = run_command(
+        ["export", "--kind", "segpp", "--model", final, "--out", seg_dir,
+         "--imgsz", str(EVAL_IMGSZ), "--batch", str(EVAL_BATCH), "--bf16"],
+        counts, seconds, key="export segpp")
+    ex = ExportedModel(seg_dir)
+    ops = graph_kernel_ops(ex.program)
+    test_dir = os.path.join(root, "images", "test")
+    x = torch.from_numpy(np.stack([
+        imread(os.path.join(test_dir, f))
+        for f in sorted(os.listdir(test_dir))[:EVAL_BATCH]])).to(device)
+    (mask, _, _, valid), n = counted(lambda: ex(x))
+    check_launches("export segpp call", n, 8, 1)
+    launches["segpp"] = n
+    model = load_model(final, dtype=torch.bfloat16, device=device)
+    with torch.no_grad():
+        logits, _ = model(x.permute(0, 3, 1, 2).float() / 255.0)
+    prob = torch.sigmoid(logits).permute(0, 2, 3, 1)
+    differ = mask != (prob > 0.5).to(torch.uint8)
+    worst = ((prob[differ] - 0.5).abs().max().item() if differ.any()
+             else 0.0)
+    log("export", check="segpp mask vs live YOLOSegPP, bf16",
+        seconds=seconds["export segpp"], graph_ops=ops,
+        mask_shape=list(mask.shape), pixels=differ.numel(),
+        equal_share=1.0 - differ.float().mean().item(),
+        differing=int(differ.sum()), worst_differing_margin=worst,
+        tol=SEG_TIE, foreground_share=mask.float().mean().item(),
+        detections=valid.sum(1).tolist())
+    if (ops != EXPORT_OPS or tuple(mask.shape) != (EVAL_BATCH, EVAL_IMGSZ,
+                                                   EVAL_IMGSZ, 1)
+            or worst >= SEG_TIE):
+        raise AssertionError(f"export segpp: operators {ops}, mask "
+                             f"{tuple(mask.shape)}, a pixel {worst} from "
+                             f"0.5 differs")
+    return launches
+
+
+def profile_phase(device, root: str) -> dict:
+    """`profile --batch 8 --imgsz 640` (bf16, every prefix, device ms):
+    no negative row, `total_ms` within 15 % of the device ms of one whole
+    forward of the same model and input; the five costliest rows and the
+    ranks of layers 6 and 8 (kernel A's). Then `profile --attn --batch 8`.
+    Returns the per-layer run's launches."""
+    import os
+    import torch
+    from yolou_tpu_torch.tools.profile_layers import (device_ms,
+                                                      profiled_model)
+    counts, seconds = {}, {}
+    out = os.path.join(root, "PROFILE.json")
+    prof, _ = run_command(["profile", "--batch", str(BATCH), "--imgsz",
+                           str(IMGSZ), "--out", out], counts, seconds)
+    rows = prof["per_layer"]
+    model, x = profiled_model(BATCH, IMGSZ, "bfloat16", device)
+    with torch.no_grad():
+        whole = device_ms(lambda: model(x), iters=20)
+    ranked = sorted(rows, key=lambda r: -r["ms"])
+    rank = {r["layers"]: i + 1 for i, r in enumerate(ranked)}
+    ratio = prof["total_ms"] / whole
+    n = counts["profile"]
+    log("profile", seconds=seconds["profile"], card=prof["card"],
+        timer=prof["timer"], rows=len(rows), total_ms=prof["total_ms"],
+        total_half_spread_ms=prof["total_half_spread_ms"],
+        whole_forward_device_ms=whole, ratio=ratio, tol=0.15,
+        costliest=[{k: r[k] for k in ("layers", "block", "ms")}
+                   for r in ranked[:5]],
+        layer6_rank=rank.get("6..6"), layer8_rank=rank.get("8..8"),
+        layer6_ms=[r["ms"] for r in rows if r["layers"] == "6..6"],
+        layer8_ms=[r["ms"] for r in rows if r["layers"] == "8..8"],
+        launches=n)
+    if any(r["ms"] < 0 for r in rows) or not 0.85 <= ratio <= 1.15:
+        raise AssertionError(f"profile: total {prof['total_ms']} ms vs "
+                             f"{whole} ms, rows {rows}")
+    if not n["band_attention"] or n["greedy_nms"] or n["a2c2f"]:
+        raise AssertionError(f"profile: launches {n}")
+    attn, _ = run_command(["profile", "--attn", "--batch", str(BATCH),
+                           "--out", os.path.join(root, "PROFILE_attn.json")],
+                          counts, seconds, key="profile --attn")
+    na = counts["profile --attn"]
+    log("profile", check="--attn", launches=na,
+        **{k: v["ms"] for k, v in attn.items()})
+    if min(na["band_attention_single"], na["band_attention_train"]) < 1:
+        raise AssertionError(f"profile --attn: launches {na}")
+    return n
+
+
+def visualize_phase(device, root: str) -> dict:
+    """`visualize-logits` on one PNG of the cli phase with its trained
+    det.ckpt, f32, on the card and with `--device cpu`: probabilities
+    within 1e-5, the printed statistics equal; kernel A 8 launches on the
+    card, none on the CPU. Returns the card run's launches."""
+    import os
+    counts, seconds, probs, stats = {}, {}, {}, {}
+    png = os.path.join(root, "images", "val", "val_0000.png")
+    for dev in ("cuda", "cpu"):
+        key = f"visualize-logits {dev}"
+        probs[dev], out = run_command(
+            ["visualize-logits", png, "--yolo_dir",
+             os.path.join(root, "det.ckpt"), "--image_size",
+             str(EVAL_IMGSZ), "--out", os.path.join(root, f"logits_{dev}.png"),
+             "--device", dev], counts, seconds, key)
+        stats[dev] = [ln for ln in out.splitlines()
+                      if ln.startswith(("spatial_", "argmax_"))]
+    err = float(np.abs(probs["cuda"] - probs["cpu"]).max())
+    log("visualize-logits", shape=list(probs["cuda"].shape), max_abs=err,
+        tol=1e-5, card=stats["cuda"], cpu=stats["cpu"],
+        seconds={d: seconds[f"visualize-logits {d}"] for d in probs},
+        launches_card=counts["visualize-logits cuda"],
+        launches_cpu=counts["visualize-logits cpu"])
+    for dev, a in (("cuda", 8), ("cpu", 0)):
+        check_launches(f"visualize-logits {dev}",
+                       forward_launches(counts[f"visualize-logits {dev}"]),
+                       a, 0)
+    if not (err <= 1e-5 and len(stats["cuda"]) == 2
+            and stats["cuda"] == stats["cpu"]
+            and probs["cuda"].shape == (EVAL_IMGSZ // 8, EVAL_IMGSZ // 8)):
+        raise AssertionError(f"visualize-logits card vs cpu: {err}, {stats}")
+    return counts["visualize-logits cuda"]
+
+
 def _kernel_name(line: str):
     """The band attention or a2c2f kernel a ptxas or SASS line names, with
     its I/O type (and token tile), else None: `..._kernelIf...` is the f32
@@ -2357,7 +2641,15 @@ def main() -> int:
     eval_counts = evaluate(state_dict, device)
     dec = train_decoder_phase(state_dict, device)
     ft = finetune_phase(device)
-    cli = cli_phase(device)
+    with tempfile.TemporaryDirectory() as root:
+        cli = cli_phase(device, root)
+        with cv2_blocked():
+            exported = export_phase(device, root)
+            profiled = profile_phase(device, root)
+            visualized = visualize_phase(device, root)
+    later = {"export": exported["bf16"], "export f32": exported["f32"],
+             "export segpp": exported["segpp"], "profile": profiled,
+             "visualize-logits": visualized}
 
     src = "yolou_tpu_torch/csrc/"
     pallas = "yolou_tpu/ops/pallas_attn.py"
@@ -2377,7 +2669,8 @@ def main() -> int:
              **{k: v["band_attention"] for k, v in dec["launches"].items()},
              "validate": ft["validate"]["band_attention"],
              **{f"cli {k}": v["band_attention"] for k, v in cli.items()
-                if isinstance(v, dict)}},
+                if isinstance(v, dict)},
+             **{k: v["band_attention"] for k, v in later.items()}},
          "backward_calls": dec["attention_backward_calls"]},
         {"name": "greedy_nms", "route": "cuda",
          "source": src + "greedy_nms.cu",
@@ -2389,7 +2682,8 @@ def main() -> int:
              **{k: v["greedy_nms"] for k, v in dec["launches"].items()},
              "validate": ft["validate"]["greedy_nms"],
              **{f"cli {k}": v["greedy_nms"] for k, v in cli.items()
-                if isinstance(v, dict)}}},
+                if isinstance(v, dict)},
+             **{k: v["greedy_nms"] for k, v in later.items()}}},
         {"name": "band_attention_train", "route": "cuda",
          "source": src + "band_attention.cu", "replaces": pallas + ":243",
          "launches": train_launches,

@@ -4,7 +4,9 @@ The port must run where JAX is absent (the GPU machine has none), so it may
 import neither `jax`, `flax`, `optax` nor `yolou_tpu`; the trainer must import
 without `cv2`, which that machine lacks too. Its CUDA wrappers must import
 without nvcc or triton, run their plain versions on CPU tensors without
-counting a launch, and `chip_smoke.py` must fail without a GPU.
+counting a launch, and raise on a CUDA tensor when the kernels cannot be
+built, without running the plain version; `chip_smoke.py` must fail without
+a GPU.
 """
 
 import json
@@ -300,7 +302,7 @@ def test_command_line_modules_import_with_jax_and_cv2_blocked():
             "yolou_tpu_torch.native.image"] + [
         f"yolou_tpu_torch.cli.{p.stem}" for p in sorted(
             (PKG / "cli").glob("*.py")) if p.stem != "__init__"]
-    assert len(mods) == 3 + 9
+    assert len(mods) == 3 + 12
     code = _BLOCK.format(blocked=blocked) + (
         "import importlib\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -325,3 +327,99 @@ def test_module_val_runs_with_cv2_blocked(tmp_path):
     assert res.returncode == 0, res.stderr
     metrics = json.loads(res.stdout)
     assert set(metrics) == {"precision", "recall", "map50", "map"}
+
+
+def test_export_profile_and_visualize_modules_import_with_jax_and_cv2_blocked():
+    """The exporter, the profiling utilities and profiler, and the
+    `export`, `profile` and `visualize-logits` commands import with JAX,
+    flax, the JAX package and `cv2` blocked."""
+    mods = ["engine.exporter", "cli.export", "cli.profile",
+            "cli.visualize_logits", "utils.profiling",
+            "tools.profile_layers"]
+    code = _BLOCK.format(blocked=FORBIDDEN + ("cv2",)) + (
+        "import importlib\n"
+        f"for n in {mods!r}: importlib.import_module('yolou_tpu_torch.' + n)\n"
+        "print('ok')\n")
+    res = _run(code, REPO)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_module_export_runs_with_jax_blocked(tmp_path):
+    """`python -m yolou_tpu_torch export --device cpu` (fresh seeded
+    weights at 32^2) with JAX, flax, the JAX package and `cv2` blocked; the
+    artifact loads and runs in the same process, JAX still blocked."""
+    out = str(tmp_path / "exported")
+    code = _BLOCK.format(blocked=FORBIDDEN + ("cv2",)) + f"""
+import runpy
+import numpy as np
+sys.argv = ['yolou_tpu_torch', 'export', '--model', 'absent.ckpt', '--out',
+            {out!r}, '--imgsz', '32', '--device', 'cpu']
+try:
+    runpy.run_module('yolou_tpu_torch', run_name='__main__')
+except SystemExit as e:
+    assert e.code == 0, e.code
+from yolou_tpu_torch.engine.exporter import ExportedModel
+res = ExportedModel({out!r})(np.zeros((1, 32, 32, 4), np.uint8))
+print(len(res), tuple(res[0].shape))
+"""
+    res = _run(code, REPO)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.splitlines()[-1] == "6 (1, 300, 4)"
+    assert sorted(os.listdir(out)) == ["meta.json", "program.pt2",
+                                       "weights.msgpack"]
+
+
+def test_cuda_tensor_with_no_build_raises_without_the_plain_version(
+        monkeypatch, tmp_path):
+    """Each operator's real version, given CUDA tensors (fake ones: this
+    build of torch has no CUDA) where the kernels cannot be built: it
+    raises the build's error, runs no plain version and counts no launch."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from yolou_tpu_torch.kernels import a2c2f, attention, nms
+
+    def missing():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+    def plain(*args, **kw):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(build, "_lib", None)
+    monkeypatch.setattr(build, "_nvcc", missing)
+    monkeypatch.setattr(build, "library_path", lambda: tmp_path / "lib.so")
+    for mod, name in ((attention, "area_attention_qkv_fused_plain"),
+                      (attention, "area_attention_fused_plain"),
+                      (nms, "suppress_greedy_plain"),
+                      (a2c2f, "a2c2f_fused_plain")):
+        monkeypatch.setattr(mod, name, plain)
+    shapes = [(8, 32), (32,)] + [(32, 96), (96,), (7, 7, 32), (32,),
+                                 (32, 32), (32,), (32, 64), (64,), (64, 32),
+                                 (32,)] * 2 + [(64, 16), (16,)]
+    with FakeTensorMode():
+        t = {s: torch.empty(s, device="cuda") for s in
+             [(2, 9, 64), (64, 192), (192,), (2, 9, 32), (1, 4, 4),
+              (1, 4, 4, 8)]}
+        valid = torch.ones(1, 4, dtype=torch.bool, device="cuda")
+        ws = [torch.empty(s, device="cuda") for s in shapes]
+    x = t[(2, 9, 64)]
+    assert x.device.type == "cuda"
+    kernels.reset_launch_counts()
+    calls = [
+        lambda: attention._qkv_attention_forward(x, t[(64, 192)],
+                                                 t[(192,)], 2),
+        lambda: attention._band_attention(x, x, x, 2,
+                                          attention.area_attention_fused),
+        lambda: attention._band_attention(t[(2, 9, 32)], t[(2, 9, 32)],
+                                          t[(2, 9, 32)], 1,
+                                          attention.area_attention),
+        lambda: nms._greedy_nms_forward(t[(1, 4, 4)], valid, 0.45),
+        lambda: a2c2f._a2c2f_forward(t[(1, 4, 4, 8)], ws, 1, 1, 1)]
+    for call in calls:
+        try:
+            call()
+        except RuntimeError as e:
+            assert "nvcc not found" in str(e), e
+        else:
+            raise AssertionError("a CUDA tensor ran without a kernel")
+    assert not any(kernels.launch_counts().values())

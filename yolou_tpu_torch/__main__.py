@@ -4,8 +4,7 @@ The counterpart of the JAX package's dispatcher, with its help text and its
 exit codes (0 for help, 2 for an unknown command). `main(argv)` returns
 what the command returns (metrics, histories, results), so a caller in the
 same process can read it; run as a module, a command that returns exits 0.
-The JAX package's `export`, `profile` and `visualize-logits` are not
-ported yet.
+All eleven of the JAX package's commands, in its order.
 """
 
 import importlib
@@ -18,8 +17,11 @@ COMMANDS = {
     "predict": "yolou_tpu_torch.cli.predict",
     "val": "yolou_tpu_torch.cli.val",
     "convert": "yolou_tpu_torch.cli.convert",
+    "export": "yolou_tpu_torch.cli.export",
     "generate-objectmaps": "yolou_tpu_torch.cli.generate_objectmaps",
     "generate-heatmaps": "yolou_tpu_torch.cli.generate_heatmaps",
+    "visualize-logits": "yolou_tpu_torch.cli.visualize_logits",
+    "profile": "yolou_tpu_torch.cli.profile",
 }
 
 

@@ -1,11 +1,17 @@
 """Hand-written CUDA kernels for Hopper and their wrappers.
 
-Each wrapper checks its inputs, then: on a CPU tensor runs the kernel's plain
-PyTorch version; on a CUDA tensor launches the kernel (building it on first
-use) or raises. It never falls back from a CUDA tensor to the plain version.
-Each wrapper counts its kernel launches in a `launches` attribute; the
-differentiable ones also count the calls of their backward (plain tensor
-code, no kernel) in `backward_calls`.
+Each wrapper checks its inputs, then calls its kernel's `torch.library`
+operator (`yolou::band_attention_qkv`, `band_attention`,
+`band_attention_single`, `greedy_nms`, `a2c2f`; importing this package
+registers them, building nothing). The operator's real version, on a CPU
+tensor, runs the kernel's plain PyTorch version; on a CUDA tensor it
+launches the kernel (building it on first use) or raises. It never falls
+back from a CUDA tensor to the plain version. Its fake version gives only
+the outputs' shapes and types, so `torch.export` and other graph captures
+record each launch as one node. Each wrapper counts its kernel launches in
+a `launches` attribute, in the real version only; the differentiable ones
+also count the calls of their backward (plain tensor code, no kernel) in
+`backward_calls`.
 """
 
 from __future__ import annotations

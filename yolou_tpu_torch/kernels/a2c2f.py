@@ -5,7 +5,9 @@ into affine GEMMs) in one launch: cv1 -> n stages of two ABlocks (qkv, band
 attention, depthwise 7x7 positional term, projection, MLP, residuals) -> cv2
 over the concatenated stage outputs. Replaces the TPU kernel
 `yolou_tpu/ops/pallas_a2c2f.py::a2c2f_fused` (body `_a2c2f_kernel`). The
-residual-gamma form of A2C2f is not supported there and is not here.
+residual-gamma form of A2C2f is not supported there and is not here. The
+entry point is the `torch.library` operator `yolou::a2c2f` behind a checking
+wrapper, as in `attention.py`.
 """
 
 from __future__ import annotations
@@ -172,32 +174,10 @@ def _check(x, weights, n_stages, area, heads):
     return c_, wcv2.shape[1]
 
 
-def a2c2f_fused(x: torch.Tensor, weights: Sequence[torch.Tensor],
-                n_stages: int, area: int, heads: int) -> torch.Tensor:
-    """Run a full A2C2f attention block (eval, BatchNorm folded) in one
-    kernel launch.
-
-    x: (B, H, W, cin) channels last, float32 or bfloat16. weights: flat list
-    [cv1_w, cv1_b] + per ABlock [qkv_w, qkv_b, pe_w (7,7,c_), pe_b, proj_w,
-    proj_b, mlp1_w, mlp1_b, mlp2_w, mlp2_b] * (2 * n_stages) + [cv2_w,
-    cv2_b]; GEMM weights are (cin_i, cout_i) matrices in x.dtype (qkv's
-    output role-major q | k | v, each third head-major), biases and the pe
-    kernels float32. Returns (B, H, W, c2) in x.dtype. Not differentiable,
-    as its JAX counterpart defines no VJP: it raises on either device when
-    grad mode is on and x or a weight requires grad.
-    """
-    c_, c2 = _check(x, weights, n_stages, area, heads)
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in (x, *weights)):
-        raise RuntimeError(
-            "a2c2f_fused is not differentiable (an eval-only kernel with no "
-            "backward): call it under torch.no_grad() or on tensors that do "
-            "not require grad")
-    if x.device.type == "cpu":
-        return a2c2f_fused_plain(x, weights, n_stages, area, heads)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"no kernel for device {x.device}")
+def _launch_a2c2f(x, weights, n_stages, area, heads):
+    """Launch the whole-block kernel on checked CUDA tensors; returns out."""
     B, H, W, cin = x.shape
+    c_, c2 = weights[0].shape[1], weights[-2].shape[1]
     if c_ // heads != HEAD_DIM:
         raise ValueError(f"the CUDA kernel needs head_dim {HEAD_DIM}, "
                          f"got {c_ // heads}")
@@ -226,6 +206,51 @@ def a2c2f_fused(x: torch.Tensor, weights: Sequence[torch.Tensor],
     build.check(lib, code, "A2C2f block kernel")
     a2c2f_fused.launches += 1
     return out
+
+
+def _a2c2f_forward(x, weights, n_stages, area, heads):
+    """The whole-block kernel on a CUDA tensor, the plain version on a CPU
+    tensor: the real version of the operator (which has no autograd)."""
+    if x.device.type == "cpu":
+        return a2c2f_fused_plain(x, weights, n_stages, area, heads)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"no kernel for device {x.device}")
+    return _launch_a2c2f(x, weights, n_stages, area, heads)
+
+
+a2c2f_op = torch.library.custom_op(
+    "yolou::a2c2f", _a2c2f_forward, mutates_args=(),
+    schema="(Tensor x, Tensor[] weights, int n_stages, int area, int heads)"
+           " -> Tensor")
+
+
+@a2c2f_op.register_fake
+def _(x, weights, n_stages, area, heads):
+    return x.new_empty((*x.shape[:3], weights[-2].shape[1]))
+
+
+def a2c2f_fused(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                n_stages: int, area: int, heads: int) -> torch.Tensor:
+    """Run a full A2C2f attention block (eval, BatchNorm folded) in one
+    kernel launch.
+
+    x: (B, H, W, cin) channels last, float32 or bfloat16. weights: flat list
+    [cv1_w, cv1_b] + per ABlock [qkv_w, qkv_b, pe_w (7,7,c_), pe_b, proj_w,
+    proj_b, mlp1_w, mlp1_b, mlp2_w, mlp2_b] * (2 * n_stages) + [cv2_w,
+    cv2_b]; GEMM weights are (cin_i, cout_i) matrices in x.dtype (qkv's
+    output role-major q | k | v, each third head-major), biases and the pe
+    kernels float32. Returns (B, H, W, c2) in x.dtype. Not differentiable,
+    as its JAX counterpart defines no VJP: it raises on either device when
+    grad mode is on and x or a weight requires grad.
+    """
+    _check(x, weights, n_stages, area, heads)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, *weights)):
+        raise RuntimeError(
+            "a2c2f_fused is not differentiable (an eval-only kernel with no "
+            "backward): call it under torch.no_grad() or on tensors that do "
+            "not require grad")
+    return a2c2f_op(x, list(weights), n_stages, area, heads)
 
 
 a2c2f_fused.launches = 0

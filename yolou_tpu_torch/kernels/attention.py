@@ -17,8 +17,16 @@ Kernel A is differentiable too, as its JAX counterpart is (`_aaq_bwd`): the
 backward is the plain version's VJP, autograd through
 `area_attention_qkv_fused_plain` recomputed from the saved (x, w, b) with the
 cotangents of both outputs, the same code on the CPU and the card. Where
-grad mode is off or no input requires grad the wrapper skips autograd's
-bookkeeping (the serving path calls it 8 times a forward).
+grad mode is off or no input requires grad, autograd keeps no record (the
+serving path calls it 8 times a forward).
+
+Each entry point is a `torch.library` operator (`yolou::band_attention_qkv`,
+`yolou::band_attention`, `yolou::band_attention_single`) behind a Python
+wrapper that checks shapes, types and devices. The operator's fake version
+gives only its outputs' shapes and types, so `torch.export` records the call
+as one graph node; its real version dispatches by device and counts the
+launches. Reading pointers (the alignment check, the launch) happens only
+in the real version: a traced tensor has none.
 
 Both entry points dispatch by type inside the C library: bfloat16 runs on
 the tensor cores (`mma.sync` m16n8k16, a warp per 16 query rows, online
@@ -148,12 +156,23 @@ def _launch_qkv_attention(x, w, b, heads):
 
 
 def _qkv_attention_forward(x, w, b, heads):
-    """Kernel A on a CUDA tensor, the plain version on a CPU tensor."""
+    """Kernel A on a CUDA tensor, the plain version on a CPU tensor: the
+    real version of the operator."""
     if x.device.type == "cpu":
         return area_attention_qkv_fused_plain(x, w, b, heads)
     if x.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {x.device}")
     return _launch_qkv_attention(x, w, b, heads)
+
+
+band_attention_qkv_op = torch.library.custom_op(
+    "yolou::band_attention_qkv", _qkv_attention_forward, mutates_args=(),
+    schema="(Tensor x, Tensor w, Tensor b, int heads) -> (Tensor, Tensor)")
+
+
+@band_attention_qkv_op.register_fake
+def _(x, w, b, heads):
+    return torch.empty_like(x), torch.empty_like(x)
 
 
 def qkv_attention_backward(x, w, b, do, dv, heads: int):
@@ -167,21 +186,20 @@ def qkv_attention_backward(x, w, b, do, dv, heads: int):
         return torch.autograd.grad((o, v), inputs, (do, dv))
 
 
-class _QKVAttention(torch.autograd.Function):
-    """Forward: `_qkv_attention_forward`. Backward, on both devices:
-    `qkv_attention_backward`; saves x, w, b only."""
+def _qkv_setup(ctx, inputs, output):
+    *tensors, ctx.heads = inputs
+    ctx.save_for_backward(*tensors)
 
-    @staticmethod
-    def forward(ctx, x, w, b, heads):
-        ctx.save_for_backward(x, w, b)
-        ctx.heads = heads
-        return _qkv_attention_forward(x, w, b, heads)
 
-    @staticmethod
-    def backward(ctx, do, dv):
-        x, w, b = ctx.saved_tensors
-        area_attention_qkv_fused.backward_calls += 1
-        return (*qkv_attention_backward(x, w, b, do, dv, ctx.heads), None)
+def _qkv_backward(ctx, do, dv):
+    """On both devices: `qkv_attention_backward`; saves x, w, b only."""
+    area_attention_qkv_fused.backward_calls += 1
+    return (*qkv_attention_backward(*ctx.saved_tensors, do, dv, ctx.heads),
+            None)
+
+
+band_attention_qkv_op.register_autograd(_qkv_backward,
+                                        setup_context=_qkv_setup)
 
 
 def area_attention_qkv_fused(x: torch.Tensor, w: torch.Tensor,
@@ -195,10 +213,7 @@ def area_attention_qkv_fused(x: torch.Tensor, w: torch.Tensor,
     the dw7x7 positional conv). Any N >= 1. Differentiable in x, w and b.
     """
     _check(x, w, b, heads)
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad
-                                    or b.requires_grad):
-        return _QKVAttention.apply(x, w, b, heads)
-    return _qkv_attention_forward(x, w, b, heads)
+    return band_attention_qkv_op(x, w, b, heads)
 
 
 area_attention_qkv_fused.launches = 0
@@ -280,6 +295,18 @@ def _launch_band_attention(q, k, v, heads):
     return o
 
 
+def _band_attention(q, k, v, heads, wrapper):
+    """Kernel C on a CUDA tensor (counted on `wrapper`, the public function
+    called), the plain version on a CPU tensor."""
+    if q.device.type == "cpu":
+        return area_attention_fused_plain(q, k, v, heads)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"no kernel for device {q.device}")
+    o = _launch_band_attention(q, k, v, heads)
+    wrapper.launches += 1
+    return o
+
+
 def attention_backward(q, k, v, do, heads: int):
     """(dq, dk, dv) of `area_attention_fused` for the cotangent `do`: scores
     and softmax recomputed in f32, ds = p * (dp - sum(dp * p)), results cast
@@ -300,30 +327,36 @@ def attention_backward(q, k, v, do, heads: int):
     return back(dq, q), back(dk, k), back(dv, v)
 
 
-class _BandAttention(torch.autograd.Function):
-    """Forward: kernel C on a CUDA tensor (counted on `wrapper`, the public
-    function called), the plain version on a CPU tensor. Backward, on both:
-    `attention_backward`; saves q, k, v only."""
+@torch.library.custom_op(
+    "yolou::band_attention", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, int heads) -> Tensor")
+def band_attention_op(q, k, v, heads):
+    """Kernel C as an operator, multi-head."""
+    return _band_attention(q, k, v, heads, area_attention_fused)
 
-    @staticmethod
-    def forward(ctx, q, k, v, heads, wrapper):
-        _check_qkv(q, k, v, heads)
-        if q.device.type == "cpu":
-            o = area_attention_fused_plain(q, k, v, heads)
-        elif q.device.type == "cuda":
-            o = _launch_band_attention(q, k, v, heads)
-            wrapper.launches += 1
-        else:
-            raise RuntimeError(f"no kernel for device {q.device}")
-        ctx.save_for_backward(q, k, v)
-        ctx.heads, ctx.wrapper = heads, wrapper
-        return o
 
-    @staticmethod
+@torch.library.custom_op(
+    "yolou::band_attention_single", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v) -> Tensor")
+def band_attention_single_op(q, k, v):
+    """Kernel C as an operator with one head."""
+    return _band_attention(q, k, v, 1, area_attention)
+
+
+def _attention_setup(ctx, inputs, output):
+    q, k, v, *heads = inputs          # heads: given to the multi-head op
+    ctx.save_for_backward(q, k, v)
+    ctx.heads, ctx.n_ints = (heads or [1])[0], len(heads)
+
+
+def _attention_backward(wrapper):
+    """Backward of a kernel C operator, on both devices:
+    `attention_backward`, counted on `wrapper`; saves q, k, v only."""
     def backward(ctx, do):
-        q, k, v = ctx.saved_tensors
-        ctx.wrapper.backward_calls += 1
-        return (*attention_backward(q, k, v, do, ctx.heads), None, None)
+        wrapper.backward_calls += 1
+        return (*attention_backward(*ctx.saved_tensors, do, ctx.heads),
+                *[None] * ctx.n_ints)
+    return backward
 
 
 def area_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -332,16 +365,22 @@ def area_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     head-major channels (channel = h * hd + d): per head
     softmax(q_h k_h^T / sqrt(hd)) v_h, outputs concatenated back to C.
     float32 or bfloat16, contiguous, any N >= 1. Differentiable."""
-    return _BandAttention.apply(q, k, v, heads, area_attention_fused)
+    _check_qkv(q, k, v, heads)
+    return band_attention_op(q, k, v, heads)
 
 
 def area_attention(q: torch.Tensor, k: torch.Tensor,
                    v: torch.Tensor) -> torch.Tensor:
     """Single-head softmax attention over (G, N, hd) bands: the same kernel
     with heads = 1. Differentiable."""
-    return _BandAttention.apply(q, k, v, 1, area_attention)
+    _check_qkv(q, k, v, 1)
+    return band_attention_single_op(q, k, v)
 
 
-for _fn in (area_attention_fused, area_attention):
+for _op, _fn in ((band_attention_op, area_attention_fused),
+                 (band_attention_single_op, area_attention)):
+    _op.register_fake(lambda q, *_: torch.empty_like(q))
+    _op.register_autograd(_attention_backward(_fn),
+                          setup_context=_attention_setup)
     _fn.launches = 0         # forward kernel launches
     _fn.backward_calls = 0   # calls of the backward

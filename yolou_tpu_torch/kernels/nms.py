@@ -3,7 +3,8 @@
 Replaces the TPU kernel `yolou_tpu/ops/pallas_nms.py::suppress_greedy_fused`
 (body `_nms_kernel`). Source: `../csrc/greedy_nms.cu`: one launch, a CTA per
 image that decides 64-row windows of candidates in shared memory; no
-scratch.
+scratch. The entry point is the `torch.library` operator `yolou::greedy_nms`
+behind a checking wrapper, as in `attention.py`.
 """
 
 from __future__ import annotations
@@ -47,6 +48,46 @@ def suppress_greedy_plain(boxes: torch.Tensor, valid: torch.Tensor,
     return keep
 
 
+def _launch_greedy_nms(boxes, valid, iou_thres):
+    """Launch kernel B on checked CUDA tensors; returns keep."""
+    bsz, k, _ = boxes.shape
+    if not 0 < k <= MAX_K or bsz == 0:
+        raise ValueError(f"the CUDA kernel takes 0 < K <= {MAX_K} and B > 0, "
+                         f"got B={bsz}, K={k}")
+    lib = build.load()
+    keep = torch.empty((bsz, k), dtype=torch.bool, device=boxes.device)
+    with torch.cuda.device(boxes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.yolou_greedy_nms(boxes.data_ptr(), valid.data_ptr(),
+                                    keep.data_ptr(), bsz, k, float(iou_thres),
+                                    stream)
+    build.check(lib, code, "greedy NMS kernel")
+    suppress_greedy.launches += 1
+    return keep
+
+
+def _greedy_nms_forward(boxes, valid, iou_thres):
+    """Kernel B on a CUDA tensor, the plain version (whose loop runs until
+    the keep set stops changing) on a CPU tensor: the real version of the
+    operator. The loop's data-dependent end stays inside the operator, out
+    of any graph a tracer records."""
+    if boxes.device.type == "cpu":
+        return suppress_greedy_plain(boxes, valid, iou_thres)
+    if boxes.device.type != "cuda":
+        raise RuntimeError(f"no kernel for device {boxes.device}")
+    return _launch_greedy_nms(boxes, valid, iou_thres)
+
+
+greedy_nms_op = torch.library.custom_op(
+    "yolou::greedy_nms", _greedy_nms_forward, mutates_args=(),
+    schema="(Tensor boxes, Tensor valid, float iou_thres) -> Tensor")
+
+
+@greedy_nms_op.register_fake
+def _(boxes, valid, iou_thres):
+    return torch.empty_like(valid)
+
+
 def suppress_greedy(boxes: torch.Tensor, valid: torch.Tensor,
                     iou_thres: float) -> torch.Tensor:
     """Greedy NMS keep mask per image.
@@ -67,23 +108,7 @@ def suppress_greedy(boxes: torch.Tensor, valid: torch.Tensor,
         raise ValueError("boxes and valid must be contiguous")
     if boxes.device != valid.device:
         raise ValueError("boxes and valid must be on one device")
-    if boxes.device.type == "cpu":
-        return suppress_greedy_plain(boxes, valid, iou_thres)
-    if boxes.device.type != "cuda":
-        raise RuntimeError(f"no kernel for device {boxes.device}")
-    if not 0 < k <= MAX_K or bsz == 0:
-        raise ValueError(f"the CUDA kernel takes 0 < K <= {MAX_K} and B > 0, "
-                         f"got B={bsz}, K={k}")
-    lib = build.load()
-    keep = torch.empty((bsz, k), dtype=torch.bool, device=boxes.device)
-    with torch.cuda.device(boxes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.yolou_greedy_nms(boxes.data_ptr(), valid.data_ptr(),
-                                    keep.data_ptr(), bsz, k, float(iou_thres),
-                                    stream)
-    build.check(lib, code, "greedy NMS kernel")
-    suppress_greedy.launches += 1
-    return keep
+    return greedy_nms_op(boxes, valid, float(iou_thres))
 
 
 suppress_greedy.launches = 0

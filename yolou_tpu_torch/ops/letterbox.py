@@ -1,9 +1,10 @@
 """Letterbox + normalize preprocessing on torch tensors.
 
-Counterpart of `yolou_tpu/ops/letterbox.py::letterbox_batch`: an
+Counterpart of `yolou_tpu/ops/letterbox.py`: `letterbox_batch`, an
 aspect-preserving linear resize (JAX `jax.image.resize` semantics, see
-`resize.py`), padding with 114 gray, /255 and a cast — in the JAX package's
-NHWC layout; the caller permutes to NCHW for the model.
+`resize.py`), padding with 114 gray, /255 and a cast; `resize_normalize`, a
+square stretch-resize and /255 (the decoder dataset's preprocessing). Both
+in the JAX package's NHWC layout; the caller permutes to NCHW for the model.
 """
 
 from __future__ import annotations
@@ -35,3 +36,13 @@ def letterbox_batch(imgs: torch.Tensor, new_hw: Tuple[int, int] = (640, 640)
     out = F.pad(x, (0, 0, left, nw - uw - left, top, nh - uh - top),
                 value=PAD_VALUE)
     return out / 255.0
+
+
+def resize_normalize(imgs: torch.Tensor, size: int) -> torch.Tensor:
+    """Square stretch-resize (B, H, W, C) uint8/float -> (B, size, size, C)
+    float32 in [0, 1]: a linear resize where the shape differs, then
+    /255."""
+    x = imgs.float()
+    if tuple(x.shape[1:3]) != (size, size):
+        x = resize_linear(x, (size, size), dims=(1, 2))
+    return x / 255.0
