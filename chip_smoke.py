@@ -125,6 +125,23 @@ Phases, one or more output lines each:
                f32, on the card and with `--device cpu`: probabilities
                within 1e-5, the printed statistics equal, 8 kernel A
                launches on the card and none on the CPU.
+ 15. families - yolov8n-seg and yolo11n-seg (4 ch, nc=1, seeded weights
+               calibrated as the serve phase's, the head bias warm-started):
+               for each, a Predictor answering 3 requests of 8 images at
+               640^2 in bf16 (a detection on every image, kernel B once a
+               request, no attention kernel), f32 on the card against the
+               CPU (preds, raw maps, mask coefficients and protos within
+               1e-3, keep-sets equal but for near-ties, NMS on the same
+               input identical), 3 training steps (batch 8, 640^2, bf16,
+               mosaic on; no attention kernel); the batch-8 forward of
+               yolov12, yolov8 and yolo11 timed in turns (CUDA events and
+               device ms and launches from torch.profiler) and yolo11's PSA
+               stage alone; then, in the cli phase's directory with cv2
+               blocked, `convert --arch` of a port-written `.pt`, `predict`,
+               `val` at 160^2, `export` at 640^2 f32 (one kernel B launch a
+               call, boxes and scores against `Predictor.infer`) and
+               `train-detector --epochs 1` from the family's `.ckpt`: every
+               file written names the family, the fine-tuned one loads back.
 Then a JSON line of kernel results (each kernel's launches on its path, error,
 device and per-call times, and the least time the card could take), the
 nvidia-smi line again,
@@ -607,8 +624,8 @@ def make_images(rng, count: int, hw: int = IMGSZ) -> np.ndarray:
     return make_labelled(rng, count, hw)[0]
 
 
-def seeded_state_dict():
-    """yolov12n-seg (4 ch, nc=1) weights from SEED: seeded random convs;
+def seeded_state_dict(arch: str = "yolov12"):
+    """`arch` n-seg (4 ch, nc=1) weights from SEED: seeded random convs;
     every BatchNorm calibrated by one f32 CPU pass over a seeded batch to
     output mean 0 and std BN_STD (its running statistics set to its batch's,
     its weight to BN_STD); then the warm-started head bias, so scores clear
@@ -620,7 +637,7 @@ def seeded_state_dict():
     import torch
     from yolou_tpu_torch.models.yolo import build_yolo
     from yolou_tpu_torch.ops.letterbox import letterbox_batch
-    model = build_yolo("yolov12", "n", nc=1, ch=4, task="segment",
+    model = build_yolo(arch, "n", nc=1, ch=4, task="segment",
                        device="cpu", seed=SEED)
     calib = make_images(np.random.default_rng(SEED + 2), 2)
     x = letterbox_batch(torch.from_numpy(calib), (IMGSZ, IMGSZ))
@@ -647,20 +664,23 @@ def calibrated(model, x):
     return warm_start_detect_bias(model).state_dict()
 
 
-def build_model(state_dict, device, dtype, mega_kernel=False):
+def build_model(state_dict, device, dtype, mega_kernel=False,
+                arch="yolov12"):
     from yolou_tpu_torch.models.yolo import build_yolo
-    model = build_yolo("yolov12", "n", nc=1, ch=4, task="segment",
+    model = build_yolo(arch, "n", nc=1, ch=4, task="segment",
                        dtype=dtype, device=device, mega_kernel=mega_kernel)
     model.load_state_dict(state_dict, strict=True)
     return model
 
 
-def serve(state_dict, device, dtype, requests, mega_kernel=False):
+def serve(state_dict, device, dtype, requests, mega_kernel=False,
+          arch="yolov12"):
     """Drive the Predictor over `requests` (list of uint8 stacks); returns
     per-request detections and times."""
     import torch
     from yolou_tpu_torch.engine.predictor import Predictor
-    predictor = Predictor(build_model(state_dict, device, dtype, mega_kernel),
+    predictor = Predictor(build_model(state_dict, device, dtype, mega_kernel,
+                                      arch),
                           imgsz=IMGSZ, batch_size=BATCH)
     stats = []
     for r, imgs in enumerate(requests):
@@ -703,10 +723,12 @@ def kept_anchors(preds, dets):
     return out
 
 
-def compare_f32(state_dict, device, imgs):
+def compare_f32(state_dict, device, imgs, arch="yolov12", phase="serve"):
     """Same weights and images in f32 on the card (no TF32) and on the CPU
-    (plain kernel versions): preds within 1e-3, and the kept anchors equal
-    except where a candidate's score is within 1e-4 of another's."""
+    (plain kernel versions): preds, raw maps, mask coefficients and protos
+    within 1e-3, and the kept anchors equal except where a candidate's score
+    is within 1e-4 of another's; NMS on identical input keeps the same
+    boxes on the card as the plain version."""
     import torch
     from yolou_tpu_torch.engine.predictor import Predictor
     from yolou_tpu_torch.ops.nms import (NMSResult, non_max_suppression,
@@ -714,12 +736,15 @@ def compare_f32(state_dict, device, imgs):
     f32_exact(torch)
     outs = {}
     for dev in (device, "cpu"):
-        p = Predictor(build_model(state_dict, dev, torch.float32),
-                      imgsz=IMGSZ)
+        p = Predictor(build_model(state_dict, dev, torch.float32,
+                                  arch=arch), imgsz=IMGSZ)
         dets, out = p.infer(torch.from_numpy(imgs).to(dev))
-        outs[dev] = (out.preds.cpu(), [t.cpu() for t in dets])
-    (pg, dg), (pc, dc) = outs[device], outs["cpu"]
+        maps = [*out.raw, out.mask_coefs, out.protos]
+        outs[dev] = (out.preds.cpu(), [t.cpu() for t in dets],
+                     [t.float().cpu() for t in maps])
+    (pg, dg, mg), (pc, dc, mc) = outs[device], outs["cpu"]
     err = (pg - pc).abs().max().item()
+    maps_err = max((a - b).abs().max().item() for a, b in zip(mg, mc))
     dg, dc = NMSResult(*dg), NMSResult(*dc)
     kg, kc = kept_anchors(pg, dg), kept_anchors(pc, dc)
     score = pc[..., 4]
@@ -741,11 +766,13 @@ def compare_f32(state_dict, device, imgs):
     same_in = non_max_suppression(pc.to(device), nc=1)
     ident = all(torch.equal(a.cpu(), b_) for a, b_ in
                 zip(same_in, non_max_suppression(pc, nc=1)))
-    log("serve", check="f32 card vs cpu", images=len(imgs), preds_max_abs=err,
+    log(phase, check="f32 card vs cpu", arch=arch, images=len(imgs),
+        preds_max_abs=err, raw_coefs_protos_max_abs=maps_err,
         tol=1e-3, kept_agree=agree, differ_clear=clear_bad,
         differ_near_tie=tied_bad, nms_same_input_identical=ident)
-    if not err <= 1e-3:
-        raise AssertionError(f"f32 preds card vs cpu: {err} > 1e-3")
+    if not (err <= 1e-3 and maps_err <= 1e-3):
+        raise AssertionError(f"f32 card vs cpu: preds {err}, raw maps, "
+                             f"coefficients and protos {maps_err} > 1e-3")
     if clear_bad or not ident:
         raise AssertionError("f32 kept-box sets differ between card and cpu")
     return err
@@ -1260,14 +1287,15 @@ class _Data:
     channels = 4
 
 
-def make_trainer(state_dict, device, dtype, batch, aug=None):
-    """A DetectorTrainer over seeded yolov12n-seg weights; `device` None is
+def make_trainer(state_dict, device, dtype, batch, aug=None,
+                 arch="yolov12"):
+    """A DetectorTrainer over seeded `arch` n-seg weights; `device` None is
     the trainer's default, the card."""
     from yolou_tpu_torch.data.augment import AugHyp
     from yolou_tpu_torch.engine.trainer_detector import (DetectorTrainConfig,
                                                          DetectorTrainer)
     from yolou_tpu_torch.models.yolo import build_yolo
-    model = build_yolo("yolov12", "n", nc=1, ch=4, task="segment",
+    model = build_yolo(arch, "n", nc=1, ch=4, task="segment",
                        dtype=dtype, device=device)
     model.load_state_dict(state_dict, strict=True)
     cfg = DetectorTrainConfig(imgsz=IMGSZ, batch_size=batch, epochs=10,
@@ -1278,12 +1306,12 @@ def make_trainer(state_dict, device, dtype, batch, aug=None):
     return tr
 
 
-def train(state_dict):
+def train(state_dict, arch="yolov12"):
     """TRAIN_STEPS steps of the detector trainer on the card, bf16, 640^2,
     batch 8, mosaic on; returns the per-step statistics and what it drove,
     for `train_breakdown`."""
     import torch
-    tr = make_trainer(state_dict, None, torch.bfloat16, BATCH)
+    tr = make_trainer(state_dict, None, torch.bfloat16, BATCH, arch=arch)
     if tr.device.type != "cuda":
         raise AssertionError(f"the trainer chose {tr.device}, not the card")
     batch = make_labelled(np.random.default_rng(SEED + 4), BATCH)
@@ -2481,6 +2509,201 @@ def visualize_phase(device, root: str) -> dict:
     return counts["visualize-logits cuda"]
 
 
+# ------------------------------------------------ the yolov8 / yolo11 graphs
+
+FAMILIES = ("yolov8", "yolo11")
+PSA_LAYER = 10          # yolo11's C2PSA stage
+
+
+def family_forwards(device, weights: dict, imgs) -> dict:
+    """The batch-8 bf16 forward at 640^2 of each graph of `weights` (yolov12
+    beside the two families), timed in turns (CUDA events, then a profiler
+    window: device ms and device launches a forward); and yolo11's PSA
+    stage (layer 10) alone on its input, device ms."""
+    import torch
+    from yolou_tpu_torch.ops.letterbox import letterbox_batch
+    from yolou_tpu_torch.tools.profile_layers import device_ms
+    x = letterbox_batch(torch.from_numpy(imgs).to(device), (IMGSZ, IMGSZ))
+    x = x.permute(0, 3, 1, 2).contiguous()
+    models = {a: build_model(sd, device, torch.bfloat16, arch=a)
+              for a, sd in weights.items()}
+    order = list(models) + list(models)[::-1]
+    event_ms = {a: [] for a in models}
+    with torch.no_grad():
+        for a in order:
+            event_ms[a].append(cuda_ms(lambda: models[a](x), iters=10))
+        prof = {a: profile_step(lambda: models[a](x)) for a in models}
+        m = models["yolo11"]
+        y = m(x, taps=(PSA_LAYER - 1,), stop_at=PSA_LAYER).taps[PSA_LAYER - 1]
+        psa = m.model[PSA_LAYER]
+        psa_ms = device_ms(lambda: psa(y), iters=20)
+    out = {}
+    for a in models:
+        out[a] = {"event_ms": event_ms[a], "device_ms": prof[a][0],
+                  "launches": prof[a][1], "top": prof[a][2]}
+        log("families", check=f"forward, batch {BATCH}, {IMGSZ}^2, bf16",
+            arch=a, **out[a])
+    log("families", check="yolo11 PSA stage (layer 10) alone",
+        input_shape=list(y.shape), device_ms=psa_ms)
+    out["yolo11 psa"] = psa_ms
+    return out
+
+
+def family_commands(device, root: str, arch: str, state_dict,
+                    counts: dict, seconds: dict) -> None:
+    """In the cli phase's directory, cv2 blocked: a port-written `.pt` of
+    the seeded weights through `convert --arch`, then `predict`, `val` (the
+    160^2 PNG split), `export` (640^2, batch 8, f32: one kernel B launch
+    and no attention a call; boxes, scores and `valid` against the live
+    `Predictor.infer`) and `train-detector --epochs 1` from that `.ckpt`.
+    Every file written names `arch`; the fine-tuned one loads back."""
+    import os
+    import torch
+    from yolou_tpu_torch.engine.exporter import ExportedModel
+    from yolou_tpu_torch.engine.predictor import Predictor
+    from yolou_tpu_torch.utils.checkpoint import load_checkpoint
+    from yolou_tpu_torch.utils.model_io import load_model
+
+    def arch_of(path):
+        return json.loads(load_checkpoint(path)["meta_json"])["arch"]
+
+    yaml = os.path.join(root, "data.yaml")
+    pt = os.path.join(root, f"{arch}.pt")
+    ckpt = os.path.join(root, f"{arch}.ckpt")
+    torch.save(state_dict, pt)
+    key = f"{arch} convert"
+    rep, _ = run_command(["convert", "--pt", pt, "--arch", arch, "--out",
+                          ckpt], counts, seconds, key)
+    if rep["missing"] or rep["unused"] or arch_of(ckpt) != arch:
+        raise AssertionError(f"{key}: {rep}, arch {arch_of(ckpt)}")
+    check_launches(key, forward_launches(counts[key]), 0, 0)
+
+    val_batches = CLI_SPLITS["val"] // EVAL_BATCH
+    key = f"{arch} predict"
+    results, _ = run_command(
+        ["predict", "--source", os.path.join(root, "images", "val"),
+         "--model", ckpt, "--imgsz", str(EVAL_IMGSZ), "--batch",
+         str(EVAL_BATCH), "--bf16"], counts, seconds, key)
+    if len(results) != CLI_SPLITS["val"]:
+        raise AssertionError(f"{key}: {len(results)} results")
+    check_launches(key, forward_launches(counts[key]), 0, val_batches)
+    key = f"{arch} val"
+    val, _ = run_command(
+        ["val", "--data", yaml, "--model", ckpt, "--imgsz", str(EVAL_IMGSZ),
+         "--batch", str(EVAL_BATCH), "--bf16"], counts, seconds, key)
+    if not all(0 <= v <= 1 for v in val.values()):
+        raise AssertionError(f"{key}: {val}")
+    check_launches(key, forward_launches(counts[key]), 0, val_batches)
+
+    key = f"{arch} export"
+    out_dir = os.path.join(root, f"export_{arch}")
+    meta, _ = run_command(
+        ["export", "--model", ckpt, "--out", out_dir, "--imgsz", str(IMGSZ),
+         "--batch", str(BATCH)], counts, seconds, key)
+    check_launches(key, forward_launches(counts[key]), 0, 0)
+    ex = ExportedModel(out_dir)
+    ops = graph_kernel_ops(ex.program)
+    imgs = torch.from_numpy(make_images(np.random.default_rng(SEED + 43),
+                                        BATCH, IMGSZ)).to(device)
+    got, n = counted(lambda: ex(imgs))
+    check_launches(f"{key} call", forward_launches(n), 0, 1)
+    counts[f"{key} call"] = n
+    live = Predictor(load_model(ckpt, device=device), imgsz=IMGSZ,
+                     batch_size=BATCH)
+    with torch.no_grad():
+        dets, _ = live.infer(imgs)
+    errs = {k: (g.float() - w.float()).abs().max().item() for k, g, w in
+            zip(("boxes", "conf"), got, (dets.boxes, dets.conf))}
+    log("families", arch=arch, check="export f32 vs live Predictor.infer",
+        graph_ops=ops, meta_arch=meta["arch"], max_abs=errs,
+        detections=got[3].sum(1).tolist())
+    if not (ops == {"greedy_nms": 1} and meta["arch"] == arch
+            and errs["boxes"] <= 1e-3 and errs["conf"] <= 1e-5
+            and torch.equal(got[3], dets.valid)
+            and int(dets.valid.sum()) > 0):
+        raise AssertionError(f"{key}: operators {ops}, arch {meta['arch']}, "
+                             f"{errs}")
+
+    key = f"{arch} train-detector"
+    ft = os.path.join(root, f"{arch}_ft.ckpt")
+    hist, _ = run_command(
+        ["train-detector", "--data", yaml, "--model", ckpt, "--imgsz",
+         str(EVAL_IMGSZ), "--batch", str(EVAL_BATCH), "--epochs", "1",
+         "--run-dir", os.path.join(root, f"runs_{arch}"), "--out", ft,
+         "--dtype", "bfloat16"], counts, seconds, key)
+    check_launches(key, forward_launches(counts[key]), 0, 0)
+    back = load_model(ft, device=device)
+    if (arch_of(ft) != arch or back.spec.arch != arch
+            or not np.isfinite(hist["loss"]).all()):
+        raise AssertionError(f"{key}: arch {arch_of(ft)}, history {hist}")
+    for k in (f"{arch} {c}" for c in ("convert", "predict", "val", "export",
+                                      "train-detector")):
+        log("families", command=k, seconds=seconds[k], launches=counts[k])
+
+
+def families_phase(device, root: str, yolov12_state_dict) -> dict:
+    """The yolov8 and yolo11 graphs (n scale, 4 channels, nc=1, segment,
+    seeded and calibrated weights, the head bias warm-started): for each, a
+    Predictor answering 3 requests of 8 images at 640^2 in bf16 (a
+    detection on every image, kernel B once a request, no attention kernel
+    at all); f32 on the card against the CPU (`compare_f32`); 3 training
+    steps (640^2, batch 8, bf16, mosaic on: finite loss, the weights
+    moved, no attention kernel); the forward and yolo11's PSA stage timed
+    beside yolov12's forward; then `family_commands`. Returns kernel B's
+    launches by path."""
+    import torch
+    from yolou_tpu_torch import kernels
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 41)
+    requests = [make_images(rng, BATCH) for _ in range(REQUESTS)]
+    weights = {"yolov12": yolov12_state_dict}
+    launches, counts, seconds, parts = {}, {}, {}, {}
+
+    def lap(name, t0):
+        parts[name] = parts.get(name, 0.0) + time.perf_counter() - t0
+        return time.perf_counter()
+
+    for arch in FAMILIES:
+        t0 = time.perf_counter()
+        weights[arch] = sd = seeded_state_dict(arch)
+        t0 = lap("weights (CPU calibration)", t0)
+        stats, n = counted(lambda: serve(sd, device, torch.bfloat16,
+                                         requests, arch=arch))
+        for st in stats:
+            log("families", arch=arch, **st)
+        log("families", arch=arch, check="serve", launches=n,
+            requests=REQUESTS)
+        check_launches(f"{arch} serve", forward_launches(n), 0, REQUESTS)
+        if min(min(st["detections"]) for st in stats) < 1:
+            raise AssertionError(f"{arch}: an image got no detection")
+        launches[f"{arch} serve"] = n["greedy_nms"]
+        t0 = lap("serve", t0)
+        compare_f32(sd, device, requests[0][:2], arch=arch, phase="families")
+        t0 = lap("f32 card vs cpu", t0)
+
+        kernels.reset_launch_counts()
+        steps, moved, _ = train(sd, arch)
+        n = dict(kernels.launch_counts(), backward=kernels.backward_counts())
+        for st in steps:
+            log("families", arch=arch, check="train", **st)
+        log("families", arch=arch, check="train", moved=moved, launches=n)
+        check_launches(f"{arch} train", forward_launches(n), 0, 0)
+        if any(n["backward"].values()):
+            raise AssertionError(f"{arch} train: backward calls {n}")
+        lap("train", t0)
+
+    t0 = time.perf_counter()
+    family_forwards(device, weights, requests[0])
+    t0 = lap("forwards timed", t0)
+    for arch in FAMILIES:
+        family_commands(device, root, arch, weights[arch], counts, seconds)
+        for c in ("predict", "val", "export call"):
+            launches[f"{arch} {c}"] = counts[f"{arch} {c}"]["greedy_nms"]
+    lap("commands", t0)
+    log("families", seconds=time.perf_counter() - t_phase, parts=parts)
+    return launches
+
+
 def _kernel_name(line: str):
     """The band attention or a2c2f kernel a ptxas or SASS line names, with
     its I/O type (and token tile), else None: `..._kernelIf...` is the f32
@@ -2647,6 +2870,7 @@ def main() -> int:
             exported = export_phase(device, root)
             profiled = profile_phase(device, root)
             visualized = visualize_phase(device, root)
+            families = families_phase(device, root, state_dict)
     later = {"export": exported["bf16"], "export f32": exported["f32"],
              "export segpp": exported["segpp"], "profile": profiled,
              "visualize-logits": visualized}
@@ -2683,7 +2907,8 @@ def main() -> int:
              "validate": ft["validate"]["greedy_nms"],
              **{f"cli {k}": v["greedy_nms"] for k, v in cli.items()
                 if isinstance(v, dict)},
-             **{k: v["greedy_nms"] for k, v in later.items()}}},
+             **{k: v["greedy_nms"] for k, v in later.items()},
+             **{f"families {k}": v for k, v in families.items()}}},
         {"name": "band_attention_train", "route": "cuda",
          "source": src + "band_attention.cu", "replaces": pallas + ":243",
          "launches": train_launches,

@@ -84,13 +84,6 @@ def test_convert_matches_jax(det_ckpt, segpp_ckpt, tmp_path, kind, task):
             assert a.read() == b.read()
 
 
-def test_convert_refuses_unported_graphs(det_ckpt, tmp_path):
-    pt = _pt_pair(det_ckpt, tmp_path, "det")["port"]
-    with pytest.raises(NotImplementedError, match="Queue 1 #6"):
-        port_main.main(["convert", "--pt", pt, "--out",
-                        str(tmp_path / "x.ckpt"), "--arch", "yolov8", *CPU])
-
-
 @pytest.mark.skipif(torch.cuda.is_available(),
                     reason="checks the refusal where there is no card")
 @pytest.mark.parametrize("way", [["--reverse"], []])

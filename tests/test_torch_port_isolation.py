@@ -423,3 +423,30 @@ def test_cuda_tensor_with_no_build_raises_without_the_plain_version(
         else:
             raise AssertionError("a CUDA tensor ran without a kernel")
     assert not any(kernels.launch_counts().values())
+
+
+def test_families_build_and_cross_files_with_jax_blocked(tmp_path):
+    """The yolov8 and yolo11 graphs (their blocks, the legacy head, PSA)
+    build seeded, run a forward at 32^2 and cross a `.ckpt` file with JAX,
+    flax, the JAX package and `cv2` blocked; the file names the family."""
+    code = _BLOCK.format(blocked=FORBIDDEN + ("cv2",)) + f"""
+import json, os
+import torch
+from yolou_tpu_torch.models.yolo import build_yolo
+from yolou_tpu_torch.utils.checkpoint import load_checkpoint
+from yolou_tpu_torch.utils.model_io import load_model, save_model
+x = torch.rand(1, 4, 32, 32, generator=torch.Generator().manual_seed(0))
+for arch in ("yolov8", "yolo11"):
+    m = build_yolo(arch, "n", nc=1, ch=4, task="segment", device="cpu",
+                   seed=1)
+    path = os.path.join({str(tmp_path)!r}, arch + ".ckpt")
+    save_model(path, m)
+    back = load_model(path, device="cpu")
+    assert json.loads(load_checkpoint(path)["meta_json"])["arch"] == arch
+    with torch.no_grad():
+        assert torch.equal(m(x).preds, back(x).preds)
+print("ok")
+"""
+    res = _run(code, REPO)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"

@@ -26,8 +26,14 @@ from yolou_tpu_torch.tools.convert import (SEGPP_PREFIX_MAP, jax_variables,
 
 from .torch_threads import one_torch_thread  # noqa: F401
 
-FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
-                       "yolov12n_seg_state_dict.txt")
+FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
+# released listing and the published parameter-count range of each family
+# (tests/test_released_keyset.py's)
+RELEASED = {
+    "yolov12": ("yolov12n_seg_state_dict.txt", 2.80e6, 2.92e6),
+    "yolov8": ("yolov8n_seg_state_dict.txt", 3.35e6, 3.47e6),
+    "yolo11": ("yolo11n_seg_state_dict.txt", 2.83e6, 2.95e6),
+}
 
 
 @pytest.fixture(scope="module")
@@ -62,9 +68,9 @@ def test_state_dict_loads_strict(variables):
         assert torch.equal(got[k], v), k
 
 
-def _fixture():
+def _fixture(name):
     out = {}
-    with open(FIXTURE) as f:
+    with open(os.path.join(FIXTURES, name)) as f:
         for line in f:
             if line.startswith("#") or not line.strip():
                 continue
@@ -73,11 +79,17 @@ def _fixture():
     return out
 
 
-def test_module_tree_matches_released_keyset():
-    model = build_yolo("yolov12", "n", nc=80, ch=3, task="segment",
-                       device="cpu")
+@pytest.mark.parametrize("arch", list(RELEASED))
+def test_module_tree_matches_released_keyset(arch):
+    """Name for name and shape for shape the released n-scale segment
+    checkpoint (nc=80, 3 channels), and the learned parameters within the
+    published count."""
+    name, lo, hi = RELEASED[arch]
+    model = build_yolo(arch, "n", nc=80, ch=3, task="segment", device="cpu")
     ours = {k: tuple(v.shape) for k, v in model.state_dict().items()}
-    assert ours == _fixture()
+    assert ours == _fixture(name)
+    learned = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    assert lo < learned < hi
 
 
 @pytest.mark.parametrize("c", [96, 192, 384])

@@ -65,15 +65,18 @@ def adapt_segment_head_to_detect(state_dict: Dict[str, torch.Tensor],
     return {k: v for k, v in state_dict.items() if not k.startswith(drop)}
 
 
-def build_segpp_from_detector(detector: YOLOModel, *, variant: str = "n",
-                              nc: int = 1, ch: int = 4,
-                              use_logits: bool = True, seed: int = 0,
+def build_segpp_from_detector(detector: YOLOModel, *, nc: int = 1,
+                              ch: int = 4, use_logits: bool = True,
+                              seed: int = 0,
                               dtype: torch.dtype = torch.float32,
                               device: torch.device | str = "cuda"
                               ) -> YOLOSegPP:
-    """YOLO-Seg++ with the detector's weights in its YOLO graph and a
-    seeded fresh decoder; a segment-task detector works too."""
-    model = build_segpp("yolov12", variant, nc, ch, "detect",
+    """YOLO-Seg++ over the detector's own family and scale, with the
+    detector's weights in its YOLO graph and a seeded fresh decoder (its
+    skip widths follow the graph); a segment-task detector works too. The
+    JAX package's builder takes yolov12 whatever the detector is."""
+    model = build_segpp(detector.spec.arch, detector.spec.variant, nc, ch,
+                        "detect",
                         use_logits=use_logits, dtype=dtype, device=device,
                         seed=seed)
     head = len(model.yolo.model) - 1

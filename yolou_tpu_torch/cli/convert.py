@@ -7,8 +7,8 @@ into the port's model (every learned tensor and BatchNorm statistic
 required; `num_batches_tracked` and the head's fixed DFL projection are
 derived), built on `--device`, and `utils/model_io.py`'s writer; the way
 back is `tools/convert.py::state_dict_from_jax` and `torch.save`, file to
-file on the host. Only the yolov12 graphs are ported; `--arch yolov8` /
-`yolo11` raise by name.
+file on the host. `--arch` takes the three families the JAX command
+takes (yolov12, yolov8, yolo11).
 
 Examples:
   python -m yolou_tpu_torch convert --pt best.pt --task segment --out best.ckpt
@@ -90,10 +90,6 @@ def main(argv=None):
         print(f"exported {len(sd)} tensors ({kind}) -> {args.pt}")
         return {"exported": len(sd)}
 
-    if args.arch != "yolov12":
-        raise NotImplementedError(
-            f"--arch {args.arch}: only the yolov12 graphs are ported "
-            f"(ROADMAP Queue 1 #6)")
     torch_sd = torch.load(args.pt, map_location="cpu", weights_only=True)
     if args.kind == "segpp":
         model = build_segpp(args.arch, args.variant, args.nc, args.channels,
@@ -122,7 +118,7 @@ def main(argv=None):
         print("  missing:", m)
     for u in report["unused"][:8]:
         print("  unused torch key:", u)
-    save_model(args.out, model, arch=args.arch, variant=args.variant)
+    save_model(args.out, model)
     print(f"saved {args.out}")
     return report
 

@@ -57,8 +57,7 @@ def main(argv=None):
         val_every=args.val_every)
     trainer = DetectorTrainer(model, data_cfg, cfg, device=device)
     history = trainer.train(resume_from=args.resume)
-    save_model(args.out, trainer.model, variant=args.variant,
-               state_dict=trainer.ema_variables())
+    save_model(args.out, trainer.model, state_dict=trainer.ema_variables())
     print(f"saved EMA weights to {args.out}")
     return history
 

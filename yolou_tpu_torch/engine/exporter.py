@@ -5,7 +5,8 @@ whole pipeline (uint8 images -> letterbox -> forward -> decode -> NMS) as
 one `ExportedProgram` of ATen operators. The hand-written kernels are
 `torch.library` operators (`kernels/`), so the program carries each launch
 as one node: 8 of kernel A (`yolou::band_attention_qkv`) and 1 of kernel B
-(`yolou::greedy_nms`) for yolov12n-seg; the NMS loop's data-dependent end
+(`yolou::greedy_nms`) for yolov12n-seg, 0 of A and 1 of B for the yolov8
+and yolo11 graphs (no area attention); the NMS loop's data-dependent end
 stays inside kernel B's operator. Loading the program needs those operators
 registered (`import yolou_tpu_torch.kernels`) and nothing else of the
 package's Python.
@@ -119,17 +120,18 @@ def _write_meta(out_dir: str, meta: Dict) -> Dict:
 
 def export_model(model: YOLOModel, out_dir: str, *, imgsz: int = 640,
                  batch: int = 1, channels: int = 4, conf: float = 0.25,
-                 iou: float = 0.45, max_det: int = 300,
-                 arch: str = "yolov12", variant: str = "n") -> Dict:
+                 iou: float = 0.45, max_det: int = 300) -> Dict:
     """Write the fused inference program, the weights and the manifest;
     returns the manifest. The JAX exporter's arguments, but for the
-    variables (the module holds them) and `platforms` (the program is
+    variables, the arch and the variant (the module holds them: the
+    manifest names the model's own family) and `platforms` (the program is
     traced on the model's device)."""
     in_shape = (batch, imgsz, imgsz, channels)
     device = _export(build_inference_fn(model, conf, iou, max_det, imgsz),
                      in_shape, out_dir, model)
     return _write_meta(out_dir, {
-        "arch": arch, "variant": variant, "task": model.spec.task,
+        "arch": model.spec.arch, "variant": model.spec.variant,
+        "task": model.spec.task,
         "nc": model.spec.nc, "imgsz": imgsz, "batch": batch,
         "channels": channels, "stem_s2d": False, "platforms": [device],
         "conf": conf, "iou": iou, "max_det": max_det,

@@ -19,8 +19,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from ..nn.attention import A2C2f
-from ..nn.blocks import C3k2, Concat, Conv
+from ..nn.attention import A2C2f, C2PSA
+from ..nn.blocks import C2f, C3k2, Concat, Conv, SPPF
 from ..nn.heads import Detect, Segment, decode_detections
 from . import specs
 
@@ -55,13 +55,18 @@ class ModelSpec:
     nm: int = 32
     npr: int = 64
     reg_max: int = 16
+    # ultralytics Detect.legacy: the v8 family's plain-Conv class branch
+    legacy_head: bool = False
+    # the family and scale the graph was parsed from, which a model file
+    # records
+    arch: str = "yolov12"
+    variant: str = "n"
 
 
 def parse_model_spec(arch: str = "yolov12", variant: str = "n", nc: int = 1,
                      ch: int = 4, task: str = "detect") -> ModelSpec:
     if arch not in specs.SPECS:
-        raise NotImplementedError(f"arch {arch!r} is not ported; "
-                                  f"have {sorted(specs.SPECS)}")
+        raise ValueError(f"unknown arch {arch!r}; have {sorted(specs.SPECS)}")
     backbone, head, scales = specs.SPECS[arch]
     depth, width, max_ch = scales[variant]
     layers, channels = [], [ch]
@@ -73,7 +78,7 @@ def parse_model_spec(arch: str = "yolov12", variant: str = "n", nc: int = 1,
         if block == "Conv":
             c2 = specs.scale_channels(args[0], width, max_ch)
             layers.append(LayerDef(frm, 1, "Conv", (c2, args[1], args[2])))
-        elif block in ("C3k2", "A2C2f"):
+        elif block in ("C3k2", "C2f", "A2C2f", "SPPF", "C2PSA"):
             c2 = specs.scale_channels(args[0], width, max_ch)
             layers.append(LayerDef(frm, n_scaled, block, (c2,) + tuple(args[1:])))
         elif block == "Upsample":
@@ -90,7 +95,8 @@ def parse_model_spec(arch: str = "yolov12", variant: str = "n", nc: int = 1,
         channels.append(c2)
     return ModelSpec(layers=tuple(layers), channels=tuple(channels),
                      head_from=head_from, strides=(8, 16, 32), nc=nc,
-                     task=task, npr=specs.scale_channels(256, width, max_ch))
+                     task=task, npr=specs.scale_channels(256, width, max_ch),
+                     legacy_head=arch == "yolov8", arch=arch, variant=variant)
 
 
 class YOLOModel(nn.Module):
@@ -114,6 +120,13 @@ class YOLOModel(nn.Module):
                 m = C3k2(cin, a[0], layer.repeats,
                          c3k=a[1] if len(a) > 1 else False,
                          e=a[2] if len(a) > 2 else 0.5)
+            elif layer.block == "C2f":
+                m = C2f(cin, a[0], layer.repeats,
+                        shortcut=a[1] if len(a) > 1 else False)
+            elif layer.block == "SPPF":
+                m = SPPF(cin, a[0], a[1])
+            elif layer.block == "C2PSA":
+                m = C2PSA(cin, a[0], layer.repeats)
             elif layer.block == "A2C2f":
                 area = a[2] if len(a) > 2 else 1
                 area = area if isinstance(area, int) and area > 0 else 1
@@ -127,9 +140,10 @@ class YOLOModel(nn.Module):
                 m = Concat()
             else:  # HEAD
                 ch = tuple(spec.channels[k + 1] for k in layer.frm)
-                m = (Segment(spec.nc, spec.nm, spec.npr, ch, spec.reg_max)
+                m = (Segment(spec.nc, spec.nm, spec.npr, ch, spec.reg_max,
+                             spec.legacy_head)
                      if spec.task == "segment"
-                     else Detect(spec.nc, ch, spec.reg_max))
+                     else Detect(spec.nc, ch, spec.reg_max, spec.legacy_head))
             mods.append(m)
         self.model = nn.ModuleList(mods)
 

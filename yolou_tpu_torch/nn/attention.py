@@ -177,3 +177,65 @@ class A2C2f(nn.Module):
         y = [self.cv1(x)]
         y.extend(m(y[-1]) for m in self.m)
         return self.cv2(torch.cat(y, 1))
+
+
+class PSAAttention(nn.Module):
+    """YOLO11's PSA attention over all H*W tokens: a qkv 1x1 conv whose
+    channels are head-major, each head [q (kd) | k (kd) | v (hd)] with
+    kd = hd * attn_ratio (ultralytics' layout, so no permutation); q k^T
+    accumulated in f32, scaled by kd^-0.5, softmax in f32, cast to the
+    compute dtype, times v; a dw3x3 positional term on v and a 1x1
+    projection of the sum. Plain tensor operations: the JAX package runs
+    this attention through `einsum`, not a Pallas kernel."""
+
+    def __init__(self, dim: int, num_heads: int = 8, attn_ratio: float = 0.5):
+        super().__init__()
+        self.num_heads = num_heads
+        self.head_dim = dim // num_heads
+        self.key_dim = int(self.head_dim * attn_ratio)
+        self.qkv = Conv(dim, dim + 2 * self.key_dim * num_heads, 1, act=False)
+        self.proj = Conv(dim, dim, 1, act=False)
+        self.pe = Conv(dim, dim, 3, 1, g=dim, act=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C, H, W = x.shape
+        kd, hd = self.key_dim, self.head_dim
+        q, k, v = self.qkv(x).view(B, self.num_heads, 2 * kd + hd,
+                                   H * W).split([kd, kd, hd], 2)
+        attn = torch.matmul(q.transpose(-2, -1).float(), k.float())
+        attn = torch.softmax(attn * kd ** -0.5, -1).to(x.dtype)
+        # (B, h, hd, N) @ (B, h, N, N)^T: the output's channel h*hd + d
+        out = torch.matmul(v, attn.transpose(-2, -1)).reshape(B, C, H, W)
+        return self.proj(out + self.pe(v.reshape(B, C, H, W)))
+
+
+class PSABlock(nn.Module):
+    """x + attn(x); x + ffn(x) with ffn a 1x1 Conv to 2c and one back
+    without activation."""
+
+    def __init__(self, c: int, attn_ratio: float = 0.5, num_heads: int = 4):
+        super().__init__()
+        self.attn = PSAAttention(c, num_heads, attn_ratio)
+        self.ffn = nn.Sequential(Conv(c, 2 * c, 1), Conv(2 * c, c, 1,
+                                                         act=False))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(x)
+        return x + self.ffn(x)
+
+
+class C2PSA(nn.Module):
+    """YOLO11's PSA stage: cv1 -> split (a, b) -> n PSABlocks on b (heads
+    c // 64) -> cv2 of (a, b)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, e: float = 0.5):
+        super().__init__()
+        self.c = int(c2 * e)
+        self.cv1 = Conv(c1, 2 * self.c, 1, 1)
+        self.cv2 = Conv(2 * self.c, c2, 1)
+        self.m = nn.Sequential(*(PSABlock(self.c, 0.5, max(1, self.c // 64))
+                                 for _ in range(n)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a, b = self.cv1(x).chunk(2, 1)
+        return self.cv2(torch.cat([a, self.m(b)], 1))

@@ -134,24 +134,54 @@ class C3k(C3):
         super().__init__(c1, c2, n, shortcut, g, e, k=(k, k))
 
 
-class C3k2(nn.Module):
-    """v11/v12 C2f variant whose inner blocks are C3k (c3k=True) or
-    Bottleneck."""
+class C2f(nn.Module):
+    """v8 cross-stage partial block: cv1 -> split -> n Bottlenecks (e=1.0),
+    each on the last output -> concat of all -> cv2."""
 
-    def __init__(self, c1: int, c2: int, n: int = 1, c3k: bool = False,
-                 e: float = 0.5, g: int = 1, shortcut: bool = True):
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False,
+                 g: int = 1, e: float = 0.5):
         super().__init__()
         self.c = int(c2 * e)
         self.cv1 = Conv(c1, 2 * self.c, 1)
         self.cv2 = Conv((2 + n) * self.c, c2, 1)
         self.m = nn.ModuleList(
-            C3k(self.c, self.c, 2, shortcut, g) if c3k
-            else Bottleneck(self.c, self.c, shortcut, g, k=(3, 3), e=0.5)
+            Bottleneck(self.c, self.c, shortcut, g, k=(3, 3), e=1.0)
             for _ in range(n))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = list(self.cv1(x).chunk(2, 1))
         y.extend(m(y[-1]) for m in self.m)
+        return self.cv2(torch.cat(y, 1))
+
+
+class C3k2(C2f):
+    """v11/v12 C2f variant whose inner blocks are C3k (c3k=True) or
+    Bottleneck (e=0.5)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, c3k: bool = False,
+                 e: float = 0.5, g: int = 1, shortcut: bool = True):
+        super().__init__(c1, c2, n, shortcut, g, e)
+        self.m = nn.ModuleList(
+            C3k(self.c, self.c, 2, shortcut, g) if c3k
+            else Bottleneck(self.c, self.c, shortcut, g, k=(3, 3), e=0.5)
+            for _ in range(n))
+
+
+class SPPF(nn.Module):
+    """Spatial pyramid pooling, fast: cv1 to half the *input* width, three
+    chained kxk stride-1 max-pools (padding acts as -inf, as flax's
+    `max_pool` pads), concat of the four, cv2."""
+
+    def __init__(self, c1: int, c2: int, k: int = 5):
+        super().__init__()
+        c_ = c1 // 2
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv(c_ * 4, c2, 1, 1)
+        self.m = nn.MaxPool2d(k, 1, k // 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = [self.cv1(x)]
+        y.extend(self.m(y[-1]) for _ in range(3))
         return self.cv2(torch.cat(y, 1))
 
 

@@ -1,9 +1,10 @@
-"""Detect / Segment heads (YOLOv11/v12 style) in PyTorch, NCHW.
+"""Detect / Segment heads (YOLOv8-v12) in PyTorch, NCHW.
 
 Counterparts of `yolou_tpu/nn/heads.py`, computed in the staged form: per
 level a box branch (2x Conv3x3 -> 1x1 to 4*reg_max), a class branch
-(2x [DWConv3x3 + Conv1x1] -> 1x1 to nc) and, for Segment, a mask-coefficient
-branch and the Proto module. The JAX eval path batches sibling entry convs
+(2x [DWConv3x3 + Conv1x1] -> 1x1 to nc; with `legacy`, the v8 family's
+2x Conv3x3 -> 1x1) and, for Segment, a mask-coefficient branch and the
+Proto module. The JAX eval path batches sibling entry convs
 into one wider conv; that is a TPU rewrite of the same function.
 """
 
@@ -34,9 +35,13 @@ class DFL(nn.Module):
 
 class Detect(nn.Module):
     """Anchor-free detection head over (P3, P4, P5); returns raw NCHW maps
-    with channels [4*reg_max box distribution | nc class logits]."""
+    with channels [4*reg_max box distribution | nc class logits].
+    `legacy` is ultralytics' `Detect.legacy`: the class branch of the v8
+    family, plain Conv3x3 stages (`cv3.i.0.conv`) where v11/v12 nest a
+    DWConv and a 1x1 Conv in each stage (`cv3.i.0.0.conv`)."""
 
-    def __init__(self, nc: int = 80, ch: Sequence[int] = (), reg_max: int = 16):
+    def __init__(self, nc: int = 80, ch: Sequence[int] = (), reg_max: int = 16,
+                 legacy: bool = False):
         super().__init__()
         self.nc, self.reg_max = nc, reg_max
         c2 = max(16, ch[0] // 4, reg_max * 4)
@@ -45,9 +50,12 @@ class Detect(nn.Module):
             nn.Sequential(Conv(x, c2, 3), Conv(c2, c2, 3),
                           nn.Conv2d(c2, 4 * reg_max, 1)) for x in ch)
         self.cv3 = nn.ModuleList(
-            nn.Sequential(nn.Sequential(DWConv(x, x, 3), Conv(x, c3, 1)),
-                          nn.Sequential(DWConv(c3, c3, 3), Conv(c3, c3, 1)),
-                          nn.Conv2d(c3, nc, 1)) for x in ch)
+            nn.Sequential(Conv(x, c3, 3), Conv(c3, c3, 3),
+                          nn.Conv2d(c3, nc, 1)) if legacy
+            else nn.Sequential(
+                nn.Sequential(DWConv(x, x, 3), Conv(x, c3, 1)),
+                nn.Sequential(DWConv(c3, c3, 3), Conv(c3, c3, 1)),
+                nn.Conv2d(c3, nc, 1)) for x in ch)
         self.dfl = DFL(reg_max)
 
     @staticmethod
@@ -69,8 +77,9 @@ class Segment(Detect):
     Returns (raw maps, mask_coefs (B, N, nm), protos (B, nm, Hm, Wm))."""
 
     def __init__(self, nc: int = 80, nm: int = 32, npr: int = 256,
-                 ch: Sequence[int] = (), reg_max: int = 16):
-        super().__init__(nc, ch, reg_max)
+                 ch: Sequence[int] = (), reg_max: int = 16,
+                 legacy: bool = False):
+        super().__init__(nc, ch, reg_max, legacy)
         self.nm, self.npr = nm, npr
         c4 = max(ch[0] // 4, nm)
         self.cv4 = nn.ModuleList(

@@ -15,6 +15,8 @@ here so that this package never imports JAX:
   ECA Conv1d kernel (k,1,1)           -> weight (1,1,k)
   AAttn qkv (role-major thirds)       -> head-major interleave (ultralytics)
 
+(PSA's qkv is head-major on both sides and keeps its channel order.)
+
 plus the non-learned keys of released checkpoints: `num_batches_tracked`
 (0) per BatchNorm and the head's fixed DFL projection. `prefix_map`
 rewrites the start of a name, as the JAX exporter's argument of that name:
@@ -40,8 +42,9 @@ from torch import nn
 
 from ..models.segpp import SegPPDecoder, YOLOSegPP
 from ..models.yolo import YOLOModel
-from ..nn.attention import A2C2f, AAttn, ABlock, aattn_qkv_permutation
-from ..nn.blocks import (C3, C3k, C3k2, DoubleLightConv, DWConv, ECA,
+from ..nn.attention import (A2C2f, AAttn, ABlock, C2PSA, PSABlock,
+                            aattn_qkv_permutation)
+from ..nn.blocks import (C2f, C3, C3k, DoubleLightConv, DWConv, ECA,
                          GhostBottleneck, SingleLightConv)
 from ..nn.heads import Detect, Segment
 
@@ -51,6 +54,7 @@ from ..nn.heads import Detect, Segment
 _WRAPPERS = ("dw", "c3", "detect", "decoder")
 _TABLE = {
     "mlp1": "mlp.0", "mlp2": "mlp.1",
+    "ffn1": "ffn.0", "ffn2": "ffn.1",             # PSABlock
     # GhostBottleneck.conv is a 3-slot Sequential at either stride
     "ghost1": "conv.0", "ghost2": "conv.2", "dwmid": "conv.1",
     "sc_dw": "shortcut.0", "sc_pw": "shortcut.1",
@@ -200,11 +204,13 @@ def _flax_segments(owner: nn.Module, names: List[str],
             # Segment nests the detection branches in a Detect named "detect"
             wrap = isinstance(owner, Segment) and first != "cv4"
             return ("detect", seg) if wrap else (seg,)
-    if isinstance(owner, (A2C2f, C3k2, C3)) and first == "m":
+    if isinstance(owner, (A2C2f, C2f, C2PSA, C3)) and first == "m":
         seg = f"m{names[1]}" + (f"_{names[2]}" if len(names) == 3 else "")
         return (seg, "c3") if isinstance(mod, C3k) else (seg,)
     if isinstance(owner, ABlock) and first == "mlp":
         return (f"mlp{int(names[1]) + 1}",)
+    if isinstance(owner, PSABlock) and first == "ffn":
+        return (f"ffn{int(names[1]) + 1}",)
     if isinstance(owner, GhostBottleneck) and len(names) == 2:
         slots = {"conv": ("ghost1", "dwmid", "ghost2"),
                  "shortcut": ("sc_dw", "sc_pw")}

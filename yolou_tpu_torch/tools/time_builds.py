@@ -20,12 +20,21 @@ difference. Prints one JSON object: case -> directory -> {"device_ms":
 back-to-back calls (`profile_layers.call_ms`, which counts the host too
 where it sets the pace), each over `--iters` calls after 3 warm-up calls.
 Compare two builds only within one run.
+
+`nms_bounds()` gives the NMS cases' bound, on any device: the least time
+the card could take, the larger of the bytes moved over 3.35 TB/s and 16
+f32 operations per IoU test this data needs (each kept box against every
+later candidate) over 67 TFLOP/s, as `chip_smoke.py` counts them:
+
+    python -c "from yolou_tpu_torch.tools.time_builds import nms_bounds; \
+print(nms_bounds())"
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 from pathlib import Path
 
@@ -52,6 +61,10 @@ A2C2F_CASES = [("a2c2f L6@640", (8, 40, 40, 128), 128, 2, 4, 2),
 # name, (B, K): the serving request and the evaluation step's batch
 NMS_CASES = [("B (8,512)", (8, 512)), ("B (16,512)", (16, 512))]
 NMS_IOU = 0.45
+# published peaks of one H100 SXM: HBM3 bytes/s, f32 FLOP/s outside the
+# tensor cores
+HBM_BYTES_S = 3.35e12
+F32_FLOPS = 67e12
 
 
 def load_library(csrc: Path):
@@ -130,8 +143,32 @@ def _calls(device):
         wh = rng.random((bsz, k, 2), np.float32) * 120 + 8
         boxes = torch.from_numpy(np.concatenate([xy, xy + wh], -1)).to(device)
         valid = torch.ones((bsz, k), dtype=torch.bool, device=device)
-        calls[name] = lambda b=boxes, v=valid: _nms(b, v)
+        calls[name] = functools.partial(_nms, boxes, valid)
     return calls
+
+
+def nms_bounds(device: str = "cpu"):
+    """NMS case -> {kept, iou_tests, bytes, bound_ms, bound_by} on the
+    inputs `_calls` times: the boxes and valid mask read once, the keep
+    mask written once; the keep-set is the plain version's on the CPU (the
+    kernel's, identical, on the card)."""
+    out = {}
+    for name, fn in _calls(torch.device(device)).items():
+        if not name.startswith("B "):
+            continue
+        boxes, valid = fn.args
+        keep = suppress_greedy(boxes, valid, NMS_IOU)
+        bsz, k = valid.shape
+        later = (k - 1 - torch.arange(k, device=keep.device)).expand(bsz, k)
+        tests = int(later[keep].sum())
+        nbytes = boxes.numel() * 4 + 2 * valid.numel()
+        t_bytes = nbytes / HBM_BYTES_S * 1e3
+        t_ops = 16 * tests / F32_FLOPS * 1e3
+        out[name] = {"kept": int(keep.sum()), "iou_tests": tests,
+                     "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations"}
+    return out
 
 
 def time_builds(dirs, iters: int = 20, cases: str = ""):

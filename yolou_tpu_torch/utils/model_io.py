@@ -26,19 +26,19 @@ from .checkpoint import load_checkpoint, save_checkpoint
 MAGIC = "yolou_tpu_model_v1"
 
 
-def save_model(path: str, model: nn.Module, *, arch: str = "yolov12",
-               variant: str = "n",
+def save_model(path: str, model: nn.Module, *,
                state_dict: Optional[Dict[str, torch.Tensor]] = None) -> None:
     """Write `model` (a `YOLOModel` or `YOLOSegPP`) with the weights of
-    `state_dict` (its own by default, e.g. a trainer's EMA weights). nc, ch,
-    task and the kind are the model's; arch and variant are not recorded in
-    its spec and are given."""
+    `state_dict` (its own by default, e.g. a trainer's EMA weights). The
+    meta (arch, variant, nc, ch, task, kind) is the model's own, so a file
+    always names the family its variables belong to."""
     spec = model.spec
     segpp = isinstance(model, YOLOSegPP)
     if not segpp and not isinstance(model, YOLOModel):
         raise TypeError(f"save_model takes a YOLOModel or YOLOSegPP, not "
                         f"{type(model).__name__}")
-    meta = {"magic": MAGIC, "arch": arch, "variant": variant, "nc": spec.nc,
+    meta = {"magic": MAGIC, "arch": spec.arch, "variant": spec.variant,
+            "nc": spec.nc,
             "ch": spec.channels[0], "task": spec.task,
             "kind": "segpp" if segpp else "yolo",
             "use_logits": model.use_logits if segpp else True}
