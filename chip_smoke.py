@@ -56,8 +56,16 @@ Phases, one or more output lines each:
                attention launches a batch, no NMS); `DecoderTrainer.train()`
                over them, batch 128, 3 epochs (12 updates: finite history,
                the loss not up by more than 0.2, decoder moved, encoder
-               bit-identical, best.pt / last.pt / history.csv written), then
-               resumed from last.pt with 4 epochs (one more epoch, step 16);
+               bit-identical, best.ckpt / last.ckpt / history.csv
+               written); last.ckpt, the JAX package's decoder training
+               state, read into a fresh trainer bit-identical to the one
+               that wrote it (parameters, statistics, AdamW's moments and
+               step, the schedule) and written again byte for byte, its
+               bytes and write and read seconds; one more update on both
+               from the same batch (bit-identical where every kernel is
+               deterministic, else within the tolerance `twin_steps`
+               states); then resumed from last.ckpt with 4 epochs (one
+               more epoch, step 16);
                the step's time, parts, busy share and launches; an Evaluator
                on the test split with the trained decoder (8 band attention
                and one NMS launch a step); one f32 step card vs CPU; kernel
@@ -70,19 +78,25 @@ Phases, one or more output lines each:
                `DetectorTrainer.train()` over seeded in-memory splits of
                elliptic tumours (128 train, 64 val) with validation every
                epoch, 3 epochs with close_mosaic 1 (finite history, mAP50
-               and mAP50-95 in [0, 1], best.pt and last.pt, 8 forward
+               and mAP50-95 in [0, 1], best.ckpt and last.ckpt, 8 forward
                launches and 8 backward calls of kernel C a step, 8 of
                kernel A and 1 of kernel B a validation batch, the training
                model's mode and BatchNorm statistics unchanged by each
-               validation), then resumed from last.pt for a fourth epoch
-               and validation; a training step's time, a validation pass's
+               validation); last.ckpt, the JAX package's tree-form
+               training state, read into a fresh trainer bit-identical to
+               the one that wrote it (parameters, statistics, EMA, SGD
+               momentum, counters) and written again byte for byte, its
+               bytes and write and read seconds; one more step on both
+               from the same batch and generator state; then resumed from
+               last.ckpt for a fourth epoch and validation; a training step's time, a validation pass's
                images/s, parts (upload, forward, NMS, copy back, host
                matching + AP, timed through the validator's own parts) and
                busy share; in f32 on the card and the CPU, the calibrated
                weights validated (metrics within 1e-4, the same number of
                detections on every image) and the best EMA weights (metrics
                within 1e-4; detections the same but for near-ties within
-               1e-4 of an NMS decision, each named); a `.ckpt` model file of
+               1e-4 of an NMS decision, each named; the EMA read from the
+               card's best.ckpt by a CPU trainer); a `.ckpt` model file of
                the best EMA weights
                read back onto the card (forward bit-identical) and a
                Predictor over it answering one request.
@@ -1235,19 +1249,35 @@ def train_decoder_phase(state_dict, device):
             raise AssertionError("the training loss went up")
         if not encoder_same or moved < 10:
             raise AssertionError("encoder changed or decoder did not move")
-        if not {"best.pt", "last.pt", "history.csv"} <= set(files):
+        if not {"best.ckpt", "last.ckpt", "history.csv"} <= set(files):
             raise AssertionError(f"the run wrote {files}")
+
+        # the run's last.ckpt in a fresh trainer: the same state, bit for
+        # bit, and the same next step
+        last = os.path.join(run, "weights", "last.ckpt")
+        fresh = decoder_trainer(segpp_sd, None, torch.bfloat16, datasets,
+                                os.path.join(run_dir, "c"))
+        fresh.ensure_ready(DEC_SPLITS["train"] // DEC_BATCH)
+        state_io = reload_check("train-decoder", tr, fresh, last, tr._save,
+                                fresh.load_checkpoint)
+        batch = next(data["train"].batches(DEC_BATCH, u8=True))[:3]
+        # the run's cosine reaches 0 at its last update: lengthen both
+        # schedules alike, so that the extra update moves the weights
+        for t in (tr, fresh):
+            t.ensure_ready(2 * DEC_SPLITS["train"] // DEC_BATCH)
+        twin = twin_steps("train-decoder", tr, fresh,
+                          lambda t: t.step(*batch)[0],
+                          adamw_lr=tr.optimizer.param_groups[0]["lr"])
 
         tr2 = decoder_trainer(segpp_sd, None, torch.bfloat16, datasets,
                               os.path.join(run_dir, "b"),
                               epochs=DEC_EPOCHS + 1)
-        h2 = tr2.train(resume_from=os.path.join(run, "weights", "last.pt"))
+        h2 = tr2.train(resume_from=last)
         log("train-decoder", check="resume", epochs=len(h2["train_loss"]),
             steps=tr2.step_count, epoch_seconds=tr2.epoch_times, **h2)
         if len(h2["train_loss"]) != 1 or tr2.step_count != steps + 4:
             raise AssertionError(f"resume ran {len(h2['train_loss'])} "
                                  f"epochs to step {tr2.step_count}")
-        batch = next(data["train"].batches(DEC_BATCH, u8=True))[:3]
         times = decoder_step_times(tr2, batch)
         log("train-decoder", batch=DEC_BATCH, imgsz=EVAL_IMGSZ, **times,
             peak_memory_mb=torch.cuda.max_memory_allocated() / 2 ** 20)
@@ -1277,7 +1307,120 @@ def train_decoder_phase(state_dict, device):
     return {"launches": {"objectmaps": map_counts,
                          "train-decoder": train_counts,
                          "train-decoder-evaluate": eval_counts},
-            "attention_backward_calls": calls}
+            "attention_backward_calls": calls,
+            "training_state": dict(state_io, twin_step=twin)}
+
+
+# ------------------------------------------------------------- training state
+
+def state_differences(a, b) -> list:
+    """Where two trainers' training states differ: every parameter and
+    BatchNorm statistic, the EMA (detector), each parameter's optimizer
+    state, the counters and the decoder's schedule. `num_batches_tracked`
+    is left out: no training state holds it and the port's BatchNorm never
+    reads it. Empty where the two are bit-identical."""
+    import torch
+    out = []
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    out += [k for k in sa if not k.endswith("num_batches_tracked")
+            and not torch.equal(sa[k], sb[k])]
+    out += [f"ema {i}" for i, (x, y) in enumerate(zip(
+        getattr(a, "ema_params", None) or [],
+        getattr(b, "ema_params", None) or [])) if not torch.equal(x, y)]
+    pb = dict(b.model.named_parameters())
+    for name, p in a.model.named_parameters():
+        x, y = a.optimizer.state.get(p, {}), b.optimizer.state.get(pb[name], {})
+        if set(x) != set(y):
+            out.append(f"optimizer {name}: {sorted(x)} / {sorted(y)}")
+            continue
+        out += [f"optimizer {name} {k}" for k in x
+                if not torch.equal(x[k].cpu(), y[k].cpu())]
+    for c in ("step_count", "opt_count", "_notfinite", "total_notfinite",
+              "last_finite"):
+        if getattr(a, c, None) != getattr(b, c, None):
+            out.append(f"{c}: {getattr(a, c, None)} / {getattr(b, c, None)}")
+    if getattr(a, "scheduler", None) is not None and (
+            a.scheduler.last_epoch != b.scheduler.last_epoch
+            or a.optimizer.param_groups[0]["lr"]
+            != b.optimizer.param_groups[0]["lr"]):
+        out.append("schedule")
+    return out
+
+
+def reload_check(phase: str, tr, fresh, path: str, save, load) -> dict:
+    """`path` (the run's `last.ckpt`) read into the `fresh` trainer (its
+    optimizer built) must give `tr`'s state bit for bit; the state written
+    again by `save` must be `path`'s bytes. Logs the bytes and the write
+    and read seconds (host clock) beside the card."""
+    import os
+    again = path + ".again"
+    t0 = time.perf_counter()
+    save(again)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    load(path)
+    read_s = time.perf_counter() - t0
+    with open(path, "rb") as f, open(again, "rb") as g:
+        same_bytes = f.read() == g.read()
+    os.remove(again)
+    diffs = state_differences(tr, fresh)
+    out = {"bytes": os.path.getsize(path), "write_s": write_s,
+           "read_s": read_s}
+    log(phase, check="training state", **out, rewrite_same_bytes=same_bytes,
+        bit_identical=not diffs, differences=diffs[:5], card=card_line())
+    if diffs or not same_bytes:
+        raise AssertionError(f"{phase}: the reloaded state differs: "
+                             f"{diffs[:5]}, same bytes {same_bytes}")
+    return out
+
+
+def twin_steps(phase: str, a, b, step, adamw_lr=None) -> dict:
+    """One more step on trainers `a` and `b`, which hold the same state,
+    by `step(trainer)` (the same batch and generator state for each), with
+    cuDNN's deterministic algorithms on and torch's deterministic mode in
+    its warning form. Bit-identical where every kernel of the step is
+    deterministic; else the losses within 1e-3 relative and each updated
+    parameter within 2 % of the step's largest update (for AdamW, whose
+    update is about lr an element whatever the gradient, every element
+    within 2 lr and all but 0.5 % within that 2 %). Logs the ops that have
+    no deterministic form."""
+    import warnings
+    import torch
+    before = [p.detach().clone() for p in a.model.parameters()]
+    mode = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled(),
+            torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            la, lb = float(step(a)), float(step(b))
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(mode[0], warn_only=mode[1])
+        torch.backends.cudnn.deterministic = mode[2]
+    ops = sorted({str(w.message).split(" does not have")[0]
+                  for w in caught if "deterministic" in str(w.message)})
+    upd = max(float((p.detach() - q).abs().max())
+              for p, q in zip(a.model.parameters(), before))
+    d = torch.cat([(p.detach() - q.detach()).abs().flatten() for p, q in
+                   zip(a.model.parameters(), b.model.parameters())])
+    diff, far = float(d.max()), float((d > 0.02 * upd).float().mean())
+    diffs = state_differences(a, b)
+    out = {"loss": [la, lb], "bit_identical": not diffs and la == lb,
+           "max_update": upd, "max_param_diff": diff,
+           "share_past_2pc": far, "nondeterministic_ops": ops}
+    log(phase, check="one more step on both", **out)
+    if not out["bit_identical"]:
+        ok = abs(la - lb) <= 1e-3 * abs(la)
+        if adamw_lr is None:
+            ok = ok and diff <= 0.02 * upd
+        else:
+            ok = ok and diff <= 2 * adamw_lr and far <= 5e-3
+        if not ok:
+            raise AssertionError(f"{phase}: the two trainers parted: {out}")
+    return out
 
 
 # ------------------------------------------------------------- training
@@ -1771,13 +1914,29 @@ def finetune_phase(device):
                 and all(0.0 <= v <= 1.0
                         for v in history["map50"] + history["map"])):
             raise AssertionError(f"history: {history}")
-        if files != ["best.pt", "last.pt"]:
+        if files != ["best.ckpt", "last.ckpt"]:
             raise AssertionError(f"the run wrote {files}")
+
+        # the run's last.ckpt in a fresh trainer: the same state, bit for
+        # bit, and the same next step from the same batch and generator
+        last = os.path.join(run, "weights", "last.ckpt")
+        fresh = ft_trainer(sd, None, torch.bfloat16, data,
+                           os.path.join(run_dir, "c"), FT_EPOCHS)
+        fresh.ensure_ready(FT_STEPS)
+        state_io = reload_check("finetune", tr, fresh, last,
+                                tr.save_checkpoint, fresh.load_resume)
+        cb = collate_idmap_cached(data[0], list(range(EVAL_BATCH)), 16)
+        batch = (cb["img"], cb["idmap"], cb["cls"], cb["valid"])
+
+        def one_step(t):
+            gen = torch.Generator(device=t.device).manual_seed(SEED + 1)
+            return t.step(batch, gen, use_mosaic=False)[0]
+        twin = twin_steps("finetune", tr, fresh, one_step)
 
         tr2 = ft_trainer(sd, None, torch.bfloat16, data,
                          os.path.join(run_dir, "b"), FT_EPOCHS + 1)
         kernels.reset_launch_counts()
-        h2 = tr2.train(resume_from=os.path.join(run, "weights", "last.pt"))
+        h2 = tr2.train(resume_from=last)
         resume_counts = kernels.launch_counts()
         log("finetune", check="resume", steps=tr2.step_count,
             epoch_seconds=tr2.epoch_times,
@@ -1789,8 +1948,6 @@ def finetune_phase(device):
                                  f"step {tr2.step_count}")
 
         # times: a training step, a validation pass and its parts
-        cb = collate_idmap_cached(data[0], list(range(EVAL_BATCH)), 16)
-        batch = (cb["img"], cb["idmap"], cb["cls"], cb["valid"])
         gen = torch.Generator(device=tr2.device).manual_seed(SEED)
         step_ms = cuda_ms(lambda: tr2.step(batch, gen, use_mosaic=True),
                           iters=5, warmup=1)
@@ -1819,7 +1976,7 @@ def finetune_phase(device):
         # the best EMA weights: f32 card vs CPU, then a model file
         keep = ft_trainer(sd, "cpu", torch.float32, data, run_dir, 1)
         keep.ensure_ready(FT_STEPS)
-        keep.load_resume(os.path.join(run, "weights", "best.pt"))
+        keep.load_resume(os.path.join(run, "weights", "best.ckpt"))
         ema = keep.ema_variables()
         compare_validation_f32(sd, data[1], "calibrated", near_ties=False)
         compare_validation_f32(ema, data[1], "best EMA", near_ties=True)
@@ -1850,7 +2007,8 @@ def finetune_phase(device):
     return {"validate": {k: sum(v[k] for v in val_launches)
                          for k in val_launches[0]},
             "train": counts["band_attention_train"],
-            "backward": backward["band_attention_train"]}
+            "backward": backward["band_attention_train"],
+            "training_state": dict(state_io, twin_step=twin)}
 
 
 # ------------------------------------------------------------- command line
@@ -2864,6 +3022,8 @@ def main() -> int:
     eval_counts = evaluate(state_dict, device)
     dec = train_decoder_phase(state_dict, device)
     ft = finetune_phase(device)
+    log("training-state", finetune=ft["training_state"],
+        train_decoder=dec["training_state"], card=card_line())
     with tempfile.TemporaryDirectory() as root:
         cli = cli_phase(device, root)
         with cv2_blocked():

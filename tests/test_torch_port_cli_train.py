@@ -6,7 +6,8 @@ synthetic directory of `test_torch_port_cli.py` (the decoder after
 `generate-objectmaps`): their files are written, and the `.ckpt` each
 writes is read by the JAX package's `load_model`, whose forward must agree
 with the port's reading of it within 1e-5 (trajectories are held against
-JAX at the trainer level, not here)."""
+JAX at the trainer level, not here). `train-detector --resume` takes a
+JAX-written training state in the JAX command's default flat form."""
 
 import os
 
@@ -47,7 +48,7 @@ def test_train_commands_write_files_jax_reads(data, det_ckpt, tmp_path):
     assert len(hist["loss"]) == len(hist["map50"]) == 1
     run = os.listdir(tmp_path / "rd")
     assert len(run) == 1 and sorted(os.listdir(
-        tmp_path / "rd" / run[0] / "weights")) == ["best.pt", "last.pt"]
+        tmp_path / "rd" / run[0] / "weights")) == ["best.ckpt", "last.ckpt"]
     x = np.random.default_rng(0).random((2, IMGSZ, IMGSZ, 4), np.float32)
     got, want = _forwards_agree(out, x)
     np.testing.assert_allclose(got.preds.numpy(),
@@ -69,3 +70,41 @@ def test_train_commands_write_files_jax_reads(data, det_ckpt, tmp_path):
     got, want = _forwards_agree(final, x)
     np.testing.assert_allclose(got[0].permute(0, 2, 3, 1).numpy(),
                                np.asarray(want[0]), atol=1e-5, rtol=0)
+
+
+def test_train_detector_resumes_the_jax_default_state(data, det_ckpt,
+                                                      tmp_path):
+    """`train-detector --resume` of a JAX-written `last.ckpt` in the JAX
+    command's default flat form: the state of `det_ckpt`'s weights after
+    one epoch of 2 steps (4 images, batch 2), written by the JAX package's
+    own trainer and checkpoint code. The port's command reads it and runs
+    the one epoch left of two; its run writes the port's tree form."""
+    from yolou_tpu.engine import trainer_detector as jtd
+    from yolou_tpu.utils.checkpoint import save_checkpoint
+    from yolou_tpu.utils.model_io import load_model as jload
+    from yolou_tpu_torch.utils.checkpoint import load_checkpoint
+    from yolou_tpu_torch.utils.train_state import state_form
+    _, yaml = data
+    jmod, variables = jload(det_ckpt)
+    jtr = jtd.DetectorTrainer(jmod, jax.device_get(variables),
+                              type("D", (), {"channels": 4})(),
+                              jtd.DetectorTrainConfig(imgsz=IMGSZ,
+                                                      batch_size=2))
+    jtr.ensure_ready(steps_per_epoch=2)
+    two = jnp.asarray(2, jnp.int32)
+    state = jtr.state._replace(step=two, opt_state=jtr.state.opt_state
+                               ._replace(count=two))
+    last = str(tmp_path / "jax_last.ckpt")
+    save_checkpoint(last, jax.device_get(state._asdict()))
+    assert state_form(load_checkpoint(last)) == "flat"
+
+    hist = port_main.main([
+        "train-detector", "--data", yaml, "--model", det_ckpt, "--imgsz",
+        str(IMGSZ), "--batch", "2", "--epochs", "2", "--close-mosaic", "1",
+        "--run-dir", str(tmp_path / "rd"), "--out", str(tmp_path / "o.ckpt"),
+        "--resume", last, *CPU])
+    assert len(hist["loss"]) == 1 and np.isfinite(hist["loss"]).all()
+    run = os.listdir(tmp_path / "rd")[0]
+    mine = load_checkpoint(str(tmp_path / "rd" / run / "weights" /
+                               "last.ckpt"))
+    assert state_form(mine) == "sgd" and int(mine["step"]) == 4

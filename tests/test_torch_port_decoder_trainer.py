@@ -41,6 +41,7 @@ from yolou_tpu_torch.engine.trainer_decoder import (
 from yolou_tpu_torch.losses import dice
 from yolou_tpu_torch.models.segpp import build_segpp
 from yolou_tpu_torch.tools.convert import jax_variables, state_dict_from_jax
+from yolou_tpu_torch.utils.checkpoint import load_checkpoint
 
 from .test_torch_port_segpp import _draw
 from .torch_threads import one_torch_thread  # noqa: F401
@@ -296,13 +297,13 @@ def test_train_matches_jax(variables, root, jax_runs, tmp_path):
 
 
 def test_resume_runs_the_remaining_epochs(variables, root, tmp_path):
-    """2 epochs, then `epochs=3` from `last.pt`: one more epoch, step 6, the
-    same state as a third epoch taken without the restart."""
+    """2 epochs, then `epochs=3` from `last.ckpt`: one more epoch, step 6,
+    the same state as a third epoch taken without the restart."""
     _, v = variables
     tr = _port_trainer(v, root, tmp_path / "a")
     assert len(tr.train()["train_loss"]) == 2 and tr.step_count == 4
     run = os.listdir(tmp_path / "a")[0]
-    last = tmp_path / "a" / run / "weights" / "last.pt"
+    last = tmp_path / "a" / run / "weights" / "last.ckpt"
     tr2 = _port_trainer(v, root, tmp_path / "b", epochs=3)
     h2 = tr2.train(resume_from=str(last))
     assert len(h2["train_loss"]) == 1 and tr2.step_count == 6
@@ -322,15 +323,28 @@ def test_run_writes_config_history_checkpoints_and_plot(variables, root,
     run = tmp_path / os.listdir(tmp_path)[0]
     assert sorted(os.listdir(run)) == ["config.json", "history.csv",
                                        "plot.png", "weights"]
-    assert sorted(os.listdir(run / "weights")) == ["best.pt", "last.pt"]
+    assert sorted(os.listdir(run / "weights")) == ["best.ckpt", "last.ckpt"]
     with open(run / "history.csv", newline="") as f:
         rows = list(csv.reader(f))
     assert rows[0] == list(HISTORY_KEYS) and len(rows) == 2
     np.testing.assert_allclose([float(x) for x in rows[1]],
                                [history[k][0] for k in HISTORY_KEYS])
-    ck = torch.load(run / "weights" / "last.pt", weights_only=True)
-    assert set(ck) == {"model", "optimizer", "scheduler", "step"}
-    assert ck["step"] == 2 and ck["scheduler"]["last_epoch"] == 2
+    ck = load_checkpoint(str(run / "weights" / "last.ckpt"))
+    assert set(ck) == {"params", "batch_stats", "opt_state", "step"}
+    assert int(ck["step"]) == 2
+    assert int(ck["opt_state"]["inner_state"]["0"]["count"]) == 2
+
+
+def test_plot_history_method_writes_the_png(variables, root, tmp_path):
+    """`DecoderTrainer.plot_history`, the JAX trainer's method: the
+    history's curves as a non-empty PNG under the given name."""
+    _, v = variables
+    tr = _port_trainer(v, root, tmp_path / "runs")
+    tr.history = {k: [0.5, 0.25, 0.125] for k in HISTORY_KEYS}
+    tr.plot_history(str(tmp_path / "plots"), filename="curves.png")
+    png = tmp_path / "plots" / "curves.png"
+    assert png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    assert png.stat().st_size > 1000
 
 
 def test_early_stopping_band_and_start(variables, root, tmp_path):
@@ -350,7 +364,7 @@ def test_early_stopping_band_and_start(variables, root, tmp_path):
     # epochs 1-2 before the start; epoch 3: patience 1; epoch 4 (gain
     # 5e-4, best saved): 2 -> stop
     assert history["val_dice_metric"] == [0.5, 0.4, 0.4, 0.5005]
-    assert saves == [(2, "best.pt"), (8, "best.pt"), (8, "last.pt")]
+    assert saves == [(2, "best.ckpt"), (8, "best.ckpt"), (8, "last.ckpt")]
 
 
 def test_nan_loss_returns_the_history_without_the_epoch(variables, root,

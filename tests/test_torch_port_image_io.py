@@ -10,11 +10,13 @@ fixed-point form) and within 1e-6 for float32, `resize_nearest` exactly,
 and `fill_poly` must equal `cv2.fillPoly` (lineType 8, shift 0) exactly on
 seeded random polygons and on every label of a synthetic dataset. Files the
 decoder does not read (16-bit, palette, interlaced) must raise naming the
-file and its kind.
+file and its kind, from the decoder and from `imread` where cv2 is absent
+(`test_torch_port_image_kinds.py` reads them through cv2).
 """
 
 import os
 import struct
+import sys
 import zlib
 
 import cv2
@@ -199,7 +201,7 @@ def test_fill_poly_matches_cv2_on_synthetic_labels(tmp_path):
 
 
 @pytest.mark.parametrize("what", ["16-bit", "palette", "interlaced"])
-def test_unsupported_pngs_raise_by_name(tmp_path, what):
+def test_unsupported_pngs_raise_by_name(tmp_path, what, monkeypatch):
     path = str(tmp_path / f"{what}.png")
     if what == "16-bit":
         assert cv2.imwrite(path, np.full((4, 5), 1000, np.uint16))
@@ -216,8 +218,14 @@ def test_unsupported_pngs_raise_by_name(tmp_path, what):
         want = ("colour type 3 = palette, bit depth 8" if what == "palette"
                 else "interlaced")
     with pytest.raises(IOError) as e:
+        loader.decode_png(path)
+    assert path in str(e.value) and want in str(e.value), str(e.value)
+    # imread hands such a file to cv2, and names it where cv2 is absent
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    with pytest.raises(IOError) as e:
         image.imread(path)
     assert path in str(e.value) and want in str(e.value), str(e.value)
+    assert "cv2 is not installed" in str(e.value)
 
 
 def test_missing_and_foreign_files_raise(tmp_path):

@@ -218,6 +218,7 @@ def test_detector_stage_modules_import_with_their_absent_packages_blocked():
     module of the package names `msgpack`."""
     blocked = FORBIDDEN + ("msgpack", "cv2")
     mods = ["engine.validator", "metrics.det", "utils.checkpoint",
+            "utils.train_state",
             "utils.model_io", "utils.msgpack_lite", "losses.composite",
             "ops.segments", "engine.trainer_detector"]
     code = (_BLOCK.format(blocked=blocked)

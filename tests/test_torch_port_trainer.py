@@ -371,7 +371,7 @@ def test_train_one_epoch_writes_last_pt_and_resumes(root, tmp_path):
     assert len(history["loss"]) == 1 and np.isfinite(history["loss"]).all()
     assert history["seg"][0] > 0 and tr.step_count == 2      # ceil(6 / 4)
     run = os.listdir(tmp_path / "runs")[0]
-    last = tmp_path / "runs" / run / "weights" / "last.pt"
+    last = tmp_path / "runs" / run / "weights" / "last.ckpt"
     assert last.exists()
 
     tr2 = trainer(2)

@@ -3,7 +3,7 @@ CPU: yolov12n-seg (4 ch, nc=1) at 64^2, batch 2, over a synthetic directory
 (4 train and 4 val images).
 
 `train()` with `val_every=1` records mAP50 and mAP50-95 per epoch and
-writes `best.pt` and `last.pt`; a validation leaves the training model's
+writes `best.ckpt` and `last.ckpt`; a validation leaves the training model's
 mode, parameters and BatchNorm statistics bit-identical. The fitness rule is
 held against the JAX trainer's (`yolou_tpu/engine/trainer_detector.py`:
 fitness 0.1 mAP50 + 0.9 mAP50-95, `best` on a strict rise from -inf) by a
@@ -81,15 +81,15 @@ def test_train_validates_the_ema_without_touching_the_model(data_cfg,
     assert all(0.0 <= v <= 1.0 for v in history["map50"] + history["map"])
     assert len(history["loss"]) == 2 and np.isfinite(history["loss"]).all()
     weights = _weights(tmp_path / "a")
-    assert sorted(os.listdir(weights)) == ["best.pt", "last.pt"]
+    assert sorted(os.listdir(weights)) == ["best.ckpt", "last.ckpt"]
 
     # resume: one more epoch, one more validation, on the same clock
     tr2 = _trainer(data_cfg, tmp_path / "b", epochs=3)
-    h2 = tr2.train(resume_from=os.path.join(weights, "last.pt"))
+    h2 = tr2.train(resume_from=os.path.join(weights, "last.ckpt"))
     assert tr2.step_count == 6 and len(h2["loss"]) == 1
     assert len(h2["map50"]) == len(h2["map"]) == 1
-    assert sorted(os.listdir(_weights(tmp_path / "b"))) == ["best.pt",
-                                                            "last.pt"]
+    assert sorted(os.listdir(_weights(tmp_path / "b"))) == ["best.ckpt",
+                                                            "last.ckpt"]
 
 
 def _jax_best_epochs(scripted):
@@ -106,7 +106,7 @@ def _jax_best_epochs(scripted):
 def test_best_pt_follows_the_jax_fitness_rule(data_cfg, tmp_path,
                                               monkeypatch):
     """Scripted metrics with rises, a fall, a tie, a rise by fitness with
-    a lower mAP50, and a higher mAP50 at a lower fitness: `best.pt` is
+    a lower mAP50, and a higher mAP50 at a lower fitness: `best.ckpt` is
     written at exactly the epochs the JAX rule writes it."""
     scripted = [{"map50": 0.2, "map": 0.1}, {"map50": 0.5, "map": 0.2},
                 {"map50": 0.1, "map": 0.05}, {"map50": 0.5, "map": 0.2},
@@ -126,7 +126,7 @@ def test_best_pt_follows_the_jax_fitness_rule(data_cfg, tmp_path,
 
     monkeypatch.setattr(tr, "save_checkpoint", save)
     history = tr.train()
-    best = [epoch - 1 for epoch, name in writes if name == "best.pt"]
+    best = [epoch - 1 for epoch, name in writes if name == "best.ckpt"]
     assert best == _jax_best_epochs(scripted) == [0, 1, 4]
-    assert [n for _, n in writes].count("last.pt") == len(scripted)
+    assert [n for _, n in writes].count("last.ckpt") == len(scripted)
     assert history["map"] == [m["map"] for m in scripted]

@@ -3,7 +3,9 @@
 of record as defaults: imgsz 160, batch 128, lr 1e-4, 75 epochs, early stop
 start 50 / patience 10, seed 42), over
 `engine/trainer_decoder.py::DecoderTrainer`; the trained model is written
-as `<run-dir>/segpp_final.ckpt`."""
+as `<run-dir>/segpp_final.ckpt`. A run writes `weights/best.ckpt` and
+`last.ckpt` in the JAX trainer's layout, and `--resume` takes either
+package's `last.ckpt` of a run over the same detector `--model`."""
 
 from __future__ import annotations
 
@@ -41,7 +43,10 @@ def main(argv=None):
     p.add_argument("--run-dir", default="runs")
     p.add_argument("--data-parallel", type=int, default=0,
                    help="shard batches over N devices (0 = single device)")
-    p.add_argument("--resume", default=None)
+    p.add_argument("--resume", default=None,
+                   help="a training-state last.ckpt of this package or of "
+                        "the JAX package's train-decoder, over the same "
+                        "encoder, to go on from")
     add_device_argument(p)
     args = p.parse_args(argv)
 

@@ -1,6 +1,14 @@
 """Detector fine-tune command — the counterpart of the JAX package's
 `cli/train_detector.py`, over `engine/trainer_detector.py::DetectorTrainer`;
-the EMA weights are written as a `.ckpt` model file at the end."""
+the EMA weights are written as a `.ckpt` model file at the end. A run
+writes `weights/last.ckpt` and `best.ckpt` in the JAX trainer's layout, and
+`--resume` takes either package's `last.ckpt` (the JAX command's default
+flat-vector state too):
+
+  python -m yolou_tpu train-detector --data d.yaml --epochs 3 --run-dir r
+  python -m yolou_tpu_torch train-detector --data d.yaml --epochs 4 \
+      --resume r/<run>/weights/last.ckpt
+"""
 
 from __future__ import annotations
 
@@ -32,7 +40,10 @@ def main(argv=None):
     p.add_argument("--data-parallel", type=int, default=0)
     p.add_argument("--run-dir", default="runs_detector")
     p.add_argument("--out", default="yolo_checkpoint/weights/best.ckpt")
-    p.add_argument("--resume", default=None)
+    p.add_argument("--resume", default=None,
+                   help="a training-state last.ckpt of this package or of "
+                        "the JAX package's train-detector (tree or flat "
+                        "form) to go on from")
     p.add_argument("--dtype", default="float32",
                    choices=["float32", "bfloat16"],
                    help="compute dtype (parameters stay float32)")

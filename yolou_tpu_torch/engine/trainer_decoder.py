@@ -22,9 +22,11 @@ Not carried over from the JAX package: `device_data` and
 one `lax.scan`, a workaround for a slow host link; the port uploads each
 batch), the asynchronous scalar pipeline of `utils/async_metrics.py` (the
 port sums on the device and fetches once an epoch), and data-parallel
-meshes (`mesh` raises). Checkpoints are `torch.save` files (`best.pt`,
-`last.pt`), not the JAX package's `.ckpt` format: interchange between the
-two waits for the checkpoint module's port.
+meshes (`mesh` raises). `best.ckpt` and `last.ckpt` hold the whole
+training state in the JAX package's layout (`utils/train_state.py`): the
+YOLO-Seg++ variables, the frozen encoder's among them, AdamW's moments and
+the update count. Either package resumes the other's file; the encoder in
+the file must be the model's own, bit for bit.
 """
 
 from __future__ import annotations
@@ -45,6 +47,8 @@ from ..losses.dice import soft_dice_loss
 from ..metrics.seg import dice_binary, hd95_batch, precision_recall_counts
 from ..models.segpp import YOLOSegPP
 from ..models.yolo import resolve_device
+from ..utils.checkpoint import load_checkpoint, save_checkpoint
+from ..utils.train_state import decoder_state_tree, restore_decoder_state
 
 HISTORY_KEYS = ("train_loss", "val_loss", "train_dice_metric",
                 "val_dice_metric", "val_hd95_metric", "val_precision",
@@ -290,7 +294,7 @@ class DecoderTrainer:
             if va_dice > best_val_dice:
                 significant = abs(best_val_dice - va_dice) > 1e-3
                 best_val_dice = va_dice
-                self._save(os.path.join(weights_dir, "best.pt"))
+                self._save(os.path.join(weights_dir, "best.ckpt"))
                 if significant:
                     patience = 0
                 elif epoch + 1 >= cfg.early_stopping_start:
@@ -311,29 +315,26 @@ class DecoderTrainer:
                       f"(best val dice {best_val_dice:.4f})")
                 break
 
-        self._save(os.path.join(weights_dir, "last.pt"))
+        self._save(os.path.join(weights_dir, "last.ckpt"))
         try:
-            plot_history(self.history, run_dir)
+            self.plot_history(run_dir)
         except ImportError:             # no matplotlib: no plot
             pass
         return self.history
 
     # ------------------------------------------------------------ checkpoints
     def _save(self, path: str) -> None:
-        torch.save({"model": self.model.state_dict(),
-                    "optimizer": self.optimizer.state_dict(),
-                    "scheduler": self.scheduler.state_dict(),
-                    "step": self.step_count}, path)
+        save_checkpoint(path, decoder_state_tree(self))
 
     def load_checkpoint(self, path: str) -> None:
-        """Restore a `_save` file into this trainer (call `ensure_ready`
-        first; `train(resume_from=...)` does)."""
-        ck = torch.load(path, map_location=self.device, weights_only=True)
-        self.model.load_state_dict(ck["model"], strict=True)
-        self.optimizer.load_state_dict(ck["optimizer"])
-        self.scheduler.load_state_dict(ck["scheduler"])
-        self.step_count = ck["step"]
-        self._sync_lr()
+        """Restore a training-state `.ckpt`, the port's or the JAX
+        trainer's, into this trainer (call `ensure_ready` first;
+        `train(resume_from=...)` does)."""
+        restore_decoder_state(self, load_checkpoint(path))
+
+    def plot_history(self, save_path: str, filename: str = "plot.png") -> None:
+        """The history's curves as one PNG (`plot_history`)."""
+        plot_history(self.history, save_path, filename)
 
     def _dump_history(self, run_dir: str) -> None:
         """history.csv: a column per key in HISTORY_KEYS' order, a row per

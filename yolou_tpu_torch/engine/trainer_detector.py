@@ -12,16 +12,18 @@ One step, eagerly: augment (no grad) -> forward -> loss -> backward -> clip ->
 optimizer -> EMA. Every `val_every` epochs the EMA weights are validated on
 the `val` split (`engine/validator.py`, mAP50 and mAP50-95 into `history`)
 in a separate eval copy of the model, so the training model's mode,
-parameters and BatchNorm statistics stay as they were; `best.pt` is written
-on each strict rise of ultralytics' fitness 0.1 mAP50 + 0.9 mAP50-95, and
-`last.pt` every epoch. The trainer runs on the GPU unless a CPU device is
-asked for. Not carried over from the JAX package: the packed single-buffer
-upload, the device-resident dataset with its whole-epoch scan and the
-flat-vector optimizer (three workarounds for a slow host link and per-leaf
-dispatch costs), and data-parallel meshes. `last.pt` / `best.pt` are
-`torch.save` files of the whole training state, not the JAX package's
-`.ckpt` training state; a model file of the weights crosses with
-`utils/model_io.py::save_model`.
+parameters and BatchNorm statistics stay as they were; `best.ckpt` is
+written on each strict rise of ultralytics' fitness 0.1 mAP50 + 0.9
+mAP50-95, and `last.ckpt` every epoch. Both hold the whole training state
+in the JAX package's layout (`utils/train_state.py`): `load_resume` reads
+the port's files and the JAX trainer's, tree form (SGD or AdamW) and flat
+form (its default SGD state) alike, so a run resumes across the two
+packages. The trainer runs on the GPU unless a CPU device is asked for.
+Not carried over from the JAX package: the packed single-buffer upload, the
+device-resident dataset with its whole-epoch scan and the flat-vector
+optimizer (three workarounds for a slow host link and per-leaf dispatch
+costs; a flat-form file is read, the tree form written), and data-parallel
+meshes.
 """
 
 from __future__ import annotations
@@ -42,6 +44,8 @@ from ..data.augment import AugHyp, augment_batch
 from ..data.yolo_dataset import YoloSegDataset, collate_idmap_cached
 from ..losses.v8 import LossHyp, v8_loss
 from ..models.yolo import YOLOModel, resolve_device
+from ..utils.checkpoint import load_checkpoint, save_checkpoint
+from ..utils.train_state import detector_state_tree, restore_detector_state
 
 LOSS_KEYS = ("loss", "box", "cls", "dfl", "seg")
 MAX_CONSECUTIVE_NONFINITE = 100
@@ -182,7 +186,9 @@ class DetectorTrainer:
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.step_count = 0          # steps taken, skipped ones included
         self.opt_count = 0           # optimizer updates applied
-        self._notfinite = 0
+        self._notfinite = 0          # consecutive non-finite steps
+        self.total_notfinite = 0     # non-finite steps in all
+        self.last_finite = True      # whether the last step's were finite
         # global gradient norm of the last step before clipping, on the device
         self.grad_norm: Optional[torch.Tensor] = None
         self._spe: Optional[int] = None
@@ -263,10 +269,12 @@ class DetectorTrainer:
         norms = torch.stack(torch._foreach_norm(grads))
         self.grad_norm = norms.norm()
         if cfg.skip_nonfinite:
-            if bool(torch.isfinite(norms).all()):
+            self.last_finite = bool(torch.isfinite(norms).all())
+            if self.last_finite:
                 self._notfinite = 0
             else:
                 self._notfinite += 1
+                self.total_notfinite += 1
                 if self._notfinite <= MAX_CONSECUTIVE_NONFINITE:
                     return
         if cfg.clip_grad_norm:
@@ -375,13 +383,13 @@ class DetectorTrainer:
                 self.history.setdefault("map", []).append(vm["map"])
                 msg += (f" | val mAP50={vm['map50']:.4f} "
                         f"mAP50-95={vm['map']:.4f}")
-                # ultralytics fitness; best.pt on a strict rise
+                # ultralytics fitness; best.ckpt on a strict rise
                 fitness = 0.1 * vm["map50"] + 0.9 * vm["map"]
                 if fitness > best_fitness:
                     best_fitness = fitness
-                    self.save_checkpoint(os.path.join(weights, "best.pt"))
+                    self.save_checkpoint(os.path.join(weights, "best.ckpt"))
             print(msg)
-            self.save_checkpoint(os.path.join(weights, "last.pt"))
+            self.save_checkpoint(os.path.join(weights, "last.ckpt"))
         return self.history
 
     # ------------------------------------------------------------ checkpoints
@@ -396,20 +404,14 @@ class DetectorTrainer:
         return sd
 
     def save_checkpoint(self, path: str) -> None:
-        torch.save({"model": self.model.state_dict(),
-                    "ema_params": self.ema_params,
-                    "optimizer": self.optimizer.state_dict(),
-                    "step": self.step_count, "opt_count": self.opt_count,
-                    "notfinite": self._notfinite}, path)
+        """Write the whole training state to `path` as the JAX trainer's
+        tree form (`utils/train_state.py`), which both packages resume."""
+        save_checkpoint(path, detector_state_tree(self))
 
     def load_resume(self, path: str) -> None:
-        """Restore a `save_checkpoint` file into this trainer (call
-        `ensure_ready` first; `train(resume_from=...)` does)."""
-        ck = torch.load(path, map_location=self.device, weights_only=True)
-        self.model.load_state_dict(ck["model"], strict=True)
-        self.optimizer.load_state_dict(ck["optimizer"])
-        with torch.no_grad():
-            for e, saved in zip(self.ema_params, ck["ema_params"]):
-                e.copy_(saved)
-        self.step_count, self.opt_count = ck["step"], ck["opt_count"]
-        self._notfinite = ck["notfinite"]
+        """Restore a training-state `.ckpt` into this trainer (call
+        `ensure_ready` first; `train(resume_from=...)` does): the port's,
+        or the JAX trainer's tree or flat form. A flat-form file gives the
+        same momentum as its tree form, so the run goes on exactly; a file
+        of another optimizer raises."""
+        restore_detector_state(self, load_checkpoint(path))

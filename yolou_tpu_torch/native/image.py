@@ -5,8 +5,10 @@ decoder (`loader.py`) and stdlib `zlib`; `resize_linear`, `resize_nearest`
 and `fill_poly` compute in numpy what `cv2.resize` (INTER_LINEAR,
 INTER_NEAREST) and `cv2.fillPoly` (lineType 8, shift 0) compute, bit for
 bit, so that the network sees the bytes the JAX package sees through cv2.
-JPEG, BMP, TIFF and WEBP files still go to cv2, imported inside the call;
-where it is absent such a file raises an error that names it.
+JPEG, BMP, TIFF and WEBP files, and the PNGs the decoder does not read
+(16-bit, palette, interlaced), go to cv2, imported inside the call, as the
+JAX package reads every image; where cv2 is absent such a file raises an
+error that names it and its kind.
 """
 
 from __future__ import annotations
@@ -41,14 +43,19 @@ def imread(path: str, flag: int = IMREAD_UNCHANGED) -> np.ndarray:
     IMREAD_GRAYSCALE: (H, W) for one channel, else (H, W, C) in cv2's order
     (B, G, R(, A)); gray+alpha comes back as B = G = R = gray plus alpha,
     as cv2 gives it. The grayscale of a colour PNG is libpng's fixed-point
-    luma, which cv2 uses. Raises where the file cannot be read."""
+    luma, which cv2 uses. A PNG the package's decoder does not read
+    (16-bit, palette, interlaced) is cv2's, as is any other format. Raises
+    where the file cannot be read."""
     if flag not in (IMREAD_UNCHANGED, IMREAD_GRAYSCALE):
         raise ValueError(f"imread: flag {flag} (only IMREAD_UNCHANGED and "
                          f"IMREAD_GRAYSCALE)")
     if not os.path.isfile(path):
         raise IOError(f"cannot read {path}: no such file")
     if not _is_png(path):
-        return _imread_cv2(path, flag)
+        return _imread_cv2(path, flag, "not a PNG")
+    kind = loader.unsupported_kind(path)
+    if kind is not None:            # 16-bit, palette, interlaced: cv2's
+        return _imread_cv2(path, flag, f"a PNG of {kind}")
     img = loader.decode_png(path)
     c = img.shape[2]
     if flag == IMREAD_GRAYSCALE:
@@ -64,12 +71,13 @@ def imread(path: str, flag: int = IMREAD_UNCHANGED) -> np.ndarray:
     return img
 
 
-def _imread_cv2(path: str, flag: int) -> np.ndarray:
+def _imread_cv2(path: str, flag: int, what: str) -> np.ndarray:
     try:
         import cv2
     except ImportError as e:
-        raise IOError(f"cannot read {path}: only PNG is read without cv2, "
-                      f"and cv2 is not installed") from e
+        raise IOError(f"cannot read {path}: {what}, which only cv2 reads, "
+                      f"and cv2 is not installed (without it: 8-bit gray, "
+                      f"gray+alpha, RGB and RGBA PNG, not interlaced)") from e
     img = cv2.imread(path, flag)
     if img is None:
         raise IOError(f"cannot read {path}")

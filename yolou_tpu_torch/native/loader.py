@@ -85,17 +85,29 @@ def png_header(path: str) -> Tuple[int, int, int, int, int]:
     return tuple(info)
 
 
+def _kind(depth: int, ctype: int, interlace: int) -> Optional[str]:
+    if depth == 8 and interlace == 0 and ctype in CHANNELS:
+        return None
+    return (f"colour type {ctype} = {COLOR_TYPES.get(ctype, 'undefined')}, "
+            f"bit depth {depth}{', interlaced' if interlace else ''}")
+
+
+def unsupported_kind(path: str) -> Optional[str]:
+    """None where `decode_png` reads the PNG at `path`, else its kind
+    (colour type, bit depth, interlacing) in words."""
+    return _kind(*png_header(path)[2:])
+
+
 def decode_png(path: str) -> np.ndarray:
     """(H, W, C) uint8 pixels of an 8-bit, non-interlaced gray (C = 1),
     gray+alpha (2), RGB (3) or RGBA (4) PNG, colour in cv2's order (B, G,
     R(, A)). Any other kind raises an error that names the file, its colour
     type and its bit depth."""
     w, h, depth, ctype, interlace = png_header(path)
-    if depth != 8 or interlace != 0 or ctype not in CHANNELS:
+    kind = _kind(depth, ctype, interlace)
+    if kind is not None:
         raise IOError(
-            f"{path}: unsupported PNG (colour type {ctype} = "
-            f"{COLOR_TYPES.get(ctype, 'undefined')}, bit depth {depth}"
-            f"{', interlaced' if interlace else ''}); this decoder reads "
+            f"{path}: unsupported PNG ({kind}); this decoder reads "
             f"8-bit gray, gray+alpha, RGB and RGBA, not interlaced")
     out = np.empty((h, w, CHANNELS[ctype]), np.uint8)
     _check(load().yio_decode_png_file(os.fsencode(path), out.ctypes.data,

@@ -286,8 +286,9 @@ def jax_variables(model: nn.Module,
                   state_dict: Optional[Dict[str, torch.Tensor]] = None
                   ) -> Dict:
     """The JAX package's variables `{"params": ..., "batch_stats": ...}` of
-    a `YOLOModel` or `YOLOSegPP` as nested dicts of numpy arrays, from
-    `state_dict` (the model's own by default), with no JAX template."""
+    a `YOLOModel` or `YOLOSegPP` as nested dicts of numpy arrays of their
+    own (no view of a tensor, which training moves on), from `state_dict`
+    (the model's own by default), with no JAX template."""
     sd = model.state_dict() if state_dict is None else state_dict
     paths = _jax_paths(model)
     out: Dict = {}
@@ -303,5 +304,5 @@ def jax_variables(model: nn.Module,
         node = out.setdefault(coll, {})
         for seg in path[:-1]:
             node = node.setdefault(seg, {})
-        node[path[-1]] = np.ascontiguousarray(arr)
+        node[path[-1]] = np.array(arr, order="C")    # never a view of t
     return out
