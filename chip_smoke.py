@@ -156,6 +156,33 @@ Phases, one or more output lines each:
                call, boxes and scores against `Predictor.infer`) and
                `train-detector --epochs 1` from the family's `.ckpt`: every
                file written names the family, the fine-tuned one loads back.
+ 16. sources - yolov12n-seg at 640^2, bf16, with the serve phase's
+               weights: a Predictor over a 24-frame MJPG `.avi` written by
+               `cv2.VideoWriter` (24 results `#frame0` ... `#frame23`, 8
+               kernel A launches a forward, one kernel B launch a chunk of
+               8) and over a list of 8 PIL RGBA images (`pil_0` ...
+               `pil_7`); the clip in f32 on the card against the CPU
+               (detections equal but for near-ties, each named); the
+               camera, stream (a refused localhost port) and screenshot
+               routes by their errors.
+ 17. parallel - data parallel at full width, yolov12n-seg: (a) a
+               DetectorTrainer over `make_mesh(1)` (NCCL) against the
+               mesh-less one, one bf16 step at 640^2, batch 8, each
+               (bit-identical, or the non-deterministic ops named); (b)
+               two gloo ranks, both on cuda:0 (`parallel.mesh.launch`),
+               one f32 step at 640^2, global batch 8, mosaic on, against
+               this process on the same batch and generator state (loss
+               rtol 3e-4; parameters, EMA and BatchNorm statistics rtol
+               1e-3 / atol 5e-5; 8 kernel C launches and 8 backward calls
+               per rank); (c) one f32 DecoderTrainer update at 160^2,
+               global batch 128 (loss 1e-5 relative, decoder 3e-5
+               absolute, encoder exact); (d) an f32 Evaluator over 3
+               batches of 16 at 160^2 with HD95 (the metrics within 1e-6; 8
+               kernel A and 1 kernel B launches per rank a step); the bf16
+               step's ms per rank beside one process's, the gloo gradient
+               all-reduce alone; (e) `train-detector --data-parallel 1`
+               through the dispatcher (one NCCL rank) and `--data-parallel
+               2` refused by name on one card.
 Then a JSON line of kernel results (each kernel's launches on its path, error,
 device and per-call times, and the least time the card could take), the
 nvidia-smi line again,
@@ -861,16 +888,16 @@ def segpp_state_dict(state_dict, calib):
     return ref.state_dict()
 
 
-def build_evaluator(segpp_sd, device, dtype):
+def build_evaluator(segpp_sd, device, dtype, mesh=None):
     """An Evaluator at 160^2, batch 16; `device` None is its default, the
-    card."""
+    card (the mesh's device under `mesh`)."""
     from yolou_tpu_torch.engine.evaluator import Evaluator
     from yolou_tpu_torch.models.segpp import build_segpp
     model = build_segpp("yolov12", "n", nc=1, ch=4, task="segment",
                         dtype=dtype, device=device)
     model.load_state_dict(segpp_sd, strict=True)
     return Evaluator(model, data_root="", image_size=EVAL_IMGSZ,
-                     batch_size=EVAL_BATCH, device=device)
+                     batch_size=EVAL_BATCH, device=device, mesh=mesh)
 
 
 def evaluate_breakdown(ev, batch, iters: int = 5):
@@ -1032,10 +1059,11 @@ def objectmap_phase(state_dict, device, splits):
     return maps, counts
 
 
-def decoder_trainer(segpp_sd, device, dtype, datasets, run_dir, **cfg):
+def decoder_trainer(segpp_sd, device, dtype, datasets, run_dir, mesh=None,
+                    **cfg):
     """A DecoderTrainer over YOLO-Seg++ with `segpp_sd`, its datasets the
     in-memory `datasets` (train, val); `device` None is its default, the
-    card."""
+    card (the mesh's device under `mesh`)."""
     from yolou_tpu_torch.engine.trainer_decoder import (DecoderTrainConfig,
                                                         DecoderTrainer)
     from yolou_tpu_torch.models.segpp import build_segpp
@@ -1046,7 +1074,8 @@ def decoder_trainer(segpp_sd, device, dtype, datasets, run_dir, **cfg):
         dict(image_size=EVAL_IMGSZ, batch_size=DEC_BATCH, lr=1e-4,
              epochs=DEC_EPOCHS, early_stopping=False, run_dir=run_dir),
         **cfg))
-    tr = DecoderTrainer(model, data_root="", cfg=cfg, device=device)
+    tr = DecoderTrainer(model, data_root="", cfg=cfg, device=device,
+                        mesh=mesh)
     tr._loaders = lambda: datasets
     return tr
 
@@ -1431,9 +1460,9 @@ class _Data:
 
 
 def make_trainer(state_dict, device, dtype, batch, aug=None,
-                 arch="yolov12"):
+                 arch="yolov12", mesh=None):
     """A DetectorTrainer over seeded `arch` n-seg weights; `device` None is
-    the trainer's default, the card."""
+    the trainer's default, the card (the mesh's device under `mesh`)."""
     from yolou_tpu_torch.data.augment import AugHyp
     from yolou_tpu_torch.engine.trainer_detector import (DetectorTrainConfig,
                                                          DetectorTrainer)
@@ -1444,7 +1473,7 @@ def make_trainer(state_dict, device, dtype, batch, aug=None,
     cfg = DetectorTrainConfig(imgsz=IMGSZ, batch_size=batch, epochs=10,
                               warmup_epochs=3.0)
     tr = DetectorTrainer(model, _Data(), cfg, aug=aug or AugHyp(),
-                         device=device)
+                         device=device, mesh=mesh)
     tr.ensure_ready(steps_per_epoch=100)
     return tr
 
@@ -2862,6 +2891,417 @@ def families_phase(device, root: str, yolov12_state_dict) -> dict:
     return launches
 
 
+# ------------------------------------------------------------- sources
+
+CLIP_FRAMES = 24
+PIL_IMAGES = 8
+
+
+def write_clip(path: str, frames: np.ndarray) -> None:
+    """`frames` (N, H, W, 3) uint8 BGR as an MJPG `.avi` (cv2.VideoWriter)."""
+    import cv2
+    h, w = frames.shape[1:3]
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 10,
+                             (w, h))
+    if not writer.isOpened():
+        raise AssertionError(f"cv2.VideoWriter cannot write MJPG to {path}")
+    for f in frames:
+        writer.write(np.ascontiguousarray(f))
+    writer.release()
+
+
+def result_rows(results) -> np.ndarray:
+    """(B, n, 7) rows [box, conf, cls, valid] of Results, as the
+    validator's, for `flipped_detections`."""
+    out = np.zeros((len(results), max([len(r) for r in results] + [1]), 7),
+                   np.float32)
+    for i, r in enumerate(results):
+        out[i, :len(r), :6] = r.boxes.data
+        out[i, :len(r), 6] = 1
+    return out
+
+
+def source_errors() -> dict:
+    """The camera, stream and screenshot routes where nothing can feed them
+    (no camera, a refused localhost port, no display): the error each
+    raises. A screenshot raises RuntimeError without `mss`, and `mss`'s
+    own error where it is installed but finds no display."""
+    import importlib.util
+    from yolou_tpu_torch.engine.predictor import load_source
+    want = {"0": RuntimeError, "http://127.0.0.1:9/stream.mjpg": OSError,
+            "screen": RuntimeError}
+    got = {}
+    for source, error in want.items():
+        try:
+            load_source(source)
+        except Exception as e:      # noqa: BLE001 - the type is checked
+            got[source] = type(e).__name__
+            if not isinstance(e, error) and not (
+                    source == "screen"
+                    and importlib.util.find_spec("mss") is not None):
+                raise AssertionError(f"source {source!r} raised "
+                                     f"{type(e).__name__}: {e}") from e
+        else:
+            raise AssertionError(f"source {source!r} raised nothing")
+    return got
+
+
+def sources_phase(device, state_dict, root: str) -> dict:
+    """The Predictor over a 24-frame MJPG `.avi` (frames 640^2, 3-channel
+    BGR widened to the 4-channel model by their mean) and over a list of
+    8 PIL RGBA images, bf16: the frame and image names, 8 kernel A
+    launches a forward and one kernel B launch a chunk; the clip in f32 on
+    the card against the CPU (detections equal but for near-ties named by
+    `flipped_detections`); the camera, stream and screenshot routes by
+    their errors. Returns kernels A's and B's launches by path."""
+    import os
+    import torch
+    from PIL import Image
+    from yolou_tpu_torch.engine.predictor import Predictor
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 51)
+    imgs = make_images(rng, CLIP_FRAMES)
+    clip = os.path.join(root, "clip.avi")
+    write_clip(clip, imgs[..., :3])
+    predictor = Predictor(build_model(state_dict, device, torch.bfloat16),
+                          imgsz=IMGSZ, batch_size=BATCH)
+    launches = {}
+    chunks = -(-CLIP_FRAMES // BATCH)
+    t0 = time.perf_counter()
+    res, n = counted(lambda: predictor(clip))
+    log("sources", check="video", frames=len(res),
+        seconds=time.perf_counter() - t0, launches=n,
+        detections=[len(r) for r in res], clip_bytes=os.path.getsize(clip))
+    if [r.path for r in res] != [f"{clip}#frame{i}"
+                                 for i in range(CLIP_FRAMES)]:
+        raise AssertionError(f"video: {[r.path for r in res][:3]} ...")
+    if any(r.orig_img.shape != (IMGSZ, IMGSZ, 4) for r in res):
+        raise AssertionError("video: a frame is not 640x640x4")
+    check_launches("sources video", n, 8 * chunks, chunks)
+    if min(len(r) for r in res) < 1:
+        raise AssertionError("video: a frame got no detection")
+    launches["video"] = n
+
+    pil = [Image.fromarray(a) for a in make_images(rng, PIL_IMAGES)]
+    if {p.mode for p in pil} != {"RGBA"}:
+        raise AssertionError(f"PIL modes {[p.mode for p in pil]}")
+    res, n = counted(lambda: predictor(pil))
+    log("sources", check="PIL RGBA", images=len(res), launches=n,
+        detections=[len(r) for r in res])
+    if [r.path for r in res] != [f"pil_{i}" for i in range(PIL_IMAGES)]:
+        raise AssertionError(f"PIL: {[r.path for r in res]}")
+    check_launches("sources pil", n, 8, 1)
+    launches["pil"] = n
+
+    f32_exact(torch)
+    rows = {}
+    for dev in (device, "cpu"):
+        p = Predictor(build_model(state_dict, dev, torch.float32),
+                      imgsz=IMGSZ, batch_size=BATCH)
+        rows[str(dev)] = result_rows(p(clip))
+    card, cpu = rows[str(device)], rows["cpu"]
+    flips = flipped_detections(card, cpu, iou_thres=0.45, conf_thres=0.25)
+    log("sources", check="f32 video card vs cpu", frames=CLIP_FRAMES,
+        detections_card=int(card[..., 6].sum()),
+        detections_cpu=int(cpu[..., 6].sum()),
+        flipped=[{"frame": i, "kept_on": d, "decision": kind, "gap": g}
+                 for i, d, kind, g in flips], near_tie_tol=1e-4)
+    if any(abs(g) > 1e-4 for *_, g in flips):
+        raise AssertionError(f"f32 video card vs cpu: detections differ "
+                             f"beyond near-ties: {flips}")
+    log("sources", check="errors without a device", **source_errors(),
+        seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+# ------------------------------------------------------------- parallel
+
+def gathered(mesh, values) -> list:
+    """Every rank's list of numbers (the same length on each), in rank
+    order."""
+    import torch
+    from yolou_tpu_torch.parallel import mesh as meshlib
+    t = torch.tensor([list(map(float, values))], dtype=torch.float64)
+    return meshlib.all_gather_rows(t, mesh).tolist()
+
+
+def timed_steps(step, n: int = 3) -> list:
+    """CUDA-event ms of `n` calls of `step` after one."""
+    import torch
+    out = []
+    for i in range(n + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        end.synchronize()
+        if i:
+            out.append(start.elapsed_time(end))
+    return out
+
+
+def cpu_state(sd: dict) -> dict:
+    return {k: v.detach().cpu().numpy() for k, v in sd.items()}
+
+
+def parallel_jobs(state_dict, segpp_sd, mesh=None) -> dict:
+    """The `parallel` phase's work, under `mesh` or in one process: (b) one
+    f32 detector step at 640^2, global batch 8, mosaic on, with the
+    launches it made; the bf16 step timed; (c) one f32 decoder update at
+    160^2, global batch 128; (d) an f32 Evaluator over 3 batches of 16 at
+    160^2 with HD95, with the launches of each step. Under a mesh also the
+    gloo gradient all-reduce alone, timed; each rank's launches and times
+    gathered."""
+    import torch
+    from yolou_tpu_torch.parallel import mesh as meshlib
+    f32_exact(torch)
+    out = {}
+    tr = make_trainer(state_dict, None, torch.float32, BATCH, mesh=mesh)
+    batch = make_labelled(np.random.default_rng(SEED + 4), BATCH)
+    gen = torch.Generator(device=tr.device).manual_seed(SEED)
+    (loss, parts), n = counted_step(
+        lambda: tr.step(batch, gen, use_mosaic=True))
+    out["det"] = {"loss": loss.item(),
+                  "parts": {k: v.item() for k, v in parts.items()},
+                  "launches": n, "state": cpu_state(tr.model.state_dict()),
+                  "ema": cpu_state(tr.ema_variables()),
+                  "grad_norm": tr.grad_norm.item()}
+    if mesh is not None:
+        out["allreduce_ms"] = timed_steps(
+            lambda: meshlib.sum_gradients(mesh, tr.params), n=5)
+    del tr
+    tr = make_trainer(state_dict, None, torch.bfloat16, BATCH, mesh=mesh)
+    gen = torch.Generator(device=tr.device).manual_seed(SEED)
+    out["bf16_step_ms"] = timed_steps(
+        lambda: tr.step(batch, gen, use_mosaic=True))
+    del tr
+
+    rng = np.random.default_rng(SEED + 61)
+    imgs, masks = make_decoder_split(rng, DEC_BATCH)
+    side = EVAL_IMGSZ // 8
+    oms = (1 / (1 + np.exp(-rng.normal(0, 1, (DEC_BATCH, side, side, 1))))
+           ).astype(np.float32)
+    dec = decoder_trainer(segpp_sd, None, torch.float32, None, "", mesh=mesh)
+    dec.ensure_ready(steps_per_epoch=4)
+    (loss, dice), n = counted_step(lambda: dec.step(imgs, masks, oms))
+    out["dec"] = {"loss": loss.item(), "dice": dice.item(), "launches": n,
+                  "state": cpu_state(dec.model.state_dict())}
+    del dec
+
+    ev = build_evaluator(segpp_sd, None, torch.float32, mesh=mesh)
+    batches = make_eval_batches(np.random.default_rng(SEED + 7),
+                                EVAL_BATCHES, EVAL_BATCH, EVAL_IMGSZ)
+    res, n = counted_step(lambda: ev.accumulate(iter(batches),
+                                                with_hd95=True))
+    out["eval"] = {"metrics": res, "launches": n}
+    if mesh is not None:
+        keys = ("band_attention", "greedy_nms", "band_attention_train")
+        out["ranks"] = gathered(mesh, [
+            *(out[p]["launches"].get(k, 0) for p in ("det", "dec", "eval")
+              for k in keys),
+            out["det"]["launches"]["backward"]["band_attention_train"],
+            *out["bf16_step_ms"], *out["allreduce_ms"]])
+        out["rank"], out["backend"] = mesh.rank, mesh.backend
+    return out
+
+
+def counted_step(fn):
+    """(fn(), the kernels' launches during it with the backward calls), the
+    counters set to 0 just before the call and read just after it."""
+    import torch
+    from yolou_tpu_torch import kernels
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    got = fn()
+    torch.cuda.synchronize()
+    return got, dict(kernels.launch_counts(),
+                     backward=kernels.backward_counts())
+
+
+def parallel_rank(state_dict, segpp_sd) -> dict:
+    """One of the `parallel` phase's two ranks (gloo, both on cuda:0)."""
+    import torch
+    from yolou_tpu_torch.parallel import mesh as meshlib
+    mesh = meshlib.make_mesh(2)
+    if mesh.device != torch.device("cuda", 0) or mesh.backend != "gloo":
+        raise AssertionError(f"rank {mesh.rank}: {mesh}")
+    as_tensors = lambda sd: {k: torch.from_numpy(v) for k, v in sd.items()}
+    return parallel_jobs(as_tensors(state_dict), as_tensors(segpp_sd), mesh)
+
+
+def state_close(got: dict, want: dict, rtol: float, atol: float,
+                skip=()) -> float:
+    """The largest |got - want| beyond atol + rtol |want| over two state
+    dicts of arrays (0 where every element is within)."""
+    worst = 0.0
+    for k, w in want.items():
+        if k.endswith("num_batches_tracked") or k.startswith(skip):
+            continue
+        g = np.asarray(got[k], np.float64)
+        w = np.asarray(w, np.float64)
+        worst = max(worst, float((np.abs(g - w) - atol - rtol * np.abs(w))
+                                 .max(initial=0.0)))
+    return worst
+
+
+def parallel_phase(device, state_dict, root: str) -> dict:
+    """Data parallel on the card at full width, yolov12n-seg: (a) a
+    DetectorTrainer over a mesh of one (NCCL) against the mesh-less one,
+    one bf16 step each at 640^2, batch 8 (`twin_steps`); (b)-(d) two gloo
+    ranks on cuda:0 against this process on the same inputs, f32 (TF32
+    off): the detector step (loss rtol 3e-4; parameters, EMA and BatchNorm
+    statistics rtol 1e-3 / atol 5e-5; per rank 8 kernel C forward launches
+    and 8 backward calls), the decoder update (loss 1e-5 relative, decoder
+    parameters 3e-5 absolute, the encoder exact), the Evaluator (dice,
+    hd95, precision, recall within 1e-6, n_images exact; per rank 8 kernel
+    A and 1 kernel B launches a step); each step's bf16 ms per rank beside
+    this process's, the gloo gradient all-reduce alone; (e)
+    `train-detector --data-parallel 1` through the dispatcher (one NCCL
+    rank) runs, `--data-parallel 2` raises by name on one card. Returns the
+    ranks' launches by path."""
+    import os
+    import torch
+    from yolou_tpu_torch.parallel import mesh as meshlib
+    t_phase = time.perf_counter()
+    f32_exact(torch)
+    # (a) a mesh of one over NCCL: every collective skipped
+    mesh = meshlib.make_mesh(1)
+    try:
+        if mesh.backend != "nccl" or mesh.device.type != "cuda":
+            raise AssertionError(f"make_mesh(1) on the card: {mesh}")
+        a = make_trainer(state_dict, device, torch.bfloat16, BATCH)
+        b = make_trainer(state_dict, None, torch.bfloat16, BATCH, mesh=mesh)
+        batch = make_labelled(np.random.default_rng(SEED + 4), BATCH)
+        twin = twin_steps("parallel", a, b, lambda tr: tr.step(
+            batch, torch.Generator(device=tr.device).manual_seed(SEED),
+            use_mosaic=True)[0])
+        del a, b
+    finally:
+        mesh.close()
+
+    calib = make_eval_batches(np.random.default_rng(SEED + 7), 1,
+                              EVAL_BATCH, EVAL_IMGSZ)[0][0]
+    segpp_sd = segpp_state_dict(state_dict, calib)
+    one = parallel_jobs(state_dict, segpp_sd)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    two = meshlib.launch(parallel_rank, 2, ["cuda:0", "cuda:0"],
+                         cpu_state(state_dict), cpu_state(segpp_sd),
+                         timeout=600)
+    launch_s = time.perf_counter() - t0
+    if (two["rank"], two["backend"]) != (0, "gloo"):
+        raise AssertionError(f"ranks: {two['rank']} {two['backend']}")
+
+    # (b) the detector step
+    g, w = two["det"], one["det"]
+    loss_rel = abs(g["loss"] - w["loss"]) / abs(w["loss"])
+    parts_rel = max(abs(g["parts"][k] - w["parts"][k]) / abs(w["parts"][k])
+                    for k in w["parts"])
+    params = state_close(g["state"], w["state"], 1e-3, 5e-5)
+    ema = state_close(g["ema"], w["ema"], 1e-3, 5e-5)
+    per_rank = np.asarray(two["ranks"])          # rows: ranks
+    log("parallel", check="detector step, 2 gloo ranks vs one process",
+        loss_two=g["loss"], loss_one=w["loss"], loss_rel=loss_rel,
+        parts_rel=parts_rel, loss_rtol=3e-4,
+        params_stats_beyond_tol=params, ema_beyond_tol=ema,
+        tol="rtol 1e-3 / atol 5e-5", grad_norm_two=g["grad_norm"],
+        grad_norm_one=w["grad_norm"],
+        launches_per_rank=per_rank[:, 2].tolist(),
+        backward_per_rank=per_rank[:, 9].tolist(),
+        launches_one=w["launches"])
+    if not (loss_rel <= 3e-4 and parts_rel <= 3e-4 and params == 0
+            and ema == 0):
+        raise AssertionError("detector step on 2 ranks differs from one "
+                             "process")
+    if not ((per_rank[:, 2] == 8).all() and (per_rank[:, 9] == 8).all()
+            and w["launches"]["band_attention_train"] == 8):
+        raise AssertionError(f"kernel C per rank: {per_rank[:, [2, 9]]}")
+
+    # (c) the decoder update
+    g, w = two["dec"], one["dec"]
+    dec_rel = abs(g["loss"] - w["loss"]) / abs(w["loss"])
+    dice_rel = abs(g["dice"] - w["dice"]) / max(abs(w["dice"]), 1e-12)
+    dec_far = state_close(g["state"], w["state"], 0, 3e-5, skip=("yolo.",))
+    enc = [k for k in w["state"] if k.startswith("yolo.")
+           and not np.array_equal(g["state"][k], w["state"][k])]
+    # the encoder stops at layer 4, before the attention: no kernel runs
+    log("parallel", check="decoder update, 2 gloo ranks vs one process",
+        loss_two=g["loss"], loss_one=w["loss"], loss_rel=dec_rel,
+        dice_rel=dice_rel, tol=1e-5, decoder_beyond_3e_5=dec_far,
+        encoder_changed=enc[:3],
+        launches_per_rank=per_rank[:, 3:6].tolist(),
+        launches_one=w["launches"])
+    if not (dec_rel <= 1e-5 and dice_rel <= 1e-5 and dec_far == 0
+            and not enc):
+        raise AssertionError("decoder update on 2 ranks differs from one "
+                             "process")
+    if per_rank[:, 3:6].any() or any(forward_launches(w["launches"]).values()):
+        raise AssertionError(f"decoder update launches: {per_rank[:, 3:6]}")
+
+    # (d) the Evaluator
+    g, w = two["eval"]["metrics"], one["eval"]["metrics"]
+    diffs = {k: abs(g[k] - w[k]) for k in ("dice", "hd95", "precision",
+                                           "recall")}
+    log("parallel", check="Evaluator, 2 gloo ranks vs one process",
+        two=g, one=w, diffs=diffs, tol=1e-6,
+        band_attention_per_rank=per_rank[:, 6].tolist(),
+        greedy_nms_per_rank=per_rank[:, 7].tolist())
+    if max(diffs.values()) > 1e-6 or g["n_images"] != w["n_images"]:
+        raise AssertionError(f"Evaluator on 2 ranks: {g} vs {w}")
+    if not ((per_rank[:, 6] == 8 * EVAL_BATCHES).all()
+            and (per_rank[:, 7] == EVAL_BATCHES).all()
+            and one["eval"]["launches"]["band_attention"] == 8 * EVAL_BATCHES
+            and one["eval"]["launches"]["greedy_nms"] == EVAL_BATCHES):
+        raise AssertionError(f"Evaluator launches per rank: "
+                             f"{per_rank[:, 6:8]}")
+
+    steps = 3
+    log("parallel", check="bf16 detector step ms, 640^2, global batch 8",
+        one_process=one["bf16_step_ms"],
+        rank0=per_rank[0, 10:10 + steps].tolist(),
+        rank1=per_rank[1, 10:10 + steps].tolist(),
+        gloo_grad_allreduce_ms=per_rank[:, 10 + steps:].tolist(),
+        launch_seconds=launch_s, card=card_line())
+
+    # (e) the command line, over two steps' worth of PNGs
+    counts, seconds = {}, {}
+    dp = os.path.join(root, "dp")
+    yaml = os.path.join(dp, "data.yaml")
+    with cv2_blocked():
+        rng = np.random.default_rng(SEED + 71)
+        write_split(dp, "train", 2 * EVAL_BATCH, rng)
+        write_split(dp, "val", EVAL_BATCH, rng)
+        with open(yaml, "w") as f:
+            f.write(f"path: {dp}\ntrain: images/train\nval: images/val\n"
+                    f"channels: 4\nnc: 1\nnames: [\"whole_tumor\"]\n")
+        hist, _ = run_command(
+            ["train-detector", "--data", yaml, "--model",
+             os.path.join(root, "init.ckpt"), "--imgsz", str(EVAL_IMGSZ),
+             "--batch", str(EVAL_BATCH), "--epochs", "1", "--run-dir",
+             os.path.join(dp, "runs"), "--out", os.path.join(dp, "dp.ckpt"),
+             "--dtype", "bfloat16", "--data-parallel", "1"], counts,
+            seconds, key="dp1")
+        if not (len(hist["loss"]) == 1 and np.isfinite(hist["loss"]).all()
+                and os.path.exists(os.path.join(dp, "dp.ckpt"))):
+            raise AssertionError(f"--data-parallel 1: {hist}")
+        try:
+            run_command(["train-detector", "--data", yaml,
+                         "--data-parallel", "2"], counts, seconds, key="dp2")
+        except RuntimeError as e:
+            refused = str(e)
+        else:
+            raise AssertionError("--data-parallel 2 ran on one card")
+    if "--data-parallel 2: one CUDA device a rank" not in refused:
+        raise AssertionError(f"--data-parallel 2: {refused}")
+    log("parallel", check="train-detector --data-parallel 1 / 2",
+        seconds=seconds["dp1"], loss=hist["loss"], refused=refused,
+        phase_seconds=time.perf_counter() - t_phase, twin=twin)
+    return {"train": int(per_rank[0, 2]), "backward": int(per_rank[0, 9]),
+            "evaluate": int(per_rank[0, 6]),
+            "evaluate nms": int(per_rank[0, 7])}
+
+
 def _kernel_name(line: str):
     """The band attention or a2c2f kernel a ptxas or SASS line names, with
     its I/O type (and token tile), else None: `..._kernelIf...` is the f32
@@ -3031,9 +3471,12 @@ def main() -> int:
             profiled = profile_phase(device, root)
             visualized = visualize_phase(device, root)
             families = families_phase(device, root, state_dict)
+        sources = sources_phase(device, state_dict, root)
+        parallel = parallel_phase(device, state_dict, root)
     later = {"export": exported["bf16"], "export f32": exported["f32"],
              "export segpp": exported["segpp"], "profile": profiled,
-             "visualize-logits": visualized}
+             "visualize-logits": visualized,
+             "sources video": sources["video"], "sources pil": sources["pil"]}
 
     src = "yolou_tpu_torch/csrc/"
     pallas = "yolou_tpu/ops/pallas_attn.py"
@@ -3054,7 +3497,8 @@ def main() -> int:
              "validate": ft["validate"]["band_attention"],
              **{f"cli {k}": v["band_attention"] for k, v in cli.items()
                 if isinstance(v, dict)},
-             **{k: v["band_attention"] for k, v in later.items()}},
+             **{k: v["band_attention"] for k, v in later.items()},
+             "parallel evaluate (each rank)": parallel["evaluate"]},
          "backward_calls": dec["attention_backward_calls"]},
         {"name": "greedy_nms", "route": "cuda",
          "source": src + "greedy_nms.cu",
@@ -3068,17 +3512,21 @@ def main() -> int:
              **{f"cli {k}": v["greedy_nms"] for k, v in cli.items()
                 if isinstance(v, dict)},
              **{k: v["greedy_nms"] for k, v in later.items()},
-             **{f"families {k}": v for k, v in families.items()}}},
+             **{f"families {k}": v for k, v in families.items()},
+             "parallel evaluate (each rank)": parallel["evaluate nms"]}},
         {"name": "band_attention_train", "route": "cuda",
          "source": src + "band_attention.cu", "replaces": pallas + ":243",
          "launches": train_launches,
          "backward_calls": train_backwards,
          "launches_by_path": {"train": train_launches,
                               "finetune": ft["train"],
-                              "cli train-detector": cli["train"]},
+                              "cli train-detector": cli["train"],
+                              "parallel step (each rank)": parallel["train"]},
          "backward_calls_by_path": {"train": train_backwards,
                                     "finetune": ft["backward"],
-                                    "cli train-detector": cli["backward"]},
+                                    "cli train-detector": cli["backward"],
+                                    "parallel step (each rank)":
+                                        parallel["backward"]},
          **dict({k: l6[k] for k in keys}, max_abs_err=train_attn_err)},
         {"name": "band_attention_single", "route": "cuda",
          "source": src + "band_attention.cu", "replaces": pallas + ":120",

@@ -99,8 +99,13 @@ def test_unknown_command_exits_2(capsys):
 
 @pytest.mark.parametrize("cmd", ["train-detector", "train-decoder"])
 def test_data_parallel_refuses_by_name(cmd):
-    with pytest.raises(NotImplementedError, match="Queue 1 #8"):
-        port_main.main([cmd, "--data-parallel", "2", *CPU])
+    """`--data-parallel N` on CUDA with fewer than N cards raises by name
+    before anything runs, as the JAX package's `make_mesh` fails with too
+    few devices (the CPU ranks are in `test_torch_port_parallel_cli.py`)."""
+    n = max(2, torch.cuda.device_count() + 1)
+    with pytest.raises(RuntimeError,
+                       match=f"--data-parallel {n}: one CUDA device a rank"):
+        port_main.main([cmd, "--data-parallel", str(n), "--device", "cuda"])
 
 
 def _close(got, want, tol):

@@ -380,10 +380,15 @@ def test_nan_loss_returns_the_history_without_the_epoch(variables, root,
 
 
 def test_trainer_defaults_to_the_gpu_and_refuses_a_mesh(variables, root):
+    """No device means the GPU. A mesh is taken (data parallel is in
+    `test_torch_port_parallel.py`); a batch that does not split over its
+    ranks is refused before any collective."""
+    from yolou_tpu_torch.parallel.mesh import Mesh
     _, v = variables
     model = _port_model(v)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        DecoderTrainer(model, root, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="does not split over 3 ranks"):
+        DecoderTrainer(model, root, device="cpu",
+                       mesh=Mesh(0, 3, torch.device("cpu"), "gloo"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='device="cpu"'):
             DecoderTrainer(model, root)

@@ -11,7 +11,9 @@ given, so that the comparison is of what was read and written: the
 objectmap `.npy` files byte for byte, the heatmap PNGs pixel for pixel
 (the two encoders' zlib streams differ). `load_source` must route a
 directory, a glob, a `.txt` list and a mixed list of paths and arrays to
-JAX's (path, array) list. `Predictor(retina_masks=True)` must give the
+JAX's (path, array) list, and raise what JAX raises where a stream, a
+camera or a screen cannot be read (`test_torch_port_sources.py` has the
+rest of the routes). `Predictor(retina_masks=True)` must give the
 JAX predictor's Results on the same JAX-written `.ckpt`, at
 `test_torch_port_predictor.py`'s tolerances (boxes within 1e-3 px, masks
 equal on all but 1e-3 of the pixels).
@@ -240,9 +242,27 @@ def test_load_source_matches_jax(root, tmp_path, kind, channels,
 
 
 @pytest.mark.parametrize("source", ["rtsp://cam/1", "0", "screen", "a.mp4"])
-def test_load_source_unported_routes_raise_by_name(source):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tpred.load_source(source)
+def test_load_source_unported_routes_raise_by_name(source, monkeypatch):
+    """The stream, camera, screenshot and video routes where nothing can
+    feed them (a `cv2.VideoCapture` that never opens, no `mss`, no display):
+    the port raises what the JAX package raises (IOError for the stream,
+    RuntimeError for the camera and the screenshot), and a video that does
+    not open gives no frame in both."""
+    from .test_torch_port_sources import _no_display, fake_cv2
+    from PIL import ImageGrab
+    monkeypatch.setitem(sys.modules, "cv2", fake_cv2([], opens=False))
+    monkeypatch.setitem(sys.modules, "mss", None)
+    monkeypatch.setattr(ImageGrab, "grab", _no_display)
+    try:
+        want = jpred.load_source(source)
+    except Exception as e:      # noqa: BLE001 - the type is compared
+        with pytest.raises(type(e)) as got:
+            tpred.load_source(source)
+        assert type(got.value) is type(e) and type(e) in (OSError,
+                                                          RuntimeError)
+        assert not isinstance(got.value, NotImplementedError)
+    else:
+        assert want == [] and tpred.load_source(source) == []
 
 
 def test_retina_predictor_matches_jax_on_a_jax_ckpt(models, root, tmp_path,

@@ -115,6 +115,34 @@ def test_decoder_training_modules_import_without_jax_or_cv2():
     assert res.stdout.strip() == "[]", res.stdout
 
 
+def test_mesh_and_predictor_import_without_their_optional_packages():
+    """`parallel/mesh.py` and `engine/predictor.py` load no JAX module and
+    none of `cv2`, PIL, `mss` or `pillow_heif` (each is imported in the
+    call that reads a video, a stream, a camera, a screen, a PIL image or a
+    HEIC file); the trainers, which import the mesh module, still import
+    with `cv2` blocked."""
+    optional = ("cv2", "PIL", "mss", "pillow_heif")
+    code = (
+        "import importlib, sys\n"
+        "for n in ('parallel.mesh', 'engine.predictor'):\n"
+        "    importlib.import_module('yolou_tpu_torch.' + n)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN + optional!r})\n"
+        "print(bad)\n")
+    res = _run(code, REPO)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]", res.stdout
+    code = (_BLOCK.format(blocked=FORBIDDEN + ("cv2",))
+            + "import yolou_tpu_torch.engine.trainer_detector\n"
+            "import yolou_tpu_torch.engine.trainer_decoder\n"
+            "import yolou_tpu_torch.cli.train_detector\n"
+            "import yolou_tpu_torch.cli.train_decoder\n"
+            "print('ok')\n")
+    res = _run(code, REPO)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
 def test_sources_name_no_jax_module():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|yolou_tpu)\b",
                      re.M)

@@ -19,6 +19,7 @@ from yolou_tpu.ops.masks import scale_masks as jax_scale_masks
 from yolou_tpu_torch.engine.predictor import Predictor
 from yolou_tpu_torch.ops.letterbox import letterbox_batch
 from yolou_tpu_torch.ops.masks import process_mask, scale_masks
+from yolou_tpu_torch.ops.resize import resize_linear_cv2
 
 # the same JAX weights and converted port model as the forward-pass tests
 from .test_torch_port_slice import IMGSZ, _close, models  # noqa: F401
@@ -83,3 +84,41 @@ def test_predictor_matches_jax(models):
         assert g.masks.data.shape[1:] == img.shape[:2]
         assert np.mean(g.masks.data != w.masks.data) <= 1e-3
         assert g.orig_img is img
+
+
+@pytest.mark.parametrize("hw", [(40, 56), (56, 40)])
+def test_predictor_non_square_masks_match_jax(models, hw):
+    """Images whose letterboxed mask is cropped and shrunk to a scale whose
+    taps fall at exact half-pixel ties: the JAX predictor resizes masks with
+    `cv2.resize(INTER_LINEAR)` and thresholds at 0.5, so the port must break
+    the ties as cv2 does (a float `F.interpolate` scale flipped a whole
+    column: 0.36 % of the pixels at (40, 56), 1.0 % at (56, 40))."""
+    jmod, variables, tmod = models
+    rng = np.random.default_rng(7)
+    imgs = [rng.integers(0, 256, hw + (4,), dtype=np.uint8) for _ in range(2)]
+    want = JaxPredictor(jmod, variables, imgsz=IMGSZ, batch_size=2)(imgs)
+    got = Predictor(tmod, imgsz=IMGSZ, batch_size=2)(imgs)
+    for g, w in zip(got, want):
+        assert len(g) == len(w) > 0
+        assert g.masks.data.shape == w.masks.data.shape
+        assert np.mean(g.masks.data != w.masks.data) <= 1e-4
+
+
+def test_resize_linear_cv2_keeps_cv2s_thresholded_masks():
+    """Binary masks of random shapes resized both ways and thresholded at
+    0.5: cv2's float path rounds some products differently, so a pixel may
+    differ, at most 1e-5 of them (F.interpolate: ~2e-4)."""
+    import cv2
+    rng = np.random.default_rng(0)
+    flips = total = 0
+    for _ in range(60):
+        h, w, oh, ow = (int(v) for v in rng.integers(20, 130, 4))
+        m = np.zeros((h, w), np.float32)
+        m[rng.integers(0, h // 2):rng.integers(h // 2, h),
+          rng.integers(0, w // 2):rng.integers(w // 2, w)] = 1
+        want = cv2.resize(m, (ow, oh), interpolation=cv2.INTER_LINEAR)
+        got = resize_linear_cv2(torch.from_numpy(m), (oh, ow)).numpy()
+        np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+        flips += int(((got > 0.5) != (want > 0.5)).sum())
+        total += want.size
+    assert flips <= 1e-5 * total, flips

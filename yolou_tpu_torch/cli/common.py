@@ -3,20 +3,22 @@ loading or creation.
 
 Counterpart of the JAX package's `cli/common.py`. Every command takes
 `--device` (default `cuda`; the tests pass `cpu`); `--bf16` / `--dtype
-bfloat16` mean `torch.bfloat16` compute. The JAX package's persistent XLA
-compile cache has no counterpart here.
+bfloat16` mean `torch.bfloat16` compute. `--data-parallel N` of the two
+trainers runs the command in N ranks (`run_in_ranks`). The JAX package's
+persistent XLA compile cache has no counterpart here.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-from typing import Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
 from ..models.segpp import YOLOSegPP, build_segpp
 from ..models.yolo import YOLOModel, build_yolo
+from ..parallel import mesh as meshlib
 from ..utils.model_io import load_model
 
 
@@ -36,11 +38,43 @@ def device_of(name: str) -> torch.device:
     return device
 
 
-def check_data_parallel(n: int) -> None:
-    if n > 1:
-        raise NotImplementedError(
-            f"--data-parallel {n}: data-parallel training is not ported yet "
-            f"(ROADMAP Queue 1 #8); run on one device")
+# the join timeout of `--data-parallel`'s ranks in seconds; None: none (a
+# collective that hangs still fails after the process group's 30 minutes)
+LAUNCH_TIMEOUT: Optional[float] = None
+
+
+def data_parallel_devices(n: int, device: str) -> List[str]:
+    """The ranks' devices of `--data-parallel n`: n CPU ranks for
+    `--device cpu` (gloo), else one CUDA device a rank (NCCL); fewer CUDA
+    devices than ranks raises, as the JAX package's `make_mesh` does with
+    too few devices."""
+    if n < 1:
+        raise ValueError(f"--data-parallel {n}: give 1 or more ranks")
+    if torch.device(device).type == "cpu":
+        return ["cpu"] * n
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if count < n:
+        raise RuntimeError(
+            f"--data-parallel {n}: one CUDA device a rank, and {count} here; "
+            f"pass --device cpu to run the ranks on the CPU")
+    return [f"cuda:{i}" for i in range(n)]
+
+
+def run_in_ranks(body: Callable, args: argparse.Namespace):
+    """`body(args, mesh)`: here without a mesh for `--data-parallel 0`,
+    else in `args.data_parallel` ranks started by `parallel.mesh.launch`
+    with a mesh each (a mesh of one for 1, as the JAX package's
+    `make_mesh(1)`), returning rank 0's result. `body` must be a
+    module-level function."""
+    if not args.data_parallel:
+        return body(args, None)
+    devices = data_parallel_devices(args.data_parallel, args.device)
+    return meshlib.launch(_rank_body, args.data_parallel, devices, body,
+                          args, timeout=LAUNCH_TIMEOUT)
+
+
+def _rank_body(body: Callable, args: argparse.Namespace):
+    return body(args, meshlib.make_mesh(args.data_parallel))
 
 
 def get_or_init_detector(model_path: Optional[str], *, variant: str = "n",

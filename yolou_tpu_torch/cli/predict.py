@@ -1,7 +1,9 @@
-"""Predict command — detection / segmentation over image sources: the
+"""Predict command — detection / segmentation over any source: the
 counterpart of the JAX package's `cli/predict.py`, over
-`engine/predictor.py::Predictor` (files, directories, globs, `.txt` lists;
-PNG read without cv2).
+`engine/predictor.py::Predictor` (files, directories, globs, `.txt` lists,
+PNG read without cv2; video files and stream URLs, a camera index and
+`screen` through cv2, `mss` or PIL, each imported when such a source is
+read).
 
 `--save-dir` writes `detections.json`, and the annotated images through
 `Results.save`, which draws with cv2: where cv2 is absent the command says

@@ -5,7 +5,10 @@ start 50 / patience 10, seed 42), over
 `engine/trainer_decoder.py::DecoderTrainer`; the trained model is written
 as `<run-dir>/segpp_final.ckpt`. A run writes `weights/best.ckpt` and
 `last.ckpt` in the JAX trainer's layout, and `--resume` takes either
-package's `last.ckpt` of a run over the same detector `--model`."""
+package's `last.ckpt` of a run over the same detector `--model`.
+`--data-parallel N` trains in N ranks (one CUDA device each, or `--device
+cpu` ranks), each update over the same global batch as one process's; rank
+0 alone prints and writes files."""
 
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import torch
 from ..engine.trainer_decoder import DecoderTrainConfig, DecoderTrainer
 from ..utils.model_io import save_model
 from .common import (add_device_argument, build_segpp_from_detector,
-                     check_data_parallel, device_of, get_or_init_detector)
+                     device_of, get_or_init_detector, run_in_ranks)
 
 
 def main(argv=None):
@@ -42,16 +45,19 @@ def main(argv=None):
                    help="bfloat16 compute (the reference's AMP)")
     p.add_argument("--run-dir", default="runs")
     p.add_argument("--data-parallel", type=int, default=0,
-                   help="shard batches over N devices (0 = single device)")
+                   help="shard batches over N ranks, one device each (0 = "
+                        "one process, no mesh)")
     p.add_argument("--resume", default=None,
                    help="a training-state last.ckpt of this package or of "
                         "the JAX package's train-decoder, over the same "
                         "encoder, to go on from")
     add_device_argument(p)
     args = p.parse_args(argv)
+    return run_in_ranks(_train, args)
 
-    check_data_parallel(args.data_parallel)
-    device = device_of(args.device)
+
+def _train(args, mesh):
+    device = device_of(args.device) if mesh is None else mesh.device
     det = get_or_init_detector(args.model, nc=1, ch=4, task="detect",
                                seed=args.seed, device=device)
     model = build_segpp_from_detector(
@@ -62,9 +68,11 @@ def main(argv=None):
         epochs=args.epochs, patience=args.patience,
         early_stopping_start=args.early_stopping_start, seed=args.seed,
         run_dir=args.run_dir, normalize_objectmap=not args.raw_objectmaps)
-    trainer = DecoderTrainer(model, args.data, cfg, device=device)
+    trainer = DecoderTrainer(model, args.data, cfg, device=device, mesh=mesh)
     history = trainer.train(resume_from=args.resume)
-    save_model(os.path.join(args.run_dir, "segpp_final.ckpt"), trainer.model)
+    if trainer.is_main:
+        save_model(os.path.join(args.run_dir, "segpp_final.ckpt"),
+                   trainer.model)
     return history
 
 

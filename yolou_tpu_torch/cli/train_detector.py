@@ -1,6 +1,9 @@
 """Detector fine-tune command — the counterpart of the JAX package's
 `cli/train_detector.py`, over `engine/trainer_detector.py::DetectorTrainer`;
-the EMA weights are written as a `.ckpt` model file at the end. A run
+the EMA weights are written as a `.ckpt` model file at the end.
+`--data-parallel N` trains in N ranks (one CUDA device each, or `--device
+cpu` ranks), each step over the same global batch as one process's; rank 0
+alone prints and writes files. A run
 writes `weights/last.ckpt` and `best.ckpt` in the JAX trainer's layout, and
 `--resume` takes either package's `last.ckpt` (the JAX command's default
 flat-vector state too):
@@ -19,8 +22,8 @@ import torch
 from ..data.config import load_data_yaml
 from ..engine.trainer_detector import DetectorTrainConfig, DetectorTrainer
 from ..utils.model_io import save_model
-from .common import (add_device_argument, check_data_parallel, device_of,
-                     get_or_init_detector)
+from .common import (add_device_argument, device_of, get_or_init_detector,
+                     run_in_ranks)
 
 
 def main(argv=None):
@@ -37,7 +40,9 @@ def main(argv=None):
     p.add_argument("--close-mosaic", type=int, default=10)
     p.add_argument("--val-every", type=int, default=0,
                    help="mAP on val every N epochs (0 = off)")
-    p.add_argument("--data-parallel", type=int, default=0)
+    p.add_argument("--data-parallel", type=int, default=0,
+                   help="train in N ranks, one device each (0 = one "
+                        "process, no mesh)")
     p.add_argument("--run-dir", default="runs_detector")
     p.add_argument("--out", default="yolo_checkpoint/weights/best.ckpt")
     p.add_argument("--resume", default=None,
@@ -52,9 +57,11 @@ def main(argv=None):
                         "CUDA kernels are always the route here")
     add_device_argument(p)
     args = p.parse_args(argv)
+    return run_in_ranks(_train, args)
 
-    check_data_parallel(args.data_parallel)
-    device = device_of(args.device)
+
+def _train(args, mesh):
+    device = device_of(args.device) if mesh is None else mesh.device
     data_cfg = load_data_yaml(args.data)
     model = get_or_init_detector(
         args.model, variant=args.variant, nc=data_cfg.nc,
@@ -66,10 +73,12 @@ def main(argv=None):
         lr0=args.lr0, optimizer=args.optimizer,
         close_mosaic=args.close_mosaic, run_dir=args.run_dir,
         val_every=args.val_every)
-    trainer = DetectorTrainer(model, data_cfg, cfg, device=device)
+    trainer = DetectorTrainer(model, data_cfg, cfg, device=device, mesh=mesh)
     history = trainer.train(resume_from=args.resume)
-    save_model(args.out, trainer.model, state_dict=trainer.ema_variables())
-    print(f"saved EMA weights to {args.out}")
+    if trainer.is_main:
+        save_model(args.out, trainer.model,
+                   state_dict=trainer.ema_variables())
+        print(f"saved EMA weights to {args.out}")
     return history
 
 

@@ -3,10 +3,14 @@
 Counterpart of `yolou_tpu/engine/predictor.py::Predictor`. `load_source`
 routes a source to (path, HWC uint8 image) pairs as the JAX package's does:
 one array or a (B, H, W, C) stack, an image file, a directory (sorted), a
-glob, a `.txt` list of paths, or a list of paths and arrays; files are read
-by `native/image.py` (PNG without cv2). The camera, stream, screenshot,
-video, PIL and HEIC routes need `cv2.VideoCapture`, PIL or `pillow_heif`
-and raise by name. Images are bucketed by shape and run in chunks of
+glob, a `.txt` list of paths, a list of paths, arrays and PIL images, a PIL
+image, a video file (`path#frameN`), a network stream (`url#frameN`, at
+most 32 frames), a camera index or digit string (`webcam{i}#frame{j}`) and
+a screenshot (`screen`, `screen<N>`). Image files are read by
+`native/image.py` (PNG without cv2), HEIC / HEIF through PIL with the
+`pillow_heif` plugin. `cv2`, PIL, `mss` and `pillow_heif` are imported
+inside the call that needs them, and nothing else stands in for them.
+Images are bucketed by shape and run in chunks of
 `batch_size`; each chunk is one letterbox + forward + NMS on the model's
 device. Masks are decoded for the valid detections only, resized back to
 the original image on the device (with `retina_masks`, made at the original
@@ -19,11 +23,11 @@ from __future__ import annotations
 
 import glob as globlib
 import os
+import sys
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..models.yolo import YOLOModel, YoloOutputs
 from ..ops.boxes import scale_boxes
@@ -31,6 +35,7 @@ from ..ops.letterbox import letterbox_batch
 from ..native.image import IMREAD_GRAYSCALE, IMREAD_UNCHANGED, imread
 from ..ops.masks import process_mask, process_mask_native
 from ..ops.nms import NMSResult, non_max_suppression
+from ..ops.resize import resize_linear_cv2
 from .results import Boxes, Masks, Results
 
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".tif", ".tiff", ".webp",
@@ -41,10 +46,139 @@ STREAM_SCHEMES = ("rtsp://", "rtmp://", "http://", "https://", "tcp://")
 Source = Union[str, np.ndarray, Sequence[Union[str, np.ndarray]]]
 
 
-def _not_ported(route: str, source, needs: str):
-    return NotImplementedError(
-        f"{route} source {source!r}: not ported (it needs {needs}); pass "
-        f"image files, a directory, a glob, a .txt list or arrays")
+def _read_video_frames(path: str, stride: int = 1
+                       ) -> List[Tuple[str, np.ndarray]]:
+    """Every `stride`-th frame of a video file, as `cv2.VideoCapture`
+    decodes it (BGR), named `path#frameN`; a file that does not open gives
+    no frame, as in the JAX package."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    frames = []
+    i = 0
+    while cap.isOpened():
+        ok, frame = cap.read()
+        if not ok:
+            break
+        if i % stride == 0:
+            frames.append((f"{path}#frame{i}", frame))
+        i += 1
+    cap.release()
+    return frames
+
+
+def _read_stream_frames(url: str, max_frames: int = 32, stride: int = 1
+                        ) -> List[Tuple[str, np.ndarray]]:
+    """Up to `max_frames` frames (every `stride`-th) of a network stream,
+    named `url#frameN`; a finite clip, not a live loop. IOError where the
+    stream does not open."""
+    import cv2
+
+    cap = cv2.VideoCapture(url)
+    if not cap.isOpened():
+        raise IOError(f"cannot open stream {url}")
+    frames = []
+    i = 0
+    while len(frames) < max_frames:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        if i % stride == 0:
+            frames.append((f"{url}#frame{i}", frame))
+        i += 1
+    cap.release()
+    return frames
+
+
+def _read_webcam_frames(index: int, max_frames: int = 1
+                        ) -> List[Tuple[str, np.ndarray]]:
+    """`max_frames` frames of camera `index`, named `webcam{index}#frame{j}`.
+    RuntimeError where the camera does not open or gives no frame."""
+    import cv2
+
+    cap = cv2.VideoCapture(index)
+    if not cap.isOpened():
+        cap.release()
+        raise RuntimeError(
+            f"webcam source {index!r} could not be opened (no camera device "
+            f"— headless environment?); use a file/dir/URL source instead")
+    frames = []
+    for i in range(max_frames):
+        ok, frame = cap.read()
+        if not ok:
+            break
+        if frame.ndim == 2:
+            frame = frame[..., None]
+        frames.append((f"webcam{index}#frame{i}", frame))
+    cap.release()
+    if not frames:
+        raise RuntimeError(f"webcam source {index!r} produced no frames")
+    return frames
+
+
+def _grab_screenshot(spec: str) -> np.ndarray:
+    """A screenshot (BGR) of monitor N for "screen<N>" (the first for
+    "screen"), through `mss`, or where it is absent `PIL.ImageGrab`.
+    RuntimeError where neither can take one."""
+    idx = int(spec[6:]) if len(spec) > 6 and spec[6:].isdigit() else 0
+    try:
+        import mss
+
+        with mss.mss() as sct:
+            mon = sct.monitors[idx + 1 if len(sct.monitors) > 1 else 0]
+            shot = np.asarray(sct.grab(mon))[..., :3]       # BGRA -> BGR
+            return np.ascontiguousarray(shot)
+    except ImportError:
+        pass
+    try:
+        from PIL import ImageGrab
+
+        arr = np.asarray(ImageGrab.grab())
+        return arr[..., ::-1].copy()                         # RGB -> BGR
+    except Exception as e:
+        raise RuntimeError(
+            f"screenshot source {spec!r} needs `mss` or a display for "
+            f"PIL.ImageGrab: {e}") from e
+
+
+def _pil_array(img, channels: int) -> np.ndarray:
+    """A PIL image as HWC uint8: RGBA for 4 channels or more, L for one,
+    else RGB, with the colour channels reversed to cv2's BGR order."""
+    mode = "RGBA" if channels >= 4 else ("L" if channels == 1 else "RGB")
+    arr = np.asarray(img.convert(mode))
+    if arr.ndim == 2:
+        return arr[..., None]
+    if arr.shape[-1] >= 3:  # RGB(A) -> BGR(A)
+        arr = np.concatenate([arr[..., :3][..., ::-1], arr[..., 3:]], axis=-1)
+    return arr
+
+
+def _read_heic(path: str, channels: int) -> np.ndarray:
+    """A HEIC / HEIF file through PIL, with the `pillow_heif` opener
+    registered where it is installed; IOError where PIL cannot decode it."""
+    try:
+        import pillow_heif
+
+        pillow_heif.register_heif_opener()
+    except ImportError:
+        pass
+    from PIL import Image
+
+    try:
+        img = Image.open(path)
+        img.load()
+    except Exception as e:
+        raise IOError(
+            f"cannot decode {path}: HEIC support needs the pillow-heif "
+            f"plugin ({e})") from e
+    return _pil_array(img, channels)
+
+
+def _is_pil(obj) -> bool:
+    """Whether `obj` is a PIL image; PIL is not imported for the question
+    (no PIL image exists before PIL is)."""
+    image = sys.modules.get("PIL.Image")
+    return image is not None and isinstance(obj, image.Image)
 
 
 def _harmonise(img: np.ndarray, channels: int) -> np.ndarray:
@@ -65,32 +199,37 @@ def _harmonise(img: np.ndarray, channels: int) -> np.ndarray:
 def load_source(source: Source, channels: int = 4
                 ) -> List[Tuple[str, np.ndarray]]:
     """(path, HWC uint8 image) pairs with `channels` channels, in the JAX
-    package's order and names: `array_{i}` for arrays, the path for files
-    (grayscale for a one-channel model, else as stored)."""
+    package's order and names: `array_{i}` for arrays, `pil_{i}` for PIL
+    images (`pil_0` alone), the path for files (grayscale for a one-channel
+    model, else as stored), `...#frameN` for the frames of a video, stream
+    or camera."""
     def read(path: str) -> np.ndarray:
         if path.lower().endswith((".heic", ".heif")):
-            raise _not_ported("HEIC", path, "PIL and pillow_heif")
+            return _read_heic(path, channels)
         img = imread(path, IMREAD_UNCHANGED if channels != 1
                      else IMREAD_GRAYSCALE)
         return img[..., None] if img.ndim == 2 else img
 
     items: List[Tuple[str, np.ndarray]] = []
+    if _is_pil(source):
+        items.append(("pil_0", _pil_array(source, channels)))
+        source = []
     if isinstance(source, bool):
         raise TypeError(f"unsupported source type: {source!r}")
     if isinstance(source, int):
-        raise _not_ported("camera", source, "cv2.VideoCapture")
-    if isinstance(source, np.ndarray):
+        items.extend(_read_webcam_frames(source))
+    elif isinstance(source, np.ndarray):
         arrs = source if source.ndim == 4 else source[None]
         items = [(f"array_{i}", a) for i, a in enumerate(arrs)]
     elif isinstance(source, str):
         low = source.lower()
         if source.isdigit():
-            raise _not_ported("camera", source, "cv2.VideoCapture")
-        if low.startswith(STREAM_SCHEMES):
-            raise _not_ported("stream", source, "cv2.VideoCapture")
-        if low.startswith("screen"):
-            raise _not_ported("screenshot", source, "mss or PIL.ImageGrab")
-        if os.path.isdir(source):
+            items.extend(_read_webcam_frames(int(source)))
+        elif low.startswith(STREAM_SCHEMES):
+            items.extend(_read_stream_frames(source))
+        elif low.startswith("screen"):
+            items.append((source, _grab_screenshot(source)))
+        elif os.path.isdir(source):
             items = [(os.path.join(source, f), read(os.path.join(source, f)))
                      for f in sorted(os.listdir(source))
                      if f.lower().endswith(IMG_EXTS)]
@@ -100,19 +239,17 @@ def load_source(source: Source, channels: int = 4
             with open(source) as fh:
                 items = [(p, read(p)) for p in (ln.strip() for ln in fh) if p]
         elif low.endswith(VID_EXTS):
-            raise _not_ported("video", source, "cv2.VideoCapture")
+            items.extend(_read_video_frames(source))
         else:
             items = [(source, read(source))]
-    elif isinstance(source, (list, tuple)):
+    else:
         for i, s in enumerate(source):
             if isinstance(s, np.ndarray):
                 items.append((f"array_{i}", s))
-            elif isinstance(s, str):
-                items.append((s, read(s)))
+            elif _is_pil(s):
+                items.append((f"pil_{i}", _pil_array(s, channels)))
             else:
-                raise _not_ported("PIL", type(s).__name__, "PIL")
-    else:
-        raise _not_ported("PIL", type(source).__name__, "PIL")
+                items.append((s, read(s)))
     return [(path, _harmonise(img, channels)) for path, img in items]
 
 
@@ -190,9 +327,7 @@ class Predictor:
                 ph = int(round((mh - oh * gain) / 2))
                 pw = int(round((mw - ow * gain) / 2))
                 m = m[:, ph:mh - ph or None, pw:mw - pw or None]
-                m = F.interpolate(m[:, None], size=(oh, ow), mode="bilinear",
-                                  align_corners=False)[:, 0]
-                m = (m > 0.5).float()
+                m = (resize_linear_cv2(m, (oh, ow)) > 0.5).float()
             mask_out = Masks(m.cpu().numpy())
         if not retina:
             boxes = scale_boxes(hw, boxes, orig.shape[:2])

@@ -17,20 +17,29 @@ validation batches, both over batches as `DecoderDataset.batches` yields
 them; `_loaders` is the one place the datasets come from. The trainer runs
 on the GPU unless a CPU device is asked for.
 
+With `mesh` (`parallel/mesh.py`, one trainer in each rank of `launch`) each
+rank runs its contiguous shard of every batch. The soft Dice loss stays
+global over the batch (its sums and the decoder's BatchNorm statistics
+are all-reduced), the decoder's gradients are summed over the ranks, and
+the encoder stays bit-identical on every rank; the logged loss and Dice are
+the global ones. Validation runs on shards too and gathers the per-image
+Dice and HD95 in image order and sums the pixel counts, so every rank holds
+the single-process metrics. Rank 0 alone prints and writes files.
+
 Not carried over from the JAX package: `device_data` and
 `device_data_budget_mb` (both splits resident on the device and an epoch as
 one `lax.scan`, a workaround for a slow host link; the port uploads each
-batch), the asynchronous scalar pipeline of `utils/async_metrics.py` (the
-port sums on the device and fetches once an epoch), and data-parallel
-meshes (`mesh` raises). `best.ckpt` and `last.ckpt` hold the whole
-training state in the JAX package's layout (`utils/train_state.py`): the
-YOLO-Seg++ variables, the frozen encoder's among them, AdamW's moments and
-the update count. Either package resumes the other's file; the encoder in
+batch) and the asynchronous scalar pipeline of `utils/async_metrics.py`
+(the port sums on the device and fetches once an epoch). `best.ckpt` and
+`last.ckpt` hold the whole training state in the JAX package's layout
+(`utils/train_state.py`): the YOLO-Seg++ variables, the frozen encoder's
+among them, AdamW's moments and the update count. Either package resumes the other's file; the encoder in
 the file must be the model's own, bit for bit.
 """
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import dataclasses
 import json
@@ -47,6 +56,7 @@ from ..losses.dice import soft_dice_loss
 from ..metrics.seg import dice_binary, hd95_batch, precision_recall_counts
 from ..models.segpp import YOLOSegPP
 from ..models.yolo import resolve_device
+from ..parallel import mesh as meshlib
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.train_state import decoder_state_tree, restore_decoder_state
 
@@ -111,16 +121,23 @@ def cosine_decay(step: int, decay_steps: int) -> float:
 
 class DecoderTrainer:
     """Trains `model`'s decoder in place. `device=None` means the GPU (an
-    error where there is none); the model is moved there."""
+    error where there is none), or the mesh's device under a `mesh`; the
+    model is moved there, and under a mesh given rank 0's weights."""
 
     def __init__(self, model: YOLOSegPP, data_root: str,
                  cfg: DecoderTrainConfig = DecoderTrainConfig(),
-                 device: torch.device | str | None = None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: data-parallel decoder training is not ported yet")
-        self.device = resolve_device(device)
+                 device: torch.device | str | None = None,
+                 mesh: Optional[meshlib.Mesh] = None):
+        if mesh is not None and cfg.batch_size % mesh.size:
+            raise ValueError(f"batch_size {cfg.batch_size} does not split "
+                             f"over {mesh.size} ranks")
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.is_main
+        self.device = resolve_device(
+            mesh.device if device is None and mesh else device)
         self.model = model.to(self.device)
+        if mesh is not None:
+            meshlib.replicate(mesh, model)
         self.cfg = cfg
         self.data_root = data_root
         self.history: Dict[str, list] = {k: [] for k in HISTORY_KEYS}
@@ -159,7 +176,11 @@ class DecoderTrainer:
 
     def _upload(self, img, mask, om):
         """NHWC arrays or tensors -> NCHW f32 tensors on the device; uint8
-        images and masks are scaled by 1/255 there."""
+        images and masks are scaled by 1/255 there. Under a mesh, this
+        rank's shard of each."""
+        if self.mesh is not None:
+            img, mask, om = meshlib.shard_batch(self.mesh, (img, mask, om))
+
         def unit(t):
             t = torch.as_tensor(t).to(self.device, non_blocking=True)
             t = t.float() / 255.0 if t.dtype == torch.uint8 else t.float()
@@ -171,13 +192,18 @@ class DecoderTrainer:
         """One optimizer update over a batch: img (B, S, S, C), mask (B, S,
         S, 1) (uint8, or f32 in [0, 1]) and the conditioned objectmap om (B,
         S/8, S/8, 1) f32. Returns (loss, Dice of the thresholded prediction
-        over the whole batch) as tensors on the device, nothing fetched."""
+        over the whole batch) as tensors on the device, nothing fetched.
+        Under a mesh the batch is the global one, and so are the loss and
+        Dice returned."""
         img, mask, om = self._upload(img, mask, om)
         self.model.train()
-        pred, _ = self.model(img, logits=om)
-        loss = soft_dice_loss(pred, mask)
+        with self.mesh or contextlib.nullcontext():
+            pred, _ = self.model(img, logits=om)
+            loss = soft_dice_loss(pred, mask)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if self.mesh is not None:
+            meshlib.sum_gradients(self.mesh, self.model.decoder_parameters())
         if self.cfg.clip_grad_norm is not None:
             self._clip_gradients(self.cfg.clip_grad_norm)
         self.optimizer.step()
@@ -185,8 +211,12 @@ class DecoderTrainer:
         self.step_count += 1
         with torch.no_grad():
             pred_bin = (torch.sigmoid(pred) > 0.5).float()
-            dice = dice_binary(pred_bin[:, 0], mask[:, 0]).mean()
-        return loss.detach(), dice
+            dice = dice_binary(pred_bin[:, 0], mask[:, 0])
+            if self.mesh is None:
+                return loss.detach(), dice.mean()
+            loss, dice = meshlib.global_sum(
+                torch.stack([loss.detach(), dice.sum()]), self.mesh)
+            return loss, dice / (len(pred) * self.mesh.size)
 
     @torch.no_grad()
     def _clip_gradients(self, max_norm: float) -> None:
@@ -204,25 +234,40 @@ class DecoderTrainer:
         `DecoderDataset.batches` yields them, the last padded to the batch
         size: the padded rows are zeroed out of the global Dice loss and the
         pixel counts, and cut from the per-image Dice and HD95. Precision and
-        recall pool the counts over the split."""
+        recall pool the counts over the split. Under a mesh each rank runs
+        its shard of each batch; the losses and counts are summed over the
+        ranks and the per-image metrics gathered in image order."""
         self.model.eval()
+        mesh = self.mesh
         losses, dices, hd95s = [], [], []
         counts = torch.zeros(3, dtype=torch.float64, device=self.device)
         for imgs, masks, oms, n_real in batches:
             img, mask, om = self._upload(imgs, masks, oms)
+            first = 0 if mesh is None else mesh.rank * len(img)
             pred, _ = self.model(img, logits=om)
-            row = (torch.arange(img.shape[0], device=self.device)
+            row = (torch.arange(first, first + len(img), device=self.device)
                    < n_real).float()[:, None, None]
             probs = torch.sigmoid(pred.float()) * row[:, None]
-            losses.append(soft_dice_loss(probs, mask * row[:, None],
-                                         sigmoid=False))
+            with mesh or contextlib.nullcontext():
+                losses.append(soft_dice_loss(probs, mask * row[:, None],
+                                             sigmoid=False))
             pred_bin = (torch.sigmoid(pred) > 0.5).float()[:, 0]
             m = mask[:, 0]
-            dices.append(dice_binary(pred_bin, m)[:n_real])
+            if mesh is None:
+                dices.append(dice_binary(pred_bin, m)[:n_real])
+                if self.cfg.val_hd95:
+                    hd95s.append(hd95_batch(pred_bin[:n_real], m[:n_real]))
+            else:
+                dices.append(meshlib.all_gather_rows(
+                    dice_binary(pred_bin, m), mesh)[:n_real])
+                if self.cfg.val_hd95:
+                    hd95s.append(meshlib.all_gather_rows(
+                        hd95_batch(pred_bin, m), mesh)[:n_real])
             counts += torch.stack(precision_recall_counts(
                 pred_bin * row, m * row)).double()
-            if self.cfg.val_hd95:
-                hd95s.append(hd95_batch(pred_bin[:n_real], m[:n_real]))
+        if mesh is not None and losses:
+            losses = list(meshlib.global_sum(torch.stack(losses), mesh))
+            counts = meshlib.global_sum(counts, mesh)
         tp, fp, fn = counts.tolist()
         hd = (torch.cat(hd95s).cpu().numpy() if hd95s
               else np.asarray([np.nan]))
@@ -253,9 +298,10 @@ class DecoderTrainer:
         self.ensure_ready(steps_per_epoch)
         run_dir = os.path.join(cfg.run_dir, time.strftime("%Y_%m_%d_%H_%M_%S"))
         weights_dir = os.path.join(run_dir, "weights")
-        os.makedirs(weights_dir, exist_ok=True)
-        with open(os.path.join(run_dir, "config.json"), "w") as f:
-            json.dump(dataclasses.asdict(cfg), f, indent=2)
+        if self.is_main:
+            os.makedirs(weights_dir, exist_ok=True)
+            with open(os.path.join(run_dir, "config.json"), "w") as f:
+                json.dump(dataclasses.asdict(cfg), f, indent=2)
 
         start_epoch = 0
         if resume_from:
@@ -279,7 +325,8 @@ class DecoderTrainer:
                 nb += 1
             tr_loss, tr_dice = (acc / max(nb, 1)).tolist()
             if math.isnan(tr_loss):
-                print("NaN loss detected!")
+                if self.is_main:
+                    print("NaN loss detected!")
                 return self.history
             t1 = time.time()
             self.epoch_times.append(t1 - t0)
@@ -294,7 +341,8 @@ class DecoderTrainer:
             if va_dice > best_val_dice:
                 significant = abs(best_val_dice - va_dice) > 1e-3
                 best_val_dice = va_dice
-                self._save(os.path.join(weights_dir, "best.ckpt"))
+                if self.is_main:
+                    self._save(os.path.join(weights_dir, "best.ckpt"))
                 if significant:
                     patience = 0
                 elif epoch + 1 >= cfg.early_stopping_start:
@@ -302,24 +350,30 @@ class DecoderTrainer:
             elif epoch + 1 >= cfg.early_stopping_start:
                 patience += 1
 
-            self._dump_history(run_dir)
-            print(f"epoch {epoch + 1}/{cfg.epochs} "
-                  f"train_loss={tr_loss:.4f} val_loss={val['val_loss']:.4f} "
-                  f"train_dice={tr_dice:.4f} val_dice={va_dice:.4f} "
-                  f"hd95={val['val_hd95_metric']:.3f} "
-                  f"p={val['val_precision']:.4f} r={val['val_recall']:.4f} "
-                  f"[{t1 - t0:.2f}s train / {t2 - t1:.2f}s val]")
+            if self.is_main:
+                self._dump_history(run_dir)
+                print(f"epoch {epoch + 1}/{cfg.epochs} "
+                      f"train_loss={tr_loss:.4f} "
+                      f"val_loss={val['val_loss']:.4f} "
+                      f"train_dice={tr_dice:.4f} val_dice={va_dice:.4f} "
+                      f"hd95={val['val_hd95_metric']:.3f} "
+                      f"p={val['val_precision']:.4f} "
+                      f"r={val['val_recall']:.4f} "
+                      f"[{t1 - t0:.2f}s train / {t2 - t1:.2f}s val]")
 
             if cfg.early_stopping and patience >= cfg.patience:
-                print(f"EARLY STOPPING at epoch {epoch + 1} "
-                      f"(best val dice {best_val_dice:.4f})")
+                if self.is_main:
+                    print(f"EARLY STOPPING at epoch {epoch + 1} "
+                          f"(best val dice {best_val_dice:.4f})")
                 break
 
-        self._save(os.path.join(weights_dir, "last.ckpt"))
-        try:
-            self.plot_history(run_dir)
-        except ImportError:             # no matplotlib: no plot
-            pass
+        if self.is_main:
+            self._save(os.path.join(weights_dir, "last.ckpt"))
+            try:
+                self.plot_history(run_dir)
+            except ImportError:             # no matplotlib: no plot
+                pass
+        meshlib.barrier(self.mesh)
         return self.history
 
     # ------------------------------------------------------------ checkpoints

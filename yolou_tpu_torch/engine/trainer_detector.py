@@ -19,15 +19,26 @@ in the JAX package's layout (`utils/train_state.py`): `load_resume` reads
 the port's files and the JAX trainer's, tree form (SGD or AdamW) and flat
 form (its default SGD state) alike, so a run resumes across the two
 packages. The trainer runs on the GPU unless a CPU device is asked for.
+
+With `mesh` (`parallel/mesh.py`, one trainer in each rank of `launch`) a
+step is one process's step over the same global batch: every rank uploads
+and augments the whole batch with the same generator state (mosaic, mixup
+and cutmix mix its images), then runs forward, loss and backward on its
+contiguous shard with BatchNorm's statistics and the loss's normalizers
+taken over the global batch; the gradients are summed over the ranks, so
+clipping, the non-finite skip, the optimizer and the EMA are the same on
+every rank. Rank 0 alone validates, prints and writes files; the others
+wait at a barrier. The augmentation is done N times over, once a rank.
+
 Not carried over from the JAX package: the packed single-buffer upload, the
 device-resident dataset with its whole-epoch scan and the flat-vector
 optimizer (three workarounds for a slow host link and per-leaf dispatch
-costs; a flat-form file is read, the tree form written), and data-parallel
-meshes.
+costs; a flat-form file is read, the tree form written).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -44,6 +55,7 @@ from ..data.augment import AugHyp, augment_batch
 from ..data.yolo_dataset import YoloSegDataset, collate_idmap_cached
 from ..losses.v8 import LossHyp, v8_loss
 from ..models.yolo import YOLOModel, resolve_device
+from ..parallel import mesh as meshlib
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.train_state import detector_state_tree, restore_detector_state
 
@@ -171,14 +183,24 @@ def epoch_index_batches(idx: np.ndarray, batch_size: int):
 
 class DetectorTrainer:
     """Trains `model` in place. `device=None` means the GPU (an error where
-    there is none); the model is moved there."""
+    there is none), or the mesh's device under a `mesh`; the model is moved
+    there, and under a mesh given rank 0's weights."""
 
     def __init__(self, model: YOLOModel, data_cfg,
                  cfg: DetectorTrainConfig = DetectorTrainConfig(),
                  aug: AugHyp = AugHyp(), loss_hyp: LossHyp = LossHyp(),
-                 device: torch.device | str | None = None):
-        self.device = resolve_device(device)
+                 device: torch.device | str | None = None,
+                 mesh: Optional[meshlib.Mesh] = None):
+        if mesh is not None and cfg.batch_size % mesh.size:
+            raise ValueError(f"batch_size {cfg.batch_size} does not split "
+                             f"over {mesh.size} ranks")
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.is_main
+        self.device = resolve_device(
+            mesh.device if device is None and mesh else device)
         self.model = model.to(self.device)
+        if mesh is not None:
+            meshlib.replicate(mesh, model)
         self.cfg, self.aug, self.loss_hyp = cfg, aug, loss_hyp
         self.data_cfg = data_cfg
         self.params = [p for p in model.parameters() if p.requires_grad]
@@ -226,15 +248,30 @@ class DetectorTrainer:
         arrays, in `collate_idmap_cached`'s form. `generator` (on the
         trainer's device) drives the augmentation. Returns (loss, parts) as
         tensors on the device; nothing is fetched to the host except the one
-        flag that says whether the gradients were finite."""
+        flag that says whether the gradients were finite. Under a mesh
+        `batch` is the global batch, and the loss and parts returned are
+        the global ones."""
         aug = self.augment(batch, generator, use_mosaic)
+        if self.mesh is not None:
+            rows = meshlib.batch_sharding(self.mesh).index(len(aug["img"]))
+            aug = {k: v[rows] for k, v in aug.items()}
         self.model.train()
-        lo = self.loss(self.model(aug["img"].permute(0, 3, 1, 2)), aug)
+        with self.mesh or contextlib.nullcontext():
+            lo = self.loss(self.model(aug["img"].permute(0, 3, 1, 2)), aug)
         self.optimizer.zero_grad(set_to_none=True)
         lo.total.backward()
+        if self.mesh is not None:
+            meshlib.sum_gradients(self.mesh, self.params)
         self.apply_gradients()
         self.update_ema()
-        return lo.total.detach(), {k: v.detach() for k, v in lo.parts.items()}
+        total = lo.total.detach()
+        parts = {k: v.detach() for k, v in lo.parts.items()}
+        if self.mesh is not None:
+            names = list(parts)
+            summed = meshlib.global_sum(
+                torch.stack([total] + [parts[k] for k in names]), self.mesh)
+            total, parts = summed[0], dict(zip(names, summed[1:]))
+        return total, parts
 
     @torch.no_grad()
     def augment(self, batch, generator: torch.Generator,
@@ -338,9 +375,10 @@ class DetectorTrainer:
 
         run_dir = os.path.join(cfg.run_dir, time.strftime("%Y_%m_%d_%H_%M_%S"))
         weights = os.path.join(run_dir, "weights")
-        os.makedirs(weights, exist_ok=True)
-        with open(os.path.join(run_dir, "config.json"), "w") as f:
-            json.dump(dataclasses.asdict(cfg), f, indent=2)
+        if self.is_main:
+            os.makedirs(weights, exist_ok=True)
+            with open(os.path.join(run_dir, "config.json"), "w") as f:
+                json.dump(dataclasses.asdict(cfg), f, indent=2)
 
         start_epoch = 0
         if resume_from:
@@ -375,7 +413,8 @@ class DetectorTrainer:
             if self._notfinite:
                 msg += (f" | WARN: {self._notfinite} consecutive non-finite "
                         f"steps skipped")
-            if cfg.val_every and (epoch + 1) % cfg.val_every == 0:
+            if (cfg.val_every and (epoch + 1) % cfg.val_every == 0
+                    and self.is_main):
                 t1 = time.time()
                 vm = self.validate(val_ds)
                 self.val_times.append(time.time() - t1)
@@ -388,8 +427,10 @@ class DetectorTrainer:
                 if fitness > best_fitness:
                     best_fitness = fitness
                     self.save_checkpoint(os.path.join(weights, "best.ckpt"))
-            print(msg)
-            self.save_checkpoint(os.path.join(weights, "last.ckpt"))
+            if self.is_main:
+                print(msg)
+                self.save_checkpoint(os.path.join(weights, "last.ckpt"))
+            meshlib.barrier(self.mesh)
         return self.history
 
     # ------------------------------------------------------------ checkpoints

@@ -21,6 +21,7 @@ from ..ops.boxes import (bbox2dist, bbox_iou_aligned, dfl_decode, dist2bbox,
                          make_anchors, xywh2xyxy)
 from ..ops.masks import crop_mask
 from ..ops.nms import topk_stable
+from ..parallel.mesh import global_sum, world_size
 from .dice import bce_with_logits
 from .tal import task_aligned_assign
 
@@ -81,7 +82,13 @@ def v8_loss(
     max_pos bounds the per-image positive-anchor gather of the mask term.
     None sizes it to the whole TAL budget (G * topk), so no foreground anchor
     is dropped; with a smaller cap the term is the mean over the captured
-    subset."""
+    subset.
+
+    Under an active mesh (`parallel/mesh.py`) the batch is this rank's
+    shard and the result its share: the numerators over its own images, the
+    normalizers (the target-score sum, the positive-anchor count and the
+    batch size b) over the global batch, so the ranks' shares sum to the
+    global loss and its parts."""
     b = raw[0].shape[0]
     dev = raw[0].device
     feat_shapes = tuple((r.shape[2], r.shape[3]) for r in raw)
@@ -103,7 +110,7 @@ def v8_loss(
         pred_scores.detach().sigmoid(), pred_bboxes.detach() * stride_t[None],
         anchors * stride_t, targets["cls"], gt_xyxy, targets["valid"],
         topk=tal_topk)
-    target_scores_sum = assign.target_scores.sum().clamp(min=1.0)
+    target_scores_sum = global_sum(assign.target_scores.sum()).clamp(min=1.0)
     fg = assign.fg_mask.float()                                     # (B,A)
 
     loss_cls = (bce_with_logits(pred_scores, assign.target_scores).sum()
@@ -160,8 +167,9 @@ def v8_loss(
             seg_total = bce_term.sum() + (hyp.tversky * tv * n_pos).sum()
         else:
             seg_total = bce_term.sum()
-        parts["seg"] = seg_total / pos_valid.sum().clamp(min=1.0)
+        parts["seg"] = seg_total / global_sum(pos_valid.sum()).clamp(min=1.0)
 
     total = (parts["box"] * hyp.box + parts["seg"] * hyp.box
-             + parts["cls"] * hyp.cls + parts["dfl"] * hyp.dfl) * b
+             + parts["cls"] * hyp.cls + parts["dfl"] * hyp.dfl) * (
+                 b * world_size())
     return LossOutputs(total=total, parts=parts)

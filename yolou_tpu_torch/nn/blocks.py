@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import mesh as meshlib
+
 # ultralytics BatchNorm constants (torch momentum 0.03 == flax 0.97)
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
@@ -41,11 +43,19 @@ class BatchNorm2d(nn.BatchNorm2d):
     variance takes in the *biased* batch variance, where torch takes the
     unbiased one (a factor n / (n - 1), n = values per channel). Outputs,
     gradients, the running mean, eval mode and the state_dict keys are
-    torch's."""
+    torch's.
+
+    Under an active mesh of more than one rank (`parallel/mesh.py`) the
+    training-mode statistics are those of the global batch, as in the JAX
+    package's mesh step: the per-channel sum and sum of squares are
+    all-reduced with autograd, and the variance is flax's E[x^2] - E[x]^2
+    (`torch.nn.SyncBatchNorm` would fold the unbiased variance)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.track_running_stats):
             return super().forward(x)
+        if meshlib.world_size() > 1:
+            return self._forward_global(x)
         n = x.numel() // x.shape[1]
         m = self.momentum
         # torch folds the unbiased variance u into the buffer it is handed:
@@ -56,6 +66,22 @@ class BatchNorm2d(nn.BatchNorm2d):
                          True, m, self.eps)
         self.running_var.mul_(1.0 - m).lerp_(new, 1.0 - 1.0 / n)
         self.num_batches_tracked.add_(1)
+        return y
+
+    def _forward_global(self, x: torch.Tensor) -> torch.Tensor:
+        c = x.shape[1]
+        n = x.numel() // c * meshlib.world_size()
+        sums = meshlib.global_sum(torch.cat([x.sum((0, 2, 3)),
+                                             (x * x).sum((0, 2, 3))]))
+        mean = sums[:c] / n
+        var = (sums[c:] / n - mean * mean).clamp(min=0.0)
+        shape = (1, c, 1, 1)
+        y = ((x - mean.view(shape)) * torch.rsqrt(var + self.eps).view(shape)
+             * self.weight.view(shape) + self.bias.view(shape))
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
         return y
 
 
