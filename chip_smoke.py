@@ -183,6 +183,29 @@ Phases, one or more output lines each:
                all-reduce alone; (e) `train-detector --data-parallel 1`
                through the dispatcher (one NCCL rank) and `--data-parallel
                2` refused by name on one card.
+ 18. model_axis - the data x model mesh at full width, yolov12n-seg, 160^2,
+               global batch 16, mosaic on, `param_sharding_rules(min_size=
+               2**12)` (99 weights cut): (a) 4 gloo ranks on cuda:0 as a 2
+               x 2 mesh and 2 as a 1 x 2 mesh, 3 f32 steps each against
+               this process (loss and parts rtol 3e-4; the gathered
+               parameters, EMA and BatchNorm statistics rtol 1e-3 / atol
+               5e-5; the gradient norm 1e-5 against one process's; the
+               replicated tensors bit-identical across each model group;
+               99 weights cut and half their bytes gone in every rank;
+               kernel C 8 + 8 a step in every rank); a bf16 step per rank
+               timed, with the host ms of the model group's collectives
+               (`parallel.mesh.model_comm`), beside one process's; (b)
+               `tools/dryrun.py::dryrun_multichip(4)` on cuda:0 x 4 (phase
+               2 within 3e-4 of phase 1), run beside the two meshes' f32
+               steps, each mesh's bf16 step then timed alone; (c) the 2 x
+               2 state file before any step byte for byte one process's,
+               its last.ckpt read by one process and one more step on both
+               within `twin_steps`' tolerance.
+ 19. demo    - `tools/run_demo.py`'s four stages, each a process, on the
+               demo's synthetic set (64 / 16 / 16 at 160^2, seed 7) at a
+               short schedule (6 + 6 epochs): the files, finite metrics,
+               the objectmap AUC, each stage's exact launches. The full
+               120 + 120 run is `python -m yolou_tpu_torch.tools.run_demo`.
 Then a JSON line of kernel results (each kernel's launches on its path, error,
 device and per-call times, and the least time the card could take), the
 nvidia-smi line again,
@@ -313,6 +336,9 @@ def check_attention(device):
     cases = [("L6@640", 4 * BATCH, 400, 64, 2), ("L8@640", BATCH, 400, 128, 4),
              ("L6@160", 4 * EVAL_BATCH, 25, 64, 2),
              ("L8@160", EVAL_BATCH, 25, 128, 4),
+             # a data shard of the model_axis phase's 2 x 2 mesh
+             ("L6@160/2", 4 * EVAL_BATCH // 2, 25, 64, 2),
+             ("L8@160/2", EVAL_BATCH // 2, 25, 128, 4),
              ("L6@160b128", 4 * DEC_BATCH, 25, 64, 2),
              ("L8@160b128", DEC_BATCH, 25, 128, 4)]
     rng = np.random.default_rng(SEED)
@@ -383,6 +409,9 @@ def check_training_attention(device):
     cases = [("L6@640", 4 * BATCH, 400, 64, 2), ("L8@640", BATCH, 400, 128, 4),
              ("L6@160", 4 * EVAL_BATCH, 25, 64, 2),
              ("L8@160", EVAL_BATCH, 25, 128, 4),
+             # a data shard of the model_axis phase's 2 x 2 mesh
+             ("L6@160/2", 4 * EVAL_BATCH // 2, 25, 64, 2),
+             ("L8@160/2", EVAL_BATCH // 2, 25, 128, 4),
              ("single", 64, 400, 32, 1)]
     for name, shape, heads in zip(("profile-single", "profile-fused"),
                                   attention_shapes(BATCH), (1, HEADS)):
@@ -3302,6 +3331,304 @@ def parallel_phase(device, state_dict, root: str) -> dict:
             "evaluate nms": int(per_rank[0, 7])}
 
 
+# ------------------------------------------------------------- model axis
+
+AXIS_MIN_SIZE = 2 ** 12        # the dry run's rule: 99 weights cut
+AXIS_CUT = 99
+AXIS_CUT_PARAMS = 2_747_392    # their elements
+DEMO_EPOCHS = 6
+
+
+def axis_spec(state_dict, ckpt_dir: str) -> dict:
+    """`tests/torch_parallel_ranks.py::trajectory`'s spec of the
+    model_axis phase: yolov12n-seg at 160^2, global batch 16 (the reference
+    fine-tune's), mosaic on, 3 seeded steps, the files written before the
+    first and after the last, and one more step's batch and seed."""
+    rng = np.random.default_rng(SEED + 81)
+    return {"state_dict": cpu_state(state_dict),
+            "cfg": dict(imgsz=EVAL_IMGSZ, batch_size=EVAL_BATCH, epochs=10,
+                        warmup_epochs=3.0),
+            "steps_per_epoch": 100, "seed": SEED, "use_mosaic": True,
+            "min_size": AXIS_MIN_SIZE, "ckpt_dir": ckpt_dir,
+            "batches": [make_labelled(rng, EVAL_BATCH, EVAL_IMGSZ)
+                        for _ in range(TRAIN_STEPS)],
+            "twin": (make_labelled(rng, EVAL_BATCH, EVAL_IMGSZ), SEED + 1)}
+
+
+def axis_bf16_step(spec: dict, mesh, device) -> list:
+    """A bf16 DetectorTrainer step over the spec's first batch (the weights
+    cut under a model axis): CUDA-event ms of 3 steps after one, then the
+    host ms of the model group's collectives within each."""
+    import torch
+    from yolou_tpu_torch.data.augment import AugHyp
+    from yolou_tpu_torch.engine.trainer_detector import (DetectorTrainConfig,
+                                                         DetectorTrainer)
+    from yolou_tpu_torch.models.yolo import build_yolo
+    from yolou_tpu_torch.parallel import mesh as meshlib
+    model = build_yolo("yolov12", "n", nc=1, ch=4, task="segment",
+                       dtype=torch.bfloat16, device=device)
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in spec["state_dict"].items()})
+    rules = None
+    if mesh is not None and mesh.n_model > 1:
+        rules = meshlib.param_sharding_rules(mesh, model, AXIS_MIN_SIZE)
+    tr = DetectorTrainer(model, _Data(), DetectorTrainConfig(**spec["cfg"]),
+                         aug=AugHyp(), device=device, mesh=mesh,
+                         sharding=rules)
+    tr.ensure_ready(steps_per_epoch=100)
+    gen = torch.Generator(device=tr.device).manual_seed(SEED)
+    batch = spec["batches"][0]
+    comm = []
+
+    def step():
+        before = meshlib.model_comm["seconds"]
+        tr.step(batch, gen, use_mosaic=True)
+        comm.append(1e3 * (meshlib.model_comm["seconds"] - before))
+
+    return timed_steps(step) + comm[1:]
+
+
+def wait_for(path: str, alive=lambda: True, timeout: float = 600.0) -> None:
+    """Until the file `path` exists; raises once `alive()` is false or after
+    `timeout` seconds."""
+    import os
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if not alive() or time.perf_counter() - t0 > timeout:
+            raise TimeoutError(f"waited for {path}")
+        time.sleep(0.05)
+
+
+def model_axis_rank(spec: dict, n_model: int, gates: str) -> dict:
+    """One rank of the model_axis phase (gloo, every rank on cuda:0): the
+    f32 trajectory (TF32 off) on a (size / n_model) x n_model mesh; then,
+    once the phase's process lets this mesh run alone (`gates`, a directory
+    of marker files), the bf16 step timed. Every rank's times come back
+    with rank 0's result."""
+    import os
+    import torch
+    from yolou_tpu_torch.parallel import mesh as meshlib
+    from tests import torch_parallel_ranks as ranks
+    f32_exact(torch)
+    mesh = meshlib.make_mesh(n_model=n_model)
+    if mesh.device != torch.device("cuda", 0) or mesh.backend != "gloo":
+        raise AssertionError(f"rank {mesh.rank}: {mesh}")
+    out = ranks.trajectory(spec, mesh)
+    tag = os.path.join(gates, spec["tag"])
+    open(f"{tag}.ready{mesh.rank}", "w").close()
+    wait_for(f"{tag}.go")
+    meshlib.barrier(mesh)
+    out["bf16"] = ranks.per_rank(mesh, axis_bf16_step(spec, mesh,
+                                                      mesh.device))
+    return out
+
+
+def check_axis_run(name: str, got: dict, one: dict) -> dict:
+    """A mesh's trajectory against one process's: the losses and parts
+    (rtol 3e-4), the gathered parameters, EMA and BatchNorm statistics
+    (rtol 1e-3 / atol 5e-5), the gradient norm (1e-5), and in every rank
+    the replicated tensors bit-identical across its model group, 99
+    weights cut, the parameter bytes of one process less half the cut
+    ones, kernel C 8 + 8 a step."""
+    loss_rel = max(abs(g[0] - w[0]) / abs(w[0])
+                   for g, w in zip(got["losses"], one["losses"]))
+    parts_rel = max(abs(g[1][k] - w[1][k]) / abs(w[1][k])
+                    for g, w in zip(got["losses"], one["losses"])
+                    for k in w[1])
+    params = state_close(cpu_state(got["state_dict"]),
+                         cpu_state(one["state_dict"]), 1e-3, 5e-5)
+    ema = state_close(cpu_state(got["ema"]), cpu_state(one["ema"]), 1e-3,
+                      5e-5)
+    norm_rel = max(abs(g - w) / w for g, w in zip(got["grad_norms"],
+                                                  one["grad_norms"]))
+    one_bytes = one["ranks"][0]["param_bytes"]
+    ranks = got["ranks"]
+    out = {"loss_rel": loss_rel, "parts_rel": parts_rel,
+           "params_stats_beyond_tol": params, "ema_beyond_tol": ema,
+           "grad_norm_rel": norm_rel, "grad_norm_rtol": 1e-5,
+           "grad_norms": got["grad_norms"],
+           "replicas_identical": [r["replicas_identical"] for r in ranks],
+           "cut_per_rank": [r["n_cut"] for r in ranks],
+           "param_bytes_per_rank": [r["param_bytes"] for r in ranks],
+           "param_bytes_one": one_bytes,
+           "launches_per_rank": [r["launches"] for r in ranks]}
+    log("model_axis", check=f"{name} f32 steps vs one process", **out)
+    if not (loss_rel <= 3e-4 and parts_rel <= 3e-4 and params == 0
+            and ema == 0 and norm_rel <= 1e-5):
+        raise AssertionError(f"{name}: the steps part from one process's")
+    if not all(r["replicas_identical"] and r["n_cut"] == AXIS_CUT
+               and r["param_bytes"] == one_bytes - 4 * AXIS_CUT_PARAMS // 2
+               and [tuple(x) for x in r["launches"]] == [(8, 8)] * TRAIN_STEPS
+               for r in ranks):
+        raise AssertionError(f"{name}: per rank {ranks}")
+    return out
+
+
+def model_axis_phase(device, state_dict, root: str) -> dict:
+    """The model axis at full width, yolov12n-seg, 160^2, global batch 16,
+    mosaic on: (a) 4 gloo ranks on cuda:0 as a 2 x 2 mesh and 2 as a 1 x 2
+    mesh, each taking 3 f32 steps (TF32 off) with
+    `param_sharding_rules(min_size=2**12)`, against this process on the
+    same inputs (`check_axis_run`); one bf16 step each timed per rank, the
+    model group's collectives' host ms within it, beside one process's;
+    (b) `dryrun_multichip(4)` on cuda:0 x 4, phase 2 within 3e-4, run
+    beside the meshes' f32 steps (each mesh's bf16 step is then timed with
+    nothing else on the card); (c) the 2 x 2 state file before any step
+    byte for byte one process's, and its last.ckpt read by a one-process
+    trainer: one more step on both from the same batch and seed within
+    `twin_steps`' tolerance. Returns the launches per rank."""
+    import os
+    import threading
+    import torch
+    from yolou_tpu_torch.parallel import mesh as meshlib
+    from yolou_tpu_torch.tools import dryrun
+    from tests import torch_parallel_ranks as ranks
+    t_phase = time.perf_counter()
+    f32_exact(torch)
+    ckpt_dir = os.path.join(root, "model_axis")
+    gates = os.path.join(ckpt_dir, "gates")
+    os.makedirs(gates, exist_ok=True)
+    spec = axis_spec(state_dict, ckpt_dir)
+    one = ranks.trajectory(dict(spec, device=device))
+    one_bf16 = axis_bf16_step(spec, None, device)
+    torch.cuda.empty_cache()
+    # the files and the step after them on the 2 x 2 mesh only
+    steps_only = {k: v for k, v in spec.items() if k != "twin"}
+    steps_only["ckpt_dir"] = None
+    meshes = {"2x2": (2, spec), "1x2": (1, steps_only)}
+    runs, seconds, failed = {}, {}, {}
+
+    def run(name, n_data, sp):
+        t0 = time.perf_counter()
+        try:
+            runs[name] = meshlib.launch(
+                model_axis_rank, 2 * n_data, ["cuda:0"] * 2 * n_data,
+                dict(sp, tag=name), 2, gates, timeout=600)
+        except BaseException as e:      # re-raised below
+            failed[name] = e
+        seconds[name] = time.perf_counter() - t0
+
+    threads = {name: threading.Thread(target=run, args=(name, *m))
+               for name, m in meshes.items()}
+    for t in threads.values():
+        t.start()
+    try:
+        # (b) the dry run, four ranks on the card, beside the f32 steps
+        t0 = time.perf_counter()
+        dry = dryrun.dryrun_multichip(4, ["cuda:0"] * 4, timeout=600)
+        seconds["dryrun"] = time.perf_counter() - t0
+        # then each mesh's bf16 step alone on the card: the next mesh
+        # goes once the ranks of this one have ended
+        for name, (n_data, _) in meshes.items():
+            tag = os.path.join(gates, name)
+            for r in range(2 * n_data):
+                wait_for(f"{tag}.ready{r}", threads[name].is_alive)
+            open(f"{tag}.go", "w").close()
+            threads[name].join()
+    finally:
+        for name in meshes:     # never leave a rank waiting
+            open(os.path.join(gates, f"{name}.go"), "w").close()
+        for t in threads.values():
+            t.join()
+        if failed:              # the cause, not a wait that it ended
+            raise next(iter(failed.values()))
+    log("model_axis", check="dryrun_multichip(4) on cuda:0 x 4",
+        phase1=dry["phase1"], phase2=dry["phase2"], n_cut=dry["n_cut"],
+        rel_diff=dry["rel_diff"], rtol=dryrun.DRYRUN_RTOL,
+        seconds=seconds["dryrun"])
+    checks = {name: check_axis_run(name, run, one)
+              for name, run in runs.items()}
+    steps = TRAIN_STEPS
+    log("model_axis", check="bf16 detector step ms, 160^2, global batch 16",
+        one_process=one_bf16[:steps],
+        **{f"{name} rank {r}": row[:steps] for name, run in runs.items()
+           for r, row in enumerate(run["bf16"])},
+        **{f"{name} rank {r} model-group collectives host ms": row[steps:]
+           for name, run in runs.items() for r, row in enumerate(run["bf16"])},
+        launch_seconds=seconds, card=card_line())
+
+    # (c) files across meshes
+    init = {n: open(os.path.join(ckpt_dir, f"{n}_init.ckpt"), "rb").read()
+            for n in ("one", "2x2")}
+    if init["one"] != init["2x2"]:
+        raise AssertionError("the 2 x 2 state file before any step differs "
+                             "from one process's")
+    mesh_run = runs["2x2"]
+    back = ranks.trajectory(dict(
+        spec, device=device, batches=[], ckpt_dir=None,
+        resume=os.path.join(ckpt_dir, "2x2_last.ckpt")))
+    before = cpu_state(mesh_run["state_dict"])
+    a, b = cpu_state(mesh_run["twin_state"]), cpu_state(back["twin_state"])
+    keys = [k for k, v in a.items()                 # the parameters
+            if v.dtype.kind == "f" and ".running_" not in k]
+    upd = max(float(np.abs(a[k] - before[k]).max()) for k in keys)
+    diff = max(float(np.abs(a[k] - b[k]).max()) for k in keys)
+    la, lb = mesh_run["twin"][0], back["twin"][0]
+    twin = {"loss": [la, lb], "max_update": upd, "max_param_diff": diff,
+            "init_bytes": len(init["one"])}
+    log("model_axis", check="2x2 last.ckpt resumed in one process, one "
+        "more step on both", **twin)
+    if not (abs(la - lb) <= 1e-3 * abs(la) and diff <= 0.02 * upd):
+        raise AssertionError(f"2x2 -> one process: the trainers parted: "
+                             f"{twin}")
+    log("model_axis", phase_seconds=time.perf_counter() - t_phase,
+        launch_seconds=seconds)
+    launches = runs["2x2"]["ranks"][0]["launches"][0]
+    return {"train": launches[0], "backward": launches[1],
+            "checks": checks, "twin": twin}
+
+
+def demo_phase(device, root: str) -> dict:
+    """`tools/run_demo.py`'s four stages (each a `python -m yolou_tpu_torch`
+    process on the card) on the demo's synthetic set (64 / 16 / 16 at
+    160^2, seed 7) at a short schedule: 6 detector epochs (validation every
+    3, close mosaic 2) and 6 decoder epochs. Each stage's files, finite
+    metrics, the objectmap AUC line, and each stage's launches: kernel C 8
+    a step in the fine-tune, kernel A 8 and kernel B 1 a batch where a
+    whole model runs, none in the decoder's training (its encoder stops
+    before the attention)."""
+    import os
+    from yolou_tpu_torch.tools.run_demo import run_demo
+    t0 = time.perf_counter()
+    d = os.path.join(root, "demo")
+    out = run_demo(d, "cuda", detector_epochs=DEMO_EPOCHS,
+                   decoder_epochs=DEMO_EPOCHS, close_mosaic=2, val_every=3)
+    steps = DEMO_EPOCHS * (64 // EVAL_BATCH)
+    vals = DEMO_EPOCHS // 3
+    want = {"train-detector": {"band_attention_train": 8 * steps,
+                               "band_attention": 8 * vals,
+                               "greedy_nms": vals},
+            "generate-objectmaps": {"band_attention": 8 * 3,
+                                    "greedy_nms": 0},
+            "train-decoder": {"band_attention": 0, "greedy_nms": 0,
+                              "band_attention_train": 0},
+            "evaluate": {"band_attention": 8, "greedy_nms": 1}}
+    got = out["launches"]
+    wrong = {s: {k: (got[s][k], n) for k, n in w.items() if got[s][k] != n}
+             for s, w in want.items()}
+    files = [os.path.join(d, "yolo_best.ckpt"),
+             os.path.join(d, "runs_dec", "segpp_final.ckpt")]
+    maps = {s: len(os.listdir(os.path.join(d, "objectmap", s)))
+            for s in ("train", "val", "test")}
+    metrics = [v[k] for v in out["validations"] for k in ("map50", "map")]
+    metrics += [out["objectmap"]["auc"], out["best_val_dice"]]
+    metrics += [out["test"][k] for k in ("dice", "precision", "recall")]
+    log("demo", validations=out["validations"], objectmap=out["objectmap"],
+        best_val_dice=out["best_val_dice"],
+        best_val_dice_epoch=out["best_val_dice_epoch"], test=out["test"],
+        stage_seconds=out["stage_seconds"], launches=got,
+        phase_seconds=time.perf_counter() - t0, card=card_line())
+    if any(wrong.values()):
+        raise AssertionError(f"demo launches (got, want): {wrong}")
+    if not (all(os.path.exists(p) for p in files)
+            and maps == {"train": 64, "val": 16, "test": 16}
+            and [v["epoch"] for v in out["validations"]] == [3, 6]
+            and all(np.isfinite(metrics)) and out["objectmap"]["n_maps"] > 0
+            and out["test"]["n_images"] == 16):
+        raise AssertionError(f"demo: {out}")
+    return got
+
+
 def _kernel_name(line: str):
     """The band attention or a2c2f kernel a ptxas or SASS line names, with
     its I/O type (and token tile), else None: `..._kernelIf...` is the f32
@@ -3368,6 +3695,13 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     card = card_line()
+    seconds, clock = {}, [time.perf_counter()]
+
+    def mark(phase: str) -> None:
+        """The seconds since the last mark, as `phase`'s."""
+        now = time.perf_counter()
+        seconds[phase] = round(now - clock[0], 3)
+        clock[0] = now
     print(card, flush=True)
     log("device", torch=torch.__version__, cuda=torch.version.cuda,
         name=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
@@ -3389,11 +3723,13 @@ def main() -> int:
         tensor_cores = "<bf16" in entry["kernel"]
         if entry["hmma"] is not None and (entry["hmma"] > 0) != tensor_cores:
             raise AssertionError(f"{entry['kernel']}: {entry['hmma']} HMMA")
+    mark("build")
 
     attn = check_attention(device)
     train_attn, train_attn_err = check_training_attention(device)
     nms = check_nms(device)
     a2c2f = check_a2c2f(device)
+    mark("kernels")
 
     state_dict = seeded_state_dict()
     rng = np.random.default_rng(SEED)
@@ -3415,6 +3751,7 @@ def main() -> int:
         raise AssertionError("an image got no detection")
 
     compare_f32(state_dict, device, requests[0][:2])
+    mark("serve")
 
     kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -3431,6 +3768,7 @@ def main() -> int:
             f"{train_backwards} backward calls, want {8 * len(steps)} each")
     log("train", **train_breakdown(*driven, train_attn))
     compare_train_f32(state_dict, device)
+    mark("train")
 
     from yolou_tpu_torch.tools.profile_layers import \
         profile_attention_variants
@@ -3443,6 +3781,7 @@ def main() -> int:
            profile_counts["band_attention_train"]) < 1:
         raise AssertionError(f"the attention profiler launched "
                              f"{profile_counts}")
+    mark("profile attention")
 
     kernels.reset_launch_counts()
     mega_stats = serve(state_dict, device, torch.bfloat16, requests,
@@ -3458,21 +3797,37 @@ def main() -> int:
     if min(min(st["detections"]) for st in mega_stats) < 1:
         raise AssertionError("an image got no detection with mega_kernel")
     compare_mega(state_dict, device, requests)
+    mark("serve-mega")
 
     eval_counts = evaluate(state_dict, device)
+    mark("evaluate")
     dec = train_decoder_phase(state_dict, device)
+    mark("train-decoder")
     ft = finetune_phase(device)
+    mark("finetune")
     log("training-state", finetune=ft["training_state"],
         train_decoder=dec["training_state"], card=card_line())
     with tempfile.TemporaryDirectory() as root:
         cli = cli_phase(device, root)
+        mark("cli")
         with cv2_blocked():
             exported = export_phase(device, root)
+            mark("export")
             profiled = profile_phase(device, root)
+            mark("profile")
             visualized = visualize_phase(device, root)
+            mark("visualize-logits")
             families = families_phase(device, root, state_dict)
+            mark("families")
         sources = sources_phase(device, state_dict, root)
+        mark("sources")
         parallel = parallel_phase(device, state_dict, root)
+        mark("parallel")
+        axis = model_axis_phase(device, state_dict, root)
+        mark("model_axis")
+        demo = demo_phase(device, root)
+        mark("demo")
+    log("timing", phase_seconds=seconds, total=round(sum(seconds.values()), 3))
     later = {"export": exported["bf16"], "export f32": exported["f32"],
              "export segpp": exported["segpp"], "profile": profiled,
              "visualize-logits": visualized,
@@ -3498,7 +3853,8 @@ def main() -> int:
              **{f"cli {k}": v["band_attention"] for k, v in cli.items()
                 if isinstance(v, dict)},
              **{k: v["band_attention"] for k, v in later.items()},
-             "parallel evaluate (each rank)": parallel["evaluate"]},
+             "parallel evaluate (each rank)": parallel["evaluate"],
+             **{f"demo {k}": v["band_attention"] for k, v in demo.items()}},
          "backward_calls": dec["attention_backward_calls"]},
         {"name": "greedy_nms", "route": "cuda",
          "source": src + "greedy_nms.cu",
@@ -3513,7 +3869,8 @@ def main() -> int:
                 if isinstance(v, dict)},
              **{k: v["greedy_nms"] for k, v in later.items()},
              **{f"families {k}": v for k, v in families.items()},
-             "parallel evaluate (each rank)": parallel["evaluate nms"]}},
+             "parallel evaluate (each rank)": parallel["evaluate nms"],
+             **{f"demo {k}": v["greedy_nms"] for k, v in demo.items()}}},
         {"name": "band_attention_train", "route": "cuda",
          "source": src + "band_attention.cu", "replaces": pallas + ":243",
          "launches": train_launches,
@@ -3521,12 +3878,18 @@ def main() -> int:
          "launches_by_path": {"train": train_launches,
                               "finetune": ft["train"],
                               "cli train-detector": cli["train"],
-                              "parallel step (each rank)": parallel["train"]},
+                              "parallel step (each rank)": parallel["train"],
+                              "model_axis step (each rank)": axis["train"],
+                              "demo train-detector":
+                                  demo["train-detector"][
+                                      "band_attention_train"]},
          "backward_calls_by_path": {"train": train_backwards,
                                     "finetune": ft["backward"],
                                     "cli train-detector": cli["backward"],
                                     "parallel step (each rank)":
-                                        parallel["backward"]},
+                                        parallel["backward"],
+                                    "model_axis step (each rank)":
+                                        axis["backward"]},
          **dict({k: l6[k] for k in keys}, max_abs_err=train_attn_err)},
         {"name": "band_attention_single", "route": "cuda",
          "source": src + "band_attention.cu", "replaces": pallas + ":120",

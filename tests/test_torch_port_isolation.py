@@ -374,6 +374,20 @@ def test_export_profile_and_visualize_modules_import_with_jax_and_cv2_blocked():
     assert res.stdout.strip() == "ok"
 
 
+def test_dryrun_and_demo_modules_import_with_jax_and_cv2_blocked():
+    """`tools/dryrun.py` (the multi-rank dry run) and `tools/run_demo.py`
+    (the four-stage demo, whose AUC reads masks without cv2) import with
+    JAX, flax, the JAX package and `cv2` blocked."""
+    code = _BLOCK.format(blocked=FORBIDDEN + ("cv2",)) + (
+        "from yolou_tpu_torch.tools import dryrun, run_demo\n"
+        "assert callable(dryrun.dryrun_multichip)\n"
+        "assert callable(run_demo.objectmap_auc)\n"
+        "print('ok')\n")
+    res = _run(code, REPO)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
 def test_module_export_runs_with_jax_blocked(tmp_path):
     """`python -m yolou_tpu_torch export --device cpu` (fresh seeded
     weights at 32^2) with JAX, flax, the JAX package and `cv2` blocked; the

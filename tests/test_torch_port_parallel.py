@@ -237,7 +237,7 @@ def test_launch_reraises_a_ranks_exception():
 
 def test_make_mesh_of_one_and_its_refusals():
     """A mesh of one in this process (its own gloo group, closed after);
-    more ranks need launch; a model axis is not ported; no card, no GPU
+    more ranks need launch, and so does a model axis; no card, no GPU
     mesh."""
     mesh = meshlib.make_mesh(1, devices=["cpu"])
     try:
@@ -253,7 +253,7 @@ def test_make_mesh_of_one_and_its_refusals():
         mesh.close()
     with pytest.raises(RuntimeError, match="launch"):
         meshlib.make_mesh(2)
-    with pytest.raises(NotImplementedError, match="param_sharding_rules"):
+    with pytest.raises(RuntimeError, match="launch"):
         meshlib.make_mesh(n_model=2)
     assert meshlib.backend_for([torch.device("cuda:0")] * 2) == "gloo"
     assert meshlib.backend_for([torch.device(f"cuda:{i}")

@@ -1,6 +1,8 @@
-"""What the data-parallel tests run, in `launch`'s rank processes and, with
-no mesh, in the test's own process: BatchNorm, a detector step, a decoder
-update and validation, and the Evaluator, each from a picklable `spec`.
+"""What the data-parallel and model-axis tests run, in `launch`'s rank
+processes and, with no mesh, in the test's own process: BatchNorm, a
+detector step, the detector's steps under any mesh (`trajectory`, which
+`chip_smoke.py` runs on the card too), a decoder update and validation, and
+the Evaluator, each from a picklable `spec`.
 
 This module imports neither JAX nor the JAX package, so that a spawned rank
 starts with torch and the port only. A rank returns what it alone holds
@@ -9,10 +11,13 @@ is the whole of it.
 """
 
 import contextlib
+import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from yolou_tpu_torch import kernels
 from yolou_tpu_torch.data.augment import AugHyp
 from yolou_tpu_torch.engine.evaluator import Evaluator
 from yolou_tpu_torch.engine.trainer_decoder import (DecoderTrainConfig,
@@ -22,6 +27,7 @@ from yolou_tpu_torch.engine.trainer_detector import (DetectorTrainConfig,
 from yolou_tpu_torch.models.segpp import build_segpp
 from yolou_tpu_torch.models.yolo import build_yolo
 from yolou_tpu_torch.nn.blocks import BatchNorm2d
+from yolou_tpu_torch.nn.blocks import Conv
 from yolou_tpu_torch.parallel import mesh as meshlib
 
 
@@ -119,6 +125,181 @@ def replicated(seed, mesh=None):
     if mesh is not None:
         meshlib.replicate(mesh, lin)
     return meshlib.all_gather_rows(lin.weight.detach().reshape(1, -1), mesh)
+
+
+def _numbers(loss, parts):
+    return float(loss), {k: float(v) for k, v in parts.items()}
+
+
+def _host_copy(state):
+    """Copies on the host (a CPU tensor's `.cpu()` would be itself)."""
+    return {k: v.to("cpu", copy=True) for k, v in state.items()}
+
+
+def per_rank(mesh, value):
+    """Every rank's `value` in rank order (one rank: `[value]`)."""
+    if meshlib.world_size(mesh) == 1:
+        return [value]
+    out = [None] * mesh.size
+    dist.all_gather_object(out, value)
+    return out
+
+
+def _replicas_identical(mesh, tensors):
+    """Whether every tensor is bit-identical in every rank of this rank's
+    model group: one all-gather of them flattened, per dtype."""
+    by_dtype = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t.detach().reshape(-1))
+    for flat in by_dtype.values():
+        whole = meshlib._all_gather(mesh, torch.cat(flat)[None], mesh.n_model,
+                                    mesh.model_group, 0)
+        if not all(torch.equal(whole[0], w) for w in whole[1:]):
+            return False
+    return True
+
+
+def trajectory(spec, mesh=None):
+    """The steps of one yolov12n-seg `DetectorTrainer` (f32) over
+    `spec["batches"]` (global numpy batches) from `spec["state_dict"]`
+    (numpy), with `spec["cfg"]` / `spec["aug"]` (dicts), the augmentation
+    generator seeded `spec["seed"]`, mosaic as `spec["use_mosaic"]`, and
+    under a mesh with a model axis the weights cut by
+    `param_sharding_rules(min_size=spec["min_size"])`. On `spec["device"]`
+    without a mesh, the mesh's device with one.
+
+    Optional: `spec["resume"]`, a training-state file read before the
+    first step; `spec["ckpt_dir"]` writes `<tag>_init.ckpt` before the
+    first step and `<tag>_last.ckpt` after the last (tag `spec["tag"]`);
+    `spec["twin"]` = (batch, seed) takes one more step after that, with a
+    generator of that seed.
+
+    Returns losses [(loss, parts)], grad_norms, counts, the whole
+    state_dict and EMA, and per rank: cut weights, parameter bytes, kernel
+    C's forward launches and backward calls of each step, and whether the
+    replicated tensors are bit-identical across its model group."""
+    device = mesh.device if mesh is not None else spec.get("device")
+    model = build_yolo("yolov12", "n", nc=1, ch=4, task="segment",
+                       device=device)
+    model.load_state_dict(_tensors(spec["state_dict"]))
+    rules = None
+    if mesh is not None and mesh.n_model > 1:
+        rules = meshlib.param_sharding_rules(mesh, model,
+                                             min_size=spec["min_size"])
+    tr = DetectorTrainer(model, None, DetectorTrainConfig(**spec["cfg"]),
+                         aug=AugHyp(**spec.get("aug", {})), device=device,
+                         mesh=mesh, sharding=rules)
+    tr.ensure_ready(steps_per_epoch=spec.get("steps_per_epoch", 2))
+    if spec.get("resume"):
+        tr.load_resume(spec["resume"])
+    tag, ckpt_dir = spec.get("tag", "one"), spec.get("ckpt_dir")
+    if ckpt_dir:
+        tr.save_checkpoint(os.path.join(ckpt_dir, f"{tag}_init.ckpt"))
+    gen = torch.Generator(device=tr.device).manual_seed(spec["seed"])
+    losses, norms, launches = [], [], []
+    for batch in spec["batches"]:
+        kernels.reset_launch_counts()
+        losses.append(_numbers(*tr.step(batch, gen, spec["use_mosaic"])))
+        norms.append(float(tr.grad_norm))
+        launches.append((kernels.launch_counts()["band_attention_train"],
+                         kernels.backward_counts()["band_attention_train"]))
+    out = {"losses": losses, "grad_norms": norms,
+           "counts": (tr.step_count, tr.opt_count, tr.total_notfinite),
+           "ema": _host_copy(tr.ema_variables()),
+           "state_dict": _host_copy(meshlib.gathered_state(mesh, model))}
+    cut = meshlib.model_shards(model)
+    replicated = [t for n, t in [*model.named_parameters(),
+                                 *model.named_buffers()] if n not in cut]
+    rank = {"n_cut": len(cut),
+            "param_bytes": sum(p.numel() * p.element_size()
+                               for p in model.parameters()),
+            "launches": launches,
+            "replicas_identical": (mesh is None or mesh.n_model == 1
+                                   or _replicas_identical(mesh, replicated))}
+    out["ranks"] = per_rank(mesh, rank)
+    if ckpt_dir:
+        tr.save_checkpoint(os.path.join(ckpt_dir, f"{tag}_last.ckpt"))
+    if "twin" in spec:
+        batch, seed = spec["twin"]
+        out["twin"] = _numbers(*tr.step(
+            batch, torch.Generator(device=tr.device).manual_seed(seed),
+            spec["use_mosaic"]))
+        out["twin_state"] = _host_copy(meshlib.gathered_state(mesh, model))
+    return out
+
+
+def layout(spec, mesh):
+    """Every rank's (rank, data index, model index) and the ranks of its
+    data and model groups."""
+    import torch.distributed as dist
+    mine = (mesh.rank, mesh.data_index, mesh.model_index,
+            dist.get_process_group_ranks(mesh.data_group),
+            dist.get_process_group_ranks(mesh.model_group))
+    out = [None] * mesh.size
+    dist.all_gather_object(out, mine)
+    return out
+
+
+def depthwise(spec, mesh=None):
+    """A depthwise 7x7 `Conv` (BatchNorm in eval mode) over `spec["x"]`,
+    with its weight cut over the model axis under a mesh: the whole output,
+    input gradient of sum(y * spec["g"]) and weight gradient."""
+    conv = Conv(spec["c"], spec["c"], 7, g=spec["c"]).eval()
+    with torch.no_grad():
+        conv.conv.weight.copy_(torch.from_numpy(spec["weight"]))
+    x, g = torch.from_numpy(spec["x"]), torch.from_numpy(spec["g"])
+    if mesh is not None:
+        meshlib.shard_module(mesh, conv, meshlib.param_sharding_rules(
+            mesh, conv, min_size=1))
+        x, g = meshlib.shard_batch(mesh, (x, g))
+    x.requires_grad_(True)
+    with mesh or contextlib.nullcontext():
+        y = conv(x)
+    (y * g).sum().backward()
+    grads = {"conv.weight": conv.conv.weight.grad}
+    if mesh is not None:
+        meshlib.sum_gradients(mesh, [conv.conv.weight])
+        grads = meshlib.gathered_state(mesh, conv, grads)
+    return {"y": meshlib.all_gather_rows(y.detach(), mesh),
+            "x_grad": meshlib.all_gather_rows(x.grad, mesh),
+            "weight_grad": grads["conv.weight"],
+            "cut": tuple(conv.conv.weight.shape)}
+
+
+def detector_train(spec, mesh=None):
+    """`DetectorTrainer.train()` over the data directory `spec["yaml"]`
+    with validation every epoch (under a model axis, the weights cut by
+    `param_sharding_rules(min_size=spec["min_size"])`): the history, the
+    run's weights directory and the trained state, whole."""
+    import os
+    from yolou_tpu_torch.data.config import load_data_yaml
+    model = build_yolo("yolov12", "n", nc=1, ch=4, task="segment",
+                       device="cpu", seed=2)
+    rules = None
+    if mesh is not None and mesh.n_model > 1:
+        rules = meshlib.param_sharding_rules(mesh, model,
+                                             min_size=spec["min_size"])
+    tr = DetectorTrainer(model, load_data_yaml(spec["yaml"]),
+                         DetectorTrainConfig(**spec["cfg"]),
+                         aug=AugHyp(scale=0.3), device="cpu", mesh=mesh,
+                         sharding=rules)
+    history = tr.train()
+    run_dir = spec["cfg"]["run_dir"]
+    runs = sorted(os.listdir(run_dir)) if os.path.isdir(run_dir) else []
+    return {"history": history,
+            "weights": os.path.join(run_dir, runs[-1], "weights")
+            if runs else None,
+            "state_dict": {k: v.to("cpu", copy=True) for k, v in
+                           meshlib.gathered_state(mesh, model).items()}}
+
+
+def in_mesh(jobs, n_data, n_model):
+    """Every (name, spec) job of `jobs` under an n_data x n_model mesh."""
+    mesh = meshlib.make_mesh(n_data, n_model)
+    out = {"ranks": mesh.size, "shape": mesh.shape}
+    for name, spec in jobs:
+        out[name] = globals()[name.split(":")[0]](spec, mesh)
+    return out
 
 
 def in_ranks(jobs):

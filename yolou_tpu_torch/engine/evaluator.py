@@ -11,7 +11,8 @@ each rank runs its contiguous shard of every batch (a batch that does not
 split is padded first, `pad_batch_to_multiple`); the per-image Dice and
 HD95 are gathered in image order and cut at the batch's real rows, and the
 pixel counts are summed over the ranks, so every rank returns the
-single-process metrics.
+single-process metrics. Under a model axis the batch is cut over the data
+axis and the collectives go over the data group; nothing is cut.
 """
 
 from __future__ import annotations
@@ -83,11 +84,11 @@ class Evaluator:
                     hd95s.append(hd95_batch(pred, m))
             else:
                 (imgs, masks), _ = meshlib.pad_batch_to_multiple(
-                    (imgs, masks), mesh.size)
+                    (imgs, masks), mesh.n_data)
                 imgs, masks = meshlib.shard_batch(mesh, (imgs, masks))
                 pred = self.step(imgs)[0][..., 0]
                 m = masks[..., 0]
-                first = mesh.rank * len(pred)
+                first = mesh.data_index * len(pred)
                 real = (torch.arange(first, first + len(pred),
                                      device=self.device) < n_real)
                 dices.append(meshlib.all_gather_rows(

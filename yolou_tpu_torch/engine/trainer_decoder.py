@@ -24,7 +24,10 @@ are all-reduced), the decoder's gradients are summed over the ranks, and
 the encoder stays bit-identical on every rank; the logged loss and Dice are
 the global ones. Validation runs on shards too and gathers the per-image
 Dice and HD95 in image order and sums the pixel counts, so every rank holds
-the single-process metrics. Rank 0 alone prints and writes files.
+the single-process metrics. Rank 0 alone prints and writes files. A mesh
+with a model axis is taken as the JAX package takes it here: nothing is
+cut, the batch is cut over the data axis and every collective goes over
+the data group, so the ranks of a model group repeat each other's work.
 
 Not carried over from the JAX package: `device_data` and
 `device_data_budget_mb` (both splits resident on the device and an epoch as
@@ -128,9 +131,9 @@ class DecoderTrainer:
                  cfg: DecoderTrainConfig = DecoderTrainConfig(),
                  device: torch.device | str | None = None,
                  mesh: Optional[meshlib.Mesh] = None):
-        if mesh is not None and cfg.batch_size % mesh.size:
+        if mesh is not None and cfg.batch_size % mesh.n_data:
             raise ValueError(f"batch_size {cfg.batch_size} does not split "
-                             f"over {mesh.size} ranks")
+                             f"over {mesh.n_data} ranks of the data axis")
         self.mesh = mesh
         self.is_main = mesh is None or mesh.is_main
         self.device = resolve_device(
@@ -216,7 +219,7 @@ class DecoderTrainer:
                 return loss.detach(), dice.mean()
             loss, dice = meshlib.global_sum(
                 torch.stack([loss.detach(), dice.sum()]), self.mesh)
-            return loss, dice / (len(pred) * self.mesh.size)
+            return loss, dice / (len(pred) * self.mesh.n_data)
 
     @torch.no_grad()
     def _clip_gradients(self, max_norm: float) -> None:
@@ -243,7 +246,7 @@ class DecoderTrainer:
         counts = torch.zeros(3, dtype=torch.float64, device=self.device)
         for imgs, masks, oms, n_real in batches:
             img, mask, om = self._upload(imgs, masks, oms)
-            first = 0 if mesh is None else mesh.rank * len(img)
+            first = 0 if mesh is None else mesh.data_index * len(img)
             pred, _ = self.model(img, logits=om)
             row = (torch.arange(first, first + len(img), device=self.device)
                    < n_real).float()[:, None, None]

@@ -30,6 +30,20 @@ clipping, the non-finite skip, the optimizer and the EMA are the same on
 every rank. Rank 0 alone validates, prints and writes files; the others
 wait at a barrier. The augmentation is done N times over, once a rank.
 
+With a mesh that has a model axis and `sharding` (the rules of
+`parallel/mesh.py::param_sharding_rules`), the model is cut after rank 0's
+weights are copied and before the optimizer is built, so the momentum or
+Adam moments and the EMA of a cut weight are slices too. The ranks of a
+model group take the same batch shard; the gradients are summed over the
+data group, then each replicated parameter's gradient is averaged over the
+model group (exact where the copies agree, and it stops a drift where a
+nondeterministic backward makes them differ in the last bit). The global
+gradient norm adds the cut gradients' squares over the model group and
+counts the replicated ones once. Validation and the files see the whole
+weights, gathered over the model group by every rank: every rank validates
+(rank 0's metrics decide) and rank 0 writes. A whole state read back is
+cut again, so a file resumes under any mesh.
+
 Not carried over from the JAX package: the packed single-buffer upload, the
 device-resident dataset with its whole-epoch scan and the flat-vector
 optimizer (three workarounds for a slow host link and per-leaf dispatch
@@ -39,7 +53,6 @@ costs; a flat-form file is read, the tree form written).
 from __future__ import annotations
 
 import contextlib
-import copy
 import dataclasses
 import json
 import math
@@ -190,10 +203,13 @@ class DetectorTrainer:
                  cfg: DetectorTrainConfig = DetectorTrainConfig(),
                  aug: AugHyp = AugHyp(), loss_hyp: LossHyp = LossHyp(),
                  device: torch.device | str | None = None,
-                 mesh: Optional[meshlib.Mesh] = None):
-        if mesh is not None and cfg.batch_size % mesh.size:
+                 mesh: Optional[meshlib.Mesh] = None,
+                 sharding: Optional[Dict[str, meshlib.Sharding]] = None):
+        if mesh is not None and cfg.batch_size % mesh.n_data:
             raise ValueError(f"batch_size {cfg.batch_size} does not split "
-                             f"over {mesh.size} ranks")
+                             f"over {mesh.n_data} ranks of the data axis")
+        if sharding is not None and mesh is None:
+            raise ValueError("sharding rules without a mesh")
         self.mesh = mesh
         self.is_main = mesh is None or mesh.is_main
         self.device = resolve_device(
@@ -201,6 +217,12 @@ class DetectorTrainer:
         self.model = model.to(self.device)
         if mesh is not None:
             meshlib.replicate(mesh, model)
+        if sharding is not None:
+            meshlib.shard_module(mesh, model, sharding)
+        # under a model axis: whether each trainable parameter is cut
+        self.cut = [n in meshlib.model_shards(model)
+                    for n, p in model.named_parameters() if p.requires_grad]
+        self.sharded = any(self.cut)
         self.cfg, self.aug, self.loss_hyp = cfg, aug, loss_hyp
         self.data_cfg = data_cfg
         self.params = [p for p in model.parameters() if p.requires_grad]
@@ -262,6 +284,8 @@ class DetectorTrainer:
         lo.total.backward()
         if self.mesh is not None:
             meshlib.sum_gradients(self.mesh, self.params)
+            meshlib.mean_over_model(self.mesh, [
+                p for p, cut in zip(self.params, self.cut) if not cut])
         self.apply_gradients()
         self.update_ema()
         total = lo.total.detach()
@@ -300,13 +324,23 @@ class DetectorTrainer:
         gradient is non-finite: such a step is skipped (parameters,
         optimizer state and schedule clock stay), but once more than
         MAX_CONSECUTIVE_NONFINITE steps in a row were non-finite the update
-        is applied anyway, so a run that is broken for good fails visibly."""
+        is applied anyway, so a run that is broken for good fails visibly.
+        Under a model axis the norm is the whole model's: the squares of the
+        cut gradients summed over the model group, the replicated ones
+        counted once."""
         cfg = self.cfg
         grads = [p.grad for p in self.params]
         norms = torch.stack(torch._foreach_norm(grads))
-        self.grad_norm = norms.norm()
+        if self.sharded:
+            sq = norms.square()
+            cut = torch.tensor(self.cut, device=sq.device)
+            self.grad_norm = (meshlib.sum_over_model(self.mesh, sq[cut].sum())
+                              + sq[~cut].sum()).sqrt()
+        else:
+            self.grad_norm = norms.norm()
         if cfg.skip_nonfinite:
-            self.last_finite = bool(torch.isfinite(norms).all())
+            self.last_finite = bool(torch.isfinite(
+                self.grad_norm if self.sharded else norms).all())
             if self.last_finite:
                 self._notfinite = 0
             else:
@@ -342,10 +376,12 @@ class DetectorTrainer:
     def validate(self, val_ds) -> Dict[str, float]:
         """`validate_detector` of the EMA weights (with the model's
         BatchNorm statistics) over `val_ds`, in an eval copy of the model
-        made at the first call: the training model is not touched."""
+        with whole weights made at the first call: the training model is
+        not touched. Under a model axis every rank calls it (the EMA
+        weights are gathered)."""
         from .validator import validate_detector
         if self._val_model is None:
-            self._val_model = copy.deepcopy(self.model).requires_grad_(
+            self._val_model = meshlib.whole_copy(self.model).requires_grad_(
                 False).eval()
             for p in self._val_model.parameters():
                 p.grad = None
@@ -413,10 +449,15 @@ class DetectorTrainer:
             if self._notfinite:
                 msg += (f" | WARN: {self._notfinite} consecutive non-finite "
                         f"steps skipped")
+            # under a model axis the whole weights are gathered by every
+            # rank: every rank validates and calls save_checkpoint
+            active = self.is_main or self.sharded
             if (cfg.val_every and (epoch + 1) % cfg.val_every == 0
-                    and self.is_main):
+                    and active):
                 t1 = time.time()
                 vm = self.validate(val_ds)
+                if self.sharded:          # rank 0's metrics decide
+                    vm = meshlib.from_main(self.mesh, vm)
                 self.val_times.append(time.time() - t1)
                 self.history.setdefault("map50", []).append(vm["map50"])
                 self.history.setdefault("map", []).append(vm["map"])
@@ -429,6 +470,7 @@ class DetectorTrainer:
                     self.save_checkpoint(os.path.join(weights, "best.ckpt"))
             if self.is_main:
                 print(msg)
+            if active:
                 self.save_checkpoint(os.path.join(weights, "last.ckpt"))
             meshlib.barrier(self.mesh)
         return self.history
@@ -437,22 +479,31 @@ class DetectorTrainer:
     def ema_variables(self) -> Dict[str, torch.Tensor]:
         """A state_dict of the model with the EMA parameters in place of the
         trained ones (buffers, BatchNorm's running statistics among them,
-        are the model's own)."""
-        sd = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+        are the model's own), every tensor whole: under a model axis the
+        cut ones are gathered, a collective of every rank."""
+        sd = {k: v.clone() for k, v in
+              meshlib.gathered_state(self.mesh, self.model).items()}
         names = [n for n, p in self.model.named_parameters() if p.requires_grad]
-        for name, e in zip(names, self.ema_params):
+        ema = meshlib.gathered_state(self.mesh, self.model,
+                                     dict(zip(names, self.ema_params)))
+        for name, e in ema.items():
             sd[name] = e.clone()
         return sd
 
     def save_checkpoint(self, path: str) -> None:
         """Write the whole training state to `path` as the JAX trainer's
-        tree form (`utils/train_state.py`), which both packages resume."""
-        save_checkpoint(path, detector_state_tree(self))
+        tree form (`utils/train_state.py`), which both packages resume.
+        Under a model axis every rank calls it (the cut weights are
+        gathered) and rank 0 writes; no file holds a slice."""
+        state = detector_state_tree(self)
+        if self.is_main:
+            save_checkpoint(path, state)
 
     def load_resume(self, path: str) -> None:
         """Restore a training-state `.ckpt` into this trainer (call
         `ensure_ready` first; `train(resume_from=...)` does): the port's,
         or the JAX trainer's tree or flat form. A flat-form file gives the
         same momentum as its tree form, so the run goes on exactly; a file
-        of another optimizer raises."""
+        of another optimizer raises. Under a model axis every rank reads
+        the whole state and keeps its slices."""
         restore_detector_state(self, load_checkpoint(path))

@@ -6,16 +6,16 @@ soft labels, one global Dice over the batch); `tversky_loss` is the
 reference's TverskyLoss forward; the v8 loss takes `bce_with_logits`.
 
 Under an active mesh (`parallel/mesh.py`) both losses are global over the
-batch as without one: their sums over the batch are all-reduced, and each
-rank returns its share, 1/N of the global loss, so that the ranks' shares
-sum to it.
+batch as without one: their sums over the batch are all-reduced over the
+data group, and each rank returns its share, 1/N of the global loss (N
+batch shards), so that the shares of the data group sum to it.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..parallel.mesh import global_sum, world_size
+from ..parallel.mesh import data_size, global_sum
 
 
 def soft_dice_loss(logits: torch.Tensor, targets: torch.Tensor, *,
@@ -38,7 +38,7 @@ def soft_dice_loss(logits: torch.Tensor, targets: torch.Tensor, *,
         po, go = (p * p).sum(dims), (g * g).sum(dims)
     else:
         po, go = p.sum(dims), g.sum(dims)
-    n = world_size()
+    n = data_size()
     if n > 1 and batch:
         inter, po, go = global_sum(torch.stack([inter, po, go]))
     dice = (2.0 * inter + smooth_nr) / (po + go + smooth_dr)
@@ -56,7 +56,7 @@ def tversky_loss(logits: torch.Tensor, targets: torch.Tensor, *,
     tp = (p * g).sum()
     fp = ((1.0 - g) * p).sum()
     fn = (g * (1.0 - p)).sum()
-    n = world_size()
+    n = data_size()
     if n > 1:
         tp, fp, fn = global_sum(torch.stack([tp, fp, fn]))
     loss = 1.0 - (tp + smooth) / (tp + alpha * fp + beta * fn + smooth)

@@ -21,7 +21,7 @@ from ..ops.boxes import (bbox2dist, bbox_iou_aligned, dfl_decode, dist2bbox,
                          make_anchors, xywh2xyxy)
 from ..ops.masks import crop_mask
 from ..ops.nms import topk_stable
-from ..parallel.mesh import global_sum, world_size
+from ..parallel.mesh import data_size, global_sum
 from .dice import bce_with_logits
 from .tal import task_aligned_assign
 
@@ -87,8 +87,10 @@ def v8_loss(
     Under an active mesh (`parallel/mesh.py`) the batch is this rank's
     shard and the result its share: the numerators over its own images, the
     normalizers (the target-score sum, the positive-anchor count and the
-    batch size b) over the global batch, so the ranks' shares sum to the
-    global loss and its parts."""
+    batch size b) over the global batch, all-reduced over the data group,
+    so the shares of the data group sum to the global loss and its parts.
+    Under a model axis the ranks of a model group hold the same shard and
+    the same share."""
     b = raw[0].shape[0]
     dev = raw[0].device
     feat_shapes = tuple((r.shape[2], r.shape[3]) for r in raw)
@@ -171,5 +173,5 @@ def v8_loss(
 
     total = (parts["box"] * hyp.box + parts["seg"] * hyp.box
              + parts["cls"] * hyp.cls + parts["dfl"] * hyp.dfl) * (
-                 b * world_size())
+                 b * data_size())
     return LossOutputs(total=total, parts=parts)

@@ -32,9 +32,46 @@ def autopad(k: int, p: int | None = None, d: int = 1) -> int:
 
 
 def conv_in_dtype(m: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """Run a Conv2d with its f32 parameters cast to the input's dtype."""
+    """Run a Conv2d with its f32 parameters cast to the input's dtype.
+
+    A conv whose weight `parallel/mesh.py::shard_module` cut over the model
+    axis runs this rank's output channels (a grouped conv the input
+    channels of its groups: for a depthwise conv the same slice), gathers
+    the whole output over the model group and adds the whole bias after."""
     b = None if m.bias is None else m.bias.to(x.dtype)
-    return m._conv_forward(x, m.weight.to(x.dtype), b)
+    sh = getattr(m, "model_shard", None)
+    if sh is None:
+        return m._conv_forward(x, m.weight.to(x.dtype), b)
+    mesh = meshlib.model_mesh(type(m).__name__)
+    x = meshlib.copy_to_model(x, mesh)
+    groups = 1
+    if m.groups > 1:
+        k = x.shape[1] // sh.size      # the input channels of its groups
+        x = x.narrow(1, sh.rank * k, k)
+        groups = m.groups // sh.size
+    y = F.conv2d(x, m.weight.to(x.dtype), None, m.stride, m.padding,
+                 m.dilation, groups)
+    y = meshlib.gather_from_model(y, mesh)
+    return y if b is None else y + b.view(1, -1, 1, 1)
+
+
+def conv_transpose_in_dtype(m: nn.ConvTranspose2d,
+                            x: torch.Tensor) -> torch.Tensor:
+    """Run a ConvTranspose2d with its f32 parameters cast to the input's
+    dtype; under a cut of its output channels (dim 1 of its weight) as
+    `conv_in_dtype` runs a cut conv."""
+    b = None if m.bias is None else m.bias.to(x.dtype)
+    sh = getattr(m, "model_shard", None)
+    if sh is None:
+        return F.conv_transpose2d(x, m.weight.to(x.dtype), b, m.stride,
+                                  m.padding, m.output_padding, m.groups,
+                                  m.dilation)
+    mesh = meshlib.model_mesh(type(m).__name__)
+    y = F.conv_transpose2d(meshlib.copy_to_model(x, mesh),
+                           m.weight.to(x.dtype), None, m.stride, m.padding,
+                           m.output_padding, 1, m.dilation)
+    y = meshlib.gather_from_model(y, mesh)
+    return y if b is None else y + b.view(1, -1, 1, 1)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -45,16 +82,17 @@ class BatchNorm2d(nn.BatchNorm2d):
     gradients, the running mean, eval mode and the state_dict keys are
     torch's.
 
-    Under an active mesh of more than one rank (`parallel/mesh.py`) the
-    training-mode statistics are those of the global batch, as in the JAX
-    package's mesh step: the per-channel sum and sum of squares are
-    all-reduced with autograd, and the variance is flax's E[x^2] - E[x]^2
-    (`torch.nn.SyncBatchNorm` would fold the unbiased variance)."""
+    Under an active mesh of more than one batch shard (`parallel/mesh.py`)
+    the training-mode statistics are those of the global batch, as in the
+    JAX package's mesh step: the per-channel sum and sum of squares are
+    all-reduced over the data group with autograd, and the variance is
+    flax's E[x^2] - E[x]^2 (`torch.nn.SyncBatchNorm` would fold the
+    unbiased variance)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.track_running_stats):
             return super().forward(x)
-        if meshlib.world_size() > 1:
+        if meshlib.data_size() > 1:
             return self._forward_global(x)
         n = x.numel() // x.shape[1]
         m = self.momentum
@@ -70,7 +108,7 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def _forward_global(self, x: torch.Tensor) -> torch.Tensor:
         c = x.shape[1]
-        n = x.numel() // c * meshlib.world_size()
+        n = x.numel() // c * meshlib.data_size()
         sums = meshlib.global_sum(torch.cat([x.sum((0, 2, 3)),
                                              (x * x).sum((0, 2, 3))]))
         mean = sums[:c] / n
@@ -103,7 +141,13 @@ class Conv(nn.Module):
 
     def folded(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """BatchNorm folded into the conv with running stats: (W', b'), f32.
-        Same as the JAX package's `FoldedConvBN`."""
+        Same as the JAX package's `FoldedConvBN`. A weight cut over the
+        model axis is never folded: that raises."""
+        if getattr(self.conv, "model_shard", None) is not None:
+            raise RuntimeError(
+                "Conv.folded: the conv holds a slice of a weight cut over "
+                "the model axis (shard_module); fold the whole weights of a "
+                "gathered copy (parallel.mesh.whole_copy)")
         bn = self.bn
         inv = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
         w = self.conv.weight * inv[:, None, None, None]
@@ -222,10 +266,7 @@ class Proto(nn.Module):
         self.cv3 = Conv(c_, c2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.cv1(x)
-        up = self.upsample
-        x = F.conv_transpose2d(x, up.weight.to(x.dtype), up.bias.to(x.dtype),
-                               stride=2)
+        x = conv_transpose_in_dtype(self.upsample, self.cv1(x))
         return self.cv3(self.cv2(x))
 
 

@@ -33,12 +33,23 @@ and broadcasts CUDA tensors but gathers only CPU ones, so `all_gather_rows`
 gathers through the host there. A mesh of one rank computes exactly what
 no mesh computes: every collective is skipped.
 
-Not ported: a "model" axis (`n_model > 1`, the JAX package's
-`param_sharding_rules`, which shards large kernels over it).
+A model axis (`make_mesh(n_data, n_model)`, n_model > 1) lays the ranks
+out as JAX's `reshape(n_data, n_model)` of the device list: rank r is at
+data index r // n_model and model index r % n_model. The ranks of one data
+row (a *model group*) hold the same batch shard, so every collective above
+goes over a *data group* (the ranks of one model index), never over the
+world; on a 1-D mesh the data group is the world. `param_sharding_rules`
+picks the large conv weights, `shard_module` keeps each model rank's
+contiguous slice of their output channels, and `nn/blocks.py` runs such a
+conv on its slice and all-gathers the result over the model group
+(`gather_from_model`), so that everything after it runs whole and
+identically in every model rank. `gathered_state` puts the slices back
+together for files and validation.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import datetime
 import os
@@ -48,7 +59,7 @@ import shutil
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -59,22 +70,41 @@ from torch.utils import _pytree as pytree
 
 _STACK: List["Mesh"] = []                # meshes entered with `with mesh:`
 _RANK_DEVICE: Optional[torch.device] = None   # this rank's, set by launch
+# the cut convs' collectives over the model group in this process: forward
+# all-gathers and backward all-reduces, and the host seconds they took
+model_comm = {"gathers": 0, "reduces": 0, "seconds": 0.0}
 
 
 @dataclasses.dataclass(eq=False)
 class Mesh:
-    """This process's place in a data-parallel group: its rank, the number
-    of ranks (`size`), its device and the group's backend. `with mesh:`
-    makes it the active mesh, which BatchNorm and the losses consult."""
+    """This process's place in a group of ranks: its rank, the number of
+    ranks (`size`), its device, the group's backend and the length of the
+    model axis. `with mesh:` makes it the active mesh, which BatchNorm, the
+    losses and the sharded convs consult."""
     rank: int
     size: int
     device: torch.device
     backend: str
     owns_group: bool = False     # make_mesh started the group itself
+    n_model: int = 1
+    data_group: Any = None       # this rank's data group; None: the world
+    model_group: Any = None      # this rank's model group (n_model > 1)
+
+    @property
+    def n_data(self) -> int:
+        return self.size // self.n_model
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.n_model
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.n_model
 
     @property
     def shape(self) -> dict:
-        return {"data": self.size, "model": 1}
+        return {"data": self.n_data, "model": self.n_model}
 
     @property
     def is_main(self) -> bool:
@@ -104,6 +134,13 @@ def world_size(mesh: Optional[Mesh] = None) -> int:
     return 1 if mesh is None else mesh.size
 
 
+def data_size(mesh: Optional[Mesh] = None) -> int:
+    """The length of the data axis of `mesh`, else of the active mesh (the
+    number of batch shards); 1 without."""
+    mesh = mesh or active_mesh()
+    return 1 if mesh is None else mesh.n_data
+
+
 def backend_for(devices: Sequence[torch.device]) -> str:
     """NCCL where every rank has a CUDA device of its own, gloo on the CPU
     and where ranks share a card."""
@@ -120,19 +157,22 @@ def backend_for(devices: Sequence[torch.device]) -> str:
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
               devices=None) -> Mesh:
     """This rank's mesh. Inside `launch`'s ranks it describes the group
-    launch started (`n_data`, where given, must be its size). Elsewhere only
-    a mesh of one is possible, and its group is started here, on
-    `devices[0]` or else the GPU (an error where there is none)."""
-    if n_model != 1:
-        raise NotImplementedError(
-            f"n_model={n_model}: model-axis sharding (the JAX package's "
-            f"param_sharding_rules) is not ported; data parallel only")
+    launch started as an `n_data` x `n_model` grid (`n_data` defaults to
+    size // n_model; the product must be the size), the ranks in JAX's
+    `reshape(n_data, n_model)` order. Elsewhere only a mesh of one is
+    possible, and its group is started here, on `devices[0]` or else the
+    GPU (an error where there is none).
+
+    With a model axis every rank makes every data group and every model
+    group (`dist.new_group` in the same order in every rank, as it must be
+    called), on the group's backend."""
     owns = False
     if not dist.is_initialized():
-        if n_data not in (None, 1):
+        if n_data not in (None, 1) or n_model != 1:
             raise RuntimeError(
-                f"make_mesh(n_data={n_data}) outside a group of ranks: start "
-                f"them with yolou_tpu_torch.parallel.mesh.launch")
+                f"make_mesh(n_data={n_data}, n_model={n_model}) outside a "
+                f"group of ranks: start them with "
+                f"yolou_tpu_torch.parallel.mesh.launch")
         if devices is not None:
             device = torch.device(list(devices)[0])
         elif _RANK_DEVICE is not None:
@@ -146,38 +186,62 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
                                 world_size=1, **kw)
         owns = True
     size, rank = dist.get_world_size(), dist.get_rank()
-    if n_data is not None and n_data != size:
-        raise ValueError(f"make_mesh(n_data={n_data}) in a group of {size} "
+    if n_model < 1 or size % n_model:
+        raise ValueError(f"make_mesh(n_model={n_model}) in a group of {size} "
                          f"ranks")
+    if n_data is not None and n_data * n_model != size:
+        raise ValueError(f"make_mesh(n_data={n_data}, n_model={n_model}) in "
+                         f"a group of {size} ranks")
     if devices is not None:
         device = torch.device(list(devices)[rank])
     elif _RANK_DEVICE is not None:
         device = _RANK_DEVICE
-    return Mesh(rank, size, device, dist.get_backend(), owns)
+    mesh = Mesh(rank, size, device, dist.get_backend(), owns, n_model)
+    if n_model > 1:
+        grid = np.arange(size).reshape(size // n_model, n_model)
+        for m in range(n_model):
+            group = dist.new_group(grid[:, m].tolist(), backend=mesh.backend)
+            if m == mesh.model_index:
+                mesh.data_group = group
+        for d in range(size // n_model):
+            group = dist.new_group(grid[d].tolist(), backend=mesh.backend)
+            if d == mesh.data_index:
+                mesh.model_group = group
+    return mesh
 
 
 @dataclasses.dataclass(frozen=True)
 class Sharding:
-    """How a mesh lays out an array: cut along the leading axis over the
-    ranks (`axis` "data"), or whole on each (`axis` None)."""
+    """How a mesh lays out an array: cut along dimension `dim` into `size`
+    contiguous parts, of which this rank holds part `rank` (`axis` "data":
+    a batch over the data axis; "model": a weight over the model axis), or
+    whole on each (`axis` None)."""
     axis: Optional[str]
     rank: int
     size: int
+    dim: int = 0
 
     def index(self, n: int) -> slice:
-        """This rank's rows of a leading axis of length `n`."""
+        """This rank's part of a dimension of length `n`."""
         if self.axis is None:
             return slice(None)
         if n % self.size:
-            raise ValueError(f"a batch of {n} does not split over "
+            what = "a batch" if self.axis == "data" else "a dimension"
+            raise ValueError(f"{what} of {n} does not split over "
                              f"{self.size} ranks (pad_batch_to_multiple)")
         k = n // self.size
         return slice(self.rank * k, (self.rank + 1) * k)
 
+    def take(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's part of `t` (a view)."""
+        if self.axis is None:
+            return t
+        return t[(slice(None),) * self.dim + (self.index(t.shape[self.dim]),)]
+
 
 def batch_sharding(mesh: Mesh) -> Sharding:
-    """Leading-axis (batch) sharding over the ranks."""
-    return Sharding("data", mesh.rank, mesh.size)
+    """Leading-axis (batch) sharding over the data axis."""
+    return Sharding("data", mesh.data_index, mesh.n_data)
 
 
 def replicated(mesh: Mesh) -> Sharding:
@@ -233,62 +297,294 @@ def pad_batch_to_multiple(batch, multiple: int):
 
 
 class _SumOverRanks(torch.autograd.Function):
-    """All-reduce SUM; the backward all-reduces the cotangents."""
+    """All-reduce SUM over `group`; the backward all-reduces the
+    cotangents."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         y = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
     def backward(ctx, g):
+        t0 = time.perf_counter()
         g = g.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g)
-        return g
+        dist.all_reduce(g, group=ctx.group)
+        model_comm["reduces"] += 1
+        model_comm["seconds"] += time.perf_counter() - t0
+        return g, None
 
 
 def global_sum(x: torch.Tensor, mesh: Optional[Mesh] = None) -> torch.Tensor:
-    """`x` summed over the ranks of `mesh`, else of the active mesh, with
-    autograd; `x` itself without a mesh or in a mesh of one."""
-    if world_size(mesh) == 1:
+    """`x` summed over the data group of `mesh`, else of the active mesh,
+    with autograd; `x` itself without a mesh or with one batch shard."""
+    mesh = mesh or active_mesh()
+    if data_size(mesh) == 1:
         return x
     if torch.is_grad_enabled() and x.requires_grad:
-        return _SumOverRanks.apply(x)
+        return _SumOverRanks.apply(x, mesh.data_group)
     y = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(y)
+    dist.all_reduce(y, group=mesh.data_group)
     return y
+
+
+def _all_gather(mesh: Mesh, x: torch.Tensor, n: int, group,
+                dim: int) -> torch.Tensor:
+    """The `n` ranks of `group`'s `x` concatenated along `dim` in rank order,
+    on `x`'s device (through the host under gloo, which gathers only CPU
+    tensors); no autograd."""
+    src = x.detach().contiguous()
+    if mesh.backend != "nccl":
+        src = src.cpu()
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    return torch.cat(parts, dim).to(x.device)
 
 
 def all_gather_rows(x: torch.Tensor, mesh: Optional[Mesh] = None
                     ) -> torch.Tensor:
-    """Every rank's `x` (the same shape on each) concatenated along the
-    leading axis in rank order, on `x`'s device (through the host under
+    """Every data shard's `x` (the same shape on each) concatenated along
+    the leading axis in data order, on `x`'s device (through the host under
     gloo); no autograd."""
     mesh = mesh or active_mesh()
-    if world_size(mesh) == 1:
+    if data_size(mesh) == 1:
         return x
-    src = x.detach().contiguous()
-    if mesh.backend != "nccl":
-        src = src.cpu()
-    parts = [torch.empty_like(src) for _ in range(mesh.size)]
-    dist.all_gather(parts, src)
-    return torch.cat(parts).to(x.device)
+    return _all_gather(mesh, x, mesh.n_data, mesh.data_group, 0)
 
 
 def sum_gradients(mesh: Mesh, params) -> None:
-    """Sum the `.grad` of `params` over the ranks, in place (one flat
+    """Sum the `.grad` of `params` over the data group, in place (one flat
     all-reduce per dtype)."""
-    if mesh.size == 1:
+    if mesh.n_data == 1:
         return
     grads = [p.grad for p in params if p.grad is not None]
     with torch.no_grad():
-        _coalesced(grads, dist.all_reduce)
+        _coalesced(grads, lambda flat: dist.all_reduce(
+            flat, group=mesh.data_group))
+
+
+def mean_over_model(mesh: Mesh, params) -> None:
+    """Average the `.grad` of `params` over the model group, in place (the
+    replicated parameters under a model axis)."""
+    if mesh.n_model == 1:
+        return
+    grads = [p.grad for p in params if p.grad is not None]
+    with torch.no_grad():
+        _coalesced(grads, lambda flat: dist.all_reduce(
+            flat, group=mesh.model_group))
+        torch._foreach_div_(grads, float(mesh.n_model))
+
+
+def sum_over_model(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    """`x` summed over the model group (no autograd)."""
+    if mesh.n_model == 1:
+        return x
+    y = x.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(y, group=mesh.model_group)
+    return y
+
+
+def from_main(mesh: Optional[Mesh], obj):
+    """Rank 0's `obj` in every rank (a picklable object; `obj` itself
+    without a mesh or in a mesh of one)."""
+    if world_size(mesh) == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 def barrier(mesh: Optional[Mesh]) -> None:
     if world_size(mesh) > 1:
         dist.barrier()
+
+
+# -------------------------------------------------------------- model axis
+
+def param_sharding_rules(mesh: Mesh, params, min_size: int = 2 ** 16
+                         ) -> Dict[str, Sharding]:
+    """The JAX package's tensor-parallel rule in torch terms: a weight is cut
+    over "model" along its output-channel axis when the mesh has a model
+    axis, it has two dimensions or more, at least `min_size` elements and
+    an output axis that splits evenly; everything else is replicated.
+
+    `params` is a module (its parameters) or a name -> tensor mapping. The
+    output axis is torch's dim 0 (flax's last axis of a conv kernel, so the
+    same leaves qualify), and dim 1 for the weight of a transposed conv of
+    a module. Returns name -> `Sharding` ("model", the rank's model index,
+    n_model, dim) or `replicated(mesh)`."""
+    n = mesh.n_model
+    if isinstance(params, torch.nn.Module):
+        transposed = {f"{name}.weight" if name else "weight"
+                      for name, m in params.named_modules()
+                      if isinstance(m, torch.nn.modules.conv._ConvTransposeNd)}
+        params = dict(params.named_parameters())
+    else:
+        transposed = set()
+    rules = {}
+    for name, t in params.items():
+        dim = 1 if name in transposed else 0
+        if (n > 1 and t.ndim >= 2 and t.numel() >= min_size
+                and t.shape[dim] % n == 0):
+            rules[name] = Sharding("model", mesh.model_index, n, dim)
+        else:
+            rules[name] = replicated(mesh)
+    return rules
+
+
+def shard_module(mesh: Mesh, module: torch.nn.Module,
+                 rules: Dict[str, Sharding]) -> torch.nn.Module:
+    """Keep in this rank only its slice of every weight `rules` cuts over
+    "model" (the counterpart of `tree_map(jax.device_put, state, rules)`):
+    the weight becomes a smaller `nn.Parameter`, its conv records the cut as
+    `model_shard`, and `module.model_shards` maps the names to their cuts.
+    Only conv weights are cut, along their output channels; a grouped conv
+    only where its groups split over the model axis. In place; returns
+    `module`."""
+    shards = dict(getattr(module, "model_shards", {}))
+    for name, sh in rules.items():
+        if sh.axis != "model":
+            continue
+        owner, _, leaf = name.rpartition(".")
+        conv = module.get_submodule(owner)
+        if (leaf != "weight" or name in shards
+                or not isinstance(conv, (torch.nn.Conv2d,
+                                         torch.nn.ConvTranspose2d))
+                or conv.padding_mode != "zeros"):
+            raise ValueError(f"{name}: only the weight of a zero-padded 2-D "
+                             f"conv is cut over the model axis, once")
+        if isinstance(conv, torch.nn.ConvTranspose2d):
+            fits = sh.dim == 1 and conv.groups == 1
+        else:
+            fits = sh.dim == 0 and (conv.groups == 1
+                                    or conv.groups % sh.size == 0)
+        if not fits:
+            raise ValueError(
+                f"{name}: a cut along dim {sh.dim} of a "
+                f"{type(conv).__name__} with {conv.groups} groups over "
+                f"{sh.size} ranks is not its output channels")
+        w = conv.weight
+        conv.weight = torch.nn.Parameter(sh.take(w.detach()).clone(),
+                                         requires_grad=w.requires_grad)
+        conv.model_shard = sh
+        shards[name] = sh
+    module.model_shards = shards
+    return module
+
+
+def model_shards(module: torch.nn.Module) -> Dict[str, Sharding]:
+    """name -> cut of the weights `shard_module` cut in `module`."""
+    return getattr(module, "model_shards", {})
+
+
+def local_part(module: torch.nn.Module, name: str,
+               t: torch.Tensor) -> torch.Tensor:
+    """This rank's slice of the whole tensor `t` of parameter `name` where
+    `module` holds that parameter cut, else `t`."""
+    sh = model_shards(module).get(name)
+    return t if sh is None else sh.take(t)
+
+
+def gathered_state(mesh: Optional[Mesh], module: torch.nn.Module,
+                   tensors: Optional[Dict[str, torch.Tensor]] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """`module`'s state_dict, or `tensors` named as its parameters (EMA,
+    optimizer moments), with every slice `shard_module` left in this rank
+    all-gathered over the model group into its whole tensor, detached. A
+    collective where anything is cut: every rank calls it."""
+    src = module.state_dict() if tensors is None else tensors
+    shards = model_shards(module)
+    return {name: (t.detach() if name not in shards else _all_gather(
+                mesh, t, mesh.n_model, mesh.model_group, shards[name].dim))
+            for name, t in src.items()}
+
+
+def whole_copy(module: torch.nn.Module) -> torch.nn.Module:
+    """A deep copy of `module` with whole-shape (uninitialised) parameters
+    in place of its cut ones and no record of a cut: load a gathered state
+    into it."""
+    out = copy.deepcopy(module)
+    for name, sh in model_shards(out).items():
+        owner, _, leaf = name.rpartition(".")
+        conv = out.get_submodule(owner)
+        w = conv.weight
+        shape = list(w.shape)
+        shape[sh.dim] *= sh.size
+        conv.weight = torch.nn.Parameter(w.new_empty(shape),
+                                         requires_grad=w.requires_grad)
+        del conv.model_shard
+    out.model_shards = {}
+    return out
+
+
+def model_mesh(what: str) -> Mesh:
+    """The active mesh, which a cut weight needs for its model group."""
+    mesh = active_mesh()
+    if mesh is None or mesh.n_model == 1:
+        raise RuntimeError(f"{what} holds a slice of a weight cut over the "
+                           f"model axis: run it inside `with mesh:` of its "
+                           f"mesh")
+    return mesh
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity; the backward all-reduces the cotangent over the model
+    group, adding up the input gradients of the ranks' output slices."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.group = mesh.model_group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        t0 = time.perf_counter()
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        model_comm["reduces"] += 1
+        model_comm["seconds"] += time.perf_counter() - t0
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """All-gather over the model group along `dim`; the backward returns
+    this rank's slice of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.dim, ctx.k, ctx.index = dim, x.shape[dim], mesh.model_index
+        return _all_gather(mesh, x, mesh.n_model, mesh.model_group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.index * ctx.k, ctx.k), None, None
+
+
+def copy_to_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The input of a cut conv: itself, with the input gradients summed
+    over the model group in the backward."""
+    return _CopyToModel.apply(x, mesh) if x.requires_grad else x
+
+
+def gather_from_model(x: torch.Tensor, mesh: Mesh,
+                      dim: int = 1) -> torch.Tensor:
+    """The ranks' output slices of a cut conv, all-gathered over the model
+    group along `dim` into the whole output, with autograd: the backward
+    hands each rank its slice of the cotangent. That is the gradient only
+    because everything after the gather is computed identically in every
+    rank of the model group (the same batch shard, the same augmentation
+    generator, the same loss), so the cotangent of the whole output is the
+    same in each."""
+    t0 = time.perf_counter()
+    if torch.is_grad_enabled() and x.requires_grad:
+        y = _GatherFromModel.apply(x, mesh, dim)
+    else:
+        y = _all_gather(mesh, x, mesh.n_model, mesh.model_group, dim)
+    model_comm["gathers"] += 1
+    model_comm["seconds"] += time.perf_counter() - t0
+    return y
 
 
 # ------------------------------------------------------------------ launch
@@ -366,6 +662,8 @@ def launch(fn: Callable, n_data: int, devices=None, *args,
             if p.is_alive():
                 p.terminate()
         for p in procs:
+            if p.pid is None:           # never started
+                continue
             p.join(10)
             if p.is_alive():
                 p.kill()

@@ -64,6 +64,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel import mesh as meshlib
 from ..tools.convert import jax_variables, state_dict_from_jax
 
 Path = Tuple[str, ...]
@@ -214,7 +215,7 @@ def _copy_into(model: nn.Module, named: Dict[str, torch.Tensor],
     with torch.no_grad():
         for n in names:
             dst = params[n] if n in params else buffers[n]
-            dst.copy_(named[n])
+            dst.copy_(meshlib.local_part(model, n, named[n]))
 
 
 def _stat_names(model: nn.Module) -> List[str]:
@@ -270,25 +271,32 @@ def _trainable(model: nn.Module) -> Dict[str, nn.Parameter]:
 
 def detector_state_tree(tr) -> dict:
     """`DetectorTrainer` `tr`'s state as the JAX detector trainer's tree
-    form (numpy leaves; `utils/checkpoint.py` writes it)."""
+    form (numpy leaves; `utils/checkpoint.py` writes it). Under a model axis
+    the cut weights, their EMA and their optimizer state are gathered whole
+    over the model group (a collective: every rank calls it), so the tree
+    is the JAX layout unchanged and never holds a slice."""
     _require_optimizer(tr)
     cfg, model = tr.cfg, tr.model
-    variables = jax_variables(model)
+
+    def whole(tensors=None):
+        return meshlib.gathered_state(tr.mesh, model, tensors)
+
+    variables = jax_variables(model, whole())
     named = _trainable(model)
-    ema = _params_tree(model, dict(zip(named, tr.ema_params)))
+    ema = _params_tree(model, whole(dict(zip(named, tr.ema_params))))
     n = tr.opt_count
     groups = {}
     if cfg.optimizer == "adamw":
-        mu, nu = (_params_tree(model, _optimizer_tensors(tr.optimizer, named,
-                                                         key))
+        mu, nu = (_params_tree(model, whole(_optimizer_tensors(
+                      tr.optimizer, named, key)))
                   for key in ("exp_avg", "exp_avg_sq"))
         for g in GROUPS:
             keep = lambda p, g=g: group_of(p) == g
             groups[g] = {"inner_state": _adamw(n, _mask(mu, keep),
                                                _mask(nu, keep))}
     else:
-        trace = _params_tree(model, _optimizer_tensors(
-            tr.optimizer, named, "momentum_buffer"))
+        trace = _params_tree(model, whole(_optimizer_tensors(
+            tr.optimizer, named, "momentum_buffer")))
         last = max(n - 1, 0)        # the count of the last update
         for g in GROUPS:
             lr = (tr._lr_bias_fn if g == "bias" else tr._lr_fn)(last)
@@ -329,9 +337,10 @@ def restore_detector_state(tr, tree: dict) -> None:
     """Restore a detector training-state tree (the port's, or the JAX
     trainer's tree or flat form) into `tr`: parameters, BatchNorm
     statistics, EMA, optimizer state and counters, every tensor exactly.
-    Raises by name where the file does not fit the trainer: another
-    optimizer (a flat-form file is SGD's), another model, a missing or
-    extra key, another shape or dtype."""
+    Under a model axis every rank reads the whole tree and keeps its slices
+    of the cut weights. Raises by name where the file does not fit the
+    trainer: another optimizer (a flat-form file is SGD's), another model,
+    a missing or extra key, another shape or dtype."""
     _require_optimizer(tr)
     cfg, model = tr.cfg, tr.model
     form = state_form(tree)
@@ -359,7 +368,7 @@ def restore_detector_state(tr, tree: dict) -> None:
     ema_named = _torch_params(ema)
     with torch.no_grad():
         for e, n in zip(tr.ema_params, named):
-            e.copy_(ema_named[n])
+            e.copy_(meshlib.local_part(model, n, ema_named[n]))
 
     os_ = tree["opt_state"]
     if form == "flat":
@@ -393,7 +402,8 @@ def restore_detector_state(tr, tree: dict) -> None:
     named_moments = {k: _torch_params(t) for k, t in moments.items()}
     states = {}
     for n, p in named.items():
-        st = {k: m[n] for k, m in named_moments.items()}
+        st = {k: meshlib.local_part(model, n, m[n]).clone()
+              for k, m in named_moments.items()}
         if opt == "adamw":
             st["step"] = torch.tensor(float(count), dtype=torch.float32)
         states[id(p)] = st
