@@ -20,7 +20,12 @@ Phases, one or more output lines each:
                (`call_ms`, which counts the host where it sets the pace); the
                training attention's gradients against autograd through the
                plain version; the whole-A2C2f kernel also beside the staged
-               A2C2f module on the same weights;
+               A2C2f module on the same weights; also at the
+               long bands (yolov12s / x layer 8 at 640^2 in f32, yolov12n
+               at 1280^2 in bf16, kernel C at 1024 and 1936 tokens), the
+               bf16 streamed path timed against the resident one at
+               yolov12n's 640^2 bands, and `a2c2f` at mlp_ratio 1.2
+               and at yolov12l's layer 8 (f32, 8-token tiles);
   4. serve   - a Predictor with seeded random yolov12n-seg weights (4 ch,
                nc=1, 640^2, bf16) answers 3 requests of 8 uint8 images; the
                kernels' launch counters must show the path went through them;
@@ -42,14 +47,27 @@ Phases, one or more output lines each:
                forward and the band attention kernel never; detections on
                every image; the batch-8 forward timed with the flag off and
                on; then f32 on the card, 2 images, flag on against flag off.
-  8. evaluate - YOLO-Seg++ (`build_segpp`, bf16) with the same detector
+  8. shapes  - the shapes past yolov12n at 640^2 (the streamed band
+               attention path, the MLP width, the f32 token tiles, the
+               residual A2C2f), through the entry points: seeded, calibrated
+               yolov12s-seg serving 2 requests of 8 at 640^2 in f32 (8 kernel
+               A launches a forward, a detection on every image; f32 card vs
+               CPU) and one of 8 at 1280^2 in bf16; one f32 training step of
+               yolov12n at 1024^2, batch 2, card vs CPU (kernel C 8 + 8);
+               yolov12l at 640^2, f32, batch 2, with mega_kernel (one a2c2f
+               launch a forward, within 1e-3 of the flag off); a residual
+               A2C2f (128, n 2, area 4, mlp_ratio 1.2) at (8, 128, 40, 40)
+               in bf16 eval (4 kernel A launches) and f32 training forward
+               and backward (4 kernel C launches and 4 backward calls), each
+               against the same module on the plain versions.
+  9. evaluate - YOLO-Seg++ (`build_segpp`, bf16) with the same detector
                weights and a seeded decoder; an Evaluator at 160^2, batch 16,
                takes 3 batches of seeded images and elliptic masks from
                memory with HD95 on: 8 band attention launches and one NMS
                launch a step, 48 images, finite Dice, precision and recall in
                [0, 1]; images/s and the step's parts; then one f32 step on
                the card against the CPU.
-  9. train-decoder - the YOLO-Seg++ training pipeline at 160^2, bf16, with
+ 10. train-decoder - the YOLO-Seg++ training pipeline at 160^2, bf16, with
                the same detector weights: seeded images and elliptic masks
                in memory (512 train, 128 val, 128 test); objectmaps of every
                split from the port's generator at batch 128 (8 band
@@ -72,7 +90,7 @@ Phases, one or more output lines each:
                A's gradient through an eval-mode AAttn against the plain
                version's, and the whole-A2C2f kernel's refusal of an input
                that requires grad.
- 10. finetune - the detector stage at 160^2, batch 16, bf16: seeded
+ 11. finetune - the detector stage at 160^2, batch 16, bf16: seeded
                yolov12n-seg weights built with a 3-channel stem and
                inflated to 4 channels (`inflate_stem_to_4ch`), calibrated;
                `DetectorTrainer.train()` over seeded in-memory splits of
@@ -100,7 +118,7 @@ Phases, one or more output lines each:
                the best EMA weights
                read back onto the card (forward bit-identical) and a
                Predictor over it answering one request.
- 11. cli     - the Quickstart through `python -m yolou_tpu_torch`'s
+ 12. cli     - the Quickstart through `python -m yolou_tpu_torch`'s
                dispatcher at the reference configuration (yolov12n-seg, 4
                channels, nc=1, 160^2, bf16) from PNG files on disk, with
                cv2 blocked by a meta-path finder: a dataset of seeded
@@ -119,7 +137,7 @@ Phases, one or more output lines each:
                card against `--device cpu`; each command's wall seconds,
                host decode and resize rates, predict images/s, the epochs'
                seconds.
- 12. export  - `export` of the cli phase's seeded, calibrated init.ckpt at
+ 13. export  - `export` of the cli phase's seeded, calibrated init.ckpt at
                640^2, batch 8, in bf16 and in f32 through the dispatcher:
                no kernel launch while tracing, 8 kernel A and 1 kernel B
                operator nodes in each program's graph; each program run as
@@ -131,15 +149,15 @@ Phases, one or more output lines each:
                then `--kind segpp` of the cli phase's YOLO-Seg++ at 160^2,
                batch 16, bf16: the mask against the live model's, pixels
                differing only within 1e-2 of 0.5.
- 13. profile - `profile --batch 8 --imgsz 640` (bf16, every prefix, device
+ 14. profile - `profile --batch 8 --imgsz 640` (bf16, every prefix, device
                ms from torch.profiler): no negative row, the total within
                15 % of one whole forward's device ms; the costliest rows
                and where layers 6 and 8 fall; then `profile --attn`.
- 14. visualize-logits - one PNG of the cli phase with its trained detector,
+ 15. visualize-logits - one PNG of the cli phase with its trained detector,
                f32, on the card and with `--device cpu`: probabilities
                within 1e-5, the printed statistics equal, 8 kernel A
                launches on the card and none on the CPU.
- 15. families - yolov8n-seg and yolo11n-seg (4 ch, nc=1, seeded weights
+ 16. families - yolov8n-seg and yolo11n-seg (4 ch, nc=1, seeded weights
                calibrated as the serve phase's, the head bias warm-started):
                for each, a Predictor answering 3 requests of 8 images at
                640^2 in bf16 (a detection on every image, kernel B once a
@@ -156,7 +174,7 @@ Phases, one or more output lines each:
                call, boxes and scores against `Predictor.infer`) and
                `train-detector --epochs 1` from the family's `.ckpt`: every
                file written names the family, the fine-tuned one loads back.
- 16. sources - yolov12n-seg at 640^2, bf16, with the serve phase's
+ 17. sources - yolov12n-seg at 640^2, bf16, with the serve phase's
                weights: a Predictor over a 24-frame MJPG `.avi` written by
                `cv2.VideoWriter` (24 results `#frame0` ... `#frame23`, 8
                kernel A launches a forward, one kernel B launch a chunk of
@@ -165,7 +183,7 @@ Phases, one or more output lines each:
                (detections equal but for near-ties, each named); the
                camera, stream (a refused localhost port) and screenshot
                routes by their errors.
- 17. parallel - data parallel at full width, yolov12n-seg: (a) a
+ 18. parallel - data parallel at full width, yolov12n-seg: (a) a
                DetectorTrainer over `make_mesh(1)` (NCCL) against the
                mesh-less one, one bf16 step at 640^2, batch 8, each
                (bit-identical, or the non-deterministic ops named); (b)
@@ -183,7 +201,7 @@ Phases, one or more output lines each:
                all-reduce alone; (e) `train-detector --data-parallel 1`
                through the dispatcher (one NCCL rank) and `--data-parallel
                2` refused by name on one card.
- 18. model_axis - the data x model mesh at full width, yolov12n-seg, 160^2,
+ 19. model_axis - the data x model mesh at full width, yolov12n-seg, 160^2,
                global batch 16, mosaic on, `param_sharding_rules(min_size=
                2**12)` (99 weights cut): (a) 4 gloo ranks on cuda:0 as a 2
                x 2 mesh and 2 as a 1 x 2 mesh, 3 f32 steps each against
@@ -201,7 +219,7 @@ Phases, one or more output lines each:
                2 state file before any step byte for byte one process's,
                its last.ckpt read by one process and one more step on both
                within `twin_steps`' tolerance.
- 19. demo    - `tools/run_demo.py`'s four stages, each a process, on the
+ 20. demo    - `tools/run_demo.py`'s four stages, each a process, on the
                demo's synthetic set (64 / 16 / 16 at 160^2, seed 7) at a
                short schedule (6 + 6 epochs): the files, finite metrics,
                the objectmap AUC, each stage's exact launches. The full
@@ -264,6 +282,12 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return call_ms(fn, torch.device("cuda"), iters, warmup)
 
 
+class EventsMs(float):
+    """A time from CUDA events around back-to-back calls (host included),
+    given where torch.profiler recorded no device time: `times_source`
+    names the fields of a row that hold one."""
+
+
 def kernel_times(fn, iters: int = 20):
     """(device_ms, call_ms) per call of `fn`: the card's own time (kernel and
     copy time from torch.profiler, no host time and no gaps between
@@ -272,7 +296,24 @@ def kernel_times(fn, iters: int = 20):
     the card, sets the pace (a kernel of a few microseconds behind a Python
     wrapper)."""
     from yolou_tpu_torch.tools.profile_layers import device_ms
-    return device_ms(fn, iters), cuda_ms(fn, iters)
+    for attempt in range(3):     # each attempt takes up to three traces
+        try:
+            return device_ms(fn, iters), cuda_ms(fn, iters)
+        except RuntimeError as e:
+            log("profiler", error=str(e), attempt=attempt)
+    # a profiler that recorded no device time in nine traces (seen once on
+    # an H100 in three, never in 400 profiles of a probe there): the CUDA
+    # events' time, marked, in place of the device time
+    log("profiler", fallback="CUDA events")
+    call = cuda_ms(fn, iters)
+    return EventsMs(call), call
+
+
+def times_source(row: dict) -> str:
+    """Where a kernel row's times come from: "torch.profiler", or the
+    fields whose number is CUDA events' host-inclusive time instead."""
+    events = sorted(k for k, v in row.items() if isinstance(v, EventsMs))
+    return "cuda_events: " + ", ".join(events) if events else "torch.profiler"
 
 
 def device_kernels(fn, calls: int = 5) -> list:
@@ -319,35 +360,57 @@ def f32_exact(torch) -> None:
 
 # ------------------------------------------------------------- kernel A
 
+BOTH = ("float32", "bfloat16")
+SHORT = {"float32": "f32", "bfloat16": "bf16"}
+
+
+def streamed_vs_resident(fn_of_path):
+    """(resident device ms, streamed device ms) of a bf16 band both paths
+    take, timed in turns (resident, streamed, streamed, resident): the two
+    times `attention_plan`'s crossover chooses between."""
+    times = {False: [], True: []}
+    for streamed in (False, True, True, False):
+        times[streamed].append(kernel_times(fn_of_path(streamed))[0])
+    return (sum(times[False]) / 2, sum(times[True]) / 2)
+
+
 def check_attention(device):
     """Kernel A against its plain version at the serving (640^2, batch 8),
-    evaluation (160^2, batch 16) and objectmap (160^2, batch 128) shapes;
-    times of the kernel, the plain version and, as a yardstick of the
+    evaluation (160^2, batch 16) and objectmap (160^2, batch 128) shapes,
+    and at the long bands of the larger scales and images; times of the
+    kernel, the plain version and, as a yardstick of the
     attention part alone (no one PyTorch call does projection + attention),
     scaled_dot_product_attention over the q, k, v that the plain projection
-    gives."""
+    gives. At the 640^2 serving shapes in bf16 the streamed path is also
+    timed against the resident one."""
     import torch
     import torch.nn.functional as F
     from yolou_tpu_torch.kernels.attention import (
-        area_attention_qkv_fused, area_attention_qkv_fused_plain)
+        _launch_qkv_attention, area_attention_qkv_fused,
+        area_attention_qkv_fused_plain, attention_plan)
     f32_exact(torch)
     # serving: 640^2, batch 8; evaluation: 160^2, batch 16; objectmaps:
-    # 160^2, batch 128
-    cases = [("L6@640", 4 * BATCH, 400, 64, 2), ("L8@640", BATCH, 400, 128, 4),
-             ("L6@160", 4 * EVAL_BATCH, 25, 64, 2),
-             ("L8@160", EVAL_BATCH, 25, 128, 4),
+    # 160^2, batch 128; then the bands the resident path cannot hold
+    cases = [("L6@640", 4 * BATCH, 400, 64, 2, BOTH),
+             ("L8@640", BATCH, 400, 128, 4, BOTH),
+             ("L6@160", 4 * EVAL_BATCH, 25, 64, 2, BOTH),
+             ("L8@160", EVAL_BATCH, 25, 128, 4, BOTH),
              # a data shard of the model_axis phase's 2 x 2 mesh
-             ("L6@160/2", 4 * EVAL_BATCH // 2, 25, 64, 2),
-             ("L8@160/2", EVAL_BATCH // 2, 25, 128, 4),
-             ("L6@160b128", 4 * DEC_BATCH, 25, 64, 2),
-             ("L8@160b128", DEC_BATCH, 25, 128, 4)]
+             ("L6@160/2", 4 * EVAL_BATCH // 2, 25, 64, 2, BOTH),
+             ("L8@160/2", EVAL_BATCH // 2, 25, 128, 4, BOTH),
+             ("L6@160b128", 4 * DEC_BATCH, 25, 64, 2, BOTH),
+             ("L8@160b128", DEC_BATCH, 25, 128, 4, BOTH),
+             ("s L8@640", BATCH, 400, 256, 8, BOTH),
+             ("x L8@640", BATCH, 400, 384, 12, ("float32",)),
+             ("L6@1280", 4 * BATCH, 1600, 64, 2, ("bfloat16",)),
+             ("L8@1280", BATCH, 1600, 128, 4, ("bfloat16",))]
     rng = np.random.default_rng(SEED)
     worst, times = 0.0, {}
-    for name, g, n, c, heads in cases:
+    for name, g, n, c, heads, dtypes in cases:
         x = rng.normal(size=(g, n, c)).astype(np.float32)
         w = rng.normal(0, 0.5 / np.sqrt(c), (c, 3 * c)).astype(np.float32)
         b = rng.normal(0, 0.1, (3 * c,)).astype(np.float32)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (getattr(torch, d) for d in dtypes):
             xt = torch.from_numpy(x).to(device, dtype)
             wt = torch.from_numpy(w).to(device, dtype)
             bt = torch.from_numpy(b).to(device)
@@ -370,13 +433,21 @@ def check_attention(device):
             nbytes = xt.element_size() * (3 * g * n * c + 3 * c * c) + 12 * c
             flops = 6 * g * n * c * c + 4 * g * n * n * c
             bound_ms, bound_by = bound(nbytes, flops, dtype_name(dtype))
+            plan = attention_plan(g, n, c, dtype)
+            paths = {}
+            if name in ("L6@640", "L8@640") and dtype == torch.bfloat16:
+                paths = dict(zip(("resident_ms", "streamed_ms"),
+                                 streamed_vs_resident(
+                    lambda st: lambda: _launch_qkv_attention(xt, wt, bt,
+                                                             heads, st))))
             log("kernel", name="band_attention", case=name,
                 shape=f"({g},{n},{c})h{heads}", dtype=dtype_name(dtype),
+                path="streamed" if plan.streamed else "resident",
                 max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
                 attention_library_ms=attn_lib_ms, bound_ms=bound_ms,
                 bound_by=bound_by, call_ms=call_ms,
                 plain_call_ms=plain_call_ms,
-                attention_library_call_ms=attn_lib_call_ms)
+                attention_library_call_ms=attn_lib_call_ms, **paths)
             if not finite or not err <= tol:
                 raise AssertionError(f"band attention {name} {dtype}: "
                                      f"max|d| {err} > {tol} or non-finite")
@@ -385,8 +456,10 @@ def check_attention(device):
                                     "plain_ms": plain_ms,
                                     "bound_ms": bound_ms,
                                     "bound_by": bound_by, "library_ms": None,
-                                    "attention_library_ms": attn_lib_ms}
-    return dict(times[("L6@640", torch.bfloat16)], max_abs_err=worst)
+                                    "attention_library_ms": attn_lib_ms,
+                                    "max_abs_err": err,
+                                    "streamed": plan.streamed}
+    return times
 
 
 # ------------------------------------------------------------- kernel C
@@ -395,35 +468,42 @@ def check_training_attention(device):
     """`area_attention_fused` (and `area_attention`, its one-head form)
     against the plain version: outputs and gradients at the two training
     shapes of yolov12n at 640^2 and batch 8, at the two the fine-tune phase
-    gives them (160^2, batch 16), and at the two shapes the attention
-    profiler gives them at batch 8;
+    gives them (160^2, batch 16), at the two shapes the attention
+    profiler gives them at batch 8, and at yolov12n's layer-6 bands at
+    1024^2 (f32) and 1408^2 (bf16), batch 8, past the resident path;
     times of kernel, plain version and the one PyTorch call that computes
-    the function (scaled_dot_product_attention), a yardstick only."""
+    the function (scaled_dot_product_attention), a yardstick only. At the
+    640^2 shapes in bf16 the streamed path is also timed against the
+    resident one."""
     import torch
     import torch.nn.functional as F
     from yolou_tpu_torch.kernels.attention import (
-        area_attention, area_attention_fused, area_attention_fused_plain,
-        area_attention_plain, attention_backward)
+        _launch_band_attention, area_attention, area_attention_fused,
+        area_attention_fused_plain, area_attention_plain, attention_backward,
+        attention_plan)
     from yolou_tpu_torch.tools.profile_layers import HEADS, attention_shapes
     f32_exact(torch)
-    cases = [("L6@640", 4 * BATCH, 400, 64, 2), ("L8@640", BATCH, 400, 128, 4),
-             ("L6@160", 4 * EVAL_BATCH, 25, 64, 2),
-             ("L8@160", EVAL_BATCH, 25, 128, 4),
+    cases = [("L6@640", 4 * BATCH, 400, 64, 2, BOTH),
+             ("L8@640", BATCH, 400, 128, 4, BOTH),
+             ("L6@160", 4 * EVAL_BATCH, 25, 64, 2, BOTH),
+             ("L8@160", EVAL_BATCH, 25, 128, 4, BOTH),
              # a data shard of the model_axis phase's 2 x 2 mesh
-             ("L6@160/2", 4 * EVAL_BATCH // 2, 25, 64, 2),
-             ("L8@160/2", EVAL_BATCH // 2, 25, 128, 4),
-             ("single", 64, 400, 32, 1)]
+             ("L6@160/2", 4 * EVAL_BATCH // 2, 25, 64, 2, BOTH),
+             ("L8@160/2", EVAL_BATCH // 2, 25, 128, 4, BOTH),
+             ("single", 64, 400, 32, 1, BOTH),
+             ("L6@1024", 4 * BATCH, 1024, 64, 2, ("float32",)),
+             ("L6@1408", 4 * BATCH, 1936, 64, 2, ("bfloat16",))]
     for name, shape, heads in zip(("profile-single", "profile-fused"),
                                   attention_shapes(BATCH), (1, HEADS)):
-        cases.append((name, *shape, heads))
+        cases.append((name, *shape, heads, BOTH))
     rng = np.random.default_rng(SEED + 3)
     results = {}
-    for name, g, n, c, heads in cases:
+    for name, g, n, c, heads, dtypes in cases:
         single = heads == 1
         arrays = [rng.normal(size=(g, n, c)).astype(np.float32)
                   for _ in range(4)]
         kname = "band_attention_single" if single else "band_attention_train"
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (getattr(torch, d) for d in dtypes):
             q, k, v, do = (torch.from_numpy(a).to(device, dtype)
                            for a in arrays)
             if single:
@@ -460,8 +540,19 @@ def check_training_attention(device):
                     lambda: attention_backward(q, k, v, do, heads))[0]
             nbytes = 4 * g * n * c * q.element_size()     # q, k, v in; o out
             bound_ms, bound_by = bound(nbytes, 4 * g * n * n * c, dn)
+            streamed = attention_plan(g, n, c, dtype,
+                                      projection=False).streamed
+            paths = {}
+            if name in ("L6@640", "L8@640") and dtype == torch.bfloat16:
+                with torch.no_grad():
+                    paths = dict(zip(("resident_ms", "streamed_ms"),
+                                     streamed_vs_resident(
+                        lambda st: lambda: _launch_band_attention(
+                            q, k, v, heads, st))))
             log("kernel", name=kname, case=name,
-                shape=f"({g},{n},{c})h{heads}", dtype=dn, max_abs_err=err,
+                shape=f"({g},{n},{c})h{heads}", dtype=dn,
+                path="streamed" if streamed else "resident", **paths,
+                max_abs_err=err,
                 tol=ATTN_TOL[dn], grad_max_abs_err=gerr, grad_tol=GRAD_TOL[dn],
                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 library_max_abs_err=lib_err, backward_ms=bwd_ms,
@@ -476,30 +567,32 @@ def check_training_attention(device):
                 "max_abs_err": err, "ms": ms, "call_ms": call_ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": lib_ms,
-                "backward_ms": bwd_ms}
-    worst = max(r["max_abs_err"] for (name, _), r in results.items()
-                if not name.endswith("single"))
-    return results, worst
+                "backward_ms": bwd_ms, "streamed": streamed}
+    return results
 
 
 # ------------------------------------------------- the whole-A2C2f kernel
 
-def a2c2f_work(shape, c_, c2, n_stages, area, elt):
+def a2c2f_work(shape, c_, c2, n_stages, area, elt, hid=None):
     """(bytes, operations) of one A2C2f block: x read, out written, each
     weight read once; the GEMMs, the per-head score and p.v products (width
-    32 each, so 4 nb c_ a token) and the 49-tap stencil."""
+    32 each, so 4 nb c_ a token) and the 49-tap stencil. `hid`: the MLP's
+    width as the kernel is given it (default 2 c_)."""
     B, H, W, cin = shape
     tokens, nb = B * H * W, H * W // area
-    per_block = 2 * c_ * (3 * c_ + c_ + 2 * c_ + 2 * c_)
+    hid = 2 * c_ if hid is None else hid
+    per_block = 2 * c_ * (3 * c_ + c_ + hid + hid)
     gemm = 2 * cin * c_ + 2 * n_stages * per_block + 2 * (n_stages + 1) * c_ * c2
     flops = tokens * (gemm + 2 * n_stages * (4 * nb * c_ + 2 * 49 * c_))
     weights = (cin * c_ + 2 * n_stages * per_block // 2
                + (n_stages + 1) * c_ * c2)
-    small = 4 * (c_ + c2 + 2 * n_stages * (3 * c_ + 49 * c_ + c_ + c_ + 2 * c_ + c_))
+    small = 4 * (c_ + c2
+                 + 2 * n_stages * (3 * c_ + 49 * c_ + c_ + c_ + hid + c_))
     return elt * (tokens * (cin + c2) + weights) + small, flops
 
 
-def seeded_a2c2f(c1: int, c2: int, n: int, area: int, device, seed: int):
+def seeded_a2c2f(c1: int, c2: int, n: int, area: int, device, seed: int,
+                 mlp_ratio: float = 2.0, residual: bool = False):
     """A seeded A2C2f attention block in eval mode whose BatchNorms carry
     random statistics (so that folding them is not the identity) and a scale
     near 0.3, which keeps the block's activations of order 1."""
@@ -508,7 +601,8 @@ def seeded_a2c2f(c1: int, c2: int, n: int, area: int, device, seed: int):
     from yolou_tpu_torch.models.yolo import init_weights
     from yolou_tpu_torch.nn.attention import A2C2f
     gen = torch.Generator().manual_seed(seed)
-    m = init_weights(A2C2f(c1, c2, n, a2=True, area=area), gen)
+    m = init_weights(A2C2f(c1, c2, n, a2=True, area=area,
+                           mlp_ratio=mlp_ratio, residual=residual), gen)
     with torch.no_grad():
         for bn in (b for b in m.modules() if isinstance(b, nn.BatchNorm2d)):
             shape = bn.weight.shape
@@ -522,24 +616,32 @@ def seeded_a2c2f(c1: int, c2: int, n: int, area: int, device, seed: int):
 def check_a2c2f(device):
     """`a2c2f_fused` against its plain version at the two shapes the serving
     path gives it with `mega_kernel=True` (yolov12n layers 6 and 8 at 640^2,
-    batch 8) and at a small shape with four bands, f32 and bf16; times of
-    the kernel, of the plain version and of the staged `A2C2f.forward` on
-    the same weights (about 80 launches with the band attention kernel
-    inside: the route the kernel replaces, and the yardstick, since no one
-    PyTorch call computes the block)."""
+    batch 8), at a small shape with four bands, f32 and bf16, at the two
+    yolov12n shapes with mlp_ratio 1.2 (an MLP 154 / 307 wide, padded to
+    160 / 320 in bf16), and at yolov12l's layer 8 at 640^2 in f32 (4
+    stages; the smaller f32 token tile); times of the kernel, of the plain
+    version and of the staged `A2C2f.forward` on the same weights (about 80
+    launches with the band attention kernel inside: the route the kernel
+    replaces, and the yardstick, since no one PyTorch call computes the
+    block)."""
     import torch
-    from yolou_tpu_torch.kernels.a2c2f import a2c2f_fused, a2c2f_fused_plain
+    from yolou_tpu_torch.kernels.a2c2f import (a2c2f_fused,
+                                               a2c2f_fused_plain, f32_layout)
     f32_exact(torch)
-    cases = [("L6@640", (BATCH, 40, 40, 128), 128, 2, 4),
-             ("L8@640", (BATCH, 20, 20, 256), 256, 2, 1),
-             ("small", (2, 16, 16, 64), 64, 1, 4)]
+    cases = [("L6@640", (BATCH, 40, 40, 128), 128, 2, 4, 2.0, BOTH),
+             ("L8@640", (BATCH, 20, 20, 256), 256, 2, 1, 2.0, BOTH),
+             ("small", (2, 16, 16, 64), 64, 1, 4, 2.0, BOTH),
+             ("L6@640 mlp1.2", (BATCH, 40, 40, 128), 128, 2, 4, 1.2, BOTH),
+             ("L8@640 mlp1.2", (BATCH, 20, 20, 256), 256, 2, 1, 1.2, BOTH),
+             ("l L8@640", (BATCH, 20, 20, 512), 512, 4, 1, 2.0,
+              ("float32",))]
     rng = np.random.default_rng(SEED + 6)
     results = {}
-    for i, (name, shape, c2, n, area) in enumerate(cases):
-        module = seeded_a2c2f(shape[-1], c2, n, area, device, SEED + i)
+    for i, (name, shape, c2, n, area, mlp, dtypes) in enumerate(cases):
+        module = seeded_a2c2f(shape[-1], c2, n, area, device, SEED + i, mlp)
         heads, c_ = module.num_heads, c2 // 2
         x = rng.normal(size=shape).astype(np.float32)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (getattr(torch, d) for d in dtypes):
             dn = dtype_name(dtype)
             xt = torch.from_numpy(x).to(device, dtype)
             with torch.no_grad():
@@ -557,8 +659,11 @@ def check_a2c2f(device):
                     lambda: a2c2f_fused_plain(xt, ws, n, area, heads))
                 staged_ms, staged_call_ms = kernel_times(
                     lambda: module(x_nchw))
+            hid = ws[8].shape[1]
             nbytes, flops = a2c2f_work(shape, c_, c2, n, area,
-                                       xt.element_size())
+                                       xt.element_size(), hid)
+            tile = (f32_layout(shape[-1], c_, n, shape[1] * shape[2] // area,
+                               hid) if dtype == torch.float32 else None)
             bound_ms, bound_by = bound(nbytes, flops, dn)
             # bf16: ATTN_TOL's absolute bound says little of outputs under
             # 1, so the error is also held to 2**-6 of the largest output (a
@@ -571,6 +676,7 @@ def check_a2c2f(device):
             staged_tol = tol if dtype == torch.float32 else 2 * tol
             log("kernel", name="a2c2f", case=name,
                 shape=f"{shape}c_{c_}n{n}a{area}h{heads}", dtype=dn,
+                mlp_width=hid, f32_layout=tile,
                 max_abs_err=err, tol=tol, out_abs_max=out_max,
                 vs_staged_max_abs=staged_err, staged_tol=staged_tol, ms=ms,
                 plain_ms=plain_ms, staged_ms=staged_ms, bound_ms=bound_ms,
@@ -694,8 +800,10 @@ def make_images(rng, count: int, hw: int = IMGSZ) -> np.ndarray:
     return make_labelled(rng, count, hw)[0]
 
 
-def seeded_state_dict(arch: str = "yolov12"):
-    """`arch` n-seg (4 ch, nc=1) weights from SEED: seeded random convs;
+def seeded_state_dict(arch: str = "yolov12", scale: str = "n",
+                      device="cpu"):
+    """`arch` `scale`-seg (4 ch, nc=1) weights from SEED: seeded random convs
+    (drawn on the CPU, the same on every device);
     every BatchNorm calibrated by one f32 CPU pass over a seeded batch to
     output mean 0 and std BN_STD (its running statistics set to its batch's,
     its weight to BN_STD); then the warm-started head bias, so scores clear
@@ -703,15 +811,17 @@ def seeded_state_dict(arch: str = "yolov12"):
     init vanish within a few layers (empty masks); at std 1 the random
     network is chaotic (a 1e-6 input change moves boxes by pixels on the
     CPU), so no two devices could agree. At std 0.1 the same change moves
-    boxes by < 1e-3 px and every image still gets detections with masks."""
+    boxes by < 1e-3 px and every image still gets detections with masks.
+    The calibration pass runs on `device` (the card's in f32 without TF32
+    for the larger scales, whose CPU pass would cost the phase seconds)."""
     import torch
     from yolou_tpu_torch.models.yolo import build_yolo
     from yolou_tpu_torch.ops.letterbox import letterbox_batch
-    model = build_yolo(arch, "n", nc=1, ch=4, task="segment",
-                       device="cpu", seed=SEED)
+    model = build_yolo(arch, scale, nc=1, ch=4, task="segment",
+                       device=device, seed=SEED)
     calib = make_images(np.random.default_rng(SEED + 2), 2)
     x = letterbox_batch(torch.from_numpy(calib), (IMGSZ, IMGSZ))
-    return calibrated(model, x.permute(0, 3, 1, 2))
+    return calibrated(model, x.permute(0, 3, 1, 2).to(device))
 
 
 def calibrated(model, x):
@@ -735,23 +845,23 @@ def calibrated(model, x):
 
 
 def build_model(state_dict, device, dtype, mega_kernel=False,
-                arch="yolov12"):
+                arch="yolov12", scale="n"):
     from yolou_tpu_torch.models.yolo import build_yolo
-    model = build_yolo(arch, "n", nc=1, ch=4, task="segment",
+    model = build_yolo(arch, scale, nc=1, ch=4, task="segment",
                        dtype=dtype, device=device, mega_kernel=mega_kernel)
     model.load_state_dict(state_dict, strict=True)
     return model
 
 
 def serve(state_dict, device, dtype, requests, mega_kernel=False,
-          arch="yolov12"):
+          arch="yolov12", scale="n", imgsz=IMGSZ):
     """Drive the Predictor over `requests` (list of uint8 stacks); returns
     per-request detections and times."""
     import torch
     from yolou_tpu_torch.engine.predictor import Predictor
     predictor = Predictor(build_model(state_dict, device, dtype, mega_kernel,
-                                      arch),
-                          imgsz=IMGSZ, batch_size=BATCH)
+                                      arch, scale),
+                          imgsz=imgsz, batch_size=BATCH)
     stats = []
     for r, imgs in enumerate(requests):
         t0 = time.perf_counter()
@@ -793,7 +903,8 @@ def kept_anchors(preds, dets):
     return out
 
 
-def compare_f32(state_dict, device, imgs, arch="yolov12", phase="serve"):
+def compare_f32(state_dict, device, imgs, arch="yolov12", phase="serve",
+                scale="n"):
     """Same weights and images in f32 on the card (no TF32) and on the CPU
     (plain kernel versions): preds, raw maps, mask coefficients and protos
     within 1e-3, and the kept anchors equal except where a candidate's score
@@ -807,7 +918,7 @@ def compare_f32(state_dict, device, imgs, arch="yolov12", phase="serve"):
     outs = {}
     for dev in (device, "cpu"):
         p = Predictor(build_model(state_dict, dev, torch.float32,
-                                  arch=arch), imgsz=IMGSZ)
+                                  arch=arch, scale=scale), imgsz=IMGSZ)
         dets, out = p.infer(torch.from_numpy(imgs).to(dev))
         maps = [*out.raw, out.mask_coefs, out.protos]
         outs[dev] = (out.preds.cpu(), [t.cpu() for t in dets],
@@ -836,7 +947,8 @@ def compare_f32(state_dict, device, imgs, arch="yolov12", phase="serve"):
     same_in = non_max_suppression(pc.to(device), nc=1)
     ident = all(torch.equal(a.cpu(), b_) for a, b_ in
                 zip(same_in, non_max_suppression(pc, nc=1)))
-    log(phase, check="f32 card vs cpu", arch=arch, images=len(imgs),
+    log(phase, check="f32 card vs cpu", arch=arch, scale=scale,
+        images=len(imgs),
         preds_max_abs=err, raw_coefs_protos_max_abs=maps_err,
         tol=1e-3, kept_agree=agree, differ_clear=clear_bad,
         differ_near_tie=tied_bad, nms_same_input_identical=ident)
@@ -1489,7 +1601,7 @@ class _Data:
 
 
 def make_trainer(state_dict, device, dtype, batch, aug=None,
-                 arch="yolov12", mesh=None):
+                 arch="yolov12", mesh=None, imgsz=IMGSZ):
     """A DetectorTrainer over seeded `arch` n-seg weights; `device` None is
     the trainer's default, the card (the mesh's device under `mesh`)."""
     from yolou_tpu_torch.data.augment import AugHyp
@@ -1499,7 +1611,7 @@ def make_trainer(state_dict, device, dtype, batch, aug=None,
     model = build_yolo(arch, "n", nc=1, ch=4, task="segment",
                        dtype=dtype, device=device)
     model.load_state_dict(state_dict, strict=True)
-    cfg = DetectorTrainConfig(imgsz=IMGSZ, batch_size=batch, epochs=10,
+    cfg = DetectorTrainConfig(imgsz=imgsz, batch_size=batch, epochs=10,
                               warmup_epochs=3.0)
     tr = DetectorTrainer(model, _Data(), cfg, aug=aug or AugHyp(),
                          device=device, mesh=mesh)
@@ -1642,30 +1754,210 @@ def train_breakdown(tr, batch, gen, kernel_times, iters: int = 5):
             "peak_memory_mb": torch.cuda.max_memory_allocated() / 2 ** 20}
 
 
-def compare_train_f32(state_dict, device):
-    """One f32 step, batch 2, augmentation off, same weights and batch, on
-    the card (the kernel, no TF32) and on the CPU (the plain version): loss
-    and global gradient norm (before clipping) within 1e-3 relative."""
+def compare_train_f32(state_dict, device, imgsz=IMGSZ, phase="train"):
+    """One f32 step at `imgsz`, batch 2, augmentation off, same weights and
+    batch, on the card (the kernel, no TF32) and on the CPU (the plain
+    version): loss and global gradient norm (before clipping) within 1e-3
+    relative. Returns the card's step's launches and kernel C's backward
+    calls (the CPU's step counts backward calls too)."""
     import torch
+    from yolou_tpu_torch import kernels
     from yolou_tpu_torch.data.augment import AugHyp
     f32_exact(torch)
     off = AugHyp(mosaic=0.0, translate=0.0, scale=0.0, fliplr=0.0, hsv_h=0.0,
                  hsv_s=0.0, hsv_v=0.0, noise_p=0.0, blur_p=0.0, bias_p=0.0)
-    batch = make_labelled(np.random.default_rng(SEED + 5), 2)
+    batch = make_labelled(np.random.default_rng(SEED + 5), 2, imgsz)
     got = {}
     for dev in (device, "cpu"):
-        tr = make_trainer(state_dict, dev, torch.float32, 2, aug=off)
+        tr = make_trainer(state_dict, dev, torch.float32, 2, aug=off,
+                          imgsz=imgsz)
         gen = torch.Generator(device=tr.device).manual_seed(SEED)
+        kernels.reset_launch_counts()
         loss, _ = tr.step(batch, gen, use_mosaic=False)
         got[str(dev)] = (loss.item(), tr.grad_norm.item())
+        if dev is device:
+            card = dict(kernels.launch_counts(), backward=kernels.
+                        backward_counts()["band_attention_train"])
     (lg, ng), (lc, nc_) = got[str(device)], got["cpu"]
     rel_loss, rel_norm = abs(lg - lc) / abs(lc), abs(ng - nc_) / abs(nc_)
-    log("train", check="f32 card vs cpu", batch=2, loss_card=lg, loss_cpu=lc,
+    log(phase, check="f32 card vs cpu", batch=2, imgsz=imgsz,
+        loss_card=lg, loss_cpu=lc,
         loss_rel=rel_loss, grad_norm_card=ng, grad_norm_cpu=nc_,
         grad_norm_rel=rel_norm, tol=1e-3)
     if not (rel_loss <= 1e-3 and rel_norm <= 1e-3):
         raise AssertionError(f"f32 training step card vs cpu: loss "
                              f"{rel_loss}, gradient norm {rel_norm} > 1e-3")
+    return card
+
+
+# ------------------------------------------------- shapes past yolov12n@640
+
+@contextlib.contextmanager
+def plain_attention():
+    """The attention modules of `nn/attention.py` on the kernels' plain
+    versions, on any device, while the block runs: the reference a module
+    is held against on the card."""
+    from yolou_tpu_torch.kernels import attention as ka
+    from yolou_tpu_torch.nn import attention as na
+    saved = na.area_attention_qkv_fused, na.area_attention_fused
+    na.area_attention_qkv_fused = ka.area_attention_qkv_fused_plain
+    na.area_attention_fused = ka.area_attention_fused_plain
+    try:
+        yield
+    finally:
+        na.area_attention_qkv_fused, na.area_attention_fused = saved
+
+
+def residual_block_check(device) -> dict:
+    """A residual A2C2f (128 -> 128, n 2, area 4, mlp_ratio 1.2; gamma
+    seeded near 0.5) at (8, 128, 40, 40): bf16 eval (4 kernel A launches)
+    and f32 train forward and backward (4 kernel C launches, 4 backward
+    calls), each against the same module on the plain versions: bf16 within
+    twice `check_a2c2f`'s staged bound, f32 outputs and input and gamma
+    gradients within 1e-4 of their largest magnitude."""
+    import copy
+    import torch
+    from yolou_tpu_torch import kernels
+    block = seeded_a2c2f(128, 128, 2, 4, device, SEED + 50, 1.2,
+                         residual=True)
+    gen = torch.Generator().manual_seed(SEED + 51)
+    with torch.no_grad():
+        block.gamma.copy_(0.5 + 0.1 * torch.randn(128, generator=gen))
+    rng = np.random.default_rng(SEED + 52)
+    x = torch.from_numpy(rng.normal(size=(BATCH, 128, 40, 40)).astype(
+        np.float32)).to(device)
+    w = torch.from_numpy(rng.normal(size=(BATCH, 128, 40, 40)).astype(
+        np.float32)).to(device)
+    out = {}
+    bf = copy.deepcopy(block)       # f32 parameters, bf16 compute (the port's)
+    xb = x.to(torch.bfloat16)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        got = bf(xb)
+        out["eval"] = counts = dict(kernels.launch_counts())
+        with plain_attention():
+            want = bf(xb)
+    check_launches("residual A2C2f bf16 eval", counts, 4, 0)
+    err = (got.float() - want.float()).abs().max().item()
+    top = want.float().abs().max().item()
+    tol = 2 * min(ATTN_TOL["bfloat16"], 2.0 ** -6 * top)
+
+    def train_pass(module):
+        xt = x.clone().requires_grad_()
+        y = module.train()(xt)
+        (y * w).sum().backward()
+        return y.detach(), xt.grad, module.gamma.grad
+
+    kernels.reset_launch_counts()
+    got_t = train_pass(copy.deepcopy(block))
+    out["train"] = tcounts = dict(
+        kernels.launch_counts(),
+        backward=kernels.backward_counts()["band_attention_train"])
+    with plain_attention():
+        want_t = train_pass(copy.deepcopy(block))
+    check_launches("residual A2C2f f32 train", tcounts, 0, 0,
+                   band_attention_train=4, backward=4)
+    errs = [((a - b).abs().max() / b.abs().max()).item()
+            for a, b in zip(got_t, want_t)]
+    log("shapes", check="residual A2C2f", shape=tuple(x.shape),
+        bf16_eval_max_abs=err, bf16_tol=tol, bf16_out_abs_max=top,
+        f32_train_rel=dict(zip(("out", "dx", "dgamma"), errs)),
+        f32_tol_rel=1e-4, launches=out)
+    if not (torch.isfinite(got).all() and err <= tol and max(errs) <= 1e-4):
+        raise AssertionError(f"residual A2C2f: bf16 {err} (tol {tol}), f32 "
+                             f"train {errs} (tol 1e-4 relative)")
+    return out
+
+
+def raw_forward_finite(state_dict, device, imgs, scale, imgsz) -> None:
+    """The bf16 forward of `imgs` (letterbox to `imgsz`, no NMS) through
+    `Predictor.infer`: raw maps, mask coefficients and protos finite."""
+    import torch
+    from yolou_tpu_torch.engine.predictor import Predictor
+    p = Predictor(build_model(state_dict, device, torch.bfloat16,
+                              scale=scale), imgsz=imgsz)
+    with torch.no_grad():
+        _, out = p.infer(torch.from_numpy(imgs).to(device))
+    maps = [out.preds, *out.raw, out.mask_coefs, out.protos]
+    finite = all(bool(torch.isfinite(t).all()) for t in maps)
+    log("shapes", check=f"bf16 {imgsz}^2 raw forward finite", finite=finite,
+        shapes=[tuple(t.shape) for t in maps])
+    if not finite:
+        raise AssertionError(f"bf16 forward at {imgsz}^2: non-finite output")
+
+
+def shapes_phase(device, state_dict) -> dict:
+    """The shapes past yolov12n at 640^2 and the MLP width, through the
+    entry points: (a) a Predictor with seeded, calibrated yolov12s-seg
+    weights serving 2 requests of 8 at 640^2 in f32 (8 kernel A launches a
+    forward, on the streamed path, as every f32 band; a detection on every
+    image), then f32 card vs CPU as `compare_f32`; (b) the same weights
+    serving a request of 8 at 1280^2 in bf16 (both layers' bands of 1600
+    tokens past the resident path; a detection on every image, and its raw
+    forward on those images finite); (c) one f32 DetectorTrainer step of
+    yolov12n (`state_dict`) at 1024^2, batch 2, card vs CPU as the train
+    phase (kernel C streamed, 8 launches and 8 backward calls); (d) yolov12l at 640^2, f32, batch 2,
+    with mega_kernel: one a2c2f launch a forward (layer 8 on the f32 token
+    tile of 8; layer 6's 16 ABlocks through kernel A), within 1e-3 of the
+    flag off; (e) `residual_block_check`. Returns each part's launches, and
+    under "device kernels" kernel A's device kernels in (a) and (b)."""
+    import torch
+    from yolou_tpu_torch import kernels
+    from yolou_tpu_torch.ops.letterbox import letterbox_batch
+    f32_exact(torch)
+    rng = np.random.default_rng(SEED + 40)
+    out = {}
+    sd_s = seeded_state_dict(scale="s", device=device)
+    requests = [make_images(rng, BATCH) for _ in range(2)]
+    devices = out["device kernels"] = {}
+    kernels.reset_launch_counts()
+    stats = serve(sd_s, device, torch.float32, requests, scale="s")
+    out["yolov12s f32 640"] = counts = dict(kernels.launch_counts())
+    devices["yolov12s f32 640"] = kernels.device_counts()["band_attention"]
+    for st in stats:
+        log("shapes", serve="yolov12s f32 640^2", **st)
+    check_launches("yolov12s f32 640^2", counts, 8 * len(requests),
+                   len(requests))
+    if min(min(st["detections"]) for st in stats) < 1:
+        raise AssertionError("yolov12s f32: an image got no detection")
+    compare_f32(sd_s, device, requests[0][:2], phase="shapes", scale="s")
+
+    big = [make_images(rng, BATCH, 1280)]
+    kernels.reset_launch_counts()
+    stats = serve(sd_s, device, torch.bfloat16, big, scale="s", imgsz=1280)
+    out["yolov12s bf16 1280"] = counts = dict(kernels.launch_counts())
+    devices["yolov12s bf16 1280"] = kernels.device_counts()["band_attention"]
+    log("shapes", serve="yolov12s bf16 1280^2", **stats[0],
+        band_attention_device_kernels=devices)
+    check_launches("yolov12s bf16 1280^2", counts, 8, 1)
+    if min(stats[0]["detections"]) < 1:
+        raise AssertionError("yolov12s bf16 1280^2: an image got no "
+                             "detection")
+    raw_forward_finite(sd_s, device, big[0], "s", 1280)
+
+    out["yolov12n train f32 1024"] = counts = compare_train_f32(
+        state_dict, device, imgsz=1024, phase="shapes")
+    check_launches("yolov12n f32 step at 1024^2", counts, 0, 0,
+                   band_attention_train=8, backward=8)
+
+    sd_l = seeded_state_dict(scale="l", device=device)
+    imgs = torch.from_numpy(make_images(rng, 2)).to(device)
+    x = letterbox_batch(imgs, (IMGSZ, IMGSZ)).permute(0, 3, 1, 2).contiguous()
+    with torch.no_grad():
+        mega = build_model(sd_l, device, torch.float32, True, scale="l")
+        kernels.reset_launch_counts()
+        got = mega(x).preds
+        out["yolov12l mega f32 640"] = counts = dict(kernels.launch_counts())
+        want = build_model(sd_l, device, torch.float32, False,
+                           scale="l")(x).preds
+    err = (got - want).abs().max().item()
+    log("shapes", check="yolov12l f32 mega vs staged", images=2,
+        preds_max_abs=err, tol=1e-3, launches=counts)
+    check_launches("yolov12l mega f32", counts, 8, 0, a2c2f=1)
+    if not err <= 1e-3:
+        raise AssertionError(f"yolov12l f32 mega vs staged: {err} > 1e-3")
+    out["residual"] = residual_block_check(device)
+    return out
 
 
 # ------------------------------------------------------- detector fine-tune
@@ -2498,10 +2790,12 @@ def forward_launches(counts: dict) -> dict:
     return {k: v for k, v in counts.items() if k != "backward"}
 
 
-def check_launches(what: str, counts: dict, a: int, b: int) -> None:
-    """Exactly `a` launches of kernel A and `b` of kernel B, none other."""
+def check_launches(what: str, counts: dict, a: int, b: int, **more) -> None:
+    """Exactly `a` launches of kernel A and `b` of kernel B, the counts
+    `more` names of the others (and of anything else `counts` holds, such
+    as backward calls), none other."""
     want = {"band_attention": a, "greedy_nms": b, "band_attention_train": 0,
-            "band_attention_single": 0, "a2c2f": 0}
+            "band_attention_single": 0, "a2c2f": 0, **more}
     if counts != want:
         raise AssertionError(f"{what}: launches {counts}, want {want}")
 
@@ -3631,17 +3925,16 @@ def demo_phase(device, root: str) -> dict:
 
 def _kernel_name(line: str):
     """The band attention or a2c2f kernel a ptxas or SASS line names, with
-    its I/O type (and token tile), else None: `..._kernelIf...` is the f32
-    instantiation, a `_mma_` kernel bf16."""
+    its I/O type and template arguments (token tile, key step, flags), else
+    None: a `_mma_` kernel is bf16, the others f32."""
     import re
-    m = re.search(r"((?:band_attention_(?:qkv_)?|a2c2f_)(?:mma_)?kernel)"
-                  r"(If|ILi(\d+)E)?", line)
+    m = re.search(r"((?:band_attention_(?:qkv_|stream_)?|a2c2f_|"
+                  r"kv_projection_)(?:mma_)?kernel)(I\S*?EE)?", line)
     if not m:
         return None
-    if m.group(2) == "If":
-        return m.group(1) + "<float>"
-    return m.group(1) + (f"<bf16,tile={m.group(3)}>" if m.group(3)
-                         else "<bf16>")
+    name, targs = m.group(1), m.group(2) or ""
+    kind = "bf16" if "mma_" in name else "float"
+    return f"{name}<{','.join([kind, *re.findall(r'L[ib](\d+)E', targs)])}>"
 
 
 def band_attention_build_report(ptxas_log: str, library) -> list:
@@ -3725,8 +4018,8 @@ def main() -> int:
             raise AssertionError(f"{entry['kernel']}: {entry['hmma']} HMMA")
     mark("build")
 
-    attn = check_attention(device)
-    train_attn, train_attn_err = check_training_attention(device)
+    attn_cases = check_attention(device)
+    train_attn = check_training_attention(device)
     nms = check_nms(device)
     a2c2f = check_a2c2f(device)
     mark("kernels")
@@ -3737,10 +4030,12 @@ def main() -> int:
     kernels.reset_launch_counts()
     stats = serve(state_dict, device, torch.bfloat16, requests)
     counts = kernels.launch_counts()
+    serve_devices = kernels.device_counts()["band_attention"]
     for s in stats:
         log("serve", **s)
     forwards = len(requests)
-    log("serve", launches=counts, forwards=forwards)
+    log("serve", launches=counts, forwards=forwards,
+        band_attention_device_kernels=serve_devices)
     if counts["band_attention"] != 8 * forwards:
         raise AssertionError(f"band attention launched "
                              f"{counts['band_attention']} times, want "
@@ -3798,6 +4093,8 @@ def main() -> int:
         raise AssertionError("an image got no detection with mega_kernel")
     compare_mega(state_dict, device, requests)
     mark("serve-mega")
+    shapes = shapes_phase(device, state_dict)
+    mark("shapes")
 
     eval_counts = evaluate(state_dict, device)
     mark("evaluate")
@@ -3835,16 +4132,42 @@ def main() -> int:
 
     src = "yolou_tpu_torch/csrc/"
     pallas = "yolou_tpu/ops/pallas_attn.py"
-    l6 = train_attn[("L6@640", "bfloat16")]
     # the single-head entry at the shape its launches were counted at
     single = train_attn[("profile-single", "bfloat16")]
     keys = ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
+    # each attention row's numbers at one case (its path named), its error
+    # the worst of its cases in each type: kernel A's and C's rows over
+    # every case, the streamed rows over the cases on the streamed path
+    attn_cases = {(name, dtype_name(dt)): r
+                  for (name, dt), r in attn_cases.items()}
+    multi_head = {k: r for k, r in train_attn.items()
+                  if not k[0].endswith("single")}
+
+    def attention_row(cases, at, streamed_only=False):
+        errs = {dn: [r["max_abs_err"] for (_, d), r in cases.items()
+                     if d == dn and (r["streamed"] or not streamed_only)]
+                for dn in BOTH}
+        row = cases[at]
+        return {**{k: row[k] for k in keys},
+                "max_abs_err": max(sum(errs.values(), [])),
+                **{f"max_abs_err_{SHORT[dn]}": max(e) if e else None
+                   for dn, e in errs.items()},
+                "at": f"{at[0]} {at[1]}",
+                "path": "streamed" if row["streamed"] else "resident",
+                "ms_source": times_source(row)}
+
+    stream_a = attention_row(attn_cases, ("L6@1280", "bfloat16"), True)
+    stream_c = attention_row(multi_head, ("L6@1024", "float32"), True)
+    shapes_devices = shapes.pop("device kernels")
     print(json.dumps({"kernels": [
         {"name": "band_attention", "route": "cuda",
          "source": src + "band_attention.cu", "replaces": pallas + ":357",
-         "launches": counts["band_attention"], **{k: attn[k] for k in keys},
-         "attention_library_ms": attn["attention_library_ms"],
+         "launches": counts["band_attention"],
+         "device_launches": serve_devices,
+         **attention_row(attn_cases, ("L6@640", "bfloat16")),
+         "attention_library_ms":
+             attn_cases[("L6@640", "bfloat16")]["attention_library_ms"],
          "launches_by_path": {
              "serve": counts["band_attention"],
              "evaluate": eval_counts["band_attention"],
@@ -3854,12 +4177,27 @@ def main() -> int:
                 if isinstance(v, dict)},
              **{k: v["band_attention"] for k, v in later.items()},
              "parallel evaluate (each rank)": parallel["evaluate"],
-             **{f"demo {k}": v["band_attention"] for k, v in demo.items()}},
+             **{f"demo {k}": v["band_attention"] for k, v in demo.items()},
+             **{f"shapes {k}": v["band_attention"] for k, v in
+                shapes.items() if k != "residual"},
+             "shapes residual A2C2f bf16":
+                 shapes["residual"]["eval"]["band_attention"]},
+         "device_launches_by_path": {"serve": serve_devices,
+                                     **{f"shapes {k}": v for k, v in
+                                        shapes_devices.items()}},
          "backward_calls": dec["attention_backward_calls"]},
+        {"name": "band_attention_streamed", "route": "cuda",
+         "source": src + "band_attention.cu", "replaces": pallas + ":357",
+         "launches": shapes["yolov12s bf16 1280"]["band_attention"],
+         "device_launches": shapes_devices["yolov12s bf16 1280"],
+         **stream_a,
+         "attention_library_ms":
+             attn_cases[("L6@1280", "bfloat16")]["attention_library_ms"]},
         {"name": "greedy_nms", "route": "cuda",
          "source": src + "greedy_nms.cu",
          "replaces": "yolou_tpu/ops/pallas_nms.py:97",
          "launches": counts["greedy_nms"], **{k: nms[k] for k in keys},
+         "ms_source": times_source(nms),
          "launches_by_path": {
              "serve": counts["greedy_nms"],
              "evaluate": eval_counts["greedy_nms"],
@@ -3890,15 +4228,27 @@ def main() -> int:
                                         parallel["backward"],
                                     "model_axis step (each rank)":
                                         axis["backward"]},
-         **dict({k: l6[k] for k in keys}, max_abs_err=train_attn_err)},
+         **attention_row(multi_head, ("L6@640", "bfloat16"))},
+        {"name": "band_attention_train_streamed", "route": "cuda",
+         "source": src + "band_attention.cu", "replaces": pallas + ":243",
+         "launches": shapes["yolov12n train f32 1024"]["band_attention_train"],
+         "backward_calls": shapes["yolov12n train f32 1024"]["backward"],
+         "launches_by_path": {
+             "shapes residual A2C2f f32 train":
+                 shapes["residual"]["train"]["band_attention_train"]},
+         **stream_c},
         {"name": "band_attention_single", "route": "cuda",
          "source": src + "band_attention.cu", "replaces": pallas + ":120",
          "launches": profile_counts["band_attention_single"],
-         **{k: single[k] for k in keys}},
+         **{k: single[k] for k in keys}, "ms_source": times_source(single)},
         {"name": "a2c2f", "route": "cuda", "source": src + "a2c2f.cu",
          "replaces": "yolou_tpu/ops/pallas_a2c2f.py:192",
          "launches": mega_counts["a2c2f"],
-         "staged_ms": a2c2f["staged_ms"], **{k: a2c2f[k] for k in keys}},
+         "launches_by_path": {
+             "serve-mega": mega_counts["a2c2f"],
+             "shapes yolov12l f32": shapes["yolov12l mega f32 640"]["a2c2f"]},
+         "staged_ms": a2c2f["staged_ms"], **{k: a2c2f[k] for k in keys},
+         "ms_source": times_source(a2c2f)},
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,9 @@
 """PyTorch port: the CUDA kernels against their plain versions on the card,
 at shapes off the serving path (ragged bands, token tiles and candidate
 counts, one to many heads, more tiles than one co-resident wave, side
-streams), and the wrappers' refusals.
+streams, both paths of the band attention kernels, the whole-A2C2f kernel
+at other MLP widths and its smaller f32 token tiles), and the wrappers'
+refusals.
 
 Marked `cuda`; without a CUDA device each test skips. The file imports
 neither JAX nor the JAX package, so it runs where JAX is absent:
@@ -19,9 +21,10 @@ import torch
 from yolou_tpu_torch import kernels
 from yolou_tpu_torch.kernels.a2c2f import a2c2f_fused, a2c2f_fused_plain
 from yolou_tpu_torch.kernels.attention import (
-    area_attention, area_attention_fused, area_attention_fused_plain,
-    area_attention_plain, area_attention_qkv_fused,
-    area_attention_qkv_fused_plain, max_tokens)
+    _launch_band_attention, _launch_qkv_attention, area_attention,
+    area_attention_fused, area_attention_fused_plain, area_attention_plain,
+    area_attention_qkv_fused, area_attention_qkv_fused_plain, attention_plan,
+    max_tokens)
 from yolou_tpu_torch.kernels.nms import suppress_greedy, suppress_greedy_plain
 
 pytestmark = pytest.mark.cuda
@@ -52,17 +55,20 @@ def _attn_inputs(g, n, c, dtype, device, seed):
 
 # N around the 16-row query tiles and key steps of the tensor-core path
 # (and the 32-key tiles of the SIMT path), the 160^2 and 640^2 band lengths,
-# and "max", the largest N the wrapper takes at the case's width and type;
-# one to four heads, up to 64 bands
+# "max", the longest band the bf16 resident path takes at the case's width,
+# and "over", one token more (the streamed path); one to four heads, up to
+# 64 bands
 TILE_CASES = [(64 if n in (1, 15, 16, 17, 25, 33) else 4 if n in (399, 400)
                else 2, n, heads)
-              for n in (1, 15, 16, 17, 25, 33, 399, 400, "max")
+              for n in (1, 15, 16, 17, 25, 33, 399, 400, "max", "over")
               for heads in (1, 2, 4)]
 
 
 def _band(n, heads, dtype, projection):
     c = 32 * heads
-    return (max_tokens(c, dtype, projection) if n == "max" else n), c
+    if n in ("max", "over"):
+        return max_tokens(c, projection) + (n == "over"), c
+    return n, c
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
@@ -101,16 +107,26 @@ def test_band_attention_on_a_side_stream(cuda):
 
 
 def test_band_attention_refuses_what_it_cannot_run(cuda):
+    """head_dim, alignment and device are refused, and the resident path in
+    f32, which has none; a band past the bf16 resident path (one token past
+    its cluster's 1024) is not, nor N = 1000 in f32: they run the streamed
+    path (two device kernels, one count) and agree with the plain
+    version."""
     x, w, b = _attn_inputs(2, 16, 96, torch.float32, cuda, seed=2)
     with pytest.raises(ValueError, match="head_dim"):
         area_attention_qkv_fused(x, w, b, 2)          # head_dim 48
-    x, w, b = _attn_inputs(1, 1000, 128, torch.float32, cuda, seed=3)
-    with pytest.raises(ValueError, match="shared memory"):
-        area_attention_qkv_fused(x, w, b, 4)
-    n = max_tokens(128, torch.bfloat16) + 1
-    x, w, b = _attn_inputs(1, n, 128, torch.bfloat16, cuda, seed=3)
-    with pytest.raises(ValueError, match="shared memory"):
-        area_attention_qkv_fused(x, w, b, 4)
+    for dtype, n, tol in ((torch.float32, 1000, 1e-4),
+                          (torch.bfloat16, max_tokens(128, torch.bfloat16) + 1,
+                           2e-2)):
+        assert attention_plan(1, n, 128, dtype).streamed
+        x, w, b = _attn_inputs(1, n, 128, dtype, cuda, seed=3)
+        kernels.reset_launch_counts()
+        o, v = area_attention_qkv_fused(x, w, b, 4)
+        assert kernels.launch_counts()["band_attention"] == 1
+        assert kernels.device_counts()["band_attention"] == 2
+        o_ref, v_ref = area_attention_qkv_fused_plain(x, w, b, 4)
+        assert (o.float() - o_ref.float()).abs().max().item() <= tol
+        assert (v.float() - v_ref.float()).abs().max().item() <= tol
     x, w, b = _attn_inputs(1, 17, 64, torch.bfloat16, cuda, seed=3)
     shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)[1:]
     with pytest.raises(ValueError, match="16-byte aligned"):
@@ -118,6 +134,8 @@ def test_band_attention_refuses_what_it_cannot_run(cuda):
     x, w, b = _attn_inputs(2, 16, 64, torch.float32, cuda, seed=4)
     with pytest.raises(ValueError, match="one device"):
         area_attention_qkv_fused(x, w.cpu(), b, 2)
+    with pytest.raises(ValueError, match="no resident path"):
+        _launch_qkv_attention(x, w, b, 2, streamed=False)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
@@ -216,16 +234,24 @@ def test_single_head_attention_matches_plain(cuda):
 
 
 def test_training_attention_refuses_what_it_cannot_run(cuda):
+    """head_dim, device, contiguity and type are refused, and the resident
+    path in f32; a band past the bf16 resident path (one token past its
+    1808) runs the streamed path and agrees with the plain version, as N =
+    1000 in f32 does."""
     q, k, v = _qkv_inputs(2, 16, 96, torch.float32, cuda, seed=2)
     with pytest.raises(ValueError, match="head_dim"):
         area_attention_fused(q, k, v, 2)              # head_dim 48
-    q, k, v = _qkv_inputs(1, 1000, 32, torch.float32, cuda, seed=3)
-    with pytest.raises(ValueError, match="shared memory"):
-        area_attention_fused(q, k, v, 1)
-    n = max_tokens(32, torch.bfloat16, projection=False) + 1
-    q, k, v = _qkv_inputs(1, n, 32, torch.bfloat16, cuda, seed=3)
-    with pytest.raises(ValueError, match="shared memory"):
-        area_attention_fused(q, k, v, 1)
+    for dtype, n, tol in (
+            (torch.float32, 1000, 1e-4),
+            (torch.bfloat16,
+             max_tokens(32, projection=False) + 1, 2e-2)):
+        assert attention_plan(1, n, 32, dtype, projection=False).streamed
+        q, k, v = _qkv_inputs(1, n, 32, dtype, cuda, seed=3)
+        kernels.reset_launch_counts()
+        o = area_attention_fused(q, k, v, 1)
+        assert kernels.launch_counts()["band_attention_train"] == 1
+        ref = area_attention_fused_plain(q, k, v, 1)
+        assert (o.float() - ref.float()).abs().max().item() <= tol
     q, k, v = _qkv_inputs(2, 16, 64, torch.float32, cuda, seed=4)
     with pytest.raises(ValueError, match="one device"):
         area_attention_fused(q, k.cpu(), v, 2)
@@ -234,6 +260,40 @@ def test_training_attention_refuses_what_it_cannot_run(cuda):
                              k, v, 2)
     with pytest.raises(TypeError, match="dtype"):
         area_attention_fused(q.half(), k.half(), v.half(), 2)
+    with pytest.raises(ValueError, match="no resident path"):
+        _launch_band_attention(q, k, v, 2, streamed=False)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("g,n,heads", [(3, 1, 1), (2, 15, 2), (2, 33, 4),
+                                       (2, 127, 1), (2, 128, 2), (2, 129, 3),
+                                       (4, 400, 2), (1, 1025, 4),
+                                       (70, 64, 1)])
+def test_streamed_path_matches_plain_at_any_band(cuda, g, n, heads, dtype,
+                                                 tol):
+    """The streamed path of kernels A and C forced at bands the bf16
+    resident path also takes: around its key tiles (64 keys in f32, 128 in
+    bf16) and query blocks (16 rows in f32, 128 in bf16), one to four heads,
+    many bands; the plain version's tolerances. In bf16 kernel A's v (its
+    first launch's output) equals the resident path's bit for bit: the same
+    products in the same order."""
+    c = 32 * heads
+    x, w, b = _attn_inputs(g, n, c, dtype, cuda, seed=n + heads)
+    o, v = _launch_qkv_attention(x, w, b, heads, streamed=True)
+    torch.cuda.synchronize()
+    o_ref, v_ref = area_attention_qkv_fused_plain(x, w, b, heads)
+    assert (o.float() - o_ref.float()).abs().max().item() <= tol
+    assert (v.float() - v_ref.float()).abs().max().item() <= tol
+    if dtype == torch.bfloat16 and n <= max_tokens(c):
+        assert torch.equal(v, _launch_qkv_attention(x, w, b, heads,
+                                                    streamed=False)[1])
+    q, k, v = _qkv_inputs(g, n, c, dtype, cuda, seed=n + 2 * heads)
+    o = _launch_band_attention(q, k, v, heads, streamed=True)
+    torch.cuda.synchronize()
+    ref = area_attention_fused_plain(q, k, v, heads)
+    assert bool(torch.isfinite(o).all())
+    assert (o.float() - ref.float()).abs().max().item() <= tol
 
 
 def _nms_inputs(bsz, k, case, device, seed):
@@ -334,10 +394,12 @@ def test_greedy_nms_refuses_what_it_cannot_run(cuda):
 
 # ------------------------------------------------- the whole-A2C2f kernel
 
-def _a2c2f_inputs(shape, c_, c2, n_stages, dtype, device, seed):
+def _a2c2f_inputs(shape, c_, c2, n_stages, dtype, device, seed, hid=None):
     """x ~ N(0, 1) and weights ~ N(0, 0.5 / sqrt(fan_in)): activations and
-    outputs stay of order 1, so the absolute tolerances mean something."""
+    outputs stay of order 1, so the absolute tolerances mean something.
+    `hid`: the MLP's width (default 2 c_)."""
     rng = np.random.default_rng(seed)
+    hid = 2 * c_ if hid is None else hid
 
     def mk(*s, gemm=False):
         std = 0.5 / np.sqrt(s[0]) if gemm else 0.1
@@ -348,8 +410,8 @@ def _a2c2f_inputs(shape, c_, c2, n_stages, dtype, device, seed):
     ws = [mk(shape[-1], c_, gemm=True), mk(c_)]
     for _ in range(2 * n_stages):
         ws += [mk(c_, 3 * c_, gemm=True), mk(3 * c_), mk(7, 7, c_), mk(c_),
-               mk(c_, c_, gemm=True), mk(c_), mk(c_, 2 * c_, gemm=True),
-               mk(2 * c_), mk(2 * c_, c_, gemm=True), mk(c_)]
+               mk(c_, c_, gemm=True), mk(c_), mk(c_, hid, gemm=True),
+               mk(hid), mk(hid, c_, gemm=True), mk(c_)]
     ws += [mk((n_stages + 1) * c_, c2, gemm=True), mk(c2)]
     x = torch.tensor(rng.normal(size=shape), dtype=dtype, device=device)
     return x, ws
@@ -393,6 +455,100 @@ def test_a2c2f_matches_plain(cuda, shape, c2, n_stages, area, heads, dtype,
     assert ref.float().abs().max().item() > 0.05          # a live block
 
 
+def _pad_mlp(ws, n_stages, to):
+    """The weight list with every MLP widened to `to` by zero columns of
+    mlp1's weight and bias and zero rows of mlp2's, as the bf16 fold does."""
+    ws = list(ws)
+    for a in range(2 * n_stages):
+        i = 2 + 10 * a
+        hid = ws[i + 6].shape[1]
+        ws[i + 6] = torch.nn.functional.pad(ws[i + 6], (0, to - hid))
+        ws[i + 7] = torch.nn.functional.pad(ws[i + 7], (0, to - hid))
+        ws[i + 8] = torch.nn.functional.pad(ws[i + 8], (0, 0, 0, to - hid))
+    return ws
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape,c2,n_stages,area,heads,hid", [
+    ((2, 20, 20, 64), 64, 1, 1, 1, 38),        # mlp_ratio 1.2 at c_ 32
+    ((2, 40, 40, 128), 128, 2, 4, 2, 76),      # yolov12n L6, mlp_ratio 1.2
+    ((2, 20, 20, 256), 256, 2, 1, 4, 153),     # yolov12n L8, mlp_ratio 1.2
+    ((1, 8, 8, 32), 64, 1, 1, 1, 200),         # wider than every other tile
+])
+def test_a2c2f_at_any_mlp_width(cuda, shape, c2, n_stages, area, heads, hid,
+                                dtype, tol):
+    """The MLP's width from mlp1's weight: f32 as given, bf16 padded to a
+    multiple of 16 (the fold's form; unpadded it is refused by name), both
+    against the plain version over the unpadded weights."""
+    x, ws = _a2c2f_inputs(shape, c2 // 2, c2, n_stages, dtype, cuda,
+                          seed=hid, hid=hid)
+    ref = a2c2f_fused_plain(x, ws, n_stages, area, heads)
+    if dtype == torch.bfloat16:
+        with pytest.raises(ValueError, match="multiple of 16"):
+            a2c2f_fused(x, ws, n_stages, area, heads)
+        ws = _pad_mlp(ws, n_stages, -(-hid // 16) * 16)
+    kernels.reset_launch_counts()
+    out = a2c2f_fused(x, ws, n_stages, area, heads)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["a2c2f"] == 1
+    assert bool(torch.isfinite(out).all())
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert ref.float().abs().max().item() > 0.05
+
+
+@pytest.mark.parametrize("shape,c2,n_stages,layout", [
+    ((2, 20, 20, 512), 512, 4, (8, False)),    # yolov12l L8 at 640^2
+    ((1, 28, 28, 256), 256, 2, (4, False)),    # yolov12n L8 at 896^2
+    ((1, 40, 40, 32), 128, 1, (16, True)),     # a band of 1600 at c_ 64
+    ((1, 56, 56, 32), 64, 1, (16, True)),      # 3136 at c_ 32
+])
+def test_a2c2f_f32_takes_a_smaller_token_tile(cuda, shape, c2, n_stages,
+                                              layout):
+    """Shapes the gate admits whose f32 CTA at 16 tokens passes 227 KB run
+    on the layout `f32_layout` gives (a smaller token tile, else the band's
+    keys and values streamed), within 1e-4 of the plain version."""
+    from yolou_tpu_torch.kernels.a2c2f import (a2c2f_mega_eligible,
+                                               f32_layout)
+    c_ = c2 // 2
+    nb = shape[1] * shape[2]
+    assert a2c2f_mega_eligible(shape[1], shape[2], shape[3], c_, 1,
+                               c_ // 32)
+    assert f32_layout(shape[-1], c_, n_stages, nb) == layout
+    x, ws = _a2c2f_inputs(shape, c_, c2, n_stages, torch.float32, cuda,
+                          seed=nb)
+    out = a2c2f_fused(x, ws, n_stages, 1, c_ // 32)
+    torch.cuda.synchronize()
+    ref = a2c2f_fused_plain(x, ws, n_stages, 1, c_ // 32)
+    assert (out - ref).abs().max().item() <= 1e-4
+    assert ref.abs().max().item() > 0.05
+
+
+@pytest.mark.parametrize("shape,c2,n_stages", [
+    ((1, 40, 40, 32), 128, 1),                 # a band of 1600 at c_ 64
+    ((2, 56, 56, 32), 64, 2),                  # 3136 at c_ 32, 2 stages
+])
+def test_a2c2f_bf16_streams_the_longest_bands(cuda, shape, c2, n_stages):
+    """Bands the gate admits whose keys and values no bf16 layout holds
+    (modules no yolov12 graph builds) take the streamed layout, 256 keys a
+    tile; within 2e-2 of the plain version."""
+    from yolou_tpu_torch.kernels.a2c2f import _SMEM_LIMIT, smem_bytes
+    c_ = c2 // 2
+    nb = shape[1] * shape[2]
+    assert smem_bytes(shape[-1], c_, n_stages, nb, torch.bfloat16) > \
+        _SMEM_LIMIT
+    x, ws = _a2c2f_inputs(shape, c_, c2, n_stages, torch.bfloat16, cuda,
+                          seed=nb)
+    kernels.reset_launch_counts()
+    out = a2c2f_fused(x, ws, n_stages, 1, c_ // 32)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["a2c2f"] == 1
+    ref = a2c2f_fused_plain(x, ws, n_stages, 1, c_ // 32)
+    assert bool(torch.isfinite(out).all())
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    assert ref.float().abs().max().item() > 0.05
+
+
 def test_a2c2f_on_a_side_stream_and_twice(cuda):
     x, ws = _a2c2f_inputs((8, 20, 20, 256), 128, 256, 2, torch.bfloat16, cuda,
                           seed=2)
@@ -408,12 +564,16 @@ def test_a2c2f_on_a_side_stream_and_twice(cuda):
 
 
 def test_a2c2f_refuses_what_it_cannot_run(cuda):
+    """A band of 1600 tokens in f32 is no longer refused (the streamed
+    layout takes it: `test_a2c2f_f32_takes_a_smaller_token_tile`); a cin
+    whose activation tile alone passes a block still is."""
     x, ws = _a2c2f_inputs((1, 8, 8, 32), 64, 64, 1, torch.float32, cuda, 0)
     with pytest.raises(ValueError, match="head_dim 32"):
         a2c2f_fused(x, ws, 1, 1, 1)                    # one head of 64
-    x, ws = _a2c2f_inputs((1, 40, 40, 32), 64, 64, 1, torch.float32, cuda, 0)
+    x, ws = _a2c2f_inputs((1, 4, 4, 16384), 32, 32, 1, torch.float32, cuda,
+                          0)
     with pytest.raises(ValueError, match="shared memory"):
-        a2c2f_fused(x, ws, 1, 1, 2)                    # a band of 1600, f32
+        a2c2f_fused(x, ws, 1, 1, 1)                    # cin 16384, f32
     x, ws = _a2c2f_inputs((1, 4, 4, 32), 32, 32, 5, torch.float32, cuda, 0)
     with pytest.raises(ValueError, match="at most 4 stages"):
         a2c2f_fused(x, ws, 5, 1, 1)

@@ -1,0 +1,227 @@
+"""PyTorch port: kernels A and C at every band length the JAX package takes.
+
+The JAX gate (`pallas_band_eligible`) asks only N % 16 == 0 and C % heads
+== 0, so a served or trained model gives the kernels bands of up to 1600
+tokens (1280^2) and more. `kernels/attention.py::attention_plan` sends a
+bfloat16 band to the resident path where that path holds it and was the
+faster on an H100, every other band (every float32 one too) to the
+streamed path, which passes keys and values through shared memory in tiles
+and attends them in the resident path's key steps. What the CPU can check:
+
+  * the plan: every band of yolov12 n-x at 160^2-1280^2 (steps of 32,
+    layers 6 and 8, batch 1 and 8, both types, kernels A and C) gets a
+    launchable plan (shared memory within a block's 232,448 bytes, a
+    cluster of at most 8); yolov12n's bands keep the resident path but where
+    the streamed one was measured the faster; the longest resident bands are
+    the ones the port's shared-memory formulas give;
+  * the arithmetic at long bands: `test_torch_port_attention_tiling.py`'s
+    emulation of the kernels' blocking (16-row query tiles, key steps of KT,
+    the running maximum, the bf16 probabilities) at N = 1024, 1600 and 1936,
+    against the Pallas kernels in interpret mode (f32 within 1e-5, bf16
+    within 2^-6 of the output's largest magnitude, as that file states),
+    once with the keys cut into the streamed path's tiles (which, since a
+    tile is a whole number of key steps, changes no operation: the two
+    emulations must agree exactly).
+"""
+
+import itertools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from yolou_tpu.ops.pallas_attn import area_attention_fused as jax_fused
+from yolou_tpu.ops.pallas_attn import area_attention_qkv_fused as jax_qkv
+from yolou_tpu.ops.pallas_attn import pallas_band_eligible
+from yolou_tpu_torch.kernels.attention import (_STREAM_KEYS, attention_plan,
+                                               max_tokens, smem_bytes,
+                                               stream_faster)
+from yolou_tpu_torch.models.specs import (YOLOV12_SCALES, scale_channels,
+                                          scale_depth)
+
+from .test_torch_port_attention_tiling import (HD, KT_ATTN, KT_QKV, _arrays,
+                                               _tolerance, tiled_attention)
+from .torch_threads import one_torch_thread  # noqa: F401
+
+SMEM_LIMIT = 232_448          # a block's shared memory on an H100, bytes
+
+
+def yolov12_bands(scale: str, imgsz: int):
+    """(layer, N, C, heads) of the attention bands of yolov12's layers 6
+    (area 4) and 8 (area 1) at `imgsz`, as the AAttn modules cut them."""
+    _, width, max_ch = YOLOV12_SCALES[scale]
+    out = []
+    for layer, c2, stride, area in ((6, 512, 16, 4), (8, 1024, 32, 1)):
+        c = scale_channels(c2, width, max_ch) // 2        # AAttn's dim, c_
+        tokens = (imgsz // stride) ** 2
+        n = tokens // area if tokens % area == 0 else tokens
+        out.append((layer, n, c, max(1, c // 32)))
+    return out
+
+
+SWEEP = [(scale, imgsz, *band)
+         for scale, imgsz in itertools.product(YOLOV12_SCALES,
+                                               range(160, 1281, 32))
+         for band in yolov12_bands(scale, imgsz)]
+
+
+def test_the_sweep_covers_the_long_band_shapes():
+    assert len(SWEEP) == 5 * 36 * 2
+    assert ("s", 640, 8, 400, 256, 8) in SWEEP
+    assert ("x", 640, 8, 400, 384, 12) in SWEEP
+    assert ("n", 1280, 6, 1600, 64, 2) in SWEEP
+    assert ("n", 1280, 8, 1600, 128, 4) in SWEEP
+    assert scale_depth(4, YOLOV12_SCALES["l"][0]) == 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("projection", [True, False], ids=["A", "C"])
+def test_every_band_of_the_sweep_has_a_launchable_plan(projection, dtype):
+    """Kernel A (`projection`) and kernel C, batch 1 and 8: shared memory
+    within a block and a cluster of at most 8 for every band the JAX gate
+    admits (and the others of the sweep); in bfloat16 the resident path
+    exactly where it holds the band and the measured crossover does not
+    prefer the streamed one, in float32 the streamed path always."""
+    admitted = 0
+    for scale, imgsz, layer, n, c, heads in SWEEP:
+        for batch in (1, 8):
+            g = batch * (4 if layer == 6 and n * 4 == (imgsz // 16) ** 2
+                         else 1)
+            plan = attention_plan(g, n, c, dtype, projection)
+            where = (scale, imgsz, layer, g, n, c, dtype, projection)
+            assert plan.smem <= SMEM_LIMIT and 1 <= plan.cluster <= 8, where
+            resident = (dtype == torch.bfloat16
+                        and n <= max_tokens(c, projection)
+                        and not stream_faster(g, n, c, projection))
+            assert plan.streamed == (not resident), where
+            assert plan.launches == (2 if plan.streamed and projection
+                                     else 1)
+        admitted += pallas_band_eligible(n, c, heads)
+    assert admitted == 90
+
+
+def test_the_resident_path_keeps_the_bands_it_took():
+    """yolov12n's bands at 640^2 and 160^2 (serving and training at batch
+    8, evaluation at 16, objectmaps at 128) stay on the bf16 resident path
+    but where the streamed path was measured the faster on an H100
+    (`tools/attention_routes.py`: kernel A at layer 6 of 640^2, batch 8,
+    0.0295 against 0.0339 ms; at 160^2, batch 128, 0.0168 / 0.0131 against
+    0.0219 / 0.0150); every f32 band takes the streamed path, and so do the
+    bands the resident path cannot hold."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    streamed_a = {(32, 400, 64), (512, 25, 64), (128, 25, 128)}
+    for imgsz, batches in ((160, (8, 16, 128)), (640, (8,))):
+        for batch, (layer, n, c, _) in itertools.product(
+                batches, yolov12_bands("n", imgsz)):
+            g = batch * (4 if layer == 6 else 1)
+            assert attention_plan(g, n, c, bf16).streamed == (
+                (g, n, c) in streamed_a)
+            assert not attention_plan(g, n, c, bf16, False).streamed
+            for projection in (True, False):
+                assert attention_plan(g, n, c, f32, projection).streamed
+    assert attention_plan(8, 400, 256, bf16).streamed  # yolov12s-l L8 @640
+    assert not attention_plan(1, 400, 256, bf16).streamed
+    assert attention_plan(32, 1600, 64, bf16).streamed  # yolov12n L6 @1280
+    assert attention_plan(32, 1936, 64, bf16, False).streamed  # @1408
+    assert not attention_plan(1, 1600, 64, bf16, False).streamed
+    assert attention_plan(32, 1600, 64, bf16, False).streamed  # the work
+
+
+def test_the_longest_resident_bands():
+    """The resident path's limits (bfloat16, the port's shared-memory
+    formulas): kernel A 1024 tokens at the widths yolov12 uses (one cluster
+    of 8 CTAs), kernel C 1808 at any C; its shared memory at those bands
+    within a block."""
+    assert {max_tokens(c) for c in (64, 128, 256, 384)} == {1024}
+    assert {max_tokens(c, False) for c in (32, 64, 256)} == {1808}
+    assert smem_bytes(1024, 384) <= SMEM_LIMIT
+    assert smem_bytes(1808, 64, False) <= SMEM_LIMIT
+    assert smem_bytes(1809, 64, False) > SMEM_LIMIT
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert _STREAM_KEYS[bf16] % KT_ATTN == 0 and _STREAM_KEYS[bf16] % KT_QKV == 0
+    assert _STREAM_KEYS[f32] % 32 == 0
+
+
+def streamed_attention(q, k, v, heads, kt, dtype, keys):
+    """The streamed path's blocking: the band's keys cut into tiles of
+    `keys`, each attended in steps of `kt` with the online-softmax state
+    carried over. `keys` is a multiple of `kt`, so the steps are those of
+    `tiled_attention`."""
+    g, n, c = q.shape
+    scale = HD ** -0.5
+
+    def split(t):
+        return t.reshape(g, n, heads, HD).transpose(1, 2)
+
+    qh, kh, vh = split(q), split(k), split(v)
+    out = torch.empty_like(qh)
+    for r0 in range(0, n, 16):
+        qt = qh[:, :, r0:r0 + 16]
+        m = torch.full(qt.shape[:-1] + (1,), -torch.inf)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(qt)
+        for t0 in range(0, n, keys):
+            kt_, vt_ = kh[:, :, t0:t0 + keys], vh[:, :, t0:t0 + keys]
+            for k0 in range(0, kt_.shape[2], kt):
+                s = qt @ kt_[:, :, k0:k0 + kt].transpose(-1, -2) * scale
+                m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+                p = torch.exp(s - m_new)
+                c_ = torch.exp(m - m_new)
+                l = l * c_ + p.sum(-1, keepdim=True)
+                acc = acc * c_ + p.to(dtype).float() @ vt_[:, :, k0:k0 + kt]
+                m = m_new
+        out[:, :, r0:r0 + 16] = acc / l
+    return out.transpose(1, 2).reshape(g, n, c).to(dtype)
+
+
+DTYPES = [("float32", torch.float32, jnp.float32),
+          ("bfloat16", torch.bfloat16, jnp.bfloat16)]
+LONG = [(1, 1024, 2), (1, 1600, 1), (1, 1936, 1)]      # G, N, heads
+
+
+@pytest.mark.parametrize("name,dtype,jdtype", DTYPES,
+                         ids=[d[0] for d in DTYPES])
+@pytest.mark.parametrize("g,n,heads", LONG)
+def test_training_kernel_at_long_bands_matches_jax(g, n, heads, name, dtype,
+                                                   jdtype):
+    """Kernel C's order at N = 1024-1936 against the Pallas
+    `area_attention_fused`; the streamed tiling gives the same result."""
+    c = HD * heads
+    q, k, v = _arrays([((g, n, c), 1.0)] * 3, seed=n + heads, dtype=dtype)
+    want = np.asarray(jax_fused(*(jnp.asarray(t, jdtype) for t in (q, k, v)),
+                                heads).astype(jnp.float32))
+    tq, tk, tv = (torch.from_numpy(t) for t in (q, k, v))
+    got = tiled_attention(tq, tk, tv, heads, KT_ATTN, dtype)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=_tolerance(dtype, want))
+    streamed = streamed_attention(tq, tk, tv, heads, KT_ATTN, dtype,
+                                  _STREAM_KEYS[dtype])
+    assert torch.equal(streamed, got)
+
+
+@pytest.mark.parametrize("name,dtype,jdtype", DTYPES,
+                         ids=[d[0] for d in DTYPES])
+@pytest.mark.parametrize("g,n,heads", LONG)
+def test_eval_kernel_at_long_bands_matches_jax(g, n, heads, name, dtype,
+                                               jdtype):
+    """Kernel A at N = 1024-1936: the projection (f32 accumulation, f32
+    bias, rounded to the I/O type) then the streamed attention in steps of
+    32 keys, against the Pallas `area_attention_qkv_fused`."""
+    c = HD * heads
+    x, w, b = _arrays([((g, n, c), 1.0), ((c, 3 * c), 0.5 / np.sqrt(c)),
+                       ((3 * c,), 0.1)], seed=n + 7 * heads, dtype=dtype)
+    b = b.astype(np.float32)
+    want_o, want_v = (np.asarray(t.astype(jnp.float32)) for t in jax_qkv(
+        jnp.asarray(x, jdtype), jnp.asarray(w, jdtype), jnp.asarray(b)[None],
+        heads))
+    qkv = (torch.from_numpy(x) @ torch.from_numpy(w)
+           + torch.from_numpy(b)).to(dtype).float()
+    q, k, v = qkv.split(c, -1)
+    got = streamed_attention(q, k, v, heads, KT_QKV, dtype,
+                             _STREAM_KEYS[dtype])
+    np.testing.assert_allclose(got.float().numpy(), want_o, rtol=0,
+                               atol=_tolerance(dtype, want_o))
+    v_tol = 1e-5 if dtype == torch.float32 else 2.0 ** -8 * np.abs(want_v).max()
+    np.testing.assert_allclose(v.numpy(), want_v, rtol=0, atol=v_tol)

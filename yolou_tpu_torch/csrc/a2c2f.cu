@@ -10,7 +10,7 @@
 //           e = exp(q k^T / sqrt(32) - rowmax);  o = (e -> T) v / sum(e)
 //     pe  = depthwise 7x7 over v viewed as (H, W, c_), zero padding, f32 taps
 //     t   = (t + ((o + pe) -> T).Wproj + b) -> T
-//     h   = silu(t.Wm1 + b) -> T;  t = (t + h.Wm2 + b) -> T
+//     h   = silu(t.Wm1 + b) -> T;  t = (t + h.Wm2 + b) -> T   (h: hid wide)
 //   ys += [t]
 //   out = silu(concat(y0, z1..zn).Wcv2 + b) -> T
 //
@@ -46,21 +46,22 @@
 //  * the 7x7 stencil reads v from the qkv scratch (L1/L2), in f32;
 //  * rounding points are those of the listing above; residual adds in f32.
 //
-// f32, the exact path (`a2c2f_kernel<float>`, SIMT): tiles of TM = 16
-// tokens, the stencil's 49 taps unrolled into predicated loads, one (token,
-// channel) a thread, activations transposed in shared memory as f32
-// [channel][token]
+// f32, the exact path (`a2c2f_kernel<float, TM, STREAM>`, SIMT): tiles of
+// TM = 16 tokens (8 or 4 where 16 would pass the 227 KB; where even 4
+// would, 16 with the band's keys and values streamed), the stencil's 49
+// taps unrolled into predicated loads, one (token, channel) a thread,
+// activations transposed in shared memory as f32 [channel][token]
 // so that one 16-byte shared load feeds four FMAs of a thread that owns one
 // output column and 4 or 8 token rows; weights stream from L2 with 16 loads
 // in flight per thread; per head the CTA stages the band's keys
 // (transposed) and values and runs the SIMT `attend` of the band attention
 // kernels (warp per pair of query rows, online softmax). Shared memory per
-// CTA: 4 * LD * (2 c_ + max(cin, 2 c_, (n_stages+1) c_)) + 4 * (32 * TM +
+// CTA: 4 * LD * (2 c_ + max(cin, hid, (n_stages+1) c_)) + 4 * (32 * TM +
 // 32 * (ceil32(nb) + 1) + 32 * ceil32(nb)) bytes, LD = TM + 4.
 //
-// bf16, the serving type (`a2c2f_mma_kernel<TILE>`, tensor cores): every
-// GEMM operand is a value already rounded to bf16 (x, y0, t, u, h, the ys
-// concat), so the activation tiles live in shared memory as bf16, row-major
+// bf16, the serving type (`a2c2f_mma_kernel<TILE, STREAM>`, tensor cores):
+// every GEMM operand is a value already rounded to bf16 (x, y0, t, u, h, the
+// ys concat), so the activation tiles live in shared memory as bf16, row-major
 // with rows padded by 16 bytes (conflict-free ldmatrix at any width), at no
 // loss of accuracy:
 //  * GEMMs: mma.sync m16n8k16, f32 accumulation. The weights stay (K, N)
@@ -90,8 +91,13 @@
 //  * token tile: 16, 32 or 64 tokens, whichever grid takes the fewest waves
 //    over the co-resident CTAs (`launch_mma`).
 //    Shared memory per CTA: 2 * (3 * 64 * 136 + 64 * ceil16(nb) + TILE *
-//    (2 (c_ + 8) + max(ceil16(cin), 2 c_, (n_stages+1) c_) + 8)) + 4 * 8 *
-//    544 bytes, plus 128 bytes of GEMM descriptors.
+//    (2 (c_ + 8) + max(ceil16(cin), hid, (n_stages+1) c_) + 8)) + 4 * 8 *
+//    544 bytes, plus 128 bytes of GEMM descriptors (a band too long for
+//    that: 16 tokens and the keys and values KB_MMA = 256 rows at a time,
+//    STREAM). The MLP's width hid
+//    is a multiple of 16 (the fold pads it with zero columns of mlp1 and
+//    zero rows of mlp2, exact since silu(0) = 0), so h's tile has no stale
+//    columns for mlp2 to read.
 // The wrapper refuses a shape whose CTA passes the 227 KB a block may use.
 
 #include <cooperative_groups.h>
@@ -107,8 +113,13 @@ using namespace yolou;
 
 namespace {
 
-constexpr int TM = 16;          // tokens per tile (one `attend` pass of 8 warps)
-constexpr int LD = TM + 4;      // row stride of the transposed f32 tiles
+// f32 token tiles (TM), largest first: 16 is one `attend` pass of 8 warps;
+// the smaller ones are for shapes whose shared memory 16 would pass. The
+// transposed f32 tiles have rows of LD = TM + 4. Where none fits (the
+// band's keys and values alone pass a block), the streamed layout: TM = 16
+// and the keys and values through shared memory KB_F32 at a time.
+constexpr int F32_TILES[] = {16, 8, 4};
+constexpr int KB_F32 = 64;
 constexpr int MAX_STAGES = 4;
 constexpr int UNROLL = 16;     // weight loads in flight per thread
 
@@ -125,7 +136,7 @@ struct Params {
   const void* wcv1; const float* bcv1;
   const void* wcv2; const float* bcv2;
   ABlockWeights blk[2 * MAX_STAGES];
-  int B, H, W, cin, c_, c2, n_stages, area, heads;
+  int B, H, W, cin, c_, c2, hid, n_stages, area, heads;  // hid: MLP width
   float scale;                  // f32(32 ** -0.5)
 };
 
@@ -135,15 +146,20 @@ struct Params {
 template <typename T> __host__ __device__ constexpr int key_pad();
 template <> __host__ __device__ constexpr int key_pad<float>() { return 1; }
 
-__host__ __device__ inline int big_rows(int cin, int c_, int n_stages) {
-  const int a = 2 * c_, b = (n_stages + 1) * c_, m = a > b ? a : b;
+__host__ __device__ inline int big_rows(int cin, int hid, int c_,
+                                        int n_stages) {
+  const int b = (n_stages + 1) * c_, m = hid > b ? hid : b;
   return cin > m ? cin : m;
 }
 
 template <typename T>
-size_t smem_bytes(int cin, int c_, int n_stages, int nb) {
+size_t smem_bytes(int TM, bool stream, int cin, int hid, int c_, int n_stages,
+                  int nb) {
   const int Np = (nb + 31) & ~31, ldk = Np + key_pad<T>();
-  return sizeof(float) * LD * (size_t)(2 * c_ + big_rows(cin, c_, n_stages)) +
+  const size_t tiles = sizeof(float) * (TM + 4) *
+                       (size_t)(2 * c_ + big_rows(cin, hid, c_, n_stages));
+  if (stream) return tiles + sizeof(float) * KB_F32 * (2 * HD + 1);
+  return tiles +
          sizeof(T) * ((size_t)HD * TM + (size_t)HD * ldk + (size_t)HD * Np);
 }
 
@@ -151,9 +167,10 @@ __device__ __forceinline__ float silu(float v) { return v / (1.f + expf(-v)); }
 
 // rows x K values of T (row stride ld) -> dst[k * LD + r] as f32; rows past
 // `rows` are zero
-template <typename T>
+template <int TM, typename T>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, size_t ld,
                                           int K, int rows) {
+  constexpr int LD = TM + 4;
   for (int i = threadIdx.x; i < TM * K; i += blockDim.x) {
     const int r = i / K, k = i % K;
     dst[k * LD + r] = r < rows ? to_f(src[(size_t)r * ld + k]) : 0.f;
@@ -162,11 +179,11 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, size_t ld,
 
 // acc[row][col] = sum_k At[k][row] * Wt[k][col] for the tile's TM rows and
 // all Nout columns; a thread owns one column and R rows. epi(row, col, acc).
-template <int R, typename T, typename Epi>
+template <int TM, int R, typename T, typename Epi>
 __device__ __forceinline__ void gemm_rows(const float* At,
                                           const T* __restrict__ Wt, int K,
                                           int Nout, Epi epi) {
-  constexpr int RG = TM / R;
+  constexpr int RG = TM / R, LD = TM + 4;
   for (int item = threadIdx.x; item < Nout * RG; item += blockDim.x) {
     const int col = item % Nout, r0 = (item / Nout) * R;
     float acc[R];
@@ -192,17 +209,23 @@ __device__ __forceinline__ void gemm_rows(const float* At,
 }
 
 // 8 rows a thread where that still gives every thread a column, else 4
-template <typename T, typename Epi>
+template <int TM, typename T, typename Epi>
 __device__ __forceinline__ void gemm(const float* At, const void* Wt, int K,
                                      int Nout, Epi epi) {
-  if (2 * Nout >= (int)blockDim.x)
-    gemm_rows<8>(At, static_cast<const T*>(Wt), K, Nout, epi);
+  if (TM >= 8 && 2 * Nout >= (int)blockDim.x)
+    gemm_rows<TM, TM >= 8 ? 8 : 4>(At, static_cast<const T*>(Wt), K, Nout,
+                                   epi);
   else
-    gemm_rows<4>(At, static_cast<const T*>(Wt), K, Nout, epi);
+    gemm_rows<TM, 4>(At, static_cast<const T*>(Wt), K, Nout, epi);
 }
 
-template <typename T>
+// STREAM (f32, TM = 16): the attention streams the band's keys and values
+// through Kr / Vr (`attend_pair_tile`, one pair of query rows a warp), so
+// shared memory does not grow with the band; the arithmetic is `attend`'s.
+template <typename T, int TM, bool STREAM>
 __global__ void __launch_bounds__(WARPS * 32) a2c2f_kernel(const Params p) {
+  constexpr int LD = TM + 4;
+  static_assert(!STREAM || TM == 2 * WARPS, "a pair of query rows a warp");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::grid_group grid = cg::this_grid();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -216,7 +239,8 @@ __global__ void __launch_bounds__(WARPS * 32) a2c2f_kernel(const Params p) {
   float* tT = reinterpret_cast<float*>(smem_raw);        // [c_][LD]
   float* oT = tT + c_ * LD;                              // [c_][LD]
   float* big = oT + c_ * LD;                             // [big_rows][LD]
-  T* Qs = reinterpret_cast<T*>(big + big_rows(cin, c_, p.n_stages) * LD);
+  T* Qs =
+      reinterpret_cast<T*>(big + big_rows(cin, p.hid, c_, p.n_stages) * LD);
   T* Kt = Qs + TM * HD;                                  // [HD][ldk]
   T* Vs = Kt + HD * ldk;                                 // [Np][HD]
 
@@ -227,7 +251,7 @@ __global__ void __launch_bounds__(WARPS * 32) a2c2f_kernel(const Params p) {
   T* const qkv1 = static_cast<T*>(p.qkv1);
   const float scale = p.scale;
 
-  pad_keys(Kt, Vs, nb, Np, ldk);
+  if constexpr (!STREAM) pad_keys(Kt, Vs, nb, Np, ldk);
   for (int i = threadIdx.x; i < c_ * LD; i += blockDim.x) oT[i] = 0.f;
   __syncthreads();
 
@@ -237,11 +261,11 @@ __global__ void __launch_bounds__(WARPS * 32) a2c2f_kernel(const Params p) {
     const int bg = tile / tiles_per_band;                // image * area + band
     const size_t tok0 = (size_t)bg * nb + q0;            // global token index
     const int rows = min(TM, nb - q0);
-    load_tile(big, x + tok0 * cin, cin, cin, rows);
+    load_tile<TM>(big, x + tok0 * cin, cin, cin, rows);
     __syncthreads();
     {
       const float* b = p.bcv1;
-      gemm<T>(big, p.wcv1, cin, c_, [&](int row, int col, float acc) {
+      gemm<TM, T>(big, p.wcv1, cin, c_, [&](int row, int col, float acc) {
         const T y = from_f<T>(silu(acc + b[col]));
         tT[col * LD + row] = to_f(y);
         if (row < rows) ys[(tok0 + row) * YS + col] = y;
@@ -251,7 +275,7 @@ __global__ void __launch_bounds__(WARPS * 32) a2c2f_kernel(const Params p) {
     {
       const float* b = p.blk[0].bqkv;
       T* dst = qkv0;
-      gemm<T>(tT, p.blk[0].wqkv, c_, QS, [&](int row, int col, float acc) {
+      gemm<TM, T>(tT, p.blk[0].wqkv, c_, QS, [&](int row, int col, float acc) {
         if (row < rows) dst[(tok0 + row) * QS + col] = from_f<T>(acc + b[col]);
       });
     }
@@ -274,10 +298,44 @@ __global__ void __launch_bounds__(WARPS * 32) a2c2f_kernel(const Params p) {
       const size_t img0 = band0 - (size_t)band * nb;     // image's first token
       const size_t tok0 = band0 + q0;
       const int rows = min(TM, nb - q0);
-      load_tile(tT, ys + tok0 * YS + slot_in * c_, YS, c_, rows);
+      load_tile<TM>(tT, ys + tok0 * YS + slot_in * c_, YS, c_, rows);
 
       // attention, head by head: stage the band's k and v, attend the tile
       for (int h = 0; h < p.heads; ++h) {
+        if constexpr (STREAM) {
+          float* Kr = reinterpret_cast<float*>(Qs);  // [KB_F32][HD + 1]
+          float* Vr = Kr + KB_F32 * (HD + 1);        // [KB_F32][HD]
+          const int r = 2 * warp;
+          const bool active = r < rows, two = r + 1 < rows;  // warp-uniform
+          const T* qg = cur + (tok0 + r) * QS + h * HD + lane;
+          const float qna = active ? to_f(qg[0]) : 0.f;
+          const float qnb = two ? to_f(qg[QS]) : qna;
+          float qa[HD], qb[HD];
+#pragma unroll
+          for (int d = 0; d < HD; ++d) {
+            qa[d] = __shfl_sync(FULL, qna, d);
+            qb[d] = __shfl_sync(FULL, qnb, d);
+          }
+          PairState st;
+          pair_init(st);
+          for (int k0 = 0; k0 < nb; k0 += KB_F32) {
+            __syncthreads();                // the last tile's readers are done
+            for (int i = threadIdx.x; i < KB_F32 * HD; i += blockDim.x) {
+              const int m = i / HD, d = i % HD, n = k0 + m;
+              const T* row = cur + (band0 + min(n, nb - 1)) * QS + h * HD + d;
+              Kr[m * (HD + 1) + d] = n < nb ? to_f(row[c_]) : 0.f;
+              Vr[m * HD + d] = n < nb ? to_f(row[2 * c_]) : 0.f;
+            }
+            __syncthreads();
+            if (active)
+              attend_pair_tile(qa, qb, Kr, Vr, k0, KB_F32, nb, scale, st);
+          }
+          if (active) {
+            oT[(h * HD + lane) * LD + r] = st.acca / st.la;
+            if (two) oT[(h * HD + lane) * LD + r + 1] = st.accb / st.lb;
+          }
+          continue;
+        }
         __syncthreads();                    // the last head's readers are done
         for (int m = warp; m < nb; m += WARPS) {
           const T* row = cur + (band0 + m) * QS + h * HD + lane;
@@ -318,18 +376,18 @@ __global__ void __launch_bounds__(WARPS * 32) a2c2f_kernel(const Params p) {
       __syncthreads();
 
       // t = (t + u.Wproj + b) -> T
-      gemm<T>(oT, wb.wproj, c_, c_, [&](int row, int col, float acc) {
+      gemm<TM, T>(oT, wb.wproj, c_, c_, [&](int row, int col, float acc) {
         float* t = tT + col * LD + row;
         *t = to_f(from_f<T>(*t + (acc + wb.bproj[col])));
       });
       __syncthreads();
       // h = silu(t.Wm1 + b) -> T
-      gemm<T>(tT, wb.wm1, c_, 2 * c_, [&](int row, int col, float acc) {
+      gemm<TM, T>(tT, wb.wm1, c_, p.hid, [&](int row, int col, float acc) {
         big[col * LD + row] = to_f(from_f<T>(silu(acc + wb.bm1[col])));
       });
       __syncthreads();
       // t = (t + h.Wm2 + b) -> T, kept for the next ABlock and for cv2
-      gemm<T>(big, wb.wm2, 2 * c_, c_, [&](int row, int col, float acc) {
+      gemm<TM, T>(big, wb.wm2, p.hid, c_, [&](int row, int col, float acc) {
         float* t = tT + col * LD + row;
         const T tn = from_f<T>(*t + (acc + wb.bm2[col]));
         *t = to_f(tn);
@@ -340,16 +398,16 @@ __global__ void __launch_bounds__(WARPS * 32) a2c2f_kernel(const Params p) {
       if (!last) {
         const void* wq = p.blk[a + 1].wqkv;
         const float* bq = p.blk[a + 1].bqkv;
-        gemm<T>(tT, wq, c_, QS, [&](int row, int col, float acc) {
+        gemm<TM, T>(tT, wq, c_, QS, [&](int row, int col, float acc) {
           if (row < rows)
             nxt[(tok0 + row) * QS + col] = from_f<T>(acc + bq[col]);
         });
       } else {
         // out = silu(concat(y0, z1..zn).Wcv2 + b) -> T
-        load_tile(big, ys + tok0 * YS, YS, YS, rows);
+        load_tile<TM>(big, ys + tok0 * YS, YS, YS, rows);
         __syncthreads();
         const float* b = p.bcv2;
-        gemm<T>(big, p.wcv2, YS, c2, [&](int row, int col, float acc) {
+        gemm<TM, T>(big, p.wcv2, YS, c2, [&](int row, int col, float acc) {
           if (row < rows)
             out[(tok0 + row) * c2 + col] = from_f<T>(silu(acc + b[col]));
         });
@@ -372,17 +430,18 @@ cudaError_t device_info(DeviceInfo* info) {
                                 cudaDevAttrCooperativeLaunch, dev);
 }
 
-// f32: the SIMT kernel
-cudaError_t launch_simt(Params& p, cudaStream_t s, const DeviceInfo& info) {
+// f32: the SIMT kernel at token tile TM
+template <int TM, bool STREAM = false>
+cudaError_t launch_simt_tile(Params& p, cudaStream_t s, const DeviceInfo& info,
+                             size_t smem) {
+  constexpr auto kernel = a2c2f_kernel<float, TM, STREAM>;
   const int N = p.H * p.W, nb = N / p.area;
-  const size_t smem = smem_bytes<float>(p.cin, p.c_, p.n_stages, nb);
   cudaError_t e = cudaFuncSetAttribute(
-      a2c2f_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, a2c2f_kernel<float>, WARPS * 32, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                    WARPS * 32, smem);
   if (e != cudaSuccess) return e;
   // the grid must be co-resident for grid.sync(); never shrink the tile or
   // the block to make it fit
@@ -391,11 +450,31 @@ cudaError_t launch_simt(Params& p, cudaStream_t s, const DeviceInfo& info) {
   const long long resident = (long long)per_sm * info.sms;
   const int blocks = (int)(total < resident ? total : resident);
   void* args[] = {&p};
-  e = cudaLaunchCooperativeKernel((const void*)a2c2f_kernel<float>,
-                                  dim3(blocks), dim3(WARPS * 32), args, smem,
-                                  s);
+  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks),
+                                  dim3(WARPS * 32), args, smem, s);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+// The largest token tile of F32_TILES whose shared memory fits a block,
+// else the streamed layout (`kernels/a2c2f.py::f32_layout` gives the same).
+cudaError_t launch_simt(Params& p, cudaStream_t s, const DeviceInfo& info) {
+  const int nb = p.H * p.W / p.area;
+  constexpr size_t LIMIT = 227 * 1024;
+  for (const int tm : F32_TILES) {
+    const size_t smem = smem_bytes<float>(tm, false, p.cin, p.hid, p.c_,
+                                          p.n_stages, nb);
+    if (smem > LIMIT) continue;
+    switch (tm) {
+      case 16: return launch_simt_tile<16>(p, s, info, smem);
+      case 8: return launch_simt_tile<8>(p, s, info, smem);
+      default: return launch_simt_tile<4>(p, s, info, smem);
+    }
+  }
+  const size_t smem = smem_bytes<float>(16, true, p.cin, p.hid, p.c_,
+                                        p.n_stages, nb);
+  if (smem > LIMIT) return cudaErrorInvalidValue;
+  return launch_simt_tile<16, true>(p, s, info, smem);
 }
 
 // ------------------------------------------------- bf16 on tensor cores
@@ -409,6 +488,7 @@ constexpr int LDS = NP + 8;            // slab row stride: 272 B, conflict-free
 constexpr int RING = 3;                // slabs in flight or in use
 constexpr int SLAB = KS * LDS;         // elements of one slab
 constexpr int KT_A2 = 64;              // keys per online-softmax step
+constexpr int KB_MMA = 256;            // keys a tile of the streamed layout
 constexpr int MAX_GEMMS = 4;           // GEMMs one tile runs in a phase
 
 __host__ __device__ inline int pad16(int k) { return (k + 15) & ~15; }
@@ -416,8 +496,9 @@ __host__ __device__ inline int pad16(int k) { return (k + 15) & ~15; }
 // of 32, so the 8 rows of one ldmatrix phase fall in 8 bank groups
 __host__ __device__ inline int tile_ld(int k) { return pad16(k) + 8; }
 
-__host__ __device__ inline int big_cols(int cin, int c_, int n_stages) {
-  const int a = 2 * c_, b = (n_stages + 1) * c_, m = a > b ? a : b;
+__host__ __device__ inline int big_cols(int cin, int hid, int c_,
+                                        int n_stages) {
+  const int a = pad16(hid), b = (n_stages + 1) * c_, m = a > b ? a : b;
   return pad16(cin) > m ? pad16(cin) : m;
 }
 
@@ -425,11 +506,14 @@ __host__ __device__ inline int big_cols(int cin, int c_, int n_stages) {
 // weight ring, one head's keys and values of a band, the attention
 // partials, the t and u tiles and the `big` tile (x, h, the ys concat, or
 // the f32 positional term).
-__host__ __device__ inline size_t mma_smem_bytes(int TILE, int cin, int c_,
+__host__ __device__ inline size_t mma_smem_bytes(int TILE, bool stream,
+                                                 int cin, int hid, int c_,
                                                  int n_stages, int nb) {
-  return sizeof(bf16) * ((size_t)RING * SLAB + 2 * (size_t)pad16(nb) * HD +
-                         (size_t)TILE * (2 * tile_ld(c_) +
-                                       tile_ld(big_cols(cin, c_, n_stages)))) +
+  const size_t kv_rows = stream ? KB_MMA : pad16(nb);
+  return sizeof(bf16) *
+             ((size_t)RING * SLAB + 2 * kv_rows * HD +
+              (size_t)TILE * (2 * tile_ld(c_) +
+                              tile_ld(big_cols(cin, hid, c_, n_stages)))) +
          sizeof(float) * (size_t)MMA_WARPS * PART_FLOATS;
 }
 
@@ -669,7 +753,11 @@ __device__ __forceinline__ void dw7x7_run(const bf16* v, int QS,
 // in shared memory (every GEMM operand is a value already rounded to bf16),
 // every GEMM on the tensor cores, and the attention of each head split
 // over the 8 warps: query tile warp % QT, key part warp / QT of S = 8 / QT.
-template <int TILE>
+// STREAM: the band's keys and values pass through Ks / Vs KB_MMA at a time
+// (for bands whose whole keys and values would pass a block), each warp
+// attending the part of its key range that a tile holds, its state carried
+// from tile to tile.
+template <int TILE, bool STREAM = false>
 __global__ void __launch_bounds__(MMA_WARPS * 32)
 a2c2f_mma_kernel(const Params p) {
   constexpr int QT = TILE / 16, S = MMA_WARPS / QT;
@@ -684,12 +772,19 @@ a2c2f_mma_kernel(const Params p) {
   const int total = p.B * p.area * tiles_per_band;
   const int YS = (p.n_stages + 1) * c_, QS = 3 * c_;
   const int n_blocks = 2 * p.n_stages;
-  const int ldt = tile_ld(c_), ldb = tile_ld(big_cols(cin, c_, p.n_stages));
+  const int ldt = tile_ld(c_);
+  // big_cols(cin, p.hid, c_, n_stages) (2 c_ <= (n_stages + 1) c_), in the
+  // form whose schedule keeps the time the kernel had before the MLP width
+  // was a parameter: written directly, nvcc's allocation cost layer 8 5 %
+  // on an H100 (tools/time_builds.py, PERF.md)
+  const int ldb =
+      tile_ld(max(big_cols(cin, 2 * c_, c_, p.n_stages), pad16(p.hid)));
 
+  const int KV = STREAM ? KB_MMA : Np;                 // key rows held
   bf16* ring = reinterpret_cast<bf16*>(smem_raw);      // [RING][KS][LDS]
-  bf16* Ks = ring + RING * SLAB;                       // [Np][32] swizzled
-  bf16* Vs = Ks + Np * HD;                             // [Np][32] swizzled
-  float* parts = reinterpret_cast<float*>(Vs + Np * HD);  // [8][PART_FLOATS]
+  bf16* Ks = ring + RING * SLAB;                       // [KV][32] swizzled
+  bf16* Vs = Ks + KV * HD;                             // [KV][32] swizzled
+  float* parts = reinterpret_cast<float*>(Vs + KV * HD);  // [8][PART_FLOATS]
   bf16* tT = reinterpret_cast<bf16*>(parts + MMA_WARPS * PART_FLOATS);
   bf16* uT = tT + TILE * ldt;                            // [TILE][ldt]
   bf16* big = uT + TILE * ldt;                           // [TILE][ldb]
@@ -748,8 +843,8 @@ a2c2f_mma_kernel(const Params p) {
     const int slot_out = a / 2 + 1, slot_in = slot_out - 1 + (a & 1);
     if (tid == 0) {
       descs[0] = gemm_desc(wb.wproj, c_, c_);
-      descs[1] = gemm_desc(wb.wm1, c_, 2 * c_);
-      descs[2] = gemm_desc(wb.wm2, 2 * c_, c_);
+      descs[1] = gemm_desc(wb.wm1, c_, p.hid);
+      descs[2] = gemm_desc(wb.wm2, p.hid, c_);
       descs[3] = last ? gemm_desc(p.wcv2, YS, c2)
                       : gemm_desc(p.blk[a + 1].wqkv, c_, QS);
     }
@@ -774,8 +869,21 @@ a2c2f_mma_kernel(const Params p) {
         }
         cp_async_commit();
       };
+      // STREAM: keys t0 .. t0 + KV - 1 of head h (zero past nb), the same
+      // swizzle (t0 is a multiple of 8); one commit group
+      auto stage_keys = [&](int h, int t0) {
+        for (int i = tid; i < KV * 4; i += blockDim.x) {
+          const int r = i >> 2, c = i & 3, n = t0 + r;
+          const bf16* row = cur + (band0 + (n < nb ? n : 0)) * QS + h * HD +
+                            8 * c;
+          cp_async16(Ks + kv_at(r, c), row + c_, n < nb);
+          cp_async16(Vs + kv_at(r, c), row + 2 * c_, n < nb);
+        }
+        cp_async_commit();
+      };
       stream_start(ws, descs, MAX_GEMMS, ring);          // lands meanwhile
-      stage_kv(0);                                       // this one too
+      if constexpr (STREAM) stage_keys(0, 0);            // this one too
+      else stage_kv(0);
       load_rows<TILE>(tT, ldt, ys + tok0 * YS + slot_in * c_, YS, c_, rows);
 
       // pe = dw7x7(v) + bpe, f32, SIMT: a thread takes 8 channels of RUN
@@ -828,17 +936,36 @@ a2c2f_mma_kernel(const Params p) {
               qa[s][e] = r < rows ? qg[((size_t)r * QS + col) / 2] : 0u;
             }
         }
-        cp_async_wait<0>();
-        __syncthreads();               // head h's k/v landed for every thread
-        if (r0 < rows) {               // warp-uniform
+        if constexpr (STREAM) {
           AttnState st;
           attn_init(st);
-          if (kb < ke)
-            attend_keys_mma<KT_A2>(qa, Ks, Vs, kb, ke, min(nb, ke), sl2, st);
-          store_partial(st, parts + warp * PART_FLOATS);
+          for (int t0 = 0; t0 < Np; t0 += KV) {
+            if (t0 > 0) stage_keys(h, t0);
+            cp_async_wait<0>();
+            __syncthreads();           // keys t0.. landed for every thread
+            const int b = max(kb, t0), e = min(ke, t0 + KV);
+            if (r0 < rows && b < e)    // warp-uniform
+              attend_keys_mma<KT_A2>(qa, Ks, Vs, b - t0, e - t0,
+                                     min(nb, e) - t0, sl2, st);
+            __syncthreads();           // the tile read
+          }
+          if (r0 < rows) store_partial(st, parts + warp * PART_FLOATS);
+          __syncthreads();             // the partials written
+          if (h + 1 < p.heads) stage_keys(h + 1, 0);  // lands during the merge
+        } else {
+          cp_async_wait<0>();
+          __syncthreads();             // head h's k/v landed for every thread
+          if (r0 < rows) {             // warp-uniform
+            AttnState st;
+            attn_init(st);
+            if (kb < ke)
+              attend_keys_mma<KT_A2>(qa, Ks, Vs, kb, ke, min(nb, ke), sl2,
+                                     st);
+            store_partial(st, parts + warp * PART_FLOATS);
+          }
+          __syncthreads();             // k/v read, the partials written
+          if (h + 1 < p.heads) stage_kv(h + 1);   // lands during the merge
         }
-        __syncthreads();               // k/v read, the partials written
-        if (h + 1 < p.heads) stage_kv(h + 1);   // lands during the merge
         for (int i = tid; i < TILE * HD; i += blockDim.x) {
           const int r = i / HD, c = i % HD;
           float u = 0.f;
@@ -909,20 +1036,20 @@ a2c2f_mma_kernel(const Params p) {
 // a block's 227 KB less the static GEMM descriptors
 constexpr size_t SMEM_LIMIT = 227 * 1024 - sizeof(GemmDesc) * MAX_GEMMS;
 
-// Lets a2c2f_mma_kernel<TILE> use all of SMEM_LIMIT (once).
-template <int TILE>
+// Lets a2c2f_mma_kernel<TILE, STREAM> use all of SMEM_LIMIT (once).
+template <int TILE, bool STREAM>
 cudaError_t allow_mma_smem() {
   static const cudaError_t e =
-      cudaFuncSetAttribute(a2c2f_mma_kernel<TILE>,
+      cudaFuncSetAttribute(a2c2f_mma_kernel<TILE, STREAM>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)SMEM_LIMIT);
   return e;
 }
 
-// CTAs of a2c2f_mma_kernel<TILE> an SM runs at once with `smem` bytes
-// (0 where none or on error); kept, since a query costs more host time than
-// a launch.
-template <int TILE>
+// CTAs of a2c2f_mma_kernel<TILE, STREAM> an SM runs at once with `smem`
+// bytes (0 where none or on error); kept, since a query costs more host time
+// than a launch.
+template <int TILE, bool STREAM>
 int mma_per_sm(size_t smem) {
   static std::mutex mu;
   static std::map<size_t, int> known;
@@ -930,9 +1057,10 @@ int mma_per_sm(size_t smem) {
   const auto it = known.find(smem);
   if (it != known.end()) return it->second;
   int n = 0;
-  if (allow_mma_smem<TILE>() != cudaSuccess ||
+  if (allow_mma_smem<TILE, STREAM>() != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, a2c2f_mma_kernel<TILE>, MMA_WARPS * 32, smem) != cudaSuccess)
+          &n, a2c2f_mma_kernel<TILE, STREAM>, MMA_WARPS * 32, smem) !=
+          cudaSuccess)
     n = 0;
   known[smem] = n;
   return n;
@@ -949,12 +1077,14 @@ struct Plan {
 // Plan TILE if it fits; take it over `best` if it needs fewer waves (so on
 // a tie the smaller tile, considered first, stays: its CTAs do less in a
 // row).
-template <int TILE>
+template <int TILE, bool STREAM = false>
 void consider(const Params& p, const DeviceInfo& info, Plan& best) {
   const int nb = p.H * p.W / p.area;
-  const size_t smem = mma_smem_bytes(TILE, p.cin, p.c_, p.n_stages, nb);
+  const size_t smem =
+      mma_smem_bytes(TILE, STREAM, p.cin, p.hid, p.c_, p.n_stages, nb);
   if (smem > SMEM_LIMIT) return;
-  const long long resident = (long long)mma_per_sm<TILE>(smem) * info.sms;
+  const long long resident =
+      (long long)mma_per_sm<TILE, STREAM>(smem) * info.sms;
   if (resident < 1) return;
   const long long tiles = (long long)p.B * p.area * ((nb + TILE - 1) / TILE);
   const long long waves = (tiles + resident - 1) / resident;
@@ -964,21 +1094,21 @@ void consider(const Params& p, const DeviceInfo& info, Plan& best) {
 
 // The grid must be co-resident for grid.sync(): no more CTAs than the
 // plan's resident count.
-template <int TILE>
+template <int TILE, bool STREAM = false>
 cudaError_t launch_mma_tile(Params& p, cudaStream_t s, const Plan& plan) {
   const int nb = p.H * p.W / p.area;
   const long long total = (long long)p.B * p.area * ((nb + TILE - 1) / TILE);
   const int blocks = (int)(total < plan.resident ? total : plan.resident);
   void* args[] = {&p};
   const cudaError_t e = cudaLaunchCooperativeKernel(
-      (const void*)a2c2f_mma_kernel<TILE>, dim3(blocks),
+      (const void*)a2c2f_mma_kernel<TILE, STREAM>, dim3(blocks),
       dim3(MMA_WARPS * 32), args, plan.smem, s);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
 // The token tile of 16, 32 or 64 whose grid takes the fewest waves (the
-// smaller tile on a tie). On an
+// smaller tile on a tie), else (a band too long for any) 16 streamed. On an
 // H100 at batch 8 that is 64 for layer 6 (224 tiles, 2 waves, against 4 of
 // 32-token tiles) and 32 for layer 8 (104 tiles, 1 wave).
 cudaError_t launch_mma(Params& p, cudaStream_t s, const DeviceInfo& info) {
@@ -990,8 +1120,11 @@ cudaError_t launch_mma(Params& p, cudaStream_t s, const DeviceInfo& info) {
     case 16: return launch_mma_tile<16>(p, s, plan);
     case 32: return launch_mma_tile<32>(p, s, plan);
     case 64: return launch_mma_tile<64>(p, s, plan);
-    default: return cudaErrorCooperativeLaunchTooLarge;
   }
+  // no layout holds the band's keys and values: stream them
+  consider<16, true>(p, info, plan);
+  if (plan.tile == 0) return cudaErrorCooperativeLaunchTooLarge;
+  return launch_mma_tile<16, true>(p, s, plan);
 }
 
 cudaError_t launch(Params& p, int dtype, cudaStream_t s) {
@@ -1008,16 +1141,19 @@ cudaError_t launch(Params& p, int dtype, cudaStream_t s) {
 // weights: host array of 4 + 20 * n_stages device pointers in the order
 // [cv1_w, cv1_b] + per ABlock [qkv_w, qkv_b, pe_w (7,7,c_), pe_b, proj_w,
 // proj_b, mlp1_w, mlp1_b, mlp2_w, mlp2_b] + [cv2_w, cv2_b]; GEMM weights
-// (cin_i, cout_i) of the I/O type, biases and pe_w f32. ys: scratch of
-// B*H*W*(n_stages+1)*c_ elements, qkv: scratch of 2*B*H*W*3*c_ elements of
-// the I/O type. dtype 0 = float32, 1 = bfloat16. Returns the launch status.
+// (cin_i, cout_i) of the I/O type, biases and pe_w f32; the MLP's hidden
+// width hid (mlp1_w (c_, hid), mlp2_w (hid, c_); bf16: a multiple of 16).
+// ys: scratch of B*H*W*(n_stages+1)*c_ elements, qkv: scratch of
+// 2*B*H*W*3*c_ elements of the I/O type. dtype 0 = float32, 1 =
+// bfloat16. Returns the launch status.
 extern "C" int yolou_a2c2f(const void* x, const void* const* weights,
                            int n_weights, void* out, void* ys, void* qkv,
                            int B, int H, int W, int cin, int c_, int c2,
-                           int n_stages, int area, int heads, int dtype,
-                           void* stream) {
+                           int hid, int n_stages, int area, int heads,
+                           int dtype, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || cin <= 0 || c2 <= 0 || heads <= 0 ||
-      area <= 0 || c_ != heads * HD || n_stages < 1 ||
+      area <= 0 || c_ != heads * HD || n_stages < 1 || hid <= 0 ||
+      (dtype == 1 && hid % 16) ||
       n_stages > MAX_STAGES || n_weights != 4 + 20 * n_stages ||
       (H * W) % area || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
@@ -1040,7 +1176,7 @@ extern "C" int yolou_a2c2f(const void* x, const void* const* weights,
   }
   p.wcv2 = weights[n_weights - 2];
   p.bcv2 = static_cast<const float*>(weights[n_weights - 1]);
-  p.B = B; p.H = H; p.W = W; p.cin = cin; p.c_ = c_; p.c2 = c2;
+  p.B = B; p.H = H; p.W = W; p.cin = cin; p.c_ = c_; p.c2 = c2; p.hid = hid;
   p.n_stages = n_stages; p.area = area; p.heads = heads;
   p.scale = ATTN_SCALE;
   return (int)launch(p, dtype, static_cast<cudaStream_t>(stream));

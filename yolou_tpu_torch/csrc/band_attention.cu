@@ -30,16 +30,26 @@
 // bound by latency (loads into shared memory, the dependent chain of each
 // online-softmax step, the exp unit) and by how many warps it keeps busy.
 //
+// Two paths. The resident one (bf16 only) holds a head's keys and values
+// of the whole band in each CTA's shared memory; the streamed one (bf16 and
+// f32, at the end of this file) passes them through in key tiles, so its
+// shared memory does not grow with N. The wrapper
+// (`kernels/attention.py::attention_plan`) sends a bf16 band to the
+// resident path where it fits (227 KB; in kernel A one cluster of 8 CTAs,
+// N <= 1024) and was the faster of the two on an H100
+// (`tools/attention_routes.py`), every other band, and every f32 band, to
+// the streamed path, which was the faster at every f32 band kernel A takes.
+//
 // bf16, the serving and training type, runs on the tensor cores
 // (attention_mma.cuh): 8 warps a CTA, a warp per 16-row query tile whose q
 // stays in registers as A fragments; mma.sync m16n8k16 for q.k^T, x.w and
 // p.v with f32 accumulation, B operands from shared memory by ldmatrix
 // (k and v rows with XOR-swizzled 16-byte chunks against bank conflicts);
 // the online softmax works on the accumulator fragments, and the score
-// fragments become p.v's A operand in registers. Per (head, band) S CTAs of
-// `tiles` query tiles, at least one warp a tile. Any N >= 1: keys >= N are
-// masked, padded key and value rows are zero, padded query rows are not
-// stored.
+// fragments become p.v's A operand in registers. On the resident path, per
+// (head, band) S CTAs of `tiles` query tiles, at least one warp a tile. Any
+// N >= 1: keys >= N are masked, padded key and value rows are zero, padded
+// query rows are not stored.
 //  * Kernel A: the S CTAs are one thread-block cluster (S <= 8, so N <=
 //    1024), the largest whose clusters the card runs all at once (at layer
 //    6, 64 clusters of 4 do not quite fit; the occupancy query says so). A
@@ -57,16 +67,11 @@
 //    v instead of two cluster barriers and an exchange. Shared memory per
 //    CTA: 128 * ceil16(N) bytes.
 //
-// f32 keeps the SIMT path (band_attention.cuh `attend`; TF32 would not
-// hold the f32 tolerances): one cluster per (head, band) whose CTAs each
-// project (kernel A) or load (kernel C) q, k, v for a slice of R tokens and
-// exchange k and v as above; 8 warps a CTA, a warp per pair of query rows,
-// online softmax over key tiles of 32 with lane j scoring key j against
-// K^T; the projection a warp per 4 tokens, lane d computing channel d.
-// Shared memory per CTA: 4 * (96*C + 32*R + 64*ceil32(N)) bytes in kernel
-// A, without the 96*C weights in kernel C.
-// The wrapper refuses a band whose shared memory (f32: its bound, R = N)
-// passes the 227 KB a block may use.
+// f32 runs on the SIMT streamed kernels (TF32 would not hold the f32
+// tolerances): a warp per pair of query rows, online softmax over steps of
+// 32 keys with lane j scoring key j (band_attention.cuh
+// `attend_pair_tile`); kernel A's projection a warp per 4 tokens, lane d
+// computing channel d.
 
 #include <cooperative_groups.h>
 
@@ -84,131 +89,6 @@ namespace {
 
 constexpr int TOK = 4;        // tokens per warp in the projection
 constexpr int MAX_CLUSTER = 8;  // portable thread-block cluster size
-
-// Copy the other CTAs' k and v token slices through distributed shared
-// memory, so that this CTA holds k and v for all N tokens. Every CTA of the
-// cluster calls it after its own slice is in its Kt / Vs.
-template <typename T>
-__device__ __forceinline__ void gather_slices(cg::cluster_group& cluster,
-                                              T* Kt, T* Vs, int N, int Np,
-                                              int R, int S, int rank) {
-  cluster.sync();                           // every slice is in place
-  for (int r = 0; r < S; ++r) {
-    if (r == rank) continue;
-    const int m0 = r * R, m1 = min(N, m0 + R), len = m1 - m0;
-    if (len <= 0) continue;
-    const T* rK = cluster.map_shared_rank(Kt, r);
-    const T* rV = cluster.map_shared_rank(Vs, r);
-    for (int i = threadIdx.x; i < len * HD; i += blockDim.x) {
-      Vs[m0 * HD + i] = rV[m0 * HD + i];
-      const int d = i / len, m = m0 + i % len;
-      Kt[d * Np + m] = rK[d * Np + m];
-    }
-  }
-  cluster.sync();                           // no CTA reads a peer after this
-}
-
-template <typename T>
-__global__ void __launch_bounds__(WARPS * 32)
-band_attention_qkv_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                          const float* __restrict__ bias, T* __restrict__ o,
-                          T* __restrict__ v_out, int N, int C, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int h = blockIdx.x, g = blockIdx.y;
-  const int S = gridDim.z, rank = (int)cluster.block_rank();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int Np = (N + 31) & ~31;
-  const int R = (N + S - 1) / S;            // tokens (and query rows) per CTA
-  const int q0 = rank * R, q1 = min(N, q0 + R);
-  T* Ws = reinterpret_cast<T*>(smem_raw);   // [C][3*HD]: q | k | v columns
-  T* Qs = Ws + C * 3 * HD;                  // [R][HD]: this slice's queries
-  T* Kt = Qs + R * HD;                      // [HD][Np]  (keys transposed)
-  T* Vs = Kt + HD * Np;                     // [Np][HD]
-
-  for (int i = threadIdx.x; i < C * 3 * HD; i += blockDim.x) {
-    const int c = i / (3 * HD), j = i % (3 * HD);
-    Ws[i] = w[(size_t)c * 3 * C + (j / HD) * C + h * HD + (j % HD)];
-  }
-  pad_keys(Kt, Vs, N, Np, Np);
-  __syncthreads();
-
-  // --- projection of this CTA's tokens: warp per TOK tokens, lane = d -----
-  const T* xg = x + (size_t)g * N * C;
-  const float bq = bias[h * HD + lane];
-  const float bk = bias[C + h * HD + lane];
-  const float bv = bias[2 * C + h * HD + lane];
-  for (int n0 = q0 + warp * TOK; n0 < q1; n0 += WARPS * TOK) {
-    float aq[TOK], ak[TOK], av[TOK];
-#pragma unroll
-    for (int t = 0; t < TOK; ++t) aq[t] = ak[t] = av[t] = 0.f;
-    for (int c0 = 0; c0 < C; c0 += 32) {   // C is a multiple of 32
-      float xl[TOK];
-#pragma unroll
-      for (int t = 0; t < TOK; ++t)
-        xl[t] = n0 + t < q1 ? to_f(xg[(size_t)(n0 + t) * C + c0 + lane]) : 0.f;
-      for (int cc = 0; cc < 32; ++cc) {
-        const T* wr = Ws + (c0 + cc) * 3 * HD;
-        const float wq = to_f(wr[lane]), wk = to_f(wr[HD + lane]);
-        const float wv = to_f(wr[2 * HD + lane]);
-#pragma unroll
-        for (int t = 0; t < TOK; ++t) {
-          const float xc = __shfl_sync(FULL, xl[t], cc);
-          aq[t] = fmaf(xc, wq, aq[t]);
-          ak[t] = fmaf(xc, wk, ak[t]);
-          av[t] = fmaf(xc, wv, av[t]);
-        }
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < TOK; ++t) {
-      const int n = n0 + t;
-      if (n >= q1) break;                   // warp-uniform
-      const T v = from_f<T>(av[t] + bv);
-      Kt[lane * Np + n] = from_f<T>(ak[t] + bk);
-      Vs[n * HD + lane] = v;
-      Qs[(n - q0) * HD + lane] = from_f<T>(aq[t] + bq);
-      v_out[((size_t)g * N + n) * C + h * HD + lane] = v;
-    }
-  }
-
-  gather_slices(cluster, Kt, Vs, N, Np, R, S, rank);
-    attend<T, false>(Qs, Kt, Vs, o, (size_t)g * N, h * HD, C, 1, N, Np, q0, q1,
-                    scale);
-}
-
-// Kernel C: the same cluster layout without the projection. CTA `rank`
-// loads q, k and v of its token slice for head h (a warp per token, lane =
-// channel, so each global read is one 64 or 128 byte row segment), then the
-// slices are exchanged and the rows attended as in kernel A.
-template <typename T>
-__global__ void __launch_bounds__(WARPS * 32)
-band_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ o, int N, int C,
-                      float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int h = blockIdx.x, g = blockIdx.y;
-  const int S = gridDim.z, rank = (int)cluster.block_rank();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int Np = (N + 31) & ~31;
-  const int R = (N + S - 1) / S;
-  const int q0 = rank * R, q1 = min(N, q0 + R);
-  T* Qs = reinterpret_cast<T*>(smem_raw);   // [R][HD]
-  T* Kt = Qs + R * HD;                      // [HD][Np]
-  T* Vs = Kt + HD * Np;                     // [Np][HD]
-
-  pad_keys(Kt, Vs, N, Np, Np);
-  for (int n = q0 + warp; n < q1; n += WARPS) {
-    const size_t off = ((size_t)g * N + n) * C + h * HD + lane;
-    Qs[(n - q0) * HD + lane] = q[off];
-    Kt[lane * Np + n] = k[off];
-    Vs[n * HD + lane] = v[off];
-  }
-  gather_slices(cluster, Kt, Vs, N, Np, R, S, rank);
-    attend<T, true>(Qs, Kt, Vs, o, (size_t)g * N, h * HD, C, 1, N, Np, q0, q1,
-                    scale);
-}
 
 // ------------------------------------------------- bf16 on tensor cores
 
@@ -389,14 +269,6 @@ int sm_count() {
   return n;
 }
 
-// CTAs per (head, band): about two per SM over the grid, at most one per 32
-// tokens and at most the portable cluster size.
-int cluster_splits(int G, int heads, int N) {
-  const int Np = (N + 31) & ~31, pairs = G * heads;
-  return max(1, min(min((2 * sm_count() + pairs - 1) / pairs, Np / 32),
-                    MAX_CLUSTER));
-}
-
 // Lets `kernel` use all the dynamic shared memory a block may have (once).
 template <auto kernel>
 cudaError_t allow_smem() {
@@ -471,60 +343,6 @@ int qkv_tiles(size_t smem, int pairs, int N, int* splits) {
   return tiles;
 }
 
-// Launch `kernel` on a (heads, G, splits) grid of clusters of `splits` CTAs.
-template <typename K, typename... Args>
-cudaError_t launch_clusters(K kernel, int G, int heads, int splits,
-                            size_t smem, cudaStream_t s, Args... args) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(heads, G, splits);
-  cfg.blockDim = dim3(WARPS * 32);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = splits;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
-}
-
-// f32: the SIMT kernels.
-template <typename T>
-cudaError_t launch_qkv(const void* x, const void* w, const void* b, void* o,
-                       void* v, int G, int N, int C, int heads,
-                       cudaStream_t s) {
-  const int Np = (N + 31) & ~31;
-  const int splits = cluster_splits(G, heads, N);
-  const int R = (N + splits - 1) / splits;
-  const size_t smem = sizeof(T) * ((size_t)3 * HD * C + (size_t)HD * R +
-                                   (size_t)2 * HD * Np);
-  return launch_clusters(band_attention_qkv_kernel<T>, G, heads, splits, smem,
-                         s, static_cast<const T*>(x),
-                         static_cast<const T*>(w),
-                         static_cast<const float*>(b), static_cast<T*>(o),
-                         static_cast<T*>(v), N, C, ATTN_SCALE);
-}
-
-template <typename T>
-cudaError_t launch_attn(const void* q, const void* k, const void* v, void* o,
-                        int G, int N, int C, int heads, cudaStream_t s) {
-  const int Np = (N + 31) & ~31;
-  const int splits = cluster_splits(G, heads, N);
-  const int R = (N + splits - 1) / splits;
-  const size_t smem = sizeof(T) * ((size_t)HD * R + (size_t)2 * HD * Np);
-  return launch_clusters(band_attention_kernel<T>, G, heads, splits, smem, s,
-                         static_cast<const T*>(q), static_cast<const T*>(k),
-                         static_cast<const T*>(v), static_cast<T*>(o), N, C,
-                         ATTN_SCALE);
-}
-
 // bf16: the tensor-core kernels.
 cudaError_t launch_qkv_mma(const void* x, const void* w, const void* b,
                            void* o, void* v, int G, int N, int C, int heads,
@@ -574,39 +392,512 @@ cudaError_t launch_attn_mma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------ the streamed path
+//
+// Every f32 band, and the bf16 bands the resident path does not hold or
+// was the slower on. A CTA owns a run of query rows of one (head, band) and
+// streams the band's keys and values through shared memory in tiles of KB
+// keys: two buffers filled by cp.async, tile i + 1 landing while tile i is
+// scored. The online softmax state stays in registers across tiles, and
+// each tile is attended in steps of KT_QKV / KT_ATTN keys in bf16 (the bf16
+// resident path's, with its text, so a row's arithmetic is that path's,
+// step for step, at any N) and of 32 keys in f32 (`attend`'s).
+// Shared memory: bf16 2 * 2 * KB_MMA * 32 * 2 bytes (+ 80 C for kernel A's
+// q weight columns), f32 2 * KB_F32 * 65 * 4 bytes.
+//
+// Kernel C reads q, k and v from HBM as before. Kernel A needs every key of
+// the band before any query attends, so it is two launches: a projection of
+// k and v (v into its second output, k into a (G, N, C) scratch the wrapper
+// allocates: one more write and read of G * N * C elements), then the
+// streamed attention, which projects its own q rows from x (x . Wq + b, in
+// bf16 the resident path's products in its order, never written out). What
+// bounds it: the same work as the resident path plus those k bytes, and
+// each CTA reading its band's k and v from L2 once.
+
+constexpr int KB_MMA = 128;       // keys per streamed tile, bf16
+constexpr int KB_F32 = 64;        // keys per streamed tile, f32
+constexpr int LDQW = HD + 8;      // row stride of staged q weight columns
+constexpr int LDKV = 2 * HD + 8;  // row stride of staged k | v columns
+// f32 key tiles are row-major with an odd row stride (`attend_pair_tile`)
+constexpr int LDK_F32 = HD + 1;
+constexpr int ROWS_F32 = 2 * WARPS;  // query rows of a streamed f32 CTA
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0));
+}
+
+// The A fragments of a warp's 16 rows of x (rows r0 + gq and r0 + gq + 8,
+// zero past N), channels c0 .. c0 + 31: two k steps, as kernel A loads them.
+struct XRows {
+  const uint32_t *lo, *hi;
+  int n_lo, n_hi, N, t;
+  __device__ __forceinline__ XRows(const bf16* xg, int r0, int N_, int C) {
+    const int lane = threadIdx.x & 31;
+    n_lo = r0 + (lane >> 2);
+    n_hi = n_lo + 8;
+    N = N_;
+    t = lane & 3;
+    lo = reinterpret_cast<const uint32_t*>(xg + (size_t)min(n_lo, N - 1) * C);
+    hi = reinterpret_cast<const uint32_t*>(xg + (size_t)min(n_hi, N - 1) * C);
+  }
+  __device__ __forceinline__ void load(uint32_t (&a)[2][4], int c0) const {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {                 // k step e / 4, reg e % 4
+      const int col = c0 + 16 * (e >> 2) + 8 * ((e >> 1) & 1) + 2 * t;
+      const uint32_t* row = e & 1 ? hi : lo;
+      a[e >> 2][e & 3] = (e & 1 ? n_hi : n_lo) < N ? row[col / 2] : 0u;
+    }
+  }
+};
+
+// acc[j] += x . W for J tiles of 8 columns of the staged weights Ws
+// ([C][ld], column tiles 0 .. J - 1), the x fragments streamed from global
+// memory a chunk of 32 channels ahead: kernel A's projection loop, the same
+// products in the same order (the resident kernel keeps its own copy, whose
+// schedule the resident times rest on).
+template <int J>
+__device__ __forceinline__ void project_rows(const XRows& xr, const bf16* Ws,
+                                             int ld, int C,
+                                             float (&acc)[J][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  uint32_t a[2][4];
+  xr.load(a, 0);
+  for (int c0 = 0; c0 < C; c0 += 32) {
+    uint32_t a_next[2][4];
+    if (c0 + 32 < C) xr.load(a_next, c0 + 32);
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const bf16* wrow =
+          Ws + (c0 + 16 * kk + (lane & 15)) * ld + (lane >> 4) * 8;
+#pragma unroll
+      for (int jj = 0; jj < J / 2; ++jj) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, wrow + 16 * jj);
+        mma_bf16(acc[2 * jj], a[kk], b[0], b[1]);
+        mma_bf16(acc[2 * jj + 1], a[kk], b[2], b[3]);
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[kk][e] = a_next[kk][e];
+  }
+}
+
+// Kernel A's first launch on the streamed path, bf16: k and v of 16 tokens a
+// warp for head h, k into the scratch, v into kernel A's second output.
+__global__ void __launch_bounds__(MMA_WARPS * 32)
+kv_projection_mma_kernel(const bf16* __restrict__ x,
+                         const bf16* __restrict__ w,
+                         const float* __restrict__ bias,
+                         bf16* __restrict__ k_out, bf16* __restrict__ v_out,
+                         int N, int C) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int h = blockIdx.x, g = blockIdx.y;
+  const int warp = threadIdx.x >> 5, t = threadIdx.x & 3;
+  const int r0 = 16 * (blockIdx.z * MMA_WARPS + warp);
+  bf16* Ws = reinterpret_cast<bf16*>(smem_raw);  // [C][LDKV]: k | v cols
+  for (int i = threadIdx.x; i < C * 8; i += blockDim.x) {
+    const int c = i / 8, j8 = i % 8;              // 8 columns of role 1 + j8/4
+    cp_async16(Ws + c * LDKV + 8 * j8,
+               w + (size_t)c * 3 * C + (1 + j8 / 4) * C + h * HD +
+                   (j8 % 4) * 8,
+               true);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  if (r0 >= N) return;                           // warp-uniform, no barrier
+  const XRows xr(x + (size_t)g * N * C, r0, N, C);
+  float acc[8][4];
+  project_rows<8>(xr, Ws, LDKV, C, acc);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int role = 1 + j / 4, col = 8 * (j % 4) + 2 * t;
+    const float b0 = bias[role * C + h * HD + col];
+    const float b1 = bias[role * C + h * HD + col + 1];
+    bf16* dst = (role == 1 ? k_out : v_out) + (size_t)g * N * C + h * HD + col;
+    if (xr.n_lo < N)
+      *reinterpret_cast<uint32_t*>(dst + (size_t)xr.n_lo * C) =
+          pack_bf16(acc[j][0] + b0, acc[j][1] + b1);
+    if (xr.n_hi < N)
+      *reinterpret_cast<uint32_t*>(dst + (size_t)xr.n_hi * C) =
+          pack_bf16(acc[j][2] + b0, acc[j][3] + b1);
+  }
+}
+
+// The streamed attention, bf16: a warp per 16-row query tile, MMA_WARPS
+// tiles a CTA, all of them attending each key tile of KB_MMA keys in steps
+// of KT. PROJECT (kernel A): q = x . Wq + b from `src` = x, the head's q
+// weight columns staged by cp.async; else (kernel C) q read from `src`.
+template <int KT, bool PROJECT>
+__global__ void __launch_bounds__(MMA_WARPS * 32)
+band_attention_stream_mma_kernel(const bf16* __restrict__ src,
+                                 const bf16* __restrict__ w,
+                                 const float* __restrict__ bias,
+                                 const bf16* __restrict__ k,
+                                 const bf16* __restrict__ v,
+                                 bf16* __restrict__ o, int N, int C,
+                                 float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int h = blockIdx.x, g = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, t = lane & 3;
+  const int Np = (N + 15) & ~15;
+  const int r0 = 16 * (blockIdx.z * MMA_WARPS + warp);
+  const bool active = r0 < N;                    // warp-uniform
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [2][KB_MMA][32] swizzled
+  bf16* Vs = Ks + 2 * KB_MMA * HD;               // [2][KB_MMA][32] swizzled
+  bf16* Wq = Vs + 2 * KB_MMA * HD;               // PROJECT: [C][LDQW]
+  const size_t base = (size_t)g * N * C + h * HD;
+
+  // key tile i -> buffer i % 2 (zero past N), one cp.async group
+  auto stage = [&](int i) {
+    const int k0 = i * KB_MMA;
+    bf16* kd = Ks + (i & 1) * KB_MMA * HD;
+    bf16* vd = Vs + (i & 1) * KB_MMA * HD;
+    for (int j = threadIdx.x; j < KB_MMA * 4; j += blockDim.x) {
+      const int r = j >> 2, c = j & 3, n = k0 + r;
+      const size_t off = base + (size_t)(n < N ? n : 0) * C + 8 * c;
+      cp_async16(kd + kv_at(r, c), k + off, n < N);
+      cp_async16(vd + kv_at(r, c), v + off, n < N);
+    }
+    cp_async_commit();
+  };
+
+  uint32_t qa[2][4];
+  if (PROJECT) {
+    for (int i = threadIdx.x; i < C * 4; i += blockDim.x) {
+      const int c = i / 4, j8 = i % 4;
+      cp_async16(Wq + c * LDQW + 8 * j8,
+                 w + (size_t)c * 3 * C + h * HD + 8 * j8, true);
+    }
+    stage(0);                                    // one group with Wq
+    cp_async_wait<0>();
+    __syncthreads();
+    if (active) {
+      const XRows xr(src + (size_t)g * N * C, r0, N, C);
+      float acc[4][4];
+      project_rows<4>(xr, Wq, LDQW, C, acc);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {              // rows gq, gq + 8: A fragment
+        const int col = 8 * j + 2 * t;
+        const float b0 = bias[h * HD + col], b1 = bias[h * HD + col + 1];
+        qa[j / 2][2 * (j % 2)] = pack_bf16(acc[j][0] + b0, acc[j][1] + b1);
+        qa[j / 2][2 * (j % 2) + 1] = pack_bf16(acc[j][2] + b0, acc[j][3] + b1);
+      }
+    }
+  } else {
+    stage(0);
+    if (active) {
+      const uint32_t* qg = reinterpret_cast<const uint32_t*>(src + base);
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {           // rows gq, gq + 8; cols +0, +8
+          const int n = r0 + gq + 8 * (e & 1);
+          const int col = 16 * s + 8 * (e >> 1) + 2 * t;
+          qa[s][e] = n < N ? qg[((size_t)n * C + col) / 2] : 0u;
+        }
+    }
+  }
+
+  const float sl2 = scale * LOG2E;
+  AttnState st;
+  attn_init(st);
+  const int tiles = (N + KB_MMA - 1) / KB_MMA;
+  for (int i = 0; i < tiles; ++i) {
+    if (i + 1 < tiles) stage(i + 1);  // into the buffer tile i - 1 used
+    else cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();                  // tile i landed for every thread
+    if (active) {
+      const int k0 = i * KB_MMA, k_end = min(KB_MMA, Np - k0);
+      attend_keys_mma<KT>(qa, Ks + (i & 1) * KB_MMA * HD,
+                          Vs + (i & 1) * KB_MMA * HD, 0, k_end,
+                          min(N - k0, k_end), sl2, st);
+    }
+    __syncthreads();                  // tile i read
+  }
+  if (active) {
+    const float inv_lo = 1.f / quad_sum(st.l_lo);
+    const float inv_hi = 1.f / quad_sum(st.l_hi);
+    const StoreRowsBF16 store{o + ((size_t)g * N + r0) * C + h * HD, C,
+                              min(16, N - r0)};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int ch = 8 * u + 2 * t;
+      store(gq, ch, st.acc[u][0] * inv_lo, st.acc[u][1] * inv_lo);
+      store(gq + 8, ch, st.acc[u][2] * inv_hi, st.acc[u][3] * inv_hi);
+    }
+  }
+}
+
+// Kernel A's first launch, f32: k and v of TOK tokens a warp for head h,
+// lane = channel, f32 FMAs over the input channels in order (weights read
+// from L2).
+__global__ void __launch_bounds__(WARPS * 32)
+kv_projection_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                     const float* __restrict__ bias, float* __restrict__ k_out,
+                     float* __restrict__ v_out, int N, int C) {
+  const int h = blockIdx.x, g = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n0 = (blockIdx.z * WARPS + warp) * TOK;
+  if (n0 >= N) return;                           // warp-uniform, no barrier
+  const float* xg = x + (size_t)g * N * C;
+  const float bk = bias[C + h * HD + lane];
+  const float bv = bias[2 * C + h * HD + lane];
+  float ak[TOK], av[TOK];
+#pragma unroll
+  for (int t = 0; t < TOK; ++t) ak[t] = av[t] = 0.f;
+  for (int c0 = 0; c0 < C; c0 += 32) {
+    float xl[TOK];
+#pragma unroll
+    for (int t = 0; t < TOK; ++t)
+      xl[t] = n0 + t < N ? xg[(size_t)(n0 + t) * C + c0 + lane] : 0.f;
+    for (int cc = 0; cc < 32; ++cc) {
+      const float* wr = w + (size_t)(c0 + cc) * 3 * C + h * HD + lane;
+      const float wk = wr[C], wv = wr[2 * C];
+#pragma unroll
+      for (int t = 0; t < TOK; ++t) {
+        const float xc = __shfl_sync(FULL, xl[t], cc);
+        ak[t] = fmaf(xc, wk, ak[t]);
+        av[t] = fmaf(xc, wv, av[t]);
+      }
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < TOK; ++t) {
+    const int n = n0 + t;
+    if (n >= N) break;                           // warp-uniform
+    const size_t off = ((size_t)g * N + n) * C + h * HD + lane;
+    k_out[off] = ak[t] + bk;
+    v_out[off] = av[t] + bv;
+  }
+}
+
+// The streamed attention, f32 (SIMT): a warp per pair of query rows, lane j
+// scoring key j of each 32-key step against its row-major key tile, the
+// online softmax of `attend` carried across tiles (`attend_pair_tile`).
+// PROJECT (kernel A): the warp projects its two q rows from `src` = x as
+// `kv_projection_kernel` projects k and v; else (kernel C) reads them from
+// `src`.
+template <bool PROJECT>
+__global__ void __launch_bounds__(WARPS * 32)
+band_attention_stream_kernel(const float* __restrict__ src,
+                             const float* __restrict__ w,
+                             const float* __restrict__ bias,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             float* __restrict__ o, int N, int C,
+                             float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int h = blockIdx.x, g = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* Kb = reinterpret_cast<float*>(smem_raw);  // [2][KB_F32][LDK_F32]
+  float* Vb = Kb + 2 * KB_F32 * LDK_F32;           // [2][KB_F32][HD]
+  const size_t base = (size_t)g * N * C + h * HD;
+
+  // key tile i -> buffer i % 2 (zero past N), 4 bytes a copy (the rows
+  // of the key tile are 33 words apart), one cp.async group
+  auto stage = [&](int i) {
+    const int k0 = i * KB_F32;
+    float* kd = Kb + (i & 1) * KB_F32 * LDK_F32;
+    float* vd = Vb + (i & 1) * KB_F32 * HD;
+    for (int j = threadIdx.x; j < KB_F32 * HD; j += blockDim.x) {
+      const int r = j / HD, d = j % HD, n = k0 + r;
+      const size_t off = base + (size_t)(n < N ? n : 0) * C + d;
+      cp_async4(kd + r * LDK_F32 + d, k + off, n < N);
+      cp_async4(vd + r * HD + d, v + off, n < N);
+    }
+    cp_async_commit();
+  };
+  stage(0);
+
+  const int r = ROWS_F32 * blockIdx.z + 2 * warp;  // this warp's rows r, r + 1
+  const bool active = r < N, two = r + 1 < N;      // warp-uniform
+  float qna = 0.f, qnb = 0.f;
+  if (active) {
+    if (PROJECT) {
+      const float* xg = src + (size_t)g * N * C;
+      float aq[2] = {0.f, 0.f};
+      for (int c0 = 0; c0 < C; c0 += 32) {
+        float xl[2];
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+          xl[t] = r + t < N ? xg[(size_t)(r + t) * C + c0 + lane] : 0.f;
+        for (int cc = 0; cc < 32; ++cc) {
+          const float wq = w[(size_t)(c0 + cc) * 3 * C + h * HD + lane];
+#pragma unroll
+          for (int t = 0; t < 2; ++t)
+            aq[t] = fmaf(__shfl_sync(FULL, xl[t], cc), wq, aq[t]);
+        }
+      }
+      const float bq = bias[h * HD + lane];
+      qna = aq[0] + bq;
+      qnb = two ? aq[1] + bq : qna;
+    } else {
+      qna = src[base + (size_t)r * C + lane];
+      qnb = two ? src[base + (size_t)(r + 1) * C + lane] : qna;
+    }
+  }
+  float qa[HD], qb[HD];
+#pragma unroll
+  for (int d = 0; d < HD; ++d) {
+    qa[d] = __shfl_sync(FULL, qna, d);
+    qb[d] = __shfl_sync(FULL, qnb, d);
+  }
+  PairState st;
+  pair_init(st);
+  const int tiles = (N + KB_F32 - 1) / KB_F32;
+  for (int i = 0; i < tiles; ++i) {
+    if (i + 1 < tiles) stage(i + 1);  // into the buffer tile i - 1 used
+    else cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();                  // tile i landed for every thread
+    if (active)
+      attend_pair_tile(qa, qb, Kb + (i & 1) * KB_F32 * LDK_F32,
+                       Vb + (i & 1) * KB_F32 * HD, i * KB_F32, KB_F32, N,
+                       scale, st);
+    __syncthreads();                  // tile i read
+  }
+  if (active) {
+    o[base + (size_t)r * C + lane] = st.acca / st.la;
+    if (two) o[base + (size_t)(r + 1) * C + lane] = st.accb / st.lb;
+  }
+}
+
+// Shared memory of the streamed kernels (bytes); attention_plan mirrors it.
+size_t stream_mma_smem(int C, bool project) {
+  return sizeof(bf16) * (2 * 2 * (size_t)KB_MMA * HD +
+                         (project ? (size_t)C * LDQW : 0));
+}
+
+constexpr size_t STREAM_F32_SMEM =
+    sizeof(float) * 2 * KB_F32 * (LDK_F32 + HD);
+
+cudaError_t launch_qkv_stream(const void* x, const void* w, const void* b,
+                              void* o, void* v, void* k, int G, int N, int C,
+                              int heads, int dtype, cudaStream_t s) {
+  if (dtype == 1) {
+    constexpr auto proj = kv_projection_mma_kernel;
+    constexpr auto attn = band_attention_stream_mma_kernel<KT_QKV, true>;
+    cudaError_t e = allow_smem<proj>();
+    if (e == cudaSuccess) e = allow_smem<attn>();
+    if (e != cudaSuccess) return e;
+    const dim3 grid(heads, G, (N + 16 * MMA_WARPS - 1) / (16 * MMA_WARPS));
+    const bf16* xb = static_cast<const bf16*>(x);
+    const bf16* wb = static_cast<const bf16*>(w);
+    const float* bb = static_cast<const float*>(b);
+    bf16* kb = static_cast<bf16*>(k);
+    bf16* vb = static_cast<bf16*>(v);
+    proj<<<grid, MMA_WARPS * 32, sizeof(bf16) * (size_t)C * LDKV, s>>>(
+        xb, wb, bb, kb, vb, N, C);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    attn<<<grid, MMA_WARPS * 32, stream_mma_smem(C, true), s>>>(
+        xb, wb, bb, kb, vb, static_cast<bf16*>(o), N, C, ATTN_SCALE);
+    return cudaGetLastError();
+  }
+  const float* xf = static_cast<const float*>(x);
+  const float* wf = static_cast<const float*>(w);
+  const float* bf = static_cast<const float*>(b);
+  float* kf = static_cast<float*>(k);
+  float* vf = static_cast<float*>(v);
+  kv_projection_kernel<<<dim3(heads, G, (N + WARPS * TOK - 1) / (WARPS * TOK)),
+                         WARPS * 32, 0, s>>>(xf, wf, bf, kf, vf, N, C);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  band_attention_stream_kernel<true>
+      <<<dim3(heads, G, (N + ROWS_F32 - 1) / ROWS_F32), WARPS * 32,
+         STREAM_F32_SMEM, s>>>(xf, wf, bf, kf, vf, static_cast<float*>(o), N,
+                               C, ATTN_SCALE);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_attn_stream(const void* q, const void* k, const void* v,
+                               void* o, int G, int N, int C, int heads,
+                               int dtype, cudaStream_t s) {
+  if (dtype == 1) {
+    constexpr auto attn = band_attention_stream_mma_kernel<KT_ATTN, false>;
+    const cudaError_t e = allow_smem<attn>();
+    if (e != cudaSuccess) return e;
+    attn<<<dim3(heads, G, (N + 16 * MMA_WARPS - 1) / (16 * MMA_WARPS)),
+           MMA_WARPS * 32, stream_mma_smem(C, false), s>>>(
+        static_cast<const bf16*>(q), nullptr, nullptr,
+        static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<bf16*>(o), N, C, ATTN_SCALE);
+    return cudaGetLastError();
+  }
+  band_attention_stream_kernel<false>
+      <<<dim3(heads, G, (N + ROWS_F32 - 1) / ROWS_F32), WARPS * 32,
+         STREAM_F32_SMEM, s>>>(
+          static_cast<const float*>(q), nullptr, nullptr,
+          static_cast<const float*>(k), static_cast<const float*>(v),
+          static_cast<float*>(o), N, C, ATTN_SCALE);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// x, o, v: (G, N, C) of the I/O type; w: (C, 3C) of the I/O type; b: (3C,)
-// f32. dtype 0 = float32 (SIMT), 1 = bfloat16 (tensor cores; x, w, o and v
-// 16-byte aligned). Returns the launch status.
+// The resident path of kernel A, bfloat16 (dtype 1; x, w, o and v 16-byte
+// aligned): x, o, v (G, N, C); w (C, 3C); b (3C,) f32. There is no f32
+// resident path (dtype 0 is refused). Returns the launch status.
 extern "C" int yolou_band_attention_qkv(const void* x, const void* w,
                                         const void* b, void* o, void* v, int G,
                                         int N, int C, int heads, int dtype,
                                         void* stream) {
-  if (G <= 0 || N <= 0 || heads <= 0 || C != heads * HD || G > 65535)
+  if (G <= 0 || N <= 0 || heads <= 0 || C != heads * HD || G > 65535 ||
+      dtype != 1)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch_qkv<float>(x, w, b, o, v, G, N, C, heads, s);
-  if (dtype == 1)
-    return (int)launch_qkv_mma(x, w, b, o, v, G, N, C, heads, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)launch_qkv_mma(x, w, b, o, v, G, N, C, heads,
+                             static_cast<cudaStream_t>(stream));
 }
 
-// q, k, v, o: (G, N, C) of the I/O type, head-major channels, C = heads * 32.
-// dtype 0 = float32 (SIMT), 1 = bfloat16 (tensor cores; q, k, v 16-byte
-// aligned). Returns the launch status.
+// The resident path of kernel C, bfloat16 (dtype 1; q, k, v 16-byte
+// aligned): q, k, v, o (G, N, C), head-major channels, C = heads * 32.
+// Returns the launch status.
 extern "C" int yolou_band_attention(const void* q, const void* k,
                                     const void* v, void* o, int G, int N,
                                     int C, int heads, int dtype,
                                     void* stream) {
-  if (G <= 0 || N <= 0 || heads <= 0 || C != heads * HD || G > 65535)
+  if (G <= 0 || N <= 0 || heads <= 0 || C != heads * HD || G > 65535 ||
+      dtype != 1)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_attn<float>(q, k, v, o, G, N, C, heads, s);
-  if (dtype == 1)
-    return (int)launch_attn_mma(q, k, v, o, G, N, C, heads, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)launch_attn_mma(q, k, v, o, G, N, C, heads,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// The streamed path of kernel A (two launches), dtype 0 = float32 (SIMT) or
+// 1 = bfloat16 (tensor cores): as yolou_band_attention_qkv, plus k: a (G,
+// N, C) scratch of the I/O type for the projected keys.
+extern "C" int yolou_band_attention_qkv_stream(const void* x, const void* w,
+                                               const void* b, void* o,
+                                               void* v, void* k, int G, int N,
+                                               int C, int heads, int dtype,
+                                               void* stream) {
+  if (G <= 0 || N <= 0 || heads <= 0 || C != heads * HD || G > 65535 ||
+      (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_qkv_stream(x, w, b, o, v, k, G, N, C, heads, dtype,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// The streamed path of kernel C, dtype 0 = float32 (SIMT) or 1 = bfloat16
+// (tensor cores): as yolou_band_attention.
+extern "C" int yolou_band_attention_stream(const void* q, const void* k,
+                                           const void* v, void* o, int G,
+                                           int N, int C, int heads, int dtype,
+                                           void* stream) {
+  if (G <= 0 || N <= 0 || heads <= 0 || C != heads * HD || G > 65535 ||
+      (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_attn_stream(q, k, v, o, G, N, C, heads, dtype,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* yolou_error_string(int code) {

@@ -1,7 +1,8 @@
 // Device functions shared by the band attention kernels (band_attention.cu)
 // and the whole-A2C2f kernel (a2c2f.cu): type conversion, warp reductions,
 // key/value padding and the per-head attention of a slice of query rows
-// against a band's keys and values held in shared memory.
+// against a band's keys and values held in shared memory, whole or (the
+// streamed form, f32) a tile of keys at a time.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -57,7 +58,7 @@ __device__ __forceinline__ void pad_keys(T* Kt, T* Vs, int N, int Np, int ldk) {
 // ch_stride] as TO. Keep the base pointer with the index computed at the
 // store, and the loop bound written as q0 + r < q1: when the caller offsets
 // the pointer and passes a row count instead, nvcc 12.8 schedules the
-// key-tile loop of the qkv kernel 10-18 % slower (measured on an H100).
+// key-tile loop of its caller 10-18 % slower (measured on an H100).
 template <typename T, bool ROUND_P, typename TO>
 __device__ __forceinline__ void attend(const T* Qs, const T* Kt, const T* Vs,
                                        TO* __restrict__ o, size_t row0,
@@ -123,6 +124,72 @@ __device__ __forceinline__ void attend(const T* Qs, const T* Kt, const T* Vs,
     if (two)
       o[(row + 1) * row_stride + (col0 + lane) * ch_stride] =
           from_f<TO>(accb / lb);
+  }
+}
+
+// The online-softmax state of a warp's pair of query rows a and b in the
+// streamed form of `attend`: running maxima, row sums, and the accumulator
+// of channel `lane`.
+struct PairState {
+  float ma, la, acca, mb, lb, accb;
+};
+
+__device__ __forceinline__ void pair_init(PairState& s) {
+  s.ma = s.mb = -INFINITY;
+  s.la = s.lb = s.acca = s.accb = 0.f;
+}
+
+// The streamed form of `attend` (f32, probabilities not rounded): a warp's
+// pair of query rows (qa, qb: their HD channels, in registers) against the
+// keys k0 .. k0 + count - 1 of a band of N (count a multiple of 32 or
+// reaching N), held row-major in Kr ([count][HD + 1]: lane j reading key
+// j's channel d hits bank (j + d) % 32) and Vr ([count][HD]), in `attend`'s
+// steps of 32 keys with its arithmetic; the state carries over to the next
+// tile, and row a's result is s.acca / s.la at the end.
+__device__ __forceinline__ void attend_pair_tile(const float (&qa)[HD],
+                                                 const float (&qb)[HD],
+                                                 const float* Kr,
+                                                 const float* Vr, int k0,
+                                                 int count, int N,
+                                                 float scale, PairState& s) {
+  const int lane = threadIdx.x & 31;
+  for (int m = 0; m < count && k0 + m < N; m += 32) {
+    const int m0 = k0 + m;
+    float sa = 0.f, sb = 0.f;
+#pragma unroll
+    for (int d = 0; d < HD; ++d) {
+      const float kd = Kr[(m + lane) * (HD + 1) + d];
+      sa = fmaf(qa[d], kd, sa);
+      sb = fmaf(qb[d], kd, sb);
+    }
+    const bool valid = m0 + lane < N;
+    sa = valid ? sa * scale : -INFINITY;
+    sb = valid ? sb * scale : -INFINITY;
+    const float na = fmaxf(s.ma, warp_max(sa));  // finite: key m0 exists
+    const float nb = fmaxf(s.mb, warp_max(sb));
+    const float pa = expf(sa - na), pb = expf(sb - nb);
+    const float ca = expf(s.ma - na), cb = expf(s.mb - nb);
+    s.la = s.la * ca + warp_sum(pa);
+    s.lb = s.lb * cb + warp_sum(pb);
+    s.acca *= ca;
+    s.accb *= cb;
+    const float* vt = Vr + m * HD + lane;
+    if (m0 + 32 <= N) {                        // full step: unrolled
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const float vj = vt[j * HD];
+        s.acca = fmaf(__shfl_sync(FULL, pa, j), vj, s.acca);
+        s.accb = fmaf(__shfl_sync(FULL, pb, j), vj, s.accb);
+      }
+    } else {
+      for (int j = 0; j < N - m0; ++j) {
+        const float vj = vt[j * HD];
+        s.acca = fmaf(__shfl_sync(FULL, pa, j), vj, s.acca);
+        s.accb = fmaf(__shfl_sync(FULL, pb, j), vj, s.accb);
+      }
+    }
+    s.ma = na;
+    s.mb = nb;
   }
 }
 

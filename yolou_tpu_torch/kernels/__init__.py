@@ -9,9 +9,10 @@ launches the kernel (building it on first use) or raises. It never falls
 back from a CUDA tensor to the plain version. Its fake version gives only
 the outputs' shapes and types, so `torch.export` and other graph captures
 record each launch as one node. Each wrapper counts its kernel launches in
-a `launches` attribute, in the real version only; the differentiable ones
-also count the calls of their backward (plain tensor code, no kernel) in
-`backward_calls`.
+a `launches` attribute, in the real version only, one a call; kernel A,
+whose streamed path starts two device kernels a call, also counts those in
+`device_launches`. The differentiable ones also count the calls of their
+backward (plain tensor code, no kernel) in `backward_calls`.
 """
 
 from __future__ import annotations
@@ -35,6 +36,13 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in _WRAPPERS.items()}
 
 
+def device_counts() -> Dict[str, int]:
+    """Kernel name -> device kernels started since the last reset (its
+    launches, but for kernel A's streamed path: two a launch)."""
+    return {name: getattr(fn, "device_launches", fn.launches)
+            for name, fn in _WRAPPERS.items()}
+
+
 def backward_counts() -> Dict[str, int]:
     """Differentiable kernel name -> backward calls since the last reset."""
     return {name: fn.backward_calls for name, fn in _WRAPPERS.items()
@@ -44,5 +52,7 @@ def backward_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in _WRAPPERS.values():
         fn.launches = 0
+        if hasattr(fn, "device_launches"):
+            fn.device_launches = 0
         if hasattr(fn, "backward_calls"):
             fn.backward_calls = 0

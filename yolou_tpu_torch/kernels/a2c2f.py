@@ -5,7 +5,9 @@ into affine GEMMs) in one launch: cv1 -> n stages of two ABlocks (qkv, band
 attention, depthwise 7x7 positional term, projection, MLP, residuals) -> cv2
 over the concatenated stage outputs. Replaces the TPU kernel
 `yolou_tpu/ops/pallas_a2c2f.py::a2c2f_fused` (body `_a2c2f_kernel`). The
-residual-gamma form of A2C2f is not supported there and is not here. The
+MLP's hidden width is the one its weights give (mlp_ratio * c_); the bf16
+kernel takes it padded to a multiple of 16 (`A2C2f.folded_weights` pads).
+The residual-gamma form of A2C2f does not route here in either package. The
 entry point is the `torch.library` operator `yolou::a2c2f` behind a checking
 wrapper, as in `attention.py`.
 """
@@ -21,7 +23,9 @@ import torch.nn.functional as F
 from . import build
 from .attention import _DTYPE_CODE, _SMEM_LIMIT, HEAD_DIM, _check_aligned
 
-TILE = 16          # tokens per CTA tile of a2c2f.cu's f32 kernel (TM)
+F32_TILES = (16, 8, 4)  # a2c2f.cu's f32 token tiles (TM), largest first
+F32_STREAM_KEYS = 64    # keys a tile of its streamed f32 layout
+MMA_STREAM_KEYS = 256   # and of the streamed bf16 one
 MMA_TILE_MIN = 16  # the bf16 kernel's smallest token tile
 MAX_STAGES = 4     # the kernel's parameter block holds 8 ABlocks
 _PER_BLOCK = 10    # tensors per ABlock in the flat weight list
@@ -106,24 +110,54 @@ def a2c2f_fused_plain(x: torch.Tensor, weights: Sequence[torch.Tensor],
     return out.reshape(B, H, W, wcv2.shape[1])
 
 
-def smem_bytes(cin: int, c_: int, n_stages: int, nb: int,
-               dtype: torch.dtype) -> int:
-    """One CTA's shared memory in a2c2f.cu. float32 (SIMT): three transposed
-    f32 activation tiles, then one head's queries, keys and values of a band.
-    bfloat16 (tensor cores) at its smallest layout, a token tile of 16 and
-    one k/v buffer: the weight ring, one head's keys and values of a band,
-    the attention partials, and the t, u and `big` bf16 tiles, rows padded
-    by 16 bytes (the launch takes a larger layout where it fits)."""
+def _pad16(k: int) -> int:
+    return -(-k // 16) * 16
+
+
+def smem_bytes(cin: int, c_: int, n_stages: int, nb: int, dtype: torch.dtype,
+               hidden: int | None = None, tile: int | None = None,
+               streamed: bool = False) -> int:
+    """One CTA's shared memory in a2c2f.cu at token tile `tile` (default:
+    the type's smallest layout), MLP width `hidden` (default 2 c_). float32
+    (SIMT): three transposed f32 activation tiles, then one head's queries,
+    keys and values of a band (`streamed`: a tile of 64 keys and values,
+    the keys' rows 33 words apart, at 16 tokens). bfloat16 (tensor cores),
+    one k/v buffer: the weight ring, one head's keys and values of a band
+    (`streamed`: 256 of them), the attention partials, and the t, u and
+    `big` bf16 tiles, rows padded by 16 bytes (the launch takes a larger
+    token tile where it fits)."""
+    hidden = 2 * c_ if hidden is None else hidden
     if dtype == torch.float32:
+        tile = (F32_TILES[0] if streamed else F32_TILES[-1]) if tile is None \
+            else tile
         n_pad = -(-nb // 32) * 32
-        big = max(cin, 2 * c_, (n_stages + 1) * c_)
-        return (4 * (TILE + 4) * (2 * c_ + big)
-                + 4 * HEAD_DIM * (TILE + n_pad + 1 + n_pad))
-    pad16 = lambda k: -(-k // 16) * 16
-    big = max(pad16(cin), 2 * c_, (n_stages + 1) * c_)
-    tiles = 2 * MMA_TILE_MIN * (2 * (c_ + 8) + big + 8)
-    return (_MMA_RING + 2 * 2 * HEAD_DIM * pad16(nb) + _MMA_PARTS + tiles
+        big = max(cin, hidden, (n_stages + 1) * c_)
+        tiles = 4 * (tile + 4) * (2 * c_ + big)
+        if streamed:
+            return tiles + 4 * F32_STREAM_KEYS * (2 * HEAD_DIM + 1)
+        return tiles + 4 * HEAD_DIM * (tile + n_pad + 1 + n_pad)
+    tile = MMA_TILE_MIN if tile is None else tile
+    big = max(_pad16(cin), _pad16(hidden), (n_stages + 1) * c_)
+    tiles = 2 * tile * (2 * (c_ + 8) + big + 8)
+    kv_rows = MMA_STREAM_KEYS if streamed else _pad16(nb)
+    return (_MMA_RING + 2 * 2 * HEAD_DIM * kv_rows + _MMA_PARTS + tiles
             + _MMA_STATIC)
+
+
+def f32_layout(cin: int, c_: int, n_stages: int, nb: int,
+               hidden: int | None = None) -> tuple[int, bool] | None:
+    """The f32 kernel's (token tile, streamed) for this shape, as a2c2f.cu's
+    `launch_simt` takes it: the largest of `F32_TILES` whose shared memory
+    fits a block with the band's keys and values resident, else 16 tokens
+    with them streamed; None where not even that fits."""
+    for tile in F32_TILES:
+        if smem_bytes(cin, c_, n_stages, nb, torch.float32, hidden,
+                      tile) <= _SMEM_LIMIT:
+            return tile, False
+    if smem_bytes(cin, c_, n_stages, nb, torch.float32, hidden,
+                  streamed=True) <= _SMEM_LIMIT:
+        return F32_TILES[0], True
+    return None
 
 
 def _check(x, weights, n_stages, area, heads):
@@ -146,12 +180,13 @@ def _check(x, weights, n_stages, area, heads):
     (wcv1, bcv1), blocks, (wcv2, bcv2) = _split(weights, n_stages)
     gemms = [("cv1", wcv1, bcv1, cin, c_)]
     f32 = [bcv1, bcv2]
+    hid = blocks[0][6].shape[-1]      # the MLP's width, from mlp1's weight
     for a, (wqkv, bqkv, wpe, bpe, wproj, bproj, wm1, bm1, wm2,
             bm2) in enumerate(blocks):
         gemms += [(f"qkv{a}", wqkv, bqkv, c_, 3 * c_),
                   (f"proj{a}", wproj, bproj, c_, c_),
-                  (f"mlp1_{a}", wm1, bm1, c_, 2 * c_),
-                  (f"mlp2_{a}", wm2, bm2, 2 * c_, c_)]
+                  (f"mlp1_{a}", wm1, bm1, c_, hid),
+                  (f"mlp2_{a}", wm2, bm2, hid, c_)]
         if tuple(wpe.shape) != (7, 7, c_) or bpe.numel() != c_:
             raise ValueError(f"pe{a}: weight {tuple(wpe.shape)} / bias "
                              f"{tuple(bpe.shape)}, want (7, 7, {c_}) / {c_}")
@@ -178,16 +213,27 @@ def _launch_a2c2f(x, weights, n_stages, area, heads):
     """Launch the whole-block kernel on checked CUDA tensors; returns out."""
     B, H, W, cin = x.shape
     c_, c2 = weights[0].shape[1], weights[-2].shape[1]
+    hid = weights[8].shape[1]         # the first ABlock's mlp1 weight
     if c_ // heads != HEAD_DIM:
         raise ValueError(f"the CUDA kernel needs head_dim {HEAD_DIM}, "
                          f"got {c_ // heads}")
     if n_stages > MAX_STAGES:
         raise ValueError(f"the CUDA kernel takes at most {MAX_STAGES} "
                          f"stages, got {n_stages}")
-    need = smem_bytes(cin, c_, n_stages, H * W // area, x.dtype)
-    if need > _SMEM_LIMIT:
-        raise ValueError(f"a band of {H * W // area} tokens at cin={cin}, "
-                         f"c_={c_} needs {need} B of shared memory")
+    if x.dtype == torch.bfloat16 and hid % 16:
+        raise ValueError(f"the bf16 kernel needs the MLP width padded to a "
+                         f"multiple of 16 (A2C2f.folded_weights pads it), "
+                         f"got {hid}")
+    nb = H * W // area
+    if x.dtype == torch.float32:
+        fits = f32_layout(cin, c_, n_stages, nb, hid) is not None
+    else:      # the smallest layout, with the band's keys or a tile of them
+        fits = min(smem_bytes(cin, c_, n_stages, nb, x.dtype, hid,
+                              streamed=st) for st in (False, True)) \
+            <= _SMEM_LIMIT
+    if not fits:
+        raise ValueError(f"a band of {nb} tokens at cin={cin}, c_={c_}, "
+                         f"{n_stages} stages passes a block's shared memory")
     if x.dtype == torch.bfloat16:   # the stencil reads its taps 16 B a time
         _check_aligned(*(blk[2] for blk in _split(weights, n_stages)[1]))
     lib = build.load()
@@ -201,7 +247,8 @@ def _launch_a2c2f(x, weights, n_stages, area, heads):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.yolou_a2c2f(x.data_ptr(), ptrs, len(weights),
                                out.data_ptr(), ys.data_ptr(), qkv.data_ptr(),
-                               B, H, W, cin, c_, c2, n_stages, area, heads,
+                               B, H, W, cin, c_, c2, hid, n_stages, area,
+                               heads,
                                _DTYPE_CODE[x.dtype], stream)
     build.check(lib, code, "A2C2f block kernel")
     a2c2f_fused.launches += 1

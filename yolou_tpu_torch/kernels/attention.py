@@ -31,11 +31,23 @@ in the real version: a traced tensor has none.
 Both entry points dispatch by type inside the C library: bfloat16 runs on
 the tensor cores (`mma.sync` m16n8k16, a warp per 16 query rows, online
 softmax over steps of 32 keys in kernel A and 64 in kernel C, probabilities
-rounded to bfloat16 for the p.v product), float32 on the SIMT path (f32 FMA, which the 1e-4 comparisons
-rest on). Neither falls back to the other or to the plain version.
+rounded to bfloat16 for the p.v product), float32 on the SIMT path (f32
+FMA, which the 1e-4 comparisons rest on). Neither falls back to the other
+or to the plain version.
+
+Each has two paths in bfloat16, chosen by `attention_plan` from the
+shape: the resident path, whose CTAs hold a head's keys and values of the
+whole band in shared memory (bands up to `max_tokens`), where it was the
+faster of the two on an H100, and the streamed path, which passes them
+through shared memory in key tiles (kernel A then in two launches: the k
+and v projection, k into a scratch, then the attention). Both attend in the
+same key steps, so a row's arithmetic is the same on either path. float32
+has the streamed path only. No band length is refused.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -45,6 +57,15 @@ HEAD_DIM = 32     # the CUDA kernel is specialised for YOLOv12's head width
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 227 * 1024
 _CLUSTER_ROWS = 8 * 8 * 16   # bf16 kernel A: CTAs x warps x query rows
+_MAX_CLUSTER = 8             # CTAs of a resident band's cluster, at most
+# the streamed path (band_attention.cu): keys a tile, bf16 and f32
+_STREAM_KEYS = {torch.bfloat16: 128, torch.float32: 64}
+# bf16: the streamed path from this much attention work, (band, head) pairs
+# times N^2, in kernel A (True) and C (False), and in kernel A also from this
+# many pairs; each the crossover of both paths' device times on an H100 80GB
+# HBM3 at 700 W (`tools/attention_routes.py`)
+_STREAM_WORK = {True: 10_000_000, False: 24_000_000}
+_STREAM_PAIRS = 384
 
 
 def area_attention_qkv_fused_plain(x: torch.Tensor, w: torch.Tensor,
@@ -67,40 +88,81 @@ def area_attention_qkv_fused_plain(x: torch.Tensor, w: torch.Tensor,
     return o.to(x.dtype), v.contiguous()
 
 
-def smem_bytes(n: int, c: int, dtype: torch.dtype,
-               projection: bool = True) -> int:
-    """One CTA's dynamic shared memory in band_attention.cu (an upper bound
-    on the float32 path, whose CTAs hold at most N query rows).
-
-    bfloat16 (tensor cores): the head's keys and values, N rounded up to 16
-    rows of 32 channels; kernel A also its head's (C, 96) weights in rows of
-    104. float32 (SIMT): q rows, keys and values of 32 channels, N
-    rounded up to 32 for keys and values; kernel A also its head's (C, 96)
-    weights."""
-    if dtype == torch.bfloat16:
-        n_pad = -(-n // 16) * 16
-        weights = 104 * c if projection else 0
-        return 2 * (weights + 2 * n_pad * HEAD_DIM)
-    n_pad = -(-n // 32) * 32
-    elt = torch.empty((), dtype=dtype).element_size()
-    weights = 3 * HEAD_DIM * c if projection else 0
-    return elt * (weights + HEAD_DIM * n + 2 * HEAD_DIM * n_pad)
+def smem_bytes(n: int, c: int, projection: bool = True) -> int:
+    """One CTA's dynamic shared memory on the resident path (bfloat16,
+    band_attention.cu): the head's keys and values, N rounded up to 16 rows
+    of 32 channels; kernel A also its head's (C, 96) weights in rows of
+    104."""
+    n_pad = -(-n // 16) * 16
+    weights = 104 * c if projection else 0
+    return 2 * (weights + 2 * n_pad * HEAD_DIM)
 
 
-def max_tokens(c: int, dtype: torch.dtype, projection: bool = True) -> int:
-    """The longest band the CUDA kernel takes at width C: its shared memory
-    stays within a block's 227 KB, and in bfloat16 kernel A a band is one
-    cluster of at most 8 CTAs of 8 warps of 16 query rows."""
+def max_tokens(c: int, projection: bool = True) -> int:
+    """The longest band the resident path (bfloat16) holds at width C: its
+    shared memory stays within a block's 227 KB, and in kernel A a band is
+    one cluster of at most 8 CTAs of 8 warps of 16 query rows."""
     n = 0
-    while _fits(n + 1, c, dtype, projection):
+    while _fits(n + 1, c, projection):
         n += 1
     return n
 
 
-def _fits(n: int, c: int, dtype: torch.dtype, projection: bool) -> bool:
-    if dtype == torch.bfloat16 and projection and n > _CLUSTER_ROWS:
+def _fits(n: int, c: int, projection: bool) -> bool:
+    if projection and n > _CLUSTER_ROWS:
         return False
-    return smem_bytes(n, c, dtype, projection) <= _SMEM_LIMIT
+    return smem_bytes(n, c, projection) <= _SMEM_LIMIT
+
+
+def stream_smem_bytes(c: int, dtype: torch.dtype,
+                      projection: bool = True) -> int:
+    """The largest dynamic shared memory of a streamed-path launch
+    (band_attention.cu), whatever N: two buffers of a key tile's keys and
+    values; in bfloat16 kernel A also the head's (C, 32) q weight columns
+    in rows of 40, and its projection launch the (C, 64) k and v columns in
+    rows of 72. The f32 key tile's rows are 33 words apart."""
+    keys = _STREAM_KEYS[dtype]
+    if dtype == torch.bfloat16:
+        attention = 2 * (2 * 2 * keys * HEAD_DIM + (40 * c if projection
+                                                    else 0))
+        return max(attention, 2 * 72 * c if projection else 0)
+    return 4 * 2 * keys * (2 * HEAD_DIM + 1)
+
+
+class AttentionPlan(NamedTuple):
+    """How a band runs: `streamed` or resident, the largest dynamic shared
+    memory of its launches (bytes), the most CTAs of a thread-block cluster
+    (1: none), and its device kernels a call."""
+    streamed: bool
+    smem: int
+    cluster: int
+    launches: int
+
+
+def stream_faster(g: int, n: int, c: int, projection: bool = True) -> bool:
+    """Whether the streamed path beat the resident one on an H100 at G bands
+    of N tokens at width C (bfloat16; `tools/attention_routes.py` timed both
+    at every yolov12 band the resident path holds): where the attention's
+    work, (band, head) pairs times N^2, reaches `_STREAM_WORK`, or in kernel
+    A where the pairs reach `_STREAM_PAIRS`."""
+    pairs = g * (c // HEAD_DIM)
+    return (pairs * n * n >= _STREAM_WORK[projection]
+            or (projection and pairs >= _STREAM_PAIRS))
+
+
+def attention_plan(g: int, n: int, c: int, dtype: torch.dtype,
+                   projection: bool = True) -> AttentionPlan:
+    """The path of G bands of N tokens at width C, kernel A (`projection`)
+    or C: in bfloat16 the resident path where it holds the band
+    (`max_tokens`) and was the faster (`stream_faster`), else the streamed
+    path, which every float32 band takes (it was the faster at every f32
+    band of kernel A and at all but the widest grids of kernel C)."""
+    if (dtype == torch.bfloat16 and _fits(n, c, projection)
+            and not stream_faster(g, n, c, projection)):
+        cluster = min(_MAX_CLUSTER, -(-n // 16)) if projection else 1
+        return AttentionPlan(False, smem_bytes(n, c, projection), cluster, 1)
+    return AttentionPlan(True, stream_smem_bytes(c, dtype, projection), 1,
+                         2 if projection else 1)
 
 
 def _check_aligned(*tensors):
@@ -130,28 +192,38 @@ def _check(x, w, b, heads):
     return g, n, c
 
 
-def _launch_qkv_attention(x, w, b, heads):
-    """Launch kernel A on checked CUDA tensors; returns (o, v)."""
+def _launch_qkv_attention(x, w, b, heads, streamed=None):
+    """Launch kernel A on checked CUDA tensors on the path `attention_plan`
+    gives (`streamed` True or False forces one, for comparisons of the two);
+    returns (o, v)."""
     g, n, c = x.shape
     if c // heads != HEAD_DIM:
         raise ValueError(f"the CUDA kernel needs head_dim {HEAD_DIM}, "
                          f"got {c // heads}")
-    if not _fits(n, c, x.dtype, projection=True):
-        raise ValueError(f"band of N={n}, C={c} is over the "
-                         f"{max_tokens(c, x.dtype)} tokens the {x.dtype} "
-                         f"kernel takes (shared memory and cluster size)")
+    if streamed is False and x.dtype != torch.bfloat16:
+        raise ValueError("float32 has no resident path")
+    if streamed is None:
+        streamed = attention_plan(g, n, c, x.dtype).streamed
     if x.dtype == torch.bfloat16:
         _check_aligned(x, w)
     lib = build.load()
     o = torch.empty_like(x)
     v = torch.empty_like(x)
+    code = _DTYPE_CODE[x.dtype]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.yolou_band_attention_qkv(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), o.data_ptr(),
-            v.data_ptr(), g, n, c, heads, _DTYPE_CODE[x.dtype], stream)
+        if streamed:
+            k = torch.empty_like(x)      # the projected keys, between launches
+            code = lib.yolou_band_attention_qkv_stream(
+                x.data_ptr(), w.data_ptr(), b.data_ptr(), o.data_ptr(),
+                v.data_ptr(), k.data_ptr(), g, n, c, heads, code, stream)
+        else:
+            code = lib.yolou_band_attention_qkv(
+                x.data_ptr(), w.data_ptr(), b.data_ptr(), o.data_ptr(),
+                v.data_ptr(), g, n, c, heads, code, stream)
     build.check(lib, code, "band attention kernel")
     area_attention_qkv_fused.launches += 1
+    area_attention_qkv_fused.device_launches += 2 if streamed else 1
     return o, v
 
 
@@ -216,7 +288,8 @@ def area_attention_qkv_fused(x: torch.Tensor, w: torch.Tensor,
     return band_attention_qkv_op(x, w, b, heads)
 
 
-area_attention_qkv_fused.launches = 0
+area_attention_qkv_fused.launches = 0         # calls that launched
+area_attention_qkv_fused.device_launches = 0  # device kernels they started
 area_attention_qkv_fused.backward_calls = 0
 
 
@@ -270,27 +343,31 @@ def _check_qkv(q, k, v, heads):
     return g, n, c
 
 
-def _launch_band_attention(q, k, v, heads):
-    """Launch kernel C on contiguous CUDA tensors; returns o."""
+def _launch_band_attention(q, k, v, heads, streamed=None):
+    """Launch kernel C on contiguous CUDA tensors on the path
+    `attention_plan` gives (`streamed` True or False forces one); returns
+    o."""
     g, n, c = q.shape
     if c // heads != HEAD_DIM:
         raise ValueError(f"the CUDA kernel needs head_dim {HEAD_DIM}, "
                          f"got {c // heads}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
-    if not _fits(n, c, q.dtype, projection=False):
-        raise ValueError(f"band of N={n} is over the "
-                         f"{max_tokens(c, q.dtype, projection=False)} tokens "
-                         f"the {q.dtype} kernel's shared memory holds")
+    if streamed is False and q.dtype != torch.bfloat16:
+        raise ValueError("float32 has no resident path")
+    if streamed is None:
+        streamed = attention_plan(g, n, c, q.dtype,
+                                  projection=False).streamed
     if q.dtype == torch.bfloat16:
         _check_aligned(q, k, v)
     lib = build.load()
     o = torch.empty_like(q)
+    entry = (lib.yolou_band_attention_stream if streamed
+             else lib.yolou_band_attention)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.yolou_band_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g, n, c,
-            heads, _DTYPE_CODE[q.dtype], stream)
+        code = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     g, n, c, heads, _DTYPE_CODE[q.dtype], stream)
     build.check(lib, code, "band attention (training) kernel")
     return o
 

@@ -72,27 +72,36 @@ def build(verbose: bool = False) -> Path:
     return out
 
 
+def bind(lib: ctypes.CDLL, missing_ok: bool = False) -> ctypes.CDLL:
+    """Give each C entry point of `lib` its argument and result types;
+    `missing_ok` skips the entries a library built from an older source
+    tree lacks (`tools/time_builds.py` times such trees)."""
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    entries = {
+        "yolou_band_attention_qkv": [vp] * 5 + [ci] * 5 + [vp],
+        "yolou_band_attention": [vp] * 4 + [ci] * 5 + [vp],
+        "yolou_band_attention_qkv_stream": [vp] * 6 + [ci] * 5 + [vp],
+        "yolou_band_attention_stream": [vp] * 4 + [ci] * 5 + [vp],
+        "yolou_greedy_nms": [vp, vp, vp, ci, ci, cf, vp],
+        "yolou_a2c2f": [vp, ctypes.POINTER(vp), ci, vp, vp, vp, *[ci] * 11,
+                        vp],
+    }
+    for name, argtypes in entries.items():
+        if missing_ok and not hasattr(lib, name):
+            continue
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ci
+    lib.yolou_error_string.argtypes = [ci]
+    lib.yolou_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """The loaded kernel library, built from `csrc/` on the first call in
     this process."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.yolou_band_attention_qkv.argtypes = [vp, vp, vp, vp, vp,
-                                                 ci, ci, ci, ci, ci, vp]
-        lib.yolou_band_attention_qkv.restype = ci
-        lib.yolou_band_attention.argtypes = [vp, vp, vp, vp,
-                                             ci, ci, ci, ci, ci, vp]
-        lib.yolou_band_attention.restype = ci
-        lib.yolou_greedy_nms.argtypes = [vp, vp, vp, ci, ci, cf, vp]
-        lib.yolou_greedy_nms.restype = ci
-        lib.yolou_a2c2f.argtypes = [vp, ctypes.POINTER(vp), ci, vp, vp, vp,
-                                    *([ci] * 10), vp]
-        lib.yolou_a2c2f.restype = ci
-        lib.yolou_error_string.argtypes = [ci]
-        lib.yolou_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = bind(ctypes.CDLL(str(build())))
     return _lib
 
 

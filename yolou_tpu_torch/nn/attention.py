@@ -17,7 +17,9 @@ output channels (as a strided copy) in training.
 A2C2f built with `mega_kernel=True` hands a whole attention block at eval to
 `kernels.a2c2f.a2c2f_fused` where the shape passes `a2c2f_mega_eligible`:
 every Conv of the block folds into an affine GEMM and the block runs as one
-kernel launch. The state_dict is the same with the flag on or off.
+kernel launch. The state_dict is the same with the flag on or off. The
+residual form (`residual=True`: x + gamma * block(x), a learnable
+per-channel gamma) always runs the staged modules, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import itertools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.a2c2f import a2c2f_fused, a2c2f_mega_eligible
@@ -114,19 +117,22 @@ class ABlock(nn.Module):
 class A2C2f(nn.Module):
     """Area-attention C2f: cv1 -> n stages of (2x ABlock | C3k) -> concat ->
     cv2. a2=True uses attention stages (backbone), a2=False C3k (neck).
-    `mega_kernel` (off by default) routes an attention block at eval through
-    the whole-block kernel where its shape is eligible; training mode and
-    every other shape run the staged modules."""
+    `residual` (attention stages only; c1 == c2) returns x + gamma * out
+    with `gamma` (c2,) learnable, initialised to 0.01. `mega_kernel` (off by
+    default) routes a non-residual attention block at eval through the
+    whole-block kernel where its shape is eligible; training mode and every
+    other shape run the staged modules."""
 
     def __init__(self, c1: int, c2: int, n: int = 1, a2: bool = True,
                  area: int = 1, mlp_ratio: float = 2.0, e: float = 0.5,
                  g: int = 1, shortcut: bool = True,
-                 mega_kernel: bool = False):
+                 mega_kernel: bool = False, residual: bool = False):
         super().__init__()
         c_ = int(c2 * e)
         num_heads = max(1, c_ // 32)
         self.a2, self.area, self.num_heads = a2, area, num_heads
         self.mega_kernel = mega_kernel
+        self.residual = a2 and residual
         self._folded = None       # (key, weights) of the last folding
         self.cv1 = Conv(c1, c_, 1, 1)
         self.cv2 = Conv((1 + n) * c_, c2, 1)
@@ -135,13 +141,18 @@ class A2C2f(nn.Module):
                             for _ in range(2))) if a2
             else C3k(c_, c_, 2, shortcut, g)
             for _ in range(n))
+        if self.residual:
+            self.gamma = nn.Parameter(torch.full((c2,), 0.01))
 
     def folded_weights(self, dtype: torch.dtype):
         """The block's flat weight list for `a2c2f_fused`: GEMM weights
-        (cin, cout) in `dtype`, biases and the (7, 7, c_) pe kernels f32.
-        Folded once and kept until a parameter or buffer of the block is
-        written (its version counter moves) or replaced (`.to(device)`), so
-        that a served block is one kernel launch and not ~200 small ones."""
+        (cin, cout) in `dtype`, biases and the (7, 7, c_) pe kernels f32; in
+        bfloat16 the MLP's width padded to a multiple of 16 (zero columns of
+        mlp1's weight and bias, zero rows of mlp2's weight: exact, since
+        silu(0) = 0), as the tensor-core kernel takes it. Folded once and
+        kept until a parameter or buffer of the block is written (its
+        version counter moves) or replaced (`.to(device)`), so that a served
+        block is one kernel launch and not ~200 small ones."""
         key = (dtype, *((t.data_ptr(), t._version) for t in
                         itertools.chain(self.parameters(), self.buffers())))
         if self._folded is None or self._folded[0] != key:
@@ -150,10 +161,14 @@ class A2C2f(nn.Module):
         return self._folded[1]
 
     def _fold(self, dtype: torch.dtype):
-        def gemm(conv: Conv):
+        def gemm(conv: Conv, rows: int = 0, cols: int = 0):
+            """(cin, cout) weight and bias, zero-padded by `rows` / `cols`."""
             w, b = conv.folded()
-            return [w[:, :, 0, 0].t().contiguous().to(dtype), b.contiguous()]
+            w = F.pad(w[:, :, 0, 0].t(), (0, cols, 0, rows))
+            return [w.contiguous().to(dtype), F.pad(b, (0, cols)).contiguous()]
 
+        hid = self.m[0][0].mlp[0].conv.out_channels
+        pad = -hid % 16 if dtype == torch.bfloat16 else 0
         ws = gemm(self.cv1)
         for stage in self.m:
             for blk in stage:
@@ -161,11 +176,13 @@ class A2C2f(nn.Module):
                 ws += [*blk.attn.folded_qkv(dtype),
                        wpe[:, 0].permute(1, 2, 0).contiguous(),
                        bpe.contiguous(), *gemm(blk.attn.proj),
-                       *gemm(blk.mlp[0]), *gemm(blk.mlp[1])]
+                       *gemm(blk.mlp[0], cols=pad),
+                       *gemm(blk.mlp[1], rows=pad)]
         return ws + gemm(self.cv2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.mega_kernel and self.a2 and not self.training:
+        if (self.mega_kernel and self.a2 and not self.residual
+                and not self.training):
             B, cin, H, W = x.shape
             area = self.area if (H * W) % self.area == 0 else 1
             c_ = self.cv1.conv.out_channels
@@ -176,7 +193,10 @@ class A2C2f(nn.Module):
                 return out.permute(0, 3, 1, 2)
         y = [self.cv1(x)]
         y.extend(m(y[-1]) for m in self.m)
-        return self.cv2(torch.cat(y, 1))
+        out = self.cv2(torch.cat(y, 1))
+        if self.residual:
+            return x + self.gamma.to(out.dtype).view(-1, 1, 1) * out
+        return out
 
 
 class PSAAttention(nn.Module):

@@ -1,0 +1,117 @@
+"""Time the two paths of the band attention kernels against each other, on
+one GPU, at every band of yolov12 n-x that both take (bfloat16, the one
+type with two paths).
+
+    python -m yolou_tpu_torch.tools.attention_routes [--out F] [--iters N]
+
+Kernels A (`area_attention_qkv_fused`) and C (`area_attention_fused`) each
+have a resident path (a CTA holds its head's keys and values of the whole
+band) and a streamed one (key tiles through shared memory); see
+`kernels/attention.py::attention_plan`, whose choice between them rests on
+these times. For each band (layers 6 and 8 of every yolov12 scale at
+160^2-1280^2, batch 1 and 8; 160^2 also at batch 16, the evaluator's, and
+128, the objectmap generator's) that the resident path holds, the two
+paths are forced in turns (resident, streamed, streamed, resident) on the
+same seeded inputs, each turn the card's own time per call
+(`profile_layers.device_ms`, torch.profiler, `--iters` calls after 3
+warm-up calls). Prints the card's name and power limit, then one JSON
+object: {"card": ..., "rows": [{"kernel", "dtype", "g", "n", "c",
+"heads", "resident_ms": [2 turns], "streamed_ms": [2 turns],
+"plan": "resident" or "streamed"}, ...]}; "plan" is the path
+`attention_plan` takes.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..kernels.attention import (_launch_band_attention,
+                                 _launch_qkv_attention, attention_plan,
+                                 max_tokens)
+from .profile_layers import card_name_and_power_limit, device_ms
+
+# yolov12's attention widths at layers 6 and 8 (AAttn's dim), n-x
+WIDTHS = ((64, 128), (128, 256), (256, 256), (256, 256), (384, 384))
+SIZES = (160, 320, 480, 640, 800, 960, 1120, 1280)
+
+
+def bands():
+    """(G, N, C, heads) of every yolov12 band above, each once."""
+    out = []
+    for c6, c8 in WIDTHS:
+        for imgsz in SIZES:
+            batches = (1, 8, 16, 128) if imgsz == 160 else (1, 8)
+            for batch in batches:
+                for c, stride, area in ((c6, 16, 4), (c8, 32, 1)):
+                    tokens = (imgsz // stride) ** 2
+                    n = tokens // area if tokens % area == 0 else tokens
+                    g = batch * (area if tokens % area == 0 else 1)
+                    band = (g, n, c, c // 32)
+                    if band not in out:
+                        out.append(band)
+    return out
+
+
+def time_routes(iters: int = 20, device: str = "cuda"):
+    """The rows described above."""
+    rng = np.random.default_rng(0)
+    dtype = torch.bfloat16
+
+    def mk(shape, std=1.0):
+        return torch.from_numpy(rng.normal(0, std, shape).astype(
+            np.float32)).to(device, dtype)
+
+    rows = []
+    for projection in (True, False):
+        for g, n, c, heads in bands():
+            if n > max_tokens(c, projection):
+                continue
+            if projection:
+                x, w = mk((g, n, c)), mk((c, 3 * c), 0.5 / np.sqrt(c))
+                b = torch.zeros(3 * c, device=device)
+
+                def run(streamed):
+                    return lambda: _launch_qkv_attention(x, w, b, heads,
+                                                         streamed)
+            else:
+                q, k, v = mk((g, n, c)), mk((g, n, c)), mk((g, n, c))
+
+                def run(streamed):
+                    return lambda: _launch_band_attention(q, k, v, heads,
+                                                          streamed)
+            times = {False: [], True: []}
+            for streamed in (False, True, True, False):
+                times[streamed].append(device_ms(run(streamed), iters))
+            plan = attention_plan(g, n, c, dtype, projection)
+            rows.append({
+                "kernel": "A" if projection else "C", "dtype": "bfloat16",
+                "g": g, "n": n, "c": c, "heads": heads,
+                "resident_ms": times[False], "streamed_ms": times[True],
+                "plan": "streamed" if plan.streamed else "resident"})
+            print(json.dumps(rows[-1]), flush=True)
+    return rows
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--out", type=Path, default=None,
+                   help="also write the JSON object to this file")
+    p.add_argument("--iters", type=int, default=20)
+    args = p.parse_args(argv)
+    card = card_name_and_power_limit()
+    print(card, flush=True)
+    result = {"card": card, "rows": time_routes(args.iters)}
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(result, indent=1))
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -247,7 +247,8 @@ def _jax_paths(model: nn.Module) -> Dict[str, Tuple[str, Tuple[str, ...],
     out: Dict = {}
     leaf_names = {"weight": ("params", None), "bias": ("params", "bias"),
                   "running_mean": ("batch_stats", "mean"),
-                  "running_var": ("batch_stats", "var")}
+                  "running_var": ("batch_stats", "var"),
+                  "gamma": ("params", "gamma")}     # residual A2C2f
 
     def visit(mod, prefix, path, pending, owner, perm):
         if type(mod) in (nn.ModuleList, nn.Sequential):

@@ -9,9 +9,12 @@ library (`_build/`, named by the hash of its sources); the package's wrappers
 then launch each library's kernels on the same seeded bfloat16 inputs, at
 the shapes the serving, training and evaluation paths and the attention
 profiler give them (batch 8 at 640^2, batch 16 at 160^2; NMS over 512
-candidates of 8 and of 16 images, all valid). A `csrc` from before the
+candidates of 8 and of 16 images, all valid), kernels A and C on their
+resident path, which every such tree has. A `csrc` from before the
 one-launch NMS kernel, whose C entry still takes a hit-matrix scratch, gets
-that scratch allocated here. The builds take
+that scratch allocated here; one from before the whole-A2C2f kernel took
+its MLP width (whose C entry has no `hid`) is called without it. The
+builds take
 turns in the order given and then in reverse (old, new, new, old for two), so
 a drift of the card's clock over the run shows as a spread and not as a
 difference. Prints one JSON object: case -> directory -> {"device_ms":
@@ -44,8 +47,9 @@ import torch
 from ..kernels import build
 from ..kernels.a2c2f import a2c2f_fused
 from ..kernels.nms import suppress_greedy
-from ..kernels.attention import area_attention, area_attention_fused, \
-    area_attention_qkv_fused
+from ..kernels.attention import (_launch_band_attention,
+                                 _launch_qkv_attention, area_attention_fused,
+                                 area_attention_qkv_fused)
 from .profile_layers import call_ms, device_ms
 
 # name, (G, N, C), heads
@@ -70,19 +74,26 @@ F32_FLOPS = 67e12
 def load_library(csrc: Path):
     """Build (if needed) and load the kernels of one `csrc` directory. A
     library whose NMS entry takes the hit-matrix scratch (the two-launch
-    kernel) is marked `nms_hit_scratch` and given that entry's signature."""
-    saved = build.CSRC, build._lib
+    kernel) is marked `nms_hit_scratch` and given that entry's signature;
+    one whose `yolou_a2c2f` has no MLP width gets an entry that drops it."""
+    saved = build.CSRC
     try:
-        build.CSRC, build._lib = csrc.resolve(), None
-        lib = build.load()
+        build.CSRC = csrc.resolve()
+        lib = build.bind(ctypes.CDLL(str(build.build())), missing_ok=True)
     finally:
-        build.CSRC, build._lib = saved
+        build.CSRC = saved
+    vp, ci = ctypes.c_void_p, ctypes.c_int
     nms_source = (csrc / "greedy_nms.cu").read_text()
     lib.nms_hit_scratch = "nms_hit_kernel" in nms_source
     if lib.nms_hit_scratch:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.yolou_greedy_nms.argtypes = [vp, vp, vp, vp, ci, ci,
                                          ctypes.c_float, vp]
+    if "int hid" not in (csrc / "a2c2f.cu").read_text():
+        entry = lib.yolou_a2c2f
+        entry.argtypes = [vp, ctypes.POINTER(vp), ci, vp, vp, vp,
+                          *[ci] * 10, vp]
+        # the new entry's arguments: ..., c_, c2, hid, n_stages, ...
+        lib.yolou_a2c2f = lambda *args: entry(*args[:12], *args[13:])
     return lib
 
 
@@ -104,6 +115,21 @@ def _nms(boxes, valid):
     return keep
 
 
+def _resident_qkv(x, w, b, heads):
+    """Kernel A on its resident path (on the CPU the wrapper: the plain
+    version)."""
+    if x.device.type == "cpu":
+        return area_attention_qkv_fused(x, w, b, heads)
+    return _launch_qkv_attention(x, w, b, heads, streamed=False)
+
+
+def _resident_attention(q, k, v, heads):
+    """Kernel C on its resident path (on the CPU the wrapper)."""
+    if q.device.type == "cpu":
+        return area_attention_fused(q, k, v, heads)
+    return _launch_band_attention(q, k, v, heads, streamed=False)
+
+
 def _calls(device):
     """case name -> a call of the package's wrapper on seeded inputs."""
     rng = np.random.default_rng(0)
@@ -116,13 +142,10 @@ def _calls(device):
     for name, (g, n, c), heads in QKV_CASES:
         x, w, b = mk((g, n, c)), mk((c, 3 * c), 0.5 / np.sqrt(c)), mk(
             (3 * c,), 0.1, torch.float32)
-        calls[name] = lambda x=x, w=w, b=b, h=heads: area_attention_qkv_fused(
-            x, w, b, h)
+        calls[name] = functools.partial(_resident_qkv, x, w, b, heads)
     for name, shape, heads in ATTN_CASES:
         q, k, v = mk(shape), mk(shape), mk(shape)
-        calls[name] = (lambda q=q, k=k, v=v: area_attention(q, k, v)) \
-            if heads == 1 else \
-            (lambda q=q, k=k, v=v, h=heads: area_attention_fused(q, k, v, h))
+        calls[name] = functools.partial(_resident_attention, q, k, v, heads)
 
     def gemm(k, n):                  # a (k, n) weight and its f32 bias
         return [mk((k, n), 0.5 / np.sqrt(k)), mk((n,), 0.1, torch.float32)]
