@@ -260,6 +260,10 @@ BN_STD = 0.1
 # published peaks of one H100 SXM, dense: bytes/s of HBM3, FLOP/s by input type
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# exps a second of the special-function units of one H100 SXM (16 an SM a
+# clock, FlashAttention-3's figure): the floor of an attention whose
+# operations bound is below it, one exp a score
+EXP_RATE = 3.9e12
 
 
 def log(phase: str, **kv) -> None:
@@ -348,6 +352,41 @@ def bound(nbytes: float, flops: float, dtype: str):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def exp_floor(g: int, heads: int, n: int) -> float:
+    """Milliseconds the exp unit needs for one exp a score of G bands of N
+    tokens and `heads` heads, at `EXP_RATE`: a floor beside `bound`, which
+    stays the roofline of bytes and operations."""
+    return g * heads * n * n / EXP_RATE * 1e3
+
+
+def device_kernel_ms(fn, iters: int = 20) -> dict:
+    """Device milliseconds per call of `fn` by device kernel (torch.profiler,
+    `iters` calls after 3 warm-up), keyed by the kernel's name and template
+    arguments (its namespace and parameters dropped)."""
+    import re
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    cuda = torch.autograd.DeviceType.CUDA
+    for _ in range(3):           # a trace that comes back empty is taken again
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == cuda:
+                m = re.search(r"\w+_kernel(?:<[^>]*>)?", e.name())
+                name = m.group(0) if m else e.name()
+                out[name] = out.get(name, 0.0) + e.duration_ns() / 1e6 / iters
+        if out:
+            return out
+    raise RuntimeError("torch.profiler recorded no device time")
+
+
 def dtype_name(dtype) -> str:
     return str(dtype).split(".")[-1]
 
@@ -393,6 +432,9 @@ def check_attention(device):
     # 160^2, batch 128; then the bands the resident path cannot hold
     cases = [("L6@640", 4 * BATCH, 400, 64, 2, BOTH),
              ("L8@640", BATCH, 400, 128, 4, BOTH),
+             # the default (f32) commands' batch 16 at 640^2
+             ("L6@640b16", 4 * EVAL_BATCH, 400, 64, 2, ("float32",)),
+             ("L8@640b16", EVAL_BATCH, 400, 128, 4, ("float32",)),
              ("L6@160", 4 * EVAL_BATCH, 25, 64, 2, BOTH),
              ("L8@160", EVAL_BATCH, 25, 128, 4, BOTH),
              # a data shard of the model_axis phase's 2 x 2 mesh
@@ -435,17 +477,28 @@ def check_attention(device):
             bound_ms, bound_by = bound(nbytes, flops, dtype_name(dtype))
             plan = attention_plan(g, n, c, dtype)
             paths = {}
+            if plan.streamed:    # its two device kernels, each timed
+                split = device_kernel_ms(
+                    lambda: area_attention_qkv_fused(xt, wt, bt, heads))
+                paths = {"projection_ms": sum(
+                             v for k, v in split.items() if "projection" in k),
+                         "attention_ms": sum(
+                             v for k, v in split.items()
+                             if "projection" not in k),
+                         "device_kernels": sorted(split)}
             if name in ("L6@640", "L8@640") and dtype == torch.bfloat16:
-                paths = dict(zip(("resident_ms", "streamed_ms"),
+                paths.update(zip(("resident_ms", "streamed_ms"),
                                  streamed_vs_resident(
                     lambda st: lambda: _launch_qkv_attention(xt, wt, bt,
                                                              heads, st))))
+            floor_ms = exp_floor(g, heads, n)
             log("kernel", name="band_attention", case=name,
                 shape=f"({g},{n},{c})h{heads}", dtype=dtype_name(dtype),
                 path="streamed" if plan.streamed else "resident",
-                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                attention_library_ms=attn_lib_ms, bound_ms=bound_ms,
-                bound_by=bound_by, call_ms=call_ms,
+                rows=plan.rows, max_abs_err=err, tol=tol, ms=ms,
+                plain_ms=plain_ms, attention_library_ms=attn_lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by, exp_floor_ms=floor_ms,
+                call_ms=call_ms,
                 plain_call_ms=plain_call_ms,
                 attention_library_call_ms=attn_lib_call_ms, **paths)
             if not finite or not err <= tol:
@@ -455,10 +508,16 @@ def check_attention(device):
             times[(name, dtype)] = {"ms": ms, "call_ms": call_ms,
                                     "plain_ms": plain_ms,
                                     "bound_ms": bound_ms,
-                                    "bound_by": bound_by, "library_ms": None,
+                                    "bound_by": bound_by,
+                                    "exp_floor_ms": floor_ms,
+                                    "library_ms": None,
                                     "attention_library_ms": attn_lib_ms,
                                     "max_abs_err": err,
-                                    "streamed": plan.streamed}
+                                    "streamed": plan.streamed, **{
+                                        k: v for k, v in paths.items()
+                                        if k in ("projection_ms",
+                                                 "attention_ms",
+                                                 "device_kernels")}}
     return times
 
 
@@ -491,6 +550,9 @@ def check_training_attention(device):
              ("L6@160/2", 4 * EVAL_BATCH // 2, 25, 64, 2, BOTH),
              ("L8@160/2", EVAL_BATCH // 2, 25, 128, 4, BOTH),
              ("single", 64, 400, 32, 1, BOTH),
+             # the default (f32) train-detector's batch 16 at 640^2
+             ("L6@640b16", 4 * EVAL_BATCH, 400, 64, 2, ("float32",)),
+             ("L8@640b16", EVAL_BATCH, 400, 128, 4, ("float32",)),
              ("L6@1024", 4 * BATCH, 1024, 64, 2, ("float32",)),
              ("L6@1408", 4 * BATCH, 1936, 64, 2, ("bfloat16",))]
     for name, shape, heads in zip(("profile-single", "profile-fused"),
@@ -540,8 +602,9 @@ def check_training_attention(device):
                     lambda: attention_backward(q, k, v, do, heads))[0]
             nbytes = 4 * g * n * c * q.element_size()     # q, k, v in; o out
             bound_ms, bound_by = bound(nbytes, 4 * g * n * n * c, dn)
-            streamed = attention_plan(g, n, c, dtype,
-                                      projection=False).streamed
+            floor_ms = exp_floor(g, heads, n)
+            plan = attention_plan(g, n, c, dtype, projection=False)
+            streamed = plan.streamed
             paths = {}
             if name in ("L6@640", "L8@640") and dtype == torch.bfloat16:
                 with torch.no_grad():
@@ -551,12 +614,13 @@ def check_training_attention(device):
                             q, k, v, heads, st))))
             log("kernel", name=kname, case=name,
                 shape=f"({g},{n},{c})h{heads}", dtype=dn,
-                path="streamed" if streamed else "resident", **paths,
-                max_abs_err=err,
+                path="streamed" if streamed else "resident", rows=plan.rows,
+                **paths, max_abs_err=err,
                 tol=ATTN_TOL[dn], grad_max_abs_err=gerr, grad_tol=GRAD_TOL[dn],
                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 library_max_abs_err=lib_err, backward_ms=bwd_ms,
-                bound_ms=bound_ms, bound_by=bound_by, call_ms=call_ms,
+                bound_ms=bound_ms, bound_by=bound_by, exp_floor_ms=floor_ms,
+                call_ms=call_ms,
                 plain_call_ms=plain_call_ms, library_call_ms=lib_call_ms)
             if not (torch.isfinite(o).all() and err <= ATTN_TOL[dn]
                     and gerr <= GRAD_TOL[dn]):
@@ -566,8 +630,9 @@ def check_training_attention(device):
             results[(name, dn)] = {
                 "max_abs_err": err, "ms": ms, "call_ms": call_ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": lib_ms,
-                "backward_ms": bwd_ms, "streamed": streamed}
+                "bound_by": bound_by, "exp_floor_ms": floor_ms,
+                "library_ms": lib_ms, "backward_ms": bwd_ms,
+                "streamed": streamed}
     return results
 
 
@@ -3925,11 +3990,12 @@ def demo_phase(device, root: str) -> dict:
 
 def _kernel_name(line: str):
     """The band attention or a2c2f kernel a ptxas or SASS line names, with
-    its I/O type and template arguments (token tile, key step, flags), else
-    None: a `_mma_` kernel is bf16, the others f32."""
+    its I/O type and template arguments (token tile or query rows, key
+    step or consumer warpgroups, flags), else None: a `_mma_` or `_wgmma_`
+    kernel is bf16, the others f32."""
     import re
     m = re.search(r"((?:band_attention_(?:qkv_|stream_)?|a2c2f_|"
-                  r"kv_projection_)(?:mma_)?kernel)(I\S*?EE)?", line)
+                  r"kv_projection_)(?:wgmma_|mma_)?kernel)(I\S*?EE)?", line)
     if not m:
         return None
     name, targs = m.group(1), m.group(2) or ""
@@ -3939,9 +4005,9 @@ def _kernel_name(line: str):
 
 def band_attention_build_report(ptxas_log: str, library) -> list:
     """Per band attention and whole-A2C2f kernel instantiation: registers
-    and spill bytes from ptxas' report, and its tensor-core instructions
-    (HMMA) in the SASS of the built library where the toolkit has
-    `cuobjdump` (else None)."""
+    and spill bytes from ptxas' report, and its tensor-core instructions in
+    the SASS of the built library where the toolkit has `cuobjdump` (else
+    None): HMMA (`mma.sync`) and HGMMA (`wgmma`)."""
     import re
     import shutil
     report, name = {}, None
@@ -3964,17 +4030,40 @@ def band_attention_build_report(ptxas_log: str, library) -> list:
     except (OSError, subprocess.CalledProcessError):
         pass
     for entry in report.values():
-        entry["hmma"] = None
+        entry["hmma"] = entry["hgmma"] = None
     if sass is not None:
+        for entry in report.values():
+            entry["hmma"] = entry["hgmma"] = 0
         name = None
         for line in sass.splitlines():
             if "Function :" in line:
                 name = _kernel_name(line)
-            elif name in report and re.search(r"\bHMMA\b", line):
-                report[name]["hmma"] = (report[name]["hmma"] or 0) + 1
-        for entry in report.values():
-            entry["hmma"] = entry["hmma"] or 0
+            elif name in report:
+                for op in ("hmma", "hgmma"):
+                    if re.search(rf"\b{op.upper()}\b", line):
+                        report[name][op] += 1
     return [{"kernel": k, **v} for k, v in sorted(report.items())]
+
+
+def check_build_report(report: list) -> None:
+    """bf16 kernels on the tensor cores, f32 ones on none (no TF32); the
+    streamed bf16 kernel on wgmma only (HGMMA, no HMMA)."""
+    if not any(e["kernel"].startswith("a2c2f_mma_kernel") for e in report):
+        raise AssertionError("no bf16 a2c2f kernel in the build report")
+    if not any("wgmma" in e["kernel"] for e in report):
+        raise AssertionError("no wgmma kernel in the build report")
+    for entry in report:
+        log("build", **entry)
+        if entry["hmma"] is None:
+            continue
+        tensor_cores = "<bf16" in entry["kernel"]
+        if (entry["hmma"] + entry["hgmma"] > 0) != tensor_cores:
+            raise AssertionError(f"{entry['kernel']}: {entry['hmma']} HMMA, "
+                                 f"{entry['hgmma']} HGMMA")
+        if "wgmma" in entry["kernel"] and (entry["hmma"] or
+                                           not entry["hgmma"]):
+            raise AssertionError(f"{entry['kernel']}: {entry['hmma']} HMMA, "
+                                 f"{entry['hgmma']} HGMMA")
 
 
 def main() -> int:
@@ -4007,15 +4096,8 @@ def main() -> int:
     build.load()
     log("build", seconds=round(time.perf_counter() - t0, 3),
         library=lib_path.name)
-    # bf16 on the tensor cores, f32 on the SIMT path
-    report = band_attention_build_report(ptxas.getvalue(), lib_path)
-    if not any(e["kernel"].startswith("a2c2f_mma_kernel") for e in report):
-        raise AssertionError("no bf16 a2c2f kernel in the build report")
-    for entry in report:
-        log("build", **entry)
-        tensor_cores = "<bf16" in entry["kernel"]
-        if entry["hmma"] is not None and (entry["hmma"] > 0) != tensor_cores:
-            raise AssertionError(f"{entry['kernel']}: {entry['hmma']} HMMA")
+    check_build_report(band_attention_build_report(ptxas.getvalue(),
+                                                   lib_path))
     mark("build")
 
     attn_cases = check_attention(device)
@@ -4150,6 +4232,8 @@ def main() -> int:
                 for dn in BOTH}
         row = cases[at]
         return {**{k: row[k] for k in keys},
+                **{k: row[k] for k in ("exp_floor_ms", "projection_ms",
+                                       "attention_ms") if k in row},
                 "max_abs_err": max(sum(errs.values(), [])),
                 **{f"max_abs_err_{SHORT[dn]}": max(e) if e else None
                    for dn, e in errs.items()},
@@ -4158,7 +4242,10 @@ def main() -> int:
                 "ms_source": times_source(row)}
 
     stream_a = attention_row(attn_cases, ("L6@1280", "bfloat16"), True)
+    stream_a32 = attention_row(attn_cases, ("L6@640b16", "float32"), True)
     stream_c = attention_row(multi_head, ("L6@1024", "float32"), True)
+    stream_c16 = {k: v for k, v in multi_head[("L6@1408", "bfloat16")].items()
+                  if k != "streamed"}
     shapes_devices = shapes.pop("device kernels")
     print(json.dumps({"kernels": [
         {"name": "band_attention", "route": "cuda",
@@ -4188,11 +4275,22 @@ def main() -> int:
          "backward_calls": dec["attention_backward_calls"]},
         {"name": "band_attention_streamed", "route": "cuda",
          "source": src + "band_attention.cu", "replaces": pallas + ":357",
+         "device_kernels": ["kv_projection_mma_kernel",
+                            "band_attention_stream_wgmma_kernel<NC, true>"],
          "launches": shapes["yolov12s bf16 1280"]["band_attention"],
          "device_launches": shapes_devices["yolov12s bf16 1280"],
          **stream_a,
          "attention_library_ms":
              attn_cases[("L6@1280", "bfloat16")]["attention_library_ms"]},
+        {"name": "band_attention_streamed_f32", "route": "cuda",
+         "source": src + "band_attention.cu", "replaces": pallas + ":357",
+         "device_kernels": ["kv_projection_kernel",
+                            "band_attention_stream_kernel<R, true>"],
+         "launches": shapes["yolov12s f32 640"]["band_attention"],
+         "device_launches": shapes_devices["yolov12s f32 640"],
+         **stream_a32,
+         "attention_library_ms":
+             attn_cases[("L6@640b16", "float32")]["attention_library_ms"]},
         {"name": "greedy_nms", "route": "cuda",
          "source": src + "greedy_nms.cu",
          "replaces": "yolou_tpu/ops/pallas_nms.py:97",
@@ -4231,6 +4329,9 @@ def main() -> int:
          **attention_row(multi_head, ("L6@640", "bfloat16"))},
         {"name": "band_attention_train_streamed", "route": "cuda",
          "source": src + "band_attention.cu", "replaces": pallas + ":243",
+         "device_kernels": ["band_attention_stream_kernel<R, false>",
+                            "band_attention_stream_wgmma_kernel<NC, false>"],
+         "bf16 L6@1408": stream_c16,
          "launches": shapes["yolov12n train f32 1024"]["band_attention_train"],
          "backward_calls": shapes["yolov12n train f32 1024"]["backward"],
          "launches_by_path": {

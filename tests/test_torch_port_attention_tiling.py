@@ -1,6 +1,7 @@
-"""PyTorch port: the arithmetic order of the tensor-core band attention
-kernels (`csrc/attention_mma.cuh`), emulated on the CPU, against the JAX
-package's Pallas kernels in interpret mode.
+"""PyTorch port: the arithmetic order of the band attention kernels
+(`csrc/attention_mma.cuh` and the streamed kernels of
+`csrc/band_attention.cu`), emulated on the CPU, against the JAX package's
+Pallas kernels in interpret mode.
 
 The CUDA kernels run only on the card; what the CPU can check is their
 blocking and rounding. `tiled_attention` repeats it step for step: 16-row
@@ -17,6 +18,13 @@ to four heads:
     steps at that magnitude: a probability rounded against another maximum
     moves by at most one bf16 step (2**-8 relative), the output's own
     rounding by at most one more.
+
+The streamed path (both types) blocks otherwise: a CTA's query rows in
+blocks of R (f32: 64, 32 or 16; bf16: a consumer warpgroup's 64), the
+online softmax once a ring tile of keys (f32 64, bf16 128), the running
+maximum in raw score units and the probabilities exp2(s * sl2 - m * sl2)
+with sl2 = scale * log2(e) folded in (`streamed_attention`), held to the
+same tolerances.
 """
 
 import jax.numpy as jnp
@@ -34,6 +42,11 @@ from .torch_threads import one_torch_thread  # noqa: F401
 HD = 32
 TILE = 16          # query rows per warp
 KT_ATTN, KT_QKV = 64, 32   # keys per online-softmax step, kernels C and A
+# the streamed path: keys a step of its online softmax (a ring tile) and
+# query rows a block, by type
+STREAM_KEYS = {torch.float32: 64, torch.bfloat16: 128}
+STREAM_ROWS = {torch.float32: (64, 32, 16), torch.bfloat16: (128, 64)}
+LOG2E = 1.4426950408889634
 
 
 def tiled_attention(q, k, v, heads, kt, dtype):
@@ -61,6 +74,39 @@ def tiled_attention(q, k, v, heads, kt, dtype):
             acc = acc * c_ + p.to(dtype).float() @ vh[:, :, k0:k0 + kt]
             m = m_new
         out[:, :, r0:r0 + TILE] = acc / l
+    return out.transpose(1, 2).reshape(g, n, c).to(dtype)
+
+
+def streamed_attention(q, k, v, heads, dtype, rows, keys=None):
+    """The streamed kernels' blocking on (G, N, C) f32 tensors holding
+    `dtype` values: query blocks of `rows` (a bf16 CTA's consumer
+    warpgroups take 64 each), the online softmax in steps of `keys` (the
+    type's by default) in log2 units against a maximum kept in raw units;
+    returns (G, N, C) in `dtype`."""
+    g, n, c = q.shape
+    keys = keys or STREAM_KEYS[dtype]
+    block = min(rows, 64) if dtype == torch.bfloat16 else rows
+    sl2 = torch.tensor(HD ** -0.5 * LOG2E, dtype=torch.float32)
+
+    def split(t):                      # (G, heads, N, hd), head-major
+        return t.reshape(g, n, heads, HD).transpose(1, 2)
+
+    qh, kh, vh = split(q), split(k), split(v)
+    out = torch.empty_like(qh)
+    for r0 in range(0, n, block):
+        qt = qh[:, :, r0:r0 + block]
+        m = torch.full(qt.shape[:-1] + (1,), -torch.inf)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(qt)
+        for k0 in range(0, n, keys):
+            s = qt @ kh[:, :, k0:k0 + keys].transpose(-1, -2)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.exp2(s * sl2 - m_new * sl2)
+            c_ = torch.exp2((m - m_new) * sl2)
+            l = l * c_ + p.sum(-1, keepdim=True)
+            acc = acc * c_ + p.to(dtype).float() @ vh[:, :, k0:k0 + keys]
+            m = m_new
+        out[:, :, r0:r0 + block] = acc / l
     return out.transpose(1, 2).reshape(g, n, c).to(dtype)
 
 
@@ -137,3 +183,49 @@ def test_eval_kernel_order_matches_jax(g, n, heads, name, dtype, jdtype):
         torch.from_numpy(b), heads)
     np.testing.assert_allclose(plain_o.float().numpy(), got_o.float().numpy(),
                                rtol=0, atol=tol)
+
+
+STREAM_CASES = [(dtype, rows) for dtype in (torch.float32, torch.bfloat16)
+                for rows in STREAM_ROWS[dtype]]
+
+
+@pytest.mark.parametrize("dtype,rows", STREAM_CASES,
+                         ids=[f"{str(d)[6:]}-{r}" for d, r in STREAM_CASES])
+@pytest.mark.parametrize("g,n,heads", CASES)
+def test_streamed_training_kernel_matches_jax(g, n, heads, dtype, rows):
+    """Kernel C's streamed blocking at every query-block size against the
+    Pallas `area_attention_fused`, and against the resident blocking."""
+    jdtype = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    c = HD * heads
+    q, k, v = _arrays([((g, n, c), 1.0)] * 3, seed=n + heads, dtype=dtype)
+    want = np.asarray(jax_fused(*(jnp.asarray(t, jdtype) for t in (q, k, v)),
+                                heads).astype(jnp.float32))
+    tq, tk, tv = (torch.from_numpy(t) for t in (q, k, v))
+    got = streamed_attention(tq, tk, tv, heads, dtype, rows)
+    tol = _tolerance(dtype, want)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=tol)
+    resident = tiled_attention(tq, tk, tv, heads, KT_ATTN, dtype)
+    np.testing.assert_allclose(got.float().numpy(),
+                               resident.float().numpy(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,rows", STREAM_CASES,
+                         ids=[f"{str(d)[6:]}-{r}" for d, r in STREAM_CASES])
+@pytest.mark.parametrize("g,n,heads", CASES)
+def test_streamed_eval_kernel_matches_jax(g, n, heads, dtype, rows):
+    """Kernel A on the streamed path: the projection (f32 accumulation, f32
+    bias, rounded to the I/O type), then the streamed blocking, against the
+    Pallas `area_attention_qkv_fused`."""
+    jdtype = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    c = HD * heads
+    x, w, b = _arrays([((g, n, c), 1.0), ((c, 3 * c), 0.5 / np.sqrt(c)),
+                       ((3 * c,), 0.1)], seed=n + 7 * heads, dtype=dtype)
+    b = b.astype(np.float32)
+    want_o = np.asarray(jax_qkv(
+        jnp.asarray(x, jdtype), jnp.asarray(w, jdtype), jnp.asarray(b)[None],
+        heads)[0].astype(jnp.float32))
+    qkv = (torch.from_numpy(x) @ torch.from_numpy(w)
+           + torch.from_numpy(b)).to(dtype).float()
+    got = streamed_attention(*qkv.split(c, -1), heads, dtype, rows)
+    np.testing.assert_allclose(got.float().numpy(), want_o, rtol=0,
+                               atol=_tolerance(dtype, want_o))

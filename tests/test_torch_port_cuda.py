@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from yolou_tpu_torch import kernels
+from yolou_tpu_torch.kernels import build
 from yolou_tpu_torch.kernels.a2c2f import a2c2f_fused, a2c2f_fused_plain
 from yolou_tpu_torch.kernels.attention import (
     _launch_band_attention, _launch_qkv_attention, area_attention,
@@ -26,6 +27,7 @@ from yolou_tpu_torch.kernels.attention import (
     area_attention_qkv_fused, area_attention_qkv_fused_plain, attention_plan,
     max_tokens)
 from yolou_tpu_torch.kernels.nms import suppress_greedy, suppress_greedy_plain
+from yolou_tpu_torch.models.specs import YOLOV12_SCALES, scale_channels
 
 pytestmark = pytest.mark.cuda
 
@@ -274,10 +276,10 @@ def test_streamed_path_matches_plain_at_any_band(cuda, g, n, heads, dtype,
                                                  tol):
     """The streamed path of kernels A and C forced at bands the bf16
     resident path also takes: around its key tiles (64 keys in f32, 128 in
-    bf16) and query blocks (16 rows in f32, 128 in bf16), one to four heads,
-    many bands; the plain version's tolerances. In bf16 kernel A's v (its
-    first launch's output) equals the resident path's bit for bit: the same
-    products in the same order."""
+    bf16) and query blocks (the plan's: 64, 32 or 16 rows in f32, 128 or 64
+    in bf16), one to four heads, many bands; the plain version's
+    tolerances. In bf16 kernel A's v (its first launch's output) equals the
+    resident path's bit for bit: the same products in the same order."""
     c = 32 * heads
     x, w, b = _attn_inputs(g, n, c, dtype, cuda, seed=n + heads)
     o, v = _launch_qkv_attention(x, w, b, heads, streamed=True)
@@ -294,6 +296,100 @@ def test_streamed_path_matches_plain_at_any_band(cuda, g, n, heads, dtype,
     ref = area_attention_fused_plain(q, k, v, heads)
     assert bool(torch.isfinite(o).all())
     assert (o.float() - ref.float()).abs().max().item() <= tol
+
+
+STREAM_ROWS = [(torch.float32, 1e-4, rows) for rows in (64, 32, 16)] + [
+    (torch.bfloat16, 2e-2, rows) for rows in (128, 64)]
+RAGGED = (1, 15, 17, 63, 65, 127, 129, 1023, 1937)
+
+
+@pytest.mark.parametrize("n", RAGGED)
+@pytest.mark.parametrize("dtype,tol,rows", STREAM_ROWS,
+                         ids=[f"{str(d)[6:]}-{r}" for d, _, r in STREAM_ROWS])
+def test_streamed_kernels_at_ragged_bands(cuda, dtype, tol, rows, n):
+    """Both redesigned streamed kernels (f32 FMA micro-tiles, bf16 wgmma),
+    both forms (kernel A projects q from x, kernel C reads it by TMA), at
+    every query-block size, at N around the key tiles (64 / 128) and query
+    blocks: the last key tile ragged, the zero rows TMA fills past N masked,
+    a CTA's last rows (or a whole consumer warpgroup's) past N; against the
+    plain version within its tolerance."""
+    g, heads = 3, 2
+    c = 32 * heads
+    x, w, b = _attn_inputs(g, n, c, dtype, cuda, seed=n + rows)
+    o, v = _launch_qkv_attention(x, w, b, heads, streamed=True, rows=rows)
+    q, k, vv = _qkv_inputs(g, n, c, dtype, cuda, seed=n + rows + 1)
+    oc = _launch_band_attention(q, k, vv, heads, streamed=True, rows=rows)
+    torch.cuda.synchronize()
+    o_ref, v_ref = area_attention_qkv_fused_plain(x, w, b, heads)
+    ref = area_attention_fused_plain(q, k, vv, heads)
+    for got, want in ((o, o_ref), (v, v_ref), (oc, ref)):
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def _yolov12_bands(scale):
+    """(G, N, C, heads) of yolov12's layers 6 and 8 at batch 1, 160^2 to
+    1280^2 in steps of 32, each band once."""
+    _, width, max_ch = YOLOV12_SCALES[scale]
+    out = []
+    for imgsz in range(160, 1281, 32):
+        for c2, stride, area in ((512, 16, 4), (1024, 32, 1)):
+            c = scale_channels(c2, width, max_ch) // 2
+            tokens = (imgsz // stride) ** 2
+            n = tokens // area if tokens % area == 0 else tokens
+            band = (area if tokens % area == 0 else 1, n, c, c // 32)
+            if band not in out:
+                out.append(band)
+    return out
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("scale", list(YOLOV12_SCALES))
+def test_streamed_kernels_at_every_yolov12_band(cuda, scale, dtype, tol):
+    """Kernels A and C forced onto the streamed path at every band of a
+    yolov12 scale at 160^2-1280^2 (batch 1, the plan's query rows), on a
+    side stream, against the plain version."""
+    side = torch.cuda.Stream()
+    for g, n, c, heads in _yolov12_bands(scale):
+        x, w, b = _attn_inputs(g, n, c, dtype, cuda, seed=n + c)
+        q, k, v = _qkv_inputs(g, n, c, dtype, cuda, seed=n + c + 1)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            o, ov = _launch_qkv_attention(x, w, b, heads, streamed=True)
+            oc = _launch_band_attention(q, k, v, heads, streamed=True)
+        torch.cuda.current_stream().wait_stream(side)
+        o_ref, v_ref = area_attention_qkv_fused_plain(x, w, b, heads)
+        ref = area_attention_fused_plain(q, k, v, heads)
+        for got, want in ((o, o_ref), (ov, v_ref), (oc, ref)):
+            err = (got.float() - want.float()).abs().max().item()
+            assert bool(torch.isfinite(got).all()) and err <= tol, (
+                scale, g, n, c, err)
+
+
+def test_streamed_kernels_refuse_what_they_cannot_map(cuda):
+    """No fallback: a query-row count the kernels do not take, or a base the
+    tensor map cannot be encoded over (TMA needs 16 bytes of alignment),
+    fails the C entry before any launch and the wrapper raises; an f32
+    tensor off a 16-byte boundary is refused by the wrapper."""
+    lib = build.load()
+    q, k, v = _qkv_inputs(2, 100, 64, torch.float32, cuda, seed=9)
+    o = torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+    for dtype, rows in ((0, 48), (0, 128), (1, 32)):
+        code = lib.yolou_band_attention_stream(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 2, 100,
+            64, 2, dtype, rows, stream)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            build.check(lib, code, "streamed kernel")
+    code = lib.yolou_band_attention_stream(
+        q.data_ptr() + 4, k.data_ptr(), v.data_ptr(), o.data_ptr(), 2, 99,
+        64, 2, 0, 64, stream)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        build.check(lib, code, "streamed kernel")
+    shifted = torch.empty(q.numel() + 1, device=cuda)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        area_attention_fused(shifted, k, v, 2)
 
 
 def _nms_inputs(bsz, k, case, device, seed):

@@ -14,17 +14,21 @@ and attends them in the resident path's key steps. What the CPU can check:
     cluster of at most 8); yolov12n's bands keep the resident path but where
     the streamed one was measured the faster; the longest resident bands are
     the ones the port's shared-memory formulas give;
+  * the streamed path's launches: every band of the sweep takes a valid
+    number of query rows a CTA (f32 64, 32 or 16; bf16 128 or 64), a grid
+    within the card's limits and shared memory within a block, and the
+    port's constants are the CUDA source's;
   * the arithmetic at long bands: `test_torch_port_attention_tiling.py`'s
-    emulation of the kernels' blocking (16-row query tiles, key steps of KT,
-    the running maximum, the bf16 probabilities) at N = 1024, 1600 and 1936,
-    against the Pallas kernels in interpret mode (f32 within 1e-5, bf16
-    within 2^-6 of the output's largest magnitude, as that file states),
-    once with the keys cut into the streamed path's tiles (which, since a
-    tile is a whole number of key steps, changes no operation: the two
-    emulations must agree exactly).
+    emulations of the resident blocking (16-row query tiles, key steps of
+    KT) and of the streamed one (R-row query blocks, the ring's key tiles,
+    exp2 with the folded scale) at N = 1024, 1600 and 1936, against the
+    Pallas kernels in interpret mode (f32 within 1e-5, bf16 within 2^-6 of
+    the output's largest magnitude, as that file states).
 """
 
 import itertools
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -34,14 +38,19 @@ import torch
 from yolou_tpu.ops.pallas_attn import area_attention_fused as jax_fused
 from yolou_tpu.ops.pallas_attn import area_attention_qkv_fused as jax_qkv
 from yolou_tpu.ops.pallas_attn import pallas_band_eligible
+from yolou_tpu_torch.kernels import attention as attn
 from yolou_tpu_torch.kernels.attention import (_STREAM_KEYS, attention_plan,
                                                max_tokens, smem_bytes,
-                                               stream_faster)
+                                               stream_faster,
+                                               stream_smem_bytes,
+                                               streamed_plan)
 from yolou_tpu_torch.models.specs import (YOLOV12_SCALES, scale_channels,
                                           scale_depth)
 
-from .test_torch_port_attention_tiling import (HD, KT_ATTN, KT_QKV, _arrays,
-                                               _tolerance, tiled_attention)
+from .test_torch_port_attention_tiling import (HD, KT_ATTN, KT_QKV,
+                                               STREAM_KEYS, _arrays,
+                                               _tolerance, streamed_attention,
+                                               tiled_attention)
 from .torch_threads import one_torch_thread  # noqa: F401
 
 SMEM_LIMIT = 232_448          # a block's shared memory on an H100, bytes
@@ -98,35 +107,93 @@ def test_every_band_of_the_sweep_has_a_launchable_plan(projection, dtype):
             assert plan.streamed == (not resident), where
             assert plan.launches == (2 if plan.streamed and projection
                                      else 1)
+            if plan.streamed:
+                assert plan.rows in ((128, 64) if dtype == torch.bfloat16
+                                     else (64, 32, 16)), where
+                assert plan.smem == stream_smem_bytes(c, dtype, projection,
+                                                      plan.rows)
+                assert g <= 65535 and -(-n // plan.rows) <= 65535, where
+            else:
+                assert plan.rows == 0
         admitted += pallas_band_eligible(n, c, heads)
     assert admitted == 90
 
 
-def test_the_resident_path_keeps_the_bands_it_took():
-    """yolov12n's bands at 640^2 and 160^2 (serving and training at batch
-    8, evaluation at 16, objectmaps at 128) stay on the bf16 resident path
-    but where the streamed path was measured the faster on an H100
-    (`tools/attention_routes.py`: kernel A at layer 6 of 640^2, batch 8,
-    0.0295 against 0.0339 ms; at 160^2, batch 128, 0.0168 / 0.0131 against
-    0.0219 / 0.0150); every f32 band takes the streamed path, and so do the
-    bands the resident path cannot hold."""
+def _source_constant(name: str) -> int:
+    text = (Path(attn.__file__).parent.parent / "csrc"
+            / "band_attention.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def test_the_streamed_constants_are_the_kernels():
+    """`stream_smem_bytes` and `stream_rows` mirror band_attention.cu: its
+    key tiles, ring stages, warpgroup rows and f32 probability stride; the
+    shared memory formula at both types, both kernels and every row count,
+    and the rows `attention_plan` gives by the grid."""
     f32, bf16 = torch.float32, torch.bfloat16
-    streamed_a = {(32, 400, 64), (512, 25, 64), (128, 25, 128)}
+    assert _STREAM_KEYS == {f32: _source_constant("KB_F32"),
+                            bf16: _source_constant("KB_MMA")}
+    assert attn._STREAM_STAGES == {f32: _source_constant("STAGES_F32"),
+                                   bf16: _source_constant("STAGES_MMA")}
+    assert attn._WG_ROWS == _source_constant("WG_ROWS")
+    assert STREAM_KEYS == _STREAM_KEYS      # the emulation's softmax steps
+    assert attn._LDP == _source_constant("LDP")
+    for rows, c in itertools.product((64, 32, 16), (64, 384)):
+        # 1024 slack, 2 x 2 tiles, q and P, kernel A's q weights, barriers
+        assert stream_smem_bytes(c, f32, False, rows) == (
+            1024 + 4 * (2 * 2 * 64 * 32 + rows * (32 + 76)) + 8 * 5)
+        assert stream_smem_bytes(c, f32, True, rows) == (
+            1024 + 4 * (2 * 2 * 64 * 32 + rows * (32 + 76) + 32 * c) + 8 * 5)
+    for rows, c in itertools.product((128, 64), (64, 384)):
+        assert stream_smem_bytes(c, bf16, False, rows) == (
+            1024 + 2 * (2 * 3 * 128 * 32 + rows * 32) + 8 * 7)
+        assert stream_smem_bytes(c, bf16, True, rows) == (
+            1024 + 2 * (2 * 3 * 128 * 32 + rows * 32 + 32 * c + rows * c)
+            + 8 * 7)
+    # f32: kernel C 32 rows where that grid covers half of the 132 SMs,
+    # else 16; kernel A 64 at 256 channels and up where 64-row CTAs are 8
+    # deep on each SM
+    assert attention_plan(32, 1024, 64, f32, False).rows == 32
+    assert attention_plan(8, 400, 128, f32).rows == 32
+    assert attention_plan(4, 25, 64, f32).rows == 16
+    assert attention_plan(32, 400, 256, f32).rows == 64
+    assert attention_plan(32, 400, 256, f32, False).rows == 32
+    # bf16: two consumer warpgroups in kernel A at 384 channels, or where
+    # 128-row CTAs are 16 deep on each SM; one otherwise and up to 64 tokens
+    assert attention_plan(32, 1936, 64, bf16, False).rows == 64
+    assert attention_plan(32, 1600, 384, bf16).rows == 128
+    assert attention_plan(32, 1600, 384, bf16, False).rows == 128
+    assert attention_plan(8, 400, 384, bf16, False).rows == 64
+    assert streamed_plan(512, 25, 64, bf16).rows == 64
+    assert streamed_plan(512, 25, 384, bf16).rows == 64
+
+def test_the_resident_path_keeps_the_bands_it_took():
+    """yolov12n's bands at 160^2 (25 tokens: serving and training at batch
+    8, evaluation at 16, objectmaps at 128) stay on the bf16 resident path,
+    and its 640^2 bands (400 tokens) take the streamed path in both
+    kernels, as measured on an H100 (`tools/attention_routes.py`: at 640^2,
+    batch 8, kernel A 0.0245 / 0.0154 ms streamed against 0.0339 / 0.0200
+    resident, kernel C 0.0151 / 0.0078 against 0.0191 / 0.0161; at 160^2,
+    batch 128, A 0.0221 / 0.0491 against 0.0219 / 0.0534, C 0.0115 / 0.0206
+    against 0.0079 / 0.0151); every f32 band takes the streamed path, and so
+    do the bands the resident path cannot hold."""
+    f32, bf16 = torch.float32, torch.bfloat16
     for imgsz, batches in ((160, (8, 16, 128)), (640, (8,))):
         for batch, (layer, n, c, _) in itertools.product(
                 batches, yolov12_bands("n", imgsz)):
             g = batch * (4 if layer == 6 else 1)
-            assert attention_plan(g, n, c, bf16).streamed == (
-                (g, n, c) in streamed_a)
-            assert not attention_plan(g, n, c, bf16, False).streamed
             for projection in (True, False):
+                assert attention_plan(g, n, c, bf16, projection).streamed == (
+                    imgsz == 640)
                 assert attention_plan(g, n, c, f32, projection).streamed
     assert attention_plan(8, 400, 256, bf16).streamed  # yolov12s-l L8 @640
-    assert not attention_plan(1, 400, 256, bf16).streamed
+    assert attention_plan(1, 400, 256, bf16).streamed
+    assert not attention_plan(1, 100, 128, bf16).streamed   # little work
+    assert attention_plan(1, 100, 128, bf16, False).streamed
+    assert not attention_plan(512, 25, 64, bf16, False).streamed
     assert attention_plan(32, 1600, 64, bf16).streamed  # yolov12n L6 @1280
     assert attention_plan(32, 1936, 64, bf16, False).streamed  # @1408
-    assert not attention_plan(1, 1600, 64, bf16, False).streamed
-    assert attention_plan(32, 1600, 64, bf16, False).streamed  # the work
+    assert attention_plan(1, 1600, 64, bf16, False).streamed
 
 
 def test_the_longest_resident_bands():
@@ -144,38 +211,6 @@ def test_the_longest_resident_bands():
     assert _STREAM_KEYS[f32] % 32 == 0
 
 
-def streamed_attention(q, k, v, heads, kt, dtype, keys):
-    """The streamed path's blocking: the band's keys cut into tiles of
-    `keys`, each attended in steps of `kt` with the online-softmax state
-    carried over. `keys` is a multiple of `kt`, so the steps are those of
-    `tiled_attention`."""
-    g, n, c = q.shape
-    scale = HD ** -0.5
-
-    def split(t):
-        return t.reshape(g, n, heads, HD).transpose(1, 2)
-
-    qh, kh, vh = split(q), split(k), split(v)
-    out = torch.empty_like(qh)
-    for r0 in range(0, n, 16):
-        qt = qh[:, :, r0:r0 + 16]
-        m = torch.full(qt.shape[:-1] + (1,), -torch.inf)
-        l = torch.zeros_like(m)
-        acc = torch.zeros_like(qt)
-        for t0 in range(0, n, keys):
-            kt_, vt_ = kh[:, :, t0:t0 + keys], vh[:, :, t0:t0 + keys]
-            for k0 in range(0, kt_.shape[2], kt):
-                s = qt @ kt_[:, :, k0:k0 + kt].transpose(-1, -2) * scale
-                m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-                p = torch.exp(s - m_new)
-                c_ = torch.exp(m - m_new)
-                l = l * c_ + p.sum(-1, keepdim=True)
-                acc = acc * c_ + p.to(dtype).float() @ vt_[:, :, k0:k0 + kt]
-                m = m_new
-        out[:, :, r0:r0 + 16] = acc / l
-    return out.transpose(1, 2).reshape(g, n, c).to(dtype)
-
-
 DTYPES = [("float32", torch.float32, jnp.float32),
           ("bfloat16", torch.bfloat16, jnp.bfloat16)]
 LONG = [(1, 1024, 2), (1, 1600, 1), (1, 1936, 1)]      # G, N, heads
@@ -187,7 +222,8 @@ LONG = [(1, 1024, 2), (1, 1600, 1), (1, 1936, 1)]      # G, N, heads
 def test_training_kernel_at_long_bands_matches_jax(g, n, heads, name, dtype,
                                                    jdtype):
     """Kernel C's order at N = 1024-1936 against the Pallas
-    `area_attention_fused`; the streamed tiling gives the same result."""
+    `area_attention_fused`: the resident blocking and the streamed one at
+    the rows `attention_plan` gives eight such bands."""
     c = HD * heads
     q, k, v = _arrays([((g, n, c), 1.0)] * 3, seed=n + heads, dtype=dtype)
     want = np.asarray(jax_fused(*(jnp.asarray(t, jdtype) for t in (q, k, v)),
@@ -196,9 +232,10 @@ def test_training_kernel_at_long_bands_matches_jax(g, n, heads, name, dtype,
     got = tiled_attention(tq, tk, tv, heads, KT_ATTN, dtype)
     np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
                                atol=_tolerance(dtype, want))
-    streamed = streamed_attention(tq, tk, tv, heads, KT_ATTN, dtype,
-                                  _STREAM_KEYS[dtype])
-    assert torch.equal(streamed, got)
+    rows = attention_plan(8 * g, n, c, dtype, False).rows or 64
+    streamed = streamed_attention(tq, tk, tv, heads, dtype, rows)
+    np.testing.assert_allclose(streamed.float().numpy(), want, rtol=0,
+                               atol=_tolerance(dtype, want))
 
 
 @pytest.mark.parametrize("name,dtype,jdtype", DTYPES,
@@ -207,8 +244,8 @@ def test_training_kernel_at_long_bands_matches_jax(g, n, heads, name, dtype,
 def test_eval_kernel_at_long_bands_matches_jax(g, n, heads, name, dtype,
                                                jdtype):
     """Kernel A at N = 1024-1936: the projection (f32 accumulation, f32
-    bias, rounded to the I/O type) then the streamed attention in steps of
-    32 keys, against the Pallas `area_attention_qkv_fused`."""
+    bias, rounded to the I/O type) then the streamed blocking, against the
+    Pallas `area_attention_qkv_fused`."""
     c = HD * heads
     x, w, b = _arrays([((g, n, c), 1.0), ((c, 3 * c), 0.5 / np.sqrt(c)),
                        ((3 * c,), 0.1)], seed=n + 7 * heads, dtype=dtype)
@@ -219,8 +256,8 @@ def test_eval_kernel_at_long_bands_matches_jax(g, n, heads, name, dtype,
     qkv = (torch.from_numpy(x) @ torch.from_numpy(w)
            + torch.from_numpy(b)).to(dtype).float()
     q, k, v = qkv.split(c, -1)
-    got = streamed_attention(q, k, v, heads, KT_QKV, dtype,
-                             _STREAM_KEYS[dtype])
+    got = streamed_attention(q, k, v, heads, dtype,
+                             attention_plan(8 * g, n, c, dtype).rows)
     np.testing.assert_allclose(got.float().numpy(), want_o, rtol=0,
                                atol=_tolerance(dtype, want_o))
     v_tol = 1e-5 if dtype == torch.float32 else 2.0 ** -8 * np.abs(want_v).max()

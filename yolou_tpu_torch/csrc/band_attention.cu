@@ -32,16 +32,17 @@
 //
 // Two paths. The resident one (bf16 only) holds a head's keys and values
 // of the whole band in each CTA's shared memory; the streamed one (bf16 and
-// f32, at the end of this file) passes them through in key tiles, so its
-// shared memory does not grow with N. The wrapper
+// f32, at the end of this file: TMA, FMA micro-tiles in f32, wgmma in bf16)
+// passes them through in key tiles, so its shared memory does not grow with
+// N. The wrapper
 // (`kernels/attention.py::attention_plan`) sends a bf16 band to the
 // resident path where it fits (227 KB; in kernel A one cluster of 8 CTAs,
 // N <= 1024) and was the faster of the two on an H100
 // (`tools/attention_routes.py`), every other band, and every f32 band, to
 // the streamed path, which was the faster at every f32 band kernel A takes.
 //
-// bf16, the serving and training type, runs on the tensor cores
-// (attention_mma.cuh): 8 warps a CTA, a warp per 16-row query tile whose q
+// bf16, the serving and training type, runs on the tensor cores. The
+// resident path (attention_mma.cuh): 8 warps a CTA, a warp per 16-row query tile whose q
 // stays in registers as A fragments; mma.sync m16n8k16 for q.k^T, x.w and
 // p.v with f32 accumulation, B operands from shared memory by ldmatrix
 // (k and v rows with XOR-swizzled 16-byte chunks against bank conflicts);
@@ -67,11 +68,8 @@
 //    v instead of two cluster barriers and an exchange. Shared memory per
 //    CTA: 128 * ceil16(N) bytes.
 //
-// f32 runs on the SIMT streamed kernels (TF32 would not hold the f32
-// tolerances): a warp per pair of query rows, online softmax over steps of
-// 32 keys with lane j scoring key j (band_attention.cuh
-// `attend_pair_tile`); kernel A's projection a warp per 4 tokens, lane d
-// computing channel d.
+// f32 runs on the streamed path only (below); kernel A's first launch
+// there projects k and v a warp per 4 tokens, lane d computing channel d.
 
 #include <cooperative_groups.h>
 
@@ -81,6 +79,7 @@
 
 #include "attention_mma.cuh"
 #include "band_attention.cuh"
+#include "hopper.cuh"
 
 namespace cg = cooperative_groups;
 using namespace yolou;
@@ -395,38 +394,76 @@ cudaError_t launch_attn_mma(const void* q, const void* k, const void* v,
 // ------------------------------------------------------ the streamed path
 //
 // Every f32 band, and the bf16 bands the resident path does not hold or
-// was the slower on. A CTA owns a run of query rows of one (head, band) and
-// streams the band's keys and values through shared memory in tiles of KB
-// keys: two buffers filled by cp.async, tile i + 1 landing while tile i is
-// scored. The online softmax state stays in registers across tiles, and
-// each tile is attended in steps of KT_QKV / KT_ATTN keys in bf16 (the bf16
-// resident path's, with its text, so a row's arithmetic is that path's,
-// step for step, at any N) and of 32 keys in f32 (`attend`'s).
-// Shared memory: bf16 2 * 2 * KB_MMA * 32 * 2 bytes (+ 80 C for kernel A's
-// q weight columns), f32 2 * KB_F32 * 65 * 4 bytes.
+// was the slower on. A CTA owns a block of query rows of one (head, band)
+// and streams the band's keys and values through a ring of shared-memory
+// stages, loaded by the Tensor Memory Accelerator (hopper.cuh): one thread
+// issues a box of 32 channels x KB keys of a 3-D map over (C, N, G) for
+// each of k and v, and the box's transaction bytes complete a `full`
+// mbarrier; the readers free the stage through an `empty` one. Keys past N
+// arrive as zeros (the box stops at the band's edge) and are masked to
+// -inf. The online softmax runs per key tile in log2 units, exp2(s * sl2 -
+// m * sl2) with sl2 = scale * log2(e) folded into one FMA, the running
+// maximum m in raw units.
 //
-// Kernel C reads q, k and v from HBM as before. Kernel A needs every key of
-// the band before any query attends, so it is two launches: a projection of
-// k and v (v into its second output, k into a (G, N, C) scratch the wrapper
+// Kernel C reads q, k and v from HBM. Kernel A needs every key of the band
+// before any query attends, so it is two launches: a projection of k and v
+// (v into its second output, k into a (G, N, C) scratch the wrapper
 // allocates: one more write and read of G * N * C elements), then the
-// streamed attention, which projects its own q rows from x (x . Wq + b, in
-// bf16 the resident path's products in its order, never written out). What
-// bounds it: the same work as the resident path plus those k bytes, and
-// each CTA reading its band's k and v from L2 once.
+// streamed attention, which projects its own q rows from x (x . Wq + b,
+// never written out).
+//
+// f32 (`band_attention_stream_kernel<R, PROJECT>`): full f32 on the FMA
+// units (TF32 would not hold the f32 tolerances). What bounds it is the FMA
+// rate, 4 N^2 * 32 operations a (band, head) at 67 TFLOP/s, and what keeps
+// it below that is shared memory: one f32 FMA a score channel needs a word
+// of q and a word of k. So a CTA of R = 64, 32 or 16 query rows
+// (`kernels/attention.py::stream_rows` picks by the grid and the width,
+// timed on an H100) runs 4 R threads, 16 a group of 4 rows, and each thread
+// scores a 4 x 4 register micro-tile (its rows against keys t, t + 16, t +
+// 32, t + 48 of the 64-key tile) from 16-byte loads: 16 FMAs for 8 words of
+// q and k over each 4 channels. The tiles take TMA's 128-byte swizzle, so
+// the 16 keys a load reads fall in distinct banks two by two. The row
+// maximum is reduced by shuffles among a group's 16 threads (the row sum at
+// the end); the group writes its probabilities to its own rows of shared
+// memory and multiplies them by v as a second micro-tile product: 4 rows x 4
+// channels x 32 keys a thread, the two halves of the keys summed at the end.
+// K and v arrive in a ring of two 64-key stages. With PROJECT the CTA first
+// projects its q rows from x into the q tile: the head's (C, 32) q weight
+// columns by TMA into shared memory, x read from global memory a step ahead,
+// a row and 8 channels a thread in f32 FMAs over the input channels in two
+// interleaved chains.
+//
+// bf16 (`band_attention_stream_wgmma_kernel<NC, PROJECT>`):
+// FlashAttention-3's shape at head width 32. A producer warpgroup, which
+// gives most of its registers to the consumers (setmaxnreg), has one thread
+// issue the TMA loads: q (or x and the head's q weight columns), then k and
+// v tiles of 128 keys (64-byte rows, 64-byte swizzle) into a ring of three
+// stages. NC consumer warpgroups own 64 query rows each (two, one CTA an SM,
+// where kernel A's q weight columns are wide or the grid is deep; else one,
+// two CTAs an SM: `stream_rows`) and issue wgmma: S = q k^T (m64n128k16, two
+// k steps of 16 channels, both operands from shared memory), the online
+// softmax on the accumulator, the probabilities rounded to bf16 in registers
+// as the A operand of O += P V (m64n32k16, v MN-major: the transpose bit).
+// The product of tile i - 1's P with its v is issued with tile i's scores,
+// so the softmax of tile i runs while it multiplies; the two consumer
+// warpgroups take turns issuing (two named barriers), so one's softmax also
+// overlaps the other's products. What bounds it is the exp unit: one exp a
+// score against 128 tensor-core operations, about twice the tensor-core time
+// at 3.9e12 exp/s against 989 TFLOP/s. With PROJECT, q = x . Wq + b by wgmma
+// (m64n32k16 over C / 16 steps) from the TMA-loaded x rows, rounded to bf16
+// into the q tile before the key loop.
 
-constexpr int KB_MMA = 128;       // keys per streamed tile, bf16
-constexpr int KB_F32 = 64;        // keys per streamed tile, f32
-constexpr int LDQW = HD + 8;      // row stride of staged q weight columns
+constexpr int KB_F32 = 64;        // keys a streamed tile, f32
+constexpr int STAGES_F32 = 2;     // its ring
+// the f32 probabilities: a row of 64 keys, keys 32-63 four floats on (so
+// the four 16-byte reads of a warp's p.v step fall in distinct banks), rows
+// 76 floats apart (the two row groups of a warp 16 banks apart)
+constexpr int LDP = 76;
+constexpr int KB_MMA = 128;       // keys a streamed tile, bf16
+constexpr int STAGES_MMA = 3;     // its ring
+constexpr int WG_ROWS = 64;       // query rows of a consumer warpgroup
+constexpr int REGS_PRODUCER = 40;  // setmaxnreg of the producer warpgroup
 constexpr int LDKV = 2 * HD + 8;  // row stride of staged k | v columns
-// f32 key tiles are row-major with an odd row stride (`attend_pair_tile`)
-constexpr int LDK_F32 = HD + 1;
-constexpr int ROWS_F32 = 2 * WARPS;  // query rows of a streamed f32 CTA
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0));
-}
 
 // The A fragments of a warp's 16 rows of x (rows r0 + gq and r0 + gq + 8,
 // zero past N), channels c0 .. c0 + 31: two k steps, as kernel A loads them.
@@ -530,113 +567,6 @@ kv_projection_mma_kernel(const bf16* __restrict__ x,
   }
 }
 
-// The streamed attention, bf16: a warp per 16-row query tile, MMA_WARPS
-// tiles a CTA, all of them attending each key tile of KB_MMA keys in steps
-// of KT. PROJECT (kernel A): q = x . Wq + b from `src` = x, the head's q
-// weight columns staged by cp.async; else (kernel C) q read from `src`.
-template <int KT, bool PROJECT>
-__global__ void __launch_bounds__(MMA_WARPS * 32)
-band_attention_stream_mma_kernel(const bf16* __restrict__ src,
-                                 const bf16* __restrict__ w,
-                                 const float* __restrict__ bias,
-                                 const bf16* __restrict__ k,
-                                 const bf16* __restrict__ v,
-                                 bf16* __restrict__ o, int N, int C,
-                                 float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int h = blockIdx.x, g = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gq = lane >> 2, t = lane & 3;
-  const int Np = (N + 15) & ~15;
-  const int r0 = 16 * (blockIdx.z * MMA_WARPS + warp);
-  const bool active = r0 < N;                    // warp-uniform
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [2][KB_MMA][32] swizzled
-  bf16* Vs = Ks + 2 * KB_MMA * HD;               // [2][KB_MMA][32] swizzled
-  bf16* Wq = Vs + 2 * KB_MMA * HD;               // PROJECT: [C][LDQW]
-  const size_t base = (size_t)g * N * C + h * HD;
-
-  // key tile i -> buffer i % 2 (zero past N), one cp.async group
-  auto stage = [&](int i) {
-    const int k0 = i * KB_MMA;
-    bf16* kd = Ks + (i & 1) * KB_MMA * HD;
-    bf16* vd = Vs + (i & 1) * KB_MMA * HD;
-    for (int j = threadIdx.x; j < KB_MMA * 4; j += blockDim.x) {
-      const int r = j >> 2, c = j & 3, n = k0 + r;
-      const size_t off = base + (size_t)(n < N ? n : 0) * C + 8 * c;
-      cp_async16(kd + kv_at(r, c), k + off, n < N);
-      cp_async16(vd + kv_at(r, c), v + off, n < N);
-    }
-    cp_async_commit();
-  };
-
-  uint32_t qa[2][4];
-  if (PROJECT) {
-    for (int i = threadIdx.x; i < C * 4; i += blockDim.x) {
-      const int c = i / 4, j8 = i % 4;
-      cp_async16(Wq + c * LDQW + 8 * j8,
-                 w + (size_t)c * 3 * C + h * HD + 8 * j8, true);
-    }
-    stage(0);                                    // one group with Wq
-    cp_async_wait<0>();
-    __syncthreads();
-    if (active) {
-      const XRows xr(src + (size_t)g * N * C, r0, N, C);
-      float acc[4][4];
-      project_rows<4>(xr, Wq, LDQW, C, acc);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {              // rows gq, gq + 8: A fragment
-        const int col = 8 * j + 2 * t;
-        const float b0 = bias[h * HD + col], b1 = bias[h * HD + col + 1];
-        qa[j / 2][2 * (j % 2)] = pack_bf16(acc[j][0] + b0, acc[j][1] + b1);
-        qa[j / 2][2 * (j % 2) + 1] = pack_bf16(acc[j][2] + b0, acc[j][3] + b1);
-      }
-    }
-  } else {
-    stage(0);
-    if (active) {
-      const uint32_t* qg = reinterpret_cast<const uint32_t*>(src + base);
-#pragma unroll
-      for (int s = 0; s < 2; ++s)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {           // rows gq, gq + 8; cols +0, +8
-          const int n = r0 + gq + 8 * (e & 1);
-          const int col = 16 * s + 8 * (e >> 1) + 2 * t;
-          qa[s][e] = n < N ? qg[((size_t)n * C + col) / 2] : 0u;
-        }
-    }
-  }
-
-  const float sl2 = scale * LOG2E;
-  AttnState st;
-  attn_init(st);
-  const int tiles = (N + KB_MMA - 1) / KB_MMA;
-  for (int i = 0; i < tiles; ++i) {
-    if (i + 1 < tiles) stage(i + 1);  // into the buffer tile i - 1 used
-    else cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();                  // tile i landed for every thread
-    if (active) {
-      const int k0 = i * KB_MMA, k_end = min(KB_MMA, Np - k0);
-      attend_keys_mma<KT>(qa, Ks + (i & 1) * KB_MMA * HD,
-                          Vs + (i & 1) * KB_MMA * HD, 0, k_end,
-                          min(N - k0, k_end), sl2, st);
-    }
-    __syncthreads();                  // tile i read
-  }
-  if (active) {
-    const float inv_lo = 1.f / quad_sum(st.l_lo);
-    const float inv_hi = 1.f / quad_sum(st.l_hi);
-    const StoreRowsBF16 store{o + ((size_t)g * N + r0) * C + h * HD, C,
-                              min(16, N - r0)};
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int ch = 8 * u + 2 * t;
-      store(gq, ch, st.acc[u][0] * inv_lo, st.acc[u][1] * inv_lo);
-      store(gq + 8, ch, st.acc[u][2] * inv_hi, st.acc[u][3] * inv_hi);
-    }
-  }
-}
-
 // Kernel A's first launch, f32: k and v of TOK tokens a warp for head h,
 // lane = channel, f32 FMAs over the input channels in order (weights read
 // from L2).
@@ -680,128 +610,671 @@ kv_projection_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// The streamed attention, f32 (SIMT): a warp per pair of query rows, lane j
-// scoring key j of each 32-key step against its row-major key tile, the
-// online softmax of `attend` carried across tiles (`attend_pair_tile`).
-// PROJECT (kernel A): the warp projects its two q rows from `src` = x as
-// `kv_projection_kernel` projects k and v; else (kernel C) reads them from
-// `src`.
-template <bool PROJECT>
-__global__ void __launch_bounds__(WARPS * 32)
-band_attention_stream_kernel(const float* __restrict__ src,
-                             const float* __restrict__ w,
+// 2^x on the special-function unit alone (exp2f adds a range fix-up for
+// results below 2^-126, which these probabilities flush to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <bool MAX>
+__device__ __forceinline__ float reduce2(float a, float b) {
+  return MAX ? fmaxf(a, b) : a + b;
+}
+
+// max / sum of the 32 scores of one row a thread holds of an S tile: its
+// elements s[4 j + OFF] and s[4 j + OFF + 1], j < 16, as a tree (the chain
+// of 32 dependent steps nvcc keeps in written order is what a warp waits
+// on); every index a constant, so nothing leaves the registers
+template <bool MAX, int OFF>
+__device__ __forceinline__ float row_reduce(const float (&s)[64]) {
+  float t[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    t[j] = reduce2<MAX>(s[4 * j + OFF], s[4 * j + OFF + 1]);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) t[j] = reduce2<MAX>(t[j], t[j + 8]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) t[j] = reduce2<MAX>(t[j], t[j + 4]);
+  return reduce2<MAX>(reduce2<MAX>(t[0], t[2]), reduce2<MAX>(t[1], t[3]));
+}
+
+// Element offset of channels 4 * chunk .. + 3 of row `row` of a 128-byte-
+// swizzled f32 tile of 32 channels (TMA's layout).
+__device__ __forceinline__ int f32_at(int row, int chunk) {
+  return row * HD + ((chunk ^ (row & 7)) << 2);
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int u) {
+  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
+}
+
+// The streamed attention, f32: R query rows a CTA (4 R threads), k and v
+// tiles of 64 keys by TMA, 4 x 4 register micro-tiles (above). PROJECT
+// (kernel A): q = x . Wq + b projected here from x, the head's q weight
+// columns by TMA (w_map); else (kernel C) q arrives by TMA (q_map, boxes
+// of R rows) and w_map is not read.
+template <int R, bool PROJECT>
+__global__ void __launch_bounds__(4 * R)
+band_attention_stream_kernel(const __grid_constant__ CUtensorMap q_map,
+                             const __grid_constant__ CUtensorMap k_map,
+                             const __grid_constant__ CUtensorMap v_map,
+                             const __grid_constant__ CUtensorMap w_map,
+                             const float* __restrict__ x,
                              const float* __restrict__ bias,
-                             const float* __restrict__ k,
-                             const float* __restrict__ v,
                              float* __restrict__ o, int N, int C,
-                             float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int h = blockIdx.x, g = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* Kb = reinterpret_cast<float*>(smem_raw);  // [2][KB_F32][LDK_F32]
-  float* Vb = Kb + 2 * KB_F32 * LDK_F32;           // [2][KB_F32][HD]
-  const size_t base = (size_t)g * N * C + h * HD;
+                             float sl2) {
+  constexpr int TILE = KB_F32 * HD;               // floats of a k or v tile
+  extern __shared__ unsigned char smem_raw[];
+  float* Ks = reinterpret_cast<float*>(align1024(smem_raw));  // [2][64][32]
+  float* Vs = Ks + STAGES_F32 * TILE;                         // [2][64][32]
+  float* Qs = Vs + STAGES_F32 * TILE;                         // [R][32]
+  float* Ws = Qs + R * HD;                    // PROJECT: [C][32] q columns
+  float* Ps = Ws + (PROJECT ? C * HD : 0);                    // [R][LDP]
+  uint64_t* full = reinterpret_cast<uint64_t*>(Ps + R * LDP);
+  uint64_t* empty = full + STAGES_F32;
+  uint64_t* q_full = empty + STAGES_F32;
+  const int h = blockIdx.x, g = blockIdx.y, row0 = blockIdx.z * R;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int tiles = (N + KB_F32 - 1) / KB_F32;
 
-  // key tile i -> buffer i % 2 (zero past N), 4 bytes a copy (the rows
-  // of the key tile are 33 words apart), one cp.async group
-  auto stage = [&](int i) {
-    const int k0 = i * KB_F32;
-    float* kd = Kb + (i & 1) * KB_F32 * LDK_F32;
-    float* vd = Vb + (i & 1) * KB_F32 * HD;
-    for (int j = threadIdx.x; j < KB_F32 * HD; j += blockDim.x) {
-      const int r = j / HD, d = j % HD, n = k0 + r;
-      const size_t off = base + (size_t)(n < N ? n : 0) * C + d;
-      cp_async4(kd + r * LDK_F32 + d, k + off, n < N);
-      cp_async4(vd + r * HD + d, v + off, n < N);
-    }
-    cp_async_commit();
+  // key tile j -> stage j % 2, its bytes counted on full[j % 2]
+  auto load = [&](int j) {
+    const int st = j % STAGES_F32;
+    mbar_expect_tx(&full[st], 2 * TILE * sizeof(float));
+    tma_load_3d(Ks + st * TILE, &k_map, &full[st], h * HD, j * KB_F32, g);
+    tma_load_3d(Vs + st * TILE, &v_map, &full[st], h * HD, j * KB_F32, g);
   };
-  stage(0);
-
-  const int r = ROWS_F32 * blockIdx.z + 2 * warp;  // this warp's rows r, r + 1
-  const bool active = r < N, two = r + 1 < N;      // warp-uniform
-  float qna = 0.f, qnb = 0.f;
-  if (active) {
+  if (tid == 0) {
+    for (int st = 0; st < STAGES_F32; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], 4 * R / 32);         // a warp each
+    }
+    mbar_init(q_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
     if (PROJECT) {
-      const float* xg = src + (size_t)g * N * C;
-      float aq[2] = {0.f, 0.f};
-      for (int c0 = 0; c0 < C; c0 += 32) {
-        float xl[2];
+      mbar_expect_tx(q_full, C * HD * sizeof(float));
+      for (int cb = 0; cb < C / 32; ++cb)
+        tma_load_2d(Ws + cb * 32 * HD, &w_map, q_full, h * HD, cb * 32);
+    } else {
+      mbar_expect_tx(q_full, R * HD * sizeof(float));
+      tma_load_3d(Qs, &q_map, q_full, h * HD, row0, g);
+    }
+    for (int j = 0; j < min(STAGES_F32, tiles); ++j) load(j);
+  }
+  if (PROJECT) {
+    // row r, channels 8 cb .. 8 cb + 7 a thread, the weights from shared
+    // memory and x from global memory a step of 8 input channels ahead, in
+    // two interleaved halves of 4 (two chains of FMAs, added at the end);
+    // rows past N project row N - 1 (finite, never stored)
+    const int r = tid >> 2, cb = tid & 3;
+    const float4* xr = reinterpret_cast<const float4*>(
+        x + ((size_t)g * N + min(row0 + r, N - 1)) * C);
+    float acc[2][8];
 #pragma unroll
-        for (int t = 0; t < 2; ++t)
-          xl[t] = r + t < N ? xg[(size_t)(r + t) * C + c0 + lane] : 0.f;
-        for (int cc = 0; cc < 32; ++cc) {
-          const float wq = w[(size_t)(c0 + cc) * 3 * C + h * HD + lane];
+    for (int e = 0; e < 8; ++e) acc[0][e] = acc[1][e] = 0.f;
+    float4 xv[2] = {xr[0], xr[1]};
+    mbar_wait(q_full, 0);
+    for (int c = 0; c < C; c += 8) {
+      float4 xn[2];
+      if (c + 8 < C) {
+        xn[0] = xr[c / 4 + 2];
+        xn[1] = xr[c / 4 + 3];
+      }
 #pragma unroll
-          for (int t = 0; t < 2; ++t)
-            aq[t] = fmaf(__shfl_sync(FULL, xl[t], cc), wq, aq[t]);
+      for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int cr = c + 4 * hh + u;
+          const float4 w0 =
+              *reinterpret_cast<const float4*>(Ws + f32_at(cr, 2 * cb));
+          const float4 w1 =
+              *reinterpret_cast<const float4*>(Ws + f32_at(cr, 2 * cb + 1));
+          const float xu = lane_of(xv[hh], u);
+          float* a = acc[hh];
+          a[0] = fmaf(xu, w0.x, a[0]);
+          a[1] = fmaf(xu, w0.y, a[1]);
+          a[2] = fmaf(xu, w0.z, a[2]);
+          a[3] = fmaf(xu, w0.w, a[3]);
+          a[4] = fmaf(xu, w1.x, a[4]);
+          a[5] = fmaf(xu, w1.y, a[5]);
+          a[6] = fmaf(xu, w1.z, a[6]);
+          a[7] = fmaf(xu, w1.w, a[7]);
         }
       }
-      const float bq = bias[h * HD + lane];
-      qna = aq[0] + bq;
-      qnb = two ? aq[1] + bq : qna;
-    } else {
-      qna = src[base + (size_t)r * C + lane];
-      qnb = two ? src[base + (size_t)(r + 1) * C + lane] : qna;
+      xv[0] = xn[0];
+      xv[1] = xn[1];
+    }
+    const float* bq = bias + h * HD + 8 * cb;
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      *reinterpret_cast<float4*>(Qs + f32_at(r, 2 * cb + k)) = make_float4(
+          acc[0][4 * k] + acc[1][4 * k] + bq[4 * k],
+          acc[0][4 * k + 1] + acc[1][4 * k + 1] + bq[4 * k + 1],
+          acc[0][4 * k + 2] + acc[1][4 * k + 2] + bq[4 * k + 2],
+          acc[0][4 * k + 3] + acc[1][4 * k + 3] + bq[4 * k + 3]);
+    __syncthreads();
+  } else {
+    mbar_wait(q_full, 0);
+  }
+
+  // a group of 16 threads (half a warp) owns rows 4 rg .. 4 rg + 3; for
+  // the scores thread t takes keys t + 16 u, for p.v keys 32 half .. + 31
+  // and channels 4 cq .. 4 cq + 3
+  const int rg = tid >> 4, t = tid & 15, half = t >> 3, cq = t & 7;
+  float m[4], l[4], acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  }
+  float* Pg = Ps + 4 * rg * LDP;
+  for (int i = 0; i < tiles; ++i) {
+    const int st = i % STAGES_F32;
+    // tile i + 1 into the stage tile i - 1 used, once every warp freed it
+    if (tid == 0 && i >= 1 && i + STAGES_F32 - 1 < tiles) {
+      const int j = i + STAGES_F32 - 1;
+      mbar_wait(&empty[j % STAGES_F32], (j / STAGES_F32 - 1) & 1);
+      load(j);
+    }
+    mbar_wait(&full[st], (i / STAGES_F32) & 1);
+    const float* Kt = Ks + st * TILE;
+    const float* Vt = Vs + st * TILE;
+
+    float s[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+      s[a][0] = s[a][1] = s[a][2] = s[a][3] = 0.f;
+#pragma unroll
+    for (int cc = 0; cc < HD / 4; ++cc) {
+      float4 qv[4], kv[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+        qv[a] = *reinterpret_cast<const float4*>(Qs + f32_at(4 * rg + a, cc));
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        kv[u] = *reinterpret_cast<const float4*>(Kt + f32_at(t + 16 * u, cc));
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          s[a][u] = fmaf(qv[a].x, kv[u].x, s[a][u]);
+          s[a][u] = fmaf(qv[a].y, kv[u].y, s[a][u]);
+          s[a][u] = fmaf(qv[a].z, kv[u].z, s[a][u]);
+          s[a][u] = fmaf(qv[a].w, kv[u].w, s[a][u]);
+        }
+    }
+    const int k0 = i * KB_F32;
+    if (k0 + KB_F32 > N) {                       // block-uniform
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (k0 + t + 16 * u >= N)
+#pragma unroll
+          for (int a = 0; a < 4; ++a) s[a][u] = -INFINITY;
+    }
+    // online softmax: the row maximum over the group's 16 threads (finite:
+    // key k0 exists), probabilities exp2(s sl2 - m sl2), this thread's part
+    // of the row sums, the accumulator rescaled
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      float mx = fmaxf(fmaxf(s[a][0], s[a][1]), fmaxf(s[a][2], s[a][3]));
+#pragma unroll
+      for (int d = 1; d < 16; d <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, d));
+      mx = fmaxf(mx, m[a]);
+      const float c = exp2f((m[a] - mx) * sl2), nb = -mx * sl2;
+      m[a] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        s[a][u] = exp2f(fmaf(s[a][u], sl2, nb));
+        sum += s[a][u];
+      }
+      l[a] = l[a] * c + sum;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[a][e] *= c;
+    }
+    __syncwarp();                                // the last tile's P read
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        Pg[a * LDP + t + 16 * u + (u >= 2 ? 4 : 0)] = s[a][u];
+    __syncwarp();
+    // O += P V over this thread's 32 keys, 4 at a time
+#pragma unroll 2
+    for (int jj = 0; jj < 32; jj += 4) {
+      float4 pv[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+        pv[a] = *reinterpret_cast<const float4*>(Pg + a * LDP + 36 * half + jj);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float4 vv = *reinterpret_cast<const float4*>(
+            Vt + f32_at(32 * half + jj + u, cq));
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const float p = lane_of(pv[a], u);
+          acc[a][0] = fmaf(p, vv.x, acc[a][0]);
+          acc[a][1] = fmaf(p, vv.y, acc[a][1]);
+          acc[a][2] = fmaf(p, vv.z, acc[a][2]);
+          acc[a][3] = fmaf(p, vv.w, acc[a][3]);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);      // this warp is done with it
+  }
+  // the row sums over the group, the two key halves added, rows 2 half and
+  // 2 half + 1 of the group stored by this thread
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+#pragma unroll
+    for (int d = 1; d < 16; d <<= 1) l[a] += __shfl_xor_sync(FULL, l[a], d);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      acc[a][e] += __shfl_xor_sync(FULL, acc[a][e], 8);
+  }
+  float* og = o + (size_t)g * N * C + h * HD + 4 * cq;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int n = row0 + 4 * rg + a;
+    if ((a >> 1) == half && n < N) {
+      const float inv = 1.f / l[a];
+      *reinterpret_cast<float4*>(og + (size_t)n * C) =
+          make_float4(acc[a][0] * inv, acc[a][1] * inv, acc[a][2] * inv,
+                      acc[a][3] * inv);
     }
   }
-  float qa[HD], qb[HD];
+}
+
+// The streamed attention, bf16: a producer warpgroup (its thread 0 issues
+// every TMA load) and NC consumer warpgroups of 64 query rows on wgmma
+// (above). PROJECT (kernel A): src_map is x and w_map the (C, 3C) weight;
+// else (kernel C) src_map is q and w_map is not read.
+template <int NC, bool PROJECT>
+__global__ void __launch_bounds__(128 * (NC + 1), NC == 1 ? 2 : 1)
+band_attention_stream_wgmma_kernel(
+    const __grid_constant__ CUtensorMap src_map,
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map,
+    const __grid_constant__ CUtensorMap w_map,
+    const float* __restrict__ bias, bf16* __restrict__ o, int N, int C,
+    float sl2) {
+  constexpr int TILE = KB_MMA * HD;               // elements of a k or v tile
+  constexpr int QT = WG_ROWS * HD;                // of a warpgroup's q tile
+  extern __shared__ unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(align1024(smem_raw));  // [3][128][32]
+  bf16* Vs = Ks + STAGES_MMA * TILE;                        // [3][128][32]
+  bf16* Qs = Vs + STAGES_MMA * TILE;                        // [NC][64][32]
+  bf16* Ws = Qs + NC * QT;                     // PROJECT: [C][32] q columns
+  bf16* Xs = Ws + (PROJECT ? C * HD : 0);      // PROJECT: [NC][C/32][64][32]
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(Xs + (PROJECT ? NC * WG_ROWS * C : 0));
+  uint64_t* empty = full + STAGES_MMA;
+  uint64_t* q_full = empty + STAGES_MMA;
+  const int h = blockIdx.x, g = blockIdx.y;
+  const int row0 = blockIdx.z * NC * WG_ROWS;
+  const int tiles = (N + KB_MMA - 1) / KB_MMA;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < STAGES_MMA; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], NC);                 // a warpgroup each
+    }
+    mbar_init(q_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ------------------------------------------------ producer warpgroup
+    regs_release<REGS_PRODUCER>();
+    if (threadIdx.x == 0) {
+      tma_prefetch(&k_map);
+      tma_prefetch(&v_map);
+      if (PROJECT) {
+        const int blocks = C / 32;
+        mbar_expect_tx(q_full, (C * HD + NC * WG_ROWS * C) * sizeof(bf16));
+        for (int cb = 0; cb < blocks; ++cb)
+          tma_load_2d(Ws + cb * 32 * HD, &w_map, q_full, h * HD, cb * 32);
+        for (int c = 0; c < NC; ++c)
+          for (int cb = 0; cb < blocks; ++cb)
+            tma_load_3d(Xs + (c * blocks + cb) * QT, &src_map, q_full,
+                        cb * 32, row0 + c * WG_ROWS, g);
+      } else {
+        mbar_expect_tx(q_full, NC * QT * sizeof(bf16));
+        for (int c = 0; c < NC; ++c)
+          tma_load_3d(Qs + c * QT, &src_map, q_full, h * HD,
+                      row0 + c * WG_ROWS, g);
+      }
+      for (int i = 0; i < tiles; ++i) {
+        const int st = i % STAGES_MMA;
+        if (i >= STAGES_MMA)                     // every consumer freed it
+          mbar_wait(&empty[st], (i / STAGES_MMA - 1) & 1);
+        mbar_expect_tx(&full[st], 2 * TILE * sizeof(bf16));
+        tma_load_3d(Ks + st * TILE, &k_map, &full[st], h * HD, i * KB_MMA, g);
+        tma_load_3d(Vs + st * TILE, &v_map, &full[st], h * HD, i * KB_MMA, g);
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------- consumer warpgroups
+  regs_claim<NC == 1 ? 216 : 232>();
+  const int wg = threadIdx.x / 128 - 1;
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, t = lane & 3;
+  const int r_lo = 16 * warp + gq;               // rows r_lo, r_lo + 8
+  bf16* Qw = Qs + wg * QT;
+  mbar_wait(q_full, 0);
+  if (PROJECT) {
+    // q = x . Wq + b: f32 accumulation, f32 bias, rounded to bf16 into the
+    // warpgroup's q tile (64-byte swizzle, as TMA writes it)
+    const bf16* Xw = Xs + wg * (C / 32) * QT;
+    float q[16];
 #pragma unroll
-  for (int d = 0; d < HD; ++d) {
-    qa[d] = __shfl_sync(FULL, qna, d);
-    qb[d] = __shfl_sync(FULL, qnb, d);
+    for (int e = 0; e < 16; ++e) q[e] = 0.f;
+    wgmma_fence();
+    for (int kk = 0; kk < C / 16; ++kk)
+      wgmma_64x32_ss(q, smem_desc(Xw + (kk >> 1) * QT + (kk & 1) * 16),
+                     smem_desc(Ws + kk * 16 * HD), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int e = 0; e < 16; ++e) reg_fence(q[e]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = 8 * j + 2 * t;
+      const float b0 = bias[h * HD + col], b1 = bias[h * HD + col + 1];
+      *reinterpret_cast<uint32_t*>(Qw + kv_at(r_lo, j) + 2 * t) =
+          pack_bf16(q[4 * j] + b0, q[4 * j + 1] + b1);
+      *reinterpret_cast<uint32_t*>(Qw + kv_at(r_lo + 8, j) + 2 * t) =
+          pack_bf16(q[4 * j + 2] + b0, q[4 * j + 3] + b1);
+    }
+    fence_proxy_async();
+    bar_sync(3 + wg, 128);                       // the whole tile written
   }
-  PairState st;
-  pair_init(st);
-  const int tiles = (N + KB_F32 - 1) / KB_F32;
+
+  // s: the 64 x 128 scores (row r_lo / r_lo + 8, keys 8 j + 2 t + e at
+  // s[4 j + e] / s[4 j + 2 + e]); p: the last tile's probabilities as A
+  // fragments of 8 steps of 16 keys; oacc: O (channels 8 j + 2 t + e)
+  float s[64], oacc[16];
+  uint32_t p[8][4];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) oacc[e] = 0.f;
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+  const uint64_t dq = smem_desc(Qw);
+  if (NC == 2 && wg == 1) bar_arrive(1, 256);    // warpgroup 0 goes first
   for (int i = 0; i < tiles; ++i) {
-    if (i + 1 < tiles) stage(i + 1);  // into the buffer tile i - 1 used
-    else cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();                  // tile i landed for every thread
-    if (active)
-      attend_pair_tile(qa, qb, Kb + (i & 1) * KB_F32 * LDK_F32,
-                       Vb + (i & 1) * KB_F32 * HD, i * KB_F32, KB_F32, N,
-                       scale, st);
-    __syncthreads();                  // tile i read
+    const int st = i % STAGES_MMA;
+    mbar_wait(&full[st], (i / STAGES_MMA) & 1);
+    if (NC == 2) bar_sync(1 + wg, 256);          // this warpgroup's turn
+    wgmma_fence();
+    const uint64_t dk = smem_desc(Ks + st * TILE);
+    wgmma_64x128_ss(s, dq, dk, 0);               // channels 0-15
+    wgmma_64x128_ss(s, dq + 2, dk + 2, 1);       // 16-31: 32 bytes on
+    wgmma_commit();
+    if (i > 0) {                                 // O += P V of tile i - 1
+      const bf16* Vt = Vs + ((i - 1) % STAGES_MMA) * TILE;
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_64x32_rs(oacc, p[kk], smem_desc(Vt + kk * 16 * HD));
+      wgmma_commit();
+    }
+    if (NC == 2 && !(wg == 1 && i == tiles - 1))
+      bar_arrive(2 - wg, 256);                   // the other's turn
+    if (i > 0) wgmma_wait<1>();
+    else wgmma_wait<0>();
+#pragma unroll
+    for (int e = 0; e < 64; ++e) reg_fence(s[e]);
+
+    const int k0 = i * KB_MMA;
+    if (k0 + KB_MMA > N) {                       // keys past N
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (k0 + 8 * j + 2 * t + e >= N)
+            s[4 * j + e] = s[4 * j + 2 + e] = -INFINITY;
+    }
+    const float mx_lo = quad_max(fmaxf(m_lo, row_reduce<true, 0>(s)));
+    const float mx_hi = quad_max(fmaxf(m_hi, row_reduce<true, 2>(s)));
+    // finite: key k0 exists
+    const float c_lo = ex2((m_lo - mx_lo) * sl2);
+    const float c_hi = ex2((m_hi - mx_hi) * sl2);
+    const float nb_lo = -mx_lo * sl2, nb_hi = -mx_hi * sl2;
+    m_lo = mx_lo;
+    m_hi = mx_hi;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[4 * j + e] = ex2(fmaf(s[4 * j + e], sl2, nb_lo));
+        s[4 * j + 2 + e] = ex2(fmaf(s[4 * j + 2 + e], sl2, nb_hi));
+      }
+    l_lo = l_lo * c_lo + row_reduce<false, 0>(s);
+    l_hi = l_hi * c_hi + row_reduce<false, 2>(s);
+    if (i > 0) {                                 // P V of tile i - 1 done
+      wgmma_wait<0>();
+#pragma unroll
+      for (int e = 0; e < 16; ++e) reg_fence(oacc[e]);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) reg_fence(p[kk][e]);
+      if (tid == 0) mbar_arrive(&empty[(i - 1) % STAGES_MMA]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      oacc[4 * j] *= c_lo;
+      oacc[4 * j + 1] *= c_lo;
+      oacc[4 * j + 2] *= c_hi;
+      oacc[4 * j + 3] *= c_hi;
+    }
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {             // keys 16 kk .. 16 kk + 15
+      p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
   }
-  if (active) {
-    o[base + (size_t)r * C + lane] = st.acca / st.la;
-    if (two) o[base + (size_t)(r + 1) * C + lane] = st.accb / st.lb;
+  wgmma_fence();                                 // O += P V of the last tile
+  const bf16* Vt = Vs + ((tiles - 1) % STAGES_MMA) * TILE;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_64x32_rs(oacc, p[kk], smem_desc(Vt + kk * 16 * HD));
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int e = 0; e < 16; ++e) reg_fence(oacc[e]);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) reg_fence(p[kk][e]);
+
+  const float inv_lo = 1.f / quad_sum(l_lo), inv_hi = 1.f / quad_sum(l_hi);
+  const int n_lo = row0 + wg * WG_ROWS + r_lo, n_hi = n_lo + 8;
+  bf16* og = o + (size_t)g * N * C + h * HD + 2 * t;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (n_lo < N)
+      *reinterpret_cast<__nv_bfloat162*>(og + (size_t)n_lo * C + 8 * j) =
+          __floats2bfloat162_rn(oacc[4 * j] * inv_lo,
+                                oacc[4 * j + 1] * inv_lo);
+    if (n_hi < N)
+      *reinterpret_cast<__nv_bfloat162*>(og + (size_t)n_hi * C + 8 * j) =
+          __floats2bfloat162_rn(oacc[4 * j + 2] * inv_hi,
+                                oacc[4 * j + 3] * inv_hi);
   }
 }
 
-// Shared memory of the streamed kernels (bytes); attention_plan mirrors it.
-size_t stream_mma_smem(int C, bool project) {
-  return sizeof(bf16) * (2 * 2 * (size_t)KB_MMA * HD +
-                         (project ? (size_t)C * LDQW : 0));
+// Shared memory of the streamed kernels (bytes, with 1024 of slack for the
+// tiles' alignment); `kernels/attention.py::stream_smem_bytes` mirrors it.
+size_t stream_f32_smem(int C, int R, bool project) {
+  return 1024 + sizeof(float) * (2 * (size_t)STAGES_F32 * KB_F32 * HD +
+                                 (size_t)R * (HD + LDP) +
+                                 (project ? (size_t)C * HD : 0)) +
+         8 * (2 * STAGES_F32 + 1);
 }
 
-constexpr size_t STREAM_F32_SMEM =
-    sizeof(float) * 2 * KB_F32 * (LDK_F32 + HD);
+size_t stream_wgmma_smem(int C, int NC, bool project) {
+  return 1024 +
+         sizeof(bf16) * (2 * (size_t)STAGES_MMA * KB_MMA * HD +
+                         (size_t)NC * WG_ROWS * HD +
+                         (project ? (size_t)C * HD + (size_t)NC * WG_ROWS * C
+                                  : 0)) +
+         8 * (2 * STAGES_MMA + 1);
+}
+
+// setmaxnreg moves registers between the warpgroups of a CTA: each
+// consumer claims `claim` a thread from the count it started with, the
+// producer releases down to `release`. A claim that neither the releases
+// nor the SM's free registers cover waits forever, so the launch is
+// refused unless the kernel's count at entry (ptxas') makes every CTA the
+// SM can hold by registers whole.
+template <auto kernel>
+cudaError_t check_reallocation(int consumers, int claim) {
+  static const cudaError_t checked = [=] {
+    cudaFuncAttributes a;
+    if (cudaFuncGetAttributes(&a, kernel) != cudaSuccess)
+      return cudaErrorInvalidDeviceFunction;
+    const int threads = 128 * (consumers + 1), regs = a.numRegs;
+    if (regs > claim || regs < REGS_PRODUCER)
+      return cudaErrorInvalidConfiguration;
+    const int ctas = 65536 / (threads * regs);
+    const int need = consumers * 128 * (claim - regs) -
+                     128 * (regs - REGS_PRODUCER);
+    return ctas * need <= 65536 - ctas * threads * regs
+               ? cudaSuccess
+               : cudaErrorInvalidConfiguration;
+  }();
+  return checked;
+}
+
+template <int R, bool PROJECT>
+cudaError_t launch_stream_f32(const float* src, const float* w,
+                              const float* b, const float* k, const float* v,
+                              float* o, int G, int N, int C, int heads,
+                              cudaStream_t s) {
+  constexpr auto kernel = band_attention_stream_kernel<R, PROJECT>;
+  const size_t smem = stream_f32_smem(C, R, PROJECT);
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  // PROJECT reads x directly and q_map is not read; else w_map is not
+  CUtensorMap qm, km, vm, wm;
+  cudaError_t e = band_map(&km, k, G, N, C, KB_F32, true);
+  if (e == cudaSuccess) e = band_map(&vm, v, G, N, C, KB_F32, true);
+  if (e == cudaSuccess) {
+    if (PROJECT) {
+      qm = km;
+      e = weight_map(&wm, w, C, true);
+    } else {
+      wm = km;
+      e = band_map(&qm, src, G, N, C, R, true);
+    }
+  }
+  if (e == cudaSuccess) e = allow_smem<kernel>();
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(heads, G, (N + R - 1) / R), 4 * R, smem, s>>>(
+      qm, km, vm, wm, src, b, o, N, C, ATTN_SCALE * LOG2E);
+  return cudaGetLastError();
+}
+
+template <bool PROJECT>
+cudaError_t stream_f32(int rows, const float* src, const float* w,
+                       const float* b, const float* k, const float* v,
+                       float* o, int G, int N, int C, int heads,
+                       cudaStream_t s) {
+  switch (rows) {
+    case 64:
+      return launch_stream_f32<64, PROJECT>(src, w, b, k, v, o, G, N, C,
+                                            heads, s);
+    case 32:
+      return launch_stream_f32<32, PROJECT>(src, w, b, k, v, o, G, N, C,
+                                            heads, s);
+    case 16:
+      return launch_stream_f32<16, PROJECT>(src, w, b, k, v, o, G, N, C,
+                                            heads, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <int NC, bool PROJECT>
+cudaError_t launch_stream_wgmma(const bf16* src, const bf16* w,
+                                const float* b, const bf16* k, const bf16* v,
+                                bf16* o, int G, int N, int C, int heads,
+                                cudaStream_t s) {
+  constexpr auto kernel = band_attention_stream_wgmma_kernel<NC, PROJECT>;
+  const size_t smem = stream_wgmma_smem(C, NC, PROJECT);
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  CUtensorMap sm, km, vm, wm;
+  cudaError_t e = band_map(&km, k, G, N, C, KB_MMA, false);
+  if (e == cudaSuccess) e = band_map(&vm, v, G, N, C, KB_MMA, false);
+  if (e == cudaSuccess) e = band_map(&sm, src, G, N, C, WG_ROWS, false);
+  if (e == cudaSuccess) {
+    if (PROJECT) e = weight_map(&wm, w, C, false);
+    else wm = km;                                // not read
+  }
+  if (e == cudaSuccess) e = allow_smem<kernel>();
+  if (e == cudaSuccess)
+    e = check_reallocation<kernel>(NC, NC == 1 ? 216 : 232);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(heads, G, (N + NC * WG_ROWS - 1) / (NC * WG_ROWS)),
+           128 * (NC + 1), smem, s>>>(sm, km, vm, wm, b, o, N, C,
+                                      ATTN_SCALE * LOG2E);
+  return cudaGetLastError();
+}
+
+template <bool PROJECT>
+cudaError_t stream_wgmma(int rows, const bf16* src, const bf16* w,
+                         const float* b, const bf16* k, const bf16* v,
+                         bf16* o, int G, int N, int C, int heads,
+                         cudaStream_t s) {
+  if (rows == 2 * WG_ROWS)
+    return launch_stream_wgmma<2, PROJECT>(src, w, b, k, v, o, G, N, C, heads,
+                                           s);
+  if (rows == WG_ROWS)
+    return launch_stream_wgmma<1, PROJECT>(src, w, b, k, v, o, G, N, C, heads,
+                                           s);
+  return cudaErrorInvalidValue;
+}
+
+// The query rows a streamed CTA may take: f32 64, 32 or 16; bf16 64 or 128
+// (one or two consumer warpgroups).
+bool stream_rows_valid(int dtype, int rows) {
+  return dtype == 1 ? rows == WG_ROWS || rows == 2 * WG_ROWS
+                    : rows == 64 || rows == 32 || rows == 16;
+}
 
 cudaError_t launch_qkv_stream(const void* x, const void* w, const void* b,
                               void* o, void* v, void* k, int G, int N, int C,
-                              int heads, int dtype, cudaStream_t s) {
+                              int heads, int dtype, int rows,
+                              cudaStream_t s) {
+  if (!stream_rows_valid(dtype, rows)) return cudaErrorInvalidValue;
   if (dtype == 1) {
     constexpr auto proj = kv_projection_mma_kernel;
-    constexpr auto attn = band_attention_stream_mma_kernel<KT_QKV, true>;
+    if (stream_wgmma_smem(C, rows / WG_ROWS, true) > 227 * 1024)
+      return cudaErrorInvalidValue;
     cudaError_t e = allow_smem<proj>();
-    if (e == cudaSuccess) e = allow_smem<attn>();
     if (e != cudaSuccess) return e;
-    const dim3 grid(heads, G, (N + 16 * MMA_WARPS - 1) / (16 * MMA_WARPS));
     const bf16* xb = static_cast<const bf16*>(x);
-    const bf16* wb = static_cast<const bf16*>(w);
-    const float* bb = static_cast<const float*>(b);
-    bf16* kb = static_cast<bf16*>(k);
-    bf16* vb = static_cast<bf16*>(v);
-    proj<<<grid, MMA_WARPS * 32, sizeof(bf16) * (size_t)C * LDKV, s>>>(
-        xb, wb, bb, kb, vb, N, C);
+    const bf16* kb = static_cast<const bf16*>(k);
+    const bf16* vb = static_cast<const bf16*>(v);
+    proj<<<dim3(heads, G, (N + 16 * MMA_WARPS - 1) / (16 * MMA_WARPS)),
+           MMA_WARPS * 32, sizeof(bf16) * (size_t)C * LDKV, s>>>(
+        xb, static_cast<const bf16*>(w), static_cast<const float*>(b),
+        static_cast<bf16*>(k), static_cast<bf16*>(v), N, C);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    attn<<<grid, MMA_WARPS * 32, stream_mma_smem(C, true), s>>>(
-        xb, wb, bb, kb, vb, static_cast<bf16*>(o), N, C, ATTN_SCALE);
-    return cudaGetLastError();
+    return stream_wgmma<true>(
+        rows, xb, static_cast<const bf16*>(w), static_cast<const float*>(b),
+        kb, vb, static_cast<bf16*>(o), G, N, C, heads, s);
   }
   const float* xf = static_cast<const float*>(x);
   const float* wf = static_cast<const float*>(w);
@@ -810,36 +1283,25 @@ cudaError_t launch_qkv_stream(const void* x, const void* w, const void* b,
   float* vf = static_cast<float*>(v);
   kv_projection_kernel<<<dim3(heads, G, (N + WARPS * TOK - 1) / (WARPS * TOK)),
                          WARPS * 32, 0, s>>>(xf, wf, bf, kf, vf, N, C);
-  cudaError_t e = cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  band_attention_stream_kernel<true>
-      <<<dim3(heads, G, (N + ROWS_F32 - 1) / ROWS_F32), WARPS * 32,
-         STREAM_F32_SMEM, s>>>(xf, wf, bf, kf, vf, static_cast<float*>(o), N,
-                               C, ATTN_SCALE);
-  return cudaGetLastError();
+  return stream_f32<true>(rows, xf, wf, bf, kf, vf,
+                                 static_cast<float*>(o), G, N, C, heads, s);
 }
 
 cudaError_t launch_attn_stream(const void* q, const void* k, const void* v,
                                void* o, int G, int N, int C, int heads,
-                               int dtype, cudaStream_t s) {
-  if (dtype == 1) {
-    constexpr auto attn = band_attention_stream_mma_kernel<KT_ATTN, false>;
-    const cudaError_t e = allow_smem<attn>();
-    if (e != cudaSuccess) return e;
-    attn<<<dim3(heads, G, (N + 16 * MMA_WARPS - 1) / (16 * MMA_WARPS)),
-           MMA_WARPS * 32, stream_mma_smem(C, false), s>>>(
-        static_cast<const bf16*>(q), nullptr, nullptr,
+                               int dtype, int rows, cudaStream_t s) {
+  if (!stream_rows_valid(dtype, rows)) return cudaErrorInvalidValue;
+  if (dtype == 1)
+    return stream_wgmma<false>(
+        rows, static_cast<const bf16*>(q), nullptr, nullptr,
         static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(o), N, C, ATTN_SCALE);
-    return cudaGetLastError();
-  }
-  band_attention_stream_kernel<false>
-      <<<dim3(heads, G, (N + ROWS_F32 - 1) / ROWS_F32), WARPS * 32,
-         STREAM_F32_SMEM, s>>>(
-          static_cast<const float*>(q), nullptr, nullptr,
-          static_cast<const float*>(k), static_cast<const float*>(v),
-          static_cast<float*>(o), N, C, ATTN_SCALE);
-  return cudaGetLastError();
+        static_cast<bf16*>(o), G, N, C, heads, s);
+  return stream_f32<false>(
+      rows, static_cast<const float*>(q), nullptr, nullptr,
+      static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), G, N, C, heads, s);
 }
 
 }  // namespace
@@ -872,31 +1334,34 @@ extern "C" int yolou_band_attention(const void* q, const void* k,
                               static_cast<cudaStream_t>(stream));
 }
 
-// The streamed path of kernel A (two launches), dtype 0 = float32 (SIMT) or
-// 1 = bfloat16 (tensor cores): as yolou_band_attention_qkv, plus k: a (G,
-// N, C) scratch of the I/O type for the projected keys.
+// The streamed path of kernel A (two launches), dtype 0 = float32 (FMA
+// micro-tiles) or 1 = bfloat16 (wgmma): as yolou_band_attention_qkv, plus
+// k: a (G, N, C) scratch of the I/O type for the projected keys, and rows:
+// the query rows of a CTA (f32 64, 32 or 16; bf16 128 or 64). Every tensor
+// 16-byte aligned (TMA). A tensor map that cannot be encoded fails the call
+// before any launch.
 extern "C" int yolou_band_attention_qkv_stream(const void* x, const void* w,
                                                const void* b, void* o,
                                                void* v, void* k, int G, int N,
                                                int C, int heads, int dtype,
-                                               void* stream) {
+                                               int rows, void* stream) {
   if (G <= 0 || N <= 0 || heads <= 0 || C != heads * HD || G > 65535 ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   return (int)launch_qkv_stream(x, w, b, o, v, k, G, N, C, heads, dtype,
-                                static_cast<cudaStream_t>(stream));
+                                rows, static_cast<cudaStream_t>(stream));
 }
 
-// The streamed path of kernel C, dtype 0 = float32 (SIMT) or 1 = bfloat16
-// (tensor cores): as yolou_band_attention.
+// The streamed path of kernel C, dtype 0 = float32 (FMA micro-tiles) or
+// 1 = bfloat16 (wgmma): as yolou_band_attention, plus rows (as above).
 extern "C" int yolou_band_attention_stream(const void* q, const void* k,
                                            const void* v, void* o, int G,
                                            int N, int C, int heads, int dtype,
-                                           void* stream) {
+                                           int rows, void* stream) {
   if (G <= 0 || N <= 0 || heads <= 0 || C != heads * HD || G > 65535 ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  return (int)launch_attn_stream(q, k, v, o, G, N, C, heads, dtype,
+  return (int)launch_attn_stream(q, k, v, o, G, N, C, heads, dtype, rows,
                                  static_cast<cudaStream_t>(stream));
 }
 

@@ -2,7 +2,8 @@
 // and the whole-A2C2f kernel (a2c2f.cu): type conversion, warp reductions,
 // key/value padding and the per-head attention of a slice of query rows
 // against a band's keys and values held in shared memory, whole or (the
-// streamed form, f32) a tile of keys at a time.
+// streamed form, f32, which a2c2f.cu's long bands take) a tile of keys at a
+// time.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -29,20 +29,26 @@ launches. Reading pointers (the alignment check, the launch) happens only
 in the real version: a traced tensor has none.
 
 Both entry points dispatch by type inside the C library: bfloat16 runs on
-the tensor cores (`mma.sync` m16n8k16, a warp per 16 query rows, online
-softmax over steps of 32 keys in kernel A and 64 in kernel C, probabilities
-rounded to bfloat16 for the p.v product), float32 on the SIMT path (f32
-FMA, which the 1e-4 comparisons rest on). Neither falls back to the other
-or to the plain version.
+the tensor cores, float32 on the FMA units in full f32 (which the 1e-4
+comparisons rest on; no TF32). Neither falls back to the other or to the
+plain version.
 
-Each has two paths in bfloat16, chosen by `attention_plan` from the
-shape: the resident path, whose CTAs hold a head's keys and values of the
-whole band in shared memory (bands up to `max_tokens`), where it was the
-faster of the two on an H100, and the streamed path, which passes them
-through shared memory in key tiles (kernel A then in two launches: the k
-and v projection, k into a scratch, then the attention). Both attend in the
-same key steps, so a row's arithmetic is the same on either path. float32
-has the streamed path only. No band length is refused.
+Each has two paths in bfloat16, chosen by `attention_plan` from the shape:
+the resident path (`mma.sync` m16n8k16, a warp per 16 query rows, online
+softmax over steps of 32 keys in kernel A and 64 in kernel C), whose CTAs
+hold a head's keys and values of the whole band in shared memory (bands up
+to `max_tokens`), where it was the faster of the two on an H100; and the
+streamed path, which passes them through a ring of shared-memory stages
+loaded by TMA (kernel A then in two launches: the k and v projection, k
+into a scratch, then the attention): bf16 on `wgmma` with one or two
+consumer warpgroups of 64 query rows and 128-key tiles, f32 on 4 x 4
+register micro-tiles in CTAs of 64, 32 or 16 query rows and 64-key tiles
+(`stream_rows`). float32 has the streamed path only. Both paths hold the
+same numerics contract (f32 scores, maximum and sum; probabilities rounded
+to the I/O type before p.v; the division after it), over other key steps:
+their bf16 results are close, not bit-identical. No band length is
+refused; the streamed bf16 kernel A holds its CTA's x rows in shared
+memory, which bounds C (896 channels: 28 heads).
 """
 
 from __future__ import annotations
@@ -58,14 +64,22 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 227 * 1024
 _CLUSTER_ROWS = 8 * 8 * 16   # bf16 kernel A: CTAs x warps x query rows
 _MAX_CLUSTER = 8             # CTAs of a resident band's cluster, at most
-# the streamed path (band_attention.cu): keys a tile, bf16 and f32
+# the streamed path (band_attention.cu): keys a tile and stages of its ring,
+# bf16 and f32; query rows of a bf16 consumer warpgroup; the f32 CTA's
+# choices of query rows; the f32 probability rows' stride (floats)
 _STREAM_KEYS = {torch.bfloat16: 128, torch.float32: 64}
-# bf16: the streamed path from this much attention work, (band, head) pairs
-# times N^2, in kernel A (True) and C (False), and in kernel A also from this
-# many pairs; each the crossover of both paths' device times on an H100 80GB
-# HBM3 at 700 W (`tools/attention_routes.py`)
-_STREAM_WORK = {True: 10_000_000, False: 24_000_000}
-_STREAM_PAIRS = 384
+_STREAM_STAGES = {torch.bfloat16: 3, torch.float32: 2}
+_WG_ROWS = 64
+_F32_ROWS = (64, 32, 16)
+_LDP = 76
+_SMS = 132    # streaming multiprocessors of an H100 SXM
+# bf16: the streamed path past this many tokens (at or below it a 128-key
+# tile and a 64-row block are half padding or more), and from this much
+# attention work, (band, head) pairs times N^2, in kernel A (True) and C
+# (False); each the crossover of both paths' device times on an H100 80GB
+# HBM3 at 700 W over every yolov12 band (`tools/attention_routes.py`)
+_STREAM_MIN_TOKENS = 64
+_STREAM_WORK = {True: 300_000, False: 0}
 
 
 def area_attention_qkv_fused_plain(x: torch.Tensor, w: torch.Tensor,
@@ -114,40 +128,78 @@ def _fits(n: int, c: int, projection: bool) -> bool:
     return smem_bytes(n, c, projection) <= _SMEM_LIMIT
 
 
-def stream_smem_bytes(c: int, dtype: torch.dtype,
-                      projection: bool = True) -> int:
+def stream_smem_bytes(c: int, dtype: torch.dtype, projection: bool = True,
+                      rows: int | None = None) -> int:
     """The largest dynamic shared memory of a streamed-path launch
-    (band_attention.cu), whatever N: two buffers of a key tile's keys and
-    values; in bfloat16 kernel A also the head's (C, 32) q weight columns
-    in rows of 40, and its projection launch the (C, 64) k and v columns in
-    rows of 72. The f32 key tile's rows are 33 words apart."""
-    keys = _STREAM_KEYS[dtype]
+    (band_attention.cu), whatever N, with 1024 bytes of slack for the tiles'
+    alignment and 8 a barrier: the ring's stages of a key tile's keys and
+    values and the CTA's `rows` query rows (the most it may take by
+    default). bfloat16: three stages of 128 keys, q (64 rows a consumer
+    warpgroup); kernel A also the head's (C, 32) q weight columns and the
+    CTA's (rows, C) x tile, and its projection launch the (C, 64) k and v
+    columns in rows of 72. float32: two stages of 64 keys, q and the
+    probabilities (`_LDP` floats a row) of `rows` rows; kernel A also the
+    head's (C, 32) q weight columns."""
+    keys, stages = _STREAM_KEYS[dtype], _STREAM_STAGES[dtype]
+    bars = 8 * (2 * stages + 1)
     if dtype == torch.bfloat16:
-        attention = 2 * (2 * 2 * keys * HEAD_DIM + (40 * c if projection
-                                                    else 0))
+        rows = rows or 2 * _WG_ROWS
+        tiles = 2 * stages * keys * HEAD_DIM + rows * HEAD_DIM
+        if projection:
+            tiles += c * HEAD_DIM + rows * c
+        attention = 1024 + 2 * tiles + bars
         return max(attention, 2 * 72 * c if projection else 0)
-    return 4 * 2 * keys * (2 * HEAD_DIM + 1)
+    rows = rows or _F32_ROWS[0]
+    return (1024 + 4 * (2 * stages * keys * HEAD_DIM
+                        + rows * (HEAD_DIM + _LDP)
+                        + (c * HEAD_DIM if projection else 0)) + bars)
+
+
+def stream_rows(g: int, n: int, c: int, dtype: torch.dtype,
+                projection: bool = True) -> int:
+    """The query rows of a streamed CTA for G bands of N tokens at width C,
+    the fastest on an H100 over every yolov12 band
+    (`tools/attention_routes.py`) as a rule of the grid and the width.
+    bfloat16: 128 (two consumer warpgroups, one CTA an SM) past 64 tokens
+    where kernel A's q weight columns are 384 wide (two warpgroups share
+    them) or the grid of 128-row CTAs is 16 deep on each SM, and their
+    shared memory fits; else 64 (one warpgroup, two CTAs an SM). float32:
+    64 in kernel A at 256 channels and up where the grid of 64-row CTAs is
+    8 deep on each SM (fewer CTAs stage the q weight columns); else 32
+    where the grid of 32-row CTAs covers half the SMs; else 16."""
+    pairs = g * (c // HEAD_DIM)
+    if dtype == torch.bfloat16:
+        two = (n > _WG_ROWS
+               and ((projection and c >= 384)
+                    or pairs * -(-n // (2 * _WG_ROWS)) >= 16 * _SMS)
+               and stream_smem_bytes(c, dtype, projection,
+                                     2 * _WG_ROWS) <= _SMEM_LIMIT)
+        return 2 * _WG_ROWS if two else _WG_ROWS
+    if projection and c >= 256 and pairs * -(-n // 64) >= 8 * _SMS:
+        return 64
+    return 32 if pairs * -(-n // 32) >= _SMS // 2 else 16
 
 
 class AttentionPlan(NamedTuple):
     """How a band runs: `streamed` or resident, the largest dynamic shared
     memory of its launches (bytes), the most CTAs of a thread-block cluster
-    (1: none), and its device kernels a call."""
+    (1: none), its device kernels a call, and on the streamed path the
+    query rows of a CTA (`stream_rows`; 0 on the resident path)."""
     streamed: bool
     smem: int
     cluster: int
     launches: int
+    rows: int = 0
 
 
 def stream_faster(g: int, n: int, c: int, projection: bool = True) -> bool:
     """Whether the streamed path beat the resident one on an H100 at G bands
     of N tokens at width C (bfloat16; `tools/attention_routes.py` timed both
-    at every yolov12 band the resident path holds): where the attention's
-    work, (band, head) pairs times N^2, reaches `_STREAM_WORK`, or in kernel
-    A where the pairs reach `_STREAM_PAIRS`."""
+    at every yolov12 band the resident path holds): past
+    `_STREAM_MIN_TOKENS` tokens where the attention's work, (band, head)
+    pairs times N^2, reaches `_STREAM_WORK`."""
     pairs = g * (c // HEAD_DIM)
-    return (pairs * n * n >= _STREAM_WORK[projection]
-            or (projection and pairs >= _STREAM_PAIRS))
+    return n > _STREAM_MIN_TOKENS and pairs * n * n >= _STREAM_WORK[projection]
 
 
 def attention_plan(g: int, n: int, c: int, dtype: torch.dtype,
@@ -155,20 +207,39 @@ def attention_plan(g: int, n: int, c: int, dtype: torch.dtype,
     """The path of G bands of N tokens at width C, kernel A (`projection`)
     or C: in bfloat16 the resident path where it holds the band
     (`max_tokens`) and was the faster (`stream_faster`), else the streamed
-    path, which every float32 band takes (it was the faster at every f32
-    band of kernel A and at all but the widest grids of kernel C)."""
+    path (`streamed_plan`), which every float32 band takes (float32 has no
+    resident path)."""
     if (dtype == torch.bfloat16 and _fits(n, c, projection)
             and not stream_faster(g, n, c, projection)):
         cluster = min(_MAX_CLUSTER, -(-n // 16)) if projection else 1
         return AttentionPlan(False, smem_bytes(n, c, projection), cluster, 1)
-    return AttentionPlan(True, stream_smem_bytes(c, dtype, projection), 1,
-                         2 if projection else 1)
+    return streamed_plan(g, n, c, dtype, projection)
+
+
+def streamed_plan(g: int, n: int, c: int, dtype: torch.dtype,
+                  projection: bool = True) -> AttentionPlan:
+    """The streamed path's plan of G bands of N tokens at width C."""
+    rows = stream_rows(g, n, c, dtype, projection)
+    return AttentionPlan(True, stream_smem_bytes(c, dtype, projection, rows),
+                         1, 2 if projection else 1, rows)
 
 
 def _check_aligned(*tensors):
-    """The bfloat16 kernels read and write rows 16 bytes at a time."""
+    """The bfloat16 kernels read and write rows 16 bytes at a time, and the
+    streamed path's tensor maps (TMA) and f32 loads need 16-byte aligned
+    bases."""
     if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError("the bfloat16 kernel needs 16-byte aligned tensors")
+        raise ValueError("the kernel needs 16-byte aligned tensors")
+
+
+def _stream_plan(g, n, c, dtype, projection):
+    """The streamed plan, refused where its shared memory does not fit a
+    block (bf16 kernel A past 896 channels)."""
+    plan = streamed_plan(g, n, c, dtype, projection)
+    if plan.smem > _SMEM_LIMIT:
+        raise ValueError(f"the streamed kernel needs {plan.smem} bytes of "
+                         f"shared memory at C={c}, more than a block has")
+    return plan
 
 
 def _check(x, w, b, heads):
@@ -192,9 +263,10 @@ def _check(x, w, b, heads):
     return g, n, c
 
 
-def _launch_qkv_attention(x, w, b, heads, streamed=None):
+def _launch_qkv_attention(x, w, b, heads, streamed=None, rows=None):
     """Launch kernel A on checked CUDA tensors on the path `attention_plan`
-    gives (`streamed` True or False forces one, for comparisons of the two);
+    gives (`streamed` True or False forces one, for comparisons of the two;
+    `rows` the streamed CTA's query rows in place of the planned ones);
     returns (o, v)."""
     g, n, c = x.shape
     if c // heads != HEAD_DIM:
@@ -204,9 +276,11 @@ def _launch_qkv_attention(x, w, b, heads, streamed=None):
         raise ValueError("float32 has no resident path")
     if streamed is None:
         streamed = attention_plan(g, n, c, x.dtype).streamed
-    if x.dtype == torch.bfloat16:
-        _check_aligned(x, w)
+    if streamed:
+        rows = rows or _stream_plan(g, n, c, x.dtype, True).rows
     lib = build.load()
+    if x.dtype == torch.bfloat16 or streamed:
+        _check_aligned(x, w)
     o = torch.empty_like(x)
     v = torch.empty_like(x)
     code = _DTYPE_CODE[x.dtype]
@@ -216,7 +290,8 @@ def _launch_qkv_attention(x, w, b, heads, streamed=None):
             k = torch.empty_like(x)      # the projected keys, between launches
             code = lib.yolou_band_attention_qkv_stream(
                 x.data_ptr(), w.data_ptr(), b.data_ptr(), o.data_ptr(),
-                v.data_ptr(), k.data_ptr(), g, n, c, heads, code, stream)
+                v.data_ptr(), k.data_ptr(), g, n, c, heads, code, rows,
+                stream)
         else:
             code = lib.yolou_band_attention_qkv(
                 x.data_ptr(), w.data_ptr(), b.data_ptr(), o.data_ptr(),
@@ -343,10 +418,10 @@ def _check_qkv(q, k, v, heads):
     return g, n, c
 
 
-def _launch_band_attention(q, k, v, heads, streamed=None):
+def _launch_band_attention(q, k, v, heads, streamed=None, rows=None):
     """Launch kernel C on contiguous CUDA tensors on the path
-    `attention_plan` gives (`streamed` True or False forces one); returns
-    o."""
+    `attention_plan` gives (`streamed` True or False forces one, `rows` the
+    streamed CTA's query rows); returns o."""
     g, n, c = q.shape
     if c // heads != HEAD_DIM:
         raise ValueError(f"the CUDA kernel needs head_dim {HEAD_DIM}, "
@@ -358,16 +433,19 @@ def _launch_band_attention(q, k, v, heads, streamed=None):
     if streamed is None:
         streamed = attention_plan(g, n, c, q.dtype,
                                   projection=False).streamed
-    if q.dtype == torch.bfloat16:
-        _check_aligned(q, k, v)
     lib = build.load()
+    if q.dtype == torch.bfloat16 or streamed:
+        _check_aligned(q, k, v)
     o = torch.empty_like(q)
-    entry = (lib.yolou_band_attention_stream if streamed
-             else lib.yolou_band_attention)
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g, n, c,
+            heads, _DTYPE_CODE[q.dtype]]
+    if streamed:
+        entry = lib.yolou_band_attention_stream
+        args.append(rows or _stream_plan(g, n, c, q.dtype, False).rows)
+    else:
+        entry = lib.yolou_band_attention
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                     g, n, c, heads, _DTYPE_CODE[q.dtype], stream)
+        code = entry(*args, torch.cuda.current_stream().cuda_stream)
     build.check(lib, code, "band attention (training) kernel")
     return o
 

@@ -80,8 +80,8 @@ def bind(lib: ctypes.CDLL, missing_ok: bool = False) -> ctypes.CDLL:
     entries = {
         "yolou_band_attention_qkv": [vp] * 5 + [ci] * 5 + [vp],
         "yolou_band_attention": [vp] * 4 + [ci] * 5 + [vp],
-        "yolou_band_attention_qkv_stream": [vp] * 6 + [ci] * 5 + [vp],
-        "yolou_band_attention_stream": [vp] * 4 + [ci] * 5 + [vp],
+        "yolou_band_attention_qkv_stream": [vp] * 6 + [ci] * 6 + [vp],
+        "yolou_band_attention_stream": [vp] * 4 + [ci] * 6 + [vp],
         "yolou_greedy_nms": [vp, vp, vp, ci, ci, cf, vp],
         "yolou_a2c2f": [vp, ctypes.POINTER(vp), ci, vp, vp, vp, *[ci] * 11,
                         vp],

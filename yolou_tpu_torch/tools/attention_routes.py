@@ -1,29 +1,31 @@
-"""Time the two paths of the band attention kernels against each other, on
-one GPU, at every band of yolov12 n-x that both take (bfloat16, the one
-type with two paths).
+"""Time the paths of the band attention kernels against each other, on one
+GPU, at every band of yolov12 n-x: the resident path against the streamed
+one at each number of query rows a CTA may take.
 
     python -m yolou_tpu_torch.tools.attention_routes [--out F] [--iters N]
 
 Kernels A (`area_attention_qkv_fused`) and C (`area_attention_fused`) each
-have a resident path (a CTA holds its head's keys and values of the whole
-band) and a streamed one (key tiles through shared memory); see
-`kernels/attention.py::attention_plan`, whose choice between them rests on
+have a resident path (bfloat16 only: a CTA holds its head's keys and
+values of the whole band) and a streamed one (key tiles through shared
+memory, CTAs of 128 or 64 query rows in bfloat16, 64, 32 or 16 in
+float32); see `kernels/attention.py::attention_plan`, whose choices rest on
 these times. For each band (layers 6 and 8 of every yolov12 scale at
 160^2-1280^2, batch 1 and 8; 160^2 also at batch 16, the evaluator's, and
-128, the objectmap generator's) that the resident path holds, the two
-paths are forced in turns (resident, streamed, streamed, resident) on the
-same seeded inputs, each turn the card's own time per call
+128, the objectmap generator's) and each type, every path the band can
+take is forced in turns (each in order, then in reverse) on the same
+seeded inputs, each turn the card's own time per call
 (`profile_layers.device_ms`, torch.profiler, `--iters` calls after 3
 warm-up calls). Prints the card's name and power limit, then one JSON
 object: {"card": ..., "rows": [{"kernel", "dtype", "g", "n", "c",
-"heads", "resident_ms": [2 turns], "streamed_ms": [2 turns],
-"plan": "resident" or "streamed"}, ...]}; "plan" is the path
-`attention_plan` takes.
+"heads", "resident_ms": [2 turns] or null, "streamed_ms": {rows: [2
+turns]}, "plan": "resident" or "streamed", "plan_rows": ...}, ...]};
+"plan" and "plan_rows" are what `attention_plan` takes.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 from pathlib import Path
 
@@ -57,42 +59,50 @@ def bands():
     return out
 
 
+STREAM_ROWS = {torch.bfloat16: (128, 64), torch.float32: (64, 32, 16)}
+
+
 def time_routes(iters: int = 20, device: str = "cuda"):
     """The rows described above."""
     rng = np.random.default_rng(0)
-    dtype = torch.bfloat16
 
-    def mk(shape, std=1.0):
+    def mk(shape, dtype, std=1.0):
         return torch.from_numpy(rng.normal(0, std, shape).astype(
             np.float32)).to(device, dtype)
 
     rows = []
-    for projection in (True, False):
+    for projection, dtype in itertools.product(
+            (True, False), (torch.bfloat16, torch.float32)):
         for g, n, c, heads in bands():
-            if n > max_tokens(c, projection):
-                continue
             if projection:
-                x, w = mk((g, n, c)), mk((c, 3 * c), 0.5 / np.sqrt(c))
+                x = mk((g, n, c), dtype)
+                w = mk((c, 3 * c), dtype, 0.5 / np.sqrt(c))
                 b = torch.zeros(3 * c, device=device)
 
-                def run(streamed):
-                    return lambda: _launch_qkv_attention(x, w, b, heads,
-                                                         streamed)
+                def run(path):
+                    return lambda: _launch_qkv_attention(x, w, b, heads, *path)
             else:
-                q, k, v = mk((g, n, c)), mk((g, n, c)), mk((g, n, c))
+                q, k, v = (mk((g, n, c), dtype) for _ in range(3))
 
-                def run(streamed):
+                def run(path):
                     return lambda: _launch_band_attention(q, k, v, heads,
-                                                          streamed)
-            times = {False: [], True: []}
-            for streamed in (False, True, True, False):
-                times[streamed].append(device_ms(run(streamed), iters))
+                                                          *path)
+            paths = [(True, r) for r in STREAM_ROWS[dtype]]
+            if dtype == torch.bfloat16 and n <= max_tokens(c, projection):
+                paths.insert(0, (False, None))
+            times = {path: [] for path in paths}
+            with torch.no_grad():
+                for path in paths + paths[::-1]:
+                    times[path].append(device_ms(run(path), iters))
             plan = attention_plan(g, n, c, dtype, projection)
             rows.append({
-                "kernel": "A" if projection else "C", "dtype": "bfloat16",
-                "g": g, "n": n, "c": c, "heads": heads,
-                "resident_ms": times[False], "streamed_ms": times[True],
-                "plan": "streamed" if plan.streamed else "resident"})
+                "kernel": "A" if projection else "C",
+                "dtype": str(dtype).split(".")[-1], "g": g, "n": n, "c": c,
+                "heads": heads, "resident_ms": times.get((False, None)),
+                "streamed_ms": {str(r): times[(True, r)]
+                                for r in STREAM_ROWS[dtype]},
+                "plan": "streamed" if plan.streamed else "resident",
+                "plan_rows": plan.rows})
             print(json.dumps(rows[-1]), flush=True)
     return rows
 

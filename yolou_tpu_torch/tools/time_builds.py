@@ -10,11 +10,15 @@ then launch each library's kernels on the same seeded bfloat16 inputs, at
 the shapes the serving, training and evaluation paths and the attention
 profiler give them (batch 8 at 640^2, batch 16 at 160^2; NMS over 512
 candidates of 8 and of 16 images, all valid), kernels A and C on their
-resident path, which every such tree has. A `csrc` from before the
-one-launch NMS kernel, whose C entry still takes a hit-matrix scratch, gets
-that scratch allocated here; one from before the whole-A2C2f kernel took
-its MLP width (whose C entry has no `hid`) is called without it. The
-builds take
+resident path, which every such tree has; then kernels A and C forced onto
+the streamed path (the "streamed" cases: f32 at the default commands'
+batch 16 at 640^2 and 160^2 and at 1024^2, bf16 at the bands it serves and
+the long ones), which trees from the streamed path's introduction on have.
+A `csrc` from before the one-launch NMS kernel, whose C entry still takes a
+hit-matrix scratch, gets that scratch allocated here; one from before the
+whole-A2C2f kernel took its MLP width (whose C entry has no `hid`) is
+called without it, and one whose streamed entries take no query rows
+(before the TMA kernels) without those. The builds take
 turns in the order given and then in reverse (old, new, new, old for two), so
 a drift of the card's clock over the run shows as a spread and not as a
 difference. Prints one JSON object: case -> directory -> {"device_ms":
@@ -59,6 +63,21 @@ ATTN_CASES = [("C L6@640", (32, 400, 64), 2), ("C L8@640", (8, 400, 128), 4),
               ("C profile-fused", (32, 400, 128), 4),
               ("C profile-single", (128, 400, 32), 1),
               ("C single", (64, 400, 32), 1)]
+# name, kernel, (G, N, C), heads, dtype: the streamed path forced
+STREAM_CASES = [
+    (f"{k} streamed f32 {name}", k, shape, heads, torch.float32)
+    for k in ("A", "C")
+    for name, shape, heads in (("L6@640b16", (64, 400, 64), 2),
+                               ("L8@640b16", (16, 400, 128), 4),
+                               ("L6@160b16", (64, 25, 64), 2),
+                               ("L8@160b16", (16, 25, 128), 4))] + [
+    ("C streamed f32 L6@1024", "C", (32, 1024, 64), 2, torch.float32),
+    ("A streamed bf16 L6@640", "A", (32, 400, 64), 2, torch.bfloat16),
+    ("A streamed bf16 L6@160b128", "A", (512, 25, 64), 2, torch.bfloat16),
+    ("A streamed bf16 L8@160b128", "A", (128, 25, 128), 4, torch.bfloat16),
+    ("A streamed bf16 L6@1280", "A", (32, 1600, 64), 2, torch.bfloat16),
+    ("A streamed bf16 L8@1280", "A", (8, 1600, 128), 4, torch.bfloat16),
+    ("C streamed bf16 L6@1408", "C", (32, 1936, 64), 2, torch.bfloat16)]
 # name, (B, H, W, cin), c2, stages, area, heads
 A2C2F_CASES = [("a2c2f L6@640", (8, 40, 40, 128), 128, 2, 4, 2),
                ("a2c2f L8@640", (8, 20, 20, 256), 256, 2, 1, 4)]
@@ -94,6 +113,15 @@ def load_library(csrc: Path):
                           *[ci] * 10, vp]
         # the new entry's arguments: ..., c_, c2, hid, n_stages, ...
         lib.yolou_a2c2f = lambda *args: entry(*args[:12], *args[13:])
+    if "int rows" not in (csrc / "band_attention.cu").read_text():
+        # the entries' query rows (the 12th and 10th argument) dropped
+        for name, at in (("yolou_band_attention_qkv_stream", 11),
+                         ("yolou_band_attention_stream", 9)):
+            if hasattr(lib, name):
+                old = getattr(lib, name)
+                old.argtypes = old.argtypes[:at] + old.argtypes[at + 1:]
+                setattr(lib, name, lambda *args, old=old, at=at:
+                        old(*args[:at], *args[at + 1:]))
     return lib
 
 
@@ -130,6 +158,17 @@ def _resident_attention(q, k, v, heads):
     return _launch_band_attention(q, k, v, heads, streamed=False)
 
 
+def _streamed(kernel, args, heads):
+    """Kernel A or C forced onto the streamed path (on the CPU the wrapper:
+    the plain version)."""
+    if args[0].device.type == "cpu":
+        fn = area_attention_qkv_fused if kernel == "A" else area_attention_fused
+        return fn(*args, heads)
+    if kernel == "A":
+        return _launch_qkv_attention(*args, heads, streamed=True)
+    return _launch_band_attention(*args, heads, streamed=True)
+
+
 def _calls(device):
     """case name -> a call of the package's wrapper on seeded inputs."""
     rng = np.random.default_rng(0)
@@ -146,6 +185,14 @@ def _calls(device):
     for name, shape, heads in ATTN_CASES:
         q, k, v = mk(shape), mk(shape), mk(shape)
         calls[name] = functools.partial(_resident_attention, q, k, v, heads)
+    for name, kernel, (g, n, c), heads, dtype in STREAM_CASES:
+        if kernel == "A":
+            args = (mk((g, n, c), dtype=dtype),
+                    mk((c, 3 * c), 0.5 / np.sqrt(c), dtype),
+                    mk((3 * c,), 0.1, torch.float32))
+        else:
+            args = tuple(mk((g, n, c), dtype=dtype) for _ in range(3))
+        calls[name] = functools.partial(_streamed, kernel, args, heads)
 
     def gemm(k, n):                  # a (k, n) weight and its f32 bias
         return [mk((k, n), 0.5 / np.sqrt(k)), mk((n,), 0.1, torch.float32)]
