@@ -8,7 +8,7 @@ Phases, one or more output lines each:
   2. build   - nvcc builds the kernels from yolou_tpu_torch/csrc; the band
                attention and whole-A2C2f kernels' registers, spills and
                tensor-core (HMMA) instructions: bf16 must have them, f32
-               (SIMT) must not;
+               (FMA units) must not;
   3. kernels - each CUDA kernel against its plain PyTorch version on the card,
                at the shapes the serving, training and evaluation paths give
                it, with times of the kernel, the plain version and, where one
@@ -24,8 +24,10 @@ Phases, one or more output lines each:
                long bands (yolov12s / x layer 8 at 640^2 in f32, yolov12n
                at 1280^2 in bf16, kernel C at 1024 and 1936 tokens), the
                bf16 streamed path timed against the resident one at
-               yolov12n's 640^2 bands, and `a2c2f` at mlp_ratio 1.2
-               and at yolov12l's layer 8 (f32, 8-token tiles);
+               yolov12n's 640^2 bands, `a2c2f` at mlp_ratio 1.2 and at
+               yolov12l's layer 8 (f32, 32-token tiles); heads of 48 and
+               16 in kernels A and C and the single-head entry, and `a2c2f`
+               with one head of 48 and with five stages, both types;
   4. serve   - a Predictor with seeded random yolov12n-seg weights (4 ch,
                nc=1, 640^2, bf16) answers 3 requests of 8 uint8 images; the
                kernels' launch counters must show the path went through them;
@@ -421,12 +423,13 @@ def check_attention(device):
     attention part alone (no one PyTorch call does projection + attention),
     scaled_dot_product_attention over the q, k, v that the plain projection
     gives. At the 640^2 serving shapes in bf16 the streamed path is also
-    timed against the resident one."""
+    timed against the resident one. Heads of 48 and 16 (padded to 64 and
+    32 in the wrapper) at layer 8's band, both types."""
     import torch
     import torch.nn.functional as F
     from yolou_tpu_torch.kernels.attention import (
         _launch_qkv_attention, area_attention_qkv_fused,
-        area_attention_qkv_fused_plain, attention_plan)
+        area_attention_qkv_fused_plain, attention_plan, padded_head_dim)
     f32_exact(torch)
     # serving: 640^2, batch 8; evaluation: 160^2, batch 16; objectmaps:
     # 160^2, batch 128; then the bands the resident path cannot hold
@@ -445,7 +448,11 @@ def check_attention(device):
              ("s L8@640", BATCH, 400, 256, 8, BOTH),
              ("x L8@640", BATCH, 400, 384, 12, ("float32",)),
              ("L6@1280", 4 * BATCH, 1600, 64, 2, ("bfloat16",)),
-             ("L8@1280", BATCH, 1600, 128, 4, ("bfloat16",))]
+             ("L8@1280", BATCH, 1600, 128, 4, ("bfloat16",)),
+             # heads no yolov12 graph builds: two of 48 (padded to 64, the
+             # streamed path) and two of 16 (padded to 32)
+             ("L8@640 hd48", BATCH, 400, 96, 2, BOTH),
+             ("L8@640 hd16", BATCH, 400, 32, 2, BOTH)]
     rng = np.random.default_rng(SEED)
     worst, times = 0.0, {}
     for name, g, n, c, heads, dtypes in cases:
@@ -475,7 +482,8 @@ def check_attention(device):
             nbytes = xt.element_size() * (3 * g * n * c + 3 * c * c) + 12 * c
             flops = 6 * g * n * c * c + 4 * g * n * n * c
             bound_ms, bound_by = bound(nbytes, flops, dtype_name(dtype))
-            plan = attention_plan(g, n, c, dtype)
+            hdp = padded_head_dim(c // heads)
+            plan = attention_plan(g, n, heads * hdp, dtype, hd=hdp)
             paths = {}
             if plan.streamed:    # its two device kernels, each timed
                 split = device_kernel_ms(
@@ -533,13 +541,14 @@ def check_training_attention(device):
     times of kernel, plain version and the one PyTorch call that computes
     the function (scaled_dot_product_attention), a yardstick only. At the
     640^2 shapes in bf16 the streamed path is also timed against the
-    resident one."""
+    resident one. Heads of 48 and 16 (padded in the wrapper), multi-head
+    and single, both types."""
     import torch
     import torch.nn.functional as F
     from yolou_tpu_torch.kernels.attention import (
         _launch_band_attention, area_attention, area_attention_fused,
         area_attention_fused_plain, area_attention_plain, attention_backward,
-        attention_plan)
+        attention_plan, padded_head_dim)
     from yolou_tpu_torch.tools.profile_layers import HEADS, attention_shapes
     f32_exact(torch)
     cases = [("L6@640", 4 * BATCH, 400, 64, 2, BOTH),
@@ -554,7 +563,11 @@ def check_training_attention(device):
              ("L6@640b16", 4 * EVAL_BATCH, 400, 64, 2, ("float32",)),
              ("L8@640b16", EVAL_BATCH, 400, 128, 4, ("float32",)),
              ("L6@1024", 4 * BATCH, 1024, 64, 2, ("float32",)),
-             ("L6@1408", 4 * BATCH, 1936, 64, 2, ("bfloat16",))]
+             ("L6@1408", 4 * BATCH, 1936, 64, 2, ("bfloat16",)),
+             ("L8@640 hd48", BATCH, 400, 96, 2, BOTH),
+             ("L8@640 hd16", BATCH, 400, 32, 2, BOTH),
+             ("single hd48", 64, 400, 48, 1, BOTH),
+             ("single hd16", 64, 400, 16, 1, BOTH)]
     for name, shape, heads in zip(("profile-single", "profile-fused"),
                                   attention_shapes(BATCH), (1, HEADS)):
         cases.append((name, *shape, heads, BOTH))
@@ -603,7 +616,9 @@ def check_training_attention(device):
             nbytes = 4 * g * n * c * q.element_size()     # q, k, v in; o out
             bound_ms, bound_by = bound(nbytes, 4 * g * n * n * c, dn)
             floor_ms = exp_floor(g, heads, n)
-            plan = attention_plan(g, n, c, dtype, projection=False)
+            hdp = padded_head_dim(c // heads)
+            plan = attention_plan(g, n, heads * hdp, dtype, projection=False,
+                                  hd=hdp)
             streamed = plan.streamed
             paths = {}
             if name in ("L6@640", "L8@640") and dtype == torch.bfloat16:
@@ -683,15 +698,16 @@ def check_a2c2f(device):
     path gives it with `mega_kernel=True` (yolov12n layers 6 and 8 at 640^2,
     batch 8), at a small shape with four bands, f32 and bf16, at the two
     yolov12n shapes with mlp_ratio 1.2 (an MLP 154 / 307 wide, padded to
-    160 / 320 in bf16), and at yolov12l's layer 8 at 640^2 in f32 (4
-    stages; the smaller f32 token tile); times of the kernel, of the plain
-    version and of the staged `A2C2f.forward` on the same weights (about 80
-    launches with the band attention kernel inside: the route the kernel
-    replaces, and the yardstick, since no one PyTorch call computes the
-    block)."""
+    160 / 320 in bf16), at yolov12l's layer 8 at 640^2 in f32 (4 stages;
+    32-token tiles), at A2C2f(96, 96) (one head of 48, padded to 64 by the
+    fold) and at five stages, both types; times of the kernel, of the
+    plain version and of the staged `A2C2f.forward` on the same weights
+    (about 80 launches with the band attention kernel inside: the route the
+    kernel replaces, and the yardstick, since no one PyTorch call computes
+    the block)."""
     import torch
     from yolou_tpu_torch.kernels.a2c2f import (a2c2f_fused,
-                                               a2c2f_fused_plain, f32_layout)
+                                               a2c2f_fused_plain, f32_tile)
     f32_exact(torch)
     cases = [("L6@640", (BATCH, 40, 40, 128), 128, 2, 4, 2.0, BOTH),
              ("L8@640", (BATCH, 20, 20, 256), 256, 2, 1, 2.0, BOTH),
@@ -699,7 +715,10 @@ def check_a2c2f(device):
              ("L6@640 mlp1.2", (BATCH, 40, 40, 128), 128, 2, 4, 1.2, BOTH),
              ("L8@640 mlp1.2", (BATCH, 20, 20, 256), 256, 2, 1, 1.2, BOTH),
              ("l L8@640", (BATCH, 20, 20, 512), 512, 4, 1, 2.0,
-              ("float32",))]
+              ("float32",)),
+             # one head of 48 (the fold pads it to 64), five stages
+             ("A2C2f(96,96)", (BATCH, 20, 20, 96), 96, 1, 1, 2.0, BOTH),
+             ("n5", (2, 20, 20, 128), 128, 5, 1, 2.0, BOTH)]
     rng = np.random.default_rng(SEED + 6)
     results = {}
     for i, (name, shape, c2, n, area, mlp, dtypes) in enumerate(cases):
@@ -727,8 +746,8 @@ def check_a2c2f(device):
             hid = ws[8].shape[1]
             nbytes, flops = a2c2f_work(shape, c_, c2, n, area,
                                        xt.element_size(), hid)
-            tile = (f32_layout(shape[-1], c_, n, shape[1] * shape[2] // area,
-                               hid) if dtype == torch.float32 else None)
+            tile = (f32_tile(shape[0], shape[1] * shape[2] // area, area)
+                    if dtype == torch.float32 else None)
             bound_ms, bound_by = bound(nbytes, flops, dn)
             # bf16: ATTN_TOL's absolute bound says little of outputs under
             # 1, so the error is also held to 2**-6 of the largest output (a
@@ -741,7 +760,7 @@ def check_a2c2f(device):
             staged_tol = tol if dtype == torch.float32 else 2 * tol
             log("kernel", name="a2c2f", case=name,
                 shape=f"{shape}c_{c_}n{n}a{area}h{heads}", dtype=dn,
-                mlp_width=hid, f32_layout=tile,
+                mlp_width=hid, f32_tile=tile,
                 max_abs_err=err, tol=tol, out_abs_max=out_max,
                 vs_staged_max_abs=staged_err, staged_tol=staged_tol, ms=ms,
                 plain_ms=plain_ms, staged_ms=staged_ms, bound_ms=bound_ms,
@@ -758,8 +777,12 @@ def check_a2c2f(device):
                 "max_abs_err": err, "ms": ms, "call_ms": call_ms,
                 "plain_ms": plain_ms, "staged_ms": staged_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
-    worst = max(r["max_abs_err"] for r in results.values())
-    return dict(results[("L6@640", "bfloat16")], max_abs_err=worst)
+    worst = {dn: max(r["max_abs_err"] for (_, d), r in results.items()
+                     if d == dn) for dn in BOTH}
+    return {"bfloat16": dict(results[("L6@640", "bfloat16")],
+                             max_abs_err=worst["bfloat16"]),
+            "float32": dict(results[("l L8@640", "float32")],
+                            max_abs_err=worst["float32"])}
 
 
 # ------------------------------------------------------------- kernel B
@@ -3995,7 +4018,8 @@ def _kernel_name(line: str):
     kernel is bf16, the others f32."""
     import re
     m = re.search(r"((?:band_attention_(?:qkv_|stream_)?|a2c2f_|"
-                  r"kv_projection_)(?:wgmma_|mma_)?kernel)(I\S*?EE)?", line)
+                  r"kv_projection_)(?:wgmma_|mma_|f32_)?kernel)(I\S*?EE)?",
+                  line)
     if not m:
         return None
     name, targs = m.group(1), m.group(2) or ""
@@ -4050,6 +4074,8 @@ def check_build_report(report: list) -> None:
     streamed bf16 kernel on wgmma only (HGMMA, no HMMA)."""
     if not any(e["kernel"].startswith("a2c2f_mma_kernel") for e in report):
         raise AssertionError("no bf16 a2c2f kernel in the build report")
+    if not any(e["kernel"].startswith("a2c2f_f32_kernel") for e in report):
+        raise AssertionError("no f32 a2c2f kernel in the build report")
     if not any("wgmma" in e["kernel"] for e in report):
         raise AssertionError("no wgmma kernel in the build report")
     for entry in report:
@@ -4348,8 +4374,20 @@ def main() -> int:
          "launches_by_path": {
              "serve-mega": mega_counts["a2c2f"],
              "shapes yolov12l f32": shapes["yolov12l mega f32 640"]["a2c2f"]},
-         "staged_ms": a2c2f["staged_ms"], **{k: a2c2f[k] for k in keys},
-         "ms_source": times_source(a2c2f)},
+         "device_kernels": ["a2c2f_mma_kernel<TILE, STREAM, HD>"],
+         "staged_ms": a2c2f["bfloat16"]["staged_ms"],
+         **{k: a2c2f["bfloat16"][k] for k in keys},
+         "ms_source": times_source(a2c2f["bfloat16"])},
+        {"name": "a2c2f_f32", "route": "cuda", "source": src + "a2c2f.cu",
+         "replaces": "yolou_tpu/ops/pallas_a2c2f.py:192",
+         "device_kernels": ["a2c2f_f32_kernel<TM, HD>"],
+         "launches": shapes["yolov12l mega f32 640"]["a2c2f"],
+         "launches_by_path": {
+             "shapes yolov12l f32": shapes["yolov12l mega f32 640"]["a2c2f"]},
+         "at": "l L8@640 float32",
+         "staged_ms": a2c2f["float32"]["staged_ms"],
+         **{k: a2c2f["float32"][k] for k in keys},
+         "ms_source": times_source(a2c2f["float32"])},
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,9 @@
 """PyTorch port: the CUDA kernels against their plain versions on the card,
 at shapes off the serving path (ragged bands, token tiles and candidate
-counts, one to many heads, more tiles than one co-resident wave, side
-streams, both paths of the band attention kernels, the whole-A2C2f kernel
-at other MLP widths and its smaller f32 token tiles), and the wrappers'
-refusals.
+counts, one to many heads, heads of any width up to 64, more tiles than one
+co-resident wave, side streams, both paths of the band attention kernels,
+the whole-A2C2f kernel at other MLP widths, any stage count and each layout
+of its f32 kernel), and the wrappers' refusals.
 
 Marked `cuda`; without a CUDA device each test skips. The file imports
 neither JAX nor the JAX package, so it runs where JAX is absent:
@@ -20,12 +20,13 @@ import torch
 
 from yolou_tpu_torch import kernels
 from yolou_tpu_torch.kernels import build
-from yolou_tpu_torch.kernels.a2c2f import a2c2f_fused, a2c2f_fused_plain
+from yolou_tpu_torch.kernels.a2c2f import (_launch_a2c2f, a2c2f_fused,
+                                           a2c2f_fused_plain)
 from yolou_tpu_torch.kernels.attention import (
     _launch_band_attention, _launch_qkv_attention, area_attention,
     area_attention_fused, area_attention_fused_plain, area_attention_plain,
     area_attention_qkv_fused, area_attention_qkv_fused_plain, attention_plan,
-    max_tokens)
+    cut_heads, max_tokens, pad_heads, pad_qkv_projection, padded_head_dim)
 from yolou_tpu_torch.kernels.nms import suppress_greedy, suppress_greedy_plain
 from yolou_tpu_torch.models.specs import YOLOV12_SCALES, scale_channels
 
@@ -109,14 +110,17 @@ def test_band_attention_on_a_side_stream(cuda):
 
 
 def test_band_attention_refuses_what_it_cannot_run(cuda):
-    """head_dim, alignment and device are refused, and the resident path in
-    f32, which has none; a band past the bf16 resident path (one token past
-    its cluster's 1024) is not, nor N = 1000 in f32: they run the streamed
-    path (two device kernels, one count) and agree with the plain
-    version."""
+    """Alignment and device are refused, and the resident path in f32,
+    which has none; a head of 48 is not (padded to 64 in the wrapper, the
+    streamed path, within 1e-4 of the plain version), nor a band past the
+    bf16 resident path (one token past
+    its cluster's 1024), nor N = 1000 in f32: they run the streamed path
+    (two device kernels, one count) and agree with the plain version."""
     x, w, b = _attn_inputs(2, 16, 96, torch.float32, cuda, seed=2)
-    with pytest.raises(ValueError, match="head_dim"):
-        area_attention_qkv_fused(x, w, b, 2)          # head_dim 48
+    o, v = area_attention_qkv_fused(x, w, b, 2)       # head_dim 48
+    o_ref, v_ref = area_attention_qkv_fused_plain(x, w, b, 2)
+    assert (o - o_ref).abs().max().item() <= 1e-4
+    assert (v - v_ref).abs().max().item() <= 1e-4
     for dtype, n, tol in ((torch.float32, 1000, 1e-4),
                           (torch.bfloat16, max_tokens(128, torch.bfloat16) + 1,
                            2e-2)):
@@ -236,13 +240,21 @@ def test_single_head_attention_matches_plain(cuda):
 
 
 def test_training_attention_refuses_what_it_cannot_run(cuda):
-    """head_dim, device, contiguity and type are refused, and the resident
-    path in f32; a band past the bf16 resident path (one token past its
-    1808) runs the streamed path and agrees with the plain version, as N =
-    1000 in f32 does."""
+    """Device, contiguity and type are refused, and the resident path in
+    f32 and for heads of 64; a head of 48 is not (padded to 64, within 1e-4
+    of the plain version), nor a head wider
+    than 64 on the CPU's plain version, which the card refuses by name; a
+    band past the bf16 resident path (one token past its 1808) runs the
+    streamed path and agrees with the plain version, as N = 1000 in f32
+    does."""
     q, k, v = _qkv_inputs(2, 16, 96, torch.float32, cuda, seed=2)
+    o = area_attention_fused(q, k, v, 2)              # head_dim 48
+    assert (o - area_attention_fused_plain(q, k, v, 2)).abs().max() <= 1e-4
     with pytest.raises(ValueError, match="head_dim"):
-        area_attention_fused(q, k, v, 2)              # head_dim 48
+        area_attention(q, k, v)                       # one head of 96
+    with pytest.raises(ValueError, match="heads of 32"):
+        _launch_band_attention(*_qkv_inputs(2, 16, 128, torch.bfloat16, cuda,
+                                            seed=5), 2, streamed=False)
     for dtype, n, tol in (
             (torch.float32, 1000, 1e-4),
             (torch.bfloat16,
@@ -376,20 +388,151 @@ def test_streamed_kernels_refuse_what_they_cannot_map(cuda):
     q, k, v = _qkv_inputs(2, 100, 64, torch.float32, cuda, seed=9)
     o = torch.empty_like(q)
     stream = torch.cuda.current_stream().cuda_stream
-    for dtype, rows in ((0, 48), (0, 128), (1, 32)):
+    scale = 32 ** -0.5
+    for dtype, rows, heads in ((0, 48, 2), (0, 128, 2), (1, 32, 2),
+                               (0, 64, 1), (1, 128, 1), (0, 32, 4)):
+        # heads of 64 take 32 rows in f32 and 64 in bf16; 16 no kernel
         code = lib.yolou_band_attention_stream(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 2, 100,
-            64, 2, dtype, rows, stream)
+            64, heads, dtype, rows, scale, stream)
         with pytest.raises(RuntimeError, match="CUDA error"):
             build.check(lib, code, "streamed kernel")
     code = lib.yolou_band_attention_stream(
         q.data_ptr() + 4, k.data_ptr(), v.data_ptr(), o.data_ptr(), 2, 99,
-        64, 2, 0, 64, stream)
+        64, 2, 0, 64, scale, stream)
     with pytest.raises(RuntimeError, match="CUDA error"):
         build.check(lib, code, "streamed kernel")
     shifted = torch.empty(q.numel() + 1, device=cuda)[1:].view(q.shape)
     with pytest.raises(ValueError, match="16-byte aligned"):
         area_attention_fused(shifted, k, v, 2)
+
+
+# ------------------------------------------------- heads of any width
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("g,n,heads", [(3, 25, 2), (2, 400, 1),
+                                       (1, 1937, 2)])
+@pytest.mark.parametrize("hd", [16, 40, 48, 64])
+def test_attention_at_any_head_width(cuda, hd, g, n, heads, dtype, tol):
+    """Kernels A and C and the single-head entry at heads of 16, 40, 48 and
+    64 (padded to 32 or 64 in the wrapper, the true scale kept) on the path
+    the plan gives, then kernels A and C on each path that takes the padded
+    width (the resident one in bf16 at 32, where the band fits), against
+    the plain version over the unpadded operands within its tolerance."""
+    c = heads * hd
+    x, w, b = _attn_inputs(g, n, c, dtype, cuda, seed=n + hd)
+    q, k, v = _qkv_inputs(g, n, c, dtype, cuda, seed=n + hd + 1)
+    kernels.reset_launch_counts()
+    o, ov = area_attention_qkv_fused(x, w, b, heads)
+    oc = area_attention_fused(q, k, v, heads)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["band_attention"] == 1
+    assert kernels.launch_counts()["band_attention_train"] == 1
+    o_ref, v_ref = area_attention_qkv_fused_plain(x, w, b, heads)
+    ref = area_attention_fused_plain(q, k, v, heads)
+    got = [(o, o_ref), (ov, v_ref), (oc, ref)]
+    if heads == 1:
+        got.append((area_attention(q, k, v), area_attention_plain(q, k, v)))
+    hdp = padded_head_dim(hd)
+    paths = [True] + ([False] if dtype == torch.bfloat16 and hdp == 32
+                      and n <= max_tokens(heads * hdp) else [])
+    xp, wp, bp = pad_qkv_projection(x, w, b, heads, hdp)
+    qp, kp, vp = (pad_heads(t, heads, hdp) for t in (q, k, v))
+    for streamed in paths:
+        po, pv = _launch_qkv_attention(xp, wp, bp, heads, streamed=streamed,
+                                       scale=hd ** -0.5)
+        pc = _launch_band_attention(qp, kp, vp, heads, streamed=streamed,
+                                    scale=hd ** -0.5)
+        got += [(cut_heads(po, heads, hd), o_ref),
+                (cut_heads(pv, heads, hd), v_ref),
+                (cut_heads(pc, heads, hd), ref)]
+    torch.cuda.synchronize()
+    for a, r in got:
+        assert a.dtype == dtype and a.shape == r.shape
+        assert bool(torch.isfinite(a).all())
+        assert (a.float() - r.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("hd", [16, 48])
+def test_attention_gradients_at_other_head_widths(cuda, hd):
+    """Kernels A and C at two heads of 16 and of 48, f32: the gradients
+    against autograd through the plain version within 1e-4."""
+    c = 2 * hd
+    x, w, b = _attn_inputs(3, 100, c, torch.float32, cuda, seed=hd)
+    q, k, v = _qkv_inputs(3, 100, c, torch.float32, cuda, seed=hd + 1,
+                          grad=True)
+    for t in (x, w, b):
+        t.requires_grad_()
+    rng = np.random.default_rng(hd)
+    do, dv = (torch.tensor(rng.normal(size=x.shape), dtype=torch.float32,
+                           device=cuda) for _ in range(2))
+    got = torch.autograd.grad(area_attention_qkv_fused(x, w, b, 2),
+                              (x, w, b), (do, dv))
+    got += torch.autograd.grad(area_attention_fused(q, k, v, 2), (q, k, v),
+                               do)
+    want = torch.autograd.grad(area_attention_qkv_fused_plain(x, w, b, 2),
+                               (x, w, b), (do, dv))
+    want += torch.autograd.grad(area_attention_fused_plain(q, k, v, 2),
+                                (q, k, v), do)
+    for a, r in zip(got, want):
+        assert (a - r).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape,c_,c2,n_stages,area,heads", [
+    ((2, 10, 10, 32), 16, 32, 1, 4, 1),        # a head of 16, padded to 32
+    ((1, 20, 20, 96), 48, 96, 1, 1, 1),        # A2C2f(96, 96): one of 48
+    ((2, 12, 12, 40), 80, 96, 2, 4, 2),        # two heads of 40
+    ((1, 16, 16, 64), 64, 64, 5, 1, 2),        # five stages
+    ((2, 20, 20, 128), 128, 128, 8, 4, 4),     # eight
+])
+def test_a2c2f_at_any_head_width_and_stage_count(cuda, shape, c_, c2,
+                                                 n_stages, area, heads,
+                                                 dtype, tol):
+    """Heads of 16, 48 and 40 (padded by the wrapper to 32 / 64 / 64, the
+    true scale kept) and 5 or 8 stages, in both types, against the plain
+    version over the unpadded weights; one launch each."""
+    x, ws = _a2c2f_inputs(shape, c_, c2, n_stages, dtype, cuda,
+                          seed=c_ + n_stages)
+    kernels.reset_launch_counts()
+    out = a2c2f_fused(x, ws, n_stages, area, heads)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["a2c2f"] == 1
+    ref = a2c2f_fused_plain(x, ws, n_stages, area, heads)
+    assert out.dtype == dtype and out.shape == shape[:3] + (c2,)
+    assert bool(torch.isfinite(out).all())
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert ref.float().abs().max().item() > 0.05
+
+
+@pytest.mark.parametrize("tile", [32, 64])
+@pytest.mark.parametrize("shape,c_,c2,n_stages,area,heads,hid", [
+    ((1, 9, 7, 24), 32, 48, 1, 1, 1, None),    # 63 tokens: ragged tiles
+    ((2, 10, 10, 24), 64, 48, 1, 4, 2, None),  # bands of 25
+    ((2, 8, 8, 3), 18, 45, 2, 4, 1, 38),       # cin 3, c_ 18, MLP 38, c2 45
+    ((1, 10, 10, 24), 48, 36, 1, 1, 1, None),  # a head of 48 (layout 64)
+    ((2, 13, 11, 32), 128, 64, 1, 1, 2, None),  # two heads of 64
+    ((1, 20, 20, 64), 64, 64, 2, 1, 2, 76),    # 400 tokens, 7 key tiles
+    ((3, 12, 20, 64), 96, 96, 1, 4, 3, None),  # bands of 60, 3 heads
+])
+def test_a2c2f_f32_at_each_layout(cuda, tile, shape, c_, c2, n_stages, area,
+                                  heads, hid):
+    """The register-tiled f32 kernel forced onto each token tile (64: one
+    key group; 32: two, merged) at head widths 32 and 64, ragged token
+    tiles and bands, ragged key tiles (one band past 64 keys), and widths
+    off a multiple of 4 (padded by the wrapper); within 1e-4 of the plain
+    version."""
+    x, ws = _a2c2f_inputs(shape, c_, c2, n_stages, torch.float32, cuda,
+                          seed=sum(shape) + tile, hid=hid)
+    with torch.no_grad():
+        out = _launch_a2c2f(x, ws, n_stages, area, heads, tile=tile)
+        torch.cuda.synchronize()
+        ref = a2c2f_fused_plain(x, ws, n_stages, area, heads)
+    assert out.shape == shape[:3] + (c2,) and bool(torch.isfinite(out).all())
+    assert (out - ref).abs().max().item() <= 1e-4
+    assert ref.abs().max().item() > 0.05
 
 
 def _nms_inputs(bsz, k, case, device, seed):
@@ -594,23 +737,23 @@ def test_a2c2f_at_any_mlp_width(cuda, shape, c2, n_stages, area, heads, hid,
 
 
 @pytest.mark.parametrize("shape,c2,n_stages,layout", [
-    ((2, 20, 20, 512), 512, 4, (8, False)),    # yolov12l L8 at 640^2
-    ((1, 28, 28, 256), 256, 2, (4, False)),    # yolov12n L8 at 896^2
-    ((1, 40, 40, 32), 128, 1, (16, True)),     # a band of 1600 at c_ 64
-    ((1, 56, 56, 32), 64, 1, (16, True)),      # 3136 at c_ 32
+    ((8, 20, 20, 512), 512, 4, 32),            # yolov12l L8 at 640^2
+    ((1, 28, 28, 256), 256, 2, 32),            # yolov12n L8 at 896^2
+    ((1, 40, 40, 32), 128, 1, 32),             # a band of 1600 at c_ 64
+    ((1, 56, 56, 32), 64, 1, 32),              # 3136 at c_ 32
 ])
 def test_a2c2f_f32_takes_a_smaller_token_tile(cuda, shape, c2, n_stages,
                                               layout):
-    """Shapes the gate admits whose f32 CTA at 16 tokens passes 227 KB run
-    on the layout `f32_layout` gives (a smaller token tile, else the band's
-    keys and values streamed), within 1e-4 of the plain version."""
-    from yolou_tpu_torch.kernels.a2c2f import (a2c2f_mega_eligible,
-                                               f32_layout)
+    """Shapes the gate admits whose f32 CTA of the earlier SIMT kernel
+    passed 227 KB at 16 tokens run on the token tile `f32_tile` gives
+    (the register-tiled kernel's shared memory does not grow with the
+    block), within 1e-4 of the plain version."""
+    from yolou_tpu_torch.kernels.a2c2f import a2c2f_mega_eligible, f32_tile
     c_ = c2 // 2
     nb = shape[1] * shape[2]
     assert a2c2f_mega_eligible(shape[1], shape[2], shape[3], c_, 1,
                                c_ // 32)
-    assert f32_layout(shape[-1], c_, n_stages, nb) == layout
+    assert f32_tile(shape[0], nb, 1) == layout
     x, ws = _a2c2f_inputs(shape, c_, c2, n_stages, torch.float32, cuda,
                           seed=nb)
     out = a2c2f_fused(x, ws, n_stages, 1, c_ // 32)
@@ -660,19 +803,25 @@ def test_a2c2f_on_a_side_stream_and_twice(cuda):
 
 
 def test_a2c2f_refuses_what_it_cannot_run(cuda):
-    """A band of 1600 tokens in f32 is no longer refused (the streamed
-    layout takes it: `test_a2c2f_f32_takes_a_smaller_token_tile`); a cin
-    whose activation tile alone passes a block still is."""
-    x, ws = _a2c2f_inputs((1, 8, 8, 32), 64, 64, 1, torch.float32, cuda, 0)
-    with pytest.raises(ValueError, match="head_dim 32"):
-        a2c2f_fused(x, ws, 1, 1, 1)                    # one head of 64
-    x, ws = _a2c2f_inputs((1, 4, 4, 16384), 32, 32, 1, torch.float32, cuda,
+    """One head of 64 runs (a kernel width), as do cin 16384 in
+    f32 (the register-tiled kernel streams every operand) and 5 stages (the
+    ABlocks' pointers are a device array), within 1e-4 of the plain
+    version; a bf16 cin whose activation tile alone passes a block is still
+    refused, and a head wider than 64."""
+    for shape, c_, n, heads in (((1, 8, 8, 32), 64, 1, 1),
+                                ((1, 4, 4, 16384), 32, 1, 1),
+                                ((1, 4, 4, 32), 32, 5, 1)):
+        x, ws = _a2c2f_inputs(shape, c_, 32, n, torch.float32, cuda, 0)
+        out = a2c2f_fused(x, ws, n, 1, heads)
+        ref = a2c2f_fused_plain(x, ws, n, 1, heads)
+        assert (out - ref).abs().max().item() <= 1e-4
+    x, ws = _a2c2f_inputs((1, 4, 4, 16384), 32, 32, 1, torch.bfloat16, cuda,
                           0)
     with pytest.raises(ValueError, match="shared memory"):
-        a2c2f_fused(x, ws, 1, 1, 1)                    # cin 16384, f32
-    x, ws = _a2c2f_inputs((1, 4, 4, 32), 32, 32, 5, torch.float32, cuda, 0)
-    with pytest.raises(ValueError, match="at most 4 stages"):
-        a2c2f_fused(x, ws, 5, 1, 1)
+        a2c2f_fused(x, ws, 1, 1, 1)                    # cin 16384, bf16
+    x, ws = _a2c2f_inputs((1, 4, 4, 32), 96, 32, 1, torch.float32, cuda, 0)
+    with pytest.raises(ValueError, match="head_dim up to 64"):
+        a2c2f_fused(x, ws, 1, 1, 1)                    # one head of 96
     x, ws = _a2c2f_inputs((1, 4, 4, 32), 32, 32, 1, torch.float32, cuda, 0)
     with pytest.raises(ValueError, match="one device"):
         a2c2f_fused(x, [ws[0].cpu(), *ws[1:]], 1, 1, 1)

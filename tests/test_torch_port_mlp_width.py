@@ -7,9 +7,10 @@ runs `a2c2f_fused_plain`, held here at mlp_ratio 1.2 (h = 38 at c_ = 32)
 against the Pallas kernel in interpret mode and the JAX plain composition,
 and the module's mega route against the JAX module's. The bf16 fold pads h
 to a multiple of 16 for the tensor cores (zero columns of mlp1, zero rows of
-mlp2), which must not change a value. The layout plan (`f32_tile`, the bf16
-smallest layout) fits every shape `a2c2f_mega_eligible` admits over yolov12
-n-x at 160^2-1280^2, at mlp_ratio 2 and 1.2.
+mlp2), which must not change a value. The layout plan (`f32_tile` and
+`f32_smem_bytes`, the bf16 smallest layout) fits every shape
+`a2c2f_mega_eligible` admits over yolov12 n-x at 160^2-1280^2, at mlp_ratio
+2 and 1.2.
 """
 
 import itertools
@@ -25,7 +26,7 @@ from yolou_tpu.ops.pallas_a2c2f import a2c2f_reference
 from yolou_tpu_torch import kernels
 from yolou_tpu_torch.kernels.a2c2f import (_SMEM_LIMIT, a2c2f_fused,
                                            a2c2f_fused_plain,
-                                           a2c2f_mega_eligible, f32_layout,
+                                           a2c2f_mega_eligible, f32_tile,
                                            smem_bytes)
 from yolou_tpu_torch.models.specs import (YOLOV12_SCALES, scale_channels,
                                           scale_depth)
@@ -181,9 +182,10 @@ def gated_shapes(mlp_ratio, graphs_only=False):
 
 @pytest.mark.parametrize("mlp_ratio", [2.0, MLP])
 def test_the_layout_plan_fits_every_shape_the_gate_admits(mlp_ratio):
-    """f32: a token tile of 16, 8 or 4 fits (yolov12l's layer 8 at 640^2
-    takes 8, yolov12n's at 896^2 takes 4), else the streamed layout (bands
-    of 1600 tokens and more at c_ 32-64). bf16 at its smallest layout with
+    """f32: the register-tiled kernel's token tile of 64 or 32 fits at every
+    shape (its shared memory depends on the tile and the head width only;
+    batch 8: yolov12l's layer 8 at 640^2 takes 32 tokens, the rest 64).
+    bf16 at its smallest layout with
     h padded to 16, holding a head's keys and values of the band, fits
     every yolov12 graph's shape; the other modules' longest bands (1296
     tokens and more at c_ 32-64) take the streamed bf16 layout, 256 keys at
@@ -193,9 +195,10 @@ def test_the_layout_plan_fits_every_shape_the_gate_admits(mlp_ratio):
     tiles = {}
     for H, W, cin, c_, area, heads, n_stages, hid in shapes:
         nb = H * W // area
-        layout = f32_layout(cin, c_, n_stages, nb, hid)
-        assert layout is not None, (H, W, cin, c_, n_stages, hid)
-        tiles[(H, cin, c_, n_stages)] = layout
+        tile = f32_tile(8, nb, area)
+        assert smem_bytes(cin, c_, n_stages, nb, torch.float32, hid,
+                          tile) <= _SMEM_LIMIT, (H, W, cin, c_, n_stages)
+        tiles[(H, cin, c_, n_stages)] = tile
     graphs = gated_shapes(mlp_ratio, graphs_only=True)
     streamed = 0
     for H, W, cin, c_, area, heads, n_stages, hid in shapes:
@@ -209,10 +212,11 @@ def test_the_layout_plan_fits_every_shape_the_gate_admits(mlp_ratio):
         streamed += not resident
     assert streamed == 32
     if mlp_ratio == 2.0:
-        assert tiles[(20, 512, 256, 4)] == (8, False)    # yolov12l L8 @640
-        assert tiles[(28, 256, 128, 2)] == (4, False)    # yolov12n L8 @896
-        assert tiles[(40, 128, 64, 2)] == (16, False)    # yolov12n L6 @640
-        assert tiles[(40, 32, 64, 1)] == (16, True)      # a band of 1600
-        assert tiles[(56, 512, 32, 4)] == (16, True)     # 3136
+        assert tiles[(20, 512, 256, 4)] == 32            # yolov12l L8 @640
+        assert tiles[(28, 256, 128, 2)] == 64            # yolov12n L8 @896
+        assert tiles[(40, 128, 64, 2)] == 64             # yolov12n L6 @640
+        assert tiles[(40, 32, 64, 1)] == 64              # a band of 1600
+        assert tiles[(56, 512, 32, 4)] == 64             # 3136
+        # the f32 CTA of the old SIMT kernel at 16 tokens passed 227 KB here
         assert smem_bytes(512, 256, 4, 400, torch.float32,
-                          tile=16) == 252_032 > _SMEM_LIMIT
+                          tile=32) == 90_704 <= _SMEM_LIMIT

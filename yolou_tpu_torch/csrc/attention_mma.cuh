@@ -34,9 +34,14 @@
 
 namespace yolou {
 
-// Element offset of channel 8 * chunk (+ 0..7) of key/value row `row`.
+// Element offset of channel 8 * chunk (+ 0..7) of key/value row `row` of a
+// head W channels wide: at 32 (64-byte rows) chunk c at c ^ ((row / 2) %
+// 4), at 64 (128-byte rows, TMA's 128-byte swizzle) at c ^ (row % 8); the
+// 8 rows one ldmatrix phase reads fall in 8 distinct bank groups either way.
+template <int W = HD>
 __device__ __forceinline__ int kv_at(int row, int chunk) {
-  return row * HD + ((chunk ^ ((row >> 1) & 3)) << 3);
+  if constexpr (W == 64) return row * 64 + ((chunk ^ (row & 7)) << 3);
+  else return row * HD + ((chunk ^ ((row >> 1) & 3)) << 3);
 }
 
 constexpr int MMA_WARPS = 8;     // warps per CTA of the tensor-core kernels
@@ -110,40 +115,48 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(PENDING) : "memory");
 }
 
-// The state of one warp's online softmax over 16 query rows: the P.V
-// accumulator (4 tiles of 8 channels), the running row maxima of rows g and
-// g + 8 in log2 units, and this thread's part of their row sums.
+// The state of one warp's online softmax over 16 query rows of a head W
+// channels wide: the P.V accumulator (W / 8 tiles of 8 channels), the
+// running row maxima of rows g and g + 8 in log2 units, and this thread's
+// part of their row sums.
+template <int W = HD>
 struct AttnState {
-  float acc[4][4];
+  float acc[W / 8][4];
   float m_lo, m_hi, l_lo, l_hi;
 };
 
-__device__ __forceinline__ void attn_init(AttnState& st) {
+template <int W>
+__device__ __forceinline__ void attn_init(AttnState<W>& st) {
 #pragma unroll
-  for (int u = 0; u < 4; ++u)
+  for (int u = 0; u < W / 8; ++u)
     st.acc[u][0] = st.acc[u][1] = st.acc[u][2] = st.acc[u][3] = 0.f;
   st.m_lo = st.m_hi = -INFINITY;
   st.l_lo = st.l_hi = 0.f;
 }
 
 // The split form of `attend_tile_mma`'s loop (the same steps): one warp's
-// online softmax of 16 query rows over keys [k_begin, k_end) of Ks and Vs
-// ([rows][32] swizzled; k_begin and k_end multiples of 16, rows past the
+// online softmax of 16 query rows (qa: the A fragments of W / 16 steps of
+// 16 channels) over keys [k_begin, k_end) of Ks and Vs ([rows][W]
+// swizzled, `kv_at<W>`; k_begin and k_end multiples of 16, rows past the
 // band zero), keys >= n_keys masked, n_keys = min(N, k_end) > k_begin.
 // sl2 = scale * log2(e). A copy, not a loop both share: with one shared
 // loop nvcc scheduled kernel C's 7-10 % slower on an H100 (PERF.md).
-template <int KT>
+template <int KT, int W = HD>
 __device__ __forceinline__ void attend_keys_mma(
-    const uint32_t (&qa)[2][4], const __nv_bfloat16* Ks,
+    const uint32_t (&qa)[W / 16][4], const __nv_bfloat16* Ks,
     const __nv_bfloat16* Vs, int k_begin, int k_end, int n_keys, float sl2,
-    AttnState& st) {
+    AttnState<W>& st) {
   const int lane = threadIdx.x & 31, t = lane & 3;
   // this lane's ldmatrix row addresses relative to the step's first key:
-  // the swizzle depends on bits 1-2 of the row only, which steps of 8 keys
-  // keep
-  const int k_off = kv_at(lane & 7, lane >> 3);
-  const int v_off[2] = {kv_at(lane & 15, lane >> 4),
-                        kv_at(lane & 15, 2 + (lane >> 4))};
+  // the swizzle depends on the row's low 3 bits only, which steps of 8
+  // keys keep; per 32 channels one x4 load of k, per 16 one of v
+  int k_off[W / 32], v_off[W / 16];
+#pragma unroll
+  for (int c = 0; c < W / 32; ++c)
+    k_off[c] = kv_at<W>(lane & 7, 4 * c + (lane >> 3));
+#pragma unroll
+  for (int h = 0; h < W / 16; ++h)
+    v_off[h] = kv_at<W>(lane & 15, 2 * h + (lane >> 4));
 
   for (int k0 = k_begin; k0 < k_end; k0 += KT) {
     float s[KT / 8][4];                     // S = Q K^T: tiles of 8 keys
@@ -151,10 +164,13 @@ __device__ __forceinline__ void attend_keys_mma(
     for (int j = 0; j < KT / 8; ++j) {
       s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
       if (k0 + 8 * j < k_end) {             // warp-uniform
-        uint32_t b[4];
-        ldsm_x4(b, Ks + (k0 + 8 * j) * HD + k_off);
-        mma_bf16(s[j], qa[0], b[0], b[1]);
-        mma_bf16(s[j], qa[1], b[2], b[3]);
+#pragma unroll
+        for (int c = 0; c < W / 32; ++c) {
+          uint32_t b[4];
+          ldsm_x4(b, Ks + (k0 + 8 * j) * W + k_off[c]);
+          mma_bf16(s[j], qa[2 * c], b[0], b[1]);
+          mma_bf16(s[j], qa[2 * c + 1], b[2], b[3]);
+        }
       }
     }
     // scale (in log2 units), mask keys >= n_keys, running max: k_begin <
@@ -190,7 +206,7 @@ __device__ __forceinline__ void attend_keys_mma(
     st.l_lo = st.l_lo * c_lo + sum_lo;
     st.l_hi = st.l_hi * c_hi + sum_hi;
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
+    for (int u = 0; u < W / 8; ++u) {
       st.acc[u][0] *= c_lo;
       st.acc[u][1] *= c_lo;
       st.acc[u][2] *= c_hi;
@@ -206,9 +222,9 @@ __device__ __forceinline__ void attend_keys_mma(
             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {       // channels 16h .. 16h + 15
+        for (int h = 0; h < W / 16; ++h) {  // channels 16h .. 16h + 15
           uint32_t b[4];
-          ldsm_x4_trans(b, Vs + (k0 + 16 * kk) * HD + v_off[h]);
+          ldsm_x4_trans(b, Vs + (k0 + 16 * kk) * W + v_off[h]);
           mma_bf16(st.acc[2 * h], pa, b[0], b[1]);
           mma_bf16(st.acc[2 * h + 1], pa, b[2], b[3]);
         }
@@ -341,14 +357,15 @@ __device__ __forceinline__ void attend_tile_mma(
 }
 
 // The split form: a warp that attended a part of the keys writes its
-// partial state for the 16 rows to `part` (PART_FLOATS floats: row maxima,
-// row sums, then the unnormalised [16][32] accumulator, f32), and
+// partial state for the 16 rows to `part` (part_floats(W) floats: row
+// maxima, row sums, then the unnormalised [16][W] accumulator, f32), and
 // `merge_partials` combines S of them for row r, channel c:
 //   M = max_s m_s,  o = sum_s acc_s 2^(m_s - M) / sum_s l_s 2^(m_s - M).
 // A part that saw no key has m = -inf, l = 0 and acc = 0.
-constexpr int PART_FLOATS = 16 + 16 + 16 * HD;
+__host__ __device__ constexpr int part_floats(int w) { return 32 + 16 * w; }
 
-__device__ __forceinline__ void store_partial(const AttnState& st,
+template <int W>
+__device__ __forceinline__ void store_partial(const AttnState<W>& st,
                                               float* part) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const float l_lo = quad_sum(st.l_lo), l_hi = quad_sum(st.l_hi);
@@ -360,16 +377,17 @@ __device__ __forceinline__ void store_partial(const AttnState& st,
   }
   float* acc = part + 32;
 #pragma unroll
-  for (int u = 0; u < 4; ++u) {
+  for (int u = 0; u < W / 8; ++u) {
     const int ch = 8 * u + 2 * t;
-    *reinterpret_cast<float2*>(acc + g * HD + ch) =
+    *reinterpret_cast<float2*>(acc + g * W + ch) =
         make_float2(st.acc[u][0], st.acc[u][1]);
-    *reinterpret_cast<float2*>(acc + (g + 8) * HD + ch) =
+    *reinterpret_cast<float2*>(acc + (g + 8) * W + ch) =
         make_float2(st.acc[u][2], st.acc[u][3]);
   }
 }
 
-// parts[s * stride] for s < S, row r < 16, channel c < 32
+// parts[s * stride] for s < S, row r < 16, channel c < W
+template <int W>
 __device__ __forceinline__ float merge_partials(const float* parts,
                                                 int stride, int S, int r,
                                                 int c) {
@@ -379,7 +397,7 @@ __device__ __forceinline__ float merge_partials(const float* parts,
   for (int s = 0; s < S; ++s) {
     const float* p = parts + s * stride;
     const float e = exp2f(p[r] - M);
-    num += p[32 + r * HD + c] * e;
+    num += p[32 + r * W + c] * e;
     den += p[16 + r] * e;
   }
   return num / den;

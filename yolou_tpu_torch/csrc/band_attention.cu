@@ -2,10 +2,12 @@
 //
 // Kernel A (eval): folded qkv projection + attention. Replaces
 // yolou_tpu/ops/pallas_attn.py::area_attention_qkv_fused (Pallas body
-// _qkv_attn_kernel). For every band g and head h:
-//   qkv = x[g] . w[:, role*C + h*32 + d] + b   (f32 accumulate, rounded to T)
-//   o[g, :, h*32 + d] = softmax(q k^T / sqrt(32)) v      (f32 softmax)
+// _qkv_attn_kernel). For every band g and head h of hd = 32 or 64 channels:
+//   qkv = x[g] . w[:, role*C + h*hd + d] + b   (f32 accumulate, rounded to T)
+//   o[g, :, h*hd + d] = softmax(q k^T * scale) v          (f32 softmax)
 // and the value projection v is written out too (it feeds the dw7x7 conv).
+// scale is the caller's: hd ** -0.5, or the true width's where the wrapper
+// padded narrower heads with zero channels (`kernels/attention.py`).
 //
 // Kernel C (training forward): attention over given q, k, v (G, N, C),
 // head-major channels. Replaces area_attention_fused (body _fused_kernel)
@@ -69,7 +71,12 @@
 //    CTA: 128 * ceil16(N) bytes.
 //
 // f32 runs on the streamed path only (below); kernel A's first launch
-// there projects k and v a warp per 4 tokens, lane d computing channel d.
+// there projects k and v a warp per 4 tokens, lane d computing channel d
+// (and d + 32 at hd 64). The resident path takes heads of 32; heads of 64
+// stream, in one form of each streamed kernel (f32 32 query rows a CTA,
+// bf16 one consumer warpgroup): the same design with tiles of two 32-channel
+// boxes (f32) or 128-byte rows on the 128-byte swizzle (bf16, four k steps
+// of q k^T, m64n64 products for p.v and the q projection).
 
 #include <cooperative_groups.h>
 
@@ -345,7 +352,7 @@ int qkv_tiles(size_t smem, int pairs, int N, int* splits) {
 // bf16: the tensor-core kernels.
 cudaError_t launch_qkv_mma(const void* x, const void* w, const void* b,
                            void* o, void* v, int G, int N, int C, int heads,
-                           cudaStream_t s) {
+                           float scale, cudaStream_t s) {
   constexpr auto kernel = band_attention_qkv_mma_kernel;
   const size_t Np = (N + 15) & ~15;
   const size_t smem = sizeof(bf16) * ((size_t)C * LDW + 2 * Np * HD);
@@ -369,13 +376,13 @@ cudaError_t launch_qkv_mma(const void* x, const void* w, const void* b,
   e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const bf16*>(x),
                          static_cast<const bf16*>(w),
                          static_cast<const float*>(b), static_cast<bf16*>(o),
-                         static_cast<bf16*>(v), N, C, tiles, ATTN_SCALE);
+                         static_cast<bf16*>(v), N, C, tiles, scale);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 cudaError_t launch_attn_mma(const void* q, const void* k, const void* v,
                             void* o, int G, int N, int C, int heads,
-                            cudaStream_t s) {
+                            float scale, cudaStream_t s) {
   constexpr auto kernel = band_attention_mma_kernel;
   const size_t Np = (N + 15) & ~15;
   const size_t smem = sizeof(bf16) * 2 * Np * HD;
@@ -387,7 +394,7 @@ cudaError_t launch_attn_mma(const void* q, const void* k, const void* v,
   kernel<<<dim3(heads, G, splits), MMA_WARPS * 32, smem, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), N, C, tiles,
-      ATTN_SCALE);
+      scale);
   return cudaGetLastError();
 }
 
@@ -463,7 +470,6 @@ constexpr int KB_MMA = 128;       // keys a streamed tile, bf16
 constexpr int STAGES_MMA = 3;     // its ring
 constexpr int WG_ROWS = 64;       // query rows of a consumer warpgroup
 constexpr int REGS_PRODUCER = 40;  // setmaxnreg of the producer warpgroup
-constexpr int LDKV = 2 * HD + 8;  // row stride of staged k | v columns
 
 // The A fragments of a warp's 16 rows of x (rows r0 + gq and r0 + gq + 8,
 // zero past N), channels c0 .. c0 + 31: two k steps, as kernel A loads them.
@@ -526,38 +532,46 @@ __device__ __forceinline__ void project_rows(const XRows& xr, const bf16* Ws,
   }
 }
 
+// The row stride of a head's staged k | v weight columns (2 HD + 8: 16
+// bytes past a multiple of 32, conflict-free ldmatrix).
+__host__ __device__ constexpr int ldkv(int hd) { return 2 * hd + 8; }
+
 // Kernel A's first launch on the streamed path, bf16: k and v of 16 tokens a
-// warp for head h, k into the scratch, v into kernel A's second output.
+// warp for head h (HD_ channels), k into the scratch, v into kernel A's
+// second output.
+template <int HD_>
 __global__ void __launch_bounds__(MMA_WARPS * 32)
 kv_projection_mma_kernel(const bf16* __restrict__ x,
                          const bf16* __restrict__ w,
                          const float* __restrict__ bias,
                          bf16* __restrict__ k_out, bf16* __restrict__ v_out,
                          int N, int C) {
+  constexpr int LDKV = ldkv(HD_), CH = HD_ / 8;   // 8-column chunks a role
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int h = blockIdx.x, g = blockIdx.y;
   const int warp = threadIdx.x >> 5, t = threadIdx.x & 3;
   const int r0 = 16 * (blockIdx.z * MMA_WARPS + warp);
   bf16* Ws = reinterpret_cast<bf16*>(smem_raw);  // [C][LDKV]: k | v cols
-  for (int i = threadIdx.x; i < C * 8; i += blockDim.x) {
-    const int c = i / 8, j8 = i % 8;              // 8 columns of role 1 + j8/4
+  for (int i = threadIdx.x; i < C * 2 * CH; i += blockDim.x) {
+    const int c = i / (2 * CH), j8 = i % (2 * CH);  // of role 1 + j8 / CH
     cp_async16(Ws + c * LDKV + 8 * j8,
-               w + (size_t)c * 3 * C + (1 + j8 / 4) * C + h * HD +
-                   (j8 % 4) * 8,
+               w + (size_t)c * 3 * C + (1 + j8 / CH) * C + h * HD_ +
+                   (j8 % CH) * 8,
                true);
   }
   cp_async_wait_all();
   __syncthreads();
   if (r0 >= N) return;                           // warp-uniform, no barrier
   const XRows xr(x + (size_t)g * N * C, r0, N, C);
-  float acc[8][4];
-  project_rows<8>(xr, Ws, LDKV, C, acc);
+  float acc[2 * CH][4];
+  project_rows<2 * CH>(xr, Ws, LDKV, C, acc);
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int role = 1 + j / 4, col = 8 * (j % 4) + 2 * t;
-    const float b0 = bias[role * C + h * HD + col];
-    const float b1 = bias[role * C + h * HD + col + 1];
-    bf16* dst = (role == 1 ? k_out : v_out) + (size_t)g * N * C + h * HD + col;
+  for (int j = 0; j < 2 * CH; ++j) {
+    const int role = 1 + j / CH, col = 8 * (j % CH) + 2 * t;
+    const float b0 = bias[role * C + h * HD_ + col];
+    const float b1 = bias[role * C + h * HD_ + col + 1];
+    bf16* dst =
+        (role == 1 ? k_out : v_out) + (size_t)g * N * C + h * HD_ + col;
     if (xr.n_lo < N)
       *reinterpret_cast<uint32_t*>(dst + (size_t)xr.n_lo * C) =
           pack_bf16(acc[j][0] + b0, acc[j][1] + b1);
@@ -567,36 +581,44 @@ kv_projection_mma_kernel(const bf16* __restrict__ x,
   }
 }
 
-// Kernel A's first launch, f32: k and v of TOK tokens a warp for head h,
-// lane = channel, f32 FMAs over the input channels in order (weights read
-// from L2).
+// Kernel A's first launch, f32: k and v of TOK tokens a warp for head h
+// (HD_ channels), lane = channel (and channel + 32 at HD_ = 64), f32 FMAs
+// over the input channels in order (weights read from L2).
+template <int HD_>
 __global__ void __launch_bounds__(WARPS * 32)
 kv_projection_kernel(const float* __restrict__ x, const float* __restrict__ w,
                      const float* __restrict__ bias, float* __restrict__ k_out,
                      float* __restrict__ v_out, int N, int C) {
+  constexpr int L = HD_ / 32;                    // channels a lane
   const int h = blockIdx.x, g = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n0 = (blockIdx.z * WARPS + warp) * TOK;
   if (n0 >= N) return;                           // warp-uniform, no barrier
   const float* xg = x + (size_t)g * N * C;
-  const float bk = bias[C + h * HD + lane];
-  const float bv = bias[2 * C + h * HD + lane];
-  float ak[TOK], av[TOK];
+  float bk[L], bv[L], ak[TOK][L], av[TOK][L];
 #pragma unroll
-  for (int t = 0; t < TOK; ++t) ak[t] = av[t] = 0.f;
+  for (int l = 0; l < L; ++l) {
+    bk[l] = bias[C + h * HD_ + 32 * l + lane];
+    bv[l] = bias[2 * C + h * HD_ + 32 * l + lane];
+#pragma unroll
+    for (int t = 0; t < TOK; ++t) ak[t][l] = av[t][l] = 0.f;
+  }
   for (int c0 = 0; c0 < C; c0 += 32) {
     float xl[TOK];
 #pragma unroll
     for (int t = 0; t < TOK; ++t)
       xl[t] = n0 + t < N ? xg[(size_t)(n0 + t) * C + c0 + lane] : 0.f;
     for (int cc = 0; cc < 32; ++cc) {
-      const float* wr = w + (size_t)(c0 + cc) * 3 * C + h * HD + lane;
-      const float wk = wr[C], wv = wr[2 * C];
+      const float* wr = w + (size_t)(c0 + cc) * 3 * C + h * HD_ + lane;
 #pragma unroll
-      for (int t = 0; t < TOK; ++t) {
-        const float xc = __shfl_sync(FULL, xl[t], cc);
-        ak[t] = fmaf(xc, wk, ak[t]);
-        av[t] = fmaf(xc, wv, av[t]);
+      for (int l = 0; l < L; ++l) {
+        const float wk = wr[C + 32 * l], wv = wr[2 * C + 32 * l];
+#pragma unroll
+        for (int t = 0; t < TOK; ++t) {
+          const float xc = __shfl_sync(FULL, xl[t], cc);
+          ak[t][l] = fmaf(xc, wk, ak[t][l]);
+          av[t][l] = fmaf(xc, wv, av[t][l]);
+        }
       }
     }
   }
@@ -604,9 +626,12 @@ kv_projection_kernel(const float* __restrict__ x, const float* __restrict__ w,
   for (int t = 0; t < TOK; ++t) {
     const int n = n0 + t;
     if (n >= N) break;                           // warp-uniform
-    const size_t off = ((size_t)g * N + n) * C + h * HD + lane;
-    k_out[off] = ak[t] + bk;
-    v_out[off] = av[t] + bv;
+    const size_t off = ((size_t)g * N + n) * C + h * HD_ + lane;
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      k_out[off + 32 * l] = ak[t][l] + bk[l];
+      v_out[off + 32 * l] = av[t][l] + bv[l];
+    }
   }
 }
 
@@ -640,22 +665,14 @@ __device__ __forceinline__ float row_reduce(const float (&s)[64]) {
   return reduce2<MAX>(reduce2<MAX>(t[0], t[2]), reduce2<MAX>(t[1], t[3]));
 }
 
-// Element offset of channels 4 * chunk .. + 3 of row `row` of a 128-byte-
-// swizzled f32 tile of 32 channels (TMA's layout).
-__device__ __forceinline__ int f32_at(int row, int chunk) {
-  return row * HD + ((chunk ^ (row & 7)) << 2);
-}
-
-__device__ __forceinline__ float lane_of(const float4& v, int u) {
-  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
-}
 
 // The streamed attention, f32: R query rows a CTA (4 R threads), k and v
-// tiles of 64 keys by TMA, 4 x 4 register micro-tiles (above). PROJECT
+// tiles of 64 keys by TMA, 4 x 4 register micro-tiles (above), heads of HD_
+// channels (at 64 a thread's p.v micro-tile is 4 rows x 8 channels). PROJECT
 // (kernel A): q = x . Wq + b projected here from x, the head's q weight
 // columns by TMA (w_map); else (kernel C) q arrives by TMA (q_map, boxes
 // of R rows) and w_map is not read.
-template <int R, bool PROJECT>
+template <int R, bool PROJECT, int HD_>
 __global__ void __launch_bounds__(4 * R)
 band_attention_stream_kernel(const __grid_constant__ CUtensorMap q_map,
                              const __grid_constant__ CUtensorMap k_map,
@@ -665,13 +682,14 @@ band_attention_stream_kernel(const __grid_constant__ CUtensorMap q_map,
                              const float* __restrict__ bias,
                              float* __restrict__ o, int N, int C,
                              float sl2) {
-  constexpr int TILE = KB_F32 * HD;               // floats of a k or v tile
+  constexpr int TILE = KB_F32 * HD_;              // floats of a k or v tile
+  constexpr int CB = HD_ / 32;                    // 32-channel blocks a head
   extern __shared__ unsigned char smem_raw[];
-  float* Ks = reinterpret_cast<float*>(align1024(smem_raw));  // [2][64][32]
-  float* Vs = Ks + STAGES_F32 * TILE;                         // [2][64][32]
-  float* Qs = Vs + STAGES_F32 * TILE;                         // [R][32]
-  float* Ws = Qs + R * HD;                    // PROJECT: [C][32] q columns
-  float* Ps = Ws + (PROJECT ? C * HD : 0);                    // [R][LDP]
+  float* Ks = reinterpret_cast<float*>(align1024(smem_raw));  // [2][64][HD]
+  float* Vs = Ks + STAGES_F32 * TILE;                         // [2][64][HD]
+  float* Qs = Vs + STAGES_F32 * TILE;                         // [R][HD]
+  float* Ws = Qs + R * HD_;                   // PROJECT: [C][HD] q columns
+  float* Ps = Ws + (PROJECT ? C * HD_ : 0);                   // [R][LDP]
   uint64_t* full = reinterpret_cast<uint64_t*>(Ps + R * LDP);
   uint64_t* empty = full + STAGES_F32;
   uint64_t* q_full = empty + STAGES_F32;
@@ -683,8 +701,12 @@ band_attention_stream_kernel(const __grid_constant__ CUtensorMap q_map,
   auto load = [&](int j) {
     const int st = j % STAGES_F32;
     mbar_expect_tx(&full[st], 2 * TILE * sizeof(float));
-    tma_load_3d(Ks + st * TILE, &k_map, &full[st], h * HD, j * KB_F32, g);
-    tma_load_3d(Vs + st * TILE, &v_map, &full[st], h * HD, j * KB_F32, g);
+    for (int cb = 0; cb < CB; ++cb) {
+      tma_load_3d(Ks + st * TILE + cb * KB_F32 * 32, &k_map, &full[st],
+                  h * HD_ + 32 * cb, j * KB_F32, g);
+      tma_load_3d(Vs + st * TILE + cb * KB_F32 * 32, &v_map, &full[st],
+                  h * HD_ + 32 * cb, j * KB_F32, g);
+    }
   };
   if (tid == 0) {
     for (int st = 0; st < STAGES_F32; ++st) {
@@ -697,26 +719,32 @@ band_attention_stream_kernel(const __grid_constant__ CUtensorMap q_map,
   __syncthreads();
   if (tid == 0) {
     if (PROJECT) {
-      mbar_expect_tx(q_full, C * HD * sizeof(float));
-      for (int cb = 0; cb < C / 32; ++cb)
-        tma_load_2d(Ws + cb * 32 * HD, &w_map, q_full, h * HD, cb * 32);
+      mbar_expect_tx(q_full, C * HD_ * sizeof(float));
+      for (int hb = 0; hb < CB; ++hb)
+        for (int cb = 0; cb < C / 32; ++cb)
+          tma_load_2d(Ws + hb * C * 32 + cb * 32 * 32, &w_map, q_full,
+                      h * HD_ + 32 * hb, cb * 32);
     } else {
-      mbar_expect_tx(q_full, R * HD * sizeof(float));
-      tma_load_3d(Qs, &q_map, q_full, h * HD, row0, g);
+      mbar_expect_tx(q_full, R * HD_ * sizeof(float));
+      for (int hb = 0; hb < CB; ++hb)
+        tma_load_3d(Qs + hb * R * 32, &q_map, q_full, h * HD_ + 32 * hb,
+                    row0, g);
     }
     for (int j = 0; j < min(STAGES_F32, tiles); ++j) load(j);
   }
   if (PROJECT) {
-    // row r, channels 8 cb .. 8 cb + 7 a thread, the weights from shared
-    // memory and x from global memory a step of 8 input channels ahead, in
-    // two interleaved halves of 4 (two chains of FMAs, added at the end);
-    // rows past N project row N - 1 (finite, never stored)
+    // row r, channels 8 cb .. 8 cb + 7 a thread (8 CB of them: chunks
+    // 2 CB cb ..), the weights from shared memory and x from global memory a
+    // step of 8 input channels ahead, in two interleaved halves of 4 (two
+    // chains of FMAs, added at the end); rows past N project row N - 1
+    // (finite, never stored)
+    constexpr int CW = 2 * CB;                    // chunks of 4 a thread
     const int r = tid >> 2, cb = tid & 3;
     const float4* xr = reinterpret_cast<const float4*>(
         x + ((size_t)g * N + min(row0 + r, N - 1)) * C);
-    float acc[2][8];
+    float acc[2][4 * CW];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) acc[0][e] = acc[1][e] = 0.f;
+    for (int e = 0; e < 4 * CW; ++e) acc[0][e] = acc[1][e] = 0.f;
     float4 xv[2] = {xr[0], xr[1]};
     mbar_wait(q_full, 0);
     for (int c = 0; c < C; c += 8) {
@@ -730,29 +758,27 @@ band_attention_stream_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           const int cr = c + 4 * hh + u;
-          const float4 w0 =
-              *reinterpret_cast<const float4*>(Ws + f32_at(cr, 2 * cb));
-          const float4 w1 =
-              *reinterpret_cast<const float4*>(Ws + f32_at(cr, 2 * cb + 1));
           const float xu = lane_of(xv[hh], u);
           float* a = acc[hh];
-          a[0] = fmaf(xu, w0.x, a[0]);
-          a[1] = fmaf(xu, w0.y, a[1]);
-          a[2] = fmaf(xu, w0.z, a[2]);
-          a[3] = fmaf(xu, w0.w, a[3]);
-          a[4] = fmaf(xu, w1.x, a[4]);
-          a[5] = fmaf(xu, w1.y, a[5]);
-          a[6] = fmaf(xu, w1.z, a[6]);
-          a[7] = fmaf(xu, w1.w, a[7]);
+#pragma unroll
+          for (int k = 0; k < CW; ++k) {
+            const float4 wk = *reinterpret_cast<const float4*>(
+                Ws + f32_at<HD_>(cr, CW * cb + k, C));
+            a[4 * k] = fmaf(xu, wk.x, a[4 * k]);
+            a[4 * k + 1] = fmaf(xu, wk.y, a[4 * k + 1]);
+            a[4 * k + 2] = fmaf(xu, wk.z, a[4 * k + 2]);
+            a[4 * k + 3] = fmaf(xu, wk.w, a[4 * k + 3]);
+          }
         }
       }
       xv[0] = xn[0];
       xv[1] = xn[1];
     }
-    const float* bq = bias + h * HD + 8 * cb;
+    const float* bq = bias + h * HD_ + 4 * CW * cb;
 #pragma unroll
-    for (int k = 0; k < 2; ++k)
-      *reinterpret_cast<float4*>(Qs + f32_at(r, 2 * cb + k)) = make_float4(
+    for (int k = 0; k < CW; ++k)
+      *reinterpret_cast<float4*>(Qs + f32_at<HD_>(r, CW * cb + k, R)) =
+          make_float4(
           acc[0][4 * k] + acc[1][4 * k] + bq[4 * k],
           acc[0][4 * k + 1] + acc[1][4 * k + 1] + bq[4 * k + 1],
           acc[0][4 * k + 2] + acc[1][4 * k + 2] + bq[4 * k + 2],
@@ -766,12 +792,13 @@ band_attention_stream_kernel(const __grid_constant__ CUtensorMap q_map,
   // the scores thread t takes keys t + 16 u, for p.v keys 32 half .. + 31
   // and channels 4 cq .. 4 cq + 3
   const int rg = tid >> 4, t = tid & 15, half = t >> 3, cq = t & 7;
-  float m[4], l[4], acc[4][4];
+  float m[4], l[4], acc[4][4 * CB];             // channels 4 cq + 32 b + e
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4 * CB; ++e) acc[i][e] = 0.f;
   }
   float* Pg = Ps + 4 * rg * LDP;
   for (int i = 0; i < tiles; ++i) {
@@ -791,14 +818,16 @@ band_attention_stream_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int a = 0; a < 4; ++a)
       s[a][0] = s[a][1] = s[a][2] = s[a][3] = 0.f;
 #pragma unroll
-    for (int cc = 0; cc < HD / 4; ++cc) {
+    for (int cc = 0; cc < HD_ / 4; ++cc) {
       float4 qv[4], kv[4];
 #pragma unroll
       for (int a = 0; a < 4; ++a)
-        qv[a] = *reinterpret_cast<const float4*>(Qs + f32_at(4 * rg + a, cc));
+        qv[a] = *reinterpret_cast<const float4*>(
+            Qs + f32_at<HD_>(4 * rg + a, cc, R));
 #pragma unroll
       for (int u = 0; u < 4; ++u)
-        kv[u] = *reinterpret_cast<const float4*>(Kt + f32_at(t + 16 * u, cc));
+        kv[u] = *reinterpret_cast<const float4*>(
+            Kt + f32_at<HD_>(t + 16 * u, cc, KB_F32));
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -837,7 +866,7 @@ band_attention_stream_kernel(const __grid_constant__ CUtensorMap q_map,
       }
       l[a] = l[a] * c + sum;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[a][e] *= c;
+      for (int e = 0; e < 4 * CB; ++e) acc[a][e] *= c;
     }
     __syncwarp();                                // the last tile's P read
 #pragma unroll
@@ -855,15 +884,19 @@ band_attention_stream_kernel(const __grid_constant__ CUtensorMap q_map,
         pv[a] = *reinterpret_cast<const float4*>(Pg + a * LDP + 36 * half + jj);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const float4 vv = *reinterpret_cast<const float4*>(
-            Vt + f32_at(32 * half + jj + u, cq));
 #pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const float p = lane_of(pv[a], u);
-          acc[a][0] = fmaf(p, vv.x, acc[a][0]);
-          acc[a][1] = fmaf(p, vv.y, acc[a][1]);
-          acc[a][2] = fmaf(p, vv.z, acc[a][2]);
-          acc[a][3] = fmaf(p, vv.w, acc[a][3]);
+        for (int b = 0; b < CB; ++b) {
+          const float4 vv = *reinterpret_cast<const float4*>(
+              Vt + f32_at<HD_>(32 * half + jj + u, cq + 8 * b, KB_F32));
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            const float p = lane_of(pv[a], u);
+            float* ac = acc[a] + 4 * b;
+            ac[0] = fmaf(p, vv.x, ac[0]);
+            ac[1] = fmaf(p, vv.y, ac[1]);
+            ac[2] = fmaf(p, vv.z, ac[2]);
+            ac[3] = fmaf(p, vv.w, ac[3]);
+          }
         }
       }
     }
@@ -877,27 +910,31 @@ band_attention_stream_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
     for (int d = 1; d < 16; d <<= 1) l[a] += __shfl_xor_sync(FULL, l[a], d);
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
+    for (int e = 0; e < 4 * CB; ++e)
       acc[a][e] += __shfl_xor_sync(FULL, acc[a][e], 8);
   }
-  float* og = o + (size_t)g * N * C + h * HD + 4 * cq;
+  float* og = o + (size_t)g * N * C + h * HD_ + 4 * cq;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int n = row0 + 4 * rg + a;
     if ((a >> 1) == half && n < N) {
       const float inv = 1.f / l[a];
-      *reinterpret_cast<float4*>(og + (size_t)n * C) =
-          make_float4(acc[a][0] * inv, acc[a][1] * inv, acc[a][2] * inv,
-                      acc[a][3] * inv);
+#pragma unroll
+      for (int b = 0; b < CB; ++b)
+        *reinterpret_cast<float4*>(og + (size_t)n * C + 32 * b) =
+            make_float4(acc[a][4 * b] * inv, acc[a][4 * b + 1] * inv,
+                        acc[a][4 * b + 2] * inv, acc[a][4 * b + 3] * inv);
     }
   }
 }
 
 // The streamed attention, bf16: a producer warpgroup (its thread 0 issues
 // every TMA load) and NC consumer warpgroups of 64 query rows on wgmma
-// (above). PROJECT (kernel A): src_map is x and w_map the (C, 3C) weight;
-// else (kernel C) src_map is q and w_map is not read.
-template <int NC, bool PROJECT>
+// (above), heads of HD_ channels (at 64: rows of 128 bytes, the 128-byte
+// swizzle, four k steps of q k^T and m64n64 products for p.v and the q
+// projection). PROJECT (kernel A): src_map is x and w_map the (C, 3C)
+// weight; else (kernel C) src_map is q and w_map is not read.
+template <int NC, bool PROJECT, int HD_>
 __global__ void __launch_bounds__(128 * (NC + 1), NC == 1 ? 2 : 1)
 band_attention_stream_wgmma_kernel(
     const __grid_constant__ CUtensorMap src_map,
@@ -906,14 +943,15 @@ band_attention_stream_wgmma_kernel(
     const __grid_constant__ CUtensorMap w_map,
     const float* __restrict__ bias, bf16* __restrict__ o, int N, int C,
     float sl2) {
-  constexpr int TILE = KB_MMA * HD;               // elements of a k or v tile
-  constexpr int QT = WG_ROWS * HD;                // of a warpgroup's q tile
+  constexpr int TILE = KB_MMA * HD_;              // elements of a k or v tile
+  constexpr int QT = WG_ROWS * HD_;               // of a warpgroup's q tile
+  constexpr int XT = WG_ROWS * 32;                // of a box of x
   extern __shared__ unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(align1024(smem_raw));  // [3][128][32]
-  bf16* Vs = Ks + STAGES_MMA * TILE;                        // [3][128][32]
-  bf16* Qs = Vs + STAGES_MMA * TILE;                        // [NC][64][32]
-  bf16* Ws = Qs + NC * QT;                     // PROJECT: [C][32] q columns
-  bf16* Xs = Ws + (PROJECT ? C * HD : 0);      // PROJECT: [NC][C/32][64][32]
+  bf16* Ks = reinterpret_cast<bf16*>(align1024(smem_raw));  // [3][128][HD]
+  bf16* Vs = Ks + STAGES_MMA * TILE;                        // [3][128][HD]
+  bf16* Qs = Vs + STAGES_MMA * TILE;                        // [NC][64][HD]
+  bf16* Ws = Qs + NC * QT;                     // PROJECT: [C][HD] q columns
+  bf16* Xs = Ws + (PROJECT ? C * HD_ : 0);     // PROJECT: [NC][C/32][64][32]
   uint64_t* full =
       reinterpret_cast<uint64_t*>(Xs + (PROJECT ? NC * WG_ROWS * C : 0));
   uint64_t* empty = full + STAGES_MMA;
@@ -940,17 +978,17 @@ band_attention_stream_wgmma_kernel(
       tma_prefetch(&v_map);
       if (PROJECT) {
         const int blocks = C / 32;
-        mbar_expect_tx(q_full, (C * HD + NC * WG_ROWS * C) * sizeof(bf16));
+        mbar_expect_tx(q_full, (C * HD_ + NC * WG_ROWS * C) * sizeof(bf16));
         for (int cb = 0; cb < blocks; ++cb)
-          tma_load_2d(Ws + cb * 32 * HD, &w_map, q_full, h * HD, cb * 32);
+          tma_load_2d(Ws + cb * 32 * HD_, &w_map, q_full, h * HD_, cb * 32);
         for (int c = 0; c < NC; ++c)
           for (int cb = 0; cb < blocks; ++cb)
-            tma_load_3d(Xs + (c * blocks + cb) * QT, &src_map, q_full,
+            tma_load_3d(Xs + (c * blocks + cb) * XT, &src_map, q_full,
                         cb * 32, row0 + c * WG_ROWS, g);
       } else {
         mbar_expect_tx(q_full, NC * QT * sizeof(bf16));
         for (int c = 0; c < NC; ++c)
-          tma_load_3d(Qs + c * QT, &src_map, q_full, h * HD,
+          tma_load_3d(Qs + c * QT, &src_map, q_full, h * HD_,
                       row0 + c * WG_ROWS, g);
       }
       for (int i = 0; i < tiles; ++i) {
@@ -958,8 +996,10 @@ band_attention_stream_wgmma_kernel(
         if (i >= STAGES_MMA)                     // every consumer freed it
           mbar_wait(&empty[st], (i / STAGES_MMA - 1) & 1);
         mbar_expect_tx(&full[st], 2 * TILE * sizeof(bf16));
-        tma_load_3d(Ks + st * TILE, &k_map, &full[st], h * HD, i * KB_MMA, g);
-        tma_load_3d(Vs + st * TILE, &v_map, &full[st], h * HD, i * KB_MMA, g);
+        tma_load_3d(Ks + st * TILE, &k_map, &full[st], h * HD_, i * KB_MMA,
+                    g);
+        tma_load_3d(Vs + st * TILE, &v_map, &full[st], h * HD_, i * KB_MMA,
+                    g);
       }
     }
     return;
@@ -976,25 +1016,25 @@ band_attention_stream_wgmma_kernel(
   if (PROJECT) {
     // q = x . Wq + b: f32 accumulation, f32 bias, rounded to bf16 into the
     // warpgroup's q tile (64-byte swizzle, as TMA writes it)
-    const bf16* Xw = Xs + wg * (C / 32) * QT;
-    float q[16];
+    const bf16* Xw = Xs + wg * (C / 32) * XT;
+    float q[HD_ / 2];
 #pragma unroll
-    for (int e = 0; e < 16; ++e) q[e] = 0.f;
+    for (int e = 0; e < HD_ / 2; ++e) q[e] = 0.f;
     wgmma_fence();
     for (int kk = 0; kk < C / 16; ++kk)
-      wgmma_64x32_ss(q, smem_desc(Xw + (kk >> 1) * QT + (kk & 1) * 16),
-                     smem_desc(Ws + kk * 16 * HD), kk > 0);
+      wgmma_proj<HD_>(q, smem_desc(Xw + (kk >> 1) * XT + (kk & 1) * 16),
+                      head_desc<HD_>(Ws + kk * 16 * HD_), kk > 0);
     wgmma_commit();
     wgmma_wait<0>();
 #pragma unroll
-    for (int e = 0; e < 16; ++e) reg_fence(q[e]);
+    for (int e = 0; e < HD_ / 2; ++e) reg_fence(q[e]);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < HD_ / 8; ++j) {
       const int col = 8 * j + 2 * t;
-      const float b0 = bias[h * HD + col], b1 = bias[h * HD + col + 1];
-      *reinterpret_cast<uint32_t*>(Qw + kv_at(r_lo, j) + 2 * t) =
+      const float b0 = bias[h * HD_ + col], b1 = bias[h * HD_ + col + 1];
+      *reinterpret_cast<uint32_t*>(Qw + kv_at<HD_>(r_lo, j) + 2 * t) =
           pack_bf16(q[4 * j] + b0, q[4 * j + 1] + b1);
-      *reinterpret_cast<uint32_t*>(Qw + kv_at(r_lo + 8, j) + 2 * t) =
+      *reinterpret_cast<uint32_t*>(Qw + kv_at<HD_>(r_lo + 8, j) + 2 * t) =
           pack_bf16(q[4 * j + 2] + b0, q[4 * j + 3] + b1);
     }
     fence_proxy_async();
@@ -1004,27 +1044,29 @@ band_attention_stream_wgmma_kernel(
   // s: the 64 x 128 scores (row r_lo / r_lo + 8, keys 8 j + 2 t + e at
   // s[4 j + e] / s[4 j + 2 + e]); p: the last tile's probabilities as A
   // fragments of 8 steps of 16 keys; oacc: O (channels 8 j + 2 t + e)
-  float s[64], oacc[16];
+  float s[64], oacc[HD_ / 2];
   uint32_t p[8][4];
 #pragma unroll
-  for (int e = 0; e < 16; ++e) oacc[e] = 0.f;
+  for (int e = 0; e < HD_ / 2; ++e) oacc[e] = 0.f;
   float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
-  const uint64_t dq = smem_desc(Qw);
+  const uint64_t dq = head_desc<HD_>(Qw);
   if (NC == 2 && wg == 1) bar_arrive(1, 256);    // warpgroup 0 goes first
   for (int i = 0; i < tiles; ++i) {
     const int st = i % STAGES_MMA;
     mbar_wait(&full[st], (i / STAGES_MMA) & 1);
     if (NC == 2) bar_sync(1 + wg, 256);          // this warpgroup's turn
     wgmma_fence();
-    const uint64_t dk = smem_desc(Ks + st * TILE);
+    const uint64_t dk = head_desc<HD_>(Ks + st * TILE);
     wgmma_64x128_ss(s, dq, dk, 0);               // channels 0-15
-    wgmma_64x128_ss(s, dq + 2, dk + 2, 1);       // 16-31: 32 bytes on
+#pragma unroll
+    for (int kk = 1; kk < HD_ / 16; ++kk)        // 16 more: 32 bytes on
+      wgmma_64x128_ss(s, dq + 2 * kk, dk + 2 * kk, 1);
     wgmma_commit();
     if (i > 0) {                                 // O += P V of tile i - 1
       const bf16* Vt = Vs + ((i - 1) % STAGES_MMA) * TILE;
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk)
-        wgmma_64x32_rs(oacc, p[kk], smem_desc(Vt + kk * 16 * HD));
+        wgmma_pv<HD_>(oacc, p[kk], head_desc<HD_>(Vt + kk * 16 * HD_));
       wgmma_commit();
     }
     if (NC == 2 && !(wg == 1 && i == tiles - 1))
@@ -1063,7 +1105,7 @@ band_attention_stream_wgmma_kernel(
     if (i > 0) {                                 // P V of tile i - 1 done
       wgmma_wait<0>();
 #pragma unroll
-      for (int e = 0; e < 16; ++e) reg_fence(oacc[e]);
+      for (int e = 0; e < HD_ / 2; ++e) reg_fence(oacc[e]);
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk)
 #pragma unroll
@@ -1071,7 +1113,7 @@ band_attention_stream_wgmma_kernel(
       if (tid == 0) mbar_arrive(&empty[(i - 1) % STAGES_MMA]);
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < HD_ / 8; ++j) {
       oacc[4 * j] *= c_lo;
       oacc[4 * j + 1] *= c_lo;
       oacc[4 * j + 2] *= c_hi;
@@ -1089,11 +1131,11 @@ band_attention_stream_wgmma_kernel(
   const bf16* Vt = Vs + ((tiles - 1) % STAGES_MMA) * TILE;
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk)
-    wgmma_64x32_rs(oacc, p[kk], smem_desc(Vt + kk * 16 * HD));
+    wgmma_pv<HD_>(oacc, p[kk], head_desc<HD_>(Vt + kk * 16 * HD_));
   wgmma_commit();
   wgmma_wait<0>();
 #pragma unroll
-  for (int e = 0; e < 16; ++e) reg_fence(oacc[e]);
+  for (int e = 0; e < HD_ / 2; ++e) reg_fence(oacc[e]);
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk)
 #pragma unroll
@@ -1101,9 +1143,9 @@ band_attention_stream_wgmma_kernel(
 
   const float inv_lo = 1.f / quad_sum(l_lo), inv_hi = 1.f / quad_sum(l_hi);
   const int n_lo = row0 + wg * WG_ROWS + r_lo, n_hi = n_lo + 8;
-  bf16* og = o + (size_t)g * N * C + h * HD + 2 * t;
+  bf16* og = o + (size_t)g * N * C + h * HD_ + 2 * t;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < HD_ / 8; ++j) {
     if (n_lo < N)
       *reinterpret_cast<__nv_bfloat162*>(og + (size_t)n_lo * C + 8 * j) =
           __floats2bfloat162_rn(oacc[4 * j] * inv_lo,
@@ -1115,20 +1157,21 @@ band_attention_stream_wgmma_kernel(
   }
 }
 
-// Shared memory of the streamed kernels (bytes, with 1024 of slack for the
-// tiles' alignment); `kernels/attention.py::stream_smem_bytes` mirrors it.
-size_t stream_f32_smem(int C, int R, bool project) {
-  return 1024 + sizeof(float) * (2 * (size_t)STAGES_F32 * KB_F32 * HD +
-                                 (size_t)R * (HD + LDP) +
-                                 (project ? (size_t)C * HD : 0)) +
+// Shared memory of the streamed kernels at head width hd (bytes, with 1024
+// of slack for the tiles' alignment); `kernels/attention.py::
+// stream_smem_bytes` mirrors it.
+size_t stream_f32_smem(int C, int R, bool project, int hd) {
+  return 1024 + sizeof(float) * (2 * (size_t)STAGES_F32 * KB_F32 * hd +
+                                 (size_t)R * (hd + LDP) +
+                                 (project ? (size_t)C * hd : 0)) +
          8 * (2 * STAGES_F32 + 1);
 }
 
-size_t stream_wgmma_smem(int C, int NC, bool project) {
+size_t stream_wgmma_smem(int C, int NC, bool project, int hd) {
   return 1024 +
-         sizeof(bf16) * (2 * (size_t)STAGES_MMA * KB_MMA * HD +
-                         (size_t)NC * WG_ROWS * HD +
-                         (project ? (size_t)C * HD + (size_t)NC * WG_ROWS * C
+         sizeof(bf16) * (2 * (size_t)STAGES_MMA * KB_MMA * hd +
+                         (size_t)NC * WG_ROWS * hd +
+                         (project ? (size_t)C * hd + (size_t)NC * WG_ROWS * C
                                   : 0)) +
          8 * (2 * STAGES_MMA + 1);
 }
@@ -1158,13 +1201,13 @@ cudaError_t check_reallocation(int consumers, int claim) {
   return checked;
 }
 
-template <int R, bool PROJECT>
+template <int R, bool PROJECT, int HD_>
 cudaError_t launch_stream_f32(const float* src, const float* w,
                               const float* b, const float* k, const float* v,
                               float* o, int G, int N, int C, int heads,
-                              cudaStream_t s) {
-  constexpr auto kernel = band_attention_stream_kernel<R, PROJECT>;
-  const size_t smem = stream_f32_smem(C, R, PROJECT);
+                              float scale, cudaStream_t s) {
+  constexpr auto kernel = band_attention_stream_kernel<R, PROJECT, HD_>;
+  const size_t smem = stream_f32_smem(C, R, PROJECT, HD_);
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
   // PROJECT reads x directly and q_map is not read; else w_map is not
   CUtensorMap qm, km, vm, wm;
@@ -1182,43 +1225,50 @@ cudaError_t launch_stream_f32(const float* src, const float* w,
   if (e == cudaSuccess) e = allow_smem<kernel>();
   if (e != cudaSuccess) return e;
   kernel<<<dim3(heads, G, (N + R - 1) / R), 4 * R, smem, s>>>(
-      qm, km, vm, wm, src, b, o, N, C, ATTN_SCALE * LOG2E);
+      qm, km, vm, wm, src, b, o, N, C, scale * LOG2E);
   return cudaGetLastError();
 }
 
+// Heads 32 wide at 64, 32 or 16 query rows a CTA; 64 wide at 32.
 template <bool PROJECT>
 cudaError_t stream_f32(int rows, const float* src, const float* w,
                        const float* b, const float* k, const float* v,
-                       float* o, int G, int N, int C, int heads,
+                       float* o, int G, int N, int C, int heads, float scale,
                        cudaStream_t s) {
+  if (C / heads == 64)
+    return rows == 32 ? launch_stream_f32<32, PROJECT, 64>(
+                            src, w, b, k, v, o, G, N, C, heads, scale, s)
+                      : cudaErrorInvalidValue;
   switch (rows) {
     case 64:
-      return launch_stream_f32<64, PROJECT>(src, w, b, k, v, o, G, N, C,
-                                            heads, s);
+      return launch_stream_f32<64, PROJECT, 32>(src, w, b, k, v, o, G, N, C,
+                                                heads, scale, s);
     case 32:
-      return launch_stream_f32<32, PROJECT>(src, w, b, k, v, o, G, N, C,
-                                            heads, s);
+      return launch_stream_f32<32, PROJECT, 32>(src, w, b, k, v, o, G, N, C,
+                                                heads, scale, s);
     case 16:
-      return launch_stream_f32<16, PROJECT>(src, w, b, k, v, o, G, N, C,
-                                            heads, s);
+      return launch_stream_f32<16, PROJECT, 32>(src, w, b, k, v, o, G, N, C,
+                                                heads, scale, s);
   }
   return cudaErrorInvalidValue;
 }
 
-template <int NC, bool PROJECT>
+template <int NC, bool PROJECT, int HD_>
 cudaError_t launch_stream_wgmma(const bf16* src, const bf16* w,
                                 const float* b, const bf16* k, const bf16* v,
                                 bf16* o, int G, int N, int C, int heads,
-                                cudaStream_t s) {
-  constexpr auto kernel = band_attention_stream_wgmma_kernel<NC, PROJECT>;
-  const size_t smem = stream_wgmma_smem(C, NC, PROJECT);
+                                float scale, cudaStream_t s) {
+  constexpr auto kernel = band_attention_stream_wgmma_kernel<NC, PROJECT, HD_>;
+  const size_t smem = stream_wgmma_smem(C, NC, PROJECT, HD_);
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
   CUtensorMap sm, km, vm, wm;
-  cudaError_t e = band_map(&km, k, G, N, C, KB_MMA, false);
-  if (e == cudaSuccess) e = band_map(&vm, v, G, N, C, KB_MMA, false);
-  if (e == cudaSuccess) e = band_map(&sm, src, G, N, C, WG_ROWS, false);
+  cudaError_t e = band_map(&km, k, G, N, C, KB_MMA, false, HD_);
+  if (e == cudaSuccess) e = band_map(&vm, v, G, N, C, KB_MMA, false, HD_);
+  // x arrives in boxes of 32 channels, q in boxes of the head
+  if (e == cudaSuccess)
+    e = band_map(&sm, src, G, N, C, WG_ROWS, false, PROJECT ? 32 : HD_);
   if (e == cudaSuccess) {
-    if (PROJECT) e = weight_map(&wm, w, C, false);
+    if (PROJECT) e = weight_map(&wm, w, C, false, HD_);
     else wm = km;                                // not read
   }
   if (e == cudaSuccess) e = allow_smem<kernel>();
@@ -1227,21 +1277,26 @@ cudaError_t launch_stream_wgmma(const bf16* src, const bf16* w,
   if (e != cudaSuccess) return e;
   kernel<<<dim3(heads, G, (N + NC * WG_ROWS - 1) / (NC * WG_ROWS)),
            128 * (NC + 1), smem, s>>>(sm, km, vm, wm, b, o, N, C,
-                                      ATTN_SCALE * LOG2E);
+                                      scale * LOG2E);
   return cudaGetLastError();
 }
 
+// Heads 32 wide at 128 or 64 query rows a CTA; 64 wide at 64.
 template <bool PROJECT>
 cudaError_t stream_wgmma(int rows, const bf16* src, const bf16* w,
                          const float* b, const bf16* k, const bf16* v,
-                         bf16* o, int G, int N, int C, int heads,
+                         bf16* o, int G, int N, int C, int heads, float scale,
                          cudaStream_t s) {
+  if (C / heads == 64)
+    return rows == WG_ROWS ? launch_stream_wgmma<1, PROJECT, 64>(
+                                 src, w, b, k, v, o, G, N, C, heads, scale, s)
+                           : cudaErrorInvalidValue;
   if (rows == 2 * WG_ROWS)
-    return launch_stream_wgmma<2, PROJECT>(src, w, b, k, v, o, G, N, C, heads,
-                                           s);
+    return launch_stream_wgmma<2, PROJECT, 32>(src, w, b, k, v, o, G, N, C,
+                                               heads, scale, s);
   if (rows == WG_ROWS)
-    return launch_stream_wgmma<1, PROJECT>(src, w, b, k, v, o, G, N, C, heads,
-                                           s);
+    return launch_stream_wgmma<1, PROJECT, 32>(src, w, b, k, v, o, G, N, C,
+                                               heads, scale, s);
   return cudaErrorInvalidValue;
 }
 
@@ -1252,71 +1307,91 @@ bool stream_rows_valid(int dtype, int rows) {
                     : rows == 64 || rows == 32 || rows == 16;
 }
 
+template <int HD_>
+cudaError_t project_kv(const void* x, const void* w, const void* b, void* k,
+                       void* v, int G, int N, int C, int heads, int dtype,
+                       cudaStream_t s) {
+  if (dtype == 1) {
+    constexpr auto proj = kv_projection_mma_kernel<HD_>;
+    const cudaError_t e = allow_smem<proj>();
+    if (e != cudaSuccess) return e;
+    proj<<<dim3(heads, G, (N + 16 * MMA_WARPS - 1) / (16 * MMA_WARPS)),
+           MMA_WARPS * 32, sizeof(bf16) * (size_t)C * ldkv(HD_), s>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+        static_cast<const float*>(b), static_cast<bf16*>(k),
+        static_cast<bf16*>(v), N, C);
+  } else {
+    kv_projection_kernel<HD_>
+        <<<dim3(heads, G, (N + WARPS * TOK - 1) / (WARPS * TOK)),
+           WARPS * 32, 0, s>>>(
+            static_cast<const float*>(x), static_cast<const float*>(w),
+            static_cast<const float*>(b), static_cast<float*>(k),
+            static_cast<float*>(v), N, C);
+  }
+  return cudaGetLastError();
+}
+
 cudaError_t launch_qkv_stream(const void* x, const void* w, const void* b,
                               void* o, void* v, void* k, int G, int N, int C,
-                              int heads, int dtype, int rows,
+                              int heads, int dtype, int rows, float scale,
                               cudaStream_t s) {
   if (!stream_rows_valid(dtype, rows)) return cudaErrorInvalidValue;
-  if (dtype == 1) {
-    constexpr auto proj = kv_projection_mma_kernel;
-    if (stream_wgmma_smem(C, rows / WG_ROWS, true) > 227 * 1024)
-      return cudaErrorInvalidValue;
-    cudaError_t e = allow_smem<proj>();
-    if (e != cudaSuccess) return e;
-    const bf16* xb = static_cast<const bf16*>(x);
-    const bf16* kb = static_cast<const bf16*>(k);
-    const bf16* vb = static_cast<const bf16*>(v);
-    proj<<<dim3(heads, G, (N + 16 * MMA_WARPS - 1) / (16 * MMA_WARPS)),
-           MMA_WARPS * 32, sizeof(bf16) * (size_t)C * LDKV, s>>>(
-        xb, static_cast<const bf16*>(w), static_cast<const float*>(b),
-        static_cast<bf16*>(k), static_cast<bf16*>(v), N, C);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    return stream_wgmma<true>(
-        rows, xb, static_cast<const bf16*>(w), static_cast<const float*>(b),
-        kb, vb, static_cast<bf16*>(o), G, N, C, heads, s);
-  }
-  const float* xf = static_cast<const float*>(x);
-  const float* wf = static_cast<const float*>(w);
-  const float* bf = static_cast<const float*>(b);
-  float* kf = static_cast<float*>(k);
-  float* vf = static_cast<float*>(v);
-  kv_projection_kernel<<<dim3(heads, G, (N + WARPS * TOK - 1) / (WARPS * TOK)),
-                         WARPS * 32, 0, s>>>(xf, wf, bf, kf, vf, N, C);
-  const cudaError_t e = cudaGetLastError();
+  const int hd = C / heads;
+  if (dtype == 1 &&
+      stream_wgmma_smem(C, rows / WG_ROWS, true, hd) > 227 * 1024)
+    return cudaErrorInvalidValue;
+  const cudaError_t e =
+      hd == 64 ? project_kv<64>(x, w, b, k, v, G, N, C, heads, dtype, s)
+               : project_kv<32>(x, w, b, k, v, G, N, C, heads, dtype, s);
   if (e != cudaSuccess) return e;
-  return stream_f32<true>(rows, xf, wf, bf, kf, vf,
-                                 static_cast<float*>(o), G, N, C, heads, s);
+  if (dtype == 1)
+    return stream_wgmma<true>(
+        rows, static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+        static_cast<const float*>(b), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<bf16*>(o), G, N, C, heads,
+        scale, s);
+  return stream_f32<true>(
+      rows, static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(b), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), G, N, C, heads,
+      scale, s);
 }
 
 cudaError_t launch_attn_stream(const void* q, const void* k, const void* v,
                                void* o, int G, int N, int C, int heads,
-                               int dtype, int rows, cudaStream_t s) {
+                               int dtype, int rows, float scale,
+                               cudaStream_t s) {
   if (!stream_rows_valid(dtype, rows)) return cudaErrorInvalidValue;
   if (dtype == 1)
     return stream_wgmma<false>(
         rows, static_cast<const bf16*>(q), nullptr, nullptr,
         static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<bf16*>(o), G, N, C, heads, s);
+        static_cast<bf16*>(o), G, N, C, heads, scale, s);
   return stream_f32<false>(
       rows, static_cast<const float*>(q), nullptr, nullptr,
       static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), G, N, C, heads, s);
+      static_cast<float*>(o), G, N, C, heads, scale, s);
+}
+
+// Heads 32 wide, or (the streamed path) 64.
+bool head_ok(int C, int heads, bool wide) {
+  return heads > 0 && (C == heads * 32 || (wide && C == heads * 64));
 }
 
 }  // namespace
 
 // The resident path of kernel A, bfloat16 (dtype 1; x, w, o and v 16-byte
-// aligned): x, o, v (G, N, C); w (C, 3C); b (3C,) f32. There is no f32
-// resident path (dtype 0 is refused). Returns the launch status.
+// aligned): x, o, v (G, N, C), heads 32 wide; w (C, 3C); b (3C,) f32; scale
+// the softmax's. There is no f32 resident path (dtype 0 is refused).
+// Returns the launch status.
 extern "C" int yolou_band_attention_qkv(const void* x, const void* w,
                                         const void* b, void* o, void* v, int G,
                                         int N, int C, int heads, int dtype,
-                                        void* stream) {
-  if (G <= 0 || N <= 0 || heads <= 0 || C != heads * HD || G > 65535 ||
+                                        float scale, void* stream) {
+  if (G <= 0 || N <= 0 || !head_ok(C, heads, false) || G > 65535 ||
       dtype != 1)
     return (int)cudaErrorInvalidValue;
-  return (int)launch_qkv_mma(x, w, b, o, v, G, N, C, heads,
+  return (int)launch_qkv_mma(x, w, b, o, v, G, N, C, heads, scale,
                              static_cast<cudaStream_t>(stream));
 }
 
@@ -1325,44 +1400,49 @@ extern "C" int yolou_band_attention_qkv(const void* x, const void* w,
 // Returns the launch status.
 extern "C" int yolou_band_attention(const void* q, const void* k,
                                     const void* v, void* o, int G, int N,
-                                    int C, int heads, int dtype,
+                                    int C, int heads, int dtype, float scale,
                                     void* stream) {
-  if (G <= 0 || N <= 0 || heads <= 0 || C != heads * HD || G > 65535 ||
+  if (G <= 0 || N <= 0 || !head_ok(C, heads, false) || G > 65535 ||
       dtype != 1)
     return (int)cudaErrorInvalidValue;
-  return (int)launch_attn_mma(q, k, v, o, G, N, C, heads,
+  return (int)launch_attn_mma(q, k, v, o, G, N, C, heads, scale,
                               static_cast<cudaStream_t>(stream));
 }
 
 // The streamed path of kernel A (two launches), dtype 0 = float32 (FMA
-// micro-tiles) or 1 = bfloat16 (wgmma): as yolou_band_attention_qkv, plus
-// k: a (G, N, C) scratch of the I/O type for the projected keys, and rows:
-// the query rows of a CTA (f32 64, 32 or 16; bf16 128 or 64). Every tensor
+// micro-tiles) or 1 = bfloat16 (wgmma): as yolou_band_attention_qkv, with
+// heads 32 or 64 wide, plus k: a (G, N, C) scratch of the I/O type for the
+// projected keys, and rows: the query rows of a CTA (heads of 32: f32 64,
+// 32 or 16, bf16 128 or 64; heads of 64: f32 32, bf16 64). Every tensor
 // 16-byte aligned (TMA). A tensor map that cannot be encoded fails the call
 // before any launch.
 extern "C" int yolou_band_attention_qkv_stream(const void* x, const void* w,
                                                const void* b, void* o,
                                                void* v, void* k, int G, int N,
                                                int C, int heads, int dtype,
-                                               int rows, void* stream) {
-  if (G <= 0 || N <= 0 || heads <= 0 || C != heads * HD || G > 65535 ||
+                                               int rows, float scale,
+                                               void* stream) {
+  if (G <= 0 || N <= 0 || !head_ok(C, heads, true) || G > 65535 ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   return (int)launch_qkv_stream(x, w, b, o, v, k, G, N, C, heads, dtype,
-                                rows, static_cast<cudaStream_t>(stream));
+                                rows, scale,
+                                static_cast<cudaStream_t>(stream));
 }
 
 // The streamed path of kernel C, dtype 0 = float32 (FMA micro-tiles) or
-// 1 = bfloat16 (wgmma): as yolou_band_attention, plus rows (as above).
+// 1 = bfloat16 (wgmma): as yolou_band_attention, with heads 32 or 64 wide,
+// plus rows (as above).
 extern "C" int yolou_band_attention_stream(const void* q, const void* k,
                                            const void* v, void* o, int G,
                                            int N, int C, int heads, int dtype,
-                                           int rows, void* stream) {
-  if (G <= 0 || N <= 0 || heads <= 0 || C != heads * HD || G > 65535 ||
+                                           int rows, float scale,
+                                           void* stream) {
+  if (G <= 0 || N <= 0 || !head_ok(C, heads, true) || G > 65535 ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   return (int)launch_attn_stream(q, k, v, o, G, N, C, heads, dtype, rows,
-                                 static_cast<cudaStream_t>(stream));
+                                 scale, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* yolou_error_string(int code) {

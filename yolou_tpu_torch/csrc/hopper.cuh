@@ -4,13 +4,15 @@
 // descriptor and the three warpgroup products the bf16 kernel issues;
 // named barriers and register reallocation between warpgroups.
 //
-// Shared-memory tiles. A band's rows of one head are 32 channels: 128 bytes
-// in f32, 64 in bf16. TMA writes them swizzled, the 16-byte chunk c of row r
-// at chunk c ^ (r % 8) (128-byte swizzle, f32) or c ^ ((r / 2) % 4) (64-byte
-// swizzle, bf16: `kv_at`'s layout in attention_mma.cuh). The pattern is a
-// function of the shared-memory address bits, so every tile starts on a
-// 1024-byte boundary and the wgmma descriptors (64-byte swizzle) read what
-// TMA wrote.
+// Shared-memory tiles. A band's rows of one head are 32 or 64 channels. f32
+// tiles are blocks of 32 channels (128-byte rows; a 64-wide head is two
+// blocks, one box each); bf16 rows are the whole head, 64 bytes at width 32
+// and 128 at width 64. TMA writes them swizzled, the 16-byte chunk c of row
+// r at chunk c ^ (r % 8) (128-byte swizzle: f32, and bf16 at width 64) or c
+// ^ ((r / 2) % 4) (64-byte swizzle, bf16 at width 32: `kv_at`'s layouts in
+// attention_mma.cuh). The pattern is a function of the shared-memory
+// address bits, so every tile starts on a 1024-byte boundary and the wgmma
+// descriptors (of the tile's swizzle) read what TMA wrote.
 #pragma once
 
 #include <cuda.h>
@@ -48,46 +50,50 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A map of a (G, N, C) tensor as three dimensions (C, N, G), boxes of 32
-// channels x `rows` tokens of one band: a box that reaches past token N is
-// zero-filled there and never reads the next band. f32 tiles take the
-// 128-byte swizzle, bf16 the 64-byte one. Fails (cudaErrorInvalidValue,
+// The swizzle of a box whose rows are `bytes` long (64 or 128).
+inline CUtensorMapSwizzle swizzle_of(int bytes) {
+  return bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+}
+
+// A map of a (G, N, C) tensor as three dimensions (C, N, G), boxes of
+// `cols` channels (32 in f32; the head width, 32 or 64, in bf16) x `rows`
+// tokens of one band: a box that reaches past token N is zero-filled there
+// and never reads the next band. Boxes of 128-byte rows take the 128-byte
+// swizzle, of 64-byte rows the 64-byte one. Fails (cudaErrorInvalidValue,
 // cudaErrorNotSupported without the driver function) rather than launch.
 inline cudaError_t band_map(CUtensorMap* map, const void* ptr, int G, int N,
-                            int C, int rows, bool f32) {
+                            int C, int rows, bool f32, int cols = 32) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t elt = f32 ? 4 : 2;
   const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)N, (cuuint64_t)G};
   const cuuint64_t strides[2] = {C * elt, (cuuint64_t)N * C * elt};
-  const cuuint32_t box[3] = {32, (cuuint32_t)rows, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = encode(
       map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
       3, const_cast<void*>(ptr), dims, strides, box, unit,
-      CU_TENSOR_MAP_INTERLEAVE_NONE,
-      f32 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(cols * (int)elt),
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// A map of a (C, 3C) weight, boxes of 32 input rows x 32 columns: bf16
-// with the 64-byte swizzle, f32 with the 128-byte one.
+// A map of a (C, 3C) weight, boxes of 32 input rows x `cols` columns (32 in
+// f32, the head width in bf16), swizzled as `band_map`'s.
 inline cudaError_t weight_map(CUtensorMap* map, const void* ptr, int C,
-                              bool f32) {
+                              bool f32, int cols = 32) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {3 * (cuuint64_t)C, (cuuint64_t)C};
   const cuuint64_t strides[1] = {3 * (cuuint64_t)C * (f32 ? 4 : 2)};
-  const cuuint32_t box[2] = {32, 32};
+  const cuuint32_t box[2] = {(cuuint32_t)cols, 32};
   const cuuint32_t unit[2] = {1, 1};
   const CUresult r = encode(
       map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
       2, const_cast<void*>(ptr), dims, strides, box, unit,
-      CU_TENSOR_MAP_INTERLEAVE_NONE,
-      f32 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(cols * (f32 ? 4 : 2)),
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -168,6 +174,40 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// Element offset of channels 4 * chunk .. + 3 of row `row` of a 128-byte-
+// swizzled f32 tile of HD_ channels (TMA's layout): HD_ / 32 blocks of
+// `rows` rows x 32 channels, one box each.
+template <int HD_>
+__device__ __forceinline__ int f32_at(int row, int chunk, int rows) {
+  if constexpr (HD_ == 32) return row * 32 + ((chunk ^ (row & 7)) << 2);
+  else
+    return (chunk >> 3) * rows * 32 + row * 32 +
+           (((chunk & 7) ^ (row & 7)) << 2);
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int u) {
+  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
+}
+
+// A map of a row-major (rows, cols) f32 matrix (row stride `ld` floats),
+// boxes of 32 columns x `box_rows` rows, unswizzled: a box lands as a
+// dense [box_rows][32] tile; columns and rows past the matrix read zero.
+inline cudaError_t matrix_map(CUtensorMap* map, const void* ptr, long rows,
+                              int cols, int ld, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 4};
+  const cuuint32_t box[2] = {32, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // Generic-proxy writes to shared memory made visible to the async proxy
 // (wgmma operands written by threads).
 __device__ __forceinline__ void fence_proxy_async() {
@@ -204,6 +244,25 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p) {
   return (uint64_t)((shared_addr(p) & 0x3FFFF) >> 4) |
          ((uint64_t)(512 >> 4) << 16) | ((uint64_t)(512 >> 4) << 32) |
          ((uint64_t)2 << 62);
+}
+
+// The same for a 128-byte-swizzled bf16 tile (rows of 128 bytes, 8-row
+// groups 1024 bytes apart; layout 1): the tiles of a 64-wide head. A
+// K-major operand steps 16 channels by adding 2 (32 bytes) to the start
+// address within the swizzle atom; an MN-major one of 64 columns is one
+// atom across.
+__device__ __forceinline__ uint64_t smem_desc_sw128(const void* p) {
+  return (uint64_t)((shared_addr(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(1024 >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+// The descriptor of a head-wide bf16 tile of head width HD (32: 64-byte
+// swizzle, 64: 128-byte).
+template <int HD>
+__device__ __forceinline__ uint64_t head_desc(const void* p) {
+  if constexpr (HD == 64) return smem_desc_sw128(p);
+  else return smem_desc(p);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -301,6 +360,89 @@ __device__ __forceinline__ void wgmma_64x32_ss(float (&d)[16], uint64_t da,
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15])
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, f32) += a . b: a 64 x 16 bf16 from registers, b 16 x 64
+// MN-major (16 rows of 64 columns, the transpose bit) from shared memory.
+__device__ __forceinline__ void wgmma_64x64_rs(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 64, f32) = a . b (+ d if accumulate): a 64 x 16 K-major and b
+// 16 x 64 MN-major, both from shared memory.
+__device__ __forceinline__ void wgmma_64x64_ss(float (&d)[32], uint64_t da,
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// P . V of one 16-key step for a head of HD channels: m64n32k16 (HD 32) or
+// m64n64k16 (HD 64), v MN-major.
+template <int HD>
+__device__ __forceinline__ void wgmma_pv(float (&d)[HD / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (HD == 64) wgmma_64x64_rs(d, a, db);
+  else wgmma_64x32_rs(d, a, db);
+}
+
+// x . Wq of one 16-channel step for a head of HD channels.
+template <int HD>
+__device__ __forceinline__ void wgmma_proj(float (&d)[HD / 2], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  if constexpr (HD == 64) wgmma_64x64_ss(d, da, db, accumulate);
+  else wgmma_64x32_ss(d, da, db, accumulate);
+}
+
+// Bulk copy (TMA, no tensor map) of `bytes` (a multiple of 16, both
+// addresses 16-byte aligned) from global to shared memory; completion is
+// reported to `bar` as transaction bytes.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(shared_addr(dst)), "l"(src), "r"(bytes), "r"(shared_addr(bar))
+      : "memory");
+}
+
+// Generic-proxy writes to global memory ordered before later reads of the
+// async proxy (TMA) that a barrier makes them visible to.
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
 }  // namespace yolou

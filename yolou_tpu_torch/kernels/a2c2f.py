@@ -10,6 +10,16 @@ kernel takes it padded to a multiple of 16 (`A2C2f.folded_weights` pads).
 The residual-gamma form of A2C2f does not route here in either package. The
 entry point is the `torch.library` operator `yolou::a2c2f` behind a checking
 wrapper, as in `attention.py`.
+
+Any head width up to 64 and any number of stages: heads whose width is not
+32 or 64 are padded with zero channels to the next of the two
+(`pad_a2c2f_heads`: the qkv columns per role and head, the pe taps and bias,
+the proj rows; `A2C2f.folded_weights` pads once, the wrapper pads what it is
+given unpadded), and the kernel takes the true scale. The ABlocks' weight
+pointers reach the kernel as a device array, so the stage count is free.
+The f32 kernel takes widths (cin, c_, MLP, c2) that are multiples of 4; the
+wrapper pads others with zeros (`pad_f32_widths`, kept per weight list), as
+exact as the MLP's padding.
 """
 
 from __future__ import annotations
@@ -21,20 +31,28 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .attention import _DTYPE_CODE, _SMEM_LIMIT, HEAD_DIM, _check_aligned
+from .attention import (_DTYPE_CODE, _SMEM_LIMIT, _SMS, HEAD_DIM,
+                        _check_aligned, pad_heads, padded_head_dim)
 
-F32_TILES = (16, 8, 4)  # a2c2f.cu's f32 token tiles (TM), largest first
-F32_STREAM_KEYS = 64    # keys a tile of its streamed f32 layout
-MMA_STREAM_KEYS = 256   # and of the streamed bf16 one
+# a2c2f.cu's f32 kernel: token tiles (TM), largest first; its threads; K
+# rows of a GEMM stage and the ring's stages; keys of an attention tile, its
+# stages, and the probabilities' row stride (floats)
+F32_TILES = (64, 32)
+_F32_THREADS = 256
+_KS, _STAGES = 32, 4
+_KB_ATT, _ATT_STAGES, _LDP_ATT = 64, 2, 76
+MMA_STREAM_KEYS = 256   # keys a tile of the streamed bf16 layout
 MMA_TILE_MIN = 16  # the bf16 kernel's smallest token tile
-MAX_STAGES = 4     # the kernel's parameter block holds 8 ABlocks
 _PER_BLOCK = 10    # tensors per ABlock in the flat weight list
-# the bf16 kernel's weight ring (RING slabs of KS x (NP + 8) bf16), its
-# attention partials (8 warps x PART_FLOATS f32) and its static GEMM
-# descriptors, in bytes
+# the bf16 kernel's weight ring (RING slabs of KS x (NP + 8) bf16) and its
+# static shared memory (4 GEMM descriptors, the pe taps' 2 pointers), bytes
 _MMA_RING = 2 * 3 * 64 * (128 + 8)
-_MMA_PARTS = 4 * 8 * (16 + 16 + 16 * HEAD_DIM)
-_MMA_STATIC = 4 * 32
+_MMA_STATIC = 4 * 40 + 2 * 8
+
+
+def _mma_parts(hd: int) -> int:
+    """The bf16 kernel's attention partials: 8 warps x (32 + 16 hd) f32."""
+    return 4 * 8 * (32 + 16 * hd)
 
 
 def a2c2f_mega_eligible(H: int, W: int, cin: int, c_: int, area: int,
@@ -60,12 +78,15 @@ def _split(weights: Sequence[torch.Tensor], n_stages: int):
 
 
 def band_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         dtype: torch.dtype) -> torch.Tensor:
-    """softmax(q k^T / sqrt(hd)) v over (G, heads, nb, hd) f32 tensors that
-    hold `dtype` values: the row maximum subtracted, the unnormalised exp
-    rounded to `dtype` before p.v, the division by the f32 sum of the
-    unrounded exp after it. Returns f32."""
-    s = torch.matmul(q, k.transpose(-1, -2)) * q.shape[-1] ** -0.5
+                         dtype: torch.dtype,
+                         scale: float | None = None) -> torch.Tensor:
+    """softmax(q k^T * scale) v over (G, heads, nb, hd) f32 tensors that
+    hold `dtype` values (scale hd ** -0.5 unless given: a padded head keeps
+    its true one): the row maximum subtracted, the unnormalised exp rounded
+    to `dtype` before p.v, the division by the f32 sum of the unrounded exp
+    after it. Returns f32."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
     e = torch.exp(s - s.amax(-1, keepdim=True))
     return torch.matmul(e.to(dtype).float(), v) / e.sum(-1, keepdim=True)
 
@@ -78,29 +99,35 @@ def a2c2f_fused_plain(x: torch.Tensor, weights: Sequence[torch.Tensor],
     are rounded to x.dtype; residual adds are in f32; the attention is
     `attention(q, k, v, x.dtype)` per band and head (`band_attention_plain`;
     a test may pass an emulation of the kernel's blocking), its f32 output
-    added to the f32 positional term before the rounding."""
+    added to the f32 positional term before the rounding. The weights may
+    carry heads padded to a kernel width (`pad_a2c2f_heads`): the attention
+    is then `ca` = qkv's width / 3 channels wide and keeps the true scale
+    (c_ / heads) ** -0.5, passed as `scale=`."""
     B, H, W, cin = x.shape
     (wcv1, bcv1), blocks, (wcv2, bcv2) = _split(weights, n_stages)
     c_ = wcv1.shape[1]
-    N, dt, hd = H * W, x.dtype, c_ // heads
+    ca = blocks[0][0].shape[1] // 3           # the attention's width
+    N, dt, hd = H * W, x.dtype, ca // heads
     nb = N // area
+    padded = {} if ca == c_ else {"scale": (c_ // heads) ** -0.5}
 
     def gemm(t, w, b):
         return torch.matmul(t.float(), w.float()) + b
 
-    def heads_view(a):     # (B, N, c_) -> (B * area, heads, nb, hd) f32
+    def heads_view(a):     # (B, N, ca) -> (B * area, heads, nb, hd) f32
         return a.reshape(B * area, nb, heads, hd).transpose(1, 2).float()
 
     t = F.silu(gemm(x.reshape(B, N, cin), wcv1, bcv1)).to(dt)
     ys = [t]
     for a, (wqkv, bqkv, wpe, bpe, wproj, bproj, wm1, bm1, wm2,
             bm2) in enumerate(blocks):
-        q, k, v = gemm(t, wqkv, bqkv).to(dt).split(c_, -1)
-        o = attention(heads_view(q), heads_view(k), heads_view(v), dt)
-        o = o.transpose(1, 2).reshape(B, N, c_)
-        pe = F.conv2d(v.reshape(B, H, W, c_).permute(0, 3, 1, 2).float(),
-                      wpe.permute(2, 0, 1)[:, None], bpe, padding=3, groups=c_)
-        pe = pe.permute(0, 2, 3, 1).reshape(B, N, c_)
+        q, k, v = gemm(t, wqkv, bqkv).to(dt).split(ca, -1)
+        o = attention(heads_view(q), heads_view(k), heads_view(v), dt,
+                      **padded)
+        o = o.transpose(1, 2).reshape(B, N, ca)
+        pe = F.conv2d(v.reshape(B, H, W, ca).permute(0, 3, 1, 2).float(),
+                      wpe.permute(2, 0, 1)[:, None], bpe, padding=3, groups=ca)
+        pe = pe.permute(0, 2, 3, 1).reshape(B, N, ca)
         t = (t.float() + gemm((o + pe).to(dt), wproj, bproj)).to(dt)
         h = F.silu(gemm(t, wm1, bm1)).to(dt)
         t = (t.float() + gemm(h, wm2, bm2)).to(dt)
@@ -110,54 +137,120 @@ def a2c2f_fused_plain(x: torch.Tensor, weights: Sequence[torch.Tensor],
     return out.reshape(B, H, W, wcv2.shape[1])
 
 
+def pad_a2c2f_heads(weights: Sequence[torch.Tensor], n_stages: int,
+                    heads: int, hdp: int) -> list:
+    """The flat weight list with every head padded to hdp channels: per
+    ABlock the qkv weight's columns and bias per role and head
+    (`attention.pad_heads`), the pe taps and bias per head, the proj
+    weight's rows per head; the rest as given. Exact: q and k meet zeros in
+    the scores, v's padded channels and their positional term are zero, and
+    proj's zero rows drop them."""
+    ws = list(weights)
+    for a in range(2 * n_stages):
+        i = 2 + _PER_BLOCK * a
+        wqkv, bqkv, wpe, bpe, wproj = ws[i:i + 5]
+        c_ = wqkv.shape[0]
+        ws[i] = pad_heads(wqkv.reshape(c_, 3, -1), heads, hdp).reshape(c_, -1)
+        ws[i + 1] = pad_heads(bqkv.reshape(3, -1), heads, hdp).reshape(-1)
+        ws[i + 2] = pad_heads(wpe, heads, hdp)
+        ws[i + 3] = pad_heads(bpe, heads, hdp)
+        ws[i + 4] = pad_heads(wproj.t(), heads, hdp).t().contiguous()
+    return ws
+
+
+def _up4(k: int) -> int:
+    return -(-k // 4) * 4
+
+
+def pad_f32_widths(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                   n_stages: int):
+    """(x, weights) with cin, c_, the MLP's width and c2 zero-padded to
+    multiples of 4, the f32 kernel's 16-byte rows: x's channels and cv1's
+    rows; c_ as cv1's columns and bias, the rows of qkv and mlp1, the
+    columns and biases of proj and mlp2, and cv2's rows of every ys slot;
+    the MLP as mlp1's columns and bias and mlp2's rows; c2 as cv2's columns
+    and bias (the caller cuts the output back). Exact: a padded channel of
+    the residual stream is silu(0) = 0 after cv1 and stays 0."""
+    (wcv1, bcv1), blocks, (wcv2, bcv2) = _split(weights, n_stages)
+    cin, c_ = wcv1.shape
+    hid, c2 = blocks[0][6].shape[1], wcv2.shape[1]
+    dc, dh = _up4(c_) - c_, _up4(hid) - hid
+
+    def cols(t, n):
+        return F.pad(t, (0, n)) if n else t
+
+    def rows(t, n):
+        return F.pad(t, (0, 0, 0, n)) if n else t
+
+    ws = [rows(cols(wcv1, dc), _up4(cin) - cin), cols(bcv1, dc)]
+    for wqkv, bqkv, wpe, bpe, wproj, bproj, wm1, bm1, wm2, bm2 in blocks:
+        ws += [rows(wqkv, dc), bqkv, wpe, bpe, cols(wproj, dc),
+               cols(bproj, dc), rows(cols(wm1, dh), dc), cols(bm1, dh),
+               cols(rows(wm2, dh), dc), cols(bm2, dc)]
+    wcv2 = wcv2.reshape(n_stages + 1, c_, c2)
+    wcv2 = F.pad(wcv2, (0, _up4(c2) - c2, 0, dc)).reshape(-1, _up4(c2))
+    ws += [wcv2, cols(bcv2, _up4(c2) - c2)]
+    return (cols(x, _up4(cin) - cin).contiguous(),
+            [w.contiguous() for w in ws])
+
+
 def _pad16(k: int) -> int:
     return -(-k // 16) * 16
 
 
+def f32_panel(tile: int) -> int:
+    """The f32 kernel's GEMM panel (columns) at token tile `tile`: 4
+    columns a thread of 256 over tile / 4 row groups."""
+    return 4 * _F32_THREADS // (tile // 4)
+
+
+def f32_smem_bytes(tile: int, hd: int = HEAD_DIM) -> int:
+    """One CTA's shared memory in the f32 kernel (a2c2f.cu's `F32Layout`)
+    at token tile `tile` and head width `hd`: 1024 bytes of alignment
+    slack, the larger of the GEMM ring (4 stages of a [tile][32] activation
+    slab and a [32][4096 / tile] weight slab) and the attention's (2 stages
+    of 64 / tile key groups' k and v tiles of 64 x hd, the q rows in rows of
+    hd + 4 and each key group's probability rows), then 10 mbarriers. It
+    depends on no width of the block and on no stage count."""
+    gemm = _STAGES * (tile * _KS + _KS * f32_panel(tile))
+    groups = 64 // tile               # key groups, each its own p rows
+    att = (_ATT_STAGES * 2 * groups * _KB_ATT * hd + tile * (hd + 4)
+           + groups * tile * _LDP_ATT)
+    return 1024 + 4 * max(gemm, att) + 8 * (2 * _STAGES + _ATT_STAGES)
+
+
+def f32_tile(batch: int, nb: int, area: int) -> int:
+    """The f32 kernel's token tile for `batch` images of `area` bands of nb
+    tokens: of `F32_TILES`, the one whose grid puts the fewest token rows
+    on the busiest of an H100's SMs (tiles spread over the SMs first), the
+    larger on a tie (half the weight traffic a token)."""
+    def rows(tile):
+        return -(-batch * area * -(-nb // tile) // _SMS) * tile
+    return min(F32_TILES, key=lambda t: (rows(t), -t))
+
+
 def smem_bytes(cin: int, c_: int, n_stages: int, nb: int, dtype: torch.dtype,
                hidden: int | None = None, tile: int | None = None,
-               streamed: bool = False) -> int:
-    """One CTA's shared memory in a2c2f.cu at token tile `tile` (default:
-    the type's smallest layout), MLP width `hidden` (default 2 c_). float32
-    (SIMT): three transposed f32 activation tiles, then one head's queries,
-    keys and values of a band (`streamed`: a tile of 64 keys and values,
-    the keys' rows 33 words apart, at 16 tokens). bfloat16 (tensor cores),
-    one k/v buffer: the weight ring, one head's keys and values of a band
-    (`streamed`: 256 of them), the attention partials, and the t, u and
+               streamed: bool = False, ca: int | None = None,
+               hd: int = HEAD_DIM) -> int:
+    """One CTA's shared memory in a2c2f.cu at token tile `tile`, MLP width
+    `hidden` (default 2 c_), attention width `ca` (default c_) and head
+    width `hd` (32 or 64). float32: `f32_smem_bytes` (tile default 64).
+    bfloat16 (tensor cores), one k/v buffer (default: the smallest layout):
+    the weight ring, one head's keys and values of a band (`streamed`: 256
+    of them), the attention partials, and the t (c_ wide), u (ca wide) and
     `big` bf16 tiles, rows padded by 16 bytes (the launch takes a larger
     token tile where it fits)."""
-    hidden = 2 * c_ if hidden is None else hidden
     if dtype == torch.float32:
-        tile = (F32_TILES[0] if streamed else F32_TILES[-1]) if tile is None \
-            else tile
-        n_pad = -(-nb // 32) * 32
-        big = max(cin, hidden, (n_stages + 1) * c_)
-        tiles = 4 * (tile + 4) * (2 * c_ + big)
-        if streamed:
-            return tiles + 4 * F32_STREAM_KEYS * (2 * HEAD_DIM + 1)
-        return tiles + 4 * HEAD_DIM * (tile + n_pad + 1 + n_pad)
+        return f32_smem_bytes(tile or F32_TILES[0], hd)
+    hidden = 2 * c_ if hidden is None else hidden
+    ca = c_ if ca is None else ca
     tile = MMA_TILE_MIN if tile is None else tile
-    big = max(_pad16(cin), _pad16(hidden), (n_stages + 1) * c_)
-    tiles = 2 * tile * (2 * (c_ + 8) + big + 8)
+    big = max(_pad16(cin), _pad16(hidden), (n_stages + 1) * c_, 2 * ca)
+    tiles = 2 * tile * ((c_ + 8) + (ca + 8) + big + 8)
     kv_rows = MMA_STREAM_KEYS if streamed else _pad16(nb)
-    return (_MMA_RING + 2 * 2 * HEAD_DIM * kv_rows + _MMA_PARTS + tiles
+    return (_MMA_RING + 2 * 2 * hd * kv_rows + _mma_parts(hd) + tiles
             + _MMA_STATIC)
-
-
-def f32_layout(cin: int, c_: int, n_stages: int, nb: int,
-               hidden: int | None = None) -> tuple[int, bool] | None:
-    """The f32 kernel's (token tile, streamed) for this shape, as a2c2f.cu's
-    `launch_simt` takes it: the largest of `F32_TILES` whose shared memory
-    fits a block with the band's keys and values resident, else 16 tokens
-    with them streamed; None where not even that fits."""
-    for tile in F32_TILES:
-        if smem_bytes(cin, c_, n_stages, nb, torch.float32, hidden,
-                      tile) <= _SMEM_LIMIT:
-            return tile, False
-    if smem_bytes(cin, c_, n_stages, nb, torch.float32, hidden,
-                  streamed=True) <= _SMEM_LIMIT:
-        return F32_TILES[0], True
-    return None
 
 
 def _check(x, weights, n_stages, area, heads):
@@ -178,18 +271,23 @@ def _check(x, weights, n_stages, area, heads):
     if heads <= 0 or c_ % heads:
         raise ValueError(f"c_={c_} is not a multiple of heads={heads}")
     (wcv1, bcv1), blocks, (wcv2, bcv2) = _split(weights, n_stages)
+    # the attention's width: c_, or heads padded to a kernel width
+    ca = blocks[0][0].shape[-1] // 3 if blocks[0][0].dim() == 2 else c_
+    if ca != c_ and ca != heads * padded_head_dim(c_ // heads):
+        raise ValueError(f"qkv's width {3 * ca} is neither 3 c_ = {3 * c_} "
+                         f"nor heads padded to a kernel width")
     gemms = [("cv1", wcv1, bcv1, cin, c_)]
     f32 = [bcv1, bcv2]
     hid = blocks[0][6].shape[-1]      # the MLP's width, from mlp1's weight
     for a, (wqkv, bqkv, wpe, bpe, wproj, bproj, wm1, bm1, wm2,
             bm2) in enumerate(blocks):
-        gemms += [(f"qkv{a}", wqkv, bqkv, c_, 3 * c_),
-                  (f"proj{a}", wproj, bproj, c_, c_),
+        gemms += [(f"qkv{a}", wqkv, bqkv, c_, 3 * ca),
+                  (f"proj{a}", wproj, bproj, ca, c_),
                   (f"mlp1_{a}", wm1, bm1, c_, hid),
                   (f"mlp2_{a}", wm2, bm2, hid, c_)]
-        if tuple(wpe.shape) != (7, 7, c_) or bpe.numel() != c_:
+        if tuple(wpe.shape) != (7, 7, ca) or bpe.numel() != ca:
             raise ValueError(f"pe{a}: weight {tuple(wpe.shape)} / bias "
-                             f"{tuple(bpe.shape)}, want (7, 7, {c_}) / {c_}")
+                             f"{tuple(bpe.shape)}, want (7, 7, {ca}) / {ca}")
         f32 += [bqkv, wpe, bpe, bproj, bm1, bm2]
     if wcv2.dim() != 2:
         raise ValueError("cv2's weight must be a matrix")
@@ -209,50 +307,130 @@ def _check(x, weights, n_stages, area, heads):
     return c_, wcv2.shape[1]
 
 
-def _launch_a2c2f(x, weights, n_stages, area, heads):
-    """Launch the whole-block kernel on checked CUDA tensors; returns out."""
-    B, H, W, cin = x.shape
-    c_, c2 = weights[0].shape[1], weights[-2].shape[1]
-    hid = weights[8].shape[1]         # the first ABlock's mlp1 weight
-    if c_ // heads != HEAD_DIM:
-        raise ValueError(f"the CUDA kernel needs head_dim {HEAD_DIM}, "
-                         f"got {c_ // heads}")
-    if n_stages > MAX_STAGES:
-        raise ValueError(f"the CUDA kernel takes at most {MAX_STAGES} "
-                         f"stages, got {n_stages}")
+_CACHE_SIZE = 4
+_prepared: dict = {}     # the kernel's weight lists and block arrays, kept
+
+
+def _kept(key, make, keep=()):
+    """`make()` kept under `key` (a few entries, oldest dropped) with the
+    tensors `keep` (the ones the key names by pointer: alive, their memory
+    cannot come back under another tensor): the padded weight lists and the
+    device arrays of block pointers that a served module asks for on every
+    call."""
+    if key not in _prepared:
+        if len(_prepared) >= _CACHE_SIZE:
+            _prepared.pop(next(iter(_prepared)))
+        _prepared[key] = (tuple(keep), make())
+    return _prepared[key][1]
+
+
+_GEMM_SLOTS = (0, -2)        # cv1, cv2 in the flat list; then per ABlock
+_BLOCK_GEMMS = (0, 4, 6, 8)  # qkv, proj, mlp1, mlp2
+
+
+def pack_f32_weight(w: torch.Tensor, panel: int) -> torch.Tensor:
+    """A (K, N) GEMM weight as the f32 kernel streams it: [ceil(N / panel)]
+    [ceil32(K)][panel], zero past K and N, so that each stage's slab of 32
+    rows x `panel` columns is one contiguous bulk copy."""
+    k, n = w.shape
+    kp, panels = -(-k // _KS) * _KS, -(-n // panel)
+    w = F.pad(w, (0, panels * panel - n, 0, kp - k))
+    return w.reshape(kp, panels, panel).transpose(0, 1).contiguous()
+
+
+def _kernel_weights(x, weights, n_stages, heads, tile=0):
+    """The weight list as the kernel takes it: heads padded to a kernel
+    width (`pad_a2c2f_heads`) unless they are one (or the list is padded
+    already); in f32 also every width a multiple of 4 (`pad_f32_widths`)
+    and every GEMM weight packed for token tile `tile` (`pack_f32_weight`).
+    Kept per list (by each tensor's pointer, version and shape), so a
+    served block pads and packs once. Returns (x, weights, dims): x padded
+    with the weights, dims the kernel's (cin, c_, ca, hid, c2, hd)."""
+    c_ = weights[0].shape[1]
+    hd = c_ // heads
+    ca = weights[2].shape[1] // 3
+    hdp = ca // heads if ca != c_ else padded_head_dim(hd)
+    if not hdp:
+        raise ValueError(f"the CUDA kernel takes head_dim up to 64 (32 and "
+                         f"64, others padded), got {hd}")
+    f32 = x.dtype == torch.float32
+    dims = (x.shape[-1], c_, heads * hdp, weights[8].shape[1],
+            weights[-2].shape[1], hdp)
+    if f32:
+        dims = (*map(_up4, (x.shape[-1], c_)), heads * hdp,
+                *map(_up4, dims[3:5]), hdp)
+    if ca == c_ and hdp == hd and not f32:
+        return x, list(weights), dims
+    key = ("weights", x.dtype, n_stages, heads, tile,
+           *((t.data_ptr(), t._version, tuple(t.shape)) for t in weights))
+
+    def make():
+        ws = list(weights)
+        if ca == c_ and hdp != hd:
+            ws = pad_a2c2f_heads(ws, n_stages, heads, hdp)
+        if f32:
+            ws = pad_f32_widths(x[:0], ws, n_stages)[1]
+            gemms = [*_GEMM_SLOTS] + [2 + _PER_BLOCK * a + i
+                                      for a in range(2 * n_stages)
+                                      for i in _BLOCK_GEMMS]
+            for i in gemms:
+                ws[i] = pack_f32_weight(ws[i], f32_panel(tile))
+        return ws
+
+    ws = _kept(key, make, weights)
+    if f32 and (dims[0] != x.shape[-1] or x.data_ptr() % 16):
+        x = F.pad(x, (0, dims[0] - x.shape[-1])).contiguous()
+    return x, ws, dims
+
+
+def _launch_a2c2f(x, weights, n_stages, area, heads, tile=None):
+    """Launch the whole-block kernel on checked CUDA tensors (f32: at token
+    tile `tile` in place of `f32_tile`'s, for comparisons); returns out."""
+    lib = build.load()                # before any pointer is read
+    B, H, W, _ = x.shape
+    c2_out = weights[-2].shape[1]
+    scale = (weights[0].shape[1] // heads) ** -0.5
+    nb = H * W // area
+    f32 = x.dtype == torch.float32
+    tile = (tile or f32_tile(B, nb, area)) if f32 else 0
+    x, weights, (cin, c_, ca, hid, c2, hd) = _kernel_weights(
+        x, weights, n_stages, heads, tile)
     if x.dtype == torch.bfloat16 and hid % 16:
         raise ValueError(f"the bf16 kernel needs the MLP width padded to a "
                          f"multiple of 16 (A2C2f.folded_weights pads it), "
                          f"got {hid}")
-    nb = H * W // area
-    if x.dtype == torch.float32:
-        fits = f32_layout(cin, c_, n_stages, nb, hid) is not None
-    else:      # the smallest layout, with the band's keys or a tile of them
-        fits = min(smem_bytes(cin, c_, n_stages, nb, x.dtype, hid,
-                              streamed=st) for st in (False, True)) \
-            <= _SMEM_LIMIT
-    if not fits:
-        raise ValueError(f"a band of {nb} tokens at cin={cin}, c_={c_}, "
-                         f"{n_stages} stages passes a block's shared memory")
-    if x.dtype == torch.bfloat16:   # the stencil reads its taps 16 B a time
+    if x.dtype == torch.bfloat16:   # the smallest layout, resident or not
+        if min(smem_bytes(cin, c_, n_stages, nb, x.dtype, hid,
+                          streamed=st, ca=ca, hd=hd)
+               for st in (False, True)) > _SMEM_LIMIT:
+            raise ValueError(f"a band of {nb} tokens at cin={cin}, "
+                             f"c_={c_}, {n_stages} stages passes a block's "
+                             f"shared memory")
+        # the stencil reads its taps 16 B a time
         _check_aligned(*(blk[2] for blk in _split(weights, n_stages)[1]))
-    lib = build.load()
     tokens = B * H * W
     out = torch.empty((B, H, W, c2), dtype=x.dtype, device=x.device)
     ys = torch.empty((tokens, (n_stages + 1) * c_), dtype=x.dtype,
                      device=x.device)
-    qkv = torch.empty((2, tokens, 3 * c_), dtype=x.dtype, device=x.device)
-    ptrs = (ctypes.c_void_p * len(weights))(*(w.data_ptr() for w in weights))
+    qkv = torch.empty((2, tokens, 3 * ca), dtype=x.dtype, device=x.device)
+    work = torch.empty((tokens, c_ + hid + ca) if f32 else (0,),
+                       dtype=torch.float32, device=x.device)
+    ptrs = [w.data_ptr() for w in weights]
+    blocks = _kept(("blocks", x.device, *ptrs[2:-2]), lambda: torch.tensor(
+        ptrs[2:-2], dtype=torch.int64).to(x.device))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.yolou_a2c2f(x.data_ptr(), ptrs, len(weights),
-                               out.data_ptr(), ys.data_ptr(), qkv.data_ptr(),
-                               B, H, W, cin, c_, c2, hid, n_stages, area,
-                               heads,
-                               _DTYPE_CODE[x.dtype], stream)
+        code = lib.yolou_a2c2f(x.data_ptr(),
+                               (ctypes.c_void_p * len(ptrs))(*ptrs),
+                               len(ptrs), out.data_ptr(), ys.data_ptr(),
+                               qkv.data_ptr(), B, H, W, cin, c_, c2, hid,
+                               n_stages, area, heads, _DTYPE_CODE[x.dtype],
+                               blocks.data_ptr(),
+                               work.data_ptr() if f32 else None, ca, scale,
+                               tile, stream)
     build.check(lib, code, "A2C2f block kernel")
     a2c2f_fused.launches += 1
-    return out
+    return out if c2 == c2_out else out[..., :c2_out].contiguous()
 
 
 def _a2c2f_forward(x, weights, n_stages, area, heads):

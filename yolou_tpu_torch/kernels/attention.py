@@ -49,6 +49,18 @@ to the I/O type before p.v; the division after it), over other key steps:
 their bf16 results are close, not bit-identical. No band length is
 refused; the streamed bf16 kernel A holds its CTA's x rows in shared
 memory, which bounds C (896 channels: 28 heads).
+
+Head widths. The kernels are built for heads 32 and 64 channels wide
+(`KERNEL_HEAD_DIMS`); the resident path takes 32 only, so a 64-wide head
+runs the streamed path. Every other width up to 64 is padded with zero
+channels to the next of the two by one function on both devices
+(`pad_heads`; kernel A also pads x's channels and the qkv weight's rows
+and columns, `pad_qkv_projection`) and runs with the true `hd ** -0.5` as
+its scale; the padded output channels are cut away (`cut_heads`). Zero
+channels add exact zeros to every score and give zero output channels, so
+this changes no value. A head wider than 64 channels, which no module
+builds, is refused on the card by name; the plain version takes it on the
+CPU.
 """
 
 from __future__ import annotations
@@ -59,7 +71,8 @@ import torch
 
 from . import build
 
-HEAD_DIM = 32     # the CUDA kernel is specialised for YOLOv12's head width
+HEAD_DIM = 32     # YOLOv12's head width: the resident path's, and the default
+KERNEL_HEAD_DIMS = (32, 64)  # the head widths the CUDA kernels are built for
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 227 * 1024
 _CLUSTER_ROWS = 8 * 8 * 16   # bf16 kernel A: CTAs x warps x query rows
@@ -83,23 +96,63 @@ _STREAM_WORK = {True: 300_000, False: 0}
 
 
 def area_attention_qkv_fused_plain(x: torch.Tensor, w: torch.Tensor,
-                                   b: torch.Tensor, heads: int):
+                                   b: torch.Tensor, heads: int,
+                                   scale: float | None = None):
     """Plain PyTorch version, the same math as the JAX package's
     `_qkv_attn_reference` + `area_attention_fused_reference`: qkv = x.w + b
-    in f32, rounded to x.dtype; per head softmax(q k^T / sqrt(hd)) in f32,
+    in f32, rounded to x.dtype; per head softmax(q k^T * scale) in f32
+    (scale hd ** -0.5 unless given: a padded head keeps its true one),
     probabilities rounded to x.dtype, p.v accumulated in f32."""
     g, n, c = x.shape
-    hd = c // heads
+    hd = w.shape[1] // 3 // heads
+    scale = hd ** -0.5 if scale is None else scale
     qkv = (torch.matmul(x.float(), w.float()) + b.reshape(-1)).to(x.dtype)
-    q, k, v = qkv.split(c, -1)
+    q, k, v = qkv.split(w.shape[1] // 3, -1)
 
     def rs(t):   # (g, n, c) -> (g, heads, n, hd), head-major channels
         return t.reshape(g, n, heads, hd).transpose(1, 2).float()
 
-    s = torch.matmul(rs(q), rs(k).transpose(-1, -2)) * hd ** -0.5
+    s = torch.matmul(rs(q), rs(k).transpose(-1, -2)) * scale
     p = s.softmax(-1).to(x.dtype).float()
-    o = torch.matmul(p, rs(v)).transpose(1, 2).reshape(g, n, c)
+    o = torch.matmul(p, rs(v)).transpose(1, 2).reshape(g, n, heads * hd)
     return o.to(x.dtype), v.contiguous()
+
+
+def padded_head_dim(hd: int) -> int:
+    """The kernels' head width that holds a head of `hd` channels: the
+    smallest of `KERNEL_HEAD_DIMS` at least `hd` wide, 0 past the widest."""
+    return next((k for k in KERNEL_HEAD_DIMS if hd <= k), 0)
+
+
+def pad_heads(t: torch.Tensor, heads: int, hdp: int) -> torch.Tensor:
+    """(..., heads * hd) head-major channels -> (..., heads * hdp): each
+    head's hd channels, then hdp - hd zeros."""
+    hd = t.shape[-1] // heads
+    t = t.reshape(*t.shape[:-1], heads, hd)
+    return torch.nn.functional.pad(t, (0, hdp - hd)).flatten(-2).contiguous()
+
+
+def cut_heads(t: torch.Tensor, heads: int, hd: int) -> torch.Tensor:
+    """The inverse of `pad_heads`: the first hd channels of each head."""
+    t = t.reshape(*t.shape[:-1], heads, t.shape[-1] // heads)
+    return t[..., :hd].flatten(-2).contiguous()
+
+
+def pad_qkv_projection(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                       heads: int, hdp: int):
+    """Kernel A's operands with every head padded to hdp channels: x's C
+    channels followed by zeros up to heads * hdp (CA), the (C, 3C) weight's
+    rows likewise and each role's columns per head (`pad_heads`), the bias
+    per head; returns (x (G, N, CA), w (CA, 3CA), b (3CA,)). The zero rows
+    meet the zero channels of x, so q, k and v keep their values in their
+    first hd channels of each head and are zero in the rest."""
+    c = x.shape[-1]
+    ca = heads * hdp
+    xp = torch.nn.functional.pad(x, (0, ca - c)).contiguous()
+    wp = pad_heads(w.reshape(c, 3, c), heads, hdp).reshape(c, 3 * ca)
+    wp = torch.nn.functional.pad(wp, (0, 0, 0, ca - c)).contiguous()
+    bp = pad_heads(b.reshape(3, c), heads, hdp).reshape(3 * ca)
+    return xp, wp, bp
 
 
 def smem_bytes(n: int, c: int, projection: bool = True) -> int:
@@ -129,7 +182,7 @@ def _fits(n: int, c: int, projection: bool) -> bool:
 
 
 def stream_smem_bytes(c: int, dtype: torch.dtype, projection: bool = True,
-                      rows: int | None = None) -> int:
+                      rows: int | None = None, hd: int = HEAD_DIM) -> int:
     """The largest dynamic shared memory of a streamed-path launch
     (band_attention.cu), whatever N, with 1024 bytes of slack for the tiles'
     alignment and 8 a barrier: the ring's stages of a key tile's keys and
@@ -139,24 +192,25 @@ def stream_smem_bytes(c: int, dtype: torch.dtype, projection: bool = True,
     CTA's (rows, C) x tile, and its projection launch the (C, 64) k and v
     columns in rows of 72. float32: two stages of 64 keys, q and the
     probabilities (`_LDP` floats a row) of `rows` rows; kernel A also the
-    head's (C, 32) q weight columns."""
+    head's (C, 32) q weight columns. At head width `hd` (32 or 64) every
+    head-wide tile and the projection's rows (2 hd + 8) widen with it."""
     keys, stages = _STREAM_KEYS[dtype], _STREAM_STAGES[dtype]
     bars = 8 * (2 * stages + 1)
     if dtype == torch.bfloat16:
         rows = rows or 2 * _WG_ROWS
-        tiles = 2 * stages * keys * HEAD_DIM + rows * HEAD_DIM
+        tiles = 2 * stages * keys * hd + rows * hd
         if projection:
-            tiles += c * HEAD_DIM + rows * c
+            tiles += c * hd + rows * c
         attention = 1024 + 2 * tiles + bars
-        return max(attention, 2 * 72 * c if projection else 0)
+        return max(attention, 2 * (2 * hd + 8) * c if projection else 0)
     rows = rows or _F32_ROWS[0]
-    return (1024 + 4 * (2 * stages * keys * HEAD_DIM
-                        + rows * (HEAD_DIM + _LDP)
-                        + (c * HEAD_DIM if projection else 0)) + bars)
+    return (1024 + 4 * (2 * stages * keys * hd
+                        + rows * (hd + _LDP)
+                        + (c * hd if projection else 0)) + bars)
 
 
 def stream_rows(g: int, n: int, c: int, dtype: torch.dtype,
-                projection: bool = True) -> int:
+                projection: bool = True, hd: int = HEAD_DIM) -> int:
     """The query rows of a streamed CTA for G bands of N tokens at width C,
     the fastest on an H100 over every yolov12 band
     (`tools/attention_routes.py`) as a rule of the grid and the width.
@@ -166,7 +220,10 @@ def stream_rows(g: int, n: int, c: int, dtype: torch.dtype,
     shared memory fits; else 64 (one warpgroup, two CTAs an SM). float32:
     64 in kernel A at 256 channels and up where the grid of 64-row CTAs is
     8 deep on each SM (fewer CTAs stage the q weight columns); else 32
-    where the grid of 32-row CTAs covers half the SMs; else 16."""
+    where the grid of 32-row CTAs covers half the SMs; else 16. Heads 64
+    wide have one form of each kernel: 64 rows in bf16, 32 in f32."""
+    if hd != HEAD_DIM:
+        return _WG_ROWS if dtype == torch.bfloat16 else _F32_ROWS[1]
     pairs = g * (c // HEAD_DIM)
     if dtype == torch.bfloat16:
         two = (n > _WG_ROWS
@@ -203,24 +260,29 @@ def stream_faster(g: int, n: int, c: int, projection: bool = True) -> bool:
 
 
 def attention_plan(g: int, n: int, c: int, dtype: torch.dtype,
-                   projection: bool = True) -> AttentionPlan:
-    """The path of G bands of N tokens at width C, kernel A (`projection`)
-    or C: in bfloat16 the resident path where it holds the band
-    (`max_tokens`) and was the faster (`stream_faster`), else the streamed
-    path (`streamed_plan`), which every float32 band takes (float32 has no
-    resident path)."""
-    if (dtype == torch.bfloat16 and _fits(n, c, projection)
+                   projection: bool = True,
+                   hd: int = HEAD_DIM) -> AttentionPlan:
+    """The path of G bands of N tokens at width C in heads of `hd` (a
+    kernel width, 32 or 64), kernel A (`projection`) or C: in bfloat16 at
+    head width 32 the resident path where it holds the band (`max_tokens`)
+    and was the faster (`stream_faster`), else the streamed path
+    (`streamed_plan`), which every float32 band and every 64-wide head
+    takes (float32 has no resident path, and it holds heads of 32)."""
+    if (dtype == torch.bfloat16 and hd == HEAD_DIM
+            and _fits(n, c, projection)
             and not stream_faster(g, n, c, projection)):
         cluster = min(_MAX_CLUSTER, -(-n // 16)) if projection else 1
         return AttentionPlan(False, smem_bytes(n, c, projection), cluster, 1)
-    return streamed_plan(g, n, c, dtype, projection)
+    return streamed_plan(g, n, c, dtype, projection, hd)
 
 
 def streamed_plan(g: int, n: int, c: int, dtype: torch.dtype,
-                  projection: bool = True) -> AttentionPlan:
+                  projection: bool = True,
+                  hd: int = HEAD_DIM) -> AttentionPlan:
     """The streamed path's plan of G bands of N tokens at width C."""
-    rows = stream_rows(g, n, c, dtype, projection)
-    return AttentionPlan(True, stream_smem_bytes(c, dtype, projection, rows),
+    rows = stream_rows(g, n, c, dtype, projection, hd)
+    return AttentionPlan(True,
+                         stream_smem_bytes(c, dtype, projection, rows, hd),
                          1, 2 if projection else 1, rows)
 
 
@@ -232,10 +294,10 @@ def _check_aligned(*tensors):
         raise ValueError("the kernel needs 16-byte aligned tensors")
 
 
-def _stream_plan(g, n, c, dtype, projection):
+def _stream_plan(g, n, c, dtype, projection, hd=HEAD_DIM):
     """The streamed plan, refused where its shared memory does not fit a
     block (bf16 kernel A past 896 channels)."""
-    plan = streamed_plan(g, n, c, dtype, projection)
+    plan = streamed_plan(g, n, c, dtype, projection, hd)
     if plan.smem > _SMEM_LIMIT:
         raise ValueError(f"the streamed kernel needs {plan.smem} bytes of "
                          f"shared memory at C={c}, more than a block has")
@@ -263,27 +325,48 @@ def _check(x, w, b, heads):
     return g, n, c
 
 
-def _launch_qkv_attention(x, w, b, heads, streamed=None, rows=None):
-    """Launch kernel A on checked CUDA tensors on the path `attention_plan`
-    gives (`streamed` True or False forces one, for comparisons of the two;
-    `rows` the streamed CTA's query rows in place of the planned ones);
-    returns (o, v)."""
-    g, n, c = x.shape
-    if c // heads != HEAD_DIM:
-        raise ValueError(f"the CUDA kernel needs head_dim {HEAD_DIM}, "
-                         f"got {c // heads}")
-    if streamed is False and x.dtype != torch.bfloat16:
+def _kernel_head_dim(c, heads):
+    """The head width of C channels in `heads`, refused on the card unless
+    the kernels are built for it (`KERNEL_HEAD_DIMS`)."""
+    hd = c // heads
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the CUDA kernels take head_dim "
+                         f"{' or '.join(map(str, KERNEL_HEAD_DIMS))} (others "
+                         f"up to 64 padded by the wrappers), got {hd}")
+    return hd
+
+
+def _check_resident(streamed, dtype, hd):
+    """A forced resident path (`streamed=False`) takes bfloat16 heads of 32
+    only."""
+    if streamed is False and dtype != torch.bfloat16:
         raise ValueError("float32 has no resident path")
+    if streamed is False and hd != HEAD_DIM:
+        raise ValueError(f"the resident path takes heads of {HEAD_DIM} "
+                         f"channels, got {hd}")
+
+
+def _launch_qkv_attention(x, w, b, heads, streamed=None, rows=None,
+                          scale=None):
+    """Launch kernel A on checked CUDA tensors whose heads are a kernel width
+    (32 or 64) on the path `attention_plan` gives (`streamed` True or False
+    forces one, for comparisons of the two; `rows` the streamed CTA's query
+    rows in place of the planned ones); `scale` the softmax's (default
+    hd ** -0.5); returns (o, v)."""
+    g, n, c = x.shape
+    hd = _kernel_head_dim(c, heads)
+    _check_resident(streamed, x.dtype, hd)
     if streamed is None:
-        streamed = attention_plan(g, n, c, x.dtype).streamed
+        streamed = attention_plan(g, n, c, x.dtype, hd=hd).streamed
     if streamed:
-        rows = rows or _stream_plan(g, n, c, x.dtype, True).rows
+        rows = rows or _stream_plan(g, n, c, x.dtype, True, hd).rows
     lib = build.load()
     if x.dtype == torch.bfloat16 or streamed:
         _check_aligned(x, w)
     o = torch.empty_like(x)
     v = torch.empty_like(x)
     code = _DTYPE_CODE[x.dtype]
+    scale = hd ** -0.5 if scale is None else scale
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if streamed:
@@ -291,25 +374,37 @@ def _launch_qkv_attention(x, w, b, heads, streamed=None, rows=None):
             code = lib.yolou_band_attention_qkv_stream(
                 x.data_ptr(), w.data_ptr(), b.data_ptr(), o.data_ptr(),
                 v.data_ptr(), k.data_ptr(), g, n, c, heads, code, rows,
-                stream)
+                scale, stream)
         else:
             code = lib.yolou_band_attention_qkv(
                 x.data_ptr(), w.data_ptr(), b.data_ptr(), o.data_ptr(),
-                v.data_ptr(), g, n, c, heads, code, stream)
+                v.data_ptr(), g, n, c, heads, code, scale, stream)
     build.check(lib, code, "band attention kernel")
     area_attention_qkv_fused.launches += 1
     area_attention_qkv_fused.device_launches += 2 if streamed else 1
     return o, v
 
 
-def _qkv_attention_forward(x, w, b, heads):
-    """Kernel A on a CUDA tensor, the plain version on a CPU tensor: the
-    real version of the operator."""
+def _qkv_attention_run(x, w, b, heads, scale):
+    """Kernel A on a CUDA tensor, the plain version on a CPU tensor."""
     if x.device.type == "cpu":
-        return area_attention_qkv_fused_plain(x, w, b, heads)
+        return area_attention_qkv_fused_plain(x, w, b, heads, scale)
     if x.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {x.device}")
-    return _launch_qkv_attention(x, w, b, heads)
+    return _launch_qkv_attention(x, w, b, heads, scale=scale)
+
+
+def _qkv_attention_forward(x, w, b, heads):
+    """The real version of the operator, on both devices: heads whose width
+    is no kernel width but at most 64 are padded (`pad_qkv_projection`) and
+    cut back (`cut_heads`), with the true scale."""
+    hd = x.shape[-1] // heads
+    hdp = padded_head_dim(hd)
+    if hdp in (0, hd):
+        return _qkv_attention_run(x, w, b, heads, hd ** -0.5)
+    o, v = _qkv_attention_run(*pad_qkv_projection(x, w, b, heads, hdp),
+                              heads, hd ** -0.5)
+    return cut_heads(o, heads, hd), cut_heads(v, heads, hd)
 
 
 band_attention_qkv_op = torch.library.custom_op(
@@ -377,15 +472,18 @@ def _heads_view(t: torch.Tensor, heads: int) -> torch.Tensor:
 
 
 def area_attention_fused_plain(q: torch.Tensor, k: torch.Tensor,
-                               v: torch.Tensor, heads: int) -> torch.Tensor:
+                               v: torch.Tensor, heads: int,
+                               scale: float | None = None) -> torch.Tensor:
     """Plain PyTorch version, the math of the JAX package's
-    `area_attention_fused_reference`: per head softmax(q k^T / sqrt(hd)) in
-    f32, probabilities rounded to v.dtype, p.v accumulated in f32, heads
+    `area_attention_fused_reference`: per head softmax(q k^T * scale) in
+    f32 (scale hd ** -0.5 unless given: a padded head keeps its true one),
+    probabilities rounded to v.dtype, p.v accumulated in f32, heads
     concatenated back to C. Differentiable by autograd."""
     g, n, c = q.shape
     hd = c // heads
+    scale = hd ** -0.5 if scale is None else scale
     s = torch.matmul(_heads_view(q, heads).float(),
-                     _heads_view(k, heads).float().transpose(-1, -2)) * hd ** -0.5
+                     _heads_view(k, heads).float().transpose(-1, -2)) * scale
     p = s.softmax(-1).to(v.dtype).float()
     o = torch.matmul(p, _heads_view(v, heads).float())
     return o.transpose(1, 2).reshape(g, n, c).to(q.dtype)
@@ -418,21 +516,20 @@ def _check_qkv(q, k, v, heads):
     return g, n, c
 
 
-def _launch_band_attention(q, k, v, heads, streamed=None, rows=None):
-    """Launch kernel C on contiguous CUDA tensors on the path
-    `attention_plan` gives (`streamed` True or False forces one, `rows` the
-    streamed CTA's query rows); returns o."""
+def _launch_band_attention(q, k, v, heads, streamed=None, rows=None,
+                           scale=None):
+    """Launch kernel C on contiguous CUDA tensors whose heads are a kernel
+    width (32 or 64) on the path `attention_plan` gives (`streamed` True or
+    False forces one, `rows` the streamed CTA's query rows); `scale` the
+    softmax's (default hd ** -0.5); returns o."""
     g, n, c = q.shape
-    if c // heads != HEAD_DIM:
-        raise ValueError(f"the CUDA kernel needs head_dim {HEAD_DIM}, "
-                         f"got {c // heads}")
+    hd = _kernel_head_dim(c, heads)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
-    if streamed is False and q.dtype != torch.bfloat16:
-        raise ValueError("float32 has no resident path")
+    _check_resident(streamed, q.dtype, hd)
     if streamed is None:
-        streamed = attention_plan(g, n, c, q.dtype,
-                                  projection=False).streamed
+        streamed = attention_plan(g, n, c, q.dtype, projection=False,
+                                  hd=hd).streamed
     lib = build.load()
     if q.dtype == torch.bfloat16 or streamed:
         _check_aligned(q, k, v)
@@ -441,9 +538,10 @@ def _launch_band_attention(q, k, v, heads, streamed=None, rows=None):
             heads, _DTYPE_CODE[q.dtype]]
     if streamed:
         entry = lib.yolou_band_attention_stream
-        args.append(rows or _stream_plan(g, n, c, q.dtype, False).rows)
+        args.append(rows or _stream_plan(g, n, c, q.dtype, False, hd).rows)
     else:
         entry = lib.yolou_band_attention
+    args.append(hd ** -0.5 if scale is None else scale)
     with torch.cuda.device(q.device):
         code = entry(*args, torch.cuda.current_stream().cuda_stream)
     build.check(lib, code, "band attention (training) kernel")
@@ -452,14 +550,21 @@ def _launch_band_attention(q, k, v, heads, streamed=None, rows=None):
 
 def _band_attention(q, k, v, heads, wrapper):
     """Kernel C on a CUDA tensor (counted on `wrapper`, the public function
-    called), the plain version on a CPU tensor."""
-    if q.device.type == "cpu":
-        return area_attention_fused_plain(q, k, v, heads)
-    if q.device.type != "cuda":
+    called), the plain version on a CPU tensor; heads whose width is no
+    kernel width but at most 64 are padded (`pad_heads`) and cut back, on
+    both devices, with the true scale."""
+    if q.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"no kernel for device {q.device}")
-    o = _launch_band_attention(q, k, v, heads)
-    wrapper.launches += 1
-    return o
+    hd = q.shape[-1] // heads
+    hdp = padded_head_dim(hd)
+    if hdp not in (0, hd):
+        q, k, v = (pad_heads(t, heads, hdp) for t in (q, k, v))
+    if q.device.type == "cpu":
+        o = area_attention_fused_plain(q, k, v, heads, hd ** -0.5)
+    else:
+        o = _launch_band_attention(q, k, v, heads, scale=hd ** -0.5)
+        wrapper.launches += 1
+    return o if hdp in (0, hd) else cut_heads(o, heads, hd)
 
 
 def attention_backward(q, k, v, do, heads: int):

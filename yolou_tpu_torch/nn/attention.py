@@ -31,9 +31,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels.a2c2f import a2c2f_fused, a2c2f_mega_eligible
+from ..kernels.a2c2f import (a2c2f_fused, a2c2f_mega_eligible,
+                             pad_a2c2f_heads)
 from ..kernels.attention import (area_attention_fused,
-                                 area_attention_qkv_fused)
+                                 area_attention_qkv_fused, padded_head_dim)
 from .blocks import C3k, Conv
 
 
@@ -149,7 +150,10 @@ class A2C2f(nn.Module):
         (cin, cout) in `dtype`, biases and the (7, 7, c_) pe kernels f32; in
         bfloat16 the MLP's width padded to a multiple of 16 (zero columns of
         mlp1's weight and bias, zero rows of mlp2's weight: exact, since
-        silu(0) = 0), as the tensor-core kernel takes it. Folded once and
+        silu(0) = 0), as the tensor-core kernel takes it; heads whose width
+        is not one the kernels are built for (32 or 64) padded to the next
+        (`pad_a2c2f_heads`: qkv's columns, the pe taps, proj's rows; the
+        kernel keeps the true scale). Folded once and
         kept until a parameter or buffer of the block is written (its
         version counter moves) or replaced (`.to(device)`), so that a served
         block is one kernel launch and not ~200 small ones."""
@@ -178,7 +182,12 @@ class A2C2f(nn.Module):
                        bpe.contiguous(), *gemm(blk.attn.proj),
                        *gemm(blk.mlp[0], cols=pad),
                        *gemm(blk.mlp[1], rows=pad)]
-        return ws + gemm(self.cv2)
+        ws += gemm(self.cv2)
+        hd = self.cv1.conv.out_channels // self.num_heads
+        hdp = padded_head_dim(hd)
+        if hdp not in (0, hd):
+            ws = pad_a2c2f_heads(ws, len(self.m), self.num_heads, hdp)
+        return ws
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if (self.mega_kernel and self.a2 and not self.residual

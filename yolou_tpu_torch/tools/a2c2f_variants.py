@@ -1,8 +1,8 @@
-"""Write copies of `csrc/` with one part of the bf16 whole-A2C2f kernel
-(`a2c2f_mma_kernel` in `csrc/a2c2f.cu`) cut out or changed, for the phase
-split: each copy computes a wrong block, but `tools/time_builds.py` times it
-like any build, and the difference to the intact kernel is what the part
-costs.
+"""Write copies of `csrc/` with one part of a whole-A2C2f kernel (the bf16
+`a2c2f_mma_kernel` or the f32 `a2c2f_f32_kernel` in `csrc/a2c2f.cu`) cut out
+or changed, for the phase split: each copy computes a wrong block, but
+`tools/time_builds.py` times it like any build, and the difference to the
+intact kernel is what the part costs.
 
     python -m yolou_tpu_torch.tools.a2c2f_variants OUT_DIR [NAME ...]
     python -m yolou_tpu_torch.tools.time_builds yolou_tpu_torch/csrc \\
@@ -24,10 +24,16 @@ Variants (all of them without NAME):
   slab32        weight slabs of 32 rows (64 in the source);
   tile16, tile32, tile64  one token tile at every shape (the launch takes
                 the one with the fewest waves).
-Each is a set of exact text replacements in the bf16 part of a2c2f.cu (from
-the line MARK on; the f32 kernel before it is left alone); a replacement
-whose text is not found there exactly once raises, so a changed source
-cannot give a variant that silently differs from its name.
+f32 variants (the f32 kernel's token tile is the wrapper's, `f32_tile`):
+  f32-no-attention  no head of the attention runs;
+  f32-no-stencil    no 7x7 positional term;
+  f32-no-fma        the GEMMs stream both operands and run their epilogues
+                    but do no FMA;
+  f32-no-grid-sync  no grid-wide barrier between the phases.
+Each is a set of exact text replacements in one part of a2c2f.cu: the bf16
+part (from the line MARK on) or the f32 part (from F32_MARK to MARK); a
+replacement whose text is not found there exactly once raises, so a changed
+source cannot give a variant that silently differs from its name.
 """
 
 from __future__ import annotations
@@ -39,18 +45,20 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 MARK = ("// ------------------------------------------------- "
         "bf16 on tensor cores")
+F32_MARK = ("// ------------------------------------------------- "
+            "f32 on register tiles")
 
 VARIANTS = {
     "no-attention": [("for (int h = 0; h < p.heads; ++h) {",
                       "for (int h = 0; h < 0; ++h) {"),
-                     ("      stage_kv(0);", "      ;")],
-    "no-kv-copy": [("        for (int i = tid; i < Np * 4; i += blockDim.x) {",
+                     ("      else stage_kv(0);", "      else;")],
+    "no-kv-copy": [("        for (int i = tid; i < Np * CH; i += blockDim.x) {",
                     "        for (int i = tid; i < 0; i += blockDim.x) {")],
     "no-q-load": [("        if (r0 < rows) {\n          const uint32_t* qg",
                    "        if (r0 < 0) {\n          const uint32_t* qg")],
-    "no-attend": [("          if (kb < ke)\n            attend_keys_mma",
-                   "          if (kb < 0)\n            attend_keys_mma")],
-    "no-merge": [("        for (int i = tid; i < TILE * HD; i += blockDim.x) {",
+    "no-attend": [("            if (kb < ke)\n              attend_keys_mma",
+                   "            if (kb < 0)\n              attend_keys_mma")],
+    "no-merge": [("        for (int i = tid; i < TILE * HD_; i += blockDim.x) {",
                   "        for (int i = tid; i < 0; i += blockDim.x) {")],
     "no-stencil": [("for (int i = tid; i < runs * C8; i += blockDim.x) {",
                     "for (int i = tid; i < 0; i += blockDim.x) {")],
@@ -71,6 +79,22 @@ for _tile in (16, 32, 64):       # one token tile at every shape
     VARIANTS[f"tile{_tile}"] = [
         (f"  consider<{t}>(p, info, plan);\n", "")
         for t in (16, 32, 64) if t != _tile]
+F32_VARIANTS = {
+    "f32-no-attention": [("for (int h = 0; h < p.heads; ++h)\n"
+                          "        attend_f32",
+                          "for (int h = 0; h < 0; ++h)\n"
+                          "        attend_f32")],
+    "f32-no-stencil": [("for (int i = tid; i < runs * C4; i += F32_THREADS) {",
+                        "for (int i = tid; i < 0; i += F32_THREADS) {")],
+    "f32-no-fma": [("    const int kmax = min(KS_F32, K - kb * KS_F32);",
+                    "    const int kmax = 0;")],
+    "f32-no-grid-sync": [("  fence_proxy_async_global();        // qkv is "
+                          "read by TMA in the next phase\n  grid.sync();",
+                          ""),
+                         ("      fence_proxy_async_global();\n"
+                          "      grid.sync();", "")],
+}
+VARIANTS.update(F32_VARIANTS)
 
 
 def write_variant(name: str, out: Path, csrc: Path = CSRC) -> Path:
@@ -81,15 +105,22 @@ def write_variant(name: str, out: Path, csrc: Path = CSRC) -> Path:
         shutil.rmtree(dst)
     shutil.copytree(csrc, dst)
     src = dst / "a2c2f.cu"
-    head, mark, text = src.read_text().partition(MARK)
-    if not mark:
-        raise ValueError(f"a2c2f.cu has no line {MARK!r}")
+    source = src.read_text()
+    head, mark, text = source.partition(MARK)
+    f32_head, f32_mark, f32_text = head.partition(F32_MARK)
+    if not (mark and f32_mark):
+        raise ValueError(f"a2c2f.cu lacks {MARK!r} or {F32_MARK!r}")
+    part = "f32" if name in F32_VARIANTS else "bf16"
+    body = f32_text if part == "f32" else text
     for old, new in VARIANTS[name]:
-        if text.count(old) != 1:
-            raise ValueError(f"{name}: {old!r} occurs {text.count(old)} "
-                             f"times in a2c2f.cu's bf16 part, want once")
-        text = text.replace(old, new)
-    src.write_text(head + mark + text)
+        if body.count(old) != 1:
+            raise ValueError(f"{name}: {old!r} occurs {body.count(old)} "
+                             f"times in a2c2f.cu's {part} part, want once")
+        body = body.replace(old, new)
+    if part == "f32":
+        src.write_text(f32_head + f32_mark + body + mark + text)
+    else:
+        src.write_text(head + mark + body)
     return dst
 
 

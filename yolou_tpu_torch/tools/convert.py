@@ -128,12 +128,15 @@ def _torch_layout(a: np.ndarray, path: Tuple[str, ...]) -> np.ndarray:
 
 
 def _qkv_modules(params) -> Dict[Tuple[str, ...], np.ndarray]:
-    """AAttn qkv module path -> inverse permutation (role-major -> head-major)."""
+    """AAttn qkv module path -> inverse permutation (role-major -> head-major)
+    at the module's head width, c / max(1, c // 32) as A2C2f builds it."""
     inv = {}
     for path, leaf in _flatten(params).items():
         if (path[-4:] == ("attn", "qkv", "conv", "kernel") and np.ndim(leaf) == 4
                 and np.shape(leaf)[-1] == 3 * np.shape(leaf)[-2]):
-            inv[path[:-2]] = np.argsort(aattn_qkv_permutation(np.shape(leaf)[-1]))
+            c = np.shape(leaf)[-2]
+            inv[path[:-2]] = np.argsort(aattn_qkv_permutation(
+                3 * c, c // max(1, c // 32)))
     return inv
 
 

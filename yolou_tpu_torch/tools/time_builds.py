@@ -17,8 +17,10 @@ the long ones), which trees from the streamed path's introduction on have.
 A `csrc` from before the one-launch NMS kernel, whose C entry still takes a
 hit-matrix scratch, gets that scratch allocated here; one from before the
 whole-A2C2f kernel took its MLP width (whose C entry has no `hid`) is
-called without it, and one whose streamed entries take no query rows
-(before the TMA kernels) without those. The builds take
+called without it, one whose streamed entries take no query rows
+(before the TMA kernels) without those, and one from before heads of any
+width and any stage count without the scale, the block array, the f32
+scratch and tile. The builds take
 turns in the order given and then in reverse (old, new, new, old for two), so
 a drift of the card's clock over the run shows as a spread and not as a
 difference. Prints one JSON object: case -> directory -> {"device_ms":
@@ -43,6 +45,7 @@ import argparse
 import ctypes
 import functools
 import json
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -94,7 +97,10 @@ def load_library(csrc: Path):
     """Build (if needed) and load the kernels of one `csrc` directory. A
     library whose NMS entry takes the hit-matrix scratch (the two-launch
     kernel) is marked `nms_hit_scratch` and given that entry's signature;
-    one whose `yolou_a2c2f` has no MLP width gets an entry that drops it."""
+    one whose `yolou_a2c2f` has no MLP width gets an entry that drops it,
+    and one from before heads of any width (no scale in the attention
+    entries, no block array or tile in `yolou_a2c2f`) entries that drop
+    those."""
     saved = build.CSRC
     try:
         build.CSRC = csrc.resolve()
@@ -107,13 +113,31 @@ def load_library(csrc: Path):
     if lib.nms_hit_scratch:
         lib.yolou_greedy_nms.argtypes = [vp, vp, vp, vp, ci, ci,
                                          ctypes.c_float, vp]
-    if "int hid" not in (csrc / "a2c2f.cu").read_text():
+    a2c2f_source = (csrc / "a2c2f.cu").read_text()
+    if "const void* blocks" not in a2c2f_source:
+        # before any stage count and head width: no block array, work
+        # scratch, attention width, scale or f32 tile (the 18th-22nd of
+        # the new entry's arguments); before the MLP width also no hid
+        # (the 13th: ..., c_, c2, hid, n_stages, ...)
+        hid = "int hid" in a2c2f_source
         entry = lib.yolou_a2c2f
         entry.argtypes = [vp, ctypes.POINTER(vp), ci, vp, vp, vp,
-                          *[ci] * 10, vp]
-        # the new entry's arguments: ..., c_, c2, hid, n_stages, ...
-        lib.yolou_a2c2f = lambda *args: entry(*args[:12], *args[13:])
-    if "int rows" not in (csrc / "band_attention.cu").read_text():
+                          *[ci] * (11 if hid else 10), vp]
+        keep = list(range(17)) if hid else [*range(12), *range(13, 17)]
+        lib.yolou_a2c2f = lambda *args: entry(*(args[i] for i in keep),
+                                              args[-1])
+    attention_source = (csrc / "band_attention.cu").read_text()
+    if "float scale, void* stream" not in attention_source:
+        # the entries' scale (the argument before the stream) dropped
+        for name in ("yolou_band_attention_qkv", "yolou_band_attention",
+                     "yolou_band_attention_qkv_stream",
+                     "yolou_band_attention_stream"):
+            if hasattr(lib, name):
+                old = getattr(lib, name)
+                old.argtypes = old.argtypes[:-2] + old.argtypes[-1:]
+                setattr(lib, name, lambda *args, old=old:
+                        old(*args[:-2], args[-1]))
+    if "int rows" not in attention_source:
         # the entries' query rows (the 12th and 10th argument) dropped
         for name, at in (("yolou_band_attention_qkv_stream", 11),
                          ("yolou_band_attention_stream", 9)):
@@ -256,6 +280,8 @@ def time_builds(dirs, iters: int = 20, cases: str = ""):
             for i in order:
                 build._lib = libs[i]
                 for name, fn in calls.items():
+                    print(f"time_builds: {dirs[i]} {name}", file=sys.stderr,
+                          flush=True)
                     t = times[name][dirs[i]]
                     t["device_ms"].append(device_ms(fn, iters))
                     t["call_ms"].append(call_ms(fn, device, iters))
