@@ -7,8 +7,8 @@ Phases, one or more output lines each:
   1. device  - the card (nvidia-smi name and power limit), torch and CUDA;
   2. build   - nvcc builds the kernels from yolou_tpu_torch/csrc; the band
                attention and whole-A2C2f kernels' registers, spills and
-               tensor-core (HMMA) instructions: bf16 must have them, f32
-               (FMA units) must not;
+               tensor-core (HMMA, HGMMA) instructions: bf16 must have them
+               (the wgmma kernels HGMMA only), f32 (FMA units) must not;
   3. kernels - each CUDA kernel against its plain PyTorch version on the card,
                at the shapes the serving, training and evaluation paths give
                it, with times of the kernel, the plain version and, where one
@@ -746,8 +746,7 @@ def check_a2c2f(device):
             hid = ws[8].shape[1]
             nbytes, flops = a2c2f_work(shape, c_, c2, n, area,
                                        xt.element_size(), hid)
-            tile = (f32_tile(shape[0], shape[1] * shape[2] // area, area)
-                    if dtype == torch.float32 else None)
+            tile = f32_tile(shape[0], shape[1] * shape[2] // area, area)
             bound_ms, bound_by = bound(nbytes, flops, dn)
             # bf16: ATTN_TOL's absolute bound says little of outputs under
             # 1, so the error is also held to 2**-6 of the largest output (a
@@ -760,7 +759,7 @@ def check_a2c2f(device):
             staged_tol = tol if dtype == torch.float32 else 2 * tol
             log("kernel", name="a2c2f", case=name,
                 shape=f"{shape}c_{c_}n{n}a{area}h{heads}", dtype=dn,
-                mlp_width=hid, f32_tile=tile,
+                mlp_width=hid, token_tile=tile,
                 max_abs_err=err, tol=tol, out_abs_max=out_max,
                 vs_staged_max_abs=staged_err, staged_tol=staged_tol, ms=ms,
                 plain_ms=plain_ms, staged_ms=staged_ms, bound_ms=bound_ms,
@@ -1052,7 +1051,8 @@ def compare_mega(state_dict, device, requests):
     """`mega_kernel=True` against the staged model on the same weights: the
     batch-8 bf16 forward timed in turns (staged, mega, mega, staged; CUDA
     events and a profiler window each), then f32 on the card, 2 images:
-    preds within the tolerance `compare_f32` uses."""
+    preds within the tolerance `compare_f32` uses. Returns the forwards'
+    wall (CUDA events) and device milliseconds."""
     import torch
     from yolou_tpu_torch.ops.letterbox import letterbox_batch
     f32_exact(torch)
@@ -1077,6 +1077,9 @@ def compare_mega(state_dict, device, requests):
         preds_max_abs=err, tol=1e-3)
     if not err <= 1e-3:
         raise AssertionError(f"f32 preds mega vs staged: {err} > 1e-3")
+    return {"batch": BATCH, "mega_wall_ms": times[True],
+            "mega_device_ms": prof[True][0], "staged_wall_ms": times[False],
+            "staged_device_ms": prof[False][0]}
 
 
 # ------------------------------------------------------------- evaluation
@@ -4071,8 +4074,9 @@ def band_attention_build_report(ptxas_log: str, library) -> list:
 
 def check_build_report(report: list) -> None:
     """bf16 kernels on the tensor cores, f32 ones on none (no TF32); the
-    streamed bf16 kernel on wgmma only (HGMMA, no HMMA)."""
-    if not any(e["kernel"].startswith("a2c2f_mma_kernel") for e in report):
+    streamed bf16 attention kernel and the bf16 a2c2f kernel on wgmma only
+    (HGMMA, no HMMA)."""
+    if not any(e["kernel"].startswith("a2c2f_wgmma_kernel") for e in report):
         raise AssertionError("no bf16 a2c2f kernel in the build report")
     if not any(e["kernel"].startswith("a2c2f_f32_kernel") for e in report):
         raise AssertionError("no f32 a2c2f kernel in the build report")
@@ -4199,7 +4203,7 @@ def main() -> int:
                              f"{2 * forwards} of a2c2f and no band attention")
     if min(min(st["detections"]) for st in mega_stats) < 1:
         raise AssertionError("an image got no detection with mega_kernel")
-    compare_mega(state_dict, device, requests)
+    mega_forward = compare_mega(state_dict, device, requests)
     mark("serve-mega")
     shapes = shapes_phase(device, state_dict)
     mark("shapes")
@@ -4368,17 +4372,18 @@ def main() -> int:
          "source": src + "band_attention.cu", "replaces": pallas + ":120",
          "launches": profile_counts["band_attention_single"],
          **{k: single[k] for k in keys}, "ms_source": times_source(single)},
-        {"name": "a2c2f", "route": "cuda", "source": src + "a2c2f.cu",
+        {"name": "a2c2f", "route": "cuda", "source": src + "a2c2f_bf16.cu",
          "replaces": "yolou_tpu/ops/pallas_a2c2f.py:192",
          "launches": mega_counts["a2c2f"],
          "launches_by_path": {
              "serve-mega": mega_counts["a2c2f"],
              "shapes yolov12l f32": shapes["yolov12l mega f32 640"]["a2c2f"]},
-         "device_kernels": ["a2c2f_mma_kernel<TILE, STREAM, HD>"],
+         "device_kernels": ["a2c2f_wgmma_kernel<HD, L2>"],
+         "mega_forward": mega_forward,
          "staged_ms": a2c2f["bfloat16"]["staged_ms"],
          **{k: a2c2f["bfloat16"][k] for k in keys},
          "ms_source": times_source(a2c2f["bfloat16"])},
-        {"name": "a2c2f_f32", "route": "cuda", "source": src + "a2c2f.cu",
+        {"name": "a2c2f_f32", "route": "cuda", "source": src + "a2c2f_f32.cu",
          "replaces": "yolou_tpu/ops/pallas_a2c2f.py:192",
          "device_kernels": ["a2c2f_f32_kernel<TM, HD>"],
          "launches": shapes["yolov12l mega f32 640"]["a2c2f"],

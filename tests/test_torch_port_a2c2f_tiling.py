@@ -5,17 +5,18 @@ the JAX package's Pallas kernels in interpret mode.
 The CUDA kernels run only on the card; what the CPU can check is their
 order of operations.
 
-`split_attention` repeats the bf16 `a2c2f_mma_kernel`'s attention
-(`csrc/a2c2f.cu`, `csrc/attention_mma.cuh`): per head, 16-row query tiles;
-the band's keys cut into S parts of whole 16-key blocks (part s takes blocks
-[s * n / S, (s + 1) * n / S), S = 8 warps / query tiles of the token tile:
-8, 4 or 2); each part an online softmax in steps of KT = 64 keys, the exp
-against the part's running maximum rounded to the I/O type for p.v, its f32
-row sum unrounded; then the merge o = sum_s acc_s e^(m_s - M) / sum_s l_s
-e^(m_s - M), M the largest part maximum, in f32; that f32 o goes to the
-`+ pe` epilogue. Put into `a2c2f_fused_plain` in place of its full-row
-attention and held against the Pallas `a2c2f_fused` (interpret mode) at
-`tests/test_torch_port_a2c2f.py`'s shapes:
+`streamed_attention` repeats the bf16 `a2c2f_wgmma_kernel`'s attention
+(`csrc/a2c2f_bf16.cu`): per head, the query rows a consumer warpgroup takes
+(the token tile, 64 or 32 rows, of one band); the band's keys in the k/v
+ring's tiles of 128 (keys past the band masked); one online softmax over
+them, the exp against the running row maximum rounded to the I/O type as
+p.v's operand, its f32 row sum unrounded, the f32 accumulator rescaled by
+each new maximum; no merge of partial states; then the division by the row
+sum, and that f32 o goes to the `+ pe` epilogue. Put into
+`a2c2f_fused_plain` in place of its full-row attention and held against the
+Pallas `a2c2f_fused` (interpret mode) at `tests/test_torch_port_a2c2f.py`'s
+shapes, with heads as the kernel takes them (32 wide, or padded with zero
+channels to 64 by `pad_a2c2f_heads`, the true scale kept):
   * float32: within 1e-5 (the same function, f32 sums in another order);
   * bfloat16: within 2**-6 of the output's largest magnitude: a probability
     rounded against another maximum moves by at most one bf16 step (2**-8
@@ -40,51 +41,44 @@ import torch
 
 from yolou_tpu.ops.pallas_a2c2f import a2c2f_fused as jax_a2c2f
 from yolou_tpu.ops.pallas_nms import suppress_greedy_fused as jax_nms
-from yolou_tpu_torch.kernels.a2c2f import a2c2f_fused_plain
+from yolou_tpu_torch.kernels.a2c2f import a2c2f_fused_plain, pad_a2c2f_heads
 from yolou_tpu_torch.kernels.nms import suppress_greedy_plain
 
 from .test_torch_port_a2c2f import CASES, _cast, _weights
 from .torch_threads import one_torch_thread  # noqa: F401
 
-ROWS = 16          # query rows per warp tile
-KT = 64            # keys per online-softmax step
-WARPS = 8
+KEYS = 128         # keys a k/v tile of the ring
 THREADS = 512      # threads of a greedy NMS CTA
 
 
-def split_attention(parts: int):
-    """The kernel's attention with the keys of a band cut into `parts`:
-    a drop-in for `band_attention_plain` over (G, heads, nb, hd) f32."""
+def key_tiles(nb: int) -> list:
+    """The ring's key tiles of one head: [k0, k0 + 128) for k0 < nb, the
+    last cut at nb (the kernel masks the keys past the band)."""
+    return [(k0, min(k0 + KEYS, nb)) for k0 in range(0, nb, KEYS)]
 
-    def attend(q, k, v, dtype):
+
+def streamed_attention(rows: int):
+    """The kernel's attention with query tiles of `rows` rows: a drop-in
+    for `band_attention_plain` over (G, heads, nb, hd) f32."""
+
+    def attend(q, k, v, dtype, scale=None):
         nb, hd = q.shape[-2:]
-        scale = hd ** -0.5
-        blocks = -(-nb // 16)
+        scale = hd ** -0.5 if scale is None else scale
         out = torch.empty_like(q)
-        for r0 in range(0, nb, ROWS):
-            qt = q[..., r0:r0 + ROWS, :]
-            states = []
-            for s in range(parts):
-                kb = 16 * (s * blocks // parts)
-                ke = 16 * ((s + 1) * blocks // parts)
-                ke = min(ke, nb)            # keys past nb are masked
-                m = torch.full(qt.shape[:-1] + (1,), -torch.inf)
-                l = torch.zeros_like(m)
-                acc = torch.zeros_like(qt)
-                for k0 in range(kb, ke, KT):
-                    k1 = min(k0 + KT, ke)
-                    sc = qt @ k[..., k0:k1, :].transpose(-1, -2) * scale
-                    m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
-                    p = torch.exp(sc - m_new)
-                    c = torch.exp(m - m_new)
-                    l = l * c + p.sum(-1, keepdim=True)
-                    acc = acc * c + p.to(dtype).float() @ v[..., k0:k1, :]
-                    m = m_new
-                states.append((m, l, acc))
-            big_m = torch.stack([m for m, _, _ in states]).amax(0)
-            num = sum(acc * torch.exp(m - big_m) for m, _, acc in states)
-            den = sum(l * torch.exp(m - big_m) for m, l, _ in states)
-            out[..., r0:r0 + ROWS, :] = num / den
+        for r0 in range(0, nb, rows):
+            qt = q[..., r0:r0 + rows, :]
+            m = torch.full(qt.shape[:-1] + (1,), -torch.inf)
+            l = torch.zeros_like(m)
+            acc = torch.zeros_like(qt)
+            for k0, k1 in key_tiles(nb):
+                sc = qt @ k[..., k0:k1, :].transpose(-1, -2) * scale
+                m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+                p = torch.exp(sc - m_new)
+                c = torch.exp(m - m_new)
+                l = l * c + p.sum(-1, keepdim=True)
+                acc = acc * c + p.to(dtype).float() @ v[..., k0:k1, :]
+                m = m_new
+            out[..., r0:r0 + rows, :] = acc / l
         return out
 
     return attend
@@ -92,6 +86,8 @@ def split_attention(parts: int):
 
 DTYPES = [("float32", torch.float32, jnp.float32),
           ("bfloat16", torch.bfloat16, jnp.bfloat16)]
+# (query rows of a tile, head width as the kernel takes it)
+LAYOUTS = {"tile64": (64, 32), "tile32": (32, 32), "tile64-hd64": (64, 64)}
 
 
 @pytest.fixture(scope="module")
@@ -112,20 +108,24 @@ def pallas_outputs():
     return out
 
 
-@pytest.mark.parametrize("parts", [8, 4, 2], ids=["tile16", "tile32",
-                                                  "tile64"])
+@pytest.mark.parametrize("layout", list(LAYOUTS))
 @pytest.mark.parametrize("name,dtype", [(d[0], d[1]) for d in DTYPES],
                          ids=[d[0] for d in DTYPES])
 @pytest.mark.parametrize("case", range(len(CASES)))
-def test_split_attention_block_matches_pallas(pallas_outputs, case, name,
-                                              dtype, parts):
-    """The whole block with the bf16 kernel's split attention against the
+def test_streamed_attention_block_matches_pallas(pallas_outputs, case, name,
+                                                 dtype, layout):
+    """The whole block with the bf16 kernel's streamed attention against the
     Pallas kernel; and against the port's plain version, which attends
-    each band's full row at once."""
+    each band's full row at once. At head width 64 the heads are padded
+    with zero channels, as the wrapper gives them to the kernel."""
     shape, cfg = CASES[case]
     x, tw, want = pallas_outputs[(case, name)]
     args = (cfg["n_stages"], cfg["area"], cfg["heads"])
-    got = a2c2f_fused_plain(x, tw, *args, attention=split_attention(parts))
+    rows, hd = LAYOUTS[layout]
+    kw = list(tw)
+    if hd != cfg["c_"] // cfg["heads"]:
+        kw = pad_a2c2f_heads(kw, cfg["n_stages"], cfg["heads"], hd)
+    got = a2c2f_fused_plain(x, kw, *args, attention=streamed_attention(rows))
     assert got.dtype == dtype and got.shape == shape[:3] + (cfg["c2"],)
     tol = 1e-5 if dtype == torch.float32 else 2.0 ** -6 * np.abs(want).max()
     np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=tol)
@@ -137,11 +137,11 @@ def test_split_attention_block_matches_pallas(pallas_outputs, case, name,
 @pytest.mark.parametrize("name,dtype", [(d[0], d[1]) for d in DTYPES],
                          ids=[d[0] for d in DTYPES])
 @pytest.mark.parametrize("nb", [25, 60, 400])
-def test_split_attention_matches_the_full_row(nb, name, dtype):
+def test_streamed_attention_matches_the_full_row(nb, name, dtype):
     """At the card tests' ragged bands and the serving band of 400 keys
-    (parts of up to 208 keys, several 64-key steps each): the split form
-    against `band_attention_plain`, which softmaxes each row at once, at
-    the tolerances above."""
+    (four key tiles, the last of 16 keys): the streamed form at both token
+    tiles against `band_attention_plain`, which softmaxes each row at once,
+    at the tolerances above."""
     from yolou_tpu_torch.kernels.a2c2f import band_attention_plain
     rng = np.random.default_rng(nb)
     q, k, v = (torch.from_numpy(rng.normal(size=(2, 2, nb, 32))
@@ -149,23 +149,22 @@ def test_split_attention_matches_the_full_row(nb, name, dtype):
                for _ in range(3))
     want = band_attention_plain(q, k, v, dtype)
     tol = 1e-5 if dtype == torch.float32 else 2.0 ** -6 * want.abs().max()
-    for parts in (8, 4, 2):
-        got = split_attention(parts)(q, k, v, dtype)
-        assert (got - want).abs().max().item() <= tol, parts
+    for rows in (64, 32):
+        got = streamed_attention(rows)(q, k, v, dtype)
+        assert (got - want).abs().max().item() <= tol, rows
 
 
-def test_split_parts_cover_every_key_once():
-    """The S parts of whole 16-key blocks partition the padded band, and
-    the first key of every part that has one is a real key (so each part's
-    running maximum is finite from its first step): at the band lengths
-    of the card tests and of the serving path."""
-    for nb in (1, 15, 16, 25, 60, 63, 64, 100, 400, 1600):
-        blocks = -(-nb // 16)
-        for parts in (8, 4, 2):
-            cuts = [16 * (s * blocks // parts) for s in range(parts + 1)]
-            assert cuts[0] == 0 and cuts[-1] == 16 * blocks
-            assert all(a <= b for a, b in zip(cuts, cuts[1:]))
-            assert all(a < nb for a, b in zip(cuts, cuts[1:]) if a < b)
+def test_key_tiles_cover_every_key_once():
+    """The ring's tiles of 128 keys partition the band, each starts on a
+    real key (so the running maximum is finite from the first tile on),
+    and only the last is cut: at the band lengths of the card tests and of
+    the serving path."""
+    for nb in (1, 15, 16, 25, 60, 63, 64, 100, 128, 129, 400, 1600, 3136):
+        tiles = key_tiles(nb)
+        assert tiles[0][0] == 0 and tiles[-1][1] == nb
+        assert all(a[1] == b[0] for a, b in zip(tiles, tiles[1:]))
+        assert all(k0 < nb and 0 < k1 - k0 <= KEYS for k0, k1 in tiles)
+        assert all(k1 - k0 == KEYS for k0, k1 in tiles[:-1])
 
 
 # ------------------------------------------------------------- greedy NMS

@@ -38,8 +38,8 @@ from yolou_tpu_torch.kernels.a2c2f import (_SMEM_LIMIT, F32_TILES,
                                            a2c2f_mega_eligible,
                                            f32_panel, f32_smem_bytes,
                                            f32_tile,
-                                           pad_a2c2f_heads, pad_f32_widths,
-                                           smem_bytes)
+                                           bf16_plan, pad_a2c2f_heads,
+                                           pad_f32_widths)
 from yolou_tpu_torch.kernels.attention import (
     KERNEL_HEAD_DIMS, area_attention, area_attention_fused,
     area_attention_fused_plain, area_attention_qkv_fused,
@@ -307,30 +307,30 @@ def _gated(mlp_ratio):
 @pytest.mark.parametrize("mlp_ratio", [2.0, 1.2])
 def test_f32_plan_fits_every_gated_shape(mlp_ratio):
     """The f32 kernel's shared memory is a function of its token tile and
-    head width only: at heads of 32 and 64, any stage count up to 8 and
-    every shape the gate admits for yolov12 n-x at 160^2-1280^2, the tile
-    `f32_tile` picks fits 232,448 bytes; so does the largest layout."""
+    head width only (no width of the block, no stage count): at heads of
+    32 and 64 and every shape the gate admits for yolov12 n-x at
+    160^2-1280^2, the tile `f32_tile` picks fits 232,448 bytes; so does the
+    largest layout."""
     shapes = list(_gated(mlp_ratio))
     assert len(shapes) == 10
     assert max(f32_smem_bytes(t, hd) for t in F32_TILES
                for hd in KERNEL_HEAD_DIMS) == f32_smem_bytes(32, 64) \
         == 160_336 <= _SMEM_LIMIT == 232_448
-    for (hw, cin, c_, area, hid, depth), hd, n_stages in itertools.product(
-            shapes, KERNEL_HEAD_DIMS, range(1, 9)):
+    for (hw, cin, c_, area, hid, depth), hd in itertools.product(
+            shapes, KERNEL_HEAD_DIMS):
         nb = hw * hw // area
         for batch in (1, 8):
             tile = f32_tile(batch, nb, area)
             assert tile in F32_TILES
-            assert smem_bytes(cin, c_, n_stages, nb, torch.float32, hid,
-                              tile, hd=hd) <= _SMEM_LIMIT
+            assert f32_smem_bytes(tile, hd) <= _SMEM_LIMIT
 
 
 def test_the_f32_layout_constants_are_the_kernels():
-    """`f32_smem_bytes` and `f32_panel` mirror a2c2f.cu's `F32Layout`: its
-    threads, K rows a stage, ring stages, keys an attention tile, attention
-    stages and probability stride."""
+    """`f32_smem_bytes` and `f32_panel` mirror a2c2f_f32.cu's `F32Layout`:
+    its threads, K rows a stage, ring stages, keys an attention tile,
+    attention stages and probability stride."""
     text = (Path(a2c2f_module.__file__).parent.parent / "csrc"
-            / "a2c2f.cu").read_text()
+            / "a2c2f_f32.cu").read_text()
 
     def constant(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", text)[1])
@@ -356,8 +356,8 @@ def test_f32_tile_puts_the_fewest_rows_on_an_sm():
 
 def test_bf16_layout_of_padded_heads_fits():
     """bf16 at a head of 64 (A2C2f(96, 96)'s padded fold, and heads 64 wide
-    at yolov12n's layer 8 width) fits a block at its 16-token tile."""
-    for cin, c_, ca, nb in ((96, 48, 64, 400), (256, 128, 128, 400),
-                            (128, 64, 128, 400)):
-        assert smem_bytes(cin, c_, 2, nb, torch.bfloat16, 2 * c_, ca=ca,
-                          hd=64) <= _SMEM_LIMIT
+    at yolov12n's layer 8 width) fits a block with its weight ring and
+    staged stencil rows."""
+    for c_, ca in ((48, 64), (128, 128), (64, 128)):     # 20 x 20 images
+        nbytes, ring, staged = bf16_plan(c_, ca, 2 * c_, 64, 20)
+        assert nbytes <= _SMEM_LIMIT and ring >= 2 and staged

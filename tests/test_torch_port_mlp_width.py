@@ -8,7 +8,7 @@ against the Pallas kernel in interpret mode and the JAX plain composition,
 and the module's mega route against the JAX module's. The bf16 fold pads h
 to a multiple of 16 for the tensor cores (zero columns of mlp1, zero rows of
 mlp2), which must not change a value. The layout plan (`f32_tile` and
-`f32_smem_bytes`, the bf16 smallest layout) fits every shape
+`f32_smem_bytes`, the bf16 `bf16_plan`) fits every shape
 `a2c2f_mega_eligible` admits over yolov12 n-x at 160^2-1280^2, at mlp_ratio
 2 and 1.2.
 """
@@ -26,8 +26,8 @@ from yolou_tpu.ops.pallas_a2c2f import a2c2f_reference
 from yolou_tpu_torch import kernels
 from yolou_tpu_torch.kernels.a2c2f import (_SMEM_LIMIT, a2c2f_fused,
                                            a2c2f_fused_plain,
-                                           a2c2f_mega_eligible, f32_tile,
-                                           smem_bytes)
+                                           a2c2f_mega_eligible, bf16_plan,
+                                           f32_smem_bytes, f32_tile)
 from yolou_tpu_torch.models.specs import (YOLOV12_SCALES, scale_channels,
                                           scale_depth)
 from yolou_tpu_torch.nn import attention
@@ -185,32 +185,27 @@ def test_the_layout_plan_fits_every_shape_the_gate_admits(mlp_ratio):
     """f32: the register-tiled kernel's token tile of 64 or 32 fits at every
     shape (its shared memory depends on the tile and the head width only;
     batch 8: yolov12l's layer 8 at 640^2 takes 32 tokens, the rest 64).
-    bf16 at its smallest layout with
-    h padded to 16, holding a head's keys and values of the band, fits
-    every yolov12 graph's shape; the other modules' longest bands (1296
-    tokens and more at c_ 32-64) take the streamed bf16 layout, 256 keys at
-    a time."""
+    bf16 with h padded to 16: the wgmma kernel, which streams every band's
+    keys and values, fits every shape at a weight ring of 2-4 stages with
+    the stencil's v rows staged; yolov12n's layers 6 and 8 at 640^2 at the
+    full 4."""
     shapes = gated_shapes(mlp_ratio)
     assert len(shapes) == 10 + 64
     tiles = {}
     for H, W, cin, c_, area, heads, n_stages, hid in shapes:
         nb = H * W // area
         tile = f32_tile(8, nb, area)
-        assert smem_bytes(cin, c_, n_stages, nb, torch.float32, hid,
-                          tile) <= _SMEM_LIMIT, (H, W, cin, c_, n_stages)
+        assert f32_smem_bytes(tile) <= _SMEM_LIMIT, (H, W, cin, c_, n_stages)
         tiles[(H, cin, c_, n_stages)] = tile
-    graphs = gated_shapes(mlp_ratio, graphs_only=True)
-    streamed = 0
+    rings = {}
     for H, W, cin, c_, area, heads, n_stages, hid in shapes:
-        pad, nb = -(-hid // 16) * 16, H * W // area
-        resident = smem_bytes(cin, c_, n_stages, nb, torch.bfloat16,
-                              pad) <= _SMEM_LIMIT
-        assert resident or (H, W, cin, c_, area, heads, n_stages,
-                            hid) not in graphs
-        assert resident or smem_bytes(cin, c_, n_stages, nb, torch.bfloat16,
-                                      pad, streamed=True) <= _SMEM_LIMIT
-        streamed += not resident
-    assert streamed == 32
+        pad = -(-hid // 16) * 16
+        plan = bf16_plan(c_, c_, pad, 32, W)
+        assert plan is not None, (H, cin, c_, n_stages)
+        assert plan[0] <= _SMEM_LIMIT and plan[2], (H, cin, c_, n_stages)
+        rings[(H, cin, c_, n_stages)] = plan[1]
+    assert rings[(40, 128, 64, 2)] == rings[(20, 256, 128, 2)] == 4
+    assert min(rings.values()) >= 2
     if mlp_ratio == 2.0:
         assert tiles[(20, 512, 256, 4)] == 32            # yolov12l L8 @640
         assert tiles[(28, 256, 128, 2)] == 64            # yolov12n L8 @896
@@ -218,5 +213,4 @@ def test_the_layout_plan_fits_every_shape_the_gate_admits(mlp_ratio):
         assert tiles[(40, 32, 64, 1)] == 64              # a band of 1600
         assert tiles[(56, 512, 32, 4)] == 64             # 3136
         # the f32 CTA of the old SIMT kernel at 16 tokens passed 227 KB here
-        assert smem_bytes(512, 256, 4, 400, torch.float32,
-                          tile=32) == 90_704 <= _SMEM_LIMIT
+        assert f32_smem_bytes(32) == 90_704 <= _SMEM_LIMIT

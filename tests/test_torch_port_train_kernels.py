@@ -221,10 +221,12 @@ def test_attention_profiler_runs_both_entry_points_on_the_cpu(capsys):
 def test_build_timer_cases_run_on_the_cpu():
     """`tools/time_builds.py`: every case it times (kernels A and C at the
     serving, evaluation, training and profiler shapes, and on the streamed
-    path in both types, `a2c2f` at layers 6 and 8, kernel B at (8, 512) and
-    (16, 512)) is a valid call of the package's wrapper; on the CPU each
-    runs the plain version and counts no launch. Timing itself needs the
-    card."""
+    path in both types, `a2c2f` at layers 6 and 8 in both types, at
+    mlp_ratio 1.2, A2C2f(96, 96), five stages and a strip at layer 6's
+    width, kernel B at (8, 512) and (16, 512)) is a valid call of the
+    package's wrapper; on the CPU each runs the plain version and counts no
+    launch; `--tiles` adds each `a2c2f` case at each token tile. Timing
+    itself needs the card."""
     from yolou_tpu_torch import kernels
     from yolou_tpu_torch.tools import time_builds
     kernels.reset_launch_counts()
@@ -235,7 +237,8 @@ def test_build_timer_cases_run_on_the_cpu():
                           + len(time_builds.A2C2F_CASES)
                           + len(time_builds.NMS_CASES))
     nms = dict(time_builds.NMS_CASES)
-    types = {name: dtype for name, *_, dtype in time_builds.STREAM_CASES}
+    types = {name: dtype for name, *_, dtype in (
+        *time_builds.STREAM_CASES, *time_builds.A2C2F_CASES)}
     for name, fn in calls.items():
         out = fn()
         first = out[0] if isinstance(out, tuple) else out
@@ -246,6 +249,10 @@ def test_build_timer_cases_run_on_the_cpu():
         assert first.dtype == types.get(name, torch.bfloat16), name
         assert bool(torch.isfinite(first.float()).all()), name
     assert not any(kernels.launch_counts().values())
+    swept = time_builds._calls(torch.device("cpu"), (64, 32))
+    assert set(swept) - set(calls) == {
+        f"{name} tile{tile}" for name, *_ in time_builds.A2C2F_CASES
+        for tile in (64, 32)}
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA device"):
             time_builds.main(["yolou_tpu_torch/csrc"])

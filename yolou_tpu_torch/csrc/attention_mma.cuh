@@ -1,11 +1,11 @@
-// Tensor-core building blocks of the bf16 band attention kernels
-// (band_attention.cu) and of the whole-A2C2f kernel (a2c2f.cu): warp-level
-// mma.sync m16n8k16 (bf16 in, f32 accumulate), ldmatrix loads of its
-// operands from shared memory, cp.async copies, the attention of one 16-row
-// query tile against a band's keys and values (whole, with a store policy
-// for the normalised f32 result, or split over the keys into partial states
-// that a merge step combines), and the exchange of key/value rows between
-// the CTAs of a cluster.
+// Tensor-core building blocks of the resident bf16 band attention kernels
+// (band_attention.cu): warp-level mma.sync m16n8k16 (bf16 in, f32
+// accumulate), ldmatrix loads of its operands from shared memory, cp.async
+// copies, the attention of one 16-row query tile against a band's keys and
+// values (with a store policy for the normalised f32 result), and the
+// exchange of key/value rows between the CTAs of a cluster; also the
+// helpers the wgmma kernels share (`kv_at`, `pack_bf16`, the quad
+// reductions, LOG2E).
 //
 // Shared-memory layout of one head's key or value rows: [rows][32] bf16, 64
 // bytes a row, whose four 16-byte chunks are stored XOR-swizzled (`kv_at`):
@@ -113,124 +113,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int PENDING>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(PENDING) : "memory");
-}
-
-// The state of one warp's online softmax over 16 query rows of a head W
-// channels wide: the P.V accumulator (W / 8 tiles of 8 channels), the
-// running row maxima of rows g and g + 8 in log2 units, and this thread's
-// part of their row sums.
-template <int W = HD>
-struct AttnState {
-  float acc[W / 8][4];
-  float m_lo, m_hi, l_lo, l_hi;
-};
-
-template <int W>
-__device__ __forceinline__ void attn_init(AttnState<W>& st) {
-#pragma unroll
-  for (int u = 0; u < W / 8; ++u)
-    st.acc[u][0] = st.acc[u][1] = st.acc[u][2] = st.acc[u][3] = 0.f;
-  st.m_lo = st.m_hi = -INFINITY;
-  st.l_lo = st.l_hi = 0.f;
-}
-
-// The split form of `attend_tile_mma`'s loop (the same steps): one warp's
-// online softmax of 16 query rows (qa: the A fragments of W / 16 steps of
-// 16 channels) over keys [k_begin, k_end) of Ks and Vs ([rows][W]
-// swizzled, `kv_at<W>`; k_begin and k_end multiples of 16, rows past the
-// band zero), keys >= n_keys masked, n_keys = min(N, k_end) > k_begin.
-// sl2 = scale * log2(e). A copy, not a loop both share: with one shared
-// loop nvcc scheduled kernel C's 7-10 % slower on an H100 (PERF.md).
-template <int KT, int W = HD>
-__device__ __forceinline__ void attend_keys_mma(
-    const uint32_t (&qa)[W / 16][4], const __nv_bfloat16* Ks,
-    const __nv_bfloat16* Vs, int k_begin, int k_end, int n_keys, float sl2,
-    AttnState<W>& st) {
-  const int lane = threadIdx.x & 31, t = lane & 3;
-  // this lane's ldmatrix row addresses relative to the step's first key:
-  // the swizzle depends on the row's low 3 bits only, which steps of 8
-  // keys keep; per 32 channels one x4 load of k, per 16 one of v
-  int k_off[W / 32], v_off[W / 16];
-#pragma unroll
-  for (int c = 0; c < W / 32; ++c)
-    k_off[c] = kv_at<W>(lane & 7, 4 * c + (lane >> 3));
-#pragma unroll
-  for (int h = 0; h < W / 16; ++h)
-    v_off[h] = kv_at<W>(lane & 15, 2 * h + (lane >> 4));
-
-  for (int k0 = k_begin; k0 < k_end; k0 += KT) {
-    float s[KT / 8][4];                     // S = Q K^T: tiles of 8 keys
-#pragma unroll
-    for (int j = 0; j < KT / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      if (k0 + 8 * j < k_end) {             // warp-uniform
-#pragma unroll
-        for (int c = 0; c < W / 32; ++c) {
-          uint32_t b[4];
-          ldsm_x4(b, Ks + (k0 + 8 * j) * W + k_off[c]);
-          mma_bf16(s[j], qa[2 * c], b[0], b[1]);
-          mma_bf16(s[j], qa[2 * c + 1], b[2], b[3]);
-        }
-      }
-    }
-    // scale (in log2 units), mask keys >= n_keys, running max: k_begin <
-    // n_keys, so every row has a finite maximum from the first step on
-    float mx_lo = st.m_lo, mx_hi = st.m_hi;
-#pragma unroll
-    for (int j = 0; j < KT / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool valid = k0 + 8 * j + 2 * t + e < n_keys;
-        s[j][e] = valid ? s[j][e] * sl2 : -INFINITY;
-        s[j][2 + e] = valid ? s[j][2 + e] * sl2 : -INFINITY;
-        mx_lo = fmaxf(mx_lo, s[j][e]);
-        mx_hi = fmaxf(mx_hi, s[j][2 + e]);
-      }
-    }
-    mx_lo = quad_max(mx_lo);
-    mx_hi = quad_max(mx_hi);
-    const float c_lo = exp2f(st.m_lo - mx_lo), c_hi = exp2f(st.m_hi - mx_hi);
-    st.m_lo = mx_lo;
-    st.m_hi = mx_hi;
-    float sum_lo = 0.f, sum_hi = 0.f;
-#pragma unroll
-    for (int j = 0; j < KT / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[j][e] = exp2f(s[j][e] - mx_lo);
-        s[j][2 + e] = exp2f(s[j][2 + e] - mx_hi);
-        sum_lo += s[j][e];
-        sum_hi += s[j][2 + e];
-      }
-    }
-    st.l_lo = st.l_lo * c_lo + sum_lo;
-    st.l_hi = st.l_hi * c_hi + sum_hi;
-#pragma unroll
-    for (int u = 0; u < W / 8; ++u) {
-      st.acc[u][0] *= c_lo;
-      st.acc[u][1] *= c_lo;
-      st.acc[u][2] *= c_hi;
-      st.acc[u][3] *= c_hi;
-    }
-    // O += P V, 16 keys a step
-#pragma unroll
-    for (int kk = 0; kk < KT / 16; ++kk) {
-      if (k0 + 16 * kk < k_end) {           // warp-uniform
-        const uint32_t pa[4] = {
-            pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-            pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-        for (int h = 0; h < W / 16; ++h) {  // channels 16h .. 16h + 15
-          uint32_t b[4];
-          ldsm_x4_trans(b, Vs + (k0 + 16 * kk) * W + v_off[h]);
-          mma_bf16(st.acc[2 * h], pa, b[0], b[1]);
-          mma_bf16(st.acc[2 * h + 1], pa, b[2], b[3]);
-        }
-      }
-    }
-  }
 }
 
 // Store policy of kernels A and C: row r < rows of the normalised output as
@@ -354,53 +236,6 @@ __device__ __forceinline__ void attend_tile_mma(
     store(g, ch, acc[u][0] * inv_lo, acc[u][1] * inv_lo);
     store(g + 8, ch, acc[u][2] * inv_hi, acc[u][3] * inv_hi);
   }
-}
-
-// The split form: a warp that attended a part of the keys writes its
-// partial state for the 16 rows to `part` (part_floats(W) floats: row
-// maxima, row sums, then the unnormalised [16][W] accumulator, f32), and
-// `merge_partials` combines S of them for row r, channel c:
-//   M = max_s m_s,  o = sum_s acc_s 2^(m_s - M) / sum_s l_s 2^(m_s - M).
-// A part that saw no key has m = -inf, l = 0 and acc = 0.
-__host__ __device__ constexpr int part_floats(int w) { return 32 + 16 * w; }
-
-template <int W>
-__device__ __forceinline__ void store_partial(const AttnState<W>& st,
-                                              float* part) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const float l_lo = quad_sum(st.l_lo), l_hi = quad_sum(st.l_hi);
-  if (t == 0) {
-    part[g] = st.m_lo;
-    part[g + 8] = st.m_hi;
-    part[16 + g] = l_lo;
-    part[16 + g + 8] = l_hi;
-  }
-  float* acc = part + 32;
-#pragma unroll
-  for (int u = 0; u < W / 8; ++u) {
-    const int ch = 8 * u + 2 * t;
-    *reinterpret_cast<float2*>(acc + g * W + ch) =
-        make_float2(st.acc[u][0], st.acc[u][1]);
-    *reinterpret_cast<float2*>(acc + (g + 8) * W + ch) =
-        make_float2(st.acc[u][2], st.acc[u][3]);
-  }
-}
-
-// parts[s * stride] for s < S, row r < 16, channel c < W
-template <int W>
-__device__ __forceinline__ float merge_partials(const float* parts,
-                                                int stride, int S, int r,
-                                                int c) {
-  float M = -INFINITY;
-  for (int s = 0; s < S; ++s) M = fmaxf(M, parts[s * stride + r]);
-  float num = 0.f, den = 0.f;
-  for (int s = 0; s < S; ++s) {
-    const float* p = parts + s * stride;
-    const float e = exp2f(p[r] - M);
-    num += p[32 + r * W + c] * e;
-    den += p[16 + r] * e;
-  }
-  return num / den;
 }
 
 // Copy rows [r * R, min(Np, (r + 1) * R)) of Ks and Vs from every other CTA

@@ -635,37 +635,6 @@ kv_projection_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// 2^x on the special-function unit alone (exp2f adds a range fix-up for
-// results below 2^-126, which these probabilities flush to 0).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-template <bool MAX>
-__device__ __forceinline__ float reduce2(float a, float b) {
-  return MAX ? fmaxf(a, b) : a + b;
-}
-
-// max / sum of the 32 scores of one row a thread holds of an S tile: its
-// elements s[4 j + OFF] and s[4 j + OFF + 1], j < 16, as a tree (the chain
-// of 32 dependent steps nvcc keeps in written order is what a warp waits
-// on); every index a constant, so nothing leaves the registers
-template <bool MAX, int OFF>
-__device__ __forceinline__ float row_reduce(const float (&s)[64]) {
-  float t[16];
-#pragma unroll
-  for (int j = 0; j < 16; ++j)
-    t[j] = reduce2<MAX>(s[4 * j + OFF], s[4 * j + OFF + 1]);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) t[j] = reduce2<MAX>(t[j], t[j + 8]);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) t[j] = reduce2<MAX>(t[j], t[j + 4]);
-  return reduce2<MAX>(reduce2<MAX>(t[0], t[2]), reduce2<MAX>(t[1], t[3]));
-}
-
-
 // The streamed attention, f32: R query rows a CTA (4 R threads), k and v
 // tiles of 64 keys by TMA, 4 x 4 register micro-tiles (above), heads of HD_
 // channels (at 64 a thread's p.v micro-tile is 4 rows x 8 channels). PROJECT
@@ -1085,23 +1054,7 @@ band_attention_stream_wgmma_kernel(
           if (k0 + 8 * j + 2 * t + e >= N)
             s[4 * j + e] = s[4 * j + 2 + e] = -INFINITY;
     }
-    const float mx_lo = quad_max(fmaxf(m_lo, row_reduce<true, 0>(s)));
-    const float mx_hi = quad_max(fmaxf(m_hi, row_reduce<true, 2>(s)));
-    // finite: key k0 exists
-    const float c_lo = ex2((m_lo - mx_lo) * sl2);
-    const float c_hi = ex2((m_hi - mx_hi) * sl2);
-    const float nb_lo = -mx_lo * sl2, nb_hi = -mx_hi * sl2;
-    m_lo = mx_lo;
-    m_hi = mx_hi;
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[4 * j + e] = ex2(fmaf(s[4 * j + e], sl2, nb_lo));
-        s[4 * j + 2 + e] = ex2(fmaf(s[4 * j + 2 + e], sl2, nb_hi));
-      }
-    l_lo = l_lo * c_lo + row_reduce<false, 0>(s);
-    l_hi = l_hi * c_hi + row_reduce<false, 2>(s);
+    const float2 c = online_softmax(s, sl2, m_lo, m_hi, l_lo, l_hi);
     if (i > 0) {                                 // P V of tile i - 1 done
       wgmma_wait<0>();
 #pragma unroll
@@ -1112,20 +1065,7 @@ band_attention_stream_wgmma_kernel(
         for (int e = 0; e < 4; ++e) reg_fence(p[kk][e]);
       if (tid == 0) mbar_arrive(&empty[(i - 1) % STAGES_MMA]);
     }
-#pragma unroll
-    for (int j = 0; j < HD_ / 8; ++j) {
-      oacc[4 * j] *= c_lo;
-      oacc[4 * j + 1] *= c_lo;
-      oacc[4 * j + 2] *= c_hi;
-      oacc[4 * j + 3] *= c_hi;
-    }
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {             // keys 16 kk .. 16 kk + 15
-      p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-      p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-      p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-      p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-    }
+    rescale_and_pack<HD_>(oacc, p, s, c);
   }
   wgmma_fence();                                 // O += P V of the last tile
   const bf16* Vt = Vs + ((tiles - 1) % STAGES_MMA) * TILE;

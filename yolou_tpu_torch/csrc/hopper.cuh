@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the streamed band attention kernels
-// (band_attention.cu): tensor maps of the Tensor Memory Accelerator (TMA),
-// encoded on the host; mbarriers and TMA tile loads; the wgmma matrix
-// descriptor and the three warpgroup products the bf16 kernel issues;
-// named barriers and register reallocation between warpgroups.
+// (band_attention.cu) and the a2c2f kernels: tensor maps of the Tensor
+// Memory Accelerator (TMA), encoded on the host; mbarriers and TMA tile
+// loads; the wgmma matrix descriptor and warpgroup products; named barriers
+// and register reallocation between warpgroups; the wgmma attention's row
+// reductions and online-softmax step.
 //
 // Shared-memory tiles. A band's rows of one head are 32 or 64 channels. f32
 // tiles are blocks of 32 channels (128-byte rows; a 64-wide head is two
@@ -18,6 +19,8 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "attention_mma.cuh"   // pack_bf16, quad_max, quad_sum
 
 namespace yolou {
 
@@ -443,6 +446,91 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
 // async proxy (TMA) that a barrier makes them visible to.
 __device__ __forceinline__ void fence_proxy_async_global() {
   asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// 2^x on the special-function unit alone (exp2f adds a range fix-up for
+// results below 2^-126, which these probabilities flush to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <bool MAX>
+__device__ __forceinline__ float reduce2(float a, float b) {
+  return MAX ? fmaxf(a, b) : a + b;
+}
+
+// The online softmax of the wgmma attention kernels (band_attention.cu, the
+// bf16 a2c2f): max / sum of the 32 scores of one row a thread holds of an
+// S tile, its elements s[4 j + OFF] and s[4 j + OFF + 1], j < 16, as a
+// tree (the chain of 32 dependent steps nvcc keeps in written order is what
+// a warp waits on); every index a constant, so nothing leaves the
+// registers
+template <bool MAX, int OFF>
+__device__ __forceinline__ float row_reduce(const float (&s)[64]) {
+  float t[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    t[j] = reduce2<MAX>(s[4 * j + OFF], s[4 * j + OFF + 1]);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) t[j] = reduce2<MAX>(t[j], t[j + 8]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) t[j] = reduce2<MAX>(t[j], t[j + 4]);
+  return reduce2<MAX>(reduce2<MAX>(t[0], t[2]), reduce2<MAX>(t[1], t[3]));
+}
+
+// One key tile's step of the wgmma attention's online softmax, on the
+// 64 x 128 scores s a warpgroup's S = q k^T left (a thread's rows r_lo and
+// r_lo + 8 at s[4 j + e] / s[4 j + 2 + e], keys past the band already
+// -inf): the rows' maxima m and sums l move on, s becomes the unnormalised
+// probabilities exp2(s sl2 - m sl2) (sl2 = scale * log2 e), and the factors
+// that rescale o are returned (.x row r_lo, .y row r_lo + 8). The tile's
+// first key exists, so every maximum is finite.
+__device__ __forceinline__ float2 online_softmax(float (&s)[64], float sl2,
+                                                 float& m_lo, float& m_hi,
+                                                 float& l_lo, float& l_hi) {
+  const float mx_lo = quad_max(fmaxf(m_lo, row_reduce<true, 0>(s)));
+  const float mx_hi = quad_max(fmaxf(m_hi, row_reduce<true, 2>(s)));
+  const float c_lo = ex2((m_lo - mx_lo) * sl2);
+  const float c_hi = ex2((m_hi - mx_hi) * sl2);
+  const float nb_lo = -mx_lo * sl2, nb_hi = -mx_hi * sl2;
+  m_lo = mx_lo;
+  m_hi = mx_hi;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[4 * j + e] = ex2(fmaf(s[4 * j + e], sl2, nb_lo));
+      s[4 * j + 2 + e] = ex2(fmaf(s[4 * j + 2 + e], sl2, nb_hi));
+    }
+  l_lo = l_lo * c_lo + row_reduce<false, 0>(s);
+  l_hi = l_hi * c_hi + row_reduce<false, 2>(s);
+  return make_float2(c_lo, c_hi);
+}
+
+// o (HD channels, 8 j + 2 t + e at o[4 j + e] / o[4 j + 2 + e]) rescaled by
+// a tile's factors c, and the tile's probabilities s rounded to bf16 as the
+// A fragments of P . V: 8 steps of 16 keys.
+template <int HD>
+__device__ __forceinline__ void rescale_and_pack(float (&o)[HD / 2],
+                                                 uint32_t (&p)[8][4],
+                                                 const float (&s)[64],
+                                                 float2 c) {
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    o[4 * j] *= c.x;
+    o[4 * j + 1] *= c.x;
+    o[4 * j + 2] *= c.y;
+    o[4 * j + 3] *= c.y;
+  }
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {               // keys 16 kk .. 16 kk + 15
+    p[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
 }
 
 }  // namespace yolou

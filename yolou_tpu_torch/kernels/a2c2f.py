@@ -1,4 +1,6 @@
-"""Whole-A2C2f block kernel (CUDA, sm_90a). Source: `../csrc/a2c2f.cu`.
+"""Whole-A2C2f block kernel (CUDA, sm_90a). Sources: `../csrc/a2c2f.cuh`
+(what both types share, the C entry), `../csrc/a2c2f_f32.cu` and
+`../csrc/a2c2f_bf16.cu`.
 
 `a2c2f_fused` runs a full A2C2f attention block at eval (BatchNorm folded
 into affine GEMMs) in one launch: cv1 -> n stages of two ABlocks (qkv, band
@@ -17,9 +19,11 @@ Any head width up to 64 and any number of stages: heads whose width is not
 the proj rows; `A2C2f.folded_weights` pads once, the wrapper pads what it is
 given unpadded), and the kernel takes the true scale. The ABlocks' weight
 pointers reach the kernel as a device array, so the stage count is free.
-The f32 kernel takes widths (cin, c_, MLP, c2) that are multiples of 4; the
-wrapper pads others with zeros (`pad_f32_widths`, kept per weight list), as
-exact as the MLP's padding.
+The f32 kernel takes widths (cin, c_, MLP, c2) that are multiples of 4, the
+bf16 one multiples of 8; the wrapper pads others with zeros
+(`pad_f32_widths`, kept per weight list), as exact as the MLP's padding. It
+packs every GEMM weight once for the kernel's bulk copies (f32:
+`pack_f32_weight`, bf16: `pack_bf16_weight`).
 """
 
 from __future__ import annotations
@@ -34,25 +38,24 @@ from . import build
 from .attention import (_DTYPE_CODE, _SMEM_LIMIT, _SMS, HEAD_DIM,
                         _check_aligned, pad_heads, padded_head_dim)
 
-# a2c2f.cu's f32 kernel: token tiles (TM), largest first; its threads; K
+# a2c2f_f32.cu's kernel: token tiles (TM), largest first; its threads; K
 # rows of a GEMM stage and the ring's stages; keys of an attention tile, its
 # stages, and the probabilities' row stride (floats)
 F32_TILES = (64, 32)
 _F32_THREADS = 256
 _KS, _STAGES = 32, 4
 _KB_ATT, _ATT_STAGES, _LDP_ATT = 64, 2, 76
-MMA_STREAM_KEYS = 256   # keys a tile of the streamed bf16 layout
-MMA_TILE_MIN = 16  # the bf16 kernel's smallest token tile
 _PER_BLOCK = 10    # tensors per ABlock in the flat weight list
-# the bf16 kernel's weight ring (RING slabs of KS x (NP + 8) bf16) and its
-# static shared memory (4 GEMM descriptors, the pe taps' 2 pointers), bytes
-_MMA_RING = 2 * 3 * 64 * (128 + 8)
-_MMA_STATIC = 4 * 40 + 2 * 8
-
-
-def _mma_parts(hd: int) -> int:
-    """The bf16 kernel's attention partials: 8 warps x (32 + 16 hd) f32."""
-    return 4 * 8 * (32 + 16 * hd)
+# a2c2f_bf16.cu's kernel: rows of a wgmma tile, columns of a swizzled block,
+# of a GEMM panel, weight ring stages at most, keys of a k/v tile, the
+# positional term's row (floats), rows of a stencil box at most, channels of
+# a stencil block, mbarriers, a staged accumulator's row (floats), a k/v
+# ring's stages, and the dynamic shared memory it may take
+_ROWS, _KBLK, _PANEL, _MAX_RING = 64, 64, 128, 4
+_KV_KEYS, _PE_LD, _VB_MAX, _CBLK, _N_BARS = 128, 72, 256, 64, 29
+_KV_STAGES = 2
+_STAGE_LD = 136
+_BF16_SMEM_LIMIT = 227 * 1024 - 1024
 
 
 def a2c2f_mega_eligible(H: int, W: int, cin: int, c_: int, area: int,
@@ -158,14 +161,19 @@ def pad_a2c2f_heads(weights: Sequence[torch.Tensor], n_stages: int,
     return ws
 
 
+def _up(k: int, m: int) -> int:
+    return -(-k // m) * m
+
+
 def _up4(k: int) -> int:
-    return -(-k // 4) * 4
+    return _up(k, 4)
 
 
 def pad_f32_widths(x: torch.Tensor, weights: Sequence[torch.Tensor],
-                   n_stages: int):
+                   n_stages: int, mult: int = 4):
     """(x, weights) with cin, c_, the MLP's width and c2 zero-padded to
-    multiples of 4, the f32 kernel's 16-byte rows: x's channels and cv1's
+    multiples of `mult` (4: the f32 kernel's 16-byte rows; 8: the bf16
+    kernel's): x's channels and cv1's
     rows; c_ as cv1's columns and bias, the rows of qkv and mlp1, the
     columns and biases of proj and mlp2, and cv2's rows of every ys slot;
     the MLP as mlp1's columns and bias and mlp2's rows; c2 as cv2's columns
@@ -174,7 +182,7 @@ def pad_f32_widths(x: torch.Tensor, weights: Sequence[torch.Tensor],
     (wcv1, bcv1), blocks, (wcv2, bcv2) = _split(weights, n_stages)
     cin, c_ = wcv1.shape
     hid, c2 = blocks[0][6].shape[1], wcv2.shape[1]
-    dc, dh = _up4(c_) - c_, _up4(hid) - hid
+    dc, dh = _up(c_, mult) - c_, _up(hid, mult) - hid
 
     def cols(t, n):
         return F.pad(t, (0, n)) if n else t
@@ -182,20 +190,17 @@ def pad_f32_widths(x: torch.Tensor, weights: Sequence[torch.Tensor],
     def rows(t, n):
         return F.pad(t, (0, 0, 0, n)) if n else t
 
-    ws = [rows(cols(wcv1, dc), _up4(cin) - cin), cols(bcv1, dc)]
+    ws = [rows(cols(wcv1, dc), _up(cin, mult) - cin), cols(bcv1, dc)]
     for wqkv, bqkv, wpe, bpe, wproj, bproj, wm1, bm1, wm2, bm2 in blocks:
         ws += [rows(wqkv, dc), bqkv, wpe, bpe, cols(wproj, dc),
                cols(bproj, dc), rows(cols(wm1, dh), dc), cols(bm1, dh),
                cols(rows(wm2, dh), dc), cols(bm2, dc)]
     wcv2 = wcv2.reshape(n_stages + 1, c_, c2)
-    wcv2 = F.pad(wcv2, (0, _up4(c2) - c2, 0, dc)).reshape(-1, _up4(c2))
-    ws += [wcv2, cols(bcv2, _up4(c2) - c2)]
-    return (cols(x, _up4(cin) - cin).contiguous(),
+    wcv2 = F.pad(wcv2, (0, _up(c2, mult) - c2, 0, dc)).reshape(
+        -1, _up(c2, mult))
+    ws += [wcv2, cols(bcv2, _up(c2, mult) - c2)]
+    return (cols(x, _up(cin, mult) - cin).contiguous(),
             [w.contiguous() for w in ws])
-
-
-def _pad16(k: int) -> int:
-    return -(-k // 16) * 16
 
 
 def f32_panel(tile: int) -> int:
@@ -205,8 +210,9 @@ def f32_panel(tile: int) -> int:
 
 
 def f32_smem_bytes(tile: int, hd: int = HEAD_DIM) -> int:
-    """One CTA's shared memory in the f32 kernel (a2c2f.cu's `F32Layout`)
-    at token tile `tile` and head width `hd`: 1024 bytes of alignment
+    """One CTA's shared memory in the f32 kernel (a2c2f_f32.cu's
+    `F32Layout`) at token tile `tile` and head width `hd`: 1024 bytes of
+    alignment
     slack, the larger of the GEMM ring (4 stages of a [tile][32] activation
     slab and a [32][4096 / tile] weight slab) and the attention's (2 stages
     of 64 / tile key groups' k and v tiles of 64 x hd, the q rows in rows of
@@ -220,37 +226,62 @@ def f32_smem_bytes(tile: int, hd: int = HEAD_DIM) -> int:
 
 
 def f32_tile(batch: int, nb: int, area: int) -> int:
-    """The f32 kernel's token tile for `batch` images of `area` bands of nb
-    tokens: of `F32_TILES`, the one whose grid puts the fewest token rows
-    on the busiest of an H100's SMs (tiles spread over the SMs first), the
-    larger on a tie (half the weight traffic a token)."""
+    """The token tile of both kernels for `batch` images of `area` bands
+    of nb tokens: of `F32_TILES`, the one whose grid puts the fewest token
+    rows on the busiest of an H100's SMs (tiles spread over the SMs first),
+    the larger on a tie (half the weight traffic a token)."""
     def rows(tile):
         return -(-batch * area * -(-nb // tile) // _SMS) * tile
     return min(F32_TILES, key=lambda t: (rows(t), -t))
 
 
-def smem_bytes(cin: int, c_: int, n_stages: int, nb: int, dtype: torch.dtype,
-               hidden: int | None = None, tile: int | None = None,
-               streamed: bool = False, ca: int | None = None,
-               hd: int = HEAD_DIM) -> int:
-    """One CTA's shared memory in a2c2f.cu at token tile `tile`, MLP width
-    `hidden` (default 2 c_), attention width `ca` (default c_) and head
-    width `hd` (32 or 64). float32: `f32_smem_bytes` (tile default 64).
-    bfloat16 (tensor cores), one k/v buffer (default: the smallest layout):
-    the weight ring, one head's keys and values of a band (`streamed`: 256
-    of them), the attention partials, and the t (c_ wide), u (ca wide) and
-    `big` bf16 tiles, rows padded by 16 bytes (the launch takes a larger
-    token tile where it fits)."""
-    if dtype == torch.float32:
-        return f32_smem_bytes(tile or F32_TILES[0], hd)
-    hidden = 2 * c_ if hidden is None else hidden
-    ca = c_ if ca is None else ca
-    tile = MMA_TILE_MIN if tile is None else tile
-    big = max(_pad16(cin), _pad16(hidden), (n_stages + 1) * c_, 2 * ca)
-    tiles = 2 * tile * ((c_ + 8) + (ca + 8) + big + 8)
-    kv_rows = MMA_STREAM_KEYS if streamed else _pad16(nb)
-    return (_MMA_RING + 2 * 2 * hd * kv_rows + _mma_parts(hd) + tiles
-            + _MMA_STATIC)
+def bf16_stencil_boxes(width: int) -> tuple:
+    """(rows a box, boxes) of the bf16 kernel's stencil rows for images
+    `width` tokens wide: a 64-token tile +- 3 image rows and 3 tokens, 6
+    width + 70 rows, in the fewest boxes of at most 256 rows (a multiple of
+    8 each)."""
+    need = _ROWS + 6 * width + 6
+    boxes = -(-need // _VB_MAX)
+    return _up(-(-need // boxes), 8), boxes
+
+
+def bf16_layout(c_: int, ca: int, hid: int, hd: int, ring: int,
+                width: int, staged: bool = True) -> int:
+    """Bytes of the bf16 kernel's dynamic shared memory (a2c2f_bf16.cu's
+    `layout`) at weight ring stages `ring`: the ring (16 KB a stage), the t
+    (c_) and u (ca) tiles (8 KB a 64-column block), then the largest of the
+    attention's buffers (two q tiles and a k/v ring of 2 stages of 128
+    keys for each of the two heads of 32 the consumer warpgroups take at
+    once, or for the one head of 64; the stencil's v rows for images
+    `width` tokens wide unless not `staged` (the stencil then reads through
+    L2), the f32 positional term) and the GEMMs' (the h tile
+    or the ring's x / ys boxes, 8 KB a stage, then the f32 accumulator's
+    staging); the mbarriers and 1024 bytes of alignment slack."""
+    vb, boxes = bf16_stencil_boxes(width) if staged else (0, 0)
+    rings = 1 if hd == 64 else 2      # k/v rings, one a consumer warpgroup
+    attention = (rings * 2 * _ROWS * hd * 2
+                 + rings * _KV_STAGES * 2 * _KV_KEYS * hd * 2
+                 + vb * boxes * _CBLK * 2 + _ROWS * _PE_LD * 4)
+    gemms = (max(_up(hid, 64) * _ROWS * 2, ring * _ROWS * _KBLK * 2)
+             + _ROWS * _STAGE_LD * 4)
+    region = max(attention, gemms)
+    return (ring * _PANEL * _KBLK * 2 + (_up(c_, 64) + _up(ca, 64)) * _ROWS * 2
+            + region + 8 * _N_BARS + 1024)
+
+
+def bf16_plan(c_: int, ca: int, hid: int, hd: int, width: int):
+    """(bytes, ring stages, staged) of the bf16 kernel for images `width`
+    tokens wide (a2c2f_bf16.cu's `plan`): the largest weight ring of 4, 3
+    or 2 stages that fits a block with the stencil's v rows staged; where
+    none does, the largest without them (staged False: the stencil reads
+    through L2); None where neither fits. Widths as the kernel takes them
+    (c_ a multiple of 8, hid of 16)."""
+    for staged in (True, False):
+        for ring in range(_MAX_RING, 1, -1):
+            nbytes = bf16_layout(c_, ca, hid, hd, ring, width, staged)
+            if nbytes <= _BF16_SMEM_LIMIT:
+                return nbytes, ring, staged
+    return None
 
 
 def _check(x, weights, n_stages, area, heads):
@@ -338,14 +369,64 @@ def pack_f32_weight(w: torch.Tensor, panel: int) -> torch.Tensor:
     return w.reshape(kp, panels, panel).transpose(0, 1).contiguous()
 
 
+def bf16_panels(n: int) -> list:
+    """The output panels of an n-column GEMM in the bf16 kernel: 128
+    columns each."""
+    return [_PANEL] * -(-n // _PANEL)
+
+
+def _swizzle128(t: torch.Tensor) -> torch.Tensor:
+    """[..., rows, 64] bf16 with each row's 16-byte chunk c moved to c ^
+    (row % 8), the 128-byte swizzle TMA and wgmma read (its own inverse)."""
+    rows = t.shape[-2]
+    idx = (torch.arange(8, device=t.device)[None, :]
+           ^ (torch.arange(rows, device=t.device)[:, None] % 8))
+    chunks = t.reshape(*t.shape[:-1], 8, 8)
+    idx = idx[..., None].expand(rows, 8, 8).expand(chunks.shape)
+    return chunks.gather(-2, idx).reshape(t.shape)
+
+
+def pack_bf16_weight(w: torch.Tensor) -> torch.Tensor:
+    """A (K, N) GEMM weight as the bf16 kernel streams it, 1-D: per output
+    panel of 128 columns (`bf16_panels`) and per 64-row block of K, the
+    [128][64] slab of w^T (K-major, zero past K and N) in the 128-byte
+    swizzle, so that each weight stage is one contiguous bulk copy the wgmma
+    descriptor reads as it lands. Stage (p, kb) starts at (p * ceil(K / 64)
+    + kb) * 128 * 64."""
+    k, n = w.shape
+    kp, n0, out = _up(k, 64), 0, []
+    for width in bf16_panels(n):
+        slab = w.new_zeros((width, kp))
+        m = min(width, n - n0)
+        slab[:m, :k] = w[:, n0:n0 + m].t()
+        slab = slab.reshape(width, kp // 64, 64).transpose(0, 1)
+        out.append(_swizzle128(slab).reshape(-1))
+        n0 += width
+    return torch.cat(out)
+
+
+def unpack_bf16_weight(packed: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """The (K, N) weight back from `pack_bf16_weight`'s form, and the
+    padding (the panels' columns past N, the rows past K): (w, padding)."""
+    kp, at, cols = _up(k, 64), 0, []
+    for width in bf16_panels(n):
+        slab = packed[at:at + width * kp].reshape(kp // 64, width, 64)
+        cols.append(_swizzle128(slab).transpose(0, 1).reshape(width, kp))
+        at += width * kp
+    full = torch.cat(cols).t()                  # (kp, sum of widths)
+    pad = torch.cat([full[k:].reshape(-1), full[:k, n:].reshape(-1)])
+    return full[:k, :n], pad
+
+
 def _kernel_weights(x, weights, n_stages, heads, tile=0):
     """The weight list as the kernel takes it: heads padded to a kernel
     width (`pad_a2c2f_heads`) unless they are one (or the list is padded
-    already); in f32 also every width a multiple of 4 (`pad_f32_widths`)
-    and every GEMM weight packed for token tile `tile` (`pack_f32_weight`).
-    Kept per list (by each tensor's pointer, version and shape), so a
-    served block pads and packs once. Returns (x, weights, dims): x padded
-    with the weights, dims the kernel's (cin, c_, ca, hid, c2, hd)."""
+    already), every width a multiple of 4 (f32) or 8 (bf16,
+    `pad_f32_widths`) and every GEMM weight packed (f32 for token tile
+    `tile`, `pack_f32_weight`; bf16 `pack_bf16_weight`). Kept per list (by
+    each tensor's pointer, version and shape), so a served block pads and
+    packs once. Returns (x, weights, dims): x
+    padded with the weights, dims the kernel's (cin, c_, ca, hid, c2, hd)."""
     c_ = weights[0].shape[1]
     hd = c_ // heads
     ca = weights[2].shape[1] // 3
@@ -354,13 +435,10 @@ def _kernel_weights(x, weights, n_stages, heads, tile=0):
         raise ValueError(f"the CUDA kernel takes head_dim up to 64 (32 and "
                          f"64, others padded), got {hd}")
     f32 = x.dtype == torch.float32
-    dims = (x.shape[-1], c_, heads * hdp, weights[8].shape[1],
-            weights[-2].shape[1], hdp)
-    if f32:
-        dims = (*map(_up4, (x.shape[-1], c_)), heads * hdp,
-                *map(_up4, dims[3:5]), hdp)
-    if ca == c_ and hdp == hd and not f32:
-        return x, list(weights), dims
+    mult = 4 if f32 else 8
+    dims = (_up(x.shape[-1], mult), _up(c_, mult), heads * hdp,
+            _up(weights[8].shape[1], mult), _up(weights[-2].shape[1], mult),
+            hdp)
     key = ("weights", x.dtype, n_stages, heads, tile,
            *((t.data_ptr(), t._version, tuple(t.shape)) for t in weights))
 
@@ -368,44 +446,41 @@ def _kernel_weights(x, weights, n_stages, heads, tile=0):
         ws = list(weights)
         if ca == c_ and hdp != hd:
             ws = pad_a2c2f_heads(ws, n_stages, heads, hdp)
-        if f32:
-            ws = pad_f32_widths(x[:0], ws, n_stages)[1]
-            gemms = [*_GEMM_SLOTS] + [2 + _PER_BLOCK * a + i
-                                      for a in range(2 * n_stages)
-                                      for i in _BLOCK_GEMMS]
-            for i in gemms:
-                ws[i] = pack_f32_weight(ws[i], f32_panel(tile))
+        ws = pad_f32_widths(x[:0], ws, n_stages, mult)[1]
+        gemms = [*_GEMM_SLOTS] + [2 + _PER_BLOCK * a + i
+                                  for a in range(2 * n_stages)
+                                  for i in _BLOCK_GEMMS]
+        for i in gemms:
+            ws[i] = (pack_f32_weight(ws[i], f32_panel(tile)) if f32
+                     else pack_bf16_weight(ws[i]))
         return ws
 
     ws = _kept(key, make, weights)
-    if f32 and (dims[0] != x.shape[-1] or x.data_ptr() % 16):
+    if dims[0] != x.shape[-1] or x.data_ptr() % 16:
         x = F.pad(x, (0, dims[0] - x.shape[-1])).contiguous()
     return x, ws, dims
 
 
 def _launch_a2c2f(x, weights, n_stages, area, heads, tile=None):
-    """Launch the whole-block kernel on checked CUDA tensors (f32: at token
-    tile `tile` in place of `f32_tile`'s, for comparisons); returns out."""
+    """Launch the whole-block kernel on checked CUDA tensors at token tile
+    `tile` in place of `f32_tile`'s (for comparisons); returns out."""
     lib = build.load()                # before any pointer is read
     B, H, W, _ = x.shape
     c2_out = weights[-2].shape[1]
     scale = (weights[0].shape[1] // heads) ** -0.5
     nb = H * W // area
     f32 = x.dtype == torch.float32
-    tile = (tile or f32_tile(B, nb, area)) if f32 else 0
-    x, weights, (cin, c_, ca, hid, c2, hd) = _kernel_weights(
-        x, weights, n_stages, heads, tile)
-    if x.dtype == torch.bfloat16 and hid % 16:
+    tile = tile or f32_tile(B, nb, area)
+    if not f32 and weights[8].shape[1] % 16:
         raise ValueError(f"the bf16 kernel needs the MLP width padded to a "
                          f"multiple of 16 (A2C2f.folded_weights pads it), "
-                         f"got {hid}")
-    if x.dtype == torch.bfloat16:   # the smallest layout, resident or not
-        if min(smem_bytes(cin, c_, n_stages, nb, x.dtype, hid,
-                          streamed=st, ca=ca, hd=hd)
-               for st in (False, True)) > _SMEM_LIMIT:
-            raise ValueError(f"a band of {nb} tokens at cin={cin}, "
-                             f"c_={c_}, {n_stages} stages passes a block's "
-                             f"shared memory")
+                         f"got {weights[8].shape[1]}")
+    x, weights, (cin, c_, ca, hid, c2, hd) = _kernel_weights(
+        x, weights, n_stages, heads, tile)
+    if not f32:
+        if bf16_plan(c_, ca, hid, hd, W) is None:
+            raise ValueError(f"c_={c_}, MLP {hid}, heads of {hd} pass a "
+                             f"block's shared memory")
         # the stencil reads its taps 16 B a time
         _check_aligned(*(blk[2] for blk in _split(weights, n_stages)[1]))
     tokens = B * H * W

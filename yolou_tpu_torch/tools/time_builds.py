@@ -2,7 +2,7 @@
 NMS kernel as built from several `csrc` directories, in turns, on one GPU.
 
     python -m yolou_tpu_torch.tools.time_builds OLD_CSRC NEW_CSRC [--out F]
-        [--cases SUBSTRING]
+        [--cases SUBSTRING] [--tiles 64,32]
 
 Each directory is compiled with `kernels/build.py`'s flags into its own
 library (`_build/`, named by the hash of its sources); the package's wrappers
@@ -14,13 +14,16 @@ resident path, which every such tree has; then kernels A and C forced onto
 the streamed path (the "streamed" cases: f32 at the default commands'
 batch 16 at 640^2 and 160^2 and at 1024^2, bf16 at the bands it serves and
 the long ones), which trees from the streamed path's introduction on have.
+`--tiles` adds each whole-A2C2f case at each given token tile (the sweep
+behind `kernels/a2c2f.py::f32_tile`'s rule, which both types use).
 A `csrc` from before the one-launch NMS kernel, whose C entry still takes a
 hit-matrix scratch, gets that scratch allocated here; one from before the
 whole-A2C2f kernel took its MLP width (whose C entry has no `hid`) is
 called without it, one whose streamed entries take no query rows
 (before the TMA kernels) without those, and one from before heads of any
 width and any stage count without the scale, the block array, the f32
-scratch and tile. The builds take
+scratch and tile; one from before the bf16 wgmma kernel (no
+`a2c2f_bf16.cu`) gets its bf16 weights unpacked. The builds take
 turns in the order given and then in reverse (old, new, new, old for two), so
 a drift of the card's clock over the run shows as a spread and not as a
 difference. Prints one JSON object: case -> directory -> {"device_ms":
@@ -51,8 +54,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..kernels import a2c2f as a2c2f_module
 from ..kernels import build
-from ..kernels.a2c2f import a2c2f_fused
+from ..kernels.a2c2f import _launch_a2c2f, a2c2f_fused
 from ..kernels.nms import suppress_greedy
 from ..kernels.attention import (_launch_band_attention,
                                  _launch_qkv_attention, area_attention_fused,
@@ -81,9 +85,26 @@ STREAM_CASES = [
     ("A streamed bf16 L6@1280", "A", (32, 1600, 64), 2, torch.bfloat16),
     ("A streamed bf16 L8@1280", "A", (8, 1600, 128), 4, torch.bfloat16),
     ("C streamed bf16 L6@1408", "C", (32, 1936, 64), 2, torch.bfloat16)]
-# name, (B, H, W, cin), c2, stages, area, heads
-A2C2F_CASES = [("a2c2f L6@640", (8, 40, 40, 128), 128, 2, 4, 2),
-               ("a2c2f L8@640", (8, 20, 20, 256), 256, 2, 1, 4)]
+# name, (B, H, W, cin), c2, stages, area, heads, MLP width (None: 2 c_;
+# bf16 a multiple of 16, as the fold pads it), dtype: yolov12n's layers 6
+# and 8 at 640^2 (mlp_ratio 2 and 1.2), A2C2f(96, 96) (one head of 48,
+# padded to 64), five stages and layer 6 of a 1600 x 256 strip (images too
+# wide for the bf16 kernel's staged stencil rows) in bf16, layers 6 and 8
+# in f32
+A2C2F_CASES = [
+    ("a2c2f L6@640", (8, 40, 40, 128), 128, 2, 4, 2, None, torch.bfloat16),
+    ("a2c2f L8@640", (8, 20, 20, 256), 256, 2, 1, 4, None, torch.bfloat16),
+    ("a2c2f L6@640 mlp1.2", (8, 40, 40, 128), 128, 2, 4, 2, 80,
+     torch.bfloat16),
+    ("a2c2f L8@640 mlp1.2", (8, 20, 20, 256), 256, 2, 1, 4, 160,
+     torch.bfloat16),
+    ("a2c2f A2C2f(96,96)", (8, 20, 20, 96), 96, 1, 1, 1, None,
+     torch.bfloat16),
+    ("a2c2f n5", (2, 20, 20, 128), 128, 5, 1, 2, None, torch.bfloat16),
+    ("a2c2f L6 strip", (8, 16, 100, 128), 128, 2, 4, 2, None,
+     torch.bfloat16),
+    ("a2c2f f32 L6@640", (8, 40, 40, 128), 128, 2, 4, 2, None, torch.float32),
+    ("a2c2f f32 L8@640", (8, 20, 20, 256), 256, 2, 1, 4, None, torch.float32)]
 # name, (B, K): the serving request and the evaluation step's batch
 NMS_CASES = [("B (8,512)", (8, 512)), ("B (16,512)", (16, 512))]
 NMS_IOU = 0.45
@@ -113,7 +134,10 @@ def load_library(csrc: Path):
     if lib.nms_hit_scratch:
         lib.yolou_greedy_nms.argtypes = [vp, vp, vp, vp, ci, ci,
                                          ctypes.c_float, vp]
-    a2c2f_source = (csrc / "a2c2f.cu").read_text()
+    # the bf16 wgmma kernel (a2c2f_bf16.cu) takes its weights packed; the
+    # trees before it (one a2c2f.cu) take them as they are (`_use`)
+    lib.a2c2f_bf16_packed = (csrc / "a2c2f_bf16.cu").exists()
+    a2c2f_source = "".join(f.read_text() for f in sorted(csrc.glob("a2c2f*")))
     if "const void* blocks" not in a2c2f_source:
         # before any stage count and head width: no block array, work
         # scratch, attention width, scale or f32 tile (the 18th-22nd of
@@ -193,8 +217,17 @@ def _streamed(kernel, args, heads):
     return _launch_band_attention(*args, heads, streamed=True)
 
 
-def _calls(device):
-    """case name -> a call of the package's wrapper on seeded inputs."""
+def _a2c2f_at_tile(x, ws, stages, area, heads, tile):
+    """The whole-block kernel at token tile `tile` (on the CPU the wrapper:
+    the plain version)."""
+    if x.device.type == "cpu":
+        return a2c2f_fused(x, ws, stages, area, heads)
+    return _launch_a2c2f(x, ws, stages, area, heads, tile=tile)
+
+
+def _calls(device, tiles=()):
+    """case name -> a call of the package's wrapper on seeded inputs; each
+    a2c2f case also at each token tile of `tiles` ("... tile64")."""
     rng = np.random.default_rng(0)
 
     def mk(shape, std=1.0, dtype=torch.bfloat16):
@@ -218,20 +251,25 @@ def _calls(device):
             args = tuple(mk((g, n, c), dtype=dtype) for _ in range(3))
         calls[name] = functools.partial(_streamed, kernel, args, heads)
 
-    def gemm(k, n):                  # a (k, n) weight and its f32 bias
-        return [mk((k, n), 0.5 / np.sqrt(k)), mk((n,), 0.1, torch.float32)]
+    for name, shape, c2, stages, area, heads, hid, dtype in A2C2F_CASES:
+        def gemm(k, n, dtype=dtype):  # a (k, n) weight and its f32 bias
+            return [mk((k, n), 0.5 / np.sqrt(k), dtype),
+                    mk((n,), 0.1, torch.float32)]
 
-    for name, shape, c2, stages, area, heads in A2C2F_CASES:
         c_ = c2 // 2
+        hid = 2 * c_ if hid is None else hid
         ws = gemm(shape[-1], c_)
         for _ in range(2 * stages):    # qkv, 7x7 positional term, proj, MLP
             ws += (gemm(c_, 3 * c_) + [mk((7, 7, c_), 0.1, torch.float32),
                                        mk((c_,), 0.1, torch.float32)]
-                   + gemm(c_, c_) + gemm(c_, 2 * c_) + gemm(2 * c_, c_))
+                   + gemm(c_, c_) + gemm(c_, hid) + gemm(hid, c_))
         ws += gemm((stages + 1) * c_, c2)
-        x = mk(shape)
+        x = mk(shape, dtype=dtype)
         calls[name] = lambda x=x, ws=ws, s=stages, a=area, h=heads: \
             a2c2f_fused(x, ws, s, a, h)
+        for tile in tiles:
+            calls[f"{name} tile{tile}"] = functools.partial(
+                _a2c2f_at_tile, x, ws, stages, area, heads, tile)
     for name, (bsz, k) in NMS_CASES:   # chip_smoke.py's "random" boxes
         xy = rng.random((bsz, k, 2), np.float32) * 600
         wh = rng.random((bsz, k, 2), np.float32) * 120 + 8
@@ -265,12 +303,27 @@ def nms_bounds(device: str = "cpu"):
     return out
 
 
-def time_builds(dirs, iters: int = 20, cases: str = ""):
+_PACK_BF16 = a2c2f_module.pack_bf16_weight
+
+
+def _use(lib):
+    """Make `lib` the wrappers' library: its bf16 GEMM weights packed, or
+    passed as they are to a tree from before the wgmma kernel, and no
+    weight list kept from another library."""
+    build._lib = lib
+    a2c2f_module.pack_bf16_weight = (
+        _PACK_BF16 if getattr(lib, "a2c2f_bf16_packed", True)
+        else (lambda w: w))
+    a2c2f_module._prepared.clear()
+
+
+def time_builds(dirs, iters: int = 20, cases: str = "", tiles=()):
     """case -> directory -> {"device_ms": [...], "call_ms": [...]}, for the
-    cases whose name contains `cases` (all by default)."""
+    cases whose name contains `cases` (all by default), the a2c2f cases
+    also at each token tile of `tiles`."""
     device = torch.device("cuda", 0)
     libs = [load_library(Path(d)) for d in dirs]
-    calls = {k: v for k, v in _calls(device).items() if cases in k}
+    calls = {k: v for k, v in _calls(device, tiles).items() if cases in k}
     order = list(range(len(dirs))) + list(reversed(range(len(dirs))))
     times = {name: {d: {"device_ms": [], "call_ms": []} for d in dirs}
              for name in calls}
@@ -278,7 +331,7 @@ def time_builds(dirs, iters: int = 20, cases: str = ""):
     try:
         with torch.no_grad():
             for i in order:
-                build._lib = libs[i]
+                _use(libs[i])
                 for name, fn in calls.items():
                     print(f"time_builds: {dirs[i]} {name}", file=sys.stderr,
                           flush=True)
@@ -286,7 +339,7 @@ def time_builds(dirs, iters: int = 20, cases: str = ""):
                     t["device_ms"].append(device_ms(fn, iters))
                     t["call_ms"].append(call_ms(fn, device, iters))
     finally:
-        build._lib = saved
+        _use(saved)
     return times
 
 
@@ -296,11 +349,15 @@ def main(argv=None):
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--cases", default="",
                     help="only the cases whose name contains this")
+    ap.add_argument("--tiles", default="",
+                    help="also time each a2c2f case at these token tiles "
+                         "(comma-separated, e.g. 64,32)")
     ap.add_argument("--out", help="also write the JSON to this file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("time_builds needs a CUDA device")
-    times = time_builds(args.dirs, args.iters, args.cases)
+    tiles = tuple(int(t) for t in args.tiles.split(",") if t)
+    times = time_builds(args.dirs, args.iters, args.cases, tiles)
     text = json.dumps(times)
     if args.out:
         Path(args.out).write_text(text + "\n")
