@@ -24,7 +24,10 @@ Phases, one or more output lines each:
                long bands (yolov12s / x layer 8 at 640^2 in f32, yolov12n
                at 1280^2 in bf16, kernel C at 1024 and 1936 tokens), the
                bf16 streamed path timed against the resident one at
-               yolov12n's 640^2 bands, `a2c2f` at mlp_ratio 1.2 and at
+               yolov12n's 640^2 bands, kernel A's short path (bands of 64
+               tokens or fewer, one launch) against the path it replaced
+               at the 160^2 bands (f32 within 1e-5, bf16 within 2^-7), the
+               f32 k/v projection beside one torch.addmm at 640^2, `a2c2f` at mlp_ratio 1.2 and at
                yolov12l's layer 8 (f32, 32-token tiles); heads of 48 and
                16 in kernels A and C and the single-head entry, and `a2c2f`
                with one head of 48 and with five stages, both types;
@@ -68,7 +71,8 @@ Phases, one or more output lines each:
                memory with HD95 on: 8 band attention launches and one NMS
                launch a step, 48 images, finite Dice, precision and recall in
                [0, 1]; images/s and the step's parts; then one f32 step on
-               the card against the CPU.
+               the card against the CPU; every kernel A launch of both on
+               its short path.
  10. train-decoder - the YOLO-Seg++ training pipeline at 160^2, bf16, with
                the same detector weights: seeded images and elliptic masks
                in memory (512 train, 128 val, 128 test); objectmaps of every
@@ -405,14 +409,26 @@ BOTH = ("float32", "bfloat16")
 SHORT = {"float32": "f32", "bfloat16": "bf16"}
 
 
+# kernel A's short path: f32 within 1e-5, bf16 within 2^-7 (one bf16 step
+# of an output in [1, 2))
+SHORT_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+
+
 def streamed_vs_resident(fn_of_path):
     """(resident device ms, streamed device ms) of a bf16 band both paths
     take, timed in turns (resident, streamed, streamed, resident): the two
     times `attention_plan`'s crossover chooses between."""
-    times = {False: [], True: []}
-    for streamed in (False, True, True, False):
-        times[streamed].append(kernel_times(fn_of_path(streamed))[0])
-    return (sum(times[False]) / 2, sum(times[True]) / 2)
+    times = paths_in_turns(fn_of_path, (False, True))
+    return times[False], times[True]
+
+
+def paths_in_turns(fn_of_path, paths):
+    """path -> device ms per call of `fn_of_path(path)()`, the mean of two
+    turns (each path in order, then in reverse)."""
+    times = {p: [] for p in paths}
+    for path in (*paths, *paths[::-1]):
+        times[path].append(kernel_times(fn_of_path(path))[0])
+    return {p: sum(t) / len(t) for p, t in times.items()}
 
 
 def check_attention(device):
@@ -423,8 +439,12 @@ def check_attention(device):
     attention part alone (no one PyTorch call does projection + attention),
     scaled_dot_product_attention over the q, k, v that the plain projection
     gives. At the 640^2 serving shapes in bf16 the streamed path is also
-    timed against the resident one. Heads of 48 and 16 (padded to 64 and
-    32 in the wrapper) at layer 8's band, both types."""
+    timed against the resident one, and at the 160^2 bands the short path
+    against the one it replaced (bf16 resident, f32 streamed); where f32
+    streams, its first device kernel (the k/v projection) beside its bound,
+    its plain version and one torch.addmm of the same columns. Heads of 48
+    and 16 (padded to 64 and 32 in the wrapper) at layer 8's band, both
+    types."""
     import torch
     import torch.nn.functional as F
     from yolou_tpu_torch.kernels.attention import (
@@ -463,11 +483,14 @@ def check_attention(device):
             xt = torch.from_numpy(x).to(device, dtype)
             wt = torch.from_numpy(w).to(device, dtype)
             bt = torch.from_numpy(b).to(device)
+            hdp = padded_head_dim(c // heads)
+            plan = attention_plan(g, n, heads * hdp, dtype, hd=hdp)
             o, v = area_attention_qkv_fused(xt, wt, bt, heads)
             o_ref, v_ref = area_attention_qkv_fused_plain(xt, wt, bt, heads)
-            err = max((o.float() - o_ref.float()).abs().max().item(),
-                      (v.float() - v_ref.float()).abs().max().item())
-            tol = ATTN_TOL[dtype_name(dtype)]
+            v_err = (v.float() - v_ref.float()).abs().max().item()
+            err = max((o.float() - o_ref.float()).abs().max().item(), v_err)
+            tol = (SHORT_TOL if plan.path == "short"
+                   else ATTN_TOL)[dtype_name(dtype)]
             finite = bool(torch.isfinite(o).all() and torch.isfinite(v).all())
             ms, call_ms = kernel_times(
                 lambda: area_attention_qkv_fused(xt, wt, bt, heads))
@@ -482,8 +505,6 @@ def check_attention(device):
             nbytes = xt.element_size() * (3 * g * n * c + 3 * c * c) + 12 * c
             flops = 6 * g * n * c * c + 4 * g * n * n * c
             bound_ms, bound_by = bound(nbytes, flops, dtype_name(dtype))
-            hdp = padded_head_dim(c // heads)
-            plan = attention_plan(g, n, heads * hdp, dtype, hd=hdp)
             paths = {}
             if plan.streamed:    # its two device kernels, each timed
                 split = device_kernel_ms(
@@ -494,16 +515,33 @@ def check_attention(device):
                              v for k, v in split.items()
                              if "projection" not in k),
                          "device_kernels": sorted(split)}
+            else:
+                paths = {"device_kernels": sorted(device_kernel_ms(
+                    lambda: area_attention_qkv_fused(xt, wt, bt, heads)))}
+            if plan.streamed:
+                paths.update(streamed_bounds(g, n, c, dtype_name(dtype)))
+            if plan.streamed and dtype == torch.float32:
+                # the projection alone: its plain version and one library
+                # call
+                paths.update(projection_yardsticks(xt, wt, bt))
             if name in ("L6@640", "L8@640") and dtype == torch.bfloat16:
                 paths.update(zip(("resident_ms", "streamed_ms"),
                                  streamed_vs_resident(
-                    lambda st: lambda: _launch_qkv_attention(xt, wt, bt,
-                                                             heads, st))))
+                    lambda st: lambda: _launch_qkv_attention(
+                        xt, wt, bt, heads,
+                        "streamed" if st else "resident"))))
+            if plan.path == "short" and hdp == 32:
+                before = "resident" if dtype == torch.bfloat16 else "streamed"
+                paths.update({f"{p}_ms": t for p, t in paths_in_turns(
+                    lambda p: lambda: _launch_qkv_attention(xt, wt, bt,
+                                                            heads, p),
+                    ("short", before)).items()})
             floor_ms = exp_floor(g, heads, n)
             log("kernel", name="band_attention", case=name,
                 shape=f"({g},{n},{c})h{heads}", dtype=dtype_name(dtype),
-                path="streamed" if plan.streamed else "resident",
-                rows=plan.rows, max_abs_err=err, tol=tol, ms=ms,
+                path=plan.path, device_kernels_a_call=plan.launches,
+                rows=plan.rows, max_abs_err=err, v_max_abs_err=v_err,
+                tol=tol, ms=ms,
                 plain_ms=plain_ms, attention_library_ms=attn_lib_ms,
                 bound_ms=bound_ms, bound_by=bound_by, exp_floor_ms=floor_ms,
                 call_ms=call_ms,
@@ -521,12 +559,47 @@ def check_attention(device):
                                     "library_ms": None,
                                     "attention_library_ms": attn_lib_ms,
                                     "max_abs_err": err,
-                                    "streamed": plan.streamed, **{
+                                    "v_max_abs_err": v_err,
+                                    "streamed": plan.streamed,
+                                    "path": plan.path, **{
                                         k: v for k, v in paths.items()
-                                        if k in ("projection_ms",
-                                                 "attention_ms",
-                                                 "device_kernels")}}
+                                        if k.startswith(("projection",
+                                                         "attention_"))
+                                        or k == "device_kernels"}}
     return times
+
+
+def streamed_bounds(g: int, n: int, c: int, dtype: str) -> dict:
+    """The bound of each device kernel of kernel A's streamed path at G
+    bands of N tokens at width C: the k/v projection (x read, k and v
+    written, w's k and v columns and their bias read; 4 G N C^2 flop) and
+    the attention (x, k and v read, o written, w's q columns and bias read;
+    the q projection's 2 G N C^2 and q.k^T and p.v's 4 G N^2 C flop)."""
+    elt, rows = (4 if dtype == "float32" else 2), g * n
+    out = {}
+    for part, nbytes, flops in (
+            ("projection", elt * (3 * rows * c + 2 * c * c) + 8 * c,
+             4 * rows * c * c),
+            ("attention", elt * (4 * rows * c + c * c) + 4 * c,
+             2 * rows * c * c + 4 * g * n * n * c)):
+        out[f"{part}_bound_ms"], out[f"{part}_bound_by"] = bound(
+            nbytes, flops, dtype)
+    return out
+
+
+def projection_yardsticks(x, w, b) -> dict:
+    """The f32 k/v projection's plain version's device ms (the plain
+    version's projection of the same columns) and one library call's
+    (torch.addmm over the same columns, TF32 off), on (G, N, C) x."""
+    import torch
+    g, n, c = x.shape
+    rows = g * n
+    wkv, bkv = w[:, c:].contiguous(), b[c:].contiguous()
+    x2 = x.view(rows, c)
+    return {"projection_plain_ms": kernel_times(
+                lambda: torch.matmul(x.float(), wkv.float()) + bkv)[0],
+            "projection_library_ms": kernel_times(
+                lambda: torch.addmm(bkv, x2, wkv))[0]}
 
 
 # ------------------------------------------------------------- kernel C
@@ -647,7 +720,8 @@ def check_training_attention(device):
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "exp_floor_ms": floor_ms,
                 "library_ms": lib_ms, "backward_ms": bwd_ms,
-                "streamed": streamed}
+                "streamed": streamed,
+                "path": "streamed" if streamed else "resident"}
     return results
 
 
@@ -1184,10 +1258,14 @@ def evaluate(state_dict, device):
     kernels.reset_launch_counts()
     res = ev.accumulate(iter(batches), with_hd95=True)
     counts = kernels.launch_counts()
-    log("evaluate", **res, launches=counts, steps=len(batches))
+    paths = {"bf16": kernels.path_counts()}
+    log("evaluate", **res, launches=counts, steps=len(batches),
+        band_attention_paths=paths["bf16"])
     want = {"band_attention": 8 * len(batches), "greedy_nms": len(batches)}
     if any(counts[k] != v for k, v in want.items()):
         raise AssertionError(f"evaluation launched {counts}, want {want}")
+    if paths["bf16"] != {"short bf16": 8 * len(batches)}:
+        raise AssertionError(f"evaluation's kernel A paths {paths['bf16']}")
     if res["n_images"] != EVAL_BATCHES * EVAL_BATCH:
         raise AssertionError(f"evaluated {res['n_images']} images")
     if not all(np.isfinite(res[k]) and 0.0 <= res[k] <= 1.0
@@ -1208,19 +1286,27 @@ def evaluate(state_dict, device):
     got = {}
     for dev in (device, "cpu"):
         e32 = build_evaluator(segpp_sd, dev, torch.float32)
+        kernels.reset_launch_counts()
         with torch.no_grad():
             x = torch.from_numpy(imgs).to(dev).permute(0, 3, 1, 2)
             got[str(dev)] = (e32.model(x)[0].cpu(), e32.step(imgs)[0].cpu())
+        if dev == device:
+            paths["f32"] = kernels.path_counts()
+            n32 = kernels.launch_counts()["band_attention"]
+            if n32 < 8 or paths["f32"] != {"short f32": n32}:
+                raise AssertionError(f"f32 evaluation step's kernel A "
+                                     f"paths {paths['f32']}")
     (lg, bg), (lc, bc) = got[str(device)], got["cpu"]
     err = (lg - lc).abs().max().item()
     flipped = (bg != bc).float().mean().item()
     log("evaluate", check="f32 card vs cpu", images=len(imgs),
         mask_logits_max_abs=err, tol=1e-3, flipped_pixel_share=flipped,
-        flipped_tol=1e-3, mask_share=bc.mean().item())
+        flipped_tol=1e-3, mask_share=bc.mean().item(),
+        band_attention_paths=paths["f32"])
     if not (err <= 1e-3 and flipped <= 1e-3):
         raise AssertionError(f"f32 evaluation step card vs cpu: mask logits "
                              f"{err}, flipped pixels {flipped}")
-    return counts
+    return counts, paths
 
 
 # ------------------------------------------------------- decoder training
@@ -2005,6 +2091,7 @@ def shapes_phase(device, state_dict) -> dict:
     stats = serve(sd_s, device, torch.float32, requests, scale="s")
     out["yolov12s f32 640"] = counts = dict(kernels.launch_counts())
     devices["yolov12s f32 640"] = kernels.device_counts()["band_attention"]
+    out["kernel A paths"] = {"yolov12s f32 640": kernels.path_counts()}
     for st in stats:
         log("shapes", serve="yolov12s f32 640^2", **st)
     check_launches("yolov12s f32 640^2", counts, 8 * len(requests),
@@ -4020,7 +4107,7 @@ def _kernel_name(line: str):
     step or consumer warpgroups, flags), else None: a `_mma_` or `_wgmma_`
     kernel is bf16, the others f32."""
     import re
-    m = re.search(r"((?:band_attention_(?:qkv_|stream_)?|a2c2f_|"
+    m = re.search(r"((?:band_attention_(?:qkv_|stream_|short_)?|a2c2f_|"
                   r"kv_projection_)(?:wgmma_|mma_|f32_)?kernel)(I\S*?EE)?",
                   line)
     if not m:
@@ -4082,6 +4169,11 @@ def check_build_report(report: list) -> None:
         raise AssertionError("no f32 a2c2f kernel in the build report")
     if not any("wgmma" in e["kernel"] for e in report):
         raise AssertionError("no wgmma kernel in the build report")
+    for name in ("band_attention_short_wgmma_kernel<",
+                 "band_attention_short_f32_kernel<",
+                 "kv_projection_f32_kernel<"):
+        if not any(e["kernel"].startswith(name) for e in report):
+            raise AssertionError(f"no {name}...> in the build report")
     for entry in report:
         log("build", **entry)
         if entry["hmma"] is None:
@@ -4208,7 +4300,7 @@ def main() -> int:
     shapes = shapes_phase(device, state_dict)
     mark("shapes")
 
-    eval_counts = evaluate(state_dict, device)
+    eval_counts, eval_paths = evaluate(state_dict, device)
     mark("evaluate")
     dec = train_decoder_phase(state_dict, device)
     mark("train-decoder")
@@ -4256,27 +4348,60 @@ def main() -> int:
     multi_head = {k: r for k, r in train_attn.items()
                   if not k[0].endswith("single")}
 
-    def attention_row(cases, at, streamed_only=False):
+    def attention_row(cases, at, path=None, dtypes=BOTH):
         errs = {dn: [r["max_abs_err"] for (_, d), r in cases.items()
-                     if d == dn and (r["streamed"] or not streamed_only)]
-                for dn in BOTH}
+                     if d == dn and path in (None, r["path"])]
+                for dn in dtypes}
         row = cases[at]
         return {**{k: row[k] for k in keys},
-                **{k: row[k] for k in ("exp_floor_ms", "projection_ms",
-                                       "attention_ms") if k in row},
+                **{k: row[k] for k in (
+                    "exp_floor_ms", "projection_ms", "attention_ms",
+                    "projection_bound_ms", "projection_bound_by",
+                    "attention_bound_ms", "attention_bound_by") if k in row},
                 "max_abs_err": max(sum(errs.values(), [])),
                 **{f"max_abs_err_{SHORT[dn]}": max(e) if e else None
                    for dn, e in errs.items()},
-                "at": f"{at[0]} {at[1]}",
-                "path": "streamed" if row["streamed"] else "resident",
+                "at": f"{at[0]} {at[1]}", "path": row["path"],
                 "ms_source": times_source(row)}
 
-    stream_a = attention_row(attn_cases, ("L6@1280", "bfloat16"), True)
-    stream_a32 = attention_row(attn_cases, ("L6@640b16", "float32"), True)
-    stream_c = attention_row(multi_head, ("L6@1024", "float32"), True)
+    def projection_row(at):
+        """The f32 k/v projection (the first device kernel of f32 kernel
+        A's streamed path) at one case; its error v's (its output) over
+        every f32 streamed case."""
+        row = attn_cases[at]
+        return {"max_abs_err": max(r["v_max_abs_err"] for (_, d), r in
+                                   attn_cases.items()
+                                   if d == "float32" and r["streamed"]),
+                "ms": row["projection_ms"],
+                "plain_ms": row["projection_plain_ms"],
+                "bound_ms": row["projection_bound_ms"],
+                "bound_by": row["projection_bound_by"],
+                "library_ms": row["projection_library_ms"],
+                "library": "torch.addmm (TF32 off)",
+                "at": f"{at[0]} {at[1]}",
+                "ms_source": times_source(row),
+                **{f"ms {k}": r["projection_ms"] for (k, d), r in
+                   attn_cases.items() if d == "float32" and r["streamed"]},
+                **{f"library_ms {k}": r["projection_library_ms"]
+                   for (k, d), r in attn_cases.items()
+                   if d == "float32" and r["streamed"]}}
+
+    for (case, dn), r in attn_cases.items():
+        if r["path"] == "short" and r["max_abs_err"] > SHORT_TOL[dn]:
+            raise AssertionError(f"short path {case} {dn}: "
+                                 f"{r['max_abs_err']}")
+    stream_a = attention_row(attn_cases, ("L6@1280", "bfloat16"), "streamed")
+    stream_a32 = attention_row(attn_cases, ("L6@640b16", "float32"),
+                               "streamed")
+    short_a = attention_row(attn_cases, ("L6@160", "bfloat16"), "short",
+                            ("bfloat16",))
+    short_a32 = attention_row(attn_cases, ("L8@160", "float32"), "short",
+                              ("float32",))
+    stream_c = attention_row(multi_head, ("L6@1024", "float32"), "streamed")
     stream_c16 = {k: v for k, v in multi_head[("L6@1408", "bfloat16")].items()
-                  if k != "streamed"}
+                  if k not in ("streamed", "path")}
     shapes_devices = shapes.pop("device kernels")
+    shapes_paths = shapes.pop("kernel A paths")["yolov12s f32 640"]
     print(json.dumps({"kernels": [
         {"name": "band_attention", "route": "cuda",
          "source": src + "band_attention.cu", "replaces": pallas + ":357",
@@ -4314,13 +4439,36 @@ def main() -> int:
              attn_cases[("L6@1280", "bfloat16")]["attention_library_ms"]},
         {"name": "band_attention_streamed_f32", "route": "cuda",
          "source": src + "band_attention.cu", "replaces": pallas + ":357",
-         "device_kernels": ["kv_projection_kernel",
+         "device_kernels": ["kv_projection_f32_kernel",
                             "band_attention_stream_kernel<R, true>"],
          "launches": shapes["yolov12s f32 640"]["band_attention"],
          "device_launches": shapes_devices["yolov12s f32 640"],
          **stream_a32,
          "attention_library_ms":
              attn_cases[("L6@640b16", "float32")]["attention_library_ms"]},
+        {"name": "kv_projection_f32", "route": "cuda",
+         "source": src + "band_attention.cu", "replaces": pallas + ":357",
+         "device_kernels": ["kv_projection_f32_kernel"],
+         "launches": shapes_paths.get("streamed f32", 0),
+         **projection_row(("L6@640b16", "float32"))},
+        {"name": "band_attention_short", "route": "cuda",
+         "source": src + "band_attention_short.cu",
+         "replaces": pallas + ":357",
+         "device_kernels": ["band_attention_short_wgmma_kernel<HD>"],
+         "launches": eval_paths["bf16"].get("short bf16", 0),
+         "launches_by_path": {"evaluate": eval_paths["bf16"]},
+         **short_a,
+         "attention_library_ms":
+             attn_cases[("L6@160", "bfloat16")]["attention_library_ms"]},
+        {"name": "band_attention_short_f32", "route": "cuda",
+         "source": src + "band_attention_short.cu",
+         "replaces": pallas + ":357",
+         "device_kernels": ["band_attention_short_f32_kernel<HD>"],
+         "launches": eval_paths["f32"].get("short f32", 0),
+         "launches_by_path": {"evaluate f32 step": eval_paths["f32"]},
+         **short_a32,
+         "attention_library_ms":
+             attn_cases[("L8@160", "float32")]["attention_library_ms"]},
         {"name": "greedy_nms", "route": "cuda",
          "source": src + "greedy_nms.cu",
          "replaces": "yolou_tpu/ops/pallas_nms.py:97",

@@ -111,8 +111,9 @@ def test_band_attention_on_a_side_stream(cuda):
 
 def test_band_attention_refuses_what_it_cannot_run(cuda):
     """Alignment and device are refused, and the resident path in f32,
-    which has none; a head of 48 is not (padded to 64 in the wrapper, the
-    streamed path, within 1e-4 of the plain version), nor a band past the
+    which has none, and the short path past 64 tokens; a head of 48 is not
+    (padded to 64 in the wrapper, the short path at 16 tokens, within 1e-4
+    of the plain version), nor a band past the
     bf16 resident path (one token past
     its cluster's 1024), nor N = 1000 in f32: they run the streamed path
     (two device kernels, one count) and agree with the plain version."""
@@ -141,7 +142,12 @@ def test_band_attention_refuses_what_it_cannot_run(cuda):
     with pytest.raises(ValueError, match="one device"):
         area_attention_qkv_fused(x, w.cpu(), b, 2)
     with pytest.raises(ValueError, match="no resident path"):
-        _launch_qkv_attention(x, w, b, 2, streamed=False)
+        _launch_qkv_attention(x, w, b, 2, "resident")
+    x, w, b = _attn_inputs(1, 65, 64, torch.float32, cuda, seed=4)
+    with pytest.raises(ValueError, match="64 tokens or fewer"):
+        _launch_qkv_attention(x, w, b, 2, "short")
+    with pytest.raises(ValueError, match="path must be one of"):
+        _launch_qkv_attention(x, w, b, 2, "cluster")
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
@@ -294,14 +300,14 @@ def test_streamed_path_matches_plain_at_any_band(cuda, g, n, heads, dtype,
     resident path's bit for bit: the same products in the same order."""
     c = 32 * heads
     x, w, b = _attn_inputs(g, n, c, dtype, cuda, seed=n + heads)
-    o, v = _launch_qkv_attention(x, w, b, heads, streamed=True)
+    o, v = _launch_qkv_attention(x, w, b, heads, "streamed")
     torch.cuda.synchronize()
     o_ref, v_ref = area_attention_qkv_fused_plain(x, w, b, heads)
     assert (o.float() - o_ref.float()).abs().max().item() <= tol
     assert (v.float() - v_ref.float()).abs().max().item() <= tol
     if dtype == torch.bfloat16 and n <= max_tokens(c):
         assert torch.equal(v, _launch_qkv_attention(x, w, b, heads,
-                                                    streamed=False)[1])
+                                                    "resident")[1])
     q, k, v = _qkv_inputs(g, n, c, dtype, cuda, seed=n + 2 * heads)
     o = _launch_band_attention(q, k, v, heads, streamed=True)
     torch.cuda.synchronize()
@@ -328,7 +334,7 @@ def test_streamed_kernels_at_ragged_bands(cuda, dtype, tol, rows, n):
     g, heads = 3, 2
     c = 32 * heads
     x, w, b = _attn_inputs(g, n, c, dtype, cuda, seed=n + rows)
-    o, v = _launch_qkv_attention(x, w, b, heads, streamed=True, rows=rows)
+    o, v = _launch_qkv_attention(x, w, b, heads, "streamed", rows=rows)
     q, k, vv = _qkv_inputs(g, n, c, dtype, cuda, seed=n + rows + 1)
     oc = _launch_band_attention(q, k, vv, heads, streamed=True, rows=rows)
     torch.cuda.synchronize()
@@ -368,7 +374,7 @@ def test_streamed_kernels_at_every_yolov12_band(cuda, scale, dtype, tol):
         q, k, v = _qkv_inputs(g, n, c, dtype, cuda, seed=n + c + 1)
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            o, ov = _launch_qkv_attention(x, w, b, heads, streamed=True)
+            o, ov = _launch_qkv_attention(x, w, b, heads, "streamed")
             oc = _launch_band_attention(q, k, v, heads, streamed=True)
         torch.cuda.current_stream().wait_stream(side)
         o_ref, v_ref = area_attention_qkv_fused_plain(x, w, b, heads)
@@ -407,6 +413,105 @@ def test_streamed_kernels_refuse_what_they_cannot_map(cuda):
         area_attention_fused(shifted, k, v, 2)
 
 
+# ------------------------------------- kernel A's short path (<= 64 tokens)
+
+# G, N, C, heads: the 160^2 bands at batch 16, 8 and 128 (yolov12n's layers
+# 6 and 8), N = 1, 16 and 64, G not a multiple of the bands a tile packs
+# (P = 64 // N), the largest C at N = 25 (yolov12x's 384) and a C past every
+# yolov12 width (the ring refills); heads of 48 and 16 (padded) below
+SHORT_CASES = [(64, 25, 64, 2), (16, 25, 128, 4), (32, 25, 64, 2),
+               (8, 25, 128, 4), (512, 25, 64, 2), (128, 25, 128, 4),
+               (67, 1, 32, 1), (9, 16, 64, 2), (3, 64, 128, 4),
+               (7, 25, 64, 2), (5, 33, 256, 8), (16, 25, 384, 12),
+               (3, 25, 896, 28)]
+# f32 within 1e-5; bf16 within 2^-7, one bf16 step of an output in [1, 2)
+SHORT_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("g,n,c,heads", SHORT_CASES)
+def test_short_path_matches_plain(cuda, g, n, c, heads, dtype):
+    """Kernel A's short path (one device kernel a call: whole bands packed
+    to a 64-row tile, projection and attention in one launch) is the plan
+    at every band of 64 tokens or fewer, and agrees with the plain
+    version."""
+    assert attention_plan(g, n, c, dtype).path == "short"
+    x, w, b = _attn_inputs(g, n, c, dtype, cuda, seed=g + n + c)
+    kernels.reset_launch_counts()
+    o, v = area_attention_qkv_fused(x, w, b, heads)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["band_attention"] == 1
+    assert kernels.device_counts()["band_attention"] == 1
+    kind = "f32" if dtype == torch.float32 else "bf16"
+    assert kernels.path_counts() == {f"short {kind}": 1}
+    o_ref, v_ref = area_attention_qkv_fused_plain(x, w, b, heads)
+    for got, want in ((o, o_ref), (v, v_ref)):
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= SHORT_TOL[dtype], err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [16, 48])
+def test_short_path_at_padded_heads(cuda, hd, dtype):
+    """Heads of 16 and 48 at the 160^2 band, padded to 32 and 64 by the
+    wrapper and run on the short path with the true scale."""
+    x, w, b = _attn_inputs(16, 25, 2 * hd, dtype, cuda, seed=hd)
+    kernels.reset_launch_counts()
+    o, v = area_attention_qkv_fused(x, w, b, 2)
+    torch.cuda.synchronize()
+    assert kernels.device_counts()["band_attention"] == 1
+    o_ref, v_ref = area_attention_qkv_fused_plain(x, w, b, 2)
+    for got, want in ((o, o_ref), (v, v_ref)):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= SHORT_TOL[dtype], err
+
+
+@pytest.mark.parametrize("rows", [64, 32])
+@pytest.mark.parametrize("g,n,c,heads", [(64, 25, 64, 2), (16, 25, 128, 4),
+                                         (67, 1, 64, 2), (9, 16, 64, 1),
+                                         (5, 32, 128, 4), (3, 25, 64, 1)])
+def test_short_f32_at_both_tile_rows(cuda, g, n, c, heads, rows):
+    """The f32 short kernel forced to tiles of 64 and of 32 rows (the two
+    CTA shapes `short_rows` chooses between) at bands of 32 tokens or
+    fewer, against the plain version within 1e-5."""
+    x, w, b = _attn_inputs(g, n, c, torch.float32, cuda, seed=g + n + rows)
+    o, v = _launch_qkv_attention(x, w, b, heads, "short", rows=rows)
+    torch.cuda.synchronize()
+    o_ref, v_ref = area_attention_qkv_fused_plain(x, w, b, heads)
+    for got, want in ((o, o_ref), (v, v_ref)):
+        assert bool(torch.isfinite(got).all())
+        assert (got - want).abs().max().item() <= SHORT_TOL[torch.float32]
+
+
+# G, N, C, heads: yolov12n's layers 6 and 8 at 640^2, batch 8 and 16, and
+# at 1280^2, batch 8
+PROJECTION_CASES = [(32, 400, 64, 2), (8, 400, 128, 4), (64, 400, 64, 2),
+                    (16, 400, 128, 4), (32, 1600, 64, 2), (8, 1600, 128, 4)]
+
+
+@pytest.mark.parametrize("g,n,c,heads", PROJECTION_CASES)
+def test_f32_projection_matches_plain_and_addmm(cuda, g, n, c, heads):
+    """f32 kernel A's streamed path, whose first launch is the k/v
+    projection on register micro-tiles (`kv_projection_f32_kernel`): v (its
+    output) against the plain version and against one `torch.addmm` of the
+    same columns (TF32 off) within 1e-5, o within 1e-5 of the plain
+    version."""
+    assert attention_plan(g, n, c, torch.float32).streamed
+    x, w, b = _attn_inputs(g, n, c, torch.float32, cuda, seed=n + c)
+    kernels.reset_launch_counts()
+    o, v = area_attention_qkv_fused(x, w, b, heads)
+    torch.cuda.synchronize()
+    assert kernels.device_counts()["band_attention"] == 2
+    o_ref, v_ref = area_attention_qkv_fused_plain(x, w, b, heads)
+    kv = torch.addmm(b[c:], x.view(-1, c), w[:, c:]).view(g, n, 2 * c)
+    for got, want in ((v, v_ref), (v, kv[..., c:]), (o, o_ref)):
+        assert bool(torch.isfinite(got).all())
+        assert (got - want).abs().max().item() <= 1e-5
+
+
 # ------------------------------------------------- heads of any width
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
@@ -419,7 +524,9 @@ def test_attention_at_any_head_width(cuda, hd, g, n, heads, dtype, tol):
     64 (padded to 32 or 64 in the wrapper, the true scale kept) on the path
     the plan gives, then kernels A and C on each path that takes the padded
     width (the resident one in bf16 at 32, where the band fits), against
-    the plain version over the unpadded operands within its tolerance."""
+    the plain version over the unpadded operands within its tolerance;
+    kernel A also on the short path where the band is 64 tokens or
+    fewer."""
     c = heads * hd
     x, w, b = _attn_inputs(g, n, c, dtype, cuda, seed=n + hd)
     q, k, v = _qkv_inputs(g, n, c, dtype, cuda, seed=n + hd + 1)
@@ -435,18 +542,21 @@ def test_attention_at_any_head_width(cuda, hd, g, n, heads, dtype, tol):
     if heads == 1:
         got.append((area_attention(q, k, v), area_attention_plain(q, k, v)))
     hdp = padded_head_dim(hd)
-    paths = [True] + ([False] if dtype == torch.bfloat16 and hdp == 32
-                      and n <= max_tokens(heads * hdp) else [])
+    paths = ["streamed"] + (["resident"] if dtype == torch.bfloat16
+                            and hdp == 32 and n <= max_tokens(heads * hdp)
+                            else [])
     xp, wp, bp = pad_qkv_projection(x, w, b, heads, hdp)
     qp, kp, vp = (pad_heads(t, heads, hdp) for t in (q, k, v))
-    for streamed in paths:
-        po, pv = _launch_qkv_attention(xp, wp, bp, heads, streamed=streamed,
+    for path in paths + (["short"] if n <= 64 else []):
+        po, pv = _launch_qkv_attention(xp, wp, bp, heads, path,
                                        scale=hd ** -0.5)
-        pc = _launch_band_attention(qp, kp, vp, heads, streamed=streamed,
-                                    scale=hd ** -0.5)
         got += [(cut_heads(po, heads, hd), o_ref),
-                (cut_heads(pv, heads, hd), v_ref),
-                (cut_heads(pc, heads, hd), ref)]
+                (cut_heads(pv, heads, hd), v_ref)]
+    for path in paths:
+        pc = _launch_band_attention(qp, kp, vp, heads,
+                                    streamed=path == "streamed",
+                                    scale=hd ** -0.5)
+        got.append((cut_heads(pc, heads, hd), ref))
     torch.cuda.synchronize()
     for a, r in got:
         assert a.dtype == dtype and a.shape == r.shape

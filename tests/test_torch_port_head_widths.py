@@ -157,10 +157,14 @@ def test_gradients_at_width_48_match_jax_vjp():
 
 def test_a_64_wide_head_takes_the_streamed_path():
     """The resident path holds heads of 32 only: a 64-wide head (or one
-    padded to 64) is planned on the streamed path in both types."""
+    padded to 64) is planned on the streamed path in both types, but for
+    kernel A's bands of 64 tokens or fewer, which take the short path at
+    either width."""
     for dtype, projection in itertools.product(
             (torch.float32, torch.bfloat16), (True, False)):
-        assert attention_plan(8, 25, 128, dtype, projection, hd=64).streamed
+        assert attention_plan(8, 25, 128, dtype, projection, hd=64).path == (
+            "short" if projection else "streamed")
+        assert attention_plan(8, 100, 128, dtype, projection, hd=64).streamed
         if dtype == torch.bfloat16:
             assert not attention_plan(8, 25, 128, dtype, projection).streamed
     assert attention_plan(8, 400, 128, torch.bfloat16, hd=64).rows == 64
@@ -329,8 +333,11 @@ def test_the_f32_layout_constants_are_the_kernels():
     """`f32_smem_bytes` and `f32_panel` mirror a2c2f_f32.cu's `F32Layout`:
     its threads, K rows a stage, ring stages, keys an attention tile,
     attention stages and probability stride."""
-    text = (Path(a2c2f_module.__file__).parent.parent / "csrc"
-            / "a2c2f_f32.cu").read_text()
+    csrc = Path(a2c2f_module.__file__).parent.parent / "csrc"
+    # the GEMM's threads, K rows a stage and ring stages live in the GEMM
+    # stream's header, which kernel A's f32 projection shares
+    text = ((csrc / "a2c2f_f32.cu").read_text()
+            + (csrc / "gemm_f32.cuh").read_text())
 
     def constant(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", text)[1])
@@ -338,8 +345,10 @@ def test_the_f32_layout_constants_are_the_kernels():
     assert (a2c2f_module._F32_THREADS, a2c2f_module._KS,
             a2c2f_module._STAGES, a2c2f_module._KB_ATT,
             a2c2f_module._ATT_STAGES, a2c2f_module._LDP_ATT) == tuple(
-        constant(n) for n in ("F32_THREADS", "KS_F32", "STAGES", "KB_ATT",
-                              "ATT_STAGES", "LDP_ATT"))
+        constant(n) for n in ("GEMM_THREADS", "KS_F32", "GEMM_STAGES",
+                              "KB_ATT", "ATT_STAGES", "LDP_ATT"))
+    assert "constexpr int F32_THREADS = GEMM_THREADS;" in text
+    assert "constexpr int STAGES = GEMM_STAGES;" in text
     assert [f32_panel(t) for t in F32_TILES] == [64, 128]
 
 

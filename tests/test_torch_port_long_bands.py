@@ -40,7 +40,8 @@ from yolou_tpu.ops.pallas_attn import area_attention_qkv_fused as jax_qkv
 from yolou_tpu.ops.pallas_attn import pallas_band_eligible
 from yolou_tpu_torch.kernels import attention as attn
 from yolou_tpu_torch.kernels.attention import (_STREAM_KEYS, attention_plan,
-                                               max_tokens, smem_bytes,
+                                               max_tokens, short_smem_bytes,
+                                               smem_bytes,
                                                stream_faster,
                                                stream_smem_bytes,
                                                streamed_plan)
@@ -90,9 +91,11 @@ def test_the_sweep_covers_the_long_band_shapes():
 def test_every_band_of_the_sweep_has_a_launchable_plan(projection, dtype):
     """Kernel A (`projection`) and kernel C, batch 1 and 8: shared memory
     within a block and a cluster of at most 8 for every band the JAX gate
-    admits (and the others of the sweep); in bfloat16 the resident path
-    exactly where it holds the band and the measured crossover does not
-    prefer the streamed one, in float32 the streamed path always."""
+    admits (and the others of the sweep); kernel A's bands of 64 tokens or
+    fewer the short path in both types; of the others in bfloat16 the
+    resident path exactly where it holds the band and the measured
+    crossover does not prefer the streamed one, in float32 the streamed
+    path always."""
     admitted = 0
     for scale, imgsz, layer, n, c, heads in SWEEP:
         for batch in (1, 8):
@@ -101,10 +104,12 @@ def test_every_band_of_the_sweep_has_a_launchable_plan(projection, dtype):
             plan = attention_plan(g, n, c, dtype, projection)
             where = (scale, imgsz, layer, g, n, c, dtype, projection)
             assert plan.smem <= SMEM_LIMIT and 1 <= plan.cluster <= 8, where
-            resident = (dtype == torch.bfloat16
+            short = projection and n <= 64
+            resident = (not short and dtype == torch.bfloat16
                         and n <= max_tokens(c, projection)
                         and not stream_faster(g, n, c, projection))
-            assert plan.streamed == (not resident), where
+            assert plan.path == ("short" if short else "resident" if resident
+                                 else "streamed"), where
             assert plan.launches == (2 if plan.streamed and projection
                                      else 1)
             if plan.streamed:
@@ -113,6 +118,9 @@ def test_every_band_of_the_sweep_has_a_launchable_plan(projection, dtype):
                 assert plan.smem == stream_smem_bytes(c, dtype, projection,
                                                       plan.rows)
                 assert g <= 65535 and -(-n // plan.rows) <= 65535, where
+            elif short:
+                assert n <= plan.rows in (64, 32), where
+                assert plan.smem == short_smem_bytes(c, dtype, 32, plan.rows)
             else:
                 assert plan.rows == 0
         admitted += pallas_band_eligible(n, c, heads)
@@ -155,7 +163,8 @@ def test_the_streamed_constants_are_the_kernels():
     # deep on each SM
     assert attention_plan(32, 1024, 64, f32, False).rows == 32
     assert attention_plan(8, 400, 128, f32).rows == 32
-    assert attention_plan(4, 25, 64, f32).rows == 16
+    assert streamed_plan(4, 25, 64, f32).rows == 16   # kernel A forced
+    assert attention_plan(4, 25, 64, f32, False).rows == 16
     assert attention_plan(32, 400, 256, f32).rows == 64
     assert attention_plan(32, 400, 256, f32, False).rows == 32
     # bf16: two consumer warpgroups in kernel A at 384 channels, or where
@@ -167,33 +176,42 @@ def test_the_streamed_constants_are_the_kernels():
     assert streamed_plan(512, 25, 64, bf16).rows == 64
     assert streamed_plan(512, 25, 384, bf16).rows == 64
 
-def test_the_resident_path_keeps_the_bands_it_took():
+@pytest.mark.parametrize("projection", [True, False], ids=["A", "C"])
+def test_the_resident_path_keeps_the_bands_it_took(projection):
     """yolov12n's bands at 160^2 (25 tokens: serving and training at batch
-    8, evaluation at 16, objectmaps at 128) stay on the bf16 resident path,
-    and its 640^2 bands (400 tokens) take the streamed path in both
-    kernels, as measured on an H100 (`tools/attention_routes.py`: at 640^2,
-    batch 8, kernel A 0.0245 / 0.0154 ms streamed against 0.0339 / 0.0200
-    resident, kernel C 0.0151 / 0.0078 against 0.0191 / 0.0161; at 160^2,
-    batch 128, A 0.0221 / 0.0491 against 0.0219 / 0.0534, C 0.0115 / 0.0206
-    against 0.0079 / 0.0151); every f32 band takes the streamed path, and so
-    do the bands the resident path cannot hold."""
+    8, evaluation at 16, objectmaps at 128) take kernel A's short path in
+    both types (one launch; at batch 16 and 128 in bf16 0.0041-0.0072 ms
+    against the resident kernel's 0.0065-0.0220 on an H100) and stay on
+    kernel C's bf16 resident path; its 640^2 bands (400 tokens) take the
+    streamed path in both kernels, as measured on an H100
+    (`tools/attention_routes.py`: at 640^2, batch 8, kernel A 0.0245 /
+    0.0154 ms streamed against 0.0339 / 0.0200 resident, kernel C 0.0151 /
+    0.0078 against 0.0191 / 0.0161; at 160^2, batch 128, C 0.0115 / 0.0206
+    against 0.0079 / 0.0151); every other f32 band takes the streamed path,
+    and so do the bands the resident path cannot hold. Kernel A keeps its
+    resident path where a band of more than 64 tokens has little work."""
     f32, bf16 = torch.float32, torch.bfloat16
     for imgsz, batches in ((160, (8, 16, 128)), (640, (8,))):
         for batch, (layer, n, c, _) in itertools.product(
                 batches, yolov12_bands("n", imgsz)):
             g = batch * (4 if layer == 6 else 1)
-            for projection in (True, False):
-                assert attention_plan(g, n, c, bf16, projection).streamed == (
-                    imgsz == 640)
-                assert attention_plan(g, n, c, f32, projection).streamed
-    assert attention_plan(8, 400, 256, bf16).streamed  # yolov12s-l L8 @640
-    assert attention_plan(1, 400, 256, bf16).streamed
-    assert not attention_plan(1, 100, 128, bf16).streamed   # little work
-    assert attention_plan(1, 100, 128, bf16, False).streamed
-    assert not attention_plan(512, 25, 64, bf16, False).streamed
-    assert attention_plan(32, 1600, 64, bf16).streamed  # yolov12n L6 @1280
-    assert attention_plan(32, 1936, 64, bf16, False).streamed  # @1408
-    assert attention_plan(1, 1600, 64, bf16, False).streamed
+            for dtype in (f32, bf16):
+                plan = attention_plan(g, n, c, dtype, projection)
+                assert plan.path == (
+                    "streamed" if imgsz == 640
+                    else "short" if projection
+                    else "resident" if dtype == bf16 else "streamed")
+    if projection:
+        assert attention_plan(8, 400, 256, bf16).streamed  # s-l L8 @640
+        assert attention_plan(1, 400, 256, bf16).streamed
+        assert attention_plan(1, 100, 128, bf16).path == "resident"
+        assert attention_plan(32, 1600, 64, bf16).streamed  # n L6 @1280
+        assert attention_plan(512, 25, 64, bf16).path == "short"
+    else:
+        assert attention_plan(1, 100, 128, bf16, False).streamed
+        assert attention_plan(512, 25, 64, bf16, False).path == "resident"
+        assert attention_plan(32, 1936, 64, bf16, False).streamed  # @1408
+        assert attention_plan(1, 1600, 64, bf16, False).streamed
 
 
 def test_the_longest_resident_bands():

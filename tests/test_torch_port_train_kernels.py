@@ -221,12 +221,13 @@ def test_attention_profiler_runs_both_entry_points_on_the_cpu(capsys):
 def test_build_timer_cases_run_on_the_cpu():
     """`tools/time_builds.py`: every case it times (kernels A and C at the
     serving, evaluation, training and profiler shapes, and on the streamed
-    path in both types, `a2c2f` at layers 6 and 8 in both types, at
+    path in both types, kernel A on each tree's planned path at the 160^2
+    bands in both types, `a2c2f` at layers 6 and 8 in both types, at
     mlp_ratio 1.2, A2C2f(96, 96), five stages and a strip at layer 6's
-    width, kernel B at (8, 512) and (16, 512)) is a valid call of the
-    package's wrapper; on the CPU each runs the plain version and counts no
-    launch; `--tiles` adds each `a2c2f` case at each token tile. Timing
-    itself needs the card."""
+    width (and the strip's plain version), kernel B at (8, 512) and (16,
+    512)) is a valid call of the package's wrapper; on the CPU each runs
+    the plain version and counts no launch; `--tiles` adds each `a2c2f`
+    case at each token tile. Timing itself needs the card."""
     from yolou_tpu_torch import kernels
     from yolou_tpu_torch.tools import time_builds
     kernels.reset_launch_counts()
@@ -234,11 +235,14 @@ def test_build_timer_cases_run_on_the_cpu():
     assert len(calls) == (len(time_builds.QKV_CASES)
                           + len(time_builds.ATTN_CASES)
                           + len(time_builds.STREAM_CASES)
+                          + len(time_builds.PLANNED_CASES)
                           + len(time_builds.A2C2F_CASES)
+                          + len(time_builds.A2C2F_PLAIN)
                           + len(time_builds.NMS_CASES))
     nms = dict(time_builds.NMS_CASES)
     types = {name: dtype for name, *_, dtype in (
-        *time_builds.STREAM_CASES, *time_builds.A2C2F_CASES)}
+        *time_builds.STREAM_CASES, *time_builds.PLANNED_CASES,
+        *time_builds.A2C2F_CASES)}
     for name, fn in calls.items():
         out = fn()
         first = out[0] if isinstance(out, tuple) else out

@@ -37,6 +37,7 @@
 //  64) at every shape.
 
 #include "a2c2f.cuh"
+#include "gemm_f32.cuh"
 
 namespace cg = cooperative_groups;
 using namespace yolou;
@@ -46,140 +47,52 @@ namespace {
 
 // ------------------------------------------------- f32 on register tiles
 
-constexpr int F32_THREADS = 256;
-constexpr int KS_F32 = 32;         // K rows of a GEMM stage
-constexpr int STAGES = 4;          // GEMM ring
+constexpr int F32_THREADS = GEMM_THREADS;
+constexpr int STAGES = GEMM_STAGES;  // GEMM ring
 constexpr int KB_ATT = 64;         // keys of an attention tile (a group's)
 constexpr int ATT_STAGES = 2;      // attention ring
 constexpr int LDP_ATT = 76;        // probability rows (floats), as kernel C
 constexpr int RUN_F32 = 2;         // tokens a thread of the stencil takes
 
 // The f32 kernel's shapes at token tile TM and head width HD_ (floats).
-// GEMM: thread (ty, tx) of a TY x TX grid owns 4 rows x 4 columns of a
-// panel of NP columns; a stage holds the activation slab [TM][32] (one TMA
-// box) and the weight slab [32][NP] (one bulk copy of the packed weight).
-// Attention: a stage holds, per key group, k and v of 64 keys as HD_ / 32
-// boxes of [64][32] (128-byte swizzle), then q [TM][HD_ + 4] and each
-// group's probabilities [TM][LDP_ATT].
+// GEMM (gemm_f32.cuh, `GemmTile`): thread (ty, tx) of a TY x TX grid owns
+// 4 rows x 4 columns of a panel of NP columns; a stage holds the activation
+// slab [TM][32] (one TMA box) and the weight slab [32][NP] (one bulk copy of
+// the packed weight). Attention: a stage holds, per key group, k and v of
+// 64 keys as HD_ / 32 boxes of [64][32] (128-byte swizzle), then q [TM][HD_
+// + 4] and each group's probabilities [TM][LDP_ATT].
 template <int TM, int HD_>
-struct F32Layout {
-  static constexpr int TY = TM / 4, TX = F32_THREADS / TY, NP = 4 * TX;
-  static constexpr int A_SLAB = TM * KS_F32, W_SLAB = KS_F32 * NP;
-  static constexpr int STAGE = A_SLAB + W_SLAB;
-  static constexpr int GEMM = STAGES * STAGE;
+struct F32Layout : GemmTile<TM> {
   static constexpr int NG = 64 / TM;           // key groups: 1 or 2
   static constexpr int KV_TILE = KB_ATT * HD_;  // one group's k (or v)
   static constexpr int KV_STAGE = 2 * NG * KV_TILE;
   static constexpr int LDQ = HD_ + 4;
   static constexpr int ATT =
       ATT_STAGES * KV_STAGE + TM * LDQ + NG * TM * LDP_ATT;
-  static constexpr int FLOATS = GEMM > ATT ? GEMM : ATT;
+  static constexpr int FLOATS =
+      GemmTile<TM>::GEMM > ATT ? GemmTile<TM>::GEMM : ATT;
   // 1024 bytes of slack for the swizzled tiles' alignment, the barriers
   static constexpr size_t BYTES = 1024 + sizeof(float) * (size_t)FLOATS +
                                   8 * (2 * STAGES + ATT_STAGES);
 };
 
-// The GEMM ring's state: stages issued so far over all GEMMs (stage s uses
-// slot s % STAGES; its barriers complete for the (s / STAGES)-th time).
-struct Ring {
-  float* smem;
-  uint64_t* full;      // [STAGES]: the stage's bytes landed
-  uint64_t* empty;     // [STAGES]: its 8 warps are done with it
-  int used;
-};
-
-// acc = A . W for the TM rows of a tile and the N columns of W, panel by
-// panel, both operands through the ring: A a TMA box of the map `amap`
-// at column a_col + k, row a_row (rows past the tile's `rows` are other
-// tokens' and never stored; columns past K never read); W packed by the
-// wrapper as [panels][ceil32(K)][NP] (zero past K and N), a stage's slab one
-// contiguous bulk copy. One thread issues every copy, STAGES - 1 stages
-// ahead; the warps free a stage through its `empty` barrier. At each
-// panel's end epi(row, col, float4 of columns col .. col + 3) for the
-// thread's rows < rows and columns < N (N a multiple of 4).
+// acc = A . W through the ring (`gemm_f32_stream`) with W packed by the
+// wrapper as [panels][ceil32(K)][NP] (zero past K and N), a stage's slab
+// one contiguous bulk copy.
 template <int TM, int HD_, typename Epi>
 __device__ __forceinline__ void gemm_f32(Ring& ring, const CUtensorMap* amap,
                                          int a_col, int a_row, int rows,
                                          const float* Wp, int K, int N,
                                          Epi epi) {
-  using L = F32Layout<TM, HD_>;
-  const int tid = threadIdx.x;
-  const int ty = tid / L::TX, tx = tid % L::TX;
-  const int nk = (K + KS_F32 - 1) / KS_F32, Kp = nk * KS_F32;
-  const int total = nk * ((N + L::NP - 1) / L::NP);
-  const int base = ring.used;
-  // the threads' global writes that A reads (the last epilogue's) and
-  // their shared-memory writes to the region (q, p) ordered before TMA
-  fence_proxy_async_global();
-  fence_proxy_async();
-  __syncthreads();
-
-  auto issue = [&](int j) {          // thread 0: stage j into its slot
-    const int s = base + j, slot = s % STAGES;
-    if (s >= STAGES) mbar_wait(&ring.empty[slot], ((s / STAGES) - 1) & 1);
-    float* As = ring.smem + slot * L::STAGE;
-    const int p = j / nk, k0 = (j - p * nk) * KS_F32;
-    mbar_expect_tx(&ring.full[slot], L::STAGE * sizeof(float));
-    tma_load_2d(As, amap, &ring.full[slot], a_col + k0, a_row);
-    bulk_load(As + L::A_SLAB, Wp + ((size_t)p * Kp + k0) * L::NP,
-              L::W_SLAB * sizeof(float), &ring.full[slot]);
-  };
-  if (tid == 0)
-    for (int j = 0; j < min(STAGES - 1, total); ++j) issue(j);
-  float acc[4][4];
-  for (int j = 0; j < total; ++j) {
-    const int p = j / nk, kb = j - p * nk;
-    if (kb == 0) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-    }
-    if (tid == 0 && j + STAGES - 1 < total) issue(j + STAGES - 1);
-    const int s = base + j, slot = s % STAGES;
-    mbar_wait(&ring.full[slot], (s / STAGES) & 1);
-    const float* As = ring.smem + slot * L::STAGE + 4 * ty * KS_F32;
-    const float* Ws = ring.smem + slot * L::STAGE + L::A_SLAB + 4 * tx;
-    auto step = [&](int kk) {        // 4 K rows: 8 loads of 4, 64 FMAs
-      float4 a[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a[i] = *reinterpret_cast<const float4*>(As + i * KS_F32 + kk);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float4 w =
-            *reinterpret_cast<const float4*>(Ws + (kk + u) * L::NP);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float av = lane_of(a[i], u);
-          acc[i][0] = fmaf(av, w.x, acc[i][0]);
-          acc[i][1] = fmaf(av, w.y, acc[i][1]);
-          acc[i][2] = fmaf(av, w.z, acc[i][2]);
-          acc[i][3] = fmaf(av, w.w, acc[i][3]);
-        }
-      }
-    };
-    const int kmax = min(KS_F32, K - kb * KS_F32);
-    if (kmax == KS_F32) {
-#pragma unroll
-      for (int kk = 0; kk < KS_F32; kk += 4) step(kk);
-    } else {
-      for (int kk = 0; kk < kmax; kk += 4) step(kk);
-    }
-    __syncwarp();
-    if ((tid & 31) == 0) mbar_arrive(&ring.empty[slot]);
-    if (kb == nk - 1) {
-      const int col = p * L::NP + 4 * tx;
-      if (col < N) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (4 * ty + i < rows)
-            epi(4 * ty + i, col,
-                make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
-      }
-    }
-  }
-  __syncthreads();                   // every stage read, the stores made
-  ring.used = base + total;
+  using L = GemmTile<TM>;
+  const int Kp = (K + KS_F32 - 1) / KS_F32 * KS_F32;
+  gemm_f32_stream<TM>(
+      ring, amap, a_col, a_row, rows,
+      [=](float* dst, uint64_t* bar, int p, int k0) {
+        bulk_load(dst, Wp + ((size_t)p * Kp + k0) * L::NP,
+                  L::W_SLAB * sizeof(float), bar);
+      },
+      K, N, epi);
 }
 
 // f32 loads and stores of a tile's own scratch rows through L2
@@ -478,17 +391,13 @@ a2c2f_f32_kernel(const __grid_constant__ Params p) {
   float* const qkv1 = static_cast<float*>(p.qkv1);
   const float sl2 = p.scale * LOG2E;
 
-  Ring ring = {smem, bars, bars + STAGES, 0};
+  Ring ring = gemm_ring(smem, bars);
   uint64_t* kv_full = bars + 2 * STAGES;
   int kv_used = 0;
   // this phase's ABlock and the next one's (its qkv), read from shared
   // memory where used rather than held in registers
   __shared__ ABlockWeights wbs[2];
   if (tid == 0) {
-    for (int i = 0; i < STAGES; ++i) {
-      mbar_init(&ring.full[i], 1);
-      mbar_init(&ring.empty[i], F32_THREADS / 32);
-    }
     for (int i = 0; i < ATT_STAGES; ++i) mbar_init(&kv_full[i], 1);
     mbar_init_fence();
     wbs[0] = p.blk[0];

@@ -36,12 +36,15 @@
 // of the whole band in each CTA's shared memory; the streamed one (bf16 and
 // f32, at the end of this file: TMA, FMA micro-tiles in f32, wgmma in bf16)
 // passes them through in key tiles, so its shared memory does not grow with
-// N. The wrapper
-// (`kernels/attention.py::attention_plan`) sends a bf16 band to the
+// N. Kernel A's bands of 64 tokens or fewer run neither: they take the
+// short path, one launch over tiles of whole bands
+// (band_attention_short.cu). The wrapper
+// (`kernels/attention.py::attention_plan`) sends another bf16 band to the
 // resident path where it fits (227 KB; in kernel A one cluster of 8 CTAs,
 // N <= 1024) and was the faster of the two on an H100
-// (`tools/attention_routes.py`), every other band, and every f32 band, to
-// the streamed path, which was the faster at every f32 band kernel A takes.
+// (`tools/attention_routes.py`), every other band, and every other f32
+// band, to the streamed path, which was the faster at every f32 band
+// kernel A takes.
 //
 // bf16, the serving and training type, runs on the tensor cores. The
 // resident path (attention_mma.cuh): 8 warps a CTA, a warp per 16-row query tile whose q
@@ -70,9 +73,10 @@
 //    v instead of two cluster barriers and an exchange. Shared memory per
 //    CTA: 128 * ceil16(N) bytes.
 //
-// f32 runs on the streamed path only (below); kernel A's first launch
-// there projects k and v a warp per 4 tokens, lane d computing channel d
-// (and d + 32 at hd 64). The resident path takes heads of 32; heads of 64
+// f32 runs on the streamed path only here (below); kernel A's first launch
+// there projects k and v of every head in one GEMM on register
+// micro-tiles fed by TMA (`kv_projection_f32_kernel`, gemm_f32.cuh). The
+// resident path takes heads of 32; heads of 64
 // stream, in one form of each streamed kernel (f32 32 query rows a CTA,
 // bf16 one consumer warpgroup): the same design with tiles of two 32-channel
 // boxes (f32) or 128-byte rows on the 128-byte swizzle (bf16, four k steps
@@ -86,6 +90,7 @@
 
 #include "attention_mma.cuh"
 #include "band_attention.cuh"
+#include "gemm_f32.cuh"
 #include "hopper.cuh"
 
 namespace cg = cooperative_groups;
@@ -93,7 +98,6 @@ using namespace yolou;
 
 namespace {
 
-constexpr int TOK = 4;        // tokens per warp in the projection
 constexpr int MAX_CLUSTER = 8;  // portable thread-block cluster size
 
 // ------------------------------------------------- bf16 on tensor cores
@@ -273,14 +277,6 @@ int sm_count() {
       n = 132;
   }
   return n;
-}
-
-// Lets `kernel` use all the dynamic shared memory a block may have (once).
-template <auto kernel>
-cudaError_t allow_smem() {
-  static const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
-  return e;
 }
 
 // How many CTAs (cluster 0) or clusters of `cluster` CTAs of the 8-warp
@@ -581,58 +577,46 @@ kv_projection_mma_kernel(const bf16* __restrict__ x,
   }
 }
 
-// Kernel A's first launch, f32: k and v of TOK tokens a warp for head h
-// (HD_ channels), lane = channel (and channel + 32 at HD_ = 64), f32 FMAs
-// over the input channels in order (weights read from L2).
-template <int HD_>
-__global__ void __launch_bounds__(WARPS * 32)
-kv_projection_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                     const float* __restrict__ bias, float* __restrict__ k_out,
-                     float* __restrict__ v_out, int N, int C) {
-  constexpr int L = HD_ / 32;                    // channels a lane
-  const int h = blockIdx.x, g = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n0 = (blockIdx.z * WARPS + warp) * TOK;
-  if (n0 >= N) return;                           // warp-uniform, no barrier
-  const float* xg = x + (size_t)g * N * C;
-  float bk[L], bv[L], ak[TOK][L], av[TOK][L];
-#pragma unroll
-  for (int l = 0; l < L; ++l) {
-    bk[l] = bias[C + h * HD_ + 32 * l + lane];
-    bv[l] = bias[2 * C + h * HD_ + 32 * l + lane];
-#pragma unroll
-    for (int t = 0; t < TOK; ++t) ak[t][l] = av[t][l] = 0.f;
-  }
-  for (int c0 = 0; c0 < C; c0 += 32) {
-    float xl[TOK];
-#pragma unroll
-    for (int t = 0; t < TOK; ++t)
-      xl[t] = n0 + t < N ? xg[(size_t)(n0 + t) * C + c0 + lane] : 0.f;
-    for (int cc = 0; cc < 32; ++cc) {
-      const float* wr = w + (size_t)(c0 + cc) * 3 * C + h * HD_ + lane;
-#pragma unroll
-      for (int l = 0; l < L; ++l) {
-        const float wk = wr[C + 32 * l], wv = wr[2 * C + 32 * l];
-#pragma unroll
-        for (int t = 0; t < TOK; ++t) {
-          const float xc = __shfl_sync(FULL, xl[t], cc);
-          ak[t][l] = fmaf(xc, wk, ak[t][l]);
-          av[t][l] = fmaf(xc, wv, av[t][l]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int t = 0; t < TOK; ++t) {
-    const int n = n0 + t;
-    if (n >= N) break;                           // warp-uniform
-    const size_t off = ((size_t)g * N + n) * C + h * HD_ + lane;
-#pragma unroll
-    for (int l = 0; l < L; ++l) {
-      k_out[off + 32 * l] = ak[t][l] + bk[l];
-      v_out[off + 32 * l] = av[t][l] + bv[l];
-    }
-  }
+// Kernel A's first launch, f32: k | v = x . w[:, C:3C] + b[C:3C] for every
+// head in one grid, a GEMM over the (G N)-token x 2C-column output on
+// gemm_f32.cuh's register micro-tiles (full f32, each output one chain of
+// FMAs over the channels in order): a CTA per tile of KV_TM tokens and
+// panel of NP columns, x's slab by a TMA box of `x_map` ((G N, C), boxes of
+// 32 channels x KV_TM tokens), the weight's by one box of `w_map` ((C, 3C),
+// boxes of NP columns x 32 rows), both through the 4-stage ring; k into
+// the scratch, v into kernel A's second output, (G, N, C) head-major as w's
+// columns are. What bounds it: 4 G N C^2 flop at 67 TFLOP/s, about equal
+// to its bytes (x read, k and v written) at 3.35 TB/s at C = 64-128; a CTA
+// reads its weight slab once for 64 tokens (the SIMT kernel before it read
+// each weight once for 4).
+constexpr int KV_TM = 64;
+
+__global__ void __launch_bounds__(GEMM_THREADS)
+kv_projection_f32_kernel(const __grid_constant__ CUtensorMap x_map,
+                         const __grid_constant__ CUtensorMap w_map,
+                         const float* __restrict__ bias,
+                         float* __restrict__ k_out, float* __restrict__ v_out,
+                         int tokens, int C) {
+  using L = GemmTile<KV_TM>;
+  extern __shared__ unsigned char smem_raw[];
+  float* smem = reinterpret_cast<float*>(align1024(smem_raw));
+  Ring ring = gemm_ring(smem, reinterpret_cast<uint64_t*>(smem + L::GEMM));
+  if (threadIdx.x == 0) mbar_init_fence();
+  __syncthreads();
+  const int tok0 = blockIdx.x * KV_TM, col0 = blockIdx.y * L::NP;
+  gemm_f32_stream<KV_TM>(
+      ring, &x_map, 0, tok0, min(KV_TM, tokens - tok0),
+      [&](float* dst, uint64_t* bar, int, int k0) {
+        tma_load_2d(dst, &w_map, bar, C + col0, k0);
+      },
+      C, min(L::NP, 2 * C - col0), [&](int r, int col, float4 v) {
+        const int c = col0 + col;                // of the 2C k | v columns
+        const float4 b = *reinterpret_cast<const float4*>(bias + C + c);
+        float* dst = (c < C ? k_out + c : v_out + (c - C)) +
+                     (size_t)(tok0 + r) * C;
+        *reinterpret_cast<float4*>(dst) =
+            make_float4(v.x + b.x, v.y + b.y, v.z + b.z, v.w + b.w);
+      });
 }
 
 // The streamed attention, f32: R query rows a CTA (4 R threads), k and v
@@ -1107,6 +1091,12 @@ size_t stream_f32_smem(int C, int R, bool project, int hd) {
          8 * (2 * STAGES_F32 + 1);
 }
 
+// The f32 k/v projection's: the GEMM ring and its barriers.
+size_t kv_projection_f32_smem() {
+  return 1024 + sizeof(float) * (size_t)GemmTile<KV_TM>::GEMM +
+         8 * 2 * GEMM_STAGES;
+}
+
 size_t stream_wgmma_smem(int C, int NC, bool project, int hd) {
   return 1024 +
          sizeof(bf16) * (2 * (size_t)STAGES_MMA * KB_MMA * hd +
@@ -1261,12 +1251,19 @@ cudaError_t project_kv(const void* x, const void* w, const void* b, void* k,
         static_cast<const float*>(b), static_cast<bf16*>(k),
         static_cast<bf16*>(v), N, C);
   } else {
-    kv_projection_kernel<HD_>
-        <<<dim3(heads, G, (N + WARPS * TOK - 1) / (WARPS * TOK)),
-           WARPS * 32, 0, s>>>(
-            static_cast<const float*>(x), static_cast<const float*>(w),
-            static_cast<const float*>(b), static_cast<float*>(k),
-            static_cast<float*>(v), N, C);
+    using L = GemmTile<KV_TM>;
+    constexpr auto proj = kv_projection_f32_kernel;
+    const int tokens = G * N;
+    CUtensorMap xm, wm;
+    cudaError_t e = matrix_map(&xm, x, tokens, C, C, KV_TM);
+    if (e == cudaSuccess) e = matrix_map(&wm, w, C, 3 * C, 3 * C, KS_F32,
+                                         L::NP);
+    if (e == cudaSuccess) e = allow_smem<proj>();
+    if (e != cudaSuccess) return e;
+    proj<<<dim3((tokens + KV_TM - 1) / KV_TM, (2 * C + L::NP - 1) / L::NP),
+           GEMM_THREADS, kv_projection_f32_smem(), s>>>(
+        xm, wm, static_cast<const float*>(b), static_cast<float*>(k),
+        static_cast<float*>(v), tokens, C);
   }
   return cudaGetLastError();
 }

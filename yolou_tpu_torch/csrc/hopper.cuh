@@ -61,17 +61,21 @@ inline CUtensorMapSwizzle swizzle_of(int bytes) {
 // A map of a (G, N, C) tensor as three dimensions (C, N, G), boxes of
 // `cols` channels (32 in f32; the head width, 32 or 64, in bf16) x `rows`
 // tokens of one band: a box that reaches past token N is zero-filled there
-// and never reads the next band. Boxes of 128-byte rows take the 128-byte
+// and never reads the next band. With `bands` > 1 a box spans that many
+// whole bands (rows = N): it lands as their rows one after the other, and
+// bands past G read zero. Boxes of 128-byte rows take the 128-byte
 // swizzle, of 64-byte rows the 64-byte one. Fails (cudaErrorInvalidValue,
 // cudaErrorNotSupported without the driver function) rather than launch.
 inline cudaError_t band_map(CUtensorMap* map, const void* ptr, int G, int N,
-                            int C, int rows, bool f32, int cols = 32) {
+                            int C, int rows, bool f32, int cols = 32,
+                            int bands = 1) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t elt = f32 ? 4 : 2;
   const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)N, (cuuint64_t)G};
   const cuuint64_t strides[2] = {C * elt, (cuuint64_t)N * C * elt};
-  const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)rows, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)rows,
+                             (cuuint32_t)bands};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = encode(
       map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
@@ -99,6 +103,14 @@ inline cudaError_t weight_map(CUtensorMap* map, const void* ptr, int C,
       CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(cols * (f32 ? 4 : 2)),
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Lets `kernel` use all the dynamic shared memory a block may have (once).
+template <auto kernel>
+cudaError_t allow_smem() {
+  static const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
+  return e;
 }
 
 // ---------------------------------------------------------------- device
@@ -193,15 +205,17 @@ __device__ __forceinline__ float lane_of(const float4& v, int u) {
 }
 
 // A map of a row-major (rows, cols) f32 matrix (row stride `ld` floats),
-// boxes of 32 columns x `box_rows` rows, unswizzled: a box lands as a
-// dense [box_rows][32] tile; columns and rows past the matrix read zero.
+// boxes of `box_cols` columns (a multiple of 4, at most 256) x `box_rows`
+// rows, unswizzled: a box lands as a dense [box_rows][box_cols] tile;
+// columns and rows past the matrix read zero.
 inline cudaError_t matrix_map(CUtensorMap* map, const void* ptr, long rows,
-                              int cols, int ld, int box_rows) {
+                              int cols, int ld, int box_rows,
+                              int box_cols = 32) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)ld * 4};
-  const cuuint32_t box[2] = {32, (cuuint32_t)box_rows};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t unit[2] = {1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(ptr), dims,
@@ -389,6 +403,31 @@ __device__ __forceinline__ void wgmma_64x64_rs(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 64, f32) = a . b (+ d if accumulate): a 64 x 16 bf16 from
+// registers, b 16 x 64 K-major (64 rows of 16 channels) from shared memory:
+// the scores of up to 64 keys against q held as A fragments.
+__device__ __forceinline__ void wgmma_64x64_rs_k(float (&d)[32],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
 // d (64 x 64, f32) = a . b (+ d if accumulate): a 64 x 16 K-major and b
 // 16 x 64 MN-major, both from shared memory.
 __device__ __forceinline__ void wgmma_64x64_ss(float (&d)[32], uint64_t da,
@@ -461,20 +500,23 @@ __device__ __forceinline__ float reduce2(float a, float b) {
   return MAX ? fmaxf(a, b) : a + b;
 }
 
-// The online softmax of the wgmma attention kernels (band_attention.cu, the
-// bf16 a2c2f): max / sum of the 32 scores of one row a thread holds of an
-// S tile, its elements s[4 j + OFF] and s[4 j + OFF + 1], j < 16, as a
-// tree (the chain of 32 dependent steps nvcc keeps in written order is what
-// a warp waits on); every index a constant, so nothing leaves the
-// registers
-template <bool MAX, int OFF>
-__device__ __forceinline__ float row_reduce(const float (&s)[64]) {
-  float t[16];
+// The softmax of the wgmma attention kernels (band_attention.cu,
+// band_attention_short.cu, the bf16 a2c2f): max / sum of the 2 J scores of
+// one row a thread holds of an S tile of 8 J keys, its elements s[4 j +
+// OFF] and s[4 j + OFF + 1], j < J (16: a 128-key tile; 8: 64 keys), as a
+// tree (the chain of dependent steps nvcc keeps in written order is what a
+// warp waits on); every index a constant, so nothing leaves the registers
+template <bool MAX, int OFF, int J = 16>
+__device__ __forceinline__ float row_reduce(const float (&s)[4 * J]) {
+  float t[J];
 #pragma unroll
-  for (int j = 0; j < 16; ++j)
+  for (int j = 0; j < J; ++j)
     t[j] = reduce2<MAX>(s[4 * j + OFF], s[4 * j + OFF + 1]);
+  static_assert(J == 8 || J == 16, "a row of 64 or 128 keys");
+  if constexpr (J == 16) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) t[j] = reduce2<MAX>(t[j], t[j + 8]);
+    for (int j = 0; j < 8; ++j) t[j] = reduce2<MAX>(t[j], t[j + 8]);
+  }
 #pragma unroll
   for (int j = 0; j < 4; ++j) t[j] = reduce2<MAX>(t[j], t[j + 4]);
   return reduce2<MAX>(reduce2<MAX>(t[0], t[2]), reduce2<MAX>(t[1], t[3]));

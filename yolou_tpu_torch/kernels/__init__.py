@@ -11,7 +11,7 @@ the outputs' shapes and types, so `torch.export` and other graph captures
 record each launch as one node. Each wrapper counts its kernel launches in
 a `launches` attribute, in the real version only, one a call; kernel A,
 whose streamed path starts two device kernels a call, also counts those in
-`device_launches`. The differentiable ones also count the calls of their
+`device_launches`, and its launches by path and type in `path_launches`. The differentiable ones also count the calls of their
 backward (plain tensor code, no kernel) in `backward_calls`.
 """
 
@@ -43,6 +43,12 @@ def device_counts() -> Dict[str, int]:
             for name, fn in _WRAPPERS.items()}
 
 
+def path_counts() -> Dict[str, int]:
+    """Kernel A's launches since the last reset by path and type ("short
+    bf16", "streamed f32", ...; `attention.attention_plan`'s paths)."""
+    return dict(area_attention_qkv_fused.path_launches)
+
+
 def backward_counts() -> Dict[str, int]:
     """Differentiable kernel name -> backward calls since the last reset."""
     return {name: fn.backward_calls for name, fn in _WRAPPERS.items()
@@ -54,5 +60,6 @@ def reset_launch_counts() -> None:
         fn.launches = 0
         if hasattr(fn, "device_launches"):
             fn.device_launches = 0
+            fn.path_launches = {}
         if hasattr(fn, "backward_calls"):
             fn.backward_calls = 0

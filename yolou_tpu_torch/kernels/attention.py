@@ -33,15 +33,21 @@ the tensor cores, float32 on the FMA units in full f32 (which the 1e-4
 comparisons rest on; no TF32). Neither falls back to the other or to the
 plain version.
 
-Each has two paths in bfloat16, chosen by `attention_plan` from the shape:
-the resident path (`mma.sync` m16n8k16, a warp per 16 query rows, online
-softmax over steps of 32 keys in kernel A and 64 in kernel C), whose CTAs
-hold a head's keys and values of the whole band in shared memory (bands up
-to `max_tokens`), where it was the faster of the two on an H100; and the
-streamed path, which passes them through a ring of shared-memory stages
-loaded by TMA (kernel A then in two launches: the k and v projection, k
-into a scratch, then the attention): bf16 on `wgmma` with one or two
-consumer warpgroups of 64 query rows and 128-key tiles, f32 on 4 x 4
+Kernel A runs every band of 64 tokens or fewer, in both types, on the
+short path (`band_attention_short.cu`): one launch computes the projection
+and the attention of a tile of 64 rows holding P = 64 // N whole bands,
+scores across two bands of a tile masked, a single-pass softmax against
+the full row's maximum (bf16 on wgmma, f32 on FMA micro-tiles in tiles of
+64 or 32 rows, `short_rows`). Longer bands, and every band of kernel C,
+take one of two paths in bfloat16, chosen by `attention_plan` from the
+shape: the resident path (`mma.sync` m16n8k16, a warp per 16 query rows,
+online softmax over steps of 32 keys in kernel A and 64 in kernel C), whose
+CTAs hold a head's keys and values of the whole band in shared memory
+(bands up to `max_tokens`), where it was the faster of the two on an H100;
+and the streamed path, which passes them through a ring of shared-memory
+stages loaded by TMA (kernel A then in two launches: the k and v
+projection, k into a scratch, then the attention): bf16 on `wgmma` with one
+or two consumer warpgroups of 64 query rows and 128-key tiles, f32 on 4 x 4
 register micro-tiles in CTAs of 64, 32 or 16 query rows and 64-key tiles
 (`stream_rows`). float32 has the streamed path only. Both paths hold the
 same numerics contract (f32 scores, maximum and sum; probabilities rounded
@@ -77,6 +83,12 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 227 * 1024
 _CLUSTER_ROWS = 8 * 8 * 16   # bf16 kernel A: CTAs x warps x query rows
 _MAX_CLUSTER = 8             # CTAs of a resident band's cluster, at most
+# the short path (band_attention_short.cu): a tile's rows, the channels of a
+# ring stage and the ring's stages at most
+_SHORT_ROWS = 64
+_SHORT_KC = 32
+_SHORT_STAGES = 4
+_SHORT_F32_CTAS = 256   # f32: 32-row tiles below this many 64-row CTAs
 # the streamed path (band_attention.cu): keys a tile and stages of its ring,
 # bf16 and f32; query rows of a bf16 consumer warpgroup; the f32 CTA's
 # choices of query rows; the f32 probability rows' stride (floats)
@@ -237,16 +249,66 @@ def stream_rows(g: int, n: int, c: int, dtype: torch.dtype,
     return 32 if pairs * -(-n // 32) >= _SMS // 2 else 16
 
 
+PATHS = ("short", "resident", "streamed")
+
+
 class AttentionPlan(NamedTuple):
-    """How a band runs: `streamed` or resident, the largest dynamic shared
-    memory of its launches (bytes), the most CTAs of a thread-block cluster
-    (1: none), its device kernels a call, and on the streamed path the
-    query rows of a CTA (`stream_rows`; 0 on the resident path)."""
-    streamed: bool
+    """How a band runs: its `path` (one of `PATHS`), the largest dynamic
+    shared memory of its launches (bytes), the most CTAs of a thread-block
+    cluster (1: none), its device kernels a call, and on the streamed and
+    short paths the query rows of a CTA or tile (`stream_rows`,
+    `short_rows`; 0 on the resident path)."""
+    path: str
     smem: int
     cluster: int
     launches: int
     rows: int = 0
+
+    @property
+    def streamed(self) -> bool:
+        return self.path == "streamed"
+
+
+def short_smem_bytes(c: int, dtype: torch.dtype, hd: int = HEAD_DIM,
+                     rows: int = _SHORT_ROWS) -> int:
+    """One CTA's dynamic shared memory on the short path
+    (band_attention_short.cu::short_smem) at tiles of `rows`, with 1024
+    bytes of slack for the tiles' alignment and 8 a barrier: a ring of
+    min(4, C / 32) stages, each x's [rows][32] slab and the head's three
+    [32][hd] weight columns; bf16 also the k and v tiles [rows][hd], f32
+    over the ring's space q, k, v [rows][hd] and the probabilities
+    [rows][`_LDP`]."""
+    stages = min(_SHORT_STAGES, c // _SHORT_KC)
+    ring = stages * (rows * _SHORT_KC + 3 * _SHORT_KC * hd)
+    head = rows * hd
+    if dtype == torch.bfloat16:
+        return 1024 + 2 * (ring + 2 * head) + 8 * stages
+    return 1024 + 4 * max(ring, 3 * head + rows * _LDP) + 8 * stages
+
+
+def short_rows(g: int, n: int, c: int, dtype: torch.dtype,
+               hd: int = HEAD_DIM) -> int:
+    """The rows of a short-path tile (whole bands, P = rows // N of them):
+    bfloat16 64 (a wgmma block); float32 32 where N <= 32 and a grid of
+    64-row tiles, a CTA per (tile, head), has fewer than `_SHORT_F32_CTAS`
+    CTAs, or at any grid at C = 64 (twice the CTAs at the same padding),
+    else 64: within 1 % of the faster of the two on an H100 at every
+    yolov12 band of 25 tokens but (512, 25, 128) h4, 4.7 % slower
+    (`tools/attention_routes.py`)."""
+    if dtype == torch.bfloat16 or n > _SHORT_ROWS // 2:
+        return _SHORT_ROWS
+    ctas = -(-g // (_SHORT_ROWS // n)) * (c // hd)
+    small = ctas < _SHORT_F32_CTAS or c <= 2 * HEAD_DIM
+    return _SHORT_ROWS // 2 if small else _SHORT_ROWS
+
+
+def short_plan(g: int, n: int, c: int, dtype: torch.dtype,
+               hd: int = HEAD_DIM) -> AttentionPlan:
+    """Kernel A's short path: one launch, no cluster, `short_rows` rows a
+    tile."""
+    rows = short_rows(g, n, c, dtype, hd)
+    return AttentionPlan("short", short_smem_bytes(c, dtype, hd, rows), 1, 1,
+                         rows)
 
 
 def stream_faster(g: int, n: int, c: int, projection: bool = True) -> bool:
@@ -263,16 +325,21 @@ def attention_plan(g: int, n: int, c: int, dtype: torch.dtype,
                    projection: bool = True,
                    hd: int = HEAD_DIM) -> AttentionPlan:
     """The path of G bands of N tokens at width C in heads of `hd` (a
-    kernel width, 32 or 64), kernel A (`projection`) or C: in bfloat16 at
+    kernel width, 32 or 64), kernel A (`projection`) or C: kernel A's bands
+    of 64 tokens or fewer the short path in both types; else in bfloat16 at
     head width 32 the resident path where it holds the band (`max_tokens`)
     and was the faster (`stream_faster`), else the streamed path
-    (`streamed_plan`), which every float32 band and every 64-wide head
-    takes (float32 has no resident path, and it holds heads of 32)."""
+    (`streamed_plan`), which every other float32 band and every other
+    64-wide head takes (float32 has no resident path, and it holds heads of
+    32)."""
+    if projection and n <= _SHORT_ROWS:
+        return short_plan(g, n, c, dtype, hd)
     if (dtype == torch.bfloat16 and hd == HEAD_DIM
             and _fits(n, c, projection)
             and not stream_faster(g, n, c, projection)):
         cluster = min(_MAX_CLUSTER, -(-n // 16)) if projection else 1
-        return AttentionPlan(False, smem_bytes(n, c, projection), cluster, 1)
+        return AttentionPlan("resident", smem_bytes(n, c, projection),
+                             cluster, 1)
     return streamed_plan(g, n, c, dtype, projection, hd)
 
 
@@ -281,7 +348,7 @@ def streamed_plan(g: int, n: int, c: int, dtype: torch.dtype,
                   hd: int = HEAD_DIM) -> AttentionPlan:
     """The streamed path's plan of G bands of N tokens at width C."""
     rows = stream_rows(g, n, c, dtype, projection, hd)
-    return AttentionPlan(True,
+    return AttentionPlan("streamed",
                          stream_smem_bytes(c, dtype, projection, rows, hd),
                          1, 2 if projection else 1, rows)
 
@@ -336,52 +403,63 @@ def _kernel_head_dim(c, heads):
     return hd
 
 
-def _check_resident(streamed, dtype, hd):
-    """A forced resident path (`streamed=False`) takes bfloat16 heads of 32
-    only."""
-    if streamed is False and dtype != torch.bfloat16:
+def _check_resident(resident, dtype, hd):
+    """A forced resident path takes bfloat16 heads of 32 only."""
+    if resident and dtype != torch.bfloat16:
         raise ValueError("float32 has no resident path")
-    if streamed is False and hd != HEAD_DIM:
+    if resident and hd != HEAD_DIM:
         raise ValueError(f"the resident path takes heads of {HEAD_DIM} "
                          f"channels, got {hd}")
 
 
-def _launch_qkv_attention(x, w, b, heads, streamed=None, rows=None,
+def _launch_qkv_attention(x, w, b, heads, path=None, rows=None,
                           scale=None):
     """Launch kernel A on checked CUDA tensors whose heads are a kernel width
-    (32 or 64) on the path `attention_plan` gives (`streamed` True or False
-    forces one, for comparisons of the two; `rows` the streamed CTA's query
-    rows in place of the planned ones); `scale` the softmax's (default
-    hd ** -0.5); returns (o, v)."""
+    (32 or 64) on the path `attention_plan` gives (`path`, one of `PATHS`,
+    forces one, for comparisons; `rows` the streamed CTA's query rows or
+    the short path's tile rows in place of the planned ones); `scale` the
+    softmax's (default hd ** -0.5); returns (o, v)."""
     g, n, c = x.shape
     hd = _kernel_head_dim(c, heads)
-    _check_resident(streamed, x.dtype, hd)
-    if streamed is None:
-        streamed = attention_plan(g, n, c, x.dtype, hd=hd).streamed
-    if streamed:
+    if path is None:
+        path = attention_plan(g, n, c, x.dtype, hd=hd).path
+    if path not in PATHS:
+        raise ValueError(f"path must be one of {PATHS}, got {path!r}")
+    _check_resident(path == "resident", x.dtype, hd)
+    if path == "short" and n > _SHORT_ROWS:
+        raise ValueError(f"the short path takes bands of {_SHORT_ROWS} "
+                         f"tokens or fewer, got {n}")
+    if path == "streamed":
         rows = rows or _stream_plan(g, n, c, x.dtype, True, hd).rows
+    elif path == "short":
+        rows = rows or short_rows(g, n, c, x.dtype, hd)
     lib = build.load()
-    if x.dtype == torch.bfloat16 or streamed:
-        _check_aligned(x, w)
+    _check_aligned(x, w)
     o = torch.empty_like(x)
     v = torch.empty_like(x)
     code = _DTYPE_CODE[x.dtype]
     scale = hd ** -0.5 if scale is None else scale
+    ptrs = (x.data_ptr(), w.data_ptr(), b.data_ptr(), o.data_ptr(),
+            v.data_ptr())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if streamed:
+        if path == "streamed":
             k = torch.empty_like(x)      # the projected keys, between launches
             code = lib.yolou_band_attention_qkv_stream(
-                x.data_ptr(), w.data_ptr(), b.data_ptr(), o.data_ptr(),
-                v.data_ptr(), k.data_ptr(), g, n, c, heads, code, rows,
-                scale, stream)
+                *ptrs, k.data_ptr(), g, n, c, heads, code, rows, scale,
+                stream)
+        elif path == "short":
+            code = lib.yolou_band_attention_qkv_short(
+                *ptrs, g, n, c, heads, code, rows, scale, stream)
         else:
             code = lib.yolou_band_attention_qkv(
-                x.data_ptr(), w.data_ptr(), b.data_ptr(), o.data_ptr(),
-                v.data_ptr(), g, n, c, heads, code, scale, stream)
+                *ptrs, g, n, c, heads, code, scale, stream)
     build.check(lib, code, "band attention kernel")
     area_attention_qkv_fused.launches += 1
-    area_attention_qkv_fused.device_launches += 2 if streamed else 1
+    area_attention_qkv_fused.device_launches += 2 if path == "streamed" else 1
+    key = f"{path} {'f32' if x.dtype == torch.float32 else 'bf16'}"
+    counts = area_attention_qkv_fused.path_launches
+    counts[key] = counts.get(key, 0) + 1
     return o, v
 
 
@@ -460,6 +538,7 @@ def area_attention_qkv_fused(x: torch.Tensor, w: torch.Tensor,
 
 area_attention_qkv_fused.launches = 0         # calls that launched
 area_attention_qkv_fused.device_launches = 0  # device kernels they started
+area_attention_qkv_fused.path_launches = {}   # "short bf16" etc. -> launches
 area_attention_qkv_fused.backward_calls = 0
 
 
@@ -526,7 +605,7 @@ def _launch_band_attention(q, k, v, heads, streamed=None, rows=None,
     hd = _kernel_head_dim(c, heads)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
-    _check_resident(streamed, q.dtype, hd)
+    _check_resident(streamed is False, q.dtype, hd)
     if streamed is None:
         streamed = attention_plan(g, n, c, q.dtype, projection=False,
                                   hd=hd).streamed

@@ -38,6 +38,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BF16, F32 = "a2c2f_bf16.cu", "a2c2f_f32.cu"
+GEMM = "gemm_f32.cuh"     # the f32 kernel's GEMM stream
 
 # name -> (source, [(text, replacement), ...])
 VARIANTS = {
@@ -65,7 +66,7 @@ VARIANTS = {
     "f32-no-stencil": (F32, [
         ("for (int i = tid; i < runs * C4; i += F32_THREADS) {",
          "for (int i = tid; i < 0; i += F32_THREADS) {")]),
-    "f32-no-fma": (F32, [("    const int kmax = min(KS_F32, K - kb * KS_F32);",
+    "f32-no-fma": (GEMM, [("    const int kmax = min(KS_F32, K - kb * KS_F32);",
                           "    const int kmax = 0;")]),
     "f32-no-grid-sync": (F32, [
         ("  fence_proxy_async_global();        // qkv is read by TMA in the "

@@ -1,25 +1,31 @@
 """Time the paths of the band attention kernels against each other, on one
-GPU, at every band of yolov12 n-x: the resident path against the streamed
-one at each number of query rows a CTA may take.
+GPU, at every band of yolov12 n-x: kernel A's short path, the resident
+path and the streamed one at each number of query rows a CTA may take.
 
     python -m yolou_tpu_torch.tools.attention_routes [--out F] [--iters N]
+        [--kernels AC]
 
 Kernels A (`area_attention_qkv_fused`) and C (`area_attention_fused`) each
 have a resident path (bfloat16 only: a CTA holds its head's keys and
 values of the whole band) and a streamed one (key tiles through shared
 memory, CTAs of 128 or 64 query rows in bfloat16, 64, 32 or 16 in
-float32); see `kernels/attention.py::attention_plan`, whose choices rest on
-these times. For each band (layers 6 and 8 of every yolov12 scale at
-160^2-1280^2, batch 1 and 8; 160^2 also at batch 16, the evaluator's, and
-128, the objectmap generator's) and each type, every path the band can
-take is forced in turns (each in order, then in reverse) on the same
-seeded inputs, each turn the card's own time per call
+float32); kernel A also a short one at bands of 64 tokens or fewer (whole
+bands packed to a tile of 64 rows, or in float32 32 where N <= 32; one
+launch, both types); see
+`kernels/attention.py::attention_plan`, whose choices rest on these times.
+For each band (layers 6 and 8 of every yolov12 scale at 160^2-1280^2,
+batch 1 and 8; 160^2 also at batch 16, the evaluator's, and 128, the
+objectmap generator's) and each type, every path the band can take is
+forced in turns (each in order, then in reverse) on the same seeded
+inputs, each turn the card's own time per call
 (`profile_layers.device_ms`, torch.profiler, `--iters` calls after 3
-warm-up calls). Prints the card's name and power limit, then one JSON
-object: {"card": ..., "rows": [{"kernel", "dtype", "g", "n", "c",
-"heads", "resident_ms": [2 turns] or null, "streamed_ms": {rows: [2
-turns]}, "plan": "resident" or "streamed", "plan_rows": ...}, ...]};
-"plan" and "plan_rows" are what `attention_plan` takes.
+warm-up calls). `--kernels A` or `C` times one kernel's bands only.
+Prints the card's name and power limit, then one JSON object: {"card":
+..., "rows": [{"kernel", "dtype", "g", "n", "c", "heads", "short_ms":
+{rows: [2 turns]} or null, "resident_ms": [2 turns] or null,
+"streamed_ms": {rows: [2 turns]}, "plan": "short", "resident" or
+"streamed", "plan_rows": ...}, ...]}; "plan" and "plan_rows" are what
+`attention_plan` takes.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..kernels.attention import (_launch_band_attention,
+from ..kernels.attention import (_SHORT_ROWS, _launch_band_attention,
                                  _launch_qkv_attention, attention_plan,
                                  max_tokens)
 from .profile_layers import card_name_and_power_limit, device_ms
@@ -60,10 +66,11 @@ def bands():
 
 
 STREAM_ROWS = {torch.bfloat16: (128, 64), torch.float32: (64, 32, 16)}
+SHORT_ROWS = {torch.bfloat16: (64,), torch.float32: (64, 32)}
 
 
-def time_routes(iters: int = 20, device: str = "cuda"):
-    """The rows described above."""
+def time_routes(iters: int = 20, device: str = "cuda", kernels: str = "AC"):
+    """The rows described above, of the kernels named in `kernels`."""
     rng = np.random.default_rng(0)
 
     def mk(shape, dtype, std=1.0):
@@ -73,23 +80,30 @@ def time_routes(iters: int = 20, device: str = "cuda"):
     rows = []
     for projection, dtype in itertools.product(
             (True, False), (torch.bfloat16, torch.float32)):
+        if ("A" if projection else "C") not in kernels:
+            continue
         for g, n, c, heads in bands():
+            # a path: (name, streamed CTA rows or None)
             if projection:
                 x = mk((g, n, c), dtype)
                 w = mk((c, 3 * c), dtype, 0.5 / np.sqrt(c))
                 b = torch.zeros(3 * c, device=device)
 
                 def run(path):
-                    return lambda: _launch_qkv_attention(x, w, b, heads, *path)
+                    return lambda: _launch_qkv_attention(x, w, b, heads,
+                                                         *path)
             else:
                 q, k, v = (mk((g, n, c), dtype) for _ in range(3))
 
                 def run(path):
-                    return lambda: _launch_band_attention(q, k, v, heads,
-                                                          *path)
-            paths = [(True, r) for r in STREAM_ROWS[dtype]]
+                    return lambda: _launch_band_attention(
+                        q, k, v, heads, path[0] == "streamed", path[1])
+            paths = [("streamed", r) for r in STREAM_ROWS[dtype]]
             if dtype == torch.bfloat16 and n <= max_tokens(c, projection):
-                paths.insert(0, (False, None))
+                paths.insert(0, ("resident", None))
+            if projection and n <= _SHORT_ROWS:
+                paths[:0] = [("short", r) for r in SHORT_ROWS[dtype]
+                             if n <= r]
             times = {path: [] for path in paths}
             with torch.no_grad():
                 for path in paths + paths[::-1]:
@@ -98,11 +112,13 @@ def time_routes(iters: int = 20, device: str = "cuda"):
             rows.append({
                 "kernel": "A" if projection else "C",
                 "dtype": str(dtype).split(".")[-1], "g": g, "n": n, "c": c,
-                "heads": heads, "resident_ms": times.get((False, None)),
-                "streamed_ms": {str(r): times[(True, r)]
+                "heads": heads,
+                "short_ms": {str(r): times[(name, r)] for name, r in times
+                             if name == "short"} or None,
+                "resident_ms": times.get(("resident", None)),
+                "streamed_ms": {str(r): times[("streamed", r)]
                                 for r in STREAM_ROWS[dtype]},
-                "plan": "streamed" if plan.streamed else "resident",
-                "plan_rows": plan.rows})
+                "plan": plan.path, "plan_rows": plan.rows})
             print(json.dumps(rows[-1]), flush=True)
     return rows
 
@@ -112,10 +128,13 @@ def main(argv=None) -> int:
     p.add_argument("--out", type=Path, default=None,
                    help="also write the JSON object to this file")
     p.add_argument("--iters", type=int, default=20)
+    p.add_argument("--kernels", default="AC",
+                   help="the kernels whose bands to time: A, C or AC")
     args = p.parse_args(argv)
     card = card_name_and_power_limit()
     print(card, flush=True)
-    result = {"card": card, "rows": time_routes(args.iters)}
+    result = {"card": card,
+              "rows": time_routes(args.iters, kernels=args.kernels)}
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(result, indent=1))

@@ -12,10 +12,15 @@ profiler give them (batch 8 at 640^2, batch 16 at 160^2; NMS over 512
 candidates of 8 and of 16 images, all valid), kernels A and C on their
 resident path, which every such tree has; then kernels A and C forced onto
 the streamed path (the "streamed" cases: f32 at the default commands'
-batch 16 at 640^2 and 160^2 and at 1024^2, bf16 at the bands it serves and
-the long ones), which trees from the streamed path's introduction on have.
+batch 16 at 640^2 and 160^2, at batch 8 and at 1024^2 and 1280^2, bf16 at
+the bands it serves and the long ones), which trees from the streamed
+path's introduction on have; then kernel A on its tree's planned path at
+the 160^2 bands (the "planned" cases: the short path where the library has
+it, else bf16 resident and f32 streamed, the paths before it).
 `--tiles` adds each whole-A2C2f case at each given token tile (the sweep
-behind `kernels/a2c2f.py::f32_tile`'s rule, which both types use).
+behind `kernels/a2c2f.py::f32_tile`'s rule, which both types use). The
+bf16 strip case's plain version is timed too ("a2c2f L6 strip plain", the
+same plain tensor code beside every tree's kernel).
 A `csrc` from before the one-launch NMS kernel, whose C entry still takes a
 hit-matrix scratch, gets that scratch allocated here; one from before the
 whole-A2C2f kernel took its MLP width (whose C entry has no `hid`) is
@@ -56,7 +61,7 @@ import torch
 
 from ..kernels import a2c2f as a2c2f_module
 from ..kernels import build
-from ..kernels.a2c2f import _launch_a2c2f, a2c2f_fused
+from ..kernels.a2c2f import _launch_a2c2f, a2c2f_fused, a2c2f_fused_plain
 from ..kernels.nms import suppress_greedy
 from ..kernels.attention import (_launch_band_attention,
                                  _launch_qkv_attention, area_attention_fused,
@@ -84,7 +89,21 @@ STREAM_CASES = [
     ("A streamed bf16 L8@160b128", "A", (128, 25, 128), 4, torch.bfloat16),
     ("A streamed bf16 L6@1280", "A", (32, 1600, 64), 2, torch.bfloat16),
     ("A streamed bf16 L8@1280", "A", (8, 1600, 128), 4, torch.bfloat16),
-    ("C streamed bf16 L6@1408", "C", (32, 1936, 64), 2, torch.bfloat16)]
+    ("C streamed bf16 L6@1408", "C", (32, 1936, 64), 2, torch.bfloat16),
+    # the f32 k/v projection's first launch at batch 8 and 1280^2
+    ("A streamed f32 L6@640", "A", (32, 400, 64), 2, torch.float32),
+    ("A streamed f32 L8@640", "A", (8, 400, 128), 4, torch.float32),
+    ("A streamed f32 L6@1280", "A", (32, 1600, 64), 2, torch.float32)]
+# name, (G, N, C), heads, dtype: kernel A on its tree's planned path at the
+# 160^2 bands (evaluation at batch 16, objectmaps at 128): the short path,
+# or in a tree without it bf16 resident and f32 streamed
+PLANNED_CASES = [
+    (f"A planned {dt} {name}", shape, heads, dtype)
+    for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))
+    for name, shape, heads in (("L6@160b16", (64, 25, 64), 2),
+                               ("L8@160b16", (16, 25, 128), 4),
+                               ("L6@160b128", (512, 25, 64), 2),
+                               ("L8@160b128", (128, 25, 128), 4))]
 # name, (B, H, W, cin), c2, stages, area, heads, MLP width (None: 2 c_;
 # bf16 a multiple of 16, as the fold pads it), dtype: yolov12n's layers 6
 # and 8 at 640^2 (mlp_ratio 2 and 1.2), A2C2f(96, 96) (one head of 48,
@@ -105,6 +124,10 @@ A2C2F_CASES = [
      torch.bfloat16),
     ("a2c2f f32 L6@640", (8, 40, 40, 128), 128, 2, 4, 2, None, torch.float32),
     ("a2c2f f32 L8@640", (8, 20, 20, 256), 256, 2, 1, 4, None, torch.float32)]
+# the a2c2f cases whose plain version is timed too ("... plain": the same
+# call in every tree, a yardstick beside the kernel; chip_smoke.py times the
+# others')
+A2C2F_PLAIN = ("a2c2f L6 strip",)
 # name, (B, K): the serving request and the evaluation step's batch
 NMS_CASES = [("B (8,512)", (8, 512)), ("B (16,512)", (16, 512))]
 NMS_IOU = 0.45
@@ -196,7 +219,7 @@ def _resident_qkv(x, w, b, heads):
     version)."""
     if x.device.type == "cpu":
         return area_attention_qkv_fused(x, w, b, heads)
-    return _launch_qkv_attention(x, w, b, heads, streamed=False)
+    return _launch_qkv_attention(x, w, b, heads, "resident")
 
 
 def _resident_attention(q, k, v, heads):
@@ -213,8 +236,22 @@ def _streamed(kernel, args, heads):
         fn = area_attention_qkv_fused if kernel == "A" else area_attention_fused
         return fn(*args, heads)
     if kernel == "A":
-        return _launch_qkv_attention(*args, heads, streamed=True)
+        return _launch_qkv_attention(*args, heads, "streamed")
     return _launch_band_attention(*args, heads, streamed=True)
+
+
+def _planned_qkv(args, heads):
+    """Kernel A on the path its tree plans: the short path at bands of 64
+    tokens or fewer where the loaded library has it, else the path the
+    trees before it took there (bf16 resident, f32 streamed); on the CPU
+    the wrapper."""
+    x = args[0]
+    if x.device.type == "cpu":
+        return area_attention_qkv_fused(*args, heads)
+    path = None
+    if not hasattr(build._lib, "yolou_band_attention_qkv_short"):
+        path = "resident" if x.dtype == torch.bfloat16 else "streamed"
+    return _launch_qkv_attention(*args, heads, path)
 
 
 def _a2c2f_at_tile(x, ws, stages, area, heads, tile):
@@ -250,6 +287,11 @@ def _calls(device, tiles=()):
         else:
             args = tuple(mk((g, n, c), dtype=dtype) for _ in range(3))
         calls[name] = functools.partial(_streamed, kernel, args, heads)
+    for name, (g, n, c), heads, dtype in PLANNED_CASES:
+        args = (mk((g, n, c), dtype=dtype),
+                mk((c, 3 * c), 0.5 / np.sqrt(c), dtype),
+                mk((3 * c,), 0.1, torch.float32))
+        calls[name] = functools.partial(_planned_qkv, args, heads)
 
     for name, shape, c2, stages, area, heads, hid, dtype in A2C2F_CASES:
         def gemm(k, n, dtype=dtype):  # a (k, n) weight and its f32 bias
@@ -267,6 +309,9 @@ def _calls(device, tiles=()):
         x = mk(shape, dtype=dtype)
         calls[name] = lambda x=x, ws=ws, s=stages, a=area, h=heads: \
             a2c2f_fused(x, ws, s, a, h)
+        if name in A2C2F_PLAIN:
+            calls[f"{name} plain"] = functools.partial(
+                a2c2f_fused_plain, x, ws, stages, area, heads)
         for tile in tiles:
             calls[f"{name} tile{tile}"] = functools.partial(
                 _a2c2f_at_tile, x, ws, stages, area, heads, tile)
