@@ -440,9 +440,10 @@ def check_attention(device):
     scaled_dot_product_attention over the q, k, v that the plain projection
     gives. At the 640^2 serving shapes in bf16 the streamed path is also
     timed against the resident one, and at the 160^2 bands the short path
-    against the one it replaced (bf16 resident, f32 streamed); where f32
+    against the one it replaced (bf16 resident, f32 streamed); where a band
     streams, its first device kernel (the k/v projection) beside its bound,
-    its plain version and one torch.addmm of the same columns. Heads of 48
+    its plain version and one torch.addmm of the same columns, in both
+    types. Heads of 48
     and 16 (padded to 64 and 32 in the wrapper) at layer 8's band, both
     types."""
     import torch
@@ -467,7 +468,7 @@ def check_attention(device):
              ("L8@160b128", DEC_BATCH, 25, 128, 4, BOTH),
              ("s L8@640", BATCH, 400, 256, 8, BOTH),
              ("x L8@640", BATCH, 400, 384, 12, ("float32",)),
-             ("L6@1280", 4 * BATCH, 1600, 64, 2, ("bfloat16",)),
+             ("L6@1280", 4 * BATCH, 1600, 64, 2, BOTH),
              ("L8@1280", BATCH, 1600, 128, 4, ("bfloat16",)),
              # heads no yolov12 graph builds: two of 48 (padded to 64, the
              # streamed path) and two of 16 (padded to 32)
@@ -520,7 +521,7 @@ def check_attention(device):
                     lambda: area_attention_qkv_fused(xt, wt, bt, heads)))}
             if plan.streamed:
                 paths.update(streamed_bounds(g, n, c, dtype_name(dtype)))
-            if plan.streamed and dtype == torch.float32:
+            if plan.streamed:
                 # the projection alone: its plain version and one library
                 # call
                 paths.update(projection_yardsticks(xt, wt, bt))
@@ -588,18 +589,22 @@ def streamed_bounds(g: int, n: int, c: int, dtype: str) -> dict:
 
 
 def projection_yardsticks(x, w, b) -> dict:
-    """The f32 k/v projection's plain version's device ms (the plain
-    version's projection of the same columns) and one library call's
-    (torch.addmm over the same columns, TF32 off), on (G, N, C) x."""
+    """The k/v projection's plain version's device ms (the plain version's
+    projection of the same columns: f32 product and bias, rounded to x's
+    type) and one library call's (torch.addmm over the same columns in x's
+    type, TF32 off; in bf16 with the bias rounded to bf16, as the call
+    takes it), on (G, N, C) x."""
     import torch
     g, n, c = x.shape
     rows = g * n
     wkv, bkv = w[:, c:].contiguous(), b[c:].contiguous()
+    bkv_lib = bkv.to(x.dtype)
     x2 = x.view(rows, c)
     return {"projection_plain_ms": kernel_times(
-                lambda: torch.matmul(x.float(), wkv.float()) + bkv)[0],
+                lambda: (torch.matmul(x.float(), wkv.float()) + bkv
+                         ).to(x.dtype))[0],
             "projection_library_ms": kernel_times(
-                lambda: torch.addmm(bkv, x2, wkv))[0]}
+                lambda: torch.addmm(bkv_lib, x2, wkv))[0]}
 
 
 # ------------------------------------------------------------- kernel C
@@ -903,8 +908,38 @@ def check_nms(device):
         kept=int(got.valid.sum()), identical_to_cpu=same)
     if not same:
         raise AssertionError("greedy NMS equal-scores: card != CPU")
-    # time at the serving shape: B = 8 images, K = 512 candidates
+    # K = 2048, the most the kernel takes, against the plain version
+    for name, boxes2 in _nms_cases(rng, BATCH, 4 * k):
+        bt = torch.from_numpy(boxes2.astype(np.float32)).to(device)
+        vt = torch.from_numpy(rng.random((BATCH, 4 * k)) < 0.9).to(device)
+        keep = suppress_greedy(bt, vt, 0.45)
+        ref = suppress_greedy_plain(bt, vt, 0.45)
+        log("kernel", name="greedy_nms", case=f"{name} K=2048",
+            shape=f"({BATCH},{4 * k})", kept=int(keep.sum()),
+            mismatches=int((keep != ref).sum()),
+            ms=kernel_times(lambda: suppress_greedy(bt, vt, 0.45))[0])
+        if not torch.equal(keep, ref):
+            raise AssertionError(f"greedy NMS {name} K=2048: keep-sets "
+                                 f"differ")
+    # the chain's own floor: no valid row, so no IoU test and every window
+    # empty; one launch, the loads, the cluster barrier and the hops alone
     bt = torch.from_numpy(boxes[:BATCH].astype(np.float32)).to(device)
+    vt = torch.zeros((BATCH, k), dtype=torch.bool, device=device)
+    chain_floor_ms = kernel_times(lambda: suppress_greedy(bt, vt, 0.45))[0]
+    if suppress_greedy(bt, vt, 0.45).any():
+        raise AssertionError("greedy NMS kept a row of none valid")
+    # a request of one image: B = 1, K = 512
+    b1, v1 = bt[:1], torch.ones((1, k), dtype=torch.bool, device=device)
+    keep1 = suppress_greedy(b1, v1, 0.45)
+    if not torch.equal(keep1, suppress_greedy_plain(b1, v1, 0.45)):
+        raise AssertionError("greedy NMS (1, 512): keep-sets differ")
+    one_ms, one_call_ms = kernel_times(lambda: suppress_greedy(b1, v1, 0.45))
+    log("kernel", name="greedy_nms", case="serve one image",
+        shape=f"(1,{k})", kept=int(keep1.sum()), ms=one_ms,
+        call_ms=one_call_ms,
+        plain_ms=kernel_times(
+            lambda: suppress_greedy_plain(b1, v1, 0.45))[0])
+    # time at the serving shape: B = 8 images, K = 512 candidates
     vt = torch.ones((BATCH, k), dtype=torch.bool, device=device)
     per_call = device_kernels(lambda: suppress_greedy(bt, vt, 0.45))
     log("kernel", name="greedy_nms", check="device kernels per call",
@@ -923,13 +958,18 @@ def check_nms(device):
     tests = int(later[keep].sum())
     bound_ms, bound_by = bound(bt.numel() * 4 + 2 * vt.numel(), 16 * tests,
                                "float32")
+    # the chain: one owner CTA per 8 windows of 64 rows, a hop between
+    # consecutive owners (mbarrier arrivals over distributed shared memory)
+    hops = -(-k // 512) - 1
     log("kernel", name="greedy_nms", case="serve", shape=f"({BATCH},{k})",
         kept=int(keep.sum()), iou_tests=tests, ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by, call_ms=call_ms,
+        bound_ms=bound_ms, bound_by=bound_by, chain_floor_ms=chain_floor_ms,
+        chain_hops=hops, call_ms=call_ms,
         plain_call_ms=plain_call_ms)
     return {"max_abs_err": worst, "ms": ms, "call_ms": call_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+            "library_ms": None, "chain_floor_ms": chain_floor_ms,
+            "chain_hops": hops, "one_image_ms": one_ms}
 
 
 # ------------------------------------------------------------- serving
@@ -4171,6 +4211,7 @@ def check_build_report(report: list) -> None:
         raise AssertionError("no wgmma kernel in the build report")
     for name in ("band_attention_short_wgmma_kernel<",
                  "band_attention_short_f32_kernel<",
+                 "kv_projection_wgmma_kernel<",
                  "kv_projection_f32_kernel<"):
         if not any(e["kernel"].startswith(name) for e in report):
             raise AssertionError(f"no {name}...> in the build report")
@@ -4235,11 +4276,16 @@ def main() -> int:
     stats = serve(state_dict, device, torch.bfloat16, requests)
     counts = kernels.launch_counts()
     serve_devices = kernels.device_counts()["band_attention"]
+    serve_paths = kernels.path_counts()
     for s in stats:
         log("serve", **s)
     forwards = len(requests)
     log("serve", launches=counts, forwards=forwards,
-        band_attention_device_kernels=serve_devices)
+        band_attention_device_kernels=serve_devices,
+        band_attention_paths=serve_paths)
+    if serve_paths.get("streamed bf16", 0) < 1:
+        raise AssertionError(f"no streamed bf16 band (no bf16 k/v "
+                             f"projection) while serving: {serve_paths}")
     if counts["band_attention"] != 8 * forwards:
         raise AssertionError(f"band attention launched "
                              f"{counts['band_attention']} times, want "
@@ -4365,26 +4411,30 @@ def main() -> int:
                 "ms_source": times_source(row)}
 
     def projection_row(at):
-        """The f32 k/v projection (the first device kernel of f32 kernel
-        A's streamed path) at one case; its error v's (its output) over
-        every f32 streamed case."""
-        row = attn_cases[at]
-        return {"max_abs_err": max(r["v_max_abs_err"] for (_, d), r in
-                                   attn_cases.items()
-                                   if d == "float32" and r["streamed"]),
+        """The k/v projection (the first device kernel of kernel A's
+        streamed path) in `at`'s type at one case; its error v's (its
+        output) over every streamed case of that type, and its and the
+        library call's times at each."""
+        row, dn = attn_cases[at], at[1]
+        streamed = {k: r for (k, d), r in attn_cases.items()
+                    if d == dn and r["streamed"]}
+        return {"max_abs_err": max(r["v_max_abs_err"]
+                                   for r in streamed.values()),
                 "ms": row["projection_ms"],
                 "plain_ms": row["projection_plain_ms"],
                 "bound_ms": row["projection_bound_ms"],
                 "bound_by": row["projection_bound_by"],
                 "library_ms": row["projection_library_ms"],
-                "library": "torch.addmm (TF32 off)",
+                "library": "torch.addmm (TF32 off)" if dn == "float32"
+                           else "torch.addmm (bf16)",
                 "at": f"{at[0]} {at[1]}",
                 "ms_source": times_source(row),
-                **{f"ms {k}": r["projection_ms"] for (k, d), r in
-                   attn_cases.items() if d == "float32" and r["streamed"]},
+                **{f"ms {k}": r["projection_ms"]
+                   for k, r in streamed.items()},
+                **{f"bound_ms {k}": r["projection_bound_ms"]
+                   for k, r in streamed.items()},
                 **{f"library_ms {k}": r["projection_library_ms"]
-                   for (k, d), r in attn_cases.items()
-                   if d == "float32" and r["streamed"]}}
+                   for k, r in streamed.items()}}
 
     for (case, dn), r in attn_cases.items():
         if r["path"] == "short" and r["max_abs_err"] > SHORT_TOL[dn]:
@@ -4430,7 +4480,7 @@ def main() -> int:
          "backward_calls": dec["attention_backward_calls"]},
         {"name": "band_attention_streamed", "route": "cuda",
          "source": src + "band_attention.cu", "replaces": pallas + ":357",
-         "device_kernels": ["kv_projection_mma_kernel",
+         "device_kernels": ["kv_projection_wgmma_kernel",
                             "band_attention_stream_wgmma_kernel<NC, true>"],
          "launches": shapes["yolov12s bf16 1280"]["band_attention"],
          "device_launches": shapes_devices["yolov12s bf16 1280"],
@@ -4446,6 +4496,17 @@ def main() -> int:
          **stream_a32,
          "attention_library_ms":
              attn_cases[("L6@640b16", "float32")]["attention_library_ms"]},
+        {"name": "kv_projection_bf16", "route": "cuda",
+         "source": src + "band_attention.cu", "replaces": pallas + ":357",
+         "device_kernels": ["kv_projection_wgmma_kernel"],
+         "launches": serve_paths.get("streamed bf16", 0),
+         "launches_by_path": {
+             "serve": serve_paths.get("streamed bf16", 0),
+             # a streamed launch is two device kernels, the others one
+             "shapes yolov12s bf16 1280":
+                 shapes_devices["yolov12s bf16 1280"]
+                 - shapes["yolov12s bf16 1280"]["band_attention"]},
+         **projection_row(("L6@640", "bfloat16"))},
         {"name": "kv_projection_f32", "route": "cuda",
          "source": src + "band_attention.cu", "replaces": pallas + ":357",
          "device_kernels": ["kv_projection_f32_kernel"],
@@ -4473,6 +4534,8 @@ def main() -> int:
          "source": src + "greedy_nms.cu",
          "replaces": "yolou_tpu/ops/pallas_nms.py:97",
          "launches": counts["greedy_nms"], **{k: nms[k] for k in keys},
+         **{k: nms[k] for k in ("chain_floor_ms", "chain_hops",
+                                "one_image_ms")},
          "ms_source": times_source(nms),
          "launches_by_path": {
              "serve": counts["greedy_nms"],

@@ -1,6 +1,6 @@
 """PyTorch port: the blocking of the bf16 whole-A2C2f kernel's attention and
-the loop of the one-launch greedy NMS kernel, emulated on the CPU, against
-the JAX package's Pallas kernels in interpret mode.
+the two phases of the one-launch greedy NMS kernel, emulated on the CPU,
+against the JAX package's Pallas kernels in interpret mode.
 
 The CUDA kernels run only on the card; what the CPU can check is their
 order of operations.
@@ -22,16 +22,12 @@ channels to 64 by `pad_a2c2f_heads`, the true scale kept):
     rounded against another maximum moves by at most one bf16 step (2**-8
     relative), the block's own roundings by about one more each.
 
-`nms_emulated` repeats `csrc/greedy_nms.cu` bit for bit: the valid,
-removed and kept bitsets as 32-bit words; per round one warp finds the next
-64-row window that holds a candidate (valid & ~removed, a ballot over the
-64-bit words, the first set lane); the members of the window are tested
-against each other; one warp keeps member p iff no kept member before it
-hits it; 16 warps of 32 threads test the later candidates against the
-window's kept members, whose ballot words are ORed into `removed`; the
-compare in f32 with every operation rounded on its own (numpy float32 does
-not fuse). Held against `suppress_greedy_fused` (interpret mode) and
-the port's `suppress_greedy_plain`: identical keep-sets.
+`nms_emulated` runs one image through `csrc/greedy_nms.cu`'s two phases
+(`test_torch_port_nms_cluster.py::nms_cluster_emulated`: the IoU tests as
+bits in the cluster's slabs, then the chain over 64-row windows on bits
+alone) and lists the kept rows in the order the chain decided their
+windows. Held against `suppress_greedy_fused` (interpret mode) and the
+port's `suppress_greedy_plain`: identical keep-sets.
 """
 
 import jax.numpy as jnp
@@ -45,10 +41,10 @@ from yolou_tpu_torch.kernels.a2c2f import a2c2f_fused_plain, pad_a2c2f_heads
 from yolou_tpu_torch.kernels.nms import suppress_greedy_plain
 
 from .test_torch_port_a2c2f import CASES, _cast, _weights
+from .test_torch_port_nms_cluster import nms_cluster_emulated
 from .torch_threads import one_torch_thread  # noqa: F401
 
 KEYS = 128         # keys a k/v tile of the ring
-THREADS = 512      # threads of a greedy NMS CTA
 
 
 def key_tiles(nb: int) -> list:
@@ -169,82 +165,12 @@ def test_key_tiles_cover_every_key_once():
 
 # ------------------------------------------------------------- greedy NMS
 
-def _area(b):
-    return (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])
-
-
 def nms_emulated(boxes: np.ndarray, valid: np.ndarray, t: float):
-    """One image through greedy_nms.cu's loop; returns (keep, the kept rows
-    in the order the loop decided them)."""
-    boxes = boxes.astype(np.float32)
-    k = len(boxes)
-    t = np.float32(t)
-    words = -(-k // 64)
-    bits = np.zeros(64 * words, bool)
-    bits[:k] = valid
-
-    def pack(b):              # 32 rows per word, row 32w + i is bit i
-        return int((b.astype(np.uint64) << np.arange(32, dtype=np.uint64))
-                   .sum())
-
-    valid32 = [pack(bits[32 * w:32 * w + 32]) for w in range(2 * words)]
-    removed32 = [0] * (2 * words)
-    kept32 = [0] * (2 * words)
-    area = _area(boxes)
-
-    def over(j, i):           # row j (earlier) against rows i, f32
-        r, c = boxes[j], boxes[i]
-        iw = np.maximum(np.minimum(r[..., 2], c[..., 2])
-                        - np.maximum(r[..., 0], c[..., 0]), np.float32(0))
-        ih = np.maximum(np.minimum(r[..., 3], c[..., 3])
-                        - np.maximum(r[..., 1], c[..., 1]), np.float32(0))
-        inter = iw * ih
-        uni = (area[j] + area[i]) - inter
-        return inter > t * (uni + np.float32(1e-7))
-
-    decided = []
-    w0 = 0
-    while True:
-        # 1. one warp: lane w holds 64-bit word w of valid & ~removed
-        cand = [(valid32[2 * w] | valid32[2 * w + 1] << 32)
-                & ~(removed32[2 * w] | removed32[2 * w + 1] << 32)
-                if w >= w0 else 0 for w in range(words)]
-        live = [w for w in range(words) if cand[w]]
-        if not live:
-            break
-        w = live[0]                                  # the ballot's first lane
-        members, base = cand[w], 64 * w
-        # 2. member p < i against member i: 32 bits (one ballot) per task
-        hits = [0] * 64
-        for i in range(64):
-            for p in range(i):
-                if members >> i & members >> p & 1 and over(base + p,
-                                                            base + i):
-                    hits[i] |= 1 << p
-        # 3. one warp decides the window in row order
-        kmask = 0
-        for p in range(64):
-            if members >> p & 1 and not hits[p] & kmask:
-                kmask |= 1 << p
-                decided.append(base + p)
-        kept32[2 * w] = kmask & 0xFFFFFFFF
-        kept32[2 * w + 1] = kmask >> 32
-        # 4. later rows against the kept members, a ballot word a warp
-        for rbase in range(base + 64, k, THREADS):
-            for warp in range(THREADS // 32):
-                word = 0
-                for lane in range(32):
-                    i = rbase + 32 * warp + lane
-                    if i >= k or not ((valid32[i >> 5] & ~removed32[i >> 5])
-                                      >> (i & 31) & 1):
-                        continue
-                    kept_rows = [base + p for p in range(64) if kmask >> p & 1]
-                    if kept_rows and over(np.array(kept_rows), i).any():
-                        word |= 1 << lane
-                if word:
-                    removed32[(rbase >> 5) + warp] |= word
-        w0 = w + 1
-    keep = np.array([kept32[i >> 5] >> (i & 31) & 1 for i in range(k)], bool)
+    """One image through greedy_nms.cu's two phases; returns (keep, the
+    kept rows in the order the chain decided them: window by window)."""
+    keep, _ = nms_cluster_emulated(boxes, valid, t)
+    decided = [i for w in range(0, len(keep), 64)
+               for i in range(w, min(w + 64, len(keep))) if keep[i]]
     return keep, decided
 
 

@@ -512,6 +512,38 @@ def test_f32_projection_matches_plain_and_addmm(cuda, g, n, c, heads):
         assert (got - want).abs().max().item() <= 1e-5
 
 
+# G, N, C, heads: yolov12s / x's layer 8 at 640^2 (256, 384 channels: a
+# ring of 4 stages), twice the ring's channels (8 stages), heads of 64 at
+# layers 6 and 8's widths, and widths off a 64-channel stage (32: one head,
+# 96: three), G N never a multiple of the 64-token tile
+BF16_PROJECTION_CASES = [(8, 400, 256, 8), (8, 400, 384, 12),
+                         (3, 100, 512, 16), (32, 400, 64, 1),
+                         (8, 400, 128, 2), (2, 400, 32, 1), (5, 77, 96, 3)]
+
+
+@pytest.mark.parametrize("g,n,c,heads", BF16_PROJECTION_CASES)
+def test_bf16_projection_matches_plain_and_addmm(cuda, g, n, c, heads):
+    """bf16 kernel A's streamed path, whose first launch is the k/v
+    projection on wgmma from TMA-fed shared memory
+    (`kv_projection_wgmma_kernel`): v (its output) against the plain
+    version within one bf16 step at its largest magnitude (2**-7 max|v|:
+    one f32 sum in another order, rounded once), against one bf16
+    `torch.addmm` of the same columns within two (the call rounds the bias
+    to bf16 first); o within the bf16 attention tolerance, 2e-2."""
+    x, w, b = _attn_inputs(g, n, c, torch.bfloat16, cuda, seed=n + c + g)
+    kernels.reset_launch_counts()
+    o, v = _launch_qkv_attention(x, w, b, heads, "streamed")
+    torch.cuda.synchronize()
+    o_ref, v_ref = area_attention_qkv_fused_plain(x, w, b, heads)
+    step = 2.0 ** -7 * v_ref.float().abs().max().item()
+    kv = torch.addmm(b[c:].to(torch.bfloat16), x.view(-1, c),
+                     w[:, c:]).view(g, n, 2 * c)
+    assert bool(torch.isfinite(v).all() and torch.isfinite(o).all())
+    assert (v.float() - v_ref.float()).abs().max().item() <= step
+    assert (v.float() - kv[..., c:].float()).abs().max().item() <= 2 * step
+    assert (o.float() - o_ref.float()).abs().max().item() <= 2e-2
+
+
 # ------------------------------------------------- heads of any width
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
@@ -757,6 +789,30 @@ def test_greedy_nms_is_one_device_kernel_per_call(cuda):
               if e.device_type == torch.autograd.DeviceType.CUDA]
     assert len(device) == 5, device
     assert all("greedy_nms" in name for name in device), device
+
+
+@pytest.mark.parametrize("case", ["random", "dense", "grid"])
+@pytest.mark.parametrize("bsz", [1, 16, 64])
+def test_greedy_nms_at_the_largest_k(cuda, bsz, case):
+    """K = 2048, the most the kernel takes (32 windows over a cluster of 8
+    CTAs, 4 each), at 1, 16 and 64 images (64 clusters: more than the card
+    holds at once): the plain version's keep-sets."""
+    thres = 0.5 if case == "grid" else 0.45
+    boxes, valid = _nms_inputs(bsz, 2048, case, cuda, seed=bsz)
+    keep = suppress_greedy(boxes, valid, thres)
+    torch.cuda.synchronize()
+    assert torch.equal(keep, suppress_greedy_plain(boxes, valid, thres))
+
+
+def test_greedy_nms_refuses_misaligned_boxes(cuda):
+    """The kernel reads each box as one 16-byte load: boxes that do not
+    start on a 16-byte boundary are refused, not misread."""
+    boxes, valid = _nms_inputs(1, 64, "random", cuda, seed=0)
+    flat = torch.empty(64 * 4 + 1, device=cuda)
+    moved = flat[1:].view(1, 64, 4)
+    moved.copy_(boxes)
+    with pytest.raises(ValueError, match="16-byte"):
+        suppress_greedy(moved, valid, 0.45)
 
 
 def test_greedy_nms_refuses_what_it_cannot_run(cuda):

@@ -188,8 +188,10 @@ def test_the_resident_path_keeps_the_bands_it_took(projection):
     0.0154 ms streamed against 0.0339 / 0.0200 resident, kernel C 0.0151 /
     0.0078 against 0.0191 / 0.0161; at 160^2, batch 128, C 0.0115 / 0.0206
     against 0.0079 / 0.0151); every other f32 band takes the streamed path,
-    and so do the bands the resident path cannot hold. Kernel A keeps its
-    resident path where a band of more than 64 tokens has little work."""
+    and so do the bands the resident path cannot hold. Kernel A's bands of
+    more than 64 tokens take the streamed path however little their work
+    (since its bf16 projection runs on wgmma: at (1, 100, 128) 0.0070 ms
+    streamed against 0.0074 resident)."""
     f32, bf16 = torch.float32, torch.bfloat16
     for imgsz, batches in ((160, (8, 16, 128)), (640, (8,))):
         for batch, (layer, n, c, _) in itertools.product(
@@ -204,7 +206,7 @@ def test_the_resident_path_keeps_the_bands_it_took(projection):
     if projection:
         assert attention_plan(8, 400, 256, bf16).streamed  # s-l L8 @640
         assert attention_plan(1, 400, 256, bf16).streamed
-        assert attention_plan(1, 100, 128, bf16).path == "resident"
+        assert attention_plan(1, 100, 128, bf16).streamed
         assert attention_plan(32, 1600, 64, bf16).streamed  # n L6 @1280
         assert attention_plan(512, 25, 64, bf16).path == "short"
     else:

@@ -73,9 +73,11 @@
 //    v instead of two cluster barriers and an exchange. Shared memory per
 //    CTA: 128 * ceil16(N) bytes.
 //
-// f32 runs on the streamed path only here (below); kernel A's first launch
-// there projects k and v of every head in one GEMM on register
-// micro-tiles fed by TMA (`kv_projection_f32_kernel`, gemm_f32.cuh). The
+// f32 runs on the streamed path only here (below). Kernel A's first launch
+// there projects k and v of every head in one GEMM over the flattened
+// tokens: bf16 on wgmma from TMA-fed shared memory
+// (`kv_projection_wgmma_kernel`), f32 on register micro-tiles fed by TMA
+// (`kv_projection_f32_kernel`, gemm_f32.cuh). The
 // resident path takes heads of 32; heads of 64
 // stream, in one form of each streamed kernel (f32 32 query rows a CTA,
 // bf16 one consumer warpgroup): the same design with tiles of two 32-channel
@@ -467,113 +469,122 @@ constexpr int STAGES_MMA = 3;     // its ring
 constexpr int WG_ROWS = 64;       // query rows of a consumer warpgroup
 constexpr int REGS_PRODUCER = 40;  // setmaxnreg of the producer warpgroup
 
-// The A fragments of a warp's 16 rows of x (rows r0 + gq and r0 + gq + 8,
-// zero past N), channels c0 .. c0 + 31: two k steps, as kernel A loads them.
-struct XRows {
-  const uint32_t *lo, *hi;
-  int n_lo, n_hi, N, t;
-  __device__ __forceinline__ XRows(const bf16* xg, int r0, int N_, int C) {
-    const int lane = threadIdx.x & 31;
-    n_lo = r0 + (lane >> 2);
-    n_hi = n_lo + 8;
-    N = N_;
-    t = lane & 3;
-    lo = reinterpret_cast<const uint32_t*>(xg + (size_t)min(n_lo, N - 1) * C);
-    hi = reinterpret_cast<const uint32_t*>(xg + (size_t)min(n_hi, N - 1) * C);
-  }
-  __device__ __forceinline__ void load(uint32_t (&a)[2][4], int c0) const {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {                 // k step e / 4, reg e % 4
-      const int col = c0 + 16 * (e >> 2) + 8 * ((e >> 1) & 1) + 2 * t;
-      const uint32_t* row = e & 1 ? hi : lo;
-      a[e >> 2][e & 3] = (e & 1 ? n_hi : n_lo) < N ? row[col / 2] : 0u;
-    }
-  }
-};
+// Kernel A's first launch on the streamed path, bf16: k | v = x . w[:, C:3C]
+// + b[C:3C] for every head in one grid, a GEMM over the (G N)-token x
+// 2C-column output (the bf16 twin of `kv_projection_f32_kernel` below): a
+// CTA of one warpgroup per tile of KVB_TM tokens (tiles cross band
+// boundaries) and panel of 64 KVB_NB columns. Thread 0 issues every TMA load
+// into a ring of up to KVB_STAGES stages over C: x's slab of 64 channels by
+// one box of `x_map` ((G N, C), 128-byte rows, 128-byte swizzle: the K-major
+// A operand) and the weight's k | v columns by KVB_NB boxes of `w_map` ((C,
+// 3C), 64 rows x 64 columns, 128-byte swizzle: MN-major B operands, the
+// layout the q-projecting wgmma attention reads its weight in), so the next
+// stage lands while this one multiplies. Products on wgmma m64n64k16, f32
+// accumulators, four k steps a stage; channels and columns past C and 3C
+// read zero. The epilogue adds the f32 bias, rounds once to bf16, stages
+// the tile in shared memory and writes 16-byte chunks, k into the scratch
+// and v into kernel A's second output, (G, N, C) head-major as w's columns
+// are. What bounds it: the bytes (x read, k and v written: 6 G N C), about
+// 1.5 us at yolov12n's layer 6 at 640^2, batch 8, against 4 G N C^2 flop at
+// 989 TFLOP/s, a tenth of that; so the tiles are small and many (64 tokens x
+// 64 columns, KVB_NB = 1: 400 CTAs there, several an SM, their loads in flight
+// together; on an H100 the faster at seven of the eight bands timed against
+// panels of 128 and 256 columns, `tools/time_builds.py`), and every byte of
+// HBM moves once, x's slab a panel from L2.
+constexpr int KVB_TM = 64;        // tokens a CTA (the wgmma's rows)
+constexpr int KVB_KS = 64;        // channels a ring stage (one 128-byte box)
+constexpr int KVB_STAGES = 4;     // ring stages at most
+constexpr int KVB_NB = 1;         // 64-column weight boxes a panel
 
-// acc[j] += x . W for J tiles of 8 columns of the staged weights Ws
-// ([C][ld], column tiles 0 .. J - 1), the x fragments streamed from global
-// memory a chunk of 32 channels ahead: kernel A's projection loop, the same
-// products in the same order (the resident kernel keeps its own copy, whose
-// schedule the resident times rest on).
-template <int J>
-__device__ __forceinline__ void project_rows(const XRows& xr, const bf16* Ws,
-                                             int ld, int C,
-                                             float (&acc)[J][4]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int j = 0; j < J; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  uint32_t a[2][4];
-  xr.load(a, 0);
-  for (int c0 = 0; c0 < C; c0 += 32) {
-    uint32_t a_next[2][4];
-    if (c0 + 32 < C) xr.load(a_next, c0 + 32);
-#pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
-      const bf16* wrow =
-          Ws + (c0 + 16 * kk + (lane & 15)) * ld + (lane >> 4) * 8;
-#pragma unroll
-      for (int jj = 0; jj < J / 2; ++jj) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, wrow + 16 * jj);
-        mma_bf16(acc[2 * jj], a[kk], b[0], b[1]);
-        mma_bf16(acc[2 * jj + 1], a[kk], b[2], b[3]);
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < 2; ++kk)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) a[kk][e] = a_next[kk][e];
-  }
-}
+__global__ void __launch_bounds__(128)
+kv_projection_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
+                           const __grid_constant__ CUtensorMap w_map,
+                           const float* __restrict__ bias,
+                           bf16* __restrict__ k_out, bf16* __restrict__ v_out,
+                           int tokens, int C, int stages) {
+  constexpr int NB = KVB_NB;
+  constexpr int XT = KVB_TM * KVB_KS;            // elements of an x box
+  constexpr int WT = KVB_KS * 64;                // of a weight box
+  constexpr int ST = XT + NB * WT;               // of a stage
+  constexpr int LDO = 64 * NB + 8;   // staged rows: 16 bytes past 128 NB
+  extern __shared__ unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(align1024(smem_raw));
+  bf16* Os = ring + stages * ST;                 // [KVB_TM][LDO] the tile
+  uint64_t* full = reinterpret_cast<uint64_t*>(Os + KVB_TM * LDO);
+  const int tok0 = blockIdx.x * KVB_TM, col0 = blockIdx.y * 64 * NB;
+  const int ksteps = (C + KVB_KS - 1) / KVB_KS;
+  const int tid = threadIdx.x;
 
-// The row stride of a head's staged k | v weight columns (2 HD + 8: 16
-// bytes past a multiple of 32, conflict-free ldmatrix).
-__host__ __device__ constexpr int ldkv(int hd) { return 2 * hd + 8; }
-
-// Kernel A's first launch on the streamed path, bf16: k and v of 16 tokens a
-// warp for head h (HD_ channels), k into the scratch, v into kernel A's
-// second output.
-template <int HD_>
-__global__ void __launch_bounds__(MMA_WARPS * 32)
-kv_projection_mma_kernel(const bf16* __restrict__ x,
-                         const bf16* __restrict__ w,
-                         const float* __restrict__ bias,
-                         bf16* __restrict__ k_out, bf16* __restrict__ v_out,
-                         int N, int C) {
-  constexpr int LDKV = ldkv(HD_), CH = HD_ / 8;   // 8-column chunks a role
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int h = blockIdx.x, g = blockIdx.y;
-  const int warp = threadIdx.x >> 5, t = threadIdx.x & 3;
-  const int r0 = 16 * (blockIdx.z * MMA_WARPS + warp);
-  bf16* Ws = reinterpret_cast<bf16*>(smem_raw);  // [C][LDKV]: k | v cols
-  for (int i = threadIdx.x; i < C * 2 * CH; i += blockDim.x) {
-    const int c = i / (2 * CH), j8 = i % (2 * CH);  // of role 1 + j8 / CH
-    cp_async16(Ws + c * LDKV + 8 * j8,
-               w + (size_t)c * 3 * C + (1 + j8 / CH) * C + h * HD_ +
-                   (j8 % CH) * 8,
-               true);
+  auto issue = [&](int i) {                      // stage i (thread 0)
+    const int s = i % stages;
+    bf16* st = ring + s * ST;
+    mbar_expect_tx(&full[s], ST * sizeof(bf16));
+    tma_load_2d(st, &x_map, &full[s], i * KVB_KS, tok0);
+    for (int j = 0; j < NB; ++j)
+      tma_load_2d(st + XT + j * WT, &w_map, &full[s], C + col0 + 64 * j,
+                  i * KVB_KS);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(&full[s], 1);
+    mbar_init_fence();
   }
-  cp_async_wait_all();
   __syncthreads();
-  if (r0 >= N) return;                           // warp-uniform, no barrier
-  const XRows xr(x + (size_t)g * N * C, r0, N, C);
-  float acc[2 * CH][4];
-  project_rows<2 * CH>(xr, Ws, LDKV, C, acc);
+  if (tid == 0)
+    for (int i = 0; i < min(stages, ksteps); ++i) issue(i);
+
+  float acc[NB][32];
 #pragma unroll
-  for (int j = 0; j < 2 * CH; ++j) {
-    const int role = 1 + j / CH, col = 8 * (j % CH) + 2 * t;
-    const float b0 = bias[role * C + h * HD_ + col];
-    const float b1 = bias[role * C + h * HD_ + col + 1];
-    bf16* dst =
-        (role == 1 ? k_out : v_out) + (size_t)g * N * C + h * HD_ + col;
-    if (xr.n_lo < N)
-      *reinterpret_cast<uint32_t*>(dst + (size_t)xr.n_lo * C) =
-          pack_bf16(acc[j][0] + b0, acc[j][1] + b1);
-    if (xr.n_hi < N)
-      *reinterpret_cast<uint32_t*>(dst + (size_t)xr.n_hi * C) =
-          pack_bf16(acc[j][2] + b0, acc[j][3] + b1);
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[j][e] = 0.f;
+  for (int i = 0; i < ksteps; ++i) {
+    const int s = i % stages;
+    mbar_wait(&full[s], (i / stages) & 1);
+    const bf16* st = ring + s * ST;
+    const uint64_t dx = smem_desc_sw128(st);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KVB_KS / 16; ++kk)     // 16 channels: 32 bytes on
+#pragma unroll
+      for (int j = 0; j < NB; ++j)
+        wgmma_64x64_ss(acc[j], dx + 2 * kk,
+                       smem_desc_sw128(st + XT + j * WT + kk * 16 * 64), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) reg_fence(acc[j][e]);
+    if (i + stages < ksteps) {                   // slot s read by every warp
+      __syncthreads();
+      if (tid == 0) issue(i + stages);
+    }
+  }
+
+  // + f32 bias, one rounding to bf16 (rows r_lo and r_lo + 8, columns
+  // 8 jj + 2 t + e of box j), staged; then 16-byte chunks to k or v
+  const int warp = tid >> 5, lane = tid & 31, t = lane & 3;
+  const int r_lo = 16 * warp + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int col = 64 * j + 8 * jj + 2 * t, c = col0 + col;
+      const float b0 = c < 2 * C ? bias[C + c] : 0.f;
+      const float b1 = c < 2 * C ? bias[C + c + 1] : 0.f;
+      *reinterpret_cast<uint32_t*>(Os + r_lo * LDO + col) =
+          pack_bf16(acc[j][4 * jj] + b0, acc[j][4 * jj + 1] + b1);
+      *reinterpret_cast<uint32_t*>(Os + (r_lo + 8) * LDO + col) =
+          pack_bf16(acc[j][4 * jj + 2] + b0, acc[j][4 * jj + 3] + b1);
+    }
+  __syncthreads();
+  for (int q = tid; q < KVB_TM * 8 * NB; q += 128) {
+    const int r = q / (8 * NB), ch = q % (8 * NB);
+    const int tok = tok0 + r, c = col0 + 8 * ch;
+    if (tok < tokens && c < 2 * C)
+      *reinterpret_cast<uint4*>((c < C ? k_out + c : v_out + (c - C)) +
+                                (size_t)tok * C) =
+          *reinterpret_cast<const uint4*>(Os + r * LDO + 8 * ch);
   }
 }
 
@@ -1237,34 +1248,54 @@ bool stream_rows_valid(int dtype, int rows) {
                     : rows == 64 || rows == 32 || rows == 16;
 }
 
-template <int HD_>
+// The bf16 projection's shared memory: the ring, the staged tile and the
+// ring's barriers (bytes, with 1024 of slack for the alignment).
+size_t kv_projection_bf16_smem(int stages, int nb) {
+  return 1024 +
+         sizeof(bf16) * ((size_t)stages * KVB_KS * (KVB_TM + 64 * nb) +
+                         (size_t)KVB_TM * (64 * nb + 8)) +
+         8 * (size_t)stages;
+}
+
+cudaError_t launch_kv_projection_bf16(const void* x, const void* w,
+                                      const void* b, void* k, void* v,
+                                      int tokens, int C, cudaStream_t s) {
+  constexpr auto proj = kv_projection_wgmma_kernel;
+  constexpr int NB = KVB_NB;
+  const int stages = min((C + KVB_KS - 1) / KVB_KS, KVB_STAGES);
+  CUtensorMap xm, wm;
+  cudaError_t e = matrix_map(&xm, x, tokens, C, C, KVB_TM, KVB_KS, true);
+  if (e == cudaSuccess) e = matrix_map(&wm, w, C, 3 * C, 3 * C, KVB_KS, 64,
+                                       true);
+  if (e == cudaSuccess) e = allow_smem<proj>();
+  if (e != cudaSuccess) return e;
+  proj<<<dim3((tokens + KVB_TM - 1) / KVB_TM,
+              (2 * C + 64 * NB - 1) / (64 * NB)),
+         128, kv_projection_bf16_smem(stages, NB), s>>>(
+      xm, wm, static_cast<const float*>(b), static_cast<bf16*>(k),
+      static_cast<bf16*>(v), tokens, C, stages);
+  return cudaGetLastError();
+}
+
+// Kernel A's first launch on the streamed path: k and v of every head.
 cudaError_t project_kv(const void* x, const void* w, const void* b, void* k,
-                       void* v, int G, int N, int C, int heads, int dtype,
+                       void* v, int G, int N, int C, int dtype,
                        cudaStream_t s) {
-  if (dtype == 1) {
-    constexpr auto proj = kv_projection_mma_kernel<HD_>;
-    const cudaError_t e = allow_smem<proj>();
-    if (e != cudaSuccess) return e;
-    proj<<<dim3(heads, G, (N + 16 * MMA_WARPS - 1) / (16 * MMA_WARPS)),
-           MMA_WARPS * 32, sizeof(bf16) * (size_t)C * ldkv(HD_), s>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-        static_cast<const float*>(b), static_cast<bf16*>(k),
-        static_cast<bf16*>(v), N, C);
-  } else {
-    using L = GemmTile<KV_TM>;
-    constexpr auto proj = kv_projection_f32_kernel;
-    const int tokens = G * N;
-    CUtensorMap xm, wm;
-    cudaError_t e = matrix_map(&xm, x, tokens, C, C, KV_TM);
-    if (e == cudaSuccess) e = matrix_map(&wm, w, C, 3 * C, 3 * C, KS_F32,
-                                         L::NP);
-    if (e == cudaSuccess) e = allow_smem<proj>();
-    if (e != cudaSuccess) return e;
-    proj<<<dim3((tokens + KV_TM - 1) / KV_TM, (2 * C + L::NP - 1) / L::NP),
-           GEMM_THREADS, kv_projection_f32_smem(), s>>>(
-        xm, wm, static_cast<const float*>(b), static_cast<float*>(k),
-        static_cast<float*>(v), tokens, C);
-  }
+  if (dtype == 1)
+    return launch_kv_projection_bf16(x, w, b, k, v, G * N, C, s);
+  using L = GemmTile<KV_TM>;
+  constexpr auto proj = kv_projection_f32_kernel;
+  const int tokens = G * N;
+  CUtensorMap xm, wm;
+  cudaError_t e = matrix_map(&xm, x, tokens, C, C, KV_TM);
+  if (e == cudaSuccess) e = matrix_map(&wm, w, C, 3 * C, 3 * C, KS_F32,
+                                       L::NP);
+  if (e == cudaSuccess) e = allow_smem<proj>();
+  if (e != cudaSuccess) return e;
+  proj<<<dim3((tokens + KV_TM - 1) / KV_TM, (2 * C + L::NP - 1) / L::NP),
+         GEMM_THREADS, kv_projection_f32_smem(), s>>>(
+      xm, wm, static_cast<const float*>(b), static_cast<float*>(k),
+      static_cast<float*>(v), tokens, C);
   return cudaGetLastError();
 }
 
@@ -1277,9 +1308,7 @@ cudaError_t launch_qkv_stream(const void* x, const void* w, const void* b,
   if (dtype == 1 &&
       stream_wgmma_smem(C, rows / WG_ROWS, true, hd) > 227 * 1024)
     return cudaErrorInvalidValue;
-  const cudaError_t e =
-      hd == 64 ? project_kv<64>(x, w, b, k, v, G, N, C, heads, dtype, s)
-               : project_kv<32>(x, w, b, k, v, G, N, C, heads, dtype, s);
+  const cudaError_t e = project_kv(x, w, b, k, v, G, N, C, dtype, s);
   if (e != cudaSuccess) return e;
   if (dtype == 1)
     return stream_wgmma<true>(

@@ -204,24 +204,28 @@ __device__ __forceinline__ float lane_of(const float4& v, int u) {
   return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
 }
 
-// A map of a row-major (rows, cols) f32 matrix (row stride `ld` floats),
+// A map of a row-major (rows, cols) f32 matrix (row stride `ld` elements),
 // boxes of `box_cols` columns (a multiple of 4, at most 256) x `box_rows`
 // rows, unswizzled: a box lands as a dense [box_rows][box_cols] tile;
-// columns and rows past the matrix read zero.
+// columns and rows past the matrix read zero. With `bf16` the matrix is
+// bfloat16 and a box of 64 columns (128-byte rows) takes the 128-byte
+// swizzle, as `band_map`'s: a wgmma operand tile (`smem_desc_sw128`).
 inline cudaError_t matrix_map(CUtensorMap* map, const void* ptr, long rows,
                               int cols, int ld, int box_rows,
-                              int box_cols = 32) {
+                              int box_cols = 32, bool bf16 = false) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 4};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * (bf16 ? 2 : 4)};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t unit[2] = {1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(ptr), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      2, const_cast<void*>(ptr), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      bf16 ? swizzle_of(box_cols * 2) : CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

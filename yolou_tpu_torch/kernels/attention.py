@@ -97,14 +97,18 @@ _STREAM_STAGES = {torch.bfloat16: 3, torch.float32: 2}
 _WG_ROWS = 64
 _F32_ROWS = (64, 32, 16)
 _LDP = 76
+# the bf16 k/v projection (`kv_projection_wgmma_kernel`): tokens a CTA,
+# channels a ring stage, its stages at most, and its panel's columns
+_KVB_TM = 64
+_KVB_KS = 64
+_KVB_STAGES = 4
+_KVB_COLS = 64
 _SMS = 132    # streaming multiprocessors of an H100 SXM
 # bf16: the streamed path past this many tokens (at or below it a 128-key
-# tile and a 64-row block are half padding or more), and from this much
-# attention work, (band, head) pairs times N^2, in kernel A (True) and C
-# (False); each the crossover of both paths' device times on an H100 80GB
-# HBM3 at 700 W over every yolov12 band (`tools/attention_routes.py`)
+# tile and a 64-row block are half padding or more), in kernels A and C:
+# the crossover of both paths' device times on an H100 80GB HBM3 at 700 W
+# over every yolov12 band (`tools/attention_routes.py`)
 _STREAM_MIN_TOKENS = 64
-_STREAM_WORK = {True: 300_000, False: 0}
 
 
 def area_attention_qkv_fused_plain(x: torch.Tensor, w: torch.Tensor,
@@ -201,11 +205,11 @@ def stream_smem_bytes(c: int, dtype: torch.dtype, projection: bool = True,
     values and the CTA's `rows` query rows (the most it may take by
     default). bfloat16: three stages of 128 keys, q (64 rows a consumer
     warpgroup); kernel A also the head's (C, 32) q weight columns and the
-    CTA's (rows, C) x tile, and its projection launch the (C, 64) k and v
-    columns in rows of 72. float32: two stages of 64 keys, q and the
+    CTA's (rows, C) x tile, and its projection launch its own
+    (`kv_projection_smem`). float32: two stages of 64 keys, q and the
     probabilities (`_LDP` floats a row) of `rows` rows; kernel A also the
     head's (C, 32) q weight columns. At head width `hd` (32 or 64) every
-    head-wide tile and the projection's rows (2 hd + 8) widen with it."""
+    head-wide tile widens with it."""
     keys, stages = _STREAM_KEYS[dtype], _STREAM_STAGES[dtype]
     bars = 8 * (2 * stages + 1)
     if dtype == torch.bfloat16:
@@ -214,11 +218,22 @@ def stream_smem_bytes(c: int, dtype: torch.dtype, projection: bool = True,
         if projection:
             tiles += c * hd + rows * c
         attention = 1024 + 2 * tiles + bars
-        return max(attention, 2 * (2 * hd + 8) * c if projection else 0)
+        return max(attention, kv_projection_smem(c) if projection else 0)
     rows = rows or _F32_ROWS[0]
     return (1024 + 4 * (2 * stages * keys * hd
                         + rows * (hd + _LDP)
                         + (c * hd if projection else 0)) + bars)
+
+
+def kv_projection_smem(c: int) -> int:
+    """Dynamic shared memory of the bf16 k/v projection launch at width C
+    (bytes, with 1024 of slack for the tiles' alignment and 8 a barrier):
+    its ring of up to `_KVB_STAGES` stages of 64 channels (a 64-token x
+    slab and the panel's weight columns) and the staged output tile, rows 8
+    elements wider."""
+    stages = min(-(-c // _KVB_KS), _KVB_STAGES)
+    return (1024 + 2 * (stages * _KVB_KS * (_KVB_TM + _KVB_COLS)
+                        + _KVB_TM * (_KVB_COLS + 8)) + 8 * stages)
 
 
 def stream_rows(g: int, n: int, c: int, dtype: torch.dtype,
@@ -315,10 +330,10 @@ def stream_faster(g: int, n: int, c: int, projection: bool = True) -> bool:
     """Whether the streamed path beat the resident one on an H100 at G bands
     of N tokens at width C (bfloat16; `tools/attention_routes.py` timed both
     at every yolov12 band the resident path holds): past
-    `_STREAM_MIN_TOKENS` tokens where the attention's work, (band, head)
-    pairs times N^2, reaches `_STREAM_WORK`."""
-    pairs = g * (c // HEAD_DIM)
-    return n > _STREAM_MIN_TOKENS and pairs * n * n >= _STREAM_WORK[projection]
+    `_STREAM_MIN_TOKENS` tokens, whatever G and C, in kernel A
+    (`projection`) and C alike (kernel A's resident path wins one of the 70
+    bands of 65-1024 tokens it holds, by 2.7 %)."""
+    return n > _STREAM_MIN_TOKENS
 
 
 def attention_plan(g: int, n: int, c: int, dtype: torch.dtype,

@@ -1,10 +1,12 @@
 """Kernel B: greedy NMS keep mask (CUDA, sm_90a), batched over images.
 
 Replaces the TPU kernel `yolou_tpu/ops/pallas_nms.py::suppress_greedy_fused`
-(body `_nms_kernel`). Source: `../csrc/greedy_nms.cu`: one launch, a CTA per
-image that decides 64-row windows of candidates in shared memory; no
-scratch. The entry point is the `torch.library` operator `yolou::greedy_nms`
-behind a checking wrapper, as in `attention.py`.
+(body `_nms_kernel`). Source: `../csrc/greedy_nms.cu`: one launch, a
+thread-block cluster of up to 8 CTAs per image; every IoU test first, in
+parallel, as bits in the cluster's shared memory, then the greedy chain over
+64-row windows on those bits alone; no scratch. The entry point is the
+`torch.library` operator `yolou::greedy_nms` behind a checking wrapper, as
+in `attention.py`.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import torch
 
 from . import build
 
-MAX_K = 2048      # a CTA holds an image's boxes in shared memory (32 KB)
+MAX_K = 2048      # each CTA holds an image's boxes in shared memory (32 KB)
 
 
 def nms_hit_matrix(boxes: torch.Tensor, valid: torch.Tensor,
@@ -55,6 +57,8 @@ def _launch_greedy_nms(boxes, valid, iou_thres):
         raise ValueError(f"the CUDA kernel takes 0 < K <= {MAX_K} and B > 0, "
                          f"got B={bsz}, K={k}")
     lib = build.load()
+    if boxes.data_ptr() % 16:
+        raise ValueError("the CUDA kernel needs 16-byte aligned boxes")
     keep = torch.empty((bsz, k), dtype=torch.bool, device=boxes.device)
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -3,7 +3,7 @@ GPU, at every band of yolov12 n-x: kernel A's short path, the resident
 path and the streamed one at each number of query rows a CTA may take.
 
     python -m yolou_tpu_torch.tools.attention_routes [--out F] [--iters N]
-        [--kernels AC]
+        [--kernels AC] [--summarize F]
 
 Kernels A (`area_attention_qkv_fused`) and C (`area_attention_fused`) each
 have a resident path (bfloat16 only: a CTA holds its head's keys and
@@ -24,8 +24,12 @@ Prints the card's name and power limit, then one JSON object: {"card":
 ..., "rows": [{"kernel", "dtype", "g", "n", "c", "heads", "short_ms":
 {rows: [2 turns]} or null, "resident_ms": [2 turns] or null,
 "streamed_ms": {rows: [2 turns]}, "plan": "short", "resident" or
-"streamed", "plan_rows": ...}, ...]}; "plan" and "plan_rows" are what
-`attention_plan` takes.
+"streamed", "plan_rows": ...}, ...], "summary": ...}; "plan" and
+"plan_rows" are what `attention_plan` takes, "summary" is `summarize`'s
+(the plan against the fastest path, the resident path's wins), which
+`--summarize F` prints again from an earlier `--out F`, beside the same
+with the plan `attention_plan` makes now (a refitted rule's cost on the
+timings it was fitted to).
 """
 
 from __future__ import annotations
@@ -123,6 +127,50 @@ def time_routes(iters: int = 20, device: str = "cuda", kernels: str = "AC"):
     return rows
 
 
+def summarize(rows, replan: bool = False) -> dict:
+    """Per kernel and type: the plan's time over the fastest path's at each
+    band (mean and worst, each path's time the mean of its turns; with
+    `replan`, the plan `attention_plan` makes now in place of the one
+    recorded), and for the bands the resident path takes past the short
+    path's 64 tokens, how many it wins against the best streamed row count,
+    and by how much at most."""
+    out = {}
+    for row in rows:
+        if replan:
+            plan = attention_plan(row["g"], row["n"], row["c"],
+                                  getattr(torch, row["dtype"]),
+                                  row["kernel"] == "A")
+            row = {**row, "plan": plan.path, "plan_rows": plan.rows}
+        times = {}
+        for r, t in (row["short_ms"] or {}).items():
+            times[("short", int(r))] = np.mean(t)
+        if row["resident_ms"] is not None:
+            times[("resident", 0)] = np.mean(row["resident_ms"])
+        for r, t in row["streamed_ms"].items():
+            times[("streamed", int(r))] = np.mean(t)
+        best = min(times.values())
+        plan = times[(row["plan"], row["plan_rows"])]
+        key = f"{row['kernel']} {row['dtype']}"
+        s = out.setdefault(key, {"bands": 0, "plan_over_best": [],
+                                 "resident_bands": 0, "resident_wins": 0,
+                                 "resident_best_gain": 1.0})
+        s["bands"] += 1
+        s["plan_over_best"].append(plan / best)
+        if row["resident_ms"] is not None and row["n"] > _SHORT_ROWS:
+            streamed = min(np.mean(t) for t in row["streamed_ms"].values())
+            s["resident_bands"] += 1
+            if times[("resident", 0)] < streamed:
+                s["resident_wins"] += 1
+                s["resident_best_gain"] = max(
+                    s["resident_best_gain"],
+                    streamed / times[("resident", 0)])
+    for s in out.values():
+        ratios = s.pop("plan_over_best")
+        s["plan_over_best_mean"] = float(np.mean(ratios))
+        s["plan_over_best_worst"] = float(np.max(ratios))
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", type=Path, default=None,
@@ -130,11 +178,20 @@ def main(argv=None) -> int:
     p.add_argument("--iters", type=int, default=20)
     p.add_argument("--kernels", default="AC",
                    help="the kernels whose bands to time: A, C or AC")
+    p.add_argument("--summarize", type=Path, default=None,
+                   help="only print `summarize` of this earlier --out file, "
+                        "as recorded and with today's plan")
     args = p.parse_args(argv)
+    if args.summarize:
+        rows = json.loads(args.summarize.read_text())["rows"]
+        print(json.dumps({"recorded": summarize(rows),
+                          "replanned": summarize(rows, replan=True)},
+                         indent=1))
+        return 0
     card = card_name_and_power_limit()
     print(card, flush=True)
-    result = {"card": card,
-              "rows": time_routes(args.iters, kernels=args.kernels)}
+    rows = time_routes(args.iters, kernels=args.kernels)
+    result = {"card": card, "rows": rows, "summary": summarize(rows)}
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(result, indent=1))

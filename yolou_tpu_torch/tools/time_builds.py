@@ -9,7 +9,8 @@ library (`_build/`, named by the hash of its sources); the package's wrappers
 then launch each library's kernels on the same seeded bfloat16 inputs, at
 the shapes the serving, training and evaluation paths and the attention
 profiler give them (batch 8 at 640^2, batch 16 at 160^2; NMS over 512
-candidates of 8 and of 16 images, all valid), kernels A and C on their
+candidates of 1, 8 and 16 images and 2048 of 8, all valid), kernels A
+and C on their
 resident path, which every such tree has; then kernels A and C forced onto
 the streamed path (the "streamed" cases: f32 at the default commands'
 batch 16 at 640^2 and 160^2, at batch 8 and at 1024^2 and 1280^2, bf16 at
@@ -21,11 +22,9 @@ it, else bf16 resident and f32 streamed, the paths before it).
 behind `kernels/a2c2f.py::f32_tile`'s rule, which both types use). The
 bf16 strip case's plain version is timed too ("a2c2f L6 strip plain", the
 same plain tensor code beside every tree's kernel).
-A `csrc` from before the one-launch NMS kernel, whose C entry still takes a
-hit-matrix scratch, gets that scratch allocated here; one from before the
-whole-A2C2f kernel took its MLP width (whose C entry has no `hid`) is
-called without it, one whose streamed entries take no query rows
-(before the TMA kernels) without those, and one from before heads of any
+A `csrc` from before the whole-A2C2f kernel took its MLP width (whose C
+entry has no `hid`) is called without it, one whose streamed entries take
+no query rows (before the TMA kernels) without those, and one from before heads of any
 width and any stage count without the scale, the block array, the f32
 scratch and tile; one from before the bf16 wgmma kernel (no
 `a2c2f_bf16.cu`) gets its bf16 weights unpacked. The builds take
@@ -33,15 +32,20 @@ turns in the order given and then in reverse (old, new, new, old for two), so
 a drift of the card's clock over the run shows as a spread and not as a
 difference. Prints one JSON object: case -> directory -> {"device_ms":
 [...], "call_ms": [...]}, one number per turn: the card's own time per call
-(torch.profiler, `profile_layers.device_ms`) and CUDA events around
-back-to-back calls (`profile_layers.call_ms`, which counts the host too
-where it sets the pace), each over `--iters` calls after 3 warm-up calls.
-Compare two builds only within one run.
+(torch.profiler's device events, as `profile_layers.device_ms` sums them)
+and CUDA events around back-to-back calls (`profile_layers.call_ms`, which
+counts the host too where it sets the pace), each over `--iters` calls
+after 3 warm-up calls; "events_per_call", the device events a call in
+that trace (a turn short of events reads low); kernel A's streamed cases
+also "projection_ms", its first device kernel's (the k/v projection) share
+of the device time, from the same trace. Compare two builds only within one run.
 
 `nms_bounds()` gives the NMS cases' bound, on any device: the least time
 the card could take, the larger of the bytes moved over 3.35 TB/s and 16
 f32 operations per IoU test this data needs (each kept box against every
-later candidate) over 67 TFLOP/s, as `chip_smoke.py` counts them:
+later candidate) over 67 TFLOP/s, as `chip_smoke.py` counts them; and the
+hops of the kernel's chain between owner CTAs (`chip_smoke.py` times a call
+with no valid row beside it, the chain's own floor):
 
     python -c "from yolou_tpu_torch.tools.time_builds import nms_bounds; \
 print(nms_bounds())"
@@ -62,11 +66,11 @@ import torch
 from ..kernels import a2c2f as a2c2f_module
 from ..kernels import build
 from ..kernels.a2c2f import _launch_a2c2f, a2c2f_fused, a2c2f_fused_plain
-from ..kernels.nms import suppress_greedy
 from ..kernels.attention import (_launch_band_attention,
                                  _launch_qkv_attention, area_attention_fused,
                                  area_attention_qkv_fused)
-from .profile_layers import call_ms, device_ms
+from ..kernels.nms import suppress_greedy
+from .profile_layers import call_ms
 
 # name, (G, N, C), heads
 QKV_CASES = [("A L6@640", (32, 400, 64), 2), ("A L8@640", (8, 400, 128), 4),
@@ -85,6 +89,9 @@ STREAM_CASES = [
                                ("L8@160b16", (16, 25, 128), 4))] + [
     ("C streamed f32 L6@1024", "C", (32, 1024, 64), 2, torch.float32),
     ("A streamed bf16 L6@640", "A", (32, 400, 64), 2, torch.bfloat16),
+    ("A streamed bf16 L8@640", "A", (8, 400, 128), 4, torch.bfloat16),
+    ("A streamed bf16 s L8@640", "A", (8, 400, 256), 8, torch.bfloat16),
+    ("A streamed bf16 x L8@640", "A", (8, 400, 384), 12, torch.bfloat16),
     ("A streamed bf16 L6@160b128", "A", (512, 25, 64), 2, torch.bfloat16),
     ("A streamed bf16 L8@160b128", "A", (128, 25, 128), 4, torch.bfloat16),
     ("A streamed bf16 L6@1280", "A", (32, 1600, 64), 2, torch.bfloat16),
@@ -128,8 +135,13 @@ A2C2F_CASES = [
 # call in every tree, a yardstick beside the kernel; chip_smoke.py times the
 # others')
 A2C2F_PLAIN = ("a2c2f L6 strip",)
-# name, (B, K): the serving request and the evaluation step's batch
-NMS_CASES = [("B (8,512)", (8, 512)), ("B (16,512)", (16, 512))]
+# name, (B, K): chip_smoke.py's "random" boxes (most kept) at the serving
+# batch and the evaluation step's, the serving request's candidates (the
+# "serve" cases: its "dense" boxes, which keep few rows) at 8 images and at
+# one, and "random" at the kernel's largest K; every row valid
+NMS_CASES = [("B (8,512)", (8, 512)), ("B (16,512)", (16, 512)),
+             ("B serve (8,512)", (8, 512)), ("B serve (1,512)", (1, 512)),
+             ("B (8,2048)", (8, 2048))]
 NMS_IOU = 0.45
 # published peaks of one H100 SXM: HBM3 bytes/s, f32 FLOP/s outside the
 # tensor cores
@@ -139,9 +151,7 @@ F32_FLOPS = 67e12
 
 def load_library(csrc: Path):
     """Build (if needed) and load the kernels of one `csrc` directory. A
-    library whose NMS entry takes the hit-matrix scratch (the two-launch
-    kernel) is marked `nms_hit_scratch` and given that entry's signature;
-    one whose `yolou_a2c2f` has no MLP width gets an entry that drops it,
+    library whose `yolou_a2c2f` has no MLP width gets an entry that drops it,
     and one from before heads of any width (no scale in the attention
     entries, no block array or tile in `yolou_a2c2f`) entries that drop
     those."""
@@ -152,11 +162,6 @@ def load_library(csrc: Path):
     finally:
         build.CSRC = saved
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    nms_source = (csrc / "greedy_nms.cu").read_text()
-    lib.nms_hit_scratch = "nms_hit_kernel" in nms_source
-    if lib.nms_hit_scratch:
-        lib.yolou_greedy_nms.argtypes = [vp, vp, vp, vp, ci, ci,
-                                         ctypes.c_float, vp]
     # the bf16 wgmma kernel (a2c2f_bf16.cu) takes its weights packed; the
     # trees before it (one a2c2f.cu) take them as they are (`_use`)
     lib.a2c2f_bf16_packed = (csrc / "a2c2f_bf16.cu").exists()
@@ -194,24 +199,6 @@ def load_library(csrc: Path):
                 setattr(lib, name, lambda *args, old=old, at=at:
                         old(*args[:at], *args[at + 1:]))
     return lib
-
-
-def _nms(boxes, valid):
-    """suppress_greedy through the active library; the two-launch kernel's
-    entry gets its (B, K, ceil(K / 64)) scratch of 64-bit words."""
-    lib = build._lib
-    if not getattr(lib, "nms_hit_scratch", False):
-        return suppress_greedy(boxes, valid, NMS_IOU)
-    bsz, k = valid.shape
-    hit = torch.empty((bsz, k, -(-k // 64)), dtype=torch.int64,
-                      device=boxes.device)
-    keep = torch.empty_like(valid)
-    stream = torch.cuda.current_stream().cuda_stream
-    code = lib.yolou_greedy_nms(boxes.data_ptr(), valid.data_ptr(),
-                                hit.data_ptr(), keep.data_ptr(), bsz, k,
-                                NMS_IOU, stream)
-    build.check(lib, code, "greedy NMS kernel")
-    return keep
 
 
 def _resident_qkv(x, w, b, heads):
@@ -315,26 +302,32 @@ def _calls(device, tiles=()):
         for tile in tiles:
             calls[f"{name} tile{tile}"] = functools.partial(
                 _a2c2f_at_tile, x, ws, stages, area, heads, tile)
-    for name, (bsz, k) in NMS_CASES:   # chip_smoke.py's "random" boxes
-        xy = rng.random((bsz, k, 2), np.float32) * 600
-        wh = rng.random((bsz, k, 2), np.float32) * 120 + 8
+    for name, (bsz, k) in NMS_CASES:   # chip_smoke.py's boxes
+        if "serve" in name:            # "dense"
+            xy = rng.random((bsz, k, 2), np.float32) * 40 + 300
+            wh = rng.random((bsz, k, 2), np.float32) * 60 + 20
+        else:
+            xy = rng.random((bsz, k, 2), np.float32) * 600
+            wh = rng.random((bsz, k, 2), np.float32) * 120 + 8
         boxes = torch.from_numpy(np.concatenate([xy, xy + wh], -1)).to(device)
         valid = torch.ones((bsz, k), dtype=torch.bool, device=device)
-        calls[name] = functools.partial(_nms, boxes, valid)
+        calls[name] = functools.partial(suppress_greedy, boxes, valid,
+                                        NMS_IOU)
     return calls
 
 
 def nms_bounds(device: str = "cpu"):
-    """NMS case -> {kept, iou_tests, bytes, bound_ms, bound_by} on the
-    inputs `_calls` times: the boxes and valid mask read once, the keep
-    mask written once; the keep-set is the plain version's on the CPU (the
-    kernel's, identical, on the card)."""
+    """NMS case -> {kept, iou_tests, bytes, bound_ms, bound_by,
+    chain_hops} on the inputs `_calls` times: the boxes and valid mask read
+    once, the keep mask written once; the keep-set is the plain version's
+    on the CPU (the kernel's, identical, on the card); the kernel's chain
+    passes between ceil(K / 512) owner CTAs."""
     out = {}
     for name, fn in _calls(torch.device(device)).items():
         if not name.startswith("B "):
             continue
-        boxes, valid = fn.args
-        keep = suppress_greedy(boxes, valid, NMS_IOU)
+        boxes, valid, _ = fn.args
+        keep = fn()
         bsz, k = valid.shape
         later = (k - 1 - torch.arange(k, device=keep.device)).expand(bsz, k)
         tests = int(later[keep].sum())
@@ -344,7 +337,8 @@ def nms_bounds(device: str = "cpu"):
         out[name] = {"kept": int(keep.sum()), "iou_tests": tests,
                      "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops
-                     else "operations"}
+                     else "operations",
+                     "chain_hops": -(-k // 512) - 1}
     return out
 
 
@@ -360,6 +354,34 @@ def _use(lib):
         _PACK_BF16 if getattr(lib, "a2c2f_bf16_packed", True)
         else (lambda w: w))
     a2c2f_module._prepared.clear()
+
+
+def device_kernel_ms(fn, iters: int = 20, warmup: int = 3):
+    """(device milliseconds per call of `fn` by device kernel name, device
+    events per call): the raw device events of one torch.profiler trace
+    over `iters` calls after `warmup` (their time's sum is
+    `profile_layers.device_ms`); a trace short of events shows as fewer
+    events a call than the call launches."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    cuda = torch.autograd.DeviceType.CUDA
+    for _ in range(3):         # a trace that comes back empty is taken again
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        out, events = {}, 0
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == cuda:
+                out[e.name()] = (out.get(e.name(), 0.0)
+                                 + e.duration_ns() / 1e6 / iters)
+                events += 1
+        if out:
+            return out, events / iters
+    raise RuntimeError("torch.profiler recorded no device time")
 
 
 def time_builds(dirs, iters: int = 20, cases: str = "", tiles=()):
@@ -381,7 +403,13 @@ def time_builds(dirs, iters: int = 20, cases: str = "", tiles=()):
                     print(f"time_builds: {dirs[i]} {name}", file=sys.stderr,
                           flush=True)
                     t = times[name][dirs[i]]
-                    t["device_ms"].append(device_ms(fn, iters))
+                    kernel_ms, events = device_kernel_ms(fn, iters)
+                    t["device_ms"].append(sum(kernel_ms.values()))
+                    t.setdefault("events_per_call", []).append(events)
+                    if name.startswith("A streamed"):
+                        t.setdefault("projection_ms", []).append(sum(
+                            v for k, v in kernel_ms.items()
+                            if "projection" in k))
                     t["call_ms"].append(call_ms(fn, device, iters))
     finally:
         _use(saved)
