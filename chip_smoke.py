@@ -23,11 +23,13 @@ Phases, one or more output lines each:
                A2C2f module on the same weights; also at the
                long bands (yolov12s / x layer 8 at 640^2 in f32, yolov12n
                at 1280^2 in bf16, kernel C at 1024 and 1936 tokens), the
-               bf16 streamed path timed against the resident one at
-               yolov12n's 640^2 bands, kernel A's short path (bands of 64
-               tokens or fewer, one launch) against the path it replaced
-               at the 160^2 bands (f32 within 1e-5, bf16 within 2^-7), the
-               f32 k/v projection beside one torch.addmm at 640^2, `a2c2f` at mlp_ratio 1.2 and at
+               short paths of kernels A and C (bands of 64 tokens or
+               fewer, one launch) timed against the streamed path at the
+               160^2 bands (f32 within 1e-5, bf16 within 2^-7: kernel A
+               absolute, kernel C of the largest magnitude; kernel C also
+               at heads of 48 and 16), the f32 and bf16 k/v projections
+               beside one torch.addmm at 640^2 (yolov12s / x's layer 8
+               too), `a2c2f` at mlp_ratio 1.2 and at
                yolov12l's layer 8 (f32, 32-token tiles); heads of 48 and
                16 in kernels A and C and the single-head entry, and `a2c2f`
                with one head of 48 and with five stages, both types;
@@ -103,7 +105,8 @@ Phases, one or more output lines each:
                elliptic tumours (128 train, 64 val) with validation every
                epoch, 3 epochs with close_mosaic 1 (finite history, mAP50
                and mAP50-95 in [0, 1], best.ckpt and last.ckpt, 8 forward
-               launches and 8 backward calls of kernel C a step, 8 of
+               launches of kernel C a step, each on its short path, and 8
+               backward calls, 8 of
                kernel A and 1 of kernel B a validation batch, the training
                model's mode and BatchNorm statistics unchanged by each
                validation); last.ckpt, the JAX package's tree-form
@@ -216,7 +219,8 @@ Phases, one or more output lines each:
                5e-5; the gradient norm 1e-5 against one process's; the
                replicated tensors bit-identical across each model group;
                99 weights cut and half their bytes gone in every rank;
-               kernel C 8 + 8 a step in every rank); a bf16 step per rank
+               kernel C 8 + 8 a step in every rank, every launch on its
+               short path, f32 and bf16); a bf16 step per rank
                timed, with the host ms of the model group's collectives
                (`parallel.mesh.model_comm`), beside one process's; (b)
                `tools/dryrun.py::dryrun_multichip(4)` on cuda:0 x 4 (phase
@@ -228,7 +232,8 @@ Phases, one or more output lines each:
  20. demo    - `tools/run_demo.py`'s four stages, each a process, on the
                demo's synthetic set (64 / 16 / 16 at 160^2, seed 7) at a
                short schedule (6 + 6 epochs): the files, finite metrics,
-               the objectmap AUC, each stage's exact launches. The full
+               the objectmap AUC, each stage's exact launches (kernel C's on
+               its short path). The full
                120 + 120 run is `python -m yolou_tpu_torch.tools.run_demo`.
 Then a JSON line of kernel results (each kernel's launches on its path, error,
 device and per-call times, and the least time the card could take), the
@@ -409,17 +414,9 @@ BOTH = ("float32", "bfloat16")
 SHORT = {"float32": "f32", "bfloat16": "bf16"}
 
 
-# kernel A's short path: f32 within 1e-5, bf16 within 2^-7 (one bf16 step
-# of an output in [1, 2))
+# the short paths: f32 within 1e-5, bf16 within 2^-7 (one bf16 step of an
+# output in [1, 2); kernel C's of its largest magnitude)
 SHORT_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
-
-
-def streamed_vs_resident(fn_of_path):
-    """(resident device ms, streamed device ms) of a bf16 band both paths
-    take, timed in turns (resident, streamed, streamed, resident): the two
-    times `attention_plan`'s crossover chooses between."""
-    times = paths_in_turns(fn_of_path, (False, True))
-    return times[False], times[True]
 
 
 def paths_in_turns(fn_of_path, paths):
@@ -438,14 +435,11 @@ def check_attention(device):
     kernel, the plain version and, as a yardstick of the
     attention part alone (no one PyTorch call does projection + attention),
     scaled_dot_product_attention over the q, k, v that the plain projection
-    gives. At the 640^2 serving shapes in bf16 the streamed path is also
-    timed against the resident one, and at the 160^2 bands the short path
-    against the one it replaced (bf16 resident, f32 streamed); where a band
-    streams, its first device kernel (the k/v projection) beside its bound,
-    its plain version and one torch.addmm of the same columns, in both
-    types. Heads of 48
-    and 16 (padded to 64 and 32 in the wrapper) at layer 8's band, both
-    types."""
+    gives. At the 160^2 bands the short path is also timed against the
+    streamed one in turns; where a band streams, its first device kernel
+    (the k/v projection) beside its bound, its plain version and one
+    torch.addmm of the same columns, in both types. Heads of 48 and 16
+    (padded to 64 and 32 in the wrapper) at layer 8's band, both types."""
     import torch
     import torch.nn.functional as F
     from yolou_tpu_torch.kernels.attention import (
@@ -453,7 +447,7 @@ def check_attention(device):
         area_attention_qkv_fused_plain, attention_plan, padded_head_dim)
     f32_exact(torch)
     # serving: 640^2, batch 8; evaluation: 160^2, batch 16; objectmaps:
-    # 160^2, batch 128; then the bands the resident path cannot hold
+    # 160^2, batch 128; then the long bands
     cases = [("L6@640", 4 * BATCH, 400, 64, 2, BOTH),
              ("L8@640", BATCH, 400, 128, 4, BOTH),
              # the default (f32) commands' batch 16 at 640^2
@@ -467,7 +461,7 @@ def check_attention(device):
              ("L6@160b128", 4 * DEC_BATCH, 25, 64, 2, BOTH),
              ("L8@160b128", DEC_BATCH, 25, 128, 4, BOTH),
              ("s L8@640", BATCH, 400, 256, 8, BOTH),
-             ("x L8@640", BATCH, 400, 384, 12, ("float32",)),
+             ("x L8@640", BATCH, 400, 384, 12, BOTH),
              ("L6@1280", 4 * BATCH, 1600, 64, 2, BOTH),
              ("L8@1280", BATCH, 1600, 128, 4, ("bfloat16",)),
              # heads no yolov12 graph builds: two of 48 (padded to 64, the
@@ -525,18 +519,11 @@ def check_attention(device):
                 # the projection alone: its plain version and one library
                 # call
                 paths.update(projection_yardsticks(xt, wt, bt))
-            if name in ("L6@640", "L8@640") and dtype == torch.bfloat16:
-                paths.update(zip(("resident_ms", "streamed_ms"),
-                                 streamed_vs_resident(
-                    lambda st: lambda: _launch_qkv_attention(
-                        xt, wt, bt, heads,
-                        "streamed" if st else "resident"))))
             if plan.path == "short" and hdp == 32:
-                before = "resident" if dtype == torch.bfloat16 else "streamed"
                 paths.update({f"{p}_ms": t for p, t in paths_in_turns(
                     lambda p: lambda: _launch_qkv_attention(xt, wt, bt,
                                                             heads, p),
-                    ("short", before)).items()})
+                    ("short", "streamed")).items()})
             floor_ms = exp_floor(g, heads, n)
             log("kernel", name="band_attention", case=name,
                 shape=f"({g},{n},{c})h{heads}", dtype=dtype_name(dtype),
@@ -615,12 +602,13 @@ def check_training_attention(device):
     shapes of yolov12n at 640^2 and batch 8, at the two the fine-tune phase
     gives them (160^2, batch 16), at the two shapes the attention
     profiler gives them at batch 8, and at yolov12n's layer-6 bands at
-    1024^2 (f32) and 1408^2 (bf16), batch 8, past the resident path;
-    times of kernel, plain version and the one PyTorch call that computes
-    the function (scaled_dot_product_attention), a yardstick only. At the
-    640^2 shapes in bf16 the streamed path is also timed against the
-    resident one. Heads of 48 and 16 (padded in the wrapper), multi-head
-    and single, both types."""
+    1024^2 (f32) and 1408^2 (bf16), batch 8; times of kernel, plain
+    version and the one PyTorch call that computes the function
+    (scaled_dot_product_attention), a yardstick only. The bands of 64
+    tokens or fewer (160^2) take the short path, held to `SHORT_TOL` of the
+    output's largest magnitude in bf16 and timed against the streamed path
+    in turns. Heads of 48 and 16 (padded in the wrapper), multi-head and
+    single, both types, at 400 tokens and at 25."""
     import torch
     import torch.nn.functional as F
     from yolou_tpu_torch.kernels.attention import (
@@ -645,7 +633,10 @@ def check_training_attention(device):
              ("L8@640 hd48", BATCH, 400, 96, 2, BOTH),
              ("L8@640 hd16", BATCH, 400, 32, 2, BOTH),
              ("single hd48", 64, 400, 48, 1, BOTH),
-             ("single hd16", 64, 400, 16, 1, BOTH)]
+             ("single hd16", 64, 400, 16, 1, BOTH),
+             # the short path at heads the wrapper pads: 48 -> 64, 16 -> 32
+             ("L8@160 hd48", EVAL_BATCH, 25, 96, 2, BOTH),
+             ("L8@160 hd16", EVAL_BATCH, 25, 32, 2, BOTH)]
     for name, shape, heads in zip(("profile-single", "profile-fused"),
                                   attention_shapes(BATCH), (1, HEADS)):
         cases.append((name, *shape, heads, BOTH))
@@ -697,36 +688,38 @@ def check_training_attention(device):
             hdp = padded_head_dim(c // heads)
             plan = attention_plan(g, n, heads * hdp, dtype, projection=False,
                                   hd=hdp)
-            streamed = plan.streamed
+            tol = ATTN_TOL[dn]
             paths = {}
-            if name in ("L6@640", "L8@640") and dtype == torch.bfloat16:
-                with torch.no_grad():
-                    paths = dict(zip(("resident_ms", "streamed_ms"),
-                                     streamed_vs_resident(
-                        lambda st: lambda: _launch_band_attention(
-                            q, k, v, heads, st))))
+            if plan.path == "short":
+                tol = SHORT_TOL[dn] * (1.0 if dn == "float32"
+                                       else ref.float().abs().max().item())
+                if hdp == c // heads:
+                    with torch.no_grad():
+                        paths = {f"{p}_ms": t for p, t in paths_in_turns(
+                            lambda p: lambda: _launch_band_attention(
+                                q, k, v, heads, p),
+                            ("short", "streamed")).items()}
             log("kernel", name=kname, case=name,
                 shape=f"({g},{n},{c})h{heads}", dtype=dn,
-                path="streamed" if streamed else "resident", rows=plan.rows,
+                path=plan.path, rows=plan.rows,
                 **paths, max_abs_err=err,
-                tol=ATTN_TOL[dn], grad_max_abs_err=gerr, grad_tol=GRAD_TOL[dn],
+                tol=tol, grad_max_abs_err=gerr, grad_tol=GRAD_TOL[dn],
                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 library_max_abs_err=lib_err, backward_ms=bwd_ms,
                 bound_ms=bound_ms, bound_by=bound_by, exp_floor_ms=floor_ms,
                 call_ms=call_ms,
                 plain_call_ms=plain_call_ms, library_call_ms=lib_call_ms)
-            if not (torch.isfinite(o).all() and err <= ATTN_TOL[dn]
+            if not (torch.isfinite(o).all() and err <= tol
                     and gerr <= GRAD_TOL[dn]):
                 raise AssertionError(
-                    f"{kname} {name} {dn}: max|d| {err} (tol {ATTN_TOL[dn]}),"
+                    f"{kname} {name} {dn}: max|d| {err} (tol {tol}),"
                     f" gradients {gerr} (tol {GRAD_TOL[dn]}) or non-finite")
             results[(name, dn)] = {
-                "max_abs_err": err, "ms": ms, "call_ms": call_ms,
+                "max_abs_err": err, "tol": tol, "ms": ms, "call_ms": call_ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "exp_floor_ms": floor_ms,
                 "library_ms": lib_ms, "backward_ms": bwd_ms,
-                "streamed": streamed,
-                "path": "streamed" if streamed else "resident"}
+                "streamed": plan.streamed, "path": plan.path, **paths}
     return results
 
 
@@ -2107,10 +2100,10 @@ def shapes_phase(device, state_dict) -> dict:
     """The shapes past yolov12n at 640^2 and the MLP width, through the
     entry points: (a) a Predictor with seeded, calibrated yolov12s-seg
     weights serving 2 requests of 8 at 640^2 in f32 (8 kernel A launches a
-    forward, on the streamed path, as every f32 band; a detection on every
-    image), then f32 card vs CPU as `compare_f32`; (b) the same weights
-    serving a request of 8 at 1280^2 in bf16 (both layers' bands of 1600
-    tokens past the resident path; a detection on every image, and its raw
+    forward, on the streamed path, as every band past 64 tokens; a
+    detection on every image), then f32 card vs CPU as `compare_f32`; (b)
+    the same weights serving a request of 8 at 1280^2 in bf16 (both layers'
+    bands of 1600 tokens; a detection on every image, and its raw
     forward on those images finite); (c) one f32 DetectorTrainer step of
     yolov12n (`state_dict`) at 1024^2, batch 2, card vs CPU as the train
     phase (kernel C streamed, 8 launches and 8 backward calls); (d) yolov12l at 640^2, f32, batch 2,
@@ -2457,13 +2450,15 @@ def finetune_phase(device):
         kernels.reset_launch_counts()
         history = tr.train()
         counts, backward = kernels.launch_counts(), kernels.backward_counts()
+        train_paths = kernels.path_counts("band_attention_train")
         steps = FT_EPOCHS * FT_STEPS
         run = os.path.join(run_dir, "a", os.listdir(
             os.path.join(run_dir, "a"))[0])
         files = sorted(os.listdir(os.path.join(run, "weights")))
         log("finetune", check="train", steps=tr.step_count,
             epoch_seconds=tr.epoch_times, validation_seconds=tr.val_times,
-            launches=counts, backward_calls=backward, files=files, **history)
+            launches=counts, backward_calls=backward,
+            band_attention_train_paths=train_paths, files=files, **history)
         log("finetune", validation_launches=val_launches,
             per_batch={k: v / FT_VAL_BATCHES
                        for k, v in val_launches[-1].items()})
@@ -2471,9 +2466,12 @@ def finetune_phase(device):
                 "band_attention": 8 * FT_VAL_BATCHES * FT_EPOCHS,
                 "greedy_nms": FT_VAL_BATCHES * FT_EPOCHS, "a2c2f": 0}
         if (any(counts[k] != v for k, v in want.items())
-                or backward["band_attention_train"] != 8 * steps):
+                or backward["band_attention_train"] != 8 * steps
+                or train_paths != {"short bf16": 8 * steps}):
             raise AssertionError(f"fine-tuning launched {counts}, backward "
-                                 f"{backward}, want {want}")
+                                 f"{backward}, kernel C's paths "
+                                 f"{train_paths}, want {want}, each kernel "
+                                 f"C launch short")
         if tr.step_count != steps or tr.notfinite_count():
             raise AssertionError(f"{tr.step_count} steps, "
                                  f"{tr.notfinite_count()} non-finite")
@@ -2575,6 +2573,7 @@ def finetune_phase(device):
     return {"validate": {k: sum(v[k] for v in val_launches)
                          for k in val_launches[0]},
             "train": counts["band_attention_train"],
+            "train_paths": train_paths,
             "backward": backward["band_attention_train"],
             "training_state": dict(state_io, twin_step=twin)}
 
@@ -3919,6 +3918,7 @@ def model_axis_rank(spec: dict, n_model: int, gates: str) -> dict:
     with rank 0's result."""
     import os
     import torch
+    from yolou_tpu_torch import kernels
     from yolou_tpu_torch.parallel import mesh as meshlib
     from tests import torch_parallel_ranks as ranks
     f32_exact(torch)
@@ -3926,12 +3926,18 @@ def model_axis_rank(spec: dict, n_model: int, gates: str) -> dict:
     if mesh.device != torch.device("cuda", 0) or mesh.backend != "gloo":
         raise AssertionError(f"rank {mesh.rank}: {mesh}")
     out = ranks.trajectory(spec, mesh)
+    # kernel C's paths since the trajectory's last reset (its last step),
+    # then over the bf16 steps
+    paths = [kernels.path_counts("band_attention_train")]
     tag = os.path.join(gates, spec["tag"])
     open(f"{tag}.ready{mesh.rank}", "w").close()
     wait_for(f"{tag}.go")
     meshlib.barrier(mesh)
+    kernels.reset_launch_counts()
     out["bf16"] = ranks.per_rank(mesh, axis_bf16_step(spec, mesh,
                                                       mesh.device))
+    paths.append(kernels.path_counts("band_attention_train"))
+    out["train_paths"] = ranks.per_rank(mesh, paths)
     return out
 
 
@@ -3963,7 +3969,8 @@ def check_axis_run(name: str, got: dict, one: dict) -> dict:
            "cut_per_rank": [r["n_cut"] for r in ranks],
            "param_bytes_per_rank": [r["param_bytes"] for r in ranks],
            "param_bytes_one": one_bytes,
-           "launches_per_rank": [r["launches"] for r in ranks]}
+           "launches_per_rank": [r["launches"] for r in ranks],
+           "train_paths_per_rank": got["train_paths"]}
     log("model_axis", check=f"{name} f32 steps vs one process", **out)
     if not (loss_rel <= 3e-4 and parts_rel <= 3e-4 and params == 0
             and ema == 0 and norm_rel <= 1e-5):
@@ -3973,6 +3980,12 @@ def check_axis_run(name: str, got: dict, one: dict) -> dict:
                and [tuple(x) for x in r["launches"]] == [(8, 8)] * TRAIN_STEPS
                for r in ranks):
         raise AssertionError(f"{name}: per rank {ranks}")
+    # every kernel C launch of every rank short: f32 in the trajectory's
+    # last step(s), bf16 in the timed steps
+    if not all(set(f32) == {"short f32"} and set(b16) == {"short bf16"}
+               for f32, b16 in got["train_paths"]):
+        raise AssertionError(f"{name}: kernel C's paths per rank "
+                             f"{got['train_paths']}")
     return out
 
 
@@ -4087,18 +4100,20 @@ def model_axis_phase(device, state_dict, root: str) -> dict:
         launch_seconds=seconds)
     launches = runs["2x2"]["ranks"][0]["launches"][0]
     return {"train": launches[0], "backward": launches[1],
+            "train_paths": runs["2x2"]["train_paths"][0],
             "checks": checks, "twin": twin}
 
 
-def demo_phase(device, root: str) -> dict:
+def demo_phase(device, root: str):
     """`tools/run_demo.py`'s four stages (each a `python -m yolou_tpu_torch`
     process on the card) on the demo's synthetic set (64 / 16 / 16 at
     160^2, seed 7) at a short schedule: 6 detector epochs (validation every
     3, close mosaic 2) and 6 decoder epochs. Each stage's files, finite
     metrics, the objectmap AUC line, and each stage's launches: kernel C 8
-    a step in the fine-tune, kernel A 8 and kernel B 1 a batch where a
-    whole model runs, none in the decoder's training (its encoder stops
-    before the attention)."""
+    a step in the fine-tune, each on its short path, kernel A 8 and kernel
+    B 1 a batch where a whole model runs, none in the decoder's training
+    (its encoder stops before the attention). Returns each stage's launches
+    and kernels A and C's launches by path."""
     import os
     from yolou_tpu_torch.tools.run_demo import run_demo
     t0 = time.perf_counter()
@@ -4118,6 +4133,10 @@ def demo_phase(device, root: str) -> dict:
     got = out["launches"]
     wrong = {s: {k: (got[s][k], n) for k, n in w.items() if got[s][k] != n}
              for s, w in want.items()}
+    train_paths = out["paths"]["train-detector"]["band_attention_train"]
+    if sum(train_paths.values()) != 8 * steps or not all(
+            k.startswith("short ") for k in train_paths):
+        wrong["train-detector paths"] = train_paths
     files = [os.path.join(d, "yolo_best.ckpt"),
              os.path.join(d, "runs_dec", "segpp_final.ckpt")]
     maps = {s: len(os.listdir(os.path.join(d, "objectmap", s)))
@@ -4129,6 +4148,7 @@ def demo_phase(device, root: str) -> dict:
         best_val_dice=out["best_val_dice"],
         best_val_dice_epoch=out["best_val_dice_epoch"], test=out["test"],
         stage_seconds=out["stage_seconds"], launches=got,
+        paths=out["paths"],
         phase_seconds=time.perf_counter() - t0, card=card_line())
     if any(wrong.values()):
         raise AssertionError(f"demo launches (got, want): {wrong}")
@@ -4138,7 +4158,7 @@ def demo_phase(device, root: str) -> dict:
             and all(np.isfinite(metrics)) and out["objectmap"]["n_maps"] > 0
             and out["test"]["n_images"] == 16):
         raise AssertionError(f"demo: {out}")
-    return got
+    return got, out["paths"]
 
 
 def _kernel_name(line: str):
@@ -4215,6 +4235,14 @@ def check_build_report(report: list) -> None:
                  "kv_projection_f32_kernel<"):
         if not any(e["kernel"].startswith(name) for e in report):
             raise AssertionError(f"no {name}...> in the build report")
+    for name in ("band_attention_short_wgmma_kernel<",
+                 "band_attention_short_f32_kernel<"):
+        for project in ("1", "0"):      # kernel A's form and kernel C's
+            if not any(e["kernel"].startswith(name)
+                       and e["kernel"].endswith(f",{project}>")
+                       for e in report):
+                raise AssertionError(f"no {name}..., {project}> in the "
+                                     f"build report")
     for entry in report:
         log("build", **entry)
         if entry["hmma"] is None:
@@ -4372,7 +4400,7 @@ def main() -> int:
         mark("parallel")
         axis = model_axis_phase(device, state_dict, root)
         mark("model_axis")
-        demo = demo_phase(device, root)
+        demo, demo_paths = demo_phase(device, root)
         mark("demo")
     log("timing", phase_seconds=seconds, total=round(sum(seconds.values()), 3))
     later = {"export": exported["bf16"], "export f32": exported["f32"],
@@ -4448,6 +4476,21 @@ def main() -> int:
     short_a32 = attention_row(attn_cases, ("L8@160", "float32"), "short",
                               ("float32",))
     stream_c = attention_row(multi_head, ("L6@1024", "float32"), "streamed")
+    for (case, dn), r in multi_head.items():
+        if r["path"] == "short" and not r["max_abs_err"] <= r["tol"]:
+            raise AssertionError(f"short kernel C {case} {dn}: "
+                                 f"{r['max_abs_err']}")
+    turns = ("short_ms", "streamed_ms")
+    short_c = {**attention_row(multi_head, ("L6@160", "bfloat16"), "short",
+                               ("bfloat16",)),
+               **{f"{k} in turns": multi_head[("L6@160", "bfloat16")][k]
+                  for k in turns}}
+    short_c32 = {**attention_row(multi_head, ("L6@160", "float32"), "short",
+                                 ("float32",)),
+                 **{f"{k} in turns": multi_head[("L6@160", "float32")][k]
+                    for k in turns}}
+    axis_f32, axis_bf16 = axis["train_paths"]
+    demo_c = demo_paths["train-detector"]["band_attention_train"]
     stream_c16 = {k: v for k, v in multi_head[("L6@1408", "bfloat16")].items()
                   if k not in ("streamed", "path")}
     shapes_devices = shapes.pop("device kernels")
@@ -4579,6 +4622,26 @@ def main() -> int:
              "shapes residual A2C2f f32 train":
                  shapes["residual"]["train"]["band_attention_train"]},
          **stream_c},
+        {"name": "band_attention_train_short", "route": "cuda",
+         "source": src + "band_attention_short.cu",
+         "replaces": pallas + ":243",
+         "device_kernels": ["band_attention_short_wgmma_kernel<HD, false>"],
+         "launches": ft["train_paths"].get("short bf16", 0),
+         "launches_by_path": {
+             "finetune": ft["train_paths"],
+             "model_axis bf16 steps (rank 0 of 2 x 2)": axis_bf16,
+             "demo train-detector": demo_c},
+         **short_c},
+        {"name": "band_attention_train_short_f32", "route": "cuda",
+         "source": src + "band_attention_short.cu",
+         "replaces": pallas + ":243",
+         "device_kernels": ["band_attention_short_f32_kernel<R, HD, false>"],
+         "launches": demo_c.get("short f32", 0),
+         "launches_by_path": {
+             "demo train-detector": demo_c,
+             "model_axis f32 last step and the one after (rank 0 of 2 x 2)":
+                 axis_f32},
+         **short_c32},
         {"name": "band_attention_single", "route": "cuda",
          "source": src + "band_attention.cu", "replaces": pallas + ":120",
          "launches": profile_counts["band_attention_single"],

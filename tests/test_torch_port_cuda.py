@@ -1,7 +1,8 @@
 """PyTorch port: the CUDA kernels against their plain versions on the card,
 at shapes off the serving path (ragged bands, token tiles and candidate
 counts, one to many heads, heads of any width up to 64, more tiles than one
-co-resident wave, side streams, both paths of the band attention kernels,
+co-resident wave, side streams, both paths of the band attention kernels
+(short and streamed),
 the whole-A2C2f kernel at other MLP widths, any stage count and each layout
 of its f32 kernel), and the wrappers' refusals.
 
@@ -26,7 +27,7 @@ from yolou_tpu_torch.kernels.attention import (
     _launch_band_attention, _launch_qkv_attention, area_attention,
     area_attention_fused, area_attention_fused_plain, area_attention_plain,
     area_attention_qkv_fused, area_attention_qkv_fused_plain, attention_plan,
-    cut_heads, max_tokens, pad_heads, pad_qkv_projection, padded_head_dim)
+    cut_heads, pad_heads, pad_qkv_projection, padded_head_dim)
 from yolou_tpu_torch.kernels.nms import suppress_greedy, suppress_greedy_plain
 from yolou_tpu_torch.models.specs import YOLOV12_SCALES, scale_channels
 
@@ -56,11 +57,10 @@ def _attn_inputs(g, n, c, dtype, device, seed):
             torch.tensor(b, dtype=torch.float32, device=device))
 
 
-# N around the 16-row query tiles and key steps of the tensor-core path
-# (and the 32-key tiles of the SIMT path), the 160^2 and 640^2 band lengths,
-# "max", the longest band the bf16 resident path takes at the case's width,
-# and "over", one token more (the streamed path); one to four heads, up to
-# 64 bands
+# N around 16-row tiles and the key tiles, the 160^2 and 640^2 band
+# lengths, "max", the longest band the short path takes (64 tokens), and
+# "over", one token more (the streamed path); one to four heads, up to 64
+# bands
 TILE_CASES = [(64 if n in (1, 15, 16, 17, 25, 33) else 4 if n in (399, 400)
                else 2, n, heads)
               for n in (1, 15, 16, 17, 25, 33, 399, 400, "max", "over")
@@ -70,8 +70,11 @@ TILE_CASES = [(64 if n in (1, 15, 16, 17, 25, 33) else 4 if n in (399, 400)
 def _band(n, heads, dtype, projection):
     c = 32 * heads
     if n in ("max", "over"):
-        return max_tokens(c, projection) + (n == "over"), c
+        return SHORT_MAX + (n == "over"), c
     return n, c
+
+
+SHORT_MAX = 64     # the longest band of the short path, both kernels
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
@@ -110,21 +113,19 @@ def test_band_attention_on_a_side_stream(cuda):
 
 
 def test_band_attention_refuses_what_it_cannot_run(cuda):
-    """Alignment and device are refused, and the resident path in f32,
-    which has none, and the short path past 64 tokens; a head of 48 is not
-    (padded to 64 in the wrapper, the short path at 16 tokens, within 1e-4
-    of the plain version), nor a band past the
-    bf16 resident path (one token past
-    its cluster's 1024), nor N = 1000 in f32: they run the streamed path
-    (two device kernels, one count) and agree with the plain version."""
+    """Alignment and device are refused, and a path the kernel has not
+    (the resident one is gone), and the short path past 64 tokens; a head of
+    48 is not (padded to 64 in the wrapper, the short path at 16 tokens,
+    within 1e-4 of the plain version), nor a long band (N = 1025 in bf16,
+    1000 in f32): they run the streamed path (two device kernels, one count)
+    and agree with the plain version."""
     x, w, b = _attn_inputs(2, 16, 96, torch.float32, cuda, seed=2)
     o, v = area_attention_qkv_fused(x, w, b, 2)       # head_dim 48
     o_ref, v_ref = area_attention_qkv_fused_plain(x, w, b, 2)
     assert (o - o_ref).abs().max().item() <= 1e-4
     assert (v - v_ref).abs().max().item() <= 1e-4
     for dtype, n, tol in ((torch.float32, 1000, 1e-4),
-                          (torch.bfloat16, max_tokens(128, torch.bfloat16) + 1,
-                           2e-2)):
+                          (torch.bfloat16, 1025, 2e-2)):
         assert attention_plan(1, n, 128, dtype).streamed
         x, w, b = _attn_inputs(1, n, 128, dtype, cuda, seed=3)
         kernels.reset_launch_counts()
@@ -141,7 +142,7 @@ def test_band_attention_refuses_what_it_cannot_run(cuda):
     x, w, b = _attn_inputs(2, 16, 64, torch.float32, cuda, seed=4)
     with pytest.raises(ValueError, match="one device"):
         area_attention_qkv_fused(x, w.cpu(), b, 2)
-    with pytest.raises(ValueError, match="no resident path"):
+    with pytest.raises(ValueError, match="path must be one of"):
         _launch_qkv_attention(x, w, b, 2, "resident")
     x, w, b = _attn_inputs(1, 65, 64, torch.float32, cuda, seed=4)
     with pytest.raises(ValueError, match="64 tokens or fewer"):
@@ -246,25 +247,22 @@ def test_single_head_attention_matches_plain(cuda):
 
 
 def test_training_attention_refuses_what_it_cannot_run(cuda):
-    """Device, contiguity and type are refused, and the resident path in
-    f32 and for heads of 64; a head of 48 is not (padded to 64, within 1e-4
-    of the plain version), nor a head wider
-    than 64 on the CPU's plain version, which the card refuses by name; a
-    band past the bf16 resident path (one token past its 1808) runs the
-    streamed path and agrees with the plain version, as N = 1000 in f32
-    does."""
+    """Device, contiguity and type are refused, and a path the kernel has
+    not (the resident one is gone), and the short path past 64 tokens; a
+    head of 48 is not (padded to 64, within 1e-4 of the plain version),
+    nor a head wider than 64 on the CPU's plain version, which the card
+    refuses by name; a long band (N = 1809 in bf16, 1000 in f32) runs the
+    streamed path and agrees with the plain version."""
     q, k, v = _qkv_inputs(2, 16, 96, torch.float32, cuda, seed=2)
     o = area_attention_fused(q, k, v, 2)              # head_dim 48
     assert (o - area_attention_fused_plain(q, k, v, 2)).abs().max() <= 1e-4
     with pytest.raises(ValueError, match="head_dim"):
         area_attention(q, k, v)                       # one head of 96
-    with pytest.raises(ValueError, match="heads of 32"):
-        _launch_band_attention(*_qkv_inputs(2, 16, 128, torch.bfloat16, cuda,
-                                            seed=5), 2, streamed=False)
-    for dtype, n, tol in (
-            (torch.float32, 1000, 1e-4),
-            (torch.bfloat16,
-             max_tokens(32, projection=False) + 1, 2e-2)):
+    with pytest.raises(ValueError, match="64 tokens or fewer"):
+        _launch_band_attention(*_qkv_inputs(2, 65, 128, torch.bfloat16, cuda,
+                                            seed=5), 2, "short")
+    for dtype, n, tol in ((torch.float32, 1000, 1e-4),
+                          (torch.bfloat16, 1809, 2e-2)):
         assert attention_plan(1, n, 32, dtype, projection=False).streamed
         q, k, v = _qkv_inputs(1, n, 32, dtype, cuda, seed=3)
         kernels.reset_launch_counts()
@@ -280,8 +278,8 @@ def test_training_attention_refuses_what_it_cannot_run(cuda):
                              k, v, 2)
     with pytest.raises(TypeError, match="dtype"):
         area_attention_fused(q.half(), k.half(), v.half(), 2)
-    with pytest.raises(ValueError, match="no resident path"):
-        _launch_band_attention(q, k, v, 2, streamed=False)
+    with pytest.raises(ValueError, match="path must be one of"):
+        _launch_band_attention(q, k, v, 2, "resident")
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
@@ -292,12 +290,10 @@ def test_training_attention_refuses_what_it_cannot_run(cuda):
                                        (70, 64, 1)])
 def test_streamed_path_matches_plain_at_any_band(cuda, g, n, heads, dtype,
                                                  tol):
-    """The streamed path of kernels A and C forced at bands the bf16
-    resident path also takes: around its key tiles (64 keys in f32, 128 in
-    bf16) and query blocks (the plan's: 64, 32 or 16 rows in f32, 128 or 64
-    in bf16), one to four heads, many bands; the plain version's
-    tolerances. In bf16 kernel A's v (its first launch's output) equals the
-    resident path's bit for bit: the same products in the same order."""
+    """The streamed path of kernels A and C forced at short and long
+    bands: around its key tiles (64 keys in f32, 128 in bf16) and query
+    blocks (the plan's: 64, 32 or 16 rows in f32, 128 or 64 in bf16), one
+    to four heads, many bands; the plain version's tolerances."""
     c = 32 * heads
     x, w, b = _attn_inputs(g, n, c, dtype, cuda, seed=n + heads)
     o, v = _launch_qkv_attention(x, w, b, heads, "streamed")
@@ -305,11 +301,8 @@ def test_streamed_path_matches_plain_at_any_band(cuda, g, n, heads, dtype,
     o_ref, v_ref = area_attention_qkv_fused_plain(x, w, b, heads)
     assert (o.float() - o_ref.float()).abs().max().item() <= tol
     assert (v.float() - v_ref.float()).abs().max().item() <= tol
-    if dtype == torch.bfloat16 and n <= max_tokens(c):
-        assert torch.equal(v, _launch_qkv_attention(x, w, b, heads,
-                                                    "resident")[1])
     q, k, v = _qkv_inputs(g, n, c, dtype, cuda, seed=n + 2 * heads)
-    o = _launch_band_attention(q, k, v, heads, streamed=True)
+    o = _launch_band_attention(q, k, v, heads, "streamed")
     torch.cuda.synchronize()
     ref = area_attention_fused_plain(q, k, v, heads)
     assert bool(torch.isfinite(o).all())
@@ -336,7 +329,7 @@ def test_streamed_kernels_at_ragged_bands(cuda, dtype, tol, rows, n):
     x, w, b = _attn_inputs(g, n, c, dtype, cuda, seed=n + rows)
     o, v = _launch_qkv_attention(x, w, b, heads, "streamed", rows=rows)
     q, k, vv = _qkv_inputs(g, n, c, dtype, cuda, seed=n + rows + 1)
-    oc = _launch_band_attention(q, k, vv, heads, streamed=True, rows=rows)
+    oc = _launch_band_attention(q, k, vv, heads, "streamed", rows=rows)
     torch.cuda.synchronize()
     o_ref, v_ref = area_attention_qkv_fused_plain(x, w, b, heads)
     ref = area_attention_fused_plain(q, k, vv, heads)
@@ -375,7 +368,7 @@ def test_streamed_kernels_at_every_yolov12_band(cuda, scale, dtype, tol):
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             o, ov = _launch_qkv_attention(x, w, b, heads, "streamed")
-            oc = _launch_band_attention(q, k, v, heads, streamed=True)
+            oc = _launch_band_attention(q, k, v, heads, "streamed")
         torch.cuda.current_stream().wait_stream(side)
         o_ref, v_ref = area_attention_qkv_fused_plain(x, w, b, heads)
         ref = area_attention_fused_plain(q, k, v, heads)
@@ -486,6 +479,109 @@ def test_short_f32_at_both_tile_rows(cuda, g, n, c, heads, rows):
         assert (got - want).abs().max().item() <= SHORT_TOL[torch.float32]
 
 
+# ------------------------------------- kernel C's short path (<= 64 tokens)
+
+# G, N, heads: N from 1 to 64 (P = 64 // N bands a tile, from 64 to 1), G
+# not a multiple of P (the last tile partly empty), one to four heads; the
+# fine-tune's 160^2 bands and a 2 x 2 mesh's shards
+TRAIN_SHORT_CASES = [(67, 1, 1), (35, 2, 2), (11, 7, 3), (9, 16, 4),
+                     (5, 25, 2), (3, 32, 1), (2, 33, 4), (3, 48, 2),
+                     (3, 64, 3), (64, 25, 2), (16, 25, 4), (32, 25, 2),
+                     (8, 25, 4)]
+
+
+def _short_error(got, want, dtype):
+    """max |got - want|, and its bound: f32 1e-5; bf16 2^-7 of the largest
+    magnitude (one bf16 step of its outputs)."""
+    err = (got.float() - want.float()).abs().max().item()
+    if dtype == torch.float32:
+        return err, 1e-5
+    return err, 2.0 ** -7 * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [32, 64, 48, 16])
+@pytest.mark.parametrize("g,n,heads", TRAIN_SHORT_CASES)
+def test_short_training_path_matches_plain(cuda, g, n, heads, hd, dtype):
+    """Kernel C's short path (one device kernel a call: whole bands packed
+    to a tile, one softmax pass against the full row's maximum) is the plan
+    at every band of 64 tokens or fewer, heads of 32 and 64 and of 48 and
+    16 padded in the wrapper, and agrees with the plain version: f32 within
+    1e-5, bf16 within 2^-7 of the largest magnitude; the one-head entry at
+    one head."""
+    c = heads * hd
+    hdp = padded_head_dim(hd)
+    assert attention_plan(g, n, heads * hdp, dtype, False, hdp).path == \
+        "short"
+    q, k, v = _qkv_inputs(g, n, c, dtype, cuda, seed=g + n + c)
+    kernels.reset_launch_counts()
+    o = area_attention_fused(q, k, v, heads)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["band_attention_train"] == 1
+    kind = "f32" if dtype == torch.float32 else "bf16"
+    assert kernels.path_counts("band_attention_train") == {f"short {kind}": 1}
+    got = [(o, area_attention_fused_plain(q, k, v, heads))]
+    if heads == 1:
+        got.append((area_attention(q, k, v), area_attention_plain(q, k, v)))
+        assert kernels.path_counts("band_attention_single") == {
+            f"short {kind}": 1}
+    for a, r in got:
+        assert a.dtype == dtype and bool(torch.isfinite(a).all())
+        err, tol = _short_error(a, r, dtype)
+        assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("rows", [64, 32])
+@pytest.mark.parametrize("g,n,heads,hd", [(64, 25, 2, 32), (16, 25, 4, 32),
+                                          (67, 1, 2, 32), (9, 16, 1, 64),
+                                          (5, 32, 2, 64), (3, 25, 1, 32)])
+def test_short_training_f32_at_both_tile_rows(cuda, g, n, heads, hd, rows):
+    """The f32 short kernel C forced to tiles of 64 and of 32 rows (the two
+    CTA shapes `short_rows` chooses between) at bands of 32 tokens or
+    fewer, against the plain version within 1e-5."""
+    q, k, v = _qkv_inputs(g, n, heads * hd, torch.float32, cuda,
+                          seed=g + n + rows)
+    o = _launch_band_attention(q, k, v, heads, "short", rows=rows)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(o).all())
+    assert (o - area_attention_fused_plain(q, k, v, heads)).abs().max() \
+        <= 1e-5
+
+
+def test_short_training_entry_refuses_what_it_cannot_run(cuda):
+    """No fallback: the short C entry fails before any launch at a band
+    longer than its tile, a bf16 tile other than 64 rows, an f32 tile
+    other than 64 or 32, another type code, heads neither 32 nor 64 wide,
+    G or N out of range, or a base the tensor map cannot be encoded over;
+    the wrapper raises on each."""
+    lib = build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    scale = 32 ** -0.5
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        q, k, v = _qkv_inputs(3, 25, 64, dtype, cuda, seed=11)
+        o = torch.empty_like(q)
+        ptrs = [t.data_ptr() for t in (q, k, v, o)]
+        bad = [(3, 65, 64, 2, code, 64), (3, 33, 64, 2, code, 32),
+               (3, 25, 64, 2, 2, 64), (3, 25, 96, 2, code, 64),
+               (3, 25, 64, 0, code, 64), (0, 25, 64, 2, code, 64),
+               (3, 0, 64, 2, code, 64), (70000, 25, 64, 2, code, 64),
+               (3, 8, 64, 2, code, 16 if code == 0 else 32)]
+        for args in bad:
+            status = lib.yolou_band_attention_short(*ptrs, *args, scale,
+                                                    stream)
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                build.check(lib, status, f"short kernel C {args}")
+        status = lib.yolou_band_attention_short(
+            ptrs[0] + 4, *ptrs[1:], 3, 24, 64, 2, code, 64, scale, stream)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            build.check(lib, status, "short kernel C, misaligned")
+        shifted = torch.empty(q.numel() + 8, dtype=dtype,
+                              device=cuda)[1:1 + q.numel()].view(q.shape)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            area_attention_fused(shifted, k, v, 2)
+
+
 # G, N, C, heads: yolov12n's layers 6 and 8 at 640^2, batch 8 and 16, and
 # at 1280^2, batch 8
 PROJECTION_CASES = [(32, 400, 64, 2), (8, 400, 128, 4), (64, 400, 64, 2),
@@ -554,11 +650,9 @@ def test_bf16_projection_matches_plain_and_addmm(cuda, g, n, c, heads):
 def test_attention_at_any_head_width(cuda, hd, g, n, heads, dtype, tol):
     """Kernels A and C and the single-head entry at heads of 16, 40, 48 and
     64 (padded to 32 or 64 in the wrapper, the true scale kept) on the path
-    the plan gives, then kernels A and C on each path that takes the padded
-    width (the resident one in bf16 at 32, where the band fits), against
-    the plain version over the unpadded operands within its tolerance;
-    kernel A also on the short path where the band is 64 tokens or
-    fewer."""
+    the plan gives, then kernels A and C on the streamed path and, where the
+    band is 64 tokens or fewer, the short one, against the plain version
+    over the unpadded operands within its tolerance."""
     c = heads * hd
     x, w, b = _attn_inputs(g, n, c, dtype, cuda, seed=n + hd)
     q, k, v = _qkv_inputs(g, n, c, dtype, cuda, seed=n + hd + 1)
@@ -574,21 +668,16 @@ def test_attention_at_any_head_width(cuda, hd, g, n, heads, dtype, tol):
     if heads == 1:
         got.append((area_attention(q, k, v), area_attention_plain(q, k, v)))
     hdp = padded_head_dim(hd)
-    paths = ["streamed"] + (["resident"] if dtype == torch.bfloat16
-                            and hdp == 32 and n <= max_tokens(heads * hdp)
-                            else [])
     xp, wp, bp = pad_qkv_projection(x, w, b, heads, hdp)
     qp, kp, vp = (pad_heads(t, heads, hdp) for t in (q, k, v))
-    for path in paths + (["short"] if n <= 64 else []):
+    for path in ["streamed"] + (["short"] if n <= 64 else []):
         po, pv = _launch_qkv_attention(xp, wp, bp, heads, path,
                                        scale=hd ** -0.5)
-        got += [(cut_heads(po, heads, hd), o_ref),
-                (cut_heads(pv, heads, hd), v_ref)]
-    for path in paths:
-        pc = _launch_band_attention(qp, kp, vp, heads,
-                                    streamed=path == "streamed",
+        pc = _launch_band_attention(qp, kp, vp, heads, path,
                                     scale=hd ** -0.5)
-        got.append((cut_heads(pc, heads, hd), ref))
+        got += [(cut_heads(po, heads, hd), o_ref),
+                (cut_heads(pv, heads, hd), v_ref),
+                (cut_heads(pc, heads, hd), ref)]
     torch.cuda.synchronize()
     for a, r in got:
         assert a.dtype == dtype and a.shape == r.shape

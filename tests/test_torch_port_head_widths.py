@@ -156,17 +156,18 @@ def test_gradients_at_width_48_match_jax_vjp():
 
 
 def test_a_64_wide_head_takes_the_streamed_path():
-    """The resident path holds heads of 32 only: a 64-wide head (or one
-    padded to 64) is planned on the streamed path in both types, but for
-    kernel A's bands of 64 tokens or fewer, which take the short path at
-    either width."""
+    """A 64-wide head (or one padded to 64) is planned as a 32-wide one is:
+    at bands of 64 tokens or fewer the short path, past them the streamed
+    path, in both kernels and both types; a streamed CTA of 64 query rows
+    in bf16 and 32 in f32."""
     for dtype, projection in itertools.product(
             (torch.float32, torch.bfloat16), (True, False)):
-        assert attention_plan(8, 25, 128, dtype, projection, hd=64).path == (
-            "short" if projection else "streamed")
+        for hd in (32, 64):
+            assert attention_plan(8, 25, 128, dtype, projection,
+                                  hd=hd).path == "short"
+            assert attention_plan(8, 64, 128, dtype, projection,
+                                  hd=hd).path == "short"
         assert attention_plan(8, 100, 128, dtype, projection, hd=64).streamed
-        if dtype == torch.bfloat16:
-            assert not attention_plan(8, 25, 128, dtype, projection).streamed
     assert attention_plan(8, 400, 128, torch.bfloat16, hd=64).rows == 64
     assert attention_plan(8, 400, 128, torch.float32, hd=64).rows == 32
 

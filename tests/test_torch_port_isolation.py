@@ -150,9 +150,9 @@ def test_sources_name_no_jax_module():
                  if pat.search(p.read_text())]
     assert offenders == []
     assert sorted(p.name for p in (PKG / "csrc").glob("*.cu*")) == [
-        "a2c2f.cuh", "a2c2f_bf16.cu", "a2c2f_f32.cu", "attention_mma.cuh",
-        "band_attention.cu", "band_attention.cuh", "band_attention_short.cu",
-        "gemm_f32.cuh", "greedy_nms.cu", "hopper.cuh"]
+        "a2c2f.cuh", "a2c2f_bf16.cu", "a2c2f_f32.cu", "band_attention.cu",
+        "band_attention.cuh", "band_attention_short.cu", "gemm_f32.cuh",
+        "greedy_nms.cu", "hopper.cuh"]
 
 
 def test_cpu_tensors_take_the_plain_versions_without_counting():

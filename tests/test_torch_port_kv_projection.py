@@ -167,24 +167,24 @@ def test_the_projection_constants_are_the_kernels():
 
 def test_the_route_summary_counts_the_resident_wins():
     """`tools/attention_routes.py::summarize` (the sweep behind
-    `stream_faster`): the plan's cost against the fastest path, recorded
-    and with today's plan, and the bands past 64 tokens the resident path
-    wins, on two hand-made rows."""
+    `attention_plan` and `short_rows`): the plan's cost against the fastest
+    path, recorded and with today's plan, and at the bands of 64 tokens or
+    fewer the short path's wins against the best streamed row count (the
+    path the resident kernels' bands moved to), on two hand-made rows."""
     from yolou_tpu_torch.tools.attention_routes import summarize
-    rows = [{"kernel": "A", "dtype": "bfloat16", "g": 1, "n": 100, "c": 128,
-             "heads": 4, "short_ms": None, "resident_ms": [0.010, 0.010],
-             "streamed_ms": {"128": [0.012, 0.012], "64": [0.011, 0.011]},
-             "plan": "resident", "plan_rows": 0},
-            {"kernel": "A", "dtype": "bfloat16", "g": 8, "n": 400, "c": 128,
-             "heads": 4, "short_ms": None, "resident_ms": [0.020, 0.020],
+    rows = [{"kernel": "C", "dtype": "bfloat16", "g": 16, "n": 25, "c": 128,
+             "heads": 4, "short_ms": {"64": [0.002, 0.002]},
+             "streamed_ms": {"128": [0.004, 0.004], "64": [0.003, 0.003]},
+             "plan": "streamed", "plan_rows": 64},
+            {"kernel": "C", "dtype": "bfloat16", "g": 8, "n": 400, "c": 128,
+             "heads": 4, "short_ms": None,
              "streamed_ms": {"128": [0.016, 0.016], "64": [0.014, 0.014]},
              "plan": "streamed", "plan_rows": 64}]
-    got = summarize(rows)["A bfloat16"]
-    assert (got["bands"], got["resident_bands"], got["resident_wins"]) == \
-        (2, 2, 1)
-    assert got["resident_best_gain"] == pytest.approx(1.1)
-    assert got["plan_over_best_mean"] == pytest.approx(1.0)
-    # today's plan streams both bands (64 query rows a CTA)
-    replanned = summarize(rows, replan=True)["A bfloat16"]
-    assert replanned["plan_over_best_worst"] == pytest.approx(1.1)
-    assert attention_plan(1, 100, 128, torch.bfloat16).rows == 64
+    got = summarize(rows)["C bfloat16"]
+    assert (got["bands"], got["short_bands"], got["short_wins"]) == (2, 1, 1)
+    assert got["short_over_streamed_worst"] == pytest.approx(2 / 3)
+    assert got["plan_over_best_worst"] == pytest.approx(1.5)
+    # today's plan takes the short path at 25 tokens and streams at 400
+    replanned = summarize(rows, replan=True)["C bfloat16"]
+    assert replanned["plan_over_best_worst"] == pytest.approx(1.0)
+    assert attention_plan(1, 100, 128, torch.bfloat16, False).rows == 64

@@ -2,28 +2,26 @@
 
 The JAX gate (`pallas_band_eligible`) asks only N % 16 == 0 and C % heads
 == 0, so a served or trained model gives the kernels bands of up to 1600
-tokens (1280^2) and more. `kernels/attention.py::attention_plan` sends a
-bfloat16 band to the resident path where that path holds it and was the
-faster on an H100, every other band (every float32 one too) to the
-streamed path, which passes keys and values through shared memory in tiles
-and attends them in the resident path's key steps. What the CPU can check:
+tokens (1280^2) and more. `kernels/attention.py::attention_plan` sends
+every band of 64 tokens or fewer to the short path and every longer one to
+the streamed path, which passes keys and values through shared memory in
+tiles, in both kernels and both types. What the CPU can check:
 
   * the plan: every band of yolov12 n-x at 160^2-1280^2 (steps of 32,
     layers 6 and 8, batch 1 and 8, both types, kernels A and C) gets a
-    launchable plan (shared memory within a block's 232,448 bytes, a
-    cluster of at most 8); yolov12n's bands keep the resident path but where
-    the streamed one was measured the faster; the longest resident bands are
-    the ones the port's shared-memory formulas give;
+    launchable plan (shared memory within a block's 232,448 bytes);
+    yolov12n's bands take the short path at 160^2 and the streamed one at
+    640^2;
   * the streamed path's launches: every band of the sweep takes a valid
     number of query rows a CTA (f32 64, 32 or 16; bf16 128 or 64), a grid
     within the card's limits and shared memory within a block, and the
     port's constants are the CUDA source's;
   * the arithmetic at long bands: `test_torch_port_attention_tiling.py`'s
-    emulations of the resident blocking (16-row query tiles, key steps of
-    KT) and of the streamed one (R-row query blocks, the ring's key tiles,
-    exp2 with the folded scale) at N = 1024, 1600 and 1936, against the
-    Pallas kernels in interpret mode (f32 within 1e-5, bf16 within 2^-6 of
-    the output's largest magnitude, as that file states).
+    emulation of the streamed blocking (R-row query blocks, the ring's key
+    tiles, exp2 with the folded scale) at N = 1024, 1600 and 1936, at the
+    query rows the plan gives one band and eight, against the Pallas
+    kernels in interpret mode (f32 within 1e-5, bf16 within 2^-6 of the
+    output's largest magnitude, as that file states).
 """
 
 import itertools
@@ -40,18 +38,14 @@ from yolou_tpu.ops.pallas_attn import area_attention_qkv_fused as jax_qkv
 from yolou_tpu.ops.pallas_attn import pallas_band_eligible
 from yolou_tpu_torch.kernels import attention as attn
 from yolou_tpu_torch.kernels.attention import (_STREAM_KEYS, attention_plan,
-                                               max_tokens, short_smem_bytes,
-                                               smem_bytes,
-                                               stream_faster,
+                                               short_smem_bytes,
                                                stream_smem_bytes,
                                                streamed_plan)
 from yolou_tpu_torch.models.specs import (YOLOV12_SCALES, scale_channels,
                                           scale_depth)
 
-from .test_torch_port_attention_tiling import (HD, KT_ATTN, KT_QKV,
-                                               STREAM_KEYS, _arrays,
-                                               _tolerance, streamed_attention,
-                                               tiled_attention)
+from .test_torch_port_attention_tiling import (HD, STREAM_KEYS, _arrays,
+                                               _tolerance, streamed_attention)
 from .torch_threads import one_torch_thread  # noqa: F401
 
 SMEM_LIMIT = 232_448          # a block's shared memory on an H100, bytes
@@ -90,12 +84,9 @@ def test_the_sweep_covers_the_long_band_shapes():
 @pytest.mark.parametrize("projection", [True, False], ids=["A", "C"])
 def test_every_band_of_the_sweep_has_a_launchable_plan(projection, dtype):
     """Kernel A (`projection`) and kernel C, batch 1 and 8: shared memory
-    within a block and a cluster of at most 8 for every band the JAX gate
-    admits (and the others of the sweep); kernel A's bands of 64 tokens or
-    fewer the short path in both types; of the others in bfloat16 the
-    resident path exactly where it holds the band and the measured
-    crossover does not prefer the streamed one, in float32 the streamed
-    path always."""
+    within a block for every band the JAX gate admits (and the others of
+    the sweep); the bands of 64 tokens or fewer the short path, the others
+    the streamed path, in both types."""
     admitted = 0
     for scale, imgsz, layer, n, c, heads in SWEEP:
         for batch in (1, 8):
@@ -103,13 +94,9 @@ def test_every_band_of_the_sweep_has_a_launchable_plan(projection, dtype):
                          else 1)
             plan = attention_plan(g, n, c, dtype, projection)
             where = (scale, imgsz, layer, g, n, c, dtype, projection)
-            assert plan.smem <= SMEM_LIMIT and 1 <= plan.cluster <= 8, where
-            short = projection and n <= 64
-            resident = (not short and dtype == torch.bfloat16
-                        and n <= max_tokens(c, projection)
-                        and not stream_faster(g, n, c, projection))
-            assert plan.path == ("short" if short else "resident" if resident
-                                 else "streamed"), where
+            assert plan.smem <= SMEM_LIMIT, where
+            short = n <= 64
+            assert plan.path == ("short" if short else "streamed"), where
             assert plan.launches == (2 if plan.streamed and projection
                                      else 1)
             if plan.streamed:
@@ -118,11 +105,10 @@ def test_every_band_of_the_sweep_has_a_launchable_plan(projection, dtype):
                 assert plan.smem == stream_smem_bytes(c, dtype, projection,
                                                       plan.rows)
                 assert g <= 65535 and -(-n // plan.rows) <= 65535, where
-            elif short:
-                assert n <= plan.rows in (64, 32), where
-                assert plan.smem == short_smem_bytes(c, dtype, 32, plan.rows)
             else:
-                assert plan.rows == 0
+                assert n <= plan.rows in (64, 32), where
+                assert plan.smem == short_smem_bytes(c, dtype, 32, plan.rows,
+                                                     projection)
         admitted += pallas_band_eligible(n, c, heads)
     assert admitted == 90
 
@@ -164,7 +150,7 @@ def test_the_streamed_constants_are_the_kernels():
     assert attention_plan(32, 1024, 64, f32, False).rows == 32
     assert attention_plan(8, 400, 128, f32).rows == 32
     assert streamed_plan(4, 25, 64, f32).rows == 16   # kernel A forced
-    assert attention_plan(4, 25, 64, f32, False).rows == 16
+    assert streamed_plan(4, 25, 64, f32, False).rows == 16  # C forced
     assert attention_plan(32, 400, 256, f32).rows == 64
     assert attention_plan(32, 400, 256, f32, False).rows == 32
     # bf16: two consumer warpgroups in kernel A at 384 channels, or where
@@ -179,19 +165,12 @@ def test_the_streamed_constants_are_the_kernels():
 @pytest.mark.parametrize("projection", [True, False], ids=["A", "C"])
 def test_the_resident_path_keeps_the_bands_it_took(projection):
     """yolov12n's bands at 160^2 (25 tokens: serving and training at batch
-    8, evaluation at 16, objectmaps at 128) take kernel A's short path in
-    both types (one launch; at batch 16 and 128 in bf16 0.0041-0.0072 ms
-    against the resident kernel's 0.0065-0.0220 on an H100) and stay on
-    kernel C's bf16 resident path; its 640^2 bands (400 tokens) take the
-    streamed path in both kernels, as measured on an H100
-    (`tools/attention_routes.py`: at 640^2, batch 8, kernel A 0.0245 /
-    0.0154 ms streamed against 0.0339 / 0.0200 resident, kernel C 0.0151 /
-    0.0078 against 0.0191 / 0.0161; at 160^2, batch 128, C 0.0115 / 0.0206
-    against 0.0079 / 0.0151); every other f32 band takes the streamed path,
-    and so do the bands the resident path cannot hold. Kernel A's bands of
-    more than 64 tokens take the streamed path however little their work
-    (since its bf16 projection runs on wgmma: at (1, 100, 128) 0.0070 ms
-    streamed against 0.0074 resident)."""
+    8, evaluation and the fine-tune at 16, objectmaps at 128), which the
+    resident kernels took in bf16 before the short path, take the short
+    path in both kernels and both types (one launch); its 640^2 bands (400
+    tokens) take the streamed path in both kernels, as measured on an H100
+    (`tools/attention_routes.py`); so does every band past 64 tokens,
+    however little its work."""
     f32, bf16 = torch.float32, torch.bfloat16
     for imgsz, batches in ((160, (8, 16, 128)), (640, (8,))):
         for batch, (layer, n, c, _) in itertools.product(
@@ -199,36 +178,16 @@ def test_the_resident_path_keeps_the_bands_it_took(projection):
             g = batch * (4 if layer == 6 else 1)
             for dtype in (f32, bf16):
                 plan = attention_plan(g, n, c, dtype, projection)
-                assert plan.path == (
-                    "streamed" if imgsz == 640
-                    else "short" if projection
-                    else "resident" if dtype == bf16 else "streamed")
-    if projection:
-        assert attention_plan(8, 400, 256, bf16).streamed  # s-l L8 @640
-        assert attention_plan(1, 400, 256, bf16).streamed
-        assert attention_plan(1, 100, 128, bf16).streamed
-        assert attention_plan(32, 1600, 64, bf16).streamed  # n L6 @1280
-        assert attention_plan(512, 25, 64, bf16).path == "short"
-    else:
-        assert attention_plan(1, 100, 128, bf16, False).streamed
-        assert attention_plan(512, 25, 64, bf16, False).path == "resident"
-        assert attention_plan(32, 1936, 64, bf16, False).streamed  # @1408
-        assert attention_plan(1, 1600, 64, bf16, False).streamed
-
-
-def test_the_longest_resident_bands():
-    """The resident path's limits (bfloat16, the port's shared-memory
-    formulas): kernel A 1024 tokens at the widths yolov12 uses (one cluster
-    of 8 CTAs), kernel C 1808 at any C; its shared memory at those bands
-    within a block."""
-    assert {max_tokens(c) for c in (64, 128, 256, 384)} == {1024}
-    assert {max_tokens(c, False) for c in (32, 64, 256)} == {1808}
-    assert smem_bytes(1024, 384) <= SMEM_LIMIT
-    assert smem_bytes(1808, 64, False) <= SMEM_LIMIT
-    assert smem_bytes(1809, 64, False) > SMEM_LIMIT
-    bf16, f32 = torch.bfloat16, torch.float32
-    assert _STREAM_KEYS[bf16] % KT_ATTN == 0 and _STREAM_KEYS[bf16] % KT_QKV == 0
-    assert _STREAM_KEYS[f32] % 32 == 0
+                assert plan.path == ("streamed" if imgsz == 640
+                                     else "short")
+    assert attention_plan(8, 400, 256, bf16, projection).streamed  # s-l L8
+    assert attention_plan(1, 400, 256, bf16, projection).streamed
+    assert attention_plan(1, 100, 128, bf16, projection).streamed
+    assert attention_plan(1, 65, 128, f32, projection).streamed
+    assert attention_plan(32, 1600, 64, bf16, projection).streamed  # @1280
+    assert attention_plan(32, 1936, 64, bf16, projection).streamed  # @1408
+    assert attention_plan(512, 25, 64, bf16, projection).path == "short"
+    assert attention_plan(1, 64, 384, f32, projection).path == "short"
 
 
 DTYPES = [("float32", torch.float32, jnp.float32),
@@ -242,20 +201,20 @@ LONG = [(1, 1024, 2), (1, 1600, 1), (1, 1936, 1)]      # G, N, heads
 def test_training_kernel_at_long_bands_matches_jax(g, n, heads, name, dtype,
                                                    jdtype):
     """Kernel C's order at N = 1024-1936 against the Pallas
-    `area_attention_fused`: the resident blocking and the streamed one at
-    the rows `attention_plan` gives eight such bands."""
+    `area_attention_fused`: the streamed blocking at the rows
+    `attention_plan` gives one such band and eight."""
     c = HD * heads
     q, k, v = _arrays([((g, n, c), 1.0)] * 3, seed=n + heads, dtype=dtype)
     want = np.asarray(jax_fused(*(jnp.asarray(t, jdtype) for t in (q, k, v)),
                                 heads).astype(jnp.float32))
     tq, tk, tv = (torch.from_numpy(t) for t in (q, k, v))
-    got = tiled_attention(tq, tk, tv, heads, KT_ATTN, dtype)
-    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
-                               atol=_tolerance(dtype, want))
-    rows = attention_plan(8 * g, n, c, dtype, False).rows or 64
-    streamed = streamed_attention(tq, tk, tv, heads, dtype, rows)
-    np.testing.assert_allclose(streamed.float().numpy(), want, rtol=0,
-                               atol=_tolerance(dtype, want))
+    for batch in (1, 8):
+        plan = attention_plan(batch * g, n, c, dtype, False)
+        assert plan.streamed
+        got = streamed_attention(tq, tk, tv, heads, dtype, plan.rows)
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                                   atol=_tolerance(dtype, want),
+                                   err_msg=f"{plan.rows} rows")
 
 
 @pytest.mark.parametrize("name,dtype,jdtype", DTYPES,

@@ -200,20 +200,21 @@ def test_every_short_band_takes_the_short_path(dtype):
     """Every kernel A band of 64 tokens or fewer of yolov12 n-x (160^2 to
     256^2, both layers) at batch 1, 16 and 128 and at heads of 32 and 64:
     the short path, one device kernel a call, shared memory within a
-    block; kernel C at those bands keeps its paths."""
+    block; kernel C at those bands takes its own short form."""
     assert {n for n, _ in SHORT_BANDS} == {25, 36, 49, 64}
     assert {c for _, c in SHORT_BANDS} == {64, 128, 256, 384}
     for (n, c), batch, hd in itertools.product(SHORT_BANDS, (1, 16, 128),
                                                (32, 64)):
         g = 4 * batch
         plan = attention_plan(g, n, c, dtype, hd=hd)
-        assert (plan.path, plan.launches, plan.cluster) == (
-            "short", 1, 1), (n, c, batch)
+        assert (plan.path, plan.launches) == ("short", 1), (n, c, batch)
         assert plan.rows in ((64,) if dtype == torch.bfloat16 or n > 32
                              else (64, 32)), (n, c, batch)
         assert plan.smem == short_smem_bytes(c, dtype, hd, plan.rows)
         assert plan.smem <= SMEM_LIMIT
-        assert attention_plan(g, n, c, dtype, False, hd).path != "short"
+        kernel_c = attention_plan(g, n, c, dtype, False, hd)
+        assert kernel_c.path == "short" and kernel_c.smem == \
+            short_smem_bytes(c, dtype, hd, kernel_c.rows, False)
     assert attention_plan(8, 65, 64, dtype).path != "short"
 
 

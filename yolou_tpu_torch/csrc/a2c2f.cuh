@@ -56,7 +56,6 @@
 
 #include <cooperative_groups.h>
 
-#include "attention_mma.cuh"
 #include "band_attention.cuh"
 #include "hopper.cuh"
 

@@ -20,8 +20,7 @@
 // row sum keeps them unrounded), f32 accumulation, the division by the row
 // sum after the product, as the TPU kernels do, there against the full
 // row's maximum, here against the online softmax's running one. (In f32 the
-// rounding is the identity; in kernel A's f32 SIMT path probabilities stay
-// f32.)
+// rounding is the identity.)
 //
 // What bounds it on the H100: at YOLOv12n's shapes (N = 400 tokens, C = 64
 // or 128, 2-4 heads) the work is small: 2*N*C*96 + 4*N*N*32 flop per (band,
@@ -32,383 +31,43 @@
 // bound by latency (loads into shared memory, the dependent chain of each
 // online-softmax step, the exp unit) and by how many warps it keeps busy.
 //
-// Two paths. The resident one (bf16 only) holds a head's keys and values
-// of the whole band in each CTA's shared memory; the streamed one (bf16 and
-// f32, at the end of this file: TMA, FMA micro-tiles in f32, wgmma in bf16)
-// passes them through in key tiles, so its shared memory does not grow with
-// N. Kernel A's bands of 64 tokens or fewer run neither: they take the
-// short path, one launch over tiles of whole bands
-// (band_attention_short.cu). The wrapper
-// (`kernels/attention.py::attention_plan`) sends another bf16 band to the
-// resident path where it fits (227 KB; in kernel A one cluster of 8 CTAs,
-// N <= 1024) and was the faster of the two on an H100
-// (`tools/attention_routes.py`), every other band, and every other f32
-// band, to the streamed path, which was the faster at every f32 band
-// kernel A takes.
-//
-// bf16, the serving and training type, runs on the tensor cores. The
-// resident path (attention_mma.cuh): 8 warps a CTA, a warp per 16-row query tile whose q
-// stays in registers as A fragments; mma.sync m16n8k16 for q.k^T, x.w and
-// p.v with f32 accumulation, B operands from shared memory by ldmatrix
-// (k and v rows with XOR-swizzled 16-byte chunks against bank conflicts);
-// the online softmax works on the accumulator fragments, and the score
-// fragments become p.v's A operand in registers. On the resident path, per
-// (head, band) S CTAs of `tiles` query tiles, at least one warp a tile. Any
-// N >= 1: keys >= N are masked, padded key and value rows are zero, padded
-// query rows are not stored.
-//  * Kernel A: the S CTAs are one thread-block cluster (S <= 8, so N <=
-//    1024), the largest whose clusters the card runs all at once (at layer
-//    6, 64 clusters of 4 do not quite fit; the occupancy query says so). A
-//    CTA stages its head's (C, 96) weight columns by cp.async,
-//    each warp reads its tile of x from global memory into A fragments,
-//    projects q, k and v, and writes k and v rows to shared memory; the
-//    CTAs then copy each other's k and v rows through distributed shared
-//    memory, so every CTA holds k and v for all N tokens. q, k, v never
-//    touch HBM, which is the point of the fused TPU kernel, and no
-//    projection is computed twice. Shared memory per CTA: 2 * (104 * C +
-//    64 * ceil16(N)) bytes.
-//  * Kernel C: no cluster, as many CTAs as the card runs at once. Each CTA
-//    loads all k and v rows of its (head, band) by cp.async while its warps
-//    read their q tiles into registers: a few L2 reads of the band's k and
-//    v instead of two cluster barriers and an exchange. Shared memory per
-//    CTA: 128 * ceil16(N) bytes.
-//
-// f32 runs on the streamed path only here (below). Kernel A's first launch
-// there projects k and v of every head in one GEMM over the flattened
-// tokens: bf16 on wgmma from TMA-fed shared memory
+// This file holds the streamed path, which passes a band's keys and values
+// through shared memory in key tiles (TMA; FMA micro-tiles in f32, wgmma
+// in bf16), so its shared memory does not grow with N. It takes every band
+// of more than 64 tokens, in both kernels and both types; the bands of 64
+// tokens or fewer take the short path, one launch over tiles of whole
+// bands (band_attention_short.cu). The wrapper
+// (`kernels/attention.py::attention_plan`) chooses by N alone. Kernel A's
+// first launch here projects k and v of every head in one GEMM over the
+// flattened tokens: bf16 on wgmma from TMA-fed shared memory
 // (`kv_projection_wgmma_kernel`), f32 on register micro-tiles fed by TMA
-// (`kv_projection_f32_kernel`, gemm_f32.cuh). The
-// resident path takes heads of 32; heads of 64
-// stream, in one form of each streamed kernel (f32 32 query rows a CTA,
-// bf16 one consumer warpgroup): the same design with tiles of two 32-channel
-// boxes (f32) or 128-byte rows on the 128-byte swizzle (bf16, four k steps
-// of q k^T, m64n64 products for p.v and the q projection).
+// (`kv_projection_f32_kernel`, gemm_f32.cuh). Heads of 32 and of 64 have
+// one form of each streamed kernel each (heads of 64: f32 32 query rows a
+// CTA, bf16 one consumer warpgroup, tiles of two 32-channel boxes (f32) or
+// 128-byte rows on the 128-byte swizzle (bf16, four k steps of q k^T,
+// m64n64 products for p.v and the q projection)).
 
-#include <cooperative_groups.h>
-
-#include <map>
-#include <mutex>
-#include <utility>
-
-#include "attention_mma.cuh"
 #include "band_attention.cuh"
 #include "gemm_f32.cuh"
 #include "hopper.cuh"
 
-namespace cg = cooperative_groups;
 using namespace yolou;
 
 namespace {
 
-constexpr int MAX_CLUSTER = 8;  // portable thread-block cluster size
-
-// ------------------------------------------------- bf16 on tensor cores
-
 using bf16 = __nv_bfloat16;
-constexpr int LDW = 3 * HD + 8;   // row stride of the staged [C][96] weights
-// keys per online-softmax step, each the faster on an H100 at the serving
-// and training shapes (time_builds, PERF.md)
-constexpr int KT_QKV = 32, KT_ATTN = 64;
-
-// Kernel A, bf16. CTA `rank` of the cluster owns query tiles [rank * tiles,
-// (rank + 1) * tiles), a warp each. The head's weight columns ([C][96])
-// arrive by cp.async; each warp reads the A fragments of its 16 tokens of x
-// straight from global memory, projects q, k and v on the tensor cores,
-// adds the f32 bias and rounds to bf16; q stays in registers as the A
-// fragments of q.k^T, k and v go to Ks / Vs (zero past N), v also to v_out.
-// The cluster then exchanges k and v and every warp attends its tile.
-__global__ void __launch_bounds__(MMA_WARPS * 32)
-band_attention_qkv_mma_kernel(const bf16* __restrict__ x,
-                              const bf16* __restrict__ w,
-                              const float* __restrict__ bias,
-                              bf16* __restrict__ o, bf16* __restrict__ v_out,
-                              int N, int C, int tiles, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int h = blockIdx.x, g = blockIdx.y;
-  const int rank = (int)cluster.block_rank();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gq = lane >> 2, t = lane & 3;
-  const int Np = (N + 15) & ~15;
-  const int r0 = 16 * (rank * tiles + warp);     // this warp's first row
-  const bool active = warp < tiles && r0 < Np;   // warp-uniform
-  bf16* Ws = reinterpret_cast<bf16*>(smem_raw);  // [C][LDW]: q | k | v cols
-  bf16* Ks = Ws + C * LDW;                       // [Np][32], swizzled
-  bf16* Vs = Ks + Np * HD;                       // [Np][32], swizzled
-
-  for (int i = threadIdx.x; i < C * 12; i += blockDim.x) {
-    const int c = i / 12, j8 = i % 12;            // 8 columns of role j8 / 4
-    cp_async16(Ws + c * LDW + 8 * j8,
-               w + (size_t)c * 3 * C + (j8 / 4) * C + h * HD + (j8 % 4) * 8,
-               true);
-  }
-  // x rows r0 + gq and r0 + gq + 8 (zero past N), 32 channels a chunk: the
-  // A fragments of two k steps, the first chunk read while the weights
-  // arrive, each next one while the current one is multiplied
-  const int n_lo = r0 + gq, n_hi = n_lo + 8;
-  const uint32_t* x_lo = reinterpret_cast<const uint32_t*>(
-      x + ((size_t)g * N + min(n_lo, N - 1)) * C);
-  const uint32_t* x_hi = reinterpret_cast<const uint32_t*>(
-      x + ((size_t)g * N + min(n_hi, N - 1)) * C);
-  auto load_x = [&](uint32_t (&a)[2][4], int c0) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {                 // k step e / 4, reg e % 4
-      const int col = c0 + 16 * (e >> 2) + 8 * ((e >> 1) & 1) + 2 * t;
-      const uint32_t* row = e & 1 ? x_hi : x_lo;
-      a[e >> 2][e & 3] = (e & 1 ? n_hi : n_lo) < N ? row[col / 2] : 0u;
-    }
-  };
-  uint32_t a[2][4];
-  if (active) load_x(a, 0);
-  cp_async_wait_all();
-  __syncthreads();
-
-  uint32_t qa[2][4];                              // q: A fragments
-  if (active) {
-    float acc[12][4];                             // 12 tiles of 8 columns
-#pragma unroll
-    for (int j = 0; j < 12; ++j)
-      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-    for (int c0 = 0; c0 < C; c0 += 32) {
-      uint32_t a_next[2][4];
-      if (c0 + 32 < C) load_x(a_next, c0 + 32);
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        const bf16* wrow =
-            Ws + (c0 + 16 * kk + (lane & 15)) * LDW + (lane >> 4) * 8;
-#pragma unroll
-        for (int jj = 0; jj < 6; ++jj) {
-          uint32_t b[4];
-          ldsm_x4_trans(b, wrow + 16 * jj);
-          mma_bf16(acc[2 * jj], a[kk], b[0], b[1]);
-          mma_bf16(acc[2 * jj + 1], a[kk], b[2], b[3]);
-        }
-      }
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) a[kk][e] = a_next[kk][e];
-    }
-    bf16* vg = v_out + (size_t)g * N * C + h * HD;
-#pragma unroll
-    for (int j = 0; j < 12; ++j) {
-      const int role = j / 4, col = 8 * (j % 4) + 2 * t;
-      const float b0 = bias[role * C + h * HD + col];
-      const float b1 = bias[role * C + h * HD + col + 1];
-      const uint32_t lo = pack_bf16(acc[j][0] + b0, acc[j][1] + b1);
-      const uint32_t hi = pack_bf16(acc[j][2] + b0, acc[j][3] + b1);
-      if (role == 0) {        // rows gq, gq + 8 of channels 8j..: A fragment
-        qa[j / 2][2 * (j % 2)] = lo;
-        qa[j / 2][2 * (j % 2) + 1] = hi;
-        continue;
-      }
-      bf16* dst = role == 1 ? Ks : Vs;
-      *reinterpret_cast<uint32_t*>(dst + kv_at(n_lo, j % 4) + 2 * t) =
-          n_lo < N ? lo : 0u;
-      *reinterpret_cast<uint32_t*>(dst + kv_at(n_hi, j % 4) + 2 * t) =
-          n_hi < N ? hi : 0u;
-      if (role == 2 && n_lo < N)
-        *reinterpret_cast<uint32_t*>(vg + (size_t)n_lo * C + col) = lo;
-      if (role == 2 && n_hi < N)
-        *reinterpret_cast<uint32_t*>(vg + (size_t)n_hi * C + col) = hi;
-    }
-  }
-
-  gather_rows(cluster, Ks, Vs, Np, 16 * tiles, rank);
-  if (active && r0 < N)
-    attend_tile_mma<KT_QKV>(
-        qa, Ks, Vs, N, Np, scale,
-        StoreRowsBF16{o + ((size_t)g * N + r0) * C + h * HD, C,
-                      min(16, N - r0)});
-}
-
-// Kernel C, bf16: no cluster. Each CTA loads all k and v rows of its
-// (head, band) by cp.async (zero past N) while each warp reads the A
-// fragments of its 16 query rows straight from q, then every warp attends
-// its tile.
-__global__ void __launch_bounds__(MMA_WARPS * 32)
-band_attention_mma_kernel(const bf16* __restrict__ q,
-                          const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, bf16* __restrict__ o,
-                          int N, int C, int tiles, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int h = blockIdx.x, g = blockIdx.y;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gq = lane >> 2, t = lane & 3;
-  const int Np = (N + 15) & ~15;
-  const int r0 = 16 * (blockIdx.z * tiles + warp);
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [Np][32], swizzled
-  bf16* Vs = Ks + Np * HD;                       // [Np][32], swizzled
-  const size_t base = (size_t)g * N * C + h * HD;
-
-  for (int i = threadIdx.x; i < Np * 4; i += blockDim.x) {
-    const int n = i / 4, c8 = 8 * (i % 4);
-    const size_t off = base + (size_t)(n < N ? n : 0) * C + c8;
-    cp_async16(Ks + kv_at(n, i % 4), k + off, n < N);
-    cp_async16(Vs + kv_at(n, i % 4), v + off, n < N);
-  }
-  uint32_t qa[2][4];
-  const bool active = warp < tiles && r0 < N;    // warp-uniform
-  if (active) {
-    const uint32_t* qg = reinterpret_cast<const uint32_t*>(q + base);
-#pragma unroll
-    for (int s = 0; s < 2; ++s)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {             // rows gq, gq + 8; cols +0, +8
-        const int n = r0 + gq + 8 * (e & 1);
-        const int col = 16 * s + 8 * (e >> 1) + 2 * t;
-        qa[s][e] = n < N ? qg[((size_t)n * C + col) / 2] : 0u;
-      }
-  }
-  cp_async_wait_all();
-  __syncthreads();
-  if (active)
-    attend_tile_mma<KT_ATTN>(
-        qa, Ks, Vs, N, Np, scale,
-        StoreRowsBF16{o + ((size_t)g * N + r0) * C + h * HD, C,
-                      min(16, N - r0)});
-}
-
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      n = 132;
-  }
-  return n;
-}
-
-// How many CTAs (cluster 0) or clusters of `cluster` CTAs of the 8-warp
-// `kernel` with `smem` bytes of shared memory the card runs at once; the
-// answers are kept, since a query costs more host time than a launch.
-template <auto kernel>
-int resident(size_t smem, int cluster) {
-  static std::mutex mu;
-  static std::map<std::pair<size_t, int>, int> known;
-  std::lock_guard<std::mutex> lock(mu);
-  const auto key = std::make_pair(smem, cluster);
-  const auto it = known.find(key);
-  if (it != known.end()) return it->second;
-  int n = 0;
-  if (cluster == 0) {
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &n, kernel, MMA_WARPS * 32, smem) != cudaSuccess)
-      n = 0;
-    n *= sm_count();
-  } else {
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(1, 1, cluster);
-    cfg.blockDim = dim3(MMA_WARPS * 32);
-    cfg.dynamicSmemBytes = smem;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = 1;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = cluster;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) n = 0;
-  }
-  known[key] = n;
-  return n;
-}
-
-// The tensor-core kernels give each 16-row query tile a warp: `tiles` per
-// CTA (at most MMA_WARPS), `*splits` CTAs per (head, band).
-// Kernel C: as many CTAs as the card runs at once, at least one warp a tile.
-int attn_tiles(int pairs, int N, int slots, int* splits) {
-  const int T = (N + 15) / 16;
-  const int S = max(1, min(T, max((T + MMA_WARPS - 1) / MMA_WARPS,
-                                  slots / pairs)));
-  const int tiles = (T + S - 1) / S;
-  *splits = (T + tiles - 1) / tiles;
-  return tiles;
-}
-
-// Kernel A: a cluster per (head, band); the largest cluster (at most 8)
-// whose clusters the card runs all at once, else the smallest that gives
-// every tile a warp (0 where none does: more than 8 * 8 tiles).
-template <auto kernel>
-int qkv_tiles(size_t smem, int pairs, int N, int* splits) {
-  const int T = (N + 15) / 16;
-  const int lo = (T + MMA_WARPS - 1) / MMA_WARPS, hi = min(T, MAX_CLUSTER);
-  if (lo > hi) return 0;
-  int S = lo;
-  for (int c = hi; c > lo; --c)
-    if (resident<kernel>(smem, c) >= pairs) {
-      S = c;
-      break;
-    }
-  const int tiles = (T + S - 1) / S;
-  *splits = (T + tiles - 1) / tiles;
-  return tiles;
-}
-
-// bf16: the tensor-core kernels.
-cudaError_t launch_qkv_mma(const void* x, const void* w, const void* b,
-                           void* o, void* v, int G, int N, int C, int heads,
-                           float scale, cudaStream_t s) {
-  constexpr auto kernel = band_attention_qkv_mma_kernel;
-  const size_t Np = (N + 15) & ~15;
-  const size_t smem = sizeof(bf16) * ((size_t)C * LDW + 2 * Np * HD);
-  cudaError_t e = allow_smem<kernel>();
-  if (e != cudaSuccess) return e;
-  int splits = 1;
-  const int tiles = qkv_tiles<kernel>(smem, G * heads, N, &splits);
-  if (tiles == 0) return cudaErrorInvalidValue;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(heads, G, splits);
-  cfg.blockDim = dim3(MMA_WARPS * 32);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = splits;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, static_cast<const bf16*>(x),
-                         static_cast<const bf16*>(w),
-                         static_cast<const float*>(b), static_cast<bf16*>(o),
-                         static_cast<bf16*>(v), N, C, tiles, scale);
-  return e != cudaSuccess ? e : cudaGetLastError();
-}
-
-cudaError_t launch_attn_mma(const void* q, const void* k, const void* v,
-                            void* o, int G, int N, int C, int heads,
-                            float scale, cudaStream_t s) {
-  constexpr auto kernel = band_attention_mma_kernel;
-  const size_t Np = (N + 15) & ~15;
-  const size_t smem = sizeof(bf16) * 2 * Np * HD;
-  const cudaError_t e = allow_smem<kernel>();
-  if (e != cudaSuccess) return e;
-  int splits = 1;
-  const int tiles =
-      attn_tiles(G * heads, N, resident<kernel>(smem, 0), &splits);
-  kernel<<<dim3(heads, G, splits), MMA_WARPS * 32, smem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), N, C, tiles,
-      scale);
-  return cudaGetLastError();
-}
 
 // ------------------------------------------------------ the streamed path
 //
-// Every f32 band, and the bf16 bands the resident path does not hold or
-// was the slower on. A CTA owns a block of query rows of one (head, band)
-// and streams the band's keys and values through a ring of shared-memory
-// stages, loaded by the Tensor Memory Accelerator (hopper.cuh): one thread
-// issues a box of 32 channels x KB keys of a 3-D map over (C, N, G) for
-// each of k and v, and the box's transaction bytes complete a `full`
-// mbarrier; the readers free the stage through an `empty` one. Keys past N
-// arrive as zeros (the box stops at the band's edge) and are masked to
-// -inf. The online softmax runs per key tile in log2 units, exp2(s * sl2 -
-// m * sl2) with sl2 = scale * log2(e) folded into one FMA, the running
-// maximum m in raw units.
+// A CTA owns a block of query rows of one (head, band) and streams the
+// band's keys and values through a ring of shared-memory stages, loaded by
+// the Tensor Memory Accelerator (hopper.cuh): one thread issues a box of 32
+// channels x KB keys of a 3-D map over (C, N, G) for each of k and v, and
+// the box's transaction bytes complete a `full` mbarrier; the readers free
+// the stage through an `empty` one. Keys past N arrive as zeros (the box
+// stops at the band's edge) and are masked to -inf. The online softmax runs
+// per key tile in log2 units, exp2(s * sl2 - m * sl2) with sl2 = scale *
+// log2(e) folded into one FMA, the running maximum m in raw units.
 //
 // Kernel C reads q, k and v from HBM. Kernel A needs every key of the band
 // before any query attends, so it is two launches: a projection of k and v
@@ -1339,56 +998,27 @@ cudaError_t launch_attn_stream(const void* q, const void* k, const void* v,
       static_cast<float*>(o), G, N, C, heads, scale, s);
 }
 
-// Heads 32 wide, or (the streamed path) 64.
-bool head_ok(int C, int heads, bool wide) {
-  return heads > 0 && (C == heads * 32 || (wide && C == heads * 64));
+// Heads 32 or 64 wide.
+bool head_ok(int C, int heads) {
+  return heads > 0 && (C == heads * 32 || C == heads * 64);
 }
 
 }  // namespace
 
-// The resident path of kernel A, bfloat16 (dtype 1; x, w, o and v 16-byte
-// aligned): x, o, v (G, N, C), heads 32 wide; w (C, 3C); b (3C,) f32; scale
-// the softmax's. There is no f32 resident path (dtype 0 is refused).
-// Returns the launch status.
-extern "C" int yolou_band_attention_qkv(const void* x, const void* w,
-                                        const void* b, void* o, void* v, int G,
-                                        int N, int C, int heads, int dtype,
-                                        float scale, void* stream) {
-  if (G <= 0 || N <= 0 || !head_ok(C, heads, false) || G > 65535 ||
-      dtype != 1)
-    return (int)cudaErrorInvalidValue;
-  return (int)launch_qkv_mma(x, w, b, o, v, G, N, C, heads, scale,
-                             static_cast<cudaStream_t>(stream));
-}
-
-// The resident path of kernel C, bfloat16 (dtype 1; q, k, v 16-byte
-// aligned): q, k, v, o (G, N, C), head-major channels, C = heads * 32.
-// Returns the launch status.
-extern "C" int yolou_band_attention(const void* q, const void* k,
-                                    const void* v, void* o, int G, int N,
-                                    int C, int heads, int dtype, float scale,
-                                    void* stream) {
-  if (G <= 0 || N <= 0 || !head_ok(C, heads, false) || G > 65535 ||
-      dtype != 1)
-    return (int)cudaErrorInvalidValue;
-  return (int)launch_attn_mma(q, k, v, o, G, N, C, heads, scale,
-                              static_cast<cudaStream_t>(stream));
-}
-
 // The streamed path of kernel A (two launches), dtype 0 = float32 (FMA
-// micro-tiles) or 1 = bfloat16 (wgmma): as yolou_band_attention_qkv, with
-// heads 32 or 64 wide, plus k: a (G, N, C) scratch of the I/O type for the
-// projected keys, and rows: the query rows of a CTA (heads of 32: f32 64,
-// 32 or 16, bf16 128 or 64; heads of 64: f32 32, bf16 64). Every tensor
-// 16-byte aligned (TMA). A tensor map that cannot be encoded fails the call
-// before any launch.
+// micro-tiles) or 1 = bfloat16 (wgmma): x, o, v (G, N, C), heads 32 or 64
+// wide; w (C, 3C); b (3C,) f32; scale the softmax's; k a (G, N, C) scratch
+// of the I/O type for the projected keys; rows the query rows of a CTA
+// (heads of 32: f32 64, 32 or 16, bf16 128 or 64; heads of 64: f32 32,
+// bf16 64). Every tensor 16-byte aligned (TMA). A tensor map that cannot be
+// encoded fails the call before any launch. Returns the launch status.
 extern "C" int yolou_band_attention_qkv_stream(const void* x, const void* w,
                                                const void* b, void* o,
                                                void* v, void* k, int G, int N,
                                                int C, int heads, int dtype,
                                                int rows, float scale,
                                                void* stream) {
-  if (G <= 0 || N <= 0 || !head_ok(C, heads, true) || G > 65535 ||
+  if (G <= 0 || N <= 0 || !head_ok(C, heads) || G > 65535 ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   return (int)launch_qkv_stream(x, w, b, o, v, k, G, N, C, heads, dtype,
@@ -1397,14 +1027,14 @@ extern "C" int yolou_band_attention_qkv_stream(const void* x, const void* w,
 }
 
 // The streamed path of kernel C, dtype 0 = float32 (FMA micro-tiles) or
-// 1 = bfloat16 (wgmma): as yolou_band_attention, with heads 32 or 64 wide,
-// plus rows (as above).
+// 1 = bfloat16 (wgmma): q, k, v, o (G, N, C), head-major channels, heads
+// 32 or 64 wide, and rows (as above).
 extern "C" int yolou_band_attention_stream(const void* q, const void* k,
                                            const void* v, void* o, int G,
                                            int N, int C, int heads, int dtype,
                                            int rows, float scale,
                                            void* stream) {
-  if (G <= 0 || N <= 0 || !head_ok(C, heads, true) || G > 65535 ||
+  if (G <= 0 || N <= 0 || !head_ok(C, heads) || G > 65535 ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   return (int)launch_attn_stream(q, k, v, o, G, N, C, heads, dtype, rows,

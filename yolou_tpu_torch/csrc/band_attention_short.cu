@@ -1,65 +1,76 @@
-// Kernel A at bands of 64 tokens or fewer: the folded qkv projection and the
-// multi-head band attention of whole bands in one launch, both types.
-// Replaces, for those bands, yolou_tpu/ops/pallas_attn.py::
-// area_attention_qkv_fused (Pallas body _qkv_attn_kernel); the longer bands
-// run band_attention.cu's paths. For every band g and head h of hd = 32 or
-// 64 channels (other widths arrive padded, with the true scale):
-//   qkv = x[g] . w[:, role*C + h*hd + d] + b    (f32 sums, rounded to T)
+// Kernels A and C at bands of 64 tokens or fewer: the multi-head band
+// attention of whole bands in one launch, both types; kernel A (`PROJECT`)
+// also its folded qkv projection. Replaces, for those bands,
+// yolou_tpu/ops/pallas_attn.py::area_attention_qkv_fused (Pallas body
+// _qkv_attn_kernel), area_attention_fused (body _fused_kernel) and
+// area_attention (body _attn_kernel, one head); the longer bands run
+// band_attention.cu's streamed path. For every band g and head h of hd = 32
+// or 64 channels (other widths arrive padded, with the true scale):
+//   qkv = x[g] . w[:, role*C + h*hd + d] + b    (kernel A: f32 sums,
+//                                                rounded to T)
 //   e   = exp(q k^T * scale - the full row's maximum)            (f32)
 //   o   = (e -> T) v / sum(e)                    (f32 sum of unrounded e)
-// and v is written out too (it feeds the dw7x7 conv). All of a row's keys
-// are in the tile, so the softmax is one pass against the full row's
-// maximum, in the order of _qkv_attn_kernel, with no online rescaling.
+// and kernel A writes v out too (it feeds the dw7x7 conv). All of a row's
+// keys are in the tile, so the softmax is one pass against the full row's
+// maximum, in the order of _fused_kernel and _qkv_attn_kernel, with no
+// online rescaling.
 //
 // Packing. A tile is 64 rows of P = 64 / N whole bands (2 at N = 25, 4 at
-// N = 16, 1 from 33 to 64): one TMA box of the 3-D map (C, N, G) spans the
+// N = 16, 1 from 33 to 64): one TMA box of a 3-D map (C, N, G) spans the
 // P bands (bands past G read zero), so the wgmma m64 shape and the f32
-// micro-tiles hold short bands with little padding (the resident kernel
-// padded 25 tokens to 32 rows of 16-row tiles, the streamed one to a
-// 64-row block and a 128-key tile). Scores between two bands of a tile are
-// masked (a key counts for a row only inside the row's band); rows past P N
-// are zero in, and no row past P N or past band G is stored.
+// micro-tiles hold short bands with little padding (a streamed CTA pads 25
+// tokens to a 64-row block and a 64- or 128-key tile). Scores between two
+// bands of a tile are masked (a key counts for a row only inside the row's
+// band); rows past P N are zero (kernel A's x, kernel C's k and v), and
+// no row past P N or past band G is stored.
 //
-// A CTA per (tile, head). x's 32-channel slabs and the head's q, k and v
-// weight columns ((C, 3 hd) of the (C, 3C) weight) stream through a ring of
-// up to 4 stages by TMA (all of them in flight at once where C <= 128; at
-// larger C, thread 0 refills a stage once the product that read it is
-// done), so no C is refused. q, k and s never touch HBM; there is no
-// scratch and no second launch.
+// A CTA per (tile, head). Kernel A: x's 32-channel slabs and the head's q,
+// k and v weight columns ((C, 3 hd) of the (C, 3C) weight) stream through a
+// ring of up to 4 stages by TMA (all of them in flight at once where C <=
+// 128; at larger C, thread 0 refills a stage once the product that read it
+// is done), so no C is refused; q, k and s never touch HBM, and there is
+// no scratch and no second launch. Kernel C: q, k and v of the head arrive
+// by one TMA box each (bf16: hd channels, the head's swizzle; f32: a box a
+// 32-channel block, the 128-byte swizzle: the layouts `kv_at`, `f32_at` and
+// the wgmma descriptors read), all three issued at once on one mbarrier.
+// While they fly, the rows past P N of the k and v tiles, which no box
+// writes, are zeroed, once a CTA: a masked key gives p = 0, but 0 times
+// stale shared memory can be NaN.
 //
-// bf16 (`band_attention_short_wgmma_kernel<HD_>`, one warpgroup): q, k and
-// v by wgmma (m64n{hd}k16, x K-major, the weight columns MN-major, both from
-// shared memory, f32 accumulation), bias added, rounded to bf16: q stays in
-// registers as the A fragments of S = q k^T (m64n64k16, k K-major from
-// shared memory), k and v go to shared memory as hopper.cuh's head-wide
-// tiles, v also to the second output. The softmax runs on S's accumulator;
-// the probabilities, rounded to bf16 in registers, are the A operand of O =
-// P V (m64n{hd}k16, v MN-major). What bounds it: at (64, 25, 64) h2 the
-// whole call is 0.6 MB and 17 MFLOP, a few microseconds of HBM or tensor
-// cores at most; it waits on latency (the TMA loads, three dependent wgmma
-// groups, the exp chain), so it keeps a CTA small (128 threads, 30-83 KB)
-// and launches once.
+// bf16 (`band_attention_short_wgmma_kernel<HD_, PROJECT>`, one warpgroup):
+// kernel A projects q, k and v by wgmma (m64n{hd}k16, x K-major, the weight
+// columns MN-major, both from shared memory, f32 accumulation), adds the
+// bias and rounds to bf16: q stays in registers as the A fragments of S =
+// q k^T (m64n64k16, k K-major from shared memory), k and v go to shared
+// memory as hopper.cuh's head-wide tiles, v also to the second output.
+// Kernel C takes S from its q and k tiles (m64n64k16, both K-major from
+// shared memory). The softmax runs on S's accumulator; the probabilities,
+// rounded to bf16 in registers, are the A operand of O = P V
+// (m64n{hd}k16, v MN-major). What bounds it: at (64, 25, 64) h2 the whole
+// call is 0.6 MB and 17 MFLOP, a few microseconds of HBM or tensor cores at
+// most; it waits on latency (the TMA loads, the dependent wgmma groups,
+// the exp chain), so it keeps a CTA small (128 threads, 25-83 KB) and
+// launches once.
 //
-// f32 (`band_attention_short_f32_kernel<R, HD_>`, tiles of R = 64 rows, or
-// 32 where N <= 32 and a grid of 64-row tiles would leave SMs idle: twice
-// the CTAs at the same padding; 4 R threads): full f32 on the FMA units, no
-// TF32. The projection on register micro-tiles: thread (ty, tx) of R / 4 x
-// 16 owns 4 rows x hd / 16 columns of each of q, k and v, each
-// output one chain of FMAs over the channels in order, x from the 128-byte
-// swizzled slab (broadcast loads), the weight columns likewise; q, k and v
-// then go to shared memory over the ring's space. The attention is the
-// streamed f32 kernel's micro-tiles without the online steps: 16 threads a
-// group of 4 rows, a thread's 4 x R / 16 scores against keys t, t + 16,
-// ..., the row maximum and sum by shuffles within the group, p.v as a
-// second micro-tile product over half the keys a thread. What bounds it:
-// the FMA rate, 2 * R * 3 hd * C + 4 * R * R * hd flop a CTA, far below a
-// microsecond of the card's 67 TFLOP/s at these grids; it waits on the
-// issue of those FMAs on the few SMs a small grid fills, and on latency,
-// and keeps to one launch.
+// f32 (`band_attention_short_f32_kernel<R, HD_, PROJECT>`, tiles of R = 64
+// rows, or 32 (`kernels/attention.py::short_rows`): twice the CTAs at the
+// same padding; 4 R threads): full f32 on the FMA units, no TF32. Kernel
+// A's projection on register micro-tiles: thread (ty, tx) of R / 4 x 16
+// owns 4 rows x hd / 16 columns of each of q, k and v, each output one
+// chain of FMAs over the channels in order, x from the 128-byte swizzled
+// slab (broadcast loads), the weight columns likewise; q, k and v then go
+// to shared memory over the ring's space (kernel C's arrive there by TMA).
+// The attention is the streamed f32 kernel's micro-tiles without the online
+// steps: 16 threads a group of 4 rows, a thread's 4 x R / 16 scores against
+// keys t, t + 16, ..., the row maximum and sum by shuffles within the
+// group, p.v as a second micro-tile product over half the keys a thread.
+// What bounds it: the FMA rate, (kernel A's 2 * R * 3 hd * C +) 4 * R * R *
+// hd flop a CTA, far below a microsecond of the card's 67 TFLOP/s at these
+// grids; it waits on the issue of those FMAs on the few SMs a small grid
+// fills, and on latency, and keeps to one launch.
 
 #include <type_traits>
 
-#include "attention_mma.cuh"
 #include "band_attention.cuh"
 #include "hopper.cuh"
 
@@ -94,22 +105,28 @@ struct ShortLayout {
   static constexpr int HEADT = R * HD_;
 };
 
-// The bf16 kernel (above). x_map: (C, N, G), boxes of 32 channels x N
-// tokens x P bands (64-byte swizzle); w_map: the (C, 3C) weight, boxes of
-// HD_ columns x 32 rows.
-template <int HD_>
+// The bf16 kernel (above). PROJECT (kernel A): a_map x ((C, N, G), boxes
+// of 32 channels x N tokens x P bands, 64-byte swizzle), b_map the (C, 3C)
+// weight (boxes of HD_ columns x 32 rows), c_map not read. Else (kernel
+// C): a_map, b_map, c_map q, k, v ((C, N, G), boxes of HD_ channels x N
+// tokens x P bands, the head's swizzle); bias and v_out not read. c_map
+// comes last: the other parameters sit where a two-map signature puts
+// them.
+template <int HD_, bool PROJECT>
 __global__ void __launch_bounds__(128)
-band_attention_short_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
-                                  const __grid_constant__ CUtensorMap w_map,
+band_attention_short_wgmma_kernel(const __grid_constant__ CUtensorMap a_map,
+                                  const __grid_constant__ CUtensorMap b_map,
                                   const float* __restrict__ bias,
                                   bf16* __restrict__ o,
                                   bf16* __restrict__ v_out, int G, int N,
-                                  int C, int P, float sl2) {
+                                  int C, int P, float sl2,
+                                  const __grid_constant__ CUtensorMap c_map) {
   using L = ShortLayout<SHORT_ROWS, HD_>;
   extern __shared__ unsigned char smem_raw[];
   const int stages = short_stages(C), chunks = C / SHORT_KC;
+  // kernel A: the ring, then the k and v tiles; kernel C: q, k, v tiles
   bf16* ring = reinterpret_cast<bf16*>(align1024(smem_raw));
-  bf16* Ks = ring + stages * L::STAGE;                   // [64][HD_]
+  bf16* Ks = ring + (PROJECT ? stages * L::STAGE : L::HEADT);  // [64][HD_]
   bf16* Vs = Ks + L::HEADT;                              // [64][HD_]
   uint64_t* full = reinterpret_cast<uint64_t*>(Vs + L::HEADT);
   const int h = blockIdx.x, g0 = blockIdx.y * P;
@@ -119,107 +136,138 @@ band_attention_short_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   const int packed = P * N;                              // rows in the box
   const int real = min(P, G - g0) * N;                   // rows stored
 
-  auto issue = [&](int c) {          // thread 0: x's slab c and its weights
-    bf16* st = ring + (c % stages) * L::STAGE;
-    uint64_t* bar = &full[c % stages];
-    mbar_expect_tx(bar, (packed * SHORT_KC + 3 * L::WROLE) * sizeof(bf16));
-    tma_load_3d(st, &x_map, bar, SHORT_KC * c, 0, g0);
+  uint32_t qa[HD_ / 16][4];          // kernel A: q as S's A fragments
+  if constexpr (PROJECT) {
+    auto issue = [&](int c) {          // thread 0: x's slab c and its weights
+      bf16* st = ring + (c % stages) * L::STAGE;
+      uint64_t* bar = &full[c % stages];
+      mbar_expect_tx(bar, (packed * SHORT_KC + 3 * L::WROLE) * sizeof(bf16));
+      tma_load_3d(st, &a_map, bar, SHORT_KC * c, 0, g0);
 #pragma unroll
-    for (int role = 0; role < 3; ++role)
-      tma_load_2d(st + L::XS + role * L::WROLE, &w_map, bar,
-                  role * C + h * HD_, SHORT_KC * c);
-  };
-  if (tid == 0) {
-    for (int i = 0; i < stages; ++i) mbar_init(&full[i], 1);
-    mbar_init_fence();
-  }
-  // rows past P N of every slab are never loaded: zero, so k and v there
-  // are the bias alone (finite, masked, never stored)
-  for (int i = tid; i < stages * (SHORT_ROWS - packed) * 4; i += 128) {
-    const int st = i / ((SHORT_ROWS - packed) * 4);
-    const int rc = i % ((SHORT_ROWS - packed) * 4);
-    *reinterpret_cast<uint4*>(ring + st * L::STAGE +
-                              (packed + rc / 4) * SHORT_KC + 8 * (rc % 4)) =
-        make_uint4(0, 0, 0, 0);
-  }
-  fence_proxy_async();
-  __syncthreads();
-  if (tid == 0) {
-    tma_prefetch(&x_map);
-    tma_prefetch(&w_map);
-    for (int c = 0; c < stages; ++c) issue(c);
-  }
+      for (int role = 0; role < 3; ++role)
+        tma_load_2d(st + L::XS + role * L::WROLE, &b_map, bar,
+                    role * C + h * HD_, SHORT_KC * c);
+    };
+    if (tid == 0) {
+      for (int i = 0; i < stages; ++i) mbar_init(&full[i], 1);
+      mbar_init_fence();
+    }
+    // rows past P N of every slab are never loaded: zero, so k and v there
+    // are the bias alone (finite, masked, never stored)
+    for (int i = tid; i < stages * (SHORT_ROWS - packed) * 4; i += 128) {
+      const int st = i / ((SHORT_ROWS - packed) * 4);
+      const int rc = i % ((SHORT_ROWS - packed) * 4);
+      *reinterpret_cast<uint4*>(ring + st * L::STAGE +
+                                (packed + rc / 4) * SHORT_KC + 8 * (rc % 4)) =
+          make_uint4(0, 0, 0, 0);
+    }
+    fence_proxy_async();
+    __syncthreads();
+    if (tid == 0) {
+      tma_prefetch(&a_map);
+      tma_prefetch(&b_map);
+      for (int c = 0; c < stages; ++c) issue(c);
+    }
 
-  // ---- q, k, v = x . W + b on wgmma, chunk by chunk through the ring
-  float q[HD_ / 2], k[HD_ / 2], v[HD_ / 2];
+    // ---- q, k, v = x . W + b on wgmma, chunk by chunk through the ring
+    float q[HD_ / 2], k[HD_ / 2], v[HD_ / 2];
 #pragma unroll
-  for (int e = 0; e < HD_ / 2; ++e) q[e] = k[e] = v[e] = 0.f;
-  for (int c = 0; c < chunks; ++c) {
-    const bf16* st = ring + (c % stages) * L::STAGE;
-    mbar_wait(&full[c % stages], (c / stages) & 1);
-    wgmma_fence();
+    for (int e = 0; e < HD_ / 2; ++e) q[e] = k[e] = v[e] = 0.f;
+    for (int c = 0; c < chunks; ++c) {
+      const bf16* st = ring + (c % stages) * L::STAGE;
+      mbar_wait(&full[c % stages], (c / stages) & 1);
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < SHORT_KC / 16; ++kk) {
-      const uint64_t da = smem_desc(st + 16 * kk);
-      const int acc = c > 0 || kk > 0;
-      const bf16* wk = st + L::XS + 16 * kk * HD_;
-      wgmma_proj<HD_>(q, da, head_desc<HD_>(wk), acc);
-      wgmma_proj<HD_>(k, da, head_desc<HD_>(wk + L::WROLE), acc);
-      wgmma_proj<HD_>(v, da, head_desc<HD_>(wk + 2 * L::WROLE), acc);
-    }
-    // each chunk's products done within its iteration: a wgmma group left
-    // open across the loop's back edge makes ptxas serialize them (C7515)
-    wgmma_commit();
-    wgmma_wait<0>();
+      for (int kk = 0; kk < SHORT_KC / 16; ++kk) {
+        const uint64_t da = smem_desc(st + 16 * kk);
+        const int acc = c > 0 || kk > 0;
+        const bf16* wk = st + L::XS + 16 * kk * HD_;
+        wgmma_proj<HD_>(q, da, head_desc<HD_>(wk), acc);
+        wgmma_proj<HD_>(k, da, head_desc<HD_>(wk + L::WROLE), acc);
+        wgmma_proj<HD_>(v, da, head_desc<HD_>(wk + 2 * L::WROLE), acc);
+      }
+      // each chunk's products done within its iteration: a wgmma group left
+      // open across the loop's back edge makes ptxas serialize them (C7515)
+      wgmma_commit();
+      wgmma_wait<0>();
 #pragma unroll
-    for (int e = 0; e < HD_ / 2; ++e) {
-      reg_fence(q[e]);
-      reg_fence(k[e]);
-      reg_fence(v[e]);
+      for (int e = 0; e < HD_ / 2; ++e) {
+        reg_fence(q[e]);
+        reg_fence(k[e]);
+        reg_fence(v[e]);
+      }
+      if (c + stages < chunks) {       // block-uniform: refill this stage
+        __syncthreads();               // every thread's product read it
+        if (tid == 0) issue(c + stages);
+      }
     }
-    if (c + stages < chunks) {       // block-uniform: refill this stage
-      __syncthreads();               // every thread's product read it
-      if (tid == 0) issue(c + stages);
-    }
-  }
 
-  // bias, rounded to bf16: q as the A fragments of S (k step j / 2), k and
-  // v into their tiles, v also out for the real rows
-  uint32_t qa[HD_ / 16][4];
-  bf16* vg = v_out + (size_t)g0 * N * C + h * HD_ + 2 * t;
+    // bias, rounded to bf16: q as the A fragments of S (k step j / 2), k and
+    // v into their tiles, v also out for the real rows
+    bf16* vg = v_out + (size_t)g0 * N * C + h * HD_ + 2 * t;
 #pragma unroll
-  for (int j = 0; j < HD_ / 8; ++j) {
-    const int col = 8 * j + 2 * t;
-    const float* bq = bias + h * HD_ + col;
-    qa[j / 2][2 * (j % 2)] = pack_bf16(q[4 * j] + bq[0], q[4 * j + 1] + bq[1]);
-    qa[j / 2][2 * (j % 2) + 1] =
-        pack_bf16(q[4 * j + 2] + bq[0], q[4 * j + 3] + bq[1]);
-    const float* bk = bq + C;
-    *reinterpret_cast<uint32_t*>(Ks + kv_at<HD_>(r_lo, j) + 2 * t) =
-        pack_bf16(k[4 * j] + bk[0], k[4 * j + 1] + bk[1]);
-    *reinterpret_cast<uint32_t*>(Ks + kv_at<HD_>(r_hi, j) + 2 * t) =
-        pack_bf16(k[4 * j + 2] + bk[0], k[4 * j + 3] + bk[1]);
-    const float* bv = bq + 2 * C;
-    const uint32_t v_lo = pack_bf16(v[4 * j] + bv[0], v[4 * j + 1] + bv[1]);
-    const uint32_t v_hi =
-        pack_bf16(v[4 * j + 2] + bv[0], v[4 * j + 3] + bv[1]);
-    *reinterpret_cast<uint32_t*>(Vs + kv_at<HD_>(r_lo, j) + 2 * t) = v_lo;
-    *reinterpret_cast<uint32_t*>(Vs + kv_at<HD_>(r_hi, j) + 2 * t) = v_hi;
-    if (r_lo < real)
-      *reinterpret_cast<uint32_t*>(vg + (size_t)r_lo * C + 8 * j) = v_lo;
-    if (r_hi < real)
-      *reinterpret_cast<uint32_t*>(vg + (size_t)r_hi * C + 8 * j) = v_hi;
+    for (int j = 0; j < HD_ / 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      const float* bq = bias + h * HD_ + col;
+      qa[j / 2][2 * (j % 2)] =
+          pack_bf16(q[4 * j] + bq[0], q[4 * j + 1] + bq[1]);
+      qa[j / 2][2 * (j % 2) + 1] =
+          pack_bf16(q[4 * j + 2] + bq[0], q[4 * j + 3] + bq[1]);
+      const float* bk = bq + C;
+      *reinterpret_cast<uint32_t*>(Ks + kv_at<HD_>(r_lo, j) + 2 * t) =
+          pack_bf16(k[4 * j] + bk[0], k[4 * j + 1] + bk[1]);
+      *reinterpret_cast<uint32_t*>(Ks + kv_at<HD_>(r_hi, j) + 2 * t) =
+          pack_bf16(k[4 * j + 2] + bk[0], k[4 * j + 3] + bk[1]);
+      const float* bv = bq + 2 * C;
+      const uint32_t v_lo = pack_bf16(v[4 * j] + bv[0], v[4 * j + 1] + bv[1]);
+      const uint32_t v_hi =
+          pack_bf16(v[4 * j + 2] + bv[0], v[4 * j + 3] + bv[1]);
+      *reinterpret_cast<uint32_t*>(Vs + kv_at<HD_>(r_lo, j) + 2 * t) = v_lo;
+      *reinterpret_cast<uint32_t*>(Vs + kv_at<HD_>(r_hi, j) + 2 * t) = v_hi;
+      if (r_lo < real)
+        *reinterpret_cast<uint32_t*>(vg + (size_t)r_lo * C + 8 * j) = v_lo;
+      if (r_hi < real)
+        *reinterpret_cast<uint32_t*>(vg + (size_t)r_hi * C + 8 * j) = v_hi;
+    }
+    fence_proxy_async();
+    __syncthreads();                   // the k and v tiles written
+  } else {
+    // q, k and v of the P bands, a box each, all three in flight on one
+    // barrier; meanwhile the rows past P N of k and v are zeroed (rows the
+    // boxes never write: contiguous, as the swizzle moves 16-byte chunks
+    // within a row only); q's rows there only feed rows never stored
+    if (tid == 0) {
+      mbar_init(full, 1);
+      mbar_init_fence();
+    }
+    __syncthreads();
+    if (tid == 0) {
+      mbar_expect_tx(full, 3 * packed * HD_ * sizeof(bf16));
+      tma_load_3d(ring, &a_map, full, h * HD_, 0, g0);
+      tma_load_3d(Ks, &b_map, full, h * HD_, 0, g0);
+      tma_load_3d(Vs, &c_map, full, h * HD_, 0, g0);
+    }
+    for (int i = packed * HD_ / 8 + tid; i < L::HEADT / 8; i += 128) {
+      *reinterpret_cast<uint4*>(Ks + 8 * i) = make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(Vs + 8 * i) = make_uint4(0, 0, 0, 0);
+    }
+    fence_proxy_async();
+    __syncthreads();
+    mbar_wait(full, 0);
   }
-  fence_proxy_async();
-  __syncthreads();                   // the k and v tiles written
 
   // ---- S = q k^T over the tile's 64 keys (keys 8 j + 2 t + e of rows
   // r_lo / r_hi at s[4 j + e] / s[4 j + 2 + e])
   float s[32];
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < HD_ / 16; ++kk)
-    wgmma_64x64_rs_k(s, qa[kk], head_desc<HD_>(Ks) + 2 * kk, kk > 0);
+  for (int kk = 0; kk < HD_ / 16; ++kk) {
+    if constexpr (PROJECT)
+      wgmma_64x64_rs_k(s, qa[kk], head_desc<HD_>(Ks) + 2 * kk, kk > 0);
+    else
+      wgmma_64x64_ss_k(s, head_desc<HD_>(ring) + 2 * kk,
+                       head_desc<HD_>(Ks) + 2 * kk, kk > 0);
+  }
   wgmma_commit();
   wgmma_wait<0>();
 #pragma unroll
@@ -291,156 +339,190 @@ band_attention_short_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
 }
 
 // The f32 kernel (above) at tiles of R = 64 or 32 rows (P = R / N bands),
-// 4 R threads. x_map: (C, N, G), boxes of 32 channels x N tokens x P bands
-// (128-byte swizzle); w_map: the (C, 3C) weight, boxes of 32 columns x 32
-// rows (128-byte swizzle).
-template <int R, int HD_>
+// 4 R threads. PROJECT (kernel A): a_map x ((C, N, G), boxes of 32
+// channels x N tokens x P bands, 128-byte swizzle), b_map the (C, 3C)
+// weight (boxes of 32 columns x 32 rows, 128-byte swizzle), c_map not read.
+// Else (kernel C): a_map, b_map, c_map q, k, v (boxes of 32 channels x N
+// tokens x P bands, 128-byte swizzle: `f32_at`'s blocks); bias and v_out
+// not read; c_map last, as the bf16 kernel's.
+template <int R, int HD_, bool PROJECT>
 __global__ void __launch_bounds__(4 * R)
-band_attention_short_f32_kernel(const __grid_constant__ CUtensorMap x_map,
-                                const __grid_constant__ CUtensorMap w_map,
+band_attention_short_f32_kernel(const __grid_constant__ CUtensorMap a_map,
+                                const __grid_constant__ CUtensorMap b_map,
                                 const float* __restrict__ bias,
                                 float* __restrict__ o,
                                 float* __restrict__ v_out, int G, int N,
-                                int C, int P, float sl2) {
+                                int C, int P, float sl2,
+                                const __grid_constant__ CUtensorMap c_map) {
   using L = ShortLayout<R, HD_>;
   constexpr int CB = HD_ / 32;       // 32-channel blocks of a head
   constexpr int CW = HD_ / 16;       // columns of a role a projecting thread
   constexpr int U = R / 16;          // keys a thread scores: t + 16 u
   constexpr int PH = R / 2 + 4;      // a key half's offset in a P row
+  constexpr int ATTN = 3 * L::HEADT + R * LDP_SHORT;
   extern __shared__ unsigned char smem_raw[];
   const int stages = short_stages(C), chunks = C / SHORT_KC;
   float* ring = reinterpret_cast<float*>(align1024(smem_raw));
-  // after the projection, over the ring: q, k, v [R][HD_] (f32_at's
-  // layout) and the probabilities [R][LDP_SHORT]
+  // q, k, v [R][HD_] (f32_at's layout) and the probabilities
+  // [R][LDP_SHORT]; kernel A's over its ring
   float* Qs = ring;
   float* Ks = Qs + L::HEADT;
   float* Vs = Ks + L::HEADT;
   float* Ps = Vs + L::HEADT;
-  const int region = max(stages * L::STAGE, 3 * L::HEADT + R * LDP_SHORT);
+  const int region = PROJECT ? max(stages * L::STAGE, ATTN) : ATTN;
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + region);
   const int h = blockIdx.x, g0 = blockIdx.y * P;
   const int tid = threadIdx.x;
   const int packed = P * N, real = min(P, G - g0) * N;
 
-  auto issue = [&](int c) {          // thread 0: x's slab c and its weights
-    float* st = ring + (c % stages) * L::STAGE;
-    uint64_t* bar = &full[c % stages];
-    mbar_expect_tx(bar, (packed * SHORT_KC + 3 * L::WROLE) * sizeof(float));
-    tma_load_3d(st, &x_map, bar, SHORT_KC * c, 0, g0);
+  if constexpr (PROJECT) {
+    auto issue = [&](int c) {          // thread 0: x's slab c and its weights
+      float* st = ring + (c % stages) * L::STAGE;
+      uint64_t* bar = &full[c % stages];
+      mbar_expect_tx(bar, (packed * SHORT_KC + 3 * L::WROLE) * sizeof(float));
+      tma_load_3d(st, &a_map, bar, SHORT_KC * c, 0, g0);
 #pragma unroll
-    for (int role = 0; role < 3; ++role)
+      for (int role = 0; role < 3; ++role)
 #pragma unroll
-      for (int b = 0; b < CB; ++b)
-        tma_load_2d(st + L::XS + role * L::WROLE + b * SHORT_KC * 32, &w_map,
-                    bar, role * C + h * HD_ + 32 * b, SHORT_KC * c);
-  };
-  if (tid == 0) {
-    for (int i = 0; i < stages; ++i) mbar_init(&full[i], 1);
-    mbar_init_fence();
-  }
-  for (int i = tid; i < stages * (R - packed) * 8; i += 4 * R) {
-    const int st = i / ((R - packed) * 8);   // rows past P N: zero (bf16's)
-    const int rc = i % ((R - packed) * 8);
-    *reinterpret_cast<float4*>(ring + st * L::STAGE +
-                               (packed + rc / 8) * SHORT_KC + 4 * (rc % 8)) =
-        make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  fence_proxy_async();
-  __syncthreads();
-  if (tid == 0) {
-    tma_prefetch(&x_map);
-    tma_prefetch(&w_map);
-    for (int c = 0; c < stages; ++c) issue(c);
-  }
+        for (int b = 0; b < CB; ++b)
+          tma_load_2d(st + L::XS + role * L::WROLE + b * SHORT_KC * 32, &b_map,
+                      bar, role * C + h * HD_ + 32 * b, SHORT_KC * c);
+    };
+    if (tid == 0) {
+      for (int i = 0; i < stages; ++i) mbar_init(&full[i], 1);
+      mbar_init_fence();
+    }
+    for (int i = tid; i < stages * (R - packed) * 8; i += 4 * R) {
+      const int st = i / ((R - packed) * 8);   // rows past P N: zero (bf16's)
+      const int rc = i % ((R - packed) * 8);
+      *reinterpret_cast<float4*>(ring + st * L::STAGE +
+                                 (packed + rc / 8) * SHORT_KC + 4 * (rc % 8)) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    fence_proxy_async();
+    __syncthreads();
+    if (tid == 0) {
+      tma_prefetch(&a_map);
+      tma_prefetch(&b_map);
+      for (int c = 0; c < stages; ++c) issue(c);
+    }
 
-  // ---- q, k, v on micro-tiles: rows 4 ty + i, columns CW tx .. + CW - 1
-  // of each role
-  const int ty = tid >> 4, tx = tid & 15;
-  float acc[3][4][CW];
+    // ---- q, k, v on micro-tiles: rows 4 ty + i, columns CW tx .. + CW - 1
+    // of each role
+    const int ty = tid >> 4, tx = tid & 15;
+    float acc[3][4][CW];
 #pragma unroll
-  for (int r = 0; r < 3; ++r)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int e = 0; e < CW; ++e) acc[r][i][e] = 0.f;
-  // the thread's columns in a role's boxes: box CW tx / 32, 16-byte chunk
-  // (CW tx % 32) / 4, CW / 2 floats into it at HD_ 32 (a float2)
-  const int wbox = (CW * tx) >> 5, wchunk = ((CW * tx) & 31) >> 2;
-  const int woff = (CW * tx) & 3;
-  for (int c = 0; c < chunks; ++c) {
-    const float* st = ring + (c % stages) * L::STAGE;
-    mbar_wait(&full[c % stages], (c / stages) & 1);
-    const float* Wb = st + L::XS + wbox * SHORT_KC * 32;
-#pragma unroll 2
-    for (int kc = 0; kc < SHORT_KC / 4; ++kc) {
-      float4 a[4];
+    for (int r = 0; r < 3; ++r)
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        a[i] = *reinterpret_cast<const float4*>(
-            st + f32_at<32>(4 * ty + i, kc, R));
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int kr = 4 * kc + u;
-        const int at = kr * 32 + ((wchunk ^ (kr & 7)) << 2) + woff;
+        for (int e = 0; e < CW; ++e) acc[r][i][e] = 0.f;
+    // the thread's columns in a role's boxes: box CW tx / 32, 16-byte chunk
+    // (CW tx % 32) / 4, CW / 2 floats into it at HD_ 32 (a float2)
+    const int wbox = (CW * tx) >> 5, wchunk = ((CW * tx) & 31) >> 2;
+    const int woff = (CW * tx) & 3;
+    for (int c = 0; c < chunks; ++c) {
+      const float* st = ring + (c % stages) * L::STAGE;
+      mbar_wait(&full[c % stages], (c / stages) & 1);
+      const float* Wb = st + L::XS + wbox * SHORT_KC * 32;
+#pragma unroll 2
+      for (int kc = 0; kc < SHORT_KC / 4; ++kc) {
+        float4 a[4];
 #pragma unroll
-        for (int r = 0; r < 3; ++r) {
-          float wv[CW];
-          if constexpr (CW == 4) {
-            const float4 w4 =
-                *reinterpret_cast<const float4*>(Wb + r * L::WROLE + at);
-            wv[0] = w4.x;
-            wv[1] = w4.y;
-            wv[2] = w4.z;
-            wv[3] = w4.w;
-          } else {
-            const float2 w2 =
-                *reinterpret_cast<const float2*>(Wb + r * L::WROLE + at);
-            wv[0] = w2.x;
-            wv[1] = w2.y;
-          }
+        for (int i = 0; i < 4; ++i)
+          a[i] = *reinterpret_cast<const float4*>(
+              st + f32_at<32>(4 * ty + i, kc, R));
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float xv = lane_of(a[i], u);
+        for (int u = 0; u < 4; ++u) {
+          const int kr = 4 * kc + u;
+          const int at = kr * 32 + ((wchunk ^ (kr & 7)) << 2) + woff;
 #pragma unroll
-            for (int e = 0; e < CW; ++e)
-              acc[r][i][e] = fmaf(xv, wv[e], acc[r][i][e]);
+          for (int r = 0; r < 3; ++r) {
+            float wv[CW];
+            if constexpr (CW == 4) {
+              const float4 w4 =
+                  *reinterpret_cast<const float4*>(Wb + r * L::WROLE + at);
+              wv[0] = w4.x;
+              wv[1] = w4.y;
+              wv[2] = w4.z;
+              wv[3] = w4.w;
+            } else {
+              const float2 w2 =
+                  *reinterpret_cast<const float2*>(Wb + r * L::WROLE + at);
+              wv[0] = w2.x;
+              wv[1] = w2.y;
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float xv = lane_of(a[i], u);
+#pragma unroll
+              for (int e = 0; e < CW; ++e)
+                acc[r][i][e] = fmaf(xv, wv[e], acc[r][i][e]);
+            }
           }
         }
       }
-    }
-    if (c + stages < chunks) {       // block-uniform: refill this stage
-      __syncthreads();               // every thread read it
-      if (tid == 0) issue(c + stages);
-    }
-  }
-  __syncthreads();                   // every stage read: q, k, v go over it
-
-  // bias; q, k, v into their tiles, v out for the real rows
-#pragma unroll
-  for (int r = 0; r < 3; ++r) {
-    const float* br = bias + r * C + h * HD_ + CW * tx;
-    float* tile = r == 0 ? Qs : r == 1 ? Ks : Vs;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = 4 * ty + i;
-      float val[CW];
-#pragma unroll
-      for (int e = 0; e < CW; ++e) val[e] = acc[r][i][e] + br[e];
-      // f32_at's chunk of columns CW tx ..: chunk CW tx / 4, float woff
-      float* dst = tile + f32_at<HD_>(row, (CW * tx) >> 2, R) + woff;
-      float* vo = v_out + ((size_t)g0 * N + row) * C + h * HD_ + CW * tx;
-      if constexpr (CW == 4) {
-        const float4 v4 = make_float4(val[0], val[1], val[2], val[3]);
-        *reinterpret_cast<float4*>(dst) = v4;
-        if (r == 2 && row < real) *reinterpret_cast<float4*>(vo) = v4;
-      } else {
-        const float2 v2 = make_float2(val[0], val[1]);
-        *reinterpret_cast<float2*>(dst) = v2;
-        if (r == 2 && row < real) *reinterpret_cast<float2*>(vo) = v2;
+      if (c + stages < chunks) {       // block-uniform: refill this stage
+        __syncthreads();               // every thread read it
+        if (tid == 0) issue(c + stages);
       }
     }
+    __syncthreads();                   // every stage read: q, k, v go over it
+
+    // bias; q, k, v into their tiles, v out for the real rows
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      const float* br = bias + r * C + h * HD_ + CW * tx;
+      float* tile = r == 0 ? Qs : r == 1 ? Ks : Vs;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = 4 * ty + i;
+        float val[CW];
+#pragma unroll
+        for (int e = 0; e < CW; ++e) val[e] = acc[r][i][e] + br[e];
+        // f32_at's chunk of columns CW tx ..: chunk CW tx / 4, float woff
+        float* dst = tile + f32_at<HD_>(row, (CW * tx) >> 2, R) + woff;
+        float* vo = v_out + ((size_t)g0 * N + row) * C + h * HD_ + CW * tx;
+        if constexpr (CW == 4) {
+          const float4 v4 = make_float4(val[0], val[1], val[2], val[3]);
+          *reinterpret_cast<float4*>(dst) = v4;
+          if (r == 2 && row < real) *reinterpret_cast<float4*>(vo) = v4;
+        } else {
+          const float2 v2 = make_float2(val[0], val[1]);
+          *reinterpret_cast<float2*>(dst) = v2;
+          if (r == 2 && row < real) *reinterpret_cast<float2*>(vo) = v2;
+        }
+      }
+    }
+    __syncthreads();
+  } else {
+    // q, k and v of the P bands, a box a 32-channel block, all in flight on
+    // one barrier; meanwhile the rows past P N of k's and v's blocks are
+    // zeroed (q's there only feed rows never stored)
+    if (tid == 0) {
+      mbar_init(full, 1);
+      mbar_init_fence();
+    }
+    __syncthreads();
+    if (tid == 0) {
+      mbar_expect_tx(full, 3 * packed * HD_ * sizeof(float));
+#pragma unroll
+      for (int b = 0; b < CB; ++b) {
+        tma_load_3d(Qs + b * R * 32, &a_map, full, h * HD_ + 32 * b, 0, g0);
+        tma_load_3d(Ks + b * R * 32, &b_map, full, h * HD_ + 32 * b, 0, g0);
+        tma_load_3d(Vs + b * R * 32, &c_map, full, h * HD_ + 32 * b, 0, g0);
+      }
+    }
+    for (int i = tid; i < 2 * CB * (R - packed) * 8; i += 4 * R) {
+      const int blk = i / ((R - packed) * 8);      // k's blocks, then v's
+      const int rc = i % ((R - packed) * 8);
+      *reinterpret_cast<float4*>(Ks + blk * R * 32 +
+                                 (packed + rc / 8) * 32 + 4 * (rc % 8)) =
+          make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    __syncthreads();
+    mbar_wait(full, 0);
   }
-  __syncthreads();
 
   // ---- attention: a group of 16 threads owns rows 4 rg .. 4 rg + 3; for
   // the scores thread t takes keys t + 16 u, for p.v keys R / 2 half ..
@@ -555,51 +637,87 @@ band_attention_short_f32_kernel(const __grid_constant__ CUtensorMap x_map,
 }
 
 // Dynamic shared memory of the short kernels at width C, head width hd and
-// tile rows R (bytes, with 1024 of slack for the tiles' alignment);
-// `kernels/attention.py::short_smem_bytes` mirrors it.
-size_t short_smem(int C, int hd, bool f32, int R) {
+// tile rows R, kernel A (`project`) or C (bytes, with 1024 of slack for
+// the tiles' alignment); `kernels/attention.py::short_smem_bytes` mirrors
+// it.
+size_t short_smem(int C, int hd, bool f32, int R, bool project) {
   const size_t stage = R * SHORT_KC + 3 * (size_t)SHORT_KC * hd;
   const size_t head = (size_t)R * hd;
-  const int stages = short_stages(C);
-  if (!f32)
-    return 1024 + sizeof(bf16) * (stages * stage + 2 * head) + 8 * stages;
+  const int bars = project ? short_stages(C) : 1;
+  // kernel A's ring, kernel C's q tile
+  const size_t lead = project ? bars * stage : head;
+  if (!f32) return 1024 + sizeof(bf16) * (lead + 2 * head) + 8 * bars;
   const size_t attn = 3 * head + R * LDP_SHORT;
-  return 1024 + sizeof(float) * (stages * stage > attn ? stages * stage
-                                                        : attn) +
-         8 * stages;
+  return 1024 + sizeof(float) * (project && lead > attn ? lead : attn) +
+         8 * bars;
 }
 
-// bf16: R = 64, a warpgroup; f32: R = 64 or 32, 4 R threads.
-template <auto kernel, int HD_, bool F32, int R>
-cudaError_t launch_short(const void* x, const void* w, const void* b,
-                         void* o, void* v, int G, int N, int C, int heads,
-                         float scale, cudaStream_t s) {
+template <int HD_, bool F32, int R, bool PROJECT>
+constexpr auto short_kernel() {
+  if constexpr (F32) return band_attention_short_f32_kernel<R, HD_, PROJECT>;
+  else return band_attention_short_wgmma_kernel<HD_, PROJECT>;
+}
+
+// bf16: R = 64, a warpgroup; f32: R = 64 or 32, 4 R threads. PROJECT: a =
+// x, b = w (c not read); else a, b, c = q, k, v (bias and v not read).
+template <int HD_, bool F32, int R, bool PROJECT>
+cudaError_t launch_short(const void* a, const void* b, const void* c,
+                         const void* bias, void* o, void* v, int G, int N,
+                         int C, int heads, float scale, cudaStream_t s) {
   using T = std::conditional_t<F32, float, bf16>;
+  constexpr auto kernel = short_kernel<HD_, F32, R, PROJECT>();
   if (N > R) return cudaErrorInvalidValue;
   const int P = R / N;
-  CUtensorMap xm, wm;
-  cudaError_t e = band_map(&xm, x, G, N, C, N, F32, SHORT_KC, P);
-  if (e == cudaSuccess) e = weight_map(&wm, w, C, F32, F32 ? 32 : HD_);
+  // kernel C's boxes: the head (bf16) or a 32-channel block (f32)
+  const int cols = PROJECT || F32 ? SHORT_KC : HD_;
+  CUtensorMap am, bm, cm;
+  cudaError_t e = band_map(&am, a, G, N, C, N, F32, cols, P);
+  if (e == cudaSuccess)
+    e = PROJECT ? weight_map(&bm, b, C, F32, F32 ? 32 : HD_)
+                : band_map(&bm, b, G, N, C, N, F32, cols, P);
+  if (e == cudaSuccess) {
+    if (PROJECT) cm = bm;
+    else e = band_map(&cm, c, G, N, C, N, F32, cols, P);
+  }
   if (e == cudaSuccess) e = allow_smem<kernel>();
   if (e != cudaSuccess) return e;
   kernel<<<dim3(heads, (G + P - 1) / P), F32 ? 4 * R : 128,
-           short_smem(C, HD_, F32, R), s>>>(
-      xm, wm, static_cast<const float*>(b), static_cast<T*>(o),
-      static_cast<T*>(v), G, N, C, P, scale * LOG2E);
+           short_smem(C, HD_, F32, R, PROJECT), s>>>(
+      am, bm, static_cast<const float*>(bias), static_cast<T*>(o),
+      static_cast<T*>(v), G, N, C, P, scale * LOG2E, cm);
   return cudaGetLastError();
 }
 
-template <int HD_>
-cudaError_t short_f32(int rows, const void* x, const void* w, const void* b,
-                      void* o, void* v, int G, int N, int C, int heads,
-                      float scale, cudaStream_t s) {
-  if (rows == 64)
-    return launch_short<band_attention_short_f32_kernel<64, HD_>, HD_, true,
-                        64>(x, w, b, o, v, G, N, C, heads, scale, s);
-  if (rows == 32)
-    return launch_short<band_attention_short_f32_kernel<32, HD_>, HD_, true,
-                        32>(x, w, b, o, v, G, N, C, heads, scale, s);
-  return cudaErrorInvalidValue;
+// Either kernel (PROJECT) in either type at heads of 64 (`wide`) or 32
+// channels, tiles of `rows` (bf16 64; f32 64 or 32).
+template <bool PROJECT>
+cudaError_t launch_short_at(bool wide, int dtype, int rows, const void* a,
+                            const void* b, const void* c, const void* bias,
+                            void* o, void* v, int G, int N, int C, int heads,
+                            float scale, cudaStream_t s) {
+  if (dtype == 1)
+    return wide ? launch_short<64, false, 64, PROJECT>(a, b, c, bias, o, v, G,
+                                                       N, C, heads, scale, s)
+                : launch_short<32, false, 64, PROJECT>(a, b, c, bias, o, v, G,
+                                                       N, C, heads, scale, s);
+  if (rows != 64 && rows != 32) return cudaErrorInvalidValue;
+  if (wide)
+    return rows == 64 ? launch_short<64, true, 64, PROJECT>(
+                            a, b, c, bias, o, v, G, N, C, heads, scale, s)
+                      : launch_short<64, true, 32, PROJECT>(
+                            a, b, c, bias, o, v, G, N, C, heads, scale, s);
+  return rows == 64 ? launch_short<32, true, 64, PROJECT>(
+                          a, b, c, bias, o, v, G, N, C, heads, scale, s)
+                    : launch_short<32, true, 32, PROJECT>(
+                          a, b, c, bias, o, v, G, N, C, heads, scale, s);
+}
+
+// What both entries refuse: G, N or heads out of range, heads neither 32
+// nor 64 wide, another type, bf16 tiles other than 64 rows.
+bool short_ok(int G, int N, int C, int heads, int dtype, int rows) {
+  return G > 0 && N > 0 && N <= rows && heads > 0 && G <= 65535 &&
+         (C == 32 * heads || C == 64 * heads) && (dtype == 0 || dtype == 1) &&
+         (dtype == 0 || rows == SHORT_ROWS);
 }
 
 }  // namespace
@@ -615,21 +733,26 @@ extern "C" int yolou_band_attention_qkv_short(const void* x, const void* w,
                                               void* v, int G, int N, int C,
                                               int heads, int dtype, int rows,
                                               float scale, void* stream) {
-  if (G <= 0 || N <= 0 || N > rows || heads <= 0 || G > 65535 ||
-      (C != 32 * heads && C != 64 * heads) || (dtype != 0 && dtype != 1) ||
-      (dtype == 1 && rows != SHORT_ROWS))
+  if (!short_ok(G, N, C, heads, dtype, rows))
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool wide = C == 64 * heads;
-  if (dtype == 1)
-    return (int)(wide ? launch_short<band_attention_short_wgmma_kernel<64>,
-                                     64, false, 64>(x, w, b, o, v, G, N, C,
-                                                    heads, scale, s)
-                      : launch_short<band_attention_short_wgmma_kernel<32>,
-                                     32, false, 64>(x, w, b, o, v, G, N, C,
-                                                    heads, scale, s));
-  return (int)(wide ? short_f32<64>(rows, x, w, b, o, v, G, N, C, heads,
-                                    scale, s)
-                    : short_f32<32>(rows, x, w, b, o, v, G, N, C, heads,
-                                    scale, s));
+  return (int)launch_short_at<true>(C == 64 * heads, dtype, rows, x, w,
+                                    nullptr, b, o, v, G, N, C, heads, scale,
+                                    static_cast<cudaStream_t>(stream));
+}
+
+// Kernel C at bands of N <= rows tokens in one launch, dtype and rows as
+// above: q, k, v, o (G, N, C), head-major channels, heads 32 or 64 wide;
+// scale the softmax's. Every tensor 16-byte aligned (TMA). A tensor map
+// that cannot be encoded fails the call before the launch. Returns the
+// launch status.
+extern "C" int yolou_band_attention_short(const void* q, const void* k,
+                                          const void* v, void* o, int G,
+                                          int N, int C, int heads, int dtype,
+                                          int rows, float scale,
+                                          void* stream) {
+  if (!short_ok(G, N, C, heads, dtype, rows))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_short_at<false>(C == 64 * heads, dtype, rows, q, k, v,
+                                     nullptr, o, nullptr, G, N, C, heads,
+                                     scale, static_cast<cudaStream_t>(stream));
 }

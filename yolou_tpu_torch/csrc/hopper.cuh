@@ -10,19 +10,50 @@
 // blocks, one box each); bf16 rows are the whole head, 64 bytes at width 32
 // and 128 at width 64. TMA writes them swizzled, the 16-byte chunk c of row
 // r at chunk c ^ (r % 8) (128-byte swizzle: f32, and bf16 at width 64) or c
-// ^ ((r / 2) % 4) (64-byte swizzle, bf16 at width 32: `kv_at`'s layouts in
-// attention_mma.cuh). The pattern is a function of the shared-memory
-// address bits, so every tile starts on a 1024-byte boundary and the wgmma
-// descriptors (of the tile's swizzle) read what TMA wrote.
+// ^ ((r / 2) % 4) (64-byte swizzle, bf16 at width 32): `kv_at`'s layouts.
+// The pattern is a function of the shared-memory address bits, so every
+// tile starts on a 1024-byte boundary and the wgmma descriptors (of the
+// tile's swizzle) read what TMA wrote.
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "attention_mma.cuh"   // pack_bf16, quad_max, quad_sum
+#include "band_attention.cuh"
 
 namespace yolou {
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Element offset of channel 8 * chunk (+ 0..7) of row `row` of a bf16
+// head-wide tile W channels wide, as TMA writes it: at 32 (64-byte rows,
+// the 64-byte swizzle) chunk c at c ^ ((row / 2) % 4), at 64 (128-byte
+// rows, the 128-byte swizzle) at c ^ (row % 8).
+template <int W = HD>
+__device__ __forceinline__ int kv_at(int row, int chunk) {
+  if constexpr (W == 64) return row * 64 + ((chunk ^ (row & 7)) << 3);
+  else return row * HD + ((chunk ^ ((row >> 1) & 3)) << 3);
+}
+
+// Two f32 values rounded to bf16 and packed, the first in the low half (the
+// lower column index of a wgmma fragment).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The maximum and sum over the four threads of a quad (a fragment row).
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(FULL, v, 1));
+  return fmaxf(v, __shfl_xor_sync(FULL, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(FULL, v, 1);
+  return v + __shfl_xor_sync(FULL, v, 2);
+}
 
 // ------------------------------------------------------------------ host
 
@@ -343,9 +374,10 @@ __device__ __forceinline__ void wgmma_64x128_ss(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// d (64 x 32, f32) += a . b: a 64 x 16 bf16 from registers (per warp the
-// A fragment of mma.m16n8k16 for its 16 rows), b 16 x 32 MN-major (16
-// rows of 32 columns, the transpose bit) from shared memory.
+// d (64 x 32, f32) += a . b: a 64 x 16 bf16 from registers (per warp its
+// 16 rows: rows g, g + 8, channels 2 t .., 2 t + 8 .. of lane 4 g + t),
+// b 16 x 32 MN-major (16 rows of 32 columns, the transpose bit) from shared
+// memory.
 __device__ __forceinline__ void wgmma_64x32_rs(float (&d)[16],
                                                const uint32_t (&a)[4],
                                                uint64_t db) {
@@ -430,6 +462,30 @@ __device__ __forceinline__ void wgmma_64x64_rs_k(float (&d)[32],
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, f32) = a . b (+ d if accumulate): a 64 x 16 and b 16 x 64
+// both K-major (b: 64 rows of 16 channels) from shared memory: the scores
+// of up to 64 keys against q tile rows.
+__device__ __forceinline__ void wgmma_64x64_ss_k(float (&d)[32], uint64_t da,
+                                                 uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // d (64 x 64, f32) = a . b (+ d if accumulate): a 64 x 16 K-major and b

@@ -11,7 +11,8 @@ the outputs' shapes and types, so `torch.export` and other graph captures
 record each launch as one node. Each wrapper counts its kernel launches in
 a `launches` attribute, in the real version only, one a call; kernel A,
 whose streamed path starts two device kernels a call, also counts those in
-`device_launches`, and its launches by path and type in `path_launches`. The differentiable ones also count the calls of their
+`device_launches`; kernels A and C count their launches by path and type
+in `path_launches`. The differentiable ones also count the calls of their
 backward (plain tensor code, no kernel) in `backward_calls`.
 """
 
@@ -43,10 +44,12 @@ def device_counts() -> Dict[str, int]:
             for name, fn in _WRAPPERS.items()}
 
 
-def path_counts() -> Dict[str, int]:
-    """Kernel A's launches since the last reset by path and type ("short
-    bf16", "streamed f32", ...; `attention.attention_plan`'s paths)."""
-    return dict(area_attention_qkv_fused.path_launches)
+def path_counts(name: str = "band_attention") -> Dict[str, int]:
+    """The launches of band attention kernel `name` (kernel A by default;
+    "band_attention_train", "band_attention_single": kernel C) since the
+    last reset by path and type ("short bf16", "streamed f32", ...;
+    `attention.attention_plan`'s paths)."""
+    return dict(_WRAPPERS[name].path_launches)
 
 
 def backward_counts() -> Dict[str, int]:
@@ -60,6 +63,7 @@ def reset_launch_counts() -> None:
         fn.launches = 0
         if hasattr(fn, "device_launches"):
             fn.device_launches = 0
+        if hasattr(fn, "path_launches"):
             fn.path_launches = {}
         if hasattr(fn, "backward_calls"):
             fn.backward_calls = 0

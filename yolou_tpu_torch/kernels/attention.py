@@ -1,4 +1,5 @@
-"""Band attention kernels (CUDA, sm_90a). Source: `../csrc/band_attention.cu`.
+"""Band attention kernels (CUDA, sm_90a). Sources: `../csrc/band_attention.cu`
+(the streamed path) and `../csrc/band_attention_short.cu` (the short path).
 
 Kernel A, `area_attention_qkv_fused`: folded qkv projection + multi-head band
 attention, the eval path. Replaces the TPU kernel
@@ -33,32 +34,28 @@ the tensor cores, float32 on the FMA units in full f32 (which the 1e-4
 comparisons rest on; no TF32). Neither falls back to the other or to the
 plain version.
 
-Kernel A runs every band of 64 tokens or fewer, in both types, on the
-short path (`band_attention_short.cu`): one launch computes the projection
-and the attention of a tile of 64 rows holding P = 64 // N whole bands,
-scores across two bands of a tile masked, a single-pass softmax against
-the full row's maximum (bf16 on wgmma, f32 on FMA micro-tiles in tiles of
-64 or 32 rows, `short_rows`). Longer bands, and every band of kernel C,
-take one of two paths in bfloat16, chosen by `attention_plan` from the
-shape: the resident path (`mma.sync` m16n8k16, a warp per 16 query rows,
-online softmax over steps of 32 keys in kernel A and 64 in kernel C), whose
-CTAs hold a head's keys and values of the whole band in shared memory
-(bands up to `max_tokens`), where it was the faster of the two on an H100;
-and the streamed path, which passes them through a ring of shared-memory
-stages loaded by TMA (kernel A then in two launches: the k and v
-projection, k into a scratch, then the attention): bf16 on `wgmma` with one
-or two consumer warpgroups of 64 query rows and 128-key tiles, f32 on 4 x 4
-register micro-tiles in CTAs of 64, 32 or 16 query rows and 64-key tiles
-(`stream_rows`). float32 has the streamed path only. Both paths hold the
-same numerics contract (f32 scores, maximum and sum; probabilities rounded
-to the I/O type before p.v; the division after it), over other key steps:
-their bf16 results are close, not bit-identical. No band length is
-refused; the streamed bf16 kernel A holds its CTA's x rows in shared
-memory, which bounds C (896 channels: 28 heads).
+Both kernels take one of two paths, in both types, chosen by
+`attention_plan` from the band's length alone. Every band of 64 tokens or
+fewer runs the short path (`band_attention_short.cu`): one launch attends
+a tile of 64 rows holding P = 64 // N whole bands (kernel A also projects
+them), scores across two bands of a tile masked, a single-pass softmax
+against the full row's maximum (bf16 on wgmma, f32 on FMA micro-tiles in
+tiles of 64 or 32 rows, `short_rows`). Longer bands run the streamed path,
+which passes keys and values through a ring of shared-memory stages loaded
+by TMA (kernel A then in two launches: the k and v projection, k into a
+scratch, then the attention): bf16 on `wgmma` with one or two consumer
+warpgroups of 64 query rows and 128-key tiles, f32 on 4 x 4 register
+micro-tiles in CTAs of 64, 32 or 16 query rows and 64-key tiles
+(`stream_rows`). Both paths hold the same numerics contract (f32 scores,
+maximum and sum; probabilities rounded to the I/O type before p.v; the
+division after it), the short one against the full row's maximum, the
+streamed one against a running one: their bf16 results are close, not
+bit-identical. No band length is refused; the streamed bf16 kernel A holds
+its CTA's x rows in shared memory, which bounds C (896 channels: 28
+heads).
 
 Head widths. The kernels are built for heads 32 and 64 channels wide
-(`KERNEL_HEAD_DIMS`); the resident path takes 32 only, so a 64-wide head
-runs the streamed path. Every other width up to 64 is padded with zero
+(`KERNEL_HEAD_DIMS`). Every other width up to 64 is padded with zero
 channels to the next of the two by one function on both devices
 (`pad_heads`; kernel A also pads x's channels and the qkv weight's rows
 and columns, `pad_qkv_projection`) and runs with the true `hd ** -0.5` as
@@ -77,12 +74,10 @@ import torch
 
 from . import build
 
-HEAD_DIM = 32     # YOLOv12's head width: the resident path's, and the default
+HEAD_DIM = 32     # YOLOv12's head width, the default
 KERNEL_HEAD_DIMS = (32, 64)  # the head widths the CUDA kernels are built for
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 227 * 1024
-_CLUSTER_ROWS = 8 * 8 * 16   # bf16 kernel A: CTAs x warps x query rows
-_MAX_CLUSTER = 8             # CTAs of a resident band's cluster, at most
 # the short path (band_attention_short.cu): a tile's rows, the channels of a
 # ring stage and the ring's stages at most
 _SHORT_ROWS = 64
@@ -104,11 +99,6 @@ _KVB_KS = 64
 _KVB_STAGES = 4
 _KVB_COLS = 64
 _SMS = 132    # streaming multiprocessors of an H100 SXM
-# bf16: the streamed path past this many tokens (at or below it a 128-key
-# tile and a 64-row block are half padding or more), in kernels A and C:
-# the crossover of both paths' device times on an H100 80GB HBM3 at 700 W
-# over every yolov12 band (`tools/attention_routes.py`)
-_STREAM_MIN_TOKENS = 64
 
 
 def area_attention_qkv_fused_plain(x: torch.Tensor, w: torch.Tensor,
@@ -169,32 +159,6 @@ def pad_qkv_projection(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     wp = torch.nn.functional.pad(wp, (0, 0, 0, ca - c)).contiguous()
     bp = pad_heads(b.reshape(3, c), heads, hdp).reshape(3 * ca)
     return xp, wp, bp
-
-
-def smem_bytes(n: int, c: int, projection: bool = True) -> int:
-    """One CTA's dynamic shared memory on the resident path (bfloat16,
-    band_attention.cu): the head's keys and values, N rounded up to 16 rows
-    of 32 channels; kernel A also its head's (C, 96) weights in rows of
-    104."""
-    n_pad = -(-n // 16) * 16
-    weights = 104 * c if projection else 0
-    return 2 * (weights + 2 * n_pad * HEAD_DIM)
-
-
-def max_tokens(c: int, projection: bool = True) -> int:
-    """The longest band the resident path (bfloat16) holds at width C: its
-    shared memory stays within a block's 227 KB, and in kernel A a band is
-    one cluster of at most 8 CTAs of 8 warps of 16 query rows."""
-    n = 0
-    while _fits(n + 1, c, projection):
-        n += 1
-    return n
-
-
-def _fits(n: int, c: int, projection: bool) -> bool:
-    if projection and n > _CLUSTER_ROWS:
-        return False
-    return smem_bytes(n, c, projection) <= _SMEM_LIMIT
 
 
 def stream_smem_bytes(c: int, dtype: torch.dtype, projection: bool = True,
@@ -264,20 +228,18 @@ def stream_rows(g: int, n: int, c: int, dtype: torch.dtype,
     return 32 if pairs * -(-n // 32) >= _SMS // 2 else 16
 
 
-PATHS = ("short", "resident", "streamed")
+PATHS = ("short", "streamed")
 
 
 class AttentionPlan(NamedTuple):
     """How a band runs: its `path` (one of `PATHS`), the largest dynamic
-    shared memory of its launches (bytes), the most CTAs of a thread-block
-    cluster (1: none), its device kernels a call, and on the streamed and
-    short paths the query rows of a CTA or tile (`stream_rows`,
-    `short_rows`; 0 on the resident path)."""
+    shared memory of its launches (bytes), its device kernels a call, and
+    the query rows of a streamed CTA or a short tile (`stream_rows`,
+    `short_rows`)."""
     path: str
     smem: int
-    cluster: int
     launches: int
-    rows: int = 0
+    rows: int
 
     @property
     def streamed(self) -> bool:
@@ -285,76 +247,64 @@ class AttentionPlan(NamedTuple):
 
 
 def short_smem_bytes(c: int, dtype: torch.dtype, hd: int = HEAD_DIM,
-                     rows: int = _SHORT_ROWS) -> int:
+                     rows: int = _SHORT_ROWS, projection: bool = True) -> int:
     """One CTA's dynamic shared memory on the short path
     (band_attention_short.cu::short_smem) at tiles of `rows`, with 1024
-    bytes of slack for the tiles' alignment and 8 a barrier: a ring of
-    min(4, C / 32) stages, each x's [rows][32] slab and the head's three
-    [32][hd] weight columns; bf16 also the k and v tiles [rows][hd], f32
-    over the ring's space q, k, v [rows][hd] and the probabilities
-    [rows][`_LDP`]."""
-    stages = min(_SHORT_STAGES, c // _SHORT_KC)
-    ring = stages * (rows * _SHORT_KC + 3 * _SHORT_KC * hd)
+    bytes of slack for the tiles' alignment and 8 a barrier. Kernel A
+    (`projection`): a ring of min(4, C / 32) stages, each x's [rows][32]
+    slab and the head's three [32][hd] weight columns; bf16 also the k and
+    v tiles [rows][hd], f32 over the ring's space q, k, v [rows][hd] and
+    the probabilities [rows][`_LDP`]. Kernel C: the q, k and v tiles and,
+    in f32, the probabilities, one barrier."""
+    stages = min(_SHORT_STAGES, c // _SHORT_KC) if projection else 1
     head = rows * hd
+    lead = stages * (rows * _SHORT_KC + 3 * _SHORT_KC * hd) if projection \
+        else head
     if dtype == torch.bfloat16:
-        return 1024 + 2 * (ring + 2 * head) + 8 * stages
-    return 1024 + 4 * max(ring, 3 * head + rows * _LDP) + 8 * stages
+        return 1024 + 2 * (lead + 2 * head) + 8 * stages
+    attention = 3 * head + rows * _LDP
+    return 1024 + 4 * max(lead if projection else 0, attention) + 8 * stages
 
 
 def short_rows(g: int, n: int, c: int, dtype: torch.dtype,
-               hd: int = HEAD_DIM) -> int:
+               hd: int = HEAD_DIM, projection: bool = True) -> int:
     """The rows of a short-path tile (whole bands, P = rows // N of them):
-    bfloat16 64 (a wgmma block); float32 32 where N <= 32 and a grid of
-    64-row tiles, a CTA per (tile, head), has fewer than `_SHORT_F32_CTAS`
-    CTAs, or at any grid at C = 64 (twice the CTAs at the same padding),
-    else 64: within 1 % of the faster of the two on an H100 at every
-    yolov12 band of 25 tokens but (512, 25, 128) h4, 4.7 % slower
-    (`tools/attention_routes.py`)."""
+    bfloat16 64 (a wgmma block); float32 32 where N <= 32 in kernel C (the
+    faster at every yolov12 band of 25 tokens on an H100, by 1.25-1.61x;
+    `tools/attention_routes.py --kernels C`), and in kernel A
+    (`projection`) where a grid of 64-row tiles, a CTA per (tile, head),
+    has fewer than `_SHORT_F32_CTAS` CTAs, or at any grid at C = 64 (twice
+    the CTAs at the same padding), else 64: within 1 % of the faster of the
+    two on an H100 at every yolov12 band of 25 tokens but (512, 25, 128)
+    h4, 4.7 % slower (`tools/attention_routes.py --kernels A`)."""
     if dtype == torch.bfloat16 or n > _SHORT_ROWS // 2:
         return _SHORT_ROWS
+    if not projection:
+        return _SHORT_ROWS // 2
     ctas = -(-g // (_SHORT_ROWS // n)) * (c // hd)
     small = ctas < _SHORT_F32_CTAS or c <= 2 * HEAD_DIM
     return _SHORT_ROWS // 2 if small else _SHORT_ROWS
 
 
 def short_plan(g: int, n: int, c: int, dtype: torch.dtype,
-               hd: int = HEAD_DIM) -> AttentionPlan:
-    """Kernel A's short path: one launch, no cluster, `short_rows` rows a
-    tile."""
-    rows = short_rows(g, n, c, dtype, hd)
-    return AttentionPlan("short", short_smem_bytes(c, dtype, hd, rows), 1, 1,
+               hd: int = HEAD_DIM, projection: bool = True) -> AttentionPlan:
+    """The short path of kernel A (`projection`) or C: one launch,
+    `short_rows` rows a tile."""
+    rows = short_rows(g, n, c, dtype, hd, projection)
+    return AttentionPlan("short",
+                         short_smem_bytes(c, dtype, hd, rows, projection), 1,
                          rows)
-
-
-def stream_faster(g: int, n: int, c: int, projection: bool = True) -> bool:
-    """Whether the streamed path beat the resident one on an H100 at G bands
-    of N tokens at width C (bfloat16; `tools/attention_routes.py` timed both
-    at every yolov12 band the resident path holds): past
-    `_STREAM_MIN_TOKENS` tokens, whatever G and C, in kernel A
-    (`projection`) and C alike (kernel A's resident path wins one of the 70
-    bands of 65-1024 tokens it holds, by 2.7 %)."""
-    return n > _STREAM_MIN_TOKENS
 
 
 def attention_plan(g: int, n: int, c: int, dtype: torch.dtype,
                    projection: bool = True,
                    hd: int = HEAD_DIM) -> AttentionPlan:
     """The path of G bands of N tokens at width C in heads of `hd` (a
-    kernel width, 32 or 64), kernel A (`projection`) or C: kernel A's bands
-    of 64 tokens or fewer the short path in both types; else in bfloat16 at
-    head width 32 the resident path where it holds the band (`max_tokens`)
-    and was the faster (`stream_faster`), else the streamed path
-    (`streamed_plan`), which every other float32 band and every other
-    64-wide head takes (float32 has no resident path, and it holds heads of
-    32)."""
-    if projection and n <= _SHORT_ROWS:
-        return short_plan(g, n, c, dtype, hd)
-    if (dtype == torch.bfloat16 and hd == HEAD_DIM
-            and _fits(n, c, projection)
-            and not stream_faster(g, n, c, projection)):
-        cluster = min(_MAX_CLUSTER, -(-n // 16)) if projection else 1
-        return AttentionPlan("resident", smem_bytes(n, c, projection),
-                             cluster, 1)
+    kernel width, 32 or 64), kernel A (`projection`) or C, in either type:
+    the short path at 64 tokens or fewer (`short_plan`), else the streamed
+    path (`streamed_plan`)."""
+    if n <= _SHORT_ROWS:
+        return short_plan(g, n, c, dtype, hd, projection)
     return streamed_plan(g, n, c, dtype, projection, hd)
 
 
@@ -365,13 +315,12 @@ def streamed_plan(g: int, n: int, c: int, dtype: torch.dtype,
     rows = stream_rows(g, n, c, dtype, projection, hd)
     return AttentionPlan("streamed",
                          stream_smem_bytes(c, dtype, projection, rows, hd),
-                         1, 2 if projection else 1, rows)
+                         2 if projection else 1, rows)
 
 
 def _check_aligned(*tensors):
-    """The bfloat16 kernels read and write rows 16 bytes at a time, and the
-    streamed path's tensor maps (TMA) and f32 loads need 16-byte aligned
-    bases."""
+    """The kernels' tensor maps (TMA) and 16-byte loads and stores need
+    16-byte aligned bases."""
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("the kernel needs 16-byte aligned tensors")
 
@@ -418,13 +367,20 @@ def _kernel_head_dim(c, heads):
     return hd
 
 
-def _check_resident(resident, dtype, hd):
-    """A forced resident path takes bfloat16 heads of 32 only."""
-    if resident and dtype != torch.bfloat16:
-        raise ValueError("float32 has no resident path")
-    if resident and hd != HEAD_DIM:
-        raise ValueError(f"the resident path takes heads of {HEAD_DIM} "
-                         f"channels, got {hd}")
+def _check_path(path, n):
+    """A forced path: one of `PATHS`, the short one at 64 tokens or
+    fewer."""
+    if path not in PATHS:
+        raise ValueError(f"path must be one of {PATHS}, got {path!r}")
+    if path == "short" and n > _SHORT_ROWS:
+        raise ValueError(f"the short path takes bands of {_SHORT_ROWS} "
+                         f"tokens or fewer, got {n}")
+
+
+def _count_path(wrapper, path, dtype):
+    """One launch of `wrapper`'s kernel on `path`, by path and type."""
+    key = f"{path} {'f32' if dtype == torch.float32 else 'bf16'}"
+    wrapper.path_launches[key] = wrapper.path_launches.get(key, 0) + 1
 
 
 def _launch_qkv_attention(x, w, b, heads, path=None, rows=None,
@@ -438,15 +394,10 @@ def _launch_qkv_attention(x, w, b, heads, path=None, rows=None,
     hd = _kernel_head_dim(c, heads)
     if path is None:
         path = attention_plan(g, n, c, x.dtype, hd=hd).path
-    if path not in PATHS:
-        raise ValueError(f"path must be one of {PATHS}, got {path!r}")
-    _check_resident(path == "resident", x.dtype, hd)
-    if path == "short" and n > _SHORT_ROWS:
-        raise ValueError(f"the short path takes bands of {_SHORT_ROWS} "
-                         f"tokens or fewer, got {n}")
+    _check_path(path, n)
     if path == "streamed":
         rows = rows or _stream_plan(g, n, c, x.dtype, True, hd).rows
-    elif path == "short":
+    else:
         rows = rows or short_rows(g, n, c, x.dtype, hd)
     lib = build.load()
     _check_aligned(x, w)
@@ -463,18 +414,13 @@ def _launch_qkv_attention(x, w, b, heads, path=None, rows=None,
             code = lib.yolou_band_attention_qkv_stream(
                 *ptrs, k.data_ptr(), g, n, c, heads, code, rows, scale,
                 stream)
-        elif path == "short":
+        else:
             code = lib.yolou_band_attention_qkv_short(
                 *ptrs, g, n, c, heads, code, rows, scale, stream)
-        else:
-            code = lib.yolou_band_attention_qkv(
-                *ptrs, g, n, c, heads, code, scale, stream)
     build.check(lib, code, "band attention kernel")
     area_attention_qkv_fused.launches += 1
     area_attention_qkv_fused.device_launches += 2 if path == "streamed" else 1
-    key = f"{path} {'f32' if x.dtype == torch.float32 else 'bf16'}"
-    counts = area_attention_qkv_fused.path_launches
-    counts[key] = counts.get(key, 0) + 1
+    _count_path(area_attention_qkv_fused, path, x.dtype)
     return o, v
 
 
@@ -610,34 +556,35 @@ def _check_qkv(q, k, v, heads):
     return g, n, c
 
 
-def _launch_band_attention(q, k, v, heads, streamed=None, rows=None,
+def _launch_band_attention(q, k, v, heads, path=None, rows=None,
                            scale=None):
     """Launch kernel C on contiguous CUDA tensors whose heads are a kernel
-    width (32 or 64) on the path `attention_plan` gives (`streamed` True or
-    False forces one, `rows` the streamed CTA's query rows); `scale` the
-    softmax's (default hd ** -0.5); returns o."""
+    width (32 or 64) on the path `attention_plan` gives (`path`, one of
+    `PATHS`, forces one, for comparisons; `rows` the streamed CTA's query
+    rows or the short path's tile rows in place of the planned ones);
+    `scale` the softmax's (default hd ** -0.5); returns o."""
     g, n, c = q.shape
     hd = _kernel_head_dim(c, heads)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
-    _check_resident(streamed is False, q.dtype, hd)
-    if streamed is None:
-        streamed = attention_plan(g, n, c, q.dtype, projection=False,
-                                  hd=hd).streamed
+    if path is None:
+        path = attention_plan(g, n, c, q.dtype, projection=False,
+                              hd=hd).path
+    _check_path(path, n)
     lib = build.load()
-    if q.dtype == torch.bfloat16 or streamed:
-        _check_aligned(q, k, v)
+    _check_aligned(q, k, v)
     o = torch.empty_like(q)
-    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g, n, c,
-            heads, _DTYPE_CODE[q.dtype]]
-    if streamed:
+    if path == "streamed":
         entry = lib.yolou_band_attention_stream
-        args.append(rows or _stream_plan(g, n, c, q.dtype, False, hd).rows)
+        rows = rows or _stream_plan(g, n, c, q.dtype, False, hd).rows
     else:
-        entry = lib.yolou_band_attention
-    args.append(hd ** -0.5 if scale is None else scale)
+        entry = lib.yolou_band_attention_short
+        rows = rows or short_rows(g, n, c, q.dtype, hd, projection=False)
     with torch.cuda.device(q.device):
-        code = entry(*args, torch.cuda.current_stream().cuda_stream)
+        code = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     g, n, c, heads, _DTYPE_CODE[q.dtype], rows,
+                     hd ** -0.5 if scale is None else scale,
+                     torch.cuda.current_stream().cuda_stream)
     build.check(lib, code, "band attention (training) kernel")
     return o
 
@@ -656,8 +603,12 @@ def _band_attention(q, k, v, heads, wrapper):
     if q.device.type == "cpu":
         o = area_attention_fused_plain(q, k, v, heads, hd ** -0.5)
     else:
-        o = _launch_band_attention(q, k, v, heads, scale=hd ** -0.5)
+        g, n, c = q.shape
+        path = attention_plan(g, n, c, q.dtype, projection=False,
+                              hd=c // heads).path
+        o = _launch_band_attention(q, k, v, heads, path, scale=hd ** -0.5)
         wrapper.launches += 1
+        _count_path(wrapper, path, q.dtype)
     return o if hdp in (0, hd) else cut_heads(o, heads, hd)
 
 
@@ -737,4 +688,5 @@ for _op, _fn in ((band_attention_op, area_attention_fused),
     _op.register_autograd(_attention_backward(_fn),
                           setup_context=_attention_setup)
     _fn.launches = 0         # forward kernel launches
+    _fn.path_launches = {}   # "short bf16" etc. -> launches
     _fn.backward_calls = 0   # calls of the backward

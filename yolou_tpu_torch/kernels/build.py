@@ -78,11 +78,10 @@ def bind(lib: ctypes.CDLL, missing_ok: bool = False) -> ctypes.CDLL:
     tree lacks (`tools/time_builds.py` times such trees)."""
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     entries = {
-        "yolou_band_attention_qkv": [vp] * 5 + [ci] * 5 + [cf, vp],
-        "yolou_band_attention": [vp] * 4 + [ci] * 5 + [cf, vp],
         "yolou_band_attention_qkv_stream": [vp] * 6 + [ci] * 6 + [cf, vp],
         "yolou_band_attention_qkv_short": [vp] * 5 + [ci] * 6 + [cf, vp],
         "yolou_band_attention_stream": [vp] * 4 + [ci] * 6 + [cf, vp],
+        "yolou_band_attention_short": [vp] * 4 + [ci] * 6 + [cf, vp],
         "yolou_greedy_nms": [vp, vp, vp, ci, ci, cf, vp],
         "yolou_a2c2f": [vp, ctypes.POINTER(vp), ci, vp, vp, vp, *[ci] * 11,
                         vp, vp, ci, cf, ci, vp],

@@ -1,35 +1,32 @@
 """Time the paths of the band attention kernels against each other, on one
-GPU, at every band of yolov12 n-x: kernel A's short path, the resident
-path and the streamed one at each number of query rows a CTA may take.
+GPU, at every band of yolov12 n-x: the short path at each tile's row count
+and the streamed one at each number of query rows a CTA may take.
 
     python -m yolou_tpu_torch.tools.attention_routes [--out F] [--iters N]
         [--kernels AC] [--summarize F]
 
 Kernels A (`area_attention_qkv_fused`) and C (`area_attention_fused`) each
-have a resident path (bfloat16 only: a CTA holds its head's keys and
-values of the whole band) and a streamed one (key tiles through shared
-memory, CTAs of 128 or 64 query rows in bfloat16, 64, 32 or 16 in
-float32); kernel A also a short one at bands of 64 tokens or fewer (whole
-bands packed to a tile of 64 rows, or in float32 32 where N <= 32; one
-launch, both types); see
+have a short path at bands of 64 tokens or fewer (whole bands packed to a
+tile of 64 rows, or in float32 32 where N <= 32; one launch, both types)
+and a streamed one (key tiles through shared memory, CTAs of 128 or 64
+query rows in bfloat16, 64, 32 or 16 in float32); see
 `kernels/attention.py::attention_plan`, whose choices rest on these times.
 For each band (layers 6 and 8 of every yolov12 scale at 160^2-1280^2,
-batch 1 and 8; 160^2 also at batch 16, the evaluator's, and 128, the
-objectmap generator's) and each type, every path the band can take is
-forced in turns (each in order, then in reverse) on the same seeded
-inputs, each turn the card's own time per call
-(`profile_layers.device_ms`, torch.profiler, `--iters` calls after 3
-warm-up calls). `--kernels A` or `C` times one kernel's bands only.
-Prints the card's name and power limit, then one JSON object: {"card":
-..., "rows": [{"kernel", "dtype", "g", "n", "c", "heads", "short_ms":
-{rows: [2 turns]} or null, "resident_ms": [2 turns] or null,
-"streamed_ms": {rows: [2 turns]}, "plan": "short", "resident" or
-"streamed", "plan_rows": ...}, ...], "summary": ...}; "plan" and
-"plan_rows" are what `attention_plan` takes, "summary" is `summarize`'s
-(the plan against the fastest path, the resident path's wins), which
-`--summarize F` prints again from an earlier `--out F`, beside the same
-with the plan `attention_plan` makes now (a refitted rule's cost on the
-timings it was fitted to).
+batch 1 and 8; 160^2 also at batch 16, the evaluator's and the fine-tune's,
+8, a data shard of the fine-tune's 2 x 2 mesh, and 128, the objectmap
+generator's) and each type, every path the band can take is forced in
+turns (each in order, then in reverse) on the same seeded inputs, each
+turn the card's own time per call (`profile_layers.device_ms`,
+torch.profiler, `--iters` calls after 3 warm-up calls). `--kernels A` or
+`C` times one kernel's bands only. Prints the card's name and power limit,
+then one JSON object: {"card": ..., "rows": [{"kernel", "dtype", "g", "n",
+"c", "heads", "short_ms": {rows: [2 turns]} or null, "streamed_ms": {rows:
+[2 turns]}, "plan": "short" or "streamed", "plan_rows": ...}, ...],
+"summary": ...}; "plan" and "plan_rows" are what `attention_plan` takes,
+"summary" is `summarize`'s (the plan against the fastest path, the short
+path against the best streamed one), which `--summarize F` prints again
+from an earlier `--out F`, beside the same with the plan `attention_plan`
+makes now (a refitted rule's cost on the timings it was fitted to).
 """
 
 from __future__ import annotations
@@ -43,8 +40,7 @@ import numpy as np
 import torch
 
 from ..kernels.attention import (_SHORT_ROWS, _launch_band_attention,
-                                 _launch_qkv_attention, attention_plan,
-                                 max_tokens)
+                                 _launch_qkv_attention, attention_plan)
 from .profile_layers import card_name_and_power_limit, device_ms
 
 # yolov12's attention widths at layers 6 and 8 (AAttn's dim), n-x
@@ -87,7 +83,7 @@ def time_routes(iters: int = 20, device: str = "cuda", kernels: str = "AC"):
         if ("A" if projection else "C") not in kernels:
             continue
         for g, n, c, heads in bands():
-            # a path: (name, streamed CTA rows or None)
+            # a path: (name, CTA or tile rows)
             if projection:
                 x = mk((g, n, c), dtype)
                 w = mk((c, 3 * c), dtype, 0.5 / np.sqrt(c))
@@ -100,12 +96,10 @@ def time_routes(iters: int = 20, device: str = "cuda", kernels: str = "AC"):
                 q, k, v = (mk((g, n, c), dtype) for _ in range(3))
 
                 def run(path):
-                    return lambda: _launch_band_attention(
-                        q, k, v, heads, path[0] == "streamed", path[1])
+                    return lambda: _launch_band_attention(q, k, v, heads,
+                                                          *path)
             paths = [("streamed", r) for r in STREAM_ROWS[dtype]]
-            if dtype == torch.bfloat16 and n <= max_tokens(c, projection):
-                paths.insert(0, ("resident", None))
-            if projection and n <= _SHORT_ROWS:
+            if n <= _SHORT_ROWS:
                 paths[:0] = [("short", r) for r in SHORT_ROWS[dtype]
                              if n <= r]
             times = {path: [] for path in paths}
@@ -119,7 +113,6 @@ def time_routes(iters: int = 20, device: str = "cuda", kernels: str = "AC"):
                 "heads": heads,
                 "short_ms": {str(r): times[(name, r)] for name, r in times
                              if name == "short"} or None,
-                "resident_ms": times.get(("resident", None)),
                 "streamed_ms": {str(r): times[("streamed", r)]
                                 for r in STREAM_ROWS[dtype]},
                 "plan": plan.path, "plan_rows": plan.rows})
@@ -131,9 +124,9 @@ def summarize(rows, replan: bool = False) -> dict:
     """Per kernel and type: the plan's time over the fastest path's at each
     band (mean and worst, each path's time the mean of its turns; with
     `replan`, the plan `attention_plan` makes now in place of the one
-    recorded), and for the bands the resident path takes past the short
-    path's 64 tokens, how many it wins against the best streamed row count,
-    and by how much at most."""
+    recorded), and at the bands of 64 tokens or fewer how many the short
+    path (its faster row count) wins against the best streamed row count,
+    and its worst time over that streamed one's."""
     out = {}
     for row in rows:
         if replan:
@@ -144,26 +137,23 @@ def summarize(rows, replan: bool = False) -> dict:
         times = {}
         for r, t in (row["short_ms"] or {}).items():
             times[("short", int(r))] = np.mean(t)
-        if row["resident_ms"] is not None:
-            times[("resident", 0)] = np.mean(row["resident_ms"])
         for r, t in row["streamed_ms"].items():
             times[("streamed", int(r))] = np.mean(t)
         best = min(times.values())
         plan = times[(row["plan"], row["plan_rows"])]
         key = f"{row['kernel']} {row['dtype']}"
         s = out.setdefault(key, {"bands": 0, "plan_over_best": [],
-                                 "resident_bands": 0, "resident_wins": 0,
-                                 "resident_best_gain": 1.0})
+                                 "short_bands": 0, "short_wins": 0,
+                                 "short_over_streamed_worst": 0.0})
         s["bands"] += 1
         s["plan_over_best"].append(plan / best)
-        if row["resident_ms"] is not None and row["n"] > _SHORT_ROWS:
+        if row["short_ms"]:
+            short = min(np.mean(t) for t in row["short_ms"].values())
             streamed = min(np.mean(t) for t in row["streamed_ms"].values())
-            s["resident_bands"] += 1
-            if times[("resident", 0)] < streamed:
-                s["resident_wins"] += 1
-                s["resident_best_gain"] = max(
-                    s["resident_best_gain"],
-                    streamed / times[("resident", 0)])
+            s["short_bands"] += 1
+            s["short_wins"] += int(short < streamed)
+            s["short_over_streamed_worst"] = max(
+                s["short_over_streamed_worst"], short / streamed)
     for s in out.values():
         ratios = s.pop("plan_over_best")
         s["plan_over_best_mean"] = float(np.mean(ratios))

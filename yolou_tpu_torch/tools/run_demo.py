@@ -15,8 +15,9 @@ script's inline Python does (`objectmap_auc`, without cv2). It prints each
 stage's output as it comes and, last, one JSON line of outcomes: mAP50
 and mAP50-95 at each validation, the objectmap AUC and fg / bg logit
 means, the best validation Dice and its epoch, the test Dice, HD95,
-precision and recall, each stage's wall seconds and each stage's kernel
-launches (`kernels.launch_counts()` of its process). `run_demo`'s
+precision and recall, each stage's wall seconds, each stage's kernel
+launches (`kernels.launch_counts()` of its process) and the band attention
+kernels' launches by path (`kernels.path_counts`). `run_demo`'s
 keyword arguments shorten the run (schedules, set size, image size) for a
 smoke test.
 """
@@ -39,13 +40,17 @@ import numpy as np
 from ..data.synthetic import generate
 from ..native.image import IMREAD_GRAYSCALE, imread
 
-# a stage: the command through the dispatcher, then its launch counts
+# a stage: the command through the dispatcher, then its launch counts and
+# kernels A and C's by path
 _STAGE = ("import json, sys\n"
           "from yolou_tpu_torch import __main__ as cli, kernels\n"
           "out = cli.main(sys.argv[1:])\n"
           "print('kernel launches ' + json.dumps(kernels.launch_counts()))\n"
+          "print('kernel paths ' + json.dumps({k: kernels.path_counts(k) "
+          "for k in ('band_attention', 'band_attention_train')}))\n"
           "sys.exit(out if isinstance(out, int) else 0)\n")
 _LAUNCHES = re.compile(r"^kernel launches (\{.*\})$", re.M)
+_PATHS = re.compile(r"^kernel paths (\{.*\})$", re.M)
 _VAL = re.compile(r"^epoch (\d+)/\d+ .*\| val mAP50=([0-9.na]+) "
                   r"mAP50-95=([0-9.na]+)", re.M)
 
@@ -114,8 +119,10 @@ def _run(name: str, argv: List[str], log_dir: str) -> Dict:
     if proc.returncode:
         raise RuntimeError(f"stage {name} exited with {proc.returncode}")
     launches = _LAUNCHES.findall(proc.stdout)
+    paths = _PATHS.findall(proc.stdout)
     return {"seconds": seconds, "out": proc.stdout,
-            "launches": json.loads(launches[-1]) if launches else None}
+            "launches": json.loads(launches[-1]) if launches else None,
+            "paths": json.loads(paths[-1]) if paths else None}
 
 
 def _last_json(text: str) -> dict:
@@ -187,6 +194,7 @@ def run_demo(root: str, device: str = "cuda", detector_epochs: int = 120,
                                       "n_images")}
     out["stage_seconds"] = {k: v["seconds"] for k, v in stages.items()}
     out["launches"] = {k: v["launches"] for k, v in stages.items()}
+    out["paths"] = {k: v["paths"] for k, v in stages.items()}
     out["files"] = {"detector": det, "segpp": final}
     return out
 

@@ -10,14 +10,15 @@ then launch each library's kernels on the same seeded bfloat16 inputs, at
 the shapes the serving, training and evaluation paths and the attention
 profiler give them (batch 8 at 640^2, batch 16 at 160^2; NMS over 512
 candidates of 1, 8 and 16 images and 2048 of 8, all valid), kernels A
-and C on their
-resident path, which every such tree has; then kernels A and C forced onto
-the streamed path (the "streamed" cases: f32 at the default commands'
-batch 16 at 640^2 and 160^2, at batch 8 and at 1024^2 and 1280^2, bf16 at
-the bands it serves and the long ones), which trees from the streamed
-path's introduction on have; then kernel A on its tree's planned path at
-the 160^2 bands (the "planned" cases: the short path where the library has
-it, else bf16 resident and f32 streamed, the paths before it).
+and C on the path this tree plans (at 400 tokens the streamed one, at 25
+kernel A's short one: every tree from kernel A's short path on has both);
+then kernels A and C forced onto the streamed path (the "streamed" cases:
+f32 at the default commands' batch 16 at 640^2 and 160^2, at batch 8 and
+at 1024^2 and 1280^2, bf16 at the bands it serves and the long ones); then
+kernels A and C on their tree's planned path at the 160^2 bands (the
+"planned" cases, kernel C at the fine-tune's batch 16 and a 2 x 2 mesh's
+data shard of 8: the short path where the library has kernel C's, else
+the paths before it, bf16 resident by its C entry and f32 streamed).
 `--tiles` adds each whole-A2C2f case at each given token tile (the sweep
 behind `kernels/a2c2f.py::f32_tile`'s rule, which both types use). The
 bf16 strip case's plain version is timed too ("a2c2f L6 strip plain", the
@@ -101,16 +102,22 @@ STREAM_CASES = [
     ("A streamed f32 L6@640", "A", (32, 400, 64), 2, torch.float32),
     ("A streamed f32 L8@640", "A", (8, 400, 128), 4, torch.float32),
     ("A streamed f32 L6@1280", "A", (32, 1600, 64), 2, torch.float32)]
-# name, (G, N, C), heads, dtype: kernel A on its tree's planned path at the
-# 160^2 bands (evaluation at batch 16, objectmaps at 128): the short path,
-# or in a tree without it bf16 resident and f32 streamed
+# name, kernel, (G, N, C), heads, dtype: kernels A and C on their tree's
+# planned path at the 160^2 bands (kernel A: evaluation at batch 16,
+# objectmaps at 128; kernel C: the fine-tune at 16, a 2 x 2 mesh's data
+# shard at 8)
 PLANNED_CASES = [
-    (f"A planned {dt} {name}", shape, heads, dtype)
+    (f"{k} planned {dt} {name}", k, shape, heads, dtype)
     for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))
-    for name, shape, heads in (("L6@160b16", (64, 25, 64), 2),
-                               ("L8@160b16", (16, 25, 128), 4),
-                               ("L6@160b128", (512, 25, 64), 2),
-                               ("L8@160b128", (128, 25, 128), 4))]
+    for k, name, shape, heads in (
+        ("A", "L6@160b16", (64, 25, 64), 2),
+        ("A", "L8@160b16", (16, 25, 128), 4),
+        ("A", "L6@160b128", (512, 25, 64), 2),
+        ("A", "L8@160b128", (128, 25, 128), 4),
+        ("C", "L6@160b16", (64, 25, 64), 2),
+        ("C", "L8@160b16", (16, 25, 128), 4),
+        ("C", "L6@160b8", (32, 25, 64), 2),
+        ("C", "L8@160b8", (8, 25, 128), 4))]
 # name, (B, H, W, cin), c2, stages, area, heads, MLP width (None: 2 c_;
 # bf16 a multiple of 16, as the fold pads it), dtype: yolov12n's layers 6
 # and 8 at 640^2 (mlp_ratio 2 and 1.2), A2C2f(96, 96) (one head of 48,
@@ -178,10 +185,16 @@ def load_library(csrc: Path):
         keep = list(range(17)) if hid else [*range(12), *range(13, 17)]
         lib.yolou_a2c2f = lambda *args: entry(*(args[i] for i in keep),
                                               args[-1])
+    if hasattr(lib, "yolou_band_attention"):
+        # a tree from before kernel C's short path: its resident entry
+        # (`_planned_attention`)
+        lib.yolou_band_attention.argtypes = [vp] * 4 + [ci] * 5 + [
+            ctypes.c_float, vp]
+        lib.yolou_band_attention.restype = ci
     attention_source = (csrc / "band_attention.cu").read_text()
     if "float scale, void* stream" not in attention_source:
         # the entries' scale (the argument before the stream) dropped
-        for name in ("yolou_band_attention_qkv", "yolou_band_attention",
+        for name in ("yolou_band_attention",
                      "yolou_band_attention_qkv_stream",
                      "yolou_band_attention_stream"):
             if hasattr(lib, name):
@@ -201,19 +214,15 @@ def load_library(csrc: Path):
     return lib
 
 
-def _resident_qkv(x, w, b, heads):
-    """Kernel A on its resident path (on the CPU the wrapper: the plain
-    version)."""
-    if x.device.type == "cpu":
-        return area_attention_qkv_fused(x, w, b, heads)
-    return _launch_qkv_attention(x, w, b, heads, "resident")
-
-
-def _resident_attention(q, k, v, heads):
-    """Kernel C on its resident path (on the CPU the wrapper)."""
-    if q.device.type == "cpu":
-        return area_attention_fused(q, k, v, heads)
-    return _launch_band_attention(q, k, v, heads, streamed=False)
+def _planned(kernel, args, heads):
+    """Kernel A or C on the path this tree plans (on the CPU the wrapper:
+    the plain version)."""
+    fn = area_attention_qkv_fused if kernel == "A" else area_attention_fused
+    if args[0].device.type == "cpu":
+        return fn(*args, heads)
+    if kernel == "A":
+        return _launch_qkv_attention(*args, heads)
+    return _launch_band_attention(*args, heads)
 
 
 def _streamed(kernel, args, heads):
@@ -224,21 +233,28 @@ def _streamed(kernel, args, heads):
         return fn(*args, heads)
     if kernel == "A":
         return _launch_qkv_attention(*args, heads, "streamed")
-    return _launch_band_attention(*args, heads, streamed=True)
+    return _launch_band_attention(*args, heads, "streamed")
 
 
-def _planned_qkv(args, heads):
-    """Kernel A on the path its tree plans: the short path at bands of 64
-    tokens or fewer where the loaded library has it, else the path the
-    trees before it took there (bf16 resident, f32 streamed); on the CPU
-    the wrapper."""
-    x = args[0]
-    if x.device.type == "cpu":
-        return area_attention_qkv_fused(*args, heads)
-    path = None
-    if not hasattr(build._lib, "yolou_band_attention_qkv_short"):
-        path = "resident" if x.dtype == torch.bfloat16 else "streamed"
-    return _launch_qkv_attention(*args, heads, path)
+def _planned_attention(kernel, args, heads):
+    """Kernel A or C on the path its tree plans at a band of 64 tokens or
+    fewer: the short path where the loaded library has the kernel's short
+    entry; else kernel C's paths before it, the bf16 resident kernel
+    (called by its C entry, which this tree's wrappers do not name) and
+    the f32 streamed one. On the CPU the wrapper."""
+    q = args[0]
+    if q.device.type == "cpu" or kernel == "A" or hasattr(
+            build._lib, "yolou_band_attention_short"):
+        return _planned(kernel, args, heads)
+    if q.dtype == torch.float32:
+        return _launch_band_attention(*args, heads, "streamed")
+    lib, (g, n, c) = build._lib, q.shape
+    o = torch.empty_like(q)
+    code = lib.yolou_band_attention(
+        *(t.data_ptr() for t in (*args, o)), g, n, c, heads, 1,
+        (c // heads) ** -0.5, torch.cuda.current_stream().cuda_stream)
+    build.check(lib, code, "resident kernel C")
+    return o
 
 
 def _a2c2f_at_tile(x, ws, stages, area, heads, tile):
@@ -259,26 +275,26 @@ def _calls(device, tiles=()):
                                 ).to(device, dtype)
 
     calls = {}
-    for name, (g, n, c), heads in QKV_CASES:
-        x, w, b = mk((g, n, c)), mk((c, 3 * c), 0.5 / np.sqrt(c)), mk(
-            (3 * c,), 0.1, torch.float32)
-        calls[name] = functools.partial(_resident_qkv, x, w, b, heads)
-    for name, shape, heads in ATTN_CASES:
-        q, k, v = mk(shape), mk(shape), mk(shape)
-        calls[name] = functools.partial(_resident_attention, q, k, v, heads)
-    for name, kernel, (g, n, c), heads, dtype in STREAM_CASES:
+    def operands(kernel, shape, dtype=torch.bfloat16):
+        g, n, c = shape
         if kernel == "A":
-            args = (mk((g, n, c), dtype=dtype),
+            return (mk(shape, dtype=dtype),
                     mk((c, 3 * c), 0.5 / np.sqrt(c), dtype),
                     mk((3 * c,), 0.1, torch.float32))
-        else:
-            args = tuple(mk((g, n, c), dtype=dtype) for _ in range(3))
-        calls[name] = functools.partial(_streamed, kernel, args, heads)
-    for name, (g, n, c), heads, dtype in PLANNED_CASES:
-        args = (mk((g, n, c), dtype=dtype),
-                mk((c, 3 * c), 0.5 / np.sqrt(c), dtype),
-                mk((3 * c,), 0.1, torch.float32))
-        calls[name] = functools.partial(_planned_qkv, args, heads)
+        return tuple(mk(shape, dtype=dtype) for _ in range(3))
+
+    for name, shape, heads in QKV_CASES:
+        calls[name] = functools.partial(_planned, "A", operands("A", shape),
+                                        heads)
+    for name, shape, heads in ATTN_CASES:
+        calls[name] = functools.partial(_planned, "C", operands("C", shape),
+                                        heads)
+    for name, kernel, shape, heads, dtype in STREAM_CASES:
+        calls[name] = functools.partial(_streamed, kernel,
+                                        operands(kernel, shape, dtype), heads)
+    for name, kernel, shape, heads, dtype in PLANNED_CASES:
+        calls[name] = functools.partial(_planned_attention, kernel,
+                                        operands(kernel, shape, dtype), heads)
 
     for name, shape, c2, stages, area, heads, hid, dtype in A2C2F_CASES:
         def gemm(k, n, dtype=dtype):  # a (k, n) weight and its f32 bias
