@@ -439,7 +439,10 @@ def check_attention(device):
     streamed one in turns; where a band streams, its first device kernel
     (the k/v projection) beside its bound, its plain version and one
     torch.addmm of the same columns, in both types. Heads of 48 and 16
-    (padded to 64 and 32 in the wrapper) at layer 8's band, both types."""
+    (padded to 64 and 32 in the wrapper) at layer 8's band, both types.
+    Kernel A's wide form at four widths its q-projecting kernel does not
+    fit (its first device kernel then the q | k | v projection, beside one
+    torch.addmm of all 3C columns)."""
     import torch
     import torch.nn.functional as F
     from yolou_tpu_torch.kernels.attention import (
@@ -467,7 +470,15 @@ def check_attention(device):
              # heads no yolov12 graph builds: two of 48 (padded to 64, the
              # streamed path) and two of 16 (padded to 32)
              ("L8@640 hd48", BATCH, 400, 96, 2, BOTH),
-             ("L8@640 hd16", BATCH, 400, 32, 2, BOTH)]
+             ("L8@640 hd16", BATCH, 400, 32, 2, BOTH),
+             # kernel A's wide form (widths the q-projecting kernel does
+             # not fit): A2C2f(1856, 1856)'s c_ 928 in 29 heads, f32's
+             # first wide width in heads of 32, AAttn(512, 8) and AAttn(640,
+             # 10) (heads of 64), all at area 4 of 40^2
+             ("c_928 h29", 4, 400, 928, 29, ("bfloat16",)),
+             ("c_1344 h42", 4, 400, 1344, 42, ("float32",)),
+             ("AAttn(512,8)", 4, 400, 512, 8, ("bfloat16",)),
+             ("AAttn(640,10)", 4, 400, 640, 10, ("float32",))]
     rng = np.random.default_rng(SEED)
     worst, times = 0.0, {}
     for name, g, n, c, heads, dtypes in cases:
@@ -514,11 +525,12 @@ def check_attention(device):
                 paths = {"device_kernels": sorted(device_kernel_ms(
                     lambda: area_attention_qkv_fused(xt, wt, bt, heads)))}
             if plan.streamed:
-                paths.update(streamed_bounds(g, n, c, dtype_name(dtype)))
-            if plan.streamed:
+                wide = plan.path == "wide"
+                paths.update(streamed_bounds(g, n, c, dtype_name(dtype),
+                                             wide))
                 # the projection alone: its plain version and one library
                 # call
-                paths.update(projection_yardsticks(xt, wt, bt))
+                paths.update(projection_yardsticks(xt, wt, bt, wide))
             if plan.path == "short" and hdp == 32:
                 paths.update({f"{p}_ms": t for p, t in paths_in_turns(
                     lambda p: lambda: _launch_qkv_attention(xt, wt, bt,
@@ -557,34 +569,44 @@ def check_attention(device):
     return times
 
 
-def streamed_bounds(g: int, n: int, c: int, dtype: str) -> dict:
+def streamed_bounds(g: int, n: int, c: int, dtype: str,
+                    wide: bool = False) -> dict:
     """The bound of each device kernel of kernel A's streamed path at G
     bands of N tokens at width C: the k/v projection (x read, k and v
     written, w's k and v columns and their bias read; 4 G N C^2 flop) and
     the attention (x, k and v read, o written, w's q columns and bias read;
-    the q projection's 2 G N C^2 and q.k^T and p.v's 4 G N^2 C flop)."""
+    the q projection's 2 G N C^2 and q.k^T and p.v's 4 G N^2 C flop). In
+    the `wide` form the projection takes q too (x read, q, k and v written,
+    all of w and b read; 6 G N C^2 flop) and the attention reads q, k and v
+    and writes o (4 G N^2 C flop)."""
     elt, rows = (4 if dtype == "float32" else 2), g * n
     out = {}
-    for part, nbytes, flops in (
-            ("projection", elt * (3 * rows * c + 2 * c * c) + 8 * c,
-             4 * rows * c * c),
-            ("attention", elt * (4 * rows * c + c * c) + 4 * c,
-             2 * rows * c * c + 4 * g * n * n * c)):
+    parts = (("projection", elt * (3 * rows * c + 2 * c * c) + 8 * c,
+              4 * rows * c * c),
+             ("attention", elt * (4 * rows * c + c * c) + 4 * c,
+              2 * rows * c * c + 4 * g * n * n * c))
+    if wide:
+        parts = (("projection", elt * (4 * rows * c + 3 * c * c) + 12 * c,
+                  6 * rows * c * c),
+                 ("attention", elt * 4 * rows * c, 4 * g * n * n * c))
+    for part, nbytes, flops in parts:
         out[f"{part}_bound_ms"], out[f"{part}_bound_by"] = bound(
             nbytes, flops, dtype)
     return out
 
 
-def projection_yardsticks(x, w, b) -> dict:
+def projection_yardsticks(x, w, b, wide: bool = False) -> dict:
     """The k/v projection's plain version's device ms (the plain version's
     projection of the same columns: f32 product and bias, rounded to x's
     type) and one library call's (torch.addmm over the same columns in x's
     type, TF32 off; in bf16 with the bias rounded to bf16, as the call
-    takes it), on (G, N, C) x."""
+    takes it), on (G, N, C) x; of all 3C q | k | v columns in the `wide`
+    form."""
     import torch
     g, n, c = x.shape
     rows = g * n
-    wkv, bkv = w[:, c:].contiguous(), b[c:].contiguous()
+    first = 0 if wide else c
+    wkv, bkv = w[:, first:].contiguous(), b[first:].contiguous()
     bkv_lib = bkv.to(x.dtype)
     x2 = x.view(rows, c)
     return {"projection_plain_ms": kernel_times(
@@ -748,13 +770,20 @@ def seeded_a2c2f(c1: int, c2: int, n: int, area: int, device, seed: int,
     """A seeded A2C2f attention block in eval mode whose BatchNorms carry
     random statistics (so that folding them is not the identity) and a scale
     near 0.3, which keeps the block's activations of order 1."""
+    from yolou_tpu_torch.nn.attention import A2C2f
+    return seeded_module(A2C2f(c1, c2, n, a2=True, area=area,
+                               mlp_ratio=mlp_ratio, residual=residual),
+                         device, seed)
+
+
+def seeded_module(module, device, seed: int):
+    """`module` with seeded weights in eval mode, its BatchNorms carrying
+    random statistics near a scale of 0.3 (`seeded_a2c2f`)."""
     import torch
     from torch import nn
     from yolou_tpu_torch.models.yolo import init_weights
-    from yolou_tpu_torch.nn.attention import A2C2f
     gen = torch.Generator().manual_seed(seed)
-    m = init_weights(A2C2f(c1, c2, n, a2=True, area=area,
-                           mlp_ratio=mlp_ratio, residual=residual), gen)
+    m = init_weights(module, gen)
     with torch.no_grad():
         for bn in (b for b in m.modules() if isinstance(b, nn.BatchNorm2d)):
             shape = bn.weight.shape
@@ -772,7 +801,8 @@ def check_a2c2f(device):
     yolov12n shapes with mlp_ratio 1.2 (an MLP 154 / 307 wide, padded to
     160 / 320 in bf16), at yolov12l's layer 8 at 640^2 in f32 (4 stages;
     32-token tiles), at A2C2f(96, 96) (one head of 48, padded to 64 by the
-    fold) and at five stages, both types; times of the kernel, of the
+    fold) and at five stages, both types, and at A2C2f(512, 512,
+    mlp_ratio=4.0) in bf16 (h in global memory); times of the kernel, of the
     plain version and of the staged `A2C2f.forward` on the same weights
     (about 80 launches with the band attention kernel inside: the route the
     kernel replaces, and the yardstick, since no one PyTorch call computes
@@ -790,7 +820,10 @@ def check_a2c2f(device):
               ("float32",)),
              # one head of 48 (the fold pads it to 64), five stages
              ("A2C2f(96,96)", (BATCH, 20, 20, 96), 96, 1, 1, 2.0, BOTH),
-             ("n5", (2, 20, 20, 128), 128, 5, 1, 2.0, BOTH)]
+             ("n5", (2, 20, 20, 128), 128, 5, 1, 2.0, BOTH),
+             # an MLP too wide for the bf16 h tile (h in global memory):
+             # A2C2f(512, 512, mlp_ratio=4.0), c_ 256
+             ("mlp4", (1, 20, 20, 512), 512, 1, 1, 4.0, ("bfloat16",))]
     rng = np.random.default_rng(SEED + 6)
     results = {}
     for i, (name, shape, c2, n, area, mlp, dtypes) in enumerate(cases):
@@ -853,7 +886,8 @@ def check_a2c2f(device):
     return {"bfloat16": dict(results[("L6@640", "bfloat16")],
                              max_abs_err=worst["bfloat16"]),
             "float32": dict(results[("l L8@640", "float32")],
-                            max_abs_err=worst["float32"])}
+                            max_abs_err=worst["float32"]),
+            "wide mlp": results[("mlp4", "bfloat16")]}
 
 
 # ------------------------------------------------------------- kernel B
@@ -2079,6 +2113,97 @@ def residual_block_check(device) -> dict:
     return out
 
 
+def wide_shapes_check(device) -> dict:
+    """Modules whose shapes the port refused on the card before kernel A's
+    wide form and the bf16 `a2c2f` with h in global memory, each through
+    its module's forward at (1, C, 40, 40) (area 4: bands of 400) or 20^2,
+    seeded: A2C2f(1856, 1856, area=4) staged in bf16 and f32 (c_ 928 in 29
+    heads, 2 launches: bf16 kernel A's wide form; f32 its streamed path,
+    whose q-projecting kernel fits up to 1343 channels), AAttn(512, 8) in
+    bf16 and AAttn(640, 10) in f32 (heads of 64: the wide form, 1 launch),
+    each against the same module on the plain versions (`plain_attention`);
+    and
+    A2C2f(512, 512, mlp_ratio=4.0) in bf16 through `mega_kernel` (one
+    `a2c2f` launch, no kernel A) against the staged module (2 streamed
+    kernel A launches). Tolerances: bf16 twice `check_a2c2f`'s (2e-2 and
+    2**-6 of the largest output), f32 1e-4. Returns each check's launches
+    and kernel A's paths."""
+    import torch
+    from yolou_tpu_torch import kernels
+    from yolou_tpu_torch.nn.attention import AAttn
+    rng = np.random.default_rng(SEED + 60)
+    out = {}
+
+    def run(name, module, shape, dtype, paths, **launches):
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+            device, dtype)
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            got = module(x)
+            counts = dict(kernels.launch_counts())
+            got_paths = kernels.path_counts()
+            with plain_attention():
+                want = module(x)
+        top = want.float().abs().max().item()
+        tol = (ATTN_TOL["float32"] if dtype == torch.float32
+               else 2 * min(ATTN_TOL["bfloat16"], 2.0 ** -6 * top))
+        err = (got.float() - want.float()).abs().max().item()
+        out[name] = {**counts, "paths": got_paths}
+        log("shapes", check=name, shape=shape, dtype=dtype_name(dtype),
+            max_abs=err, tol=tol, out_abs_max=top, launches=counts,
+            paths=got_paths)
+        check_launches(name, counts, launches.get("band_attention", 0), 0,
+                       a2c2f=launches.get("a2c2f", 0))
+        if got_paths != paths:
+            raise AssertionError(f"{name}: kernel A's paths {got_paths}, "
+                                 f"want {paths}")
+        if not (torch.isfinite(got).all() and err <= tol and top > 0.05):
+            raise AssertionError(f"{name}: {err} (tol {tol}, largest "
+                                 f"output {top})")
+
+    # f32 fits kernel A's q-projecting kernel at 928 channels (to 1343)
+    block = seeded_a2c2f(1856, 1856, 1, 4, device, SEED + 61)
+    for dtype, path in ((torch.bfloat16, "wide bf16"),
+                        (torch.float32, "streamed f32")):
+        run(f"A2C2f(1856,1856) {dtype_name(dtype)}", block,
+            (1, 1856, 40, 40), dtype, {path: 2}, band_attention=2)
+    del block
+    run("AAttn(512,8) bf16", seeded_module(AAttn(512, 8, 4), device,
+                                           SEED + 62),
+        (1, 512, 40, 40), torch.bfloat16, {"wide bf16": 1}, band_attention=1)
+    run("AAttn(640,10) f32", seeded_module(AAttn(640, 10, 4), device,
+                                           SEED + 63),
+        (1, 640, 40, 40), torch.float32, {"wide f32": 1}, band_attention=1)
+
+    block = seeded_a2c2f(512, 512, 1, 1, device, SEED + 64, 4.0)
+    block.mega_kernel = True
+    x = torch.from_numpy(rng.normal(size=(1, 512, 20, 20)).astype(
+        np.float32)).to(device, torch.bfloat16)
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        got = block(x)
+        counts = dict(kernels.launch_counts())
+        block.mega_kernel = False
+        kernels.reset_launch_counts()
+        want = block(x)
+        staged = dict(kernels.launch_counts())
+        staged_paths = kernels.path_counts()
+    top = want.float().abs().max().item()
+    tol = 2 * min(ATTN_TOL["bfloat16"], 2.0 ** -6 * top)
+    err = (got.float() - want.float()).abs().max().item()
+    out["A2C2f(512,512) mlp4 mega"] = counts
+    log("shapes", check="A2C2f(512,512) mlp_ratio 4.0 bf16 mega vs staged",
+        max_abs=err, tol=tol, out_abs_max=top, launches=counts,
+        staged_launches=staged, staged_paths=staged_paths)
+    check_launches("A2C2f mlp4 mega", counts, 0, 0, a2c2f=1)
+    check_launches("A2C2f mlp4 staged", staged, 2, 0)
+    if staged_paths != {"streamed bf16": 2}:
+        raise AssertionError(f"A2C2f mlp4 staged: paths {staged_paths}")
+    if not (torch.isfinite(got).all() and err <= tol and top > 0.05):
+        raise AssertionError(f"A2C2f mlp4 mega vs staged: {err} (tol {tol})")
+    return out
+
+
 def raw_forward_finite(state_dict, device, imgs, scale, imgsz) -> None:
     """The bf16 forward of `imgs` (letterbox to `imgsz`, no NMS) through
     `Predictor.infer`: raw maps, mask coefficients and protos finite."""
@@ -2109,8 +2234,9 @@ def shapes_phase(device, state_dict) -> dict:
     phase (kernel C streamed, 8 launches and 8 backward calls); (d) yolov12l at 640^2, f32, batch 2,
     with mega_kernel: one a2c2f launch a forward (layer 8 on the f32 token
     tile of 8; layer 6's 16 ABlocks through kernel A), within 1e-3 of the
-    flag off; (e) `residual_block_check`. Returns each part's launches, and
-    under "device kernels" kernel A's device kernels in (a) and (b)."""
+    flag off; (e) `residual_block_check`; (f) `wide_shapes_check`. Returns
+    each part's launches, and under "device kernels" kernel A's device
+    kernels in (a) and (b)."""
     import torch
     from yolou_tpu_torch import kernels
     from yolou_tpu_torch.ops.letterbox import letterbox_batch
@@ -2168,6 +2294,7 @@ def shapes_phase(device, state_dict) -> dict:
     if not err <= 1e-3:
         raise AssertionError(f"yolov12l f32 mega vs staged: {err} > 1e-3")
     out["residual"] = residual_block_check(device)
+    out["wide"] = wide_shapes_check(device)
     return out
 
 
@@ -4445,7 +4572,7 @@ def main() -> int:
         library call's times at each."""
         row, dn = attn_cases[at], at[1]
         streamed = {k: r for (k, d), r in attn_cases.items()
-                    if d == dn and r["streamed"]}
+                    if d == dn and r["path"] == "streamed"}
         return {"max_abs_err": max(r["v_max_abs_err"]
                                    for r in streamed.values()),
                 "ms": row["projection_ms"],
@@ -4493,6 +4620,10 @@ def main() -> int:
     demo_c = demo_paths["train-detector"]["band_attention_train"]
     stream_c16 = {k: v for k, v in multi_head[("L6@1408", "bfloat16")].items()
                   if k not in ("streamed", "path")}
+    wide = shapes["wide"]
+    wide_a = {dn: {k: v["band_attention"] for k, v in wide.items()
+                   if f"wide {SHORT[dn]}" in v.get("paths", {})}
+              for dn in BOTH}
     shapes_devices = shapes.pop("device kernels")
     shapes_paths = shapes.pop("kernel A paths")["yolov12s f32 640"]
     print(json.dumps({"kernels": [
@@ -4514,7 +4645,7 @@ def main() -> int:
              "parallel evaluate (each rank)": parallel["evaluate"],
              **{f"demo {k}": v["band_attention"] for k, v in demo.items()},
              **{f"shapes {k}": v["band_attention"] for k, v in
-                shapes.items() if k != "residual"},
+                shapes.items() if k not in ("residual", "wide")},
              "shapes residual A2C2f bf16":
                  shapes["residual"]["eval"]["band_attention"]},
          "device_launches_by_path": {"serve": serve_devices,
@@ -4555,6 +4686,32 @@ def main() -> int:
          "device_kernels": ["kv_projection_f32_kernel"],
          "launches": shapes_paths.get("streamed f32", 0),
          **projection_row(("L6@640b16", "float32"))},
+        {"name": "band_attention_wide", "route": "cuda",
+         "source": src + "band_attention.cu", "replaces": pallas + ":357",
+         "device_kernels": ["kv_projection_wgmma_kernel (q | k | v)",
+                            "band_attention_stream_wgmma_kernel<NC, false>"],
+         "launches": sum(wide_a["bfloat16"].values()),
+         "launches_by_path": {f"shapes {k}": v
+                              for k, v in wide_a["bfloat16"].items()},
+         **attention_row(attn_cases, ("c_928 h29", "bfloat16"), "wide",
+                         ("bfloat16",)),
+         "hd64": attention_row(attn_cases, ("AAttn(512,8)", "bfloat16"),
+                               "wide", ("bfloat16",)),
+         "attention_library_ms":
+             attn_cases[("c_928 h29", "bfloat16")]["attention_library_ms"]},
+        {"name": "band_attention_wide_f32", "route": "cuda",
+         "source": src + "band_attention.cu", "replaces": pallas + ":357",
+         "device_kernels": ["kv_projection_f32_kernel (q | k | v)",
+                            "band_attention_stream_kernel<R, false>"],
+         "launches": sum(wide_a["float32"].values()),
+         "launches_by_path": {f"shapes {k}": v
+                              for k, v in wide_a["float32"].items()},
+         **attention_row(attn_cases, ("c_1344 h42", "float32"), "wide",
+                         ("float32",)),
+         "hd64": attention_row(attn_cases, ("AAttn(640,10)", "float32"),
+                               "wide", ("float32",)),
+         "attention_library_ms":
+             attn_cases[("c_1344 h42", "float32")]["attention_library_ms"]},
         {"name": "band_attention_short", "route": "cuda",
          "source": src + "band_attention_short.cu",
          "replaces": pallas + ":357",
@@ -4657,6 +4814,18 @@ def main() -> int:
          "staged_ms": a2c2f["bfloat16"]["staged_ms"],
          **{k: a2c2f["bfloat16"][k] for k in keys},
          "ms_source": times_source(a2c2f["bfloat16"])},
+        {"name": "a2c2f_wide_mlp", "route": "cuda",
+         "source": src + "a2c2f_bf16.cu",
+         "replaces": "yolou_tpu/ops/pallas_a2c2f.py:192",
+         "device_kernels": ["a2c2f_wgmma_kernel<HD, L2> (h in global "
+                            "memory)"],
+         "launches": wide["A2C2f(512,512) mlp4 mega"]["a2c2f"],
+         "launches_by_path": {"shapes A2C2f(512,512) mlp4 mega":
+                              wide["A2C2f(512,512) mlp4 mega"]["a2c2f"]},
+         "at": "mlp4 (1,20,20,512) c_256 bfloat16",
+         "staged_ms": a2c2f["wide mlp"]["staged_ms"],
+         **{k: a2c2f["wide mlp"][k] for k in keys},
+         "ms_source": times_source(a2c2f["wide mlp"])},
         {"name": "a2c2f_f32", "route": "cuda", "source": src + "a2c2f_f32.cu",
          "replaces": "yolou_tpu/ops/pallas_a2c2f.py:192",
          "device_kernels": ["a2c2f_f32_kernel<TM, HD>"],

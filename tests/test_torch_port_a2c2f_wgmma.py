@@ -164,10 +164,10 @@ def test_bf16_plan_fits_every_gated_shape(mlp_ratio, hd):
                 assert all(bf16_layout(c_, ca, hidp, hd, r, width)
                            > _SMEM_LIMIT for r in (2, 3, 4))
     if hd == 32:
-        assert bf16_plan(64, 64, 128, 32, 40)[1:] == (4, True)     # L6
-        assert bf16_plan(128, 128, 256, 32, 20)[1:] == (4, True)   # L8
-        assert bf16_plan(64, 64, 128, 32, 100)[1:] == (4, False)
-        assert bf16_plan(128, 128, 256, 32, 100)[1:] == (4, False)
+        assert bf16_plan(64, 64, 128, 32, 40)[1:] == (4, True, True)  # L6
+        assert bf16_plan(128, 128, 256, 32, 20)[1:] == (4, True, True)
+        assert bf16_plan(64, 64, 128, 32, 100)[1:] == (4, False, True)
+        assert bf16_plan(128, 128, 256, 32, 100)[1:] == (4, False, True)
 
 
 def test_bf16_stencil_boxes_cover_the_tile_and_its_halo():

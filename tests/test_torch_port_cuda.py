@@ -3,8 +3,9 @@ at shapes off the serving path (ragged bands, token tiles and candidate
 counts, one to many heads, heads of any width up to 64, more tiles than one
 co-resident wave, side streams, both paths of the band attention kernels
 (short and streamed),
-the whole-A2C2f kernel at other MLP widths, any stage count and each layout
-of its f32 kernel), and the wrappers' refusals.
+the whole-A2C2f kernel at other MLP widths (h in shared or in global
+memory), any stage count and each layout of its f32 kernel; kernel A's
+wide form at widths C up to 2048), and the wrappers' refusals.
 
 Marked `cuda`; without a CUDA device each test skips. The file imports
 neither JAX nor the JAX package, so it runs where JAX is absent:
@@ -640,6 +641,121 @@ def test_bf16_projection_matches_plain_and_addmm(cuda, g, n, c, heads):
     assert (o.float() - o_ref.float()).abs().max().item() <= 2e-2
 
 
+# ---------------------------------------------- kernel A's wide form, any C
+
+# G, N, C, heads, type: the widths where the q-projecting streamed kernel
+# passes a block (bf16 from 928 channels at heads of 32 and 512 at heads of
+# 64, f32 from 1344 and 640): A2C2f(1856, 1856)'s c_ 928, f32's first
+# refused width, AAttn(512, 8) and AAttn(640, 10); C = 2048 at heads of 64
+WIDE_CASES = [(4, 400, 928, 29, torch.bfloat16),
+              (4, 400, 1344, 42, torch.float32),
+              (4, 400, 512, 8, torch.bfloat16),
+              (4, 400, 640, 10, torch.float32),
+              (2, 400, 2048, 32, torch.bfloat16),
+              (2, 400, 2048, 32, torch.float32),
+              (3, 77, 960, 30, torch.bfloat16)]
+ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _type(dtype):
+    return "f32" if dtype == torch.float32 else "bf16"
+
+
+@pytest.mark.parametrize("g,n,c,heads,dtype", WIDE_CASES,
+                         ids=lambda v: str(v).replace("torch.", ""))
+def test_wide_form_matches_plain(cuda, g, n, c, heads, dtype):
+    """Kernel A at widths whose q-projecting kernel would not fit a block
+    takes the wide form, one launch of two device kernels counted on path
+    "wide" (`kernels.path_counts`); o and v within the plain version's
+    tolerances (f32 1e-4, bf16 2e-2), and the streamed path forced there is
+    refused by name."""
+    hd = c // heads
+    plan = attention_plan(g, n, c, dtype, hd=hd)
+    assert plan.path == "wide" and plan.launches == 2 and plan.streamed
+    x, w, b = _attn_inputs(g, n, c, dtype, cuda, seed=c + heads)
+    kernels.reset_launch_counts()
+    o, v = area_attention_qkv_fused(x, w, b, heads)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["band_attention"] == 1
+    assert kernels.device_counts()["band_attention"] == 2
+    assert kernels.path_counts() == {f"wide {_type(dtype)}": 1}
+    o_ref, v_ref = area_attention_qkv_fused_plain(x, w, b, heads)
+    assert bool(torch.isfinite(o).all() and torch.isfinite(v).all())
+    assert (o.float() - o_ref.float()).abs().max().item() <= ATTN_TOL[dtype]
+    assert (v.float() - v_ref.float()).abs().max().item() <= ATTN_TOL[dtype]
+    with pytest.raises(ValueError, match="than a block has"):
+        _launch_qkv_attention(x, w, b, heads, "streamed")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("g,n,heads,hd,widest", [
+    (3, 1, 1, 32, False), (2, 65, 2, 32, False), (2, 129, 3, 32, False),
+    (4, 400, 2, 64, False), (1, 1025, 4, 32, False), (2, 200, 3, 64, False),
+    (2, 400, 8, 32, True), (3, 129, 3, 32, True)])
+def test_wide_form_forced_at_any_band(cuda, g, n, heads, hd, widest, dtype):
+    """The wide form forced where the plan takes another path: any N (one
+    token, ragged key tiles and query blocks), heads of 32 and 64, at the
+    planned query rows and (`widest`) at the largest CTA (bf16 128 rows, two
+    consumer warpgroups; f32 64); within the plain version's tolerances,
+    q's rounding the plain version's."""
+    c = hd * heads
+    rows = (128 if dtype == torch.bfloat16 else 64) if widest else None
+    x, w, b = _attn_inputs(g, n, c, dtype, cuda, seed=n + c)
+    o, v = _launch_qkv_attention(x, w, b, heads, "wide", rows=rows)
+    torch.cuda.synchronize()
+    o_ref, v_ref = area_attention_qkv_fused_plain(x, w, b, heads)
+    assert (o.float() - o_ref.float()).abs().max().item() <= ATTN_TOL[dtype]
+    assert (v.float() - v_ref.float()).abs().max().item() <= ATTN_TOL[dtype]
+
+
+def test_wide_form_at_padded_heads(cuda):
+    """Heads of 48 at a width whose padded form (heads x 64) is wide: the
+    wrapper pads x and the weight (`pad_qkv_projection`), the wide form
+    runs at 64 a head with the true scale, and cuts the heads back."""
+    for dtype, c, heads in ((torch.bfloat16, 480, 10),
+                            (torch.float32, 624, 13)):
+        assert attention_plan(2, 400, heads * 64, dtype, hd=64).path == "wide"
+        x, w, b = _attn_inputs(2, 400, c, dtype, cuda, seed=c)
+        kernels.reset_launch_counts()
+        o, v = area_attention_qkv_fused(x, w, b, heads)
+        torch.cuda.synchronize()
+        assert kernels.path_counts() == {f"wide {_type(dtype)}": 1}
+        o_ref, v_ref = area_attention_qkv_fused_plain(x, w, b, heads)
+        assert (o.float() - o_ref.float()).abs().max().item() <= \
+            ATTN_TOL[dtype]
+        assert (v.float() - v_ref.float()).abs().max().item() <= \
+            ATTN_TOL[dtype]
+
+
+def test_wide_entry_refuses_what_it_cannot_run(cuda):
+    """The wide form's C entry refuses, before any launch, query rows its
+    attention does not take (heads of 64: f32 32, bf16 64) and a missing q
+    scratch; kernel C has no wide form."""
+    lib = build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    for dtype, code, rows, heads in ((torch.float32, 0, 64, 10),
+                                     (torch.float32, 0, 48, 20),
+                                     (torch.bfloat16, 1, 128, 10),
+                                     (torch.bfloat16, 1, 32, 20)):
+        x, w, b = _attn_inputs(2, 100, 640, dtype, cuda, seed=rows)
+        o, v, k, q = (torch.empty_like(x) for _ in range(4))
+        got = lib.yolou_band_attention_qkv_wide(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), o.data_ptr(),
+            v.data_ptr(), k.data_ptr(), q.data_ptr(), 2, 100, 640, heads,
+            code, rows, (640 // heads) ** -0.5, stream)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            build.check(lib, got, "wide form")
+    got = lib.yolou_band_attention_qkv_wide(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), o.data_ptr(), v.data_ptr(),
+        k.data_ptr(), None, 2, 100, 640, 20, 1, 64, 32 ** -0.5, stream)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        build.check(lib, got, "wide form")
+    q, k, v = _qkv_inputs(2, 100, 64, torch.float32, cuda, seed=9)
+    with pytest.raises(ValueError, match="path must be one of"):
+        _launch_band_attention(q, k, v, 2, "wide")
+
+
 # ------------------------------------------------- heads of any width
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
@@ -1094,6 +1210,93 @@ def test_a2c2f_bf16_takes_images_of_any_width(cuda, tile, shape, c_, c2,
         torch.cuda.synchronize()
         ref = a2c2f_fused_plain(x, ws, 2, area, heads)
     assert out.shape == shape[:3] + (c2,) and bool(torch.isfinite(out).all())
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    assert ref.float().abs().max().item() > 0.05
+
+
+def _seeded_block(c1, c2, mlp_ratio, device, seed):
+    """A2C2f(c1, c2, n=1, area=1, mlp_ratio) with `mega_kernel=True` in eval
+    mode, BatchNorms carrying random statistics near a scale of 0.3 (the
+    block's activations stay of order 1)."""
+    from yolou_tpu_torch.models.yolo import init_weights
+    from yolou_tpu_torch.nn.attention import A2C2f
+    gen = torch.Generator().manual_seed(seed)
+    m = init_weights(A2C2f(c1, c2, 1, a2=True, area=1, mlp_ratio=mlp_ratio,
+                           mega_kernel=True), gen)
+    with torch.no_grad():
+        for bn in (t for t in m.modules()
+                   if isinstance(t, torch.nn.BatchNorm2d)):
+            shape = bn.weight.shape
+            bn.weight.copy_(0.3 + 0.03 * torch.randn(shape, generator=gen))
+            bn.bias.copy_(0.1 * torch.randn(shape, generator=gen))
+            bn.running_mean.copy_(0.1 * torch.randn(shape, generator=gen))
+            bn.running_var.copy_(0.5 + 0.5 * torch.rand(shape, generator=gen))
+    return m.to(device).eval()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bfloat16", "float32"])
+@pytest.mark.parametrize("c1,mlp_ratio", [(512, 4.0), (256, 8.0)],
+                         ids=["c_256-mlp4", "c_128-mlp8"])
+def test_a2c2f_at_mlps_too_wide_for_the_h_tile(cuda, c1, mlp_ratio, dtype):
+    """A2C2f(512, 512, mlp_ratio=4.0) and A2C2f(256, 256, mlp_ratio=8.0) at
+    20^2, whose bf16 h tile passes a block: the bf16 plan keeps h in global
+    memory; one `a2c2f` launch, no kernel A launch; within the plain
+    version's tolerance (f32 1e-4; bf16 2e-2 and 2**-6 of the largest
+    output, `chip_smoke.py`'s) and twice it of the staged module."""
+    from yolou_tpu_torch.kernels.a2c2f import bf16_plan
+    block = _seeded_block(c1, c1, mlp_ratio, cuda, seed=c1)
+    c_, heads = c1 // 2, block.num_heads
+    ws = block.folded_weights(dtype)
+    hid = ws[8].shape[1]
+    assert hid == int(c_ * mlp_ratio)
+    assert bf16_plan(c_, c_, hid, 32, 20).h_tile is False
+    x = torch.tensor(np.random.default_rng(c1).normal(size=(1, c1, 20, 20)),
+                     dtype=dtype, device=cuda)
+    xl = x.permute(0, 2, 3, 1).contiguous()
+    with torch.no_grad():
+        ref = a2c2f_fused_plain(xl, ws, 1, 1, heads)
+        block.mega_kernel = False
+        staged = block(x).permute(0, 2, 3, 1)
+        block.mega_kernel = True
+        kernels.reset_launch_counts()
+        out = block(x).permute(0, 2, 3, 1)
+        torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["a2c2f"] == 1 and counts["band_attention"] == 0
+    tol = 1e-4
+    if dtype == torch.bfloat16:
+        tol = min(2e-2, 2.0 ** -6 * ref.float().abs().max().item())
+    assert bool(torch.isfinite(out).all())
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert (out.float() - staged.float()).abs().max().item() <= 2 * tol
+    assert ref.float().abs().max().item() > 0.05
+
+
+@pytest.mark.parametrize("tile", [32, 64])
+@pytest.mark.parametrize("shape,c_,c2,n_stages,area,heads,hid", [
+    ((2, 20, 20, 64), 256, 128, 2, 4, 8, 1024),      # 2 stages, area 4
+    ((1, 16, 100, 64), 128, 64, 1, 1, 2, 1024),      # a strip: L2 stencil
+    ((1, 20, 20, 32), 192, 96, 1, 1, 3, 1536),       # heads of 64
+])
+def test_a2c2f_bf16_h_in_global_memory(cuda, tile, shape, c_, c2, n_stages,
+                                       area, heads, hid):
+    """The bf16 kernel with h in global memory at each token tile (32-token
+    tiles read 64-row boxes of h whose last 32 rows the next tile stores),
+    two stages, four bands, a strip whose stencil reads through L2 and
+    heads of 64; within 2e-2 of the plain version."""
+    from yolou_tpu_torch.kernels.a2c2f import bf16_plan
+    ca = heads * padded_head_dim(c_ // heads)
+    plan = bf16_plan(c_, ca, hid, ca // heads, shape[2])
+    assert plan is not None and plan.h_tile is False
+    x, ws = _a2c2f_inputs(shape, c_, c2, n_stages, torch.bfloat16, cuda,
+                          seed=hid + tile, hid=hid)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        out = _launch_a2c2f(x, ws, n_stages, area, heads, tile=tile)
+        torch.cuda.synchronize()
+        ref = a2c2f_fused_plain(x, ws, n_stages, area, heads)
+    assert bool(torch.isfinite(out).all())
     assert (out.float() - ref.float()).abs().max().item() <= 2e-2
     assert ref.float().abs().max().item() > 0.05
 

@@ -369,5 +369,5 @@ def test_bf16_layout_of_padded_heads_fits():
     at yolov12n's layer 8 width) fits a block with its weight ring and
     staged stencil rows."""
     for c_, ca in ((48, 64), (128, 128), (64, 128)):     # 20 x 20 images
-        nbytes, ring, staged = bf16_plan(c_, ca, 2 * c_, 64, 20)
+        nbytes, ring, staged, _ = bf16_plan(c_, ca, 2 * c_, 64, 20)
         assert nbytes <= _SMEM_LIMIT and ring >= 2 and staged

@@ -72,7 +72,9 @@ struct ABlockWeights {
 
 struct Params {
   const void* x; void* out; void* ys; void* qkv0; void* qkv1;
-  float* work;                  // f32: the t1 | h | u scratch, per token
+  float* work;                  // f32: the t1 | h | u scratch, per token;
+                                // bf16: h (tokens, hid) where the plan
+                                // keeps it in global memory, else null
   const void* wcv1; const float* bcv1;
   const void* wcv2; const float* bcv2;
   const ABlockWeights* blk;     // device array of 2 * n_stages ABlocks
@@ -83,9 +85,9 @@ struct Params {
   int vb, nvb;                  // bf16: a stencil box's rows, boxes a block
                                 // (0: the stencil reads through L2)
   // f32: x, ys, the work scratch (boxes of 32 columns x TM rows) and the two
-  // qkv buffers (boxes of 32 channels x 64 keys); bf16: x and ys (boxes of
-  // 64 columns x 64 rows) and the two qkv buffers (boxes of a head x 128
-  // keys)
+  // qkv buffers (boxes of 32 channels x 64 keys); bf16: x, ys and h in the
+  // work scratch (boxes of 64 columns x 64 rows) and the two qkv buffers
+  // (boxes of a head x 128 keys)
   CUtensorMap x_map, ys_map, work_map, kv_map[2];
   // bf16: ys by slot (t, a box of 64 columns of one slot), the qkv buffers'
   // q (a head x 64 rows) and v by image (64 channels x vb tokens)

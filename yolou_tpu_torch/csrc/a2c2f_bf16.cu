@@ -67,7 +67,14 @@
 // the k/v rings, the stencil's v rows, pe) and the GEMMs' (the h tile or the
 // x / ys boxes of cv1 and cv2, then the accumulator's staging); then the
 // mbarriers. It does not grow with cin or the stage count; the v rows grow
-// with the image's width, and are left out where they would not fit.
+// with the image's width, and are left out where they would not fit. The h
+// tile grows with the MLP's width (up64(hid) x 64 bf16): where no layout
+// with it fits (`plan`: wide MLPs, mlp_ratio 3 and up at c_ 216-256), h
+// lives in global memory instead (the `work` scratch the wrapper then
+// allocates, (tokens, hid) bf16): mlp1's epilogue stores the tile's rows
+// there (silu, rounded to bf16: the same rounding point), and mlp2 reads
+// them back as 64 x 64 boxes riding with its weight stages, as cv2 reads
+// the ys concat, after the same proxy fence and barrier (`ys_ready`).
 
 #include <map>
 #include <mutex>
@@ -112,6 +119,8 @@ __host__ __device__ constexpr int kv_rings(int hd) { return hd == 64 ? 1 : 2; }
 __host__ __device__ inline int up64(int k) { return (k + 63) & ~63; }
 
 // Byte offsets of the shared-memory regions (from a 1024-byte boundary).
+// hid: the MLP's width held as the h tile, 0 where h lives in global
+// memory.
 struct Layout {
   int t, u, big, q, kv, v, pe, stage, bars, bytes;
 };
@@ -176,8 +185,12 @@ __device__ __forceinline__ int sw_at(int r, int c) {
 }
 
 // Where a GEMM's A operand comes from: a tile in shared memory, or boxes
-// of x or of the ys concat that ride with each weight stage.
-enum Src { A_T, A_U, A_H, A_X, A_YS };
+// of x, of the ys concat or of h in global memory (the wide MLP form) that
+// ride with each weight stage; the last two read rows this tile stored.
+enum Src { A_T, A_U, A_H, A_X, A_YS, A_HG };
+__device__ __forceinline__ bool reads_stored_rows(int src) {
+  return src >= A_YS;
+}
 
 // One GEMM of a phase and its epilogue: out = (silu)((t +) A.W + b) ->
 // bf16 into the t or h tile (columns past N zero) and / or global rows
@@ -592,7 +605,11 @@ a2c2f_wgmma_kernel(const __grid_constant__ Params p) {
   const int n_blocks = 2 * p.n_stages;
   const int nsb = (ca + CBLK - 1) / CBLK;        // stencil blocks
   const float sl2 = p.scale * LOG2E;
-  const Layout L = layout(c_, ca, p.hid, HD_, ring, p.vb * p.nvb);
+  // h in global memory where the wrapper gave the scratch (read from the
+  // parameters where needed: a pointer kept live costs the consumers
+  // registers)
+  const Layout L = layout(c_, ca, p.work ? 0 : p.hid, HD_, ring,
+                          p.vb * p.nvb);
   Bufs b;
   b.ring = reinterpret_cast<bf16*>(base);
   b.t = reinterpret_cast<bf16*>(base + L.t);
@@ -657,16 +674,18 @@ a2c2f_wgmma_kernel(const __grid_constant__ Params p) {
                  0, 0, nullptr, static_cast<bf16*>(p.qkv0), QS};
       } else {
         const ABlockWeights w = p.blk[a];
+        bf16* const hg = reinterpret_cast<bf16*>(p.work);
         pe_taps[0] = w.wpe;
         pe_taps[1] = w.bpe;
         // t = t + u.Wproj + b; h = silu(t.Wm1 + b); t = t + h.Wm2 + b,
-        // kept in ys for the next ABlock and cv2
+        // kept in ys for the next ABlock and cv2; h in its tile or in
+        // global memory
         gl[0] = {static_cast<const bf16*>(w.wproj), w.bproj, ca, c_, A_U,
                  0, 1, b.t, nullptr, 0};
         gl[1] = {static_cast<const bf16*>(w.wm1), w.bm1, c_, p.hid, A_T,
-                 1, 0, b.big, nullptr, 0};
-        gl[2] = {static_cast<const bf16*>(w.wm2), w.bm2, p.hid, c_, A_H,
-                 0, 1, b.t, ys + slot_out * c_, YS};
+                 1, 0, hg ? nullptr : b.big, hg, p.hid};
+        gl[2] = {static_cast<const bf16*>(w.wm2), w.bm2, p.hid, c_,
+                 hg ? A_HG : A_H, 0, 1, b.t, ys + slot_out * c_, YS};
         if (last) {             // out = silu(concat(y0, z1..zn).Wcv2 + b)
           gl[3] = {static_cast<const bf16*>(p.wcv2), p.bcv2, YS, p.c2, A_YS,
                    1, 0, nullptr, out, p.c2};
@@ -708,8 +727,10 @@ a2c2f_wgmma_kernel(const __grid_constant__ Params p) {
                     &b.w_full[slot]);
           if (boxes)
             tma_load_3d(b.big + slot * A_BLOCK,
-                        g.src == A_X ? &p.x_map : &p.ys_map, &b.w_full[slot],
-                        KBLK * c.kb, (int)tl.tok0, 0);
+                        g.src == A_X    ? &p.x_map
+                        : g.src == A_YS ? &p.ys_map
+                                        : &p.work_map,
+                        &b.w_full[slot], KBLK * c.kb, (int)tl.tok0, 0);
           pos.w.next(ring);
           c.next(gl);
         };
@@ -735,10 +756,11 @@ a2c2f_wgmma_kernel(const __grid_constant__ Params p) {
                       slot_in, (int)tl.tok0);
         ++pos.t;
         // the first weight stages, to land during the attention (never
-        // cv2's, whose boxes wait for this tile's ys)
+        // those of a GEMM whose boxes wait for rows this tile stores, ys or
+        // h, or after it)
         int before = 0;
-        for (int g = 0; g < n_gemms; ++g)
-          if (gl[g].src != A_YS) before += stages(gl[g]);
+        for (int g = 0; g < n_gemms && !reads_stored_rows(gl[g].src); ++g)
+          before += stages(gl[g]);
         for (int i = 0; i < min(ring, before); ++i) issue();
         const int n_keys = (nb + KV_KEYS - 1) / KV_KEYS;
         for (int sb = 0; sb < nsb; ++sb) {
@@ -778,8 +800,8 @@ a2c2f_wgmma_kernel(const __grid_constant__ Params p) {
           }
         }
         while (c.g < n_gemms) {
-          if (gl[c.g].src == A_YS && c.p == 0 && c.kb == 0) {
-            mwait(b.ys_ready, pos.ys & 1);   // this tile's ys stored
+          if (reads_stored_rows(gl[c.g].src) && c.p == 0 && c.kb == 0) {
+            mwait(b.ys_ready, pos.ys & 1);   // this tile's ys / h stored
             ++pos.ys;
           }
           issue();
@@ -820,9 +842,9 @@ a2c2f_wgmma_kernel(const __grid_constant__ Params p) {
       }
       for (int g = 0; g < n_gemms; ++g) {
         const Gemm& gm = gl[g];
-        if (gm.src == A_YS) {
-          // the concat is read by TMA once this tile's last ys slot is
-          // stored (and h is done with)
+        if (reads_stored_rows(gm.src)) {
+          // the concat (or h) is read by TMA once this tile's last ys slot
+          // (or h) is stored (and the tile before is done with)
           fence_proxy_async_global();
           fence_proxy_async();
           consumer_sync();
@@ -844,31 +866,35 @@ a2c2f_wgmma_kernel(const __grid_constant__ Params p) {
   }
 }
 
-// Dynamic shared memory of the bf16 kernel, and its stencil boxes.
+// Dynamic shared memory of the bf16 kernel, its stencil boxes, and where h
+// lives.
 struct Plan {
   Layout L;
   int ring, vb, nvb;
+  bool h_global;
 };
 
 // The v rows of a tile (64 tokens +- 3 image rows and 3 tokens, 6 W + 70
 // of them) as nvb boxes of vb rows (a multiple of 8, at most 256), and the
 // largest weight ring (4 stages down to 2) that fits a block with them;
 // where no ring does (wide images), no v rows (nvb 0: the kernel's L2
-// form) and the largest ring that fits without.
+// form) and the largest ring that fits without; where neither fits with
+// the h tile (wide MLPs), the same again with h in global memory.
 bool plan(const Params& p, Plan* out) {
   const int need = ROWS + 6 * p.W + 6;
   const int nvb = (need + VB_MAX - 1) / VB_MAX;
   const int vb = ((need + nvb - 1) / nvb + 7) & ~7;
   const int hd = p.ca / p.heads;
-  for (int staged = 1; staged >= 0; --staged)
-    for (int ring = MAX_RING; ring >= 2; --ring) {
-      const Layout L =
-          layout(p.c_, p.ca, p.hid, hd, ring, staged * vb * nvb);
-      if (L.bytes <= SMEM_LIMIT) {
-        *out = {L, ring, staged * vb, staged * nvb};
-        return true;
+  for (int h_tile = 1; h_tile >= 0; --h_tile)
+    for (int staged = 1; staged >= 0; --staged)
+      for (int ring = MAX_RING; ring >= 2; --ring) {
+        const Layout L = layout(p.c_, p.ca, h_tile * p.hid, hd, ring,
+                                staged * vb * nvb);
+        if (L.bytes <= SMEM_LIMIT) {
+          *out = {L, ring, staged * vb, staged * nvb, h_tile == 0};
+          return true;
+        }
       }
-    }
   return false;
 }
 
@@ -960,14 +986,18 @@ namespace a2c2f {
 
 // bf16 at the wrapper's token tile (64 or 32): cin, c_ and c2 multiples of
 // 8 and hid of 16 (the wrapper pads), every GEMM weight packed by
-// `kernels/a2c2f.py::pack_bf16_weight`, every pointer 16-byte aligned.
+// `kernels/a2c2f.py::pack_bf16_weight`, every pointer 16-byte aligned;
+// p.work the (tokens, hid) bf16 scratch of h where the plan keeps h in
+// global memory (`bf16_plan`'s h_tile False), else not read.
 cudaError_t launch_bf16(Params& p, int tile, cudaStream_t s,
                         const DeviceInfo& info) {
   if ((tile != 64 && tile != 32) || p.cin % 8 || p.c_ % 8 || p.hid % 16 ||
       p.c2 % 8)
     return cudaErrorInvalidValue;
   Plan pl;
-  if (!plan(p, &pl)) return cudaErrorInvalidValue;
+  if (!plan(p, &pl) || (pl.h_global && p.work == nullptr))
+    return cudaErrorInvalidValue;
+  if (!pl.h_global) p.work = nullptr;            // the kernel's h tile
   p.tile = tile;
   p.ring = pl.ring;
   p.vb = pl.vb;
@@ -980,6 +1010,8 @@ cudaError_t launch_bf16(Params& p, int tile, cudaStream_t s,
     e = band_map(&p.ys_map, p.ys, 1, tokens, YS, ROWS, false, KBLK);
   if (e == cudaSuccess)
     e = slot_map(&p.slot_map, p.ys, tokens, p.c_, p.n_stages + 1);
+  if (e == cudaSuccess && pl.h_global)           // h's boxes, as x's
+    e = band_map(&p.work_map, p.work, 1, tokens, p.hid, ROWS, false, KBLK);
   for (int i = 0; i < 2 && e == cudaSuccess; ++i) {
     void* qkv = i ? p.qkv1 : p.qkv0;
     e = band_map(&p.q_map[i], qkv, p.B * p.area, nb, 3 * p.ca, ROWS, false,

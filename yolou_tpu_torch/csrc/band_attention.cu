@@ -41,11 +41,18 @@
 // first launch here projects k and v of every head in one GEMM over the
 // flattened tokens: bf16 on wgmma from TMA-fed shared memory
 // (`kv_projection_wgmma_kernel`), f32 on register micro-tiles fed by TMA
-// (`kv_projection_f32_kernel`, gemm_f32.cuh). Heads of 32 and of 64 have
-// one form of each streamed kernel each (heads of 64: f32 32 query rows a
-// CTA, bf16 one consumer warpgroup, tiles of two 32-channel boxes (f32) or
-// 128-byte rows on the 128-byte swizzle (bf16, four k steps of q k^T,
-// m64n64 products for p.v and the q projection)).
+// (`kv_projection_f32_kernel`, gemm_f32.cuh). Where the q-projecting
+// attention kernel would not fit a block (it keeps the head's (C, hd) q
+// weight columns, and in bf16 the CTA's (rows, C) x tile, in shared
+// memory: wide C), kernel A takes its wide form instead: the same GEMM
+// projects q too, into a (G, N, C) scratch, and kernel C's streamed
+// attention reads q, k and v (`yolou_band_attention_qkv_wide`). The GEMMs
+// ring over C, so neither launch's shared memory grows with it; q is
+// rounded to the I/O type where the plain version rounds it. Heads of 32
+// and of 64 have one form of each streamed kernel each (heads of 64: f32
+// 32 query rows a CTA, bf16 one consumer warpgroup, tiles of two 32-channel
+// boxes (f32) or 128-byte rows on the 128-byte swizzle (bf16, four k steps
+// of q k^T, m64n64 products for p.v and the q projection)).
 
 #include "band_attention.cuh"
 #include "gemm_f32.cuh"
@@ -130,7 +137,8 @@ constexpr int REGS_PRODUCER = 40;  // setmaxnreg of the producer warpgroup
 
 // Kernel A's first launch on the streamed path, bf16: k | v = x . w[:, C:3C]
 // + b[C:3C] for every head in one grid, a GEMM over the (G N)-token x
-// 2C-column output (the bf16 twin of `kv_projection_f32_kernel` below): a
+// 2C-column output (the bf16 twin of `kv_projection_f32_kernel` below);
+// in the wide form (`Q`) q | k | v = x . w + b, 3C columns: a
 // CTA of one warpgroup per tile of KVB_TM tokens (tiles cross band
 // boundaries) and panel of 64 KVB_NB columns. Thread 0 issues every TMA load
 // into a ring of up to KVB_STAGES stages over C: x's slab of 64 channels by
@@ -141,26 +149,41 @@ constexpr int REGS_PRODUCER = 40;  // setmaxnreg of the producer warpgroup
 // stage lands while this one multiplies. Products on wgmma m64n64k16, f32
 // accumulators, four k steps a stage; channels and columns past C and 3C
 // read zero. The epilogue adds the f32 bias, rounds once to bf16, stages
-// the tile in shared memory and writes 16-byte chunks, k into the scratch
-// and v into kernel A's second output, (G, N, C) head-major as w's columns
-// are. What bounds it: the bytes (x read, k and v written: 6 G N C), about
-// 1.5 us at yolov12n's layer 6 at 640^2, batch 8, against 4 G N C^2 flop at
-// 989 TFLOP/s, a tenth of that; so the tiles are small and many (64 tokens x
-// 64 columns, KVB_NB = 1: 400 CTAs there, several an SM, their loads in flight
-// together; on an H100 the faster at seven of the eight bands timed against
-// panels of 128 and 256 columns, `tools/time_builds.py`), and every byte of
-// HBM moves once, x's slab a panel from L2.
+// the tile in shared memory and writes 16-byte chunks, q (wide form) and k
+// into the scratches and v into kernel A's second output, (G, N, C)
+// head-major as w's columns are. What bounds it: the bytes (x read, k and
+// v written: 6 G N C), about 1.5 us at yolov12n's layer 6 at 640^2, batch
+// 8, against 4 G N C^2 flop at 989 TFLOP/s, a tenth of that; so the tiles
+// are small and many (64 tokens x 64 columns, KVB_NB = 1: 400 CTAs there,
+// several an SM, their loads in flight together; on an H100 the faster at
+// seven of the eight bands timed against panels of 128 and 256 columns,
+// `tools/time_builds.py`), and every byte of HBM moves once, x's slab a
+// panel from L2.
 constexpr int KVB_TM = 64;        // tokens a CTA (the wgmma's rows)
 constexpr int KVB_KS = 64;        // channels a ring stage (one 128-byte box)
 constexpr int KVB_STAGES = 4;     // ring stages at most
 constexpr int KVB_NB = 1;         // 64-column weight boxes a panel
 
+// The output of the projection's column c (of k | v, or with `Q` of q | k
+// | v, role-major) at channel c % C of token row 0. q comes last among the
+// kernels' parameters: the k / v form does not read it.
+template <bool Q, typename T>
+__device__ __forceinline__ T* role_out(T* q, T* k, T* v, int c, int C) {
+  if (Q) {
+    if (c < C) return q + c;
+    c -= C;
+  }
+  return c < C ? k + c : v + (c - C);
+}
+
+template <bool Q>
 __global__ void __launch_bounds__(128)
 kv_projection_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
                            const __grid_constant__ CUtensorMap w_map,
                            const float* __restrict__ bias,
                            bf16* __restrict__ k_out, bf16* __restrict__ v_out,
-                           int tokens, int C, int stages) {
+                           int tokens, int C, int stages,
+                           bf16* __restrict__ q_out) {
   constexpr int NB = KVB_NB;
   constexpr int XT = KVB_TM * KVB_KS;            // elements of an x box
   constexpr int WT = KVB_KS * 64;                // of a weight box
@@ -171,6 +194,7 @@ kv_projection_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   bf16* Os = ring + stages * ST;                 // [KVB_TM][LDO] the tile
   uint64_t* full = reinterpret_cast<uint64_t*>(Os + KVB_TM * LDO);
   const int tok0 = blockIdx.x * KVB_TM, col0 = blockIdx.y * 64 * NB;
+  const int first = Q ? 0 : C, cols = 3 * C - first;   // of w's columns
   const int ksteps = (C + KVB_KS - 1) / KVB_KS;
   const int tid = threadIdx.x;
 
@@ -180,7 +204,7 @@ kv_projection_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
     mbar_expect_tx(&full[s], ST * sizeof(bf16));
     tma_load_2d(st, &x_map, &full[s], i * KVB_KS, tok0);
     for (int j = 0; j < NB; ++j)
-      tma_load_2d(st + XT + j * WT, &w_map, &full[s], C + col0 + 64 * j,
+      tma_load_2d(st + XT + j * WT, &w_map, &full[s], first + col0 + 64 * j,
                   i * KVB_KS);
   };
   if (tid == 0) {
@@ -229,8 +253,8 @@ kv_projection_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) {
       const int col = 64 * j + 8 * jj + 2 * t, c = col0 + col;
-      const float b0 = c < 2 * C ? bias[C + c] : 0.f;
-      const float b1 = c < 2 * C ? bias[C + c + 1] : 0.f;
+      const float b0 = c < cols ? bias[first + c] : 0.f;
+      const float b1 = c < cols ? bias[first + c + 1] : 0.f;
       *reinterpret_cast<uint32_t*>(Os + r_lo * LDO + col) =
           pack_bf16(acc[j][4 * jj] + b0, acc[j][4 * jj + 1] + b1);
       *reinterpret_cast<uint32_t*>(Os + (r_lo + 8) * LDO + col) =
@@ -240,33 +264,35 @@ kv_projection_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   for (int q = tid; q < KVB_TM * 8 * NB; q += 128) {
     const int r = q / (8 * NB), ch = q % (8 * NB);
     const int tok = tok0 + r, c = col0 + 8 * ch;
-    if (tok < tokens && c < 2 * C)
-      *reinterpret_cast<uint4*>((c < C ? k_out + c : v_out + (c - C)) +
+    if (tok < tokens && c < cols)
+      *reinterpret_cast<uint4*>(role_out<Q>(q_out, k_out, v_out, c, C) +
                                 (size_t)tok * C) =
           *reinterpret_cast<const uint4*>(Os + r * LDO + 8 * ch);
   }
 }
 
-// Kernel A's first launch, f32: k | v = x . w[:, C:3C] + b[C:3C] for every
-// head in one grid, a GEMM over the (G N)-token x 2C-column output on
+// Kernel A's first launch, f32: k | v = x . w[:, C:3C] + b[C:3C] (the wide
+// form, `Q`: q | k | v = x . w + b) for every head in one grid, a
+// GEMM over the (G N)-token x 2C-column (3C) output on
 // gemm_f32.cuh's register micro-tiles (full f32, each output one chain of
 // FMAs over the channels in order): a CTA per tile of KV_TM tokens and
 // panel of NP columns, x's slab by a TMA box of `x_map` ((G N, C), boxes of
 // 32 channels x KV_TM tokens), the weight's by one box of `w_map` ((C, 3C),
 // boxes of NP columns x 32 rows), both through the 4-stage ring; k into
-// the scratch, v into kernel A's second output, (G, N, C) head-major as w's
-// columns are. What bounds it: 4 G N C^2 flop at 67 TFLOP/s, about equal
-// to its bytes (x read, k and v written) at 3.35 TB/s at C = 64-128; a CTA
-// reads its weight slab once for 64 tokens (the SIMT kernel before it read
-// each weight once for 4).
+// the scratch (q too in the wide form), v into kernel A's second output,
+// (G, N, C) head-major as w's columns are. What bounds it: 4 G N C^2 flop
+// at 67 TFLOP/s, about equal to its bytes (x read, k and v written) at
+// 3.35 TB/s at C = 64-128; a CTA reads its weight slab once for 64 tokens
+// (the SIMT kernel before it read each weight once for 4).
 constexpr int KV_TM = 64;
 
+template <bool Q>
 __global__ void __launch_bounds__(GEMM_THREADS)
 kv_projection_f32_kernel(const __grid_constant__ CUtensorMap x_map,
                          const __grid_constant__ CUtensorMap w_map,
                          const float* __restrict__ bias,
                          float* __restrict__ k_out, float* __restrict__ v_out,
-                         int tokens, int C) {
+                         int tokens, int C, float* __restrict__ q_out) {
   using L = GemmTile<KV_TM>;
   extern __shared__ unsigned char smem_raw[];
   float* smem = reinterpret_cast<float*>(align1024(smem_raw));
@@ -274,15 +300,16 @@ kv_projection_f32_kernel(const __grid_constant__ CUtensorMap x_map,
   if (threadIdx.x == 0) mbar_init_fence();
   __syncthreads();
   const int tok0 = blockIdx.x * KV_TM, col0 = blockIdx.y * L::NP;
+  const int first = Q ? 0 : C;                   // of w's columns
   gemm_f32_stream<KV_TM>(
       ring, &x_map, 0, tok0, min(KV_TM, tokens - tok0),
       [&](float* dst, uint64_t* bar, int, int k0) {
-        tma_load_2d(dst, &w_map, bar, C + col0, k0);
+        tma_load_2d(dst, &w_map, bar, first + col0, k0);
       },
-      C, min(L::NP, 2 * C - col0), [&](int r, int col, float4 v) {
-        const int c = col0 + col;                // of the 2C k | v columns
-        const float4 b = *reinterpret_cast<const float4*>(bias + C + c);
-        float* dst = (c < C ? k_out + c : v_out + (c - C)) +
+      C, min(L::NP, 3 * C - first - col0), [&](int r, int col, float4 v) {
+        const int c = col0 + col;                // of the projected ones
+        const float4 b = *reinterpret_cast<const float4*>(bias + first + c);
+        float* dst = role_out<Q>(q_out, k_out, v_out, c, C) +
                      (size_t)(tok0 + r) * C;
         *reinterpret_cast<float4*>(dst) =
             make_float4(v.x + b.x, v.y + b.y, v.z + b.z, v.w + b.w);
@@ -916,12 +943,15 @@ size_t kv_projection_bf16_smem(int stages, int nb) {
          8 * (size_t)stages;
 }
 
+template <bool Q>
 cudaError_t launch_kv_projection_bf16(const void* x, const void* w,
-                                      const void* b, void* k, void* v,
-                                      int tokens, int C, cudaStream_t s) {
-  constexpr auto proj = kv_projection_wgmma_kernel;
+                                      const void* b, void* q, void* k,
+                                      void* v, int tokens, int C,
+                                      cudaStream_t s) {
+  constexpr auto proj = kv_projection_wgmma_kernel<Q>;
   constexpr int NB = KVB_NB;
   const int stages = min((C + KVB_KS - 1) / KVB_KS, KVB_STAGES);
+  const int cols = Q ? 3 * C : 2 * C;           // q | k | v, or k | v
   CUtensorMap xm, wm;
   cudaError_t e = matrix_map(&xm, x, tokens, C, C, KVB_TM, KVB_KS, true);
   if (e == cudaSuccess) e = matrix_map(&wm, w, C, 3 * C, 3 * C, KVB_KS, 64,
@@ -929,33 +959,52 @@ cudaError_t launch_kv_projection_bf16(const void* x, const void* w,
   if (e == cudaSuccess) e = allow_smem<proj>();
   if (e != cudaSuccess) return e;
   proj<<<dim3((tokens + KVB_TM - 1) / KVB_TM,
-              (2 * C + 64 * NB - 1) / (64 * NB)),
+              (cols + 64 * NB - 1) / (64 * NB)),
          128, kv_projection_bf16_smem(stages, NB), s>>>(
       xm, wm, static_cast<const float*>(b), static_cast<bf16*>(k),
-      static_cast<bf16*>(v), tokens, C, stages);
+      static_cast<bf16*>(v), tokens, C, stages, static_cast<bf16*>(q));
   return cudaGetLastError();
 }
 
-// Kernel A's first launch on the streamed path: k and v of every head.
-cudaError_t project_kv(const void* x, const void* w, const void* b, void* k,
-                       void* v, int G, int N, int C, int dtype,
-                       cudaStream_t s) {
-  if (dtype == 1)
-    return launch_kv_projection_bf16(x, w, b, k, v, G * N, C, s);
+template <bool Q>
+cudaError_t launch_kv_projection_f32(const void* x, const void* w,
+                                     const void* b, void* q, void* k,
+                                     void* v, int tokens, int C,
+                                     cudaStream_t s) {
   using L = GemmTile<KV_TM>;
-  constexpr auto proj = kv_projection_f32_kernel;
-  const int tokens = G * N;
+  constexpr auto proj = kv_projection_f32_kernel<Q>;
+  const int cols = Q ? 3 * C : 2 * C;           // q | k | v, or k | v
   CUtensorMap xm, wm;
   cudaError_t e = matrix_map(&xm, x, tokens, C, C, KV_TM);
   if (e == cudaSuccess) e = matrix_map(&wm, w, C, 3 * C, 3 * C, KS_F32,
                                        L::NP);
   if (e == cudaSuccess) e = allow_smem<proj>();
   if (e != cudaSuccess) return e;
-  proj<<<dim3((tokens + KV_TM - 1) / KV_TM, (2 * C + L::NP - 1) / L::NP),
+  proj<<<dim3((tokens + KV_TM - 1) / KV_TM, (cols + L::NP - 1) / L::NP),
          GEMM_THREADS, kv_projection_f32_smem(), s>>>(
       xm, wm, static_cast<const float*>(b), static_cast<float*>(k),
-      static_cast<float*>(v), tokens, C);
+      static_cast<float*>(v), tokens, C, static_cast<float*>(q));
   return cudaGetLastError();
+}
+
+// Kernel A's first launch on the streamed path: k and v of every head, and
+// q too where q is given (the wide form: each kernel's `Q` form, so the
+// k / v form carries no code of q's).
+cudaError_t project(const void* x, const void* w, const void* b, void* q,
+                    void* k, void* v, int G, int N, int C, int dtype,
+                    cudaStream_t s) {
+  const int tokens = G * N;
+  if (dtype == 1)
+    return q == nullptr
+               ? launch_kv_projection_bf16<false>(x, w, b, q, k, v, tokens,
+                                                  C, s)
+               : launch_kv_projection_bf16<true>(x, w, b, q, k, v, tokens,
+                                                 C, s);
+  return q == nullptr
+             ? launch_kv_projection_f32<false>(x, w, b, q, k, v, tokens, C,
+                                               s)
+             : launch_kv_projection_f32<true>(x, w, b, q, k, v, tokens, C,
+                                              s);
 }
 
 cudaError_t launch_qkv_stream(const void* x, const void* w, const void* b,
@@ -967,7 +1016,7 @@ cudaError_t launch_qkv_stream(const void* x, const void* w, const void* b,
   if (dtype == 1 &&
       stream_wgmma_smem(C, rows / WG_ROWS, true, hd) > 227 * 1024)
     return cudaErrorInvalidValue;
-  const cudaError_t e = project_kv(x, w, b, k, v, G, N, C, dtype, s);
+  const cudaError_t e = project(x, w, b, nullptr, k, v, G, N, C, dtype, s);
   if (e != cudaSuccess) return e;
   if (dtype == 1)
     return stream_wgmma<true>(
@@ -998,6 +1047,23 @@ cudaError_t launch_attn_stream(const void* q, const void* k, const void* v,
       static_cast<float*>(o), G, N, C, heads, scale, s);
 }
 
+// Kernel A's wide form: q, k and v of every head by the projection launch
+// (q and k into the scratches), then kernel C's streamed attention over
+// them at its `rows`. The rows are checked before the first launch.
+cudaError_t launch_qkv_wide(const void* x, const void* w, const void* b,
+                            void* o, void* v, void* k, void* q, int G, int N,
+                            int C, int heads, int dtype, int rows,
+                            float scale, cudaStream_t s) {
+  const bool wide64 = C / heads == 64;
+  if (!stream_rows_valid(dtype, rows) ||
+      (wide64 && rows != (dtype == 1 ? WG_ROWS : 32)))
+    return cudaErrorInvalidValue;
+  const cudaError_t e = project(x, w, b, q, k, v, G, N, C, dtype, s);
+  if (e != cudaSuccess) return e;
+  return launch_attn_stream(q, k, v, o, G, N, C, heads, dtype, rows, scale,
+                            s);
+}
+
 // Heads 32 or 64 wide.
 bool head_ok(int C, int heads) {
   return heads > 0 && (C == heads * 32 || C == heads * 64);
@@ -1024,6 +1090,25 @@ extern "C" int yolou_band_attention_qkv_stream(const void* x, const void* w,
   return (int)launch_qkv_stream(x, w, b, o, v, k, G, N, C, heads, dtype,
                                 rows, scale,
                                 static_cast<cudaStream_t>(stream));
+}
+
+// Kernel A's wide form (two launches: q, k and v projected, then kernel C's
+// streamed attention), any C: the arguments of the streamed path's entry
+// and q, a (G, N, C) scratch of the I/O type for the projected queries;
+// rows as kernel C's (heads of 32: f32 64, 32 or 16, bf16 128 or 64; heads
+// of 64: f32 32, bf16 64).
+extern "C" int yolou_band_attention_qkv_wide(const void* x, const void* w,
+                                             const void* b, void* o, void* v,
+                                             void* k, void* q, int G, int N,
+                                             int C, int heads, int dtype,
+                                             int rows, float scale,
+                                             void* stream) {
+  if (G <= 0 || N <= 0 || !head_ok(C, heads) || G > 65535 ||
+      (dtype != 0 && dtype != 1) || q == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_qkv_wide(x, w, b, o, v, k, q, G, N, C, heads, dtype,
+                              rows, scale,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // The streamed path of kernel C, dtype 0 = float32 (FMA micro-tiles) or

@@ -10,9 +10,9 @@ back from a CUDA tensor to the plain version. Its fake version gives only
 the outputs' shapes and types, so `torch.export` and other graph captures
 record each launch as one node. Each wrapper counts its kernel launches in
 a `launches` attribute, in the real version only, one a call; kernel A,
-whose streamed path starts two device kernels a call, also counts those in
-`device_launches`; kernels A and C count their launches by path and type
-in `path_launches`. The differentiable ones also count the calls of their
+whose streamed path and wide form start two device kernels a call, also
+counts those in `device_launches`; kernels A and C count their launches by
+path and type in `path_launches`. The differentiable ones also count the calls of their
 backward (plain tensor code, no kernel) in `backward_calls`.
 """
 
@@ -39,7 +39,8 @@ def launch_counts() -> Dict[str, int]:
 
 def device_counts() -> Dict[str, int]:
     """Kernel name -> device kernels started since the last reset (its
-    launches, but for kernel A's streamed path: two a launch)."""
+    launches, but for kernel A's streamed path and wide form: two a
+    launch)."""
     return {name: getattr(fn, "device_launches", fn.launches)
             for name, fn in _WRAPPERS.items()}
 
@@ -47,8 +48,8 @@ def device_counts() -> Dict[str, int]:
 def path_counts(name: str = "band_attention") -> Dict[str, int]:
     """The launches of band attention kernel `name` (kernel A by default;
     "band_attention_train", "band_attention_single": kernel C) since the
-    last reset by path and type ("short bf16", "streamed f32", ...;
-    `attention.attention_plan`'s paths)."""
+    last reset by path and type ("short bf16", "streamed f32", "wide bf16"
+    (kernel A's wide form), ...; `attention.attention_plan`'s paths)."""
     return dict(_WRAPPERS[name].path_launches)
 
 

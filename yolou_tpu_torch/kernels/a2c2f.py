@@ -8,7 +8,9 @@ attention, depthwise 7x7 positional term, projection, MLP, residuals) -> cv2
 over the concatenated stage outputs. Replaces the TPU kernel
 `yolou_tpu/ops/pallas_a2c2f.py::a2c2f_fused` (body `_a2c2f_kernel`). The
 MLP's hidden width is the one its weights give (mlp_ratio * c_); the bf16
-kernel takes it padded to a multiple of 16 (`A2C2f.folded_weights` pads).
+kernel takes it padded to a multiple of 16 (`A2C2f.folded_weights` pads)
+and keeps h in shared memory where it fits, else in a (tokens, hid) scratch
+the wrapper allocates (`bf16_plan`'s `h_tile`), so any width runs.
 The residual-gamma form of A2C2f does not route here in either package. The
 entry point is the `torch.library` operator `yolou::a2c2f` behind a checking
 wrapper, as in `attention.py`.
@@ -29,7 +31,7 @@ packs every GEMM weight once for the kernel's bulk copies (f32:
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -246,7 +248,7 @@ def bf16_stencil_boxes(width: int) -> tuple:
 
 
 def bf16_layout(c_: int, ca: int, hid: int, hd: int, ring: int,
-                width: int, staged: bool = True) -> int:
+                width: int, staged: bool = True, h_tile: bool = True) -> int:
     """Bytes of the bf16 kernel's dynamic shared memory (a2c2f_bf16.cu's
     `layout`) at weight ring stages `ring`: the ring (16 KB a stage), the t
     (c_) and u (ca) tiles (8 KB a 64-column block), then the largest of the
@@ -254,33 +256,48 @@ def bf16_layout(c_: int, ca: int, hid: int, hd: int, ring: int,
     keys for each of the two heads of 32 the consumer warpgroups take at
     once, or for the one head of 64; the stencil's v rows for images
     `width` tokens wide unless not `staged` (the stencil then reads through
-    L2), the f32 positional term) and the GEMMs' (the h tile
-    or the ring's x / ys boxes, 8 KB a stage, then the f32 accumulator's
-    staging); the mbarriers and 1024 bytes of alignment slack."""
+    L2), the f32 positional term) and the GEMMs' (the h tile, unless not
+    `h_tile` (h then lives in global memory), or the ring's x / ys / h
+    boxes, 8 KB a stage, then the f32 accumulator's staging); the
+    mbarriers and 1024 bytes of alignment slack."""
     vb, boxes = bf16_stencil_boxes(width) if staged else (0, 0)
     rings = 1 if hd == 64 else 2      # k/v rings, one a consumer warpgroup
     attention = (rings * 2 * _ROWS * hd * 2
                  + rings * _KV_STAGES * 2 * _KV_KEYS * hd * 2
                  + vb * boxes * _CBLK * 2 + _ROWS * _PE_LD * 4)
-    gemms = (max(_up(hid, 64) * _ROWS * 2, ring * _ROWS * _KBLK * 2)
-             + _ROWS * _STAGE_LD * 4)
+    h = _up(hid, 64) * _ROWS * 2 if h_tile else 0
+    gemms = max(h, ring * _ROWS * _KBLK * 2) + _ROWS * _STAGE_LD * 4
     region = max(attention, gemms)
     return (ring * _PANEL * _KBLK * 2 + (_up(c_, 64) + _up(ca, 64)) * _ROWS * 2
             + region + 8 * _N_BARS + 1024)
 
 
-def bf16_plan(c_: int, ca: int, hid: int, hd: int, width: int):
-    """(bytes, ring stages, staged) of the bf16 kernel for images `width`
-    tokens wide (a2c2f_bf16.cu's `plan`): the largest weight ring of 4, 3
-    or 2 stages that fits a block with the stencil's v rows staged; where
-    none does, the largest without them (staged False: the stencil reads
-    through L2); None where neither fits. Widths as the kernel takes them
-    (c_ a multiple of 8, hid of 16)."""
-    for staged in (True, False):
-        for ring in range(_MAX_RING, 1, -1):
-            nbytes = bf16_layout(c_, ca, hid, hd, ring, width, staged)
-            if nbytes <= _BF16_SMEM_LIMIT:
-                return nbytes, ring, staged
+class Bf16Plan(NamedTuple):
+    """The bf16 kernel's shared memory (bytes), weight ring stages, whether
+    the stencil's v rows are staged, and whether h is a tile in shared
+    memory (else in a (tokens, hid) scratch in global memory)."""
+    bytes: int
+    ring: int
+    staged: bool
+    h_tile: bool
+
+
+def bf16_plan(c_: int, ca: int, hid: int, hd: int,
+              width: int) -> Bf16Plan | None:
+    """The bf16 kernel's plan for images `width` tokens wide (a2c2f_bf16.cu's
+    `plan`): the largest weight ring of 4, 3 or 2 stages that fits a block
+    with the stencil's v rows staged; where none does, the largest without
+    them (staged False: the stencil reads through L2); where neither fits
+    with the h tile (wide MLPs), the same with h in global memory (h_tile
+    False). Widths as the kernel takes them (c_ a multiple of 8, hid of
+    16)."""
+    for h_tile in (True, False):
+        for staged in (True, False):
+            for ring in range(_MAX_RING, 1, -1):
+                nbytes = bf16_layout(c_, ca, hid, hd, ring, width, staged,
+                                     h_tile)
+                if nbytes <= _BF16_SMEM_LIMIT:
+                    return Bf16Plan(nbytes, ring, staged, h_tile)
     return None
 
 
@@ -477,19 +494,24 @@ def _launch_a2c2f(x, weights, n_stages, area, heads, tile=None):
                          f"got {weights[8].shape[1]}")
     x, weights, (cin, c_, ca, hid, c2, hd) = _kernel_weights(
         x, weights, n_stages, heads, tile)
-    if not f32:
-        if bf16_plan(c_, ca, hid, hd, W) is None:
+    tokens = B * H * W
+    work = None       # f32: the t1 | h | u scratch; bf16: h, if not a tile
+    if f32:
+        work = torch.empty((tokens, c_ + hid + ca), dtype=torch.float32,
+                           device=x.device)
+    else:
+        plan = bf16_plan(c_, ca, hid, hd, W)
+        if plan is None:
             raise ValueError(f"c_={c_}, MLP {hid}, heads of {hd} pass a "
                              f"block's shared memory")
+        if not plan.h_tile:
+            work = torch.empty((tokens, hid), dtype=x.dtype, device=x.device)
         # the stencil reads its taps 16 B a time
         _check_aligned(*(blk[2] for blk in _split(weights, n_stages)[1]))
-    tokens = B * H * W
     out = torch.empty((B, H, W, c2), dtype=x.dtype, device=x.device)
     ys = torch.empty((tokens, (n_stages + 1) * c_), dtype=x.dtype,
                      device=x.device)
     qkv = torch.empty((2, tokens, 3 * ca), dtype=x.dtype, device=x.device)
-    work = torch.empty((tokens, c_ + hid + ca) if f32 else (0,),
-                       dtype=torch.float32, device=x.device)
     ptrs = [w.data_ptr() for w in weights]
     blocks = _kept(("blocks", x.device, *ptrs[2:-2]), lambda: torch.tensor(
         ptrs[2:-2], dtype=torch.int64).to(x.device))
@@ -501,7 +523,8 @@ def _launch_a2c2f(x, weights, n_stages, area, heads, tile=None):
                                qkv.data_ptr(), B, H, W, cin, c_, c2, hid,
                                n_stages, area, heads, _DTYPE_CODE[x.dtype],
                                blocks.data_ptr(),
-                               work.data_ptr() if f32 else None, ca, scale,
+                               None if work is None else work.data_ptr(),
+                               ca, scale,
                                tile, stream)
     build.check(lib, code, "A2C2f block kernel")
     a2c2f_fused.launches += 1

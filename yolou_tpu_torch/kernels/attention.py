@@ -50,9 +50,13 @@ micro-tiles in CTAs of 64, 32 or 16 query rows and 64-key tiles
 maximum and sum; probabilities rounded to the I/O type before p.v; the
 division after it), the short one against the full row's maximum, the
 streamed one against a running one: their bf16 results are close, not
-bit-identical. No band length is refused; the streamed bf16 kernel A holds
-its CTA's x rows in shared memory, which bounds C (896 channels: 28
-heads).
+bit-identical. No band length is refused, and no width C: where kernel
+A's q-projecting streamed kernel would not fit a block (it holds the
+head's (C, hd) q weight columns and, in bf16, the CTA's (rows, C) x tile:
+bf16 from 928 channels at heads of 32 and 512 at heads of 64, f32 from
+1344 and 640), kernel A takes its wide form (`wide_plan`): the projection
+launch writes q too, into a scratch, and kernel C's streamed attention
+reads q, k and v. Both GEMMs ring over C, so neither launch grows with it.
 
 Head widths. The kernels are built for heads 32 and 64 channels wide
 (`KERNEL_HEAD_DIMS`). Every other width up to 64 is padded with zero
@@ -98,6 +102,11 @@ _KVB_TM = 64
 _KVB_KS = 64
 _KVB_STAGES = 4
 _KVB_COLS = 64
+# the f32 one (`kv_projection_f32_kernel`, gemm_f32.cuh's GEMM stream at
+# tiles of 64 tokens): its dynamic shared memory, whatever C: 1024 bytes of
+# slack, a ring of 4 stages of a [64][32] x slab and a [32][64] weight slab,
+# 8 barriers
+_KV_F32_SMEM = 1024 + 4 * 4 * (64 * 32 + 32 * 64) + 8 * 2 * 4
 _SMS = 132    # streaming multiprocessors of an H100 SXM
 
 
@@ -228,13 +237,14 @@ def stream_rows(g: int, n: int, c: int, dtype: torch.dtype,
     return 32 if pairs * -(-n // 32) >= _SMS // 2 else 16
 
 
-PATHS = ("short", "streamed")
+PATHS = ("short", "streamed", "wide")   # "wide": kernel A only
 
 
 class AttentionPlan(NamedTuple):
     """How a band runs: its `path` (one of `PATHS`), the largest dynamic
-    shared memory of its launches (bytes), its device kernels a call, and
-    the query rows of a streamed CTA or a short tile (`stream_rows`,
+    shared memory of its launches (bytes; the streamed path's: of its
+    attention launch, and the bf16 projection's), its device kernels a call,
+    and the query rows of a streamed CTA or a short tile (`stream_rows`,
     `short_rows`)."""
     path: str
     smem: int
@@ -243,7 +253,9 @@ class AttentionPlan(NamedTuple):
 
     @property
     def streamed(self) -> bool:
-        return self.path == "streamed"
+        """Keys and values streamed through a ring (the streamed path or
+        kernel A's wide form, two device kernels in kernel A)."""
+        return self.path in ("streamed", "wide")
 
 
 def short_smem_bytes(c: int, dtype: torch.dtype, hd: int = HEAD_DIM,
@@ -311,11 +323,27 @@ def attention_plan(g: int, n: int, c: int, dtype: torch.dtype,
 def streamed_plan(g: int, n: int, c: int, dtype: torch.dtype,
                   projection: bool = True,
                   hd: int = HEAD_DIM) -> AttentionPlan:
-    """The streamed path's plan of G bands of N tokens at width C."""
+    """The streamed path's plan of G bands of N tokens at width C; kernel
+    A's wide form (`wide_plan`) where the q-projecting kernel's shared
+    memory passes a block's."""
     rows = stream_rows(g, n, c, dtype, projection, hd)
-    return AttentionPlan("streamed",
-                         stream_smem_bytes(c, dtype, projection, rows, hd),
-                         2 if projection else 1, rows)
+    smem = stream_smem_bytes(c, dtype, projection, rows, hd)
+    if projection and smem > _SMEM_LIMIT:
+        return wide_plan(g, n, c, dtype, hd)
+    return AttentionPlan("streamed", smem, 2 if projection else 1, rows)
+
+
+def wide_plan(g: int, n: int, c: int, dtype: torch.dtype,
+              hd: int = HEAD_DIM) -> AttentionPlan:
+    """Kernel A's wide form at any C: two launches, the projection of q, k
+    and v (its shared memory `kv_projection_smem` in bf16, `_KV_F32_SMEM`
+    in f32, neither growing with C), then kernel C's streamed attention at
+    kernel C's query rows (`stream_rows(..., projection=False)`)."""
+    rows = stream_rows(g, n, c, dtype, False, hd)
+    proj = kv_projection_smem(c) if dtype == torch.bfloat16 else _KV_F32_SMEM
+    return AttentionPlan("wide",
+                         max(stream_smem_bytes(c, dtype, False, rows, hd),
+                             proj), 2, rows)
 
 
 def _check_aligned(*tensors):
@@ -325,13 +353,16 @@ def _check_aligned(*tensors):
         raise ValueError("the kernel needs 16-byte aligned tensors")
 
 
-def _stream_plan(g, n, c, dtype, projection, hd=HEAD_DIM):
-    """The streamed plan, refused where its shared memory does not fit a
-    block (bf16 kernel A past 896 channels)."""
+def _stream_plan(g, n, c, dtype, projection, hd=HEAD_DIM, path="streamed"):
+    """The plan of the streamed `path`, or of kernel A's wide form by `path`
+    "wide"; the streamed path refused where it does not fit a block (kernel
+    A's, forced at a width the plan gives the wide form)."""
+    if path == "wide":
+        return wide_plan(g, n, c, dtype, hd)
     plan = streamed_plan(g, n, c, dtype, projection, hd)
-    if plan.smem > _SMEM_LIMIT:
-        raise ValueError(f"the streamed kernel needs {plan.smem} bytes of "
-                         f"shared memory at C={c}, more than a block has")
+    if plan.path != path:
+        raise ValueError(f"the streamed kernel needs more shared memory at "
+                         f"C={c} than a block has")
     return plan
 
 
@@ -367,10 +398,10 @@ def _kernel_head_dim(c, heads):
     return hd
 
 
-def _check_path(path, n):
-    """A forced path: one of `PATHS`, the short one at 64 tokens or
-    fewer."""
-    if path not in PATHS:
+def _check_path(path, n, projection=True):
+    """A forced path: one of `PATHS` (kernel C's: not "wide"), the short
+    one at 64 tokens or fewer."""
+    if path not in PATHS or (path == "wide" and not projection):
         raise ValueError(f"path must be one of {PATHS}, got {path!r}")
     if path == "short" and n > _SHORT_ROWS:
         raise ValueError(f"the short path takes bands of {_SHORT_ROWS} "
@@ -395,10 +426,10 @@ def _launch_qkv_attention(x, w, b, heads, path=None, rows=None,
     if path is None:
         path = attention_plan(g, n, c, x.dtype, hd=hd).path
     _check_path(path, n)
-    if path == "streamed":
-        rows = rows or _stream_plan(g, n, c, x.dtype, True, hd).rows
-    else:
+    if path == "short":
         rows = rows or short_rows(g, n, c, x.dtype, hd)
+    else:
+        rows = rows or _stream_plan(g, n, c, x.dtype, True, hd, path).rows
     lib = build.load()
     _check_aligned(x, w)
     o = torch.empty_like(x)
@@ -414,12 +445,17 @@ def _launch_qkv_attention(x, w, b, heads, path=None, rows=None,
             code = lib.yolou_band_attention_qkv_stream(
                 *ptrs, k.data_ptr(), g, n, c, heads, code, rows, scale,
                 stream)
+        elif path == "wide":             # the projected queries too
+            k, q = torch.empty_like(x), torch.empty_like(x)
+            code = lib.yolou_band_attention_qkv_wide(
+                *ptrs, k.data_ptr(), q.data_ptr(), g, n, c, heads, code,
+                rows, scale, stream)
         else:
             code = lib.yolou_band_attention_qkv_short(
                 *ptrs, g, n, c, heads, code, rows, scale, stream)
     build.check(lib, code, "band attention kernel")
     area_attention_qkv_fused.launches += 1
-    area_attention_qkv_fused.device_launches += 2 if path == "streamed" else 1
+    area_attention_qkv_fused.device_launches += 1 if path == "short" else 2
     _count_path(area_attention_qkv_fused, path, x.dtype)
     return o, v
 
@@ -570,7 +606,7 @@ def _launch_band_attention(q, k, v, heads, path=None, rows=None,
     if path is None:
         path = attention_plan(g, n, c, q.dtype, projection=False,
                               hd=hd).path
-    _check_path(path, n)
+    _check_path(path, n, projection=False)
     lib = build.load()
     _check_aligned(q, k, v)
     o = torch.empty_like(q)

@@ -79,6 +79,7 @@ def bind(lib: ctypes.CDLL, missing_ok: bool = False) -> ctypes.CDLL:
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     entries = {
         "yolou_band_attention_qkv_stream": [vp] * 6 + [ci] * 6 + [cf, vp],
+        "yolou_band_attention_qkv_wide": [vp] * 7 + [ci] * 6 + [cf, vp],
         "yolou_band_attention_qkv_short": [vp] * 5 + [ci] * 6 + [cf, vp],
         "yolou_band_attention_stream": [vp] * 4 + [ci] * 6 + [cf, vp],
         "yolou_band_attention_short": [vp] * 4 + [ci] * 6 + [cf, vp],
