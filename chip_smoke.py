@@ -32,7 +32,9 @@ Phases, one or more output lines each:
                too), `a2c2f` at mlp_ratio 1.2 and at
                yolov12l's layer 8 (f32, 32-token tiles); heads of 48 and
                16 in kernels A and C and the single-head entry, and `a2c2f`
-               with one head of 48 and with five stages, both types;
+               with one head of 48 and with five stages, both types; two
+               heads of 128 in kernels A and C (the blocked path), both
+               types;
   4. serve   - a Predictor with seeded random yolov12n-seg weights (4 ch,
                nc=1, 640^2, bf16) answers 3 requests of 8 uint8 images; the
                kernels' launch counters must show the path went through them;
@@ -66,7 +68,11 @@ Phases, one or more output lines each:
                A2C2f (128, n 2, area 4, mlp_ratio 1.2) at (8, 128, 40, 40)
                in bf16 eval (4 kernel A launches) and f32 training forward
                and backward (4 kernel C launches and 4 backward calls), each
-               against the same module on the plain versions.
+               against the same module on the plain versions; modules the
+               port refused before kernel A's wide form, the bf16 `a2c2f`'s
+               h in global memory and the blocked path (heads of 128 and 512
+               in AAttn, eval and train mode, and `a2c2f` folds of c_ 256 in
+               two heads and 96 in one), each against its plain version.
   9. evaluate - YOLO-Seg++ (`build_segpp`, bf16) with the same detector
                weights and a seeded decoder; an Evaluator at 160^2, batch 16,
                takes 3 batches of seeded images and elliptic masks from
@@ -442,7 +448,9 @@ def check_attention(device):
     (padded to 64 and 32 in the wrapper) at layer 8's band, both types.
     Kernel A's wide form at four widths its q-projecting kernel does not
     fit (its first device kernel then the q | k | v projection, beside one
-    torch.addmm of all 3C columns)."""
+    torch.addmm of all 3C columns). Two heads of 128 at layer 8's bands
+    (the blocked path: the same projection, then kernel C's blocked form,
+    whose score work is 2x the head's), both types."""
     import torch
     import torch.nn.functional as F
     from yolou_tpu_torch.kernels.attention import (
@@ -478,7 +486,9 @@ def check_attention(device):
              ("c_928 h29", 4, 400, 928, 29, ("bfloat16",)),
              ("c_1344 h42", 4, 400, 1344, 42, ("float32",)),
              ("AAttn(512,8)", 4, 400, 512, 8, ("bfloat16",)),
-             ("AAttn(640,10)", 4, 400, 640, 10, ("float32",))]
+             ("AAttn(640,10)", 4, 400, 640, 10, ("float32",)),
+             # heads wider than 64 (the blocked path): AAttn(256, 2)
+             ("L8@640 hd128", BATCH, 400, 256, 2, BOTH)]
     rng = np.random.default_rng(SEED)
     worst, times = 0.0, {}
     for name, g, n, c, heads, dtypes in cases:
@@ -525,7 +535,7 @@ def check_attention(device):
                 paths = {"device_kernels": sorted(device_kernel_ms(
                     lambda: area_attention_qkv_fused(xt, wt, bt, heads)))}
             if plan.streamed:
-                wide = plan.path == "wide"
+                wide = plan.path in ("wide", "blocked")   # q | k | v first
                 paths.update(streamed_bounds(g, n, c, dtype_name(dtype),
                                              wide))
                 # the projection alone: its plain version and one library
@@ -630,7 +640,8 @@ def check_training_attention(device):
     tokens or fewer (160^2) take the short path, held to `SHORT_TOL` of the
     output's largest magnitude in bf16 and timed against the streamed path
     in turns. Heads of 48 and 16 (padded in the wrapper), multi-head and
-    single, both types, at 400 tokens and at 25."""
+    single, both types, at 400 tokens and at 25; two heads of 128 at 400
+    (the blocked path), both types."""
     import torch
     import torch.nn.functional as F
     from yolou_tpu_torch.kernels.attention import (
@@ -658,7 +669,9 @@ def check_training_attention(device):
              ("single hd16", 64, 400, 16, 1, BOTH),
              # the short path at heads the wrapper pads: 48 -> 64, 16 -> 32
              ("L8@160 hd48", EVAL_BATCH, 25, 96, 2, BOTH),
-             ("L8@160 hd16", EVAL_BATCH, 25, 32, 2, BOTH)]
+             ("L8@160 hd16", EVAL_BATCH, 25, 32, 2, BOTH),
+             # heads wider than 64: the blocked path
+             ("L8@640 hd128", BATCH, 400, 256, 2, BOTH)]
     for name, shape, heads in zip(("profile-single", "profile-fused"),
                                   attention_shapes(BATCH), (1, HEADS)):
         cases.append((name, *shape, heads, BOTH))
@@ -2125,9 +2138,10 @@ def wide_shapes_check(device) -> dict:
     and
     A2C2f(512, 512, mlp_ratio=4.0) in bf16 through `mega_kernel` (one
     `a2c2f` launch, no kernel A) against the staged module (2 streamed
-    kernel A launches). Tolerances: bf16 twice `check_a2c2f`'s (2e-2 and
-    2**-6 of the largest output), f32 1e-4. Returns each check's launches
-    and kernel A's paths."""
+    kernel A launches); and heads wider than 64, which the port refused on
+    the card before the blocked path (`heads_wider_than_64`). Tolerances:
+    bf16 twice `check_a2c2f`'s (2e-2 and 2**-6 of the largest output), f32
+    1e-4. Returns each check's launches and kernel A's paths."""
     import torch
     from yolou_tpu_torch import kernels
     from yolou_tpu_torch.nn.attention import AAttn
@@ -2161,6 +2175,7 @@ def wide_shapes_check(device) -> dict:
             raise AssertionError(f"{name}: {err} (tol {tol}, largest "
                                  f"output {top})")
 
+    out.update(heads_wider_than_64(device, run))
     # f32 fits kernel A's q-projecting kernel at 928 channels (to 1343)
     block = seeded_a2c2f(1856, 1856, 1, 4, device, SEED + 61)
     for dtype, path in ((torch.bfloat16, "wide bf16"),
@@ -2201,6 +2216,121 @@ def wide_shapes_check(device) -> dict:
         raise AssertionError(f"A2C2f mlp4 staged: paths {staged_paths}")
     if not (torch.isfinite(got).all() and err <= tol and top > 0.05):
         raise AssertionError(f"A2C2f mlp4 mega vs staged: {err} (tol {tol})")
+    return out
+
+
+def heads_wider_than_64(device, run) -> dict:
+    """Heads the port refused on the card before the blocked path, seeded:
+    AAttn(256, 2, 4) (heads of 128) at (1, 256, 40, 40), 20^2 and 10^2
+    (bands of 400, 100 and 25) in bf16 and f32, eval through
+    `wide_shapes_check`'s `run` (one kernel A launch on path "blocked") and
+    train mode forward and backward (one kernel C launch on path "blocked",
+    one backward call), against the same module on the plain versions:
+    outputs within `run`'s tolerances, the input's gradient within GRAD_TOL
+    of its largest magnitude (the cotangent is N(0, 1)); AAttn(512, 1, 4)
+    (one head of 512) in bf16 eval at 40^2; and `a2c2f_fused` over an A2C2f
+    fold of c_ 256 in two heads (of 128) and of c_ 96 in one (padded to
+    128) at (8, 20, 20, 2 c_), both types, one launch each, against its
+    plain version (`check_a2c2f`'s tolerances). Returns each check's
+    launches and paths, and under "a2c2f <dtype>" the c_ 256 case timed."""
+    import copy
+    import torch
+    from yolou_tpu_torch import kernels
+    from yolou_tpu_torch.kernels.a2c2f import a2c2f_fused, a2c2f_fused_plain
+    from yolou_tpu_torch.nn.attention import AAttn
+    rng = np.random.default_rng(SEED + 70)
+    out = {}
+
+    def train_run(name, module, shape, dtype):
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+            device, dtype)
+        cot = torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(device)
+
+        def train_pass(m):
+            xt = x.clone().requires_grad_()
+            y = m.train()(xt)
+            (y.float() * cot).sum().backward()
+            return y.detach().float(), xt.grad.float()
+
+        kernels.reset_launch_counts()
+        got = train_pass(copy.deepcopy(module))
+        counts = dict(kernels.launch_counts(), backward=kernels.
+                      backward_counts()["band_attention_train"])
+        paths = kernels.path_counts("band_attention_train")
+        with plain_attention():
+            want = train_pass(copy.deepcopy(module))
+        dn = dtype_name(dtype)
+        top = want[0].abs().max().item()
+        tol = (ATTN_TOL[dn] if dtype == torch.float32
+               else 2 * min(ATTN_TOL[dn], 2.0 ** -6 * top))
+        err = (got[0] - want[0]).abs().max().item()
+        gerr = ((got[1] - want[1]).abs().max()
+                / want[1].abs().max()).item()
+        out[name] = {**counts, "paths": paths}
+        log("shapes", check=name, shape=shape, dtype=dn, max_abs=err,
+            tol=tol, out_abs_max=top, grad_rel=gerr, grad_tol=GRAD_TOL[dn],
+            launches=counts, paths=paths)
+        check_launches(name, counts, 0, 0, band_attention_train=1,
+                       backward=1)
+        if paths != {f"blocked {SHORT[dn]}": 1}:
+            raise AssertionError(f"{name}: kernel C's paths {paths}")
+        if not (torch.isfinite(got[0]).all() and err <= tol
+                and gerr <= GRAD_TOL[dn] and top > 0.05):
+            raise AssertionError(f"{name}: {err} (tol {tol}), gradient "
+                                 f"{gerr} (tol {GRAD_TOL[dn]})")
+
+    aattn = seeded_module(AAttn(256, 2, 4), device, SEED + 71)
+    for dtype in (torch.bfloat16, torch.float32):
+        path = {f"blocked {SHORT[dtype_name(dtype)]}": 1}
+        for hw in (40, 20, 10):
+            name = f"AAttn(256,2) {hw}^2 {dtype_name(dtype)}"
+            run(name, aattn, (1, 256, hw, hw), dtype, path, band_attention=1)
+            train_run(f"{name} train", aattn, (1, 256, hw, hw), dtype)
+    run("AAttn(512,1) bf16", seeded_module(AAttn(512, 1, 4), device,
+                                           SEED + 72),
+        (1, 512, 40, 40), torch.bfloat16, {"blocked bf16": 1},
+        band_attention=1)
+
+    for c_, heads in ((256, 2), (96, 1)):
+        block = seeded_a2c2f(2 * c_, 2 * c_, 1, 1, device, SEED + 73 + c_)
+        block.num_heads = heads          # the fold pads to this head count
+        x = rng.normal(size=(8, 20, 20, 2 * c_)).astype(np.float32)
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = dtype_name(dtype)
+            name = f"a2c2f c_{c_} h{heads} {dn}"
+            xt = torch.from_numpy(x).to(device, dtype)
+            with torch.no_grad():
+                ws = block.folded_weights(dtype)
+                kernels.reset_launch_counts()
+                got = a2c2f_fused(xt, ws, 1, 1, heads)
+                counts = dict(kernels.launch_counts())
+                want = a2c2f_fused_plain(xt, ws, 1, 1, heads)
+            top = want.float().abs().max().item()
+            tol = (ATTN_TOL[dn] if dtype == torch.float32
+                   else min(ATTN_TOL[dn], 2.0 ** -6 * top))
+            err = (got.float() - want.float()).abs().max().item()
+            check_launches(name, counts, 0, 0, a2c2f=1)
+            row = {"launches": counts["a2c2f"], "max_abs_err": err,
+                   "tol": tol, "attention_width": ws[2].shape[1] // 3}
+            if c_ == 256:
+                with torch.no_grad():
+                    ms, call_ms = kernel_times(
+                        lambda: a2c2f_fused(xt, ws, 1, 1, heads))
+                    plain_ms = kernel_times(
+                        lambda: a2c2f_fused_plain(xt, ws, 1, 1, heads))[0]
+                nbytes, flops = a2c2f_work(
+                    x.shape, c_, 2 * c_, 1, 1, xt.element_size(),
+                    ws[8].shape[1])
+                bound_ms, bound_by = bound(nbytes, flops, dn)
+                row.update(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=None)
+                out[f"a2c2f {dn}"] = row
+            log("shapes", check=name, out_abs_max=top, **row)
+            out[name] = counts
+            if not (torch.isfinite(got).all() and err <= tol and top > 0.05):
+                raise AssertionError(f"{name}: {err} (tol {tol})")
     return out
 
 
@@ -4294,9 +4424,9 @@ def _kernel_name(line: str):
     step or consumer warpgroups, flags), else None: a `_mma_` or `_wgmma_`
     kernel is bf16, the others f32."""
     import re
-    m = re.search(r"((?:band_attention_(?:qkv_|stream_|short_)?|a2c2f_|"
-                  r"kv_projection_)(?:wgmma_|mma_|f32_)?kernel)(I\S*?EE)?",
-                  line)
+    m = re.search(r"((?:band_attention_(?:qkv_|stream_|short_|blocked_)?|"
+                  r"a2c2f_|kv_projection_)(?:wgmma_|mma_|f32_)?kernel)"
+                  r"(I\S*?EE)?", line)
     if not m:
         return None
     name, targs = m.group(1), m.group(2) or ""
@@ -4359,7 +4489,13 @@ def check_build_report(report: list) -> None:
     for name in ("band_attention_short_wgmma_kernel<",
                  "band_attention_short_f32_kernel<",
                  "kv_projection_wgmma_kernel<",
-                 "kv_projection_f32_kernel<"):
+                 "kv_projection_f32_kernel<",
+                 "band_attention_blocked_wgmma_kernel<",
+                 "band_attention_blocked_kernel<",
+                 # the a2c2f kernels' blocked form (HD BLOCKED = 0)
+                 "a2c2f_wgmma_kernel<bf16,0,",
+                 "a2c2f_f32_kernel<float,32,0>",
+                 "a2c2f_f32_kernel<float,64,0>"):
         if not any(e["kernel"].startswith(name) for e in report):
             raise AssertionError(f"no {name}...> in the build report")
     for name in ("band_attention_short_wgmma_kernel<",
@@ -4624,6 +4760,25 @@ def main() -> int:
     wide_a = {dn: {k: v["band_attention"] for k, v in wide.items()
                    if f"wide {SHORT[dn]}" in v.get("paths", {})}
               for dn in BOTH}
+    # the shapes phase's launches on the blocked path, by kernel and type:
+    # kernel A's in eval, kernel C's in train mode, the a2c2f folds'
+    blocked_a, blocked_c = ({dn: {k: v[kernel] for k, v in wide.items()
+                                  if f"blocked {SHORT[dn]}" in v.get(
+                                      "paths", {}) and v.get(kernel)}
+                             for dn in BOTH}
+                            for kernel in ("band_attention",
+                                           "band_attention_train"))
+    blocked_a2c2f = {dn: {k: v["a2c2f"] for k, v in wide.items()
+                          if k.startswith("a2c2f c_") and k.endswith(dn)}
+                     for dn in BOTH}
+
+    def blocked_row(name, source, replaces, kernels_, launches, row):
+        return {"name": name, "route": "cuda", "source": src + source,
+                "replaces": replaces, "device_kernels": kernels_,
+                "launches": sum(launches.values()),
+                "launches_by_path": {f"shapes {k}": v
+                                     for k, v in launches.items()},
+                **row}
     shapes_devices = shapes.pop("device kernels")
     shapes_paths = shapes.pop("kernel A paths")["yolov12s f32 640"]
     print(json.dumps({"kernels": [
@@ -4836,6 +4991,54 @@ def main() -> int:
          "staged_ms": a2c2f["float32"]["staged_ms"],
          **{k: a2c2f["float32"][k] for k in keys},
          "ms_source": times_source(a2c2f["float32"])},
+        # heads wider than 64: the blocked path (score work 2x the head's
+        # at heads of 128, the rows' width)
+        blocked_row("band_attention_blocked", "band_attention.cu",
+                    pallas + ":357",
+                    ["kv_projection_wgmma_kernel (q | k | v)",
+                     "band_attention_blocked_wgmma_kernel"],
+                    blocked_a["bfloat16"],
+                    {**attention_row(attn_cases, ("L8@640 hd128",
+                                                  "bfloat16"), "blocked",
+                                     ("bfloat16",)),
+                     "attention_library_ms": attn_cases[(
+                         "L8@640 hd128", "bfloat16")][
+                             "attention_library_ms"]}),
+        blocked_row("band_attention_blocked_f32", "band_attention.cu",
+                    pallas + ":357",
+                    ["kv_projection_f32_kernel (q | k | v)",
+                     "band_attention_blocked_kernel<R>"],
+                    blocked_a["float32"],
+                    {**attention_row(attn_cases, ("L8@640 hd128",
+                                                  "float32"), "blocked",
+                                     ("float32",)),
+                     "attention_library_ms": attn_cases[(
+                         "L8@640 hd128", "float32")][
+                             "attention_library_ms"]}),
+        blocked_row("band_attention_train_blocked", "band_attention.cu",
+                    pallas + ":243", ["band_attention_blocked_wgmma_kernel"],
+                    blocked_c["bfloat16"],
+                    attention_row(multi_head, ("L8@640 hd128", "bfloat16"),
+                                  "blocked", ("bfloat16",))),
+        blocked_row("band_attention_train_blocked_f32", "band_attention.cu",
+                    pallas + ":243", ["band_attention_blocked_kernel<R>"],
+                    blocked_c["float32"],
+                    attention_row(multi_head, ("L8@640 hd128", "float32"),
+                                  "blocked", ("float32",))),
+        blocked_row("a2c2f_blocked", "a2c2f_bf16.cu",
+                    "yolou_tpu/ops/pallas_a2c2f.py:192",
+                    ["a2c2f_wgmma_kernel<BLOCKED, L2>"],
+                    blocked_a2c2f["bfloat16"],
+                    {**{k: wide["a2c2f bfloat16"][k] for k in keys},
+                     "at": "c_256 h2 (8,20,20,512) bfloat16",
+                     "ms_source": times_source(wide["a2c2f bfloat16"])}),
+        blocked_row("a2c2f_blocked_f32", "a2c2f_f32.cu",
+                    "yolou_tpu/ops/pallas_a2c2f.py:192",
+                    ["a2c2f_f32_kernel<TM, BLOCKED>"],
+                    blocked_a2c2f["float32"],
+                    {**{k: wide["a2c2f float32"][k] for k in keys},
+                     "at": "c_256 h2 (8,20,20,512) float32",
+                     "ms_source": times_source(wide["a2c2f float32"])}),
     ]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """PyTorch port: the CUDA kernels against their plain versions on the card,
 at shapes off the serving path (ragged bands, token tiles and candidate
-counts, one to many heads, heads of any width up to 64, more tiles than one
+counts, one to many heads, heads of any width (the blocked form past 64),
+more tiles than one
 co-resident wave, side streams, both paths of the band attention kernels
 (short and streamed),
 the whole-A2C2f kernel at other MLP widths (h in shared or in global
@@ -251,14 +252,16 @@ def test_training_attention_refuses_what_it_cannot_run(cuda):
     """Device, contiguity and type are refused, and a path the kernel has
     not (the resident one is gone), and the short path past 64 tokens; a
     head of 48 is not (padded to 64, within 1e-4 of the plain version),
-    nor a head wider than 64 on the CPU's plain version, which the card
-    refuses by name; a long band (N = 1809 in bf16, 1000 in f32) runs the
-    streamed path and agrees with the plain version."""
+    nor a head of 96 (padded to 128, the blocked path, within 1e-4); a long
+    band (N = 1809 in bf16, 1000 in f32) runs the streamed path and agrees
+    with the plain version."""
     q, k, v = _qkv_inputs(2, 16, 96, torch.float32, cuda, seed=2)
     o = area_attention_fused(q, k, v, 2)              # head_dim 48
     assert (o - area_attention_fused_plain(q, k, v, 2)).abs().max() <= 1e-4
-    with pytest.raises(ValueError, match="head_dim"):
-        area_attention(q, k, v)                       # one head of 96
+    kernels.reset_launch_counts()
+    o = area_attention(q, k, v)                       # one head of 96
+    assert kernels.path_counts("band_attention_single") == {"blocked f32": 1}
+    assert (o - area_attention_plain(q, k, v)).abs().max() <= 1e-4
     with pytest.raises(ValueError, match="64 tokens or fewer"):
         _launch_band_attention(*_qkv_inputs(2, 65, 128, torch.bfloat16, cuda,
                                             seed=5), 2, "short")
@@ -909,6 +912,162 @@ def test_a2c2f_bf16_at_each_token_tile(cuda, tile, shape, c_, c2, n_stages,
     assert ref.float().abs().max().item() > 0.05
 
 
+# ------------------------------------------ heads wider than 64 (blocked)
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [1, 25, 64, 100, 400])
+@pytest.mark.parametrize("hd", [96, 128, 256, 512, 928])
+def test_blocked_form_matches_plain(cuda, hd, n, dtype, tol):
+    """Heads of 96 (padded to 128), 128, 256, 512 and 928 (padded to 960:
+    15 blocks) take the blocked path at every band length, one token
+    included: kernel A at two heads (the wide form's
+    projection, then kernel C's blocked form: two device kernels), kernel C
+    at two heads and the one-head entry, each counted on path "blocked";
+    o and v within the plain versions' tolerances."""
+    g, c, t = 3, 2 * hd, _type(dtype)
+    hdp = padded_head_dim(hd)
+    assert attention_plan(g, n, 2 * hdp, dtype, hd=hdp).path == "blocked"
+    x, w, b = _attn_inputs(g, n, c, dtype, cuda, seed=hd + n)
+    q, k, v = _qkv_inputs(g, n, c, dtype, cuda, seed=hd + n + 1)
+    q1, k1, v1 = (u[..., :hd].contiguous() for u in (q, k, v))
+    kernels.reset_launch_counts()
+    o, ov = area_attention_qkv_fused(x, w, b, 2)
+    oc = area_attention_fused(q, k, v, 2)
+    o1 = area_attention(q1, k1, v1)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["band_attention"] == 1
+    assert kernels.device_counts()["band_attention"] == 2
+    for name in ("band_attention", "band_attention_train",
+                 "band_attention_single"):
+        assert kernels.path_counts(name) == {f"blocked {t}": 1}
+    o_ref, v_ref = area_attention_qkv_fused_plain(x, w, b, 2)
+    for got, ref in ((o, o_ref), (ov, v_ref),
+                     (oc, area_attention_fused_plain(q, k, v, 2)),
+                     (o1, area_attention_plain(q1, k1, v1))):
+        assert got.dtype == dtype and got.shape == ref.shape
+        assert bool(torch.isfinite(got).all())
+        assert (got.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("n", [25, 100])
+def test_blocked_form_gradients_match_autograd(cuda, n):
+    """Kernels A and C at two heads of 128 (the blocked forward; the
+    backward the plain tensor code of every width), f32: the gradients
+    against autograd through the plain version within 1e-4."""
+    x, w, b = _attn_inputs(2, n, 256, torch.float32, cuda, seed=n)
+    q, k, v = _qkv_inputs(2, n, 256, torch.float32, cuda, seed=n + 1,
+                          grad=True)
+    for u in (x, w, b):
+        u.requires_grad_()
+    rng = np.random.default_rng(n)
+    do, dv = (torch.tensor(rng.normal(size=x.shape), dtype=torch.float32,
+                           device=cuda) for _ in range(2))
+    kernels.reset_launch_counts()
+    got = torch.autograd.grad(area_attention_qkv_fused(x, w, b, 2),
+                              (x, w, b), (do, dv))
+    got += torch.autograd.grad(area_attention_fused(q, k, v, 2), (q, k, v),
+                               do)
+    assert kernels.path_counts() == {"blocked f32": 1}
+    assert kernels.path_counts("band_attention_train") == {"blocked f32": 1}
+    assert kernels.backward_counts() == {"band_attention": 1,
+                                         "band_attention_train": 1,
+                                         "band_attention_single": 0}
+    want = torch.autograd.grad(area_attention_qkv_fused_plain(x, w, b, 2),
+                               (x, w, b), (do, dv))
+    want += torch.autograd.grad(area_attention_fused_plain(q, k, v, 2),
+                                (q, k, v), do)
+    for a, r in zip(got, want):
+        assert (a - r).abs().max().item() <= 1e-4
+
+
+def test_blocked_entries_refuse_what_they_cannot_run(cuda):
+    """The C entries take heads wider than 64 only in multiples of 64 (the
+    wrappers pad) and at the blocked form's query rows (f32 32, bf16 64),
+    refused before any launch; a forced path other than "blocked" at such
+    heads, and "blocked" at heads of 64, are refused by name."""
+    lib = build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    q, k, v = _qkv_inputs(2, 100, 384, torch.float32, cuda, seed=7)
+    o = torch.empty_like(q)
+    for dtype, rows, heads in ((0, 64, 3), (0, 16, 3), (1, 128, 3),
+                               (1, 32, 3), (0, 32, 4), (1, 64, 4)):
+        # heads of 128: f32 32 rows, bf16 64; heads of 96: no kernel
+        code = lib.yolou_band_attention_stream(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 2, 100,
+            384, heads, dtype, rows, 128 ** -0.5, stream)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            build.check(lib, code, "blocked form")
+    x, w, b = _attn_inputs(2, 100, 384, torch.float32, cuda, seed=8)
+    kq = [torch.empty_like(x) for _ in range(4)]
+    code = lib.yolou_band_attention_qkv_wide(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(),
+        *(u.data_ptr() for u in kq), 2, 100, 384, 3, 0, 64, 128 ** -0.5,
+        stream)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        build.check(lib, code, "wide form")
+    for path in ("streamed", "short"):
+        with pytest.raises(ValueError, match="do not take the"):
+            _launch_band_attention(q[:, :25].contiguous(),
+                                   k[:, :25].contiguous(),
+                                   v[:, :25].contiguous(), 3, path)
+        with pytest.raises(ValueError, match="do not take the"):
+            _launch_qkv_attention(x[:, :25].contiguous(), w, b, 3, path)
+    q64, k64, v64 = _qkv_inputs(2, 100, 128, torch.float32, cuda, seed=9)
+    with pytest.raises(ValueError, match="do not take the"):
+        _launch_band_attention(q64, k64, v64, 2, "blocked")
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,c_,area,heads", [
+    ((2, 20, 20, 64), 96, 1, 1),       # one head of 96, padded to 128
+    ((2, 20, 20, 64), 128, 1, 1),      # one of 128, a band of 400
+    ((1, 20, 20, 64), 256, 1, 1),      # one of 256
+    ((1, 20, 20, 64), 256, 1, 2),      # two of 128
+    ((2, 20, 20, 64), 128, 4, 1),      # bands of 100
+    ((1, 4, 100, 64), 128, 1, 1),      # 100 wide: the stencil through L2
+    ((1, 10, 40, 64), 256, 1, 2),      # 40 wide at c_ 256: through L2
+])
+def test_a2c2f_at_heads_wider_than_64(cuda, shape, c_, area, heads, dtype,
+                                      tol):
+    """The whole block at heads of 96-256 (the blocked form of both
+    kernels: a (head, 64-channel block) pair at a time), one launch, in
+    both types, the bf16 stencil staged and through L2; within the plain
+    version's tolerance over the unpadded weights."""
+    x, ws = _a2c2f_inputs(shape, c_, 64, 1, dtype, cuda, seed=c_ + heads)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        out = a2c2f_fused(x, ws, 1, area, heads)
+        torch.cuda.synchronize()
+        ref = a2c2f_fused_plain(x, ws, 1, area, heads)
+    assert kernels.launch_counts()["a2c2f"] == 1
+    assert out.dtype == dtype and bool(torch.isfinite(out).all())
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert ref.float().abs().max().item() > 0.05
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("tile", [32, 64])
+def test_a2c2f_blocked_at_each_token_tile(cuda, tile, dtype):
+    """Both kernels' blocked form forced onto each token tile (f32: both
+    layouts, the 32-token tile's two key groups merged), two stages, bands
+    of 60 (ragged tiles and key tiles), two heads of 96 (padded to 128);
+    f32 within 1e-4, bf16 within 2e-2."""
+    x, ws = _a2c2f_inputs((2, 12, 20, 64), 192, 96, 2, dtype, cuda,
+                          seed=tile)
+    with torch.no_grad():
+        out = _launch_a2c2f(x, ws, 2, 4, 2, tile=tile)
+        torch.cuda.synchronize()
+        ref = a2c2f_fused_plain(x, ws, 2, 4, 2)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert ref.float().abs().max().item() > 0.05
+
+
 def _nms_inputs(bsz, k, case, device, seed):
     rng = np.random.default_rng(seed)
     if case == "grid":     # IoU exactly 1/2 between lattice neighbours
@@ -1320,8 +1479,8 @@ def test_a2c2f_refuses_what_it_cannot_run(cuda):
     f32 (the register-tiled kernel streams every operand) and 5 stages (the
     ABlocks' pointers are a device array), within 1e-4 of the plain
     version; cin 16384 in bf16 runs too (the wgmma kernel streams x in
-    boxes with cv1's weight stages), within 2e-2; a head wider than 64 is
-    refused."""
+    boxes with cv1's weight stages), within 2e-2; so does one head of 96
+    (padded to 128, the blocked form), within 1e-4."""
     for shape, c_, n, heads in (((1, 8, 8, 32), 64, 1, 1),
                                 ((1, 4, 4, 16384), 32, 1, 1),
                                 ((1, 4, 4, 32), 32, 5, 1)):
@@ -1335,8 +1494,9 @@ def test_a2c2f_refuses_what_it_cannot_run(cuda):
     ref = a2c2f_fused_plain(x, ws, 1, 1, 1)
     assert (out.float() - ref.float()).abs().max().item() <= 2e-2
     x, ws = _a2c2f_inputs((1, 4, 4, 32), 96, 32, 1, torch.float32, cuda, 0)
-    with pytest.raises(ValueError, match="head_dim up to 64"):
-        a2c2f_fused(x, ws, 1, 1, 1)                    # one head of 96
+    out = a2c2f_fused(x, ws, 1, 1, 1)                  # one head of 96
+    ref = a2c2f_fused_plain(x, ws, 1, 1, 1)
+    assert (out - ref).abs().max().item() <= 1e-4
     x, ws = _a2c2f_inputs((1, 4, 4, 32), 32, 32, 1, torch.float32, cuda, 0)
     with pytest.raises(ValueError, match="one device"):
         a2c2f_fused(x, [ws[0].cpu(), *ws[1:]], 1, 1, 1)

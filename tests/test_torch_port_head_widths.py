@@ -70,11 +70,12 @@ def _qkv_inputs(g, n, c, seed):
 
 
 def test_padded_head_dim_and_the_padding_round_trip():
-    """32 up to 32 channels, 64 up to 64, none past; each head's channels
-    first and zeros after them; `cut_heads` undoes `pad_heads`."""
+    """32 up to 32 channels, 64 up to 64, past 64 the next multiple of 64
+    (the blocked form's); each head's channels first and zeros after them;
+    `cut_heads` undoes `pad_heads`."""
     assert KERNEL_HEAD_DIMS == (32, 64)
     assert [padded_head_dim(h) for h in (1, 8, 32, 33, 48, 63, 64, 65)] == \
-        [32, 32, 32, 64, 64, 64, 64, 0]
+        [32, 32, 32, 64, 64, 64, 64, 128]
     t = torch.arange(2 * 5 * 3 * 40, dtype=torch.float32).reshape(2, 5, 120)
     p = pad_heads(t, 3, 64)
     assert p.shape == (2, 5, 192)

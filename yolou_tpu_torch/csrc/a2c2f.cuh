@@ -6,8 +6,10 @@
 // Replaces yolou_tpu/ops/pallas_a2c2f.py::a2c2f_fused (Pallas body
 // _a2c2f_kernel). With T the I/O type (f32 or bf16), every product
 // accumulated in f32, N = H*W tokens per image, c_ the block's width and ca
-// the attention's (c_, or heads * 32 / 64 where the wrapper padded each head
-// with zero channels to a width the kernels are built for):
+// the attention's (c_, or heads * hdp where the wrapper padded each head
+// with zero channels to a width the kernels take: hdp 32 or 64, or past 64
+// a multiple of 64, which both kernels attend in 64-channel blocks: a (head,
+// output block) pair at a time, its scores summed over the head's blocks):
 //   y0 = silu(x.Wcv1 + b) -> T;  t = y0
 //   per stage, twice (two ABlocks):
 //     qkv = (t.Wqkv + b) -> T                   (N, 3ca) role-major q | k | v
@@ -62,6 +64,10 @@
 namespace yolou {
 namespace a2c2f {
 
+// The HD template argument of both kernels' form for heads wider than 64
+// (a multiple of 64, in blocks of 64 channels); the others are 32 and 64.
+constexpr int BLOCKED = 0;
+
 struct ABlockWeights {
   const void* wqkv; const float* bqkv;
   const float* wpe; const float* bpe;
@@ -90,7 +96,9 @@ struct Params {
   // (boxes of a head x 128 keys)
   CUtensorMap x_map, ys_map, work_map, kv_map[2];
   // bf16: ys by slot (t, a box of 64 columns of one slot), the qkv buffers'
-  // q (a head x 64 rows) and v by image (64 channels x vb tokens)
+  // q (a head, or 64 channels of a wider one, x 64 rows) and v by image (64
+  // channels x vb tokens); f32, heads wider than 64: q (32 channels x TM
+  // rows)
   CUtensorMap slot_map, q_map[2], v_map[2];
 };
 
@@ -122,7 +130,8 @@ inline int entry(const void* x, const void* const* weights, int n_weights,
                  int dtype, const void* blocks, void* work, int ca,
                  float scale, int tile, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || cin <= 0 || c2 <= 0 || heads <= 0 ||
-      area <= 0 || (ca != heads * 32 && ca != heads * 64) || c_ <= 0 ||
+      area <= 0 || ca % heads ||
+      (ca / heads != 32 && ca / heads % 64) || c_ <= 0 ||
       n_stages < 1 || hid <= 0 || (dtype == 1 && hid % 16) ||
       n_weights != 4 + 20 * n_stages || (H * W) % area ||
       (dtype != 0 && dtype != 1) || blocks == nullptr ||

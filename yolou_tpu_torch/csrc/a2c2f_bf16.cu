@@ -2,7 +2,8 @@
 // what it computes, the data flow it shares with the f32 kernel, the C
 // entry, defined at the end of this file).
 //
-// `a2c2f_wgmma_kernel<HD, L2>` (heads of HD = 32 or 64 channels): a CTA of
+// `a2c2f_wgmma_kernel<HD, L2>` (heads of HD = 32 or 64 channels, or
+// BLOCKED: wider heads in 64-channel blocks, below): a CTA of
 // three warpgroups owns a tile of TM = 64 or 32 tokens of one band (the
 // wrapper's `f32_tile` rule: the fewest token rows on the busiest SM, 64 on
 // a tie; a sweep of both tiles backs it, PERF.md) and
@@ -44,7 +45,12 @@
 //    k^T on wgmma, the online softmax on the accumulator in exp2 with the
 //    true scale folded in, the probabilities rounded to bf16 in registers as
 //    the A operand of O += P V (v MN-major), the product of tile i - 1
-//    issued with tile i's scores, f32 o. Every band length streams.
+//    issued with tile i's scores, f32 o. Every band length streams. Heads
+//    wider than 64 (`attend_blocked`): the first consumer warpgroup attends
+//    each (head, 64-channel output block) pair, its scores summed over the
+//    head's blocks, a unit of the k/v ring a key tile's k block with q's
+//    block (v's riding with the last), in the memory of a head of 64; each
+//    block recomputes the head's softmax.
 //  * The 7x7 stencil from shared memory: per block of 64 channels the v
 //    rows of the tile's tokens +- 3 image rows + 3 tokens (boxes of a map
 //    of the qkv scratch by image, zero outside it), a thread of both
@@ -114,7 +120,9 @@ constexpr int SMEM_LIMIT = 227 * 1024 - 1024;
 
 // Heads of 32 take a k/v ring and two q slots per consumer warpgroup (two
 // heads at once), heads of 64 one ring and two slots (the first warpgroup):
-// 64 KB of k/v and 16 KB of q either way.
+// 64 KB of k/v and 16 KB of q either way. Heads wider than 64 (BLOCKED)
+// lay out as heads of 64: a ring stage of their blocked form holds a 64-
+// channel k block, v's and, in the stage's q slot, q's.
 __host__ __device__ constexpr int kv_rings(int hd) { return hd == 64 ? 1 : 2; }
 __host__ __device__ inline int up64(int k) { return (k + 63) & ~63; }
 
@@ -127,6 +135,7 @@ struct Layout {
 
 __host__ __device__ inline Layout layout(int c_, int ca, int hid, int hd,
                                          int ring, int vrows) {
+  hd = hd == 32 ? 32 : 64;                      // wider heads: blocks of 64
   Layout L;
   L.t = ring * W_STAGE * 2;
   L.u = L.t + up64(c_) * ROWS * 2;
@@ -582,6 +591,64 @@ __device__ __forceinline__ void attend(const Bufs& b, Pos& pos, int h,
   }
 }
 
+// The blocked form of `attend` (heads wider than 64, the first consumer
+// warpgroup alone): output block sb of u (64 channels of one head, whose
+// nbk 64-channel blocks the producer streams). Each unit of the k/v ring is
+// one of the head's blocks j of a key tile: its k block, q's block in the
+// stage's q slot and, with the last block, v's block sb. S = sum_j q_j
+// k_j^T, each unit's products waited before its stage is freed (no wgmma
+// group open across a loop's back edge), then `attend`'s online softmax
+// and O += P V, waited too; u[:, 64 sb ..) = ((o + pe) -> bf16), pe at
+// column 0 of the positional term's tile.
+__device__ __forceinline__ void attend_blocked(const Bufs& b, Pos& pos,
+                                               int sb, int nbk, int nb,
+                                               float sl2) {
+  constexpr int KVS = KV_STAGES;
+  constexpr int TILE = KV_KEYS * CBLK;           // elements of a k or v tile
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int t = lane & 3;
+  const int r_lo = 16 * warp + (lane >> 2);      // rows r_lo, r_lo + 8
+  const int tiles = (nb + KV_KEYS - 1) / KV_KEYS;
+  float s[64], oacc[CBLK / 2];
+  uint32_t p[8][4];
+#pragma unroll
+  for (int e = 0; e < CBLK / 2; ++e) oacc[e] = 0.f;
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+  for (int i = 0; i < tiles; ++i) {
+    int st = 0;
+    for (int j = 0; j < nbk; ++j) {              // S = sum_j q_j k_j^T
+      st = pos.kv % KVS;
+      mwait(&b.kv_full[st], (pos.kv / KVS) & 1);
+      wgmma_block_scores(s, smem_desc_sw128(b.q + st * ROWS * CBLK),
+                         smem_desc_sw128(b.kv + st * 2 * TILE), j);
+      if (j < nbk - 1) {                         // the last one holds v
+        if (tid == 0) mbar_arrive(&b.kv_empty[st]);
+        ++pos.kv;
+      }
+    }
+    mask_keys_past(s, i * KV_KEYS, nb, t);       // keys past the band
+    const float2 c = online_softmax(s, sl2, m_lo, m_hi, l_lo, l_hi);
+    rescale_and_pack<CBLK>(oacc, p, s, c);
+    wgmma_block_pv(oacc, p, b.kv + st * 2 * TILE + TILE);   // O += P V
+    if (tid == 0) mbar_arrive(&b.kv_empty[st]);
+    ++pos.kv;
+  }
+  const float inv_lo = 1.f / quad_sum(l_lo), inv_hi = 1.f / quad_sum(l_hi);
+#pragma unroll
+  for (int j = 0; j < CBLK / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    const float2 pl = *reinterpret_cast<const float2*>(b.pe + r_lo * PE_LD +
+                                                       col);
+    const float2 ph =
+        *reinterpret_cast<const float2*>(b.pe + (r_lo + 8) * PE_LD + col);
+    *reinterpret_cast<uint32_t*>(b.u + sw_at(r_lo, CBLK * sb + col)) =
+        pack_bf16(oacc[4 * j] * inv_lo + pl.x, oacc[4 * j + 1] * inv_lo + pl.y);
+    *reinterpret_cast<uint32_t*>(b.u + sw_at(r_lo + 8, CBLK * sb + col)) =
+        pack_bf16(oacc[4 * j + 2] * inv_hi + ph.x,
+                  oacc[4 * j + 3] * inv_hi + ph.y);
+  }
+}
+
 // The tile a CTA works on in a phase.
 struct Tile {
   int q0, bg, rows;       // first query row in the band, band, rows < TM
@@ -765,37 +832,65 @@ a2c2f_wgmma_kernel(const __grid_constant__ Params p) {
         const int n_keys = (nb + KV_KEYS - 1) / KV_KEYS;
         for (int sb = 0; sb < nsb; ++sb) {
           if (sb > 0 && !L2) issue_v(sb);
-          // the block's heads (two of 32 or one of 64), head j to
-          // consumer warpgroup j: its q slots and its k/v ring, the two
-          // rings filled in turns
-          const int h0 = sb * CBLK / HD_;
-          const int nh = min(p.heads, (sb + 1) * CBLK / HD_) - h0;
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            if (j >= nh) break;
-            const int qs = pq[j] & 1;
-            if (pq[j] >= 2)
-              mwait(&b.q_empty[2 * j + qs], ((pq[j] >> 1) - 1) & 1);
-            mbar_expect_tx(&b.q_full[2 * j + qs], ROWS * HD_ * 2);
-            tma_load_3d(b.q + (2 * j + qs) * ROWS * HD_, &p.q_map[cur],
-                        &b.q_full[2 * j + qs], (h0 + j) * HD_, tl.q0, tl.bg);
-            ++pq[j];
-          }
-          for (int i = 0; i < n_keys; ++i) {
+          if constexpr (HD_ == BLOCKED) {
+            // output block sb of a head of nbk blocks (its first channel
+            // c0): per key tile the head's blocks j, each a unit of ring 0
+            // (k's block, q's in the stage's q slot), v's block sb riding
+            // with the last
+            const int nbk = ca / p.heads / CBLK;
+            const int c0 = CBLK * (sb - sb % nbk);
+            for (int i = 0; i < n_keys; ++i)
+              for (int j = 0; j < nbk; ++j) {
+                const int st = pkv[0] % KVS;
+                const bool last = j == nbk - 1;
+                uint64_t* full = &b.kv_full[st];
+                if (pkv[0] >= KVS)
+                  mwait(&b.kv_empty[st], ((pkv[0] / KVS) - 1) & 1);
+                bf16* kt = b.kv + st * 2 * KV_KEYS * CBLK;
+                mbar_expect_tx(full,
+                               ((last ? 2 : 1) * KV_KEYS + ROWS) * CBLK * 2);
+                tma_load_3d(kt, &p.kv_map[cur], full, ca + c0 + CBLK * j,
+                            i * KV_KEYS, tl.bg);
+                if (last)
+                  tma_load_3d(kt + KV_KEYS * CBLK, &p.kv_map[cur], full,
+                              2 * ca + CBLK * sb, i * KV_KEYS, tl.bg);
+                tma_load_3d(b.q + st * ROWS * CBLK, &p.q_map[cur], full,
+                            c0 + CBLK * j, tl.q0, tl.bg);
+                ++pkv[0];
+              }
+          } else {
+            // the block's heads (two of 32 or one of 64), head j to
+            // consumer warpgroup j: its q slots and its k/v ring, the two
+            // rings filled in turns
+            const int h0 = sb * CBLK / HD_;
+            const int nh = min(p.heads, (sb + 1) * CBLK / HD_) - h0;
 #pragma unroll
             for (int j = 0; j < 2; ++j) {
               if (j >= nh) break;
-              const int st = pkv[j] % KVS;
-              uint64_t* full = &b.kv_full[j * KVS + st];
-              if (pkv[j] >= KVS)
-                mwait(&b.kv_empty[j * KVS + st], ((pkv[j] / KVS) - 1) & 1);
-              bf16* kt = b.kv + (j * KVS + st) * 2 * KV_KEYS * HD_;
-              mbar_expect_tx(full, 2 * KV_KEYS * HD_ * 2);
-              tma_load_3d(kt, &p.kv_map[cur], full, ca + (h0 + j) * HD_,
-                          i * KV_KEYS, tl.bg);
-              tma_load_3d(kt + KV_KEYS * HD_, &p.kv_map[cur], full,
-                          2 * ca + (h0 + j) * HD_, i * KV_KEYS, tl.bg);
-              ++pkv[j];
+              const int qs = pq[j] & 1;
+              if (pq[j] >= 2)
+                mwait(&b.q_empty[2 * j + qs], ((pq[j] >> 1) - 1) & 1);
+              mbar_expect_tx(&b.q_full[2 * j + qs], ROWS * HD_ * 2);
+              tma_load_3d(b.q + (2 * j + qs) * ROWS * HD_, &p.q_map[cur],
+                          &b.q_full[2 * j + qs], (h0 + j) * HD_, tl.q0, tl.bg);
+              ++pq[j];
+            }
+            for (int i = 0; i < n_keys; ++i) {
+#pragma unroll
+              for (int j = 0; j < 2; ++j) {
+                if (j >= nh) break;
+                const int st = pkv[j] % KVS;
+                uint64_t* full = &b.kv_full[j * KVS + st];
+                if (pkv[j] >= KVS)
+                  mwait(&b.kv_empty[j * KVS + st], ((pkv[j] / KVS) - 1) & 1);
+                bf16* kt = b.kv + (j * KVS + st) * 2 * KV_KEYS * HD_;
+                mbar_expect_tx(full, 2 * KV_KEYS * HD_ * 2);
+                tma_load_3d(kt, &p.kv_map[cur], full, ca + (h0 + j) * HD_,
+                            i * KV_KEYS, tl.bg);
+                tma_load_3d(kt + KV_KEYS * HD_, &p.kv_map[cur], full,
+                            2 * ca + (h0 + j) * HD_, i * KV_KEYS, tl.bg);
+                ++pkv[j];
+              }
             }
           }
         }
@@ -828,12 +923,18 @@ a2c2f_wgmma_kernel(const __grid_constant__ Params p) {
           }
           consumer_sync();                       // pe written, v rows read
           if (!L2 && ctid == 0) mbar_arrive(b.v_empty);
-          // the block's heads: head h0 + cw on warpgroup cw
-          const int h = sb * CBLK / HD_ + cw;
-          const int nh = min(p.heads, (sb + 1) * CBLK / HD_) - sb * CBLK / HD_;
-          if (cw < nh)
-            attend<HD_>(b, pos, h, nb, rows, sl2, h * HD_ - CBLK * sb, cw,
-                        nh == 2);
+          if constexpr (HD_ == BLOCKED) {        // one block of a head
+            if (cw == 0) attend_blocked(b, pos, sb, ca / p.heads / CBLK, nb,
+                                        sl2);
+          } else {
+            // the block's heads: head h0 + cw on warpgroup cw
+            const int h = sb * CBLK / HD_ + cw;
+            const int nh =
+                min(p.heads, (sb + 1) * CBLK / HD_) - sb * CBLK / HD_;
+            if (cw < nh)
+              attend<HD_>(b, pos, h, nb, rows, sl2, h * HD_ - CBLK * sb, cw,
+                          nh == 2);
+          }
           consumer_sync();                       // pe read
         }
         fence_proxy_async();                     // u, for the wgmma
@@ -1003,6 +1104,7 @@ cudaError_t launch_bf16(Params& p, int tile, cudaStream_t s,
   p.vb = pl.vb;
   p.nvb = pl.nvb;
   const int hd = p.ca / p.heads, nb = p.H * p.W / p.area;
+  const int box = hd > 64 ? CBLK : hd;          // q's and k/v's boxes
   const long tokens = (long)p.B * p.H * p.W;
   const int YS = (p.n_stages + 1) * p.c_;
   cudaError_t e = band_map(&p.x_map, p.x, 1, tokens, p.cin, ROWS, false, KBLK);
@@ -1015,20 +1117,22 @@ cudaError_t launch_bf16(Params& p, int tile, cudaStream_t s,
   for (int i = 0; i < 2 && e == cudaSuccess; ++i) {
     void* qkv = i ? p.qkv1 : p.qkv0;
     e = band_map(&p.q_map[i], qkv, p.B * p.area, nb, 3 * p.ca, ROWS, false,
-                 hd);
+                 box);
     if (e == cudaSuccess)
       e = band_map(&p.kv_map[i], qkv, p.B * p.area, nb, 3 * p.ca, KV_KEYS,
-                   false, hd);
+                   false, box);
     if (e == cudaSuccess && pl.nvb)
       e = band_map(&p.v_map[i], qkv, p.B, p.H * p.W, 3 * p.ca, pl.vb, false,
                    CBLK);
   }
   if (e != cudaSuccess) return e;
   if (pl.nvb == 0)                               // the v rows through L2
-    return hd == 64 ? launch_hd<64, true>(p, pl.L.bytes, info, s)
-                    : launch_hd<32, true>(p, pl.L.bytes, info, s);
-  return hd == 64 ? launch_hd<64, false>(p, pl.L.bytes, info, s)
-                  : launch_hd<32, false>(p, pl.L.bytes, info, s);
+    return hd > 64    ? launch_hd<BLOCKED, true>(p, pl.L.bytes, info, s)
+           : hd == 64 ? launch_hd<64, true>(p, pl.L.bytes, info, s)
+                      : launch_hd<32, true>(p, pl.L.bytes, info, s);
+  return hd > 64    ? launch_hd<BLOCKED, false>(p, pl.L.bytes, info, s)
+         : hd == 64 ? launch_hd<64, false>(p, pl.L.bytes, info, s)
+                    : launch_hd<32, false>(p, pl.L.bytes, info, s);
 }
 
 }  // namespace a2c2f

@@ -28,6 +28,9 @@
 //    the scale folded in, p.v as a second micro-tile product (4 rows x 4
 //    channels a 32-channel block). At TM = 32 the CTA's two halves take the
 //    two 64-key tiles of each stage and merge their states at the end.
+//    Heads wider than 64 (HD = BLOCKED, `attend_f32_blocked`): a (head,
+//    64-channel output block) pair at a time, the scores summed over the
+//    head's 64-channel blocks, q's block riding in each stage with k's.
 //  * the 7x7 stencil: 4 channels of 2 consecutive tokens a thread, 16-byte
 //    predicated loads shared by the two tokens.
 //  * TM: the tile whose grid puts the fewest token rows on the busiest SM
@@ -60,15 +63,21 @@ constexpr int RUN_F32 = 2;         // tokens a thread of the stencil takes
 // slab [TM][32] (one TMA box) and the weight slab [32][NP] (one bulk copy of
 // the packed weight). Attention: a stage holds, per key group, k and v of
 // 64 keys as HD_ / 32 boxes of [64][32] (128-byte swizzle), then q [TM][HD_
-// + 4] and each group's probabilities [TM][LDP_ATT].
+// + 4] and each group's probabilities [TM][LDP_ATT]. The blocked form
+// (HD_ = BLOCKED, heads wider than 64): a stage holds the groups' k and v
+// tiles of one 64-channel block and q's block [TM][64] (two boxes), no q
+// tile of its own.
 template <int TM, int HD_>
 struct F32Layout : GemmTile<TM> {
   static constexpr int NG = 64 / TM;           // key groups: 1 or 2
-  static constexpr int KV_TILE = KB_ATT * HD_;  // one group's k (or v)
-  static constexpr int KV_STAGE = 2 * NG * KV_TILE;
-  static constexpr int LDQ = HD_ + 4;
-  static constexpr int ATT =
-      ATT_STAGES * KV_STAGE + TM * LDQ + NG * TM * LDP_ATT;
+  static constexpr int HB = HD_ == BLOCKED ? 64 : HD_;   // a tile's channels
+  static constexpr int KV_TILE = KB_ATT * HB;  // one group's k (or v)
+  static constexpr int Q_TILE = HD_ == BLOCKED ? TM * HB : 0;   // in a stage
+  static constexpr int KV_STAGE = 2 * NG * KV_TILE + Q_TILE;
+  static constexpr int LDQ = HB + 4;
+  static constexpr int ATT = ATT_STAGES * KV_STAGE +
+                             (HD_ == BLOCKED ? 0 : TM * LDQ) +
+                             NG * TM * LDP_ATT;
   static constexpr int FLOATS =
       GemmTile<TM>::GEMM > ATT ? GemmTile<TM>::GEMM : ATT;
   // 1024 bytes of slack for the swizzled tiles' alignment, the barriers
@@ -325,6 +334,138 @@ __device__ __forceinline__ void attend_f32(float* smem, uint64_t* kv_full,
   __syncthreads();                               // q, P and the stages free
 }
 
+// The blocked form of `attend_f32` (heads of hdp channels, a multiple of
+// 64): the attention of the tile's rows for output block ob (64 channels)
+// of head h. The ring's unit is, per key tile, one of the head's 64-channel
+// blocks j: the key groups' k block and q's block of the tile's rows (q_map:
+// (3ca, nb, bands) boxes of 32 channels x TM rows, zero past the band), v's
+// block ob riding with the last; the scores add over the units and the
+// online softmax and p.v follow the last, as `attend_f32`'s (64 channels).
+template <int TM>
+__device__ __forceinline__ void attend_f32_blocked(
+    float* smem, uint64_t* kv_full, int& kv_used, const CUtensorMap* kv_map,
+    const CUtensorMap* q_map, int ca, int hdp, int bg, int q0, int rows,
+    int nb, int h, int ob, float sl2, float* u, int ldu) {
+  using L = F32Layout<TM, BLOCKED>;
+  constexpr int NG = L::NG, CB = L::HB / 32, HB = L::HB;
+  constexpr int KEYS = NG * KB_ATT;              // keys of a stage
+  const int tid = threadIdx.x;
+  const int grp = tid / (4 * TM);                // key group
+  const int ltid = tid - grp * 4 * TM;
+  const int rg = ltid >> 4, t = ltid & 15, half = t >> 3, cq = t & 7;
+  float* Ps = smem + ATT_STAGES * L::KV_STAGE;   // [NG][TM][LDP_ATT]
+  const int nbk = hdp / HB, c0 = h * hdp;
+  const int units = (nb + KEYS - 1) / KEYS * nbk;
+
+  auto issue = [&](int n) {          // thread 0: unit n, key tile n / nbk
+    const int slot = (kv_used + n) % ATT_STAGES, j = n % nbk;
+    const bool last = j == nbk - 1;
+    float* st = smem + slot * L::KV_STAGE;
+    mbar_expect_tx(&kv_full[slot],
+                   (NG * (last ? 2 : 1) * L::KV_TILE + L::Q_TILE) *
+                       sizeof(float));
+    for (int g = 0; g < NG; ++g)
+      for (int cb = 0; cb < CB; ++cb) {
+        const int key = n / nbk * KEYS + g * KB_ATT;
+        tma_load_3d(st + 2 * g * L::KV_TILE + cb * KB_ATT * 32, kv_map,
+                    &kv_full[slot], ca + c0 + HB * j + 32 * cb, key, bg);
+        if (last)
+          tma_load_3d(st + (2 * g + 1) * L::KV_TILE + cb * KB_ATT * 32,
+                      kv_map, &kv_full[slot],
+                      2 * ca + c0 + HB * ob + 32 * cb, key, bg);
+      }
+    for (int cb = 0; cb < CB; ++cb)
+      tma_load_3d(st + 2 * NG * L::KV_TILE + cb * TM * 32, q_map,
+                  &kv_full[slot], c0 + HB * j + 32 * cb, q0, bg);
+  };
+
+  // the region's last readers done and their writes ordered before TMA
+  fence_proxy_async();
+  __syncthreads();
+  if (tid == 0) issue(0);
+  float m[4], l[4], acc[4][4 * CB], s[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4 * CB; ++e) acc[i][e] = 0.f;
+  }
+  float* Pg = Ps + (grp * TM + 4 * rg) * LDP_ATT;  // the group's own rows
+  for (int n = 0; n < units; ++n) {
+    const int slot = (kv_used + n) % ATT_STAGES;
+    mbar_wait(&kv_full[slot], ((kv_used + n) / ATT_STAGES) & 1);
+    __syncthreads();                 // stage n - 1 free
+    if (tid == 0 && n + 1 < units) issue(n + 1);
+    const int j = n % nbk;
+    const int k0 = n / nbk * KEYS + grp * KB_ATT;  // this group's keys
+    if (k0 >= nb) continue;                      // group-uniform
+    const float* Kt = smem + slot * L::KV_STAGE + 2 * grp * L::KV_TILE;
+    const float* Vt = Kt + L::KV_TILE;
+    const float* Qt = smem + slot * L::KV_STAGE + 2 * NG * L::KV_TILE;
+    if (j == 0) {
+#pragma unroll
+      for (int a = 0; a < 4; ++a) s[a][0] = s[a][1] = s[a][2] = s[a][3] = 0.f;
+    }
+    f32_block_scores<TM>(s, Qt, Kt, rg, t);
+    if (j < nbk - 1) continue;                   // the head's next block
+    f32_softmax_pv<LDP_ATT>(s, m, l, acc, Pg, Vt, k0, nb, t, sl2);
+  }
+  kv_used += units;
+  // row sums over the group, the two key halves of a thread pair added
+  f32_group_sums(l, acc);
+  float* mg = Ps;                                // NG = 2: group 1's state
+  if (NG == 2) {
+    __syncthreads();                             // every P read
+    if (grp == 1) {
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        float* row = mg + (4 * rg + a) * (HB + 2);
+        if (t == 0) {
+          row[0] = m[a];
+          row[1] = l[a];
+        }
+        if ((a >> 1) == half)
+#pragma unroll
+          for (int b = 0; b < CB; ++b)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              row[2 + 32 * b + 4 * cq + e] = acc[a][4 * b + e];
+      }
+    }
+    __syncthreads();
+  }
+  if (grp == 0) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int r = 4 * rg + a;
+      if ((a >> 1) != half || r >= rows) continue;
+      float c0s = 1.f, c1 = 0.f, den = l[a];
+      const float* row = mg + r * (HB + 2);
+      if (NG == 2) {
+        const float M = fmaxf(m[a], row[0]);
+        c0s = exp2f((m[a] - M) * sl2);           // a group that saw no key
+        c1 = exp2f((row[0] - M) * sl2);          // has m = -inf: factor 0
+        den = l[a] * c0s + row[1] * c1;
+      }
+      const float inv = 1.f / den;
+#pragma unroll
+      for (int b = 0; b < CB; ++b) {
+        float o[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          o[e] = acc[a][4 * b + e] * c0s;
+          if (NG == 2) o[e] += row[2 + 32 * b + 4 * cq + e] * c1;
+          o[e] *= inv;
+        }
+        st4(u + (size_t)r * ldu + c0 + HB * ob + 32 * b + 4 * cq,
+            make_float4(o[0], o[1], o[2], o[3]));
+      }
+    }
+  }
+  __syncthreads();                               // P and the stages free
+}
+
 // u += dw7x7(v) + bpe for a tile's rows: 4 channels of RUN_F32
 // consecutive tokens a thread, the tokens sharing each image row's 16-byte
 // loads of v (the previous phase's scratch, through L1) where they lie in
@@ -453,10 +594,19 @@ a2c2f_f32_kernel(const __grid_constant__ Params p) {
       float* u = ht + hid;                               // [rows][ca]
       float* yt = ys + tok0 * YS;
 
-      // o, head by head, into u
-      for (int h = 0; h < p.heads; ++h)
-        attend_f32<TM, HD_>(smem, kv_full, kv_used, kv_map, cur, QS, ca, bg,
-                            q0, band0, rows, nb, h, sl2, u, WK);
+      // o, head by head (wider heads a 64-channel block at a time), into u
+      if constexpr (HD_ == BLOCKED) {
+        const int hdp = ca / p.heads;
+        for (int h = 0; h < p.heads; ++h)
+          for (int ob = 0; ob < hdp / 64; ++ob)
+            attend_f32_blocked<TM>(smem, kv_full, kv_used, kv_map,
+                                   &p.q_map[a & 1], ca, hdp, bg, q0, rows,
+                                   nb, h, ob, sl2, u, WK);
+      } else {
+        for (int h = 0; h < p.heads; ++h)
+          attend_f32<TM, HD_>(smem, kv_full, kv_used, kv_map, cur, QS, ca,
+                              bg, q0, band0, rows, nb, h, sl2, u, WK);
+      }
       // u = o + dw7x7(v) + bpe (f32: the rounding is the identity)
       const int C4 = ca / 4, runs = (rows + RUN_F32 - 1) / RUN_F32;
       for (int i = tid; i < runs * C4; i += F32_THREADS) {
@@ -552,7 +702,8 @@ int f32_per_sm() {
 // The grid must be co-resident for grid.sync(): no more CTAs than the SMs
 // hold at once, never a smaller tile to make it fit. The maps are encoded
 // here: x, ys and the work scratch in boxes of 32 columns x TM rows, the
-// two qkv buffers as (3ca, nb, bands) in boxes of 32 channels x 64 keys.
+// two qkv buffers as (3ca, nb, bands) in boxes of 32 channels x 64 keys
+// (and, for the blocked form's q, x TM rows).
 template <int TM, int HD_>
 cudaError_t launch_f32_tile(Params& p, cudaStream_t s,
                             const DeviceInfo& info) {
@@ -563,9 +714,13 @@ cudaError_t launch_f32_tile(Params& p, cudaStream_t s,
   if (e == cudaSuccess) e = matrix_map(&p.ys_map, p.ys, tokens, YS, YS, TM);
   if (e == cudaSuccess)
     e = matrix_map(&p.work_map, p.work, tokens, WK, WK, TM);
-  for (int i = 0; i < 2 && e == cudaSuccess; ++i)
+  for (int i = 0; i < 2 && e == cudaSuccess; ++i) {
     e = band_map(&p.kv_map[i], i ? p.qkv1 : p.qkv0, p.B * p.area, nb,
                  3 * p.ca, KB_ATT, true);
+    if (e == cudaSuccess && HD_ == BLOCKED)
+      e = band_map(&p.q_map[i], i ? p.qkv1 : p.qkv0, p.B * p.area, nb,
+                   3 * p.ca, TM, true);
+  }
   if (e != cudaSuccess) return e;
   const int per_sm = f32_per_sm<TM, HD_>();
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
@@ -592,13 +747,15 @@ cudaError_t launch_f32(Params& p, int tile, cudaStream_t s,
                        const DeviceInfo& info) {
   if (p.cin % 4 || p.c_ % 4 || p.hid % 4 || p.c2 % 4)
     return cudaErrorInvalidValue;
-  const bool wide = p.ca == 64 * p.heads;
+  const int hd = p.ca / p.heads;
   if (tile == 64)
-    return wide ? launch_f32_tile<64, 64>(p, s, info)
-                : launch_f32_tile<64, 32>(p, s, info);
+    return hd > 64    ? launch_f32_tile<64, BLOCKED>(p, s, info)
+           : hd == 64 ? launch_f32_tile<64, 64>(p, s, info)
+                      : launch_f32_tile<64, 32>(p, s, info);
   if (tile == 32)
-    return wide ? launch_f32_tile<32, 64>(p, s, info)
-                : launch_f32_tile<32, 32>(p, s, info);
+    return hd > 64    ? launch_f32_tile<32, BLOCKED>(p, s, info)
+           : hd == 64 ? launch_f32_tile<32, 64>(p, s, info)
+                      : launch_f32_tile<32, 32>(p, s, info);
   return cudaErrorInvalidValue;
 }
 

@@ -2,7 +2,8 @@
 //
 // Kernel A (eval): folded qkv projection + attention. Replaces
 // yolou_tpu/ops/pallas_attn.py::area_attention_qkv_fused (Pallas body
-// _qkv_attn_kernel). For every band g and head h of hd = 32 or 64 channels:
+// _qkv_attn_kernel). For every band g and head h of hd = 32 or 64 channels
+// (or a multiple of 64, kernel C's blocked form, below):
 //   qkv = x[g] . w[:, role*C + h*hd + d] + b   (f32 accumulate, rounded to T)
 //   o[g, :, h*hd + d] = softmax(q k^T * scale) v          (f32 softmax)
 // and the value projection v is written out too (it feeds the dw7x7 conv).
@@ -52,7 +53,13 @@
 // and of 64 have one form of each streamed kernel each (heads of 64: f32
 // 32 query rows a CTA, bf16 one consumer warpgroup, tiles of two 32-channel
 // boxes (f32) or 128-byte rows on the 128-byte swizzle (bf16, four k steps
-// of q k^T, m64n64 products for p.v and the q projection)).
+// of q k^T, m64n64 products for p.v and the q projection)). Heads wider
+// than 64, which the wrapper pads with zero channels to a multiple of 64,
+// take kernel C's blocked form (`band_attention_blocked_wgmma_kernel`,
+// `band_attention_blocked_kernel`): a CTA a (head, 64-channel output block,
+// query tile), the scores summed over the head's 64-channel blocks, the
+// shared memory the same at every width; kernel A reaches it through its
+// wide form, at any N.
 
 #include "band_attention.cuh"
 #include "gemm_f32.cuh"
@@ -778,6 +785,269 @@ band_attention_stream_wgmma_kernel(
   }
 }
 
+// ------------------------------------------------- heads wider than 64
+//
+// The blocked form of the streamed attention (kernel C, and kernel A's
+// wide form after its projection) for heads of hdp = 64 j channels, j >= 2
+// (the wrapper pads a head of any width past 64 to the next multiple of 64
+// with zero channels). A CTA owns one (head, 64-channel output block, query
+// tile): the grid's first axis is heads * hdp / 64. Its scores q k^T
+// accumulate over the head's hdp / 64 channel blocks, a longer K loop into
+// the same f32 accumulators, so the numerics are the streamed kernels'; v
+// and o touch only the CTA's 64 channels, in the 64-wide form's o
+// accumulators and p.v products. The ring's unit is one key tile's 64-channel
+// k block with q's block of the CTA's query rows (q is not kept resident),
+// and each key tile's v block has a ring of its own: the shared memory is
+// the same at every hdp. Each output block recomputes the head's softmax,
+// so the score work is hdp / 64 times the head's. What bounds it: as the
+// streamed kernels, latency, here also each unit's products, waited before
+// its stage is freed, and the recomputed scores; no yolov12 graph builds
+// such heads, so it is kept simple. A kernel of its own: a runtime branch
+// on the width in the 32- and 64-wide forms would cost them registers and
+// time.
+constexpr int BLK = 64;            // channels of a block
+constexpr int UNITS_MMA = 3;       // bf16: the ring of q and k blocks
+constexpr int V_STAGES = 2;        // both types: the ring of v blocks
+
+// bf16: a producer warpgroup whose thread 0 issues every TMA box (a unit's
+// q block, 64 rows, and k block, 128 keys, then each key tile's v block;
+// 128-byte rows, the 128-byte swizzle) and one consumer warpgroup of 64
+// query rows: per unit S += q_j k_j^T (m64n128k16, four k steps), waited
+// before the unit's stage is freed (no wgmma group is left open across a
+// loop's back edge, which ptxas would serialise), then the online softmax
+// and O += P V (m64n64k16) on the tile's v block, waited too.
+__global__ void __launch_bounds__(256, 2)
+band_attention_blocked_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                                    const __grid_constant__ CUtensorMap k_map,
+                                    const __grid_constant__ CUtensorMap v_map,
+                                    bf16* __restrict__ o, int N, int C,
+                                    int hdp, float sl2) {
+  constexpr int QB = WG_ROWS * BLK;               // elements of q's block
+  constexpr int KT = KB_MMA * BLK;                // of k's or v's
+  constexpr int UNIT = QB + KT;
+  extern __shared__ unsigned char smem_raw[];
+  bf16* Us = reinterpret_cast<bf16*>(align1024(smem_raw));  // [3][q | k]
+  bf16* Vs = Us + UNITS_MMA * UNIT;                          // [2][128][64]
+  uint64_t* u_full = reinterpret_cast<uint64_t*>(Vs + V_STAGES * KT);
+  uint64_t* u_empty = u_full + UNITS_MMA;
+  uint64_t* v_full = u_empty + UNITS_MMA;
+  uint64_t* v_empty = v_full + V_STAGES;
+  const int nbk = hdp / BLK;                      // the head's blocks
+  const int c0 = blockIdx.x / nbk * hdp;          // the head's first channel
+  const int ob = blockIdx.x % nbk, g = blockIdx.y;
+  const int row0 = blockIdx.z * WG_ROWS;
+  const int tiles = (N + KB_MMA - 1) / KB_MMA;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < UNITS_MMA; ++st) {
+      mbar_init(&u_full[st], 1);
+      mbar_init(&u_empty[st], 1);
+    }
+    for (int st = 0; st < V_STAGES; ++st) {
+      mbar_init(&v_full[st], 1);
+      mbar_init(&v_empty[st], 1);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ------------------------------------------------ producer warpgroup
+    regs_release<REGS_PRODUCER>();
+    if (threadIdx.x == 0) {
+      for (int i = 0, u = 0; i < tiles; ++i) {
+        for (int j = 0; j < nbk; ++j, ++u) {
+          const int st = u % UNITS_MMA;
+          if (u >= UNITS_MMA)                    // the consumer freed it
+            mbar_wait(&u_empty[st], (u / UNITS_MMA - 1) & 1);
+          bf16* dst = Us + st * UNIT;
+          mbar_expect_tx(&u_full[st], UNIT * sizeof(bf16));
+          tma_load_3d(dst, &q_map, &u_full[st], c0 + BLK * j, row0, g);
+          tma_load_3d(dst + QB, &k_map, &u_full[st], c0 + BLK * j,
+                      i * KB_MMA, g);
+        }
+        const int vs = i % V_STAGES;
+        if (i >= V_STAGES) mbar_wait(&v_empty[vs], (i / V_STAGES - 1) & 1);
+        mbar_expect_tx(&v_full[vs], KT * sizeof(bf16));
+        tma_load_3d(Vs + vs * KT, &v_map, &v_full[vs], c0 + BLK * ob,
+                    i * KB_MMA, g);
+      }
+    }
+    return;
+  }
+
+  // --------------------------------------------------- consumer warpgroup
+  regs_claim<216>();
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int t = lane & 3;
+  const int r_lo = 16 * warp + (lane >> 2);      // rows r_lo, r_lo + 8
+  // s: the 64 x 128 scores (as the streamed kernel's); p: the tile's
+  // probabilities as A fragments; oacc: O of the block's 64 channels
+  float s[64], oacc[BLK / 2];
+  uint32_t p[8][4];
+#pragma unroll
+  for (int e = 0; e < BLK / 2; ++e) oacc[e] = 0.f;
+  float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+  for (int i = 0, u = 0; i < tiles; ++i) {
+    for (int j = 0; j < nbk; ++j, ++u) {         // S = sum_j q_j k_j^T
+      const int st = u % UNITS_MMA;
+      mbar_wait(&u_full[st], (u / UNITS_MMA) & 1);
+      wgmma_block_scores(s, smem_desc_sw128(Us + st * UNIT),
+                         smem_desc_sw128(Us + st * UNIT + QB), j);
+      if (tid == 0) mbar_arrive(&u_empty[st]);
+    }
+    const int k0 = i * KB_MMA;
+    if (k0 + KB_MMA > N) mask_keys_past(s, k0, N, t);
+    const float2 c = online_softmax(s, sl2, m_lo, m_hi, l_lo, l_hi);
+    rescale_and_pack<BLK>(oacc, p, s, c);
+    const int vs = i % V_STAGES;
+    mbar_wait(&v_full[vs], (i / V_STAGES) & 1);
+    wgmma_block_pv(oacc, p, Vs + vs * KT);       // O += P V of this tile
+    if (tid == 0) mbar_arrive(&v_empty[vs]);
+  }
+
+  const float inv_lo = 1.f / quad_sum(l_lo), inv_hi = 1.f / quad_sum(l_hi);
+  const int n_lo = row0 + r_lo, n_hi = n_lo + 8;
+  bf16* og = o + (size_t)g * N * C + c0 + BLK * ob + 2 * t;
+#pragma unroll
+  for (int j = 0; j < BLK / 8; ++j) {
+    if (n_lo < N)
+      *reinterpret_cast<__nv_bfloat162*>(og + (size_t)n_lo * C + 8 * j) =
+          __floats2bfloat162_rn(oacc[4 * j] * inv_lo,
+                                oacc[4 * j + 1] * inv_lo);
+    if (n_hi < N)
+      *reinterpret_cast<__nv_bfloat162*>(og + (size_t)n_hi * C + 8 * j) =
+          __floats2bfloat162_rn(oacc[4 * j + 2] * inv_hi,
+                                oacc[4 * j + 3] * inv_hi);
+  }
+}
+
+// f32: R query rows a CTA (4 R threads, the 64-wide form's micro-tiles);
+// thread 0 issues the TMA boxes (a unit's k block, 64 keys, and q block of
+// the R rows; each key tile's v block; boxes of 32 channels) one unit or
+// tile ahead into rings of two stages, freed by every warp through their
+// `empty` barriers. The scores of a unit add to the tile's (4 x 4 a thread,
+// in f32 FMAs over the block's 64 channels in order); after the head's last
+// block, the online softmax and p.v as the streamed kernel's.
+template <int R>
+__global__ void __launch_bounds__(4 * R)
+band_attention_blocked_kernel(const __grid_constant__ CUtensorMap q_map,
+                              const __grid_constant__ CUtensorMap k_map,
+                              const __grid_constant__ CUtensorMap v_map,
+                              float* __restrict__ o, int N, int C, int hdp,
+                              float sl2) {
+  constexpr int KT = KB_F32 * BLK;                // floats of k's or v's block
+  constexpr int UNIT = KT + R * BLK;              // a k block, then q's
+  constexpr int CB = BLK / 32;                    // 32-channel boxes a block
+  extern __shared__ unsigned char smem_raw[];
+  float* Us = reinterpret_cast<float*>(align1024(smem_raw));  // [2][k | q]
+  float* Vs = Us + STAGES_F32 * UNIT;                         // [2][64][64]
+  float* Ps = Vs + V_STAGES * KT;                             // [R][LDP]
+  uint64_t* u_full = reinterpret_cast<uint64_t*>(Ps + R * LDP);
+  uint64_t* u_empty = u_full + STAGES_F32;
+  uint64_t* v_full = u_empty + STAGES_F32;
+  uint64_t* v_empty = v_full + V_STAGES;
+  const int nbk = hdp / BLK;
+  const int c0 = blockIdx.x / nbk * hdp, ob = blockIdx.x % nbk;
+  const int g = blockIdx.y, row0 = blockIdx.z * R;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int tiles = (N + KB_F32 - 1) / KB_F32, units = tiles * nbk;
+
+  // unit u (key tile u / nbk, block u % nbk) -> stage u % 2
+  auto load_unit = [&](int u) {
+    const int st = u % STAGES_F32, ch = c0 + BLK * (u % nbk);
+    float* dst = Us + st * UNIT;
+    mbar_expect_tx(&u_full[st], UNIT * sizeof(float));
+    for (int cb = 0; cb < CB; ++cb) {
+      tma_load_3d(dst + cb * KB_F32 * 32, &k_map, &u_full[st], ch + 32 * cb,
+                  u / nbk * KB_F32, g);
+      tma_load_3d(dst + KT + cb * R * 32, &q_map, &u_full[st], ch + 32 * cb,
+                  row0, g);
+    }
+  };
+  auto load_v = [&](int i) {                     // key tile i -> stage i % 2
+    const int st = i % V_STAGES;
+    mbar_expect_tx(&v_full[st], KT * sizeof(float));
+    for (int cb = 0; cb < CB; ++cb)
+      tma_load_3d(Vs + st * KT + cb * KB_F32 * 32, &v_map, &v_full[st],
+                  c0 + BLK * ob + 32 * cb, i * KB_F32, g);
+  };
+  if (tid == 0) {
+    for (int st = 0; st < STAGES_F32; ++st) {
+      mbar_init(&u_full[st], 1);
+      mbar_init(&u_empty[st], 4 * R / 32);      // a warp each
+    }
+    for (int st = 0; st < V_STAGES; ++st) {
+      mbar_init(&v_full[st], 1);
+      mbar_init(&v_empty[st], 4 * R / 32);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int u = 0; u < min(STAGES_F32, units); ++u) load_unit(u);
+    for (int i = 0; i < min(V_STAGES, tiles); ++i) load_v(i);
+  }
+
+  // a group of 16 threads (half a warp) owns rows 4 rg .. 4 rg + 3: the
+  // streamed kernel's micro-tiles at 64 channels
+  const int rg = tid >> 4, t = tid & 15, half = t >> 3, cq = t & 7;
+  float m[4], l[4], acc[4][4 * CB], s[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4 * CB; ++e) acc[i][e] = 0.f;
+  }
+  float* Pg = Ps + 4 * rg * LDP;
+  for (int i = 0, u = 0; i < tiles; ++i) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+      s[a][0] = s[a][1] = s[a][2] = s[a][3] = 0.f;
+    for (int j = 0; j < nbk; ++j, ++u) {
+      const int st = u % STAGES_F32;
+      // unit u + 1 into the stage unit u - 1 used, once every warp freed it
+      if (tid == 0 && u >= 1 && u + 1 < units) {
+        mbar_wait(&u_empty[(u + 1) % STAGES_F32],
+                  ((u + 1) / STAGES_F32 - 1) & 1);
+        load_unit(u + 1);
+      }
+      mbar_wait(&u_full[st], (u / STAGES_F32) & 1);
+      f32_block_scores<R>(s, Us + st * UNIT + KT, Us + st * UNIT, rg, t);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&u_empty[st]);  // this warp is done with it
+    }
+    // v of tile i + 1 into the stage tile i - 1 used
+    if (tid == 0 && i >= 1 && i + 1 < tiles) {
+      mbar_wait(&v_empty[(i + 1) % V_STAGES], ((i + 1) / V_STAGES - 1) & 1);
+      load_v(i + 1);
+    }
+    const int vs = i % V_STAGES;
+    mbar_wait(&v_full[vs], (i / V_STAGES) & 1);
+    f32_softmax_pv<LDP>(s, m, l, acc, Pg, Vs + vs * KT, i * KB_F32, N, t,
+                        sl2);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&v_empty[vs]);
+  }
+  // the row sums over the group, the two key halves added, rows 2 half and
+  // 2 half + 1 of the group stored by this thread
+  f32_group_sums(l, acc);
+  float* og = o + (size_t)g * N * C + c0 + BLK * ob + 4 * cq;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int n = row0 + 4 * rg + a;
+    if ((a >> 1) == half && n < N) {
+      const float inv = 1.f / l[a];
+#pragma unroll
+      for (int b = 0; b < CB; ++b)
+        *reinterpret_cast<float4*>(og + (size_t)n * C + 32 * b) =
+            make_float4(acc[a][4 * b] * inv, acc[a][4 * b + 1] * inv,
+                        acc[a][4 * b + 2] * inv, acc[a][4 * b + 3] * inv);
+    }
+  }
+}
+
 // Shared memory of the streamed kernels at head width hd (bytes, with 1024
 // of slack for the tiles' alignment); `kernels/attention.py::
 // stream_smem_bytes` mirrors it.
@@ -801,6 +1071,25 @@ size_t stream_wgmma_smem(int C, int NC, bool project, int hd) {
                          (project ? (size_t)C * hd + (size_t)NC * WG_ROWS * C
                                   : 0)) +
          8 * (2 * STAGES_MMA + 1);
+}
+
+// The blocked form's: bf16 three units of a q and a k block and two v
+// blocks; f32 two units of a k and a q block, two v blocks and the
+// probabilities; a full and an empty barrier a stage.
+constexpr int BLOCKED_F32_ROWS = 32;   // query rows of an f32 CTA
+
+size_t blocked_smem(int dtype) {
+  if (dtype == 1)
+    return 1024 +
+           sizeof(bf16) * ((size_t)UNITS_MMA * (WG_ROWS + KB_MMA) * BLK +
+                           (size_t)V_STAGES * KB_MMA * BLK) +
+           8 * 2 * (UNITS_MMA + V_STAGES);
+  return 1024 +
+         sizeof(float) * ((size_t)STAGES_F32 * (KB_F32 + BLOCKED_F32_ROWS) *
+                              BLK +
+                          (size_t)V_STAGES * KB_F32 * BLK +
+                          (size_t)BLOCKED_F32_ROWS * LDP) +
+         8 * 2 * (STAGES_F32 + V_STAGES);
 }
 
 // setmaxnreg moves registers between the warpgroups of a CTA: each
@@ -927,6 +1216,41 @@ cudaError_t stream_wgmma(int rows, const bf16* src, const bf16* w,
   return cudaErrorInvalidValue;
 }
 
+// The blocked form (heads of hdp = C / heads channels, a multiple of 64
+// past 64): a CTA of `rows` query rows, bf16 64, f32 32, for each (head,
+// 64-channel block), C / 64 of them. The maps take boxes of 64 channels
+// (bf16) or 32 (f32) of q's rows and of k's and v's key tiles.
+cudaError_t launch_blocked(const void* q, const void* k, const void* v,
+                           void* o, int G, int N, int C, int heads, int dtype,
+                           int rows, float scale, cudaStream_t s) {
+  const bool bf = dtype == 1;
+  if (rows != (bf ? WG_ROWS : BLOCKED_F32_ROWS)) return cudaErrorInvalidValue;
+  const int keys = bf ? KB_MMA : KB_F32, cols = bf ? BLK : 32;
+  CUtensorMap qm, km, vm;
+  cudaError_t e = band_map(&qm, q, G, N, C, rows, !bf, cols);
+  if (e == cudaSuccess) e = band_map(&km, k, G, N, C, keys, !bf, cols);
+  if (e == cudaSuccess) e = band_map(&vm, v, G, N, C, keys, !bf, cols);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(C / BLK, G, (N + rows - 1) / rows);
+  const size_t smem = blocked_smem(dtype);
+  const int hdp = C / heads;
+  if (bf) {
+    constexpr auto kernel = band_attention_blocked_wgmma_kernel;
+    e = allow_smem<kernel>();
+    if (e == cudaSuccess) e = check_reallocation<kernel>(1, 216);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, 256, smem, s>>>(qm, km, vm, static_cast<bf16*>(o), N, C,
+                                   hdp, scale * LOG2E);
+  } else {
+    constexpr auto kernel = band_attention_blocked_kernel<BLOCKED_F32_ROWS>;
+    e = allow_smem<kernel>();
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, 4 * BLOCKED_F32_ROWS, smem, s>>>(
+        qm, km, vm, static_cast<float*>(o), N, C, hdp, scale * LOG2E);
+  }
+  return cudaGetLastError();
+}
+
 // The query rows a streamed CTA may take: f32 64, 32 or 16; bf16 64 or 128
 // (one or two consumer warpgroups).
 bool stream_rows_valid(int dtype, int rows) {
@@ -1036,6 +1360,8 @@ cudaError_t launch_attn_stream(const void* q, const void* k, const void* v,
                                int dtype, int rows, float scale,
                                cudaStream_t s) {
   if (!stream_rows_valid(dtype, rows)) return cudaErrorInvalidValue;
+  if (C / heads > 64)
+    return launch_blocked(q, k, v, o, G, N, C, heads, dtype, rows, scale, s);
   if (dtype == 1)
     return stream_wgmma<false>(
         rows, static_cast<const bf16*>(q), nullptr, nullptr,
@@ -1049,14 +1375,15 @@ cudaError_t launch_attn_stream(const void* q, const void* k, const void* v,
 
 // Kernel A's wide form: q, k and v of every head by the projection launch
 // (q and k into the scratches), then kernel C's streamed attention over
-// them at its `rows`. The rows are checked before the first launch.
+// them at its `rows` (the blocked form for heads past 64). The rows are
+// checked before the first launch.
 cudaError_t launch_qkv_wide(const void* x, const void* w, const void* b,
                             void* o, void* v, void* k, void* q, int G, int N,
                             int C, int heads, int dtype, int rows,
                             float scale, cudaStream_t s) {
-  const bool wide64 = C / heads == 64;
+  const bool one_form = C / heads >= 64;         // one row count each
   if (!stream_rows_valid(dtype, rows) ||
-      (wide64 && rows != (dtype == 1 ? WG_ROWS : 32)))
+      (one_form && rows != (dtype == 1 ? WG_ROWS : BLOCKED_F32_ROWS)))
     return cudaErrorInvalidValue;
   const cudaError_t e = project(x, w, b, q, k, v, G, N, C, dtype, s);
   if (e != cudaSuccess) return e;
@@ -1064,9 +1391,12 @@ cudaError_t launch_qkv_wide(const void* x, const void* w, const void* b,
                             s);
 }
 
-// Heads 32 or 64 wide.
-bool head_ok(int C, int heads) {
-  return heads > 0 && (C == heads * 32 || C == heads * 64);
+// Heads 32 or 64 wide (the q-projecting kernels); with `blocked` also
+// any multiple of 64 (kernel C and kernel A's wide form).
+bool head_ok(int C, int heads, bool blocked = false) {
+  return heads > 0 && C % heads == 0 &&
+         (C / heads == 32 || C / heads == 64 ||
+          (blocked && C / heads % 64 == 0));
 }
 
 }  // namespace
@@ -1093,17 +1423,18 @@ extern "C" int yolou_band_attention_qkv_stream(const void* x, const void* w,
 }
 
 // Kernel A's wide form (two launches: q, k and v projected, then kernel C's
-// streamed attention), any C: the arguments of the streamed path's entry
-// and q, a (G, N, C) scratch of the I/O type for the projected queries;
+// streamed attention, or its blocked form at heads past 64), any C: the
+// arguments of the streamed path's entry and q, a (G, N, C) scratch of the
+// I/O type for the projected queries; heads 32 wide or a multiple of 64;
 // rows as kernel C's (heads of 32: f32 64, 32 or 16, bf16 128 or 64; heads
-// of 64: f32 32, bf16 64).
+// of 64 and wider: f32 32, bf16 64).
 extern "C" int yolou_band_attention_qkv_wide(const void* x, const void* w,
                                              const void* b, void* o, void* v,
                                              void* k, void* q, int G, int N,
                                              int C, int heads, int dtype,
                                              int rows, float scale,
                                              void* stream) {
-  if (G <= 0 || N <= 0 || !head_ok(C, heads) || G > 65535 ||
+  if (G <= 0 || N <= 0 || !head_ok(C, heads, true) || G > 65535 ||
       (dtype != 0 && dtype != 1) || q == nullptr)
     return (int)cudaErrorInvalidValue;
   return (int)launch_qkv_wide(x, w, b, o, v, k, q, G, N, C, heads, dtype,
@@ -1113,13 +1444,14 @@ extern "C" int yolou_band_attention_qkv_wide(const void* x, const void* w,
 
 // The streamed path of kernel C, dtype 0 = float32 (FMA micro-tiles) or
 // 1 = bfloat16 (wgmma): q, k, v, o (G, N, C), head-major channels, heads
-// 32 or 64 wide, and rows (as above).
+// 32 or 64 wide or a multiple of 64 (the blocked form), and rows (as the
+// wide form's).
 extern "C" int yolou_band_attention_stream(const void* q, const void* k,
                                            const void* v, void* o, int G,
                                            int N, int C, int heads, int dtype,
                                            int rows, float scale,
                                            void* stream) {
-  if (G <= 0 || N <= 0 || !head_ok(C, heads) || G > 65535 ||
+  if (G <= 0 || N <= 0 || !head_ok(C, heads, true) || G > 65535 ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   return (int)launch_attn_stream(q, k, v, o, G, N, C, heads, dtype, rows,

@@ -3,7 +3,8 @@
 // Memory Accelerator (TMA), encoded on the host; mbarriers and TMA tile
 // loads; the wgmma matrix descriptor and warpgroup products; named barriers
 // and register reallocation between warpgroups; the wgmma attention's row
-// reductions and online-softmax step.
+// reductions and online-softmax step; the per-tile steps of the blocked
+// forms (heads wider than 64).
 //
 // Shared-memory tiles. A band's rows of one head are 32 or 64 channels. f32
 // tiles are blocks of 32 channels (128-byte rows; a 64-wide head is two
@@ -632,6 +633,185 @@ __device__ __forceinline__ void rescale_and_pack(float (&o)[HD / 2],
     p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
     p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
     p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// --------------------------------------- the blocked forms' per-tile steps
+// Heads wider than 64 are attended in 64-channel blocks, by kernel C's
+// blocked kernels (band_attention.cu) and the a2c2f kernels' blocked forms
+// (`attend_blocked`, `attend_f32_blocked`): a key tile's scores add over
+// the head's blocks, then one online-softmax step and p.v on the output
+// block's 64 channels of v. These are the steps the four share.
+
+// bf16: S (+)= q_j k_j^T over one 64-channel block, a warpgroup's 64 x 128
+// scores from q's block (64 rows) and k's (128 keys) at descriptors dq and
+// dk (the 128-byte swizzle); `accumulate` 0 (block 0) starts the sum. The
+// products are waited, so no wgmma group is left open across the caller's
+// loop (ptxas would serialise it).
+__device__ __forceinline__ void wgmma_block_scores(float (&s)[64],
+                                                   uint64_t dq, uint64_t dk,
+                                                   int accumulate) {
+  wgmma_fence();
+  wgmma_64x128_ss(s, dq, dk, accumulate);
+#pragma unroll
+  for (int kk = 1; kk < 4; ++kk)                 // 16 more: 32 bytes on
+    wgmma_64x128_ss(s, dq + 2 * kk, dk + 2 * kk, 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int e = 0; e < 64; ++e) reg_fence(s[e]);
+}
+
+// bf16: the scores of keys past n (the tile's first key k0; a thread's
+// keys 8 j + 2 t + e) set to -inf, by selects.
+__device__ __forceinline__ void mask_keys_past(float (&s)[64], int k0, int n,
+                                               int t) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool past = k0 + 8 * j + 2 * t + e >= n;
+      s[4 * j + e] = past ? -INFINITY : s[4 * j + e];
+      s[4 * j + 2 + e] = past ? -INFINITY : s[4 * j + 2 + e];
+    }
+}
+
+// bf16: O += P V of one key tile (128 keys) on v's 64-channel block at Vt
+// (`kv_at<64>`'s layout), waited, o's and p's registers fenced.
+__device__ __forceinline__ void wgmma_block_pv(float (&o)[32],
+                                               uint32_t (&p)[8][4],
+                                               const __nv_bfloat16* Vt) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_pv<64>(o, p[kk], head_desc<64>(Vt + kk * 16 * 64));
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int e = 0; e < 32; ++e) reg_fence(o[e]);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) reg_fence(p[kk][e]);
+}
+
+// f32 micro-tiles: a group of 16 threads (t = 0 .. 15) owns query rows
+// 4 rg .. 4 rg + 3, a thread keys t + 16 w (w < 4) of a tile of 64;
+// s[a][w] += q . k over one 64-channel block of q (QROWS rows) and k (64
+// keys), both 128-byte-swizzled boxes of 32 channels (`f32_at<64>`), in
+// FMAs over the channels in order.
+template <int QROWS>
+__device__ __forceinline__ void f32_block_scores(float (&s)[4][4],
+                                                 const float* Qt,
+                                                 const float* Kt, int rg,
+                                                 int t) {
+#pragma unroll
+  for (int cc = 0; cc < 16; ++cc) {
+    float4 qv[4], kv[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+      qv[a] = *reinterpret_cast<const float4*>(
+          Qt + f32_at<64>(4 * rg + a, cc, QROWS));
+#pragma unroll
+    for (int w = 0; w < 4; ++w)
+      kv[w] = *reinterpret_cast<const float4*>(
+          Kt + f32_at<64>(t + 16 * w, cc, 64));
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        s[a][w] = fmaf(qv[a].x, kv[w].x, s[a][w]);
+        s[a][w] = fmaf(qv[a].y, kv[w].y, s[a][w]);
+        s[a][w] = fmaf(qv[a].z, kv[w].z, s[a][w]);
+        s[a][w] = fmaf(qv[a].w, kv[w].w, s[a][w]);
+      }
+  }
+}
+
+// f32: one key tile's step on its finished scores s (the tile's first key
+// k0, keys past n masked; the first key exists, so every maximum is
+// finite): the online softmax of the rows' m and l, acc (a thread's
+// channels 4 cq + 32 b of rows 4 rg + a, cq = t % 8, its key half t / 8)
+// rescaled, the probabilities through the group's rows Pg (LDP_ floats
+// apart), then acc += P V over v's tile at Vt (64 keys x 64 channels).
+template <int LDP_>
+__device__ __forceinline__ void f32_softmax_pv(float (&s)[4][4],
+                                               float (&m)[4], float (&l)[4],
+                                               float (&acc)[4][8], float* Pg,
+                                               const float* Vt, int k0,
+                                               int n, int t, float sl2) {
+  const int half = t >> 3, cq = t & 7;
+  if (k0 + 64 > n) {                             // group-uniform
+#pragma unroll
+    for (int w = 0; w < 4; ++w)
+      if (k0 + t + 16 * w >= n)
+#pragma unroll
+        for (int a = 0; a < 4; ++a) s[a][w] = -INFINITY;
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    float mx = fmaxf(fmaxf(s[a][0], s[a][1]), fmaxf(s[a][2], s[a][3]));
+#pragma unroll
+    for (int d = 1; d < 16; d <<= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, d));
+    mx = fmaxf(mx, m[a]);
+    const float c = exp2f((m[a] - mx) * sl2), nbias = -mx * sl2;
+    m[a] = mx;
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      s[a][w] = exp2f(fmaf(s[a][w], sl2, nbias));
+      sum += s[a][w];
+    }
+    l[a] = l[a] * c + sum;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[a][e] *= c;
+  }
+  __syncwarp();                                  // the last tile's P read
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int w = 0; w < 4; ++w)
+      Pg[a * LDP_ + t + 16 * w + (w >= 2 ? 4 : 0)] = s[a][w];
+  __syncwarp();
+#pragma unroll 2
+  for (int jj = 0; jj < 32; jj += 4) {
+    float4 pv[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+      pv[a] = *reinterpret_cast<const float4*>(Pg + a * LDP_ + 36 * half +
+                                               jj);
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        const float4 vv = *reinterpret_cast<const float4*>(
+            Vt + f32_at<64>(32 * half + jj + w, cq + 8 * b, 64));
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const float pw = lane_of(pv[a], w);
+          float* ac = acc[a] + 4 * b;
+          ac[0] = fmaf(pw, vv.x, ac[0]);
+          ac[1] = fmaf(pw, vv.y, ac[1]);
+          ac[2] = fmaf(pw, vv.z, ac[2]);
+          ac[3] = fmaf(pw, vv.w, ac[3]);
+        }
+      }
+    }
+  }
+}
+
+// f32: after the last key tile, the row sums l over the group and the two
+// key halves of acc (threads t and t ^ 8) added.
+__device__ __forceinline__ void f32_group_sums(float (&l)[4],
+                                               float (&acc)[4][8]) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+#pragma unroll
+    for (int d = 1; d < 16; d <<= 1) l[a] += __shfl_xor_sync(FULL, l[a], d);
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      acc[a][e] += __shfl_xor_sync(FULL, acc[a][e], 8);
   }
 }
 

@@ -49,7 +49,8 @@ def path_counts(name: str = "band_attention") -> Dict[str, int]:
     """The launches of band attention kernel `name` (kernel A by default;
     "band_attention_train", "band_attention_single": kernel C) since the
     last reset by path and type ("short bf16", "streamed f32", "wide bf16"
-    (kernel A's wide form), ...; `attention.attention_plan`'s paths)."""
+    (kernel A's wide form), "blocked bf16" (heads wider than 64), ...;
+    `attention.attention_plan`'s paths)."""
     return dict(_WRAPPERS[name].path_launches)
 
 

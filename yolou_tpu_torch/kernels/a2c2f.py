@@ -15,11 +15,15 @@ The residual-gamma form of A2C2f does not route here in either package. The
 entry point is the `torch.library` operator `yolou::a2c2f` behind a checking
 wrapper, as in `attention.py`.
 
-Any head width up to 64 and any number of stages: heads whose width is not
-32 or 64 are padded with zero channels to the next of the two
-(`pad_a2c2f_heads`: the qkv columns per role and head, the pe taps and bias,
-the proj rows; `A2C2f.folded_weights` pads once, the wrapper pads what it is
-given unpadded), and the kernel takes the true scale. The ABlocks' weight
+Any head width and any number of stages: heads whose width is not 32 or 64
+are padded with zero channels to the next of the two, or past 64 to the
+next multiple of 64 (`attention.padded_head_dim`; `pad_a2c2f_heads`: the
+qkv columns per role and head, the pe taps and bias, the proj rows;
+`A2C2f.folded_weights` pads once, the wrapper pads what it is given
+unpadded), and the kernel takes the true scale. Heads wider than 64 run in
+both kernels' blocked form: a (head, 64-channel output block) pair at a
+time, its scores summed over the head's 64-channel blocks, in the shared
+memory of a head of 64. The ABlocks' weight
 pointers reach the kernel as a device array, so the stage count is free.
 The f32 kernel takes widths (cin, c_, MLP, c2) that are multiples of 4, the
 bf16 one multiples of 8; the wrapper pads others with zeros
@@ -218,12 +222,18 @@ def f32_smem_bytes(tile: int, hd: int = HEAD_DIM) -> int:
     slack, the larger of the GEMM ring (4 stages of a [tile][32] activation
     slab and a [32][4096 / tile] weight slab) and the attention's (2 stages
     of 64 / tile key groups' k and v tiles of 64 x hd, the q rows in rows of
-    hd + 4 and each key group's probability rows), then 10 mbarriers. It
+    hd + 4 and each key group's probability rows; heads wider than 64, the
+    blocked form: 2 stages of the key groups' k and v tiles of 64 x 64 and
+    q's 64-channel block of the tile's rows), then 10 mbarriers. It
     depends on no width of the block and on no stage count."""
     gemm = _STAGES * (tile * _KS + _KS * f32_panel(tile))
     groups = 64 // tile               # key groups, each its own p rows
-    att = (_ATT_STAGES * 2 * groups * _KB_ATT * hd + tile * (hd + 4)
-           + groups * tile * _LDP_ATT)
+    if hd > 64:
+        att = (_ATT_STAGES * (2 * groups * _KB_ATT + tile) * 64
+               + groups * tile * _LDP_ATT)
+    else:
+        att = (_ATT_STAGES * 2 * groups * _KB_ATT * hd + tile * (hd + 4)
+               + groups * tile * _LDP_ATT)
     return 1024 + 4 * max(gemm, att) + 8 * (2 * _STAGES + _ATT_STAGES)
 
 
@@ -254,13 +264,15 @@ def bf16_layout(c_: int, ca: int, hid: int, hd: int, ring: int,
     (c_) and u (ca) tiles (8 KB a 64-column block), then the largest of the
     attention's buffers (two q tiles and a k/v ring of 2 stages of 128
     keys for each of the two heads of 32 the consumer warpgroups take at
-    once, or for the one head of 64; the stencil's v rows for images
+    once, or for the one head of 64, or for the 64-channel blocks of a
+    head wider than 64 (the blocked form); the stencil's v rows for images
     `width` tokens wide unless not `staged` (the stencil then reads through
     L2), the f32 positional term) and the GEMMs' (the h tile, unless not
     `h_tile` (h then lives in global memory), or the ring's x / ys / h
     boxes, 8 KB a stage, then the f32 accumulator's staging); the
     mbarriers and 1024 bytes of alignment slack."""
     vb, boxes = bf16_stencil_boxes(width) if staged else (0, 0)
+    hd = 32 if hd == 32 else 64       # heads past 64: blocks of 64
     rings = 1 if hd == 64 else 2      # k/v rings, one a consumer warpgroup
     attention = (rings * 2 * _ROWS * hd * 2
                  + rings * _KV_STAGES * 2 * _KV_KEYS * hd * 2
@@ -448,9 +460,6 @@ def _kernel_weights(x, weights, n_stages, heads, tile=0):
     hd = c_ // heads
     ca = weights[2].shape[1] // 3
     hdp = ca // heads if ca != c_ else padded_head_dim(hd)
-    if not hdp:
-        raise ValueError(f"the CUDA kernel takes head_dim up to 64 (32 and "
-                         f"64, others padded), got {hd}")
     f32 = x.dtype == torch.float32
     mult = 4 if f32 else 8
     dims = (_up(x.shape[-1], mult), _up(c_, mult), heads * hdp,

@@ -34,8 +34,9 @@ the tensor cores, float32 on the FMA units in full f32 (which the 1e-4
 comparisons rest on; no TF32). Neither falls back to the other or to the
 plain version.
 
-Both kernels take one of two paths, in both types, chosen by
-`attention_plan` from the band's length alone. Every band of 64 tokens or
+At heads of 64 channels or fewer both kernels take one of two paths, in
+both types, chosen by `attention_plan` from the band's length alone (wider
+heads take the blocked path, below). Every band of 64 tokens or
 fewer runs the short path (`band_attention_short.cu`): one launch attends
 a tile of 64 rows holding P = 64 // N whole bands (kernel A also projects
 them), scores across two bands of a tile masked, a single-pass softmax
@@ -58,16 +59,22 @@ bf16 from 928 channels at heads of 32 and 512 at heads of 64, f32 from
 launch writes q too, into a scratch, and kernel C's streamed attention
 reads q, k and v. Both GEMMs ring over C, so neither launch grows with it.
 
-Head widths. The kernels are built for heads 32 and 64 channels wide
-(`KERNEL_HEAD_DIMS`). Every other width up to 64 is padded with zero
-channels to the next of the two by one function on both devices
-(`pad_heads`; kernel A also pads x's channels and the qkv weight's rows
-and columns, `pad_qkv_projection`) and runs with the true `hd ** -0.5` as
-its scale; the padded output channels are cut away (`cut_heads`). Zero
-channels add exact zeros to every score and give zero output channels, so
-this changes no value. A head wider than 64 channels, which no module
-builds, is refused on the card by name; the plain version takes it on the
-CPU.
+Head widths. The short and streamed kernels are built for heads 32 and 64
+channels wide (`KERNEL_HEAD_DIMS`); heads wider than 64 run in blocks of 64
+channels (`BLOCK`). Every other width is padded with zero channels, up to
+64 to the next of the two kernel widths and past 64 to the next multiple
+of 64 (`padded_head_dim`), by one function on both devices (`pad_heads`;
+kernel A also pads x's channels and the qkv weight's rows and columns,
+`pad_qkv_projection`) and runs with the true `hd ** -0.5` as its scale; the
+padded output channels are cut away (`cut_heads`). Zero channels add exact
+zeros to every score and give zero output channels, so this changes no
+value. A head wider than 64, which no yolov12 module builds (A2C2f makes
+max(1, c_ // 32) heads), takes the blocked path at any N (`blocked_plan`):
+kernel C's blocked form, a CTA a (head, 64-channel output block, query
+tile) whose scores sum over the head's blocks, its shared memory the same
+at every width; kernel A runs its wide form's projection, then that
+attention. Each output block recomputes the head's softmax, so the score
+work is hdp / 64 times the head's.
 """
 
 from __future__ import annotations
@@ -79,7 +86,8 @@ import torch
 from . import build
 
 HEAD_DIM = 32     # YOLOv12's head width, the default
-KERNEL_HEAD_DIMS = (32, 64)  # the head widths the CUDA kernels are built for
+KERNEL_HEAD_DIMS = (32, 64)  # the short and streamed kernels' head widths
+BLOCK = 64        # channels of a block of the blocked form (heads past 64)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 227 * 1024
 # the short path (band_attention_short.cu): a tile's rows, the channels of a
@@ -107,6 +115,17 @@ _KVB_COLS = 64
 # slack, a ring of 4 stages of a [64][32] x slab and a [32][64] weight slab,
 # 8 barriers
 _KV_F32_SMEM = 1024 + 4 * 4 * (64 * 32 + 32 * 64) + 8 * 2 * 4
+# the blocked form (band_attention.cu): its dynamic shared memory, the same
+# at every head width, 1024 bytes of slack and a full and an empty barrier
+# a stage: bf16 three units of a 64-row q block and a 128-key k block and
+# two 128-key v blocks; f32 two units of a 64-key k block and a 32-row q
+# block, two 64-key v blocks and the probabilities of 32 rows
+_BLOCKED_SMEM = {
+    torch.bfloat16: 1024 + 2 * (3 * (64 + 128) * 64 + 2 * 128 * 64)
+    + 8 * 2 * (3 + 2),
+    torch.float32: 1024 + 4 * (2 * (64 + 32) * 64 + 2 * 64 * 64 + 32 * _LDP)
+    + 8 * 2 * (2 + 2)}
+_BLOCKED_ROWS = {torch.bfloat16: 64, torch.float32: 32}
 _SMS = 132    # streaming multiprocessors of an H100 SXM
 
 
@@ -135,8 +154,10 @@ def area_attention_qkv_fused_plain(x: torch.Tensor, w: torch.Tensor,
 
 def padded_head_dim(hd: int) -> int:
     """The kernels' head width that holds a head of `hd` channels: the
-    smallest of `KERNEL_HEAD_DIMS` at least `hd` wide, 0 past the widest."""
-    return next((k for k in KERNEL_HEAD_DIMS if hd <= k), 0)
+    smallest of `KERNEL_HEAD_DIMS` at least `hd` wide; past the widest, the
+    next multiple of `BLOCK` (the blocked form's)."""
+    return next((k for k in KERNEL_HEAD_DIMS if hd <= k),
+                -(-hd // BLOCK) * BLOCK)
 
 
 def pad_heads(t: torch.Tensor, heads: int, hdp: int) -> torch.Tensor:
@@ -237,7 +258,8 @@ def stream_rows(g: int, n: int, c: int, dtype: torch.dtype,
     return 32 if pairs * -(-n // 32) >= _SMS // 2 else 16
 
 
-PATHS = ("short", "streamed", "wide")   # "wide": kernel A only
+# "wide": kernel A only; "blocked": heads wider than 64, both kernels
+PATHS = ("short", "streamed", "wide", "blocked")
 
 
 class AttentionPlan(NamedTuple):
@@ -253,9 +275,10 @@ class AttentionPlan(NamedTuple):
 
     @property
     def streamed(self) -> bool:
-        """Keys and values streamed through a ring (the streamed path or
-        kernel A's wide form, two device kernels in kernel A)."""
-        return self.path in ("streamed", "wide")
+        """Keys and values streamed through a ring (the streamed path,
+        kernel A's wide form or the blocked path; two device kernels in
+        kernel A)."""
+        return self.path in ("streamed", "wide", "blocked")
 
 
 def short_smem_bytes(c: int, dtype: torch.dtype, hd: int = HEAD_DIM,
@@ -312,9 +335,12 @@ def attention_plan(g: int, n: int, c: int, dtype: torch.dtype,
                    projection: bool = True,
                    hd: int = HEAD_DIM) -> AttentionPlan:
     """The path of G bands of N tokens at width C in heads of `hd` (a
-    kernel width, 32 or 64), kernel A (`projection`) or C, in either type:
-    the short path at 64 tokens or fewer (`short_plan`), else the streamed
-    path (`streamed_plan`)."""
+    kernel width, 32, 64 or a multiple of 64), kernel A (`projection`) or
+    C, in either type: heads wider than 64 the blocked path at any N
+    (`blocked_plan`); else the short path at 64 tokens or fewer
+    (`short_plan`), else the streamed path (`streamed_plan`)."""
+    if hd > BLOCK:
+        return blocked_plan(c, dtype, projection)
     if n <= _SHORT_ROWS:
         return short_plan(g, n, c, dtype, hd, projection)
     return streamed_plan(g, n, c, dtype, projection, hd)
@@ -340,10 +366,27 @@ def wide_plan(g: int, n: int, c: int, dtype: torch.dtype,
     in f32, neither growing with C), then kernel C's streamed attention at
     kernel C's query rows (`stream_rows(..., projection=False)`)."""
     rows = stream_rows(g, n, c, dtype, False, hd)
-    proj = kv_projection_smem(c) if dtype == torch.bfloat16 else _KV_F32_SMEM
     return AttentionPlan("wide",
                          max(stream_smem_bytes(c, dtype, False, rows, hd),
-                             proj), 2, rows)
+                             _projection_smem(c, dtype)), 2, rows)
+
+
+def _projection_smem(c: int, dtype: torch.dtype) -> int:
+    """The projection launch's shared memory at width C (bf16
+    `kv_projection_smem`, f32 `_KV_F32_SMEM`)."""
+    return kv_projection_smem(c) if dtype == torch.bfloat16 else _KV_F32_SMEM
+
+
+def blocked_plan(c: int, dtype: torch.dtype,
+                 projection: bool = True) -> AttentionPlan:
+    """The blocked path of heads wider than 64 at width C, any N: kernel C's
+    blocked form, one launch (`_BLOCKED_SMEM`, `_BLOCKED_ROWS` query rows a
+    CTA); kernel A two, its wide form's projection of q, k and v first."""
+    smem = _BLOCKED_SMEM[dtype]
+    if projection:
+        smem = max(smem, _projection_smem(c, dtype))
+    return AttentionPlan("blocked", smem, 2 if projection else 1,
+                         _BLOCKED_ROWS[dtype])
 
 
 def _check_aligned(*tensors):
@@ -354,11 +397,14 @@ def _check_aligned(*tensors):
 
 
 def _stream_plan(g, n, c, dtype, projection, hd=HEAD_DIM, path="streamed"):
-    """The plan of the streamed `path`, or of kernel A's wide form by `path`
-    "wide"; the streamed path refused where it does not fit a block (kernel
-    A's, forced at a width the plan gives the wide form)."""
+    """The plan of the streamed `path`, of kernel A's wide form by `path`
+    "wide" or of the blocked path by "blocked"; the streamed path refused
+    where it does not fit a block (kernel A's, forced at a width the plan
+    gives the wide form)."""
     if path == "wide":
         return wide_plan(g, n, c, dtype, hd)
+    if path == "blocked":
+        return blocked_plan(c, dtype, projection)
     plan = streamed_plan(g, n, c, dtype, projection, hd)
     if plan.path != path:
         raise ValueError(f"the streamed kernel needs more shared memory at "
@@ -389,20 +435,26 @@ def _check(x, w, b, heads):
 
 def _kernel_head_dim(c, heads):
     """The head width of C channels in `heads`, refused on the card unless
-    the kernels are built for it (`KERNEL_HEAD_DIMS`)."""
+    the kernels take it (`KERNEL_HEAD_DIMS`, or a multiple of `BLOCK`: the
+    wrappers pad every other width to one)."""
     hd = c // heads
-    if hd not in KERNEL_HEAD_DIMS:
+    if hd not in KERNEL_HEAD_DIMS and hd % BLOCK:
         raise ValueError(f"the CUDA kernels take head_dim "
-                         f"{' or '.join(map(str, KERNEL_HEAD_DIMS))} (others "
-                         f"up to 64 padded by the wrappers), got {hd}")
+                         f"{' or '.join(map(str, KERNEL_HEAD_DIMS))} or a "
+                         f"multiple of {BLOCK} (others padded by the "
+                         f"wrappers), got {hd}")
     return hd
 
 
-def _check_path(path, n, projection=True):
-    """A forced path: one of `PATHS` (kernel C's: not "wide"), the short
-    one at 64 tokens or fewer."""
+def _check_path(path, n, projection=True, hd=HEAD_DIM):
+    """A forced path: one of `PATHS` (kernel C's: not "wide"), "blocked"
+    exactly where heads are wider than 64, the short one at 64 tokens or
+    fewer."""
     if path not in PATHS or (path == "wide" and not projection):
         raise ValueError(f"path must be one of {PATHS}, got {path!r}")
+    if (path == "blocked") != (hd > BLOCK):
+        raise ValueError(f"heads of {hd} channels do not take the {path} "
+                         f"path")
     if path == "short" and n > _SHORT_ROWS:
         raise ValueError(f"the short path takes bands of {_SHORT_ROWS} "
                          f"tokens or fewer, got {n}")
@@ -417,15 +469,15 @@ def _count_path(wrapper, path, dtype):
 def _launch_qkv_attention(x, w, b, heads, path=None, rows=None,
                           scale=None):
     """Launch kernel A on checked CUDA tensors whose heads are a kernel width
-    (32 or 64) on the path `attention_plan` gives (`path`, one of `PATHS`,
-    forces one, for comparisons; `rows` the streamed CTA's query rows or
-    the short path's tile rows in place of the planned ones); `scale` the
-    softmax's (default hd ** -0.5); returns (o, v)."""
+    (32, 64 or a multiple of 64) on the path `attention_plan` gives (`path`,
+    one of `PATHS`, forces one, for comparisons; `rows` the streamed CTA's
+    query rows or the short path's tile rows in place of the planned ones);
+    `scale` the softmax's (default hd ** -0.5); returns (o, v)."""
     g, n, c = x.shape
     hd = _kernel_head_dim(c, heads)
     if path is None:
         path = attention_plan(g, n, c, x.dtype, hd=hd).path
-    _check_path(path, n)
+    _check_path(path, n, hd=hd)
     if path == "short":
         rows = rows or short_rows(g, n, c, x.dtype, hd)
     else:
@@ -445,7 +497,7 @@ def _launch_qkv_attention(x, w, b, heads, path=None, rows=None,
             code = lib.yolou_band_attention_qkv_stream(
                 *ptrs, k.data_ptr(), g, n, c, heads, code, rows, scale,
                 stream)
-        elif path == "wide":             # the projected queries too
+        elif path in ("wide", "blocked"):   # the projected queries too
             k, q = torch.empty_like(x), torch.empty_like(x)
             code = lib.yolou_band_attention_qkv_wide(
                 *ptrs, k.data_ptr(), q.data_ptr(), g, n, c, heads, code,
@@ -471,11 +523,11 @@ def _qkv_attention_run(x, w, b, heads, scale):
 
 def _qkv_attention_forward(x, w, b, heads):
     """The real version of the operator, on both devices: heads whose width
-    is no kernel width but at most 64 are padded (`pad_qkv_projection`) and
-    cut back (`cut_heads`), with the true scale."""
+    is no kernel width are padded (`pad_qkv_projection`, `padded_head_dim`)
+    and cut back (`cut_heads`), with the true scale."""
     hd = x.shape[-1] // heads
     hdp = padded_head_dim(hd)
-    if hdp in (0, hd):
+    if hdp == hd:
         return _qkv_attention_run(x, w, b, heads, hd ** -0.5)
     o, v = _qkv_attention_run(*pad_qkv_projection(x, w, b, heads, hdp),
                               heads, hd ** -0.5)
@@ -595,10 +647,10 @@ def _check_qkv(q, k, v, heads):
 def _launch_band_attention(q, k, v, heads, path=None, rows=None,
                            scale=None):
     """Launch kernel C on contiguous CUDA tensors whose heads are a kernel
-    width (32 or 64) on the path `attention_plan` gives (`path`, one of
-    `PATHS`, forces one, for comparisons; `rows` the streamed CTA's query
-    rows or the short path's tile rows in place of the planned ones);
-    `scale` the softmax's (default hd ** -0.5); returns o."""
+    width (32, 64 or a multiple of 64) on the path `attention_plan` gives
+    (`path`, one of `PATHS`, forces one, for comparisons; `rows` the
+    streamed CTA's query rows or the short path's tile rows in place of the
+    planned ones); `scale` the softmax's (default hd ** -0.5); returns o."""
     g, n, c = q.shape
     hd = _kernel_head_dim(c, heads)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
@@ -606,13 +658,13 @@ def _launch_band_attention(q, k, v, heads, path=None, rows=None,
     if path is None:
         path = attention_plan(g, n, c, q.dtype, projection=False,
                               hd=hd).path
-    _check_path(path, n, projection=False)
+    _check_path(path, n, projection=False, hd=hd)
     lib = build.load()
     _check_aligned(q, k, v)
     o = torch.empty_like(q)
-    if path == "streamed":
+    if path in ("streamed", "blocked"):   # one C entry, by head width
         entry = lib.yolou_band_attention_stream
-        rows = rows or _stream_plan(g, n, c, q.dtype, False, hd).rows
+        rows = rows or _stream_plan(g, n, c, q.dtype, False, hd, path).rows
     else:
         entry = lib.yolou_band_attention_short
         rows = rows or short_rows(g, n, c, q.dtype, hd, projection=False)
@@ -628,13 +680,13 @@ def _launch_band_attention(q, k, v, heads, path=None, rows=None,
 def _band_attention(q, k, v, heads, wrapper):
     """Kernel C on a CUDA tensor (counted on `wrapper`, the public function
     called), the plain version on a CPU tensor; heads whose width is no
-    kernel width but at most 64 are padded (`pad_heads`) and cut back, on
-    both devices, with the true scale."""
+    kernel width are padded (`pad_heads`, `padded_head_dim`) and cut back,
+    on both devices, with the true scale."""
     if q.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"no kernel for device {q.device}")
     hd = q.shape[-1] // heads
     hdp = padded_head_dim(hd)
-    if hdp not in (0, hd):
+    if hdp != hd:
         q, k, v = (pad_heads(t, heads, hdp) for t in (q, k, v))
     if q.device.type == "cpu":
         o = area_attention_fused_plain(q, k, v, heads, hd ** -0.5)
@@ -645,7 +697,7 @@ def _band_attention(q, k, v, heads, wrapper):
         o = _launch_band_attention(q, k, v, heads, path, scale=hd ** -0.5)
         wrapper.launches += 1
         _count_path(wrapper, path, q.dtype)
-    return o if hdp in (0, hd) else cut_heads(o, heads, hd)
+    return o if hdp == hd else cut_heads(o, heads, hd)
 
 
 def attention_backward(q, k, v, do, heads: int):

@@ -43,10 +43,15 @@ GEMM = "gemm_f32.cuh"     # the f32 kernel's GEMM stream
 # name -> (source, [(text, replacement), ...])
 VARIANTS = {
     "no-attention": (BF16, [
-        ("          const int nh = min(p.heads, (sb + 1) * CBLK / HD_) - h0;",
-         "          const int nh = 0;"),
-        ("          if (cw < nh)\n            attend",
-         "          if (false)\n            attend")]),
+        ("            const int nh = min(p.heads, (sb + 1) * CBLK / HD_) - h0;",
+         "            const int nh = 0;"),
+        ("            if (cw < nh)\n              attend",
+         "            if (false)\n              attend"),
+        ("            for (int i = 0; i < n_keys; ++i)\n"
+         "              for (int j = 0; j < nbk; ++j) {",
+         "            for (int i = 0; i < 0; ++i)\n"
+         "              for (int j = 0; j < nbk; ++j) {"),
+        ("if (cw == 0) attend_blocked(", "if (false) attend_blocked(")]),
     "no-stencil": (BF16, [("r0 < (c < ca ? rows : 0)", "r0 < 0")]),
     "no-wgmma": (BF16, [
         ("      wgmma_64x128_ss(acc, da, db, kb > 0);\n#pragma unroll\n"
@@ -60,9 +65,11 @@ VARIANTS = {
     "no-grid-sync": (BF16, [("      grid.sync();\n    }\n  }\n}",
                              "      __syncthreads();\n    }\n  }\n}")]),
     "f32-no-attention": (F32, [("for (int h = 0; h < p.heads; ++h)\n"
-                                "        attend_f32",
+                                "          attend_f32",
                                 "for (int h = 0; h < 0; ++h)\n"
-                                "        attend_f32")]),
+                                "          attend_f32"),
+                               ("for (int ob = 0; ob < hdp / 64; ++ob)",
+                                "for (int ob = 0; ob < 0; ++ob)")]),
     "f32-no-stencil": (F32, [
         ("for (int i = tid; i < runs * C4; i += F32_THREADS) {",
          "for (int i = tid; i < 0; i += F32_THREADS) {")]),

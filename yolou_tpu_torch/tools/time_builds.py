@@ -9,7 +9,8 @@ library (`_build/`, named by the hash of its sources); the package's wrappers
 then launch each library's kernels on the same seeded bfloat16 inputs, at
 the shapes the serving, training and evaluation paths and the attention
 profiler give them (batch 8 at 640^2, batch 16 at 160^2; NMS over 512
-candidates of 1, 8 and 16 images and 2048 of 8, all valid), kernels A
+candidates of 1, 8 and 16 images and 2048 of 8, all valid; kernel A
+also at heads of 64 on 25 tokens, its short form at 64), kernels A
 and C on the path this tree plans (at 400 tokens the streamed one, at 25
 kernel A's short one: every tree from kernel A's short path on has both);
 then kernels A and C forced onto the streamed path (the "streamed" cases:
@@ -75,7 +76,8 @@ from .profile_layers import call_ms
 
 # name, (G, N, C), heads
 QKV_CASES = [("A L6@640", (32, 400, 64), 2), ("A L8@640", (8, 400, 128), 4),
-             ("A L6@160", (64, 25, 64), 2), ("A L8@160", (16, 25, 128), 4)]
+             ("A L6@160", (64, 25, 64), 2), ("A L8@160", (16, 25, 128), 4),
+             ("A L6@160 hd64", (64, 25, 128), 2)]   # the short form at 64
 ATTN_CASES = [("C L6@640", (32, 400, 64), 2), ("C L8@640", (8, 400, 128), 4),
               ("C profile-fused", (32, 400, 128), 4),
               ("C profile-single", (128, 400, 32), 1),
