@@ -639,15 +639,20 @@ def check_training_attention(device):
     (scaled_dot_product_attention), a yardstick only. The bands of 64
     tokens or fewer (160^2) take the short path, held to `SHORT_TOL` of the
     output's largest magnitude in bf16 and timed against the streamed path
-    in turns. Heads of 48 and 16 (padded in the wrapper), multi-head and
-    single, both types, at 400 tokens and at 25; two heads of 128 at 400
-    (the blocked path), both types."""
+    in turns. Heads of 48, 16 and 96, multi-head and single, both types, at
+    400 tokens and at 25, padded inside the kernel: one device kernel a
+    call (torch.profiler) counted as "<path> <type> padded", and timed
+    beside the route of copies the wrapper took before (`pad_heads`, the
+    kernel width's own form, `cut_heads`: `copies_ms`); two heads of 128 at
+    400 and one head of 128 (the blocked path), both types; the f32 cluster
+    form at two heads of 256 and of 512."""
     import torch
     import torch.nn.functional as F
+    from yolou_tpu_torch import kernels
     from yolou_tpu_torch.kernels.attention import (
         _launch_band_attention, area_attention, area_attention_fused,
         area_attention_fused_plain, area_attention_plain, attention_backward,
-        attention_plan, padded_head_dim)
+        attention_plan, cut_heads, in_kernel_pad, pad_heads, padded_head_dim)
     from yolou_tpu_torch.tools.profile_layers import HEADS, attention_shapes
     f32_exact(torch)
     cases = [("L6@640", 4 * BATCH, 400, 64, 2, BOTH),
@@ -671,7 +676,14 @@ def check_training_attention(device):
              ("L8@160 hd48", EVAL_BATCH, 25, 96, 2, BOTH),
              ("L8@160 hd16", EVAL_BATCH, 25, 32, 2, BOTH),
              # heads wider than 64: the blocked path
-             ("L8@640 hd128", BATCH, 400, 256, 2, BOTH)]
+             ("L8@640 hd128", BATCH, 400, 256, 2, BOTH),
+             ("single hd128", 64, 400, 128, 1, BOTH),
+             # padded inside the kernel past 64 (to 128) and the f32 cluster
+             # form at heads of 256 and 512
+             ("L8@640 hd96", BATCH, 400, 192, 2, BOTH),
+             ("single hd96", 64, 400, 96, 1, BOTH),
+             ("L8@640 hd256", BATCH, 400, 512, 2, ("float32",)),
+             ("L8@640 hd512", BATCH, 400, 1024, 2, ("float32",))]
     for name, shape, heads in zip(("profile-single", "profile-fused"),
                                   attention_shapes(BATCH), (1, HEADS)):
         cases.append((name, *shape, heads, BOTH))
@@ -720,11 +732,35 @@ def check_training_attention(device):
             nbytes = 4 * g * n * c * q.element_size()     # q, k, v in; o out
             bound_ms, bound_by = bound(nbytes, 4 * g * n * n * c, dn)
             floor_ms = exp_floor(g, heads, n)
-            hdp = padded_head_dim(c // heads)
+            hd = c // heads
+            hdp = padded_head_dim(hd)
             plan = attention_plan(g, n, heads * hdp, dtype, projection=False,
                                   hd=hdp)
             tol = ATTN_TOL[dn]
             paths = {}
+            padded = in_kernel_pad(hd, dtype)
+            if padded:
+                # one device kernel a call, on the padded key; the copies'
+                # route beside it
+                per_call = device_kernels(fn)
+                kernels.reset_launch_counts()
+                with torch.no_grad():
+                    fn()
+                counted = kernels.path_counts(kname)
+                want_key = f"{plan.path} {SHORT[dn]} padded"
+                if len(per_call) != 1 or counted != {want_key: 1}:
+                    raise AssertionError(f"{kname} {name} {dn}: device "
+                                         f"kernels {per_call}, paths "
+                                         f"{counted}")
+
+                def copies():
+                    qp, kp, vp = (pad_heads(t, heads, hdp) for t in (q, k, v))
+                    return cut_heads(_launch_band_attention(
+                        qp, kp, vp, heads, plan.path, scale=hd ** -0.5),
+                        heads, hd)
+                with torch.no_grad():
+                    paths = {"copies_ms": kernel_times(copies)[0],
+                             "device_kernels": per_call}
             if plan.path == "short":
                 tol = SHORT_TOL[dn] * (1.0 if dn == "float32"
                                        else ref.float().abs().max().item())
@@ -754,7 +790,8 @@ def check_training_attention(device):
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "exp_floor_ms": floor_ms,
                 "library_ms": lib_ms, "backward_ms": bwd_ms,
-                "streamed": plan.streamed, "path": plan.path, **paths}
+                "streamed": plan.streamed, "path": plan.path,
+                "padded": padded, **paths}
     return results
 
 
@@ -2227,7 +2264,10 @@ def heads_wider_than_64(device, run) -> dict:
     train mode forward and backward (one kernel C launch on path "blocked",
     one backward call), against the same module on the plain versions:
     outputs within `run`'s tolerances, the input's gradient within GRAD_TOL
-    of its largest magnitude (the cotangent is N(0, 1)); AAttn(512, 1, 4)
+    of its largest magnitude (the cotangent is N(0, 1)); the same train runs
+    of AAttn(96, 2, 4) at 20^2 and 10^2 and AAttn(192, 2, 4) at 20^2 (heads
+    of 48 and 96, which kernel C pads inside the kernel: paths "streamed",
+    "short" and "blocked <type> padded"); AAttn(512, 1, 4)
     (one head of 512) in bf16 eval at 40^2; and `a2c2f_fused` over an A2C2f
     fold of c_ 256 in two heads (of 128) and of c_ 96 in one (padded to
     128) at (8, 20, 20, 2 c_), both types, one launch each, against its
@@ -2241,7 +2281,7 @@ def heads_wider_than_64(device, run) -> dict:
     rng = np.random.default_rng(SEED + 70)
     out = {}
 
-    def train_run(name, module, shape, dtype):
+    def train_run(name, module, shape, dtype, path="blocked"):
         x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
             device, dtype)
         cot = torch.from_numpy(rng.normal(size=shape).astype(
@@ -2273,7 +2313,7 @@ def heads_wider_than_64(device, run) -> dict:
             launches=counts, paths=paths)
         check_launches(name, counts, 0, 0, band_attention_train=1,
                        backward=1)
-        if paths != {f"blocked {SHORT[dn]}": 1}:
+        if paths != {path.replace("<type>", SHORT[dn]): 1}:
             raise AssertionError(f"{name}: kernel C's paths {paths}")
         if not (torch.isfinite(got[0]).all() and err <= tol
                 and gerr <= GRAD_TOL[dn] and top > 0.05):
@@ -2286,7 +2326,18 @@ def heads_wider_than_64(device, run) -> dict:
         for hw in (40, 20, 10):
             name = f"AAttn(256,2) {hw}^2 {dtype_name(dtype)}"
             run(name, aattn, (1, 256, hw, hw), dtype, path, band_attention=1)
-            train_run(f"{name} train", aattn, (1, 256, hw, hw), dtype)
+            train_run(f"{name} train", aattn, (1, 256, hw, hw), dtype,
+                      "blocked <type>")
+    # heads of 48 (bands of 100 and 25) and of 96, padded inside kernel C
+    for c, hws in ((96, (20, 10)), (192, (20,))):
+        module = seeded_module(AAttn(c, 2, 4), device, SEED + 74 + c)
+        for dtype in (torch.bfloat16, torch.float32):
+            for hw in hws:
+                path = ("blocked" if c == 192 else
+                        "short" if hw == 10 else "streamed")
+                train_run(f"AAttn({c},2) {hw}^2 {dtype_name(dtype)} train",
+                          module, (1, c, hw, hw), dtype,
+                          f"{path} <type> padded")
     run("AAttn(512,1) bf16", seeded_module(AAttn(512, 1, 4), device,
                                            SEED + 72),
         (1, 512, 40, 40), torch.bfloat16, {"blocked bf16": 1},
@@ -4424,9 +4475,9 @@ def _kernel_name(line: str):
     step or consumer warpgroups, flags), else None: a `_mma_` or `_wgmma_`
     kernel is bf16, the others f32."""
     import re
-    m = re.search(r"((?:band_attention_(?:qkv_|stream_|short_|blocked_)?|"
-                  r"a2c2f_|kv_projection_)(?:wgmma_|mma_|f32_)?kernel)"
-                  r"(I\S*?EE)?", line)
+    m = re.search(r"((?:band_attention_(?:qkv_|stream_|short_|blocked_|"
+                  r"cluster_)?(?:padded_)?|a2c2f_|kv_projection_)"
+                  r"(?:wgmma_|mma_|f32_)?kernel)(I\S*?EE)?", line)
     if not m:
         return None
     name, targs = m.group(1), m.group(2) or ""
@@ -4491,7 +4542,15 @@ def check_build_report(report: list) -> None:
                  "kv_projection_wgmma_kernel<",
                  "kv_projection_f32_kernel<",
                  "band_attention_blocked_wgmma_kernel<",
-                 "band_attention_blocked_kernel<",
+                 # f32 heads past 64: the cluster form, native and padded
+                 "band_attention_cluster_kernel<float,0>",
+                 "band_attention_cluster_kernel<float,1>",
+                 # kernel C's heads padded inside the kernel
+                 "band_attention_short_padded_wgmma_kernel<",
+                 "band_attention_short_padded_f32_kernel<",
+                 "band_attention_stream_padded_wgmma_kernel<",
+                 "band_attention_stream_padded_kernel<",
+                 "band_attention_blocked_padded_wgmma_kernel<",
                  # the a2c2f kernels' blocked form (HD BLOCKED = 0)
                  "a2c2f_wgmma_kernel<bf16,0,",
                  "a2c2f_f32_kernel<float,32,0>",
@@ -4772,6 +4831,36 @@ def main() -> int:
                           if k.startswith("a2c2f c_") and k.endswith(dn)}
                      for dn in BOTH}
 
+    # kernel C at heads it pads itself: the shapes phase's module runs by
+    # type, and the training attention's padded cases
+    padded_c = {dn: {k: v["band_attention_train"] for k, v in wide.items()
+                     if any(p.endswith(f"{SHORT[dn]} padded")
+                            for p in v.get("paths", {}))}
+                for dn in BOTH}
+    case_keys = ("path", "ms", "copies_ms", "plain_ms", "library_ms",
+                 "bound_ms", "bound_by", "max_abs_err", "tol")
+
+    def padded_row(name, dn, kernels_):
+        cases = {k: r for k, r in train_attn.items()
+                 if r["padded"] and k[1] == dn}
+        at = ("L8@640 hd48", dn)
+        return {"name": name, "route": "cuda", "source": src +
+                "band_attention.cu", "replaces": pallas + ":243",
+                "device_kernels": kernels_,
+                "launches": sum(padded_c[dn].values()),
+                "launches_by_path": {f"shapes {k}": v
+                                     for k, v in padded_c[dn].items()},
+                **attention_row(cases, at, None, (dn,)),
+                "copies_ms": cases[at]["copies_ms"],
+                "cases": {k[0]: {f: r[f] for f in case_keys}
+                          for k, r in cases.items()}}
+
+    def cluster_widths():
+        """The f32 cluster form at two heads of 256 and of 512."""
+        return {k[0]: {f: r[f] for f in case_keys if f in r}
+                for k, r in multi_head.items()
+                if k[0] in ("L8@640 hd256", "L8@640 hd512")}
+
     def blocked_row(name, source, replaces, kernels_, launches, row):
         return {"name": name, "route": "cuda", "source": src + source,
                 "replaces": replaces, "device_kernels": kernels_,
@@ -5007,7 +5096,7 @@ def main() -> int:
         blocked_row("band_attention_blocked_f32", "band_attention.cu",
                     pallas + ":357",
                     ["kv_projection_f32_kernel (q | k | v)",
-                     "band_attention_blocked_kernel<R>"],
+                     "band_attention_cluster_kernel<false>"],
                     blocked_a["float32"],
                     {**attention_row(attn_cases, ("L8@640 hd128",
                                                   "float32"), "blocked",
@@ -5021,10 +5110,19 @@ def main() -> int:
                     attention_row(multi_head, ("L8@640 hd128", "bfloat16"),
                                   "blocked", ("bfloat16",))),
         blocked_row("band_attention_train_blocked_f32", "band_attention.cu",
-                    pallas + ":243", ["band_attention_blocked_kernel<R>"],
+                    pallas + ":243", ["band_attention_cluster_kernel<false>"],
                     blocked_c["float32"],
-                    attention_row(multi_head, ("L8@640 hd128", "float32"),
-                                  "blocked", ("float32",))),
+                    {**attention_row(multi_head, ("L8@640 hd128", "float32"),
+                                     "blocked", ("float32",)),
+                     "wider": cluster_widths()}),
+        padded_row("band_attention_train_padded", "bfloat16",
+                   ["band_attention_short_padded_wgmma_kernel<HD>",
+                    "band_attention_stream_padded_wgmma_kernel<NC, HD>",
+                    "band_attention_blocked_padded_wgmma_kernel"]),
+        padded_row("band_attention_train_padded_f32", "float32",
+                   ["band_attention_short_padded_f32_kernel<R, HD>",
+                    "band_attention_stream_padded_kernel<R, HD>",
+                    "band_attention_cluster_kernel<true>"]),
         blocked_row("a2c2f_blocked", "a2c2f_bf16.cu",
                     "yolou_tpu/ops/pallas_a2c2f.py:192",
                     ["a2c2f_wgmma_kernel<BLOCKED, L2>"],

@@ -260,7 +260,8 @@ def test_training_attention_refuses_what_it_cannot_run(cuda):
     assert (o - area_attention_fused_plain(q, k, v, 2)).abs().max() <= 1e-4
     kernels.reset_launch_counts()
     o = area_attention(q, k, v)                       # one head of 96
-    assert kernels.path_counts("band_attention_single") == {"blocked f32": 1}
+    assert kernels.path_counts("band_attention_single") == {
+        "blocked f32 padded": 1}
     assert (o - area_attention_plain(q, k, v)).abs().max() <= 1e-4
     with pytest.raises(ValueError, match="64 tokens or fewer"):
         _launch_band_attention(*_qkv_inputs(2, 65, 128, torch.bfloat16, cuda,
@@ -511,9 +512,9 @@ def test_short_training_path_matches_plain(cuda, g, n, heads, hd, dtype):
     """Kernel C's short path (one device kernel a call: whole bands packed
     to a tile, one softmax pass against the full row's maximum) is the plan
     at every band of 64 tokens or fewer, heads of 32 and 64 and of 48 and
-    16 padded in the wrapper, and agrees with the plain version: f32 within
-    1e-5, bf16 within 2^-7 of the largest magnitude; the one-head entry at
-    one head."""
+    16 padded inside the kernel, and agrees with the plain version: f32
+    within 1e-5, bf16 within 2^-7 of the largest magnitude; the one-head
+    entry at one head."""
     c = heads * hd
     hdp = padded_head_dim(hd)
     assert attention_plan(g, n, heads * hdp, dtype, False, hdp).path == \
@@ -524,12 +525,12 @@ def test_short_training_path_matches_plain(cuda, g, n, heads, hd, dtype):
     torch.cuda.synchronize()
     assert kernels.launch_counts()["band_attention_train"] == 1
     kind = "f32" if dtype == torch.float32 else "bf16"
-    assert kernels.path_counts("band_attention_train") == {f"short {kind}": 1}
+    key = f"short {kind}" + ("" if hd == hdp else " padded")
+    assert kernels.path_counts("band_attention_train") == {key: 1}
     got = [(o, area_attention_fused_plain(q, k, v, heads))]
     if heads == 1:
         got.append((area_attention(q, k, v), area_attention_plain(q, k, v)))
-        assert kernels.path_counts("band_attention_single") == {
-            f"short {kind}": 1}
+        assert kernels.path_counts("band_attention_single") == {key: 1}
     for a, r in got:
         assert a.dtype == dtype and bool(torch.isfinite(a).all())
         err, tol = _short_error(a, r, dtype)
@@ -912,6 +913,190 @@ def test_a2c2f_bf16_at_each_token_tile(cuda, tile, shape, c_, c2, n_stages,
     assert ref.float().abs().max().item() > 0.05
 
 
+# ------------------------------- heads padded inside kernel C (TMA fills)
+
+def _unswizzle(raw, rows, row_bytes):
+    """A TMA box as it landed in shared memory (`rows` rows of `row_bytes`,
+    the 128-byte swizzle at 128-byte rows: 16-byte chunk c of row r at c ^
+    (r % 8); the 64-byte one at 64-byte rows: c ^ ((r // 2) % 4)) back in
+    row order, as (rows, row_bytes) uint8."""
+    raw = raw.view(torch.uint8).reshape(rows, row_bytes // 16, 16).cpu()
+    out = torch.empty_like(raw)
+    for r in range(rows):
+        for c in range(row_bytes // 16):
+            x = c ^ (r % 8) if row_bytes == 128 else c ^ ((r // 2) % 4)
+            out[r, c] = raw[r, x]
+    return out.reshape(rows, row_bytes)
+
+
+@pytest.mark.parametrize("dtype,hd,cols,col0", [
+    (torch.bfloat16, 48, 64, 0), (torch.bfloat16, 16, 32, 0),
+    (torch.float32, 16, 32, 0), (torch.float32, 48, 32, 32),
+    (torch.float32, 16, 32, 32), (torch.bfloat16, 96, 64, 64)])
+def test_head_map_boxes_fill_zeros_past_the_head(cuda, dtype, hd, cols,
+                                                 col0):
+    """`cuTensorMapEncodeTiled` takes a box wider than the head's hd
+    channels (its inner dimension), and one that starts past them, and TMA
+    fills every channel past hd with zeros: boxes of 64 bf16 channels over
+    heads of 48 and at channel 64 of heads of 96, 32 over 16 in both types,
+    f32 boxes at channel 32 of heads of 48 (16 real, 16 zero) and of 16 (all
+    zero); the rows of one head of one band of a (G, N, heads hd) tensor,
+    swizzled as the kernels read them."""
+    lib = build.load()
+    g, n, heads, head, band = 3, 25, 3, 1, 2
+    elt = 2 if dtype == torch.bfloat16 else 4
+    src = torch.tensor(np.random.default_rng(hd + col0).normal(
+        size=(g, n, heads * hd)), dtype=dtype, device=cuda)
+    dst = torch.full((n * cols,), float("nan"), device=cuda).to(dtype)
+    code = lib.yolou_tma_head_box(
+        src.data_ptr(), dst.data_ptr(), g, n, heads, hd, _DTYPE[dtype], cols,
+        col0, head, band, torch.cuda.current_stream().cuda_stream)
+    build.check(lib, code, "head map box")
+    torch.cuda.synchronize()
+    got = _unswizzle(dst, n, cols * elt).view(dtype)
+    want = torch.zeros(n, cols, dtype=dtype)
+    real = max(0, min(cols, hd - col0))
+    want[:, :real] = src[band, :, head * hd + col0:head * hd + col0 + real]
+    assert torch.equal(got, want)
+
+
+_DTYPE = {torch.float32: 0, torch.bfloat16: 1}
+# widths kernel C pads itself (`in_kernel_pad`), 8 to 120, both types
+PAD_WIDTHS = [8, 16, 24, 40, 48, 56, 72, 96, 120]
+PAD_TOL = {torch.float32: 2e-6, torch.bfloat16: 2.0 ** -7}
+
+
+def _device_kernels(fn):
+    """The names of the device kernels torch.profiler records in one call
+    of `fn` (after one call outside the trace); a trace that comes back with
+    no device event at all (seen on a process's first trace) is taken
+    again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            return names
+    return names
+
+
+def _pad_error(got, want, dtype):
+    """max |got - want| and its bound, `PAD_TOL` of the largest output."""
+    err = (got.float() - want.float()).abs().max().item()
+    return err, PAD_TOL[dtype] * want.float().abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [1, 25, 64, 65, 400])
+@pytest.mark.parametrize("hd", PAD_WIDTHS)
+def test_padded_heads_are_one_kernel_and_match_plain(cuda, hd, n, dtype):
+    """Kernel C at two heads and the one-head entry at every eligible width
+    from 8 to 120: padded inside the kernel on the planned path (short to
+    64 tokens, streamed past, blocked past 64 channels), counted as
+    "<path> <type> padded", one device kernel a call by torch.profiler (no
+    copy), within `PAD_TOL` of the plain version's largest output."""
+    hdp = padded_head_dim(hd)
+    kind = _type(dtype)
+    path = attention_plan(3, n, 2 * hdp, dtype, False, hdp).path
+    assert path == ("blocked" if hd > 64 else "short" if n <= 64
+                    else "streamed")
+    q, k, v = _qkv_inputs(3, n, 2 * hd, dtype, cuda, seed=hd * n + 3)
+    q1, k1, v1 = (u[..., :hd].contiguous() for u in (q, k, v))
+    kernels.reset_launch_counts()
+    o = area_attention_fused(q, k, v, 2)
+    o1 = area_attention(q1, k1, v1)
+    torch.cuda.synchronize()
+    for name in ("band_attention_train", "band_attention_single"):
+        assert kernels.path_counts(name) == {f"{path} {kind} padded": 1}
+    device = _device_kernels(lambda: (area_attention_fused(q, k, v, 2),
+                                      area_attention(q1, k1, v1)))
+    # the f32 blocked form's padded instance is the cluster kernel's <true>
+    assert len(device) == 2 and all(
+        "padded" in name or "cluster_kernel<true>" in name
+        for name in device), device
+    for got, want in ((o, area_attention_fused_plain(q, k, v, 2)),
+                      (o1, area_attention_plain(q1, k1, v1))):
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        err, tol = _pad_error(got, want, dtype)
+        assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("n", [25, 400])
+@pytest.mark.parametrize("hd", [48, 96])
+def test_padded_heads_gradients_match_autograd(cuda, hd, n):
+    """Kernel C at two heads of 48 and of 96, padded inside the kernel, f32:
+    the gradients (the plain backward at the true width) against autograd
+    through the plain version within 1e-4."""
+    q, k, v = _qkv_inputs(2, n, 2 * hd, torch.float32, cuda, seed=hd + n,
+                          grad=True)
+    do = torch.tensor(np.random.default_rng(hd * n).normal(size=q.shape),
+                      dtype=torch.float32, device=cuda)
+    kernels.reset_launch_counts()
+    got = torch.autograd.grad(area_attention_fused(q, k, v, 2), (q, k, v), do)
+    assert all(key.endswith("padded") for key in
+               kernels.path_counts("band_attention_train"))
+    want = torch.autograd.grad(area_attention_fused_plain(q, k, v, 2),
+                               (q, k, v), do)
+    for a, r in zip(got, want):
+        assert (a - r).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("n", [25, 400])
+def test_unaddressable_widths_keep_the_copies(cuda, n):
+    """bf16 heads of 12 (24-byte rows, no TMA stride) are padded to 32 by
+    the wrapper's copies and run the kernel width's own form (path key
+    without "padded"), within 2^-7 of the plain version's largest output;
+    the padded entries refuse them."""
+    q, k, v = _qkv_inputs(3, n, 24, torch.bfloat16, cuda, seed=n)
+    kernels.reset_launch_counts()
+    o = area_attention_fused(q, k, v, 2)
+    path = "short" if n <= 64 else "streamed"
+    assert kernels.path_counts("band_attention_train") == {f"{path} bf16": 1}
+    err, tol = _pad_error(o, area_attention_fused_plain(q, k, v, 2),
+                          torch.bfloat16)
+    assert err <= tol, (err, tol)
+    lib = build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    o = torch.empty_like(q)
+    for entry, rows in ((lib.yolou_band_attention_short_padded, 64),
+                        (lib.yolou_band_attention_stream_padded, 64)):
+        code = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     3, n, 2, 12, 1, rows, 12 ** -0.5, stream)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            build.check(lib, code, "padded entry, heads of 12")
+
+
+@pytest.mark.parametrize("n", [1, 25, 65, 400])
+@pytest.mark.parametrize("hd", [128, 192, 256, 512, 928, 1088])
+def test_cluster_form_matches_plain(cuda, hd, n):
+    """The f32 blocked form (a cluster of hdp / 64 CTAs; 928 padded to 960
+    is 15, past the portable 8; 1088 is two clusters of 9) at two heads and
+    one: one device kernel a call, within 2e-6 of the plain version's
+    largest output at heads up to 128; a score sums hdp f32 products in
+    another order than the plain version's, so past 128 the bound grows as
+    sqrt(hdp / 128)."""
+    q, k, v = _qkv_inputs(2, n, 2 * hd, torch.float32, cuda, seed=hd + n)
+    q1, k1, v1 = (u[..., :hd].contiguous() for u in (q, k, v))
+    o = area_attention_fused(q, k, v, 2)
+    o1 = area_attention(q1, k1, v1)
+    device = _device_kernels(lambda: (area_attention_fused(q, k, v, 2),
+                                      area_attention(q1, k1, v1)))
+    assert len(device) == 2 and all("cluster" in d for d in device), device
+    grow = max(1.0, (padded_head_dim(hd) / 128) ** 0.5)
+    for got, want in ((o, area_attention_fused_plain(q, k, v, 2)),
+                      (o1, area_attention_plain(q1, k1, v1))):
+        assert bool(torch.isfinite(got).all())
+        err, tol = _pad_error(got, want, torch.float32)
+        assert err <= tol * grow, (err, tol * grow)
+
+
 # ------------------------------------------ heads wider than 64 (blocked)
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
@@ -924,8 +1109,9 @@ def test_blocked_form_matches_plain(cuda, hd, n, dtype, tol):
     15 blocks) take the blocked path at every band length, one token
     included: kernel A at two heads (the wide form's
     projection, then kernel C's blocked form: two device kernels), kernel C
-    at two heads and the one-head entry, each counted on path "blocked";
-    o and v within the plain versions' tolerances."""
+    at two heads and the one-head entry, each counted on path "blocked"
+    (kernel C's at 96 and 928 "blocked ... padded": padded inside the
+    kernel); o and v within the plain versions' tolerances."""
     g, c, t = 3, 2 * hd, _type(dtype)
     hdp = padded_head_dim(hd)
     assert attention_plan(g, n, 2 * hdp, dtype, hd=hdp).path == "blocked"
@@ -939,9 +1125,11 @@ def test_blocked_form_matches_plain(cuda, hd, n, dtype, tol):
     torch.cuda.synchronize()
     assert kernels.launch_counts()["band_attention"] == 1
     assert kernels.device_counts()["band_attention"] == 2
-    for name in ("band_attention", "band_attention_train",
-                 "band_attention_single"):
-        assert kernels.path_counts(name) == {f"blocked {t}": 1}
+    # kernel A pads by copies; kernel C inside the kernel at 96 and 928
+    assert kernels.path_counts() == {f"blocked {t}": 1}
+    for name in ("band_attention_train", "band_attention_single"):
+        assert kernels.path_counts(name) == {
+            f"blocked {t}" + ("" if hd == hdp else " padded"): 1}
     o_ref, v_ref = area_attention_qkv_fused_plain(x, w, b, 2)
     for got, ref in ((o, o_ref), (ov, v_ref),
                      (oc, area_attention_fused_plain(q, k, v, 2)),

@@ -109,29 +109,36 @@ def _constant(text, name):
 def test_the_blocked_bytes_are_the_kernels():
     """`_BLOCKED_SMEM` and `_BLOCKED_ROWS` are band_attention.cu's
     `blocked_smem` and row counts over its constants: bf16 three units of a
-    64-row q block and a 128-key k block, two v blocks; f32 two units of a
-    64-key k block and a 32-row q block, two v blocks and the
-    probabilities; a full and an empty barrier a stage."""
+    64-row q block and a 128-key k block, two v blocks, a full and an empty
+    barrier a stage; f32 (the cluster form, one cluster up to 1024
+    channels) a resident 32-row q block, two 64-key k blocks and two v
+    blocks, two buffers of a key tile's partial scores and the
+    probabilities, a full and an empty barrier a stage and q's."""
     text = (CSRC / "band_attention.cu").read_text()
     blk, units, vst = (_constant(text, n) for n in ("BLK", "UNITS_MMA",
                                                     "V_STAGES"))
-    wg, kb, kf, sf, ldp, rows = (_constant(text, n) for n in (
-        "WG_ROWS", "KB_MMA", "KB_F32", "STAGES_F32", "LDP",
-        "BLOCKED_F32_ROWS"))
+    wg, kb, kf, ldp, rows, kst, cvst = (_constant(text, n) for n in (
+        "WG_ROWS", "KB_MMA", "KB_F32", "LDP", "BLOCKED_F32_ROWS",
+        "K_STAGES", "CV_STAGES"))
     assert blk == BLOCK == 64
     assert attn._BLOCKED_SMEM[BF16] == (
         1024 + 2 * (units * (wg + kb) * blk + vst * kb * blk)
         + 8 * 2 * (units + vst)) == 107_600
     assert attn._BLOCKED_SMEM[F32] == (
-        1024 + 4 * (sf * (kf + rows) * blk + vst * kf * blk + rows * ldp)
-        + 8 * 2 * (sf + vst)) == 92_736
+        1024 + 4 * (rows * blk + (kst + cvst) * kf * blk + 2 * rows * kf
+                    + rows * ldp)
+        + 8 * (2 * (kst + cvst) + 1)) == 100_936
     assert attn._BLOCKED_ROWS == {BF16: wg, F32: rows}
     # two CTAs an SM, as the 64-wide forms
     assert 2 * (attn._BLOCKED_SMEM[BF16] + 1024) <= 228 * 1024
-    assert "constexpr int UNIT = KT + R * BLK;" in text
+    assert 2 * (attn._BLOCKED_SMEM[F32] + 1024) <= 228 * 1024
     assert "constexpr int UNIT = QB + KT;" in text
-    assert "const dim3 grid(C / BLK, G, (N + rows - 1) / rows);" in text
-    assert "if (C / heads > 64)\n    return launch_blocked(" in text
+    assert "const dim3 grid(heads * (hdp / BLK), G, (N + rows - 1) / rows);" \
+        in text
+    assert ("cfg.gridDim = dim3(heads * cluster_groups(nbk) * cs, G,"
+            in text)
+    assert ("if (C / heads > 64)\n    return launch_blocked(q, k, v, o, G, "
+            "N, heads, C / heads," in text)
 
 
 def _wide_admitted():

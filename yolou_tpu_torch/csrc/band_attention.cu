@@ -329,16 +329,16 @@ kv_projection_f32_kernel(const __grid_constant__ CUtensorMap x_map,
 // (kernel A): q = x . Wq + b projected here from x, the head's q weight
 // columns by TMA (w_map); else (kernel C) q arrives by TMA (q_map, boxes
 // of R rows) and w_map is not read.
-template <int R, bool PROJECT, int HD_>
-__global__ void __launch_bounds__(4 * R)
-band_attention_stream_kernel(const __grid_constant__ CUtensorMap q_map,
-                             const __grid_constant__ CUtensorMap k_map,
-                             const __grid_constant__ CUtensorMap v_map,
-                             const __grid_constant__ CUtensorMap w_map,
-                             const float* __restrict__ x,
-                             const float* __restrict__ bias,
-                             float* __restrict__ o, int N, int C,
-                             float sl2) {
+// PAD (kernel C only): heads of hd channels padded to HD_ by the boxes of
+// `head_map`s of q, k and v (G, N, C = heads hd), o's stores cut to the
+// head's channels. The kernels below call this body.
+template <int R, bool PROJECT, int HD_, bool PAD>
+__device__ __forceinline__ void attend_stream_f32(
+    const CUtensorMap& q_map, const CUtensorMap& k_map,
+    const CUtensorMap& v_map, const CUtensorMap& w_map,
+    const float* __restrict__ x, const float* __restrict__ bias,
+    float* __restrict__ o, int N, int C, float sl2, int hd) {
+  static_assert(!(PAD && PROJECT), "kernel A pads its operands");
   constexpr int TILE = KB_F32 * HD_;              // floats of a k or v tile
   constexpr int CB = HD_ / 32;                    // 32-channel blocks a head
   extern __shared__ unsigned char smem_raw[];
@@ -359,10 +359,10 @@ band_attention_stream_kernel(const __grid_constant__ CUtensorMap q_map,
     const int st = j % STAGES_F32;
     mbar_expect_tx(&full[st], 2 * TILE * sizeof(float));
     for (int cb = 0; cb < CB; ++cb) {
-      tma_load_3d(Ks + st * TILE + cb * KB_F32 * 32, &k_map, &full[st],
-                  h * HD_ + 32 * cb, j * KB_F32, g);
-      tma_load_3d(Vs + st * TILE + cb * KB_F32 * 32, &v_map, &full[st],
-                  h * HD_ + 32 * cb, j * KB_F32, g);
+      tma_load_head<PAD>(Ks + st * TILE + cb * KB_F32 * 32, &k_map,
+                         &full[st], h, HD_, 32 * cb, j * KB_F32, g);
+      tma_load_head<PAD>(Vs + st * TILE + cb * KB_F32 * 32, &v_map,
+                         &full[st], h, HD_, 32 * cb, j * KB_F32, g);
     }
   };
   if (tid == 0) {
@@ -384,8 +384,8 @@ band_attention_stream_kernel(const __grid_constant__ CUtensorMap q_map,
     } else {
       mbar_expect_tx(q_full, R * HD_ * sizeof(float));
       for (int hb = 0; hb < CB; ++hb)
-        tma_load_3d(Qs + hb * R * 32, &q_map, q_full, h * HD_ + 32 * hb,
-                    row0, g);
+        tma_load_head<PAD>(Qs + hb * R * 32, &q_map, q_full, h, HD_, 32 * hb,
+                           row0, g);
     }
     for (int j = 0; j < min(STAGES_F32, tiles); ++j) load(j);
   }
@@ -570,7 +570,7 @@ band_attention_stream_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int e = 0; e < 4 * CB; ++e)
       acc[a][e] += __shfl_xor_sync(FULL, acc[a][e], 8);
   }
-  float* og = o + (size_t)g * N * C + h * HD_ + 4 * cq;
+  float* og = o + (size_t)g * N * C + (PAD ? h * hd : h * HD_) + 4 * cq;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int n = row0 + 4 * rg + a;
@@ -578,11 +578,38 @@ band_attention_stream_kernel(const __grid_constant__ CUtensorMap q_map,
       const float inv = 1.f / l[a];
 #pragma unroll
       for (int b = 0; b < CB; ++b)
-        *reinterpret_cast<float4*>(og + (size_t)n * C + 32 * b) =
-            make_float4(acc[a][4 * b] * inv, acc[a][4 * b + 1] * inv,
-                        acc[a][4 * b + 2] * inv, acc[a][4 * b + 3] * inv);
+        if (!PAD || 32 * b + 4 * cq < hd)   // the head's channels (hd % 4 == 0)
+          *reinterpret_cast<float4*>(og + (size_t)n * C + 32 * b) =
+              make_float4(acc[a][4 * b] * inv, acc[a][4 * b + 1] * inv,
+                          acc[a][4 * b + 2] * inv, acc[a][4 * b + 3] * inv);
     }
   }
+}
+
+template <int R, bool PROJECT, int HD_>
+__global__ void __launch_bounds__(4 * R)
+band_attention_stream_kernel(const __grid_constant__ CUtensorMap q_map,
+                             const __grid_constant__ CUtensorMap k_map,
+                             const __grid_constant__ CUtensorMap v_map,
+                             const __grid_constant__ CUtensorMap w_map,
+                             const float* __restrict__ x,
+                             const float* __restrict__ bias,
+                             float* __restrict__ o, int N, int C,
+                             float sl2) {
+  attend_stream_f32<R, PROJECT, HD_, false>(q_map, k_map, v_map, w_map, x,
+                                            bias, o, N, C, sl2, HD_);
+}
+
+// Kernel C at heads of hd channels padded to HD_ inside the kernel.
+template <int R, int HD_>
+__global__ void __launch_bounds__(4 * R)
+band_attention_stream_padded_kernel(const __grid_constant__ CUtensorMap q_map,
+                                    const __grid_constant__ CUtensorMap k_map,
+                                    const __grid_constant__ CUtensorMap v_map,
+                                    float* __restrict__ o, int N, int C,
+                                    float sl2, int hd) {
+  attend_stream_f32<R, false, HD_, true>(q_map, k_map, v_map, q_map, nullptr,
+                                         nullptr, o, N, C, sl2, hd);
 }
 
 // The streamed attention, bf16: a producer warpgroup (its thread 0 issues
@@ -591,15 +618,14 @@ band_attention_stream_kernel(const __grid_constant__ CUtensorMap q_map,
 // swizzle, four k steps of q k^T and m64n64 products for p.v and the q
 // projection). PROJECT (kernel A): src_map is x and w_map the (C, 3C)
 // weight; else (kernel C) src_map is q and w_map is not read.
-template <int NC, bool PROJECT, int HD_>
-__global__ void __launch_bounds__(128 * (NC + 1), NC == 1 ? 2 : 1)
-band_attention_stream_wgmma_kernel(
-    const __grid_constant__ CUtensorMap src_map,
-    const __grid_constant__ CUtensorMap k_map,
-    const __grid_constant__ CUtensorMap v_map,
-    const __grid_constant__ CUtensorMap w_map,
+// PAD as the f32 body's: kernel C at heads of hd channels padded to HD_.
+template <int NC, bool PROJECT, int HD_, bool PAD>
+__device__ __forceinline__ void attend_stream_wgmma(
+    const CUtensorMap& src_map, const CUtensorMap& k_map,
+    const CUtensorMap& v_map, const CUtensorMap& w_map,
     const float* __restrict__ bias, bf16* __restrict__ o, int N, int C,
-    float sl2) {
+    float sl2, int hd) {
+  static_assert(!(PAD && PROJECT), "kernel A pads its operands");
   constexpr int TILE = KB_MMA * HD_;              // elements of a k or v tile
   constexpr int QT = WG_ROWS * HD_;               // of a warpgroup's q tile
   constexpr int XT = WG_ROWS * 32;                // of a box of x
@@ -645,18 +671,18 @@ band_attention_stream_wgmma_kernel(
       } else {
         mbar_expect_tx(q_full, NC * QT * sizeof(bf16));
         for (int c = 0; c < NC; ++c)
-          tma_load_3d(Qs + c * QT, &src_map, q_full, h * HD_,
-                      row0 + c * WG_ROWS, g);
+          tma_load_head<PAD>(Qs + c * QT, &src_map, q_full, h, HD_, 0,
+                             row0 + c * WG_ROWS, g);
       }
       for (int i = 0; i < tiles; ++i) {
         const int st = i % STAGES_MMA;
         if (i >= STAGES_MMA)                     // every consumer freed it
           mbar_wait(&empty[st], (i / STAGES_MMA - 1) & 1);
         mbar_expect_tx(&full[st], 2 * TILE * sizeof(bf16));
-        tma_load_3d(Ks + st * TILE, &k_map, &full[st], h * HD_, i * KB_MMA,
-                    g);
-        tma_load_3d(Vs + st * TILE, &v_map, &full[st], h * HD_, i * KB_MMA,
-                    g);
+        tma_load_head<PAD>(Ks + st * TILE, &k_map, &full[st], h, HD_, 0,
+                           i * KB_MMA, g);
+        tma_load_head<PAD>(Vs + st * TILE, &v_map, &full[st], h, HD_, 0,
+                           i * KB_MMA, g);
       }
     }
     return;
@@ -771,9 +797,10 @@ band_attention_stream_wgmma_kernel(
 
   const float inv_lo = 1.f / quad_sum(l_lo), inv_hi = 1.f / quad_sum(l_hi);
   const int n_lo = row0 + wg * WG_ROWS + r_lo, n_hi = n_lo + 8;
-  bf16* og = o + (size_t)g * N * C + h * HD_ + 2 * t;
+  bf16* og = o + (size_t)g * N * C + (PAD ? h * hd : h * HD_) + 2 * t;
 #pragma unroll
   for (int j = 0; j < HD_ / 8; ++j) {
+    if (PAD && 8 * j >= hd) break;     // channels past the head (hd % 8 == 0)
     if (n_lo < N)
       *reinterpret_cast<__nv_bfloat162*>(og + (size_t)n_lo * C + 8 * j) =
           __floats2bfloat162_rn(oacc[4 * j] * inv_lo,
@@ -783,6 +810,31 @@ band_attention_stream_wgmma_kernel(
           __floats2bfloat162_rn(oacc[4 * j + 2] * inv_hi,
                                 oacc[4 * j + 3] * inv_hi);
   }
+}
+
+template <int NC, bool PROJECT, int HD_>
+__global__ void __launch_bounds__(128 * (NC + 1), NC == 1 ? 2 : 1)
+band_attention_stream_wgmma_kernel(
+    const __grid_constant__ CUtensorMap src_map,
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map,
+    const __grid_constant__ CUtensorMap w_map,
+    const float* __restrict__ bias, bf16* __restrict__ o, int N, int C,
+    float sl2) {
+  attend_stream_wgmma<NC, PROJECT, HD_, false>(src_map, k_map, v_map, w_map,
+                                               bias, o, N, C, sl2, HD_);
+}
+
+// Kernel C at heads of hd channels padded to HD_ inside the kernel.
+template <int NC, int HD_>
+__global__ void __launch_bounds__(128 * (NC + 1), NC == 1 ? 2 : 1)
+band_attention_stream_padded_wgmma_kernel(
+    const __grid_constant__ CUtensorMap q_map,
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o, int N,
+    int C, float sl2, int hd) {
+  attend_stream_wgmma<NC, false, HD_, true>(q_map, k_map, v_map, q_map,
+                                            nullptr, o, N, C, sl2, hd);
 }
 
 // ------------------------------------------------- heads wider than 64
@@ -816,12 +868,13 @@ constexpr int V_STAGES = 2;        // both types: the ring of v blocks
 // before the unit's stage is freed (no wgmma group is left open across a
 // loop's back edge, which ptxas would serialise), then the online softmax
 // and O += P V (m64n64k16) on the tile's v block, waited too.
-__global__ void __launch_bounds__(256, 2)
-band_attention_blocked_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
-                                    const __grid_constant__ CUtensorMap k_map,
-                                    const __grid_constant__ CUtensorMap v_map,
-                                    bf16* __restrict__ o, int N, int C,
-                                    int hdp, float sl2) {
+// PAD: heads of hd channels padded to hdp by the boxes of `head_map`s of q,
+// k and v (G, N, C = heads hd), o's stores cut to the head's channels.
+template <bool PAD>
+__device__ __forceinline__ void blocked_wgmma(
+    const CUtensorMap& q_map, const CUtensorMap& k_map,
+    const CUtensorMap& v_map, bf16* __restrict__ o, int N, int C, int hdp,
+    float sl2, int hd) {
   constexpr int QB = WG_ROWS * BLK;               // elements of q's block
   constexpr int KT = KB_MMA * BLK;                // of k's or v's
   constexpr int UNIT = QB + KT;
@@ -833,7 +886,8 @@ band_attention_blocked_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   uint64_t* v_full = u_empty + UNITS_MMA;
   uint64_t* v_empty = v_full + V_STAGES;
   const int nbk = hdp / BLK;                      // the head's blocks
-  const int c0 = blockIdx.x / nbk * hdp;          // the head's first channel
+  const int hh = blockIdx.x / nbk;                // the head
+  const int c0 = hh * hdp;                        // its first channel
   const int ob = blockIdx.x % nbk, g = blockIdx.y;
   const int row0 = blockIdx.z * WG_ROWS;
   const int tiles = (N + KB_MMA - 1) / KB_MMA;
@@ -862,15 +916,16 @@ band_attention_blocked_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
             mbar_wait(&u_empty[st], (u / UNITS_MMA - 1) & 1);
           bf16* dst = Us + st * UNIT;
           mbar_expect_tx(&u_full[st], UNIT * sizeof(bf16));
-          tma_load_3d(dst, &q_map, &u_full[st], c0 + BLK * j, row0, g);
-          tma_load_3d(dst + QB, &k_map, &u_full[st], c0 + BLK * j,
-                      i * KB_MMA, g);
+          tma_load_head<PAD>(dst, &q_map, &u_full[st], hh, hdp, BLK * j,
+                             row0, g);
+          tma_load_head<PAD>(dst + QB, &k_map, &u_full[st], hh, hdp,
+                             BLK * j, i * KB_MMA, g);
         }
         const int vs = i % V_STAGES;
         if (i >= V_STAGES) mbar_wait(&v_empty[vs], (i / V_STAGES - 1) & 1);
         mbar_expect_tx(&v_full[vs], KT * sizeof(bf16));
-        tma_load_3d(Vs + vs * KT, &v_map, &v_full[vs], c0 + BLK * ob,
-                    i * KB_MMA, g);
+        tma_load_head<PAD>(Vs + vs * KT, &v_map, &v_full[vs], hh, hdp,
+                           BLK * ob, i * KB_MMA, g);
       }
     }
     return;
@@ -908,9 +963,10 @@ band_attention_blocked_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
   const float inv_lo = 1.f / quad_sum(l_lo), inv_hi = 1.f / quad_sum(l_hi);
   const int n_lo = row0 + r_lo, n_hi = n_lo + 8;
-  bf16* og = o + (size_t)g * N * C + c0 + BLK * ob + 2 * t;
+  bf16* og = o + (size_t)g * N * C + (PAD ? hh * hd : c0) + BLK * ob + 2 * t;
 #pragma unroll
   for (int j = 0; j < BLK / 8; ++j) {
+    if (PAD && BLK * ob + 8 * j >= hd) break;    // past the head (hd % 8 == 0)
     if (n_lo < N)
       *reinterpret_cast<__nv_bfloat162*>(og + (size_t)n_lo * C + 8 * j) =
           __floats2bfloat162_rn(oacc[4 * j] * inv_lo,
@@ -922,71 +978,135 @@ band_attention_blocked_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// f32: R query rows a CTA (4 R threads, the 64-wide form's micro-tiles);
-// thread 0 issues the TMA boxes (a unit's k block, 64 keys, and q block of
-// the R rows; each key tile's v block; boxes of 32 channels) one unit or
-// tile ahead into rings of two stages, freed by every warp through their
-// `empty` barriers. The scores of a unit add to the tile's (4 x 4 a thread,
-// in f32 FMAs over the block's 64 channels in order); after the head's last
-// block, the online softmax and p.v as the streamed kernel's.
-template <int R>
-__global__ void __launch_bounds__(4 * R)
-band_attention_blocked_kernel(const __grid_constant__ CUtensorMap q_map,
+__global__ void __launch_bounds__(256, 2)
+band_attention_blocked_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                                    const __grid_constant__ CUtensorMap k_map,
+                                    const __grid_constant__ CUtensorMap v_map,
+                                    bf16* __restrict__ o, int N, int C,
+                                    int hdp, float sl2) {
+  blocked_wgmma<false>(q_map, k_map, v_map, o, N, C, hdp, sl2, hdp);
+}
+
+// Kernel C at heads of hd channels padded to hdp inside the kernel.
+__global__ void __launch_bounds__(256, 2)
+band_attention_blocked_padded_wgmma_kernel(
+    const __grid_constant__ CUtensorMap q_map,
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o, int N,
+    int C, int hdp, float sl2, int hd) {
+  blocked_wgmma<true>(q_map, k_map, v_map, o, N, C, hdp, sl2, hd);
+}
+
+// f32 (`band_attention_cluster_kernel<PAD>`): a thread-block cluster of cs
+// CTAs a (head, query tile of R = 32 rows, band), one CTA a 64-channel block
+// of the head (`cluster_shape`: cs = hdp / 64 up to 16, the non-portable
+// cluster size, checked by cudaOccupancyMaxActiveClusters past the portable
+// 8). Each CTA keeps its q block resident (loaded once) and streams its k
+// block of each 64-key tile through a ring of K_STAGES; for each key tile
+// it scores its block (4 x 4 a thread, f32 FMAs over the block's 64
+// channels in order), writes the partial scores to its shared memory, and
+// after a cluster barrier sums the cluster's partials over distributed
+// shared memory in rank order, so every CTA holds the same scores, bit for
+// bit, and runs the same online softmax; then p.v on its own v block (a
+// ring of CV_STAGES) into its 64 output channels. The head's scores are
+// computed once, split over its blocks. The barrier's wait runs a tile
+// behind its arrival (the next tile's scores fill the gap), and the
+// partials are double-buffered (below); a last wait keeps each CTA alive
+// until the others have read it. Past 16
+// blocks (heads wider than 1024 channels) the head's blocks are split into
+// `groups` clusters of cs CTAs, each CTA scoring blocks rank, rank + cs,
+// ... (its q blocks all resident) and writing output block group cs +
+// rank (none past the head): the score work is then `groups` times the
+// head's. What bounds it: the FMA rate (4 N^2 hdp flop a (band, head) at
+// 67 TFLOP/s), shared memory's reads of the micro-tiles, and the barrier a
+// key tile.
+constexpr int BLOCKED_F32_ROWS = 32;   // query rows of an f32 CTA
+constexpr int CLUSTER_MAX = 16;        // CTAs of a cluster, at most
+constexpr int K_STAGES = 2;            // the f32 ring of k blocks
+constexpr int CV_STAGES = 2;           // and of v blocks
+
+// (cs, groups) of a head of nbk 64-channel blocks: groups clusters of cs
+// CTAs, as few clusters as CLUSTER_MAX allows, as even as can be;
+// `kernels/attention.py::cluster_shape` mirrors it.
+__host__ __device__ constexpr int cluster_groups(int nbk) {
+  return (nbk + CLUSTER_MAX - 1) / CLUSTER_MAX;
+}
+
+__host__ __device__ constexpr int cluster_size(int nbk) {
+  return (nbk + cluster_groups(nbk) - 1) / cluster_groups(nbk);
+}
+
+template <bool PAD>
+__global__ void __launch_bounds__(4 * BLOCKED_F32_ROWS)
+band_attention_cluster_kernel(const __grid_constant__ CUtensorMap q_map,
                               const __grid_constant__ CUtensorMap k_map,
                               const __grid_constant__ CUtensorMap v_map,
                               float* __restrict__ o, int N, int C, int hdp,
-                              float sl2) {
-  constexpr int KT = KB_F32 * BLK;                // floats of k's or v's block
-  constexpr int UNIT = KT + R * BLK;              // a k block, then q's
+                              int hd, float sl2) {
+  constexpr int R = BLOCKED_F32_ROWS;
+  constexpr int KT = KB_F32 * BLK;                // floats of a k or v block
+  constexpr int QB = R * BLK;                     // of a q block
+  constexpr int PART = R * KB_F32;                // of a tile's partial scores
   constexpr int CB = BLK / 32;                    // 32-channel boxes a block
   extern __shared__ unsigned char smem_raw[];
-  float* Us = reinterpret_cast<float*>(align1024(smem_raw));  // [2][k | q]
-  float* Vs = Us + STAGES_F32 * UNIT;                         // [2][64][64]
-  float* Ps = Vs + V_STAGES * KT;                             // [R][LDP]
-  uint64_t* u_full = reinterpret_cast<uint64_t*>(Ps + R * LDP);
-  uint64_t* u_empty = u_full + STAGES_F32;
-  uint64_t* v_full = u_empty + STAGES_F32;
-  uint64_t* v_empty = v_full + V_STAGES;
-  const int nbk = hdp / BLK;
-  const int c0 = blockIdx.x / nbk * hdp, ob = blockIdx.x % nbk;
+  const int nbk = hdp / BLK, cs = cluster_size(nbk);
+  const int groups = cluster_groups(nbk);
+  const int rank = blockIdx.x % cs, cl = blockIdx.x / cs;  // clusters span x
+  const int hh = cl / groups;                     // the head
+  const int ob = cl % groups * cs + rank;         // the output block
+  const bool writes = ob < nbk;                   // none past the head
+  const int own = (nbk - rank + cs - 1) / cs;     // blocks rank + cs jj
+  float* Qs = reinterpret_cast<float*>(align1024(smem_raw));  // [own][R][64]
+  float* Ks = Qs + groups * QB;                   // [K_STAGES][64][64]
+  float* Vs = Ks + K_STAGES * KT;                 // [CV_STAGES][64][64]
+  float* Part = Vs + CV_STAGES * KT;              // [2][4][R * 4] float4s
+  float* Ps = Part + 2 * PART;                    // [R][LDP]
+  uint64_t* k_full = reinterpret_cast<uint64_t*>(Ps + R * LDP);
+  uint64_t* k_empty = k_full + K_STAGES;
+  uint64_t* v_full = k_empty + K_STAGES;
+  uint64_t* v_empty = v_full + CV_STAGES;
+  uint64_t* q_full = v_empty + CV_STAGES;
   const int g = blockIdx.y, row0 = blockIdx.z * R;
   const int tid = threadIdx.x, lane = tid & 31;
-  const int tiles = (N + KB_F32 - 1) / KB_F32, units = tiles * nbk;
+  const int tiles = (N + KB_F32 - 1) / KB_F32, units = tiles * own;
 
-  // unit u (key tile u / nbk, block u % nbk) -> stage u % 2
-  auto load_unit = [&](int u) {
-    const int st = u % STAGES_F32, ch = c0 + BLK * (u % nbk);
-    float* dst = Us + st * UNIT;
-    mbar_expect_tx(&u_full[st], UNIT * sizeof(float));
-    for (int cb = 0; cb < CB; ++cb) {
-      tma_load_3d(dst + cb * KB_F32 * 32, &k_map, &u_full[st], ch + 32 * cb,
-                  u / nbk * KB_F32, g);
-      tma_load_3d(dst + KT + cb * R * 32, &q_map, &u_full[st], ch + 32 * cb,
-                  row0, g);
-    }
+  // unit u: key tile u / own of block rank + cs (u % own) -> stage u % 2
+  auto load_k = [&](int u) {
+    const int st = u % K_STAGES, ch = BLK * (rank + cs * (u % own));
+    mbar_expect_tx(&k_full[st], KT * sizeof(float));
+    for (int cb = 0; cb < CB; ++cb)
+      tma_load_head<PAD>(Ks + st * KT + cb * KB_F32 * 32, &k_map, &k_full[st],
+                         hh, hdp, ch + 32 * cb, u / own * KB_F32, g);
   };
   auto load_v = [&](int i) {                     // key tile i -> stage i % 2
-    const int st = i % V_STAGES;
+    const int st = i % CV_STAGES;
     mbar_expect_tx(&v_full[st], KT * sizeof(float));
     for (int cb = 0; cb < CB; ++cb)
-      tma_load_3d(Vs + st * KT + cb * KB_F32 * 32, &v_map, &v_full[st],
-                  c0 + BLK * ob + 32 * cb, i * KB_F32, g);
+      tma_load_head<PAD>(Vs + st * KT + cb * KB_F32 * 32, &v_map, &v_full[st],
+                         hh, hdp, BLK * ob + 32 * cb, i * KB_F32, g);
   };
   if (tid == 0) {
-    for (int st = 0; st < STAGES_F32; ++st) {
-      mbar_init(&u_full[st], 1);
-      mbar_init(&u_empty[st], 4 * R / 32);      // a warp each
+    for (int st = 0; st < K_STAGES; ++st) {
+      mbar_init(&k_full[st], 1);
+      mbar_init(&k_empty[st], 4 * R / 32);      // a warp each
     }
-    for (int st = 0; st < V_STAGES; ++st) {
+    for (int st = 0; st < CV_STAGES; ++st) {
       mbar_init(&v_full[st], 1);
       mbar_init(&v_empty[st], 4 * R / 32);
     }
+    mbar_init(q_full, 1);
     mbar_init_fence();
   }
   __syncthreads();
   if (tid == 0) {
-    for (int u = 0; u < min(STAGES_F32, units); ++u) load_unit(u);
-    for (int i = 0; i < min(V_STAGES, tiles); ++i) load_v(i);
+    mbar_expect_tx(q_full, own * QB * sizeof(float));
+    for (int jj = 0; jj < own; ++jj)
+      for (int cb = 0; cb < CB; ++cb)
+        tma_load_head<PAD>(Qs + jj * QB + cb * R * 32, &q_map, q_full, hh, hdp,
+                           BLK * (rank + cs * jj) + 32 * cb, row0, g);
+    for (int u = 0; u < min(K_STAGES, units); ++u) load_k(u);
+    if (writes)
+      for (int i = 0; i < min(CV_STAGES, tiles); ++i) load_v(i);
   }
 
   // a group of 16 threads (half a warp) owns rows 4 rg .. 4 rg + 3: the
@@ -1001,51 +1121,103 @@ band_attention_blocked_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int e = 0; e < 4 * CB; ++e) acc[i][e] = 0.f;
   }
   float* Pg = Ps + 4 * rg * LDP;
-  for (int i = 0, u = 0; i < tiles; ++i) {
+  int u = 0;                                      // the k ring's next unit
+  // sc = this CTA's partial scores of the next key tile, over its blocks
+  auto score = [&](float (&sc)[4][4]) {
 #pragma unroll
     for (int a = 0; a < 4; ++a)
-      s[a][0] = s[a][1] = s[a][2] = s[a][3] = 0.f;
-    for (int j = 0; j < nbk; ++j, ++u) {
-      const int st = u % STAGES_F32;
+      sc[a][0] = sc[a][1] = sc[a][2] = sc[a][3] = 0.f;
+    for (int jj = 0; jj < own; ++jj, ++u) {
+      const int st = u % K_STAGES;
       // unit u + 1 into the stage unit u - 1 used, once every warp freed it
       if (tid == 0 && u >= 1 && u + 1 < units) {
-        mbar_wait(&u_empty[(u + 1) % STAGES_F32],
-                  ((u + 1) / STAGES_F32 - 1) & 1);
-        load_unit(u + 1);
+        mbar_wait(&k_empty[(u + 1) % K_STAGES], ((u + 1) / K_STAGES - 1) & 1);
+        load_k(u + 1);
       }
-      mbar_wait(&u_full[st], (u / STAGES_F32) & 1);
-      f32_block_scores<R>(s, Us + st * UNIT + KT, Us + st * UNIT, rg, t);
+      mbar_wait(&k_full[st], (u / K_STAGES) & 1);
+      f32_block_scores<R>(sc, Qs + jj * QB, Ks + st * KT, rg, t);
       __syncwarp();
-      if (lane == 0) mbar_arrive(&u_empty[st]);  // this warp is done with it
+      if (lane == 0) mbar_arrive(&k_empty[st]);  // this warp is done with it
     }
-    // v of tile i + 1 into the stage tile i - 1 used
-    if (tid == 0 && i >= 1 && i + 1 < tiles) {
-      mbar_wait(&v_empty[(i + 1) % V_STAGES], ((i + 1) / V_STAGES - 1) & 1);
-      load_v(i + 1);
-    }
-    const int vs = i % V_STAGES;
-    mbar_wait(&v_full[vs], (i / V_STAGES) & 1);
-    f32_softmax_pv<LDP>(s, m, l, acc, Pg, Vs + vs * KT, i * KB_F32, N, t,
-                        sl2);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&v_empty[vs]);
-  }
-  // the row sums over the group, the two key halves added, rows 2 half and
-  // 2 half + 1 of the group stored by this thread
-  f32_group_sums(l, acc);
-  float* og = o + (size_t)g * N * C + c0 + BLK * ob + 4 * cq;
+  };
+  // key tile i's partial scores into buffer i % 2
+  auto publish = [&](int i, const float (&sc)[4][4]) {
+    float4* part = reinterpret_cast<float4*>(Part + (i & 1) * PART);
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int n = row0 + 4 * rg + a;
-    if ((a >> 1) == half && n < N) {
-      const float inv = 1.f / l[a];
+    for (int a = 0; a < 4; ++a)
+      part[a * 4 * R + tid] =
+          make_float4(sc[a][0], sc[a][1], sc[a][2], sc[a][3]);
+  };
+  // One cluster barrier a key tile, its wait a tile behind its arrival:
+  // tile i + 1's partial scores are computed while the others reach tile
+  // i's. Arrival i + 1 follows this CTA's reads of tile i's partials, so
+  // once wait i is passed every CTA has read tile i - 1's, whose buffer
+  // tile i + 1's partials then take.
+  float sn[4][4];
+  mbar_wait(q_full, 0);
+  score(sn);
+  publish(0, sn);
+  cluster_arrive();
+  for (int i = 0; i < tiles; ++i) {
+    if (i + 1 < tiles) score(sn);
+    cluster_wait();
+    // tile i's scores: the cluster's partials summed in rank order (every
+    // CTA the same sum)
+    const float4* part =
+        reinterpret_cast<const float4*>(Part + (i & 1) * PART) + tid;
 #pragma unroll
-      for (int b = 0; b < CB; ++b)
-        *reinterpret_cast<float4*>(og + (size_t)n * C + 32 * b) =
-            make_float4(acc[a][4 * b] * inv, acc[a][4 * b + 1] * inv,
-                        acc[a][4 * b + 2] * inv, acc[a][4 * b + 3] * inv);
+    for (int a = 0; a < 4; ++a) {
+      float4 sum = ld_cluster_f4(cluster_addr(part + a * 4 * R, 0));
+      for (int r = 1; r < cs; ++r) {
+        const float4 p = ld_cluster_f4(cluster_addr(part + a * 4 * R, r));
+        sum.x += p.x;
+        sum.y += p.y;
+        sum.z += p.z;
+        sum.w += p.w;
+      }
+      s[a][0] = sum.x;
+      s[a][1] = sum.y;
+      s[a][2] = sum.z;
+      s[a][3] = sum.w;
+    }
+    if (i + 1 < tiles) publish(i + 1, sn);
+    cluster_arrive();
+    if (writes) {
+      // v of tile i + 1 into the stage tile i - 1 used
+      if (tid == 0 && i >= 1 && i + 1 < tiles) {
+        mbar_wait(&v_empty[(i + 1) % CV_STAGES],
+                  ((i + 1) / CV_STAGES - 1) & 1);
+        load_v(i + 1);
+      }
+      const int vs = i % CV_STAGES;
+      mbar_wait(&v_full[vs], (i / CV_STAGES) & 1);
+      f32_softmax_pv<LDP>(s, m, l, acc, Pg, Vs + vs * KT, i * KB_F32, N, t,
+                          sl2);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&v_empty[vs]);
     }
   }
+  if (writes) {
+    // the row sums over the group, the two key halves added, rows 2 half
+    // and 2 half + 1 of the group stored by this thread
+    f32_group_sums(l, acc);
+    float* og = o + (size_t)g * N * C + (PAD ? hh * hd : hh * hdp) +
+                BLK * ob + 4 * cq;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int n = row0 + 4 * rg + a;
+      if ((a >> 1) == half && n < N) {
+        const float inv = 1.f / l[a];
+#pragma unroll
+        for (int b = 0; b < CB; ++b)
+          if (!PAD || BLK * ob + 32 * b + 4 * cq < hd)   // hd % 4 == 0
+            *reinterpret_cast<float4*>(og + (size_t)n * C + 32 * b) =
+                make_float4(acc[a][4 * b] * inv, acc[a][4 * b + 1] * inv,
+                            acc[a][4 * b + 2] * inv, acc[a][4 * b + 3] * inv);
+      }
+    }
+  }
+  cluster_wait();       // the others' last reads of this CTA's partials
 }
 
 // Shared memory of the streamed kernels at head width hd (bytes, with 1024
@@ -1074,22 +1246,23 @@ size_t stream_wgmma_smem(int C, int NC, bool project, int hd) {
 }
 
 // The blocked form's: bf16 three units of a q and a k block and two v
-// blocks; f32 two units of a k and a q block, two v blocks and the
-// probabilities; a full and an empty barrier a stage.
-constexpr int BLOCKED_F32_ROWS = 32;   // query rows of an f32 CTA
-
-size_t blocked_smem(int dtype) {
+// blocks, a full and an empty barrier a stage; f32 (the cluster form, at
+// head width hdp) the resident q blocks of `cluster_groups`, the rings of k
+// and v blocks, two buffers of partial scores and the probabilities, a
+// full and an empty barrier a stage and q's.
+size_t blocked_smem(int dtype, int hdp) {
   if (dtype == 1)
     return 1024 +
            sizeof(bf16) * ((size_t)UNITS_MMA * (WG_ROWS + KB_MMA) * BLK +
                            (size_t)V_STAGES * KB_MMA * BLK) +
            8 * 2 * (UNITS_MMA + V_STAGES);
   return 1024 +
-         sizeof(float) * ((size_t)STAGES_F32 * (KB_F32 + BLOCKED_F32_ROWS) *
-                              BLK +
-                          (size_t)V_STAGES * KB_F32 * BLK +
-                          (size_t)BLOCKED_F32_ROWS * LDP) +
-         8 * 2 * (STAGES_F32 + V_STAGES);
+         sizeof(float) *
+             ((size_t)cluster_groups(hdp / BLK) * BLOCKED_F32_ROWS * BLK +
+              (size_t)(K_STAGES + CV_STAGES) * KB_F32 * BLK +
+              2 * (size_t)BLOCKED_F32_ROWS * KB_F32 +
+              (size_t)BLOCKED_F32_ROWS * LDP) +
+         8 * (2 * (K_STAGES + CV_STAGES) + 1);
 }
 
 // setmaxnreg moves registers between the warpgroups of a CTA: each
@@ -1216,37 +1389,147 @@ cudaError_t stream_wgmma(int rows, const bf16* src, const bf16* w,
   return cudaErrorInvalidValue;
 }
 
-// The blocked form (heads of hdp = C / heads channels, a multiple of 64
-// past 64): a CTA of `rows` query rows, bf16 64, f32 32, for each (head,
-// 64-channel block), C / 64 of them. The maps take boxes of 64 channels
-// (bf16) or 32 (f32) of q's rows and of k's and v's key tiles.
+// Kernel C's streamed path at heads of hd channels, no kernel width below
+// 64, padded to HD_ inside the kernel: q, k and v by `head_map`s.
+template <int R, int HD_>
+cudaError_t launch_stream_padded_f32(const void* q, const void* k,
+                                     const void* v, void* o, int G, int N,
+                                     int heads, int hd, float scale,
+                                     cudaStream_t s) {
+  constexpr auto kernel = band_attention_stream_padded_kernel<R, HD_>;
+  CUtensorMap qm, km, vm;
+  cudaError_t e = head_map(&qm, q, G, N, heads, hd, R, true, 32);
+  if (e == cudaSuccess) e = head_map(&km, k, G, N, heads, hd, KB_F32, true, 32);
+  if (e == cudaSuccess) e = head_map(&vm, v, G, N, heads, hd, KB_F32, true, 32);
+  if (e == cudaSuccess) e = allow_smem<kernel>();
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(heads, G, (N + R - 1) / R), 4 * R,
+           stream_f32_smem(heads * hd, R, false, HD_), s>>>(
+      qm, km, vm, static_cast<float*>(o), N, heads * hd, scale * LOG2E, hd);
+  return cudaGetLastError();
+}
+
+template <int NC, int HD_>
+cudaError_t launch_stream_padded_wgmma(const void* q, const void* k,
+                                       const void* v, void* o, int G, int N,
+                                       int heads, int hd, float scale,
+                                       cudaStream_t s) {
+  constexpr auto kernel = band_attention_stream_padded_wgmma_kernel<NC, HD_>;
+  CUtensorMap qm, km, vm;
+  cudaError_t e = head_map(&qm, q, G, N, heads, hd, WG_ROWS, false, HD_);
+  if (e == cudaSuccess)
+    e = head_map(&km, k, G, N, heads, hd, KB_MMA, false, HD_);
+  if (e == cudaSuccess)
+    e = head_map(&vm, v, G, N, heads, hd, KB_MMA, false, HD_);
+  if (e == cudaSuccess) e = allow_smem<kernel>();
+  if (e == cudaSuccess)
+    e = check_reallocation<kernel>(NC, NC == 1 ? 216 : 232);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(heads, G, (N + NC * WG_ROWS - 1) / (NC * WG_ROWS)),
+           128 * (NC + 1), stream_wgmma_smem(heads * hd, NC, false, HD_),
+           s>>>(qm, km, vm, static_cast<bf16*>(o), N, heads * hd,
+                scale * LOG2E, hd);
+  return cudaGetLastError();
+}
+
+// Lets `kernel` run in clusters past the portable 8 CTAs (once).
+template <auto kernel>
+cudaError_t allow_wide_clusters() {
+  static const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
+}
+
+// The f32 cluster form: clusters of cs CTAs (`cluster_size`) along x, a
+// (head, output group) each; one past 8 CTAs only where the card can hold
+// such a cluster (cudaOccupancyMaxActiveClusters).
+template <bool PAD>
+cudaError_t launch_cluster(const CUtensorMap& qm, const CUtensorMap& km,
+                           const CUtensorMap& vm, float* o, int G, int N,
+                           int heads, int hd, int hdp, float scale,
+                           cudaStream_t s) {
+  constexpr auto kernel = band_attention_cluster_kernel<PAD>;
+  const int nbk = hdp / BLK, cs = cluster_size(nbk);
+  const size_t smem = blocked_smem(0, hdp);
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  cudaError_t e = allow_smem<kernel>();
+  if (e == cudaSuccess) e = allow_wide_clusters<kernel>();
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(heads * cluster_groups(nbk) * cs, G,
+                     (N + BLOCKED_F32_ROWS - 1) / BLOCKED_F32_ROWS);
+  cfg.blockDim = dim3(4 * BLOCKED_F32_ROWS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (cs > 8) {
+    int clusters = 0;
+    e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (e != cudaSuccess) return e;
+    if (clusters < 1) return cudaErrorInvalidConfiguration;
+  }
+  e = cudaLaunchKernelEx(&cfg, kernel, qm, km, vm, o, N, heads * hd, hdp, hd,
+                         scale * LOG2E);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// The blocked form at heads of hd channels, held as hdp = `padded_width(hd)`
+// (a multiple of 64 past 64): a CTA of `rows` query rows, bf16 64, f32 32,
+// for each (head, 64-channel block). The maps take boxes of 64 channels
+// (bf16) or 32 (f32) of q's rows and of k's and v's key tiles: `band_map`s
+// of (G, N, C) where hd is hdp, else `head_map`s of (G, N, heads hd), which
+// pad each head to hdp inside the kernel.
 cudaError_t launch_blocked(const void* q, const void* k, const void* v,
-                           void* o, int G, int N, int C, int heads, int dtype,
-                           int rows, float scale, cudaStream_t s) {
+                           void* o, int G, int N, int heads, int hd,
+                           int dtype, int rows, float scale, cudaStream_t s) {
   const bool bf = dtype == 1;
   if (rows != (bf ? WG_ROWS : BLOCKED_F32_ROWS)) return cudaErrorInvalidValue;
   const int keys = bf ? KB_MMA : KB_F32, cols = bf ? BLK : 32;
+  const int hdp = padded_width(hd), C = heads * hd;
+  const bool pad = hd != hdp;
   CUtensorMap qm, km, vm;
-  cudaError_t e = band_map(&qm, q, G, N, C, rows, !bf, cols);
-  if (e == cudaSuccess) e = band_map(&km, k, G, N, C, keys, !bf, cols);
-  if (e == cudaSuccess) e = band_map(&vm, v, G, N, C, keys, !bf, cols);
+  cudaError_t e;
+  if (pad) {
+    e = head_map(&qm, q, G, N, heads, hd, rows, !bf, cols);
+    if (e == cudaSuccess)
+      e = head_map(&km, k, G, N, heads, hd, keys, !bf, cols);
+    if (e == cudaSuccess)
+      e = head_map(&vm, v, G, N, heads, hd, keys, !bf, cols);
+  } else {
+    e = band_map(&qm, q, G, N, C, rows, !bf, cols);
+    if (e == cudaSuccess) e = band_map(&km, k, G, N, C, keys, !bf, cols);
+    if (e == cudaSuccess) e = band_map(&vm, v, G, N, C, keys, !bf, cols);
+  }
   if (e != cudaSuccess) return e;
-  const dim3 grid(C / BLK, G, (N + rows - 1) / rows);
-  const size_t smem = blocked_smem(dtype);
-  const int hdp = C / heads;
-  if (bf) {
+  if (!bf) {
+    float* out = static_cast<float*>(o);
+    return pad ? launch_cluster<true>(qm, km, vm, out, G, N, heads, hd, hdp,
+                                      scale, s)
+               : launch_cluster<false>(qm, km, vm, out, G, N, heads, hd, hdp,
+                                       scale, s);
+  }
+  const dim3 grid(heads * (hdp / BLK), G, (N + rows - 1) / rows);
+  const size_t smem = blocked_smem(dtype, hdp);
+  bf16* out = static_cast<bf16*>(o);
+  if (pad) {
+    constexpr auto kernel = band_attention_blocked_padded_wgmma_kernel;
+    e = allow_smem<kernel>();
+    if (e == cudaSuccess) e = check_reallocation<kernel>(1, 216);
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, 256, smem, s>>>(qm, km, vm, out, N, C, hdp, scale * LOG2E,
+                                   hd);
+  } else {
     constexpr auto kernel = band_attention_blocked_wgmma_kernel;
     e = allow_smem<kernel>();
     if (e == cudaSuccess) e = check_reallocation<kernel>(1, 216);
     if (e != cudaSuccess) return e;
-    kernel<<<grid, 256, smem, s>>>(qm, km, vm, static_cast<bf16*>(o), N, C,
-                                   hdp, scale * LOG2E);
-  } else {
-    constexpr auto kernel = band_attention_blocked_kernel<BLOCKED_F32_ROWS>;
-    e = allow_smem<kernel>();
-    if (e != cudaSuccess) return e;
-    kernel<<<grid, 4 * BLOCKED_F32_ROWS, smem, s>>>(
-        qm, km, vm, static_cast<float*>(o), N, C, hdp, scale * LOG2E);
+    kernel<<<grid, 256, smem, s>>>(qm, km, vm, out, N, C, hdp, scale * LOG2E);
   }
   return cudaGetLastError();
 }
@@ -1361,7 +1644,8 @@ cudaError_t launch_attn_stream(const void* q, const void* k, const void* v,
                                cudaStream_t s) {
   if (!stream_rows_valid(dtype, rows)) return cudaErrorInvalidValue;
   if (C / heads > 64)
-    return launch_blocked(q, k, v, o, G, N, C, heads, dtype, rows, scale, s);
+    return launch_blocked(q, k, v, o, G, N, heads, C / heads, dtype, rows,
+                          scale, s);
   if (dtype == 1)
     return stream_wgmma<false>(
         rows, static_cast<const bf16*>(q), nullptr, nullptr,
@@ -1371,6 +1655,44 @@ cudaError_t launch_attn_stream(const void* q, const void* k, const void* v,
       rows, static_cast<const float*>(q), nullptr, nullptr,
       static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), G, N, C, heads, scale, s);
+}
+
+// Kernel C at heads of hd channels padded inside the kernel, at `rows`
+// query rows a CTA: those of the kernel width's own forms (padded to 32:
+// f32 64, 32 or 16, bf16 128 or 64; to 64: f32 32, bf16 64; past 64 the
+// blocked form's, f32 32, bf16 64).
+cudaError_t launch_attn_stream_padded(const void* q, const void* k,
+                                      const void* v, void* o, int G, int N,
+                                      int heads, int hd, int dtype, int rows,
+                                      float scale, cudaStream_t s) {
+  if (!stream_rows_valid(dtype, rows)) return cudaErrorInvalidValue;
+  const int hdp = padded_width(hd);
+  if (hdp > 64)
+    return launch_blocked(q, k, v, o, G, N, heads, hd, dtype, rows, scale, s);
+  if (dtype == 1) {
+    if (hdp == 64)
+      return rows == WG_ROWS ? launch_stream_padded_wgmma<1, 64>(
+                                   q, k, v, o, G, N, heads, hd, scale, s)
+                             : cudaErrorInvalidValue;
+    return rows == WG_ROWS ? launch_stream_padded_wgmma<1, 32>(
+                                 q, k, v, o, G, N, heads, hd, scale, s)
+                           : launch_stream_padded_wgmma<2, 32>(
+                                 q, k, v, o, G, N, heads, hd, scale, s);
+  }
+  if (hdp == 64)
+    return rows == 32 ? launch_stream_padded_f32<32, 64>(
+                            q, k, v, o, G, N, heads, hd, scale, s)
+                      : cudaErrorInvalidValue;
+  switch (rows) {
+    case 64:
+      return launch_stream_padded_f32<64, 32>(q, k, v, o, G, N, heads, hd,
+                                              scale, s);
+    case 32:
+      return launch_stream_padded_f32<32, 32>(q, k, v, o, G, N, heads, hd,
+                                              scale, s);
+  }
+  return launch_stream_padded_f32<16, 32>(q, k, v, o, G, N, heads, hd, scale,
+                                          s);
 }
 
 // Kernel A's wide form: q, k and v of every head by the projection launch
@@ -1456,6 +1778,27 @@ extern "C" int yolou_band_attention_stream(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   return (int)launch_attn_stream(q, k, v, o, G, N, C, heads, dtype, rows,
                                  scale, static_cast<cudaStream_t>(stream));
+}
+
+// Kernel C's streamed path (the blocked form past 64 channels) at heads of
+// hd channels that no kernel is built for, padded inside the kernel (TMA
+// fills the channels past hd with zeros; no copy of q, k or v): q, k, v, o
+// (G, N, heads hd), hd neither 32, 64 nor a multiple of 64, rows of a
+// multiple of 16 bytes (bf16 hd % 8 == 0, f32 hd % 4 == 0); dtype as the
+// streamed entry's, rows as `launch_attn_stream_padded`'s. Every tensor
+// 16-byte aligned (TMA). Returns the launch status.
+extern "C" int yolou_band_attention_stream_padded(const void* q,
+                                                  const void* k,
+                                                  const void* v, void* o,
+                                                  int G, int N, int heads,
+                                                  int hd, int dtype, int rows,
+                                                  float scale, void* stream) {
+  if (G <= 0 || N <= 0 || heads <= 0 || G > 65535 ||
+      (dtype != 0 && dtype != 1) || !pads_in_kernel(hd, dtype == 0))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_attn_stream_padded(q, k, v, o, G, N, heads, hd, dtype,
+                                        rows, scale,
+                                        static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* yolou_error_string(int code) {

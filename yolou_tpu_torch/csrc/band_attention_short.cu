@@ -112,15 +112,16 @@ struct ShortLayout {
 // tokens x P bands, the head's swizzle); bias and v_out not read. c_map
 // comes last: the other parameters sit where a two-map signature puts
 // them.
-template <int HD_, bool PROJECT>
-__global__ void __launch_bounds__(128)
-band_attention_short_wgmma_kernel(const __grid_constant__ CUtensorMap a_map,
-                                  const __grid_constant__ CUtensorMap b_map,
-                                  const float* __restrict__ bias,
-                                  bf16* __restrict__ o,
-                                  bf16* __restrict__ v_out, int G, int N,
-                                  int C, int P, float sl2,
-                                  const __grid_constant__ CUtensorMap c_map) {
+// PAD (kernel C only): heads of hd channels, padded to HD_ by the boxes of
+// `head_map`s (q, k, v: (G, N, heads hd), C = heads hd); o's stores are
+// cut to the head's hd channels. The kernels below call this body.
+template <int HD_, bool PROJECT, bool PAD>
+__device__ __forceinline__ void short_wgmma(
+    const CUtensorMap& a_map, const CUtensorMap& b_map,
+    const float* __restrict__ bias, bf16* __restrict__ o,
+    bf16* __restrict__ v_out, int G, int N, int C, int P, float sl2,
+    const CUtensorMap& c_map, int hd) {
+  static_assert(!(PAD && PROJECT), "kernel A pads its operands");
   using L = ShortLayout<SHORT_ROWS, HD_>;
   extern __shared__ unsigned char smem_raw[];
   const int stages = short_stages(C), chunks = C / SHORT_KC;
@@ -243,9 +244,9 @@ band_attention_short_wgmma_kernel(const __grid_constant__ CUtensorMap a_map,
     __syncthreads();
     if (tid == 0) {
       mbar_expect_tx(full, 3 * packed * HD_ * sizeof(bf16));
-      tma_load_3d(ring, &a_map, full, h * HD_, 0, g0);
-      tma_load_3d(Ks, &b_map, full, h * HD_, 0, g0);
-      tma_load_3d(Vs, &c_map, full, h * HD_, 0, g0);
+      tma_load_head<PAD>(ring, &a_map, full, h, HD_, 0, 0, g0);
+      tma_load_head<PAD>(Ks, &b_map, full, h, HD_, 0, 0, g0);
+      tma_load_head<PAD>(Vs, &c_map, full, h, HD_, 0, 0, g0);
     }
     for (int i = packed * HD_ / 8 + tid; i < L::HEADT / 8; i += 128) {
       *reinterpret_cast<uint4*>(Ks + 8 * i) = make_uint4(0, 0, 0, 0);
@@ -324,9 +325,10 @@ band_attention_short_wgmma_kernel(const __grid_constant__ CUtensorMap a_map,
     for (int e = 0; e < 4; ++e) reg_fence(p[kk][e]);
 
   const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
-  bf16* og = o + (size_t)g0 * N * C + h * HD_ + 2 * t;
+  bf16* og = o + (size_t)g0 * N * C + (PAD ? h * hd : h * HD_) + 2 * t;
 #pragma unroll
   for (int j = 0; j < HD_ / 8; ++j) {
+    if (PAD && 8 * j >= hd) break;     // channels past the head (hd % 8 == 0)
     if (r_lo < real)
       *reinterpret_cast<__nv_bfloat162*>(og + (size_t)r_lo * C + 8 * j) =
           __floats2bfloat162_rn(oacc[4 * j] * inv_lo,
@@ -338,6 +340,32 @@ band_attention_short_wgmma_kernel(const __grid_constant__ CUtensorMap a_map,
   }
 }
 
+template <int HD_, bool PROJECT>
+__global__ void __launch_bounds__(128)
+band_attention_short_wgmma_kernel(const __grid_constant__ CUtensorMap a_map,
+                                  const __grid_constant__ CUtensorMap b_map,
+                                  const float* __restrict__ bias,
+                                  bf16* __restrict__ o,
+                                  bf16* __restrict__ v_out, int G, int N,
+                                  int C, int P, float sl2,
+                                  const __grid_constant__ CUtensorMap c_map) {
+  short_wgmma<HD_, PROJECT, false>(a_map, b_map, bias, o, v_out, G, N, C, P,
+                                   sl2, c_map, HD_);
+}
+
+// Kernel C at heads of hd channels padded to HD_ inside the kernel (`PAD`
+// above): q, k, v by `head_map`s, o (G, N, C = heads hd).
+template <int HD_>
+__global__ void __launch_bounds__(128)
+band_attention_short_padded_wgmma_kernel(
+    const __grid_constant__ CUtensorMap q_map,
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o, int G,
+    int N, int C, int P, float sl2, int hd) {
+  short_wgmma<HD_, false, true>(q_map, k_map, nullptr, o, nullptr, G, N, C,
+                                P, sl2, v_map, hd);
+}
+
 // The f32 kernel (above) at tiles of R = 64 or 32 rows (P = R / N bands),
 // 4 R threads. PROJECT (kernel A): a_map x ((C, N, G), boxes of 32
 // channels x N tokens x P bands, 128-byte swizzle), b_map the (C, 3C)
@@ -345,15 +373,14 @@ band_attention_short_wgmma_kernel(const __grid_constant__ CUtensorMap a_map,
 // Else (kernel C): a_map, b_map, c_map q, k, v (boxes of 32 channels x N
 // tokens x P bands, 128-byte swizzle: `f32_at`'s blocks); bias and v_out
 // not read; c_map last, as the bf16 kernel's.
-template <int R, int HD_, bool PROJECT>
-__global__ void __launch_bounds__(4 * R)
-band_attention_short_f32_kernel(const __grid_constant__ CUtensorMap a_map,
-                                const __grid_constant__ CUtensorMap b_map,
-                                const float* __restrict__ bias,
-                                float* __restrict__ o,
-                                float* __restrict__ v_out, int G, int N,
-                                int C, int P, float sl2,
-                                const __grid_constant__ CUtensorMap c_map) {
+// PAD as the bf16 body's: kernel C at heads of hd channels padded to HD_.
+template <int R, int HD_, bool PROJECT, bool PAD>
+__device__ __forceinline__ void short_f32(
+    const CUtensorMap& a_map, const CUtensorMap& b_map,
+    const float* __restrict__ bias, float* __restrict__ o,
+    float* __restrict__ v_out, int G, int N, int C, int P, float sl2,
+    const CUtensorMap& c_map, int hd) {
+  static_assert(!(PAD && PROJECT), "kernel A pads its operands");
   using L = ShortLayout<R, HD_>;
   constexpr int CB = HD_ / 32;       // 32-channel blocks of a head
   constexpr int CW = HD_ / 16;       // columns of a role a projecting thread
@@ -508,9 +535,12 @@ band_attention_short_f32_kernel(const __grid_constant__ CUtensorMap a_map,
       mbar_expect_tx(full, 3 * packed * HD_ * sizeof(float));
 #pragma unroll
       for (int b = 0; b < CB; ++b) {
-        tma_load_3d(Qs + b * R * 32, &a_map, full, h * HD_ + 32 * b, 0, g0);
-        tma_load_3d(Ks + b * R * 32, &b_map, full, h * HD_ + 32 * b, 0, g0);
-        tma_load_3d(Vs + b * R * 32, &c_map, full, h * HD_ + 32 * b, 0, g0);
+        tma_load_head<PAD>(Qs + b * R * 32, &a_map, full, h, HD_, 32 * b, 0,
+                           g0);
+        tma_load_head<PAD>(Ks + b * R * 32, &b_map, full, h, HD_, 32 * b, 0,
+                           g0);
+        tma_load_head<PAD>(Vs + b * R * 32, &c_map, full, h, HD_, 32 * b, 0,
+                           g0);
       }
     }
     for (int i = tid; i < 2 * CB * (R - packed) * 8; i += 4 * R) {
@@ -621,7 +651,7 @@ band_attention_short_f32_kernel(const __grid_constant__ CUtensorMap a_map,
     for (int e = 0; e < 4 * CB; ++e)
       oacc[a][e] += __shfl_xor_sync(FULL, oacc[a][e], 8);
   }
-  float* og = o + (size_t)g0 * N * C + h * HD_ + 4 * cq;
+  float* og = o + (size_t)g0 * N * C + (PAD ? h * hd : h * HD_) + 4 * cq;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int row = 4 * rg + a;
@@ -629,11 +659,37 @@ band_attention_short_f32_kernel(const __grid_constant__ CUtensorMap a_map,
       const float inv = 1.f / l[a];
 #pragma unroll
       for (int b = 0; b < CB; ++b)
-        *reinterpret_cast<float4*>(og + (size_t)row * C + 32 * b) =
-            make_float4(oacc[a][4 * b] * inv, oacc[a][4 * b + 1] * inv,
-                        oacc[a][4 * b + 2] * inv, oacc[a][4 * b + 3] * inv);
+        if (!PAD || 32 * b + 4 * cq < hd)   // the head's channels (hd % 4 == 0)
+          *reinterpret_cast<float4*>(og + (size_t)row * C + 32 * b) =
+              make_float4(oacc[a][4 * b] * inv, oacc[a][4 * b + 1] * inv,
+                          oacc[a][4 * b + 2] * inv, oacc[a][4 * b + 3] * inv);
     }
   }
+}
+
+template <int R, int HD_, bool PROJECT>
+__global__ void __launch_bounds__(4 * R)
+band_attention_short_f32_kernel(const __grid_constant__ CUtensorMap a_map,
+                                const __grid_constant__ CUtensorMap b_map,
+                                const float* __restrict__ bias,
+                                float* __restrict__ o,
+                                float* __restrict__ v_out, int G, int N,
+                                int C, int P, float sl2,
+                                const __grid_constant__ CUtensorMap c_map) {
+  short_f32<R, HD_, PROJECT, false>(a_map, b_map, bias, o, v_out, G, N, C, P,
+                                    sl2, c_map, HD_);
+}
+
+// Kernel C at heads of hd channels padded to HD_ inside the kernel.
+template <int R, int HD_>
+__global__ void __launch_bounds__(4 * R)
+band_attention_short_padded_f32_kernel(
+    const __grid_constant__ CUtensorMap q_map,
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, float* __restrict__ o, int G,
+    int N, int C, int P, float sl2, int hd) {
+  short_f32<R, HD_, false, true>(q_map, k_map, nullptr, o, nullptr, G, N, C,
+                                 P, sl2, v_map, hd);
 }
 
 // Dynamic shared memory of the short kernels at width C, head width hd and
@@ -720,6 +776,62 @@ bool short_ok(int G, int N, int C, int heads, int dtype, int rows) {
          (dtype == 0 || rows == SHORT_ROWS);
 }
 
+// Kernel C at heads of hd channels padded to HD_ (32 or 64) inside the
+// kernel: q, k, v by `head_map`s, boxes of HD_ channels (bf16) or 32 (f32)
+// x N tokens x P bands, the kernel widths' swizzles; one launch.
+template <int HD_, bool F32, int R>
+cudaError_t launch_short_padded(const void* q, const void* k, const void* v,
+                                void* o, int G, int N, int heads, int hd,
+                                float scale, cudaStream_t s) {
+  using T = std::conditional_t<F32, float, bf16>;
+  if (N > R) return cudaErrorInvalidValue;
+  const int P = R / N, cols = F32 ? 32 : HD_;
+  CUtensorMap qm, km, vm;
+  cudaError_t e = head_map(&qm, q, G, N, heads, hd, N, F32, cols, P);
+  if (e == cudaSuccess) e = head_map(&km, k, G, N, heads, hd, N, F32, cols, P);
+  if (e == cudaSuccess) e = head_map(&vm, v, G, N, heads, hd, N, F32, cols, P);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(heads, (G + P - 1) / P);
+  const size_t smem = short_smem(heads * hd, HD_, F32, R, false);
+  if constexpr (F32) {
+    constexpr auto kernel = band_attention_short_padded_f32_kernel<R, HD_>;
+    e = allow_smem<kernel>();
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, 4 * R, smem, s>>>(qm, km, vm, static_cast<T*>(o), G, N,
+                                     heads * hd, P, scale * LOG2E, hd);
+  } else {
+    constexpr auto kernel = band_attention_short_padded_wgmma_kernel<HD_>;
+    e = allow_smem<kernel>();
+    if (e != cudaSuccess) return e;
+    kernel<<<grid, 128, smem, s>>>(qm, km, vm, static_cast<T*>(o), G, N,
+                                   heads * hd, P, scale * LOG2E, hd);
+  }
+  return cudaGetLastError();
+}
+
+// One box of `cols` channels at (col0, head) x N tokens of band g, by a
+// `head_map`, copied from shared memory to dst as it landed (swizzled).
+__global__ void __launch_bounds__(128)
+tma_head_box_kernel(const __grid_constant__ CUtensorMap map,
+                    unsigned char* __restrict__ dst, int bytes, int col0,
+                    int head, int g) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* box = align1024(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(box + bytes);
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar, bytes);
+    tma_load_4d(box, &map, bar, col0, head, 0, g);
+  }
+  mbar_wait(bar, 0);
+  for (int i = threadIdx.x; i < bytes / 16; i += 128)
+    reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(box)[i];
+}
+
 }  // namespace
 
 // Kernel A at bands of N <= rows tokens in one launch, dtype 0 = float32
@@ -755,4 +867,59 @@ extern "C" int yolou_band_attention_short(const void* q, const void* k,
   return (int)launch_short_at<false>(C == 64 * heads, dtype, rows, q, k, v,
                                      nullptr, o, nullptr, G, N, C, heads,
                                      scale, static_cast<cudaStream_t>(stream));
+}
+
+// Kernel C at bands of N <= rows tokens in one launch at heads of hd
+// channels that no kernel is built for, padded inside the kernel (TMA fills
+// the channels past hd with zeros; no copy of q, k or v): q, k, v, o (G, N,
+// heads hd), dtype and rows as `yolou_band_attention_short`'s; hd neither
+// 32 nor 64, at most 64, rows of a multiple of 16 bytes (bf16 hd % 8 == 0,
+// f32 hd % 4 == 0). Every tensor 16-byte aligned (TMA). Returns the launch
+// status.
+extern "C" int yolou_band_attention_short_padded(const void* q, const void* k,
+                                                 const void* v, void* o,
+                                                 int G, int N, int heads,
+                                                 int hd, int dtype, int rows,
+                                                 float scale, void* stream) {
+  if (!pads_in_kernel(hd, dtype == 0) || hd > 64 ||
+      !short_ok(G, N, 32 * heads, heads, dtype, rows))
+    return (int)cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const bool wide = hd > 32;
+  if (dtype == 1)
+    return (int)(wide ? launch_short_padded<64, false, 64>(
+                            q, k, v, o, G, N, heads, hd, scale, s)
+                      : launch_short_padded<32, false, 64>(
+                            q, k, v, o, G, N, heads, hd, scale, s));
+  if (wide)
+    return (int)(rows == 64 ? launch_short_padded<64, true, 64>(
+                                  q, k, v, o, G, N, heads, hd, scale, s)
+                            : launch_short_padded<64, true, 32>(
+                                  q, k, v, o, G, N, heads, hd, scale, s));
+  return (int)(rows == 64 ? launch_short_padded<32, true, 64>(
+                                q, k, v, o, G, N, heads, hd, scale, s)
+                          : launch_short_padded<32, true, 32>(
+                                q, k, v, o, G, N, heads, hd, scale, s));
+}
+
+// The head map's zero fill, for the card tests: one box of `cols` channels
+// at (col0, head) x N tokens of band g of a (G, N, heads hd) tensor of
+// dtype 0 = float32 or 1 = bfloat16, written to dst (N cols elements) as it
+// landed in shared memory (its swizzle). N <= 256, the box's rows 64 or 128
+// bytes. Returns the launch status.
+extern "C" int yolou_tma_head_box(const void* src, void* dst, int G, int N,
+                                  int heads, int hd, int dtype, int cols,
+                                  int col0, int head, int g, void* stream) {
+  const int elt = dtype == 0 ? 4 : 2, bytes = N * cols * elt;
+  if (G <= 0 || N <= 0 || N > 256 || heads <= 0 || hd <= 0 ||
+      (dtype != 0 && dtype != 1) || (cols * elt != 64 && cols * elt != 128))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap map;
+  cudaError_t e = head_map(&map, src, G, N, heads, hd, N, dtype == 0, cols);
+  if (e == cudaSuccess) e = allow_smem<tma_head_box_kernel>();
+  if (e != cudaSuccess) return (int)e;
+  tma_head_box_kernel<<<1, 128, 1024 + bytes + 8,
+                        static_cast<cudaStream_t>(stream)>>>(
+      map, static_cast<unsigned char*>(dst), bytes, col0, head, g);
+  return (int)cudaGetLastError();
 }

@@ -1,10 +1,12 @@
 // Hopper (sm_90a) building blocks of the streamed band attention kernels
 // (band_attention.cu) and the a2c2f kernels: tensor maps of the Tensor
-// Memory Accelerator (TMA), encoded on the host; mbarriers and TMA tile
-// loads; the wgmma matrix descriptor and warpgroup products; named barriers
-// and register reallocation between warpgroups; the wgmma attention's row
+// Memory Accelerator (TMA), encoded on the host (`head_map`: a head padded
+// with zero channels by TMA itself); mbarriers and TMA tile loads; the
+// wgmma matrix descriptor and warpgroup products; named barriers and
+// register reallocation between warpgroups; the wgmma attention's row
 // reductions and online-softmax step; the per-tile steps of the blocked
-// forms (heads wider than 64).
+// forms (heads wider than 64); distributed shared memory and the barrier
+// of a thread-block cluster.
 //
 // Shared-memory tiles. A band's rows of one head are 32 or 64 channels. f32
 // tiles are blocks of 32 channels (128-byte rows; a 64-wide head is two
@@ -118,6 +120,49 @@ inline cudaError_t band_map(CUtensorMap* map, const void* ptr, int G, int N,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// A map of a (G, N, heads * hd) tensor as four dimensions (hd, heads, N,
+// G): boxes of `cols` channels x one head x `rows` tokens x `bands` bands,
+// swizzled as `band_map`'s (its rows are `cols` channels long). A box may
+// be wider than the head, or start past it: TMA fills every channel past
+// hd with zeros, so a head of hd channels lands as a kernel width's (32,
+// 64 or a 64-channel block) with zero channels after it, and no padded
+// copy of the tensor is made. The rows of hd channels must be a multiple
+// of 16 bytes (TMA's stride rule). Fails as `band_map` does.
+inline cudaError_t head_map(CUtensorMap* map, const void* ptr, int G, int N,
+                            int heads, int hd, int rows, bool f32, int cols,
+                            int bands = 1) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t elt = f32 ? 4 : 2, C = (cuuint64_t)heads * hd;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
+                              (cuuint64_t)N, (cuuint64_t)G};
+  const cuuint64_t strides[3] = {hd * elt, C * elt, (cuuint64_t)N * C * elt};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows,
+                             (cuuint32_t)bands};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+               : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(ptr), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(cols * (int)elt),
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The kernel width that holds a head of hd channels padded inside the
+// kernel: 32, 64, or past 64 the next multiple of 64.
+__host__ __device__ constexpr int padded_width(int hd) {
+  return hd <= 32 ? 32 : hd <= 64 ? 64 : (hd + 63) / 64 * 64;
+}
+
+// Whether kernel C takes heads of hd channels padded inside the kernel (a
+// width no kernel is built for, whose rows TMA can address); `kernels/
+// attention.py::in_kernel_pad` mirrors it.
+inline bool pads_in_kernel(int hd, bool f32) {
+  return hd > 0 && hd != 32 && hd != 64 && hd % 64 != 0 &&
+         hd * (f32 ? 4 : 2) % 16 == 0;
+}
+
 // A map of a (C, 3C) weight, boxes of 32 input rows x `cols` columns (32 in
 // f32, the head width in bf16), swizzled as `band_map`'s.
 inline cudaError_t weight_map(CUtensorMap* map, const void* ptr, int C,
@@ -209,6 +254,29 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       :: "r"(shared_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(shared_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(shared_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(shared_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Box of channels ch .. of head h, rows from `row` of band g: a 3-D map's
+// (`band_map`) at channel h * hstride + ch, or with PAD a 4-D map's
+// (`head_map`) at (ch, h).
+template <bool PAD>
+__device__ __forceinline__ void tma_load_head(void* dst, const CUtensorMap* map,
+                                              uint64_t* bar, int h,
+                                              int hstride, int ch, int row,
+                                              int g) {
+  if constexpr (PAD) tma_load_4d(dst, map, bar, ch, h, row, g);
+  else tma_load_3d(dst, map, bar, h * hstride + ch, row, g);
 }
 
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
@@ -799,6 +867,45 @@ __device__ __forceinline__ void f32_softmax_pv(float (&s)[4][4],
       }
     }
   }
+}
+
+// ------------------------------------------------ thread-block clusters
+
+// This CTA's rank in its cluster.
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+// The shared::cluster address of p's twin in CTA `rank` of the cluster.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a) : "r"(shared_addr(p)), "r"(rank));
+  return a;
+}
+
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr) : "memory");
+  return v;
+}
+
+// The cluster barrier in two halves, each taken by every thread of every
+// CTA of the cluster, alternately: the arrival releases this thread's
+// writes to shared memory, the wait (for every arrival of that phase)
+// acquires the others'. `.aligned` wants the warp converged.
+__device__ __forceinline__ void cluster_arrive() {
+  __syncwarp();
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  __syncwarp();
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // f32: after the last key tile, the row sums l over the group and the two

@@ -61,20 +61,29 @@ reads q, k and v. Both GEMMs ring over C, so neither launch grows with it.
 
 Head widths. The short and streamed kernels are built for heads 32 and 64
 channels wide (`KERNEL_HEAD_DIMS`); heads wider than 64 run in blocks of 64
-channels (`BLOCK`). Every other width is padded with zero channels, up to
-64 to the next of the two kernel widths and past 64 to the next multiple
-of 64 (`padded_head_dim`), by one function on both devices (`pad_heads`;
-kernel A also pads x's channels and the qkv weight's rows and columns,
-`pad_qkv_projection`) and runs with the true `hd ** -0.5` as its scale; the
-padded output channels are cut away (`cut_heads`). Zero channels add exact
-zeros to every score and give zero output channels, so this changes no
-value. A head wider than 64, which no yolov12 module builds (A2C2f makes
-max(1, c_ // 32) heads), takes the blocked path at any N (`blocked_plan`):
-kernel C's blocked form, a CTA a (head, 64-channel output block, query
-tile) whose scores sum over the head's blocks, its shared memory the same
-at every width; kernel A runs its wide form's projection, then that
-attention. Each output block recomputes the head's softmax, so the score
-work is hdp / 64 times the head's.
+channels (`BLOCK`). Every other width is held as the next of the two up to
+64 and past 64 as the next multiple of 64 (`padded_head_dim`), with zero
+channels after the head's, and runs with the true `hd ** -0.5` as its
+scale. Zero channels add exact zeros to every score and give zero output
+channels, so this changes no value. Kernel C pads inside the kernel
+wherever a head's row is a multiple of 16 bytes (`in_kernel_pad`: bf16
+widths of a multiple of 8, f32 of 4, such as 16, 48, 96 or 120): its maps
+view q, k and v as (G, N, heads, hd), a box as wide as the kernel's head
+(or 64-channel block) reads zeros past the head's hd channels, and o's
+stores stop at them, so a call is one device kernel and no copy (path
+counts "short bf16 padded", ...). Other widths (bf16 heads of 12, say) and
+every width in kernel A are padded by one function on both devices
+(`pad_heads`; kernel A also pads x's channels and the qkv weight's rows and
+columns, `pad_qkv_projection`), and the padded output channels are cut
+away (`cut_heads`). On the CPU the plain versions run at the true width. A
+head wider than 64, which no yolov12 module builds (A2C2f makes max(1, c_
+// 32) heads), takes the blocked path at any N (`blocked_plan`): kernel C's
+blocked form (bf16: a CTA a (head, 64-channel output block, query tile)
+whose scores sum over the head's blocks, recomputed by each output block;
+f32: a thread-block cluster a (head, query tile), a CTA a 64-channel block,
+the partial scores summed over the cluster's distributed shared memory, so
+the head's scores are computed once, `cluster_shape`); kernel A runs its
+wide form's projection, then that attention.
 """
 
 from __future__ import annotations
@@ -120,13 +129,50 @@ _KV_F32_SMEM = 1024 + 4 * 4 * (64 * 32 + 32 * 64) + 8 * 2 * 4
 # a stage: bf16 three units of a 64-row q block and a 128-key k block and
 # two 128-key v blocks; f32 two units of a 64-key k block and a 32-row q
 # block, two 64-key v blocks and the probabilities of 32 rows
-_BLOCKED_SMEM = {
-    torch.bfloat16: 1024 + 2 * (3 * (64 + 128) * 64 + 2 * 128 * 64)
-    + 8 * 2 * (3 + 2),
-    torch.float32: 1024 + 4 * (2 * (64 + 32) * 64 + 2 * 64 * 64 + 32 * _LDP)
-    + 8 * 2 * (2 + 2)}
 _BLOCKED_ROWS = {torch.bfloat16: 64, torch.float32: 32}
+# the f32 cluster form: CTAs of a cluster at most (16, past the portable 8),
+# the stages of its rings of 64-key k and v blocks
+_CLUSTER_MAX = 16
+_K_STAGES = 2
+_CV_STAGES = 2
 _SMS = 132    # streaming multiprocessors of an H100 SXM
+
+
+def cluster_shape(hdp: int) -> tuple:
+    """(cs, groups) of the f32 blocked form at heads of hdp channels (a
+    multiple of `BLOCK`): `groups` clusters of cs CTAs a (head, query tile),
+    a CTA a 64-channel block; one cluster up to `_CLUSTER_MAX` blocks (hdp
+    <= 1024), past it as few as hold the blocks, as even as can be
+    (band_attention.cu::cluster_size, cluster_groups)."""
+    nbk = hdp // BLOCK
+    groups = -(-nbk // _CLUSTER_MAX)
+    return -(-nbk // groups), groups
+
+
+def blocked_smem_bytes(hdp: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of kernel C's blocked form at heads of hdp
+    channels (band_attention.cu::blocked_smem), with 1024 bytes of slack
+    for the tiles' alignment and 8 a barrier. bf16, the same at every width:
+    three units of a 64-row q block and a 128-key k block and two 128-key
+    v blocks, a full and an empty barrier a stage. f32 (the cluster form):
+    the resident 32-row q blocks of its `groups` (one up to 1024 channels),
+    the rings of 64-key k and v blocks, two buffers of a 64-key tile's
+    partial scores and the probabilities of 32 rows; a full and an empty
+    barrier a stage and q's."""
+    if dtype == torch.bfloat16:
+        return (1024 + 2 * (3 * (64 + 128) * BLOCK + 2 * 128 * BLOCK)
+                + 8 * 2 * (3 + 2))
+    rows, keys = _BLOCKED_ROWS[torch.float32], _STREAM_KEYS[torch.float32]
+    groups = cluster_shape(hdp)[1]
+    stages = _K_STAGES + _CV_STAGES
+    return (1024 + 4 * (groups * rows * BLOCK + stages * keys * BLOCK
+                        + 2 * rows * keys + rows * _LDP)
+            + 8 * (2 * stages + 1))
+
+
+# at heads up to 1024 channels (one cluster in f32), the same at every width
+_BLOCKED_SMEM = {dt: blocked_smem_bytes(2 * BLOCK, dt)
+                 for dt in (torch.bfloat16, torch.float32)}
 
 
 def area_attention_qkv_fused_plain(x: torch.Tensor, w: torch.Tensor,
@@ -340,7 +386,7 @@ def attention_plan(g: int, n: int, c: int, dtype: torch.dtype,
     (`blocked_plan`); else the short path at 64 tokens or fewer
     (`short_plan`), else the streamed path (`streamed_plan`)."""
     if hd > BLOCK:
-        return blocked_plan(c, dtype, projection)
+        return blocked_plan(c, dtype, projection, hd)
     if n <= _SHORT_ROWS:
         return short_plan(g, n, c, dtype, hd, projection)
     return streamed_plan(g, n, c, dtype, projection, hd)
@@ -377,12 +423,13 @@ def _projection_smem(c: int, dtype: torch.dtype) -> int:
     return kv_projection_smem(c) if dtype == torch.bfloat16 else _KV_F32_SMEM
 
 
-def blocked_plan(c: int, dtype: torch.dtype,
-                 projection: bool = True) -> AttentionPlan:
-    """The blocked path of heads wider than 64 at width C, any N: kernel C's
-    blocked form, one launch (`_BLOCKED_SMEM`, `_BLOCKED_ROWS` query rows a
-    CTA); kernel A two, its wide form's projection of q, k and v first."""
-    smem = _BLOCKED_SMEM[dtype]
+def blocked_plan(c: int, dtype: torch.dtype, projection: bool,
+                 hd: int) -> AttentionPlan:
+    """The blocked path of heads of hd channels (a multiple of 64 past 64)
+    at width C, any N: kernel C's blocked form, one launch
+    (`blocked_smem_bytes`, `_BLOCKED_ROWS` query rows a CTA); kernel A two,
+    its wide form's projection of q, k and v first."""
+    smem = blocked_smem_bytes(hd, dtype)
     if projection:
         smem = max(smem, _projection_smem(c, dtype))
     return AttentionPlan("blocked", smem, 2 if projection else 1,
@@ -404,7 +451,7 @@ def _stream_plan(g, n, c, dtype, projection, hd=HEAD_DIM, path="streamed"):
     if path == "wide":
         return wide_plan(g, n, c, dtype, hd)
     if path == "blocked":
-        return blocked_plan(c, dtype, projection)
+        return blocked_plan(c, dtype, projection, hd)
     plan = streamed_plan(g, n, c, dtype, projection, hd)
     if plan.path != path:
         raise ValueError(f"the streamed kernel needs more shared memory at "
@@ -433,10 +480,23 @@ def _check(x, w, b, heads):
     return g, n, c
 
 
+def in_kernel_pad(hd: int, dtype: torch.dtype) -> bool:
+    """Whether kernel C runs heads of hd channels padded inside the kernel
+    (one launch, no copy): a width no kernel is built for (not in
+    `KERNEL_HEAD_DIMS`, no multiple of `BLOCK`) whose row TMA can address,
+    a multiple of 16 bytes: bf16 hd % 8 == 0, f32 hd % 4 == 0
+    (hopper.cuh::pads_in_kernel). The others are padded by copies
+    (`pad_heads`)."""
+    elt = 2 if dtype == torch.bfloat16 else 4
+    return (hd > 0 and hd not in KERNEL_HEAD_DIMS and hd % BLOCK != 0
+            and hd * elt % 16 == 0)
+
+
 def _kernel_head_dim(c, heads):
     """The head width of C channels in `heads`, refused on the card unless
-    the kernels take it (`KERNEL_HEAD_DIMS`, or a multiple of `BLOCK`: the
-    wrappers pad every other width to one)."""
+    a kernel is built for it (`KERNEL_HEAD_DIMS`, or a multiple of `BLOCK`;
+    kernel C's launch takes the widths `in_kernel_pad` admits before this,
+    and the wrappers pad the others)."""
     hd = c // heads
     if hd not in KERNEL_HEAD_DIMS and hd % BLOCK:
         raise ValueError(f"the CUDA kernels take head_dim "
@@ -460,9 +520,11 @@ def _check_path(path, n, projection=True, hd=HEAD_DIM):
                          f"tokens or fewer, got {n}")
 
 
-def _count_path(wrapper, path, dtype):
-    """One launch of `wrapper`'s kernel on `path`, by path and type."""
+def _count_path(wrapper, path, dtype, padded=False):
+    """One launch of `wrapper`'s kernel on `path`, by path and type, and
+    " padded" where the kernel padded the heads itself (`in_kernel_pad`)."""
     key = f"{path} {'f32' if dtype == torch.float32 else 'bf16'}"
+    key += " padded" if padded else ""
     wrapper.path_launches[key] = wrapper.path_launches.get(key, 0) + 1
 
 
@@ -647,30 +709,40 @@ def _check_qkv(q, k, v, heads):
 def _launch_band_attention(q, k, v, heads, path=None, rows=None,
                            scale=None):
     """Launch kernel C on contiguous CUDA tensors whose heads are a kernel
-    width (32, 64 or a multiple of 64) on the path `attention_plan` gives
-    (`path`, one of `PATHS`, forces one, for comparisons; `rows` the
-    streamed CTA's query rows or the short path's tile rows in place of the
-    planned ones); `scale` the softmax's (default hd ** -0.5); returns o."""
+    width (32, 64 or a multiple of 64), or a width the kernel pads itself
+    (`in_kernel_pad`: planned and run as the kernel width holding it), on
+    the path `attention_plan` gives (`path`, one of `PATHS`, forces one, for
+    comparisons; `rows` the streamed CTA's query rows or the short path's
+    tile rows in place of the planned ones); `scale` the softmax's (default
+    hd ** -0.5); returns o."""
     g, n, c = q.shape
-    hd = _kernel_head_dim(c, heads)
+    hd = c // heads
+    padded = in_kernel_pad(hd, q.dtype)
+    hdk = padded_head_dim(hd) if padded else _kernel_head_dim(c, heads)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
     if path is None:
-        path = attention_plan(g, n, c, q.dtype, projection=False,
-                              hd=hd).path
-    _check_path(path, n, projection=False, hd=hd)
+        path = attention_plan(g, n, heads * hdk, q.dtype, projection=False,
+                              hd=hdk).path
+    _check_path(path, n, projection=False, hd=hdk)
     lib = build.load()
     _check_aligned(q, k, v)
     o = torch.empty_like(q)
     if path in ("streamed", "blocked"):   # one C entry, by head width
-        entry = lib.yolou_band_attention_stream
-        rows = rows or _stream_plan(g, n, c, q.dtype, False, hd, path).rows
+        entry = (lib.yolou_band_attention_stream_padded if padded
+                 else lib.yolou_band_attention_stream)
+        rows = rows or _stream_plan(g, n, heads * hdk, q.dtype, False, hdk,
+                                    path).rows
     else:
-        entry = lib.yolou_band_attention_short
-        rows = rows or short_rows(g, n, c, q.dtype, hd, projection=False)
+        entry = (lib.yolou_band_attention_short_padded if padded
+                 else lib.yolou_band_attention_short)
+        rows = rows or short_rows(g, n, heads * hdk, q.dtype, hdk,
+                                  projection=False)
+    # the padded entries take (heads, hd), the others (C, heads)
+    shape = (g, n, heads, hd) if padded else (g, n, c, heads)
     with torch.cuda.device(q.device):
         code = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                     g, n, c, heads, _DTYPE_CODE[q.dtype], rows,
+                     *shape, _DTYPE_CODE[q.dtype], rows,
                      hd ** -0.5 if scale is None else scale,
                      torch.cuda.current_stream().cuda_stream)
     build.check(lib, code, "band attention (training) kernel")
@@ -679,25 +751,29 @@ def _launch_band_attention(q, k, v, heads, path=None, rows=None,
 
 def _band_attention(q, k, v, heads, wrapper):
     """Kernel C on a CUDA tensor (counted on `wrapper`, the public function
-    called), the plain version on a CPU tensor; heads whose width is no
-    kernel width are padded (`pad_heads`, `padded_head_dim`) and cut back,
-    on both devices, with the true scale."""
+    called), the plain version at the true width on a CPU tensor. On the
+    card heads whose width is no kernel width are held as `padded_head_dim`
+    with the true scale: inside the kernel where `in_kernel_pad` admits
+    them, else by copies (`pad_heads`, then `cut_heads`)."""
     if q.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"no kernel for device {q.device}")
-    hd = q.shape[-1] // heads
-    hdp = padded_head_dim(hd)
-    if hdp != hd:
-        q, k, v = (pad_heads(t, heads, hdp) for t in (q, k, v))
     if q.device.type == "cpu":
-        o = area_attention_fused_plain(q, k, v, heads, hd ** -0.5)
-    else:
-        g, n, c = q.shape
-        path = attention_plan(g, n, c, q.dtype, projection=False,
-                              hd=c // heads).path
+        return area_attention_fused_plain(q, k, v, heads)
+    g, n, c = q.shape
+    hd = c // heads
+    hdp = padded_head_dim(hd)
+    padded = in_kernel_pad(hd, q.dtype)
+    path = attention_plan(g, n, heads * hdp, q.dtype, projection=False,
+                          hd=hdp).path
+    if hdp == hd or padded:
         o = _launch_band_attention(q, k, v, heads, path, scale=hd ** -0.5)
-        wrapper.launches += 1
-        _count_path(wrapper, path, q.dtype)
-    return o if hdp == hd else cut_heads(o, heads, hd)
+    else:
+        o = cut_heads(_launch_band_attention(
+            *(pad_heads(t, heads, hdp) for t in (q, k, v)), heads, path,
+            scale=hd ** -0.5), heads, hd)
+    wrapper.launches += 1
+    _count_path(wrapper, path, q.dtype, padded)
+    return o
 
 
 def attention_backward(q, k, v, do, heads: int):

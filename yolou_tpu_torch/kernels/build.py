@@ -83,6 +83,9 @@ def bind(lib: ctypes.CDLL, missing_ok: bool = False) -> ctypes.CDLL:
         "yolou_band_attention_qkv_short": [vp] * 5 + [ci] * 6 + [cf, vp],
         "yolou_band_attention_stream": [vp] * 4 + [ci] * 6 + [cf, vp],
         "yolou_band_attention_short": [vp] * 4 + [ci] * 6 + [cf, vp],
+        "yolou_band_attention_stream_padded": [vp] * 4 + [ci] * 6 + [cf, vp],
+        "yolou_band_attention_short_padded": [vp] * 4 + [ci] * 6 + [cf, vp],
+        "yolou_tma_head_box": [vp, vp] + [ci] * 9 + [vp],
         "yolou_greedy_nms": [vp, vp, vp, ci, ci, cf, vp],
         "yolou_a2c2f": [vp, ctypes.POINTER(vp), ci, vp, vp, vp, *[ci] * 11,
                         vp, vp, ci, cf, ci, vp],

@@ -19,9 +19,11 @@ at 1024^2 and 1280^2, bf16 at the bands it serves and the long ones); then
 kernels A and C on their tree's planned path at the 160^2 bands (the
 "planned" cases, kernel C at the fine-tune's batch 16 and a 2 x 2 mesh's
 data shard of 8: the short path where the library has kernel C's, else
-the paths before it, bf16 resident by its C entry and f32 streamed).
-`--tiles` adds each whole-A2C2f case at each given token tile (the sweep
-behind `kernels/a2c2f.py::f32_tile`'s rule, which both types use). The
+the paths before it, bf16 resident by its C entry and f32 streamed), and
+kernel C's blocked form at two heads of 128, 256 and 512 over bands of
+400, batch 8 (the "blocked" cases, f32 and at 128 bf16). `--tiles` adds
+each whole-A2C2f case at each given token tile (the sweep behind
+`kernels/a2c2f.py::f32_tile`'s rule, which both types use). The
 bf16 strip case's plain version is timed too ("a2c2f L6 strip plain", the
 same plain tensor code beside every tree's kernel).
 A `csrc` from before the whole-A2C2f kernel took its MLP width (whose C
@@ -119,7 +121,13 @@ PLANNED_CASES = [
         ("C", "L6@160b16", (64, 25, 64), 2),
         ("C", "L8@160b16", (16, 25, 128), 4),
         ("C", "L6@160b8", (32, 25, 64), 2),
-        ("C", "L8@160b8", (8, 25, 128), 4))]
+        ("C", "L8@160b8", (8, 25, 128), 4))] + [
+    # kernel C's blocked form (heads wider than 64) at two heads of 128,
+    # 256 and 512 on bands of 400 tokens, batch 8
+    (f"C blocked {dt} hd{c // 2}", "C", (8, 400, c), 2, dtype)
+    for dt, dtype, widths in (("f32", torch.float32, (256, 512, 1024)),
+                              ("bf16", torch.bfloat16, (256,)))
+    for c in widths]
 # name, (B, H, W, cin), c2, stages, area, heads, MLP width (None: 2 c_;
 # bf16 a multiple of 16, as the fold pads it), dtype: yolov12n's layers 6
 # and 8 at 640^2 (mlp_ratio 2 and 1.2), A2C2f(96, 96) (one head of 48,
